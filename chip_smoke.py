@@ -1,0 +1,545 @@
+"""Drive the PyTorch/CUDA port (``opensearch_tpu_torch``) on one NVIDIA
+GPU and check it: the quickest proof that the port starts on the card.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit) on any error:
+
+1. toolkit: torch / CUDA / nvcc versions, the device, its power limit;
+   the hand-written kernels are built from ``opensearch_tpu_torch/csrc``
+   (one ``nvcc`` per source, all started together);
+2. kernels vs their plain PyTorch twins on the card, timed:
+   K1 ``knn_scores`` (all three spaces; 1M x 128, the main path's
+   per-segment shape, and a ragged n) within the stated tolerance,
+   K2 the term-bag scorer on three real query bags, byte for byte;
+3. ingest path: ~2,000 JSON docs through the port's DocumentMapper and
+   SegmentWriter into 2 segments with deletes, then match / bool / knn
+   (three spaces, and filtered) through ``ShardSearcher.search`` on the
+   card, hits held to the same searcher on the CPU (the plain
+   versions): BM25 byte for byte, k-NN within tolerance;
+4. scale: 1,000,000 docs in 16 segments (62,500 docs each, under the
+   reference's quantization threshold) with ~22M postings and a 128-d
+   float32 vector per doc; 200 zipf ``match`` and 100 ``knn`` queries
+   through ``ShardSearcher.search`` (qps, p50), a sample checked
+   against the CPU searcher.
+
+Every kernel wrapper counts its launches; the counts are zeroed just
+before phase 3 and read after phase 4, and each kernel must have run.
+The line before the last is one JSON object with each kernel's numbers;
+the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the
+script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+SCALE_DOCS = 1_000_000
+SCALE_SEGMENTS = 16
+DIM = 128
+DEVICE = "cuda"
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def gpu_name_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per ``fn()`` on the card: CUDA events around
+    ``reps`` calls after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def in_turns(kernel, plain, reps: int) -> tuple:
+    """(kernel ms, plain ms), timed plain, kernel, kernel, plain in one
+    call; each is the lower of its two readings."""
+    p1 = cuda_ms(plain, reps)
+    k1 = cuda_ms(kernel, reps)
+    k2 = cuda_ms(kernel, reps)
+    p2 = cuda_ms(plain, reps)
+    return min(k1, k2), min(p1, p2)
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -- phase 1 ----------------------------------------------------------------
+
+def phase_toolkit():
+    import torch
+
+    from opensearch_tpu_torch.ops import cuda_build
+
+    nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"],
+                          capture_output=True, text=True, check=True)
+    log(f"toolkit: python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} nvcc "
+        f"[{nvcc.stdout.strip().splitlines()[-1]}]")
+    log(f"device: {torch.cuda.get_device_name(0)} "
+        f"count={torch.cuda.device_count()}")
+    log(f"gpu: {gpu_name_power()}")
+    t0 = time.monotonic()
+    logs = cuda_build.build(["knn", "bm25"])
+    log(f"kernels built in {time.monotonic() - t0:.1f}s: "
+        f"{sorted(logs) or 'cached'}")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+
+# -- phase 2 ----------------------------------------------------------------
+
+def phase_kernels(scale_segs, searcher, query_pairs):
+    """K1 and K2 against their plain twins on the card, and timed at the
+    shapes the main path gives them."""
+    import torch
+
+    from opensearch_tpu_torch.ops import bm25, cuda_knn, knn
+
+    dev = torch.device(DEVICE)
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    k1_err = 0.0
+    for n in (1_000_000, 65_536, 1000):
+        v = torch.randn(n, DIM, device=dev, generator=gen)
+        valid = torch.rand(n, device=dev, generator=gen) > 0.05
+        q = torch.randn(DIM, device=dev, generator=gen)
+        for space in knn.SPACES:
+            a = cuda_knn.knn_scores_cuda(v, valid, q, space=space)
+            b = cuda_knn.knn_scores_plain(v, valid, q, space=space)
+            torch.cuda.synchronize()
+            if not torch.equal(torch.isneginf(a), ~valid) or \
+                    not torch.equal(torch.isneginf(b), ~valid):
+                raise AssertionError(f"K1 {space} n={n}: -inf rows differ")
+            ok = valid
+            err = (a[ok] - b[ok]).abs()
+            tol = knn.ATOL + knn.RTOL * b[ok].abs()
+            if not bool((err <= tol).all()):
+                raise AssertionError(
+                    f"K1 {space} n={n}: max err {err.max().item()} "
+                    "beyond rtol=1e-5, atol=1e-6")
+            k1_err = max(k1_err, err.max().item())
+            log(f"K1 {space:12s} n={n:8d} d={DIM}: max_abs_err "
+                f"{err.max().item():.3e} (rtol=1e-5, atol=1e-6) ok")
+        if n == 1_000_000:
+            ms, plain_ms = in_turns(
+                lambda: cuda_knn.knn_scores_cuda(v, valid, q, space="l2"),
+                lambda: cuda_knn.knn_scores_plain(v, valid, q, space="l2"),
+                20)
+            lib_ms = cuda_ms(lambda: v @ q, 20)
+            bms, by = bound_ms(n * DIM * 4 + n + DIM * 4 + n * 4,
+                               4.0 * n * DIM)
+            log(f"K1 l2 1Mx128: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                f"library_ms(vectors @ q) {lib_ms:.4f} bound_ms {bms:.4f} "
+                f"({by}) on {gpu_name_power()}")
+            out["k1_1m"] = {"ms": ms, "plain_ms": plain_ms,
+                            "library_ms": lib_ms, "bound_ms": bms}
+        del v, valid, q
+
+    # K1 at the main path's shape: every scale segment's [n_pad, 128]
+    # vectors in turn (32 MiB each, so L2 does not hold them across the
+    # sixteen), against one query
+    cols = []
+    for seg in scale_segs:
+        dseg = seg.device(dev)
+        vcol = dseg.vector["vec"]
+        cols.append((vcol["values"], vcol["exists"] & dseg.live))
+    q = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        DIM, dtype=np.float32)).to(dev)
+    nseg = len(cols)
+    ms, plain_ms = in_turns(
+        lambda: [cuda_knn.knn_scores_cuda(v, m, q, space="l2")
+                 for v, m in cols],
+        lambda: [cuda_knn.knn_scores_plain(v, m, q, space="l2")
+                 for v, m in cols], 10)
+    lib_ms = cuda_ms(lambda: [v @ q for v, _m in cols], 10)
+    n_pad = cols[0][0].shape[0]
+    bms, by = bound_ms(n_pad * DIM * 4 + n_pad + DIM * 4 + n_pad * 4,
+                       4.0 * n_pad * DIM)
+    out["knn_scores"] = {
+        "ms": ms / nseg, "plain_ms": plain_ms / nseg,
+        "library_ms": lib_ms / nseg, "bound_ms": bms, "bound_by": by,
+        "max_abs_err": k1_err, "shape": f"{n_pad}x{DIM}"}
+    log(f"K1 l2 {n_pad}x{DIM} per segment: ms {ms / nseg:.4f} plain_ms "
+        f"{plain_ms / nseg:.4f} library_ms {lib_ms / nseg:.4f} bound_ms "
+        f"{bms:.4f} ({by})")
+
+    # K2 on real query bags of the scale corpus: byte for byte against
+    # the plain twin, in both modes (scores only; scores + counts)
+    seg0 = scale_segs[0]
+    d0 = seg0.device(dev)
+    pf0 = seg0.postings["body"]
+    bags = []
+    for a, b in query_pairs:
+        bags.append([f"t{a}", f"t{b}"] if a != b else [f"t{a}"])
+
+    def bag_inputs(seg, terms):
+        plan, bind = searcher.compiled(
+            {"match": {"body": {"query": " ".join(terms)}}})
+        dseg = seg.device(dev)
+        dims, ins = plan.prepare(bind, seg, dseg, searcher.ctx)
+        return plan, bind, dseg, dims, ins
+
+    def df_sum(pf, terms):
+        return sum(int(pf.df[pf.term_id(t)]) for t in terms
+                   if pf.term_id(t) >= 0)
+
+    by_size = sorted(bags, key=lambda t: df_sum(pf0, t))
+    median_bag = by_size[len(by_size) // 2]
+    checks = [median_bag, by_size[-1],
+              by_size[len(by_size) // 4] + by_size[-2]]   # a 4-term bag
+    for terms in checks:
+        _plan, _bind, dseg, dims, ins = bag_inputs(seg0, terms)
+        t_pad, budget, _fast = dims
+        tids, active, idfs, weights, impacts, _req = ins
+        p = dseg.postings["body"]
+        args = (p["offsets"], p["doc_ids"], impacts, tids, active, idfs,
+                weights)
+        s1, c1 = bm25.impact_score_count(*args, n_pad=dseg.n_pad,
+                                         budget=budget, scored=True)
+        s2, c2 = bm25.impact_score_count_plain(*args, n_pad=dseg.n_pad,
+                                               budget=budget, scored=True)
+        s3 = bm25.impact_scores(*args, n_pad=dseg.n_pad, budget=budget)
+        s4 = bm25.impact_scores_plain(*args, n_pad=dseg.n_pad,
+                                      budget=budget)
+        torch.cuda.synchronize()
+        if not (torch.equal(s1, s2) and torch.equal(c1, c2)
+                and torch.equal(s3, s4) and torch.equal(s1, s3)):
+            raise AssertionError(f"K2 differs from its plain twin on {terms}")
+        log(f"K2 bag {terms} ({df_sum(pf0, terms)} postings): scores and "
+            f"counts byte-equal to the plain twin")
+
+    # K2 timed on the median bag, in every segment in turn (the main
+    # path's calls: OR bag, scores only)
+    calls = []
+    nbytes = 0
+    for seg in scale_segs:
+        plan, bind, dseg, dims, ins = bag_inputs(seg, median_bag)
+        t_pad, budget, _fast = dims
+        tids, active, idfs, weights, impacts, _req = ins
+        p = dseg.postings["body"]
+        pf = seg.postings["body"]
+        rows = []
+        for i, t in enumerate(median_bag):
+            tid = pf.term_id(t)
+            if tid >= 0:
+                rows.append((int(pf.offsets[tid]), int(pf.offsets[tid + 1]),
+                             float(bind["idfs"][i]),
+                             float(bind["weights"][i])))
+        nbytes += sum(8 * (e - s) for s, e, _i, _w in rows) + 4 * dseg.n_pad
+        calls.append(((p["offsets"], p["doc_ids"], impacts, tids, active,
+                       idfs, weights), dseg.n_pad, budget, rows))
+
+    def lib_chain():
+        for (_o, docs, imp, *_r), n_pad, _b, rows in calls:
+            acc = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+            for s, e, idf_v, w in rows:
+                acc.index_add_(0, docs[s:e], imp[s:e] * idf_v, alpha=w)
+
+    ms, plain_ms = in_turns(
+        lambda: [bm25.impact_scores(*a, n_pad=n, budget=b)
+                 for a, n, b, _r in calls],
+        lambda: [bm25.impact_scores_plain(*a, n_pad=n, budget=b)
+                 for a, n, b, _r in calls], 20)
+    lib_ms = cuda_ms(lib_chain, 20)
+    nseg = len(calls)
+    bms, by = bound_ms(nbytes / nseg, 3.0 * (nbytes / nseg) / 8)
+    out["term_bag"] = {
+        "ms": ms / nseg, "plain_ms": plain_ms / nseg,
+        "library_ms": lib_ms / nseg, "bound_ms": bms, "bound_by": by,
+        "max_abs_err": 0.0, "bag": median_bag}
+    log(f"K2 median bag {median_bag} per segment: ms {ms / nseg:.4f} "
+        f"plain_ms {plain_ms / nseg:.4f} library_ms(index_add_ chain) "
+        f"{lib_ms / nseg:.4f} bound_ms {bms:.5f} ({by})")
+    return out
+
+
+# -- phase 3 ----------------------------------------------------------------
+
+INGEST_MAPPING = {"properties": {
+    "body": {"type": "text"},
+    "tag": {"type": "keyword"},
+    "vec": {"type": "knn_vector", "dimension": DIM, "space_type": "l2"},
+    "vec_cos": {"type": "knn_vector", "dimension": DIM,
+                "space_type": "cosinesimil"},
+    "vec_ip": {"type": "knn_vector", "dimension": DIM,
+               "space_type": "innerproduct"},
+}}
+
+
+def ingest_docs(n: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    tags = ["red", "green", "blue", "gold", "grey"]
+    docs = []
+    for i in range(n):
+        words = (rng.zipf(1.3, size=int(rng.integers(5, 40))) - 1) % 2000
+        vec = rng.standard_normal(DIM).astype(np.float32).tolist()
+        docs.append({"body": " ".join(f"w{w}" for w in words),
+                     "tag": tags[i % len(tags)],
+                     "vec": vec, "vec_cos": vec, "vec_ip": vec})
+    return docs
+
+
+def ingest_queries(seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    qv = [rng.standard_normal(DIM).astype(np.float32).tolist()
+          for _ in range(4)]
+    bm25_q = [
+        {"match": {"body": "w0 w3 w17"}},
+        {"match": {"body": {"query": "w1 w2", "operator": "and"}}},
+        {"match": {"body": {"query": "w0 w5 w9 w11",
+                            "minimum_should_match": 2}}},
+        {"bool": {"must": [{"match": {"body": "w2 w4"}}],
+                  "filter": [{"term": {"tag": "blue"}}]}},
+        {"constant_score": {"filter": {"term": {"tag": "gold"}},
+                            "boost": 1.5}},
+    ]
+    knn_q = [
+        {"knn": {"vec": {"vector": qv[0], "k": 10}}},
+        {"knn": {"vec_cos": {"vector": qv[1], "k": 10}}},
+        {"knn": {"vec_ip": {"vector": qv[2], "k": 10}}},
+        {"knn": {"vec": {"vector": qv[3], "k": 10,
+                         "filter": {"term": {"tag": "red"}}}}},
+    ]
+    return ([{"query": q, "size": 20} for q in bm25_q]
+            + [{"query": {"match": {"body": "w1 w6"}}, "size": 20,
+                "min_score": 0.8},
+               {"query": {"match": {"body": "w0 w1"}}, "size": 5,
+                "track_total_hits": False}],
+            [{"query": q, "size": 10, "_source": False} for q in knn_q])
+
+
+def phase_ingest():
+    from opensearch_tpu_torch.index.segment import SegmentWriter
+    from opensearch_tpu_torch.mapping.mapper import DocumentMapper
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing.parity import (bm25_mismatch,
+                                                     knn_mismatch)
+
+    mapper = DocumentMapper(INGEST_MAPPING)
+    docs = ingest_docs(2000, seed=11)
+    parsed = [mapper.parse(str(i), d) for i, d in enumerate(docs)]
+    writer = SegmentWriter()
+    segs = [writer.build(parsed[:1100], "ingest_0"),
+            writer.build(parsed[1100:], "ingest_1")]
+    segs[0].apply_deletes([3, 10, 500, 1099])
+    segs[1].apply_deletes([0, 7, 899])
+    gpu = ShardSearcher(segs, mapper, device=DEVICE)
+    cpu = ShardSearcher(segs, mapper, device="cpu")
+    bm25_bodies, knn_bodies = ingest_queries(seed=12)
+    for body in bm25_bodies:
+        a, b = gpu.search(body), cpu.search(body)
+        bad = bm25_mismatch(a, b)
+        if bad:
+            raise AssertionError(f"ingest {body['query']}: {bad}")
+        if not a["hits"]["hits"]:
+            raise AssertionError(f"ingest {body['query']}: no hits")
+        log(f"ingest bm25 ok: {json.dumps(body)[:80]} "
+            f"total={a['hits']['total']['value']}")
+    for body in knn_bodies:
+        a, b = gpu.search(body), cpu.search(body)
+        bad = knn_mismatch(a, b)
+        if bad:
+            raise AssertionError(f"ingest knn: {bad}")
+        if len(a["hits"]["hits"]) != 10:
+            raise AssertionError("ingest knn: expected 10 hits")
+        field = next(iter(body["query"]["knn"]))
+        log(f"ingest knn ok: field={field} filtered="
+            f"{'filter' in body['query']['knn'][field]}")
+
+
+# -- phase 4 ----------------------------------------------------------------
+
+def build_scale():
+    import torch
+
+    from opensearch_tpu_torch.mapping.mapper import DocumentMapper
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing import corpus
+
+    t0 = time.monotonic()
+    raw = corpus.build_raw_corpus(SCALE_DOCS, seed=42)
+    vecs = corpus.random_vectors(SCALE_DOCS, DIM, seed=43)
+    segs = corpus.make_segments(raw, SCALE_SEGMENTS, vectors=vecs)
+    mapper = DocumentMapper({"properties": {
+        "body": {"type": "text"},
+        "vec": {"type": "knn_vector", "dimension": DIM,
+                "space_type": "l2"}}})
+    searcher = ShardSearcher(segs, mapper, index_name="scale",
+                             device=DEVICE)
+    # stage every segment and its impact column before any timing
+    avgdl = searcher.ctx.field_stats("body").avgdl
+    for seg in segs:
+        seg.device(searcher.device).impacts("body", avgdl)
+    torch.cuda.synchronize()
+    log(f"scale corpus: {SCALE_DOCS} docs, {len(segs)} segments of "
+        f"{segs[0].n_docs} docs, {len(raw['doc_ids'])} postings, "
+        f"{DIM}-d f32 vectors; built and staged in "
+        f"{time.monotonic() - t0:.1f}s")
+    log(f"scale resident bytes on device: {searcher.resident_bytes()}")
+    return segs, mapper, searcher
+
+
+def timed(searcher, bodies) -> tuple:
+    """(qps, p50 ms) of ``bodies`` searched one after another; every hit
+    list must be at most ``size`` long with finite scores, and most
+    queries must find something (a zipf tail pair may match nothing)."""
+    lat = []
+    answered = 0
+    t0 = time.monotonic()
+    for body in bodies:
+        t = time.monotonic()
+        resp = searcher.search(body)
+        lat.append((time.monotonic() - t) * 1e3)
+        hits = resp["hits"]["hits"]
+        if len(hits) > body["size"] or \
+                not all(np.isfinite(h["_score"]) for h in hits):
+            raise AssertionError(f"bad hits for {json.dumps(body)[:80]}")
+        answered += bool(hits)
+    wall = time.monotonic() - t0
+    if answered < 0.9 * len(bodies):
+        raise AssertionError(f"only {answered} of {len(bodies)} queries "
+                             "found hits")
+    return len(bodies) / wall, float(np.median(lat))
+
+
+def phase_scale(segs, mapper, searcher):
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing import corpus
+    from opensearch_tpu_torch.testing.parity import (bm25_mismatch,
+                                                     knn_mismatch)
+
+    rng = np.random.default_rng(44)
+
+    def match_bodies(n, seed):
+        return [{"query": {"match": {"body": f"t{a} t{b}"}}, "size": 10,
+                 "_source": False}
+                for a, b in corpus.zipf_query_log(n, seed=seed)]
+
+    def knn_bodies(n):
+        return [{"query": {"knn": {"vec": {
+            "vector": rng.standard_normal(DIM).astype(np.float32).tolist(),
+            "k": 10}}}, "size": 10, "_source": False} for _ in range(n)]
+
+    timed(searcher, match_bodies(20, seed=8))          # warm-up
+    timed(searcher, knn_bodies(5))
+    match_qs, knn_qs = match_bodies(200, seed=7), knn_bodies(100)
+    from opensearch_tpu_torch.ops import cuda_bm25, cuda_knn
+    k1_0, k2_0 = cuda_knn.knn_scores_cuda.launches, cuda_bm25.term_bag_cuda.launches
+    m_qps, m_p50 = timed(searcher, match_qs)
+    k1_1, k2_1 = cuda_knn.knn_scores_cuda.launches, cuda_bm25.term_bag_cuda.launches
+    k_qps, k_p50 = timed(searcher, knn_qs)
+    k1_2, k2_2 = cuda_knn.knn_scores_cuda.launches, cuda_bm25.term_bag_cuda.launches
+    per_query = {"match_k1": (k1_1 - k1_0) / len(match_qs),
+                 "match_k2": (k2_1 - k2_0) / len(match_qs),
+                 "knn_k1": (k1_2 - k1_1) / len(knn_qs),
+                 "knn_k2": (k2_2 - k2_1) / len(knn_qs)}
+    gpu = gpu_name_power()
+    log(f"scale match: {len(match_qs)} queries, qps {m_qps:.2f}, p50 "
+        f"{m_p50:.3f} ms on {gpu}")
+    log(f"scale knn: {len(knn_qs)} queries (k=10), qps {k_qps:.2f}, p50 "
+        f"{k_p50:.3f} ms on {gpu}")
+    # a sample against the same segments on the CPU (plain versions)
+    cpu = ShardSearcher(segs, mapper, index_name="scale", device="cpu")
+    for body in match_qs[:5]:
+        bad = bm25_mismatch(searcher.search(body), cpu.search(body))
+        if bad:
+            raise AssertionError(f"scale match vs cpu: {bad}")
+    for body in knn_qs[:3]:
+        bad = knn_mismatch(searcher.search(body), cpu.search(body))
+        if bad:
+            raise AssertionError(f"scale knn vs cpu: {bad}")
+    log("scale sample: 5 match queries byte-equal and 3 knn queries "
+        "within tolerance of the CPU searcher")
+    log(f"scale launches per query: match {per_query['match_k2']:.2f} K2 "
+        f"+ {per_query['match_k1']:.2f} K1; knn {per_query['knn_k1']:.2f} "
+        f"K1 + {per_query['knn_k2']:.2f} K2")
+    return {"match_qps": m_qps, "match_p50_ms": m_p50, "knn_qps": k_qps,
+            "knn_p50_ms": k_p50, "launches_per_query": per_query}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from opensearch_tpu_torch.ops import cuda_bm25, cuda_knn
+    from opensearch_tpu_torch.testing.corpus import zipf_query_log
+
+    t_start = time.monotonic()
+    phase_toolkit()
+    segs, mapper, searcher = build_scale()
+    kern = phase_kernels(segs, searcher, zipf_query_log(200, seed=7))
+
+    counters = (cuda_knn.knn_scores_cuda, cuda_bm25.term_bag_cuda)
+    for fn in counters:                       # the main path starts here
+        fn.launches = 0
+    phase_ingest()
+    after_ingest = [fn.launches for fn in counters]
+    scale = phase_scale(segs, mapper, searcher)
+    launches = [fn.launches for fn in counters]
+    log(f"launches over phases 3-4: knn_scores {launches[0]} (ingest "
+        f"{after_ingest[0]}), term_bag {launches[1]} (ingest "
+        f"{after_ingest[1]})")
+    if min(launches) <= 0 or min(after_ingest) <= 0:
+        raise AssertionError(f"a kernel of the main path never launched: "
+                             f"{launches}")
+    k1, k2 = kern["knn_scores"], kern["term_bag"]
+    kernels = {"kernels": [
+        {"name": "knn_scores", "route": "cuda",
+         "source": "opensearch_tpu_torch/csrc/knn.cu",
+         "replaces": "opensearch_tpu/ops/pallas_knn.py:62",
+         "launches": launches[0], "max_abs_err": k1["max_abs_err"],
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": k1["library_ms"]},
+        {"name": "term_bag_scores", "route": "cuda",
+         "source": "opensearch_tpu_torch/csrc/bm25.cu",
+         "replaces": "opensearch_tpu/ops/bm25.py:191",
+         "launches": launches[1], "max_abs_err": k2["max_abs_err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": k2["library_ms"]},
+    ]}
+    log(json.dumps({"scale": scale, "k1_1m": kern["k1_1m"],
+                    "wall_s": time.monotonic() - t_start}))
+    log(json.dumps(kernels))
+    log(gpu_name_power())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,111 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` into its own shared library, loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds).  Libraries land in
+``build/torch_kernels/`` at the repository root, named by a hash of the
+source and the flags, so an edited source is rebuilt and an unchanged
+one is reused.  ``build()`` starts one ``nvcc`` per missing library, all
+at once, and waits for them together.
+
+Nothing here runs at import: the first launch of a kernel builds it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+# -fmad=false: no contraction of a*b+c into one FMA, so the kernels round
+# like the reference's separate multiply and add (the term-bag kernel
+# also spells its arithmetic with __fmul_rn/__fadd_rn).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas=-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME")
+    if home and Path(home, "bin", "nvcc").exists():
+        return str(Path(home, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return "/usr/local/cuda/bin/nvcc"
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to (hash of source + flags)."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names) -> dict[str, str]:
+    """Build every library of ``names`` that is missing, one ``nvcc``
+    each, all started together.  Returns {name: compiler log} for the
+    libraries built in this call (``-Xptxas=-v``: registers, shared
+    memory, spills).  Raises with the compiler's output on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, out)
+    logs = {}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc {name}.cu exited {proc.returncode}:\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def library(name: str, declare) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use.
+    ``declare(lib)`` sets the kernels' ``argtypes``/``restype`` once, at
+    load; ``error_string`` is declared here."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            lib.error_string.argtypes = [ctypes.c_int]
+            lib.error_string.restype = ctypes.c_char_p
+            declare(lib)
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code (every library
+    exports ``error_string`` for the message)."""
+    if rc != 0:
+        msg = lib.error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {rc}: {msg}")

@@ -1,0 +1,334 @@
+"""Query tree -> (plan, bindings) against a shard's mapping + collection
+statistics (the port of the part of the JAX package's
+``search/compiler.py`` that match / term / bool / constant_score / knn
+queries need).
+
+idf/avgdl are computed here from CROSS-SEGMENT stats (Lucene computes
+them in IndexSearcher.termStatistics over the whole reader, not per
+leaf), so scores are consistent across segments.  Query types the
+reference compiles but this package does not yet raise
+``NotYetPortedError`` (HTTP 501) rather than answering differently.
+"""
+
+from __future__ import annotations
+
+import ipaddress
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
+                                                NotYetPortedError,
+                                                OpenSearchTpuError)
+from opensearch_tpu_torch.mapping.types import TextFieldType
+from opensearch_tpu_torch.ops import bm25 as bm25_ops
+from opensearch_tpu_torch.search import plan as P
+from opensearch_tpu_torch.search import query_dsl as dsl
+
+
+@dataclass
+class FieldStats:
+    doc_count: int
+    total_len: float
+
+    @property
+    def avgdl(self) -> float:
+        return self.total_len / self.doc_count if self.doc_count else 1.0
+
+
+class ShardContext:
+    """Per-searcher compile context: mapping + collection statistics over
+    the segment set (IndexSearcher.collectionStatistics analog), and the
+    device the searcher's segments are staged on."""
+
+    def __init__(self, segments, mapper, device):
+        self.segments = segments
+        self.mapper = mapper
+        self.device = torch.device(device)
+        # point-in-time live-bitmap snapshot (apply_deletes replaces the
+        # array, so this context keeps seeing the state at acquire time)
+        self.lives = {id(s): s.live for s in segments}
+        self._fstats: dict[str, FieldStats] = {}
+
+    def live_mask(self, seg, dseg):
+        return dseg.live_mask(self.lives[id(seg)])
+
+    def field_type(self, field: str):
+        return self.mapper.field_type(field)
+
+    def field_stats(self, field: str) -> FieldStats:
+        st = self._fstats.get(field)
+        if st is None:
+            doc_count = 0
+            total_len = 0.0
+            for seg in self.segments:
+                pf = seg.postings.get(field)
+                if pf is not None:
+                    doc_count += pf.docs_with_field
+                    total_len += pf.total_len
+            st = FieldStats(doc_count, total_len)
+            self._fstats[field] = st
+        return st
+
+    def df(self, field: str, term: str) -> int:
+        total = 0
+        for seg in self.segments:
+            pf = seg.postings.get(field)
+            if pf is not None:
+                tid = pf.term_id(term)
+                if tid >= 0:
+                    total += int(pf.df[tid])
+        return total
+
+
+def calc_min_should_match(optional: int, spec) -> int:
+    """Lucene ``Queries.calculateMinShouldMatch`` subset: int, "-int",
+    "N%", "-N%" (conditional "N<P" specs unsupported).  Percentages
+    truncate toward zero (Java int cast).  May return a value LARGER than
+    ``optional`` — the caller must then match nothing (Lucene rewrites to
+    MatchNoDocsQuery)."""
+    if spec is None:
+        return 0
+    s = str(spec).strip()
+    if "<" in s:
+        raise IllegalArgumentError(
+            f"conditional minimum_should_match [{s}] is not supported")
+    if s.endswith("%"):
+        pct = int(s[:-1])
+        result = (optional + int(optional * pct / 100.0) if pct < 0
+                  else int(optional * pct / 100.0))
+    else:
+        n = int(s)
+        result = n if n >= 0 else optional + n
+    return max(0, result)
+
+
+def _idfs_for(ctx: ShardContext, field: str, terms: list[str]) -> np.ndarray:
+    stats = ctx.field_stats(field)
+    return np.asarray(
+        [bm25_ops.idf(ctx.df(field, t), stats.doc_count) for t in terms],
+        dtype=np.float32)
+
+
+def _term_bag(ctx, field, terms, required, boost, scored):
+    idfs = _idfs_for(ctx, field, terms)
+    bind = {"terms": tuple(terms), "idfs": idfs,
+            "weights": np.full(len(terms), boost, np.float32),
+            "avgdl": ctx.field_stats(field).avgdl, "required": required}
+    return P.TermBagPlan(field=field, scored=scored), bind
+
+
+def _none():
+    return P.MatchNonePlan(), {}
+
+
+def _not_ported(what: str):
+    raise NotYetPortedError(f"{what} is not ported to the torch package yet")
+
+
+def _require_ft(ctx, field, qname):
+    ft = ctx.field_type(field)
+    if ft is None:
+        return None
+    if not ft.index_enabled and ft.dv_kind == "none":
+        raise IllegalArgumentError(
+            f"Cannot search on field [{field}] since it is not indexed")
+    return ft
+
+
+def compile_query(q: dsl.Query, ctx: ShardContext, scored: bool = True):
+    """Returns (plan, bind)."""
+    fn = _COMPILERS.get(type(q))
+    if fn is None:
+        if isinstance(q, dsl.Query):
+            _not_ported(f"query type [{type(q).__name__}]")
+        raise IllegalArgumentError(
+            f"query type [{type(q).__name__}] is not supported")
+    return fn(q, ctx, scored)
+
+
+def _c_match_all(q, ctx, scored):
+    return P.MatchAllPlan(), {"boost": q.boost}
+
+
+def _c_match_none(q, ctx, scored):
+    return _none()
+
+
+def _c_term(q, ctx, scored):
+    if q.field == "_id":
+        _not_ported("term on [_id] (ids query)")
+    ft = _require_ft(ctx, q.field, "term")
+    if ft is None:
+        return _none()
+    if ft.type_name == "ip":
+        if "/" in str(q.value):
+            _not_ported("term on an ip CIDR (numeric range plan)")
+        term = str(ipaddress.ip_address(str(q.value)))
+        return _term_bag(ctx, q.field, [term], 1, q.boost, scored)
+    if ft.dv_kind in ("long", "double") and ft.type_name != "boolean":
+        _not_ported(f"term on numeric field [{q.field}]")
+    term = ft.term_for_query(q.value)
+    return _term_bag(ctx, q.field, [term], 1, q.boost, scored)
+
+
+def _c_match(q, ctx, scored):
+    ft = _require_ft(ctx, q.field, "match")
+    if ft is None:
+        return _none()
+    if not isinstance(ft, TextFieldType):
+        try:
+            return _c_term(dsl.TermQuery(field=q.field, value=q.query,
+                                         boost=q.boost), ctx, scored)
+        except NotYetPortedError:
+            raise
+        except (OpenSearchTpuError, ValueError):
+            if q.lenient:
+                return _none()
+            raise
+    qa = getattr(q, "analyzer", None)
+    if qa:
+        terms = ctx.mapper.analyzers.get(qa).terms(str(q.query))
+    else:
+        terms = ft.search_terms(q.query, ctx.mapper.analyzers)
+    if not terms:
+        return _none()
+    if q.fuzziness is not None:
+        _not_ported("match with [fuzziness]")
+    if q.operator == "and":
+        required = len(terms)
+    else:
+        required = max(1, calc_min_should_match(len(terms),
+                                                q.minimum_should_match))
+    if required > len(terms):
+        return _none()
+    return _term_bag(ctx, q.field, terms, required, q.boost, scored)
+
+
+def _c_bool(q, ctx, scored):
+    groups = {}
+    for name, qs, sub_scored in (("must", q.must, scored),
+                                 ("should", q.should, scored),
+                                 ("must_not", q.must_not, False),
+                                 ("filter", q.filter, False)):
+        plans, binds = [], []
+        for sub in qs:
+            p, b = compile_query(sub, ctx, sub_scored)
+            plans.append(p)
+            binds.append(b)
+        groups[name] = (tuple(plans), tuple(binds))
+    n_should = len(groups["should"][0])
+    if q.minimum_should_match is not None:
+        required = calc_min_should_match(n_should, q.minimum_should_match)
+        if required > n_should:
+            return _none()   # Lucene rewrites to MatchNoDocsQuery
+    else:
+        required = 0 if (q.must or q.filter) else (1 if n_should else 0)
+    plan = P.BoolPlan(must=groups["must"][0], should=groups["should"][0],
+                      must_not=groups["must_not"][0],
+                      filter=groups["filter"][0])
+    bind = {"boost": q.boost, "required": required,
+            "children": (groups["must"][1] + groups["should"][1]
+                         + groups["must_not"][1] + groups["filter"][1])}
+    return plan, bind
+
+
+def _c_constant_score(q, ctx, scored):
+    child_plan, child_bind = compile_query(q.query, ctx, scored=False)
+    return (P.ConstScorePlan(child=child_plan),
+            {"boost": q.boost, "child": child_bind})
+
+
+def _c_knn(q, ctx, scored):
+    """knn query: per-segment exact vector search (ops/knn.py — K1 on
+    CUDA), with the global per-shard k winners injected into the plan
+    tree as a ScoredMaskPlan.  Optional ``filter`` restricts candidates
+    BEFORE the k cut (the plugin's filtered-knn semantics).  Every
+    segment's program is launched first; the host syncs once per query.
+    ANN methods (``ivf``/``ivf_pq``) are not ported yet."""
+    from opensearch_tpu_torch.ops.knn import knn_topk_auto
+    from opensearch_tpu_torch.search.executor import build_arrays
+
+    ft = ctx.field_type(q.field)
+    if ft is None:
+        return _none()
+    if ft.dv_kind != "vector":
+        raise IllegalArgumentError(
+            f"[knn] query requires a knn_vector/dense_vector field, "
+            f"[{q.field}] is [{ft.type_name}]")
+    qvec = np.asarray(q.vector, np.float32)
+    if qvec.shape != (ft.dims,):
+        raise IllegalArgumentError(
+            f"query vector has dimension {qvec.shape[0]} but field "
+            f"[{q.field}] expects {ft.dims}")
+    space = {"l2": "l2", "cosinesimil": "cosinesimil",
+             "innerproduct": "innerproduct"}.get(ft.space_type, "l2")
+    method = dict(getattr(ft, "method", None) or {})
+    if method.get("name") in ("ivf", "ivf_pq"):
+        _not_ported(f"knn method [{method['name']}] (ANN search)")
+
+    filter_state = None
+    if q.filter is not None:
+        filter_state = compile_query(q.filter, ctx, scored=False)
+
+    qvec_t = torch.from_numpy(qvec).to(ctx.device)
+    # phase 1: launch every segment's program, keep DEVICE tensors
+    pending = []             # (seg_order, vals_dev, idx_dev)
+    for seg_order, seg in enumerate(ctx.segments):
+        dseg = seg.device(ctx.device)
+        vcol = dseg.vector.get(q.field)
+        if vcol is None:
+            continue
+        live = ctx.live_mask(seg, dseg)
+        valid = vcol["exists"] & live
+        if filter_state is not None:
+            fplan, fbind = filter_state
+            A = build_arrays(dseg, fplan.arrays(), ctx.mapper)
+            dims, ins = fplan.prepare(fbind, seg, dseg, ctx)
+            _s, fmask = P.run_full(fplan, dims, A, ins, -np.inf)
+            valid = valid & fmask
+        kk = min(q.k, dseg.n_pad)
+        vals, idx = knn_topk_auto(vcol["values"], valid, qvec_t,
+                                  space=space, k=kk)
+        pending.append((seg_order, vals, idx))
+    # phase 2: one host sync for all segments' top-k
+    candidates = []          # (score, seg_order, local)
+    for seg_order, vals, idx in pending:
+        vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        keep = (vals > -np.inf) & (idx >= 0)
+        for v, i in zip(vals[keep], idx[keep]):
+            candidates.append((float(v), seg_order, int(i)))
+    candidates.sort(key=lambda t: (-t[0], t[1], t[2]))
+    winners: dict[int, list[tuple[int, float]]] = {}
+    for score, seg_order, local in candidates[: q.k]:
+        winners.setdefault(seg_order, []).append((local, score * q.boost))
+    return _winners_plan(ctx, winners, "knn")
+
+
+def _winners_plan(ctx, winners: dict, label: str):
+    """(ScoredMaskPlan, bind) injecting host-computed per-segment winners
+    {seg_order: [(local, score)]} into the plan tree."""
+    seg_order_by_id = {id(s): i for i, s in enumerate(ctx.segments)}
+
+    def fn(seg, dseg):
+        scores = np.zeros(dseg.n_pad, np.float32)
+        mask = np.zeros(dseg.n_pad, bool)
+        for local, score in winners.get(
+                seg_order_by_id.get(id(seg), -1), []):
+            scores[local] = score
+            mask[local] = True
+        return scores, mask
+
+    return P.ScoredMaskPlan(label=label), {"fn": fn}
+
+
+_COMPILERS = {
+    dsl.MatchAllQuery: _c_match_all,
+    dsl.MatchNoneQuery: _c_match_none,
+    dsl.TermQuery: _c_term,
+    dsl.MatchQuery: _c_match,
+    dsl.BoolQuery: _c_bool,
+    dsl.ConstantScoreQuery: _c_constant_score,
+    dsl.KnnQuery: _c_knn,
+}

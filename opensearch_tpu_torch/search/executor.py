@@ -1,0 +1,366 @@
+"""Shard-side query phase: run a compiled plan over every segment, merge
+top-k across segments, fetch sources (the port of the JAX package's
+``search/executor.py``, cut to ``query``, ``size``, ``from``,
+``min_score``, ``_source`` and ``track_total_hits``).
+
+Each segment is one eager torch program on the searcher's device
+producing dense scores; the per-shard "reduce" over segments is a
+host-side k-way merge with Lucene's tie-break (score desc, then index
+order = (segment, local doc)).  Every segment's program is launched
+before the host reads any result back, so on CUDA the segments run back
+to back while the host prepares the next one.
+
+Not ported yet (ROADMAP): aggregations, sort, collapse, rescore,
+search_after, highlight / explain / fields, profile, suggest, hybrid,
+msearch, timeouts, and the telemetry / insights / task / device-health
+hooks.  Requests that use them raise ``NotYetPortedError``.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
+                                                NotYetPortedError)
+from opensearch_tpu_torch.common.torchenv import resolve_device
+from opensearch_tpu_torch.index.segment import DeviceSegment, Segment
+from opensearch_tpu_torch.search import plan as P
+from opensearch_tpu_torch.search.compiler import ShardContext, compile_query
+from opensearch_tpu_torch.search.fetch import filter_source
+from opensearch_tpu_torch.search.query_dsl import parse_query
+
+_I32 = np.int32
+
+# request-body keys this port serves; any other key raises rather than
+# being ignored
+_SUPPORTED_BODY_KEYS = frozenset({"query", "size", "from", "min_score",
+                                  "_source", "track_total_hits"})
+# bounds of the searcher's plan and prepared-bindings caches (entries)
+_PLAN_CACHE_MAX = 256
+_PREP_CACHE_MAX = 1024
+
+
+def shards_section(total: int) -> dict:
+    """The ``_shards`` response block of a single-shard response."""
+    return {"total": int(total), "successful": int(total), "skipped": 0,
+            "failed": 0}
+
+
+def _dummy_for(group: str, field: str, dseg: DeviceSegment, mapper):
+    """Shape-consistent empty arrays for a field absent from this segment
+    (all-inactive: matches nothing, scores nothing)."""
+    n_pad = dseg.n_pad
+    dev = dseg.device
+    dead = n_pad - 1
+    if group == "postings":
+        return {
+            "offsets": torch.zeros(8, dtype=torch.int32, device=dev),
+            "doc_ids": torch.full((8,), dead, dtype=torch.int32,
+                                  device=dev),
+            "tfs": torch.zeros(8, dtype=torch.float32, device=dev),
+        }
+    if group == "vector":
+        ft = mapper.field_type(field)
+        dim = getattr(ft, "dims", 1) or 1
+        return {
+            "values": torch.zeros((n_pad, dim), dtype=torch.float32,
+                                  device=dev),
+            "exists": torch.zeros(n_pad, dtype=torch.bool, device=dev),
+        }
+    raise IllegalArgumentError(f"unknown array group [{group}]")
+
+
+def build_arrays(dseg: DeviceSegment, needed, mapper, live=None):
+    """Assemble the ``A`` dict a plan reads: live mask + requested field
+    array groups (absent fields get all-inactive dummies).  ``live`` is
+    the caller's point-in-time staged live mask (defaults to the
+    segment's construction-time state)."""
+    A = {"live": dseg.live if live is None else live}
+    sources = {"postings": dseg.postings, "vector": dseg.vector}
+    for group, field in sorted(needed):
+        entry = sources[group].get(field)
+        if entry is None:
+            entry = _dummy_for(group, field, dseg, mapper)
+        A.setdefault(group, {})[field] = entry
+    return A
+
+
+def _bounded_put(cache: dict, key, value, limit: int) -> None:
+    if len(cache) >= limit:
+        cache.pop(next(iter(cache)))
+    cache[key] = value
+
+
+class ShardSearcher:
+    """Immutable point-in-time view over a shard's segments (the
+    Engine.Searcher / reader-context analog), serving on ``device``:
+    ``cuda`` by default (raises without CUDA), ``cpu`` when asked."""
+
+    def __init__(self, segments: list[Segment], mapper,
+                 index_name: str = "index", shard_id: int = 0,
+                 device=None):
+        self.device = resolve_device(device)
+        self.segments = [s for s in segments if s.n_docs > 0]
+        self.mapper = mapper
+        self.index_name = index_name
+        self.shard_id = shard_id
+        self.ctx = ShardContext(self.segments, mapper, self.device)
+        self._plan_cache: dict = {}
+        self._prep_cache: dict = {}
+
+    # -- compiled-plan / prepared-bindings caches -------------------------
+
+    def compiled(self, query_json: Optional[dict], scored: bool = True,
+                 with_key: bool = False):
+        """(plan, bind) for a raw query body through the searcher's plan
+        cache, keyed on the canonicalized JSON.  The searcher is an
+        immutable point-in-time view, so entries never go stale."""
+        try:
+            ckey = (json.dumps(query_json, sort_keys=True,
+                               separators=(",", ":")), scored)
+        except (TypeError, ValueError):
+            ckey = None
+        out = self._plan_cache.get(ckey) if ckey is not None else None
+        if out is None:
+            out = compile_query(parse_query(query_json), self.ctx,
+                                scored=scored)
+            if ckey is not None:
+                _bounded_put(self._plan_cache, ckey, out, _PLAN_CACHE_MAX)
+        return (out, ckey) if with_key else out
+
+    def _prepared(self, plan, bind, seg, dseg, ckey):
+        """``plan.prepare``'s per-(plan, segment) products — padded term
+        ids, staged impact references, per-query tensors — cached so a
+        repeated query does zero host-side prepare work and zero
+        host-to-device copies per segment."""
+        if ckey is None:
+            return plan.prepare(bind, seg, dseg, self.ctx)
+        key = (ckey, id(seg))
+        out = self._prep_cache.get(key)
+        if out is None:
+            out = plan.prepare(bind, seg, dseg, self.ctx)
+            _bounded_put(self._prep_cache, key, out, _PREP_CACHE_MAX)
+        return out
+
+    # -- public API -------------------------------------------------------
+
+    def doc_count(self) -> int:
+        return sum(s.live_count() for s in self.segments)
+
+    def resident_bytes(self) -> int:
+        """Bytes of this searcher's segments staged on its device."""
+        return sum(seg.device(self.device).nbytes()
+                   for seg in self.segments)
+
+    def count(self, query_json: Optional[dict] = None) -> int:
+        if not self.segments:
+            return 0
+        (plan, bind), ckey = self.compiled(query_json, scored=False,
+                                           with_key=True)
+        needed = plan.arrays()
+        total = 0
+        for _seg, _dseg, _scores, matched in self._run_full(
+                plan, bind, needed, None, can_match_skip=True, ckey=ckey):
+            total += int(matched.sum())
+        return total
+
+    def msearch(self, bodies: list) -> list[dict]:
+        raise NotYetPortedError(
+            "msearch (the batched search path) is not ported to the "
+            "torch package yet")
+
+    def search(self, body: Optional[dict] = None) -> dict:
+        body = body or {}
+        unknown = sorted(set(body) - _SUPPORTED_BODY_KEYS)
+        if unknown:
+            raise NotYetPortedError(
+                f"search request keys {unknown} are not ported to the "
+                "torch package yet")
+        q_json = body.get("query")
+        if isinstance(q_json, dict) and "hybrid" in q_json:
+            raise NotYetPortedError(
+                "hybrid query is not ported to the torch package yet")
+        return self._search_body(body, time.monotonic())
+
+    def _search_body(self, body: dict, t0: float) -> dict:
+        size = int(body.get("size", 10))
+        from_ = int(body.get("from", 0))
+        min_score = body.get("min_score")
+        (plan, bind), ckey = self.compiled(body.get("query"), scored=True,
+                                           with_key=True)
+        needed = plan.arrays()
+        k_want = from_ + size
+        # with exact totals waived, block-max pruning may also skip
+        # segments that cannot beat the running k-th score (the
+        # reference's track_total_hits=false contract: totals become a
+        # lower bound, flagged with relation "gte")
+        allow_kth_prune = body.get("track_total_hits") is False
+        total_is_lower_bound = False
+        if not self.segments:
+            rows, total, max_score = [], 0, None
+        else:
+            rows, total, max_score, total_is_lower_bound = self._topk(
+                plan, bind, needed, k_want, min_score, ckey=ckey,
+                allow_kth_prune=allow_kth_prune)
+        rows = rows[from_: from_ + size]
+        hits = self._hits_from_rows(rows, body.get("_source"))
+        return {
+            "took": int((time.monotonic() - t0) * 1000),
+            "timed_out": False,
+            "_shards": shards_section(1),
+            "hits": {
+                "total": {"value": int(total),
+                          "relation": ("gte" if total_is_lower_bound
+                                       else "eq")},
+                "max_score": max_score,
+                "hits": hits,
+            },
+        }
+
+    def _hits_from_rows(self, rows, source_spec):
+        hits = []
+        for row in rows:
+            seg = self.segments[row["seg"]]
+            local = row["local"]
+            hit = {"_index": self.index_name, "_id": seg.doc_ids[local],
+                   "_score": row.get("score")}
+            src = filter_source(seg.source(local), source_spec)
+            if src is not None:
+                hit["_source"] = src
+            hits.append(hit)
+        return hits
+
+    # -- internals --------------------------------------------------------
+
+    @staticmethod
+    def _min_score(min_score) -> float:
+        return -np.inf if min_score is None else float(np.float32(min_score))
+
+    def _run_full(self, plan, bind, needed, min_score,
+                  can_match_skip=False, ckey=None):
+        """Yields (seg, dseg, scores, matched) per segment.
+        ``can_match_skip`` is ONLY safe for consumers that don't index
+        the yielded tuples by position."""
+        ms = self._min_score(min_score)
+        for seg in self.segments:
+            if can_match_skip and not plan.can_match(bind, seg):
+                continue
+            dseg = seg.device(self.device)
+            dims, ins = self._prepared(plan, bind, seg, dseg, ckey)
+            A = build_arrays(dseg, needed, self.mapper,
+                             live=self.ctx.live_mask(seg, dseg))
+            scores, matched = P.run_full(plan, dims, A, ins, ms)
+            yield seg, dseg, scores, matched
+
+    def _merge_topk(self, per_seg, k_want, total, max_score):
+        if not per_seg:
+            return [], 0, None
+        scores = np.concatenate([p[0] for p in per_seg])
+        segi = np.concatenate([p[1] for p in per_seg])
+        local = np.concatenate([p[2] for p in per_seg])
+        order = np.lexsort((local, segi, -scores))[:k_want]
+        rows = [{"seg": int(segi[i]), "local": int(local[i]),
+                 "score": float(scores[i])} for i in order]
+        return rows, total, (None if max_score == -np.inf else float(max_score))
+
+    def _topk(self, plan, bind, needed, k_want, min_score, ckey=None,
+              allow_kth_prune=False):
+        """Returns (rows, total, max_score, total_is_lower_bound).
+
+        Block-max pruning: segments whose ``plan.max_score_bound`` can't
+        reach ``min_score`` are skipped exactly (such docs are excluded
+        from hits AND totals anyway).  With ``allow_kth_prune`` (the
+        request waived exact totals via track_total_hits=false),
+        segments that can't beat the running k-th score are skipped too
+        — the k-th score is harvested from programs that already
+        finished, never blocking the launch pipeline."""
+        if k_want == 0:            # size=0: counts only
+            total = sum(int(m.sum()) for _s, _d, _sc, m
+                        in self._run_full(plan, bind, needed, min_score,
+                                          can_match_skip=True, ckey=ckey))
+            return [], total, None, False
+
+        # phase 1: LAUNCH every segment's program without a host sync
+        ms = self._min_score(min_score)
+        ms_host = None if min_score is None else float(min_score)
+        launched = []      # [si, vals, idx, tot, mx, synced_vals, event]
+        kth = None         # running k-th best (harvested, host)
+        total_is_lower_bound = False
+        on_cuda = self.device.type == "cuda"
+        for si, seg in enumerate(self.segments):
+            if not plan.can_match(bind, seg):
+                continue           # can-match skip: no staging, no program
+            if ms_host is not None or kth is not None:
+                bound = plan.max_score_bound(bind, seg)
+                if ms_host is not None and bound < ms_host:
+                    # exact: docs below min_score never count in totals
+                    continue
+                if kth is not None and bound <= kth:
+                    # the k-th holder launched earlier, so it wins any
+                    # tie at exactly `bound` (seg-asc tie-break); totals
+                    # become a lower bound
+                    total_is_lower_bound = True
+                    continue
+            dseg = seg.device(self.device)
+            dims, ins = self._prepared(plan, bind, seg, dseg, ckey)
+            A = build_arrays(dseg, needed, self.mapper,
+                             live=self.ctx.live_mask(seg, dseg))
+            k = min(k_want, dseg.n_pad)
+            vals, idx, tot, mx = P.run_topk(plan, dims, k, A, ins, ms)
+            event = None
+            if on_cuda:
+                event = torch.cuda.Event()
+                event.record()
+            launched.append([si, vals, idx, tot, mx, None, event])
+            if allow_kth_prune and si + 1 < len(self.segments):
+                kth = self._harvest_kth(launched, k_want, kth)
+        if not launched:
+            return [], 0, None, total_is_lower_bound
+        # phase 2: ONE host-sync region over all segments' results
+        vals_h = torch.cat([e[1] for e in launched]).cpu().numpy()
+        idx_h = torch.cat([e[2] for e in launched]).cpu().numpy()
+        tot_h = torch.stack([e[3] for e in launched]).cpu().numpy()
+        mx_h = torch.stack([e[4] for e in launched]).cpu().numpy()
+        per_seg = []
+        total = 0
+        max_score = -np.inf
+        off = 0
+        for j, entry in enumerate(launched):
+            n = entry[1].shape[0]
+            vals, idx = vals_h[off: off + n], idx_h[off: off + n]
+            off += n
+            keep = vals > -np.inf
+            per_seg.append((vals[keep],
+                            np.full(int(keep.sum()), entry[0], _I32),
+                            idx[keep]))
+            total += int(tot_h[j])
+            max_score = max(max_score, float(mx_h[j]))
+        rows, total, max_score = self._merge_topk(per_seg, k_want, total,
+                                                  max_score)
+        return rows, total, max_score, total_is_lower_bound
+
+    @staticmethod
+    def _harvest_kth(launched, k_want, kth):
+        """Update the running k-th best score from programs that ALREADY
+        finished (a CPU result, or a CUDA one whose event has fired), so
+        reading them never blocks the launch pipeline (the MaxScore
+        running threshold)."""
+        ready = []
+        for entry in launched:
+            if entry[5] is None and (entry[6] is None or entry[6].query()):
+                entry[5] = entry[1].cpu().numpy()
+            if entry[5] is not None:
+                ready.append(entry[5])
+        if not ready:
+            return kth
+        vals = np.concatenate(ready).ravel()
+        vals = vals[vals > -np.inf]
+        if len(vals) < k_want:
+            return kth
+        cand = float(np.partition(vals, -k_want)[-k_want])
+        return cand if kth is None or cand > kth else kth

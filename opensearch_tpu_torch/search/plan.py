@@ -1,0 +1,399 @@
+"""Query plans: Query tree -> (plan, bindings) -> per-segment torch
+program (the port of the part of the JAX package's ``search/plan.py``
+that the match / term / bool / constant_score / knn path runs).
+
+As in the reference:
+
+- a *plan node* is a frozen, hashable dataclass holding only static
+  STRUCTURE (field names, clause layout, scoring flags);
+- per-query data (term strings, idfs, bounds, boosts) lives in a
+  parallel *bindings tree*, consumed host-side by ``prepare`` which
+  emits the per-segment ``dims`` (static sizes: padded term counts,
+  gather budgets) and ``ins`` (tensors on the segment's device);
+- every node evaluates to ``(scores f32 [n_pad], matched bool
+  [n_pad])``; scores are zero wherever unmatched, so boolean
+  composition is masked arithmetic.
+
+There is no ``jit``: PyTorch runs eagerly, on whatever device the
+staged segment lives on.  Plans of the reference that are not ported
+yet (phrase, span, range/terms masks, numeric, nested, geo, script,
+function_score, dis_max, ...) are absent; the compiler raises
+``NotYetPortedError`` for queries that would need them.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from opensearch_tpu_torch.common import torchenv  # noqa: F401
+from opensearch_tpu_torch.common.errors import NotYetPortedError
+from opensearch_tpu_torch.index import codec as codec_mod
+from opensearch_tpu_torch.index.segment import pad_bucket, pad_pow2
+from opensearch_tpu_torch.ops import bm25 as bm25_ops
+
+_I32 = np.int32
+_F32 = np.float32
+
+
+def _f32(x) -> float:
+    """A Python float holding exactly the float32 value of ``x``: torch
+    applies a Python scalar to a float32 tensor in float32, so this is
+    the reference's float32 scalar without a device transfer."""
+    return float(np.float32(x))
+
+
+def _tensor(arr, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(arr, dtype=dtype)).to(device)
+
+
+def _pad_np(arr, size, fill, dtype, device) -> torch.Tensor:
+    out = np.full(size, fill, dtype=dtype)
+    a = np.asarray(arr, dtype=dtype)
+    out[: len(a)] = a
+    return _tensor(out, dtype, device)
+
+
+def _live_n_pad(A) -> tuple:
+    live = A["live"]
+    return live.shape[0], live.device
+
+
+# ---------------------------------------------------------------------------
+# Plan nodes.  All frozen + hashable: static query structure only.
+# Each implements:
+#   arrays() -> frozenset[(group, field)]         device arrays needed
+#   prepare(bind, seg, dseg, ctx) -> (dims, ins)  host-side, per segment
+#   eval(A, dims, ins) -> (scores, matched)       torch, on dseg's device
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Plan:
+    def arrays(self) -> frozenset:
+        return frozenset()
+
+    def can_match(self, bind, seg) -> bool:
+        """Host-side pre-filter: False only when NO doc in this segment
+        can match (the CanMatchPreFilterSearchPhase analog).  Must stay
+        conservative: returning True is always safe."""
+        return True
+
+    def max_score_bound(self, bind, seg) -> float:
+        """Safe UPPER bound on any single doc's score in this segment —
+        the MaxScore/BMW pruning surface over the per-term block-max
+        impact metadata (``Segment.max_impacts``).  Returning
+        ``math.inf`` (the default) is always safe; finite bounds carry a
+        small multiplicative margin so float32 rounding can never make a
+        real score exceed them."""
+        return math.inf
+
+
+# float32 rounding can nudge a real score a few ulp above the float64
+# host-side bound arithmetic; inflating every finite bound by this
+# factor keeps pruning strictly conservative.
+_BOUND_MARGIN = 1.0001
+
+
+def _boost_bound(self, bind, seg) -> float:
+    """max_score_bound for constant-score plans: the boost IS the only
+    possible score."""
+    b = float(bind["boost"])
+    return b * _BOUND_MARGIN if b >= 0 else math.inf
+
+
+@dataclass(frozen=True)
+class MatchAllPlan(Plan):
+    def prepare(self, bind, seg, dseg, ctx):
+        return (), (_f32(bind["boost"]),)
+
+    def eval(self, A, dims, ins):
+        (boost,) = ins
+        n_pad, dev = _live_n_pad(A)
+        return (torch.full((n_pad,), boost, dtype=torch.float32,
+                           device=dev),
+                torch.ones(n_pad, dtype=torch.bool, device=dev))
+
+    max_score_bound = _boost_bound
+
+
+@dataclass(frozen=True)
+class MatchNonePlan(Plan):
+    def prepare(self, bind, seg, dseg, ctx):
+        return (), ()
+
+    def eval(self, A, dims, ins):
+        n_pad, dev = _live_n_pad(A)
+        return (torch.zeros(n_pad, dtype=torch.float32, device=dev),
+                torch.zeros(n_pad, dtype=torch.bool, device=dev))
+
+    def max_score_bound(self, bind, seg) -> float:
+        return 0.0
+
+
+@dataclass(frozen=True)
+class TermBagPlan(Plan):
+    """Weighted bag of terms over one field's postings: term / match.
+    BM25-scored (Lucene TermQuery / BooleanQuery of term clauses).
+    bind: {terms, idfs, weights, avgdl, required}; ``required`` is the
+    per-doc matched-clause count needed (1 = OR, n_terms = AND,
+    minimum_should_match otherwise)."""
+
+    field: str = ""
+    scored: bool = True
+
+    def arrays(self):
+        return frozenset({("postings", self.field)})
+
+    def can_match(self, bind, seg):
+        pf = seg.postings.get(self.field)
+        if pf is None:
+            return False
+        present = sum(1 for t in bind["terms"] if pf.term_id(t) >= 0)
+        # a doc can match at most `present` distinct query terms here
+        return present >= max(int(bind.get("required", 1)), 1)
+
+    def max_score_bound(self, bind, seg):
+        if not self.scored:
+            return 0.0                   # filter context scores are 0
+        pf = seg.postings.get(self.field)
+        if pf is None:
+            return 0.0
+        mi = seg.max_impacts(self.field, bind["avgdl"])
+        total = 0.0
+        for t, idf_v, w in zip(bind["terms"], bind["idfs"],
+                               bind["weights"]):
+            if w < 0:
+                return math.inf          # negative weights: no bound
+            tid = pf.term_id(t)
+            if tid >= 0:
+                total += float(idf_v) * float(w) * float(mi[tid])
+        return total * _BOUND_MARGIN
+
+    def prepare(self, bind, seg, dseg, ctx):
+        if self.scored and codec_mod.use_quantized(seg):
+            # the reference scores this segment over quantized impacts;
+            # scoring it in f32 here would answer differently
+            raise NotYetPortedError(
+                f"segment [{seg.seg_id}] has {seg.n_docs} docs (>= "
+                f"QUANTIZED_MIN_DOCS={codec_mod.QUANTIZED_MIN_DOCS}): the "
+                "quantized term-bag lowering is not ported yet")
+        dev = dseg.device
+        terms = bind["terms"]
+        pf = seg.postings.get(self.field)
+        t_pad = pad_pow2(len(terms), minimum=1)
+        tids = np.zeros(t_pad, dtype=_I32)
+        active = np.zeros(t_pad, dtype=bool)
+        budget = 0
+        for i, t in enumerate(terms):
+            tid = pf.term_id(t) if pf is not None else -1
+            if tid >= 0:
+                tids[i] = tid
+                active[i] = True
+                budget += int(pf.df[tid])
+        if not self.scored:
+            ins = (_tensor(tids, _I32, dev), _tensor(active, bool, dev),
+                   int(bind["required"]))
+            return (t_pad, pad_bucket(budget), False), ins
+        idfs = np.asarray(bind["idfs"], _F32)
+        weights = np.asarray(bind["weights"], _F32)
+        # fast path: a plain OR bag with positive idf*weight scores > 0
+        # exactly on matched docs, so the matched-count pass is skipped
+        fast = (int(bind["required"]) == 1
+                and bool((weights > 0).all()) and bool((idfs > 0).all()))
+        ins = (_tensor(tids, _I32, dev), _tensor(active, bool, dev),
+               _pad_np(idfs, t_pad, 0.0, _F32, dev),
+               _pad_np(weights, t_pad, 0.0, _F32, dev),
+               dseg.impacts(self.field, bind["avgdl"]),
+               int(bind["required"]))
+        return (t_pad, pad_bucket(budget), fast), ins
+
+    def eval(self, A, dims, ins):
+        p = A["postings"][self.field]
+        n_pad, dev = _live_n_pad(A)
+        t_pad, budget, fast = dims
+        if not self.scored:
+            tids, active, required = ins
+            count = bm25_ops.match_count(
+                p["offsets"], p["doc_ids"], p["tfs"], tids, active,
+                n_pad=n_pad, budget=budget)
+            return (torch.zeros(n_pad, dtype=torch.float32, device=dev),
+                    count >= required)
+        tids, active, idfs, weights, impacts, required = ins
+        if fast:
+            scores = bm25_ops.impact_scores(
+                p["offsets"], p["doc_ids"], impacts, tids, active,
+                idfs, weights, n_pad=n_pad, budget=budget)
+            matched = scores > 0.0
+        else:
+            scores, count = bm25_ops.impact_score_count(
+                p["offsets"], p["doc_ids"], impacts, tids, active,
+                idfs, weights, n_pad=n_pad, budget=budget, scored=True)
+            matched = count >= required
+        return torch.where(matched, scores, 0.0), matched
+
+
+@dataclass(frozen=True)
+class ScoredMaskPlan(Plan):
+    """Precomputed per-segment (scores, matched) — knn pre-pass results
+    are injected into the tree through this node.
+    bind: {fn: (seg, dseg) -> (scores np.f32 [n_pad], mask np.bool)}."""
+
+    label: str = "knn"
+
+    def prepare(self, bind, seg, dseg, ctx):
+        scores, mask = bind["fn"](seg, dseg)
+        return (), (_tensor(scores, _F32, dseg.device),
+                    _tensor(mask, bool, dseg.device))
+
+    def eval(self, A, dims, ins):
+        scores, mask = ins
+        return torch.where(mask, scores, 0.0), mask
+
+
+def _prepare_children(children, binds, seg, dseg, ctx):
+    dims, ins = [], []
+    for c, b in zip(children, binds):
+        d, i = c.prepare(b, seg, dseg, ctx)
+        dims.append(d)
+        ins.append(i)
+    return tuple(dims), tuple(ins)
+
+
+@dataclass(frozen=True)
+class BoolPlan(Plan):
+    """bind: {boost, required, children: tuple of child binds} where
+    ``required`` is the resolved minimum matching should-clause count."""
+
+    must: tuple = ()
+    should: tuple = ()
+    must_not: tuple = ()
+    filter: tuple = ()
+
+    def _children(self):
+        return (*self.must, *self.should, *self.must_not, *self.filter)
+
+    def can_match(self, bind, seg):
+        binds = bind["children"]
+        nm, ns = len(self.must), len(self.should)
+        nn = len(self.must_not)
+        for c, b in zip(self.must, binds[:nm]):
+            if not c.can_match(b, seg):
+                return False
+        for c, b in zip(self.filter, binds[nm + ns + nn:]):
+            if not c.can_match(b, seg):
+                return False
+        if ns and not self.must and not self.filter and \
+                int(bind.get("required", 1)) >= 1:
+            return any(c.can_match(b, seg)
+                       for c, b in zip(self.should, binds[nm: nm + ns]))
+        return True
+
+    def max_score_bound(self, bind, seg):
+        binds = bind["children"]
+        nm, ns = len(self.must), len(self.should)
+        boost = float(bind["boost"])
+        if boost < 0:
+            return math.inf
+        total = 0.0
+        for c, b in zip(self.must, binds[:nm]):
+            total += c.max_score_bound(b, seg)
+        for c, b in zip(self.should, binds[nm: nm + ns]):
+            total += c.max_score_bound(b, seg)
+        return total * boost * _BOUND_MARGIN
+
+    def arrays(self):
+        out = frozenset()
+        for c in self._children():
+            out |= c.arrays()
+        return out
+
+    def prepare(self, bind, seg, dseg, ctx):
+        cdims, cins = _prepare_children(
+            self._children(), bind["children"], seg, dseg, ctx)
+        return cdims, (cins, _f32(bind["boost"]), int(bind["required"]))
+
+    def eval(self, A, dims, ins):
+        cins, boost, required = ins
+        n_pad, dev = _live_n_pad(A)
+        outs = [c.eval(A, dims[i], cins[i])
+                for i, c in enumerate(self._children())]
+        nm, ns, nn = len(self.must), len(self.should), len(self.must_not)
+        matched = torch.ones(n_pad, dtype=torch.bool, device=dev)
+        scores = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+        for s, m in outs[:nm]:                      # must
+            matched &= m
+            scores += s
+        for _s, m in outs[nm + ns + nn:]:           # filter
+            matched &= m
+        for _s, m in outs[nm + ns: nm + ns + nn]:   # must_not
+            matched &= ~m
+        if ns:
+            cnt = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+            for s, m in outs[nm: nm + ns]:          # should
+                cnt += m.to(torch.int32)
+                scores += s
+            matched &= cnt >= required
+        scores = torch.where(matched, scores * boost, 0.0)
+        return scores, matched
+
+
+@dataclass(frozen=True)
+class ConstScorePlan(Plan):
+    """bind: {boost, child}."""
+
+    child: Optional[Plan] = None
+
+    def arrays(self):
+        return self.child.arrays()
+
+    def can_match(self, bind, seg):
+        return self.child.can_match(bind["child"], seg)
+
+    max_score_bound = _boost_bound
+
+    def prepare(self, bind, seg, dseg, ctx):
+        cdims, cins = self.child.prepare(bind["child"], seg, dseg, ctx)
+        return cdims, (cins, _f32(bind["boost"]))
+
+    def eval(self, A, dims, ins):
+        cins, boost = ins
+        _s, matched = self.child.eval(A, dims, cins)
+        return torch.where(matched, boost, 0.0).to(torch.float32), matched
+
+
+# ---------------------------------------------------------------------------
+# Entry points (the reference's jit entry points, run eagerly).
+# ---------------------------------------------------------------------------
+
+
+def run_topk(plan: Plan, dims, k: int, A, ins, min_score):
+    """(top_scores[k], top_local_ids[k] i32, total_matched, max_score),
+    all tensors on the segment's device.  Ties go to the lower doc id
+    (Lucene's ascending-doc-id tie-break).  ``min_score`` (-inf when
+    unset) excludes docs from hits AND total, matching
+    MinimumScoreCollector semantics."""
+    scores, matched = plan.eval(A, dims, ins)
+    matched = matched & A["live"] & (scores >= min_score)
+    key = torch.where(matched, scores, -torch.inf)
+    vals, idx = bm25_ops.topk(key, k)
+    return vals, idx, matched.sum(), torch.max(key)
+
+
+def topk_from_scores(scores, k: int, matched):
+    """Top-k over an already-computed (scores, matched) pair."""
+    key = torch.where(matched, scores, -torch.inf)
+    vals, idx = bm25_ops.topk(key, k)
+    return vals, idx, matched.sum(), torch.max(key)
+
+
+def run_full(plan: Plan, dims, A, ins, min_score):
+    """(scores[n_pad] zeroed-unmatched, matched[n_pad]) — for counts and
+    the knn filter."""
+    scores, matched = plan.eval(A, dims, ins)
+    matched = matched & A["live"] & (scores >= min_score)
+    return torch.where(matched, scores, 0.0), matched

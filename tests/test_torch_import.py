@@ -1,0 +1,126 @@
+"""The PyTorch port imports neither ``jax`` nor any module of the JAX
+package ``opensearch_tpu`` (only the tests import both).
+
+Two checks: a subprocess that blocks those imports with a
+``sys.meta_path`` hook, imports every module of ``opensearch_tpu_torch``
+and runs one CPU search; and a static scan of the port's sources and
+``chip_smoke.py`` for imports that name them.  The module-name test
+matches ``opensearch_tpu`` and ``opensearch_tpu.<sub>``, never the
+``opensearch_tpu_torch`` prefix.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "opensearch_tpu_torch")
+
+
+def forbidden(name: str) -> bool:
+    return any(name == top or name.startswith(top + ".")
+               for top in ("jax", "jaxlib", "opensearch_tpu"))
+
+
+@pytest.mark.parametrize("name,bad", [
+    ("jax", True), ("jax.numpy", True), ("jaxlib", True),
+    ("opensearch_tpu", True), ("opensearch_tpu.ops.bm25", True),
+    ("opensearch_tpu_torch", False), ("opensearch_tpu_torch.ops", False),
+    ("jaxtyping", False), ("torch", False)])
+def test_forbidden_matches_module_names_not_prefixes(name, bad):
+    assert forbidden(name) is bad
+
+
+HOOKED = r'''
+import importlib, pkgutil, sys
+
+def forbidden(name):
+    return any(name == top or name.startswith(top + ".")
+               for top in ("jax", "jaxlib", "opensearch_tpu"))
+
+for mod in [m for m in sys.modules if forbidden(m)]:
+    del sys.modules[mod]
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if forbidden(name):
+            raise ImportError(f"blocked import of [{name}]")
+        return None
+
+sys.meta_path.insert(0, Block())
+
+import opensearch_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    opensearch_tpu_torch.__path__, "opensearch_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+
+from opensearch_tpu_torch.index.segment import SegmentWriter
+from opensearch_tpu_torch.mapping.mapper import DocumentMapper
+from opensearch_tpu_torch.search.executor import ShardSearcher
+
+mapper = DocumentMapper({"properties": {
+    "body": {"type": "text"},
+    "vec": {"type": "knn_vector", "dimension": 4}}})
+docs = [mapper.parse(str(i), {"body": f"alpha w{i % 3}",
+                              "vec": [float(i), 0.0, 1.0, 2.0]})
+        for i in range(12)]
+seg = SegmentWriter().build(docs, "s0")
+searcher = ShardSearcher([seg], mapper, device="cpu")
+resp = searcher.search({"query": {"match": {"body": "w1"}}})
+assert resp["hits"]["total"]["value"] == 4, resp
+resp = searcher.search({"query": {"knn": {"vec": {"vector": [3, 0, 1, 2],
+                                                  "k": 2}}}})
+assert resp["hits"]["hits"][0]["_id"] == "3", resp
+bad = sorted(m for m in sys.modules if forbidden(m))
+assert not bad, bad
+print("IMPORTED", len(names))
+'''
+
+
+def test_port_imports_and_searches_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", HOOKED], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n = int(proc.stdout.split("IMPORTED")[-1])
+    assert n >= 20            # every module of the port was imported
+
+
+def _named_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.lineno, node.module
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            fname = getattr(fn, "id", None) or getattr(fn, "attr", None)
+            if fname in ("__import__", "import_module") and node.args \
+                    and isinstance(node.args[0], ast.Constant) \
+                    and isinstance(node.args[0].value, str):
+                yield node.lineno, node.args[0].value
+
+
+def _port_sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _dirs, names in os.walk(PORT):
+        files.extend(os.path.join(dirpath, n) for n in names
+                     if n.endswith(".py"))
+    return sorted(files)
+
+
+def test_static_scan_finds_no_jax_or_reference_import():
+    files = _port_sources()
+    assert len(files) >= 20
+    offenders = [f"{os.path.relpath(path, ROOT)}:{line}: {name}"
+                 for path in files
+                 for line, name in _named_imports(path)
+                 if forbidden(name)]
+    assert not offenders, offenders
