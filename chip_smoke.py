@@ -9,19 +9,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the hand-written kernels are built from ``opensearch_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together);
 2. kernels vs their plain PyTorch twins on the card, timed:
-   K1 ``knn_scores`` (all three spaces; 1M x 128, the main path's
-   per-segment shape, and a ragged n) within the stated tolerance,
-   K2 the term-bag scorer on three real query bags, byte for byte;
+   K1's top-k entry ``knn_topk_segments_cuda`` (one launch over many
+   segments: 1 segment of 1M, the 16 scale segments, ragged n = 7,
+   1,000, 65,536 and 1M in one call and a segment of duplicated rows;
+   k in 1, 10, 100, K_MAX, K_MAX + 1; three spaces; with and without a
+   filter mask; and widths d = 3, 30, 960 beside the main path's 128;
+   the fused launch and the sorted route each taken where
+   ``uses_sorted_route`` says, in one call where they mix)
+   against ``knn_topk_segments``, K1's scores-only entry
+   ``knn_scores`` (three spaces; 1M x 128, the per-segment shape, a
+   ragged n), both within the stated tolerance, and K2 the term-bag
+   scorer on three real query bags, byte for byte;
 3. ingest path: ~2,000 JSON docs through the port's DocumentMapper and
    SegmentWriter into 2 segments with deletes, then match / bool / knn
-   (three spaces, and filtered) through ``ShardSearcher.search`` on the
-   card, hits held to the same searcher on the CPU (the plain
-   versions): BM25 byte for byte, k-NN within tolerance;
+   (three spaces, filtered, and one k above K1's in-kernel maximum)
+   through ``ShardSearcher.search`` on the card, hits held to the same
+   searcher on the CPU (the plain versions): BM25 byte for byte, k-NN
+   within tolerance;
 4. scale: 1,000,000 docs in 16 segments (62,500 docs each, under the
    reference's quantization threshold) with ~22M postings and a 128-d
    float32 vector per doc; 200 zipf ``match`` and 100 ``knn`` queries
-   through ``ShardSearcher.search`` (qps, p50), a sample checked
-   against the CPU searcher.
+   through ``ShardSearcher.search`` (qps, p50, kernel launches per
+   query: one K1 launch per ``knn`` query), a sample checked against
+   the CPU searcher.
 
 Every kernel wrapper counts its launches; the counts are zeroed just
 before phase 3 and read after phase 4, and each kernel must have run.
@@ -42,6 +52,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 SCALE_DOCS = 1_000_000
+BIG_N = 1_000_000                # the single large segment of phase 2
 SCALE_SEGMENTS = 16
 DIM = 128
 DEVICE = "cuda"
@@ -91,12 +102,34 @@ def bound_ms(nbytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_device_ms(fn, reps: int, name: str):
+    """Mean device milliseconds per launch of the kernels whose name
+    holds ``name``, over ``reps`` calls of ``fn`` under
+    ``torch.profiler``; None when the profiler shows no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from opensearch_tpu_torch.testing.profile_scale import (_device_self_us,
+                                                            _is_device)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if _is_device(e) and name in e.key]
+    count = sum(e.count for e in hits)
+    return sum(_device_self_us(e) for e in hits) / 1e3 / count \
+        if count else None
+
+
 # -- phase 1 ----------------------------------------------------------------
 
 def phase_toolkit():
     import torch
 
-    from opensearch_tpu_torch.ops import cuda_build
+    from opensearch_tpu_torch.ops import cuda_build, cuda_knn
 
     nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
@@ -107,7 +140,7 @@ def phase_toolkit():
         f"count={torch.cuda.device_count()}")
     log(f"gpu: {gpu_name_power()}")
     t0 = time.monotonic()
-    logs = cuda_build.build(["knn", "bm25"])
+    logs = cuda_build.build(["knn", "bm25"], {"knn": cuda_knn.defines()})
     log(f"kernels built in {time.monotonic() - t0:.1f}s: "
         f"{sorted(logs) or 'cached'}")
     for name, text in logs.items():
@@ -117,6 +150,124 @@ def phase_toolkit():
 
 
 # -- phase 2 ----------------------------------------------------------------
+
+def phase_knn_topk(scale_segs, dev, gen):
+    """K1's top-k entry against its plain twin at every shape, k, space
+    and mask the contract lists, then timed over the 16 scale segments
+    in one launch (k = 10, l2) beside the plain twin, the library chain
+    ``[torch.topk(v @ q, k) for each segment]`` and the bound."""
+    import torch
+
+    from opensearch_tpu_torch.ops import cuda_knn, knn
+    from opensearch_tpu_torch.testing.parity import topk_mismatch
+
+    def rand_segment(n, dup=False, d=DIM):
+        v = torch.randn(n, d, device=dev, generator=gen)
+        if dup:      # 64 distinct rows, each repeated: ties everywhere
+            v = v[:64][torch.randint(0, 64, (n,), device=dev,
+                                     generator=gen)].contiguous()
+        flags = [torch.rand(n, device=dev, generator=gen) > p
+                 for p in (0.05, 0.05, 0.5)]
+        return v, *flags
+
+    scale = []
+    for seg in scale_segs:
+        dseg = seg.device(dev)
+        vcol = dseg.vector["vec"]
+        scale.append((vcol["values"], vcol["exists"], dseg.live,
+                      torch.rand(dseg.n_pad, device=dev,
+                                 generator=gen) > 0.5))
+    big = rand_segment(BIG_N)
+    sets = {f"n={BIG_N}": [big], "scale16": scale,
+            f"ragged 7/1000/65536/{BIG_N}": [rand_segment(n) for n in
+                                             (7, 1000, 65_536)] + [big],
+            "duplicated rows": [rand_segment(65_536, dup=True)]}
+    q = torch.randn(DIM, device=dev, generator=gen)
+    ks = (1, 10, 100, cuda_knn.K_MAX, cuda_knn.K_MAX + 1)
+    max_err = 0.0
+    for name, raw in sets.items():
+        for filtered in (False, True):
+            segs = [knn.KnnSegment(v, e, lv, m if filtered else None)
+                    for v, e, lv, m in raw]
+            for space in knn.SPACES:
+                for k in ks:
+                    fn = cuda_knn.knn_topk_segments_cuda
+                    before = fn.launches, fn.sorted_route_segments
+                    got = fn(segs, q, space=space, k=k)
+                    ref = knn.knn_topk_segments(segs, q, space=space, k=k)
+                    routes = [cuda_knn.uses_sorted_route(k, s.vectors.shape[0])
+                              for s in segs]
+                    if (fn.launches - before[0], fn.sorted_route_segments
+                            - before[1]) != (int(not all(routes)),
+                                             sum(routes)):
+                        raise AssertionError(
+                            f"K1 top-k {name} k={k}: routes {routes} gave "
+                            f"{fn.launches - before[0]} fused launches and "
+                            f"{fn.sorted_route_segments - before[1]} "
+                            f"sorted segments")
+                    bad, err = topk_mismatch(
+                        *(t.cpu().numpy() for t in got + ref))
+                    if bad is None and name == "duplicated rows" and \
+                            got[1].cpu().numpy().tobytes() != \
+                            ref[1].cpu().numpy().tobytes():
+                        bad = "ids are not byte-equal"
+                    if bad:
+                        raise AssertionError(
+                            f"K1 top-k {name} filtered={filtered} {space} "
+                            f"k={k}: {bad}")
+                    max_err = max(max_err, err)
+            ties = "; ids byte-equal" if name.startswith("dup") else ""
+            sorted_k = [k for k in ks if any(
+                cuda_knn.uses_sorted_route(k, s.vectors.shape[0])
+                for s in segs)]
+            log(f"K1 top-k {name} filtered={filtered}: 3 spaces x k "
+                f"{list(ks)} agree with the plain twin (rtol=1e-5, "
+                f"atol=1e-6{ties}); sorted route taken by some segment at "
+                f"k {sorted_k}")
+    del sets
+    # other widths: scalar loads and 4-byte copies (d % 4 != 0), one lane
+    # per row (d = 3), a whole warp per row (d = 960)
+    for d in (3, 30, 960):
+        segs = [knn.KnnSegment(*rand_segment(n, d=d))
+                for n in (5000, 70_000)]
+        qd = torch.randn(d, device=dev, generator=gen)
+        for space in knn.SPACES:
+            for k in (10, cuda_knn.K_MAX):
+                bad, err = topk_mismatch(*(t.cpu().numpy() for t in (
+                    cuda_knn.knn_topk_segments_cuda(segs, qd, space=space,
+                                                    k=k)
+                    + knn.knn_topk_segments(segs, qd, space=space, k=k))))
+                if bad:
+                    raise AssertionError(f"K1 top-k d={d} {space} k={k}: "
+                                         f"{bad}")
+                max_err = max(max_err, err)
+        log(f"K1 top-k d={d} (filtered, n = 5000 and 70,000): 3 spaces x k "
+            f"[10, {cuda_knn.K_MAX}] agree with the plain twin")
+
+    segs = [knn.KnnSegment(v, e, lv) for v, e, lv, _m in scale]
+    k = 10
+    ms, plain_ms = in_turns(
+        lambda: cuda_knn.knn_topk_segments_cuda(segs, q, space="l2", k=k),
+        lambda: knn.knn_topk_segments(segs, q, space="l2", k=k), 20)
+    lib_ms = cuda_ms(lambda: [torch.topk(s.vectors @ q, k) for s in segs],
+                     20)
+    dev_ms = kernel_device_ms(
+        lambda: cuda_knn.knn_topk_segments_cuda(segs, q, space="l2", k=k),
+        20, "knn_topk_kernel")
+    rows = sum(s.vectors.shape[0] for s in segs)
+    nbytes = rows * (DIM * 4 + 2) + DIM * 4 + len(segs) * k * 8
+    bms, by = bound_ms(nbytes, 4.0 * rows * DIM)
+    log(f"K1 top-k l2 k={k} over {len(segs)} segments of "
+        f"{segs[0].vectors.shape[0]}x{DIM}, one launch per query: ms {ms:.4f} "
+        f"device_ms {dev_ms} plain_ms {plain_ms:.4f} library_ms"
+        f"(topk(v @ q) chain) {lib_ms:.4f} bound_ms {bms:.4f} ({by}: "
+        f"{nbytes} bytes) on "
+        f"{gpu_name_power()}")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+            "bound_bytes": nbytes, "max_abs_err": max_err,
+            "shape": f"{len(segs)}x{segs[0].vectors.shape[0]}x{DIM}, k={k}"}
+
 
 def phase_kernels(scale_segs, searcher, query_pairs):
     """K1 and K2 against their plain twins on the card, and timed at the
@@ -129,7 +280,7 @@ def phase_kernels(scale_segs, searcher, query_pairs):
     out = {}
     gen = torch.Generator(device=dev).manual_seed(1234)
     k1_err = 0.0
-    for n in (1_000_000, 65_536, 1000):
+    for n in (BIG_N, 65_536, 1000):
         v = torch.randn(n, DIM, device=dev, generator=gen)
         valid = torch.rand(n, device=dev, generator=gen) > 0.05
         q = torch.randn(DIM, device=dev, generator=gen)
@@ -150,7 +301,7 @@ def phase_kernels(scale_segs, searcher, query_pairs):
             k1_err = max(k1_err, err.max().item())
             log(f"K1 {space:12s} n={n:8d} d={DIM}: max_abs_err "
                 f"{err.max().item():.3e} (rtol=1e-5, atol=1e-6) ok")
-        if n == 1_000_000:
+        if n == BIG_N:
             ms, plain_ms = in_turns(
                 lambda: cuda_knn.knn_scores_cuda(v, valid, q, space="l2"),
                 lambda: cuda_knn.knn_scores_plain(v, valid, q, space="l2"),
@@ -165,9 +316,9 @@ def phase_kernels(scale_segs, searcher, query_pairs):
                             "library_ms": lib_ms, "bound_ms": bms}
         del v, valid, q
 
-    # K1 at the main path's shape: every scale segment's [n_pad, 128]
-    # vectors in turn (32 MiB each, so L2 does not hold them across the
-    # sixteen), against one query
+    # K1's scores-only entry at the per-segment shape: every scale
+    # segment's [n_pad, 128] vectors in turn (32 MiB each, so L2 does
+    # not hold them across the sixteen), against one query
     cols = []
     for seg in scale_segs:
         dseg = seg.device(dev)
@@ -182,16 +333,23 @@ def phase_kernels(scale_segs, searcher, query_pairs):
         lambda: [cuda_knn.knn_scores_plain(v, m, q, space="l2")
                  for v, m in cols], 10)
     lib_ms = cuda_ms(lambda: [v @ q for v, _m in cols], 10)
+    dev_ms = kernel_device_ms(
+        lambda: [cuda_knn.knn_scores_cuda(v, m, q, space="l2")
+                 for v, m in cols], 5, "knn_scores_kernel")
     n_pad = cols[0][0].shape[0]
     bms, by = bound_ms(n_pad * DIM * 4 + n_pad + DIM * 4 + n_pad * 4,
                        4.0 * n_pad * DIM)
     out["knn_scores"] = {
         "ms": ms / nseg, "plain_ms": plain_ms / nseg,
         "library_ms": lib_ms / nseg, "bound_ms": bms, "bound_by": by,
-        "max_abs_err": k1_err, "shape": f"{n_pad}x{DIM}"}
-    log(f"K1 l2 {n_pad}x{DIM} per segment: ms {ms / nseg:.4f} plain_ms "
-        f"{plain_ms / nseg:.4f} library_ms {lib_ms / nseg:.4f} bound_ms "
-        f"{bms:.4f} ({by})")
+        "device_ms": dev_ms, "max_abs_err": k1_err,
+        "shape": f"{n_pad}x{DIM}"}
+    log(f"K1 scores l2 {n_pad}x{DIM} per segment: ms {ms / nseg:.4f} "
+        f"device_ms {dev_ms} plain_ms {plain_ms / nseg:.4f} library_ms "
+        f"{lib_ms / nseg:.4f} bound_ms {bms:.4f} ({by})")
+    del cols
+
+    out["knn_topk"] = phase_knn_topk(scale_segs, dev, gen)
 
     # K2 on real query bags of the scale corpus: byte for byte against
     # the plain twin, in both modes (scores only; scores + counts)
@@ -273,7 +431,7 @@ def phase_kernels(scale_segs, searcher, query_pairs):
     lib_ms = cuda_ms(lib_chain, 20)
     nseg = len(calls)
     bms, by = bound_ms(nbytes / nseg, 3.0 * (nbytes / nseg) / 8)
-    out["term_bag"] = {
+    out["term_bag_scores"] = {
         "ms": ms / nseg, "plain_ms": plain_ms / nseg,
         "library_ms": lib_ms / nseg, "bound_ms": bms, "bound_by": by,
         "max_abs_err": 0.0, "bag": median_bag}
@@ -323,12 +481,15 @@ def ingest_queries(seed: int) -> list:
         {"constant_score": {"filter": {"term": {"tag": "gold"}},
                             "boost": 1.5}},
     ]
+    from opensearch_tpu_torch.ops.cuda_knn import K_MAX
     knn_q = [
         {"knn": {"vec": {"vector": qv[0], "k": 10}}},
         {"knn": {"vec_cos": {"vector": qv[1], "k": 10}}},
         {"knn": {"vec_ip": {"vector": qv[2], "k": 10}}},
         {"knn": {"vec": {"vector": qv[3], "k": 10,
                          "filter": {"term": {"tag": "red"}}}}},
+        # above the kernel's in-kernel k: the scores-only route
+        {"knn": {"vec_cos": {"vector": qv[0], "k": K_MAX + 1}}},
     ]
     return ([{"query": q, "size": 20} for q in bm25_q]
             + [{"query": {"match": {"body": "w1 w6"}}, "size": 20,
@@ -373,8 +534,9 @@ def phase_ingest():
         if len(a["hits"]["hits"]) != 10:
             raise AssertionError("ingest knn: expected 10 hits")
         field = next(iter(body["query"]["knn"]))
-        log(f"ingest knn ok: field={field} filtered="
-            f"{'filter' in body['query']['knn'][field]}")
+        spec = body["query"]["knn"][field]
+        log(f"ingest knn ok: field={field} k={spec['k']} filtered="
+            f"{'filter' in spec}")
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -454,15 +616,25 @@ def phase_scale(segs, mapper, searcher):
     timed(searcher, knn_bodies(5))
     match_qs, knn_qs = match_bodies(200, seed=7), knn_bodies(100)
     from opensearch_tpu_torch.ops import cuda_bm25, cuda_knn
-    k1_0, k2_0 = cuda_knn.knn_scores_cuda.launches, cuda_bm25.term_bag_cuda.launches
+    counters = {"knn_topk": cuda_knn.knn_topk_segments_cuda,
+                "knn_scores": cuda_knn.knn_scores_cuda,
+                "term_bag": cuda_bm25.term_bag_cuda}
+
+    def counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    c0 = counts()
     m_qps, m_p50 = timed(searcher, match_qs)
-    k1_1, k2_1 = cuda_knn.knn_scores_cuda.launches, cuda_bm25.term_bag_cuda.launches
+    c1 = counts()
     k_qps, k_p50 = timed(searcher, knn_qs)
-    k1_2, k2_2 = cuda_knn.knn_scores_cuda.launches, cuda_bm25.term_bag_cuda.launches
-    per_query = {"match_k1": (k1_1 - k1_0) / len(match_qs),
-                 "match_k2": (k2_1 - k2_0) / len(match_qs),
-                 "knn_k1": (k1_2 - k1_1) / len(knn_qs),
-                 "knn_k2": (k2_2 - k2_1) / len(knn_qs)}
+    c2 = counts()
+    per_query = {}
+    for name in counters:
+        per_query[f"match_{name}"] = (c1[name] - c0[name]) / len(match_qs)
+        per_query[f"knn_{name}"] = (c2[name] - c1[name]) / len(knn_qs)
+    if per_query["knn_knn_topk"] != 1.0 or per_query["knn_knn_scores"]:
+        raise AssertionError(f"a knn query must make exactly one K1 "
+                             f"launch: {per_query}")
     gpu = gpu_name_power()
     log(f"scale match: {len(match_qs)} queries, qps {m_qps:.2f}, p50 "
         f"{m_p50:.3f} ms on {gpu}")
@@ -480,9 +652,12 @@ def phase_scale(segs, mapper, searcher):
             raise AssertionError(f"scale knn vs cpu: {bad}")
     log("scale sample: 5 match queries byte-equal and 3 knn queries "
         "within tolerance of the CPU searcher")
-    log(f"scale launches per query: match {per_query['match_k2']:.2f} K2 "
-        f"+ {per_query['match_k1']:.2f} K1; knn {per_query['knn_k1']:.2f} "
-        f"K1 + {per_query['knn_k2']:.2f} K2")
+    log("scale launches per query: match "
+        f"{per_query['match_term_bag']:.2f} K2 + "
+        f"{per_query['match_knn_topk']:.2f} K1; knn "
+        f"{per_query['knn_knn_topk']:.2f} K1 (was 16, one per segment) + "
+        f"{per_query['knn_knn_scores']:.2f} K1 scores-only + "
+        f"{per_query['knn_term_bag']:.2f} K2")
     return {"match_qps": m_qps, "match_p50_ms": m_p50, "knn_qps": k_qps,
             "knn_p50_ms": k_p50, "launches_per_query": per_query}
 
@@ -501,37 +676,35 @@ def main() -> int:
     segs, mapper, searcher = build_scale()
     kern = phase_kernels(segs, searcher, zipf_query_log(200, seed=7))
 
-    counters = (cuda_knn.knn_scores_cuda, cuda_bm25.term_bag_cuda)
-    for fn in counters:                       # the main path starts here
+    counters = {"knn_topk": cuda_knn.knn_topk_segments_cuda,
+                "knn_scores": cuda_knn.knn_scores_cuda,
+                "term_bag_scores": cuda_bm25.term_bag_cuda}
+    for fn in counters.values():              # the main path starts here
         fn.launches = 0
     phase_ingest()
-    after_ingest = [fn.launches for fn in counters]
+    after_ingest = {n: fn.launches for n, fn in counters.items()}
     scale = phase_scale(segs, mapper, searcher)
-    launches = [fn.launches for fn in counters]
-    log(f"launches over phases 3-4: knn_scores {launches[0]} (ingest "
-        f"{after_ingest[0]}), term_bag {launches[1]} (ingest "
-        f"{after_ingest[1]})")
-    if min(launches) <= 0 or min(after_ingest) <= 0:
+    launches = {n: fn.launches for n, fn in counters.items()}
+    log(f"launches over phases 3-4: {launches} (ingest {after_ingest})")
+    if min(launches.values()) <= 0 or min(after_ingest.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{launches}")
-    k1, k2 = kern["knn_scores"], kern["term_bag"]
+                             f"{launches} (ingest {after_ingest})")
+    sources = {"knn_topk": ("knn.cu", "opensearch_tpu/ops/pallas_knn.py:62"),
+               "knn_scores": ("knn.cu",
+                              "opensearch_tpu/ops/pallas_knn.py:62"),
+               "term_bag_scores": ("bm25.cu",
+                                   "opensearch_tpu/ops/bm25.py:191")}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = {"kernels": [
-        {"name": "knn_scores", "route": "cuda",
-         "source": "opensearch_tpu_torch/csrc/knn.cu",
-         "replaces": "opensearch_tpu/ops/pallas_knn.py:62",
-         "launches": launches[0], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": k1["library_ms"]},
-        {"name": "term_bag_scores", "route": "cuda",
-         "source": "opensearch_tpu_torch/csrc/bm25.cu",
-         "replaces": "opensearch_tpu/ops/bm25.py:191",
-         "launches": launches[1], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": k2["library_ms"]},
-    ]}
+        {"name": name, "route": "cuda",
+         "source": f"opensearch_tpu_torch/csrc/{src}", "replaces": rep,
+         "launches": launches[name],
+         **{key: kern[name][key] for key in keys}}
+        for name, (src, rep) in sources.items()]}
     log(json.dumps({"scale": scale, "k1_1m": kern["k1_1m"],
+                    "device_ms": {n: kern[n].get("device_ms")
+                                  for n in sources},
                     "wall_s": time.monotonic() - t_start}))
     log(json.dumps(kernels))
     log(gpu_name_power())

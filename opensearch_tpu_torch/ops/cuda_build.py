@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds).  Libraries land in
 ``build/torch_kernels/`` at the repository root, named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged
-one is reused.  ``build()`` starts one ``nvcc`` per missing library, all
+source and the flags (the ``-D`` defines a wrapper passes included), so
+an edited source is rebuilt and an unchanged one is reused.  ``build()`` starts one ``nvcc`` per missing library, all
 at once, and waits for them together.
 
 Nothing here runs at import: the first launch of a kernel builds it.
@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas=-v")
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -47,28 +47,37 @@ def nvcc_path() -> str:
     return "/usr/local/cuda/bin/nvcc"
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (hash of source + flags)."""
+def _flags(defines) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{key}={value}"
+                              for key, value in sorted(defines.items()))
+
+
+def library_path(name: str, defines=None) -> Path:
+    """Where ``csrc/<name>.cu`` builds to with the macros ``defines``
+    ({name: value}; hash of source + flags)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(_flags(defines or {})).encode()
+    ).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(names) -> dict[str, str]:
+def build(names, defines=None) -> dict[str, str]:
     """Build every library of ``names`` that is missing, one ``nvcc``
-    each, all started together.  Returns {name: compiler log} for the
-    libraries built in this call (``-Xptxas=-v``: registers, shared
-    memory, spills).  Raises with the compiler's output on failure."""
+    each, all started together; ``defines`` maps a name to its macros.
+    Returns {name: compiler log} for the libraries built in this call
+    (``-Xptxas=-v``: registers, shared memory, spills).  Raises with the
+    compiler's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    defines = defines or {}
     procs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, defines.get(name))
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+            [nvcc_path(), *_flags(defines.get(name) or {}), "-o", str(tmp),
              str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
@@ -87,19 +96,21 @@ def build(names) -> dict[str, str]:
     return logs
 
 
-def library(name: str, declare) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use.
-    ``declare(lib)`` sets the kernels' ``argtypes``/``restype`` once, at
-    load; ``error_string`` is declared here."""
+def library(name: str, declare, defines=None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` built with the macros
+    ``defines``, built on first use.  ``declare(lib)`` sets the kernels'
+    ``argtypes``/``restype`` once, at load; ``error_string`` is declared
+    here."""
+    key = (name, tuple(sorted((defines or {}).items())))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            build([name], {name: defines})
+            lib = ctypes.CDLL(str(library_path(name, defines)))
             lib.error_string.argtypes = [ctypes.c_int]
             lib.error_string.restype = ctypes.c_char_p
             declare(lib)
-            _libs[name] = lib
+            _libs[key] = lib
         return lib
 
 

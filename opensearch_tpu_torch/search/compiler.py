@@ -241,13 +241,14 @@ def _c_constant_score(q, ctx, scored):
 
 
 def _c_knn(q, ctx, scored):
-    """knn query: per-segment exact vector search (ops/knn.py — K1 on
-    CUDA), with the global per-shard k winners injected into the plan
-    tree as a ScoredMaskPlan.  Optional ``filter`` restricts candidates
-    BEFORE the k cut (the plugin's filtered-knn semantics).  Every
-    segment's program is launched first; the host syncs once per query.
-    ANN methods (``ivf``/``ivf_pq``) are not ported yet."""
-    from opensearch_tpu_torch.ops.knn import knn_topk_auto
+    """knn query: exact vector search of every segment at once
+    (ops/knn.py -- one K1 launch per query on CUDA, each segment's top-k
+    inside the kernel), with the global per-shard k winners injected
+    into the plan tree as a ScoredMaskPlan.  Optional ``filter``
+    restricts candidates BEFORE the k cut (the plugin's filtered-knn
+    semantics).  The host syncs once per query.  ANN methods
+    (``ivf``/``ivf_pq``) are not ported yet."""
+    from opensearch_tpu_torch.ops.knn import KnnSegment, knn_topk_segments_auto
     from opensearch_tpu_torch.search.executor import build_arrays
 
     ft = ctx.field_type(q.field)
@@ -273,32 +274,34 @@ def _c_knn(q, ctx, scored):
         filter_state = compile_query(q.filter, ctx, scored=False)
 
     qvec_t = torch.from_numpy(qvec).to(ctx.device)
-    # phase 1: launch every segment's program, keep DEVICE tensors
-    pending = []             # (seg_order, vals_dev, idx_dev)
+    # phase 1: every segment's inputs (the filter's masks are launched
+    # here), then one top-k launch over them all.  ``inputs`` keeps every
+    # tensor the launch reads referenced until the host sync below.
+    inputs, orders = [], []
     for seg_order, seg in enumerate(ctx.segments):
         dseg = seg.device(ctx.device)
         vcol = dseg.vector.get(q.field)
         if vcol is None:
             continue
-        live = ctx.live_mask(seg, dseg)
-        valid = vcol["exists"] & live
+        mask = None
         if filter_state is not None:
             fplan, fbind = filter_state
             A = build_arrays(dseg, fplan.arrays(), ctx.mapper)
             dims, ins = fplan.prepare(fbind, seg, dseg, ctx)
-            _s, fmask = P.run_full(fplan, dims, A, ins, -np.inf)
-            valid = valid & fmask
-        kk = min(q.k, dseg.n_pad)
-        vals, idx = knn_topk_auto(vcol["values"], valid, qvec_t,
-                                  space=space, k=kk)
-        pending.append((seg_order, vals, idx))
-    # phase 2: one host sync for all segments' top-k
+            _s, mask = P.run_full(fplan, dims, A, ins, -np.inf)
+        inputs.append(KnnSegment(vcol["values"], vcol["exists"],
+                                 ctx.live_mask(seg, dseg), mask))
+        orders.append(seg_order)
     candidates = []          # (score, seg_order, local)
-    for seg_order, vals, idx in pending:
+    if inputs:
+        vals, idx = knn_topk_segments_auto(inputs, qvec_t, space=space,
+                                           k=q.k)
+        # phase 2: one host sync for all segments' top-k
         vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
-        keep = (vals > -np.inf) & (idx >= 0)
-        for v, i in zip(vals[keep], idx[keep]):
-            candidates.append((float(v), seg_order, int(i)))
+        for row, seg_order in enumerate(orders):
+            keep = (vals[row] > -np.inf) & (idx[row] >= 0)
+            for v, i in zip(vals[row][keep], idx[row][keep]):
+                candidates.append((float(v), seg_order, int(i)))
     candidates.sort(key=lambda t: (-t[0], t[1], t[2]))
     winners: dict[int, list[tuple[int, float]]] = {}
     for score, seg_order, local in candidates[: q.k]:

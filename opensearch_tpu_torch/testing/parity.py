@@ -7,11 +7,15 @@ devices, or this package against the JAX reference).
   fixed by the reference): scores agree position by position, and an
   id present on one side only must score within the tolerance of the
   other side's last (k-th) score — a near-tie at the cut.
+- Per-segment top-k arrays (``topk_mismatch``) compare by the same
+  rule, row by row, with the -inf slots and their ids equal.
 """
 
 from __future__ import annotations
 
 import math
+
+import numpy as np
 
 from opensearch_tpu_torch.ops.knn import ATOL, RTOL
 
@@ -61,3 +65,38 @@ def knn_mismatch(a: dict, b: dict, rtol: float = RTOL,
                 return (f"hit [{doc}] (score {s}) is missing on the other "
                         f"side, whose last score is {py[-1][1]}")
     return None
+
+
+def topk_mismatch(vals_a, ids_a, vals_b, ids_b, rtol: float = RTOL,
+                  atol: float = ATOL):
+    """(None or a message naming the first difference, max abs error of
+    the finite scores) between two per-segment top-k results, numpy
+    ``vals`` f32 [S, k] and ``ids`` i32 [S, k]: -inf positions and the
+    ids there equal; finite scores within the tolerance position by
+    position; an id on one side only must score within the tolerance of
+    the other side's k-th finite score."""
+    if vals_a.shape != vals_b.shape or ids_a.shape != ids_b.shape:
+        return f"shapes differ: {vals_a.shape} vs {vals_b.shape}", 0.0
+    max_err = 0.0
+    for s in range(vals_a.shape[0]):
+        neg_a, neg_b = np.isneginf(vals_a[s]), np.isneginf(vals_b[s])
+        if not np.array_equal(neg_a, neg_b):
+            return f"row {s}: -inf positions differ", max_err
+        if not np.array_equal(ids_a[s][neg_a], ids_b[s][neg_b]):
+            return f"row {s}: ids at -inf differ", max_err
+        a, b = vals_a[s][~neg_a], vals_b[s][~neg_b]
+        if a.size == 0:
+            continue
+        max_err = max(max_err, float(np.abs(a - b).max()))
+        for i, (x, y) in enumerate(zip(a, b)):
+            if not _close(float(x), float(y), rtol, atol):
+                return f"row {s}: scores differ at {i}: {x} vs {y}", max_err
+        by_a = dict(zip(ids_a[s][~neg_a].tolist(), a.tolist()))
+        by_b = dict(zip(ids_b[s][~neg_b].tolist(), b.tolist()))
+        for only, scores, kth in ((by_a.keys() - by_b.keys(), by_a, b[-1]),
+                                  (by_b.keys() - by_a.keys(), by_b, a[-1])):
+            for doc in only:
+                if not _close(scores[doc], float(kth), rtol, atol):
+                    return (f"row {s}: id {doc} (score {scores[doc]}) on "
+                            f"one side only, k-th score {kth}"), max_err
+    return None, max_err

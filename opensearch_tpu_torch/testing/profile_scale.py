@@ -8,8 +8,8 @@ vectors), a window of ``match`` and ``knn`` queries through
 Prints one JSON line per query kind: wall ms per query (profiler on),
 device busy ms per query (the sum of the CUDA kernels' and copies' own
 time; one stream, so they do not overlap), the idle share
-``1 - busy / wall``, the top device entries and the top host ops by
-self time.  Needs CUDA; without it, exits non-zero.
+``1 - busy / wall``, the device calls (kernels and copies) per query,
+the top device entries and the top host ops by self time.  Needs CUDA; without it, exits non-zero.
 """
 
 from __future__ import annotations
@@ -91,6 +91,7 @@ def profile_window(searcher, bodies: list) -> dict:
         "wall_ms_per_query": wall_ms / n,
         "device_busy_ms_per_query": (busy_ms / n) if dev else None,
         "idle_share": (1.0 - busy_ms / wall_ms) if dev else None,
+        "device_calls_per_query": sum(e.count for e in dev) / n,
         "top_device": [{"name": e.key[:80], "ms_per_query":
                         _device_self_us(e) / 1e3 / n,
                         "calls_per_query": e.count / n} for e in dev[:8]],

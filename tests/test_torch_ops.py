@@ -22,6 +22,7 @@ from opensearch_tpu_torch.index.segment import pad_bucket, pad_pow2
 from opensearch_tpu_torch.ops import bm25 as tbm25
 from opensearch_tpu_torch.ops import cuda_bm25, cuda_knn
 from opensearch_tpu_torch.ops import knn as tknn
+from opensearch_tpu_torch.testing.parity import topk_mismatch
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -179,15 +180,15 @@ def test_knn_any_row_count(space):
                                          jnp.asarray(query), space=space))
         np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
         k = min(5, n)
-        tv, ti = tknn.knn_topk_auto(torch.from_numpy(vectors),
-                                    torch.from_numpy(valid),
-                                    torch.from_numpy(query), space=space,
-                                    k=k)
+        tv, ti = tknn.knn_topk_segments_auto(
+            [tknn.KnnSegment(torch.from_numpy(vectors),
+                             torch.from_numpy(valid))],
+            torch.from_numpy(query), space=space, k=k)
         rv, ri = jknn.knn_topk(jnp.asarray(vectors), jnp.asarray(valid),
                                jnp.asarray(query), space=space, k=k)
-        np.testing.assert_allclose(tv.numpy(), np.asarray(rv), rtol=RTOL,
-                                   atol=ATOL)
-        np.testing.assert_array_equal(ti.numpy(), np.asarray(ri))
+        np.testing.assert_allclose(tv[0].numpy(), np.asarray(rv),
+                                   rtol=RTOL, atol=ATOL)
+        np.testing.assert_array_equal(ti[0].numpy(), np.asarray(ri))
 
 
 def test_topk_breaks_ties_by_lower_index_like_lax_top_k():
@@ -215,3 +216,186 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                 scores=True, counts=True)
     assert cuda_knn.knn_scores_cuda.launches == 0
     assert cuda_bm25.term_bag_cuda.launches == 0
+
+
+# -- the fused top-k over segments (K1's top-k entry) ----------------------
+
+TOPK_K = 16
+
+
+def segment_cases(seed, d=16):
+    """Segments of different sizes: plain, filtered, one with no valid
+    row, one shorter than k, one of duplicated rows (ties)."""
+    rng = np.random.default_rng(seed)
+
+    def seg(n, p_exists=0.9, p_live=0.9, p_mask=None, rows=None):
+        vectors = (rows if rows is not None
+                   else rng.normal(size=(n, d)).astype(np.float32))
+        mask = None if p_mask is None else rng.random(n) < p_mask
+        return (vectors, rng.random(n) < p_exists, rng.random(n) < p_live,
+                mask)
+
+    base = rng.normal(size=(8, d)).astype(np.float32)
+    dup = base[rng.integers(0, 8, size=512)]
+    return [seg(256), seg(512, p_mask=0.3), seg(1024),
+            seg(256, p_exists=0.0), seg(8, p_live=0.5),
+            seg(512, rows=dup)]
+
+
+def valid_of(exists, live, mask):
+    v = exists & live
+    return v if mask is None else v & mask
+
+
+def as_torch_segments(cases):
+    def t(a):
+        return None if a is None else torch.from_numpy(a)
+    return [tknn.KnnSegment(t(v), t(e), t(lv), t(m)) for v, e, lv, m in cases]
+
+
+@pytest.mark.parametrize("space", tknn.SPACES)
+@pytest.mark.parametrize("seed", [3, 17, 92])
+def test_knn_topk_segments_match_jax_knn_topk_and_pallas(space, seed):
+    """The plain twin of the fused K1 top-k, segment by segment, against
+    the JAX ``knn_topk`` and against ``knn_scores_pallas`` (interpret
+    mode) + ``lax.top_k``; a segment shorter than k ends in (-inf, -1),
+    and duplicated rows tie-break to the lower id, byte-equal to JAX."""
+    from jax import lax
+    cases = segment_cases(seed)
+    rng = np.random.default_rng(seed + 100)
+    query = rng.normal(size=16).astype(np.float32)
+    vals, ids = tknn.knn_topk_segments(as_torch_segments(cases),
+                                       torch.from_numpy(query), space=space,
+                                       k=TOPK_K)
+    assert vals.shape == (len(cases), TOPK_K) and ids.dtype == torch.int32
+    vals, ids = vals.numpy(), ids.numpy()
+    for s, (v, e, lv, m) in enumerate(cases):
+        n = v.shape[0]
+        kk = min(TOPK_K, n)
+        jv, jvalid, jq = (jnp.asarray(v), jnp.asarray(valid_of(e, lv, m)),
+                          jnp.asarray(query))
+        refs = [jknn.knn_topk(jv, jvalid, jq, space=space, k=kk)]
+        if n % TILE == 0:
+            refs.append(lax.top_k(knn_scores_pallas(
+                jv, jvalid, jq, space=space, interpret=True), kk))
+        for rv, ri in refs:
+            bad, _err = topk_mismatch(vals[s:s + 1, :kk], ids[s:s + 1, :kk],
+                                      np.asarray(rv)[None],
+                                      np.asarray(ri)[None])
+            assert bad is None, (s, bad)
+        assert np.all(np.isneginf(vals[s, kk:])) and np.all(ids[s, kk:] == -1)
+    assert np.all(np.isneginf(vals[3])) and list(ids[3]) == list(range(16))
+    assert np.isneginf(vals[4]).sum() >= TOPK_K - 8
+    dup_ref = jknn.knn_topk(jnp.asarray(cases[5][0]),
+                            jnp.asarray(valid_of(*cases[5][1:])),
+                            jnp.asarray(query), space=space, k=TOPK_K)[1]
+    assert ids[5].tobytes() == np.asarray(dup_ref).astype(np.int32).tobytes()
+    assert len(set(np.round(vals[5], 6))) < TOPK_K     # ties were present
+
+
+def test_knn_topk_segments_auto_takes_the_plain_twin_on_cpu():
+    cases = as_torch_segments(segment_cases(5))
+    q = torch.from_numpy(np.random.default_rng(6).normal(size=16)
+                         .astype(np.float32))
+    for k in (1, 10, cuda_knn.K_MAX + 1):
+        a = tknn.knn_topk_segments_auto(cases, q, space="l2", k=k)
+        b = tknn.knn_topk_segments(cases, q, space="l2", k=k)
+        assert a[0].shape == (len(cases), k)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert cuda_knn.knn_topk_segments_cuda.launches == 0
+    assert cuda_knn.knn_topk_segments_cuda.sorted_route_segments == 0
+
+
+def test_knn_topk_segments_cuda_refuses_cpu_tensors():
+    cases = as_torch_segments(segment_cases(7))
+    q = torch.zeros(16)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_knn.knn_topk_segments_cuda(cases, q, space="l2", k=10)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_knn.knn_topk_segments_cuda(cases, q, space="l2",
+                                        k=cuda_knn.K_MAX + 1)
+    with pytest.raises(ValueError, match="space"):
+        cuda_knn.knn_topk_segments_cuda(cases, q, space="hamming", k=10)
+    assert cuda_knn.knn_topk_segments_cuda.launches == 0
+
+
+def test_launch_table_layout_and_work_list():
+    """The top-k launch's table: per-segment pointers, rows, first chunk
+    and chunk count; a work list naming (segment, chunk) for every block
+    in order; zeroed counters; an empty segment still takes one chunk."""
+    C = cuda_knn.CHUNK_ROWS
+    rows = [7, C, C + 1, 16 * C, 0]
+    ptrs = [(1000 + 10 * s, 2000 + s, 0 if s == 1 else 3000 + s,
+             0 if s != 2 else 4000) for s in range(len(rows))]
+    table, n_blocks = cuda_knn.launch_table(ptrs, rows)
+    chunks = [1, 1, 2, 16, 1]
+    assert n_blocks == sum(chunks)
+    S, W = len(rows), cuda_knn.SEG_WORDS
+    head = table[: S * W].reshape(S, W)
+    np.testing.assert_array_equal(head[:, 0:4], np.asarray(ptrs))
+    np.testing.assert_array_equal(head[:, 4], rows)
+    np.testing.assert_array_equal(head[:, 5], np.cumsum([0] + chunks[:-1]))
+    np.testing.assert_array_equal(head[:, 6], chunks)
+    np.testing.assert_array_equal(head[:, 7], range(S))
+    work = table[S * W: S * W + n_blocks]
+    expect = [(s, c) for s, n in enumerate(chunks) for c in range(n)]
+    assert [(int(w) >> 32, int(w) & 0xFFFFFFFF) for w in work] == expect
+    counters = table[S * W + n_blocks:].view(np.int32)
+    assert counters.shape[0] >= S and not counters.any()
+    assert table.dtype == np.int64
+    empty, nb = cuda_knn.launch_table([], [])
+    assert nb == 0 and empty.shape == (0,)
+    # a launch over some segments of a call writes each to its own row
+    some, nb = cuda_knn.launch_table(ptrs[1:3], rows[1:3], [1, 2])
+    np.testing.assert_array_equal(some[: 2 * W].reshape(2, W)[:, 7], [1, 2])
+    assert nb == 3
+
+
+def test_knn_layout_constants_reach_the_kernel_as_macros():
+    """The wrapper is the one source of the chunk size and the table
+    layout: ``csrc/knn.cu`` takes them as -D macros, and a library built
+    with other values lands at another path."""
+    from opensearch_tpu_torch.ops import cuda_build
+
+    assert cuda_knn.defines() == {"KNN_CHUNK_ROWS": cuda_knn.CHUNK_ROWS,
+                                  "KNN_K_MAX": cuda_knn.K_MAX,
+                                  "KNN_SEG_WORDS": cuda_knn.SEG_WORDS}
+    src = (cuda_build.CSRC / "knn.cu").read_text()
+    for macro in cuda_knn.defines():
+        assert f"= {macro};" in src
+    base = cuda_build.library_path("knn", cuda_knn.defines())
+    other = cuda_build.library_path(
+        "knn", {**cuda_knn.defines(), "KNN_CHUNK_ROWS": 1024})
+    assert base != other
+    assert base == cuda_build.library_path("knn", cuda_knn.defines())
+    assert cuda_build.library_path("bm25") == \
+        cuda_build.library_path("bm25", {})
+
+
+@pytest.mark.parametrize("k,kp,sorted_route", [
+    (1, 1, False), (10, 16, False), (100, 128, False),
+    (cuda_knn.K_MAX, cuda_knn.K_MAX, False), (cuda_knn.K_MAX + 1, None, True),
+    (10_000, None, True)])
+def test_k_routing_and_padding(k, kp, sorted_route):
+    """k up to K_MAX is selected inside the kernel, kept per chunk as a
+    power of two; above K_MAX the scores-only entry + stable sort serve
+    (a segment of the scale phase's 65,536 rows)."""
+    assert cuda_knn.uses_sorted_route(k, 65_536) is sorted_route
+    if kp is not None:
+        assert cuda_knn.k_padded(k) == kp
+    assert cuda_knn.K_MAX >= 256
+
+
+@pytest.mark.parametrize("n,k,sorted_route", [
+    (1_000_000, 10, False), (1_000_000, 100, False), (1_000_000, 256, True),
+    (1_000_000, 129, True), (65_536, 256, False), (0, 256, False)])
+def test_sorted_route_for_a_large_merge(n, k, sorted_route):
+    """A segment whose merge would take more than MERGE_MAX_CANDIDATES
+    candidates (chunks x k rounded up to a power of two) takes the
+    scores-only entry + stable sort; the limit itself still merges."""
+    assert cuda_knn.uses_sorted_route(k, n) is sorted_route
+    limit = cuda_knn.MERGE_MAX_CANDIDATES
+    kp = cuda_knn.k_padded(k)
+    at_limit = limit // kp * cuda_knn.CHUNK_ROWS
+    assert not cuda_knn.uses_sorted_route(k, at_limit)
+    assert cuda_knn.uses_sorted_route(k, at_limit + 1)

@@ -169,6 +169,46 @@ def test_knn_search_within_tolerance(pair):
                 (field, filt, knn_mismatch(got, ref))
 
 
+def test_knn_search_k_beyond_a_segment_within_tolerance(pair):
+    """k larger than the smaller segment's padded row count: that
+    segment's top-k ends in (-inf, -1) slots, which never reach the
+    hits; the merged hits still match the reference."""
+    seed, jax_s, port_s = pair
+    rng = np.random.default_rng(seed + 5)
+    for field in ("vec", "vec_ip"):
+        spec = {"vector": rng.standard_normal(DIM).tolist(), "k": 150}
+        body = {"query": {"knn": {field: spec}}, "size": 150}
+        ref, got = jax_s.search(body), port_s.search(body)
+        assert len(ref["hits"]["hits"]) == 150
+        assert knn_mismatch(got, ref) is None, (field,
+                                                knn_mismatch(got, ref))
+
+
+def test_knn_search_makes_one_topk_call_for_all_segments(pair,
+                                                          monkeypatch):
+    """The query compiler hands every segment to one top-k call (one K1
+    launch on the card), with the filter as a per-segment mask."""
+    from opensearch_tpu_torch.ops import knn as tknn
+    _seed, _jax_s, port_s = pair
+    calls = []
+    real = tknn.knn_topk_segments_auto
+
+    def spy(segments, query, **kw):
+        calls.append((len(segments), [s.mask is not None for s in segments],
+                      kw))
+        return real(segments, query, **kw)
+
+    monkeypatch.setattr(tknn, "knn_topk_segments_auto", spy)
+    vec = np.random.default_rng(1).standard_normal(DIM).tolist()
+    port_s.search({"query": {"knn": {"vec_cos": {"vector": vec, "k": 5}}}})
+    port_s.search({"query": {"knn": {"vec": {
+        "vector": vec, "k": 3, "filter": {"term": {"tag": "red"}}}}}})
+    assert calls == [
+        (len(SEG_SIZES), [False] * len(SEG_SIZES),
+         {"space": "cosinesimil", "k": 5}),
+        (len(SEG_SIZES), [True] * len(SEG_SIZES), {"space": "l2", "k": 3})]
+
+
 def test_count_matches_reference(pair):
     _seed, jax_s, port_s = pair
     for q in ({"match": {"body": "w2 w4"}}, {"term": {"tag": "gold"}},
