@@ -18,20 +18,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``uses_sorted_route`` says, in one call where they mix)
    against ``knn_topk_segments``, K1's scores-only entry
    ``knn_scores`` (three spaces; 1M x 128, the per-segment shape, a
-   ragged n), both within the stated tolerance, and K2 the term-bag
-   scorer on three real query bags, byte for byte;
+   ragged n), both within the stated tolerance; K2's per-slot entry
+   (the term-bag scorer) on three real query bags, byte for byte; and
+   K2's top-k entry ``term_bag_topk_segments_cuda`` (one launch over the
+   16 scale segments) against ``term_bag_topk_segments``, byte for byte,
+   on the median bag, the heaviest bag, a 4-term bag, an ``and`` bag, a
+   ``min_score`` bag and segments with deletes, k in 1, 10, 100, K_MAX,
+   K_MAX + 1 (the per-slot entry plus the stable sort);
 3. ingest path: ~2,000 JSON docs through the port's DocumentMapper and
    SegmentWriter into 2 segments with deletes, then match / bool / knn
    (three spaces, filtered, and one k above K1's in-kernel maximum)
-   through ``ShardSearcher.search`` on the card, hits held to the same
-   searcher on the CPU (the plain versions): BM25 byte for byte, k-NN
-   within tolerance;
+   searches and counts through ``ShardSearcher`` on the card, held to
+   the same searcher on the CPU (the plain versions): BM25 byte for
+   byte, k-NN within tolerance;
 4. scale: 1,000,000 docs in 16 segments (62,500 docs each, under the
    reference's quantization threshold) with ~22M postings and a 128-d
    float32 vector per doc; 200 zipf ``match`` and 100 ``knn`` queries
    through ``ShardSearcher.search`` (qps, p50, kernel launches per
-   query: one K1 launch per ``knn`` query), a sample checked against
-   the CPU searcher.
+   query: one K2 top-k launch per ``match`` query and no per-slot one,
+   one K1 launch per ``knn`` query), a sample checked against the CPU
+   searcher.
 
 Every kernel wrapper counts its launches; the counts are zeroed just
 before phase 3 and read after phase 4, and each kernel must have run.
@@ -129,7 +135,7 @@ def kernel_device_ms(fn, reps: int, name: str):
 def phase_toolkit():
     import torch
 
-    from opensearch_tpu_torch.ops import cuda_build, cuda_knn
+    from opensearch_tpu_torch.ops import cuda_bm25, cuda_build, cuda_knn
 
     nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
@@ -140,7 +146,8 @@ def phase_toolkit():
         f"count={torch.cuda.device_count()}")
     log(f"gpu: {gpu_name_power()}")
     t0 = time.monotonic()
-    logs = cuda_build.build(["knn", "bm25"], {"knn": cuda_knn.defines()})
+    logs = cuda_build.build(["knn", "bm25"], {"knn": cuda_knn.defines(),
+                                              "bm25": cuda_bm25.defines()})
     log(f"kernels built in {time.monotonic() - t0:.1f}s: "
         f"{sorted(logs) or 'cached'}")
     for name, text in logs.items():
@@ -438,7 +445,115 @@ def phase_kernels(scale_segs, searcher, query_pairs):
     log(f"K2 median bag {median_bag} per segment: ms {ms / nseg:.4f} "
         f"plain_ms {plain_ms / nseg:.4f} library_ms(index_add_ chain) "
         f"{lib_ms / nseg:.4f} bound_ms {bms:.5f} ({by})")
+
+    out["term_bag_topk"] = phase_term_bag_topk(
+        scale_segs, searcher, dev, gen, median_bag, by_size[-1],
+        checks[2])
     return out
+
+
+def phase_term_bag_topk(scale_segs, searcher, dev, gen, median_bag,
+                        heaviest_bag, four_bag):
+    """K2's top-k entry against its plain twin over the 16 scale
+    segments, byte for byte, at every bag, mask and k the contract lists;
+    then timed (one launch per query) on the median and the heaviest bag
+    beside the plain twin, the library chain ``[torch.topk(zeros(n_pad)
+    .index_add_(...), k) for each segment]`` and the bound."""
+    import torch
+
+    from opensearch_tpu_torch.ops import bm25, cuda_bm25
+    from opensearch_tpu_torch.search.executor import build_arrays
+
+    def inputs_for(query):
+        plan, bind = searcher.compiled(query)
+        out = []
+        for seg in scale_segs:
+            dseg = seg.device(dev)
+            A = build_arrays(dseg, plan.arrays(), searcher.mapper,
+                             live=searcher.ctx.live_mask(seg, dseg))
+            out.append(plan.topk_input(bind, seg, dseg, A))
+        return out
+
+    def match(terms, **extra):
+        return {"match": {"body": {"query": " ".join(terms), **extra}}}
+
+    median = inputs_for(match(median_bag))
+    deleted = [seg._replace(live=seg.live & (torch.rand(
+        seg.live.shape[0], device=dev, generator=gen) > 0.1))
+        for seg in median]
+    cases = {"median": (median, -np.inf),
+             "heaviest": (inputs_for(match(heaviest_bag)), -np.inf),
+             "4-term": (inputs_for(match(four_bag)), -np.inf),
+             "and": (inputs_for(match(heaviest_bag, operator="and")),
+                     -np.inf),
+             "deletes": (deleted, -np.inf)}
+    top = bm25.term_bag_topk_segments(median, k=100).numpy()[0]
+    cut = float(np.float32(np.median(top[np.isfinite(top)])))
+    cases["min_score"] = (median, cut)
+    fn = cuda_bm25.term_bag_topk_segments_cuda
+    ks = (1, 10, 100, cuda_bm25.K_MAX, cuda_bm25.K_MAX + 1)
+    for name, (inputs, ms) in cases.items():
+        for k in ks:
+            before = fn.launches, fn.sorted_route_segments
+            got = fn(inputs, k=k, min_score=ms).numpy()
+            ref = bm25.term_bag_topk_segments(inputs, k=k,
+                                              min_score=ms).numpy()
+            sorted_route = k > cuda_bm25.K_MAX
+            if (fn.launches - before[0], fn.sorted_route_segments
+                    - before[1]) != (int(not sorted_route),
+                                     len(inputs) * sorted_route):
+                raise AssertionError(f"K2 top-k {name} k={k}: wrong route")
+            for what, a, b in zip(("vals", "ids", "totals", "maxes"), got,
+                                  ref):
+                if a.tobytes() != b.tobytes():
+                    raise AssertionError(
+                        f"K2 top-k {name} k={k}: {what} differ from the "
+                        "plain twin")
+        log(f"K2 top-k {name} (min_score {ms}): k {list(ks)} byte-equal to "
+            f"the plain twin (vals, ids, totals, maxes); totals "
+            f"{int(ref[2].sum())}")
+
+    out = {}
+    for name in ("median", "heaviest"):
+        inputs = cases[name][0]
+        k = 10
+        calls = []
+        nbytes = 0
+        for seg in inputs:
+            act = seg.active
+            rows = [(int(a), int(b), float(i), float(w)) for (a, b), i, w
+                    in zip(seg.rows[act], seg.idfs[act], seg.weights[act])]
+            n_pad = seg.live.shape[0]
+            nbytes += sum(8 * (b - a) for a, b, _i, _w in rows) + n_pad + \
+                8 * k + 8
+            calls.append((seg, rows, n_pad))
+
+        def lib_chain():
+            for seg, rows, n_pad in calls:
+                acc = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+                for a, b, idf_v, w in rows:
+                    acc.index_add_(0, seg.doc_ids[a:b],
+                                   seg.impacts[a:b] * idf_v, alpha=w)
+                torch.topk(acc, k)
+
+        ms, plain_ms = in_turns(
+            lambda: fn(inputs, k=k),
+            lambda: bm25.term_bag_topk_segments(inputs, k=k), 20)
+        lib_ms = cuda_ms(lib_chain, 20)
+        dev_ms = kernel_device_ms(lambda: fn(inputs, k=k), 20,
+                                  "term_bag_topk_kernel")
+        postings = sum(b - a for _s, rows, _n in calls for a, b, _i, _w in rows)
+        bms, by = bound_ms(nbytes, 3.0 * postings)
+        bag = median_bag if name == "median" else heaviest_bag
+        log(f"K2 top-k {name} bag {bag} k={k} over {len(inputs)} segments "
+            f"({postings} postings), one launch per query: ms {ms:.4f} "
+            f"device_ms {dev_ms} plain_ms {plain_ms:.4f} library_ms"
+            f"(index_add_ + topk chain) {lib_ms:.4f} bound_ms {bms:.5f} "
+            f"({by}: {nbytes} bytes) on {gpu_name_power()}")
+        out[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                     "bound_bytes": nbytes, "bag": bag, "postings": postings}
+    return {**out["median"], "max_abs_err": 0.0, "heaviest": out["heaviest"]}
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -526,6 +641,11 @@ def phase_ingest():
             raise AssertionError(f"ingest {body['query']}: no hits")
         log(f"ingest bm25 ok: {json.dumps(body)[:80]} "
             f"total={a['hits']['total']['value']}")
+    for q in ({"match": {"body": "w0 w3 w17"}}, {"term": {"tag": "red"}}):
+        a, b = gpu.count(q), cpu.count(q)
+        if a != b or not a:
+            raise AssertionError(f"ingest count {q}: {a} vs {b}")
+        log(f"ingest count ok: {json.dumps(q)} = {a}")
     for body in knn_bodies:
         a, b = gpu.search(body), cpu.search(body)
         bad = knn_mismatch(a, b)
@@ -618,7 +738,8 @@ def phase_scale(segs, mapper, searcher):
     from opensearch_tpu_torch.ops import cuda_bm25, cuda_knn
     counters = {"knn_topk": cuda_knn.knn_topk_segments_cuda,
                 "knn_scores": cuda_knn.knn_scores_cuda,
-                "term_bag": cuda_bm25.term_bag_cuda}
+                "term_bag": cuda_bm25.term_bag_cuda,
+                "term_bag_topk": cuda_bm25.term_bag_topk_segments_cuda}
 
     def counts():
         return {name: fn.launches for name, fn in counters.items()}
@@ -635,6 +756,11 @@ def phase_scale(segs, mapper, searcher):
     if per_query["knn_knn_topk"] != 1.0 or per_query["knn_knn_scores"]:
         raise AssertionError(f"a knn query must make exactly one K1 "
                              f"launch: {per_query}")
+    if per_query["match_term_bag_topk"] != 1.0 or \
+            per_query["match_term_bag"]:
+        raise AssertionError(f"a match query must make exactly one K2 "
+                             f"top-k launch and no per-slot one: "
+                             f"{per_query}")
     gpu = gpu_name_power()
     log(f"scale match: {len(match_qs)} queries, qps {m_qps:.2f}, p50 "
         f"{m_p50:.3f} ms on {gpu}")
@@ -653,11 +779,13 @@ def phase_scale(segs, mapper, searcher):
     log("scale sample: 5 match queries byte-equal and 3 knn queries "
         "within tolerance of the CPU searcher")
     log("scale launches per query: match "
-        f"{per_query['match_term_bag']:.2f} K2 + "
+        f"{per_query['match_term_bag_topk']:.2f} K2 top-k (was 32 per-slot "
+        f"launches) + {per_query['match_term_bag']:.2f} K2 per-slot + "
         f"{per_query['match_knn_topk']:.2f} K1; knn "
         f"{per_query['knn_knn_topk']:.2f} K1 (was 16, one per segment) + "
         f"{per_query['knn_knn_scores']:.2f} K1 scores-only + "
-        f"{per_query['knn_term_bag']:.2f} K2")
+        f"{per_query['knn_term_bag']:.2f} K2 per-slot + "
+        f"{per_query['knn_term_bag_topk']:.2f} K2 top-k")
     return {"match_qps": m_qps, "match_p50_ms": m_p50, "knn_qps": k_qps,
             "knn_p50_ms": k_p50, "launches_per_query": per_query}
 
@@ -678,7 +806,8 @@ def main() -> int:
 
     counters = {"knn_topk": cuda_knn.knn_topk_segments_cuda,
                 "knn_scores": cuda_knn.knn_scores_cuda,
-                "term_bag_scores": cuda_bm25.term_bag_cuda}
+                "term_bag_scores": cuda_bm25.term_bag_cuda,
+                "term_bag_topk": cuda_bm25.term_bag_topk_segments_cuda}
     for fn in counters.values():              # the main path starts here
         fn.launches = 0
     phase_ingest()
@@ -693,7 +822,9 @@ def main() -> int:
                "knn_scores": ("knn.cu",
                               "opensearch_tpu/ops/pallas_knn.py:62"),
                "term_bag_scores": ("bm25.cu",
-                                   "opensearch_tpu/ops/bm25.py:191")}
+                                   "opensearch_tpu/ops/bm25.py:191"),
+               "term_bag_topk": ("bm25.cu",
+                                 "opensearch_tpu/search/plan.py:1760")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = {"kernels": [
@@ -703,6 +834,7 @@ def main() -> int:
          **{key: kern[name][key] for key in keys}}
         for name, (src, rep) in sources.items()]}
     log(json.dumps({"scale": scale, "k1_1m": kern["k1_1m"],
+                    "k2_topk_heaviest": kern["term_bag_topk"]["heaviest"],
                     "device_ms": {n: kern[n].get("device_ms")
                                   for n in sources},
                     "wall_s": time.monotonic() - t_start}))

@@ -2,37 +2,90 @@
 //
 // Replaces the JAX package's `gather_postings` + `impact_scores` /
 // `impact_score_count` / `match_count` (opensearch_tpu/ops/bm25.py:83,
-// :191, :206, :225).  Those are XLA ops there, not Pallas kernels: a
-// searchsorted flatten of the query terms' CSR rows into `budget` lanes,
-// then a scatter-add of w[slot] * (idf[slot] * imp[p]) into dense float32
-// scores[n_pad] and of 1 into int32 counts[n_pad].
+// :191, :206, :225), XLA ops there, not Pallas kernels: a searchsorted
+// flatten of the query terms' CSR rows into `budget` lanes, then a
+// scatter-add of w[slot] * (idf[slot] * imp[p]) into dense float32
+// scores[n_pad] and of 1 into int32 counts[n_pad]; and, on the `match`
+// path, the `run_topk` after them (opensearch_tpu/search/plan.py:1760):
+// live and min_score masks, the top-k with the lower doc id first on
+// ties, the matched total and the largest matched score.
+//
+// Two entries:
+//   term_bag_topk_segments_launch  one launch per `match` query over every
+//                                  segment of a shard: each segment's
+//                                  exact top-k, total and max, and no
+//                                  dense score in device memory.
+//   term_bag_launch                the dense scores and/or counts of one
+//                                  segment, one launch per query-term
+//                                  slot (bool, constant_score, count).
 //
 // Bound on the card: memory.  Per posting of an active term the work
 // reads a 4-byte doc id and a 4-byte impact and does 2 multiplies and an
-// add; the outputs are n_pad*4 bytes per column, written once.  The
-// bound is (8 * postings + 4 * n_pad * columns) / 3.35 TB/s.
+// add.  The top-k entry also reads one live byte per doc and writes k * 8
+// + 8 bytes per segment, so its bound is (8 * postings + n_pad + 8k + 8)
+// / 3.35 TB/s per segment; the per-slot entry writes n_pad * 4 bytes per
+// column instead.
 //
-// Design: the kernel walks one active term's CSR row
-// offsets[tid]..offsets[tid+1] directly (no searchsorted over a lane
-// budget), one posting per thread, grid-stride.  The wrapper launches it
-// once per query-term slot, in slot order, on one stream, into buffers
-// it zeroes first.  Doc ids are unique within a row, so within a launch
-// no two threads touch one doc and a plain read-modify-write is exact,
-// and across launches the stream order makes every doc's sum add in slot
-// order from 0.0 — the reference's per-doc accumulation order, so the
-// scores match it byte for byte.  (A float atomicAdd across slots would
-// race and break that.)  The arithmetic is spelled with __fmul_rn /
-// __fadd_rn in the order w * (idf * imp) and the library is built with
-// -fmad=false: no FMA contraction, which would round differently.
-// Reads of doc ids and impacts are coalesced; the score updates are
-// scattered, as the postings are.  Launching once per slot costs T
-// launches per call (T is usually 2-8); fusing them is later work.
+// Exactness: per doc the contributions add in slot order from 0.0, each
+// spelled w * (idf * imp) with __fmul_rn / __fadd_rn, and the library is
+// built with -fmad=false (no FMA contraction, which would round
+// differently): the reference's per-doc accumulation, byte for byte.  Doc
+// ids are unique within a row (rows are doc-ascending, checked at
+// staging), so within one slot no two threads touch one doc.
+//
+// Design of the top-k entry:
+// - A block owns a tile of kTile docs of one segment: their scores (and
+//   matched-slot counts, off the fast path) live in shared memory.  A
+//   per-query table, one pinned host-to-device copy, names each
+//   segment's pointers and n_pad and each active slot's posting range,
+//   idf and weight; a work list names (segment, tile) per block.
+// - For each group of up to eight slots, warp w finds where slot w's row
+//   enters and leaves the tile: its two half-warps each run a 16-ary
+//   search (16 evenly spaced ids a round), about 4 dependent loads for a
+//   row of 62,500 postings where a binary search takes 16.  Then the
+//   block adds the slots' postings into shared memory one slot after the
+//   other, a barrier between slots: slot order per doc, no atomics.
+// - Epilogue in the same block: matched = scores > 0 on the fast path
+//   (required == 1, all w and idf > 0), else counts >= required; then &
+//   live & scores >= min_score.  The total is an integer atomicAdd per
+//   segment (exact in any order), the max an atomicMax on orderable bits.
+//   Each doc becomes the key of topk.cuh (score, then lower doc id; 0
+//   when unmatched), the tile keeps its best kp (`select_top`), and the
+//   last tile of a segment to finish merges them (`merge_segment`) and
+//   writes the segment's row of the output: no second launch.
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "topk.cuh"
 
 namespace {
 
+// The wrapper (ops/cuda_bm25.py) owns the launch table's layout and the
+// tile decision and passes them in with -D: docs per block of the top-k
+// entry, the largest k it selects, int64 words per segment in the table.
+#if !defined(BM25_TILE_DOCS) || !defined(BM25_K_MAX) || !defined(BM25_SEG_WORDS)
+#error "build through ops/cuda_bm25.py, which defines BM25_TILE_DOCS, BM25_K_MAX, BM25_SEG_WORDS"
+#endif
+
+using topk::u64;
+
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = BM25_TILE_DOCS;
+constexpr int kKMax = BM25_K_MAX;
+constexpr int kSegWords = BM25_SEG_WORDS;
+constexpr int kPer = kTile / kThreads;  // docs of the tile each thread masks and keys
+// keys the merge reads per round; the merge buffer (kTile keys) holds
+// the kp kept so far plus one round
+constexpr int kMergeBatch = kTile / 2;
+constexpr int kSearchLanes = 16;  // lanes of one search (a half-warp)
+constexpr int kScatterLoads = 8;  // postings a thread loads at once
+static_assert((kTile & (kTile - 1)) == 0 && kTile % kThreads == 0,
+              "kTile: a power of two, a multiple of kThreads");
+static_assert((kKMax & (kKMax - 1)) == 0 && kKMax <= kTile - kMergeBatch,
+              "kKMax: a power of two the merge buffer holds beside one round");
+static_assert(kSegWords >= 11, "a segment's table entry holds 11 words");
 
 __global__ void __launch_bounds__(kThreads)
 term_bag_slot_kernel(const int32_t* __restrict__ offsets,
@@ -55,6 +108,172 @@ term_bag_slot_kernel(const int32_t* __restrict__ offsets,
     if (scores != nullptr)
       scores[doc] = __fadd_rn(scores[doc], __fmul_rn(w, __fmul_rn(idf, impacts[p])));
     if (counts != nullptr) counts[doc] += 1;
+  }
+}
+
+// First p in [lo, hi) with ids[p] >= target, else hi, over an ascending
+// run of ids.  The kSearchLanes lanes of a group (lanes base ..  base +
+// 15 of the warp, named by `mask`; lo, hi and target the same in each)
+// probe 16 evenly spaced ids a round: each round cuts the range 16-fold,
+// so a row of n postings takes about log16(n) + 1 dependent loads.
+__device__ int group_lower_bound(const int32_t* __restrict__ ids, int lo, int hi, int target,
+                                 int g, int base, unsigned mask) {
+  constexpr unsigned kAll = (1u << kSearchLanes) - 1;
+  while (hi - lo > kSearchLanes) {
+    const int step = (hi - lo + kSearchLanes - 1) / kSearchLanes;
+    const int p = lo + (g + 1) * step - 1;  // the last id of piece g
+    const bool ge = p >= hi || __ldg(ids + p) >= target;
+    const unsigned b = (__ballot_sync(mask, ge) >> base) & kAll;
+    if (b == 0) return hi;  // the last piece ends at hi - 1, below target
+    const int f = __ffs(b) - 1;  // the answer lies in piece f
+    hi = min(hi, lo + (f + 1) * step - 1);
+    lo += f * step;
+  }
+  const int p = lo + g;
+  const bool ge = p >= hi || __ldg(ids + p) >= target;
+  const unsigned b = (__ballot_sync(mask, ge) >> base) & kAll;
+  return b == 0 ? hi : min(hi, lo + __ffs(b) - 1);
+}
+
+// table (int64 words): n_seg entries of kSegWords {doc_ids, impacts,
+// live, n_pad, first tile, tiles, output row, first slot, slots,
+// required, fast}; then two words per active slot, in slot order within
+// each segment {start | end << 32, idf bits | weight bits << 32}; then
+// the work list (one word per block: segment << 32 | tile); then 3 *
+// n_seg int32, zero on entry: the tile counters, the totals and the max
+// keys of the segments.
+__global__ void __launch_bounds__(kThreads)
+term_bag_topk_kernel(const long long* __restrict__ table, int n_seg, int n_slots, int k, int kp,
+                     float min_score, float* __restrict__ out_vals, int* __restrict__ out_ids,
+                     int* __restrict__ out_totals, float* __restrict__ out_maxes,
+                     u64* __restrict__ scratch) {
+  extern __shared__ __align__(16) char smem[];  // kTile * 8 bytes
+  float* scores = reinterpret_cast<float*>(smem);
+  int* counts = reinterpret_cast<int*>(smem + kTile * 4);
+  u64* keys = reinterpret_cast<u64*>(smem);  // over scores and counts, once they are read
+  __shared__ int lo_s[kWarps], hi_s[kWarps];
+  __shared__ float idf_s[kWarps], w_s[kWarps];
+
+  const long long* slots = table + (long long)n_seg * kSegWords;
+  const long long* work = slots + 2ll * n_slots;
+  int* counters = reinterpret_cast<int*>(const_cast<long long*>(work + gridDim.x));
+  const long long wk = work[blockIdx.x];
+  const int seg = (int)(wk >> 32);
+  const int tile = (int)(wk & 0xFFFFFFFFll);
+  const long long* e = table + (long long)seg * kSegWords;
+  const int32_t* doc_ids = reinterpret_cast<const int32_t*>(e[0]);
+  const float* impacts = reinterpret_cast<const float*>(e[1]);
+  const uint8_t* live = reinterpret_cast<const uint8_t*>(e[2]);
+  const int n_pad = (int)e[3];
+  const long long first = e[4];
+  const int n_tiles = (int)e[5];
+  const long long out_row = e[6];
+  const long long slot0 = e[7];
+  const int seg_slots = (int)e[8];
+  const int required = (int)e[9];
+  const bool fast = e[10] != 0;
+  int* total = counters + n_seg + seg;
+  unsigned* max_key = reinterpret_cast<unsigned*>(counters + 2 * n_seg + seg);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int doc0 = tile * kTile;
+  const int docs = min(kTile, n_pad - doc0);
+
+  // the tile's live bytes, in flight while the rows are searched
+  uint8_t lv[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int d = tid + i * kThreads;
+    lv[i] = d < docs ? __ldg(live + doc0 + d) : 0;
+  }
+  for (int i = tid; i < kTile; i += kThreads) {
+    scores[i] = 0.0f;
+    counts[i] = 0;
+  }
+
+  for (int g = 0; g < seg_slots; g += kWarps) {
+    const int m = min(kWarps, seg_slots - g);
+    if (warp < m) {  // warp w: where slot g + w's row enters and leaves the tile
+      const long long* sl = slots + 2 * (slot0 + g + warp);
+      const u64 range = (u64)sl[0];
+      const int half = lane >> 4;
+      const int at = group_lower_bound(doc_ids, (int)(range & 0xFFFFFFFFull), (int)(range >> 32),
+                                       doc0 + half * kTile, lane & 15, half * 16,
+                                       half ? 0xFFFF0000u : 0x0000FFFFu);
+      if (lane == 0) {
+        const u64 iw = (u64)sl[1];
+        lo_s[warp] = at;
+        idf_s[warp] = __uint_as_float((unsigned)(iw & 0xFFFFFFFFull));
+        w_s[warp] = __uint_as_float((unsigned)(iw >> 32));
+      }
+      if (lane == 16) hi_s[warp] = at;
+    }
+    __syncthreads();
+    for (int j = 0; j < m; ++j) {  // slot order
+      const int lo = lo_s[j], hi = hi_s[j];
+      if (lo >= hi) continue;  // block-uniform
+      const float idf = idf_s[j], w = w_s[j];
+      // kScatterLoads postings a thread are loaded before any is added,
+      // so their loads are in flight together (a shared-memory store
+      // between two loads through generic pointers keeps them in order)
+      for (int base = lo; base < hi; base += kThreads * kScatterLoads) {
+        int dd[kScatterLoads];
+        float im[kScatterLoads];
+#pragma unroll
+        for (int u = 0; u < kScatterLoads; ++u) {
+          const int p = base + tid + u * kThreads;
+          dd[u] = p < hi ? __ldg(doc_ids + p) - doc0 : -1;
+          im[u] = p < hi ? __ldg(impacts + p) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < kScatterLoads; ++u) {
+          if (dd[u] < 0) continue;
+          scores[dd[u]] = __fadd_rn(scores[dd[u]], __fmul_rn(w, __fmul_rn(idf, im[u])));
+          if (!fast) counts[dd[u]] += 1;
+        }
+      }
+      __syncthreads();
+    }
+    __syncthreads();  // lo_s .. w_s are read before the next group overwrites them
+  }
+
+  float sc[kPer];
+  bool hit[kPer];
+  int cnt = 0;
+  unsigned mx = 0;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int d = tid + i * kThreads;
+    sc[i] = scores[d];
+    const bool matched = fast ? sc[i] > 0.0f : counts[d] >= required;
+    hit[i] = d < docs && lv[i] && matched && sc[i] >= min_score;
+    cnt += hit[i];
+    if (hit[i]) mx = max(mx, topk::orderable(sc[i]));
+  }
+  __syncthreads();  // scores and counts are read: keys overwrite them
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int d = tid + i * kThreads;
+    keys[d] = hit[i] ? topk::make_key(sc[i], doc0 + d) : 0;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
+    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  }
+  if (lane == 0 && cnt > 0) {
+    atomicAdd(total, cnt);
+    atomicMax(max_key, mx);
+  }
+  __syncthreads();
+  topk::select_top<kThreads, kTile>(keys, kp);
+  if (!topk::finish_segment<kThreads, kTile, kMergeBatch>(keys, kp, scratch, first, tile, n_tiles,
+                                                         counters + seg))
+    return;
+  topk::write_topk<kThreads>(keys, k, out_vals + out_row * k, out_ids + out_row * k);
+  if (tid == 0) {  // every tile's atomics are in: read them coherently
+    const unsigned key = atomicMax(max_key, 0u);
+    out_totals[out_row] = atomicAdd(total, 0);
+    out_maxes[out_row] = key == 0 ? -INFINITY : topk::from_orderable(key);
   }
 }
 
@@ -81,6 +300,29 @@ int term_bag_launch(const int32_t* offsets, const int32_t* doc_ids, const float*
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+// Exact top-k, total and max of every segment of `table` (device memory,
+// layout above, n_blocks entries in its work list) into rows of
+// out_vals/out_ids [*, k] and out_totals/out_maxes [*]; scratch holds
+// n_blocks * kp keys.  min_score is -inf when unset.  Returns the CUDA
+// error of the launch (0 on success); faults surface at the caller's
+// next sync.
+int term_bag_topk_segments_launch(const long long* table, int n_seg, int n_slots, int n_blocks,
+                                  int k, int kp, float min_score, float* out_vals, int* out_ids,
+                                  int* out_totals, float* out_maxes, u64* scratch, void* stream) {
+  if (n_blocks <= 0) return 0;
+  if (k < 1 || k > kp || kp > kKMax || (kp & (kp - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = (size_t)kTile * 8;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        term_bag_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  term_bag_topk_kernel<<<n_blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      table, n_seg, n_slots, k, kp, min_score, out_vals, out_ids, out_totals, out_maxes, scratch);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

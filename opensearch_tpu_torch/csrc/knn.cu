@@ -42,9 +42,9 @@
 //   order, so every block gets the same value); validity bytes of the
 //   chunk are read into shared memory while the first tiles load.
 // - Top-k: every row becomes the 64-bit key
-//   (orderable(score) << 32) | (0xFFFFFFFF - row), so a larger key is a
-//   higher score, then a lower row; -inf sits below every finite score
-//   and key 0 marks "no row".  The chunk's best kp keys (k rounded up to
+//   (orderable(score) << 32) | (0xFFFFFFFF - row) of topk.cuh, so a
+//   larger key is a higher score, then a lower row; -inf sits below every
+//   finite score and key 0 marks "no row".  The chunk's best kp keys (k rounded up to
 //   a power of two) are selected in shared memory (`select_top`: a
 //   threshold from warp shuffles, then a bitonic sort of the few keys
 //   above it) and go to a scratch buffer.  The last chunk of a segment to
@@ -58,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "topk.cuh"
 
 namespace {
 
@@ -86,7 +88,7 @@ static_assert((kKMax & (kKMax - 1)) == 0 && kKMax <= kChunkRows - kMergeBatch,
               "kKMax: a power of two the merge buffer holds beside one round");
 static_assert(kSegWords >= 8, "a segment's table entry holds 8 words");
 
-typedef unsigned long long u64;
+using topk::u64;
 
 struct Seg {
   const float* vec;
@@ -126,22 +128,6 @@ __device__ __forceinline__ float translate(float dot, float v2, float q2) {
   }
 }
 
-// Monotone map of float bits to uint32 (NaN is not ordered: scores of
-// finite vectors are never NaN).  -0.0 is folded into +0.0 first, as a
-// sort compares them equal.
-__device__ __forceinline__ uint32_t orderable(float s) {
-  uint32_t b = __float_as_uint(s == 0.0f ? 0.0f : s);
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_orderable(uint32_t u) {
-  return __uint_as_float((u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u);
-}
-
-__device__ __forceinline__ u64 make_key(float s, long long row) {
-  return ((u64)orderable(s) << 32) | (u64)(0xFFFFFFFFu - (uint32_t)row);
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
@@ -159,140 +145,6 @@ __device__ __forceinline__ void cp_async_wait_oldest(int stages) {
   if (stages >= 4) asm volatile("cp.async.wait_group 3;\n" ::);
   else if (stages == 3) asm volatile("cp.async.wait_group 2;\n" ::);
   else asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// Bitonic sort of s[0, n) descending, n a power of two; all threads call.
-__device__ void bitonic_desc(u64* s, int n) {
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < (n >> 1); i += kThreads) {
-        const int lo = 2 * i - (i & (stride - 1));
-        const int hi = lo + stride;
-        const u64 a = s[lo], b = s[hi];
-        const bool desc = (lo & size) == 0;
-        if ((a < b) == desc) { s[lo] = b; s[hi] = a; }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-__device__ __forceinline__ int pow2_at_least(int n) {
-  int p = 2;
-  while (p < n) p <<= 1;
-  return p;
-}
-
-// Leaves the kp largest of keys[0, kChunkRows) in keys[0, kp), sorted
-// descending (the rest of keys is scratch after).  A threshold that at
-// least kp keys reach -- the least, over the warps, of each warp's j-th
-// largest thread maximum, j = ceil(kp / kWarps) -- keeps a few
-// candidates, which are compacted and bitonic-sorted: a handful of
-// barriers instead of a sort of the whole chunk.  The threshold is at
-// least 1: key 0 ("no row") never enters the sort, so a warp holding no
-// keys (a short chunk, a sparse merge buffer) cannot pull it to 0 and
-// send the whole buffer through the sort; fewer than kp keys are padded
-// with 0.  All threads call; enters and leaves synchronised.
-__device__ void select_top(u64* keys, int kp) {
-  __shared__ u64 warp_thr[kWarps];
-  __shared__ int warp_cnt[kWarps];
-  constexpr int kPer = kChunkRows / kThreads;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  u64 x[kPer];
-  u64 mx = 0;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    x[i] = keys[tid + i * kThreads];
-    mx = max(mx, x[i]);
-  }
-  u64 v = mx;  // the warp's thread maxima, sorted descending across lanes
-  for (int size = 2; size <= 32; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      const u64 o = __shfl_xor_sync(0xffffffffu, v, stride);
-      const bool keep_max = ((lane & stride) == 0) == ((lane & size) == 0);
-      v = keep_max ? max(v, o) : min(v, o);
-    }
-  }
-  const int j = (kp + kWarps - 1) / kWarps;
-  const u64 tj = __shfl_sync(0xffffffffu, v, j - 1);
-  if (lane == 0) warp_thr[warp] = tj;
-  __syncthreads();
-  u64 thr = warp_thr[0];
-  for (int w = 1; w < kWarps; ++w) thr = min(thr, warp_thr[w]);
-  thr = max(thr, 1ull);
-  int cnt = 0;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) cnt += x[i] >= thr;
-  int incl = cnt;  // block-wide prefix of the counts
-  for (int off = 1; off < 32; off <<= 1) {
-    const int o = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += o;
-  }
-  if (lane == 31) warp_cnt[warp] = incl;
-  __syncthreads();
-  int pos = incl - cnt, total = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    if (w < warp) pos += warp_cnt[w];
-    total += warp_cnt[w];
-  }
-#pragma unroll
-  for (int i = 0; i < kPer; ++i)
-    if (x[i] >= thr) keys[pos++] = x[i];
-  const int n = pow2_at_least(max(total, kp));
-  for (int i = total + tid; i < n; i += kThreads) keys[i] = 0;
-  __syncthreads();
-  bitonic_desc(keys, n);
-}
-
-// Leaves the kp largest of cand[0, total) -- every chunk's kp best of one
-// segment, written by other blocks (read with __ldcg) -- in keys[0, kp),
-// sorted descending.  Reads kMergeBatch keys a round and keeps only those
-// at or above a floor, the kp-th key kept so far (this block's own kp-th
-// key to start with: the segment's kp-th best is at least that), so after
-// the first rounds few keys pass; select_top runs again only when the
-// buffer could not take another round.  Keys are distinct (one per row)
-// apart from 0, "no row", which the floor (>= 1) drops.  All threads
-// call; keys[kp - 1] holds this block's own kp-th key on entry.
-__device__ void merge_segment(u64* keys, const u64* cand, long long total, int kp) {
-  __shared__ int have_s;
-  constexpr int kPer = kMergeBatch / kThreads;
-  const int tid = threadIdx.x, lane = tid & 31;
-  u64 floor_key = max(keys[kp - 1], 1ull);
-  int have = 0;
-  if (tid == 0) have_s = 0;
-  __syncthreads();
-  for (long long pos = 0; pos < total; pos += kMergeBatch) {
-    if (have > kChunkRows - kMergeBatch) {  // block-uniform
-      for (int i = have + tid; i < kChunkRows; i += kThreads) keys[i] = 0;
-      __syncthreads();
-      select_top(keys, kp);
-      floor_key = max(keys[kp - 1], 1ull);
-      have = kp;
-      if (tid == 0) have_s = kp;
-      __syncthreads();
-    }
-    u64 x[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const long long at = pos + tid + i * kThreads;
-      x[i] = at < total ? __ldcg(cand + at) : 0;
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {  // warp-aggregated append
-      const bool keep = x[i] >= floor_key;
-      const unsigned m = __ballot_sync(0xffffffffu, keep);
-      int base = 0;
-      if (lane == 0 && m) base = atomicAdd(&have_s, __popc(m));
-      base = __shfl_sync(0xffffffffu, base, 0);
-      if (keep) keys[base + __popc(m & ((1u << lane) - 1))] = x[i];
-    }
-    __syncthreads();
-    have = have_s;
-    __syncthreads();
-  }
-  for (int i = have + tid; i < kChunkRows; i += kThreads) keys[i] = 0;
-  __syncthreads();
-  select_top(keys, kp);
 }
 
 // The streaming core: scores rows [row0, row0 + rows) of `s` (rows <=
@@ -392,7 +244,7 @@ __device__ void stream_chunk(const Seg& s, long long row0, int rows,
       if (has_row && sub == 0) {
         const int r = t * T + rr;
         const float sc = valid_s[r] ? translate<SPACE>(dot, v2, q2) : -INFINITY;
-        if (TOPK) reinterpret_cast<u64*>(out_s)[r] = make_key(sc, row0 + r);
+        if (TOPK) reinterpret_cast<u64*>(out_s)[r] = topk::make_key(sc, row0 + r);
         else reinterpret_cast<float*>(out_s)[r] = sc;
       }
     }
@@ -424,7 +276,6 @@ knn_topk_kernel(const long long* __restrict__ table, int n_seg,
                 float* __restrict__ out_vals, int* __restrict__ out_ids,
                 u64* __restrict__ scratch) {
   extern __shared__ __align__(16) char smem[];
-  __shared__ int is_last;
   const long long* work = table + (long long)n_seg * kSegWords;
   int* counters = reinterpret_cast<int*>(const_cast<long long*>(work + gridDim.x));
   const long long w = work[blockIdx.x];
@@ -444,30 +295,11 @@ knn_topk_kernel(const long long* __restrict__ table, int n_seg,
   u64* keys = reinterpret_cast<u64*>(smem + c.q_bytes + c.stages * c.stage_bytes);
   for (int r = rows + threadIdx.x; r < kChunkRows; r += kThreads) keys[r] = 0;
   __syncthreads();
-  select_top(keys, kp);
-
-  if (n_chunks > 1) {
-    u64* mine = scratch + (first + chunk) * kp;
-    for (int i = threadIdx.x; i < kp; i += kThreads) mine[i] = keys[i];
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) is_last = atomicAdd(&counters[seg], 1) == n_chunks - 1;
-    __syncthreads();
-    if (!is_last) return;
-    __threadfence();
-    merge_segment(keys, scratch + first * kp, (long long)n_chunks * kp, kp);
-  }
-  for (int i = threadIdx.x; i < k; i += kThreads) {
-    const u64 key = keys[i];
-    const long long o = out_row * k + i;
-    if (key == 0) {
-      out_vals[o] = -INFINITY;
-      out_ids[o] = -1;
-    } else {
-      out_vals[o] = from_orderable((uint32_t)(key >> 32));
-      out_ids[o] = (int)(0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull));
-    }
-  }
+  topk::select_top<kThreads, kChunkRows>(keys, kp);
+  if (!topk::finish_segment<kThreads, kChunkRows, kMergeBatch>(keys, kp, scratch, first, chunk,
+                                                              n_chunks, &counters[seg]))
+    return;
+  topk::write_topk<kThreads>(keys, k, out_vals + out_row * k, out_ids + out_row * k);
 }
 
 // Lanes per row (each lane about four float4s of it), tile rows (one

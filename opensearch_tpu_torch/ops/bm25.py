@@ -5,10 +5,18 @@ Each function here is a plain PyTorch version of the reference's jnp
 function, with the same float32 operation order, so that on the CPU it
 equals the reference byte for byte.  ``impact_scores``,
 ``impact_score_count`` and ``match_count`` are also the wrappers of the
-hand-written term-bag kernel (K2, ``csrc/bm25.cu``): given CUDA tensors
-they launch it (``ops/cuda_bm25.py``) or raise; given CPU tensors they
-run the plain version.  The plain versions stay callable on any device
-as ``*_plain`` so the kernel can be held against them on the card.
+hand-written term-bag kernel's per-slot entry (K2, ``csrc/bm25.cu``):
+given CUDA tensors they launch it (``ops/cuda_bm25.py``) or raise; given
+CPU tensors they run the plain version.  The plain versions stay
+callable on any device as ``*_plain`` so the kernel can be held against
+them on the card.
+
+``term_bag_topk_segments`` is the plain version of K2's top-k entry: a
+scored bag's top-k, matched total and max on every segment of a shard
+(the reference's ``run_topk`` over a ``TermBagPlan``, segment by
+segment); ``term_bag_topk_segments_auto``, which the executor calls,
+launches the kernel once for all segments on CUDA and runs the plain
+version on the CPU.
 
 Accumulation order: per doc, contributions add in query-term SLOT order
 starting from 0.0, each one ``w * (idf * imp)`` — the order of the
@@ -18,7 +26,9 @@ reference's in-order scatter-add over slot-major gather lanes.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from opensearch_tpu_torch.common import torchenv  # noqa: F401
@@ -194,3 +204,127 @@ def topk(scores, k: int):
     ``torch.topk`` promises no order among ties on CUDA."""
     vals, idx = torch.sort(scores, descending=True, stable=True)
     return vals[:k], idx[:k].to(torch.int32)
+
+
+# -- a scored bag's top-k over every segment (K2's top-k entry) -----------
+
+class TermBagSegment(NamedTuple):
+    """One segment's inputs to ``term_bag_topk_segments``: a scored bag of
+    weighted terms over one field's staged postings, laid out by
+    ``search/plan.py`` ``TermBagPlan.topk_input``.  The tensors live on
+    the segment's device; the per-slot arrays stay on the host (the
+    kernel reads them from its launch table)."""
+    offsets: torch.Tensor     # i32, the staged CSR offsets
+    doc_ids: torch.Tensor     # i32 [P_pad], rows doc-ascending
+    impacts: torch.Tensor     # f32 [P_pad]
+    live: torch.Tensor        # bool [n_pad], the point-in-time live mask
+    term_ids: np.ndarray      # i32 [t_pad]
+    active: np.ndarray        # bool [t_pad]
+    idfs: np.ndarray          # f32 [t_pad]
+    weights: np.ndarray       # f32 [t_pad]
+    rows: np.ndarray          # i64 [t_pad, 2]: each slot's posting range
+    required: int             # matched slots a doc needs
+    fast: bool                # required == 1 and every w, idf > 0
+    budget: int               # gather lanes of the plain version
+
+
+class TermBagTopK(NamedTuple):
+    """Per-segment results of a scored bag: ``vals`` f32 [S, k] and
+    ``ids`` i32 [S, k] (score descending, lower doc id first on ties,
+    ``(-inf, -1)`` past the matched docs), ``totals`` i32 [S] (matched
+    docs) and ``maxes`` f32 [S] (largest matched score, -inf when none),
+    all views of one ``packed`` i32 buffer, so ``numpy()`` reads them
+    back in one copy.  ``keep`` holds the device buffers a launch reads
+    until then."""
+    vals: torch.Tensor
+    ids: torch.Tensor
+    totals: torch.Tensor
+    maxes: torch.Tensor
+    packed: torch.Tensor
+    keep: tuple = ()
+
+    def numpy(self):
+        """``(vals, ids, totals, maxes)`` as numpy arrays, one
+        device-to-host copy."""
+        n_seg, k = self.vals.shape
+        h = self.packed.cpu().numpy()
+        n = n_seg * k
+        return (h[:n].view(np.float32).reshape(n_seg, k),
+                h[n: 2 * n].reshape(n_seg, k), h[2 * n: 2 * n + n_seg],
+                h[2 * n + n_seg:].view(np.float32))
+
+
+def empty_topk(n_seg: int, k: int, device) -> TermBagTopK:
+    """An unfilled ``TermBagTopK`` of ``n_seg`` rows of ``k``."""
+    packed = torch.empty(n_seg * (2 * k + 2), dtype=torch.int32,
+                         device=device)
+    n = n_seg * k
+    return TermBagTopK(packed[:n].view(torch.float32).view(n_seg, k),
+                       packed[n: 2 * n].view(n_seg, k),
+                       packed[2 * n: 2 * n + n_seg],
+                       packed[2 * n + n_seg:].view(torch.float32), packed)
+
+
+def write_topk_row(out: TermBagTopK, s: int, vals, ids, total, mx) -> None:
+    """Row ``s`` of ``out`` from one segment's ``segment_topk``, padded
+    with ``(-inf, -1)`` to ``k``."""
+    m = vals.shape[0]
+    out.vals[s, :m] = vals
+    out.ids[s, :m] = ids
+    out.vals[s, m:] = -torch.inf
+    out.ids[s, m:] = -1
+    out.totals[s] = total
+    out.maxes[s] = mx
+
+
+def segment_topk(seg: TermBagSegment, k: int, min_score: float,
+                 plain: bool = True):
+    """One segment's ``(vals [min(k, n_pad)], ids, total, max)`` as the
+    reference's ``run_topk`` computes them for a scored ``TermBagPlan``,
+    with the ids past the matched docs set to -1.  ``plain`` scores with
+    the ``*_plain`` functions; otherwise with their dispatchers (on CUDA
+    tensors, K2's per-slot entry)."""
+    dev = seg.doc_ids.device
+    n_pad = seg.live.shape[0]
+    args = (seg.offsets, seg.doc_ids, seg.impacts,
+            *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in (seg.term_ids, seg.active, seg.idfs, seg.weights)))
+    kw = dict(n_pad=n_pad, budget=seg.budget)
+    if seg.fast:
+        score = impact_scores_plain if plain else impact_scores
+        scores = score(*args, **kw)
+        matched = scores > 0.0
+    else:
+        score = impact_score_count_plain if plain else impact_score_count
+        scores, count = score(*args, **kw, scored=True)
+        matched = count >= seg.required
+    matched = matched & seg.live & (scores >= min_score)
+    key = torch.where(matched, scores, -torch.inf)
+    vals, idx = topk(key, min(k, n_pad))
+    idx = torch.where(torch.isneginf(vals), -1, idx)
+    return vals, idx, matched.sum(), torch.max(key)
+
+
+def term_bag_topk_segments(segments, *, k: int,
+                           min_score: float = -math.inf) -> TermBagTopK:
+    """Plain version of K2's top-k entry: row ``s`` of the result is
+    ``segment_topk(segments[s], k, min_score)``, padded with ``(-inf,
+    -1)`` to ``k``."""
+    dev = segments[0].doc_ids.device if segments else torch.device("cpu")
+    out = empty_topk(len(segments), k, dev)
+    for s, seg in enumerate(segments):
+        write_topk_row(out, s, *segment_topk(seg, k, min_score))
+    return out
+
+
+def term_bag_topk_segments_auto(segments, *, k: int,
+                                min_score: float = -math.inf
+                                ) -> TermBagTopK:
+    """A scored bag's top-k, total and max on every segment: one K2
+    launch for all of them on CUDA tensors, the plain version on CPU
+    ones."""
+    if segments and segments[0].doc_ids.is_cuda:
+        from opensearch_tpu_torch.ops import cuda_bm25
+        return cuda_bm25.term_bag_topk_segments_cuda(segments, k=k,
+                                                     min_score=min_score)
+    return term_bag_topk_segments(segments, k=k, min_score=min_score)

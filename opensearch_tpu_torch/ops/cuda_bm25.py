@@ -1,31 +1,61 @@
-"""Wrapper of K2, the hand-written term-bag scoring kernel
-(``csrc/bm25.cu``), which replaces the reference's ``gather_postings`` +
-``impact_scores`` / ``impact_score_count`` / ``match_count`` on CUDA
-tensors.  Its plain twins are ``ops/bm25.py``'s ``*_plain`` functions
-(``impact_scores_plain`` etc.), which this wrapper never falls back to:
-a CUDA tensor gets the kernel or an exception.
+"""Wrappers of K2, the hand-written term-bag kernel (``csrc/bm25.cu``),
+which replaces the reference's ``gather_postings`` + ``impact_scores`` /
+``impact_score_count`` / ``match_count`` on CUDA tensors, and on the
+``match`` path the ``run_topk`` after them.
 
-``term_bag_cuda.launches`` counts kernel launches (one per query-term
-slot per call).
+- ``term_bag_topk_segments_cuda``: one launch per ``match`` query over
+  every segment of a shard, each segment's exact top-k, matched total
+  and max computed inside the kernel.  Its plain twin is
+  ``ops/bm25.py::term_bag_topk_segments``.  At ``k > K_MAX`` every
+  segment takes the per-slot entry plus the stable sort instead
+  (``ops/bm25.py::segment_topk``); ``sorted_route_segments`` counts
+  those.
+- ``term_bag_cuda``: the dense scores and/or matched-slot counts of one
+  segment, one launch per query-term slot (``bool``, ``constant_score``,
+  ``count``).  Its plain twins are ``ops/bm25.py``'s ``*_plain``
+  functions.
+
+Neither ever falls back to its plain twin: a CUDA tensor gets the kernel
+or an exception.  ``.launches`` on each wrapper counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from opensearch_tpu_torch.ops import cuda_build
+from opensearch_tpu_torch.ops import bm25, cuda_build
 
 _THREADS = 256
 _MAX_GRID = 132 * 32
+# The launch table's layout and the tile decision, handed to csrc/bm25.cu
+# as -D macros when it is built (see ``defines``).
+TILE_DOCS = 4096      # docs a block of the top-k entry owns
+K_MAX = 256           # largest k selected inside the kernel
+SEG_WORDS = 11        # int64 words per segment in the launch table
+
+
+def defines() -> dict:
+    """The macros ``csrc/bm25.cu`` is built with: this module's constants
+    at the time of the call."""
+    return {"BM25_TILE_DOCS": TILE_DOCS, "BM25_K_MAX": K_MAX,
+            "BM25_SEG_WORDS": SEG_WORDS}
 
 
 def _declare(lib):
     p = ctypes.c_void_p
-    lib.term_bag_launch.argtypes = [p, p, p, p, p, p, p, ctypes.c_int,
-                                    ctypes.c_int, p, p, p]
-    lib.term_bag_launch.restype = ctypes.c_int
+    i = ctypes.c_int
+    lib.term_bag_launch.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p]
+    lib.term_bag_launch.restype = i
+    lib.term_bag_topk_segments_launch.argtypes = [
+        p, i, i, i, i, i, ctypes.c_float, p, p, p, p, p, p]
+    lib.term_bag_topk_segments_launch.restype = i
+
+
+def _library():
+    return cuda_build.library("bm25", _declare, defines())
 
 
 def _ptr(t):
@@ -80,7 +110,7 @@ def term_bag_cuda(offsets, doc_ids, impacts, term_ids, term_active, idfs,
              if counts else None)
     if t_pad == 0 or not (scores or counts):
         return out_s, out_c
-    lib = cuda_build.library("bm25", _declare)
+    lib = _library()
     # one thread per posting of the longest possible row (capped; the
     # grid-stride loop covers the rest)
     grid = max(1, min(_MAX_GRID, -(-int(budget) // _THREADS)))
@@ -96,3 +126,143 @@ def term_bag_cuda(offsets, doc_ids, impacts, term_ids, term_active, idfs,
 
 
 term_bag_cuda.launches = 0
+
+
+# -- the fused top-k: host-side layout (pure Python, tested on the CPU) --
+
+def k_padded(k: int) -> int:
+    """Candidates each tile keeps: ``k`` rounded up to a power of two."""
+    return 1 << (int(k) - 1).bit_length()
+
+
+def n_tiles(n_pad: int) -> int:
+    """Blocks of the top-k launch for a segment of ``n_pad`` docs."""
+    return max(1, -(-int(n_pad) // TILE_DOCS))
+
+
+def _f32_bits(x) -> np.ndarray:
+    return np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+
+
+def launch_table(ptrs, n_pads, slot_counts, rows, idfs, weights, required,
+                 fast, out_rows=None) -> tuple[np.ndarray, int, int]:
+    """The top-k launch's table, one int64 buffer copied to the card per
+    query, its block count and its slot count.
+
+    Per segment: ``ptrs`` one ``(doc_ids, impacts, live)`` tuple of
+    device addresses, ``n_pads`` its doc count, ``slot_counts`` its
+    active slots, ``required`` and ``fast`` its bag's matched-slot count
+    and fast-path flag, ``out_rows`` the row of the output it writes (by
+    default its position).  Per active slot, segment after segment and
+    in slot order within one: ``rows`` ``[n, 2]`` its posting range,
+    ``idfs`` and ``weights`` its float32 idf and weight.  Layout
+    (``csrc/bm25.cu`` reads it so): ``SEG_WORDS`` words per segment
+    ``{doc_ids, impacts, live, n_pad, first tile, tiles, output row, first
+    slot, slots, required, fast}``; then two words per slot ``{start |
+    end << 32, idf bits | weight bits << 32}``; then the work list, one
+    word per block, ``segment << 32 | tile``; then ``3 * n_seg`` int32
+    zeros (tile counters, totals, max keys)."""
+    n_seg = len(n_pads)
+    tiles = np.asarray([n_tiles(n) for n in n_pads], np.int64)
+    first = np.concatenate([[0], np.cumsum(tiles)])
+    n_blocks = int(first[-1])
+    slot_first = np.concatenate([[0], np.cumsum(slot_counts,
+                                                dtype=np.int64)])
+    n_slots = int(slot_first[-1])
+    head_words = n_seg * SEG_WORDS
+    table = np.zeros(head_words + 2 * n_slots + n_blocks
+                     + (3 * n_seg + 1) // 2, np.int64)
+    if n_seg:
+        head = table[:head_words].reshape(n_seg, SEG_WORDS)
+        head[:, 0:3] = ptrs
+        head[:, 3] = n_pads
+        head[:, 4] = first[:-1]
+        head[:, 5] = tiles
+        head[:, 6] = range(n_seg) if out_rows is None else out_rows
+        head[:, 7] = slot_first[:-1]
+        head[:, 8] = slot_counts
+        head[:, 9] = required
+        head[:, 10] = fast
+    if n_slots:
+        rows = np.asarray(rows, np.int64).reshape(n_slots, 2)
+        pair = table[head_words: head_words + 2 * n_slots].reshape(-1, 2)
+        pair[:, 0] = rows[:, 0] | (rows[:, 1] << 32)
+        pair[:, 1] = (_f32_bits(idfs)
+                      | (_f32_bits(weights) << np.uint64(32))).view(np.int64)
+    seg_of = np.repeat(np.arange(n_seg, dtype=np.int64), tiles)
+    tile_of = np.arange(n_blocks, dtype=np.int64) - first[:-1][seg_of]
+    at = head_words + 2 * n_slots
+    table[at: at + n_blocks] = (seg_of << 32) | tile_of
+    return table, n_blocks, n_slots
+
+
+def segments_table(segments) -> tuple[np.ndarray, int, int]:
+    """``launch_table`` of ``bm25.TermBagSegment``s on the card."""
+    active = [np.asarray(seg.active, bool) for seg in segments]
+    act = np.concatenate(active)
+    return launch_table(
+        [(seg.doc_ids.data_ptr(), seg.impacts.data_ptr(),
+          seg.live.data_ptr()) for seg in segments],
+        [seg.live.shape[0] for seg in segments],
+        [int(a.sum()) for a in active],
+        np.concatenate([seg.rows for seg in segments])[act],
+        np.concatenate([seg.idfs for seg in segments])[act],
+        np.concatenate([seg.weights for seg in segments])[act],
+        [int(seg.required) for seg in segments],
+        [bool(seg.fast) for seg in segments])
+
+
+def _check_segment(seg, dev, i):
+    _expect(seg.doc_ids, f"segments[{i}].doc_ids", torch.int32, dev)
+    _expect(seg.impacts, f"segments[{i}].impacts", torch.float32, dev)
+    _expect(seg.live, f"segments[{i}].live", torch.bool, dev)
+    if seg.impacts.shape[0] != seg.doc_ids.shape[0]:
+        raise ValueError(f"segments[{i}]: impacts and doc_ids differ in "
+                         "length")
+
+
+def term_bag_topk_segments_cuda(segments, *, k: int,
+                                min_score: float = -np.inf):
+    """Exact top-k, matched total and max of a scored term bag on every
+    segment: a ``bm25.TermBagTopK`` whose row ``s`` equals
+    ``bm25.segment_topk(segments[s], k, min_score)``.  ``segments`` are
+    ``bm25.TermBagSegment``s on one CUDA device.  One launch for all of
+    them at ``k <= K_MAX``; above it, each segment takes the per-slot
+    entry plus the stable sort."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if not segments:
+        raise ValueError("term_bag_topk_segments_cuda needs a segment")
+    dev = segments[0].doc_ids.device
+    if dev.type != "cuda":
+        raise ValueError(f"term_bag_topk_segments_cuda needs CUDA tensors, "
+                         f"got {dev}")
+    for i, seg in enumerate(segments):
+        _check_segment(seg, dev, i)
+    out = bm25.empty_topk(len(segments), k, dev)
+    if k > K_MAX:
+        for s, seg in enumerate(segments):
+            term_bag_topk_segments_cuda.sorted_route_segments += 1
+            bm25.write_topk_row(out, s, *bm25.segment_topk(
+                seg, k, min_score, plain=False))
+        return out
+    kp = k_padded(k)
+    table, n_blocks, n_slots = segments_table(segments)
+    # one pinned H2D copy; the result holds the table and the scratch (and
+    # the caller the segments' tensors) until it is read back
+    table_dev = torch.from_numpy(table).pin_memory().to(dev,
+                                                        non_blocking=True)
+    scratch = torch.empty(n_blocks * kp, dtype=torch.int64, device=dev)
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.term_bag_topk_segments_launch(
+        _ptr(table_dev), len(segments), n_slots, n_blocks, k, kp,
+        float(min_score), _ptr(out.vals), _ptr(out.ids), _ptr(out.totals),
+        _ptr(out.maxes), _ptr(scratch), ctypes.c_void_p(stream))
+    cuda_build.check(lib, rc, "term_bag_topk_segments_launch")
+    term_bag_topk_segments_cuda.launches += 1
+    return out._replace(keep=(table_dev, scratch))
+
+
+term_bag_topk_segments_cuda.launches = 0
+term_bag_topk_segments_cuda.sorted_route_segments = 0

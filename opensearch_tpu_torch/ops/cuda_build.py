@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds).  Libraries land in
 ``build/torch_kernels/`` at the repository root, named by a hash of the
-source and the flags (the ``-D`` defines a wrapper passes included), so
-an edited source is rebuilt and an unchanged one is reused.  ``build()`` starts one ``nvcc`` per missing library, all
-at once, and waits for them together.
+source, of every header of ``csrc/`` (``*.cuh``) and of the flags (the
+``-D`` defines a wrapper passes included), so an edited source or header
+is rebuilt and an unchanged one is reused.  ``build()`` starts one
+``nvcc`` per missing library, all at once, and waits for them together.
 
 Nothing here runs at import: the first launch of a kernel builds it.
 """
@@ -54,12 +55,12 @@ def _flags(defines) -> tuple:
 
 def library_path(name: str, defines=None) -> Path:
     """Where ``csrc/<name>.cu`` builds to with the macros ``defines``
-    ({name: value}; hash of source + flags)."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(_flags(defines or {})).encode()
-    ).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    ({name: value}; hash of the source, the headers and the flags)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(_flags(defines or {})).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names, defines=None) -> dict[str, str]:

@@ -3,12 +3,16 @@ top-k across segments, fetch sources (the port of the JAX package's
 ``search/executor.py``, cut to ``query``, ``size``, ``from``,
 ``min_score``, ``_source`` and ``track_total_hits``).
 
-Each segment is one eager torch program on the searcher's device
-producing dense scores; the per-shard "reduce" over segments is a
-host-side k-way merge with Lucene's tie-break (score desc, then index
-order = (segment, local doc)).  Every segment's program is launched
-before the host reads any result back, so on CUDA the segments run back
-to back while the host prepares the next one.
+A scored ``match`` / ``term`` (a ``TermBagPlan`` at the root) takes every
+segment's top-k, total and max from one call (``ops/bm25.py``
+``term_bag_topk_segments_auto``: one K2 launch on CUDA) and one
+read-back.  Other plans, and requests that waive exact totals
+(``track_total_hits: false``, whose running k-th-score pruning needs
+results segment by segment), run one eager torch program per segment on
+the searcher's device, all launched before the host reads any result
+back.  The per-shard "reduce" over segments is a host-side k-way merge
+with Lucene's tie-break (score desc, then index order = (segment, local
+doc)).
 
 Not ported yet (ROADMAP): aggregations, sort, collapse, rescore,
 search_after, highlight / explain / fields, profile, suggest, hybrid,
@@ -29,6 +33,8 @@ from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
                                                 NotYetPortedError)
 from opensearch_tpu_torch.common.torchenv import resolve_device
 from opensearch_tpu_torch.index.segment import DeviceSegment, Segment
+from opensearch_tpu_torch.ops import bm25 as bm25_ops
+from opensearch_tpu_torch.ops.cuda_bm25 import K_MAX as TOPK_K_MAX
 from opensearch_tpu_torch.search import plan as P
 from opensearch_tpu_torch.search.compiler import ShardContext, compile_query
 from opensearch_tpu_torch.search.fetch import filter_source
@@ -138,12 +144,18 @@ class ShardSearcher:
         ids, staged impact references, per-query tensors — cached so a
         repeated query does zero host-side prepare work and zero
         host-to-device copies per segment."""
+        return self._cached(ckey, seg, "prepare",
+                            lambda: plan.prepare(bind, seg, dseg, self.ctx))
+
+    def _cached(self, ckey, seg, kind: str, make):
+        """``make()``, cached per (query, segment, ``kind``) while the
+        query has a cache key."""
         if ckey is None:
-            return plan.prepare(bind, seg, dseg, self.ctx)
-        key = (ckey, id(seg))
+            return make()
+        key = (ckey, id(seg), kind)
         out = self._prep_cache.get(key)
         if out is None:
-            out = plan.prepare(bind, seg, dseg, self.ctx)
+            out = make()
             _bounded_put(self._prep_cache, key, out, _PREP_CACHE_MAX)
         return out
 
@@ -284,10 +296,14 @@ class ShardSearcher:
                         in self._run_full(plan, bind, needed, min_score,
                                           can_match_skip=True, ckey=ckey))
             return [], total, None, False
-
-        # phase 1: LAUNCH every segment's program without a host sync
         ms = self._min_score(min_score)
         ms_host = None if min_score is None else float(min_score)
+        if isinstance(plan, P.TermBagPlan) and plan.scored and \
+                k_want <= TOPK_K_MAX and not allow_kth_prune:
+            return (*self._topk_term_bag(plan, bind, needed, k_want, ms,
+                                         ms_host, ckey), False)
+
+        # phase 1: LAUNCH every segment's program without a host sync
         launched = []      # [si, vals, idx, tot, mx, synced_vals, event]
         kth = None         # running k-th best (harvested, host)
         total_is_lower_bound = False
@@ -343,6 +359,41 @@ class ShardSearcher:
         rows, total, max_score = self._merge_topk(per_seg, k_want, total,
                                                   max_score)
         return rows, total, max_score, total_is_lower_bound
+
+    def _topk_term_bag(self, plan, bind, needed, k_want, ms, ms_host,
+                       ckey):
+        """(rows, total, max_score) of a scored term bag: can-match and
+        min_score bound skips on the host, then every remaining segment's
+        top-k, total and max from one ``term_bag_topk_segments_auto``
+        call, read back in one copy."""
+        inputs, order = [], []
+        for si, seg in enumerate(self.segments):
+            if not plan.can_match(bind, seg):
+                continue
+            if ms_host is not None and \
+                    plan.max_score_bound(bind, seg) < ms_host:
+                continue           # exact: such docs never count
+            dseg = seg.device(self.device)
+            inputs.append(self._cached(
+                ckey, seg, "topk_input",
+                lambda seg=seg, dseg=dseg: plan.topk_input(
+                    bind, seg, dseg, build_arrays(
+                        dseg, needed, self.mapper,
+                        live=self.ctx.live_mask(seg, dseg)))))
+            order.append(si)
+        if not inputs:
+            return [], 0, None
+        vals, ids, totals, maxes = bm25_ops.term_bag_topk_segments_auto(
+            inputs, k=k_want, min_score=ms).numpy()
+        per_seg = []
+        for j, si in enumerate(order):
+            keep = vals[j] > -np.inf
+            per_seg.append((vals[j][keep],
+                            np.full(int(keep.sum()), si, _I32),
+                            ids[j][keep]))
+        return self._merge_topk(per_seg, k_want,
+                                sum(int(t) for t in totals),
+                                max(float(m) for m in maxes))
 
     @staticmethod
     def _harvest_kth(launched, k_want, kth):

@@ -51,13 +51,6 @@ def _tensor(arr, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(arr, dtype=dtype)).to(device)
 
 
-def _pad_np(arr, size, fill, dtype, device) -> torch.Tensor:
-    out = np.full(size, fill, dtype=dtype)
-    a = np.asarray(arr, dtype=dtype)
-    out[: len(a)] = a
-    return _tensor(out, dtype, device)
-
-
 def _live_n_pad(A) -> tuple:
     live = A["live"]
     return live.shape[0], live.device
@@ -174,7 +167,7 @@ class TermBagPlan(Plan):
                 total += float(idf_v) * float(w) * float(mi[tid])
         return total * _BOUND_MARGIN
 
-    def prepare(self, bind, seg, dseg, ctx):
+    def _refuse_quantized(self, seg):
         if self.scored and codec_mod.use_quantized(seg):
             # the reference scores this segment over quantized impacts;
             # scoring it in f32 here would answer differently
@@ -182,35 +175,70 @@ class TermBagPlan(Plan):
                 f"segment [{seg.seg_id}] has {seg.n_docs} docs (>= "
                 f"QUANTIZED_MIN_DOCS={codec_mod.QUANTIZED_MIN_DOCS}): the "
                 "quantized term-bag lowering is not ported yet")
-        dev = dseg.device
+
+    def _slots(self, bind, seg):
+        """The padded query-term slots on the host: ``(t_pad, term ids,
+        active, row ranges [t_pad, 2], budget)``."""
         terms = bind["terms"]
         pf = seg.postings.get(self.field)
         t_pad = pad_pow2(len(terms), minimum=1)
         tids = np.zeros(t_pad, dtype=_I32)
         active = np.zeros(t_pad, dtype=bool)
+        rows = np.zeros((t_pad, 2), dtype=np.int64)
         budget = 0
         for i, t in enumerate(terms):
             tid = pf.term_id(t) if pf is not None else -1
             if tid >= 0:
                 tids[i] = tid
                 active[i] = True
+                rows[i] = pf.offsets[tid], pf.offsets[tid + 1]
                 budget += int(pf.df[tid])
+        return t_pad, tids, active, rows, pad_bucket(budget)
+
+    def _scoring(self, bind, t_pad):
+        """``(idfs f32 [t_pad], weights f32 [t_pad], fast)``.  Fast path:
+        a plain OR bag with positive idf*weight scores > 0 exactly on
+        matched docs, so the matched-count pass is skipped."""
+        idfs = np.asarray(bind["idfs"], _F32)
+        weights = np.asarray(bind["weights"], _F32)
+        fast = (int(bind["required"]) == 1
+                and bool((weights > 0).all()) and bool((idfs > 0).all()))
+        pad = np.zeros(t_pad, _F32)
+        return (np.concatenate([idfs, pad])[:t_pad],
+                np.concatenate([weights, pad])[:t_pad], fast)
+
+    def prepare(self, bind, seg, dseg, ctx):
+        self._refuse_quantized(seg)
+        dev = dseg.device
+        t_pad, tids, active, _rows, budget = self._slots(bind, seg)
         if not self.scored:
             ins = (_tensor(tids, _I32, dev), _tensor(active, bool, dev),
                    int(bind["required"]))
-            return (t_pad, pad_bucket(budget), False), ins
-        idfs = np.asarray(bind["idfs"], _F32)
-        weights = np.asarray(bind["weights"], _F32)
-        # fast path: a plain OR bag with positive idf*weight scores > 0
-        # exactly on matched docs, so the matched-count pass is skipped
-        fast = (int(bind["required"]) == 1
-                and bool((weights > 0).all()) and bool((idfs > 0).all()))
+            return (t_pad, budget, False), ins
+        idfs, weights, fast = self._scoring(bind, t_pad)
         ins = (_tensor(tids, _I32, dev), _tensor(active, bool, dev),
-               _pad_np(idfs, t_pad, 0.0, _F32, dev),
-               _pad_np(weights, t_pad, 0.0, _F32, dev),
+               _tensor(idfs, _F32, dev), _tensor(weights, _F32, dev),
                dseg.impacts(self.field, bind["avgdl"]),
                int(bind["required"]))
-        return (t_pad, pad_bucket(budget), fast), ins
+        return (t_pad, budget, fast), ins
+
+    def topk_input(self, bind, seg, dseg, A) -> bm25_ops.TermBagSegment:
+        """This segment's inputs to the fused top-k of a scored bag
+        (``ops/bm25.py`` ``term_bag_topk_segments``): the slots of
+        ``prepare``, each with its posting range read from the host CSR,
+        and no per-query tensor copied to the device.  ``A`` is the
+        segment's arrays (``executor.build_arrays``)."""
+        if not self.scored:
+            raise ValueError("topk_input takes a scored term bag")
+        self._refuse_quantized(seg)
+        t_pad, tids, active, rows, budget = self._slots(bind, seg)
+        idfs, weights, fast = self._scoring(bind, t_pad)
+        p = A["postings"][self.field]
+        return bm25_ops.TermBagSegment(
+            p["offsets"], p["doc_ids"],
+            dseg.impacts(self.field, bind["avgdl"]), A["live"], tids,
+            active, idfs, weights, rows, int(bind["required"]), fast,
+            budget)
 
     def eval(self, A, dims, ins):
         p = A["postings"][self.field]

@@ -9,7 +9,9 @@ Prints one JSON line per query kind: wall ms per query (profiler on),
 device busy ms per query (the sum of the CUDA kernels' and copies' own
 time; one stream, so they do not overlap), the idle share
 ``1 - busy / wall``, the device calls (kernels and copies) per query,
-the top device entries and the top host ops by self time.  Needs CUDA; without it, exits non-zero.
+the ``cudaLaunchKernel`` calls and the CUB radix-sort kernels per query,
+the top device entries and the top host ops by self time.  Needs CUDA;
+without it, exits non-zero.
 """
 
 from __future__ import annotations
@@ -92,6 +94,10 @@ def profile_window(searcher, bodies: list) -> dict:
         "device_busy_ms_per_query": (busy_ms / n) if dev else None,
         "idle_share": (1.0 - busy_ms / wall_ms) if dev else None,
         "device_calls_per_query": sum(e.count for e in dev) / n,
+        "launch_kernel_calls_per_query": sum(
+            e.count for e in host if e.key == "cudaLaunchKernel") / n,
+        "radix_sort_calls_per_query": sum(
+            e.count for e in dev if "RadixSort" in e.key) / n,
         "top_device": [{"name": e.key[:80], "ms_per_query":
                         _device_self_us(e) / 1e3 / n,
                         "calls_per_query": e.count / n} for e in dev[:8]],

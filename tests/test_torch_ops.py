@@ -399,3 +399,315 @@ def test_sorted_route_for_a_large_merge(n, k, sorted_route):
     at_limit = limit // kp * cuda_knn.CHUNK_ROWS
     assert not cuda_knn.uses_sorted_route(k, at_limit)
     assert cuda_knn.uses_sorted_route(k, at_limit + 1)
+
+
+# -- a scored term bag's top-k over segments (K2's top-k entry) ------------
+
+BAG_MAPPING = {"properties": {"body": {"type": "text"}}}
+# (terms, required, weights): an OR bag (the fast path), an AND bag,
+# minimum_should_match, and a negative weight (scores of either sign;
+# matched by counts)
+BAGS = {"or": (["w0", "w1", "w3"], 1, [1.0, 1.0, 1.0]),
+        "and": (["w0", "w2"], 2, [1.0, 1.0]),
+        "msm": (["w0", "w1", "w4", "w5"], 2, [1.0, 1.0, 1.0, 1.0]),
+        "negative": (["w0", "w1", "w2"], 1, [1.0, -0.5, 1.0])}
+BAG_KS = (1, 10, cuda_bm25.K_MAX, cuda_bm25.K_MAX + 1)
+
+
+def bag_corpus():
+    """Two segments (150 and 90 docs) built by the JAX package, with
+    deletes, and with every fourth doc a copy of the one before (equal
+    scores: ties); the port's segments carry the same arrays."""
+    from opensearch_tpu.index.segment import SegmentWriter as JaxWriter
+    from opensearch_tpu.mapping.mapper import DocumentMapper as JaxMapper
+    from opensearch_tpu.search.executor import ShardSearcher as JaxSearcher
+    from opensearch_tpu_torch.index.segment import (segment_arrays,
+                                                    segment_from_arrays)
+    from opensearch_tpu_torch.mapping.mapper import DocumentMapper
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+
+    rng = np.random.default_rng(21)
+    bodies = []
+    for i in range(240):
+        if i % 4 == 3:
+            bodies.append(bodies[-1])
+            continue
+        words = (rng.zipf(1.3, size=int(rng.integers(4, 25))) - 1) % 40
+        bodies.append(" ".join(f"w{w}" for w in words))
+    mapper = JaxMapper(BAG_MAPPING)
+    parsed = [mapper.parse(str(i), {"body": b}) for i, b in enumerate(bodies)]
+    writer = JaxWriter()
+    jsegs = [writer.build(parsed[:150], "s0"), writer.build(parsed[150:], "s1")]
+    for seg in jsegs:
+        seg.apply_deletes(rng.choice(seg.n_docs, size=12, replace=False))
+    tsegs = [segment_from_arrays(*segment_arrays(s)) for s in jsegs]
+    return (JaxSearcher(jsegs, mapper),
+            ShardSearcher(tsegs, DocumentMapper(BAG_MAPPING), device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def bag_searchers():
+    return bag_corpus()
+
+
+def bag_bind(jax_searcher, name):
+    terms, required, weights = BAGS[name]
+    ctx = jax_searcher.ctx
+    stats = ctx.field_stats("body")
+    idfs = np.asarray([jbm25.idf(ctx.df("body", t), stats.doc_count)
+                       for t in terms], np.float32)
+    return {"terms": tuple(terms), "idfs": idfs,
+            "weights": np.asarray(weights, np.float32),
+            "avgdl": stats.avgdl, "required": required}
+
+
+def port_bag_inputs(port_searcher, bind):
+    from opensearch_tpu_torch.search import plan as tplan
+    from opensearch_tpu_torch.search.executor import build_arrays
+
+    plan = tplan.TermBagPlan(field="body")
+    ctx = port_searcher.ctx
+    inputs = []
+    for seg in port_searcher.segments:
+        dseg = seg.device("cpu")
+        A = build_arrays(dseg, plan.arrays(), port_searcher.mapper,
+                         live=ctx.live_mask(seg, dseg))
+        inputs.append(plan.topk_input(bind, seg, dseg, A))
+    return inputs
+
+
+@pytest.mark.parametrize("with_min_score", [False, True],
+                         ids=["all", "min_score"])
+@pytest.mark.parametrize("k", BAG_KS)
+@pytest.mark.parametrize("bag", list(BAGS))
+def test_term_bag_topk_segments_match_jax_host_topk_and_run_topk(
+        bag, k, with_min_score, bag_searchers, monkeypatch):
+    """The plain twin of the fused K2 top-k, segment by segment, byte for
+    byte against the reference's ``TermBagPlan.host_topk`` and its
+    ``run_topk`` on the device lowering (``HOST_SCORING = False``): the
+    matched docs' scores and ids (ties to the lower doc id), then
+    ``(-inf, -1)``; the matched total and the max; deleted docs and docs
+    below ``min_score`` excluded from both."""
+    from opensearch_tpu.search import executor as jexec
+    from opensearch_tpu.search import plan as jplan
+
+    monkeypatch.setattr(jbm25, "HOST_SCORING", False)
+    jax_s, port_s = bag_searchers
+    bind = bag_bind(jax_s, bag)
+    plan = jplan.TermBagPlan(field="body")
+    ctx = jax_s.ctx
+    ms = None
+    if with_min_score:
+        all_vals = np.concatenate([plan.host_topk(
+            bind, seg, ctx.lives[id(seg)], seg.n_docs)[0]
+            for seg in jax_s.segments])
+        ms = float(np.float32(np.median(all_vals)))
+    ms_port = -np.inf if ms is None else ms
+    vals, ids, totals, maxes = tbm25.term_bag_topk_segments(
+        port_bag_inputs(port_s, bind), k=k, min_score=ms_port).numpy()
+    assert vals.shape == (2, k) and ids.dtype == np.int32
+    for s, seg in enumerate(jax_s.segments):
+        hv, hi, htot, hmx = plan.host_topk(bind, seg, ctx.lives[id(seg)],
+                                           min(k, seg.n_docs), ms)
+        dseg = seg.device()
+        dims, ins = plan.prepare(bind, seg, dseg, ctx)
+        A = jexec.build_arrays(dseg, plan.arrays(), jax_s.mapper,
+                               live=ctx.live_jnp(seg, dseg))
+        rv, ri, rtot, rmx = (np.asarray(x) for x in jplan.run_topk(
+            plan, dims, min(k, dseg.n_pad), A, ins,
+            np.float32(-np.inf if ms is None else ms)))
+        m = len(hv)
+        assert vals[s, :m].tobytes() == np.asarray(hv, np.float32).tobytes()
+        assert vals[s, :m].tobytes() == rv[:m].tobytes()
+        assert ids[s, :m].tolist() == np.asarray(hi).tolist() == \
+            ri[:m].tolist()
+        assert np.all(np.isneginf(vals[s, m:])) and np.all(ids[s, m:] == -1)
+        assert np.all(np.isneginf(rv[m:]))
+        assert totals[s] == htot == int(rtot)
+        assert np.float32(maxes[s]).tobytes() == np.float32(hmx).tobytes() \
+            == np.float32(rmx).tobytes()
+        if k == cuda_bm25.K_MAX and bag == "or" and not with_min_score:
+            assert len(set(vals[s, :m].tolist())) < m      # ties present
+            everyone = plan.host_topk(bind, seg, np.ones(seg.n_docs, bool),
+                                      seg.n_docs)[2]
+            assert everyone > htot                         # deletes matter
+        if with_min_score:
+            assert m == 0 or vals[s, m - 1] >= ms
+
+
+def test_term_bag_launch_table_layout_and_work_list():
+    """K2's top-k table: per-segment pointers, n_pad, first tile and tile
+    count, output row, first slot and slot count, required and fast flag;
+    two words per active slot (row range; idf and weight bits, a negative
+    weight too); a work list naming (segment, tile) for every block in
+    order; zeroed counters, totals and max keys."""
+    T = cuda_bm25.TILE_DOCS
+    n_pads = [8, T, 2 * T, 16 * T]
+    ptrs = [(100 + s, 200 + s, 300 + s) for s in range(4)]
+    slot_counts = [1, 0, 3, 2]
+    rows = np.array([[0, 5], [7, 9], [9, 9], [20, 4000], [1, 2], [3, 2 ** 30]])
+    idfs = np.float32([0.5, 1.25, 2.0, 3.0, 0.1, 7.5])
+    weights = np.float32([1.0, -0.5, 2.0, 1.0, 1.0, 0.25])
+    table, n_blocks, n_slots = cuda_bm25.launch_table(
+        ptrs, n_pads, slot_counts, rows, idfs, weights, [1, 1, 2, 1],
+        [True, True, False, False])
+    tiles = [1, 1, 2, 16]
+    assert (n_blocks, n_slots) == (sum(tiles), 6)
+    S, W = 4, cuda_bm25.SEG_WORDS
+    head = table[: S * W].reshape(S, W)
+    np.testing.assert_array_equal(head[:, 0:3], np.asarray(ptrs))
+    np.testing.assert_array_equal(head[:, 3], n_pads)
+    np.testing.assert_array_equal(head[:, 4], np.cumsum([0] + tiles[:-1]))
+    np.testing.assert_array_equal(head[:, 5], tiles)
+    np.testing.assert_array_equal(head[:, 6], range(S))
+    np.testing.assert_array_equal(head[:, 7], [0, 1, 1, 4])
+    np.testing.assert_array_equal(head[:, 8], slot_counts)
+    np.testing.assert_array_equal(head[:, 9], [1, 1, 2, 1])
+    np.testing.assert_array_equal(head[:, 10], [1, 1, 0, 0])
+    pairs = table[S * W: S * W + 2 * n_slots].reshape(-1, 2).view(np.uint64)
+    np.testing.assert_array_equal(pairs[:, 0] & 0xFFFFFFFF, rows[:, 0])
+    np.testing.assert_array_equal(pairs[:, 0] >> np.uint64(32), rows[:, 1])
+    bits = (pairs[:, 1] & 0xFFFFFFFF).astype(np.uint32).view(np.float32)
+    np.testing.assert_array_equal(bits, idfs)
+    bits = (pairs[:, 1] >> np.uint64(32)).astype(np.uint32).view(np.float32)
+    np.testing.assert_array_equal(bits, weights)
+    at = S * W + 2 * n_slots
+    work = table[at: at + n_blocks]
+    expect = [(s, t) for s, n in enumerate(tiles) for t in range(n)]
+    assert [(int(w) >> 32, int(w) & 0xFFFFFFFF) for w in work] == expect
+    zeros = table[at + n_blocks:].view(np.int32)
+    assert zeros.shape[0] >= 3 * S and not zeros.any()
+    assert table.dtype == np.int64
+    # a segment's output row, when the launch serves some of a call's
+    _t, _n, _s = cuda_bm25.launch_table(ptrs[1:3], n_pads[1:3], [0, 3],
+                                        rows[1:4], idfs[1:4], weights[1:4],
+                                        [1, 2], [True, False], [1, 2])
+    np.testing.assert_array_equal(_t[: 2 * W].reshape(2, W)[:, 6], [1, 2])
+
+
+def test_segments_table_reads_the_active_slots_in_slot_order(bag_searchers):
+    """``segments_table`` lays out ``TermBagSegment``s as ``launch_table``
+    does, skipping inactive slots (a term absent from a segment)."""
+    jax_s, port_s = bag_searchers
+    bind = bag_bind(jax_s, "msm")
+    bind = {**bind, "terms": bind["terms"][:3] + ("absent",)}
+    inputs = port_bag_inputs(port_s, bind)
+    table, n_blocks, n_slots = cuda_bm25.segments_table(inputs)
+    act = [seg.active for seg in inputs]
+    assert n_slots == sum(int(a.sum()) for a in act) and not any(
+        a[3] for a in act)
+    expect, _nb, _ns = cuda_bm25.launch_table(
+        [(s.doc_ids.data_ptr(), s.impacts.data_ptr(), s.live.data_ptr())
+         for s in inputs], [s.live.shape[0] for s in inputs],
+        [int(a.sum()) for a in act],
+        np.concatenate([s.rows[s.active] for s in inputs]),
+        np.concatenate([s.idfs[s.active] for s in inputs]),
+        np.concatenate([s.weights[s.active] for s in inputs]),
+        [s.required for s in inputs], [s.fast for s in inputs])
+    np.testing.assert_array_equal(table, expect)
+    seg0 = port_s.segments[0]
+    pf = seg0.postings["body"]
+    for i, t in enumerate(bind["terms"][:3]):
+        tid = pf.term_id(t)
+        assert inputs[0].rows[i].tolist() == [pf.offsets[tid],
+                                              pf.offsets[tid + 1]]
+
+
+def test_term_bag_layout_constants_reach_the_kernel_as_macros():
+    """The wrapper is the one source of the tile size, K_MAX and the
+    table layout: ``csrc/bm25.cu`` takes them as -D macros, and a library
+    built with other values lands at another path."""
+    from opensearch_tpu_torch.ops import cuda_build
+
+    assert cuda_bm25.defines() == {"BM25_TILE_DOCS": cuda_bm25.TILE_DOCS,
+                                   "BM25_K_MAX": cuda_bm25.K_MAX,
+                                   "BM25_SEG_WORDS": cuda_bm25.SEG_WORDS}
+    src = (cuda_build.CSRC / "bm25.cu").read_text()
+    for macro in cuda_bm25.defines():
+        assert f"= {macro};" in src
+    assert '#include "topk.cuh"' in src
+    base = cuda_build.library_path("bm25", cuda_bm25.defines())
+    assert base != cuda_build.library_path(
+        "bm25", {**cuda_bm25.defines(), "BM25_TILE_DOCS": 2048})
+    assert base == cuda_build.library_path("bm25", cuda_bm25.defines())
+
+
+@pytest.mark.parametrize("edited", ["topk.cuh", "bm25.cu", "knn.cu"])
+def test_library_path_hashes_the_shared_headers(edited, tmp_path,
+                                                monkeypatch):
+    """A library's path changes with its source and with every header of
+    ``csrc/``, so an edited header never loads a stale build; a source
+    edit leaves the other library's path alone."""
+    import shutil
+
+    from opensearch_tpu_torch.ops import cuda_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    defs = {"bm25": cuda_bm25.defines(), "knn": cuda_knn.defines()}
+    before = {n: cuda_build.library_path(n, d) for n, d in defs.items()}
+    with open(csrc / edited, "a") as f:
+        f.write("\n// edited\n")
+    after = {n: cuda_build.library_path(n, d) for n, d in defs.items()}
+    for name in defs:
+        changed = edited == "topk.cuh" or edited == f"{name}.cu"
+        assert (before[name] != after[name]) is changed, name
+
+
+def test_term_bag_topk_segments_cuda_refuses_cpu_tensors(bag_searchers):
+    jax_s, port_s = bag_searchers
+    inputs = port_bag_inputs(port_s, bag_bind(jax_s, "or"))
+    for k in (10, cuda_bm25.K_MAX + 1):
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_bm25.term_bag_topk_segments_cuda(inputs, k=k)
+    with pytest.raises(ValueError, match="k must be"):
+        cuda_bm25.term_bag_topk_segments_cuda(inputs, k=0)
+    assert cuda_bm25.term_bag_topk_segments_cuda.launches == 0
+    assert cuda_bm25.term_bag_topk_segments_cuda.sorted_route_segments == 0
+
+
+@pytest.mark.parametrize("bag", list(BAGS))
+def test_term_bag_topk_segments_auto_takes_the_plain_twin_on_cpu(
+        bag, bag_searchers):
+    jax_s, port_s = bag_searchers
+    inputs = port_bag_inputs(port_s, bag_bind(jax_s, bag))
+    for k in BAG_KS:
+        for ms in (-np.inf, 1.0):
+            a = tbm25.term_bag_topk_segments_auto(inputs, k=k, min_score=ms)
+            b = tbm25.term_bag_topk_segments(inputs, k=k, min_score=ms)
+            assert a.vals.shape == (len(inputs), k)
+            assert a.packed.device.type == "cpu"
+            assert all(x.tobytes() == y.tobytes()
+                       for x, y in zip(a.numpy(), b.numpy()))
+    assert cuda_bm25.term_bag_topk_segments_cuda.launches == 0
+    assert cuda_bm25.term_bag_cuda.launches == 0
+
+
+@pytest.mark.parametrize("k,kp", [(1, 1), (10, 16), (100, 128),
+                                  (cuda_bm25.K_MAX, cuda_bm25.K_MAX)])
+def test_term_bag_k_padding_and_tiles(k, kp):
+    """Each tile keeps k rounded up to a power of two, at most K_MAX; a
+    segment takes one block per TILE_DOCS docs, at least one."""
+    assert cuda_bm25.k_padded(k) == kp <= cuda_bm25.K_MAX
+    T = cuda_bm25.TILE_DOCS
+    assert [cuda_bm25.n_tiles(n) for n in (8, T, T + 1, 65_536)] == \
+        [1, 1, 2, -(-65_536 // T)]
+
+
+def test_term_bag_topk_result_reads_back_in_one_copy():
+    """The four outputs are views of one packed buffer, which
+    ``numpy()`` copies once and splits."""
+    out = tbm25.empty_topk(3, 4, "cpu")
+    out.vals.copy_(torch.arange(12, dtype=torch.float32).view(3, 4))
+    out.ids.copy_(torch.arange(12, dtype=torch.int32).view(3, 4) - 5)
+    out.totals.copy_(torch.tensor([7, 8, 9], dtype=torch.int32))
+    out.maxes.copy_(torch.tensor([1.5, -np.inf, 0.0]))
+    for t in out[:4]:
+        assert t.untyped_storage().data_ptr() == \
+            out.packed.untyped_storage().data_ptr()
+    v, i, t, m = out.numpy()
+    np.testing.assert_array_equal(v, np.arange(12, dtype=np.float32)
+                                  .reshape(3, 4))
+    np.testing.assert_array_equal(i, np.arange(12).reshape(3, 4) - 5)
+    assert t.tolist() == [7, 8, 9] and m.tolist() == [1.5, -np.inf, 0.0]

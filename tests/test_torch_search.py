@@ -209,6 +209,76 @@ def test_knn_search_makes_one_topk_call_for_all_segments(pair,
         (len(SEG_SIZES), [True] * len(SEG_SIZES), {"space": "l2", "k": 3})]
 
 
+def test_match_search_makes_one_topk_call_for_all_segments(pair,
+                                                           monkeypatch):
+    """A scored ``match`` / ``term`` hands every segment to one top-k
+    call (one K2 launch on the card) at its ``from + size``; a ``bool``,
+    a size above K_MAX and ``track_total_hits: false`` (whose k-th-score
+    pruning needs results segment by segment) keep the per-segment
+    programs.  Every answer equals the reference's."""
+    from opensearch_tpu_torch.ops import bm25 as tbm25
+    from opensearch_tpu_torch.ops.cuda_bm25 import K_MAX
+    seed, jax_s, port_s = pair
+    calls = []
+    real = tbm25.term_bag_topk_segments_auto
+
+    def spy(segments, **kw):
+        calls.append((len(segments), kw["k"]))
+        return real(segments, **kw)
+
+    monkeypatch.setattr(tbm25, "term_bag_topk_segments_auto", spy)
+    fused = [{"query": {"match": {"body": "w0 w1 w3"}}, "size": 7},
+             {"query": {"match": {"body": "w1 w2"}}, "from": 4, "size": 3},
+             {"query": {"match": {"body": {"query": "w0 w2",
+                                           "operator": "and"}}}},
+             {"query": {"term": {"tag": "blue"}}, "size": 40}]
+    for body in fused:
+        ref, got = jax_s.search(body), port_s.search(body)
+        assert bm25_mismatch(got, ref) is None, body
+    assert calls == [(len(SEG_SIZES), 7), (len(SEG_SIZES), 7),
+                     (len(SEG_SIZES), 10), (len(SEG_SIZES), 40)]
+    calls.clear()
+    looped = [{"query": {"bool": {"must": [{"match": {"body": "w0 w1"}}]}}},
+              {"query": {"match": {"body": "w0 w1"}}, "size": K_MAX + 1}]
+    for body in looped:
+        ref, got = jax_s.search(body), port_s.search(body)
+        assert bm25_mismatch(got, ref) is None, body
+    got = port_s.search({"query": {"match": {"body": "w0 w1"}}, "size": 5,
+                         "track_total_hits": False})
+    ref = jax_s.search({"query": {"match": {"body": "w0 w1"}}, "size": 5})
+    assert [(h["_id"], h["_score"]) for h in got["hits"]["hits"]] == \
+        [(h["_id"], h["_score"]) for h in ref["hits"]["hits"]]
+    assert calls == []
+
+
+def test_match_search_with_min_score_skips_segments_before_the_call(
+        pair, monkeypatch):
+    """The min_score bound skip happens on the host, before the top-k
+    call: a segment whose best possible score is below min_score is not
+    handed to it, and the answer still equals the reference's."""
+    from opensearch_tpu_torch.ops import bm25 as tbm25
+    from opensearch_tpu_torch.search import plan as tplan
+    _seed, jax_s, port_s = pair
+    seen = []
+    real = tbm25.term_bag_topk_segments_auto
+
+    def spy(segments, **kw):
+        seen.append((len(segments), kw["min_score"]))
+        return real(segments, **kw)
+
+    monkeypatch.setattr(tbm25, "term_bag_topk_segments_auto", spy)
+    q = {"match": {"body": "w0 w1"}}
+    plan, bind = port_s.compiled(q)
+    bounds = [plan.max_score_bound(bind, seg) for seg in port_s.segments]
+    assert isinstance(plan, tplan.TermBagPlan)
+    cut = (min(bounds) + max(bounds)) / 2
+    body = {"query": q, "size": 20, "min_score": cut}
+    ref, got = jax_s.search(body), port_s.search(body)
+    assert bm25_mismatch(got, ref) is None
+    kept = sum(b >= cut for b in bounds)
+    assert seen == ([(kept, float(np.float32(cut)))] if kept else [])
+
+
 def test_count_matches_reference(pair):
     _seed, jax_s, port_s = pair
     for q in ({"match": {"body": "w2 w4"}}, {"term": {"tag": "gold"}},
@@ -252,9 +322,9 @@ def test_msearch_and_ann_method_raise_typed_error():
                                                  "k": 2}}}})
 
 
-def test_quantized_size_segment_raises_instead_of_scoring_f32():
-    """The reference lowers segments with >= QUANTIZED_MIN_DOCS docs to
-    its quantized kernels; the port refuses to score them in f32."""
+def quantized_size_segment():
+    """A segment of QUANTIZED_MIN_DOCS docs whose ``body`` holds one term,
+    ``w1``, in every 1,000th doc."""
     n = codec.QUANTIZED_MIN_DOCS
     seg = Segment("big", n)
     seg.doc_ids = [str(i) for i in range(n)]
@@ -268,6 +338,13 @@ def test_quantized_size_segment_raises_instead_of_scoring_f32():
         positions=np.zeros(0, np.int32),
         doc_lens=np.full(n, 3.0, np.float32), total_len=3.0 * n,
         docs_with_field=n, has_norms=True, present=np.ones(n, bool))
+    return seg, docs
+
+
+def test_quantized_size_segment_raises_instead_of_scoring_f32():
+    """The reference lowers segments with >= QUANTIZED_MIN_DOCS docs to
+    its quantized kernels; the port refuses to score them in f32."""
+    seg, docs = quantized_size_segment()
     assert codec.use_quantized(seg)
     mapper = DocumentMapper({"properties": {"body": {"type": "text"}}})
     searcher = ShardSearcher([seg], mapper, device="cpu")
@@ -276,6 +353,23 @@ def test_quantized_size_segment_raises_instead_of_scoring_f32():
     assert exc.value.status == 501
     # filter context scores nothing, so it runs as the reference does
     assert searcher.count({"match": {"body": "w1"}}) == len(docs)
+
+
+@pytest.mark.parametrize("body", [
+    {"query": {"match": {"body": "w1"}}},
+    {"query": {"term": {"body": "w1"}}, "size": 3},
+    {"query": {"match": {"body": "w1"}}, "track_total_hits": False},
+    {"query": {"match": {"body": "w1"}}, "size": 300},
+], ids=["fused", "term", "untracked-totals", "beyond-k-max"])
+def test_quantized_size_segment_raises_on_every_term_bag_route(body):
+    """Through the one top-k call and the per-segment programs alike, a
+    scored bag on a segment of QUANTIZED_MIN_DOCS docs raises."""
+    seg, _docs = quantized_size_segment()
+    mapper = DocumentMapper({"properties": {"body": {"type": "text"}}})
+    searcher = ShardSearcher([seg], mapper, device="cpu")
+    with pytest.raises(NotYetPortedError) as exc:
+        searcher.search(body)
+    assert exc.value.status == 501
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
