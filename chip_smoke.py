@@ -24,7 +24,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    16 scale segments) against ``term_bag_topk_segments``, byte for byte,
    on the median bag, the heaviest bag, a 4-term bag, an ``and`` bag, a
    ``min_score`` bag and segments with deletes, k in 1, 10, 100, K_MAX,
-   K_MAX + 1 (the per-slot entry plus the stable sort);
+   K_MAX + 1 (the per-slot entry plus the stable sort); and K3
+   ``batch_term_bag_topk_cuda`` (K2's top-k kernel, one launch per
+   batch of queries over the 16 scale segments, one table entry per
+   (query, segment)) against ``batch_term_bag_topk_segments``, byte for
+   byte, on batches of 1, 7 and 64 zipf OR bags (with and without the
+   presence counts), 64 ``and`` bags and 64 OR bags over segments with
+   deletes, k in 1, 10, 100, K_MAX;
 3. ingest path: ~2,000 JSON docs through the port's DocumentMapper and
    SegmentWriter into 2 segments with deletes, then match / bool / knn
    (three spaces, filtered, and one k above K1's in-kernel maximum)
@@ -37,10 +43,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    through ``ShardSearcher.search`` (qps, p50, kernel launches per
    query: one K2 top-k launch per ``match`` query and no per-slot one,
    one K1 launch per ``knn`` query), a sample checked against the CPU
-   searcher.
+   searcher;
+5. msearch: the 256 queries of ``zipf_query_log(256, seed=7)`` through
+   ``ShardSearcher.msearch`` in 4 batches of 64 (one K3 launch and no K2
+   launch per batch, every response equal to sequential ``search``,
+   batched qps at least 0.8 x sequential qps);
+6. continuous batching: the same queries from 16 client threads through
+   ``query_engine().execute(..., service=shim)`` with a 4 ms window
+   (fewer than one dispatch per query, every response equal to
+   sequential ``search``; qps, p50 and p99), then once more with the
+   batcher off (each thread's searches one after another) for its qps,
+   p50 and p99.
 
 Every kernel wrapper counts its launches; the counts are zeroed just
-before phase 3 and read after phase 4, and each kernel must have run.
+before phase 3 and read after phase 4, and zeroed again just before
+phase 5 and before phase 6 and read after each: each kernel of each
+path must have run.
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the
 script exits non-zero and prints no result.
@@ -449,6 +467,7 @@ def phase_kernels(scale_segs, searcher, query_pairs):
     out["term_bag_topk"] = phase_term_bag_topk(
         scale_segs, searcher, dev, gen, median_bag, by_size[-1],
         checks[2])
+    out["batch_topk"] = phase_batch_topk(searcher, dev, gen, query_pairs)
     return out
 
 
@@ -554,6 +573,148 @@ def phase_term_bag_topk(scale_segs, searcher, dev, gen, median_bag,
                      "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
                      "bound_bytes": nbytes, "bag": bag, "postings": postings}
     return {**out["median"], "max_abs_err": 0.0, "heaviest": out["heaviest"]}
+
+
+def match_body(a: int, b: int, size: int = 10, **extra) -> dict:
+    """A ``match`` body over the scale corpus's ``body`` field."""
+    terms = f"t{a} t{b}"
+    query = {"query": terms, **extra} if extra else terms
+    return {"query": {"match": {"body": query}}, "size": size,
+            "_source": False}
+
+
+def batch_inputs(searcher, bodies) -> dict:
+    """The prepared inputs of the one ``BatchGroup`` that ``bodies`` (one
+    field, one size) form: ``{"segs", "required", "need_counts", ...}``."""
+    from opensearch_tpu_torch.search.batch import plan_batches
+
+    groups, fallback = plan_batches(searcher, bodies)
+    if fallback or len(groups) != 1:
+        raise AssertionError(f"bodies form {len(groups)} groups and "
+                             f"{len(fallback)} fallbacks")
+    return groups[0]._prepare(searcher)
+
+
+def phase_batch_topk(searcher, dev, gen, query_pairs):
+    """K3 against its plain twin over the 16 scale segments, byte for
+    byte: batches of 1, 7 and 64 ``match`` queries of the zipf log (OR
+    bags, with and without the presence counts), 64 ``and`` bags and 64
+    OR bags over segments with deletes, k in 1, 10, 100, K_MAX; then
+    timed on the 64-query OR batch at k = 10 (one launch per batch, the
+    launch table cached as the main path caches it) beside the plain
+    twin, the library chain (the reference's formulation per segment:
+    ``index_add_`` into a [T * n_pad] arena, row gathers,
+    ``torch.topk``) and the bound."""
+    import torch
+
+    from opensearch_tpu_torch.ops import cuda_bm25
+    from opensearch_tpu_torch.search import batch
+
+    fn = cuda_bm25.batch_term_bag_topk_cuda
+    cases = {}
+    for n in (1, 7, 64):
+        prep = batch_inputs(searcher, [match_body(a, b)
+                                       for a, b in query_pairs[:n]])
+        cases[f"{n} or"] = (prep["segs"], prep["required"], n,
+                            prep["need_counts"])
+    prep = batch_inputs(searcher, [match_body(a, b, operator="and")
+                                   for a, b in query_pairs[64:128]])
+    cases["64 and"] = (prep["segs"], prep["required"], 64,
+                       prep["need_counts"])
+    segs64, req64, _n, _nc = cases["64 or"]
+    deleted = [seg._replace(live=seg.live & (torch.rand(
+        seg.live.shape[0], device=dev, generator=gen) > 0.1))
+        for seg in segs64]
+    cases["64 or, deletes"] = (deleted, req64, 64, False)
+    ks = (1, 10, 100, cuda_bm25.K_MAX)
+    for name, (segs, req, n, need_counts) in cases.items():
+        ways = (need_counts,) if need_counts else (False, True)
+        for nc in ways:
+            for k in ks:
+                before = fn.launches
+                got = fn(segs, req, n_queries=n, k=k,
+                         need_counts=nc).numpy()
+                ref = batch.batch_term_bag_topk_segments(
+                    segs, req, n_queries=n, k=k, need_counts=nc).numpy()
+                if fn.launches - before != 1:
+                    raise AssertionError(f"K3 {name} k={k}: "
+                                         f"{fn.launches - before} launches")
+                for what, a, b in zip(("vals", "ids", "totals", "maxes"),
+                                      got, ref):
+                    if a.tobytes() != b.tobytes():
+                        raise AssertionError(
+                            f"K3 {name} need_counts={nc} k={k}: {what} "
+                            "differ from the plain twin")
+        log(f"K3 batch {name} ({len(segs)} segments, need_counts "
+            f"{list(ways)}): k {list(ks)} byte-equal to the plain twin "
+            f"(vals, ids, totals, maxes); totals {int(ref[2].sum())}")
+
+    k, n = 10, 64
+    table = cuda_bm25.pinned_batch_table(segs64, req64, n_queries=n,
+                                         need_counts=False)
+    nbytes = 0
+    postings = 0
+    query_postings = 0         # each query's rows, summed over queries
+    lib_inputs = []
+    for seg in segs64:
+        n_u = int(seg.union_active.sum())
+        rows = seg.union_rows[:n_u]
+        lens = rows[:, 1] - rows[:, 0]
+        seg_postings = int(lens.sum())
+        postings += seg_postings
+        query_postings += int(lens[seg.qslots[:n]][seg.qact[:n] > 0].sum())
+        n_pad = seg.live.shape[0]
+        nbytes += 8 * seg_postings + n_pad + n * (8 * k + 8)
+        pos = np.concatenate([np.arange(a, b) for a, b in rows])
+        slot = np.repeat(np.arange(n_u), rows[:, 1] - rows[:, 0])
+        docs = seg.doc_ids[torch.from_numpy(pos).to(dev)].long()
+        lib_inputs.append((
+            seg, n_u, torch.from_numpy(pos).to(dev),
+            torch.from_numpy(slot).to(dev) * n_pad + docs,
+            torch.from_numpy(seg.union_idfs[slot]).to(dev),
+            torch.from_numpy(seg.qslots[:n]).to(dev).long(),
+            torch.from_numpy(seg.qweights[:n]).to(dev)))
+
+    def lib_chain():
+        for seg, n_u, pos, flat, idf_p, qs, qw in lib_inputs:
+            n_pad = seg.live.shape[0]
+            arena = torch.zeros(n_u * n_pad, dtype=torch.float32,
+                                device=dev).index_add_(
+                0, flat, seg.impacts[pos] * idf_p)
+            dense = arena.view(n_u, n_pad)
+            scores = torch.zeros((n, n_pad), dtype=torch.float32,
+                                 device=dev)
+            for j in range(qs.shape[1]):
+                scores = scores + qw[:, j: j + 1] * dense[qs[:, j]]
+            key = torch.where((scores > 0) & seg.live, scores, -torch.inf)
+            torch.topk(key, k, dim=1)
+
+    def kernel():
+        return fn(segs64, req64, n_queries=n, k=k, need_counts=False,
+                  table=table)
+
+    ms, plain_ms = in_turns(
+        kernel, lambda: batch.batch_term_bag_topk_segments(
+            segs64, req64, n_queries=n, k=k, need_counts=False), 10)
+    lib_ms = cuda_ms(lib_chain, 10)
+    dev_ms = kernel_device_ms(kernel, 20, "term_bag_topk_kernel")
+    # bytes: each union posting (id + impact) read once, a live byte per
+    # doc, each (query, segment)'s k keys, total and max written once;
+    # operations: w * (idf * imp) + score per posting of each query
+    bms, by = bound_ms(nbytes, 3.0 * query_postings)
+    unions = [int(seg.union_active.sum()) for seg in segs64]
+    log(f"K3 batch of {n} OR bags k={k} over {len(segs64)} segments (union "
+        f"{min(unions)}-{max(unions)} terms, {postings} union postings, "
+        f"{query_postings} summed over the queries), one launch per "
+        f"batch: ms {ms:.4f} device_ms {dev_ms} plain_ms {plain_ms:.4f} "
+        f"library_ms(index_add_ arena + row gathers + topk chain) "
+        f"{lib_ms:.4f} bound_ms {bms:.5f} ({by}: {nbytes} bytes) on "
+        f"{gpu_name_power()}")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+            "bound_bytes": nbytes, "postings": postings,
+            "query_postings": query_postings, "max_abs_err": 0.0,
+            "batch": n, "k": k}
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -790,6 +951,166 @@ def phase_scale(segs, mapper, searcher):
             "knn_p50_ms": k_p50, "launches_per_query": per_query}
 
 
+# -- phases 5 and 6 ----------------------------------------------------------
+
+def strip_took(resp: dict) -> str:
+    return json.dumps({key: v for key, v in resp.items() if key != "took"},
+                      sort_keys=True)
+
+
+def phase_msearch(searcher, bodies, counters) -> dict:
+    """The 256 ``match`` queries through ``ShardSearcher.msearch`` in 4
+    batches of 64 (the batch path's first run: every group assembled,
+    one K3 launch each), then again (group inputs cached), against the
+    same queries through ``search`` one after another (after a warm-up
+    pass).  Every response must equal the sequential one, each batch
+    make one K3 launch and no K2 one, and batched qps reach 0.8 x
+    sequential qps."""
+    for body in bodies:                        # warm: plans, inputs
+        searcher.search(body)
+    t0 = time.monotonic()
+    seq = [strip_took(searcher.search(body)) for body in bodies]
+    seq_s = time.monotonic() - t0
+    n_batches = len(bodies) // 64
+    for fn in counters.values():               # the batched path starts
+        fn.launches = 0
+    t0 = time.monotonic()
+    out = []
+    for i in range(n_batches):
+        out += searcher.msearch(bodies[64 * i: 64 * (i + 1)])
+    cold_s = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    t0 = time.monotonic()
+    warm = []
+    for i in range(n_batches):
+        warm += searcher.msearch(bodies[64 * i: 64 * (i + 1)])
+    warm_s = time.monotonic() - t0
+    per_batch = launches["batch_topk"] / n_batches
+    if per_batch != 1.0 or launches["term_bag_topk"] or \
+            launches["term_bag_scores"]:
+        raise AssertionError(f"an msearch batch must make exactly one K3 "
+                             f"launch and no K2 one: {launches}")
+    bad = [i for i, r in enumerate(out + warm)
+           if strip_took(r) != seq[i % len(bodies)]]
+    if bad:
+        raise AssertionError(f"msearch responses {bad[:5]} differ from "
+                             "sequential search")
+    seq_qps = len(bodies) / seq_s
+    qps, warm_qps = len(bodies) / cold_s, len(bodies) / warm_s
+    if qps < 0.8 * seq_qps:
+        raise AssertionError(f"batched qps {qps:.1f} below 0.8 x "
+                             f"sequential {seq_qps:.1f}")
+    log(f"msearch: {len(bodies)} match queries in {n_batches} batches of "
+        f"64, every response equal to sequential search; qps {qps:.2f} "
+        f"(group inputs assembled) / {warm_qps:.2f} (cached) against "
+        f"sequential {seq_qps:.2f}; launches per batch {per_batch:.2f} K3, "
+        f"{launches['term_bag_topk'] / n_batches:.2f} K2 top-k, "
+        f"{launches['term_bag_scores'] / n_batches:.2f} K2 per-slot on "
+        f"{gpu_name_power()}")
+    return {"qps": qps, "qps_cached": warm_qps, "seq_qps": seq_qps,
+            "k3_launches_per_batch": per_batch, "launches": launches,
+            "seq": seq}
+
+
+def phase_continuous(searcher, bodies, seq, counters,
+                     concurrency: int = 16) -> dict:
+    """``concurrency`` client threads send the same queries as single
+    searches through ``query_engine().execute(..., service=shim)``, the
+    continuous batcher on with a 4 ms window and batches of at most 64:
+    fewer than one dispatch per query (the reference bench's bar), every
+    response equal to sequential search; qps, p50 and p99 latency.  Then
+    the same threads with the batcher off, for the qps and latency that
+    the batcher is held against."""
+    import threading
+
+    from opensearch_tpu_torch.search import engine as engine_mod
+
+    class Shim:
+        """Service shim: a bare searcher behind the engine, no mesh."""
+
+        @staticmethod
+        def _use_mesh(body):
+            return False
+
+    eng = engine_mod.query_engine()
+    n = len(bodies)
+
+    def drive() -> tuple:
+        results = [None] * n
+        lat = [0.0] * n
+        errors = []
+
+        def client(t):
+            try:
+                for i in range(t, n, concurrency):
+                    t1 = time.monotonic()
+                    results[i] = eng.execute(searcher, dict(bodies[i]),
+                                             service=Shim())
+                    lat[i] = (time.monotonic() - t1) * 1e3
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(t,),
+                                    name=f"smoke-client-{t}", daemon=True)
+                   for t in range(concurrency)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        wall = time.monotonic() - t0
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a continuous-batching client hung")
+        if errors:
+            raise errors[0]
+        bad = [i for i, r in enumerate(results) if strip_took(r) != seq[i]]
+        if bad:
+            raise AssertionError(f"responses {bad[:5]} of {concurrency} "
+                                 "threads differ from sequential search")
+        p50, p99 = (float(np.percentile(lat, q)) for q in (50, 99))
+        return n / wall, p50, p99
+
+    prev = (engine_mod.BATCHER_ENABLED, engine_mod.BATCHER_WINDOW_MS,
+            engine_mod.BATCHER_MAX_BATCH)
+    engine_mod.BATCHER_WINDOW_MS = 4.0
+    engine_mod.BATCHER_MAX_BATCH = 64
+    try:
+        engine_mod.BATCHER_ENABLED = True
+        s0 = eng.batcher.stats()
+        for fn in counters.values():
+            fn.launches = 0
+        qps, p50, p99 = drive()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        s1 = eng.batcher.stats()
+        engine_mod.BATCHER_ENABLED = False
+        off_qps, off_p50, off_p99 = drive()
+    finally:
+        (engine_mod.BATCHER_ENABLED, engine_mod.BATCHER_WINDOW_MS,
+         engine_mod.BATCHER_MAX_BATCH) = prev
+        eng.shutdown()
+    batched = s1["batched"] - s0["batched"]
+    groups = s1["dispatches"] - s0["dispatches"]
+    bypass = s1["bypass"] - s0["bypass"]
+    solo = n - batched - bypass
+    per_query = (groups + solo + bypass) / n
+    if per_query >= 1.0 or launches["batch_topk"] != groups:
+        raise AssertionError(f"continuous batching: {per_query} dispatches "
+                             f"per query, {groups} groups, {launches}")
+    log(f"continuous: {n} searches from {concurrency} threads, window 4 ms: "
+        f"{groups} groups ({batched} members, mean {batched / max(groups, 1):.2f}),"
+        f" {solo} solo, {bypass} bypass; {per_query:.4f} dispatches per "
+        f"query; qps {qps:.2f}, p50 {p50:.3f} ms, p99 {p99:.3f} ms; batcher "
+        f"off: qps {off_qps:.2f}, p50 {off_p50:.3f} ms, p99 {off_p99:.3f} "
+        f"ms; every response equal to sequential search on "
+        f"{gpu_name_power()}")
+    return {"dispatches_per_query": per_query, "groups": groups,
+            "batched": batched, "solo": solo, "bypass": bypass,
+            "qps": qps, "p50_ms": p50, "p99_ms": p99,
+            "batcher_off": {"qps": off_qps, "p50_ms": off_p50,
+                            "p99_ms": off_p99},
+            "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -807,7 +1128,8 @@ def main() -> int:
     counters = {"knn_topk": cuda_knn.knn_topk_segments_cuda,
                 "knn_scores": cuda_knn.knn_scores_cuda,
                 "term_bag_scores": cuda_bm25.term_bag_cuda,
-                "term_bag_topk": cuda_bm25.term_bag_topk_segments_cuda}
+                "term_bag_topk": cuda_bm25.term_bag_topk_segments_cuda,
+                "batch_topk": cuda_bm25.batch_term_bag_topk_cuda}
     for fn in counters.values():              # the main path starts here
         fn.launches = 0
     phase_ingest()
@@ -815,16 +1137,28 @@ def main() -> int:
     scale = phase_scale(segs, mapper, searcher)
     launches = {n: fn.launches for n, fn in counters.items()}
     log(f"launches over phases 3-4: {launches} (ingest {after_ingest})")
-    if min(launches.values()) <= 0 or min(after_ingest.values()) <= 0:
+    sequential_path = [n for n in counters if n != "batch_topk"]
+    if min(launches[n] for n in sequential_path) <= 0 or \
+            min(after_ingest[n] for n in sequential_path) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches} (ingest {after_ingest})")
+    # the batched path: msearch, then the continuous batcher, each with
+    # the counts zeroed just before it and read just after
+    bodies = [match_body(a, b) for a, b in zipf_query_log(256, seed=7)]
+    msearch = phase_msearch(searcher, bodies, counters)
+    continuous = phase_continuous(searcher, bodies, msearch.pop("seq"),
+                                  counters)
+    launches["batch_topk"] = (msearch["launches"]["batch_topk"]
+                              + continuous["launches"]["batch_topk"])
     sources = {"knn_topk": ("knn.cu", "opensearch_tpu/ops/pallas_knn.py:62"),
                "knn_scores": ("knn.cu",
                               "opensearch_tpu/ops/pallas_knn.py:62"),
                "term_bag_scores": ("bm25.cu",
                                    "opensearch_tpu/ops/bm25.py:191"),
                "term_bag_topk": ("bm25.cu",
-                                 "opensearch_tpu/search/plan.py:1760")}
+                                 "opensearch_tpu/search/plan.py:1760"),
+               "batch_topk": ("bm25.cu",
+                              "opensearch_tpu/search/batch.py:69")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = {"kernels": [
@@ -833,7 +1167,8 @@ def main() -> int:
          "launches": launches[name],
          **{key: kern[name][key] for key in keys}}
         for name, (src, rep) in sources.items()]}
-    log(json.dumps({"scale": scale, "k1_1m": kern["k1_1m"],
+    log(json.dumps({"scale": scale, "msearch": msearch,
+                    "continuous": continuous, "k1_1m": kern["k1_1m"],
                     "k2_topk_heaviest": kern["term_bag_topk"]["heaviest"],
                     "device_ms": {n: kern[n].get("device_ms")
                                   for n in sources},

@@ -14,7 +14,13 @@
 //   term_bag_topk_segments_launch  one launch per `match` query over every
 //                                  segment of a shard: each segment's
 //                                  exact top-k, total and max, and no
-//                                  dense score in device memory.
+//                                  dense score in device memory.  The
+//                                  batched path (K3, replacing the
+//                                  reference's batch_impact_union_topk,
+//                                  opensearch_tpu/search/batch.py:69)
+//                                  launches it once per msearch or
+//                                  continuous-batch group, with one table
+//                                  entry per (query, segment).
 //   term_bag_launch                the dense scores and/or counts of one
 //                                  segment, one launch per query-term
 //                                  slot (bool, constant_score, count).

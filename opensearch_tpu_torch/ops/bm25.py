@@ -228,8 +228,30 @@ class TermBagSegment(NamedTuple):
     budget: int               # gather lanes of the plain version
 
 
+class BatchSegment(NamedTuple):
+    """One segment's inputs to a batch of scored bags over one field (the
+    msearch path, ``search/batch.py``): the union of the batch's terms
+    present in the segment, and each query's terms as union slots, in the
+    reference's ``batch_impact_union_topk`` layout.  The tensors live on
+    the segment's device; the per-slot arrays stay on the host (K3 reads
+    them from its launch table)."""
+    offsets: torch.Tensor     # i32, the staged CSR offsets
+    doc_ids: torch.Tensor     # i32 [P_pad], rows doc-ascending
+    impacts: torch.Tensor     # f32 [P_pad]
+    live: torch.Tensor        # bool [n_pad], the point-in-time live mask
+    union_tids: np.ndarray    # i32 [t_pad]: union slot -> term id
+    union_active: np.ndarray  # bool [t_pad]
+    union_idfs: np.ndarray    # f32 [t_pad]
+    union_rows: np.ndarray    # i64 [t_pad, 2]: each slot's posting range
+    qslots: np.ndarray        # i32 [q_pad, tq]: query q's j-th term's slot
+    qweights: np.ndarray      # f32 [q_pad, tq]
+    qact: np.ndarray          # f32 [q_pad, tq]: 1 on q's present terms
+    budget: int               # gather lanes of the plain version
+
+
 class TermBagTopK(NamedTuple):
-    """Per-segment results of a scored bag: ``vals`` f32 [S, k] and
+    """Per-segment results of a scored bag (for a batch of Q bags, one row
+    per (query, segment), row ``q * S + s``): ``vals`` f32 [S, k] and
     ``ids`` i32 [S, k] (score descending, lower doc id first on ties,
     ``(-inf, -1)`` past the matched docs), ``totals`` i32 [S] (matched
     docs) and ``maxes`` f32 [S] (largest matched score, -inf when none),

@@ -1,7 +1,9 @@
 """Wrappers of K2, the hand-written term-bag kernel (``csrc/bm25.cu``),
 which replaces the reference's ``gather_postings`` + ``impact_scores`` /
 ``impact_score_count`` / ``match_count`` on CUDA tensors, and on the
-``match`` path the ``run_topk`` after them.
+``match`` path the ``run_topk`` after them; its top-k entry also serves
+the batched path (K3), which replaces ``search/batch.py``
+``batch_impact_union_topk``.
 
 - ``term_bag_topk_segments_cuda``: one launch per ``match`` query over
   every segment of a shard, each segment's exact top-k, matched total
@@ -14,8 +16,13 @@ which replaces the reference's ``gather_postings`` + ``impact_scores`` /
   segment, one launch per query-term slot (``bool``, ``constant_score``,
   ``count``).  Its plain twins are ``ops/bm25.py``'s ``*_plain``
   functions.
+- ``batch_term_bag_topk_cuda`` (K3): one launch of the top-k entry per
+  msearch or continuous-batch group, with one table entry per (query,
+  segment) (``batch_table``), each writing that pair's exact top-k,
+  total and max.  Its plain twin is
+  ``search/batch.py::batch_term_bag_topk_segments``.
 
-Neither ever falls back to its plain twin: a CUDA tensor gets the kernel
+None ever falls back to its plain twin: a CUDA tensor gets the kernel
 or an exception.  ``.launches`` on each wrapper counts kernel launches.
 """
 
@@ -121,7 +128,7 @@ def term_bag_cuda(offsets, doc_ids, impacts, term_ids, term_active, idfs,
         _ptr(idfs if scores else None), _ptr(weights if scores else None),
         t_pad, grid, _ptr(out_s), _ptr(out_c), ctypes.c_void_p(stream))
     cuda_build.check(lib, rc, "term_bag_launch")
-    term_bag_cuda.launches += t_pad
+    cuda_build.count(term_bag_cuda, t_pad)
     return out_s, out_c
 
 
@@ -242,27 +249,120 @@ def term_bag_topk_segments_cuda(segments, *, k: int,
     out = bm25.empty_topk(len(segments), k, dev)
     if k > K_MAX:
         for s, seg in enumerate(segments):
-            term_bag_topk_segments_cuda.sorted_route_segments += 1
+            cuda_build.count(term_bag_topk_segments_cuda,
+                             attr="sorted_route_segments")
             bm25.write_topk_row(out, s, *bm25.segment_topk(
                 seg, k, min_score, plain=False))
         return out
-    kp = k_padded(k)
     table, n_blocks, n_slots = segments_table(segments)
-    # one pinned H2D copy; the result holds the table and the scratch (and
-    # the caller the segments' tensors) until it is read back
-    table_dev = torch.from_numpy(table).pin_memory().to(dev,
-                                                        non_blocking=True)
+    out = _topk_launch(torch.from_numpy(table).pin_memory(), len(segments),
+                       n_blocks, n_slots, k, min_score, out)
+    cuda_build.count(term_bag_topk_segments_cuda)
+    return out
+
+
+def _topk_launch(table, n_entries: int, n_blocks: int, n_slots: int, k: int,
+                 min_score: float, out):
+    """One launch of the top-k entry over ``table`` (a ``launch_table``
+    in pinned host memory, ``n_entries`` entries) into ``out``: one H2D
+    copy of the table, which the kernel then counts into.  The result
+    holds the table and the scratch (and the caller the segments'
+    tensors) until it is read back."""
+    dev = out.vals.device
+    kp = k_padded(k)
+    table_dev = table.to(dev, non_blocking=True)
     scratch = torch.empty(n_blocks * kp, dtype=torch.int64, device=dev)
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.term_bag_topk_segments_launch(
-        _ptr(table_dev), len(segments), n_slots, n_blocks, k, kp,
+        _ptr(table_dev), n_entries, n_slots, n_blocks, k, kp,
         float(min_score), _ptr(out.vals), _ptr(out.ids), _ptr(out.totals),
         _ptr(out.maxes), _ptr(scratch), ctypes.c_void_p(stream))
     cuda_build.check(lib, rc, "term_bag_topk_segments_launch")
-    term_bag_topk_segments_cuda.launches += 1
-    return out._replace(keep=(table_dev, scratch))
+    return out._replace(keep=(table_dev, scratch, table))
 
 
 term_bag_topk_segments_cuda.launches = 0
 term_bag_topk_segments_cuda.sorted_route_segments = 0
+
+
+# -- K3, the batched top-k: the top-k entry over (query, segment) entries --
+
+def batch_table(segments, required, *, n_queries: int,
+                need_counts: bool) -> tuple[np.ndarray, int, int]:
+    """``launch_table`` of a batch of ``n_queries`` scored bags over
+    ``bm25.BatchSegment``s: one entry per (query, segment), segment after
+    segment and query after query within one (the blocks of a segment's
+    queries run side by side and share its postings in L2), entry (s, q)
+    writing output row ``q * S + s``.  Its slots are the query's present
+    terms in term order, each its union slot's posting range and idf
+    and its own weight (a duplicate term is two slots naming one row);
+    ``required`` f32 [>= n_queries]; ``fast`` is ``not need_counts`` for
+    every entry, the plain twin's match rule for the whole batch."""
+    n_seg = len(segments)
+    rows, idfs, weights, counts = [], [], [], []
+    for seg in segments:
+        act = seg.qact[:n_queries] > 0        # [Q, tq], term order per row
+        slots = seg.qslots[:n_queries][act]
+        rows.append(seg.union_rows[slots])
+        idfs.append(seg.union_idfs[slots])
+        weights.append(seg.qweights[:n_queries][act])
+        counts.append(act.sum(axis=1))
+    q = np.arange(n_queries, dtype=np.int64)
+    return launch_table(
+        [(seg.doc_ids.data_ptr(), seg.impacts.data_ptr(),
+          seg.live.data_ptr()) for seg in segments for _ in q],
+        np.repeat([seg.live.shape[0] for seg in segments], n_queries),
+        np.concatenate(counts), np.concatenate(rows).reshape(-1, 2),
+        np.concatenate(idfs), np.concatenate(weights),
+        np.tile(np.asarray(required[:n_queries], np.float32)
+                .astype(np.int64), n_seg),
+        np.full(n_seg * n_queries, not need_counts),
+        out_rows=(q[None, :] * n_seg
+                  + np.arange(n_seg, dtype=np.int64)[:, None]).ravel())
+
+
+def pinned_batch_table(segments, required, *, n_queries: int,
+                       need_counts: bool) -> tuple[torch.Tensor, int, int]:
+    """``batch_table`` in pinned host memory, with its block and slot
+    counts: what ``batch_term_bag_topk_cuda`` takes as ``table``.  A
+    caller may build it once per group and pass it to every run: each
+    launch copies it to the card afresh."""
+    table, n_blocks, n_slots = batch_table(
+        segments, required, n_queries=n_queries, need_counts=need_counts)
+    return torch.from_numpy(table).pin_memory(), n_blocks, n_slots
+
+
+def batch_term_bag_topk_cuda(segments, required, *, n_queries: int, k: int,
+                             need_counts: bool, table=None):
+    """Exact top-k, matched total and max of each of ``n_queries`` scored
+    bags on every segment, in one launch of the top-k entry: a
+    ``bm25.TermBagTopK`` whose row ``q * S + s`` equals row ``q * S + s``
+    of ``search/batch.py::batch_term_bag_topk_segments``.  ``segments``
+    are ``bm25.BatchSegment``s on one CUDA device; ``table`` is what
+    ``pinned_batch_table`` built for these inputs (built here when
+    None)."""
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"k must be in 1..{K_MAX}, got {k}")
+    if n_queries < 1:
+        raise ValueError(f"n_queries must be >= 1, got {n_queries}")
+    if not segments:
+        raise ValueError("batch_term_bag_topk_cuda needs a segment")
+    dev = segments[0].doc_ids.device
+    if dev.type != "cuda":
+        raise ValueError(f"batch_term_bag_topk_cuda needs CUDA tensors, "
+                         f"got {dev}")
+    for i, seg in enumerate(segments):
+        _check_segment(seg, dev, i)
+    if table is None:
+        table = pinned_batch_table(segments, required, n_queries=n_queries,
+                                   need_counts=need_counts)
+    host, n_blocks, n_slots = table
+    n_entries = n_queries * len(segments)
+    out = _topk_launch(host, n_entries, n_blocks, n_slots, k, -np.inf,
+                       bm25.empty_topk(n_entries, k, dev))
+    cuda_build.count(batch_term_bag_topk_cuda)
+    return out
+
+
+batch_term_bag_topk_cuda.launches = 0

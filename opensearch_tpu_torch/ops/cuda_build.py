@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[tuple, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -113,6 +114,14 @@ def library(name: str, declare, defines=None) -> ctypes.CDLL:
             declare(lib)
             _libs[key] = lib
         return lib
+
+
+def count(wrapper, n: int = 1, attr: str = "launches") -> None:
+    """Add ``n`` to a wrapper's counter (``wrapper.launches`` by default)
+    under one lock: wrappers launch from many threads at once (the
+    engine's threadpool, continuous-batch leaders)."""
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + n)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

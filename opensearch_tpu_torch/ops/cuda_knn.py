@@ -129,7 +129,7 @@ def _scores_launch(vectors, exists, live, mask, query, d, code):
                                _ptr(mask), _ptr(query), _ptr(out), n, d,
                                code, ctypes.c_void_p(stream))
     cuda_build.check(lib, rc, "knn_scores_launch")
-    knn_scores_cuda.launches += 1
+    cuda_build.count(knn_scores_cuda)
     return out
 
 
@@ -238,11 +238,12 @@ def knn_topk_segments_cuda(segments, query, *, space: str, k: int):
             code, _ptr(vals), _ptr(ids), _ptr(scratch),
             ctypes.c_void_p(stream))
         cuda_build.check(lib, rc, "knn_topk_segments_launch")
-        knn_topk_segments_cuda.launches += 1
+        cuda_build.count(knn_topk_segments_cuda)
     for s, seg in enumerate(segments):
         if not uses_sorted_route(k, rows[s]):
             continue
-        knn_topk_segments_cuda.sorted_route_segments += 1
+        cuda_build.count(knn_topk_segments_cuda,
+                         attr="sorted_route_segments")
         v, i = topk(_scores_launch(seg.vectors, seg.exists, seg.live,
                                    seg.mask, query, d, code), k)
         vals[s, : v.shape[0]] = v

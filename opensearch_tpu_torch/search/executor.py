@@ -14,10 +14,17 @@ back.  The per-shard "reduce" over segments is a host-side k-way merge
 with Lucene's tie-break (score desc, then index order = (segment, local
 doc)).
 
+``msearch`` batches the bodies that compile to a scored term bag into
+one ``BatchGroup`` per (field, size) (``search/batch.py``: one K3 launch
+per group on CUDA) and serves the others through ``search``.
+
 Not ported yet (ROADMAP): aggregations, sort, collapse, rescore,
 search_after, highlight / explain / fields, profile, suggest, hybrid,
-msearch, timeouts, and the telemetry / insights / task / device-health
-hooks.  Requests that use them raise ``NotYetPortedError``.
+timeouts, and the telemetry / insights / task / device-health hooks.
+Requests that use them raise ``NotYetPortedError``.
+
+The searcher's caches are ``BoundedCache``s: the engine's threadpool and
+the continuous batcher call ``search`` from many threads at once.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from opensearch_tpu_torch.common.cache import BoundedCache
 from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
                                                 NotYetPortedError)
 from opensearch_tpu_torch.common.torchenv import resolve_device
@@ -46,9 +54,11 @@ _I32 = np.int32
 # being ignored
 _SUPPORTED_BODY_KEYS = frozenset({"query", "size", "from", "min_score",
                                   "_source", "track_total_hits"})
-# bounds of the searcher's plan and prepared-bindings caches (entries)
+# bounds of the searcher's plan, prepared-bindings and batch caches
+# (entries)
 _PLAN_CACHE_MAX = 256
 _PREP_CACHE_MAX = 1024
+_BATCH_PREP_CACHE_MAX = 64
 
 
 def shards_section(total: int) -> dict:
@@ -96,10 +106,14 @@ def build_arrays(dseg: DeviceSegment, needed, mapper, live=None):
     return A
 
 
-def _bounded_put(cache: dict, key, value, limit: int) -> None:
-    if len(cache) >= limit:
-        cache.pop(next(iter(cache)))
-    cache[key] = value
+def _plan_key(query_json, scored: bool):
+    """The plan cache's key of a query body (None when it does not
+    serialize)."""
+    try:
+        return (json.dumps(query_json, sort_keys=True,
+                           separators=(",", ":")), scored)
+    except (TypeError, ValueError):
+        return None
 
 
 class ShardSearcher:
@@ -116,8 +130,11 @@ class ShardSearcher:
         self.index_name = index_name
         self.shard_id = shard_id
         self.ctx = ShardContext(self.segments, mapper, self.device)
-        self._plan_cache: dict = {}
-        self._prep_cache: dict = {}
+        self._plan_cache = BoundedCache(_PLAN_CACHE_MAX)
+        self._prep_cache = BoundedCache(_PREP_CACHE_MAX)
+        # msearch / continuous-batch group inputs, keyed by the group's
+        # signature (``search/batch.py`` ``BatchGroup._prepare``)
+        self._batch_prep_cache = BoundedCache(_BATCH_PREP_CACHE_MAX)
 
     # -- compiled-plan / prepared-bindings caches -------------------------
 
@@ -126,18 +143,20 @@ class ShardSearcher:
         """(plan, bind) for a raw query body through the searcher's plan
         cache, keyed on the canonicalized JSON.  The searcher is an
         immutable point-in-time view, so entries never go stale."""
-        try:
-            ckey = (json.dumps(query_json, sort_keys=True,
-                               separators=(",", ":")), scored)
-        except (TypeError, ValueError):
-            ckey = None
+        ckey = _plan_key(query_json, scored)
         out = self._plan_cache.get(ckey) if ckey is not None else None
         if out is None:
             out = compile_query(parse_query(query_json), self.ctx,
                                 scored=scored)
             if ckey is not None:
-                _bounded_put(self._plan_cache, ckey, out, _PLAN_CACHE_MAX)
+                out = self._plan_cache.put(ckey, out)
         return (out, ckey) if with_key else out
+
+    def cached_plan(self, query_json: Optional[dict], scored: bool = True):
+        """(plan, bind) when the plan cache already holds the query, else
+        None: a peek that never compiles."""
+        ckey = _plan_key(query_json, scored)
+        return None if ckey is None else self._plan_cache.get(ckey)
 
     def _prepared(self, plan, bind, seg, dseg, ckey):
         """``plan.prepare``'s per-(plan, segment) products — padded term
@@ -152,12 +171,7 @@ class ShardSearcher:
         query has a cache key."""
         if ckey is None:
             return make()
-        key = (ckey, id(seg), kind)
-        out = self._prep_cache.get(key)
-        if out is None:
-            out = make()
-            _bounded_put(self._prep_cache, key, out, _PREP_CACHE_MAX)
-        return out
+        return self._prep_cache.get_or_make((ckey, id(seg), kind), make)
 
     # -- public API -------------------------------------------------------
 
@@ -182,9 +196,34 @@ class ShardSearcher:
         return total
 
     def msearch(self, bodies: list) -> list[dict]:
-        raise NotYetPortedError(
-            "msearch (the batched search path) is not ported to the "
-            "torch package yet")
+        """Multi-search (the ``_msearch`` analog): bodies that compile to
+        a scored term bag run as one batched program per (field, size)
+        group — one K3 launch over every segment on CUDA (see
+        ``search/batch.py``); every other body runs ``search``, fanned
+        out over the engine's threadpool when there are several.
+        Responses come back in request order, shaped as ``search``'s."""
+        from opensearch_tpu_torch.search.batch import plan_batches
+
+        t0 = time.monotonic()
+        if not self.segments:
+            return [self.search(b) for b in bodies]
+        groups, fallback = plan_batches(self, bodies)
+        results: list = [None] * len(bodies)
+        for group in groups:
+            for pos, (rows, total, max_score) in group.run(self).items():
+                results[pos] = self._response(
+                    rows, total, max_score,
+                    (bodies[pos] or {}).get("_source"), t0)
+        if len(fallback) > 1:
+            from opensearch_tpu_torch.search.engine import query_engine
+            outs = query_engine().pool.run_all(
+                [(lambda b=bodies[pos]: self.search(b)) for pos in fallback])
+            for pos, resp in zip(fallback, outs):
+                results[pos] = resp
+        else:
+            for pos in fallback:
+                results[pos] = self.search(bodies[pos])
+        return results
 
     def search(self, body: Optional[dict] = None) -> dict:
         body = body or {}
@@ -219,18 +258,25 @@ class ShardSearcher:
             rows, total, max_score, total_is_lower_bound = self._topk(
                 plan, bind, needed, k_want, min_score, ckey=ckey,
                 allow_kth_prune=allow_kth_prune)
-        rows = rows[from_: from_ + size]
-        hits = self._hits_from_rows(rows, body.get("_source"))
+        return self._response(rows[from_: from_ + size], total, max_score,
+                              body.get("_source"), t0,
+                              lower_bound=total_is_lower_bound)
+
+    def _response(self, rows, total, max_score, source_spec, t0: float,
+                  lower_bound: bool = False) -> dict:
+        """A search response (``search``'s, ``msearch``'s and the
+        continuous batcher's): the page's ``rows``, the matched total
+        (a lower bound when ``lower_bound``), the largest score and the
+        time since ``t0``."""
         return {
             "took": int((time.monotonic() - t0) * 1000),
             "timed_out": False,
             "_shards": shards_section(1),
             "hits": {
                 "total": {"value": int(total),
-                          "relation": ("gte" if total_is_lower_bound
-                                       else "eq")},
+                          "relation": "gte" if lower_bound else "eq"},
                 "max_score": max_score,
-                "hits": hits,
+                "hits": self._hits_from_rows(rows, source_spec),
             },
         }
 

@@ -1,17 +1,20 @@
 """Where a query's time goes on the card: the scale corpus of
 ``chip_smoke.py`` (1M docs in 16 segments, ~22M postings, 128-d f32
 vectors), a window of ``match`` and ``knn`` queries through
-``ShardSearcher.search`` under ``torch.profiler``.
+``ShardSearcher.search``, and of ``match`` queries through
+``ShardSearcher.msearch`` in batches of 64, under ``torch.profiler``.
 
     python3 -m opensearch_tpu_torch.testing.profile_scale [n_queries]
 
-Prints one JSON line per query kind: wall ms per query (profiler on),
-device busy ms per query (the sum of the CUDA kernels' and copies' own
-time; one stream, so they do not overlap), the idle share
-``1 - busy / wall``, the device calls (kernels and copies) per query,
-the ``cudaLaunchKernel`` calls and the CUB radix-sort kernels per query,
-the top device entries and the top host ops by self time.  Needs CUDA;
-without it, exits non-zero.
+``n_queries`` sizes the ``match`` and ``knn`` windows; the ``msearch``
+window is 4 batches of 64 (their group inputs assembled in the window,
+after one warm-up batch).  Prints one JSON line per query kind: wall ms
+per query (profiler on), device busy ms per query (the sum of the CUDA
+kernels' and copies' own time; one stream, so they do not overlap), the
+idle share ``1 - busy / wall``, the device calls (kernels and copies)
+per query, the ``cudaLaunchKernel`` calls and the CUB radix-sort kernels
+per query, the top device entries and the top host ops by self time.
+Needs CUDA; without it, exits non-zero.
 """
 
 from __future__ import annotations
@@ -54,23 +57,25 @@ def build_searcher(n_docs: int, n_segments: int, device):
     return ShardSearcher(segs, mapper, index_name="scale", device=device)
 
 
-def query_bodies(n: int) -> dict:
+def query_bodies(n: int, seed: int = 9) -> dict:
     from opensearch_tpu_torch.testing import corpus
 
     rng = np.random.default_rng(44)
     return {
         "match": [{"query": {"match": {"body": f"t{a} t{b}"}}, "size": 10,
                    "_source": False}
-                  for a, b in corpus.zipf_query_log(n, seed=9)],
+                  for a, b in corpus.zipf_query_log(n, seed=seed)],
         "knn": [{"query": {"knn": {"vec": {
             "vector": rng.standard_normal(DIM).astype(np.float32).tolist(),
             "k": 10}}}, "size": 10, "_source": False} for _ in range(n)],
     }
 
 
-def profile_window(searcher, bodies: list) -> dict:
-    """One profiled window over ``bodies``: per-query wall and device
-    busy time, idle share, top device entries and top host ops."""
+def profile_window(searcher, bodies: list, batch: int = 0) -> dict:
+    """One profiled window over ``bodies``, searched one by one, or with
+    ``batch`` > 0 through ``msearch`` in batches of that many: per-query
+    wall and device busy time, idle share, top device entries and top
+    host ops."""
     from torch.profiler import ProfilerActivity, profile
 
     n = len(bodies)
@@ -78,8 +83,12 @@ def profile_window(searcher, bodies: list) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for body in bodies:
-            searcher.search(body)
+        if batch:
+            for i in range(0, n, batch):
+                searcher.msearch(bodies[i: i + batch])
+        else:
+            for body in bodies:
+                searcher.search(body)
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     events = prof.key_averages()
@@ -90,6 +99,7 @@ def profile_window(searcher, bodies: list) -> dict:
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     return {
         "queries": n,
+        "queries_per_call": batch or 1,
         "wall_ms_per_query": wall_ms / n,
         "device_busy_ms_per_query": (busy_ms / n) if dev else None,
         "idle_share": (1.0 - busy_ms / wall_ms) if dev else None,
@@ -124,6 +134,11 @@ def main(argv=None) -> int:
             searcher.search(body)
         out = profile_window(searcher, qs[5:])
         print(json.dumps({"kind": kind, "gpu": gpu, **out}), flush=True)
+    batch = 64
+    qs = query_bodies(5 * batch, seed=10)["match"]
+    searcher.msearch(qs[:batch])             # warm-up
+    out = profile_window(searcher, qs[batch:], batch=batch)
+    print(json.dumps({"kind": "msearch", "gpu": gpu, **out}), flush=True)
     return 0
 
 

@@ -308,6 +308,9 @@ def test_unported_features_raise_typed_error(body):
 
 
 def test_msearch_and_ann_method_raise_typed_error():
+    """An ``ann`` method raises the typed error.  (This test also held
+    that ``msearch`` raised; msearch is ported now, and
+    ``test_msearch_match_all_returns_the_search_response`` checks it.)"""
     mapping = {"properties": {"v": {"type": "knn_vector", "dimension": 2,
                                     "method": {"name": "ivf"}}}}
     mapper = DocumentMapper(mapping)
@@ -316,10 +319,27 @@ def test_msearch_and_ann_method_raise_typed_error():
         "s")
     searcher = ShardSearcher([seg], mapper, device="cpu")
     with pytest.raises(NotYetPortedError):
-        searcher.msearch([{"query": {"match_all": {}}}])
-    with pytest.raises(NotYetPortedError):
         searcher.search({"query": {"knn": {"v": {"vector": [1.0, 1.0],
                                                  "k": 2}}}})
+
+
+def test_msearch_match_all_returns_the_search_response():
+    """A ``match_all`` body, which does not batch, comes back from
+    ``msearch`` as ``search`` returns it."""
+    mapping = {"properties": {"v": {"type": "knn_vector", "dimension": 2,
+                                    "method": {"name": "ivf"}}}}
+    mapper = DocumentMapper(mapping)
+    seg = SegmentWriter().build(
+        [mapper.parse(str(i), {"v": [float(i), 1.0]}) for i in range(4)],
+        "s")
+    searcher = ShardSearcher([seg], mapper, device="cpu")
+    body = {"query": {"match_all": {}}}
+    [got] = searcher.msearch([body])
+    want = searcher.search(body)
+    got.pop("took")
+    want.pop("took")
+    assert got == want
+    assert got["hits"]["total"]["value"] == 4
 
 
 def quantized_size_segment():
