@@ -30,7 +30,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (query, segment)) against ``batch_term_bag_topk_segments``, byte for
    byte, on batches of 1, 7 and 64 zipf OR bags (with and without the
    presence counts), 64 ``and`` bags and 64 OR bags over segments with
-   deletes, k in 1, 10, 100, K_MAX;
+   deletes, k in 1, 10, 100, K_MAX; and K4, the kernel's quantized row
+   layout, on 8 segments of 125,000 docs that the port quantizes (the
+   same corpus): its top-k entry ``term_bag_topk_quantized_cuda`` against
+   ``term_bag_topk_segments``, byte for byte, on the median, heaviest,
+   4-term, ``and``, ``min_score`` and deletes bags, k in 1, 10, 100,
+   K_MAX, K_MAX + 1, int8 and int16 codes, bags with and without guarded
+   (exact) terms; its per-slot entry on three bags; a mixed call over 2
+   quantized and 2 f32 segments; and K4 against K2 over the same
+   segments' ``dequantized()`` column staged as f32, byte for byte;
 3. ingest path: ~2,000 JSON docs through the port's DocumentMapper and
    SegmentWriter into 2 segments with deletes, then match / bool / knn
    (three spaces, filtered, and one k above K1's in-kernel maximum)
@@ -53,12 +61,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (fewer than one dispatch per query, every response equal to
    sequential ``search``; qps, p50 and p99), then once more with the
    batcher off (each thread's searches one after another) for its qps,
-   p50 and p99.
+   p50 and p99;
+7. quantized scale: the same 1,000,000 docs in 8 segments of 125,000
+   (every one at or above ``QUANTIZED_MIN_DOCS``, so quantized as the
+   reference quantizes them; the time the quantization takes is
+   logged); the 200 zipf ``match`` queries of phase 4 through
+   ``ShardSearcher.search`` (qps, p50, launches per query: one K4 top-k
+   launch and no per-slot one per ``match``), a ``bool`` /
+   ``constant_score`` / ``count`` sample (K4's per-slot entry, K2's on
+   the demand-staged f32 columns for filters), a sample byte-equal to
+   the CPU searcher, and the resident bytes against the f32 layout of
+   the same segments.
 
 Every kernel wrapper counts its launches; the counts are zeroed just
 before phase 3 and read after phase 4, and zeroed again just before
-phase 5 and before phase 6 and read after each: each kernel of each
-path must have run.
+phases 5, 6 and 7 and read after each: each kernel of each path must
+have run.
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the
 script exits non-zero and prints no result.
@@ -78,6 +96,7 @@ FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 SCALE_DOCS = 1_000_000
 BIG_N = 1_000_000                # the single large segment of phase 2
 SCALE_SEGMENTS = 16
+QUANT_SEGMENTS = 8               # phase 7: 8 x 125,000 docs, all quantized
 DIM = 128
 DEVICE = "cuda"
 
@@ -170,7 +189,8 @@ def phase_toolkit():
         f"{sorted(logs) or 'cached'}")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or \
+                    "entry function" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
 
@@ -294,6 +314,33 @@ def phase_knn_topk(scale_segs, dev, gen):
             "shape": f"{len(segs)}x{segs[0].vectors.shape[0]}x{DIM}, k={k}"}
 
 
+def match_query(terms, **extra) -> dict:
+    """A ``match`` query over ``body`` for the bag ``terms``."""
+    return {"match": {"body": {"query": " ".join(terms), **extra}}}
+
+
+def df_sum(pf, terms) -> int:
+    """Postings of ``terms`` in one segment's ``body`` field."""
+    return sum(int(pf.df[pf.term_id(t)]) for t in terms
+               if pf.term_id(t) >= 0)
+
+
+def topk_inputs(segs, searcher, query) -> list:
+    """Each segment's ``TermBagSegment`` of a scored bag, as the
+    searcher's one top-k call builds them."""
+    from opensearch_tpu_torch.search.executor import build_arrays
+
+    plan, bind = searcher.compiled(query)
+    out = []
+    for seg in segs:
+        dseg = seg.device(searcher.device)
+        A = build_arrays(dseg, plan.arrays(), searcher.mapper,
+                         live=searcher.ctx.live_mask(seg, dseg),
+                         partial_ok=plan.arrays())
+        out.append(plan.topk_input(bind, seg, dseg, A))
+    return out
+
+
 def phase_kernels(scale_segs, searcher, query_pairs):
     """K1 and K2 against their plain twins on the card, and timed at the
     shapes the main path gives them."""
@@ -392,10 +439,6 @@ def phase_kernels(scale_segs, searcher, query_pairs):
         dims, ins = plan.prepare(bind, seg, dseg, searcher.ctx)
         return plan, bind, dseg, dims, ins
 
-    def df_sum(pf, terms):
-        return sum(int(pf.df[pf.term_id(t)]) for t in terms
-                   if pf.term_id(t) >= 0)
-
     by_size = sorted(bags, key=lambda t: df_sum(pf0, t))
     median_bag = by_size[len(by_size) // 2]
     checks = [median_bag, by_size[-1],
@@ -481,29 +524,18 @@ def phase_term_bag_topk(scale_segs, searcher, dev, gen, median_bag,
     import torch
 
     from opensearch_tpu_torch.ops import bm25, cuda_bm25
-    from opensearch_tpu_torch.search.executor import build_arrays
 
     def inputs_for(query):
-        plan, bind = searcher.compiled(query)
-        out = []
-        for seg in scale_segs:
-            dseg = seg.device(dev)
-            A = build_arrays(dseg, plan.arrays(), searcher.mapper,
-                             live=searcher.ctx.live_mask(seg, dseg))
-            out.append(plan.topk_input(bind, seg, dseg, A))
-        return out
+        return topk_inputs(scale_segs, searcher, query)
 
-    def match(terms, **extra):
-        return {"match": {"body": {"query": " ".join(terms), **extra}}}
-
-    median = inputs_for(match(median_bag))
+    median = inputs_for(match_query(median_bag))
     deleted = [seg._replace(live=seg.live & (torch.rand(
         seg.live.shape[0], device=dev, generator=gen) > 0.1))
         for seg in median]
     cases = {"median": (median, -np.inf),
-             "heaviest": (inputs_for(match(heaviest_bag)), -np.inf),
-             "4-term": (inputs_for(match(four_bag)), -np.inf),
-             "and": (inputs_for(match(heaviest_bag, operator="and")),
+             "heaviest": (inputs_for(match_query(heaviest_bag)), -np.inf),
+             "4-term": (inputs_for(match_query(four_bag)), -np.inf),
+             "and": (inputs_for(match_query(heaviest_bag, operator="and")),
                      -np.inf),
              "deletes": (deleted, -np.inf)}
     top = bm25.term_bag_topk_segments(median, k=100).numpy()[0]
@@ -849,7 +881,7 @@ def build_scale():
         f"{DIM}-d f32 vectors; built and staged in "
         f"{time.monotonic() - t0:.1f}s")
     log(f"scale resident bytes on device: {searcher.resident_bytes()}")
-    return segs, mapper, searcher
+    return segs, mapper, searcher, raw
 
 
 def timed(searcher, bodies) -> tuple:
@@ -1111,6 +1143,416 @@ def phase_continuous(searcher, bodies, seq, counters,
             "launches": launches}
 
 
+# -- the quantized layout (K4): phase 2's checks and phase 7 ------------------
+
+def build_quantized(raw, mapper, dtype: str) -> tuple:
+    """The scale corpus ``raw`` in ``QUANT_SEGMENTS`` segments of 125,000
+    docs (each at or above ``QUANTIZED_MIN_DOCS``, so the port quantizes
+    them as the reference does) with ``dtype`` codes, their tables built
+    on the host (timed) and staged on the card.  Returns ``(segments,
+    searcher, stats)``."""
+    import torch
+
+    from opensearch_tpu_torch.index import codec
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing import corpus
+
+    segs = corpus.make_segments(raw, QUANT_SEGMENTS)
+    searcher = ShardSearcher(segs, mapper, index_name=f"quant_{dtype}",
+                             device=DEVICE)
+    avgdl = searcher.ctx.field_stats("body").avgdl
+    prev = codec.QUANTIZED_DTYPE
+    codec.QUANTIZED_DTYPE = dtype
+    try:
+        t0 = time.monotonic()
+        tables = [seg.quantized_table("body", avgdl) for seg in segs]
+        quantize_s = time.monotonic() - t0
+    finally:
+        codec.QUANTIZED_DTYPE = prev
+    for seg in segs:
+        dseg = seg.device(searcher.device)
+        if not dseg.quantized_mode:
+            raise AssertionError(f"segment of {seg.n_docs} docs is not "
+                                 "quantized")
+        dseg.quantized("body", avgdl)
+    torch.cuda.synchronize()
+    stats = {key: sum(int(t.stats[key]) for t in tables)
+             for key in ("terms", "postings", "exact_terms",
+                         "exact_postings", "f32_bytes", "quant_bytes")}
+    stats.update(dtype=dtype, width=[int(t.width) for t in tables],
+                 segments=len(segs), docs_per_segment=segs[0].n_docs,
+                 quantize_s=quantize_s)
+    log(f"quantized {dtype}: {len(segs)} segments of {segs[0].n_docs} docs "
+        f"quantized on the host in {quantize_s:.2f}s: {stats}")
+    return segs, searcher, stats
+
+
+def quantized_counters() -> dict:
+    """K4's launch counters: its top-k entry and its per-slot entry."""
+    from opensearch_tpu_torch.ops import cuda_bm25
+
+    return {"term_bag_quantized_topk": cuda_bm25.term_bag_topk_quantized_cuda,
+            "term_bag_quantized_scores": cuda_bm25.term_bag_quantized_cuda}
+
+
+def phase_quantized_kernels(quant, f32_segs, f32_searcher, query_pairs):
+    """K4 against its plain twin on the card, byte for byte: the top-k
+    entry over the 8 quantized segments at every bag, mask and k the
+    contract lists, with int8 and int16 codes, bags with and without
+    guarded terms; the per-slot entry on three bags; a mixed call over 2
+    quantized and 2 f32 segments; and K4 against K2 over the same
+    segments' ``dequantized()`` column staged as f32.  Then the top-k
+    entry timed (one launch per query) on the median and the heaviest
+    bag beside the plain twin, the library chain ``[torch.topk(zeros(
+    n_pad).index_add_(dequantized ...), k) for each segment]``, K2 over
+    the dequantized column and the bound."""
+    import torch
+
+    from opensearch_tpu_torch.index.segment import pad_pow2
+    from opensearch_tpu_torch.ops import bm25, cuda_bm25
+    from opensearch_tpu_torch.ops import quantized as qops
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    fn = cuda_bm25.term_bag_topk_segments_cuda
+    k4 = cuda_bm25.term_bag_topk_quantized_cuda
+    qsegs, qsearcher, _stats = quant["int8"]
+    avgdl = qsearcher.ctx.field_stats("body").avgdl
+
+    def guarded(terms):
+        for seg in qsegs:
+            pf = seg.postings["body"]
+            ex = np.diff(seg.quantized_table("body", avgdl).exact_offsets)
+            if any(pf.term_id(t) >= 0 and ex[pf.term_id(t)] > 0
+                   for t in terms):
+                return True
+        return False
+
+    pf0 = qsegs[0].postings["body"]
+    bags = [[f"t{a}", f"t{b}"] if a != b else [f"t{a}"]
+            for a, b in query_pairs]
+    by_size = sorted(bags, key=lambda t: df_sum(pf0, t))
+    median_bag, heaviest_bag = by_size[len(by_size) // 2], by_size[-1]
+    four_bag = by_size[len(by_size) // 4] + by_size[-2]
+    unguarded_bag = next(b for b in reversed(by_size) if not guarded(b))
+
+    median = topk_inputs(qsegs, qsearcher, match_query(median_bag))
+    deleted = [seg._replace(live=seg.live & (torch.rand(
+        seg.live.shape[0], device=dev, generator=gen) > 0.1))
+        for seg in median]
+    cases = {"median": (median, -np.inf),
+             "heaviest": (topk_inputs(qsegs, qsearcher,
+                                      match_query(heaviest_bag)),
+                          -np.inf),
+             "4-term": (topk_inputs(qsegs, qsearcher, match_query(four_bag)),
+                        -np.inf),
+             "and": (topk_inputs(qsegs, qsearcher,
+                                match_query(heaviest_bag, operator="and")),
+                     -np.inf),
+             "deletes": (deleted, -np.inf),
+             "unguarded": (topk_inputs(qsegs, qsearcher,
+                                      match_query(unguarded_bag)), -np.inf)}
+    top = bm25.term_bag_topk_segments(median, k=100).numpy()[0]
+    cut = float(np.float32(np.median(top[np.isfinite(top)])))
+    cases["min_score"] = (median, cut)
+    s16, q16, _st16 = quant["int16"]
+    cases["int16 median"] = (topk_inputs(s16, q16, match_query(median_bag)),
+                             -np.inf)
+    cases["int16 heaviest"] = (topk_inputs(s16, q16,
+                                           match_query(heaviest_bag)),
+                               -np.inf)
+
+    def exact_slots(inputs):
+        return sum(int((seg.quant.slot_exact[seg.active] >= 0).sum())
+                   for seg in inputs)
+
+    if exact_slots(cases["heaviest"][0]) == 0 or \
+            exact_slots(cases["unguarded"][0]) != 0:
+        raise AssertionError("K4 cases: need a bag with guarded terms and "
+                             "one without")
+    ks = (1, 10, 100, cuda_bm25.K_MAX, cuda_bm25.K_MAX + 1)
+    for name, (inputs, ms) in cases.items():
+        for k in ks:
+            before = (k4.launches, fn.launches, fn.sorted_route_segments)
+            got = fn(inputs, k=k, min_score=ms).numpy()
+            ref = bm25.term_bag_topk_segments(inputs, k=k,
+                                              min_score=ms).numpy()
+            sorted_route = k > cuda_bm25.K_MAX
+            moved = (k4.launches - before[0], fn.launches - before[1],
+                     fn.sorted_route_segments - before[2])
+            if moved != (int(not sorted_route), 0,
+                         len(inputs) * sorted_route):
+                raise AssertionError(f"K4 top-k {name} k={k}: launches "
+                                     f"{moved}")
+            for what, a, b in zip(("vals", "ids", "totals", "maxes"), got,
+                                  ref):
+                if a.tobytes() != b.tobytes():
+                    raise AssertionError(
+                        f"K4 top-k {name} k={k}: {what} differ from the "
+                        "plain twin")
+        log(f"K4 top-k {name} (min_score {ms}, {exact_slots(inputs)} "
+            f"guarded slots): k {list(ks)} byte-equal to the plain twin "
+            f"(vals, ids, totals, maxes); totals {int(ref[2].sum())}")
+
+    # the per-slot entry on three bags, scores only and scores + counts
+    for terms in (median_bag, heaviest_bag, four_bag):
+        plan, bind = qsearcher.compiled(match_query(terms))
+        seg = qsegs[0]
+        dseg = seg.device(dev)
+        dims, ins = plan.prepare(bind, seg, dseg, qsearcher.ctx)
+        _t_pad, budget, _fast, width = dims
+        *tables, _req = ins
+        tids, active, idfs, weights, qv, sc, ev, eo, pk, bs = tables
+        args = (dseg.postings["body"]["offsets"], pk, bs, qv, sc, ev, eo,
+                tids, active, idfs, weights)
+        kw = dict(width=width, n_pad=dseg.n_pad, budget=budget)
+        s1, c1 = qops.quantized_impact_score_count(*args, **kw, scored=True)
+        s2, c2 = qops.quantized_impact_score_count_plain(*args, **kw,
+                                                         scored=True)
+        s3 = qops.quantized_impact_scores(*args, **kw)
+        s4 = qops.quantized_impact_scores_plain(*args, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(s1, s2) and torch.equal(c1, c2)
+                and torch.equal(s3, s4) and torch.equal(s1, s3)):
+            raise AssertionError(f"K4 per-slot differs from its plain twin "
+                                 f"on {terms}")
+        log(f"K4 per-slot bag {terms} ({df_sum(pf0, terms)} postings): "
+            "scores and counts byte-equal to the plain twin")
+
+    # a mixed call: 2 quantized and 2 f32 segments, one launch of each
+    f32_median = topk_inputs(f32_segs[:2], f32_searcher,
+                             match_query(median_bag))
+    mixed = [median[0], f32_median[0], median[1], f32_median[1]]
+    for k in (10, cuda_bm25.K_MAX):
+        before = (k4.launches, fn.launches)
+        got = fn(mixed, k=k).numpy()
+        ref = bm25.term_bag_topk_segments(mixed, k=k).numpy()
+        if (k4.launches - before[0], fn.launches - before[1]) != (1, 1):
+            raise AssertionError("mixed call: expected one K4 and one K2 "
+                                 "launch")
+        if any(a.tobytes() != b.tobytes() for a, b in zip(got, ref)):
+            raise AssertionError(f"mixed call k={k} differs from the plain "
+                                 "twin")
+    log("K4 + K2 mixed call (2 quantized, 2 f32 segments): one launch of "
+        "each, byte-equal to the plain twin at k 10 and K_MAX")
+
+    # K4 against K2 over the same segments' dequantized column, staged
+    # here only (the segments' own staging stays quantized)
+    def as_f32(inputs, segs):
+        out = []
+        for inp, seg in zip(inputs, segs):
+            pf = seg.postings["body"]
+            qt = seg.quantized_table("body", avgdl)
+            p_pad = pad_pow2(len(pf.doc_ids))
+            ids = np.full(p_pad, seg.n_docs, np.int32)
+            ids[: len(pf.doc_ids)] = pf.doc_ids
+            deq = np.zeros(p_pad, np.float32)
+            deq[: len(pf.doc_ids)] = qt.dequantized()
+            out.append(inp._replace(doc_ids=torch.from_numpy(ids).to(dev),
+                                    impacts=torch.from_numpy(deq).to(dev),
+                                    quant=None))
+        return out
+
+    f32_views = {}
+    for name in ("median", "heaviest", "and", "deletes", "min_score"):
+        inputs, ms = cases[name]
+        f32_views[name] = as_f32(inputs, qsegs)
+        for k in (10, 100, cuda_bm25.K_MAX):
+            a = fn(inputs, k=k, min_score=ms).numpy()
+            b = fn(f32_views[name], k=k, min_score=ms).numpy()
+            if any(x.tobytes() != y.tobytes() for x, y in zip(a, b)):
+                raise AssertionError(f"K4 {name} k={k} differs from K2 over "
+                                     "dequantized()")
+    log("K4 byte-equal to K2 over the dequantized() column (median, "
+        "heaviest, and, deletes, min_score; k 10, 100, K_MAX)")
+
+    out = {}
+    k = 10
+    for name in ("median", "heaviest", "int16 median"):
+        inputs = cases[name][0]
+        views = f32_views.get(name) or as_f32(inputs, s16 if name.startswith(
+            "int16") else qsegs)
+        nbytes = 0.0
+        ops = 0
+        postings = 0
+        exact_postings = 0
+        for seg in inputs:
+            q = seg.quant
+            q_bytes = q.qvals.element_size()
+            act = seg.active
+            for (a, b), ex in zip(seg.rows[act], q.slot_exact[act]):
+                n = int(b - a)
+                postings += n
+                exact_postings += n * int(ex >= 0)
+                nbytes += n * (q.width / 8 + (4 if ex >= 0 else q_bytes))
+                ops += n * (3 if ex >= 0 else 4)
+            nbytes += seg.live.shape[0] + 8 * k + 8
+
+        def lib_chain(views=views):
+            for seg in views:
+                acc = torch.zeros(seg.live.shape[0], dtype=torch.float32,
+                                  device=dev)
+                for (a, b), act, idf_v, w in zip(seg.rows, seg.active,
+                                                 seg.idfs, seg.weights):
+                    if act:
+                        acc.index_add_(0, seg.doc_ids[a:b],
+                                       seg.impacts[a:b] * float(idf_v),
+                                       alpha=float(w))
+                torch.topk(acc, k)
+
+        ms, plain_ms = in_turns(
+            lambda: fn(inputs, k=k),
+            lambda: bm25.term_bag_topk_segments(inputs, k=k), 10)
+        lib_ms = cuda_ms(lib_chain, 10)
+        dev_ms = kernel_device_ms(lambda: fn(inputs, k=k), 20, "QuantRows")
+        k2_ms = kernel_device_ms(lambda: fn(views, k=k), 20, "F32Rows")
+        bms, by = bound_ms(nbytes, float(ops))
+        bag = heaviest_bag if name == "heaviest" else median_bag
+        log(f"K4 top-k {name} bag {bag} k={k} over {len(inputs)} quantized "
+            f"segments ({postings} postings, {exact_postings} of guarded "
+            f"terms), one launch per query: ms {ms:.4f} device_ms {dev_ms} "
+            f"plain_ms {plain_ms:.4f} library_ms(index_add_ of dequantized "
+            f"+ topk chain) {lib_ms:.4f} K2-over-dequantized device_ms "
+            f"{k2_ms} bound_ms {bms:.5f} ({by}: {nbytes:.0f} bytes) on "
+            f"{gpu_name_power()}")
+        out[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                     "bound_bytes": nbytes, "k2_dequantized_device_ms": k2_ms,
+                     "bag": bag, "postings": postings,
+                     "exact_postings": exact_postings}
+    del f32_views
+    return {**out["median"], "max_abs_err": 0.0,
+            "heaviest": out["heaviest"], "int16": out["int16 median"]}
+
+
+def phase_quantized_scale(segs, mapper, searcher, build, counters) -> dict:
+    """Phase 7: the 200 zipf ``match`` queries of phase 4 through
+    ``ShardSearcher.search`` over the 8 quantized segments (qps, p50;
+    one K4 top-k launch and no per-slot launch per query), then a
+    ``bool`` / ``constant_score`` / ``count`` / large-``size`` sample (the
+    per-slot entries), a sample byte-equal to the CPU searcher, and the
+    resident bytes against the f32 layout of the same segments."""
+    import torch
+
+    from opensearch_tpu_torch.common.errors import NotYetPortedError
+    from opensearch_tpu_torch.index import codec
+    from opensearch_tpu_torch.index.segment import DeviceSegment
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing import corpus
+    from opensearch_tpu_torch.testing.parity import bm25_mismatch
+
+    def match_bodies(n, seed):
+        return [{"query": {"match": {"body": f"t{a} t{b}"}}, "size": 10,
+                 "_source": False}
+                for a, b in corpus.zipf_query_log(n, seed=seed)]
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    match_qs = match_bodies(200, seed=7)
+    pairs = corpus.zipf_query_log(8, seed=21)
+    sample = [
+        {"query": {"bool": {"must": [{"match": {"body": f"t{a} t{b}"}}],
+                            "should": [{"match": {"body": "t3"}}]}},
+         "size": 10, "_source": False} for a, b in pairs[:3]] + [
+        {"query": {"bool": {"must": [{"match": {"body": f"t{a}"}}],
+                            "filter": [{"match": {"body": f"t{b}"}}]}},
+         "size": 10, "_source": False} for a, b in pairs[3:5]] + [
+        {"query": {"constant_score": {"filter": {"match": {
+            "body": f"t{pairs[5][0]} t{pairs[5][1]}"}}, "boost": 2.0}},
+         "size": 10, "_source": False},
+        {"query": {"match": {"body": f"t{pairs[6][0]} t{pairs[6][1]}"}},
+         "size": 300, "_source": False},
+        {"query": {"match": {"body": f"t{pairs[7][0]} t{pairs[7][1]}"}},
+         "size": 10, "track_total_hits": False, "_source": False}]
+    count_qs = [{"match": {"body": f"t{a} t{b}"}} for a, b in pairs[:3]]
+    try:
+        timed(searcher, match_bodies(20, seed=8))          # warm-up
+        zero()
+        m_qps, m_p50 = timed(searcher, match_qs)
+        match_launches = counts()
+        resident = searcher.resident_bytes()
+        zero()
+        for body in sample:
+            searcher.search(body)
+        gpu_counts = [searcher.count(q) for q in count_qs]
+        sample_launches = counts()
+        cpu = ShardSearcher(segs, mapper, index_name="quant_int8",
+                            device="cpu")
+        for body in match_qs[:5] + sample:
+            bad = bm25_mismatch(searcher.search(body), cpu.search(body))
+            if bad:
+                raise AssertionError(f"quantized scale vs cpu "
+                                     f"{json.dumps(body)[:80]}: {bad}")
+        if gpu_counts != [cpu.count(q) for q in count_qs]:
+            raise AssertionError("quantized scale: counts differ from the "
+                                 "CPU searcher")
+    except NotYetPortedError as e:
+        raise AssertionError(f"quantized scale refused a query: {e}") from e
+    per_query = {n: c / len(match_qs) for n, c in match_launches.items()}
+    if per_query["term_bag_quantized_topk"] != 1.0 or any(
+            per_query[n] for n in per_query
+            if n != "term_bag_quantized_topk"):
+        raise AssertionError(f"a match query on quantized segments must "
+                             f"make one K4 top-k launch and no other: "
+                             f"{per_query}")
+    if not sample_launches["term_bag_quantized_scores"] or \
+            not sample_launches["term_bag_scores"]:
+        raise AssertionError(f"the sample must run K4's and K2's per-slot "
+                             f"entries: {sample_launches}")
+    # the f32 layout of the same segments, staged and measured, then freed
+    avgdl = searcher.ctx.field_stats("body").avgdl
+    prev = codec.QUANTIZED_MODE
+    codec.QUANTIZED_MODE = "off"
+    try:
+        f32_bytes = 0
+        for seg in segs:
+            dseg = DeviceSegment(seg, searcher.device)
+            dseg.impacts("body", avgdl)
+            f32_bytes += dseg.nbytes()
+            del dseg
+    finally:
+        codec.QUANTIZED_MODE = prev
+    torch.cuda.empty_cache()
+    if resident >= f32_bytes:
+        raise AssertionError(f"quantized resident bytes {resident} not below "
+                             f"the f32 layout's {f32_bytes}")
+    gpu = gpu_name_power()
+    log(f"quantized scale: {build['segments']} segments of "
+        f"{build['docs_per_segment']} docs ({build['dtype']}, quantized in "
+        f"{build['quantize_s']:.2f}s on the host, {build['exact_terms']} "
+        f"guarded terms holding {build['exact_postings']} of "
+        f"{build['postings']} postings); {len(match_qs)} match queries, qps "
+        f"{m_qps:.2f}, p50 {m_p50:.3f} ms on {gpu}")
+    log(f"quantized scale launches per match query: "
+        f"{per_query['term_bag_quantized_topk']:.2f} K4 top-k, "
+        f"{per_query['term_bag_quantized_scores']:.2f} K4 per-slot, "
+        f"{per_query['term_bag_topk']:.2f} K2 top-k, "
+        f"{per_query['term_bag_scores']:.2f} K2 per-slot; sample "
+        f"(bool / constant_score / count / size 300 / untracked totals) "
+        f"launches {sample_launches}; 5 match queries, the sample and 3 "
+        f"counts byte-equal to the CPU searcher")
+    log(f"quantized scale resident bytes on device: {resident} (after the "
+        f"match queries) against {f32_bytes} for the f32 layout of the same "
+        f"segments (x{f32_bytes / resident:.3f}); tables "
+        f"{build['quant_bytes']} quantized against {build['f32_bytes']} f32 "
+        f"bytes (codec stats); "
+        f"{searcher.resident_bytes()} after the sample (filters stage the "
+        f"f32 columns on demand)")
+    k4 = ("term_bag_quantized_topk", "term_bag_quantized_scores")
+    return {"match_qps": m_qps, "match_p50_ms": m_p50,
+            "launches_per_query": per_query,
+            "sample_launches": sample_launches,
+            "resident_bytes": resident, "f32_layout_bytes": f32_bytes,
+            "build": build,
+            "k4_launches": sum(match_launches[n] + sample_launches[n]
+                               for n in k4)}
+
+
 def main() -> int:
     import torch
 
@@ -1122,8 +1564,13 @@ def main() -> int:
 
     t_start = time.monotonic()
     phase_toolkit()
-    segs, mapper, searcher = build_scale()
+    segs, mapper, searcher, raw = build_scale()
+    quant = {dtype: build_quantized(raw, mapper, dtype)
+             for dtype in ("int8", "int16")}
+    del raw
     kern = phase_kernels(segs, searcher, zipf_query_log(200, seed=7))
+    kern["term_bag_quantized"] = phase_quantized_kernels(
+        quant, segs, searcher, zipf_query_log(200, seed=7))
 
     counters = {"knn_topk": cuda_knn.knn_topk_segments_cuda,
                 "knn_scores": cuda_knn.knn_scores_cuda,
@@ -1150,6 +1597,11 @@ def main() -> int:
                                   counters)
     launches["batch_topk"] = (msearch["launches"]["batch_topk"]
                               + continuous["launches"]["batch_topk"])
+    # the quantized path, its counts zeroed just before it
+    qsegs, qsearcher, qbuild = quant["int8"]
+    qscale = phase_quantized_scale(qsegs, mapper, qsearcher, qbuild,
+                                   {**counters, **quantized_counters()})
+    launches["term_bag_quantized"] = qscale["k4_launches"]
     sources = {"knn_topk": ("knn.cu", "opensearch_tpu/ops/pallas_knn.py:62"),
                "knn_scores": ("knn.cu",
                               "opensearch_tpu/ops/pallas_knn.py:62"),
@@ -1158,7 +1610,10 @@ def main() -> int:
                "term_bag_topk": ("bm25.cu",
                                  "opensearch_tpu/search/plan.py:1760"),
                "batch_topk": ("bm25.cu",
-                              "opensearch_tpu/search/batch.py:69")}
+                              "opensearch_tpu/search/batch.py:69"),
+               # and gather_postings_packed, opensearch_tpu/ops/bm25.py:114
+               "term_bag_quantized": ("bm25.cu",
+                                      "opensearch_tpu/ops/quantized.py:46")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = {"kernels": [
@@ -1168,8 +1623,11 @@ def main() -> int:
          **{key: kern[name][key] for key in keys}}
         for name, (src, rep) in sources.items()]}
     log(json.dumps({"scale": scale, "msearch": msearch,
-                    "continuous": continuous, "k1_1m": kern["k1_1m"],
+                    "continuous": continuous, "quantized_scale": qscale,
+                    "k1_1m": kern["k1_1m"],
                     "k2_topk_heaviest": kern["term_bag_topk"]["heaviest"],
+                    "k4_topk_heaviest":
+                        kern["term_bag_quantized"]["heaviest"],
                     "device_ms": {n: kern[n].get("device_ms")
                                   for n in sources},
                     "wall_s": time.monotonic() - t_start}))

@@ -44,6 +44,11 @@ class BoundedCache:
         value = self.get(key)
         return self.put(key, make()) if value is None else value
 
+    def values(self) -> list:
+        """A snapshot of the cached values."""
+        with self._lock:
+            return list(self._entries.values())
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._entries)

@@ -25,19 +25,38 @@
 //                                  segment, one launch per query-term
 //                                  slot (bool, constant_score, count).
 //
+// K4, the quantized row layout of both entries (term_bag_quantized_launch,
+// term_bag_topk_quantized_launch), replaces the reference's
+// `gather_postings_packed` and `_dequant` / `quantized_impact_scores` /
+// `quantized_impact_score_count` (opensearch_tpu/ops/bm25.py:114,
+// opensearch_tpu/ops/quantized.py:30,46,64): on a segment that
+// index/codec.py quantizes, posting p's doc is base[term] plus a `width`-bit
+// delta packed in uint32 words, and its impact is an int8/int16 code times
+// the term's scale, or the term's exact f32 impact where the rank-parity
+// guard stored one.  Every entry reads rows through one row reader
+// (F32Rows, QuantRows<int8_t>, QuantRows<int16_t>), a template parameter,
+// so the f32 instantiation that K2 and K3 run carries no branch and no
+// register of the quantized layout.
+//
 // Bound on the card: memory.  Per posting of an active term the work
 // reads a 4-byte doc id and a 4-byte impact and does 2 multiplies and an
 // add.  The top-k entry also reads one live byte per doc and writes k * 8
 // + 8 bytes per segment, so its bound is (8 * postings + n_pad + 8k + 8)
 // / 3.35 TB/s per segment; the per-slot entry writes n_pad * 4 bytes per
-// column instead.
+// column instead.  On the quantized layout a posting reads width / 8
+// bytes of packed delta and 1 or 2 bytes of code, or 4 bytes of exact
+// impact on a guarded term.
 //
 // Exactness: per doc the contributions add in slot order from 0.0, each
 // spelled w * (idf * imp) with __fmul_rn / __fadd_rn, and the library is
 // built with -fmad=false (no FMA contraction, which would round
 // differently): the reference's per-doc accumulation, byte for byte.  Doc
 // ids are unique within a row (rows are doc-ascending, checked at
-// staging), so within one slot no two threads touch one doc.
+// staging), so within one slot no two threads touch one doc.  A quantized
+// impact is __fmul_rn((float)q, scale), the reference's
+// `q.astype(f32) * scale`: K4 equals K2 fed QuantizedPostings.dequantized(),
+// byte for byte.  Quantized codes are at least 1, so scores > 0 still
+// means matched on the fast path.
 //
 // Design of the top-k entry:
 // - A block owns a tile of kTile docs of one segment: their scores (and
@@ -48,7 +67,10 @@
 // - For each group of up to eight slots, warp w finds where slot w's row
 //   enters and leaves the tile: its two half-warps each run a 16-ary
 //   search (16 evenly spaced ids a round), about 4 dependent loads for a
-//   row of 62,500 postings where a binary search takes 16.  Then the
+//   row of 62,500 postings where a binary search takes 16.  On the
+//   quantized layout each probe decodes base + delta (deltas ascend
+//   within a row as the ids do); the term's base, scale and exact range
+//   come from the launch table, so no probe waits on a per-term load.  Then the
 //   block adds the slots' postings into shared memory one slot after the
 //   other, a barrier between slots: slot order per doc, no atomics.
 // - Epilogue in the same block: matched = scores > 0 on the fast path
@@ -69,9 +91,11 @@ namespace {
 
 // The wrapper (ops/cuda_bm25.py) owns the launch table's layout and the
 // tile decision and passes them in with -D: docs per block of the top-k
-// entry, the largest k it selects, int64 words per segment in the table.
-#if !defined(BM25_TILE_DOCS) || !defined(BM25_K_MAX) || !defined(BM25_SEG_WORDS)
-#error "build through ops/cuda_bm25.py, which defines BM25_TILE_DOCS, BM25_K_MAX, BM25_SEG_WORDS"
+// entry, the largest k it selects, int64 words per segment in the table
+// (f32 and quantized) and per slot of a quantized table.
+#if !defined(BM25_TILE_DOCS) || !defined(BM25_K_MAX) || !defined(BM25_SEG_WORDS) || \
+    !defined(BM25_QSEG_WORDS) || !defined(BM25_QSLOT_WORDS)
+#error "build through ops/cuda_bm25.py, which defines BM25_TILE_DOCS, BM25_K_MAX, BM25_SEG_WORDS, BM25_QSEG_WORDS, BM25_QSLOT_WORDS"
 #endif
 
 using topk::u64;
@@ -80,7 +104,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = BM25_TILE_DOCS;
 constexpr int kKMax = BM25_K_MAX;
-constexpr int kSegWords = BM25_SEG_WORDS;
 constexpr int kPer = kTile / kThreads;  // docs of the tile each thread masks and keys
 // keys the merge reads per round; the merge buffer (kTile keys) holds
 // the kp kept so far plus one round
@@ -91,12 +114,86 @@ static_assert((kTile & (kTile - 1)) == 0 && kTile % kThreads == 0,
               "kTile: a power of two, a multiple of kThreads");
 static_assert((kKMax & (kKMax - 1)) == 0 && kKMax <= kTile - kMergeBatch,
               "kKMax: a power of two the merge buffer holds beside one round");
-static_assert(kSegWords >= 11, "a segment's table entry holds 11 words");
+static_assert(BM25_SEG_WORDS >= 11, "an f32 segment's table entry holds 11 words");
+static_assert(BM25_QSEG_WORDS >= 13, "a quantized segment's table entry holds 13 words");
+static_assert(BM25_QSLOT_WORDS >= 4, "a quantized slot's table entry holds 4 words");
 
+// Row readers: (doc, impact) of posting p of a term's row.  `Term` is what
+// the reader needs of the term beyond its posting range; `from_entry`
+// reads a segment's table entry, `read_term` a slot's, `term_of` the
+// per-term device arrays of the per-slot entry.
+
+// The f32 layout: doc ids and impacts, one 4-byte column each.
+struct F32Rows {
+  static constexpr int kSegWords = BM25_SEG_WORDS;
+  static constexpr int kSlotWords = 2;
+  struct Term {};
+  const int32_t* __restrict__ ids;
+  const float* __restrict__ imp;
+
+  static __device__ F32Rows from_entry(const long long* e) {
+    return {reinterpret_cast<const int32_t*>(e[0]), reinterpret_cast<const float*>(e[1])};
+  }
+  static __device__ Term read_term(const long long*, int) { return {}; }
+  __device__ Term term_of(int32_t, int32_t) const { return {}; }
+  __device__ int doc(int p, const Term&) const { return __ldg(ids + p); }
+  __device__ float impact(int p, const Term&) const { return __ldg(imp + p); }
+};
+
+// The quantized layout (index/codec.py): base[term] + a `width`-bit delta
+// at bit p * width of `packed`, and code q of type Q times the term's
+// scale, or exact_vals[e0 + (p - start)] on a term the parity guard kept
+// exact.
+template <typename Q>
+struct QuantRows {
+  static constexpr int kSegWords = BM25_QSEG_WORDS;
+  static constexpr int kSlotWords = BM25_QSLOT_WORDS;
+  struct Term {
+    int32_t base;
+    float scale;
+    int32_t exact0;  // e0 - start: exact_vals index of posting p is exact0 + p
+    bool exact;
+  };
+  const uint32_t* __restrict__ packed;
+  const Q* __restrict__ qvals;
+  const float* __restrict__ exact_vals;
+  int width;
+  // per-term arrays, read by the per-slot entry only (null in the top-k)
+  const int32_t* __restrict__ base;
+  const float* __restrict__ scales;
+  const int32_t* __restrict__ exact_offsets;
+
+  static __device__ QuantRows from_entry(const long long* e) {
+    return {reinterpret_cast<const uint32_t*>(e[0]), reinterpret_cast<const Q*>(e[1]),
+            reinterpret_cast<const float*>(e[11]), (int)e[12], nullptr, nullptr, nullptr};
+  }
+  // slot words 2 and 3: {base | scale bits << 32, exact start | exact << 32}
+  static __device__ Term read_term(const long long* sl, int start) {
+    const u64 bs = (u64)sl[2], ex = (u64)sl[3];
+    return {(int32_t)(bs & 0xFFFFFFFFull), __uint_as_float((unsigned)(bs >> 32)),
+            (int32_t)(ex & 0xFFFFFFFFull) - start, (ex >> 32) != 0};
+  }
+  __device__ Term term_of(int32_t tid, int32_t start) const {
+    const int32_t e0 = exact_offsets[tid];
+    return {base[tid], scales[tid], e0 - start, exact_offsets[tid + 1] > e0};
+  }
+  // p = 32a + b, so p * width = 32 * (a * width) + b * width: no int32
+  // overflow at any posting count.  The two words as one u64, shifted by
+  // at most 31; the guard word keeps w + 1 in bounds.
+  __device__ int doc(int p, const Term& t) const {
+    const int bit = (p & 31) * width;
+    const int w = (p >> 5) * width + (bit >> 5);
+    const u64 pair = ((u64)__ldg(packed + w + 1) << 32) | (u64)__ldg(packed + w);
+    return t.base + (int)((unsigned)(pair >> (bit & 31)) & ((1u << width) - 1u));
+  }
+  __device__ float impact(int p, const Term& t) const {
+    return t.exact ? __ldg(exact_vals + (t.exact0 + p)) : __fmul_rn((float)__ldg(qvals + p), t.scale);
+  }
+};
+
+template <class Rows>
 __global__ void __launch_bounds__(kThreads)
-term_bag_slot_kernel(const int32_t* __restrict__ offsets,
-                     const int32_t* __restrict__ doc_ids,
-                     const float* __restrict__ impacts,
+term_bag_slot_kernel(Rows rows, const int32_t* __restrict__ offsets,
                      const int32_t* __restrict__ term_ids,
                      const uint8_t* __restrict__ term_active,
                      const float* __restrict__ idfs,
@@ -106,29 +203,31 @@ term_bag_slot_kernel(const int32_t* __restrict__ offsets,
   const int32_t tid = term_ids[slot];
   const int32_t start = offsets[tid];
   const int32_t end = offsets[tid + 1];
+  const typename Rows::Term term = rows.term_of(tid, start);
   const float idf = scores != nullptr ? idfs[slot] : 0.0f;
   const float w = scores != nullptr ? weights[slot] : 0.0f;
   for (int32_t p = start + blockIdx.x * blockDim.x + threadIdx.x; p < end;
        p += gridDim.x * blockDim.x) {
-    const int32_t doc = doc_ids[p];
+    const int32_t doc = rows.doc(p, term);
     if (scores != nullptr)
-      scores[doc] = __fadd_rn(scores[doc], __fmul_rn(w, __fmul_rn(idf, impacts[p])));
+      scores[doc] = __fadd_rn(scores[doc], __fmul_rn(w, __fmul_rn(idf, rows.impact(p, term))));
     if (counts != nullptr) counts[doc] += 1;
   }
 }
 
-// First p in [lo, hi) with ids[p] >= target, else hi, over an ascending
-// run of ids.  The kSearchLanes lanes of a group (lanes base ..  base +
-// 15 of the warp, named by `mask`; lo, hi and target the same in each)
-// probe 16 evenly spaced ids a round: each round cuts the range 16-fold,
+// First p in [lo, hi) with doc(p) >= target, else hi, over a row of
+// ascending docs.  The kSearchLanes lanes of a group (lanes base ..  base
+// + 15 of the warp, named by `mask`; lo, hi and target the same in each)
+// probe 16 evenly spaced docs a round: each round cuts the range 16-fold,
 // so a row of n postings takes about log16(n) + 1 dependent loads.
-__device__ int group_lower_bound(const int32_t* __restrict__ ids, int lo, int hi, int target,
-                                 int g, int base, unsigned mask) {
+template <class Rows>
+__device__ int group_lower_bound(const Rows& rows, const typename Rows::Term& term, int lo, int hi,
+                                 int target, int g, int base, unsigned mask) {
   constexpr unsigned kAll = (1u << kSearchLanes) - 1;
   while (hi - lo > kSearchLanes) {
     const int step = (hi - lo + kSearchLanes - 1) / kSearchLanes;
     const int p = lo + (g + 1) * step - 1;  // the last id of piece g
-    const bool ge = p >= hi || __ldg(ids + p) >= target;
+    const bool ge = p >= hi || rows.doc(p, term) >= target;
     const unsigned b = (__ballot_sync(mask, ge) >> base) & kAll;
     if (b == 0) return hi;  // the last piece ends at hi - 1, below target
     const int f = __ffs(b) - 1;  // the answer lies in piece f
@@ -136,18 +235,21 @@ __device__ int group_lower_bound(const int32_t* __restrict__ ids, int lo, int hi
     lo += f * step;
   }
   const int p = lo + g;
-  const bool ge = p >= hi || __ldg(ids + p) >= target;
+  const bool ge = p >= hi || rows.doc(p, term) >= target;
   const unsigned b = (__ballot_sync(mask, ge) >> base) & kAll;
   return b == 0 ? hi : min(hi, lo + __ffs(b) - 1);
 }
 
-// table (int64 words): n_seg entries of kSegWords {doc_ids, impacts,
+// table (int64 words): n_seg entries of Rows::kSegWords {doc_ids, impacts,
 // live, n_pad, first tile, tiles, output row, first slot, slots,
-// required, fast}; then two words per active slot, in slot order within
-// each segment {start | end << 32, idf bits | weight bits << 32}; then
-// the work list (one word per block: segment << 32 | tile); then 3 *
-// n_seg int32, zero on entry: the tile counters, the totals and the max
-// keys of the segments.
+// required, fast} (quantized: {packed, qvals, live, ..., fast,
+// exact_vals, width}); then Rows::kSlotWords words per active slot, in
+// slot order within each segment {start | end << 32, idf bits | weight
+// bits << 32} (quantized: then {base | scale bits << 32, exact start |
+// exact << 32}); then the work list (one word per block: segment << 32 |
+// tile); then 3 * n_seg int32, zero on entry: the tile counters, the
+// totals and the max keys of the segments.
+template <class Rows>
 __global__ void __launch_bounds__(kThreads)
 term_bag_topk_kernel(const long long* __restrict__ table, int n_seg, int n_slots, int k, int kp,
                      float min_score, float* __restrict__ out_vals, int* __restrict__ out_ids,
@@ -159,16 +261,16 @@ term_bag_topk_kernel(const long long* __restrict__ table, int n_seg, int n_slots
   u64* keys = reinterpret_cast<u64*>(smem);  // over scores and counts, once they are read
   __shared__ int lo_s[kWarps], hi_s[kWarps];
   __shared__ float idf_s[kWarps], w_s[kWarps];
+  __shared__ typename Rows::Term term_s[kWarps];
 
-  const long long* slots = table + (long long)n_seg * kSegWords;
-  const long long* work = slots + 2ll * n_slots;
+  const long long* slots = table + (long long)n_seg * Rows::kSegWords;
+  const long long* work = slots + (long long)Rows::kSlotWords * n_slots;
   int* counters = reinterpret_cast<int*>(const_cast<long long*>(work + gridDim.x));
   const long long wk = work[blockIdx.x];
   const int seg = (int)(wk >> 32);
   const int tile = (int)(wk & 0xFFFFFFFFll);
-  const long long* e = table + (long long)seg * kSegWords;
-  const int32_t* doc_ids = reinterpret_cast<const int32_t*>(e[0]);
-  const float* impacts = reinterpret_cast<const float*>(e[1]);
+  const long long* e = table + (long long)seg * Rows::kSegWords;
+  const Rows rows = Rows::from_entry(e);
   const uint8_t* live = reinterpret_cast<const uint8_t*>(e[2]);
   const int n_pad = (int)e[3];
   const long long first = e[4];
@@ -199,17 +301,19 @@ term_bag_topk_kernel(const long long* __restrict__ table, int n_seg, int n_slots
   for (int g = 0; g < seg_slots; g += kWarps) {
     const int m = min(kWarps, seg_slots - g);
     if (warp < m) {  // warp w: where slot g + w's row enters and leaves the tile
-      const long long* sl = slots + 2 * (slot0 + g + warp);
+      const long long* sl = slots + Rows::kSlotWords * (slot0 + g + warp);
       const u64 range = (u64)sl[0];
+      const int start = (int)(range & 0xFFFFFFFFull);
+      const typename Rows::Term term = Rows::read_term(sl, start);
       const int half = lane >> 4;
-      const int at = group_lower_bound(doc_ids, (int)(range & 0xFFFFFFFFull), (int)(range >> 32),
-                                       doc0 + half * kTile, lane & 15, half * 16,
-                                       half ? 0xFFFF0000u : 0x0000FFFFu);
+      const int at = group_lower_bound(rows, term, start, (int)(range >> 32), doc0 + half * kTile,
+                                       lane & 15, half * 16, half ? 0xFFFF0000u : 0x0000FFFFu);
       if (lane == 0) {
         const u64 iw = (u64)sl[1];
         lo_s[warp] = at;
         idf_s[warp] = __uint_as_float((unsigned)(iw & 0xFFFFFFFFull));
         w_s[warp] = __uint_as_float((unsigned)(iw >> 32));
+        term_s[warp] = term;
       }
       if (lane == 16) hi_s[warp] = at;
     }
@@ -218,6 +322,7 @@ term_bag_topk_kernel(const long long* __restrict__ table, int n_seg, int n_slots
       const int lo = lo_s[j], hi = hi_s[j];
       if (lo >= hi) continue;  // block-uniform
       const float idf = idf_s[j], w = w_s[j];
+      const typename Rows::Term term = term_s[j];
       // kScatterLoads postings a thread are loaded before any is added,
       // so their loads are in flight together (a shared-memory store
       // between two loads through generic pointers keeps them in order)
@@ -227,8 +332,8 @@ term_bag_topk_kernel(const long long* __restrict__ table, int n_seg, int n_slots
 #pragma unroll
         for (int u = 0; u < kScatterLoads; ++u) {
           const int p = base + tid + u * kThreads;
-          dd[u] = p < hi ? __ldg(doc_ids + p) - doc0 : -1;
-          im[u] = p < hi ? __ldg(impacts + p) : 0.0f;
+          dd[u] = p < hi ? rows.doc(p, term) - doc0 : -1;
+          im[u] = p < hi ? rows.impact(p, term) : 0.0f;
         }
 #pragma unroll
         for (int u = 0; u < kScatterLoads; ++u) {
@@ -283,6 +388,38 @@ term_bag_topk_kernel(const long long* __restrict__ table, int n_seg, int n_slots
   }
 }
 
+template <class Rows>
+int slot_launches(Rows rows, const int32_t* offsets, const int32_t* term_ids,
+                  const uint8_t* term_active, const float* idfs, const float* weights, int t_pad,
+                  int grid, float* scores, int32_t* counts, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (int slot = 0; slot < t_pad; ++slot) {
+    term_bag_slot_kernel<Rows><<<grid, kThreads, 0, s>>>(rows, offsets, term_ids, term_active, idfs,
+                                                         weights, slot, scores, counts);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+template <class Rows>
+int topk_launch(const long long* table, int n_seg, int n_slots, int n_blocks, int k, int kp,
+                float min_score, float* out_vals, int* out_ids, int* out_totals, float* out_maxes,
+                u64* scratch, void* stream) {
+  if (n_blocks <= 0) return 0;
+  if (k < 1 || k > kp || kp > kKMax || (kp & (kp - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = (size_t)kTile * 8;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        term_bag_topk_kernel<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  term_bag_topk_kernel<Rows><<<n_blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      table, n_seg, n_slots, k, kp, min_score, out_vals, out_ids, out_totals, out_maxes, scratch);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -291,21 +428,39 @@ const char* error_string(int code) { return cudaGetErrorString(static_cast<cudaE
 
 // One launch per slot 0..t_pad-1, in order (inactive slots return at
 // once).  `grid` blocks per launch, grid-stride over the row.  `scores`
-// or `counts` may be null to skip that column.  Returns the first launch
-// error (0 on success).
+// or `counts` may be null to skip that column (`impacts`, `idfs` and
+// `weights` are then not read).  Returns the first launch error (0 on
+// success).
 int term_bag_launch(const int32_t* offsets, const int32_t* doc_ids, const float* impacts,
                     const int32_t* term_ids, const uint8_t* term_active, const float* idfs,
                     const float* weights, int t_pad, int grid, float* scores,
                     int32_t* counts, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int slot = 0; slot < t_pad; ++slot) {
-    term_bag_slot_kernel<<<grid, kThreads, 0, s>>>(offsets, doc_ids, impacts, term_ids,
-                                                   term_active, idfs, weights, slot, scores,
-                                                   counts);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  return slot_launches(F32Rows{doc_ids, impacts}, offsets, term_ids, term_active, idfs, weights,
+                       t_pad, grid, scores, counts, stream);
+}
+
+// term_bag_launch over a quantized segment (K4): `packed` the bit-packed
+// deltas at `width` bits with their guard word, `base` / `scales` /
+// `exact_offsets` per term, `qvals` q_bytes-wide codes (1: int8, 2:
+// int16), `exact_vals` the guarded terms' f32 impacts.
+int term_bag_quantized_launch(const int32_t* offsets, const uint32_t* packed, const int32_t* base,
+                              int width, const void* qvals, int q_bytes, const float* scales,
+                              const float* exact_vals, const int32_t* exact_offsets,
+                              const int32_t* term_ids, const uint8_t* term_active,
+                              const float* idfs, const float* weights, int t_pad, int grid,
+                              float* scores, int32_t* counts, void* stream) {
+  if (width < 1 || width > 31) return static_cast<int>(cudaErrorInvalidValue);
+  if (q_bytes == 1)
+    return slot_launches(
+        QuantRows<int8_t>{packed, static_cast<const int8_t*>(qvals), exact_vals, width, base,
+                          scales, exact_offsets},
+        offsets, term_ids, term_active, idfs, weights, t_pad, grid, scores, counts, stream);
+  if (q_bytes == 2)
+    return slot_launches(
+        QuantRows<int16_t>{packed, static_cast<const int16_t*>(qvals), exact_vals, width, base,
+                           scales, exact_offsets},
+        offsets, term_ids, term_active, idfs, weights, t_pad, grid, scores, counts, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Exact top-k, total and max of every segment of `table` (device memory,
@@ -317,18 +472,25 @@ int term_bag_launch(const int32_t* offsets, const int32_t* doc_ids, const float*
 int term_bag_topk_segments_launch(const long long* table, int n_seg, int n_slots, int n_blocks,
                                   int k, int kp, float min_score, float* out_vals, int* out_ids,
                                   int* out_totals, float* out_maxes, u64* scratch, void* stream) {
-  if (n_blocks <= 0) return 0;
-  if (k < 1 || k > kp || kp > kKMax || (kp & (kp - 1)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  constexpr size_t smem = (size_t)kTile * 8;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        term_bag_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  term_bag_topk_kernel<<<n_blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      table, n_seg, n_slots, k, kp, min_score, out_vals, out_ids, out_totals, out_maxes, scratch);
-  return static_cast<int>(cudaGetLastError());
+  return topk_launch<F32Rows>(table, n_seg, n_slots, n_blocks, k, kp, min_score, out_vals,
+                              out_ids, out_totals, out_maxes, scratch, stream);
+}
+
+// term_bag_topk_segments_launch over a table of quantized segments (K4),
+// all of q_bytes-wide codes (1: int8, 2: int16).
+int term_bag_topk_quantized_launch(const long long* table, int n_seg, int n_slots, int n_blocks,
+                                   int k, int kp, float min_score, float* out_vals, int* out_ids,
+                                   int* out_totals, float* out_maxes, u64* scratch, int q_bytes,
+                                   void* stream) {
+  if (q_bytes == 1)
+    return topk_launch<QuantRows<int8_t>>(table, n_seg, n_slots, n_blocks, k, kp, min_score,
+                                          out_vals, out_ids, out_totals, out_maxes, scratch,
+                                          stream);
+  if (q_bytes == 2)
+    return topk_launch<QuantRows<int16_t>>(table, n_seg, n_slots, n_blocks, k, kp, min_score,
+                                           out_vals, out_ids, out_totals, out_maxes, scratch,
+                                           stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

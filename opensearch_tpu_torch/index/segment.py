@@ -14,8 +14,14 @@ torch tensors on an explicit device, with the reference's padding:
   ``pad_pow2(P)``;
 - vectors ``[n_pad, d]`` float32 with an ``exists`` mask.
 
-Not ported yet (ROADMAP Queue A): ANN index builds, the quantized
-tables, the device pager, the fielddata breaker and the residency
+On a segment that ``index/codec.py`` ``use_quantized`` lowers, only the
+offsets are staged at construction: scored term bags read the quantized
+tables (``DeviceSegment.quantized``: int8/int16 impacts and bit-packed
+doc ids), and the f32 doc ids and tfs stage on first demand
+(``ensure_postings``: filter-context bags, the batched path).
+
+Not ported yet (ROADMAP Queue A): ANN index builds, the ``.quant``
+sidecars, the device pager, the fielddata breaker and the residency
 ledger.  ``segment_from_arrays`` carries the numpy state of a reference
 segment into this package's ``Segment``.
 """
@@ -23,6 +29,7 @@ segment into this package's ``Segment``.
 from __future__ import annotations
 
 import json
+import threading
 from dataclasses import dataclass, field as dc_field
 from typing import Optional
 
@@ -30,6 +37,7 @@ import numpy as np
 
 import torch
 
+from opensearch_tpu_torch.common.cache import BoundedCache
 from opensearch_tpu_torch.mapping.mapper import ParsedDocument
 
 # Sentinels for missing values in dense sort columns.
@@ -178,8 +186,12 @@ class Segment:
         self.live = np.ones(n_docs, dtype=bool)
         # one staged view per device ("cpu", "cuda:0", ...)
         self._device: dict[str, "DeviceSegment"] = {}
+        self._device_lock = threading.Lock()
         # bounded cache of host impact tables, keyed (field, avgdl, k1, b)
         self._impact_tables: dict[tuple, tuple] = {}
+        # quantized tables, keyed (field, avgdl); searches build them from
+        # many threads
+        self._quant_tables = BoundedCache(_IMPACT_TABLES_MAX)
 
 
     # -- stats used for cross-segment collection statistics ---------------
@@ -250,6 +262,23 @@ class Segment:
         table = self.impact_table(field, avgdl, k1, b)
         return None if table is None else table[1]
 
+    def quantized_table(self, field: str, avgdl: float):
+        """Quantized + bit-packed tables for ``field`` at this avgdl
+        (``index/codec.py`` ``QuantizedPostings``), built from
+        ``impact_table`` and kept in a bounded in-memory cache keyed by
+        (field, avgdl), like ``impact_table``."""
+        pf = self.postings.get(field)
+        if pf is None:
+            return None
+        from opensearch_tpu_torch.index import codec as codec_mod
+
+        def build():
+            imp, mx = self.impact_table(field, avgdl)
+            return codec_mod.quantize_postings(pf, imp, mx, avgdl)
+
+        return self._quant_tables.get_or_make(
+            (field, float(np.float32(avgdl))), build)
+
     def device(self, device) -> "DeviceSegment":
         """The staged view of this segment on ``device`` (built once per
         device and kept for the segment's life)."""
@@ -257,7 +286,10 @@ class Segment:
         key = str(dev)
         dseg = self._device.get(key)
         if dseg is None:
-            dseg = self._device[key] = DeviceSegment(self, dev)
+            with self._device_lock:   # one view, however many threads ask
+                dseg = self._device.get(key)
+                if dseg is None:
+                    dseg = self._device[key] = DeviceSegment(self, dev)
         return dseg
 
 
@@ -291,28 +323,34 @@ class DeviceSegment:
     Padding scheme: ``n_pad >= n_docs + 1`` so slot ``n_docs`` is a dead
     scatter target for padded postings; ``live`` is False on all padding
     slots so they can never reach the top-k.
+
+    Lowering (``index/codec.py`` ``use_quantized``, decided once here as
+    in the reference): on a quantized segment only the offsets stage
+    eagerly; the per-posting f32 columns stage on demand
+    (``ensure_postings``) and scored term bags read ``quantized``.
     """
 
     def __init__(self, seg: Segment, device):
         from opensearch_tpu_torch.common import torchenv  # noqa: F401
+        from opensearch_tpu_torch.index import codec as codec_mod
 
         self.seg = seg
         self.device = torch.device(device)
         self.n_docs = seg.n_docs
         self.n_pad = pad_pow2(seg.n_docs + 1)
         n_pad = self.n_pad
+        self.quantized_mode = codec_mod.use_quantized(seg)
+        self._postings_lock = threading.Lock()
         self.postings: dict[str, dict] = {}
         for name, pf in seg.postings.items():
             _check_rows_ascending(pf, name)
             t_pad = pad_pow2(len(pf.offsets))
-            p_pad = pad_pow2(len(pf.doc_ids))
             self.postings[name] = {
                 "offsets": self._stage(_pad1(pf.offsets, t_pad,
                                              pf.offsets[-1])),
-                "doc_ids": self._stage(_pad1(pf.doc_ids, p_pad,
-                                             self.n_docs)),
-                "tfs": self._stage(_pad1(pf.tfs, p_pad, 0.0)),
             }
+            if not self.quantized_mode:
+                self.ensure_postings(name)
         self.vector: dict[str, dict] = {}
         for name, dv in seg.vector_dv.items():
             vals = np.zeros((n_pad, dv.dim), dtype=np.float32)
@@ -324,24 +362,77 @@ class DeviceSegment:
         # one staged copy per live-bitmap version (bounded)
         self._live_cache: dict[int, tuple] = {}
         self._impact_cache: dict[tuple, torch.Tensor] = {}
+        self._quant_cache = BoundedCache(_IMPACT_TABLES_MAX)
         self.live = self.live_mask(seg.live)
 
     def _stage(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
     def nbytes(self) -> int:
-        """Bytes this view holds on its device (columns, impacts, live
-        masks)."""
+        """Bytes this view holds on its device (columns, impacts,
+        quantized tables, live masks)."""
         total = 0
         for group in (self.postings, self.vector):
             for cols in group.values():
                 total += sum(t.numel() * t.element_size()
                              for t in cols.values())
+        for tables in self._quant_cache.values():
+            total += sum(t.numel() * t.element_size()
+                         for t in tables.values())
         total += sum(t.numel() * t.element_size()
                      for t in self._impact_cache.values())
         total += sum(t.numel() * t.element_size()
                      for _l, t in self._live_cache.values())
         return total
+
+    def ensure_postings(self, field: str) -> Optional[dict]:
+        """The postings entry of ``field`` with its per-posting columns
+        (``doc_ids``, ``tfs``) staged.  Eager on f32 segments; on
+        quantized ones they stage here on first demand (filter-context
+        bags, the batched path), as in the reference."""
+        p = self.postings.get(field)
+        if p is None or "tfs" in p:
+            return p
+        with self._postings_lock:     # searches stage from many threads
+            if "tfs" not in p:
+                pf = self.seg.postings[field]
+                p_pad = pad_pow2(len(pf.doc_ids))
+                p["doc_ids"] = self._stage(_pad1(pf.doc_ids, p_pad,
+                                                 self.n_docs))
+                p["tfs"] = self._stage(_pad1(pf.tfs, p_pad, 0.0))
+        return p
+
+    def quantized(self, field: str, avgdl: float) -> Optional[dict]:
+        """The quantized tables of ``field`` at ``avgdl`` on the device
+        (``Segment.quantized_table``), padded as the reference's
+        ``_quant_items`` pads them: ``qvals``, ``scales`` (padding 1.0),
+        ``exact_vals``, ``exact_offsets`` (padding its last value),
+        ``packed`` (its guard word kept; int32, the same bits as the
+        uint32 words) and ``base``.  None when the field has no
+        postings.  Cached per (field, avgdl)."""
+        pf = self.seg.postings.get(field)
+        if pf is None:
+            return None
+
+        def stage():
+            qt = self.seg.quantized_table(field, avgdl)
+            t_pad = pad_pow2(len(pf.offsets))
+            ex_off = qt.exact_offsets
+            arrs = {
+                "qvals": _pad1(qt.qvals, pad_pow2(len(qt.qvals)), 0),
+                "scales": _pad1(qt.scales, t_pad, 1.0),
+                "exact_vals": _pad1(qt.exact_vals,
+                                    pad_pow2(len(qt.exact_vals)), 0.0),
+                "exact_offsets": _pad1(ex_off, t_pad,
+                                       ex_off[-1] if len(ex_off) else 0),
+                "packed": _pad1(qt.packed, pad_pow2(len(qt.packed)),
+                                0).view(np.int32),
+                "base": _pad1(qt.base, t_pad, 0),
+            }
+            return {name: self._stage(a) for name, a in arrs.items()}
+
+        return self._quant_cache.get_or_make(
+            (field, float(np.float32(avgdl))), stage)
 
     def impacts(self, field: str, avgdl: float) -> torch.Tensor:
         """Staged per-posting BM25 impact column for ``field``, indexed

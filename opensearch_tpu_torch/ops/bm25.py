@@ -15,8 +15,9 @@ them on the card.
 scored bag's top-k, matched total and max on every segment of a shard
 (the reference's ``run_topk`` over a ``TermBagPlan``, segment by
 segment); ``term_bag_topk_segments_auto``, which the executor calls,
-launches the kernel once for all segments on CUDA and runs the plain
-version on the CPU.
+launches the kernel once for all segments on CUDA (once per row layout:
+f32, int8 or int16 quantized, K4) and runs the plain version on the CPU.
+A quantized segment is scored through ``ops/quantized.py``.
 
 Accumulation order: per doc, contributions add in query-term SLOT order
 starting from 0.0, each one ``w * (idf * imp)`` — the order of the
@@ -26,7 +27,7 @@ reference's in-order scatter-add over slot-major gather lanes.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -54,22 +55,19 @@ def compute_impacts(tfs, doc_ids, doc_lens, avgdl, *,
     return tfs / (tfs + norm)
 
 
-def gather_postings(offsets, doc_ids, tfs, term_ids, term_active, *,
-                    budget: int, pad_doc: int):
-    """Flatten the postings of up to T terms into ``budget`` lanes
-    (cumsum + searchsorted over the CSR rows), as the reference does.
-
-    Returns (docs[B] i32, tfs[B], slot[B] i32, valid[B] bool): ``slot``
-    is the index into ``term_ids`` that produced each lane.  The caller
-    must choose ``budget >= sum(df[term_ids])``."""
-    dev = offsets.device
+def flatten_rows(offsets, term_ids, term_active, *, budget: int):
+    """Lay the CSR rows of up to T terms end to end into ``budget`` lanes
+    (cumsum + searchsorted), as the reference's gathers do.  Returns
+    (idx[B] i32, slot[B] i32, valid[B] bool): each lane's flat posting
+    index (0 past the rows) and the index into ``term_ids`` that
+    produced it.  The caller must choose ``budget >= sum(df[term_ids])``."""
     tids = term_ids.long()
     starts = offsets[tids]
     lens = torch.where(term_active, offsets[tids + 1] - starts,
                        torch.zeros_like(starts))
     cum = torch.cumsum(lens, 0, dtype=torch.int32)
     total = cum[-1]
-    i = torch.arange(budget, dtype=torch.int32, device=dev)
+    i = torch.arange(budget, dtype=torch.int32, device=offsets.device)
     slot = torch.searchsorted(cum, i, right=True, out_int32=True)
     slot = torch.clamp(slot, max=term_ids.shape[0] - 1)
     slot_l = slot.long()
@@ -78,15 +76,28 @@ def gather_postings(offsets, doc_ids, tfs, term_ids, term_active, *,
     valid = i < total
     idx = torch.where(valid, starts[slot_l] + i - prev,
                       torch.zeros_like(i))
+    return idx, slot, valid
+
+
+def gather_postings(offsets, doc_ids, tfs, term_ids, term_active, *,
+                    budget: int, pad_doc: int):
+    """Flatten the postings of up to T terms into ``budget`` lanes
+    (``flatten_rows``), as the reference does.
+
+    Returns (docs[B] i32, tfs[B], slot[B] i32, valid[B] bool): ``slot``
+    is the index into ``term_ids`` that produced each lane.  The caller
+    must choose ``budget >= sum(df[term_ids])``."""
+    idx, slot, valid = flatten_rows(offsets, term_ids, term_active,
+                                    budget=budget)
     d = torch.where(valid, doc_ids[idx.long()],
                     torch.full_like(idx, pad_doc))
-    tf = torch.where(valid, tfs[idx.long()], torch.zeros((), dtype=tfs.dtype,
-                                                         device=dev))
+    tf = torch.where(valid, tfs[idx.long()],
+                     torch.zeros((), dtype=tfs.dtype, device=tfs.device))
     return d, tf, slot, valid
 
 
-def _scatter_in_slot_order(n_pad: int, d, slot, valid, contrib, t_pad: int,
-                           dtype):
+def scatter_in_slot_order(n_pad: int, d, slot, valid, contrib, t_pad: int,
+                          dtype):
     """``zeros(n_pad).at[d].add(contrib)`` with the reference's in-order
     semantics: lanes are slot-major and a doc occurs at most once per
     slot, so adding slot by slot reproduces the per-doc order exactly
@@ -108,8 +119,8 @@ def impact_scores_plain(offsets, doc_ids, impacts, term_ids, term_active,
         budget=budget, pad_doc=n_pad - 1)
     slot_l = slot.long()
     contrib = weights[slot_l] * (idfs[slot_l] * imp)
-    return _scatter_in_slot_order(n_pad, d, slot, valid, contrib,
-                                  term_ids.shape[0], torch.float32)
+    return scatter_in_slot_order(n_pad, d, slot, valid, contrib,
+                                 term_ids.shape[0], torch.float32)
 
 
 def impact_score_count_plain(offsets, doc_ids, impacts, term_ids,
@@ -122,15 +133,15 @@ def impact_score_count_plain(offsets, doc_ids, impacts, term_ids,
         budget=budget, pad_doc=n_pad - 1)
     t_pad = term_ids.shape[0]
     ones = torch.ones_like(d)
-    count = _scatter_in_slot_order(n_pad, d, slot, valid, ones, t_pad,
-                                   torch.int32)
+    count = scatter_in_slot_order(n_pad, d, slot, valid, ones, t_pad,
+                                  torch.int32)
     if not scored:
         return torch.zeros(n_pad, dtype=torch.float32,
                            device=d.device), count
     slot_l = slot.long()
     contrib = weights[slot_l] * (idfs[slot_l] * imp)
-    scores = _scatter_in_slot_order(n_pad, d, slot, valid, contrib, t_pad,
-                                    torch.float32)
+    scores = scatter_in_slot_order(n_pad, d, slot, valid, contrib, t_pad,
+                                   torch.float32)
     return scores, count
 
 
@@ -141,9 +152,9 @@ def match_count_plain(offsets, doc_ids, tfs, term_ids, term_active, *,
     d, _tf, slot, valid = gather_postings(
         offsets, doc_ids, tfs, term_ids, term_active,
         budget=budget, pad_doc=n_pad - 1)
-    return _scatter_in_slot_order(n_pad, d, slot, valid,
-                                  torch.ones_like(d), term_ids.shape[0],
-                                  torch.int32)
+    return scatter_in_slot_order(n_pad, d, slot, valid,
+                                 torch.ones_like(d), term_ids.shape[0],
+                                 torch.int32)
 
 
 def impact_scores(offsets, doc_ids, impacts, term_ids, term_active,
@@ -208,15 +219,35 @@ def topk(scores, k: int):
 
 # -- a scored bag's top-k over every segment (K2's top-k entry) -----------
 
+class QuantizedBag(NamedTuple):
+    """The quantized part of a ``TermBagSegment`` on a segment that
+    ``index/codec.py`` lowers: the six tables as
+    ``DeviceSegment.quantized`` stages them (the qvals' dtype, int8 or
+    int16, names the layout), the segment's delta width, and per slot
+    its term's base, scale and exact range on the host (the kernel reads
+    them from its launch table)."""
+    qvals: torch.Tensor         # i8 / i16 [P_pad]
+    scales: torch.Tensor        # f32, per term
+    exact_vals: torch.Tensor    # f32 [E_pad]
+    exact_offsets: torch.Tensor  # i32, per term + 1
+    packed: torch.Tensor        # i32 [W_pad], the uint32 words' bits
+    base: torch.Tensor          # i32, per term
+    width: int
+    slot_base: np.ndarray       # i64 [t_pad]
+    slot_scale: np.ndarray      # f32 [t_pad]
+    slot_exact: np.ndarray      # i64 [t_pad]: exact range start, -1 if none
+
+
 class TermBagSegment(NamedTuple):
     """One segment's inputs to ``term_bag_topk_segments``: a scored bag of
     weighted terms over one field's staged postings, laid out by
     ``search/plan.py`` ``TermBagPlan.topk_input``.  The tensors live on
     the segment's device; the per-slot arrays stay on the host (the
-    kernel reads them from its launch table)."""
+    kernel reads them from its launch table).  On a quantized segment
+    ``quant`` holds the tables and ``doc_ids`` / ``impacts`` are None."""
     offsets: torch.Tensor     # i32, the staged CSR offsets
-    doc_ids: torch.Tensor     # i32 [P_pad], rows doc-ascending
-    impacts: torch.Tensor     # f32 [P_pad]
+    doc_ids: Optional[torch.Tensor]   # i32 [P_pad], rows doc-ascending
+    impacts: Optional[torch.Tensor]   # f32 [P_pad]
     live: torch.Tensor        # bool [n_pad], the point-in-time live mask
     term_ids: np.ndarray      # i32 [t_pad]
     active: np.ndarray        # bool [t_pad]
@@ -226,6 +257,7 @@ class TermBagSegment(NamedTuple):
     required: int             # matched slots a doc needs
     fast: bool                # required == 1 and every w, idf > 0
     budget: int               # gather lanes of the plain version
+    quant: Optional[QuantizedBag] = None
 
 
 class BatchSegment(NamedTuple):
@@ -305,20 +337,31 @@ def segment_topk(seg: TermBagSegment, k: int, min_score: float,
     reference's ``run_topk`` computes them for a scored ``TermBagPlan``,
     with the ids past the matched docs set to -1.  ``plain`` scores with
     the ``*_plain`` functions; otherwise with their dispatchers (on CUDA
-    tensors, K2's per-slot entry)."""
-    dev = seg.doc_ids.device
+    tensors, K2's per-slot entry, or K4's on a quantized segment)."""
+    dev = seg.live.device
     n_pad = seg.live.shape[0]
-    args = (seg.offsets, seg.doc_ids, seg.impacts,
-            *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-              for a in (seg.term_ids, seg.active, seg.idfs, seg.weights)))
+    bag = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (seg.term_ids, seg.active, seg.idfs, seg.weights))
     kw = dict(n_pad=n_pad, budget=seg.budget)
+    if seg.quant is None:
+        args = (seg.offsets, seg.doc_ids, seg.impacts, *bag)
+        scores_fn = impact_scores_plain if plain else impact_scores
+        count_fn = impact_score_count_plain if plain else impact_score_count
+    else:
+        from opensearch_tpu_torch.ops import quantized as qops
+        q = seg.quant
+        args = (seg.offsets, q.packed, q.base, q.qvals, q.scales,
+                q.exact_vals, q.exact_offsets, *bag)
+        kw["width"] = q.width
+        scores_fn = (qops.quantized_impact_scores_plain if plain
+                     else qops.quantized_impact_scores)
+        count_fn = (qops.quantized_impact_score_count_plain if plain
+                    else qops.quantized_impact_score_count)
     if seg.fast:
-        score = impact_scores_plain if plain else impact_scores
-        scores = score(*args, **kw)
+        scores = scores_fn(*args, **kw)
         matched = scores > 0.0
     else:
-        score = impact_score_count_plain if plain else impact_score_count
-        scores, count = score(*args, **kw, scored=True)
+        scores, count = count_fn(*args, **kw, scored=True)
         matched = count >= seg.required
     matched = matched & seg.live & (scores >= min_score)
     key = torch.where(matched, scores, -torch.inf)
@@ -332,7 +375,7 @@ def term_bag_topk_segments(segments, *, k: int,
     """Plain version of K2's top-k entry: row ``s`` of the result is
     ``segment_topk(segments[s], k, min_score)``, padded with ``(-inf,
     -1)`` to ``k``."""
-    dev = segments[0].doc_ids.device if segments else torch.device("cpu")
+    dev = segments[0].live.device if segments else torch.device("cpu")
     out = empty_topk(len(segments), k, dev)
     for s, seg in enumerate(segments):
         write_topk_row(out, s, *segment_topk(seg, k, min_score))
@@ -342,10 +385,10 @@ def term_bag_topk_segments(segments, *, k: int,
 def term_bag_topk_segments_auto(segments, *, k: int,
                                 min_score: float = -math.inf
                                 ) -> TermBagTopK:
-    """A scored bag's top-k, total and max on every segment: one K2
-    launch for all of them on CUDA tensors, the plain version on CPU
-    ones."""
-    if segments and segments[0].doc_ids.is_cuda:
+    """A scored bag's top-k, total and max on every segment: on CUDA
+    tensors one launch for all segments of each row layout (K2 on f32
+    segments, K4 on quantized ones), the plain version on CPU ones."""
+    if segments and segments[0].live.is_cuda:
         from opensearch_tpu_torch.ops import cuda_bm25
         return cuda_bm25.term_bag_topk_segments_cuda(segments, k=k,
                                                      min_score=min_score)

@@ -181,8 +181,9 @@ class BatchGroup:
         """Host assembly of every segment's union and per-query slots
         (the reference's ``_prepare``), and on CUDA K3's launch table in
         pinned memory.  Segments where no term of the batch exists are
-        left out (nothing can match there).  Large segments stay on the
-        f32 lowering, as in the reference."""
+        left out (nothing can match there).  Quantized segments stay on
+        the f32 lowering, as in the reference: their f32 columns stage on
+        demand here (``DeviceSegment.ensure_postings``)."""
         n_q = len(self.positions)
         q_pad = pad_pow2(n_q, minimum=8)
         lens = np.asarray([len(t) for t in self.terms], np.int64)
@@ -241,9 +242,10 @@ class BatchGroup:
             np.maximum.at(last, slots, np.flatnonzero(hit))
             union_idfs[:n_u] = idf_flat[last]
             dseg = seg.device(dev)
-            p = dseg.postings[self.field]
+            p = dseg.ensure_postings(self.field)
             segs.append(bm25_ops.BatchSegment(
                 p["offsets"], p["doc_ids"],
+                # quantize-ok: the batched path stays on the f32 lowering
                 dseg.impacts(self.field, self.avgdl),
                 searcher.ctx.live_mask(seg, dseg), union_tids,
                 union_active, union_idfs, union_rows, qslots, qweights,

@@ -5,8 +5,9 @@ top-k across segments, fetch sources (the port of the JAX package's
 
 A scored ``match`` / ``term`` (a ``TermBagPlan`` at the root) takes every
 segment's top-k, total and max from one call (``ops/bm25.py``
-``term_bag_topk_segments_auto``: one K2 launch on CUDA) and one
-read-back.  Other plans, and requests that waive exact totals
+``term_bag_topk_segments_auto``: one K2 launch on CUDA, or one K4 launch
+over segments that ``index/codec.py`` quantizes) and one read-back.
+Other plans, and requests that waive exact totals
 (``track_total_hits: false``, whose running k-th-score pruning needs
 results segment by segment), run one eager torch program per segment on
 the searcher's device, all launched before the host reads any result
@@ -91,17 +92,26 @@ def _dummy_for(group: str, field: str, dseg: DeviceSegment, mapper):
     raise IllegalArgumentError(f"unknown array group [{group}]")
 
 
-def build_arrays(dseg: DeviceSegment, needed, mapper, live=None):
+def build_arrays(dseg: DeviceSegment, needed, mapper, live=None,
+                 partial_ok=frozenset()):
     """Assemble the ``A`` dict a plan reads: live mask + requested field
     array groups (absent fields get all-inactive dummies).  ``live`` is
     the caller's point-in-time staged live mask (defaults to the
-    segment's construction-time state)."""
+    segment's construction-time state).
+
+    ``partial_ok`` holds the (group, field) pairs whose partial staging
+    is fine as it is (a plan's ``skip_arrays(dims)``).  A quantized
+    segment stages only the postings offsets eagerly; any other plan
+    reading its postings demand-stages the f32 columns here
+    (``DeviceSegment.ensure_postings``)."""
     A = {"live": dseg.live if live is None else live}
     sources = {"postings": dseg.postings, "vector": dseg.vector}
     for group, field in sorted(needed):
         entry = sources[group].get(field)
         if entry is None:
             entry = _dummy_for(group, field, dseg, mapper)
+        elif group == "postings" and (group, field) not in partial_ok:
+            entry = dseg.ensure_postings(field)
         A.setdefault(group, {})[field] = entry
     return A
 
@@ -311,7 +321,8 @@ class ShardSearcher:
             dseg = seg.device(self.device)
             dims, ins = self._prepared(plan, bind, seg, dseg, ckey)
             A = build_arrays(dseg, needed, self.mapper,
-                             live=self.ctx.live_mask(seg, dseg))
+                             live=self.ctx.live_mask(seg, dseg),
+                             partial_ok=plan.skip_arrays(dims))
             scores, matched = P.run_full(plan, dims, A, ins, ms)
             yield seg, dseg, scores, matched
 
@@ -371,7 +382,8 @@ class ShardSearcher:
             dseg = seg.device(self.device)
             dims, ins = self._prepared(plan, bind, seg, dseg, ckey)
             A = build_arrays(dseg, needed, self.mapper,
-                             live=self.ctx.live_mask(seg, dseg))
+                             live=self.ctx.live_mask(seg, dseg),
+                             partial_ok=plan.skip_arrays(dims))
             k = min(k_want, dseg.n_pad)
             vals, idx, tot, mx = P.run_topk(plan, dims, k, A, ins, ms)
             event = None
@@ -411,7 +423,9 @@ class ShardSearcher:
         """(rows, total, max_score) of a scored term bag: can-match and
         min_score bound skips on the host, then every remaining segment's
         top-k, total and max from one ``term_bag_topk_segments_auto``
-        call, read back in one copy."""
+        call, read back in one copy.  ``topk_input`` reads the f32 columns
+        only on f32 segments, where they are always staged, so no
+        postings entry needs its columns demand-staged here."""
         inputs, order = [], []
         for si, seg in enumerate(self.segments):
             if not plan.can_match(bind, seg):
@@ -425,7 +439,8 @@ class ShardSearcher:
                 lambda seg=seg, dseg=dseg: plan.topk_input(
                     bind, seg, dseg, build_arrays(
                         dseg, needed, self.mapper,
-                        live=self.ctx.live_mask(seg, dseg)))))
+                        live=self.ctx.live_mask(seg, dseg),
+                        partial_ok=needed))))
             order.append(si)
         if not inputs:
             return [], 0, None

@@ -31,10 +31,9 @@ import numpy as np
 import torch
 
 from opensearch_tpu_torch.common import torchenv  # noqa: F401
-from opensearch_tpu_torch.common.errors import NotYetPortedError
-from opensearch_tpu_torch.index import codec as codec_mod
 from opensearch_tpu_torch.index.segment import pad_bucket, pad_pow2
 from opensearch_tpu_torch.ops import bm25 as bm25_ops
+from opensearch_tpu_torch.ops import quantized as qops
 
 _I32 = np.int32
 _F32 = np.float32
@@ -68,6 +67,14 @@ def _live_n_pad(A) -> tuple:
 @dataclass(frozen=True)
 class Plan:
     def arrays(self) -> frozenset:
+        return frozenset()
+
+    def skip_arrays(self, dims) -> frozenset:
+        """Subset of ``arrays()`` this plan does NOT need fully staged
+        for the dims ``prepare`` returned: the executor passes it to
+        ``build_arrays`` so a quantized lowering (which carries its
+        tables in ``ins``) does not stage the f32 posting columns.
+        Composites keep the default (empty), as in the reference."""
         return frozenset()
 
     def can_match(self, bind, seg) -> bool:
@@ -167,14 +174,12 @@ class TermBagPlan(Plan):
                 total += float(idf_v) * float(w) * float(mi[tid])
         return total * _BOUND_MARGIN
 
-    def _refuse_quantized(self, seg):
-        if self.scored and codec_mod.use_quantized(seg):
-            # the reference scores this segment over quantized impacts;
-            # scoring it in f32 here would answer differently
-            raise NotYetPortedError(
-                f"segment [{seg.seg_id}] has {seg.n_docs} docs (>= "
-                f"QUANTIZED_MIN_DOCS={codec_mod.QUANTIZED_MIN_DOCS}): the "
-                "quantized term-bag lowering is not ported yet")
+    def _quantized(self, seg, dseg) -> bool:
+        """Does this bag take the quantized lowering on this segment?
+        Scored bags on a segment ``index/codec.py`` quantizes, as in the
+        reference; filter-context bags stay on the f32 columns."""
+        return (self.scored and dseg.quantized_mode
+                and seg.postings.get(self.field) is not None)
 
     def _slots(self, bind, seg):
         """The padded query-term slots on the host: ``(t_pad, term ids,
@@ -208,7 +213,6 @@ class TermBagPlan(Plan):
                 np.concatenate([weights, pad])[:t_pad], fast)
 
     def prepare(self, bind, seg, dseg, ctx):
-        self._refuse_quantized(seg)
         dev = dseg.device
         t_pad, tids, active, _rows, budget = self._slots(bind, seg)
         if not self.scored:
@@ -216,11 +220,29 @@ class TermBagPlan(Plan):
                    int(bind["required"]))
             return (t_pad, budget, False), ins
         idfs, weights, fast = self._scoring(bind, t_pad)
-        ins = (_tensor(tids, _I32, dev), _tensor(active, bool, dev),
-               _tensor(idfs, _F32, dev), _tensor(weights, _F32, dev),
-               dseg.impacts(self.field, bind["avgdl"]),
+        bag = (_tensor(tids, _I32, dev), _tensor(active, bool, dev),
+               _tensor(idfs, _F32, dev), _tensor(weights, _F32, dev))
+        if self._quantized(seg, dseg):
+            # the quantized lowering: the tables ride in ``ins``, the f32
+            # posting columns are never staged (``skip_arrays``), and
+            # dims grows a 4th element, the delta width
+            q = dseg.quantized(self.field, bind["avgdl"])
+            width = seg.quantized_table(self.field, bind["avgdl"]).width
+            ins = (*bag, q["qvals"], q["scales"], q["exact_vals"],
+                   q["exact_offsets"], q["packed"], q["base"],
+                   int(bind["required"]))
+            return (t_pad, budget, fast, int(width)), ins
+        # quantize-ok: the f32 lowering (segments below the threshold)
+        ins = (*bag, dseg.impacts(self.field, bind["avgdl"]),
                int(bind["required"]))
         return (t_pad, budget, fast), ins
+
+    def skip_arrays(self, dims) -> frozenset:
+        # 4-tuple dims = quantized lowering: eval reads only the offsets
+        # of the postings entry
+        if len(dims) == 4:
+            return frozenset({("postings", self.field)})
+        return frozenset()
 
     def topk_input(self, bind, seg, dseg, A) -> bm25_ops.TermBagSegment:
         """This segment's inputs to the fused top-k of a scored bag
@@ -230,19 +252,34 @@ class TermBagPlan(Plan):
         segment's arrays (``executor.build_arrays``)."""
         if not self.scored:
             raise ValueError("topk_input takes a scored term bag")
-        self._refuse_quantized(seg)
         t_pad, tids, active, rows, budget = self._slots(bind, seg)
         idfs, weights, fast = self._scoring(bind, t_pad)
         p = A["postings"][self.field]
-        return bm25_ops.TermBagSegment(
-            p["offsets"], p["doc_ids"],
-            dseg.impacts(self.field, bind["avgdl"]), A["live"], tids,
-            active, idfs, weights, rows, int(bind["required"]), fast,
-            budget)
+        args = (tids, active, idfs, weights, rows, int(bind["required"]),
+                fast, budget)
+        if not self._quantized(seg, dseg):
+            # quantize-ok: the f32 lowering (segments below the threshold)
+            imp = dseg.impacts(self.field, bind["avgdl"])
+            return bm25_ops.TermBagSegment(p["offsets"], p["doc_ids"], imp,
+                                           A["live"], *args)
+        # each slot's term base, scale and exact range from the host
+        # tables: the kernel reads them from its launch table
+        qt = seg.quantized_table(self.field, bind["avgdl"])
+        q = dseg.quantized(self.field, bind["avgdl"])
+        e0, e1 = qt.exact_offsets[tids], qt.exact_offsets[tids + 1]
+        quant = bm25_ops.QuantizedBag(
+            q["qvals"], q["scales"], q["exact_vals"], q["exact_offsets"],
+            q["packed"], q["base"], int(qt.width),
+            qt.base[tids].astype(np.int64), qt.scales[tids],
+            np.where(e1 > e0, e0, -1).astype(np.int64))
+        return bm25_ops.TermBagSegment(p["offsets"], None, None, A["live"],
+                                       *args, quant=quant)
 
     def eval(self, A, dims, ins):
         p = A["postings"][self.field]
         n_pad, dev = _live_n_pad(A)
+        if len(dims) == 4:
+            return self._eval_quantized(p["offsets"], n_pad, dims, ins)
         t_pad, budget, fast = dims
         if not self.scored:
             tids, active, required = ins
@@ -261,6 +298,27 @@ class TermBagPlan(Plan):
             scores, count = bm25_ops.impact_score_count(
                 p["offsets"], p["doc_ids"], impacts, tids, active,
                 idfs, weights, n_pad=n_pad, budget=budget, scored=True)
+            matched = count >= required
+        return torch.where(matched, scores, 0.0), matched
+
+    @staticmethod
+    def _eval_quantized(offsets, n_pad, dims, ins):
+        """``eval`` on the quantized lowering (the reference's
+        ``quantized_impact_scores`` / ``quantized_impact_score_count``;
+        K4's per-slot entry on CUDA)."""
+        _t_pad, budget, fast, width = dims
+        *tables, required = ins
+        tids, active, idfs, weights, qvals, scales, exact_vals, \
+            exact_offsets, packed, base = tables
+        args = (offsets, packed, base, qvals, scales, exact_vals,
+                exact_offsets, tids, active, idfs, weights)
+        kw = dict(width=width, n_pad=n_pad, budget=budget)
+        if fast:
+            scores = qops.quantized_impact_scores(*args, **kw)
+            matched = scores > 0.0
+        else:
+            scores, count = qops.quantized_impact_score_count(
+                *args, **kw, scored=True)
             matched = count >= required
         return torch.where(matched, scores, 0.0), matched
 

@@ -8,7 +8,9 @@ vectors), a window of ``match`` and ``knn`` queries through
 
 ``n_queries`` sizes the ``match`` and ``knn`` windows; the ``msearch``
 window is 4 batches of 64 (their group inputs assembled in the window,
-after one warm-up batch).  Prints one JSON line per query kind: wall ms
+after one warm-up batch).  A last ``match_quantized`` window runs the
+``match`` queries over the same 1M docs in 8 segments of 125,000, which
+the port quantizes (K4, ``chip_smoke.py`` phase 7's layout).  Prints one JSON line per query kind: wall ms
 per query (profiler on), device busy ms per query (the sum of the CUDA
 kernels' and copies' own time; one stream, so they do not overlap), the
 idle share ``1 - busy / wall``, the device calls (kernels and copies)
@@ -139,6 +141,14 @@ def main(argv=None) -> int:
     searcher.msearch(qs[:batch])             # warm-up
     out = profile_window(searcher, qs[batch:], batch=batch)
     print(json.dumps({"kind": "msearch", "gpu": gpu, **out}), flush=True)
+    del searcher
+    searcher = build_searcher(1_000_000, 8, "cuda")
+    qs = bodies["match"]
+    for body in qs[:5]:
+        searcher.search(body)
+    out = profile_window(searcher, qs[5:])
+    print(json.dumps({"kind": "match_quantized", "gpu": gpu, **out}),
+          flush=True)
     return 0
 
 

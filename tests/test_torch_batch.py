@@ -8,7 +8,6 @@ device lowering (``HOST_SCORING = False``), as ``tests/test_impacts.py``
 does.
 """
 
-import dataclasses
 import json
 import sys
 import threading
@@ -36,7 +35,7 @@ from opensearch_tpu_torch.search.executor import ShardSearcher
 from opensearch_tpu_torch.testing.parity import bm25_mismatch
 from test_torch_ops import bag_corpus
 from test_torch_search import (MAPPING, SEG_SIZES, build, json_docs,
-                               quantized_size_segment)
+                               quantized_size_searchers)
 
 
 @pytest.fixture(scope="module")
@@ -410,30 +409,17 @@ def test_msearch_scores_a_quantized_size_segment_in_f32_like_the_reference(
         monkeypatch):
     """The reference's batch path keeps the f32 lowering on a segment of
     QUANTIZED_MIN_DOCS docs; the port's batch path does too (its
-    sequential path refuses that segment)."""
-    from opensearch_tpu.mapping.mapper import DocumentMapper as JaxMapper
-    from opensearch_tpu_torch.common.errors import NotYetPortedError
-
-    monkeypatch.setattr(jbm25, "HOST_SCORING", False)
-    seg, docs = quantized_size_segment()
-    from opensearch_tpu.index.segment import PostingsField as JaxPostings
-    from opensearch_tpu.index.segment import Segment as JaxSegment
-    jseg = JaxSegment(seg.seg_id, seg.n_docs)
-    jseg.doc_ids, jseg.sources = seg.doc_ids, seg.sources
-    pf = seg.postings["body"]
-    jseg.postings["body"] = JaxPostings(**{
-        f.name: getattr(pf, f.name) for f in dataclasses.fields(pf)})
-    mapping = {"properties": {"body": {"type": "text"}}}
-    jax_s = JaxSearcher([jseg], JaxMapper(mapping))
-    port_s = ShardSearcher([seg], DocumentMapper(mapping), device="cpu")
+    sequential path scores that segment's quantized tables, as the
+    reference's does)."""
+    jax_s, port_s, docs = quantized_size_searchers(monkeypatch)
     bodies = [{"query": {"match": {"body": "w1"}}, "size": 5},
               {"query": {"match": {"body": "w1 nope"}}, "size": 5}]
     got, ref = port_s.msearch(bodies), jax_s.msearch(bodies)
     for g, r in zip(got, ref):
         assert bm25_mismatch(g, r) is None
         assert g["hits"]["total"]["value"] == len(docs)
-    with pytest.raises(NotYetPortedError):
-        port_s.search(bodies[0])
+    assert bm25_mismatch(port_s.search(bodies[0]),
+                         jax_s.search(bodies[0])) is None
 
 
 # -- the continuous batcher and the engine ----------------------------------

@@ -621,7 +621,10 @@ def test_term_bag_layout_constants_reach_the_kernel_as_macros():
 
     assert cuda_bm25.defines() == {"BM25_TILE_DOCS": cuda_bm25.TILE_DOCS,
                                    "BM25_K_MAX": cuda_bm25.K_MAX,
-                                   "BM25_SEG_WORDS": cuda_bm25.SEG_WORDS}
+                                   "BM25_SEG_WORDS": cuda_bm25.SEG_WORDS,
+                                   "BM25_QSEG_WORDS": cuda_bm25.QSEG_WORDS,
+                                   "BM25_QSLOT_WORDS":
+                                       cuda_bm25.QSLOT_WORDS}
     src = (cuda_build.CSRC / "bm25.cu").read_text()
     for macro in cuda_bm25.defines():
         assert f"= {macro};" in src

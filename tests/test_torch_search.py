@@ -11,6 +11,8 @@ byte for byte; k-NN hits within rtol=1e-5, atol=1e-6 (see
 ``opensearch_tpu_torch/testing/parity.py``).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -361,16 +363,45 @@ def quantized_size_segment():
     return seg, docs
 
 
-def test_quantized_size_segment_raises_instead_of_scoring_f32():
-    """The reference lowers segments with >= QUANTIZED_MIN_DOCS docs to
-    its quantized kernels; the port refuses to score them in f32."""
+def reference_segment(seg):
+    """The JAX package's ``Segment`` holding ``seg``'s docs and postings."""
+    from opensearch_tpu.index.segment import PostingsField as JaxPostings
+    from opensearch_tpu.index.segment import Segment as JaxSegment
+
+    jseg = JaxSegment(seg.seg_id, seg.n_docs)
+    jseg.doc_ids, jseg.sources = seg.doc_ids, seg.sources
+    jseg.id_to_local = dict(seg.id_to_local)
+    for name, pf in seg.postings.items():
+        jseg.postings[name] = JaxPostings(**{
+            f.name: getattr(pf, f.name) for f in dataclasses.fields(pf)})
+    return jseg
+
+
+def quantized_size_searchers(monkeypatch):
+    """(JAX searcher, port searcher, docs) over ``quantized_size_segment``,
+    the JAX side on its device lowering."""
+    monkeypatch.setattr(jax_bm25, "HOST_SCORING", False)
     seg, docs = quantized_size_segment()
+    mapping = {"properties": {"body": {"type": "text"}}}
+    return (JaxSearcher([reference_segment(seg)], JaxMapper(mapping)),
+            ShardSearcher([seg], DocumentMapper(mapping), device="cpu"),
+            docs)
+
+
+def test_quantized_size_segment_raises_instead_of_scoring_f32(monkeypatch):
+    """The reference lowers segments with >= QUANTIZED_MIN_DOCS docs to
+    its quantized kernels; so does the port (no f32 scoring and no
+    refusal): scored bags read the quantized tables and answer as the
+    reference does."""
+    jax_s, searcher, docs = quantized_size_searchers(monkeypatch)
+    seg = searcher.segments[0]
     assert codec.use_quantized(seg)
-    mapper = DocumentMapper({"properties": {"body": {"type": "text"}}})
-    searcher = ShardSearcher([seg], mapper, device="cpu")
-    with pytest.raises(NotYetPortedError) as exc:
-        searcher.search({"query": {"match": {"body": "w1"}}})
-    assert exc.value.status == 501
+    body = {"query": {"match": {"body": "w1"}}}
+    got = searcher.search(body)
+    assert bm25_mismatch(got, jax_s.search(body)) is None
+    assert got["hits"]["total"]["value"] == len(docs)
+    dseg = seg.device("cpu")
+    assert dseg.quantized_mode and set(dseg.postings["body"]) == {"offsets"}
     # filter context scores nothing, so it runs as the reference does
     assert searcher.count({"match": {"body": "w1"}}) == len(docs)
 
@@ -381,15 +412,15 @@ def test_quantized_size_segment_raises_instead_of_scoring_f32():
     {"query": {"match": {"body": "w1"}}, "track_total_hits": False},
     {"query": {"match": {"body": "w1"}}, "size": 300},
 ], ids=["fused", "term", "untracked-totals", "beyond-k-max"])
-def test_quantized_size_segment_raises_on_every_term_bag_route(body):
+def test_quantized_size_segment_raises_on_every_term_bag_route(body,
+                                                               monkeypatch):
     """Through the one top-k call and the per-segment programs alike, a
-    scored bag on a segment of QUANTIZED_MIN_DOCS docs raises."""
-    seg, _docs = quantized_size_segment()
-    mapper = DocumentMapper({"properties": {"body": {"type": "text"}}})
-    searcher = ShardSearcher([seg], mapper, device="cpu")
-    with pytest.raises(NotYetPortedError) as exc:
-        searcher.search(body)
-    assert exc.value.status == 501
+    scored bag on a segment of QUANTIZED_MIN_DOCS docs is answered from
+    the quantized tables, byte-equal to the reference (no refusal)."""
+    jax_s, searcher, _docs = quantized_size_searchers(monkeypatch)
+    got = searcher.search(dict(body))
+    assert bm25_mismatch(got, jax_s.search(dict(body))) is None
+    assert got["hits"]["hits"]
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
