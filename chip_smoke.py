@@ -25,18 +25,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
    on the median bag, the heaviest bag, a 4-term bag, an ``and`` bag, a
    ``min_score`` bag and segments with deletes, k in 1, 10, 100, K_MAX,
    K_MAX + 1 (the per-slot entry plus the stable sort); and K3
-   ``batch_term_bag_topk_cuda`` (K2's top-k kernel, one launch per
-   batch of queries over the 16 scale segments, one table entry per
-   (query, segment)) against ``batch_term_bag_topk_segments``, byte for
-   byte, on batches of 1, 7 and 64 zipf OR bags (with and without the
-   presence counts), 64 ``and`` bags and 64 OR bags over segments with
-   deletes, k in 1, 10, 100, K_MAX; and K4, the kernel's quantized row
+   ``batch_term_bag_topk_cuda`` (``csrc/union_topk.cu``, one launch per
+   batch of queries over the 16 scale segments: persistent blocks per
+   (query chunk, segment) stage each union posting once in shared memory
+   and score every query of the chunk from there) against
+   ``batch_term_bag_topk_segments``, byte for byte, on batches of 1, 7
+   and 64 zipf OR bags (with and without the presence counts), 64
+   ``and`` bags, 64 OR bags over segments with deletes, 64 bags with a
+   duplicate term (OR and ``and``), 64 bags with negative weights and 256
+   bags of 3-4 terms (several query chunks at K_MAX), k in 1, 10, 100,
+   K_MAX, and timed at k = 10 and 100 beside the route it replaced (K2's
+   top-k kernel over one table entry per (query, segment),
+   ``testing/k3_sweep.py``); and K4, the kernel's quantized row
    layout, on 8 segments of 125,000 docs that the port quantizes (the
    same corpus): its top-k entry ``term_bag_topk_quantized_cuda`` against
    ``term_bag_topk_segments``, byte for byte, on the median, heaviest,
    4-term, ``and``, ``min_score`` and deletes bags, k in 1, 10, 100,
    K_MAX, K_MAX + 1, int8 and int16 codes, bags with and without guarded
-   (exact) terms; its per-slot entry on three bags; a mixed call over 2
+   (exact) terms; its per-slot entry on three bags (and timed at the
+   median bag on one 125,000-doc segment); a mixed call over 2
    quantized and 2 f32 segments; and K4 against K2 over the same
    segments' ``dequantized()`` column staged as f32, byte for byte;
 3. ingest path: ~2,000 JSON docs through the port's DocumentMapper and
@@ -183,8 +190,9 @@ def phase_toolkit():
         f"count={torch.cuda.device_count()}")
     log(f"gpu: {gpu_name_power()}")
     t0 = time.monotonic()
-    logs = cuda_build.build(["knn", "bm25"], {"knn": cuda_knn.defines(),
-                                              "bm25": cuda_bm25.defines()})
+    logs = cuda_build.build(["knn", "bm25", "union_topk"],
+                            {"knn": cuda_knn.defines(),
+                             "bm25": cuda_bm25.defines()})
     log(f"kernels built in {time.monotonic() - t0:.1f}s: "
         f"{sorted(logs) or 'cached'}")
     for name, text in logs.items():
@@ -630,34 +638,84 @@ def batch_inputs(searcher, bodies) -> dict:
 def phase_batch_topk(searcher, dev, gen, query_pairs):
     """K3 against its plain twin over the 16 scale segments, byte for
     byte: batches of 1, 7 and 64 ``match`` queries of the zipf log (OR
-    bags, with and without the presence counts), 64 ``and`` bags and 64
-    OR bags over segments with deletes, k in 1, 10, 100, K_MAX; then
-    timed on the 64-query OR batch at k = 10 (one launch per batch, the
-    launch table cached as the main path caches it) beside the plain
-    twin, the library chain (the reference's formulation per segment:
-    ``index_add_`` into a [T * n_pad] arena, row gathers,
-    ``torch.topk``) and the bound."""
+    bags, with and without the presence counts), 64 ``and`` bags, 64 OR
+    bags over segments with deletes, 64 bags with a duplicate term (OR
+    and ``and``), 64 bags with negative weights, and 256 bags of 3-4
+    distinct terms (several query chunks at K_MAX), k in 1, 10, 100,
+    K_MAX; then timed on the 64-query OR batch at k = 10 and 100 (one
+    launch per batch, the launch table cached as the main path caches it)
+    beside the plain twin, the library chain (the reference's formulation
+    per segment: ``index_add_`` into a [T * n_pad] arena, row gathers,
+    ``torch.topk``), the route K3 replaced (K2's top-k kernel over one
+    table entry per (query, segment), ``testing/k3_sweep.py``) and the
+    bound."""
     import torch
 
     from opensearch_tpu_torch.ops import cuda_bm25
     from opensearch_tpu_torch.search import batch
+    from opensearch_tpu_torch.testing import corpus, k3_sweep
 
     fn = cuda_bm25.batch_term_bag_topk_cuda
+    lib = cuda_bm25._union_library()
+    for caps in ((60, 64, 128, 16, 512, 64, 4000, 0),
+                 (3, 45, 150, 32, 256, 512, 0, 1),
+                 (1000, 1, 1000, 1, 32, 512, 88, 1)):
+        if lib.union_topk_smem_bytes(*caps) != cuda_bm25.union_smem_bytes(
+                *caps):
+            raise AssertionError(f"K3 shared memory sum differs from the "
+                                 f"wrapper's at {caps}")
     cases = {}
-    for n in (1, 7, 64):
-        prep = batch_inputs(searcher, [match_body(a, b)
-                                       for a, b in query_pairs[:n]])
-        cases[f"{n} or"] = (prep["segs"], prep["required"], n,
-                            prep["need_counts"])
-    prep = batch_inputs(searcher, [match_body(a, b, operator="and")
-                                   for a, b in query_pairs[64:128]])
-    cases["64 and"] = (prep["segs"], prep["required"], 64,
+
+    def add(name, bodies):
+        prep = batch_inputs(searcher, bodies)
+        cases[name] = (prep["segs"], prep["required"], len(bodies),
                        prep["need_counts"])
+
+    for n in (1, 7, 64):
+        add(f"{n} or", [match_body(a, b) for a, b in query_pairs[:n]])
+    add("64 and", [match_body(a, b, operator="and")
+                   for a, b in query_pairs[64:128]])
     segs64, req64, _n, _nc = cases["64 or"]
     deleted = [seg._replace(live=seg.live & (torch.rand(
         seg.live.shape[0], device=dev, generator=gen) > 0.1))
         for seg in segs64]
     cases["64 or, deletes"] = (deleted, req64, 64, False)
+
+    def dup_body(a, b, **extra):
+        body = match_body(a, b, **extra)
+        q = body["query"]["match"]["body"]
+        text = f"t{a} t{a} t{b}"
+        body["query"]["match"]["body"] = ({**q, "query": text}
+                                          if extra else text)
+        return body
+
+    add("64 duplicate", [dup_body(a, b) for a, b in query_pairs[:64]])
+    add("64 duplicate and", [dup_body(a, b, operator="and")
+                             for a, b in query_pairs[:64]])
+    # negative weights: every other query's second slot at -0.5, so the
+    # batch takes the counted match rule, as the plain twin does
+    sign = np.where(np.arange(segs64[0].qweights.shape[0]) % 2, 1.0,
+                    -0.5).astype(np.float32)[:, None]
+    negative = [seg._replace(qweights=np.concatenate(
+        [seg.qweights[:, :1], seg.qweights[:, 1:] * sign], axis=1))
+        for seg in segs64]
+    cases["64 negative"] = (negative, req64, 64, True)
+    draws = iter(t for pair in corpus.zipf_query_log(4096, seed=11)
+                 for t in pair)
+    wide = []
+    for i in range(256):
+        terms: dict = {}
+        while len(terms) < 3 + i % 2:
+            terms[f"t{next(draws)}"] = None
+        wide.append({"query": {"match": {"body": " ".join(terms)}},
+                     "size": cuda_bm25.K_MAX, "_source": False})
+    add("256 wide", wide)
+    wide_segs, wide_req, _n, wide_nc = cases["256 wide"]
+    chunks = cuda_bm25.union_table(wide_segs, wide_req, n_queries=256,
+                                   k=cuda_bm25.K_MAX,
+                                   need_counts=wide_nc).n_chunks
+    if chunks < 2:
+        raise AssertionError(f"K3 256 wide at K_MAX: {chunks} chunk")
     ks = (1, 10, 100, cuda_bm25.K_MAX)
     for name, (segs, req, n, need_counts) in cases.items():
         ways = (need_counts,) if need_counts else (False, True)
@@ -679,12 +737,13 @@ def phase_batch_topk(searcher, dev, gen, query_pairs):
                             "differ from the plain twin")
         log(f"K3 batch {name} ({len(segs)} segments, need_counts "
             f"{list(ways)}): k {list(ks)} byte-equal to the plain twin "
-            f"(vals, ids, totals, maxes); totals {int(ref[2].sum())}")
+            f"(vals, ids, totals, maxes), one launch each; totals "
+            f"{int(ref[2].sum())}")
+    log(f"K3 batch 256 wide at k={cuda_bm25.K_MAX}: {chunks} query chunks "
+        "in one launch")
 
-    k, n = 10, 64
-    table = cuda_bm25.pinned_batch_table(segs64, req64, n_queries=n,
-                                         need_counts=False)
-    nbytes = 0
+    n = 64
+    nbytes = {}
     postings = 0
     query_postings = 0         # each query's rows, summed over queries
     lib_inputs = []
@@ -696,7 +755,9 @@ def phase_batch_topk(searcher, dev, gen, query_pairs):
         postings += seg_postings
         query_postings += int(lens[seg.qslots[:n]][seg.qact[:n] > 0].sum())
         n_pad = seg.live.shape[0]
-        nbytes += 8 * seg_postings + n_pad + n * (8 * k + 8)
+        for k in (10, 100):
+            nbytes[k] = nbytes.get(k, 0) + 8 * seg_postings + n_pad \
+                + n * (8 * k + 8)
         pos = np.concatenate([np.arange(a, b) for a, b in rows])
         slot = np.repeat(np.arange(n_u), rows[:, 1] - rows[:, 0])
         docs = seg.doc_ids[torch.from_numpy(pos).to(dev)].long()
@@ -707,7 +768,7 @@ def phase_batch_topk(searcher, dev, gen, query_pairs):
             torch.from_numpy(seg.qslots[:n]).to(dev).long(),
             torch.from_numpy(seg.qweights[:n]).to(dev)))
 
-    def lib_chain():
+    def lib_chain(k):
         for seg, n_u, pos, flat, idf_p, qs, qw in lib_inputs:
             n_pad = seg.live.shape[0]
             arena = torch.zeros(n_u * n_pad, dtype=torch.float32,
@@ -721,32 +782,60 @@ def phase_batch_topk(searcher, dev, gen, query_pairs):
             key = torch.where((scores > 0) & seg.live, scores, -torch.inf)
             torch.topk(key, k, dim=1)
 
-    def kernel():
-        return fn(segs64, req64, n_queries=n, k=k, need_counts=False,
-                  table=table)
-
-    ms, plain_ms = in_turns(
-        kernel, lambda: batch.batch_term_bag_topk_segments(
-            segs64, req64, n_queries=n, k=k, need_counts=False), 10)
-    lib_ms = cuda_ms(lib_chain, 10)
-    dev_ms = kernel_device_ms(kernel, 20, "term_bag_topk_kernel")
-    # bytes: each union posting (id + impact) read once, a live byte per
-    # doc, each (query, segment)'s k keys, total and max written once;
-    # operations: w * (idf * imp) + score per posting of each query
-    bms, by = bound_ms(nbytes, 3.0 * query_postings)
+    old_table = k3_sweep.pinned_batch_table(segs64, req64, n_queries=n,
+                                            need_counts=False)
+    out = {}
     unions = [int(seg.union_active.sum()) for seg in segs64]
-    log(f"K3 batch of {n} OR bags k={k} over {len(segs64)} segments (union "
-        f"{min(unions)}-{max(unions)} terms, {postings} union postings, "
-        f"{query_postings} summed over the queries), one launch per "
-        f"batch: ms {ms:.4f} device_ms {dev_ms} plain_ms {plain_ms:.4f} "
-        f"library_ms(index_add_ arena + row gathers + topk chain) "
-        f"{lib_ms:.4f} bound_ms {bms:.5f} ({by}: {nbytes} bytes) on "
-        f"{gpu_name_power()}")
-    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
-            "bound_bytes": nbytes, "postings": postings,
-            "query_postings": query_postings, "max_abs_err": 0.0,
-            "batch": n, "k": k}
+    for k in (10, 100):
+        table = cuda_bm25.pinned_union_table(segs64, req64, n_queries=n,
+                                             k=k, need_counts=False)
+
+        def kernel():
+            return fn(segs64, req64, n_queries=n, k=k, need_counts=False,
+                      table=table)
+
+        def old():
+            return k3_sweep.old_route(segs64, old_table, n_queries=n, k=k)
+
+        got, ref = kernel().numpy(), old().numpy()
+        if any(a.tobytes() != b.tobytes() for a, b in zip(got, ref)):
+            raise AssertionError(f"K3 k={k}: differs from the old route")
+        ms, plain_ms = in_turns(
+            kernel, lambda: batch.batch_term_bag_topk_segments(
+                segs64, req64, n_queries=n, k=k, need_counts=False), 10)
+        old_ms, _ = in_turns(old, kernel, 10)
+        lib_ms = cuda_ms(lambda: lib_chain(k), 10)
+        dev_ms = kernel_device_ms(kernel, 20, "union_topk_kernel")
+        old_dev_ms = kernel_device_ms(old, 20, "term_bag_topk_kernel")
+        dev_ms2 = kernel_device_ms(kernel, 20, "union_topk_kernel")
+        old_dev_ms2 = kernel_device_ms(old, 20, "term_bag_topk_kernel")
+        if None in (dev_ms, dev_ms2, old_dev_ms, old_dev_ms2):
+            raise AssertionError("the profiler shows no K3 or old-route "
+                                 "kernel")
+        # bytes: each union posting (id + impact) read once, a live byte
+        # per doc, each (query, segment)'s k keys, total and max written
+        # once; operations: w * (idf * imp) + score per posting of each
+        # query
+        bms, by = bound_ms(nbytes[k], 3.0 * query_postings)
+        log(f"K3 batch of {n} OR bags k={k} over {len(segs64)} segments "
+            f"(union {min(unions)}-{max(unions)} terms, {postings} union "
+            f"postings, {query_postings} summed over the queries; "
+            f"{table.n_chunks} chunk, D {table.docs}, {table.blocks} blocks "
+            f"per segment), one launch per batch: ms {ms:.4f} device_ms "
+            f"{dev_ms} / {dev_ms2} plain_ms {plain_ms:.4f} "
+            f"library_ms(index_add_ arena + row gathers + topk chain) "
+            f"{lib_ms:.4f} old route (K2 kernel over (query, segment) "
+            f"entries) ms {old_ms:.4f} device_ms {old_dev_ms} / "
+            f"{old_dev_ms2} bound_ms {bms:.5f} ({by}: {nbytes[k]} bytes) on "
+            f"{gpu_name_power()}")
+        out[k] = {"ms": ms, "device_ms": min(dev_ms, dev_ms2),
+                  "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "old_route_ms": old_ms,
+                  "old_route_device_ms": min(old_dev_ms, old_dev_ms2),
+                  "bound_ms": bms, "bound_by": by, "bound_bytes": nbytes[k],
+                  "postings": postings, "query_postings": query_postings,
+                  "max_abs_err": 0.0, "batch": n, "k": k}
+    return {**out[10], "k100": out[100]}
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -1366,6 +1455,66 @@ def phase_quantized_kernels(quant, f32_segs, f32_searcher, query_pairs):
     log("K4 byte-equal to K2 over the dequantized() column (median, "
         "heaviest, and, deletes, min_score; k 10, 100, K_MAX)")
 
+    # the per-slot entry timed at the median bag on one quantized segment
+    # (scores only, as bool / constant_score call it)
+    slot_fn = cuda_bm25.term_bag_quantized_cuda
+    plan, bind = qsearcher.compiled(match_query(median_bag))
+    seg, one = qsegs[0], median[0]
+    dseg = seg.device(dev)
+    dims, ins = plan.prepare(bind, seg, dseg, qsearcher.ctx)
+    _t_pad, budget, _fast, width = dims
+    tids, active, idfs, weights, qv, sc, ev, eo, pk, bs = ins[:-1]
+    args = (dseg.postings["body"]["offsets"], pk, bs, qv, sc, ev, eo, tids,
+            active, idfs, weights)
+    kw = dict(width=width, n_pad=dseg.n_pad, budget=budget)
+    before = slot_fn.launches
+    qops.quantized_impact_scores(*args, **kw)
+    per_call = slot_fn.launches - before
+    slot_ms, slot_plain_ms = in_turns(
+        lambda: qops.quantized_impact_scores(*args, **kw),
+        lambda: qops.quantized_impact_scores_plain(*args, **kw), 20)
+    view = f32_views["median"][0]
+
+    def slot_lib():
+        acc = torch.zeros(view.live.shape[0], dtype=torch.float32,
+                          device=dev)
+        for (a, b), act, idf_v, w in zip(view.rows, view.active, view.idfs,
+                                         view.weights):
+            if act:
+                acc.index_add_(0, view.doc_ids[a:b],
+                               view.impacts[a:b] * float(idf_v),
+                               alpha=float(w))
+
+    slot_lib_ms = cuda_ms(slot_lib, 20)
+    per_launch = kernel_device_ms(
+        lambda: qops.quantized_impact_scores(*args, **kw), 20,
+        "term_bag_slot_kernel")
+    if per_launch is None:
+        raise AssertionError("the profiler shows no K4 per-slot kernel")
+    slot_bytes = 4.0 * dseg.n_pad       # the dense scores written
+    slot_ops = 0
+    slot_postings = 0
+    q_bytes = one.quant.qvals.element_size()
+    for (a, b), ex in zip(one.rows[one.active],
+                          one.quant.slot_exact[one.active]):
+        n = int(b - a)
+        slot_postings += n
+        slot_bytes += n * (one.quant.width / 8 + (4 if ex >= 0 else q_bytes))
+        slot_ops += n * (3 if ex >= 0 else 4)
+    slot_bms, slot_by = bound_ms(slot_bytes, float(slot_ops))
+    log(f"K4 per-slot bag {median_bag} on one quantized segment of "
+        f"{seg.n_docs} docs ({slot_postings} postings, {per_call} launches "
+        f"a call): ms {slot_ms:.4f} device_ms {per_launch * per_call:.5f} "
+        f"({per_launch:.5f} a launch) plain_ms {slot_plain_ms:.4f} "
+        f"library_ms(index_add_ chain over dequantized()) "
+        f"{slot_lib_ms:.4f} bound_ms {slot_bms:.5f} ({slot_by}: "
+        f"{slot_bytes:.0f} bytes) on {gpu_name_power()}")
+    slot_row = {"ms": slot_ms, "device_ms": per_launch * per_call,
+                "plain_ms": slot_plain_ms, "library_ms": slot_lib_ms,
+                "bound_ms": slot_bms, "bound_by": slot_by,
+                "bound_bytes": slot_bytes, "launches_per_call": per_call,
+                "max_abs_err": 0.0, "postings": slot_postings}
+
     out = {}
     k = 10
     for name in ("median", "heaviest", "int16 median"):
@@ -1422,7 +1571,8 @@ def phase_quantized_kernels(quant, f32_segs, f32_searcher, query_pairs):
                      "exact_postings": exact_postings}
     del f32_views
     return {**out["median"], "max_abs_err": 0.0,
-            "heaviest": out["heaviest"], "int16": out["int16 median"]}
+            "heaviest": out["heaviest"], "int16": out["int16 median"],
+            "per_slot": slot_row}
 
 
 def phase_quantized_scale(segs, mapper, searcher, build, counters) -> dict:
@@ -1543,14 +1693,14 @@ def phase_quantized_scale(segs, mapper, searcher, build, counters) -> dict:
         f"bytes (codec stats); "
         f"{searcher.resident_bytes()} after the sample (filters stage the "
         f"f32 columns on demand)")
-    k4 = ("term_bag_quantized_topk", "term_bag_quantized_scores")
     return {"match_qps": m_qps, "match_p50_ms": m_p50,
             "launches_per_query": per_query,
             "sample_launches": sample_launches,
             "resident_bytes": resident, "f32_layout_bytes": f32_bytes,
             "build": build,
-            "k4_launches": sum(match_launches[n] + sample_launches[n]
-                               for n in k4)}
+            "k4_launches": {n: match_launches[n] + sample_launches[n]
+                            for n in ("term_bag_quantized_topk",
+                                      "term_bag_quantized_scores")}}
 
 
 def main() -> int:
@@ -1601,7 +1751,12 @@ def main() -> int:
     qsegs, qsearcher, qbuild = quant["int8"]
     qscale = phase_quantized_scale(qsegs, mapper, qsearcher, qbuild,
                                    {**counters, **quantized_counters()})
-    launches["term_bag_quantized"] = qscale["k4_launches"]
+    launches["term_bag_quantized"] = \
+        qscale["k4_launches"]["term_bag_quantized_topk"]
+    launches["term_bag_quantized_scores"] = \
+        qscale["k4_launches"]["term_bag_quantized_scores"]
+    kern["term_bag_quantized_scores"] = kern["term_bag_quantized"].pop(
+        "per_slot")
     sources = {"knn_topk": ("knn.cu", "opensearch_tpu/ops/pallas_knn.py:62"),
                "knn_scores": ("knn.cu",
                               "opensearch_tpu/ops/pallas_knn.py:62"),
@@ -1609,11 +1764,13 @@ def main() -> int:
                                    "opensearch_tpu/ops/bm25.py:191"),
                "term_bag_topk": ("bm25.cu",
                                  "opensearch_tpu/search/plan.py:1760"),
-               "batch_topk": ("bm25.cu",
+               "batch_topk": ("union_topk.cu",
                               "opensearch_tpu/search/batch.py:69"),
                # and gather_postings_packed, opensearch_tpu/ops/bm25.py:114
                "term_bag_quantized": ("bm25.cu",
-                                      "opensearch_tpu/ops/quantized.py:46")}
+                                      "opensearch_tpu/ops/quantized.py:46"),
+               "term_bag_quantized_scores": (
+                   "bm25.cu", "opensearch_tpu/ops/quantized.py:64")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = {"kernels": [
@@ -1628,6 +1785,7 @@ def main() -> int:
                     "k2_topk_heaviest": kern["term_bag_topk"]["heaviest"],
                     "k4_topk_heaviest":
                         kern["term_bag_quantized"]["heaviest"],
+                    "k3_k100": kern["batch_topk"]["k100"],
                     "device_ms": {n: kern[n].get("device_ms")
                                   for n in sources},
                     "wall_s": time.monotonic() - t_start}))

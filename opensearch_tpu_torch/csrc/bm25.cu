@@ -14,13 +14,9 @@
 //   term_bag_topk_segments_launch  one launch per `match` query over every
 //                                  segment of a shard: each segment's
 //                                  exact top-k, total and max, and no
-//                                  dense score in device memory.  The
-//                                  batched path (K3, replacing the
-//                                  reference's batch_impact_union_topk,
-//                                  opensearch_tpu/search/batch.py:69)
-//                                  launches it once per msearch or
-//                                  continuous-batch group, with one table
-//                                  entry per (query, segment).
+//                                  dense score in device memory.  (The
+//                                  batched path has its own kernel, K3,
+//                                  csrc/union_topk.cu.)
 //   term_bag_launch                the dense scores and/or counts of one
 //                                  segment, one launch per query-term
 //                                  slot (bool, constant_score, count).
@@ -35,7 +31,7 @@
 // the term's scale, or the term's exact f32 impact where the rank-parity
 // guard stored one.  Every entry reads rows through one row reader
 // (F32Rows, QuantRows<int8_t>, QuantRows<int16_t>), a template parameter,
-// so the f32 instantiation that K2 and K3 run carries no branch and no
+// so the f32 instantiation that K2 runs carries no branch and no
 // register of the quantized layout.
 //
 // Bound on the card: memory.  Per posting of an active term the work

@@ -1,9 +1,9 @@
 """Wrappers of K2, the hand-written term-bag kernel (``csrc/bm25.cu``),
 which replaces the reference's ``gather_postings`` + ``impact_scores`` /
 ``impact_score_count`` / ``match_count`` on CUDA tensors, and on the
-``match`` path the ``run_topk`` after them; its top-k entry also serves
-the batched path (K3), which replaces ``search/batch.py``
-``batch_impact_union_topk``.
+``match`` path the ``run_topk`` after them; and of K3
+(``csrc/union_topk.cu``), the batched path's kernel, which replaces
+``search/batch.py`` ``batch_impact_union_topk``.
 
 - ``term_bag_topk_segments_cuda``: one launch per ``match`` query over
   every segment of a shard, each segment's exact top-k, matched total
@@ -16,10 +16,11 @@ the batched path (K3), which replaces ``search/batch.py``
   segment, one launch per query-term slot (``bool``, ``constant_score``,
   ``count``).  Its plain twins are ``ops/bm25.py``'s ``*_plain``
   functions.
-- ``batch_term_bag_topk_cuda`` (K3): one launch of the top-k entry per
-  msearch or continuous-batch group, with one table entry per (query,
-  segment) (``batch_table``), each writing that pair's exact top-k,
-  total and max.  Its plain twin is
+- ``batch_term_bag_topk_cuda`` (K3): one launch of ``union_topk.cu`` per
+  msearch or continuous-batch group, persistent blocks per (query chunk,
+  segment) staging each union posting once in shared memory and scoring
+  every query of the chunk from there (``union_table``), each (query,
+  segment)'s exact top-k, total and max.  Its plain twin is
   ``search/batch.py::batch_term_bag_topk_segments``.
 - K4, the kernel's quantized row layout (int8/int16 impacts and
   bit-packed doc ids, ``index/codec.py``), which replaces the
@@ -38,6 +39,7 @@ or an exception.  ``.launches`` on each wrapper counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -409,7 +411,7 @@ def term_bag_topk_segments_cuda(segments, *, k: int,
                                                out=out, out_rows=rows)
             continue
         table, n_blocks, n_slots = segments_table(part, out_rows=rows)
-        out = _topk_launch(torch.from_numpy(table).pin_memory(), len(part),
+        out = topk_launch(torch.from_numpy(table).pin_memory(), len(part),
                            n_blocks, n_slots, k, min_score, out)
         cuda_build.count(term_bag_topk_segments_cuda)
     return out
@@ -439,7 +441,7 @@ def term_bag_topk_quantized_cuda(segments, *, k: int,
     if out is None:
         out = bm25.empty_topk(len(segments), k, dev)
     table, n_blocks, n_slots = segments_table(segments, out_rows=out_rows)
-    out = _topk_launch(torch.from_numpy(table).pin_memory(), len(segments),
+    out = topk_launch(torch.from_numpy(table).pin_memory(), len(segments),
                        n_blocks, n_slots, k, min_score, out,
                        q_bytes=_q_bytes(segments[0].quant.qvals))
     cuda_build.count(term_bag_topk_quantized_cuda)
@@ -449,7 +451,7 @@ def term_bag_topk_quantized_cuda(segments, *, k: int,
 term_bag_topk_quantized_cuda.launches = 0
 
 
-def _topk_launch(table, n_entries: int, n_blocks: int, n_slots: int, k: int,
+def topk_launch(table, n_entries: int, n_blocks: int, n_slots: int, k: int,
                  min_score: float, out, q_bytes: int = 0):
     """One launch of the top-k entry over ``table`` (a ``launch_table``
     in pinned host memory, ``n_entries`` entries) into ``out``: one H2D
@@ -479,62 +481,284 @@ term_bag_topk_segments_cuda.launches = 0
 term_bag_topk_segments_cuda.sorted_route_segments = 0
 
 
-# -- K3, the batched top-k: the top-k entry over (query, segment) entries --
+# -- K3, the batched top-k (csrc/union_topk.cu) --------------------------------
 
-def batch_table(segments, required, *, n_queries: int,
-                need_counts: bool) -> tuple[np.ndarray, int, int]:
-    """``launch_table`` of a batch of ``n_queries`` scored bags over
-    ``bm25.BatchSegment``s: one entry per (query, segment), segment after
-    segment and query after query within one (the blocks of a segment's
-    queries run side by side and share its postings in L2), entry (s, q)
-    writing output row ``q * S + s``.  Its slots are the query's present
-    terms in term order, each its union slot's posting range and idf
-    and its own weight (a duplicate term is two slots naming one row);
-    ``required`` f32 [>= n_queries]; ``fast`` is ``not need_counts`` for
-    every entry, the plain twin's match rule for the whole batch."""
+SUBTILE_DOCS = 4096       # docs a K3 block stages at once at most (the widest D)
+PLAN_DOCS = 256           # the D at which a batch is cut into query chunks
+BLOCKS_PER_SEGMENT = 8    # K3 blocks per (query chunk, segment)
+CHUNK_QUERIES = 64        # queries of one chunk at most
+MAX_SUBTILES = 32         # sub-tiles a K3 block walks at most
+UNION_SMEM = 232448 - 1024   # dynamic shared memory a K3 block may take
+UNION_MAX_TERMS = 1024    # terms of a batchable query at most
+_SEG_WORDS_K3 = 6
+_K3_WARPS = 16            # union_topk.cu's kWarps
+
+
+def _union_declare(lib):
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.union_topk_launch.argtypes = [p] + [i] * 15 + [p] * 5 + [p]
+    lib.union_topk_launch.restype = i
+    lib.union_topk_smem_bytes.argtypes = [i] * 8
+    lib.union_topk_smem_bytes.restype = ctypes.c_longlong
+
+
+def _union_library():
+    return cuda_build.library("union_topk", _union_declare)
+
+
+def _a16(x: int) -> int:
+    return (int(x) + 15) // 16 * 16
+
+
+def union_smem_bytes(t_cap: int, q_cap: int, s_cap: int, sub_cap: int,
+                     docs: int, cand: int, raw_cap: int,
+                     need_counts: bool) -> int:
+    """Dynamic shared memory of a K3 block (``union_topk.cu``'s
+    ``smem_bytes``): candidate buffers with their thresholds and counts
+    (one per query, or per query and selecting warp, at least 16), the
+    dense staging ``[t_cap, docs]`` f32, the posting buffer of
+    ``raw_cap`` postings, the slots, per-term row ranges and idfs, two
+    prefixes over the terms, per-term bounds of ``sub_cap`` sub-tiles,
+    per-query state, per-(warp, query) matched counts and maxes, pass
+    bits, presence bytes when counted, live bytes."""
+    nb = max(q_cap, _K3_WARPS)
+    return (_a16(nb * cand * 8) + _a16(nb * 8) + _a16(nb * 4)
+            + _a16(t_cap * docs * 4) + _a16(raw_cap * 10) + _a16(s_cap * 8)
+            + _a16(t_cap * 12) + _a16(2 * (t_cap + 1) * 4)
+            + _a16(t_cap * (sub_cap + 1) * 4) + _a16(q_cap * 32)
+            + _a16(q_cap * _K3_WARPS * 8) + _a16(q_cap * (docs // 32) * 4)
+            + (_a16(t_cap * docs) if need_counts else 0) + _a16(docs))
+
+
+def block_spans(n_pads, docs: int, max_sub: int) -> list[tuple[int, int]]:
+    """Each segment's (blocks, span): ``BLOCKS_PER_SEGMENT`` ranges of
+    whole sub-tiles, more where a range would walk more than ``max_sub``
+    sub-tiles."""
+    out = []
+    for n_pad in n_pads:
+        span = -(-int(n_pad) // BLOCKS_PER_SEGMENT)
+        span = min(-(-span // docs), max_sub) * docs
+        out.append((-(-int(n_pad) // span), span))
+    return out
+
+
+def _sub_cap(n_pads, docs: int, max_sub: int) -> int:
+    return max(span // docs for _b, span in block_spans(n_pads, docs,
+                                                        max_sub))
+
+
+def cand_keys(kp: int) -> int:
+    """Keys of a query's candidate buffer: room for the kp kept and a round
+    of 32, a power of two."""
+    return max(64, 2 * int(kp))
+
+
+class UnionTable(NamedTuple):
+    """K3's launch table (``table``, int64, numpy or pinned) and the
+    launch's shape: ``n_chunks`` query chunks, ``blocks`` per (chunk,
+    segment) at most, the caps of any (chunk, segment) (``t_cap`` terms,
+    ``q_cap`` queries, ``s_cap`` slots), ``sub_cap`` the sub-tiles of a
+    block at most, ``docs`` the sub-tile width, ``cand`` the candidate
+    keys per buffer, ``raw_cap`` the postings of the posting buffer,
+    ``kp`` the keys each block keeps."""
+    table: object
+    n_seg: int
+    n_chunks: int
+    n_q: int
+    n_terms: int
+    blocks: int
+    t_cap: int
+    q_cap: int
+    s_cap: int
+    sub_cap: int
+    docs: int
+    cand: int
+    raw_cap: int
+    kp: int
+    need_counts: bool
+
+    def offsets(self) -> dict:
+        """Word offset of each section of ``table`` (``union_topk.cu``'s
+        ``Layout``)."""
+        S, C, Q = self.n_seg, self.n_chunks, self.n_q
+        at = {"seg": 0}
+        at["chunk"] = at["seg"] + _SEG_WORDS_K3 * S
+        at["cs"] = at["chunk"] + 2 * C
+        at["qs"] = at["cs"] + 2 * C * S
+        at["req"] = at["qs"] + Q * S
+        at["counters"] = at["req"] + Q
+        at["term"] = at["counters"] + (C * S + 2 * Q * S + 1) // 2
+        at["slot"] = at["term"] + 2 * self.n_terms
+        return at
+
+
+def _query_terms(segments, n_queries: int):
+    """``present`` [S, Q, t] (query q names union slot t of segment s) and
+    ``n_slots`` [S, Q] (q's present slots there, duplicates included)."""
+    t_max = max(seg.union_rows.shape[0] for seg in segments)
+    present = np.zeros((len(segments), n_queries, t_max), bool)
+    n_slots = np.zeros((len(segments), n_queries), np.int64)
+    for s, seg in enumerate(segments):
+        act = seg.qact[:n_queries] > 0
+        present[s, np.nonzero(act)[0], seg.qslots[:n_queries][act]] = True
+        n_slots[s] = act.sum(axis=1)
+    return present, n_slots
+
+
+def _greedy_chunks(present, n_slots, sub_cap: int, cand: int,
+                   need_counts: bool) -> list:
+    """Queries in order, a chunk growing while it holds at most
+    ``CHUNK_QUERIES`` and a block's shared memory at ``PLAN_DOCS`` fits."""
+    chunks = []
+    start = 0
+    union = np.zeros_like(present[:, 0])
+    slots = np.zeros(present.shape[0], np.int64)
+    for q in range(present.shape[1]):
+        grown, grown_slots = union | present[:, q], slots + n_slots[:, q]
+        size = q - start + 1
+        need = union_smem_bytes(int(grown.sum(axis=1).max()), size,
+                                int(grown_slots.max()), sub_cap, PLAN_DOCS,
+                                cand, 0, need_counts)
+        if size > 1 and (size > CHUNK_QUERIES or need > UNION_SMEM):
+            chunks.append((start, q - start))
+            start = q
+            grown, grown_slots = present[:, q].copy(), n_slots[:, q].copy()
+        union, slots = grown, grown_slots
+    chunks.append((start, present.shape[1] - start))
+    return chunks
+
+
+def _caps(present, n_slots, chunks) -> tuple[int, int, int]:
+    """(terms, queries, slots) of the largest (chunk, segment)."""
+    t_cap = max(int(present[:, q0: q0 + nq].any(axis=1).sum(axis=1).max())
+                for q0, nq in chunks)
+    s_cap = max(int(n_slots[:, q0: q0 + nq].sum(axis=1).max())
+                for q0, nq in chunks)
+    return max(t_cap, 1), max(nq for _q0, nq in chunks), max(s_cap, 1)
+
+
+def union_chunks(segments, *, n_queries: int, kp: int,
+                 need_counts: bool) -> tuple[list, int, int, tuple]:
+    """Cut a batch into query chunks, in query order, and pick the
+    sub-tile width D.  A chunk grows while it holds at most
+    ``CHUNK_QUERIES`` queries and a block's shared memory at
+    ``PLAN_DOCS`` fits ``UNION_SMEM``.  D is then the widest power of two
+    that fits the largest (chunk, segment), from ``SUBTILE_DOCS`` (or a
+    block's doc range, if narrower) down to 32 (fewer sub-tiles, fewer
+    barriers); at 32 a block walks fewer sub-tiles until it fits (a query
+    of many terms).  Returns ``([(first query, queries)], D, sub-tiles a
+    block walks at most, (terms, queries, slots) of the largest (chunk,
+    segment))``."""
+    cand = cand_keys(kp)
+    present, n_slots = _query_terms(segments, n_queries)
+    n_pads = [seg.live.shape[0] for seg in segments]
+    chunks = _greedy_chunks(present, n_slots,
+                            _sub_cap(n_pads, PLAN_DOCS, MAX_SUBTILES), cand,
+                            need_counts)
+    caps = _caps(present, n_slots, chunks)
+    span = -(-max(n_pads) // BLOCKS_PER_SEGMENT)
+    docs = min(SUBTILE_DOCS, max(32, 1 << (span - 1).bit_length()))
+    max_sub = MAX_SUBTILES
+    while union_smem_bytes(*caps, _sub_cap(n_pads, docs, max_sub), docs,
+                           cand, 0, need_counts) > UNION_SMEM:
+        if docs > 32:
+            docs //= 2
+        elif max_sub > 1:
+            max_sub //= 2
+        else:
+            raise ValueError(f"a query names {caps[0]} terms: more than "
+                             "K3's shared memory stages")
+    return chunks, docs, max_sub, caps
+
+
+def union_table(segments, required, *, n_queries: int, k: int,
+                need_counts: bool) -> UnionTable:
+    """K3's launch table for a batch of ``n_queries`` scored bags over
+    ``bm25.BatchSegment``s (layout in ``union_topk.cu``).  Per (chunk,
+    segment) its terms are the union slots its queries name there, in
+    union-slot order, each with its posting range and idf; each query's
+    slots are its present terms in term order (a duplicate term is two
+    slots naming one row), each a term of its chunk and its weight;
+    ``required`` f32 [>= n_queries] becomes each query's int count."""
+    kp = k_padded(k)
+    cand = cand_keys(kp)
     n_seg = len(segments)
-    rows, idfs, weights, counts = [], [], [], []
-    for seg in segments:
-        act = seg.qact[:n_queries] > 0        # [Q, tq], term order per row
-        slots = seg.qslots[:n_queries][act]
-        rows.append(seg.union_rows[slots])
-        idfs.append(seg.union_idfs[slots])
-        weights.append(seg.qweights[:n_queries][act])
-        counts.append(act.sum(axis=1))
-    q = np.arange(n_queries, dtype=np.int64)
-    return launch_table(
-        [(seg.doc_ids.data_ptr(), seg.impacts.data_ptr(),
-          seg.live.data_ptr()) for seg in segments for _ in q],
-        np.repeat([seg.live.shape[0] for seg in segments], n_queries),
-        np.concatenate(counts), np.concatenate(rows).reshape(-1, 2),
-        np.concatenate(idfs), np.concatenate(weights),
-        np.tile(np.asarray(required[:n_queries], np.float32)
-                .astype(np.int64), n_seg),
-        np.full(n_seg * n_queries, not need_counts),
-        out_rows=(q[None, :] * n_seg
-                  + np.arange(n_seg, dtype=np.int64)[:, None]).ravel())
+    chunks, docs, max_sub, (t_cap, q_cap, s_cap) = union_chunks(
+        segments, n_queries=n_queries, kp=kp, need_counts=need_counts)
+    spans = block_spans([seg.live.shape[0] for seg in segments], docs,
+                        max_sub)
+    seg_words = np.zeros((n_seg, _SEG_WORDS_K3), np.int64)
+    for s, (seg, (blocks, span)) in enumerate(zip(segments, spans)):
+        seg_words[s] = (seg.doc_ids.data_ptr(), seg.impacts.data_ptr(),
+                        seg.live.data_ptr(), seg.live.shape[0], blocks, span)
+    cs_words = np.zeros((len(chunks), n_seg, 2), np.int64)
+    qs_words = np.zeros((n_queries, n_seg), np.int64)
+    term_words, slot_words = [], []
+    n_terms = n_slots = 0
+    for c, (q0, nq) in enumerate(chunks):
+        for s, seg in enumerate(segments):
+            act = seg.qact[q0: q0 + nq] > 0
+            named = seg.qslots[q0: q0 + nq][act].astype(np.int64)
+            weights = seg.qweights[q0: q0 + nq][act]
+            used, local = np.unique(named, return_inverse=True)
+            rows = seg.union_rows[used].astype(np.int64)
+            words = np.zeros((len(used), 2), np.int64)
+            words[:, 0] = rows[:, 0] | (rows[:, 1] << 32)
+            words[:, 1] = _f32_bits(seg.union_idfs[used]).view(np.int64)
+            term_words.append(words.ravel())
+            slot_words.append((local.astype(np.int64).ravel()
+                               | (_f32_bits(weights) << np.uint64(32))
+                               .view(np.int64)))
+            per_q = act.sum(axis=1).astype(np.int64)
+            first = np.concatenate([[0], np.cumsum(per_q)[:-1]])
+            qs_words[q0: q0 + nq, s] = first | (per_q << 32)
+            cs_words[c, s] = (n_terms | (len(used) << 32),
+                              n_slots | (len(named) << 32))
+            n_terms += len(used)
+            n_slots += len(named)
+    sub_cap = max(span // docs for _b, span in spans)
+    # the posting buffer takes what shared memory is left
+    raw_cap = (UNION_SMEM - union_smem_bytes(
+        t_cap, q_cap, s_cap, sub_cap, docs, cand, 0, need_counts)) // 80 * 8
+    meta = UnionTable(None, n_seg, len(chunks), n_queries, n_terms,
+                      max(b for b, _span in spans), t_cap, q_cap, s_cap,
+                      sub_cap, docs, cand, raw_cap, kp, bool(need_counts))
+    at = meta._replace(table=np.zeros(0, np.int64)).offsets()
+    table = np.zeros(at["slot"] + n_slots, np.int64)
+    table[at["seg"]: at["chunk"]] = seg_words.ravel()
+    table[at["chunk"]: at["cs"]] = np.asarray(chunks, np.int64).ravel()
+    table[at["cs"]: at["qs"]] = cs_words.ravel()
+    table[at["qs"]: at["req"]] = qs_words.ravel()
+    table[at["req"]: at["counters"]] = np.asarray(
+        required[:n_queries], np.float32).astype(np.int64)
+    if n_terms:
+        table[at["term"]: at["slot"]] = np.concatenate(term_words)
+    if n_slots:
+        table[at["slot"]:] = np.concatenate(slot_words)
+    return meta._replace(table=table)
 
 
-def pinned_batch_table(segments, required, *, n_queries: int,
-                       need_counts: bool) -> tuple[torch.Tensor, int, int]:
-    """``batch_table`` in pinned host memory, with its block and slot
-    counts: what ``batch_term_bag_topk_cuda`` takes as ``table``.  A
-    caller may build it once per group and pass it to every run: each
-    launch copies it to the card afresh."""
-    table, n_blocks, n_slots = batch_table(
-        segments, required, n_queries=n_queries, need_counts=need_counts)
-    return torch.from_numpy(table).pin_memory(), n_blocks, n_slots
+def pinned_union_table(segments, required, *, n_queries: int, k: int,
+                       need_counts: bool) -> UnionTable:
+    """``union_table`` with its table in pinned host memory: what
+    ``batch_term_bag_topk_cuda`` takes as ``table``.  A caller may build it
+    once per group and pass it to every run: each launch copies it to the
+    card afresh (its counters start at zero every time)."""
+    t = union_table(segments, required, n_queries=n_queries, k=k,
+                    need_counts=need_counts)
+    return t._replace(table=torch.from_numpy(t.table).pin_memory())
 
 
 def batch_term_bag_topk_cuda(segments, required, *, n_queries: int, k: int,
                              need_counts: bool, table=None):
     """Exact top-k, matched total and max of each of ``n_queries`` scored
-    bags on every segment, in one launch of the top-k entry: a
-    ``bm25.TermBagTopK`` whose row ``q * S + s`` equals row ``q * S + s``
+    bags on every segment, in one launch of K3 (``csrc/union_topk.cu``):
+    a ``bm25.TermBagTopK`` whose row ``q * S + s`` equals row ``q * S + s``
     of ``search/batch.py::batch_term_bag_topk_segments``.  ``segments``
     are ``bm25.BatchSegment``s on one CUDA device; ``table`` is what
-    ``pinned_batch_table`` built for these inputs (built here when
-    None)."""
+    ``pinned_union_table`` built for these inputs and this k (built here
+    when None)."""
     if not 1 <= k <= K_MAX:
         raise ValueError(f"k must be in 1..{K_MAX}, got {k}")
     if n_queries < 1:
@@ -548,14 +772,28 @@ def batch_term_bag_topk_cuda(segments, required, *, n_queries: int, k: int,
     for i, seg in enumerate(segments):
         _check_segment(seg, dev, i)
     if table is None:
-        table = pinned_batch_table(segments, required, n_queries=n_queries,
-                                   need_counts=need_counts)
-    host, n_blocks, n_slots = table
-    n_entries = n_queries * len(segments)
-    out = _topk_launch(host, n_entries, n_blocks, n_slots, k, -np.inf,
-                       bm25.empty_topk(n_entries, k, dev))
+        table = pinned_union_table(segments, required, n_queries=n_queries,
+                                   k=k, need_counts=need_counts)
+    if (table.n_seg, table.n_q, table.kp, table.need_counts) != (
+            len(segments), n_queries, k_padded(k), bool(need_counts)):
+        raise ValueError("table was built for another batch or k")
+    n_rows = n_queries * len(segments)
+    out = bm25.empty_topk(n_rows, k, dev)
+    table_dev = table.table.to(dev, non_blocking=True)
+    scratch = torch.empty(n_rows * table.blocks * table.kp, dtype=torch.int64,
+                          device=dev)
+    lib = _union_library()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    rc = lib.union_topk_launch(
+        _ptr(table_dev), table.n_seg, table.n_chunks, n_queries,
+        table.n_terms, table.blocks, table.t_cap, table.q_cap, table.s_cap,
+        table.sub_cap, table.docs, table.cand, table.raw_cap, k, table.kp,
+        int(table.need_counts),
+        _ptr(out.vals), _ptr(out.ids), _ptr(out.totals), _ptr(out.maxes),
+        _ptr(scratch), stream)
+    cuda_build.check(lib, rc, "union_topk_launch")
     cuda_build.count(batch_term_bag_topk_cuda)
-    return out
+    return out._replace(keep=out.keep + (table_dev, scratch, table.table))
 
 
 batch_term_bag_topk_cuda.launches = 0

@@ -12,9 +12,10 @@ segment of the shard.
   first on ties (a stable descending sort).
 - ``batch_term_bag_topk_segments`` runs it on every segment of a batch
   and lays the results out as K3 returns them; ``batch_term_bag_topk_auto``
-  launches K3 (``ops/cuda_bm25.py`` ``batch_term_bag_topk_cuda``: K2's
-  top-k kernel over one table entry per (query, segment)) once for the
-  whole batch on CUDA tensors and takes the plain version on CPU ones.
+  launches K3 (``ops/cuda_bm25.py`` ``batch_term_bag_topk_cuda``,
+  ``csrc/union_topk.cu``: each union posting staged once in shared
+  memory, every query of a chunk scored from there) once for the whole
+  batch on CUDA tensors and takes the plain version on CPU ones.
 - ``BatchGroup`` assembles a group's inputs (cached on the searcher per
   group signature for msearch), runs them, and merges each query's rows
   across segments on the host as the reference does.
@@ -36,7 +37,7 @@ from opensearch_tpu_torch.common import torchenv  # noqa: F401
 from opensearch_tpu_torch.common.errors import OpenSearchTpuError
 from opensearch_tpu_torch.index.segment import pad_bucket, pad_pow2
 from opensearch_tpu_torch.ops import bm25 as bm25_ops
-from opensearch_tpu_torch.ops.cuda_bm25 import K_MAX
+from opensearch_tpu_torch.ops.cuda_bm25 import K_MAX, UNION_MAX_TERMS
 from opensearch_tpu_torch.search import plan as P
 
 _I32 = np.int32
@@ -135,8 +136,8 @@ def batch_term_bag_topk_auto(segments, required, *, n_queries: int, k: int,
                              ) -> bm25_ops.TermBagTopK:
     """Every (query, segment)'s top-k, total and max of a batch of scored
     bags: one K3 launch for the whole batch on CUDA tensors (``table``,
-    what ``cuda_bm25.pinned_batch_table`` built for these inputs, or None
-    to build it), the plain version on CPU ones."""
+    what ``cuda_bm25.pinned_union_table`` built for these inputs and k, or
+    None to build it), the plain version on CPU ones."""
     if segments[0].doc_ids.is_cuda:
         from opensearch_tpu_torch.ops import cuda_bm25
         return cuda_bm25.batch_term_bag_topk_cuda(
@@ -160,8 +161,12 @@ class BatchGroup:
         self.weights: list[np.ndarray] = []
         self.required: list[int] = []
         self.avgdl = 1.0
+        self.wide: list[tuple[int, dict]] = []   # (position, bind)
 
     def add(self, pos: int, bind: dict):
+        if len(bind["terms"]) > UNION_MAX_TERMS:
+            self.wide.append((pos, bind))    # more than K3 stages
+            return
         self.positions.append(pos)
         self.terms.append(tuple(bind["terms"]))
         self.idfs.append(np.asarray(bind["idfs"], _F32))
@@ -256,8 +261,9 @@ class BatchGroup:
             from opensearch_tpu_torch.ops import cuda_bm25
             # device pointers of this searcher's point-in-time live masks:
             # cached on this searcher only
-            table = cuda_bm25.pinned_batch_table(
-                segs, required, n_queries=n_q, need_counts=need_counts)
+            table = cuda_bm25.pinned_union_table(
+                segs, required, n_queries=n_q, k=self.k,
+                need_counts=need_counts)
         return {"segs": segs, "order": np.asarray(order, _I32),
                 "required": required, "need_counts": need_counts,
                 "table": table}
@@ -266,9 +272,14 @@ class BatchGroup:
         """Execute against every segment; returns {pos: (rows, total,
         max_score)} in the sequential path's row format: one K3 launch
         and one read-back on CUDA, the plain version on the CPU, then a
-        host merge per query (score desc, then segment, then doc).  With
+        host merge per query (score desc, then segment, then doc); a bag
+        beyond ``UNION_MAX_TERMS`` takes ``_run_wide`` instead.  With
         ``cache`` the group's inputs are kept on the searcher per
         signature, so a repeated batch assembles nothing."""
+        out = {pos: self._run_wide(searcher, bind)
+               for pos, bind in self.wide}
+        if not self.positions:
+            return out
         if cache:
             prep = searcher._batch_prep_cache.get_or_make(
                 self.signature(), lambda: self._prepare(searcher))
@@ -276,7 +287,7 @@ class BatchGroup:
             prep = self._prepare(searcher)
         segs = prep["segs"]
         if not segs:
-            return {pos: ([], 0, None) for pos in self.positions}
+            return {**out, **{pos: ([], 0, None) for pos in self.positions}}
         n_q, n_seg, k = len(self.positions), len(segs), self.k
         vals, ids, totals, maxes = batch_term_bag_topk_auto(
             segs, prep["required"], n_queries=n_q, k=k,
@@ -287,7 +298,6 @@ class BatchGroup:
         totals = totals.reshape(n_q, n_seg).astype(np.int64).sum(axis=1)
         maxes = maxes.reshape(n_q, n_seg).max(axis=1)
         seg_of = np.repeat(prep["order"], k)
-        out = {}
         for qi, pos in enumerate(self.positions):
             keep = vals[qi] > -np.inf
             v, s, loc = vals[qi][keep], seg_of[keep], ids[qi][keep]
@@ -300,6 +310,17 @@ class BatchGroup:
         return out
 
 
+    def _run_wide(self, searcher, bind) -> tuple:
+        """A bag of more terms than K3 stages (``UNION_MAX_TERMS``): K2's
+        top-k over every segment in the f32 lowering, the batched path's
+        lowering on quantized segments too, as in the reference, whose
+        batch takes a bag of any size."""
+        return searcher._topk_term_bag(
+            P.TermBagPlan(field=self.field), bind,
+            frozenset({("postings", self.field)}), self.k,
+            searcher._min_score(None), None, None, f32=True)
+
+
 def batchable(searcher, body: dict, *, peek: bool = False):
     """``(plan, bind, k)`` when ``body`` may take the batched path with
     the sequential path's response, else None.  The sequential path
@@ -307,13 +328,12 @@ def batchable(searcher, body: dict, *, peek: bool = False):
     ``aggs``, ``highlight``, ``timeout`` ... the rest of the reference's
     exclusion list), ``min_score``, ``track_total_hits: false`` (whose
     pruning may legally return lower-bound totals), ``from > 0``, plans
-    other than a scored term bag, and ``size`` outside 1..K_MAX: K3 keeps
+    other than a scored term bag, and ``size`` outside 1..K_MAX (K3 keeps
     at most K_MAX candidates per (query, segment), and the sequential
-    path (K2's per-slot entry plus the stable sort) gives the same
-    answer for a larger page.  Compiles through the searcher's plan
-    cache; with ``peek`` only a plan that cache already holds counts (the
-    continuous batcher's rule: a first-seen query runs, and compiles, on
-    the sequential path)."""
+    path, K2's per-slot entry plus the stable sort, gives the same answer
+    for a larger page).  Compiles through the searcher's plan cache; with ``peek`` only a plan
+    that cache already holds counts (the continuous batcher's rule: a
+    first-seen query runs, and compiles, on the sequential path)."""
     from opensearch_tpu_torch.search.executor import _SUPPORTED_BODY_KEYS
 
     if (set(body) - _SUPPORTED_BODY_KEYS

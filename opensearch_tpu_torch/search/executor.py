@@ -419,13 +419,14 @@ class ShardSearcher:
         return rows, total, max_score, total_is_lower_bound
 
     def _topk_term_bag(self, plan, bind, needed, k_want, ms, ms_host,
-                       ckey):
+                       ckey, f32: bool = False):
         """(rows, total, max_score) of a scored term bag: can-match and
         min_score bound skips on the host, then every remaining segment's
         top-k, total and max from one ``term_bag_topk_segments_auto``
         call, read back in one copy.  ``topk_input`` reads the f32 columns
-        only on f32 segments, where they are always staged, so no
-        postings entry needs its columns demand-staged here."""
+        only on f32 segments, where they are always staged, unless ``f32``
+        asks for the f32 lowering everywhere (the batched path's, for a
+        bag K3 does not stage), which stages them on demand."""
         inputs, order = [], []
         for si, seg in enumerate(self.segments):
             if not plan.can_match(bind, seg):
@@ -435,12 +436,12 @@ class ShardSearcher:
                 continue           # exact: such docs never count
             dseg = seg.device(self.device)
             inputs.append(self._cached(
-                ckey, seg, "topk_input",
+                ckey, seg, "topk_input_f32" if f32 else "topk_input",
                 lambda seg=seg, dseg=dseg: plan.topk_input(
                     bind, seg, dseg, build_arrays(
                         dseg, needed, self.mapper,
                         live=self.ctx.live_mask(seg, dseg),
-                        partial_ok=needed))))
+                        partial_ok=needed), f32=f32)))
             order.append(si)
         if not inputs:
             return [], 0, None

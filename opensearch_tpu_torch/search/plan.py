@@ -244,12 +244,15 @@ class TermBagPlan(Plan):
             return frozenset({("postings", self.field)})
         return frozenset()
 
-    def topk_input(self, bind, seg, dseg, A) -> bm25_ops.TermBagSegment:
+    def topk_input(self, bind, seg, dseg, A,
+                   f32: bool = False) -> bm25_ops.TermBagSegment:
         """This segment's inputs to the fused top-k of a scored bag
         (``ops/bm25.py`` ``term_bag_topk_segments``): the slots of
         ``prepare``, each with its posting range read from the host CSR,
         and no per-query tensor copied to the device.  ``A`` is the
-        segment's arrays (``executor.build_arrays``)."""
+        segment's arrays (``executor.build_arrays``).  ``f32`` takes the
+        f32 lowering on a quantized segment too (the batched path's), its
+        f32 columns staged on demand."""
         if not self.scored:
             raise ValueError("topk_input takes a scored term bag")
         t_pad, tids, active, rows, budget = self._slots(bind, seg)
@@ -257,9 +260,12 @@ class TermBagPlan(Plan):
         p = A["postings"][self.field]
         args = (tids, active, idfs, weights, rows, int(bind["required"]),
                 fast, budget)
-        if not self._quantized(seg, dseg):
-            # quantize-ok: the f32 lowering (segments below the threshold)
-            imp = dseg.impacts(self.field, bind["avgdl"])
+        if f32 or not self._quantized(seg, dseg):
+            # the f32 lowering: segments below the threshold, and the
+            # batched path's bags on any segment
+            if f32:
+                p = dseg.ensure_postings(self.field)
+            imp = dseg.impacts(self.field, bind["avgdl"])  # quantize-ok
             return bm25_ops.TermBagSegment(p["offsets"], p["doc_ids"], imp,
                                            A["live"], *args)
         # each slot's term base, scale and exact range from the host
