@@ -36,15 +36,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    bags of 3-4 terms (several query chunks at K_MAX), k in 1, 10, 100,
    K_MAX, and timed at k = 10 and 100 beside the route it replaced (K2's
    top-k kernel over one table entry per (query, segment),
-   ``testing/k3_sweep.py``); and K4, the kernel's quantized row
-   layout, on 8 segments of 125,000 docs that the port quantizes (the
-   same corpus): its top-k entry ``term_bag_topk_quantized_cuda`` against
-   ``term_bag_topk_segments``, byte for byte, on the median, heaviest,
-   4-term, ``and``, ``min_score`` and deletes bags, k in 1, 10, 100,
-   K_MAX, K_MAX + 1, int8 and int16 codes, bags with and without guarded
-   (exact) terms; its per-slot entry on three bags (and timed at the
-   median bag on one 125,000-doc segment); a mixed call over 2
-   quantized and 2 f32 segments; and K4 against K2 over the same
+   ``testing/k3_sweep.py``); and K4, the quantized row layout, on 8
+   segments of 125,000 docs that the port quantizes (the same corpus):
+   its top-k entry ``term_bag_topk_quantized_cuda`` (its own kernel,
+   ``csrc/quant_topk.cu``: each block stages its tile's run of every row
+   in shared memory with bulk asynchronous copies and decodes the ids
+   there) against ``term_bag_topk_segments``, byte for byte, on the
+   median, heaviest, 4-term, ``and``, ``min_score``, deletes, unguarded
+   and code-dominated bags and a term some segments lack (blocks with no
+   slot), k in 1, 10, 100, K_MAX, K_MAX + 1, int8 and
+   int16 codes, bags with and without guarded (exact) terms, and on 4
+   segments of 5,000 docs quantized under ``QUANTIZED_MODE = "on"``
+   (13-bit deltas against the scale shard's 17); its per-slot entry (the
+   quantized instantiation of K2's per-slot kernel) on three bags (and
+   timed at the median bag on one 125,000-doc segment); a mixed call
+   over 2 quantized and 2 f32 segments; and K4 against K2 over the same
    segments' ``dequantized()`` column staged as f32, byte for byte;
 3. ingest path: ~2,000 JSON docs through the port's DocumentMapper and
    SegmentWriter into 2 segments with deletes, then match / bool / knn
@@ -190,9 +196,10 @@ def phase_toolkit():
         f"count={torch.cuda.device_count()}")
     log(f"gpu: {gpu_name_power()}")
     t0 = time.monotonic()
-    logs = cuda_build.build(["knn", "bm25", "union_topk"],
+    logs = cuda_build.build(["knn", "bm25", "union_topk", "quant_topk"],
                             {"knn": cuda_knn.defines(),
-                             "bm25": cuda_bm25.defines()})
+                             "bm25": cuda_bm25.defines(),
+                             "quant_topk": cuda_bm25.quant_defines()})
     log(f"kernels built in {time.monotonic() - t0:.1f}s: "
         f"{sorted(logs) or 'cached'}")
     for name, text in logs.items():
@@ -1276,6 +1283,35 @@ def build_quantized(raw, mapper, dtype: str) -> tuple:
     return segs, searcher, stats
 
 
+def build_small_quantized(dtype: str) -> tuple:
+    """A 20,000-doc corpus in 4 segments of 5,000 docs, under the
+    reference's threshold but quantized all the same (``QUANTIZED_MODE``
+    "on", as a user may set it) with ``dtype`` codes: K4 at another delta
+    width (13 bits) than the scale shard's.  Returns ``(segments,
+    searcher)``."""
+    from opensearch_tpu_torch.index import codec
+    from opensearch_tpu_torch.mapping.mapper import DocumentMapper
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing import corpus
+
+    segs = corpus.make_segments(corpus.build_raw_corpus(20_000, seed=5), 4)
+    mapper = DocumentMapper({"properties": {"body": {"type": "text"}}})
+    prev = codec.QUANTIZED_MODE, codec.QUANTIZED_DTYPE
+    codec.QUANTIZED_MODE, codec.QUANTIZED_DTYPE = "on", dtype
+    try:
+        searcher = ShardSearcher(segs, mapper, index_name=f"small_{dtype}",
+                                 device=DEVICE)
+        avgdl = searcher.ctx.field_stats("body").avgdl
+        for seg in segs:
+            dseg = seg.device(searcher.device)
+            if not dseg.quantized_mode:
+                raise AssertionError("QUANTIZED_MODE on did not quantize")
+            dseg.quantized("body", avgdl)
+    finally:
+        codec.QUANTIZED_MODE, codec.QUANTIZED_DTYPE = prev
+    return segs, searcher
+
+
 def quantized_counters() -> dict:
     """K4's launch counters: its top-k entry and its per-slot entry."""
     from opensearch_tpu_torch.ops import cuda_bm25
@@ -1288,11 +1324,13 @@ def phase_quantized_kernels(quant, f32_segs, f32_searcher, query_pairs):
     """K4 against its plain twin on the card, byte for byte: the top-k
     entry over the 8 quantized segments at every bag, mask and k the
     contract lists, with int8 and int16 codes, bags with and without
-    guarded terms; the per-slot entry on three bags; a mixed call over 2
-    quantized and 2 f32 segments; and K4 against K2 over the same
-    segments' ``dequantized()`` column staged as f32.  Then the top-k
-    entry timed (one launch per query) on the median and the heaviest
-    bag beside the plain twin, the library chain ``[torch.topk(zeros(
+    guarded terms, a term some segments lack (their blocks have no slot),
+    and over 4 small segments at another delta width; the
+    per-slot entry on three bags; a mixed call over 2 quantized and 2 f32
+    segments; and K4 against K2 over the same segments'
+    ``dequantized()`` column staged as f32.  Then the top-k entry timed
+    (one launch per query) on the median and the heaviest bag beside the
+    plain twin, the library chain ``[torch.topk(zeros(
     n_pad).index_add_(dequantized ...), k) for each segment]``, K2 over
     the dequantized column and the bound."""
     import torch
@@ -1323,7 +1361,16 @@ def phase_quantized_kernels(quant, f32_segs, f32_searcher, query_pairs):
     by_size = sorted(bags, key=lambda t: df_sum(pf0, t))
     median_bag, heaviest_bag = by_size[len(by_size) // 2], by_size[-1]
     four_bag = by_size[len(by_size) // 4] + by_size[-2]
-    unguarded_bag = next(b for b in reversed(by_size) if not guarded(b))
+    coded = [b for b in by_size if not guarded(b)]
+    unguarded_bag = coded[-1]
+    # the median of the bags the parity guard left all quantized
+    coded_bag = coded[len(coded) // 2]
+    # the term of the first segment with the most postings there that
+    # another segment lacks: that segment's blocks have no active slot
+    present = [set(seg.postings["body"].terms) for seg in qsegs[1:]]
+    absent_bag = [min((t for t in pf0.terms
+                       if not all(t in p for p in present)),
+                      key=lambda t: (-int(pf0.df[pf0.term_id(t)]), t))]
 
     median = topk_inputs(qsegs, qsearcher, match_query(median_bag))
     deleted = [seg._replace(live=seg.live & (torch.rand(
@@ -1340,7 +1387,13 @@ def phase_quantized_kernels(quant, f32_segs, f32_searcher, query_pairs):
                      -np.inf),
              "deletes": (deleted, -np.inf),
              "unguarded": (topk_inputs(qsegs, qsearcher,
-                                      match_query(unguarded_bag)), -np.inf)}
+                                      match_query(unguarded_bag)), -np.inf),
+             "code-dominated": (topk_inputs(qsegs, qsearcher,
+                                           match_query(coded_bag)),
+                                -np.inf),
+             "absent from a segment": (topk_inputs(qsegs, qsearcher,
+                                                  match_query(absent_bag)),
+                                       -np.inf)}
     top = bm25.term_bag_topk_segments(median, k=100).numpy()[0]
     cut = float(np.float32(np.median(top[np.isfinite(top)])))
     cases["min_score"] = (median, cut)
@@ -1350,15 +1403,41 @@ def phase_quantized_kernels(quant, f32_segs, f32_searcher, query_pairs):
     cases["int16 heaviest"] = (topk_inputs(s16, q16,
                                            match_query(heaviest_bag)),
                                -np.inf)
+    cases["int16 absent from a segment"] = (
+        topk_inputs(s16, q16, match_query(absent_bag)), -np.inf)
 
     def exact_slots(inputs):
         return sum(int((seg.quant.slot_exact[seg.active] >= 0).sum())
                    for seg in inputs)
 
     if exact_slots(cases["heaviest"][0]) == 0 or \
-            exact_slots(cases["unguarded"][0]) != 0:
+            exact_slots(cases["unguarded"][0]) != 0 or \
+            exact_slots(cases["code-dominated"][0]) != 0:
         raise AssertionError("K4 cases: need a bag with guarded terms and "
-                             "one without")
+                             "bags without")
+    if all(np.asarray(seg.active).any()
+           for seg in cases["absent from a segment"][0]):
+        raise AssertionError("K4 cases: need a segment with no active slot")
+    # 4 small segments quantized at another width, int8 and int16
+    small = {dtype: build_small_quantized(dtype)
+             for dtype in ("int8", "int16")}
+    s_pf0 = small["int8"][0][0].postings["body"]
+    s_bags = sorted(bags, key=lambda t: df_sum(s_pf0, t))
+    small_views = {}        # case -> (segments, avgdl) of its f32 view
+    for dtype, (ssegs, ssearcher) in small.items():
+        s_avgdl = ssearcher.ctx.field_stats("body").avgdl
+        width = ssegs[0].quantized_table("body", s_avgdl).width
+        if width == qsegs[0].quantized_table("body", avgdl).width:
+            raise AssertionError("the small segments share the scale "
+                                 "shard's width")
+        for name, bag, extra in (
+                ("median", s_bags[len(s_bags) // 2], {}),
+                ("heaviest", s_bags[-1], {}),
+                ("and", s_bags[-1], {"operator": "and"})):
+            case = f"small {dtype} {name} (width {width})"
+            cases[case] = (topk_inputs(ssegs, ssearcher,
+                                       match_query(bag, **extra)), -np.inf)
+            small_views[case] = (ssegs, s_avgdl)
     ks = (1, 10, 100, cuda_bm25.K_MAX, cuda_bm25.K_MAX + 1)
     for name, (inputs, ms) in cases.items():
         for k in ks:
@@ -1427,7 +1506,7 @@ def phase_quantized_kernels(quant, f32_segs, f32_searcher, query_pairs):
 
     # K4 against K2 over the same segments' dequantized column, staged
     # here only (the segments' own staging stays quantized)
-    def as_f32(inputs, segs):
+    def as_f32(inputs, segs, avgdl=avgdl):
         out = []
         for inp, seg in zip(inputs, segs):
             pf = seg.postings["body"]
@@ -1443,17 +1522,18 @@ def phase_quantized_kernels(quant, f32_segs, f32_searcher, query_pairs):
         return out
 
     f32_views = {}
-    for name in ("median", "heaviest", "and", "deletes", "min_score"):
+    for name in ("median", "heaviest", "and", "deletes", "min_score",
+                 "code-dominated", "absent from a segment", *small_views):
         inputs, ms = cases[name]
-        f32_views[name] = as_f32(inputs, qsegs)
+        f32_views[name] = as_f32(inputs, *small_views.get(name, (qsegs,)))
         for k in (10, 100, cuda_bm25.K_MAX):
             a = fn(inputs, k=k, min_score=ms).numpy()
             b = fn(f32_views[name], k=k, min_score=ms).numpy()
             if any(x.tobytes() != y.tobytes() for x, y in zip(a, b)):
                 raise AssertionError(f"K4 {name} k={k} differs from K2 over "
                                      "dequantized()")
-    log("K4 byte-equal to K2 over the dequantized() column (median, "
-        "heaviest, and, deletes, min_score; k 10, 100, K_MAX)")
+    log(f"K4 byte-equal to K2 over the dequantized() column "
+        f"({', '.join(f32_views)}; k 10, 100, K_MAX)")
 
     # the per-slot entry timed at the median bag on one quantized segment
     # (scores only, as bool / constant_score call it)
@@ -1553,7 +1633,8 @@ def phase_quantized_kernels(quant, f32_segs, f32_searcher, query_pairs):
             lambda: fn(inputs, k=k),
             lambda: bm25.term_bag_topk_segments(inputs, k=k), 10)
         lib_ms = cuda_ms(lib_chain, 10)
-        dev_ms = kernel_device_ms(lambda: fn(inputs, k=k), 20, "QuantRows")
+        dev_ms = kernel_device_ms(lambda: fn(inputs, k=k), 20,
+                                  "quant_topk_kernel")
         k2_ms = kernel_device_ms(lambda: fn(views, k=k), 20, "F32Rows")
         bms, by = bound_ms(nbytes, float(ops))
         bag = heaviest_bag if name == "heaviest" else median_bag
@@ -1767,7 +1848,7 @@ def main() -> int:
                "batch_topk": ("union_topk.cu",
                               "opensearch_tpu/search/batch.py:69"),
                # and gather_postings_packed, opensearch_tpu/ops/bm25.py:114
-               "term_bag_quantized": ("bm25.cu",
+               "term_bag_quantized": ("quant_topk.cu",
                                       "opensearch_tpu/ops/quantized.py:46"),
                "term_bag_quantized_scores": (
                    "bm25.cu", "opensearch_tpu/ops/quantized.py:64")}

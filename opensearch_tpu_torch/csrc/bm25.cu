@@ -21,18 +21,20 @@
 //                                  segment, one launch per query-term
 //                                  slot (bool, constant_score, count).
 //
-// K4, the quantized row layout of both entries (term_bag_quantized_launch,
-// term_bag_topk_quantized_launch), replaces the reference's
-// `gather_postings_packed` and `_dequant` / `quantized_impact_scores` /
-// `quantized_impact_score_count` (opensearch_tpu/ops/bm25.py:114,
-// opensearch_tpu/ops/quantized.py:30,46,64): on a segment that
-// index/codec.py quantizes, posting p's doc is base[term] plus a `width`-bit
-// delta packed in uint32 words, and its impact is an int8/int16 code times
-// the term's scale, or the term's exact f32 impact where the rank-parity
-// guard stored one.  Every entry reads rows through one row reader
-// (F32Rows, QuantRows<int8_t>, QuantRows<int16_t>), a template parameter,
-// so the f32 instantiation that K2 runs carries no branch and no
-// register of the quantized layout.
+// The quantized row layout (term_bag_quantized_launch, K4's per-slot entry)
+// replaces the reference's `gather_postings_packed` and `_dequant` /
+// `quantized_impact_scores` / `quantized_impact_score_count`
+// (opensearch_tpu/ops/bm25.py:114, opensearch_tpu/ops/quantized.py:30,46,64):
+// on a segment that index/codec.py quantizes, posting p's doc is base[term]
+// plus a `width`-bit delta packed in uint32 words, and its impact is an
+// int8/int16 code times the term's scale, or the term's exact f32 impact
+// where the rank-parity guard stored one.  Every entry reads rows through
+// one row reader (F32Rows, QuantRows<int8_t>, QuantRows<int16_t>), a
+// template parameter, so the f32 instantiation that K2 runs carries no
+// branch and no register of the quantized layout.  K4's top-k entry has
+// its own kernel (csrc/quant_topk.cu); the top-k kernel's quantized
+// instantiation (term_bag_topk_quantized_launch) is kept only as its
+// yardstick in testing/k4_sweep.py.
 //
 // Bound on the card: memory.  Per posting of an active term the work
 // reads a 4-byte doc id and a 4-byte impact and does 2 multiplies and an
@@ -472,8 +474,9 @@ int term_bag_topk_segments_launch(const long long* table, int n_seg, int n_slots
                               out_ids, out_totals, out_maxes, scratch, stream);
 }
 
-// term_bag_topk_segments_launch over a table of quantized segments (K4),
-// all of q_bytes-wide codes (1: int8, 2: int16).
+// term_bag_topk_segments_launch over a table of quantized segments, all of
+// q_bytes-wide codes (1: int8, 2: int16): the route K4's top-k entry took
+// before csrc/quant_topk.cu, called only by testing/k4_sweep.py.
 int term_bag_topk_quantized_launch(const long long* table, int n_seg, int n_slots, int n_blocks,
                                    int k, int kp, float min_score, float* out_vals, int* out_ids,
                                    int* out_totals, float* out_maxes, u64* scratch, int q_bytes,

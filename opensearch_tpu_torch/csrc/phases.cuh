@@ -1,0 +1,48 @@
+// Where a top-k block's cycles go: a kernel's library built with
+// -DQUANT_PHASES (testing/k4_sweep.py builds csrc/quant_topk.cu so) has
+// thread 0 of each block add the SM cycles from one mark to the next into
+// quant_phase_cycles, an array of that library's own:
+//   0 table, live load and zeroing    4 key build (and the total / max atomics)
+//   1 the row searches                5 select_top
+//   2 copy issue and wait             6 the post and the last block's merge
+//   3 scatter                         7 slots scattered (a count, not cycles)
+// quant_phases(out) copies the sums to out[0, 8) and zeroes them.  Without
+// the macro every mark is empty and nothing is exported.  (K3's
+// union_topk.cu keeps its own -DUNION_PHASES marks.)
+#pragma once
+
+#include <cuda_runtime.h>
+
+#ifdef QUANT_PHASES
+__device__ unsigned long long quant_phase_cycles[8];
+#define QPHASE_START() long long qphase_t = clock64()
+#define QPHASE(i)                                                                  \
+  do {                                                                             \
+    if (threadIdx.x == 0) {                                                        \
+      const long long now = clock64();                                             \
+      atomicAdd(&quant_phase_cycles[i], (unsigned long long)(now - qphase_t));     \
+      qphase_t = now;                                                              \
+    }                                                                              \
+  } while (0)
+#define QPHASE_COUNT(i)                                          \
+  do {                                                           \
+    if (threadIdx.x == 0) atomicAdd(&quant_phase_cycles[i], 1ull); \
+  } while (0)
+
+extern "C" int quant_phases(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, quant_phase_cycles, sizeof(unsigned long long) * 8);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[8] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(quant_phase_cycles, zero, sizeof(zero)));
+}
+#else
+#define QPHASE_START() \
+  do {                 \
+  } while (0)
+#define QPHASE(i) \
+  do {            \
+  } while (0)
+#define QPHASE_COUNT(i) \
+  do {                  \
+  } while (0)
+#endif

@@ -299,6 +299,12 @@ def _pad1(a: np.ndarray, size: int, fill) -> np.ndarray:
     return out
 
 
+def _pad16(a: np.ndarray) -> int:
+    """``pad_pow2`` of a column's length, at least 16 bytes of it: a power
+    of two of at least 16 bytes is a whole number of 16-byte units."""
+    return pad_pow2(len(a), minimum=max(8, 16 // a.itemsize))
+
+
 def _check_rows_ascending(pf: PostingsField, field: str) -> None:
     """Doc ids must ascend within every postings row: the scoring kernels
     rely on a doc appearing at most once per term (so one pass per query
@@ -408,8 +414,10 @@ class DeviceSegment:
         ``_quant_items`` pads them: ``qvals``, ``scales`` (padding 1.0),
         ``exact_vals``, ``exact_offsets`` (padding its last value),
         ``packed`` (its guard word kept; int32, the same bits as the
-        uint32 words) and ``base``.  None when the field has no
-        postings.  Cached per (field, avgdl)."""
+        uint32 words) and ``base``; ``qvals``, ``exact_vals`` and
+        ``packed`` span whole 16-byte units at least (K4 stages them in
+        such units).  None when the field has no postings.  Cached per
+        (field, avgdl)."""
         pf = self.seg.postings.get(field)
         if pf is None:
             return None
@@ -419,13 +427,13 @@ class DeviceSegment:
             t_pad = pad_pow2(len(pf.offsets))
             ex_off = qt.exact_offsets
             arrs = {
-                "qvals": _pad1(qt.qvals, pad_pow2(len(qt.qvals)), 0),
+                "qvals": _pad1(qt.qvals, _pad16(qt.qvals), 0),
                 "scales": _pad1(qt.scales, t_pad, 1.0),
-                "exact_vals": _pad1(qt.exact_vals,
-                                    pad_pow2(len(qt.exact_vals)), 0.0),
+                "exact_vals": _pad1(qt.exact_vals, _pad16(qt.exact_vals),
+                                    0.0),
                 "exact_offsets": _pad1(ex_off, t_pad,
                                        ex_off[-1] if len(ex_off) else 0),
-                "packed": _pad1(qt.packed, pad_pow2(len(qt.packed)),
+                "packed": _pad1(qt.packed, _pad16(qt.packed),
                                 0).view(np.int32),
                 "base": _pad1(qt.base, t_pad, 0),
             }

@@ -22,13 +22,16 @@ which replaces the reference's ``gather_postings`` + ``impact_scores`` /
   every query of the chunk from there (``union_table``), each (query,
   segment)'s exact top-k, total and max.  Its plain twin is
   ``search/batch.py::batch_term_bag_topk_segments``.
-- K4, the kernel's quantized row layout (int8/int16 impacts and
-  bit-packed doc ids, ``index/codec.py``), which replaces the
-  reference's ``gather_postings_packed`` and ``ops/quantized.py``:
+- K4, the quantized row layout (int8/int16 impacts and bit-packed doc
+  ids, ``index/codec.py``), which replaces the reference's
+  ``gather_postings_packed`` and ``ops/quantized.py``:
   ``term_bag_topk_quantized_cuda``, the top-k entry over quantized
-  segments (``term_bag_topk_segments_cuda`` sends a shard's quantized
-  segments there, one launch per qvals dtype, beside one f32 launch for
-  the others), and ``term_bag_quantized_cuda``, the per-slot entry.
+  segments, its own kernel (``csrc/quant_topk.cu``: each block stages its
+  tile's run of every row in shared memory with bulk asynchronous copies
+  and decodes the ids there; ``term_bag_topk_segments_cuda`` sends a
+  shard's quantized segments there, one launch per qvals dtype, beside
+  one f32 launch for the others), and ``term_bag_quantized_cuda``, the
+  per-slot entry, the quantized instantiation of K2's per-slot kernel.
   Their plain twins are ``ops/bm25.py::term_bag_topk_segments`` and
   ``ops/quantized.py``'s ``*_plain`` functions.
 
@@ -49,12 +52,17 @@ from opensearch_tpu_torch.ops import bm25, cuda_build
 _THREADS = 256
 _MAX_GRID = 132 * 32
 # The launch table's layout and the tile decision, handed to csrc/bm25.cu
-# as -D macros when it is built (see ``defines``).
-TILE_DOCS = 4096      # docs a block of the top-k entry owns
+# and csrc/quant_topk.cu as -D macros when they are built (see ``defines``
+# and ``quant_defines``).
+TILE_DOCS = 4096      # docs a block of a top-k entry owns (K2 and K4)
 K_MAX = 256           # largest k selected inside the kernel
 SEG_WORDS = 11        # int64 words per segment in the launch table
 QSEG_WORDS = 13       # ... per quantized segment
 QSLOT_WORDS = 4       # ... per slot of a quantized segment (f32: 2)
+# K4 stages each row's run of a tile with bulk copies of whole 16-byte
+# units: every staged quantized column starts on, and spans, a whole number
+# of them (DeviceSegment.quantized pads them so)
+STAGE_ALIGN = 16
 # qvals dtype -> the kernel's code width in bytes
 _Q_BYTES = {torch.int8: 1, torch.int16: 2}
 
@@ -65,6 +73,12 @@ def defines() -> dict:
     return {"BM25_TILE_DOCS": TILE_DOCS, "BM25_K_MAX": K_MAX,
             "BM25_SEG_WORDS": SEG_WORDS, "BM25_QSEG_WORDS": QSEG_WORDS,
             "BM25_QSLOT_WORDS": QSLOT_WORDS}
+
+
+def quant_defines() -> dict:
+    """The macros ``csrc/quant_topk.cu`` is built with."""
+    return {"QUANT_TILE_DOCS": TILE_DOCS, "QUANT_K_MAX": K_MAX,
+            "QUANT_SEG_WORDS": QSEG_WORDS, "QUANT_SLOT_WORDS": QSLOT_WORDS}
 
 
 def _declare(lib):
@@ -78,13 +92,22 @@ def _declare(lib):
     lib.term_bag_topk_segments_launch.argtypes = [
         p, i, i, i, i, i, ctypes.c_float, p, p, p, p, p, p]
     lib.term_bag_topk_segments_launch.restype = i
-    lib.term_bag_topk_quantized_launch.argtypes = [
-        p, i, i, i, i, i, ctypes.c_float, p, p, p, p, p, i, p]
-    lib.term_bag_topk_quantized_launch.restype = i
 
 
 def _library():
     return cuda_build.library("bm25", _declare, defines())
+
+
+def _quant_declare(lib):
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.quant_topk_launch.argtypes = [
+        p, i, i, i, i, i, ctypes.c_float, p, p, p, p, p, i, p]
+    lib.quant_topk_launch.restype = i
+
+
+def _quant_library():
+    return cuda_build.library("quant_topk", _quant_declare, quant_defines())
 
 
 def _ptr(t):
@@ -367,6 +390,17 @@ def _check_segment(seg, dev, i):
                          "length")
 
 
+def _check_staged(t, name):
+    """A column K4 copies in 16-byte units must start on one and span a
+    whole number of them, so a window widened to those bounds stays
+    inside it."""
+    if t.data_ptr() % STAGE_ALIGN or \
+            (t.numel() * t.element_size()) % STAGE_ALIGN:
+        raise ValueError(f"[{name}] must start on and span whole "
+                         f"{STAGE_ALIGN}-byte units, as "
+                         "DeviceSegment.quantized stages it")
+
+
 def _layout(seg):
     """The row layout a segment's rows are read in: None (f32) or the
     quantized codes' dtype."""
@@ -420,10 +454,11 @@ def term_bag_topk_segments_cuda(segments, *, k: int,
 def term_bag_topk_quantized_cuda(segments, *, k: int,
                                  min_score: float = -np.inf, out=None,
                                  out_rows=None):
-    """K4's top-k entry: one launch over quantized ``bm25.TermBagSegment``s
-    whose codes share one dtype, writing segment ``i``'s top-k, total
-    and max to row ``out_rows[i]`` (by default ``i``) of ``out`` (a new
-    ``bm25.TermBagTopK`` of ``len(segments)`` rows when None)."""
+    """K4's top-k entry: one launch of ``csrc/quant_topk.cu`` over
+    quantized ``bm25.TermBagSegment``s whose codes share one dtype,
+    writing segment ``i``'s top-k, total and max to row ``out_rows[i]``
+    (by default ``i``) of ``out`` (a new ``bm25.TermBagTopK`` of
+    ``len(segments)`` rows when None)."""
     if not 1 <= k <= K_MAX:
         raise ValueError(f"k must be in 1..{K_MAX}, got {k}")
     if not segments:
@@ -436,6 +471,8 @@ def term_bag_topk_quantized_cuda(segments, *, k: int,
         if seg.quant is None:
             raise ValueError(f"segments[{i}] has no quantized part")
         _check_segment(seg, dev, i)
+        for name in ("packed", "qvals", "exact_vals"):
+            _check_staged(getattr(seg.quant, name), f"segments[{i}].{name}")
     if len({_layout(seg) for seg in segments}) != 1:
         raise ValueError("quantized segments of one launch share a dtype")
     if out is None:
@@ -453,25 +490,27 @@ term_bag_topk_quantized_cuda.launches = 0
 
 def topk_launch(table, n_entries: int, n_blocks: int, n_slots: int, k: int,
                  min_score: float, out, q_bytes: int = 0):
-    """One launch of the top-k entry over ``table`` (a ``launch_table``
-    in pinned host memory, ``n_entries`` entries) into ``out``: one H2D
-    copy of the table, which the kernel then counts into.  ``q_bytes``
-    picks the row layout: 0 f32, 1 or 2 the quantized codes' width.  The
-    result holds the table and the scratch (and the caller the segments'
-    tensors) until it is read back."""
+    """One top-k launch over ``table`` (a ``launch_table`` in pinned host
+    memory, ``n_entries`` entries) into ``out``: one H2D copy of the
+    table, which the kernel then counts into.  ``q_bytes`` picks the
+    kernel: 0 K2's f32 top-k (``csrc/bm25.cu``), 1 or 2 K4
+    (``csrc/quant_topk.cu``) over codes of that width.  The result holds
+    the table and the scratch (and the caller the segments' tensors)
+    until it is read back."""
     dev = out.vals.device
     kp = k_padded(k)
     table_dev = table.to(dev, non_blocking=True)
     scratch = torch.empty(n_blocks * kp, dtype=torch.int64, device=dev)
-    lib = _library()
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     args = (_ptr(table_dev), n_entries, n_slots, n_blocks, k, kp,
             float(min_score), _ptr(out.vals), _ptr(out.ids),
             _ptr(out.totals), _ptr(out.maxes), _ptr(scratch))
     if q_bytes:
-        rc = lib.term_bag_topk_quantized_launch(*args, q_bytes, stream)
-        cuda_build.check(lib, rc, "term_bag_topk_quantized_launch")
+        lib = _quant_library()
+        rc = lib.quant_topk_launch(*args, q_bytes, stream)
+        cuda_build.check(lib, rc, "quant_topk_launch")
     else:
+        lib = _library()
         rc = lib.term_bag_topk_segments_launch(*args, stream)
         cuda_build.check(lib, rc, "term_bag_topk_segments_launch")
     return out._replace(keep=out.keep + (table_dev, scratch, table))
