@@ -84,11 +84,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``constant_score`` / ``count`` sample (K4's per-slot entry, K2's on
    the demand-staged f32 columns for filters), a sample byte-equal to
    the CPU searcher, and the resident bytes against the f32 layout of
-   the same segments.
+   the same segments;
+8. write path: 160,000 docs of the same corpus shape as text
+   (``testing/corpus.render_texts``) indexed through the port's
+   ``InternalEngine(..., device="cuda")`` (a ``body`` text field and a
+   ``tag`` keyword) in bulks of 1,000 with one ``ensure_synced()`` each
+   (the reference's ``request`` durability), ~1% updates and ~0.5%
+   deletes, one stale ``if_seq_no`` write refused before each of the 10
+   refreshes (one every 16,000 docs); after each refresh 20 zipf
+   ``match`` queries and a ``bool`` with a ``term`` filter byte-equal
+   to the CPU searcher over the same segments; every updated and
+   deleted id and a 2,000-id sample read back by realtime ``get``;
+   ``count`` equal to the acked live docs; the 200 ``match`` queries
+   on the 10 f32 segments (one K2 top-k launch each) and one
+   ``msearch`` batch of 64 (one K3 launch); ``force_merge(2)`` into two
+   quantized segments, after which the device holds no byte of the
+   merged-away ones; the 200 queries again (one K4 top-k launch each);
+   ``flush``, ``close`` and a reopen whose first ``match`` builds and
+   writes the ``.quant`` sidecars, and a second reopen whose first
+   ``match`` quantizes nothing; then 1,000 more docs, the engine
+   dropped without ``close`` and reopened: the translog replay brings
+   them back (gets, counts and searches equal to the CPU searcher) and
+   moves the avgdl under the quantized segments.  One ``write path:``
+   line prints the rates and times.
 
 Every kernel wrapper counts its launches; the counts are zeroed just
 before phase 3 and read after phase 4, and zeroed again just before
-phases 5, 6 and 7 and read after each: each kernel of each path must
+phases 5, 6, 7 and 8 and read after each: each kernel of each path must
 have run.
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the
@@ -98,6 +120,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1784,6 +1807,364 @@ def phase_quantized_scale(segs, mapper, searcher, build, counters) -> dict:
                                       "term_bag_quantized_scores")}}
 
 
+# -- phase 8 ----------------------------------------------------------------
+
+WRITE_DOCS = 160_000             # phase 8: docs indexed through the engine
+WRITE_BULK = 1_000               # docs per bulk, one fsync each
+WRITE_REFRESH_EVERY = 16_000     # docs between refreshes: 10 NRT segments
+WRITE_REPLAY_DOCS = 1_000        # indexed last, then replayed after a kill
+WRITE_MAPPING = {"properties": {"body": {"type": "text"},
+                                "tag": {"type": "keyword"}}}
+WRITE_TAGS = ("red", "green", "blue", "gold", "grey")
+
+
+def device_allocated() -> int:
+    import torch
+    return torch.cuda.memory_allocated()
+
+
+class WriteState:
+    """The last acked state of every doc phase 8 writes (None when
+    deleted), and what was updated or deleted."""
+
+    def __init__(self, texts):
+        self.texts = texts
+        self.docs: dict = {}
+        self.updated: set = set()
+        self.deleted: set = set()
+        self.conflicts = 0
+
+    def source(self, i: int) -> dict:
+        return {"body": self.texts[i], "tag": WRITE_TAGS[i % 5]}
+
+    def live(self) -> int:
+        return sum(src is not None for src in self.docs.values())
+
+    def check(self, engine, ids) -> int:
+        """Realtime ``get`` of ``ids`` against the acked state; returns
+        how many were read."""
+        for doc in ids:
+            got = engine.get(doc)
+            want = self.docs[doc]
+            if (got is None) != (want is None) or \
+                    (got is not None and got["_source"] != want):
+                raise AssertionError(f"write path: get [{doc}] returned "
+                                     f"{str(got)[:80]}, acked "
+                                     f"{str(want)[:80]}")
+        return len(ids)
+
+    def sample(self, rng, n: int) -> list:
+        keys = list(self.docs)
+        picks = rng.choice(len(keys), size=min(n, len(keys)), replace=False)
+        return sorted(self.updated | self.deleted
+                      | {keys[int(i)] for i in picks})
+
+
+def write_bulk(engine, state, rng, lo: int, hi: int) -> None:
+    """Index docs ``lo`` to ``hi`` plus ~1% updates and ~0.5% deletes of
+    earlier docs, then one ``ensure_synced()``: the writes are acked.
+    Before each refresh, one write with a stale ``if_seq_no`` must be
+    refused."""
+    from opensearch_tpu_torch.common.errors import VersionConflictError
+
+    for i in range(lo, hi):
+        r = engine.index(str(i), state.source(i))
+        if r.result != "created":
+            raise AssertionError(f"write path: new doc [{i}] {r.result}")
+        state.docs[str(i)] = state.source(i)
+    n = hi - lo
+    for j in rng.integers(0, hi, size=n // 100):
+        doc = str(int(j))
+        if state.docs[doc] is None:
+            continue
+        src = {"body": state.texts[int(rng.integers(0, hi))], "tag": "gold"}
+        if engine.index(doc, src).result != "updated":
+            raise AssertionError(f"write path: update of [{doc}] refused")
+        state.docs[doc] = src
+        state.updated.add(doc)
+    for j in rng.integers(0, hi, size=n // 200):
+        doc = str(int(j))
+        if state.docs[doc] is None:
+            continue
+        if engine.delete(doc).result != "deleted":
+            raise AssertionError(f"write path: delete of [{doc}] refused")
+        state.docs[doc] = None
+        state.deleted.add(doc)
+    engine.ensure_synced()
+    if hi % WRITE_REFRESH_EVERY:
+        return
+    doc = next(d for d in (str(int(j)) for j in rng.integers(0, hi, 50))
+               if state.docs[d] is not None)
+    stale = engine.get(doc)["_seq_no"] - 1
+    try:
+        engine.index(doc, {"body": "stale", "tag": "red"}, if_seq_no=stale)
+    except VersionConflictError:
+        state.conflicts += 1
+    else:
+        raise AssertionError(f"write path: a write to [{doc}] with the "
+                             f"stale if_seq_no {stale} was accepted")
+
+
+def write_bodies(seed: int, n: int = 20) -> list:
+    """``n`` zipf ``match`` bodies and one ``bool`` with a ``term``
+    filter on ``tag``."""
+    from opensearch_tpu_torch.testing import corpus
+
+    pairs = corpus.zipf_query_log(n + 1, seed=seed)
+    a, b = pairs[-1]
+    return [{"query": {"match": {"body": f"t{x} t{y}"}}, "size": 10,
+             "_source": False} for x, y in pairs[:n]] + [
+        {"query": {"bool": {"must": [{"match": {"body": f"t{a} t{b}"}}],
+                            "filter": [{"term": {
+                                "tag": WRITE_TAGS[seed % 5]}}]}},
+         "size": 10, "_source": False}]
+
+
+def against_cpu(engine, mapper, bodies, what: str) -> None:
+    """``bodies`` on the engine's searcher, byte-equal to a searcher on
+    the CPU over the same segments, with equal counts."""
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing.parity import bm25_mismatch
+
+    searcher = engine.acquire_searcher()
+    cpu = ShardSearcher(engine.segments, mapper, device="cpu")
+    for body in bodies:
+        bad = bm25_mismatch(searcher.search(body), cpu.search(body))
+        if bad:
+            raise AssertionError(f"write path {what}: "
+                                 f"{json.dumps(body)[:80]}: {bad}")
+    for q in ({"match_all": {}}, bodies[-1]["query"]):
+        if searcher.count(q) != cpu.count(q):
+            raise AssertionError(f"write path {what}: count of {q} differs "
+                                 "from the CPU searcher")
+
+
+def first_query_ms(engine, body) -> float:
+    t0 = time.monotonic()
+    engine.acquire_searcher().search(body)
+    return (time.monotonic() - t0) * 1e3
+
+
+def per_match(searcher, bodies, counters, want: str) -> tuple:
+    """(qps, p50 ms, launches per query) of ``bodies`` (``match``); each
+    query with a term in the shard must make one ``want`` launch and no
+    other (a query none of whose terms occur makes none: the can-match
+    skip)."""
+    timed(searcher, bodies[:20])                          # warm-up
+    c0 = {name: fn.launches for name, fn in counters.items()}
+    qps, p50 = timed(searcher, bodies)
+    reach = sum(any(searcher.ctx.df("body", t)
+                    for t in b["query"]["match"]["body"].split())
+                for b in bodies)
+    per_query = {name: (fn.launches - c0[name]) / reach
+                 for name, fn in counters.items()}
+    if per_query[want] != 1.0 or any(v for name, v in per_query.items()
+                                     if name != want):
+        raise AssertionError(f"write path: a match query must make one "
+                             f"{want} launch and no other: {per_query}")
+    return qps, p50, per_query
+
+
+def phase_write_path(counters) -> dict:
+    """Phase 8: the write path on the card (see the module doc)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from opensearch_tpu_torch.index import codec
+    from opensearch_tpu_torch.index.engine import InternalEngine
+    from opensearch_tpu_torch.mapping.mapper import DocumentMapper
+    from opensearch_tpu_torch.testing import corpus
+
+    t_phase = time.monotonic()
+    mapper = DocumentMapper(WRITE_MAPPING)
+    state = WriteState(corpus.render_texts(WRITE_DOCS + WRITE_REPLAY_DOCS,
+                                           seed=42))
+    rng = np.random.default_rng(81)
+    path = tempfile.mkdtemp(prefix="chip_smoke_write_")
+    quantized = [0]
+    real_quantize = codec.quantize_postings
+
+    def counted_quantize(*args, **kw):
+        quantized[0] += 1
+        return real_quantize(*args, **kw)
+
+    def open_engine():
+        t0 = time.monotonic()
+        engine = InternalEngine(path, mapper, index_name="write",
+                                device=DEVICE)
+        return engine, time.monotonic() - t0
+
+    match_qs = [{"query": {"match": {"body": f"t{a} t{b}"}}, "size": 10,
+                 "_source": False}
+                for a, b in corpus.zipf_query_log(200, seed=7)]
+    codec.quantize_postings = counted_quantize
+    for fn in counters.values():                # this path starts here
+        fn.launches = 0
+    try:
+        engine, _ = open_engine()
+        index_s, refresh_ms, visible_ms = 0.0, [], []
+        for lo in range(0, WRITE_DOCS, WRITE_BULK):
+            t0 = time.monotonic()
+            write_bulk(engine, state, rng, lo, lo + WRITE_BULK)
+            index_s += time.monotonic() - t0
+            if (lo + WRITE_BULK) % WRITE_REFRESH_EVERY:
+                continue
+            t0 = time.monotonic()
+            engine.refresh()
+            refresh_ms.append((time.monotonic() - t0) * 1e3)
+            bodies = write_bodies(seed=100 + len(refresh_ms))
+            engine.acquire_searcher().search(bodies[0])
+            visible_ms.append((time.monotonic() - t0) * 1e3)
+            against_cpu(engine, mapper, bodies,
+                        f"after refresh {len(refresh_ms)}")
+        n_segments = len(engine.segments)
+        read = state.check(engine, state.sample(rng, 2000))
+        live = state.live()
+        searcher = engine.acquire_searcher()
+        if searcher.count({"match_all": {}}) != live or \
+                engine.doc_count() != live:
+            raise AssertionError(f"write path: {live} live docs acked, "
+                                 f"count {searcher.count({'match_all': {}})}")
+        f32 = per_match(searcher, match_qs, counters, "term_bag_topk")
+        batch = match_qs[:64]
+        seq = [strip_took(searcher.search(b)) for b in batch]
+        k3_before = counters["batch_topk"].launches
+        if [strip_took(r) for r in searcher.msearch(batch)] != seq or \
+                counters["batch_topk"].launches - k3_before != 1:
+            raise AssertionError("write path: an msearch batch of 64 on the "
+                                 "engine's searcher must make one K3 launch "
+                                 "and equal sequential search")
+        old_resident = searcher.resident_bytes()
+        del searcher
+        gc.collect()
+        before = device_allocated()
+        t0 = time.monotonic()
+        if engine.force_merge(2) != 2:
+            raise AssertionError("write path: force_merge(2) did not give "
+                                 "2 segments")
+        merge_s = time.monotonic() - t0
+        gc.collect()
+        after = device_allocated()
+        if after > before - old_resident:
+            raise AssertionError(
+                f"write path: {after} bytes allocated on the device after "
+                f"the merge, more than {before} before it less the merged-"
+                f"away segments' {old_resident}")
+        merged = [seg.n_docs for seg in engine.segments]
+        searcher = engine.acquire_searcher()
+        if min(merged) < codec.QUANTIZED_MIN_DOCS or not all(
+                seg.device(searcher.device).quantized_mode
+                for seg in engine.segments):
+            raise AssertionError(f"write path: merged segments {merged} "
+                                 "are not all quantized")
+        merge_first_ms = first_query_ms(engine, match_qs[0])
+        against_cpu(engine, mapper, write_bodies(seed=300), "after merge")
+        quant = per_match(searcher, match_qs, counters,
+                          "term_bag_quantized_topk")
+        del searcher
+        engine.flush()
+        engine.close()
+        engine, recovery_s = open_engine()
+        quantized[0] = 0
+        cold_ms = first_query_ms(engine, match_qs[0])
+        cold_quantized = quantized[0]
+        sidecars = sorted(n for n in os.listdir(os.path.join(path, "segments"))
+                          if n.endswith(".quant"))
+        if cold_quantized != 2 or len(sidecars) != 2:
+            raise AssertionError(f"write path: the first match after the "
+                                 f"reopen quantized {cold_quantized} tables "
+                                 f"and left sidecars {sidecars}")
+        against_cpu(engine, mapper, write_bodies(seed=301), "after reopen")
+        engine.close()
+        engine, recovery2_s = open_engine()
+        quantized[0] = 0
+        warm_ms = first_query_ms(engine, match_qs[0])
+        if quantized[0]:
+            raise AssertionError(f"write path: the second reopen quantized "
+                                 f"{quantized[0]} tables: sidecars unused")
+        against_cpu(engine, mapper, write_bodies(seed=302),
+                    "after the second reopen")
+        replay = range(WRITE_DOCS, WRITE_DOCS + WRITE_REPLAY_DOCS)
+        for i in replay:
+            engine.index(str(i), state.source(i))
+            state.docs[str(i)] = state.source(i)
+        engine.ensure_synced()
+        engine = None                            # killed: no close()
+        gc.collect()
+        engine, replay_s = open_engine()
+        live = state.live()
+        if engine.doc_count() != live:
+            raise AssertionError(f"write path: {engine.doc_count()} docs "
+                                 f"after the replay, {live} acked")
+        engine.refresh()
+        quantized[0] = 0
+        shift_ms = first_query_ms(engine, match_qs[0])
+        shift_quantized = quantized[0]
+        read += state.check(engine, [str(i) for i in replay]
+                            + state.sample(rng, 500))
+        against_cpu(engine, mapper, write_bodies(seed=303),
+                    "after the kill and replay")
+        if engine.acquire_searcher().count({"match_all": {}}) != live:
+            raise AssertionError("write path: count after the replay")
+        engine.close()
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        codec.quantize_postings = real_quantize
+        shutil.rmtree(path, ignore_errors=True)
+    if min(launches[n] for n in ("term_bag_topk", "term_bag_quantized_topk",
+                                 "batch_topk")) <= 0:
+        raise AssertionError(f"write path: a kernel never launched: "
+                             f"{launches}")
+    gpu = gpu_name_power()
+    out = {
+        "docs": WRITE_DOCS, "nrt_segments": n_segments,
+        "merged_segments": merged, "live_docs": live,
+        "docs_per_s": WRITE_DOCS / index_s, "index_s": index_s,
+        "refresh_s": sum(refresh_ms) / 1e3,
+        "refresh_ms_p50": float(np.median(refresh_ms)),
+        "refresh_ms_max": max(refresh_ms),
+        "refresh_to_first_search_ms_p50": float(np.median(visible_ms)),
+        "refresh_to_first_search_ms_max": max(visible_ms),
+        "f32_match_qps": f32[0], "f32_match_p50_ms": f32[1],
+        "quantized_match_qps": quant[0], "quantized_match_p50_ms": quant[1],
+        "merge_s": merge_s, "first_match_after_merge_ms": merge_first_ms,
+        "recovery_s": recovery_s, "recovery2_s": recovery2_s,
+        "replay_s": replay_s, "first_match_cold_ms": cold_ms,
+        "first_match_sidecar_ms": warm_ms,
+        "first_match_after_avgdl_shift_ms": shift_ms,
+        "quantized_after_shift": shift_quantized,
+        "device_bytes_before_merge": before,
+        "device_bytes_after_merge": after,
+        "merged_away_resident_bytes": old_resident,
+        "gets_read_back": read, "stale_writes_refused": state.conflicts,
+        "updated": len(state.updated), "deleted": len(state.deleted),
+        "launches": launches,
+        "launches_per_match_f32": f32[2], "launches_per_match_quantized":
+            quant[2], "wall_s": time.monotonic() - t_phase}
+    log(f"write path: {WRITE_DOCS} docs in bulks of {WRITE_BULK} (one fsync "
+        f"each) at {out['docs_per_s']:.1f} docs/s with "
+        f"{len(state.updated)} updates, {len(state.deleted)} deletes and "
+        f"{state.conflicts} stale writes refused; {n_segments} refreshes: "
+        f"refresh ms p50 {out['refresh_ms_p50']:.1f} max "
+        f"{out['refresh_ms_max']:.1f}, refresh-to-first-search ms p50 "
+        f"{out['refresh_to_first_search_ms_p50']:.1f} max "
+        f"{out['refresh_to_first_search_ms_max']:.1f}; f32 match "
+        f"({n_segments} segments) qps {f32[0]:.2f} p50 {f32[1]:.3f} ms; "
+        f"force_merge(2) {merge_s:.1f} s into {merged} docs; quantized "
+        f"match qps {quant[0]:.2f} p50 {quant[1]:.3f} ms; recovery "
+        f"{recovery_s:.2f} s / {recovery2_s:.2f} s / replay of "
+        f"{WRITE_REPLAY_DOCS} ops {replay_s:.2f} s; first match ms: after "
+        f"the merge {merge_first_ms:.1f}, cold {cold_ms:.1f} (quantized "
+        f"{cold_quantized} tables, sidecars written), with the sidecar "
+        f"{warm_ms:.1f} (0 quantized), after the replay's avgdl shift "
+        f"{shift_ms:.1f} ({shift_quantized} quantized); device bytes "
+        f"{before} before the merge, {after} after it (merged-away "
+        f"segments held {old_resident}); {read} gets read back; launches "
+        f"{launches}; on {gpu}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1838,6 +2219,12 @@ def main() -> int:
         qscale["k4_launches"]["term_bag_quantized_scores"]
     kern["term_bag_quantized_scores"] = kern["term_bag_quantized"].pop(
         "per_slot")
+    # the write path, its counts zeroed just before it
+    write = phase_write_path({**counters, **quantized_counters()})
+    for name, n in write["launches"].items():
+        name = "term_bag_quantized" if name == "term_bag_quantized_topk" \
+            else name
+        launches[name] += n
     sources = {"knn_topk": ("knn.cu", "opensearch_tpu/ops/pallas_knn.py:62"),
                "knn_scores": ("knn.cu",
                               "opensearch_tpu/ops/pallas_knn.py:62"),
@@ -1862,6 +2249,7 @@ def main() -> int:
         for name, (src, rep) in sources.items()]}
     log(json.dumps({"scale": scale, "msearch": msearch,
                     "continuous": continuous, "quantized_scale": qscale,
+                    "write_path": write,
                     "k1_1m": kern["k1_1m"],
                     "k2_topk_heaviest": kern["term_bag_topk"]["heaviest"],
                     "k4_topk_heaviest":

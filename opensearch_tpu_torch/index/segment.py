@@ -20,9 +20,11 @@ tables (``DeviceSegment.quantized``: int8/int16 impacts and bit-packed
 doc ids), and the f32 doc ids and tfs stage on first demand
 (``ensure_postings``: filter-context bags, the batched path).
 
-Not ported yet (ROADMAP Queue A): ANN index builds, the ``.quant``
-sidecars, the device pager, the fielddata breaker and the residency
-ledger.  ``segment_from_arrays`` carries the numpy state of a reference
+``Segment.quantized_table`` reads and writes the ``.quant`` sidecars of
+``index/store.py`` once the store has set ``quant_dir``.
+
+Not ported yet (ROADMAP Queue A): ANN index builds, the device pager,
+the fielddata breaker and the residency ledger.  ``segment_from_arrays`` carries the numpy state of a reference
 segment into this package's ``Segment``.
 """
 
@@ -192,6 +194,9 @@ class Segment:
         # quantized tables, keyed (field, avgdl); searches build them from
         # many threads
         self._quant_tables = BoundedCache(_IMPACT_TABLES_MAX)
+        # the segment directory once the store saved or loaded this
+        # segment: quantized tables persist there as ``.quant`` sidecars
+        self.quant_dir: Optional[str] = None
 
 
     # -- stats used for cross-segment collection statistics ---------------
@@ -264,20 +269,45 @@ class Segment:
 
     def quantized_table(self, field: str, avgdl: float):
         """Quantized + bit-packed tables for ``field`` at this avgdl
-        (``index/codec.py`` ``QuantizedPostings``), built from
-        ``impact_table`` and kept in a bounded in-memory cache keyed by
-        (field, avgdl), like ``impact_table``."""
+        (``index/codec.py`` ``QuantizedPostings``), kept in a bounded
+        in-memory cache keyed by (field, avgdl), like ``impact_table``.
+
+        When ``quant_dir`` is set (the store sets it on save and load),
+        the ``.quant`` sidecar is tried first: one built at another
+        avgdl is stale and one that fails its checksum is rebuilt, as an
+        absent one is, from ``impact_table``, and the fresh tables are
+        written back; a failed write is ignored (the sidecar is a cache,
+        not a commit)."""
         pf = self.postings.get(field)
         if pf is None:
             return None
         from opensearch_tpu_torch.index import codec as codec_mod
+        from opensearch_tpu_torch.index import store as store_mod
+
+        key = (field, float(np.float32(avgdl)))
+        qdir = self.quant_dir
 
         def build():
-            imp, mx = self.impact_table(field, avgdl)
-            return codec_mod.quantize_postings(pf, imp, mx, avgdl)
+            qt = None
+            if qdir is not None:
+                try:
+                    qt = store_mod.load_quantized_tables(
+                        qdir, self.seg_id, field, avgdl=key[1])
+                except store_mod.CorruptIndexError:
+                    qt = None          # rebuilt and rewritten below
+            if qt is None:
+                imp, mx = self.impact_table(field, avgdl)
+                qt = codec_mod.quantize_postings(pf, imp, mx, avgdl)
+                if qdir is not None:
+                    try:
+                        store_mod.save_quantized_tables(
+                            qdir, self.seg_id, field, qt)
+                    except OSError:
+                        pass
+            qt._offsets = pf.offsets
+            return qt
 
-        return self._quant_tables.get_or_make(
-            (field, float(np.float32(avgdl))), build)
+        return self._quant_tables.get_or_make(key, build)
 
     def device(self, device) -> "DeviceSegment":
         """The staged view of this segment on ``device`` (built once per
@@ -486,6 +516,16 @@ class DeviceSegment:
 _IMPACT_TABLES_MAX = 8
 
 
+def _column(cols: dict, fname: str, make):
+    """``cols[fname]``, made by ``make()`` on its first use only: a
+    per-doc column built eagerly for every doc as a ``setdefault``
+    default would make a segment's build quadratic in its docs."""
+    col = cols.get(fname)
+    if col is None:
+        col = cols[fname] = make()
+    return col
+
+
 class SegmentWriter:
     """Builds an immutable Segment from a batch of ParsedDocuments — the
     invert step Lucene does inside IndexWriter.addDocuments (ref
@@ -537,24 +577,24 @@ class SegmentWriter:
                 for term, (tf, plist) in per_term.items():
                     finv.setdefault(term, []).append((i, tf, plist))
             for fname, length in doc.field_lengths.items():
-                arr = field_doc_lens.setdefault(fname, np.zeros(n, dtype=np.float32))
-                arr[i] = length
+                _column(field_doc_lens, fname,
+                        lambda: np.zeros(n, dtype=np.float32))[i] = length
             for fname, vals in doc.longs.items():
-                longs.setdefault(fname, [[] for _ in range(n)])[i].extend(vals)
+                _column(longs, fname, lambda: [[] for _ in range(n)])[i].extend(vals)
             for fname, vals in doc.doubles.items():
-                doubles.setdefault(fname, [[] for _ in range(n)])[i].extend(vals)
+                _column(doubles, fname, lambda: [[] for _ in range(n)])[i].extend(vals)
             for fname, vals in doc.ordinals.items():
-                ordinals.setdefault(fname, [[] for _ in range(n)])[i].extend(vals)
+                _column(ordinals, fname, lambda: [[] for _ in range(n)])[i].extend(vals)
             for fname, vec in doc.vectors.items():
                 vectors.setdefault(fname, {})[i] = vec
             for fname, pts in doc.geo_points.items():
-                geos.setdefault(fname, [[] for _ in range(n)])[i].extend(pts)
+                _column(geos, fname, lambda: [[] for _ in range(n)])[i].extend(pts)
 
         field_present: dict[str, np.ndarray] = {}
         for i, doc in enumerate(docs):
             for fname in doc.field_lengths:
-                field_present.setdefault(
-                    fname, np.zeros(n, dtype=bool))[i] = True
+                _column(field_present, fname,
+                        lambda: np.zeros(n, dtype=bool))[i] = True
 
         for fname in set(inv) | set(field_present):
             seg.postings[fname] = self._build_postings(

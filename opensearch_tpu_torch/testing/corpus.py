@@ -18,14 +18,32 @@ VOCAB_SIZE = 30_000
 AVG_LEN = 40
 
 
-def build_raw_corpus(n_docs: int, seed: int = 42) -> dict:
-    """Vectorized synthetic corpus -> raw CSR postings over a zipf
-    (a = 1.3) vocabulary of ``VOCAB_SIZE`` terms, ``AVG_LEN`` tokens per
-    doc on average."""
+def _draws(n_docs: int, seed: int) -> tuple:
+    """(tokens per doc, the term ids of every token in doc order)."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(AVG_LEN // 2, AVG_LEN * 3 // 2, size=n_docs)
     total = int(lens.sum())
     terms = (rng.zipf(1.3, size=total) - 1).clip(0, VOCAB_SIZE - 1).astype(np.int32)
+    return lens, terms
+
+
+def render_texts(n_docs: int, seed: int = 42) -> list[str]:
+    """The docs of ``build_raw_corpus(n_docs, seed)`` as text, for the
+    write path: the same draws, each token written ``t<term id>``, so
+    the mapper's postings of these texts are that corpus's postings."""
+    lens, terms = _draws(n_docs, seed)
+    names = [f"t{t}" for t in range(VOCAB_SIZE)]
+    words = [names[t] for t in terms.tolist()]
+    ends = np.cumsum(lens).tolist()
+    starts = [0] + ends[:-1]
+    return [" ".join(words[a:b]) for a, b in zip(starts, ends)]
+
+
+def build_raw_corpus(n_docs: int, seed: int = 42) -> dict:
+    """Vectorized synthetic corpus -> raw CSR postings over a zipf
+    (a = 1.3) vocabulary of ``VOCAB_SIZE`` terms, ``AVG_LEN`` tokens per
+    doc on average."""
+    lens, terms = _draws(n_docs, seed)
     doc_of = np.repeat(np.arange(n_docs, dtype=np.int32), lens)
     order = np.lexsort((doc_of, terms))
     st, sd = terms[order], doc_of[order]

@@ -3,8 +3,10 @@ package ``opensearch_tpu`` (only the tests import both).
 
 Two checks: a subprocess that blocks those imports with a
 ``sys.meta_path`` hook, imports every module of ``opensearch_tpu_torch``
-and runs one CPU search; and a static scan of the port's sources and
-``chip_smoke.py`` for imports that name them.  The module-name test
+(the write path's engine, store and translog among them) and runs one
+CPU search and one engine round trip; and a static scan of the port's
+sources and ``chip_smoke.py`` for imports that name them.  The
+module-name test
 matches ``opensearch_tpu`` and ``opensearch_tpu.<sub>``, never the
 ``opensearch_tpu_torch`` prefix.
 """
@@ -75,6 +77,24 @@ assert resp["hits"]["total"]["value"] == 4, resp
 resp = searcher.search({"query": {"knn": {"vec": {"vector": [3, 0, 1, 2],
                                                   "k": 2}}}})
 assert resp["hits"]["hits"][0]["_id"] == "3", resp
+for name in ("index.engine", "index.store", "index.translog"):
+    assert "opensearch_tpu_torch." + name in names, name
+
+import tempfile
+from opensearch_tpu_torch.index.engine import InternalEngine
+
+with tempfile.TemporaryDirectory() as path:
+    engine = InternalEngine(path, mapper, device="cpu")
+    for i in range(6):
+        engine.index(str(i), {"body": f"alpha w{i % 2}",
+                              "vec": [float(i), 0.0, 1.0, 2.0]})
+    engine.flush()
+    engine.close()
+    engine = InternalEngine(path, mapper, device="cpu")
+    resp = engine.acquire_searcher().search(
+        {"query": {"match": {"body": "w1"}}})
+    assert resp["hits"]["total"]["value"] == 3, resp
+    engine.close()
 bad = sorted(m for m in sys.modules if forbidden(m))
 assert not bad, bad
 print("IMPORTED", len(names))
