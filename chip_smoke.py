@@ -106,12 +106,36 @@ Phases, each of which fails the run (non-zero exit) on any error:
    dropped without ``close`` and reopened: the translog replay brings
    them back (gets, counts and searches equal to the CPU searcher) and
    moves the avgdl under the quantized segments.  One ``write path:``
+   line prints the rates and times;
+9. serving node: ``opensearch_tpu_torch.node.Node(..., device="cuda")``
+   driven over HTTP only: ``GET /`` and ``/_cluster/health``; an index
+   ``corpus`` of 2 shards (phase 8's mapping) fed 20,000 rendered docs
+   by 20 ``_bulk`` requests of 1,000 items with ~1% ``update`` and ~0.5%
+   ``delete`` items and one refused ``create`` of an existing id (one
+   translog sync per item), a ``_refresh`` every 5,000 docs; a sample
+   of acked ids read back by ``GET _doc``; ``_count`` equal to the acked
+   live docs; the 200 ``match`` queries as ``_search`` requests one at a
+   time (one K2 top-k launch over both shards' segments and no other
+   each, equal to the CPU searcher; qps, p50, p99, and beside them the
+   p50 of the same bodies through ``IndexService.search`` and through
+   the REST controller in process, and of a keep-alive ``GET /``); one
+   ``_msearch`` of 64 (one K3 launch, equal to sequential); the 256
+   queries from 16 client threads, in this process and then in a child
+   process (the continuous batcher behind the real ``IndexService``:
+   fewer than one dispatch per query, equal to sequential); an index
+   ``vectors`` of 5,000 128-d vectors by ``_bulk`` and 50 ``knn``
+   searches (one K1 launch each, within
+   tolerance of the CPU); a multi-index ``match_all``; ``aggs`` answering
+   501 and a missing index 404; ``_forcemerge``, ``_flush``, ``DELETE
+   /vectors`` (the device bytes it held released); then a restart on the
+   same data path (the index reloaded, ``vectors`` gone, ``_count`` and
+   20 responses unchanged, the acked docs read back).  One ``serving:``
    line prints the rates and times.
 
 Every kernel wrapper counts its launches; the counts are zeroed just
 before phase 3 and read after phase 4, and zeroed again just before
-phases 5, 6, 7 and 8 and read after each: each kernel of each path must
-have run.
+phases 5, 6, 7, 8 and 9 and read after each: each kernel of each path
+must have run.
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the
 script exits non-zero and prints no result.
@@ -2165,6 +2189,546 @@ def phase_write_path(counters) -> dict:
     return out
 
 
+# -- phase 9 ----------------------------------------------------------------
+
+SERVE_DOCS = 20_000              # phase 9: docs indexed through _bulk
+SERVE_BULK = 1_000               # items of a _bulk request
+SERVE_REFRESH_EVERY = 5_000      # docs between _refresh calls: 4 refreshes
+SERVE_VECTORS = 5_000            # docs of the 128-d vectors index
+SERVE_SAMPLE = 500               # acked ids read back by GET _doc
+
+
+class HttpClient:
+    """One keep-alive HTTP/1.1 connection to the node (a client's
+    connection pool of one); ``call`` returns (status, parsed body)."""
+
+    def __init__(self, port: int):
+        import http.client
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=300)
+
+    def call(self, method: str, path: str, body=None, ndjson=None):
+        headers = {}
+        data = None
+        if ndjson is not None:
+            data = ("\n".join(json.dumps(x) for x in ndjson)
+                    + "\n").encode()
+            headers["Content-Type"] = "application/x-ndjson"
+        elif body is not None:
+            data = json.dumps(body).encode()
+            headers["Content-Type"] = "application/json"
+        self.conn.request(method, path, body=data, headers=headers)
+        resp = self.conn.getresponse()
+        payload = resp.read()
+        return resp.status, (json.loads(payload) if payload else {})
+
+    def ok(self, method: str, path: str, body=None, ndjson=None,
+           want: int = 200):
+        status, out = self.call(method, path, body, ndjson)
+        if status != want:
+            raise AssertionError(f"serving: {method} {path} answered "
+                                 f"{status}, not {want}: "
+                                 f"{json.dumps(out)[:300]}")
+        return out
+
+    def close(self):
+        self.conn.close()
+
+
+def serve_bulk(client, state, rng, lo: int, hi: int) -> int:
+    """One ``_bulk`` of docs ``lo`` to ``hi`` of ``corpus`` with ~1%
+    ``update`` and ~0.5% ``delete`` items of earlier docs; every item's
+    answer is checked and the acked state kept.  The first request also
+    carries a ``create`` of an existing id, which must be refused.
+    Returns the number of items."""
+    items, expect = [], []
+    for i in range(lo, hi):
+        items += [{"index": {"_index": "corpus", "_id": str(i)}},
+                  state.source(i)]
+        expect.append((str(i), "index", state.source(i)))
+    n = hi - lo
+    for j in rng.integers(0, max(lo, 1), size=n // 100):
+        doc = str(int(j))
+        if state.docs.get(doc) is None:
+            continue
+        tag = WRITE_TAGS[int(rng.integers(0, 5))]
+        items += [{"update": {"_index": "corpus", "_id": doc}},
+                  {"doc": {"tag": tag}}]
+        expect.append((doc, "update", {**state.docs[doc], "tag": tag}))
+        state.docs[doc] = {**state.docs[doc], "tag": tag}
+    for j in rng.integers(0, max(lo, 1), size=n // 200):
+        doc = str(int(j))
+        if state.docs.get(doc) is None:
+            continue
+        items.append({"delete": {"_index": "corpus", "_id": doc}})
+        expect.append((doc, "delete", None))
+        state.docs[doc] = None
+    if lo == 0:
+        items += [{"create": {"_index": "corpus", "_id": "0"}},
+                  {"body": "t1", "tag": "red"}]
+        expect.append(("0", "create", "conflict"))
+    out = client.ok("POST", "/_bulk", ndjson=items)
+    if len(out["items"]) != len(expect):
+        raise AssertionError("serving: _bulk answered "
+                             f"{len(out['items'])} items for {len(expect)}")
+    for (doc, action, src), item in zip(expect, out["items"]):
+        (got_action, res), = item.items()
+        if action == "create":
+            # the reference refuses a create of an existing id inside
+            # _bulk with its version-conflict message (status 400,
+            # opensearch_tpu/indices/service.py:329-334)
+            if "version conflict" not in res.get("error", {}).get(
+                    "reason", ""):
+                raise AssertionError(f"serving: a create of the existing "
+                                     f"id [{doc}] was not refused: {res}")
+            state.conflicts += 1
+            continue
+        if got_action != action or res.get("error") or \
+                res["status"] not in (200, 201):
+            raise AssertionError(f"serving: {action} [{doc}] answered "
+                                 f"{res}")
+        if action == "index":
+            state.docs[doc] = src
+        elif action == "update":
+            state.updated.add(doc)
+        else:
+            state.deleted.add(doc)
+    return len(expect)
+
+
+def read_back(client, state, ids) -> int:
+    """``GET /corpus/_doc/{id}`` of ``ids`` against the acked state."""
+    for doc in ids:
+        status, out = client.call("GET", f"/corpus/_doc/{doc}")
+        want = state.docs[doc]
+        if (want is None and status != 404) or (
+                want is not None and (status != 200
+                                      or out.get("_source") != want)):
+            raise AssertionError(f"serving: GET [{doc}] answered {status} "
+                                 f"{json.dumps(out)[:120]}, acked "
+                                 f"{str(want)[:80]}")
+    return len(ids)
+
+
+def serve_sequential(client, bodies, counters, reach: int) -> tuple:
+    """(qps, p50 ms, p99 ms, responses, launches per query that can
+    match) of ``bodies`` sent one at a time as ``_search`` requests."""
+    c0 = {name: fn.launches for name, fn in counters.items()}
+    lat, out = [], []
+    t0 = time.monotonic()
+    for body in bodies:
+        t = time.monotonic()
+        out.append(client.ok("POST", "/corpus/_search", body))
+        lat.append((time.monotonic() - t) * 1e3)
+    wall = time.monotonic() - t0
+    per_query = {name: (fn.launches - c0[name]) / reach
+                 for name, fn in counters.items()}
+    return (len(bodies) / wall, float(np.percentile(lat, 50)),
+            float(np.percentile(lat, 99)), out, per_query)
+
+
+def client_threads(port: int, bodies, threads: int) -> tuple:
+    """(responses, latencies ms, wall s) of ``bodies`` sent as
+    ``/corpus/_search`` requests from ``threads`` client threads, each on
+    its own keep-alive connection."""
+    import threading
+
+    n = len(bodies)
+    results, lat, errors = [None] * n, [0.0] * n, []
+
+    def client_thread(t):
+        client = HttpClient(port)
+        try:
+            for i in range(t, n, threads):
+                t1 = time.monotonic()
+                results[i] = client.ok("POST", "/corpus/_search", bodies[i])
+                lat[i] = (time.monotonic() - t1) * 1e3
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+        finally:
+            client.close()
+
+    pool = [threading.Thread(target=client_thread, args=(t,),
+                             name=f"serve-client-{t}", daemon=True)
+            for t in range(threads)]
+    t0 = time.monotonic()
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(300)
+    wall = time.monotonic() - t0
+    if any(t.is_alive() for t in pool):
+        raise AssertionError("serving: a concurrent client hung")
+    if errors:
+        raise errors[0]
+    return results, lat, wall
+
+
+def client_process_main(port: int, threads: int, in_path: str,
+                        out_path: str) -> None:
+    """``client_threads`` in a process of its own (run by
+    ``serve_concurrent``): the bodies come from ``in_path``, the
+    responses, latencies and wall time go to ``out_path``."""
+    with open(in_path) as f:
+        bodies = json.load(f)
+    results, lat, wall = client_threads(port, bodies, threads)
+    with open(out_path, "w") as f:
+        json.dump({"results": results, "lat": lat, "wall": wall}, f)
+
+
+def serve_concurrent(port: int, bodies, seq, threads: int,
+                     own_process: bool) -> tuple:
+    """(qps, p50 ms, p99 ms) of ``bodies`` sent as ``_search`` requests
+    from ``threads`` client threads, in this process (their JSON and HTTP
+    work shares the node's interpreter lock) or in a child process of
+    their own; every response must equal the sequential one."""
+    import tempfile
+
+    if own_process:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_clients_") as d:
+            in_path = os.path.join(d, "bodies.json")
+            out_path = os.path.join(d, "out.json")
+            with open(in_path, "w") as f:
+                json.dump(bodies, f)
+            subprocess.run(
+                [sys.executable, "-c",
+                 "import chip_smoke as cs; cs.client_process_main("
+                 f"{port}, {threads}, {in_path!r}, {out_path!r})"],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                check=True, timeout=600)
+            with open(out_path) as f:
+                out = json.load(f)
+        results, lat, wall = out["results"], out["lat"], out["wall"]
+    else:
+        results, lat, wall = client_threads(port, bodies, threads)
+    bad = [i for i, r in enumerate(results)
+           if strip_took(r) != seq[i]]
+    if bad:
+        raise AssertionError(f"serving: concurrent responses {bad[:5]} "
+                             "differ from sequential ones")
+    return (len(bodies) / wall, float(np.percentile(lat, 50)),
+            float(np.percentile(lat, 99)))
+
+
+def phase_serving(counters) -> dict:
+    """Phase 9: the serving node on the card, over HTTP only (see the
+    module doc)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from opensearch_tpu_torch.node import Node
+    from opensearch_tpu_torch.search import engine as engine_mod
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing import corpus
+    from opensearch_tpu_torch.testing.parity import knn_mismatch
+
+    t_phase = time.monotonic()
+    path = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    state = WriteState(corpus.render_texts(SERVE_DOCS, seed=44))
+    rng = np.random.default_rng(91)
+    match_qs = [{"query": {"match": {"body": f"t{a} t{b}"}}, "size": 10}
+                for a, b in corpus.zipf_query_log(200, seed=7)]
+    log_qs = [{"query": {"match": {"body": f"t{a} t{b}"}}, "size": 10}
+              for a, b in corpus.zipf_query_log(256, seed=7)]
+    nodes = []
+    for fn in counters.values():                # this path starts here
+        fn.launches = 0
+    try:
+        node = Node(path, port=0, device=DEVICE).start()
+        nodes.append(node)
+        client = HttpClient(node.port)
+        root = client.ok("GET", "/")
+        health = client.ok("GET", "/_cluster/health")
+        client.ok("PUT", "/corpus", {"settings": {"number_of_shards": 2},
+                                     "mappings": WRITE_MAPPING})
+        bulk_s, refresh_ms, ops = 0.0, [], 0
+        for lo in range(0, SERVE_DOCS, SERVE_BULK):
+            t0 = time.monotonic()
+            ops += serve_bulk(client, state, rng, lo, lo + SERVE_BULK)
+            bulk_s += time.monotonic() - t0
+            if (lo + SERVE_BULK) % SERVE_REFRESH_EVERY == 0:
+                t0 = time.monotonic()
+                client.ok("POST", "/corpus/_refresh")
+                refresh_ms.append((time.monotonic() - t0) * 1e3)
+        sample = state.sample(rng, SERVE_SAMPLE)
+        read = read_back(client, state, sample)
+        live = state.live()
+        count = client.ok("GET", "/corpus/_count")["count"]
+        if count != live:
+            raise AssertionError(f"serving: _count {count}, {live} acked "
+                                 "live docs")
+        svc = node.indices.get("corpus")
+        searcher = svc.searcher()
+        n_segments = len(searcher.segments)
+        reach = sum(any(searcher.ctx.df("body", t)
+                        for t in b["query"]["match"]["body"].split())
+                    for b in match_qs)
+        client.ok("POST", "/corpus/_search", match_qs[0])      # warm-up
+        qps, p50, p99, seq_out, per_query = serve_sequential(
+            client, match_qs, counters, reach)
+        if per_query["term_bag_topk"] != 1.0 or any(
+                v for name, v in per_query.items()
+                if name != "term_bag_topk"):
+            raise AssertionError(f"serving: a match _search must make one "
+                                 f"K2 top-k launch and no other: "
+                                 f"{per_query}")
+        cpu = ShardSearcher(searcher.segments, svc.mapper,
+                            index_name="corpus", device="cpu")
+        for body, got in zip(match_qs, seq_out):
+            want = json.loads(json.dumps(cpu.search(body)))
+            if got["hits"] != want["hits"]:
+                raise AssertionError(f"serving: {json.dumps(body)} over "
+                                     "HTTP differs from the CPU searcher")
+        del cpu
+        lat = []
+        for body in match_qs:
+            t0 = time.monotonic()
+            svc.search(body)
+            lat.append((time.monotonic() - t0) * 1e3)
+        inproc_p50 = float(np.percentile(lat, 50))
+        # the same bodies through the REST controller in process (the
+        # response encoded as the HTTP layer encodes it), and the HTTP
+        # floor: a keep-alive round trip of GET /
+        lat = []
+        for body in match_qs:
+            raw = json.dumps(body).encode()
+            t0 = time.monotonic()
+            status, resp = node.rest.dispatch("POST", "/corpus/_search", {},
+                                              raw, "application/json")
+            json.dumps(resp)
+            lat.append((time.monotonic() - t0) * 1e3)
+            if status != 200:
+                raise AssertionError(f"serving: dispatch answered {status}")
+        dispatch_p50 = float(np.percentile(lat, 50))
+        lat = []
+        for _ in range(200):
+            t0 = time.monotonic()
+            client.ok("GET", "/")
+            lat.append((time.monotonic() - t0) * 1e3)
+        root_p50 = float(np.percentile(lat, 50))
+        # _msearch: one K3 launch for the batch of 64
+        batch = log_qs[:64]
+        seq64 = [strip_took(client.ok("POST", "/corpus/_search", b))
+                 for b in batch]
+        k3_before = counters["batch_topk"].launches
+        lines = []
+        for body in batch:
+            lines += [{}, body]
+        ms = client.ok("POST", "/corpus/_msearch", ndjson=lines)
+        k3_msearch = counters["batch_topk"].launches - k3_before
+        got64 = [strip_took({k: v for k, v in r.items() if k != "status"})
+                 for r in ms["responses"]]
+        if k3_msearch != 1 or got64 != seq64:
+            raise AssertionError(f"serving: an _msearch of 64 made "
+                                 f"{k3_msearch} K3 launches or differs "
+                                 "from sequential _search")
+        # 16 concurrent clients: the continuous batcher behind the real
+        # IndexService (plans compiled by the sequential pass first)
+        seq256 = [strip_took(client.ok("POST", "/corpus/_search", b))
+                  for b in log_qs]
+        eng = engine_mod.query_engine()
+        prev = (engine_mod.BATCHER_WINDOW_MS, engine_mod.BATCHER_MAX_BATCH)
+        engine_mod.BATCHER_WINDOW_MS, engine_mod.BATCHER_MAX_BATCH = 4.0, 64
+        concurrent = {}
+        try:
+            for where in ("in_process", "own_process"):
+                s0 = eng.batcher.stats()
+                k3_before = counters["batch_topk"].launches
+                c_qps, c_p50, c_p99 = serve_concurrent(
+                    node.port, log_qs, seq256, 16,
+                    own_process=where == "own_process")
+                s1 = eng.batcher.stats()
+                groups = s1["dispatches"] - s0["dispatches"]
+                batched = s1["batched"] - s0["batched"]
+                bypass = s1["bypass"] - s0["bypass"]
+                solo = len(log_qs) - batched - bypass
+                dispatches = (groups + solo + bypass) / len(log_qs)
+                if dispatches >= 1.0 or \
+                        counters["batch_topk"].launches - k3_before != groups:
+                    raise AssertionError(
+                        f"serving: {dispatches} dispatches per query from "
+                        f"16 clients {where}, {groups} groups")
+                concurrent[where] = {
+                    "qps": c_qps, "p50_ms": c_p50, "p99_ms": c_p99,
+                    "groups": groups, "batched": batched, "solo": solo,
+                    "bypass": bypass, "dispatches_per_query": dispatches}
+        finally:
+            engine_mod.BATCHER_WINDOW_MS, engine_mod.BATCHER_MAX_BATCH = prev
+        # the vectors index: one K1 launch per knn _search
+        client.ok("PUT", "/vectors", {"mappings": {"properties": {
+            "vec": {"type": "knn_vector", "dimension": DIM,
+                    "space_type": "l2"}}}})
+        vecs = corpus.random_vectors(SERVE_VECTORS, DIM, seed=45)
+        t0 = time.monotonic()
+        for lo in range(0, SERVE_VECTORS, SERVE_BULK):
+            items = []
+            for i in range(lo, lo + SERVE_BULK):
+                items += [{"index": {"_index": "vectors", "_id": f"v{i}"}},
+                          {"vec": vecs[i].tolist()}]
+            if client.ok("POST", "/_bulk", ndjson=items)["errors"]:
+                raise AssertionError("serving: a vectors _bulk item failed")
+        client.ok("POST", "/vectors/_refresh")
+        vec_bulk_s = time.monotonic() - t0
+        vsvc = node.indices.get("vectors")
+        vcpu = ShardSearcher(vsvc.searcher().segments, vsvc.mapper,
+                             index_name="vectors", device="cpu")
+        knn_qs = [{"query": {"knn": {"vec": {"vector": q.tolist(),
+                                             "k": 10}}}, "size": 10}
+                  for q in corpus.random_vectors(50, DIM, seed=46)]
+        k1_before = counters["knn_topk"].launches
+        knn_lat, knn_out = [], []
+        for body in knn_qs:
+            t0 = time.monotonic()
+            knn_out.append(client.ok("POST", "/vectors/_search", body))
+            knn_lat.append((time.monotonic() - t0) * 1e3)
+        k1_per_query = (counters["knn_topk"].launches - k1_before) / len(
+            knn_qs)
+        if k1_per_query != 1.0:
+            raise AssertionError(f"serving: {k1_per_query} K1 launches per "
+                                 "knn _search")
+        for body, got in zip(knn_qs, knn_out):
+            bad = knn_mismatch(got, json.loads(json.dumps(vcpu.search(body))))
+            if bad:
+                raise AssertionError(f"serving: knn over HTTP: {bad}")
+        del vcpu
+        multi = client.ok("GET", "/corpus,vectors/_search",
+                          {"query": {"match_all": {}}, "size": 5})
+        if multi["hits"]["total"]["value"] != live + SERVE_VECTORS or \
+                multi["_shards"]["total"] != 3:
+            raise AssertionError(f"serving: multi-index search answered "
+                                 f"{json.dumps(multi)[:200]}")
+        aggs = client.call("POST", "/corpus/_search", {
+            "size": 0, "aggs": {"t": {"terms": {"field": "tag"}}}})
+        missing = client.call("GET", "/missing/_search")
+        if aggs[0] != 501 or \
+                aggs[1]["error"]["type"] != "not_yet_ported_exception" or \
+                missing[0] != 404 or missing[1] != {
+                    "error": {"root_cause": [{
+                        "type": "index_not_found_exception",
+                        "reason": "no such index [missing]"}],
+                        "type": "index_not_found_exception",
+                        "reason": "no such index [missing]",
+                        "metadata": {"index": "missing"}},
+                    "status": 404}:
+            raise AssertionError(f"serving: aggs answered {aggs}, a "
+                                 f"missing index {missing}")
+        # merge, flush, delete the vectors index
+        del searcher
+        t0 = time.monotonic()
+        client.ok("POST", "/corpus/_forcemerge?max_num_segments=1")
+        merge_s = time.monotonic() - t0
+        client.ok("POST", "/corpus/_flush")
+        keep = match_qs[:20]
+        before_restart = [strip_took(client.ok("POST", "/corpus/_search",
+                                               b)) for b in keep]
+        resident_vectors = vsvc.searcher().resident_bytes()
+        del vsvc
+        gc.collect()
+        torch.cuda.synchronize()
+        bytes_before = device_allocated()
+        client.ok("DELETE", "/vectors")
+        gc.collect()
+        bytes_after = device_allocated()
+        if bytes_after > bytes_before - resident_vectors:
+            raise AssertionError(
+                f"serving: {bytes_after} device bytes after DELETE "
+                f"/vectors, more than {bytes_before} before it less the "
+                f"index's {resident_vectors} resident")
+        client.close()
+        # restart on the same data path
+        del svc
+        t0 = time.monotonic()
+        node.stop()
+        node = Node(path, port=0, device=DEVICE).start()
+        nodes.append(node)
+        restart_s = time.monotonic() - t0
+        client = HttpClient(node.port)
+        t0 = time.monotonic()
+        first = client.ok("POST", "/corpus/_search", keep[0])
+        first_ms = (time.monotonic() - t0) * 1e3
+        after_restart = [strip_took(first)] + [
+            strip_took(client.ok("POST", "/corpus/_search", b))
+            for b in keep[1:]]
+        if after_restart != before_restart:
+            raise AssertionError("serving: _search after the restart "
+                                 "differs from before it")
+        if client.call("HEAD", "/vectors")[0] != 404 or \
+                sorted(node.indices.indices) != ["corpus"]:
+            raise AssertionError("serving: the deleted index came back")
+        if client.ok("GET", "/corpus/_count")["count"] != live:
+            raise AssertionError("serving: _count changed across the "
+                                 "restart")
+        read += read_back(client, state, sample)
+        client.close()
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        for n in nodes:
+            n.stop()
+        shutil.rmtree(path, ignore_errors=True)
+    if min(launches[n] for n in ("term_bag_topk", "batch_topk",
+                                 "knn_topk")) <= 0:
+        raise AssertionError(f"serving: a kernel never launched: {launches}")
+    gpu = gpu_name_power()
+    out = {
+        "docs": SERVE_DOCS, "shards": 2, "bulk_ops": ops,
+        "bulk_ops_per_s": ops / bulk_s, "bulk_s": bulk_s,
+        "refresh_ms": refresh_ms, "nrt_segments": n_segments,
+        "live_docs": live, "gets_read_back": read,
+        "create_conflicts": state.conflicts,
+        "updated": len(state.updated), "deleted": len(state.deleted),
+        "match_qps": qps, "match_p50_ms": p50, "match_p99_ms": p99,
+        "match_inprocess_p50_ms": inproc_p50,
+        "match_dispatch_p50_ms": dispatch_p50,
+        "get_root_p50_ms": root_p50,
+        "rest_http_p50_ms": p50 - inproc_p50,
+        "launches_per_match": per_query, "msearch_k3_launches": k3_msearch,
+        "concurrent_16": concurrent,
+        "vectors": SERVE_VECTORS, "vectors_bulk_s": vec_bulk_s,
+        "knn_p50_ms": float(np.percentile(knn_lat, 50)),
+        "k1_launches_per_knn": k1_per_query,
+        "merge_s": merge_s,
+        "device_bytes_before_delete": bytes_before,
+        "device_bytes_after_delete": bytes_after,
+        "vectors_resident_bytes": resident_vectors,
+        "restart_s": restart_s, "first_search_after_restart_ms": first_ms,
+        "version": root["version"]["number"],
+        "health": health["status"], "launches": launches,
+        "wall_s": time.monotonic() - t_phase}
+    log(f"serving: node on {DEVICE}, {SERVE_DOCS} docs in "
+        f"{SERVE_DOCS // SERVE_BULK} _bulk requests of {SERVE_BULK} into "
+        f"2 shards ({ops} ops, one translog sync each) at "
+        f"{out['bulk_ops_per_s']:.1f} ops/s with {len(state.updated)} "
+        f"updates, {len(state.deleted)} deletes and {state.conflicts} "
+        f"refused create; refresh ms {[round(x, 1) for x in refresh_ms]}; "
+        f"{read} acked docs read back by GET (before and after the "
+        f"restart); _count {live}; match _search over HTTP ({n_segments} "
+        f"segments): qps {qps:.2f}, p50 {p50:.3f} ms, p99 {p99:.3f} ms "
+        f"(IndexService.search in process p50 {inproc_p50:.3f} ms, the "
+        f"REST controller's dispatch and encode in process p50 "
+        f"{dispatch_p50:.3f} ms, a keep-alive GET / p50 {root_p50:.3f} ms; "
+        f"so REST + HTTP {p50 - inproc_p50:.3f} ms), launches per match "
+        f"{per_query}, equal to the CPU searcher; _msearch of 64: "
+        f"{k3_msearch} K3 launch, equal to sequential; 16 clients "
+        + "; ".join(
+            f"{where}: qps {c['qps']:.2f}, p50 {c['p50_ms']:.3f} ms, p99 "
+            f"{c['p99_ms']:.3f} ms, {c['groups']} groups, "
+            f"{c['dispatches_per_query']:.4f} dispatches per query"
+            for where, c in concurrent.items())
+        + ", equal to sequential; "
+        f"vectors: {SERVE_VECTORS} docs by _bulk in {vec_bulk_s:.2f} s, "
+        f"knn p50 {out['knn_p50_ms']:.3f} ms, {k1_per_query:.2f} K1 "
+        f"launches per knn _search, within tolerance of the CPU; aggs "
+        f"501, missing index 404; _forcemerge {merge_s:.2f} s; device "
+        f"bytes {bytes_before} before DELETE /vectors, {bytes_after} after "
+        f"(index resident {resident_vectors}); restart {restart_s:.2f} s, "
+        f"first _search {first_ms:.1f} ms, 20 responses equal to before; "
+        f"launches {launches}; on {gpu}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2219,12 +2783,15 @@ def main() -> int:
         qscale["k4_launches"]["term_bag_quantized_scores"]
     kern["term_bag_quantized_scores"] = kern["term_bag_quantized"].pop(
         "per_slot")
-    # the write path, its counts zeroed just before it
+    # the write path, then the serving node, each with its counts zeroed
+    # just before it and read just after
     write = phase_write_path({**counters, **quantized_counters()})
-    for name, n in write["launches"].items():
-        name = "term_bag_quantized" if name == "term_bag_quantized_topk" \
-            else name
-        launches[name] += n
+    serving = phase_serving({**counters, **quantized_counters()})
+    for phase in (write, serving):
+        for name, n in phase["launches"].items():
+            name = "term_bag_quantized" \
+                if name == "term_bag_quantized_topk" else name
+            launches[name] += n
     sources = {"knn_topk": ("knn.cu", "opensearch_tpu/ops/pallas_knn.py:62"),
                "knn_scores": ("knn.cu",
                               "opensearch_tpu/ops/pallas_knn.py:62"),
@@ -2249,7 +2816,7 @@ def main() -> int:
         for name, (src, rep) in sources.items()]}
     log(json.dumps({"scale": scale, "msearch": msearch,
                     "continuous": continuous, "quantized_scale": qscale,
-                    "write_path": write,
+                    "write_path": write, "serving": serving,
                     "k1_1m": kern["k1_1m"],
                     "k2_topk_heaviest": kern["term_bag_topk"]["heaviest"],
                     "k4_topk_heaviest":

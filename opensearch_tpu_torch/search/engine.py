@@ -17,7 +17,10 @@ continuous batcher and the single-shard entry).
   spills late arrivals to the sequential path instead of queueing.
 - ``QueryEngine.execute``: the batcher runs only for a caller that
   passes a ``service`` (it needs a searcher that stays the same across
-  requests).
+  requests): the node's ``IndexService`` (``indices/service.py``), whose
+  cached node-local searcher is the same across concurrent requests
+  until a refresh.  ``msearch`` and ``count`` are the other entries the
+  service calls.
 
 The reference's telemetry counters (``search.batcher.*``) are plain
 counters on the batcher here (``stats()``); insights and the profile
@@ -358,6 +361,10 @@ class QueryEngine:
     def msearch(self, searcher, bodies: list) -> list[dict]:
         """The multi-search entry (``ShardSearcher.msearch``)."""
         return searcher.msearch(bodies)
+
+    def count(self, searcher, query: Optional[dict] = None) -> int:
+        """The count entry (``ShardSearcher.count``)."""
+        return searcher.count(query)
 
     def shutdown(self):
         """Idempotent bounded-join shutdown of the worker threads; the

@@ -18,6 +18,8 @@ doc)).
 ``msearch`` batches the bodies that compile to a scored term bag into
 one ``BatchGroup`` per (field, size) (``search/batch.py``: one K3 launch
 per group on CUDA) and serves the others through ``search``.
+``merge_hit_rows`` is the coordinator's merge of several indices' hits
+(the REST layer's multi-index ``_search``).
 
 Not ported yet (ROADMAP): aggregations, sort, collapse, rescore,
 search_after, highlight / explain / fields, profile, suggest, hybrid,
@@ -66,6 +68,22 @@ def shards_section(total: int) -> dict:
     """The ``_shards`` response block of a single-shard response."""
     return {"total": int(total), "successful": int(total), "skipped": 0,
             "failed": 0}
+
+
+def merge_hit_rows(rows, sort_json=None) -> list:
+    """Coordinator-side merge of per-source hit lists (the JAX package's
+    ``merge_hit_rows``, the SearchPhaseController.sortDocs analog that the
+    REST multi-index merge uses).
+
+    ``rows``: ``(hit, source_ordinal, position)`` tuples, each source's
+    hits already in rank order and ``position`` a hit's rank within its
+    source.  Merges by (score desc, source, position).  A ``sort`` clause
+    raises ``NotYetPortedError``, as it does on the shard."""
+    if sort_json is not None:
+        raise NotYetPortedError(
+            "sort is not ported to the torch package yet")
+    rows = sorted(rows, key=lambda t: (-(t[0]["_score"] or 0.0), t[1], t[2]))
+    return [h for h, _s, _p in rows]
 
 
 def _dummy_for(group: str, field: str, dseg: DeviceSegment, mapper):

@@ -1,11 +1,16 @@
 """The PyTorch port imports neither ``jax`` nor any module of the JAX
 package ``opensearch_tpu`` (only the tests import both).
 
-Two checks: a subprocess that blocks those imports with a
-``sys.meta_path`` hook, imports every module of ``opensearch_tpu_torch``
-(the write path's engine, store and translog among them) and runs one
-CPU search and one engine round trip; and a static scan of the port's
-sources and ``chip_smoke.py`` for imports that name them.  The
+Checks: a subprocess that blocks those imports with a ``sys.meta_path``
+hook, imports every module of ``opensearch_tpu_torch`` (the write path's
+engine, store and translog, and the serving node's indices service, REST
+controller and HTTP server among them) and runs one CPU search, one
+engine round trip and one node on the CPU answering over HTTP; a static
+scan of the port's sources and ``chip_smoke.py`` for imports that name
+them; and the node's entry point, ``python -m
+opensearch_tpu_torch.node``, which serves with ``--device cpu`` and,
+without ``--device`` on a machine without CUDA, refuses with
+``DeviceUnavailableError`` instead of serving on the CPU.  The
 module-name test
 matches ``opensearch_tpu`` and ``opensearch_tpu.<sub>``, never the
 ``opensearch_tpu_torch`` prefix.
@@ -77,7 +82,10 @@ assert resp["hits"]["total"]["value"] == 4, resp
 resp = searcher.search({"query": {"knn": {"vec": {"vector": [3, 0, 1, 2],
                                                   "k": 2}}}})
 assert resp["hits"]["hits"][0]["_id"] == "3", resp
-for name in ("index.engine", "index.store", "index.translog"):
+for name in ("index.engine", "index.store", "index.translog", "node",
+             "rest.controller", "rest.http_server", "indices.service",
+             "indices.request_cache", "common.xcontent", "common.breakers",
+             "version"):
     assert "opensearch_tpu_torch." + name in names, name
 
 import tempfile
@@ -95,6 +103,27 @@ with tempfile.TemporaryDirectory() as path:
         {"query": {"match": {"body": "w1"}}})
     assert resp["hits"]["total"]["value"] == 3, resp
     engine.close()
+import json
+import urllib.request
+from opensearch_tpu_torch.node import Node
+
+with tempfile.TemporaryDirectory() as path:
+    node = Node(path, port=0, device="cpu").start()
+    try:
+        base = f"http://127.0.0.1:{node.port}"
+        with urllib.request.urlopen(base + "/") as resp:
+            assert json.loads(resp.read())["version"]["number"]
+        bulk = (json.dumps({"index": {"_index": "i", "_id": "1"}}) + "\n"
+                + json.dumps({"body": "alpha beta"}) + "\n").encode()
+        req = urllib.request.Request(
+            base + "/_bulk?refresh=true", data=bulk, method="POST",
+            headers={"Content-Type": "application/x-ndjson"})
+        with urllib.request.urlopen(req) as resp:
+            assert not json.loads(resp.read())["errors"]
+        with urllib.request.urlopen(base + "/i/_count") as resp:
+            assert json.loads(resp.read())["count"] == 1
+    finally:
+        node.stop()
 bad = sorted(m for m in sys.modules if forbidden(m))
 assert not bad, bad
 print("IMPORTED", len(names))
@@ -144,3 +173,57 @@ def test_static_scan_finds_no_jax_or_reference_import():
                  for line, name in _named_imports(path)
                  if forbidden(name)]
     assert not offenders, offenders
+
+
+def test_node_without_device_raises_without_cuda(tmp_path, monkeypatch):
+    import torch
+
+    from opensearch_tpu_torch.common.torchenv import DeviceUnavailableError
+    from opensearch_tpu_torch.node import Node
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceUnavailableError):
+        Node(str(tmp_path / "data"), port=0)
+    assert not (tmp_path / "data").exists()
+
+
+def _node_cli(tmp_path, *args, env=None):
+    return subprocess.Popen(
+        [sys.executable, "-m", "opensearch_tpu_torch.node", "--port", "0",
+         "--data-path", str(tmp_path / "data"), *args],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env)
+
+
+def test_node_cli_serves_on_the_cpu_when_asked(tmp_path):
+    import json
+    import re
+    import signal
+    import urllib.request
+
+    proc = _node_cli(tmp_path, "--device", "cpu")
+    try:
+        line = proc.stdout.readline()
+        m = re.search(r"http://127\.0\.0\.1:(\d+) .*device: cpu", line)
+        assert m, line + proc.stderr.read()
+        with urllib.request.urlopen(f"http://127.0.0.1:{m.group(1)}/",
+                                    timeout=30) as resp:
+            assert json.loads(resp.read())["cluster_name"]
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()
+
+
+def test_node_cli_without_device_refuses_without_cuda(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = _node_cli(tmp_path, env=env)
+    out, err = proc.communicate(timeout=120)
+    assert proc.returncode != 0, out
+    assert "DeviceUnavailableError" in err, err
+    assert "listening" not in out
+    assert not (tmp_path / "data").exists()
