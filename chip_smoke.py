@@ -18,8 +18,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``uses_sorted_route`` says, in one call where they mix)
    against ``knn_topk_segments``, K1's scores-only entry
    ``knn_scores`` (three spaces; 1M x 128, the per-segment shape, a
-   ragged n), both within the stated tolerance; K2's per-slot entry
-   (the term-bag scorer) on three real query bags, byte for byte; and
+   ragged n), both within the stated tolerance; K2's and K4's per-slot
+   (dense) entry, folded into one launch per segment and call
+   (``term_bag_fold_kernel``), byte for byte against its plain twins in
+   every mode the paths call (scores; scores + counts; counts only, as
+   ``match_count`` and ``postings_mask`` call it) on the median, the
+   heaviest and the 25-term code-heavy bag, f32 over the 16 scale
+   segments and int8 and int16 over the 8 quantized ones, one launch per
+   call, then timed at the median bag beside its plain twin, the
+   ``index_add_`` chain and the route it replaced (one launch per slot,
+   ``testing/k2_sweep.py``) in the same call; and
    K2's top-k entry ``term_bag_topk_segments_cuda`` (one launch over the
    16 scale segments) against ``term_bag_topk_segments``, byte for byte,
    on the median bag, the heaviest bag, a 4-term bag, an ``and`` bag, a
@@ -47,11 +55,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    slot), k in 1, 10, 100, K_MAX, K_MAX + 1, int8 and
    int16 codes, bags with and without guarded (exact) terms, and on 4
    segments of 5,000 docs quantized under ``QUANTIZED_MODE = "on"``
-   (13-bit deltas against the scale shard's 17); its per-slot entry (the
-   quantized instantiation of K2's per-slot kernel) on three bags (and
-   timed at the median bag on one 125,000-doc segment); a mixed call
+   (13-bit deltas against the scale shard's 17); a mixed call
    over 2 quantized and 2 f32 segments; and K4 against K2 over the same
-   segments' ``dequantized()`` column staged as f32, byte for byte;
+   segments' ``dequantized()`` column staged as f32, byte for byte.
+   The scale corpus carries doc-value columns (``testing/corpus.py``
+   ``doc_value_columns``: ``price`` long, ``ts`` date, ``tag`` keyword
+   with postings and ordinals) in both layouts, for phase 10;
 3. ingest path: ~2,000 JSON docs through the port's DocumentMapper and
    SegmentWriter into 2 segments with deletes, then match / bool / knn
    (three spaces, filtered, and one k above K1's in-kernel maximum)
@@ -130,12 +139,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
    /vectors`` (the device bytes it held released); then a restart on the
    same data path (the index reloaded, ``vectors`` gone, ``_count`` and
    20 responses unchanged, the acked docs read back).  One ``serving:``
-   line prints the rates and times.
+   line prints the rates and times;
+10. filters and hybrid: on phase 4's 16 f32 segments and phase 7's 8
+   quantized ones (the ``price``, ``ts`` and ``tag`` columns staged
+   beside the postings), 200 ``bool`` queries on each layout (phase 4's
+   ``match`` pair, filtered by a ``price`` range over ~40% of the docs
+   and a ``tag`` term: one per-slot launch per call, two calls per
+   segment); 50 ``_count`` of a 5-value ``terms`` on ``tag``, a month's
+   ``range`` on ``ts`` and ``exists`` (one counts-only launch per
+   segment); 50 ``ids`` queries of 10 ids; 100 ``hybrid`` queries of
+   [the ``match`` pair, ``knn`` k = 10] through the pipeline {min_max,
+   arithmetic_mean, weights [0.3, 0.7]} (one K2 top-k and one K1 launch
+   each); and 20 more hybrids over HTTP on phase 9's node, run at the
+   end of phase 9 before the node stops: its ``corpus`` index (20,000
+   docs in 2 shards) gains a ``vec`` field by ``PUT _mapping`` and phase
+   9's 5,000 vectors by ``_bulk`` ``update`` of its first 5,000 live
+   docs, then ``PUT /_search/pipeline/p`` and the hybrids by
+   ``?search_pipeline=p`` (every one held to the CPU searcher; the
+   counts zeroed just before them and read just after).  A sample of each kind
+   equals the CPU searcher (BM25 and constant scores byte for byte;
+   hybrids' ids equal, scores within rtol 1e-5 / atol 1e-6).  One
+   ``filters and hybrid:`` line prints qps, p50 and launches per query
+   for each kind, the resident bytes of the new columns and the phase's
+   seconds.
 
 Every kernel wrapper counts its launches; the counts are zeroed just
 before phase 3 and read after phase 4, and zeroed again just before
-phases 5, 6, 7, 8 and 9 and read after each: each kernel of each path
-must have run.
+phases 5, 6, 7, 8, 9, phase 10's hybrids over HTTP and phase 10 and read
+after each: each kernel of each path must have run.
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the
 script exits non-zero and prints no result.
@@ -153,6 +184,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+FP64_FLOPS_PER_S = 34e12         # ... fp64 outside the tensor cores (K1 sums)
 SCALE_DOCS = 1_000_000
 BIG_N = 1_000_000                # the single large segment of phase 2
 SCALE_SEGMENTS = 16
@@ -199,9 +231,10 @@ def in_turns(kernel, plain, reps: int) -> tuple:
     return min(k1, k2), min(p1, p2)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
+def bound_ms(nbytes: float, flops: float,
+             peak: float = FP32_FLOPS_PER_S) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -363,7 +396,7 @@ def phase_knn_topk(scale_segs, dev, gen):
         20, "knn_topk_kernel")
     rows = sum(s.vectors.shape[0] for s in segs)
     nbytes = rows * (DIM * 4 + 2) + DIM * 4 + len(segs) * k * 8
-    bms, by = bound_ms(nbytes, 4.0 * rows * DIM)
+    bms, by = bound_ms(nbytes, 4.0 * rows * DIM, FP64_FLOPS_PER_S)
     log(f"K1 top-k l2 k={k} over {len(segs)} segments of "
         f"{segs[0].vectors.shape[0]}x{DIM}, one launch per query: ms {ms:.4f} "
         f"device_ms {dev_ms} plain_ms {plain_ms:.4f} library_ms"
@@ -442,7 +475,7 @@ def phase_kernels(scale_segs, searcher, query_pairs):
                 20)
             lib_ms = cuda_ms(lambda: v @ q, 20)
             bms, by = bound_ms(n * DIM * 4 + n + DIM * 4 + n * 4,
-                               4.0 * n * DIM)
+                               4.0 * n * DIM, FP64_FLOPS_PER_S)
             log(f"K1 l2 1Mx128: ms {ms:.4f} plain_ms {plain_ms:.4f} "
                 f"library_ms(vectors @ q) {lib_ms:.4f} bound_ms {bms:.4f} "
                 f"({by}) on {gpu_name_power()}")
@@ -472,7 +505,7 @@ def phase_kernels(scale_segs, searcher, query_pairs):
                  for v, m in cols], 5, "knn_scores_kernel")
     n_pad = cols[0][0].shape[0]
     bms, by = bound_ms(n_pad * DIM * 4 + n_pad + DIM * 4 + n_pad * 4,
-                       4.0 * n_pad * DIM)
+                       4.0 * n_pad * DIM, FP64_FLOPS_PER_S)
     out["knn_scores"] = {
         "ms": ms / nseg, "plain_ms": plain_ms / nseg,
         "library_ms": lib_ms / nseg, "bound_ms": bms, "bound_by": by,
@@ -485,89 +518,17 @@ def phase_kernels(scale_segs, searcher, query_pairs):
 
     out["knn_topk"] = phase_knn_topk(scale_segs, dev, gen)
 
-    # K2 on real query bags of the scale corpus: byte for byte against
-    # the plain twin, in both modes (scores only; scores + counts)
-    seg0 = scale_segs[0]
-    d0 = seg0.device(dev)
-    pf0 = seg0.postings["body"]
+    # the scale corpus's bags: the median and the heaviest by postings in
+    # the first segment, and a 4-term bag
+    pf0 = scale_segs[0].postings["body"]
     bags = []
     for a, b in query_pairs:
         bags.append([f"t{a}", f"t{b}"] if a != b else [f"t{a}"])
-
-    def bag_inputs(seg, terms):
-        plan, bind = searcher.compiled(
-            {"match": {"body": {"query": " ".join(terms)}}})
-        dseg = seg.device(dev)
-        dims, ins = plan.prepare(bind, seg, dseg, searcher.ctx)
-        return plan, bind, dseg, dims, ins
-
     by_size = sorted(bags, key=lambda t: df_sum(pf0, t))
     median_bag = by_size[len(by_size) // 2]
     checks = [median_bag, by_size[-1],
               by_size[len(by_size) // 4] + by_size[-2]]   # a 4-term bag
-    for terms in checks:
-        _plan, _bind, dseg, dims, ins = bag_inputs(seg0, terms)
-        t_pad, budget, _fast = dims
-        tids, active, idfs, weights, impacts, _req = ins
-        p = dseg.postings["body"]
-        args = (p["offsets"], p["doc_ids"], impacts, tids, active, idfs,
-                weights)
-        s1, c1 = bm25.impact_score_count(*args, n_pad=dseg.n_pad,
-                                         budget=budget, scored=True)
-        s2, c2 = bm25.impact_score_count_plain(*args, n_pad=dseg.n_pad,
-                                               budget=budget, scored=True)
-        s3 = bm25.impact_scores(*args, n_pad=dseg.n_pad, budget=budget)
-        s4 = bm25.impact_scores_plain(*args, n_pad=dseg.n_pad,
-                                      budget=budget)
-        torch.cuda.synchronize()
-        if not (torch.equal(s1, s2) and torch.equal(c1, c2)
-                and torch.equal(s3, s4) and torch.equal(s1, s3)):
-            raise AssertionError(f"K2 differs from its plain twin on {terms}")
-        log(f"K2 bag {terms} ({df_sum(pf0, terms)} postings): scores and "
-            f"counts byte-equal to the plain twin")
-
-    # K2 timed on the median bag, in every segment in turn (the main
-    # path's calls: OR bag, scores only)
-    calls = []
-    nbytes = 0
-    for seg in scale_segs:
-        plan, bind, dseg, dims, ins = bag_inputs(seg, median_bag)
-        t_pad, budget, _fast = dims
-        tids, active, idfs, weights, impacts, _req = ins
-        p = dseg.postings["body"]
-        pf = seg.postings["body"]
-        rows = []
-        for i, t in enumerate(median_bag):
-            tid = pf.term_id(t)
-            if tid >= 0:
-                rows.append((int(pf.offsets[tid]), int(pf.offsets[tid + 1]),
-                             float(bind["idfs"][i]),
-                             float(bind["weights"][i])))
-        nbytes += sum(8 * (e - s) for s, e, _i, _w in rows) + 4 * dseg.n_pad
-        calls.append(((p["offsets"], p["doc_ids"], impacts, tids, active,
-                       idfs, weights), dseg.n_pad, budget, rows))
-
-    def lib_chain():
-        for (_o, docs, imp, *_r), n_pad, _b, rows in calls:
-            acc = torch.zeros(n_pad, dtype=torch.float32, device=dev)
-            for s, e, idf_v, w in rows:
-                acc.index_add_(0, docs[s:e], imp[s:e] * idf_v, alpha=w)
-
-    ms, plain_ms = in_turns(
-        lambda: [bm25.impact_scores(*a, n_pad=n, budget=b)
-                 for a, n, b, _r in calls],
-        lambda: [bm25.impact_scores_plain(*a, n_pad=n, budget=b)
-                 for a, n, b, _r in calls], 20)
-    lib_ms = cuda_ms(lib_chain, 20)
-    nseg = len(calls)
-    bms, by = bound_ms(nbytes / nseg, 3.0 * (nbytes / nseg) / 8)
-    out["term_bag_scores"] = {
-        "ms": ms / nseg, "plain_ms": plain_ms / nseg,
-        "library_ms": lib_ms / nseg, "bound_ms": bms, "bound_by": by,
-        "max_abs_err": 0.0, "bag": median_bag}
-    log(f"K2 median bag {median_bag} per segment: ms {ms / nseg:.4f} "
-        f"plain_ms {plain_ms / nseg:.4f} library_ms(index_add_ chain) "
-        f"{lib_ms / nseg:.4f} bound_ms {bms:.5f} ({by})")
+    out["bags"] = {"median": median_bag, "heaviest": by_size[-1]}
 
     out["term_bag_topk"] = phase_term_bag_topk(
         scale_segs, searcher, dev, gen, median_bag, by_size[-1],
@@ -1007,11 +968,12 @@ def build_scale():
     t0 = time.monotonic()
     raw = corpus.build_raw_corpus(SCALE_DOCS, seed=42)
     vecs = corpus.random_vectors(SCALE_DOCS, DIM, seed=43)
-    segs = corpus.make_segments(raw, SCALE_SEGMENTS, vectors=vecs)
+    segs = corpus.make_segments(raw, SCALE_SEGMENTS, vectors=vecs,
+                                columns=scale_columns())
     mapper = DocumentMapper({"properties": {
         "body": {"type": "text"},
         "vec": {"type": "knn_vector", "dimension": DIM,
-                "space_type": "l2"}}})
+                "space_type": "l2"}, **corpus.COLUMNS_MAPPING}})
     searcher = ShardSearcher(segs, mapper, index_name="scale",
                              device=DEVICE)
     # stage every segment and its impact column before any timing
@@ -1300,7 +1262,7 @@ def build_quantized(raw, mapper, dtype: str) -> tuple:
     from opensearch_tpu_torch.search.executor import ShardSearcher
     from opensearch_tpu_torch.testing import corpus
 
-    segs = corpus.make_segments(raw, QUANT_SEGMENTS)
+    segs = corpus.make_segments(raw, QUANT_SEGMENTS, columns=scale_columns())
     searcher = ShardSearcher(segs, mapper, index_name=f"quant_{dtype}",
                              device=DEVICE)
     avgdl = searcher.ctx.field_stats("body").avgdl
@@ -1509,31 +1471,6 @@ def phase_quantized_kernels(quant, f32_segs, f32_searcher, query_pairs):
             f"guarded slots): k {list(ks)} byte-equal to the plain twin "
             f"(vals, ids, totals, maxes); totals {int(ref[2].sum())}")
 
-    # the per-slot entry on three bags, scores only and scores + counts
-    for terms in (median_bag, heaviest_bag, four_bag):
-        plan, bind = qsearcher.compiled(match_query(terms))
-        seg = qsegs[0]
-        dseg = seg.device(dev)
-        dims, ins = plan.prepare(bind, seg, dseg, qsearcher.ctx)
-        _t_pad, budget, _fast, width = dims
-        *tables, _req = ins
-        tids, active, idfs, weights, qv, sc, ev, eo, pk, bs = tables
-        args = (dseg.postings["body"]["offsets"], pk, bs, qv, sc, ev, eo,
-                tids, active, idfs, weights)
-        kw = dict(width=width, n_pad=dseg.n_pad, budget=budget)
-        s1, c1 = qops.quantized_impact_score_count(*args, **kw, scored=True)
-        s2, c2 = qops.quantized_impact_score_count_plain(*args, **kw,
-                                                         scored=True)
-        s3 = qops.quantized_impact_scores(*args, **kw)
-        s4 = qops.quantized_impact_scores_plain(*args, **kw)
-        torch.cuda.synchronize()
-        if not (torch.equal(s1, s2) and torch.equal(c1, c2)
-                and torch.equal(s3, s4) and torch.equal(s1, s3)):
-            raise AssertionError(f"K4 per-slot differs from its plain twin "
-                                 f"on {terms}")
-        log(f"K4 per-slot bag {terms} ({df_sum(pf0, terms)} postings): "
-            "scores and counts byte-equal to the plain twin")
-
     # a mixed call: 2 quantized and 2 f32 segments, one launch of each
     f32_median = topk_inputs(f32_segs[:2], f32_searcher,
                              match_query(median_bag))
@@ -1581,66 +1518,6 @@ def phase_quantized_kernels(quant, f32_segs, f32_searcher, query_pairs):
                                      "dequantized()")
     log(f"K4 byte-equal to K2 over the dequantized() column "
         f"({', '.join(f32_views)}; k 10, 100, K_MAX)")
-
-    # the per-slot entry timed at the median bag on one quantized segment
-    # (scores only, as bool / constant_score call it)
-    slot_fn = cuda_bm25.term_bag_quantized_cuda
-    plan, bind = qsearcher.compiled(match_query(median_bag))
-    seg, one = qsegs[0], median[0]
-    dseg = seg.device(dev)
-    dims, ins = plan.prepare(bind, seg, dseg, qsearcher.ctx)
-    _t_pad, budget, _fast, width = dims
-    tids, active, idfs, weights, qv, sc, ev, eo, pk, bs = ins[:-1]
-    args = (dseg.postings["body"]["offsets"], pk, bs, qv, sc, ev, eo, tids,
-            active, idfs, weights)
-    kw = dict(width=width, n_pad=dseg.n_pad, budget=budget)
-    before = slot_fn.launches
-    qops.quantized_impact_scores(*args, **kw)
-    per_call = slot_fn.launches - before
-    slot_ms, slot_plain_ms = in_turns(
-        lambda: qops.quantized_impact_scores(*args, **kw),
-        lambda: qops.quantized_impact_scores_plain(*args, **kw), 20)
-    view = f32_views["median"][0]
-
-    def slot_lib():
-        acc = torch.zeros(view.live.shape[0], dtype=torch.float32,
-                          device=dev)
-        for (a, b), act, idf_v, w in zip(view.rows, view.active, view.idfs,
-                                         view.weights):
-            if act:
-                acc.index_add_(0, view.doc_ids[a:b],
-                               view.impacts[a:b] * float(idf_v),
-                               alpha=float(w))
-
-    slot_lib_ms = cuda_ms(slot_lib, 20)
-    per_launch = kernel_device_ms(
-        lambda: qops.quantized_impact_scores(*args, **kw), 20,
-        "term_bag_slot_kernel")
-    if per_launch is None:
-        raise AssertionError("the profiler shows no K4 per-slot kernel")
-    slot_bytes = 4.0 * dseg.n_pad       # the dense scores written
-    slot_ops = 0
-    slot_postings = 0
-    q_bytes = one.quant.qvals.element_size()
-    for (a, b), ex in zip(one.rows[one.active],
-                          one.quant.slot_exact[one.active]):
-        n = int(b - a)
-        slot_postings += n
-        slot_bytes += n * (one.quant.width / 8 + (4 if ex >= 0 else q_bytes))
-        slot_ops += n * (3 if ex >= 0 else 4)
-    slot_bms, slot_by = bound_ms(slot_bytes, float(slot_ops))
-    log(f"K4 per-slot bag {median_bag} on one quantized segment of "
-        f"{seg.n_docs} docs ({slot_postings} postings, {per_call} launches "
-        f"a call): ms {slot_ms:.4f} device_ms {per_launch * per_call:.5f} "
-        f"({per_launch:.5f} a launch) plain_ms {slot_plain_ms:.4f} "
-        f"library_ms(index_add_ chain over dequantized()) "
-        f"{slot_lib_ms:.4f} bound_ms {slot_bms:.5f} ({slot_by}: "
-        f"{slot_bytes:.0f} bytes) on {gpu_name_power()}")
-    slot_row = {"ms": slot_ms, "device_ms": per_launch * per_call,
-                "plain_ms": slot_plain_ms, "library_ms": slot_lib_ms,
-                "bound_ms": slot_bms, "bound_by": slot_by,
-                "bound_bytes": slot_bytes, "launches_per_call": per_call,
-                "max_abs_err": 0.0, "postings": slot_postings}
 
     out = {}
     k = 10
@@ -1699,8 +1576,250 @@ def phase_quantized_kernels(quant, f32_segs, f32_searcher, query_pairs):
                      "exact_postings": exact_postings}
     del f32_views
     return {**out["median"], "max_abs_err": 0.0,
-            "heaviest": out["heaviest"], "int16": out["int16 median"],
-            "per_slot": slot_row}
+            "heaviest": out["heaviest"], "int16": out["int16 median"]}
+
+
+def slot_call(searcher, seg, terms) -> tuple:
+    """``(args, kw, quantized)`` of a scored bag's per-slot call on one
+    segment, as ``TermBagPlan.eval`` makes it: K2's dense entry on an f32
+    segment, K4's on a quantized one."""
+    plan, bind = searcher.compiled(match_query(terms))
+    dseg = seg.device(searcher.device)
+    dims, ins = plan.prepare(bind, seg, dseg, searcher.ctx)
+    offsets = dseg.postings["body"]["offsets"]
+    if len(dims) == 4:
+        _t_pad, budget, _fast, width = dims
+        tids, active, idfs, weights, qv, sc, ev, eo, pk, bs = ins[:-1]
+        return ((offsets, pk, bs, qv, sc, ev, eo, tids, active, idfs,
+                 weights), dict(width=width, n_pad=dseg.n_pad,
+                                budget=budget), True)
+    _t_pad, budget, _fast = dims
+    tids, active, idfs, weights, impacts, _req = ins
+    p = dseg.postings["body"]
+    return ((offsets, p["doc_ids"], impacts, tids, active, idfs, weights),
+            dict(n_pad=dseg.n_pad, budget=budget), False)
+
+
+def slot_rows(searcher, seg, terms) -> list:
+    """Each active slot's ``(start, end, idf, weight)`` on one segment."""
+    plan, bind = searcher.compiled(match_query(terms))
+    pf = seg.postings["body"]
+    rows = []
+    for i, t in enumerate(terms):
+        tid = pf.term_id(t)
+        if tid >= 0:
+            rows.append((int(pf.offsets[tid]), int(pf.offsets[tid + 1]),
+                         float(bind["idfs"][i]), float(bind["weights"][i])))
+    return rows
+
+
+def phase_fold(scale_segs, searcher, quant, bags) -> dict:
+    """K2's and K4's per-slot (dense) entry, folded into one launch per
+    segment and call (``term_bag_fold_kernel``), against its plain twins
+    on the card, byte for byte, in every mode the paths call: scores
+    (``impact_scores``), scores and counts and counts only
+    (``impact_score_count``), counts only (``match_count``,
+    ``postings_mask``); f32 on the 16 scale segments, int8 and int16 on
+    the 8 quantized ones; the median bag, the heaviest bag and the
+    25-term code-heavy bag.  Each call must make exactly one launch.
+    Then timed at the median bag (scores only, as ``bool`` calls it) on
+    every f32 segment in turn and on one quantized segment, beside its
+    plain twin, the ``index_add_`` chain and the route it replaced (one
+    launch per slot, ``testing/k2_sweep.py``) in the same call."""
+    import torch
+
+    from opensearch_tpu_torch.index.segment import pad_pow2
+    from opensearch_tpu_torch.ops import bm25, cuda_bm25, filters
+    from opensearch_tpu_torch.ops import quantized as qops
+    from opensearch_tpu_torch.testing import k2_sweep
+    from opensearch_tpu_torch.testing.k1_sweep import device_ms
+
+    dev = torch.device(DEVICE)
+    f32_fn, q_fn = cuda_bm25.term_bag_cuda, cuda_bm25.term_bag_quantized_cuda
+
+    def one_launch(wrapper, call):
+        before = wrapper.launches
+        out = call()
+        if wrapper.launches - before != 1:
+            raise AssertionError(f"a per-slot call made "
+                                 f"{wrapper.launches - before} launches")
+        return out
+
+    def check(searcher, segs, terms, what):
+        postings = 0
+        for seg in segs:
+            args, kw, quantized = slot_call(searcher, seg, terms)
+            postings += sum(e - s for s, e, _i, _w in
+                            slot_rows(searcher, seg, terms))
+            if quantized:
+                pairs = [(one_launch(q_fn, lambda: qops.quantized_impact_scores(
+                    *args, **kw)), qops.quantized_impact_scores_plain(
+                    *args, **kw))]
+                for scored in (True, False):
+                    a = one_launch(q_fn, lambda: qops.
+                                   quantized_impact_score_count(
+                                       *args, **kw, scored=scored))
+                    pairs += zip(a, qops.quantized_impact_score_count_plain(
+                        *args, **kw, scored=scored))
+            else:
+                pairs = [(one_launch(f32_fn, lambda: bm25.impact_scores(
+                    *args, **kw)), bm25.impact_scores_plain(*args, **kw))]
+                for scored in (True, False):
+                    a = one_launch(f32_fn, lambda: bm25.impact_score_count(
+                        *args, **kw, scored=scored))
+                    pairs += zip(a, bm25.impact_score_count_plain(
+                        *args, **kw, scored=scored))
+                p = seg.device(dev).postings["body"]
+                cargs = (p["offsets"], p["doc_ids"], p["tfs"], args[3],
+                         args[4])
+                pairs.append((one_launch(f32_fn, lambda: bm25.match_count(
+                    *cargs, **kw)), bm25.match_count_plain(*cargs, **kw)))
+                pairs.append((one_launch(f32_fn, lambda: filters.
+                                         postings_mask(*cargs, **kw)),
+                              filters.postings_mask_plain(*cargs, **kw)))
+            torch.cuda.synchronize()
+            for got, want in pairs:
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    raise AssertionError(f"the folded per-slot kernel "
+                                         f"differs from its plain twin: "
+                                         f"{what} {terms} on {seg.seg_id}")
+        log(f"K2/K4 per-slot fold {what} bag of {len(terms)} terms "
+            f"({postings} postings over {len(segs)} segments): scores, "
+            f"scores + counts, counts only byte-equal to the plain twins, "
+            f"one launch per call")
+
+    checked = {}
+    for layout, (segs, srch) in {"f32": (scale_segs, searcher),
+                                 "int8": quant["int8"][:2],
+                                 "int16": quant["int16"][:2]}.items():
+        for name, terms in bags.items():
+            check(srch, segs, terms, f"{layout} {name}")
+            checked.setdefault(layout, []).append(name)
+
+    # timed: the median bag on every f32 segment in turn (scores only)
+    median = bags["median"]
+    calls = []
+    nbytes = ops = 0.0
+    for seg in scale_segs:
+        args, kw, _q = slot_call(searcher, seg, median)
+        rows = slot_rows(searcher, seg, median)
+        nbytes += sum(8 * (e - st) + 8 for st, e, _i, _w in rows) \
+            + 4 * kw["n_pad"]
+        ops += sum(3 * (e - st) for st, e, _i, _w in rows)
+        calls.append((args, kw, rows))
+    nseg = len(calls)
+
+    def fold():
+        return [bm25.impact_scores(*a, **kw) for a, kw, _r in calls]
+
+    def route():
+        return [k2_sweep.slot_route_cuda(*a, **kw, scores=True,
+                                         counts=False)
+                for a, kw, _r in calls]
+
+    def lib_chain():
+        for (_o, docs, imp, *_rest), kw, rows in calls:
+            acc = torch.zeros(kw["n_pad"], dtype=torch.float32, device=dev)
+            for st, e, idf_v, w in rows:
+                acc.index_add_(0, docs[st:e], imp[st:e] * idf_v, alpha=w)
+
+    for got, (want, _none) in zip(fold(), route()):
+        if not torch.equal(got, want):
+            raise AssertionError("the fold differs from the replaced route")
+    ms, route_ms = in_turns(fold, route, 20)
+    plain_ms = cuda_ms(lambda: [bm25.impact_scores_plain(*a, **kw)
+                                for a, kw, _r in calls], 10)
+    lib_ms = cuda_ms(lib_chain, 20)
+    dev_ms = kernel_device_ms(fold, 5, "term_bag_fold_kernel")
+    t_pad = calls[0][0][3].shape[0]
+    # the replaced route's device time per call: its memset and launches
+    route_dev_ms = device_ms(route, 5) / nseg
+    if dev_ms is None:
+        raise AssertionError("the profiler shows no per-slot kernel")
+    bms, by = bound_ms(nbytes / nseg, ops / nseg)
+    gpu = gpu_name_power()
+    f32_row = {"ms": ms / nseg, "device_ms": dev_ms, "plain_ms":
+               plain_ms / nseg, "library_ms": lib_ms / nseg,
+               "bound_ms": bms, "bound_by": by, "bound_bytes": nbytes / nseg,
+               "max_abs_err": 0.0, "bag": median, "launches_per_call": 1,
+               "replaced_route_ms": route_ms / nseg,
+               "replaced_route_device_ms": route_dev_ms,
+               "replaced_route_launches_per_call": t_pad,
+               "checked": checked}
+    log(f"K2 per-slot fold, median bag {median} per f32 segment of "
+        f"{scale_segs[0].n_docs} docs, scores only, 1 launch a call: ms "
+        f"{ms / nseg:.4f} device_ms {dev_ms:.5f} plain_ms "
+        f"{plain_ms / nseg:.4f} library_ms(index_add_ chain) "
+        f"{lib_ms / nseg:.4f} bound_ms {bms:.5f} ({by}: "
+        f"{nbytes / nseg:.0f} bytes); the replaced route ({t_pad} launches "
+        f"a call and a memset) ms {route_ms / nseg:.4f} device_ms "
+        f"{route_dev_ms:.5f}, in the same call; on {gpu}")
+
+    # timed: the median bag on one quantized segment (scores only)
+    qsegs, qsearcher, _stats = quant["int8"]
+    seg = qsegs[0]
+    args, kw, _q = slot_call(qsearcher, seg, median)
+    rows = slot_rows(qsearcher, seg, median)
+    qt = seg.quantized_table("body", qsearcher.ctx.field_stats(
+        "body").avgdl)
+    q_bytes = args[3].element_size()
+    ex = np.diff(qt.exact_offsets)
+    pf = seg.postings["body"]
+    qbytes = 4.0 * kw["n_pad"]
+    qops_n = 0
+    for t in median:
+        tid = pf.term_id(t)
+        if tid < 0:
+            continue
+        n = int(pf.df[tid])
+        qbytes += n * (qt.width / 8 + (4 if ex[tid] > 0 else q_bytes)) + 24
+        qops_n += n * (3 if ex[tid] > 0 else 4)
+    # the index_add_ chain over the segment's dequantized column
+    p_pad = pad_pow2(len(pf.doc_ids))
+    ids = torch.from_numpy(np.pad(pf.doc_ids, (0, p_pad - len(pf.doc_ids)),
+                                  constant_values=seg.n_docs)).to(dev)
+    deq = torch.from_numpy(np.pad(qt.dequantized(),
+                                  (0, p_pad - len(pf.doc_ids)))).to(dev)
+
+    def q_lib():
+        acc = torch.zeros(kw["n_pad"], dtype=torch.float32, device=dev)
+        for st, e, idf_v, w in rows:
+            acc.index_add_(0, ids[st:e], deq[st:e] * idf_v, alpha=w)
+
+    def q_fold():
+        return qops.quantized_impact_scores(*args, **kw)
+
+    def q_route():
+        return k2_sweep.slot_route_quantized_cuda(*args, **kw, scores=True,
+                                                  counts=False)
+
+    if not torch.equal(q_fold(), q_route()[0]):
+        raise AssertionError("the quantized fold differs from the replaced "
+                             "route")
+    q_ms, q_route_ms = in_turns(q_fold, q_route, 20)
+    q_plain_ms = cuda_ms(lambda: qops.quantized_impact_scores_plain(
+        *args, **kw), 10)
+    q_lib_ms = cuda_ms(q_lib, 20)
+    q_dev = kernel_device_ms(q_fold, 20, "term_bag_fold_kernel")
+    q_route_dev = device_ms(q_route, 20)
+    q_t_pad = args[7].shape[0]
+    q_bms, q_by = bound_ms(qbytes, float(qops_n))
+    q_row = {"ms": q_ms, "device_ms": q_dev, "plain_ms": q_plain_ms,
+             "library_ms": q_lib_ms, "bound_ms": q_bms, "bound_by": q_by,
+             "bound_bytes": qbytes, "max_abs_err": 0.0, "bag": median,
+             "launches_per_call": 1, "replaced_route_ms": q_route_ms,
+             "replaced_route_device_ms": q_route_dev,
+             "replaced_route_launches_per_call": q_t_pad,
+             "postings": sum(e - st for st, e, _i, _w in rows)}
+    log(f"K4 per-slot fold, median bag {median} on one quantized segment "
+        f"of {seg.n_docs} docs ({q_row['postings']} postings), scores "
+        f"only, 1 launch a call: ms {q_ms:.4f} device_ms {q_dev:.5f} "
+        f"plain_ms {q_plain_ms:.4f} library_ms(index_add_ chain over "
+        f"dequantized()) {q_lib_ms:.4f} bound_ms {q_bms:.5f} ({q_by}: "
+        f"{qbytes:.0f} bytes); the replaced route ({q_t_pad} launches a "
+        f"call and a memset) ms {q_route_ms:.4f} device_ms "
+        f"{q_route_dev:.5f}, in the same call; on {gpu}")
+    return {"term_bag_scores": f32_row, "term_bag_quantized_scores": q_row}
 
 
 def phase_quantized_scale(segs, mapper, searcher, build, counters) -> dict:
@@ -2410,9 +2529,12 @@ def serve_concurrent(port: int, bodies, seq, threads: int,
             float(np.percentile(lat, 99)))
 
 
-def phase_serving(counters) -> dict:
+def phase_serving(counters, then=None) -> dict:
     """Phase 9: the serving node on the card, over HTTP only (see the
-    module doc)."""
+    module doc).  ``then(node, state)``, when given, runs on the node
+    after this phase has read its counts and before the node stops;
+    what it returns is the result's ``"then"``, and its seconds are not
+    in the phase's ``wall_s``."""
     import gc
     import shutil
     import tempfile
@@ -2664,6 +2786,9 @@ def phase_serving(counters) -> dict:
         read += read_back(client, state, sample)
         client.close()
         launches = {name: fn.launches for name, fn in counters.items()}
+        t_then = time.monotonic()
+        after = then(node, state) if then is not None else None
+        then_s = time.monotonic() - t_then
     finally:
         for n in nodes:
             n.stop()
@@ -2696,7 +2821,7 @@ def phase_serving(counters) -> dict:
         "restart_s": restart_s, "first_search_after_restart_ms": first_ms,
         "version": root["version"]["number"],
         "health": health["status"], "launches": launches,
-        "wall_s": time.monotonic() - t_phase}
+        "then": after, "wall_s": time.monotonic() - t_phase - then_s}
     log(f"serving: node on {DEVICE}, {SERVE_DOCS} docs in "
         f"{SERVE_DOCS // SERVE_BULK} _bulk requests of {SERVE_BULK} into "
         f"2 shards ({ops} ops, one translog sync each) at "
@@ -2729,6 +2854,294 @@ def phase_serving(counters) -> dict:
     return out
 
 
+# -- phase 10 ---------------------------------------------------------------
+
+FILTER_QUERIES = 200             # phase 10: bool + filters, on each layout
+COUNT_QUERIES = 50               # _count of terms + a month's range + exists
+IDS_QUERIES = 50                 # ids queries of IDS_PER_QUERY ids
+IDS_PER_QUERY = 10
+HYBRID_QUERIES = 100             # hybrid [match pair, knn k = 10]
+HTTP_HYBRIDS = 20                # ... over HTTP through phase 9's node
+FOLD_SAMPLE = 5                  # of each kind, held to the CPU searcher
+# the normalization processor of phase 10's pipeline
+PIPELINE = {"normalization": {"technique": "min_max"},
+            "combination": {"technique": "arithmetic_mean",
+                            "parameters": {"weights": [0.3, 0.7]}}}
+MONTH_STARTS = [f"2024-{m:02d}-01" for m in range(1, 13)] + ["2025-01-01"]
+
+
+def scale_columns() -> dict:
+    """The scale corpus's doc-value columns (``price``, ``ts``, ``tag``),
+    the same for its f32 and its quantized layout."""
+    from opensearch_tpu_torch.testing import corpus
+
+    return corpus.doc_value_columns(SCALE_DOCS, seed=11)
+
+
+def phase10_bodies() -> dict:
+    """Phase 10's traffic, seeded: ``bool`` bodies (the match pairs of
+    phase 4, a ``price`` range over ~40% of the docs, a ``tag`` term),
+    ``_count`` queries (5 ``tag`` values, a month of ``ts``, ``exists``),
+    ``ids`` bodies and ``hybrid`` bodies (a match pair and a ``knn`` on
+    ``vec``, through ``PIPELINE``)."""
+    from opensearch_tpu_torch.testing import corpus
+
+    rng = np.random.default_rng(61)
+    pairs = corpus.zipf_query_log(FILTER_QUERIES, seed=7)
+    width = int(corpus.PRICE_MAX * 0.4)
+
+    def tag():              # one of the 20 most common tags, zipf-drawn
+        return corpus.tag_name(min(int(rng.zipf(1.3)) - 1, 19))
+
+    bools = []
+    for a, b in pairs:
+        lo = int(rng.integers(0, corpus.PRICE_MAX - width))
+        bools.append({"query": {"bool": {
+            "must": [{"match": {"body": f"t{a} t{b}"}}],
+            "filter": [{"range": {"price": {"gte": lo, "lt": lo + width}}},
+                       {"term": {"tag": tag()}}]}},
+            "size": 10, "_source": False})
+    counts = []
+    for _ in range(COUNT_QUERIES):
+        m = int(rng.integers(0, 12))
+        counts.append({"bool": {"filter": [
+            {"terms": {"tag": [tag() for _ in range(5)]}},
+            {"range": {"ts": {"gte": MONTH_STARTS[m],
+                              "lt": MONTH_STARTS[m + 1]}}},
+            {"exists": {"field": "price"}}]}})
+    ids = [{"query": {"ids": {"values": [
+        str(int(i)) for i in rng.integers(0, SCALE_DOCS,
+                                          size=IDS_PER_QUERY)]}},
+        "size": IDS_PER_QUERY, "_source": False}
+        for _ in range(IDS_QUERIES)]
+    hybrids = [{"query": {"hybrid": {"queries": [
+        {"match": {"body": f"t{a} t{b}"}},
+        {"knn": {"vec": {"vector": rng.standard_normal(DIM).astype(
+            np.float32).tolist(), "k": 10}}}]}},
+        "size": 10, "_source": False, "_hybrid_pipeline": PIPELINE}
+        for a, b in corpus.zipf_query_log(HYBRID_QUERIES + HTTP_HYBRIDS,
+                                          seed=17)]
+    return {"bool": bools, "count": counts, "ids": ids,
+            "hybrid": hybrids[:HYBRID_QUERIES],
+            "http_hybrid": hybrids[HYBRID_QUERIES:]}
+
+
+def timed_calls(fn, items) -> tuple:
+    """(qps, p50 ms, results) of ``fn(item)`` over ``items`` one after
+    another, each ending on a host read of its result."""
+    lat, out = [], []
+    t0 = time.monotonic()
+    for item in items:
+        t = time.monotonic()
+        out.append(fn(item))
+        lat.append((time.monotonic() - t) * 1e3)
+    return len(items) / (time.monotonic() - t0), float(np.median(lat)), out
+
+
+def phase_http_hybrid(node, state, counters) -> dict:
+    """Phase 10's hybrids over HTTP, on phase 9's node before it stops
+    (``phase_serving``'s ``then``): its ``corpus`` index (SERVE_DOCS
+    docs in 2 shards) gains a ``vec`` field by ``PUT _mapping``, and
+    phase 9's SERVE_VECTORS vectors reach its first SERVE_VECTORS live
+    docs by ``_bulk`` ``update``; then ``PUT /_search/pipeline/p`` and
+    HTTP_HYBRIDS hybrids by ``?search_pipeline=p``, their counts zeroed
+    just before them and read just after, held to the CPU searcher."""
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing import corpus
+    from opensearch_tpu_torch.testing.parity import knn_mismatch
+
+    t_phase = time.monotonic()
+    bodies = phase10_bodies()["http_hybrid"]
+    client = HttpClient(node.port)
+    client.ok("PUT", "/corpus/_mapping", {"properties": {"vec": {
+        "type": "knn_vector", "dimension": DIM, "space_type": "l2"}}})
+    vecs = corpus.random_vectors(SERVE_VECTORS, DIM, seed=45)
+    live = [doc for doc, src in state.docs.items()
+            if src is not None][:SERVE_VECTORS]
+    t0 = time.monotonic()
+    for lo in range(0, len(live), SERVE_BULK):
+        items = []
+        for i in range(lo, min(lo + SERVE_BULK, len(live))):
+            items += [{"update": {"_index": "corpus", "_id": live[i]}},
+                      {"doc": {"vec": vecs[i].tolist()}}]
+        if client.ok("POST", "/_bulk", ndjson=items)["errors"]:
+            raise AssertionError("phase 10: a vector update failed")
+    client.ok("POST", "/corpus/_refresh")
+    update_s = time.monotonic() - t0
+    pipe = {"phase_results_processors": [
+        {"normalization-processor": PIPELINE}]}
+    client.ok("PUT", "/_search/pipeline/p", pipe)
+    if client.ok("GET", "/_search/pipeline/p") != {"p": pipe}:
+        raise AssertionError("phase 10: the pipeline reads back otherwise")
+    plain = [{k: v for k, v in b.items() if k != "_hybrid_pipeline"}
+             for b in bodies]
+    path = "/corpus/_search?search_pipeline=p"
+    client.ok("POST", path, plain[0])                       # warm-up
+    for fn in counters.values():                # this path starts here
+        fn.launches = 0
+    qps, p50, out = timed_calls(lambda b: client.ok("POST", path, b), plain)
+    launches = {n: c.launches for n, c in counters.items()}
+    got = {n: v for n, v in launches.items() if v}
+    if got != {"term_bag_topk": HTTP_HYBRIDS, "knn_topk": HTTP_HYBRIDS}:
+        raise AssertionError(f"phase 10 hybrid over HTTP: launches {got}")
+    svc = node.indices.get("corpus")
+    segments = svc.searcher().segments
+    cpu = ShardSearcher(segments, svc.mapper, index_name="corpus",
+                        device="cpu")
+    for body, resp in zip(bodies, out):
+        ref = json.loads(json.dumps(cpu.search(dict(body))))
+        bad = knn_mismatch(resp, ref)
+        if bad or [h["_id"] for h in resp["hits"]["hits"]] != \
+                [h["_id"] for h in ref["hits"]["hits"]]:
+            raise AssertionError(f"phase 10 hybrid over HTTP vs cpu: {bad}")
+    if not all(r["hits"]["hits"] for r in out):
+        raise AssertionError("phase 10: a hybrid over HTTP found nothing")
+    client.ok("DELETE", "/_search/pipeline/p")
+    client.close()
+    return {"qps": qps, "p50_ms": p50, "queries": HTTP_HYBRIDS,
+            "launches_per_query": {n: v / HTTP_HYBRIDS
+                                   for n, v in launches.items()},
+            "launches": launches, "docs": len(state.docs),
+            "live_docs": state.live(), "shards": 2,
+            "vectors": len(live), "segments": len(segments),
+            "vector_update_s": update_s,
+            "wall_s": time.monotonic() - t_phase}
+
+
+def phase_filters_hybrid(segs, mapper, searcher, qsegs, qsearcher,
+                         counters, http=None) -> dict:
+    """Phase 10: filters and hybrid on the card (see the module doc);
+    ``http`` is what ``phase_http_hybrid`` returned on phase 9's node."""
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing.parity import (bm25_mismatch,
+                                                     knn_mismatch)
+
+    t_phase = time.monotonic()
+    q = phase10_bodies()
+    layouts = {"f32": (segs, searcher), "quantized": (qsegs, qsearcher)}
+    cpu = {name: ShardSearcher(s, mapper, index_name=srch.index_name,
+                               device="cpu")
+           for name, (s, srch) in layouts.items()}
+
+    def can_match(srch, body):
+        plan, bind = srch.compiled(body["query"])
+        return sum(bool(plan.can_match(bind, seg)) for seg in srch.segments)
+
+    # warm-up: staging of the columns and the demand-staged tag postings
+    for srch in (searcher, qsearcher):
+        for body in q["bool"][:3]:
+            srch.search(dict(body))
+    searcher.count(q["count"][0])
+    searcher.search(dict(q["ids"][0]))
+    searcher.search(dict(q["hybrid"][0]))
+    for fn in counters.values():                # this path starts here
+        fn.launches = 0
+    kinds, launches = {}, {}
+
+    def run(kind, fn, items):
+        before = {n: c.launches for n, c in counters.items()}
+        qps, p50, out = timed_calls(fn, items)
+        launches[kind] = {n: c.launches - before[n]
+                          for n, c in counters.items()}
+        kinds[kind] = {"qps": qps, "p50_ms": p50, "queries": len(items),
+                       "launches_per_query": {
+                           n: v / len(items)
+                           for n, v in launches[kind].items()}}
+        return out
+
+    out = {}
+    for name, (_s, srch) in layouts.items():
+        out[f"bool_{name}"] = run(f"bool_{name}", lambda b, s=srch: s.search(
+            dict(b)), q["bool"])
+    out["count"] = run("count", searcher.count, q["count"])
+    out["ids"] = run("ids", lambda b: searcher.search(dict(b)), q["ids"])
+    out["hybrid"] = run("hybrid", lambda b: searcher.search(dict(b)),
+                        q["hybrid"])
+    # one launch per per-slot call: two calls (the match, the tag filter)
+    # per segment a bool query reaches; one (the terms filter) per segment
+    # of a count; none for ids; one K2 top-k and one K1 per hybrid
+    want = {"bool_f32": {"term_bag_scores": sum(
+                2 * can_match(searcher, b) for b in q["bool"])},
+            "bool_quantized": {
+                "term_bag_scores": sum(can_match(qsearcher, b)
+                                       for b in q["bool"]),
+                "term_bag_quantized_scores": sum(can_match(qsearcher, b)
+                                                 for b in q["bool"])},
+            "count": {"term_bag_scores": COUNT_QUERIES * len(segs)},
+            "ids": {},
+            "hybrid": {"term_bag_topk": HYBRID_QUERIES,
+                       "knn_topk": HYBRID_QUERIES}}
+    for kind, expect in want.items():
+        got = {n: v for n, v in launches[kind].items() if v}
+        if got != expect:
+            raise AssertionError(f"phase 10 {kind}: launches {got}, "
+                                 f"expected {expect}")
+    # answers: hits found, and a sample equal to the CPU searcher
+    for kind in ("bool_f32", "bool_quantized", "ids", "hybrid"):
+        if sum(bool(r["hits"]["hits"]) for r in out[kind]) < \
+                0.5 * len(out[kind]):
+            raise AssertionError(f"phase 10 {kind}: most queries found "
+                                 "nothing")
+    for name, (_s, srch) in layouts.items():
+        for body, got in list(zip(q["bool"], out[f"bool_{name}"]))[
+                :FOLD_SAMPLE]:
+            bad = bm25_mismatch(got, cpu[name].search(dict(body)))
+            if bad:
+                raise AssertionError(f"phase 10 bool {name} vs cpu: {bad}")
+    for body, got in list(zip(q["count"], out["count"]))[:FOLD_SAMPLE]:
+        if got != cpu["f32"].count(body):
+            raise AssertionError("phase 10 count differs from the CPU")
+    for body, got in list(zip(q["ids"], out["ids"]))[:FOLD_SAMPLE]:
+        bad = bm25_mismatch(got, cpu["f32"].search(dict(body)))
+        if bad:
+            raise AssertionError(f"phase 10 ids vs cpu: {bad}")
+    for body, got in list(zip(q["hybrid"], out["hybrid"]))[:FOLD_SAMPLE]:
+        ref = cpu["f32"].search(dict(body))
+        bad = knn_mismatch(got, ref)
+        if bad or [h["_id"] for h in got["hits"]["hits"]] != \
+                [h["_id"] for h in ref["hits"]["hits"]]:
+            raise AssertionError(f"phase 10 hybrid vs cpu: {bad}")
+    del cpu
+    # the resident bytes of the columns this slice stages
+    resident = {}
+    for name, (s, srch) in layouts.items():
+        dsegs = [seg.device(srch.device) for seg in s]
+        resident[name] = {
+            "numeric": sum(d.column_bytes("numeric") for d in dsegs),
+            "ordinal": sum(d.column_bytes("ordinal") for d in dsegs),
+            "tag_postings": sum(
+                sum(t.numel() * t.element_size()
+                    for t in d.postings["tag"].values()) for d in dsegs)}
+
+    # the hybrids over HTTP, run on phase 9's node (phase_http_hybrid)
+    if http is not None:
+        kinds["http_hybrid"] = {k: http[k] for k in (
+            "qps", "p50_ms", "queries", "launches_per_query")}
+        launches["http_hybrid"] = http["launches"]
+    totals = {n: sum(launches[k][n] for k in launches) for n in counters}
+    gpu = gpu_name_power()
+    wall = time.monotonic() - t_phase + (http["wall_s"] if http else 0.0)
+    log("filters and hybrid: " + "; ".join(
+        f"{k} qps {v['qps']:.2f}, p50 {v['p50_ms']:.3f} ms, launches per "
+        f"query " + ", ".join(f"{n} {x:.2f}" for n, x in
+                              v["launches_per_query"].items() if x)
+        for k, v in kinds.items())
+        + (f"; hybrids over HTTP on phase 9's node: {http['live_docs']} "
+           f"live docs in {http['shards']} shards and {http['segments']} "
+           f"segments, {http['vectors']} vectors added by _bulk update in "
+           f"{http['vector_update_s']:.2f} s, {http['wall_s']:.2f} s in all"
+           if http else "")
+        + f"; every per-slot call one launch per segment; samples equal to "
+        f"the CPU searcher (BM25 byte for byte, hybrids' ids equal and "
+        f"scores within rtol 1e-5 / atol 1e-6); resident bytes of the new "
+        f"columns {resident}; phase {wall:.2f} s; on {gpu}")
+    return {"kinds": kinds, "launches": totals,
+            "resident_bytes": resident, "wall_s": wall,
+            "http_index": http and {k: http[k] for k in (
+                "docs", "live_docs", "shards", "vectors", "segments",
+                "vector_update_s", "wall_s")}}
+
+
 def main() -> int:
     import torch
 
@@ -2747,6 +3160,11 @@ def main() -> int:
     kern = phase_kernels(segs, searcher, zipf_query_log(200, seed=7))
     kern["term_bag_quantized"] = phase_quantized_kernels(
         quant, segs, searcher, zipf_query_log(200, seed=7))
+    from opensearch_tpu_torch.testing.k4_sweep import pick_bags
+    code_heavy = pick_bags(quant["int8"][1], zipf_query_log(200, seed=7))[
+        "code-heavy"][0]
+    kern.update(phase_fold(segs, searcher, quant,
+                           {**kern.pop("bags"), "code-heavy": code_heavy}))
 
     counters = {"knn_topk": cuda_knn.knn_topk_segments_cuda,
                 "knn_scores": cuda_knn.knn_scores_cuda,
@@ -2781,13 +3199,15 @@ def main() -> int:
         qscale["k4_launches"]["term_bag_quantized_topk"]
     launches["term_bag_quantized_scores"] = \
         qscale["k4_launches"]["term_bag_quantized_scores"]
-    kern["term_bag_quantized_scores"] = kern["term_bag_quantized"].pop(
-        "per_slot")
     # the write path, then the serving node, each with its counts zeroed
     # just before it and read just after
     write = phase_write_path({**counters, **quantized_counters()})
-    serving = phase_serving({**counters, **quantized_counters()})
-    for phase in (write, serving):
+    every = {**counters, **quantized_counters()}
+    serving = phase_serving(every, then=lambda node, state: (
+        phase_http_hybrid(node, state, every)))
+    filters = phase_filters_hybrid(segs, mapper, searcher, qsegs, qsearcher,
+                                   every, http=serving.pop("then"))
+    for phase in (write, serving, filters):
         for name, n in phase["launches"].items():
             name = "term_bag_quantized" \
                 if name == "term_bag_quantized_topk" else name
@@ -2817,6 +3237,9 @@ def main() -> int:
     log(json.dumps({"scale": scale, "msearch": msearch,
                     "continuous": continuous, "quantized_scale": qscale,
                     "write_path": write, "serving": serving,
+                    "filters_hybrid": filters,
+                    "per_slot": {n: kern[n] for n in (
+                        "term_bag_scores", "term_bag_quantized_scores")},
                     "k1_1m": kern["k1_1m"],
                     "k2_topk_heaviest": kern["term_bag_topk"]["heaviest"],
                     "k4_topk_heaviest":

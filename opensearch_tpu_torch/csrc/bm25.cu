@@ -18,8 +18,18 @@
 //                                  batched path has its own kernel, K3,
 //                                  csrc/union_topk.cu.)
 //   term_bag_launch                the dense scores and/or counts of one
-//                                  segment, one launch per query-term
-//                                  slot (bool, constant_score, count).
+//                                  segment in one launch (bool,
+//                                  constant_score, count, filter bags,
+//                                  postings_mask): the same tile core, a
+//                                  block per tile of kFoldTile docs, each
+//                                  tile's columns written once from
+//                                  shared memory.
+//
+// term_bag_slot_launch / term_bag_quantized_slot_launch are the route the
+// dense entry replaced (one launch per query-term slot, a grid-stride
+// scatter into device memory zeroed by the caller), kept only as its
+// yardstick in testing/k2_sweep.py, which builds this file with
+// BM25_SLOT_ROUTE defined; the library the search paths load has neither.
 //
 // The quantized row layout (term_bag_quantized_launch, K4's per-slot entry)
 // replaces the reference's `gather_postings_packed` and `_dequant` /
@@ -40,10 +50,10 @@
 // reads a 4-byte doc id and a 4-byte impact and does 2 multiplies and an
 // add.  The top-k entry also reads one live byte per doc and writes k * 8
 // + 8 bytes per segment, so its bound is (8 * postings + n_pad + 8k + 8)
-// / 3.35 TB/s per segment; the per-slot entry writes n_pad * 4 bytes per
-// column instead.  On the quantized layout a posting reads width / 8
-// bytes of packed delta and 1 or 2 bytes of code, or 4 bytes of exact
-// impact on a guarded term.
+// / 3.35 TB/s per segment; the dense entry writes n_pad * 4 bytes per
+// column instead, and in counts-only mode reads the 4-byte doc id alone.
+// On the quantized layout a posting reads width / 8 bytes of packed delta
+// and 1 or 2 bytes of code, or 4 bytes of exact impact on a guarded term.
 //
 // Exactness: per doc the contributions add in slot order from 0.0, each
 // spelled w * (idf * imp) with __fmul_rn / __fadd_rn, and the library is
@@ -79,6 +89,17 @@
 //   when unmatched), the tile keeps its best kp (`select_top`), and the
 //   last tile of a segment to finish merges them (`merge_segment`) and
 //   writes the segment's row of the output: no second launch.
+//
+// Design of the dense entry (term_bag_launch): the same tile core with the
+// slots read from the caller's device arrays (term ids, active flags,
+// idfs, weights and the CSR offsets) instead of a launch table, so the
+// wrapper copies nothing to the card.  A block owns kFoldTile docs of the
+// segment; for each slot, in slot order, eight warps find eight slots'
+// sub-ranges of the tile (group_lower_bound) and the block adds them into
+// shared memory, a barrier between slots; then the tile's scores and
+// counts, zeros included, go to device memory in one coalesced pass, so
+// the output needs no memset and the call one launch.  Counts-only mode
+// (match_count, postings_mask) reads no impact.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -92,8 +113,8 @@ namespace {
 // entry, the largest k it selects, int64 words per segment in the table
 // (f32 and quantized) and per slot of a quantized table.
 #if !defined(BM25_TILE_DOCS) || !defined(BM25_K_MAX) || !defined(BM25_SEG_WORDS) || \
-    !defined(BM25_QSEG_WORDS) || !defined(BM25_QSLOT_WORDS)
-#error "build through ops/cuda_bm25.py, which defines BM25_TILE_DOCS, BM25_K_MAX, BM25_SEG_WORDS, BM25_QSEG_WORDS, BM25_QSLOT_WORDS"
+    !defined(BM25_QSEG_WORDS) || !defined(BM25_QSLOT_WORDS) || !defined(BM25_FOLD_TILE_DOCS)
+#error "build through ops/cuda_bm25.py, which defines BM25_TILE_DOCS, BM25_K_MAX, BM25_SEG_WORDS, BM25_QSEG_WORDS, BM25_QSLOT_WORDS, BM25_FOLD_TILE_DOCS"
 #endif
 
 using topk::u64;
@@ -103,6 +124,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = BM25_TILE_DOCS;
 constexpr int kKMax = BM25_K_MAX;
 constexpr int kPer = kTile / kThreads;  // docs of the tile each thread masks and keys
+constexpr int kFoldTile = BM25_FOLD_TILE_DOCS;  // docs a block of the dense entry owns
 // keys the merge reads per round; the merge buffer (kTile keys) holds
 // the kp kept so far plus one round
 constexpr int kMergeBatch = kTile / 2;
@@ -112,6 +134,9 @@ static_assert((kTile & (kTile - 1)) == 0 && kTile % kThreads == 0,
               "kTile: a power of two, a multiple of kThreads");
 static_assert((kKMax & (kKMax - 1)) == 0 && kKMax <= kTile - kMergeBatch,
               "kKMax: a power of two the merge buffer holds beside one round");
+static_assert((kFoldTile & (kFoldTile - 1)) == 0 && kFoldTile % kThreads == 0 &&
+                  kFoldTile * 8 <= 48 * 1024,
+              "kFoldTile: a power of two, a multiple of kThreads, its columns in static shared memory");
 static_assert(BM25_SEG_WORDS >= 11, "an f32 segment's table entry holds 11 words");
 static_assert(BM25_QSEG_WORDS >= 13, "a quantized segment's table entry holds 13 words");
 static_assert(BM25_QSLOT_WORDS >= 4, "a quantized slot's table entry holds 4 words");
@@ -119,7 +144,7 @@ static_assert(BM25_QSLOT_WORDS >= 4, "a quantized slot's table entry holds 4 wor
 // Row readers: (doc, impact) of posting p of a term's row.  `Term` is what
 // the reader needs of the term beyond its posting range; `from_entry`
 // reads a segment's table entry, `read_term` a slot's, `term_of` the
-// per-term device arrays of the per-slot entry.
+// per-term device arrays of the dense entry (and of the replaced route).
 
 // The f32 layout: doc ids and impacts, one 4-byte column each.
 struct F32Rows {
@@ -156,7 +181,8 @@ struct QuantRows {
   const Q* __restrict__ qvals;
   const float* __restrict__ exact_vals;
   int width;
-  // per-term arrays, read by the per-slot entry only (null in the top-k)
+  // per-term arrays, read by the dense entry and the replaced route only
+  // (null in the top-k)
   const int32_t* __restrict__ base;
   const float* __restrict__ scales;
   const int32_t* __restrict__ exact_offsets;
@@ -189,6 +215,10 @@ struct QuantRows {
   }
 };
 
+#ifdef BM25_SLOT_ROUTE
+// The route the dense entry replaced (testing/k2_sweep.py only): slot
+// `slot`'s postings, grid-stride, added into dense columns in device
+// memory, one launch per slot.
 template <class Rows>
 __global__ void __launch_bounds__(kThreads)
 term_bag_slot_kernel(Rows rows, const int32_t* __restrict__ offsets,
@@ -212,6 +242,7 @@ term_bag_slot_kernel(Rows rows, const int32_t* __restrict__ offsets,
     if (counts != nullptr) counts[doc] += 1;
   }
 }
+#endif  // BM25_SLOT_ROUTE
 
 // First p in [lo, hi) with doc(p) >= target, else hi, over a row of
 // ascending docs.  The kSearchLanes lanes of a group (lanes base ..  base
@@ -238,80 +269,79 @@ __device__ int group_lower_bound(const Rows& rows, const typename Rows::Term& te
   return b == 0 ? hi : min(hi, lo + __ffs(b) - 1);
 }
 
-// table (int64 words): n_seg entries of Rows::kSegWords {doc_ids, impacts,
-// live, n_pad, first tile, tiles, output row, first slot, slots,
-// required, fast} (quantized: {packed, qvals, live, ..., fast,
-// exact_vals, width}); then Rows::kSlotWords words per active slot, in
-// slot order within each segment {start | end << 32, idf bits | weight
-// bits << 32} (quantized: then {base | scale bits << 32, exact start |
-// exact << 32}); then the work list (one word per block: segment << 32 |
-// tile); then 3 * n_seg int32, zero on entry: the tile counters, the
-// totals and the max keys of the segments.
+// One query-term slot as the tile core reads it: its posting range
+// [start, end), its idf and weight, and what the row reader needs of its
+// term.  An inactive slot is the empty range.
 template <class Rows>
-__global__ void __launch_bounds__(kThreads)
-term_bag_topk_kernel(const long long* __restrict__ table, int n_seg, int n_slots, int k, int kp,
-                     float min_score, float* __restrict__ out_vals, int* __restrict__ out_ids,
-                     int* __restrict__ out_totals, float* __restrict__ out_maxes,
-                     u64* __restrict__ scratch) {
-  extern __shared__ __align__(16) char smem[];  // kTile * 8 bytes
-  float* scores = reinterpret_cast<float*>(smem);
-  int* counts = reinterpret_cast<int*>(smem + kTile * 4);
-  u64* keys = reinterpret_cast<u64*>(smem);  // over scores and counts, once they are read
+struct Slot {
+  int start, end;
+  float idf, w;
+  typename Rows::Term term;
+};
+
+// Slot j of a segment's run in the top-k entry's launch table (words
+// {start | end << 32, idf bits | weight bits << 32, ...}).
+template <class Rows>
+struct TableSlots {
+  const long long* words;  // the segment's first slot
+  __device__ Slot<Rows> operator()(int j) const {
+    const long long* sl = words + Rows::kSlotWords * j;
+    const u64 range = (u64)sl[0], iw = (u64)sl[1];
+    const int start = (int)(range & 0xFFFFFFFFull);
+    return {start, (int)(range >> 32), __uint_as_float((unsigned)(iw & 0xFFFFFFFFull)),
+            __uint_as_float((unsigned)(iw >> 32)), Rows::read_term(sl, start)};
+  }
+};
+
+// Slot j of the dense entry, read from the caller's device arrays: the
+// term's row from the CSR offsets, idf and weight only when scores are
+// asked for (null otherwise).
+template <class Rows>
+struct ArraySlots {
+  Rows rows;
+  const int32_t* __restrict__ offsets;
+  const int32_t* __restrict__ term_ids;
+  const uint8_t* __restrict__ term_active;
+  const float* __restrict__ idfs;
+  const float* __restrict__ weights;
+  __device__ Slot<Rows> operator()(int j) const {
+    if (!term_active[j]) return {0, 0, 0.0f, 0.0f, typename Rows::Term{}};
+    const int32_t tid = term_ids[j];
+    const int32_t start = offsets[tid];
+    return {start, offsets[tid + 1], idfs != nullptr ? idfs[j] : 0.0f,
+            weights != nullptr ? weights[j] : 0.0f, rows.term_of(tid, start)};
+  }
+};
+
+// The tile core: adds slots 0 .. n_slots - 1, in slot order, into the
+// block's shared columns of the docs [doc0, doc0 + tile_docs): scores
+// (w * (idf * imp), from 0.0) when add_scores, matched-slot counts when
+// add_counts.  For each group of up to kWarps slots, warp w finds where
+// slot w's row enters and leaves the tile (its two half-warps search
+// the two bounds); then the block adds the slots' postings one slot
+// after the other, a barrier between slots.  Doc ids are unique within
+// a row, so no two threads touch one doc within a slot: no atomics.
+// All threads of the block call it; it ends on a barrier.
+template <class Rows, class Slots>
+__device__ void accumulate_tile(const Rows& rows, const Slots& slots, int n_slots, int doc0,
+                                int tile_docs, float* scores, int* counts, bool add_scores,
+                                bool add_counts) {
   __shared__ int lo_s[kWarps], hi_s[kWarps];
   __shared__ float idf_s[kWarps], w_s[kWarps];
   __shared__ typename Rows::Term term_s[kWarps];
-
-  const long long* slots = table + (long long)n_seg * Rows::kSegWords;
-  const long long* work = slots + (long long)Rows::kSlotWords * n_slots;
-  int* counters = reinterpret_cast<int*>(const_cast<long long*>(work + gridDim.x));
-  const long long wk = work[blockIdx.x];
-  const int seg = (int)(wk >> 32);
-  const int tile = (int)(wk & 0xFFFFFFFFll);
-  const long long* e = table + (long long)seg * Rows::kSegWords;
-  const Rows rows = Rows::from_entry(e);
-  const uint8_t* live = reinterpret_cast<const uint8_t*>(e[2]);
-  const int n_pad = (int)e[3];
-  const long long first = e[4];
-  const int n_tiles = (int)e[5];
-  const long long out_row = e[6];
-  const long long slot0 = e[7];
-  const int seg_slots = (int)e[8];
-  const int required = (int)e[9];
-  const bool fast = e[10] != 0;
-  int* total = counters + n_seg + seg;
-  unsigned* max_key = reinterpret_cast<unsigned*>(counters + 2 * n_seg + seg);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int doc0 = tile * kTile;
-  const int docs = min(kTile, n_pad - doc0);
-
-  // the tile's live bytes, in flight while the rows are searched
-  uint8_t lv[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int d = tid + i * kThreads;
-    lv[i] = d < docs ? __ldg(live + doc0 + d) : 0;
-  }
-  for (int i = tid; i < kTile; i += kThreads) {
-    scores[i] = 0.0f;
-    counts[i] = 0;
-  }
-
-  for (int g = 0; g < seg_slots; g += kWarps) {
-    const int m = min(kWarps, seg_slots - g);
+  for (int g = 0; g < n_slots; g += kWarps) {
+    const int m = min(kWarps, n_slots - g);
     if (warp < m) {  // warp w: where slot g + w's row enters and leaves the tile
-      const long long* sl = slots + Rows::kSlotWords * (slot0 + g + warp);
-      const u64 range = (u64)sl[0];
-      const int start = (int)(range & 0xFFFFFFFFull);
-      const typename Rows::Term term = Rows::read_term(sl, start);
+      const Slot<Rows> sl = slots(g + warp);
       const int half = lane >> 4;
-      const int at = group_lower_bound(rows, term, start, (int)(range >> 32), doc0 + half * kTile,
+      const int at = group_lower_bound(rows, sl.term, sl.start, sl.end, doc0 + half * tile_docs,
                                        lane & 15, half * 16, half ? 0xFFFF0000u : 0x0000FFFFu);
       if (lane == 0) {
-        const u64 iw = (u64)sl[1];
         lo_s[warp] = at;
-        idf_s[warp] = __uint_as_float((unsigned)(iw & 0xFFFFFFFFull));
-        w_s[warp] = __uint_as_float((unsigned)(iw >> 32));
-        term_s[warp] = term;
+        idf_s[warp] = sl.idf;
+        w_s[warp] = sl.w;
+        term_s[warp] = sl.term;
       }
       if (lane == 16) hi_s[warp] = at;
     }
@@ -331,19 +361,108 @@ term_bag_topk_kernel(const long long* __restrict__ table, int n_seg, int n_slots
         for (int u = 0; u < kScatterLoads; ++u) {
           const int p = base + tid + u * kThreads;
           dd[u] = p < hi ? rows.doc(p, term) - doc0 : -1;
-          im[u] = p < hi ? rows.impact(p, term) : 0.0f;
+          im[u] = add_scores && p < hi ? rows.impact(p, term) : 0.0f;
         }
 #pragma unroll
         for (int u = 0; u < kScatterLoads; ++u) {
           if (dd[u] < 0) continue;
-          scores[dd[u]] = __fadd_rn(scores[dd[u]], __fmul_rn(w, __fmul_rn(idf, im[u])));
-          if (!fast) counts[dd[u]] += 1;
+          if (add_scores)
+            scores[dd[u]] = __fadd_rn(scores[dd[u]], __fmul_rn(w, __fmul_rn(idf, im[u])));
+          if (add_counts) counts[dd[u]] += 1;
         }
       }
       __syncthreads();
     }
     __syncthreads();  // lo_s .. w_s are read before the next group overwrites them
   }
+}
+
+// The dense entry: block b owns docs [b * kFoldTile, (b + 1) * kFoldTile)
+// of one segment; it runs the tile core over the t_pad slots and writes
+// the tile's scores and counts (either may be null), zeros included.
+template <class Rows>
+__global__ void __launch_bounds__(kThreads)
+term_bag_fold_kernel(Rows rows, const int32_t* __restrict__ offsets,
+                     const int32_t* __restrict__ term_ids,
+                     const uint8_t* __restrict__ term_active,
+                     const float* __restrict__ idfs, const float* __restrict__ weights,
+                     int t_pad, int n_pad, float* __restrict__ out_scores,
+                     int32_t* __restrict__ out_counts) {
+  __shared__ float scores[kFoldTile];
+  __shared__ int counts[kFoldTile];
+  const int doc0 = blockIdx.x * kFoldTile;
+  const int docs = min(kFoldTile, n_pad - doc0);
+  const bool add_scores = out_scores != nullptr, add_counts = out_counts != nullptr;
+  for (int i = threadIdx.x; i < kFoldTile; i += kThreads) {
+    scores[i] = 0.0f;
+    counts[i] = 0;
+  }
+  __syncthreads();
+  const ArraySlots<Rows> slots{rows, offsets, term_ids, term_active,
+                               add_scores ? idfs : nullptr, add_scores ? weights : nullptr};
+  accumulate_tile(rows, slots, t_pad, doc0, kFoldTile, scores, counts, add_scores, add_counts);
+  for (int i = threadIdx.x; i < docs; i += kThreads) {
+    if (add_scores) out_scores[doc0 + i] = scores[i];
+    if (add_counts) out_counts[doc0 + i] = counts[i];
+  }
+}
+
+// table (int64 words): n_seg entries of Rows::kSegWords {doc_ids, impacts,
+// live, n_pad, first tile, tiles, output row, first slot, slots,
+// required, fast} (quantized: {packed, qvals, live, ..., fast,
+// exact_vals, width}); then Rows::kSlotWords words per active slot, in
+// slot order within each segment {start | end << 32, idf bits | weight
+// bits << 32} (quantized: then {base | scale bits << 32, exact start |
+// exact << 32}); then the work list (one word per block: segment << 32 |
+// tile); then 3 * n_seg int32, zero on entry: the tile counters, the
+// totals and the max keys of the segments.
+template <class Rows>
+__global__ void __launch_bounds__(kThreads)
+term_bag_topk_kernel(const long long* __restrict__ table, int n_seg, int n_slots, int k, int kp,
+                     float min_score, float* __restrict__ out_vals, int* __restrict__ out_ids,
+                     int* __restrict__ out_totals, float* __restrict__ out_maxes,
+                     u64* __restrict__ scratch) {
+  extern __shared__ __align__(16) char smem[];  // kTile * 8 bytes
+  float* scores = reinterpret_cast<float*>(smem);
+  int* counts = reinterpret_cast<int*>(smem + kTile * 4);
+  u64* keys = reinterpret_cast<u64*>(smem);  // over scores and counts, once they are read
+  const long long* slots = table + (long long)n_seg * Rows::kSegWords;
+  const long long* work = slots + (long long)Rows::kSlotWords * n_slots;
+  int* counters = reinterpret_cast<int*>(const_cast<long long*>(work + gridDim.x));
+  const long long wk = work[blockIdx.x];
+  const int seg = (int)(wk >> 32);
+  const int tile = (int)(wk & 0xFFFFFFFFll);
+  const long long* e = table + (long long)seg * Rows::kSegWords;
+  const Rows rows = Rows::from_entry(e);
+  const uint8_t* live = reinterpret_cast<const uint8_t*>(e[2]);
+  const int n_pad = (int)e[3];
+  const long long first = e[4];
+  const int n_tiles = (int)e[5];
+  const long long out_row = e[6];
+  const long long slot0 = e[7];
+  const int seg_slots = (int)e[8];
+  const int required = (int)e[9];
+  const bool fast = e[10] != 0;
+  int* total = counters + n_seg + seg;
+  unsigned* max_key = reinterpret_cast<unsigned*>(counters + 2 * n_seg + seg);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int doc0 = tile * kTile;
+  const int docs = min(kTile, n_pad - doc0);
+
+  // the tile's live bytes, in flight while the rows are searched
+  uint8_t lv[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int d = tid + i * kThreads;
+    lv[i] = d < docs ? __ldg(live + doc0 + d) : 0;
+  }
+  for (int i = tid; i < kTile; i += kThreads) {
+    scores[i] = 0.0f;
+    counts[i] = 0;
+  }
+
+  accumulate_tile(rows, TableSlots<Rows>{slots + Rows::kSlotWords * slot0}, seg_slots, doc0,
+                  kTile, scores, counts, true, !fast);
 
   float sc[kPer];
   bool hit[kPer];
@@ -386,6 +505,7 @@ term_bag_topk_kernel(const long long* __restrict__ table, int n_seg, int n_slots
   }
 }
 
+#ifdef BM25_SLOT_ROUTE
 template <class Rows>
 int slot_launches(Rows rows, const int32_t* offsets, const int32_t* term_ids,
                   const uint8_t* term_active, const float* idfs, const float* weights, int t_pad,
@@ -398,6 +518,18 @@ int slot_launches(Rows rows, const int32_t* offsets, const int32_t* term_ids,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+#endif  // BM25_SLOT_ROUTE
+
+template <class Rows>
+int fold_launch(Rows rows, const int32_t* offsets, const int32_t* term_ids,
+                const uint8_t* term_active, const float* idfs, const float* weights, int t_pad,
+                int n_pad, float* scores, int32_t* counts, void* stream) {
+  if (n_pad <= 0 || (scores == nullptr && counts == nullptr)) return 0;
+  const int blocks = (n_pad + kFoldTile - 1) / kFoldTile;
+  term_bag_fold_kernel<Rows><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      rows, offsets, term_ids, term_active, idfs, weights, t_pad, n_pad, scores, counts);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class Rows>
@@ -424,17 +556,19 @@ extern "C" {
 
 const char* error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
-// One launch per slot 0..t_pad-1, in order (inactive slots return at
-// once).  `grid` blocks per launch, grid-stride over the row.  `scores`
-// or `counts` may be null to skip that column (`impacts`, `idfs` and
-// `weights` are then not read).  Returns the first launch error (0 on
-// success).
+// Dense scores and/or matched-slot counts of one segment, [n_pad] each,
+// in one launch of term_bag_fold_kernel: every doc written, zeros
+// included.  `scores` or `counts` may be null to skip that column
+// (`impacts`, `idfs` and `weights` are then not read when `scores` is).
+// Slot j's term is term_ids[j], active when term_active[j] != 0; its row
+// is offsets[term] .. offsets[term + 1] of doc_ids / impacts.  Returns the
+// CUDA error of the launch (0 on success).
 int term_bag_launch(const int32_t* offsets, const int32_t* doc_ids, const float* impacts,
                     const int32_t* term_ids, const uint8_t* term_active, const float* idfs,
-                    const float* weights, int t_pad, int grid, float* scores,
-                    int32_t* counts, void* stream) {
-  return slot_launches(F32Rows{doc_ids, impacts}, offsets, term_ids, term_active, idfs, weights,
-                       t_pad, grid, scores, counts, stream);
+                    const float* weights, int t_pad, int n_pad, float* scores, int32_t* counts,
+                    void* stream) {
+  return fold_launch(F32Rows{doc_ids, impacts}, offsets, term_ids, term_active, idfs, weights,
+                     t_pad, n_pad, scores, counts, stream);
 }
 
 // term_bag_launch over a quantized segment (K4): `packed` the bit-packed
@@ -445,8 +579,43 @@ int term_bag_quantized_launch(const int32_t* offsets, const uint32_t* packed, co
                               int width, const void* qvals, int q_bytes, const float* scales,
                               const float* exact_vals, const int32_t* exact_offsets,
                               const int32_t* term_ids, const uint8_t* term_active,
-                              const float* idfs, const float* weights, int t_pad, int grid,
+                              const float* idfs, const float* weights, int t_pad, int n_pad,
                               float* scores, int32_t* counts, void* stream) {
+  if (width < 1 || width > 31) return static_cast<int>(cudaErrorInvalidValue);
+  if (q_bytes == 1)
+    return fold_launch(QuantRows<int8_t>{packed, static_cast<const int8_t*>(qvals), exact_vals,
+                                         width, base, scales, exact_offsets},
+                       offsets, term_ids, term_active, idfs, weights, t_pad, n_pad, scores,
+                       counts, stream);
+  if (q_bytes == 2)
+    return fold_launch(QuantRows<int16_t>{packed, static_cast<const int16_t*>(qvals), exact_vals,
+                                          width, base, scales, exact_offsets},
+                       offsets, term_ids, term_active, idfs, weights, t_pad, n_pad, scores,
+                       counts, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+#ifdef BM25_SLOT_ROUTE
+// The route term_bag_launch replaced, for testing/k2_sweep.py only: one
+// launch per slot 0..t_pad-1, in order (inactive slots return at once),
+// `grid` blocks per launch, grid-stride over the row, adding into
+// `scores` / `counts` the caller zeroed.  Returns the first launch error.
+int term_bag_slot_launch(const int32_t* offsets, const int32_t* doc_ids, const float* impacts,
+                         const int32_t* term_ids, const uint8_t* term_active, const float* idfs,
+                         const float* weights, int t_pad, int grid, float* scores,
+                         int32_t* counts, void* stream) {
+  return slot_launches(F32Rows{doc_ids, impacts}, offsets, term_ids, term_active, idfs, weights,
+                       t_pad, grid, scores, counts, stream);
+}
+
+// term_bag_slot_launch over a quantized segment.
+int term_bag_quantized_slot_launch(const int32_t* offsets, const uint32_t* packed,
+                                   const int32_t* base, int width, const void* qvals, int q_bytes,
+                                   const float* scales, const float* exact_vals,
+                                   const int32_t* exact_offsets, const int32_t* term_ids,
+                                   const uint8_t* term_active, const float* idfs,
+                                   const float* weights, int t_pad, int grid, float* scores,
+                                   int32_t* counts, void* stream) {
   if (width < 1 || width > 31) return static_cast<int>(cudaErrorInvalidValue);
   if (q_bytes == 1)
     return slot_launches(
@@ -460,6 +629,7 @@ int term_bag_quantized_launch(const int32_t* offsets, const uint32_t* packed, co
         offsets, term_ids, term_active, idfs, weights, t_pad, grid, scores, counts, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+#endif  // BM25_SLOT_ROUTE
 
 // Exact top-k, total and max of every segment of `table` (device memory,
 // layout above, n_blocks entries in its work list) into rows of

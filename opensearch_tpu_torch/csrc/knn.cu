@@ -18,9 +18,17 @@
 //   knn_scores_launch         the scores of one segment, written out.
 //
 // Bound on the card: memory.  Each row is d*4 bytes read once and 4*d
-// flops: at d = 128 that is 1 flop per byte, far below the H100's ~20
-// fp32 flops per byte of HBM.  16 segments of 65,536 x 128 are 537 MB,
-// about 0.16 ms at 3.35 TB/s.
+// fp64 flops: at d = 128 that is 1 flop per byte, far below the H100's
+// ~10 fp64 flops per byte of HBM.  16 segments of 65,536 x 128 are 537
+// MB, about 0.16 ms at 3.35 TB/s.
+//
+// Precision: v.q, |v|^2 and |q|^2 are summed in float64 (each product of
+// two floats is exact there) and the translated score is rounded to
+// float32 once, as the plain version (ops/knn.py) does.  Both are then
+// the correctly rounded score but in rare ties of rounding, whatever the
+// order of the sums, so the card and the CPU agree; a hybrid query's
+// min_max normalization, which divides by the spread of its top scores,
+// would otherwise magnify float32 sums' order-dependent last bits.
 //
 // Design for that bound:
 // - A block scores one chunk of kChunkRows rows of one segment (2 MiB at
@@ -35,7 +43,8 @@
 //   current one.  A group of L lanes reduces one row (L = 8 at d = 128,
 //   so a warp takes four rows at once and a tile of 32 rows is one pass
 //   of the block): lane j of the group sums the float4s j, j + L, ... of
-//   the row with explicit fmaf, then a fixed xor-shuffle tree.  The
+//   the row with explicit fma in float64, then a fixed xor-shuffle
+//   tree.  The
 //   order depends on d alone, so two identical rows score identically
 //   wherever they lie.
 // - |q|^2 is summed by every warp from the query in shared memory (one
@@ -109,23 +118,25 @@ struct Cfg {
 
 __host__ __device__ __forceinline__ int round16(int b) { return (b + 15) & ~15; }
 
-__device__ __forceinline__ float warp_sum(float x) {
+__device__ __forceinline__ double warp_sum(double x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
 
 template <int SPACE>
-__device__ __forceinline__ float translate(float dot, float v2, float q2) {
+__device__ __forceinline__ float translate(double dot, double v2, double q2) {
+  double sc;
   if (SPACE == 0) {  // l2
-    float d2 = fmaxf(v2 - 2.0f * dot + q2, 0.0f);
-    return 1.0f / (1.0f + d2);
+    const double d2 = fmax(v2 - 2.0 * dot + q2, 0.0);
+    sc = 1.0 / (1.0 + d2);
   } else if (SPACE == 1) {  // cosinesimil
-    float cosv = dot / fmaxf(sqrtf(v2) * sqrtf(q2), 1e-30f);
-    return (1.0f + cosv) / 2.0f;
+    const double cosv = dot / fmax(sqrt(v2) * sqrt(q2), 1e-30);
+    sc = (1.0 + cosv) / 2.0;
   } else {  // innerproduct
-    return dot >= 0.0f ? dot + 1.0f : 1.0f / (1.0f - dot);
+    sc = dot >= 0.0 ? dot + 1.0 : 1.0 / (1.0 - dot);
   }
+  return __double2float_rn(sc);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -150,13 +161,13 @@ __device__ __forceinline__ void cp_async_wait_oldest(int stages) {
 // The streaming core: scores rows [row0, row0 + rows) of `s` (rows <=
 // CAP) into shared memory -- as 64-bit keys (TOPK) or as floats -- with
 // -inf on invalid rows.  Ends with all threads synchronised.  Shared
-// layout: query | ring of `stages` tiles | out[CAP] (8 B each) |
+// layout: query (float64) | ring of `stages` tiles | out[CAP] (8 B each) |
 // valid[CAP].
 template <int SPACE, bool TOPK, int CAP>
 __device__ void stream_chunk(const Seg& s, long long row0, int rows,
                              const float* __restrict__ query, int d,
                              const Cfg& c, char* smem) {
-  float* q_s = reinterpret_cast<float*>(smem);
+  double* q_s = reinterpret_cast<double*>(smem);
   char* ring = smem + c.q_bytes;
   char* out_s = ring + c.stages * c.stage_bytes;
   uint8_t* valid_s = reinterpret_cast<uint8_t*>(out_s + CAP * 8);
@@ -185,7 +196,7 @@ __device__ void stream_chunk(const Seg& s, long long row0, int rows,
   }
   // while the first tiles load: the query and the chunk's validity (all
   // loads started before any is used)
-  for (int i = tid; i < d; i += kThreads) q_s[i] = query[i];
+  for (int i = tid; i < d; i += kThreads) q_s[i] = (double)query[i];
   constexpr int kPer = CAP / kThreads;
   uint8_t e[kPer], l[kPer], m[kPer];
 #pragma unroll
@@ -200,8 +211,8 @@ __device__ void stream_chunk(const Seg& s, long long row0, int rows,
 #pragma unroll
   for (int i = 0; i < kPer; ++i) valid_s[tid + i * kThreads] = e[i] & l[i] & m[i];
   __syncthreads();
-  float q2 = 0.0f;
-  for (int j = lane; j < d; j += 32) q2 = fmaf(q_s[j], q_s[j], q2);
+  double q2 = 0.0;
+  for (int j = lane; j < d; j += 32) q2 = fma(q_s[j], q_s[j], q2);
   q2 = warp_sum(q2);
 
   // c.lanes lanes reduce one row; a warp takes 32 / c.lanes rows at once
@@ -219,22 +230,24 @@ __device__ void stream_chunk(const Seg& s, long long row0, int rows,
       const int rr = base + grp;
       const bool has_row = rr < trows;
       const float* v = tile + rr * d;
-      float dot = 0.0f, v2 = 0.0f;
+      double dot = 0.0, v2 = 0.0;
       if (has_row && vec4) {
         const float4* v4 = reinterpret_cast<const float4*>(v);
-        const float4* q4 = reinterpret_cast<const float4*>(q_s);
+        const double2* q2v = reinterpret_cast<const double2*>(q_s);
         for (int j = sub; j < (d >> 2); j += L) {
-          const float4 a = v4[j], b = q4[j];
-          dot = fmaf(a.x, b.x, dot); v2 = fmaf(a.x, a.x, v2);
-          dot = fmaf(a.y, b.y, dot); v2 = fmaf(a.y, a.y, v2);
-          dot = fmaf(a.z, b.z, dot); v2 = fmaf(a.z, a.z, v2);
-          dot = fmaf(a.w, b.w, dot); v2 = fmaf(a.w, a.w, v2);
+          const float4 a = v4[j];
+          const double2 b0 = q2v[2 * j], b1 = q2v[2 * j + 1];
+          const double ax = a.x, ay = a.y, az = a.z, aw = a.w;
+          dot = fma(ax, b0.x, dot); v2 = fma(ax, ax, v2);
+          dot = fma(ay, b0.y, dot); v2 = fma(ay, ay, v2);
+          dot = fma(az, b1.x, dot); v2 = fma(az, az, v2);
+          dot = fma(aw, b1.y, dot); v2 = fma(aw, aw, v2);
         }
       } else if (has_row) {
         for (int j = sub; j < d; j += L) {
-          const float a = v[j];
-          dot = fmaf(a, q_s[j], dot);
-          v2 = fmaf(a, a, v2);
+          const double a = v[j];
+          dot = fma(a, q_s[j], dot);
+          v2 = fma(a, a, v2);
         }
       }
       for (int off = L >> 1; off > 0; off >>= 1) {
@@ -316,7 +329,7 @@ bool config(int d, int cap, Cfg* c) {
   int t = 1;
   while (t * 2 <= pass && t * 2 <= fit) t *= 2;
   c->tile_rows = t;
-  c->q_bytes = round16(4 * d);
+  c->q_bytes = round16(8 * d);
   c->stage_bytes = round16(4 * d * t);
   for (int stg = kMaxStages; stg >= 2; --stg) {
     const size_t smem = (size_t)c->q_bytes + (size_t)stg * c->stage_bytes + (size_t)cap * 9;

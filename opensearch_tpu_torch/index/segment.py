@@ -11,7 +11,15 @@ torch tensors on an explicit device, with the reference's padding:
 - CSR offsets padded with their last value to ``pad_pow2(len(offsets))``
   so padded term ids decode as empty rows;
 - per-posting columns (doc ids, tfs, impacts) padded to
-  ``pad_pow2(P)``;
+  ``pad_pow2(P)``; a field's ``field_exists`` [n_pad] (the ``exists``
+  query over norms) on first demand (``ensure_norms``);
+- doc-value columns: ``numeric`` (``values`` int64 for long and date
+  columns, float64 for double ones, never narrowed: the reference runs
+  x64; ``value_docs``, ``minv``, ``maxv``, ``exists``) and ``ordinal``
+  (``ords``, ``value_docs``, ``min_ord``, ``max_ord``, ``exists``,
+  ``n_ords``), the expanded values padded to ``pad_pow2(V)`` with
+  ``value_docs`` pointing at the dead slot ``n_docs``, so a padded entry
+  never reaches a live doc;
 - vectors ``[n_pad, d]`` float32 with an ``exists`` mask.
 
 On a segment that ``index/codec.py`` ``use_quantized`` lowers, only the
@@ -23,8 +31,9 @@ doc ids), and the f32 doc ids and tfs stage on first demand
 ``Segment.quantized_table`` reads and writes the ``.quant`` sidecars of
 ``index/store.py`` once the store has set ``quant_dir``.
 
-Not ported yet (ROADMAP Queue A): ANN index builds, the device pager,
-the fielddata breaker and the residency ledger.  ``segment_from_arrays`` carries the numpy state of a reference
+Not ported yet (ROADMAP Queue A): ANN index builds, geo and nested
+columns, the device pager, the fielddata breaker and the residency
+ledger.  ``segment_from_arrays`` carries the numpy state of a reference
 segment into this package's ``Segment``.
 """
 
@@ -387,6 +396,37 @@ class DeviceSegment:
             }
             if not self.quantized_mode:
                 self.ensure_postings(name)
+        self.numeric: dict[str, dict] = {}
+        for name, dv in seg.numeric_dv.items():
+            v_pad = pad_pow2(len(dv.values))
+            long_kind = dv.kind == "long"
+            self.numeric[name] = {
+                "values": self._stage(_pad1(dv.values, v_pad, 0)),
+                "value_docs": self._stage(_pad1(dv.value_docs, v_pad,
+                                                self.n_docs)),
+                "minv": self._stage(_pad1(
+                    dv.minv, n_pad, LONG_MISSING_MAX if long_kind
+                    else np.inf)),
+                "maxv": self._stage(_pad1(
+                    dv.maxv, n_pad, LONG_MISSING_MIN if long_kind
+                    else -np.inf)),
+                "exists": self._stage(_pad1(dv.exists, n_pad, False)),
+            }
+        self.ordinal: dict[str, dict] = {}
+        for name, dv in seg.ordinal_dv.items():
+            v_pad = pad_pow2(len(dv.ords))
+            self.ordinal[name] = {
+                "ords": self._stage(_pad1(dv.ords, v_pad, -1)),
+                "value_docs": self._stage(_pad1(dv.value_docs, v_pad,
+                                                self.n_docs)),
+                "min_ord": self._stage(_pad1(dv.min_ord, n_pad, -1)),
+                "max_ord": self._stage(_pad1(dv.max_ord, n_pad, -1)),
+                "exists": self._stage(_pad1(dv.exists, n_pad, False)),
+                "n_ords": len(dv.ord_terms),
+            }
+        # per field, ``field_exists`` staged on first demand (``norms``:
+        # the exists query over norms)
+        self.norms: dict[str, dict] = {}
         self.vector: dict[str, dict] = {}
         for name, dv in seg.vector_dv.items():
             vals = np.zeros((n_pad, dv.dim), dtype=np.float32)
@@ -407,11 +447,9 @@ class DeviceSegment:
     def nbytes(self) -> int:
         """Bytes this view holds on its device (columns, impacts,
         quantized tables, live masks)."""
-        total = 0
-        for group in (self.postings, self.vector):
-            for cols in group.values():
-                total += sum(t.numel() * t.element_size()
-                             for t in cols.values())
+        total = sum(self.column_bytes(group)
+                    for group in ("postings", "norms", "numeric", "ordinal",
+                                  "vector"))
         for tables in self._quant_cache.values():
             total += sum(t.numel() * t.element_size()
                          for t in tables.values())
@@ -420,6 +458,13 @@ class DeviceSegment:
         total += sum(t.numel() * t.element_size()
                      for _l, t in self._live_cache.values())
         return total
+
+    def column_bytes(self, group: str) -> int:
+        """Bytes of one group of staged columns (``postings``, ``norms``,
+        ``numeric``, ``ordinal`` or ``vector``) on the device."""
+        return sum(t.numel() * t.element_size()
+                   for cols in getattr(self, group).values()
+                   for t in cols.values() if isinstance(t, torch.Tensor))
 
     def ensure_postings(self, field: str) -> Optional[dict]:
         """The postings entry of ``field`` with its per-posting columns
@@ -437,6 +482,22 @@ class DeviceSegment:
                                                  self.n_docs))
                 p["tfs"] = self._stage(_pad1(pf.tfs, p_pad, 0.0))
         return p
+
+    def ensure_norms(self, field: str) -> Optional[dict]:
+        """``{"field_exists": bool [n_pad]}`` of ``field``'s postings (docs
+        where the field was present, zero-token values included), staged
+        on first demand; None when the segment has no such field."""
+        entry = self.norms.get(field)
+        pf = self.seg.postings.get(field)
+        if entry is None and pf is not None:
+            with self._postings_lock:
+                entry = self.norms.get(field)
+                if entry is None:
+                    entry = self.norms[field] = {
+                        "field_exists": self._stage(_pad1(
+                            np.asarray(pf.present, bool), self.n_pad,
+                            False))}
+        return entry
 
     def quantized(self, field: str, avgdl: float) -> Optional[dict]:
         """The quantized tables of ``field`` at ``avgdl`` on the device
@@ -777,11 +838,19 @@ class SegmentWriter:
 # ---------------------------------------------------------------------------
 
 
+_NUMERIC_COLS = ("offsets", "values", "value_docs", "minv", "maxv",
+                 "exists")
+_ORDINAL_COLS = ("offsets", "ords", "value_docs", "min_ord", "max_ord",
+                 "exists")
+
+
 def segment_arrays(seg) -> tuple[dict, dict]:
     """``(arrays, meta)`` of any segment with the reference's attribute
     layout (this package's ``Segment`` or the JAX package's): postings
-    CSR per field, vectors, live bitmap, doc ids and sources.  Reads
-    attributes only, so it imports nothing of the other package."""
+    CSR per field, numeric and ordinal doc values (values, value docs,
+    min and max, exists, kind, ordinal terms), vectors, live bitmap, doc
+    ids and sources.  Reads attributes only, so it imports nothing of the
+    other package."""
     arrays: dict[str, np.ndarray] = {"live": np.asarray(seg.live, bool),
                                      "seq_nos": np.asarray(seg.seq_nos),
                                      "versions": np.asarray(seg.versions)}
@@ -803,13 +872,23 @@ def segment_arrays(seg) -> tuple[dict, dict]:
         arrays[f"vector.{name}.exists"] = np.asarray(dv.exists)
         meta["vectors"][name] = {"dim": int(dv.dim),
                                  "similarity": dv.similarity}
+    meta["numeric"], meta["ordinal"] = {}, {}
+    for name, dv in seg.numeric_dv.items():
+        for col in _NUMERIC_COLS:
+            arrays[f"numeric.{name}.{col}"] = np.asarray(getattr(dv, col))
+        meta["numeric"][name] = {"kind": dv.kind}
+    for name, dv in seg.ordinal_dv.items():
+        for col in _ORDINAL_COLS:
+            arrays[f"ordinal.{name}.{col}"] = np.asarray(getattr(dv, col))
+        meta["ordinal"][name] = {"ord_terms": list(dv.ord_terms)}
     return arrays, meta
 
 
 def segment_from_arrays(arrays: dict[str, np.ndarray], meta: dict) -> Segment:
     """Build this package's ``Segment`` from ``segment_arrays`` output
-    (e.g. of a JAX-package segment).  Doc-value columns other than
-    vectors are not carried: no ported plan reads them."""
+    (e.g. of a JAX-package segment): postings, numeric, ordinal and vector
+    doc values, the live bitmap, ids and sources.  Geo and nested columns
+    are not carried: no ported plan reads them."""
     n = int(meta["n_docs"])
     seg = Segment(meta["seg_id"], n)
     seg.doc_ids = list(meta["doc_ids"])
@@ -843,4 +922,26 @@ def segment_from_arrays(arrays: dict[str, np.ndarray], meta: dict) -> Segment:
                               np.float32),
             exists=np.asarray(arrays[f"vector.{name}.exists"], bool),
             dim=int(vm["dim"]), similarity=vm["similarity"])
+    for name, nm in meta.get("numeric", {}).items():
+        col = {c: np.asarray(arrays[f"numeric.{name}.{c}"])
+               for c in _NUMERIC_COLS}
+        dtype = np.int64 if nm["kind"] == "long" else np.float64
+        seg.numeric_dv[name] = NumericDV(
+            kind=nm["kind"], offsets=col["offsets"].astype(np.int32),
+            values=col["values"].astype(dtype),
+            value_docs=col["value_docs"].astype(np.int32),
+            minv=col["minv"].astype(dtype), maxv=col["maxv"].astype(dtype),
+            exists=col["exists"].astype(bool))
+    for name, om in meta.get("ordinal", {}).items():
+        col = {c: np.asarray(arrays[f"ordinal.{name}.{c}"])
+               for c in _ORDINAL_COLS}
+        terms = list(om["ord_terms"])
+        seg.ordinal_dv[name] = OrdinalDV(
+            ord_terms=terms, term_to_ord={t: i for i, t in enumerate(terms)},
+            offsets=col["offsets"].astype(np.int32),
+            ords=col["ords"].astype(np.int32),
+            value_docs=col["value_docs"].astype(np.int32),
+            min_ord=col["min_ord"].astype(np.int32),
+            max_ord=col["max_ord"].astype(np.int32),
+            exists=col["exists"].astype(bool))
     return seg

@@ -2,17 +2,18 @@
 package's ``node.py``).
 
 Analog of ``node/Node.java`` and ``bootstrap/OpenSearch.main`` at
-single-node scope: the indices service, the REST controller and the HTTP
-transport, serving on one device: ``cuda`` unless the caller asks for
-``"cpu"``.  Without CUDA a node that did not ask for the CPU raises
-``DeviceUnavailableError`` when it is built, before it creates anything
-on disk.
+single-node scope: the indices service, the search pipelines
+(``search/pipeline.py``, persisted under the data path), the REST
+controller and the HTTP transport, serving on one device: ``cuda``
+unless the caller asks for ``"cpu"``.  Without CUDA a node that did not
+ask for the CPU raises ``DeviceUnavailableError`` when it is built,
+before it creates anything on disk.
 
 The reference node's other services are not ported (ROADMAP Queue A):
-snapshots, ingest and search pipelines, reader contexts (scroll and
-point in time), tasks, search backpressure, identity, query insights,
-QoS, persistent tasks, the dynamic cluster settings and the bootstrap
-checks.  Their routes answer 501.
+snapshots, ingest pipelines, reader contexts (scroll and point in time),
+tasks, search backpressure, identity, query insights, QoS, persistent
+tasks, the dynamic cluster settings and the bootstrap checks.  Their
+routes answer 501.
 
 Run: ``python -m opensearch_tpu_torch.node --port 9200 --data-path ./data``
 (``--device cpu`` to serve on the CPU).
@@ -33,6 +34,7 @@ from opensearch_tpu_torch.indices.service import IndicesService
 from opensearch_tpu_torch.rest.controller import RestController
 from opensearch_tpu_torch.rest.http_server import HttpServer
 from opensearch_tpu_torch.search.engine import query_engine
+from opensearch_tpu_torch.search.pipeline import SearchPipelineService
 
 
 class Node:
@@ -48,6 +50,7 @@ class Node:
         os.makedirs(data_path, exist_ok=True)
         self.indices = IndicesService(os.path.join(data_path, "indices"),
                                       device=self.device)
+        self.search_pipelines = SearchPipelineService(data_path)
         self.rest = RestController(self)
         self.http = HttpServer(self.rest, host=host, port=port)
         self._stopped = False

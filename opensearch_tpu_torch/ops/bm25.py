@@ -5,9 +5,10 @@ Each function here is a plain PyTorch version of the reference's jnp
 function, with the same float32 operation order, so that on the CPU it
 equals the reference byte for byte.  ``impact_scores``,
 ``impact_score_count`` and ``match_count`` are also the wrappers of the
-hand-written term-bag kernel's per-slot entry (K2, ``csrc/bm25.cu``):
-given CUDA tensors they launch it (``ops/cuda_bm25.py``) or raise; given
-CPU tensors they run the plain version.  The plain versions stay
+hand-written term-bag kernel's per-slot (dense) entry (K2,
+``csrc/bm25.cu`` ``term_bag_fold_kernel``, one launch per call): given
+CUDA tensors they launch it (``ops/cuda_bm25.py``) or raise; given CPU
+tensors they run the plain version.  The plain versions stay
 callable on any device as ``*_plain`` so the kernel can be held against
 them on the card.
 

@@ -13,9 +13,11 @@ which replaces the reference's ``gather_postings`` + ``impact_scores`` /
   (``ops/bm25.py::segment_topk``); ``sorted_route_segments`` counts
   those.
 - ``term_bag_cuda``: the dense scores and/or matched-slot counts of one
-  segment, one launch per query-term slot (``bool``, ``constant_score``,
-  ``count``).  Its plain twins are ``ops/bm25.py``'s ``*_plain``
-  functions.
+  segment in one launch (``bool``, ``constant_score``, ``count``, filter
+  bags, ``ops/filters.py`` ``postings_mask``): the top-k entry's tile
+  core, a block per ``FOLD_TILE_DOCS`` docs that adds the slots in slot
+  order in shared memory and writes its tile once.  Its plain twins are
+  ``ops/bm25.py``'s ``*_plain`` functions.
 - ``batch_term_bag_topk_cuda`` (K3): one launch of ``union_topk.cu`` per
   msearch or continuous-batch group, persistent blocks per (query chunk,
   segment) staging each union posting once in shared memory and scoring
@@ -31,7 +33,8 @@ which replaces the reference's ``gather_postings`` + ``impact_scores`` /
   and decodes the ids there; ``term_bag_topk_segments_cuda`` sends a
   shard's quantized segments there, one launch per qvals dtype, beside
   one f32 launch for the others), and ``term_bag_quantized_cuda``, the
-  per-slot entry, the quantized instantiation of K2's per-slot kernel.
+  per-slot entry, the quantized instantiation of ``term_bag_cuda``'s
+  kernel.
   Their plain twins are ``ops/bm25.py::term_bag_topk_segments`` and
   ``ops/quantized.py``'s ``*_plain`` functions.
 
@@ -49,12 +52,14 @@ import torch
 
 from opensearch_tpu_torch.ops import bm25, cuda_build
 
-_THREADS = 256
-_MAX_GRID = 132 * 32
 # The launch table's layout and the tile decision, handed to csrc/bm25.cu
 # and csrc/quant_topk.cu as -D macros when they are built (see ``defines``
 # and ``quant_defines``).
 TILE_DOCS = 4096      # docs a block of a top-k entry owns (K2 and K4)
+# docs a block of the dense (per-slot) entry owns: the fastest of 512 to
+# 4,096 on the scale corpus's median and heaviest bags
+# (``testing/k2_sweep.py``'s fold sweep)
+FOLD_TILE_DOCS = 1024
 K_MAX = 256           # largest k selected inside the kernel
 SEG_WORDS = 11        # int64 words per segment in the launch table
 QSEG_WORDS = 13       # ... per quantized segment
@@ -72,7 +77,8 @@ def defines() -> dict:
     at the time of the call."""
     return {"BM25_TILE_DOCS": TILE_DOCS, "BM25_K_MAX": K_MAX,
             "BM25_SEG_WORDS": SEG_WORDS, "BM25_QSEG_WORDS": QSEG_WORDS,
-            "BM25_QSLOT_WORDS": QSLOT_WORDS}
+            "BM25_QSLOT_WORDS": QSLOT_WORDS,
+            "BM25_FOLD_TILE_DOCS": FOLD_TILE_DOCS}
 
 
 def quant_defines() -> dict:
@@ -125,55 +131,65 @@ def _expect(t, name, dtype, dev, ndim=1):
         raise ValueError(f"[{name}] must be contiguous")
 
 
-def term_bag_cuda(offsets, doc_ids, impacts, term_ids, term_active, idfs,
-                  weights, *, n_pad: int, budget: int, scores: bool,
-                  counts: bool):
-    """Dense ``(scores f32 [n_pad] | None, counts i32 [n_pad] | None)``
-    for a bag of weighted terms over one field's staged postings.
-
-    ``offsets`` i32 [t_pad_offsets], ``doc_ids`` i32 [P_pad] (each row
-    doc-ascending, values < n_pad), ``impacts`` f32 [P_pad],
-    ``term_ids`` i32 [t_pad], ``term_active`` bool [t_pad], ``idfs`` /
-    ``weights`` f32 [t_pad]; ``impacts``/``idfs``/``weights`` may be
-    None when ``scores`` is False.  ``budget`` (>= the sum of the active
-    rows' lengths, as ``TermBagPlan.prepare`` computes it on the host)
-    sizes the grid without reading the offsets back."""
-    dev = offsets.device
-    if dev.type != "cuda":
-        raise ValueError(f"term_bag_cuda needs CUDA tensors, got {dev}")
-    _expect(offsets, "offsets", torch.int32, dev)
-    _expect(doc_ids, "doc_ids", torch.int32, dev)
+def _check_bag(term_ids, term_active, idfs, weights, dev, scores: bool):
     _expect(term_ids, "term_ids", torch.int32, dev)
     _expect(term_active, "term_active", torch.bool, dev)
     t_pad = term_ids.shape[0]
     if term_active.shape[0] != t_pad:
         raise ValueError("term_ids and term_active differ in length")
     if scores:
-        _expect(impacts, "impacts", torch.float32, dev)
         _expect(idfs, "idfs", torch.float32, dev)
         _expect(weights, "weights", torch.float32, dev)
-        if impacts.shape[0] != doc_ids.shape[0]:
-            raise ValueError("impacts and doc_ids differ in length")
         if idfs.shape[0] != t_pad or weights.shape[0] != t_pad:
             raise ValueError("idfs/weights must have t_pad entries")
-    out_s = (torch.zeros(n_pad, dtype=torch.float32, device=dev)
-             if scores else None)
-    out_c = (torch.zeros(n_pad, dtype=torch.int32, device=dev)
-             if counts else None)
-    if t_pad == 0 or not (scores or counts):
+    return t_pad
+
+
+def _dense_out(n_pad: int, dev, scores: bool, counts: bool):
+    """The dense columns the kernel writes whole (no memset)."""
+    return (torch.empty(n_pad, dtype=torch.float32, device=dev)
+            if scores else None,
+            torch.empty(n_pad, dtype=torch.int32, device=dev)
+            if counts else None)
+
+
+def term_bag_cuda(offsets, doc_ids, impacts, term_ids, term_active, idfs,
+                  weights, *, n_pad: int, budget: int, scores: bool,
+                  counts: bool):
+    """Dense ``(scores f32 [n_pad] | None, counts i32 [n_pad] | None)``
+    for a bag of weighted terms over one field's staged postings, in one
+    launch.
+
+    ``offsets`` i32 [t_pad_offsets], ``doc_ids`` i32 [P_pad] (each row
+    doc-ascending, values < n_pad), ``impacts`` f32 [P_pad],
+    ``term_ids`` i32 [t_pad], ``term_active`` bool [t_pad], ``idfs`` /
+    ``weights`` f32 [t_pad]; ``impacts``/``idfs``/``weights`` may be
+    None when ``scores`` is False.  ``budget`` (the plain version's
+    gather lanes) is not read: the kernel finds each row's part of a
+    tile itself."""
+    dev = offsets.device
+    if dev.type != "cuda":
+        raise ValueError(f"term_bag_cuda needs CUDA tensors, got {dev}")
+    _expect(offsets, "offsets", torch.int32, dev)
+    _expect(doc_ids, "doc_ids", torch.int32, dev)
+    t_pad = _check_bag(term_ids, term_active, idfs, weights, dev, scores)
+    if scores:
+        _expect(impacts, "impacts", torch.float32, dev)
+        if impacts.shape[0] != doc_ids.shape[0]:
+            raise ValueError("impacts and doc_ids differ in length")
+    out_s, out_c = _dense_out(n_pad, dev, scores, counts)
+    if not (scores or counts):
         return out_s, out_c
     lib = _library()
-    # one thread per posting of the longest possible row (capped; the
-    # grid-stride loop covers the rest)
-    grid = max(1, min(_MAX_GRID, -(-int(budget) // _THREADS)))
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.term_bag_launch(
         _ptr(offsets), _ptr(doc_ids), _ptr(impacts if scores else None),
         _ptr(term_ids), _ptr(term_active),
         _ptr(idfs if scores else None), _ptr(weights if scores else None),
-        t_pad, grid, _ptr(out_s), _ptr(out_c), ctypes.c_void_p(stream))
+        t_pad, int(n_pad), _ptr(out_s), _ptr(out_c),
+        ctypes.c_void_p(stream))
     cuda_build.check(lib, rc, "term_bag_launch")
-    cuda_build.count(term_bag_cuda, t_pad)
+    cuda_build.count(term_bag_cuda)
     return out_s, out_c
 
 
@@ -198,7 +214,8 @@ def term_bag_quantized_cuda(offsets, packed, base, qvals, scales, exact_vals,
                             weights, *, width: int, n_pad: int, budget: int,
                             scores: bool, counts: bool):
     """``term_bag_cuda`` over a quantized segment (K4's per-slot entry):
-    dense ``(scores f32 [n_pad] | None, counts i32 [n_pad] | None)``.
+    dense ``(scores f32 [n_pad] | None, counts i32 [n_pad] | None)`` in
+    one launch.
 
     ``packed`` i32 (the uint32 words' bits, guard word included) at
     ``width`` bits, ``base`` i32 / ``scales`` f32 / ``exact_offsets``
@@ -215,37 +232,24 @@ def term_bag_quantized_cuda(offsets, packed, base, qvals, scales, exact_vals,
                            (base, "base", torch.int32),
                            (scales, "scales", torch.float32),
                            (exact_vals, "exact_vals", torch.float32),
-                           (exact_offsets, "exact_offsets", torch.int32),
-                           (term_ids, "term_ids", torch.int32),
-                           (term_active, "term_active", torch.bool)):
+                           (exact_offsets, "exact_offsets", torch.int32)):
         _expect(t, name, dtype, dev)
     _expect(qvals, "qvals", qvals.dtype, dev)
     q_bytes = _q_bytes(qvals)
-    t_pad = term_ids.shape[0]
-    if term_active.shape[0] != t_pad:
-        raise ValueError("term_ids and term_active differ in length")
-    if scores:
-        _expect(idfs, "idfs", torch.float32, dev)
-        _expect(weights, "weights", torch.float32, dev)
-        if idfs.shape[0] != t_pad or weights.shape[0] != t_pad:
-            raise ValueError("idfs/weights must have t_pad entries")
-    out_s = (torch.zeros(n_pad, dtype=torch.float32, device=dev)
-             if scores else None)
-    out_c = (torch.zeros(n_pad, dtype=torch.int32, device=dev)
-             if counts else None)
-    if t_pad == 0 or not (scores or counts):
+    t_pad = _check_bag(term_ids, term_active, idfs, weights, dev, scores)
+    out_s, out_c = _dense_out(n_pad, dev, scores, counts)
+    if not (scores or counts):
         return out_s, out_c
     lib = _library()
-    grid = max(1, min(_MAX_GRID, -(-int(budget) // _THREADS)))
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.term_bag_quantized_launch(
         _ptr(offsets), _ptr(packed), _ptr(base), int(width), _ptr(qvals),
         q_bytes, _ptr(scales), _ptr(exact_vals), _ptr(exact_offsets),
         _ptr(term_ids), _ptr(term_active), _ptr(idfs if scores else None),
-        _ptr(weights if scores else None), t_pad, grid, _ptr(out_s),
+        _ptr(weights if scores else None), t_pad, int(n_pad), _ptr(out_s),
         _ptr(out_c), ctypes.c_void_p(stream))
     cuda_build.check(lib, rc, "term_bag_quantized_launch")
-    cuda_build.count(term_bag_quantized_cuda, t_pad)
+    cuda_build.count(term_bag_quantized_cuda)
     return out_s, out_c
 
 

@@ -16,9 +16,15 @@ CUDA tensors go through the hand-written kernel K1
 tensors through the plain version.  It handles any ``n``.
 
 Precision: no summation order is fixed by the reference (its XLA matmul
-and its Pallas ``sum(v*q)`` differ) and K1's differs again, so scores
-agree within ``RTOL``/``ATOL``, and hit ids agree except where
-neighbouring scores lie within that tolerance.
+and its Pallas ``sum(v*q)`` differ), so the port's scores agree with it
+within ``RTOL``/``ATOL``, and hit ids agree except where neighbouring
+scores lie within that tolerance.  Within the port, the plain version
+and K1 both sum in float64 (a product of two floats is exact there) and
+round the translated score to float32 once: each is then the correctly
+rounded score but in rare ties of rounding, whatever order its sums
+take, so the card and the CPU give the same scores and the same hits.
+That matters where scores are normalized by the spread of a top list
+(``hybrid``'s ``min_max``), which magnifies float32 sums' last bits.
 """
 
 from __future__ import annotations
@@ -49,22 +55,25 @@ def knn_scores(vectors, valid, query, *, space: str):
     """Per-doc similarity scores [n_pad]; invalid rows score -inf.
 
     ``vectors`` [n_pad, d] float32, ``valid`` bool [n_pad] (exists &
-    live), ``query`` [d]."""
-    q = query.to(torch.float32)
-    dots = vectors @ q
+    live), ``query`` [d].  Summed in float64, the score rounded to
+    float32 once (see the module doc)."""
+    if space not in SPACES:
+        raise ValueError(f"unknown space [{space}]")
+    v = vectors.to(torch.float64)
+    q = query.to(torch.float32).to(torch.float64)
+    dots = v @ q
     if space == "l2":
-        v2 = torch.sum(vectors * vectors, dim=1)
+        v2 = torch.sum(v * v, dim=1)
         d2 = torch.clamp(v2 - 2.0 * dots + torch.dot(q, q), min=0.0)
         scores = 1.0 / (1.0 + d2)
     elif space == "cosinesimil":
-        norms = torch.sqrt(torch.sum(vectors * vectors, dim=1))
+        norms = torch.sqrt(torch.sum(v * v, dim=1))
         qn = torch.sqrt(torch.dot(q, q))
         cos = dots / torch.clamp(norms * qn, min=1e-30)
         scores = (1.0 + cos) / 2.0
-    elif space == "innerproduct":
-        scores = torch.where(dots >= 0, dots + 1.0, 1.0 / (1.0 - dots))
     else:
-        raise ValueError(f"unknown space [{space}]")
+        scores = torch.where(dots >= 0, dots + 1.0, 1.0 / (1.0 - dots))
+    scores = scores.to(torch.float32)
     return torch.where(valid, scores, torch.full_like(scores, -torch.inf))
 
 

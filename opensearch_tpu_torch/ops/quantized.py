@@ -16,7 +16,8 @@ functions of ``ops/bm25.py`` fed ``QuantizedPostings.dequantized()``.
 
 ``quantized_impact_scores`` and ``quantized_impact_score_count`` are the
 wrappers of the quantized per-slot entry of the term-bag kernel (K4,
-``csrc/bm25.cu``): given CUDA tensors they launch it
+``csrc/bm25.cu`` ``term_bag_fold_kernel``, one launch per call): given
+CUDA tensors they launch it
 (``ops/cuda_bm25.py`` ``term_bag_quantized_cuda``) or raise; given CPU
 tensors they run the ``*_plain`` versions, which stay callable on any
 device so the kernel can be held against them on the card.

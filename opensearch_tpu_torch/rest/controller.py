@@ -11,11 +11,13 @@ The route table is the reference's, whole, so the port answers the same
 health; index create, delete, get and exists; mappings and settings;
 refresh, flush and force-merge; document index, create, get, exists,
 delete and update; ``_bulk``, ``_search``, ``_msearch`` and ``_count``
-with the multi-index merge.  Every other route answers 501 through one
-handler (``h_not_ported``), so a client tells "not ported" from the 400
-of a path with no route.  Inside the ported handlers, ingest pipelines,
-search pipelines, point in time, scroll and cross-cluster search raise
-``NotYetPortedError`` (501) too.
+with the multi-index merge; the four ``/_search/pipeline`` routes and
+``?search_pipeline=`` (the named pipeline's normalization-processor
+config, handed to a ``hybrid`` query as ``_hybrid_pipeline``).  Every
+other route answers 501 through one handler (``h_not_ported``), so a
+client tells "not ported" from the 400 of a path with no route.  Inside
+the ported handlers, ingest pipelines, point in time, scroll and
+cross-cluster search raise ``NotYetPortedError`` (501) too.
 
 ``dispatch`` keeps route matching with percent-decoded path parameters,
 405 against 400 for a path without a route of that method,
@@ -289,10 +291,10 @@ class RestController:
         r("DELETE", "/_search/scroll", n)
         r("DELETE", "/_search/scroll/{scroll_id}", n)
         r("DELETE", "/_search/point_in_time", n)
-        r("GET", "/_search/pipeline", n)
-        r("GET", "/_search/pipeline/{id}", n)
-        r("PUT", "/_search/pipeline/{id}", n)
-        r("DELETE", "/_search/pipeline/{id}", n)
+        r("GET", "/_search/pipeline", self.h_get_pipelines)
+        r("GET", "/_search/pipeline/{id}", self.h_get_pipeline)
+        r("PUT", "/_search/pipeline/{id}", self.h_put_pipeline)
+        r("DELETE", "/_search/pipeline/{id}", self.h_delete_pipeline)
         r("GET", "/_count", self.h_count)
         r("POST", "/_count", self.h_count)
         r("GET", "/_mapping", n)
@@ -1007,9 +1009,13 @@ class RestController:
         return resp_status, resp
 
     def _h_search_inner(self, req, body):
-        if req.param("search_pipeline"):
-            raise NotYetPortedError(
-                "search pipelines are not ported to the torch package yet")
+        # search pipeline: resolve the normalization-processor config the
+        # hybrid combination should use (neural-search's hook)
+        pid = req.param("search_pipeline")
+        if pid:
+            conf = self.node.search_pipelines.hybrid_conf(pid)
+            if conf is not None:
+                body["_hybrid_pipeline"] = conf
         # request-cache directive: strict boolean (a typo like
         # request_cache=tru must 400, not silently disable caching —
         # RestRequest.paramAsBoolean semantics)
@@ -1095,6 +1101,22 @@ class RestController:
         responses = [svc.search(self._apply_alias_filter(sub, flt))
                      for svc, flt in services]
         return self._merge_responses(responses, body, from_, size)
+
+    # -- search pipelines --------------------------------------------------
+
+    def h_get_pipelines(self, req):
+        return 200, self.node.search_pipelines.get()
+
+    def h_get_pipeline(self, req):
+        return 200, self.node.search_pipelines.get(req.path_params["id"])
+
+    def h_put_pipeline(self, req):
+        return 200, self.node.search_pipelines.put(
+            req.path_params["id"], req.json({}) or {})
+
+    def h_delete_pipeline(self, req):
+        return 200, self.node.search_pipelines.delete(
+            req.path_params["id"])
 
     def h_count(self, req):
         body = req.json({}) or {}

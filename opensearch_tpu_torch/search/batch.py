@@ -325,8 +325,9 @@ def batchable(searcher, body: dict, *, peek: bool = False):
     """``(plan, bind, k)`` when ``body`` may take the batched path with
     the sequential path's response, else None.  The sequential path
     serves the others: keys this package does not serve (``sort``,
-    ``aggs``, ``highlight``, ``timeout`` ... the rest of the reference's
-    exclusion list), ``min_score``, ``track_total_hits: false`` (whose
+    ``aggs``, ``highlight`` ... the rest of the reference's exclusion
+    list), a ``timeout`` (its deadline is checked between the sequential
+    path's per-segment programs), ``min_score``, ``track_total_hits: false`` (whose
     pruning may legally return lower-bound totals), ``from > 0``, plans
     other than a scored term bag, and ``size`` outside 1..K_MAX (K3 keeps
     at most K_MAX candidates per (query, segment), and the sequential
@@ -338,6 +339,7 @@ def batchable(searcher, body: dict, *, peek: bool = False):
 
     if (set(body) - _SUPPORTED_BODY_KEYS
             or body.get("min_score") is not None
+            or body.get("timeout") is not None
             or body.get("track_total_hits") is False
             or int(body.get("from", 0)) != 0):
         return None

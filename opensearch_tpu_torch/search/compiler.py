@@ -1,7 +1,7 @@
 """Query tree -> (plan, bindings) against a shard's mapping + collection
 statistics (the port of the part of the JAX package's
-``search/compiler.py`` that match / term / bool / constant_score / knn
-queries need).
+``search/compiler.py`` that match / term / terms / range / exists / ids /
+prefix / bool / constant_score / knn queries need).
 
 idf/avgdl are computed here from CROSS-SEGMENT stats (Lucene computes
 them in IndexSearcher.termStatistics over the whole reader, not per
@@ -21,10 +21,14 @@ import torch
 from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
                                                 NotYetPortedError,
                                                 OpenSearchTpuError)
-from opensearch_tpu_torch.mapping.types import TextFieldType
+from opensearch_tpu_torch.mapping.types import (KeywordFieldType,
+                                                TextFieldType, parse_ip_long)
 from opensearch_tpu_torch.ops import bm25 as bm25_ops
 from opensearch_tpu_torch.search import plan as P
 from opensearch_tpu_torch.search import query_dsl as dsl
+
+_I64_MIN = -(2**63)
+_I64_MAX = 2**63 - 1
 
 
 @dataclass
@@ -50,6 +54,7 @@ class ShardContext:
         # array, so this context keeps seeing the state at acquire time)
         self.lives = {id(s): s.live for s in segments}
         self._fstats: dict[str, FieldStats] = {}
+        self._sorted_terms: dict[tuple[int, str], list[str]] = {}
 
     def live_mask(self, seg, dseg):
         return dseg.live_mask(self.lives[id(seg)])
@@ -80,6 +85,14 @@ class ShardContext:
                 if tid >= 0:
                     total += int(pf.df[tid])
         return total
+
+    def sorted_terms(self, seg, field: str) -> list[str]:
+        key = (id(seg), field)
+        out = self._sorted_terms.get(key)
+        if out is None:
+            out = list(seg.postings[field].terms)
+            self._sorted_terms[key] = out
+        return out
 
 
 def calc_min_should_match(optional: int, spec) -> int:
@@ -123,6 +136,12 @@ def _none():
     return P.MatchNonePlan(), {}
 
 
+def _ip_cidr_bind(value: str, boost: float) -> dict:
+    net = ipaddress.ip_network(str(value), strict=False)
+    return {"lo": parse_ip_long(net.network_address),
+            "hi": parse_ip_long(net.broadcast_address), "boost": boost}
+
+
 def _not_ported(what: str):
     raise NotYetPortedError(f"{what} is not ported to the torch package yet")
 
@@ -141,7 +160,9 @@ def compile_query(q: dsl.Query, ctx: ShardContext, scored: bool = True):
     """Returns (plan, bind)."""
     fn = _COMPILERS.get(type(q))
     if fn is None:
-        if isinstance(q, dsl.Query):
+        # a hybrid query runs only at the root, per sub-query
+        # (executor._hybrid_search); nested, the reference refuses it
+        if isinstance(q, dsl.Query) and not isinstance(q, dsl.HybridQuery):
             _not_ported(f"query type [{type(q).__name__}]")
         raise IllegalArgumentError(
             f"query type [{type(q).__name__}] is not supported")
@@ -158,19 +179,63 @@ def _c_match_none(q, ctx, scored):
 
 def _c_term(q, ctx, scored):
     if q.field == "_id":
-        _not_ported("term on [_id] (ids query)")
+        # term/terms on the _id metafield = an ids query
+        # (IdFieldMapper.termQuery)
+        return _c_ids(dsl.IdsQuery(values=[str(q.value)], boost=q.boost),
+                      ctx, scored)
     ft = _require_ft(ctx, q.field, "term")
     if ft is None:
         return _none()
     if ft.type_name == "ip":
         if "/" in str(q.value):
-            _not_ported("term on an ip CIDR (numeric range plan)")
+            return (P.NumericRangePlan(field=q.field, kind="long"),
+                    _ip_cidr_bind(q.value, q.boost))
         term = str(ipaddress.ip_address(str(q.value)))
         return _term_bag(ctx, q.field, [term], 1, q.boost, scored)
     if ft.dv_kind in ("long", "double") and ft.type_name != "boolean":
-        _not_ported(f"term on numeric field [{q.field}]")
+        return (P.NumericTermsPlan(field=q.field, kind=ft.dv_kind),
+                {"values": [ft.term_for_query(q.value)], "boost": q.boost})
     term = ft.term_for_query(q.value)
     return _term_bag(ctx, q.field, [term], 1, q.boost, scored)
+
+
+def _c_terms(q, ctx, scored):
+    if q.field == "_id":
+        return _c_ids(dsl.IdsQuery(values=[str(v) for v in q.values],
+                                   boost=q.boost), ctx, scored)
+    ft = _require_ft(ctx, q.field, "terms")
+    if ft is None or not q.values:
+        return _none()
+    if ft.type_name == "ip":
+        cidrs = [v for v in q.values if "/" in str(v)]
+        exact = [str(ipaddress.ip_address(str(v))) for v in q.values
+                 if "/" not in str(v)]
+        if cidrs:
+            children, binds = [], []
+            if exact:
+                p = P.PostingsMaskPlan(field=q.field)
+                children.append(p)
+                binds.append({"terms": tuple(exact), "boost": 1.0})
+            for c in cidrs:
+                net = ipaddress.ip_network(str(c), strict=False)
+                children.append(P.NumericRangePlan(field=q.field, kind="long"))
+                binds.append({"lo": parse_ip_long(net.network_address),
+                              "hi": parse_ip_long(net.broadcast_address),
+                              "boost": 1.0})
+            inner = P.BoolPlan(should=tuple(children))
+            return (P.ConstScorePlan(child=inner),
+                    {"boost": q.boost,
+                     "child": {"boost": 1.0, "required": 1,
+                               "children": tuple(binds)}})
+        return (P.PostingsMaskPlan(field=q.field),
+                {"terms": tuple(exact), "boost": q.boost})
+    if ft.dv_kind in ("long", "double") and ft.type_name != "boolean":
+        return (P.NumericTermsPlan(field=q.field, kind=ft.dv_kind),
+                {"values": [ft.term_for_query(v) for v in q.values],
+                 "boost": q.boost})
+    terms = [ft.term_for_query(v) for v in q.values]
+    return (P.PostingsMaskPlan(field=q.field),
+            {"terms": tuple(terms), "boost": q.boost})
 
 
 def _c_match(q, ctx, scored):
@@ -232,6 +297,114 @@ def _c_bool(q, ctx, scored):
             "children": (groups["must"][1] + groups["should"][1]
                          + groups["must_not"][1] + groups["filter"][1])}
     return plan, bind
+
+
+def _c_range(q, ctx, scored):
+    if getattr(q, "lenient", False):
+        try:
+            return _c_range_strict(q, ctx, scored)
+        except (OpenSearchTpuError, ValueError):
+            return _none()
+    return _c_range_strict(q, ctx, scored)
+
+
+def _c_range_strict(q, ctx, scored):
+    ft = _require_ft(ctx, q.field, "range")
+    if ft is None:
+        return _none()
+    if isinstance(ft, TextFieldType):
+        raise IllegalArgumentError(
+            f"range query on [text] field [{q.field}] is not supported")
+    if isinstance(ft, KeywordFieldType):
+        lo, lo_incl = (q.gte, True) if q.gte is not None else (q.gt, False)
+        hi, hi_incl = (q.lte, True) if q.lte is not None else (q.lt, False)
+        bind = {"lo": None if lo is None else str(lo), "lo_incl": lo_incl,
+                "hi": None if hi is None else str(hi), "hi_incl": hi_incl,
+                "boost": q.boost}
+        return P.OrdinalRangePlan(field=q.field), bind
+    kind = "double" if ft.dv_kind == "double" else "long"
+    if kind == "long":
+        lo = _I64_MIN if q.gte is None and q.gt is None else (
+            ft.range_bound(q.gte) if q.gte is not None
+            else ft.range_bound(q.gt) + 1)
+        hi = _I64_MAX if q.lte is None and q.lt is None else (
+            ft.range_bound(q.lte) if q.lte is not None
+            else ft.range_bound(q.lt) - 1)
+        return (P.NumericRangePlan(field=q.field, kind="long"),
+                {"lo": lo, "hi": hi, "boost": q.boost})
+    lo, lo_incl = (-np.inf, True)
+    if q.gte is not None:
+        lo, lo_incl = float(ft.range_bound(q.gte)), True
+    elif q.gt is not None:
+        lo, lo_incl = float(ft.range_bound(q.gt)), False
+    hi, hi_incl = (np.inf, True)
+    if q.lte is not None:
+        hi, hi_incl = float(ft.range_bound(q.lte)), True
+    elif q.lt is not None:
+        hi, hi_incl = float(ft.range_bound(q.lt)), False
+    return (P.NumericRangePlan(field=q.field, kind="double",
+                               include_lo=lo_incl, include_hi=hi_incl),
+            {"lo": lo, "hi": hi, "boost": q.boost})
+
+
+def _c_exists(q, ctx, scored):
+    if q.field in ("_id", "_index", "_seq_no", "_version"):
+        # always-present metafields: every live doc matches
+        # (exists rewrites to match_all for fields with norms/dv on all
+        # docs — MetadataFieldMapper existence semantics)
+        return _c_match_all(dsl.MatchAllQuery(boost=q.boost), ctx, scored)
+    ft = ctx.field_type(q.field)
+    if ft is None or ft.type_name == "object":
+        # object container (explicit or implicit): exists = any child
+        # field exists (ObjectMapper existence expansion)
+        children = [f for f in getattr(ctx.mapper, "_fields", {})
+                    if f.startswith(q.field + ".")]
+        if not children:
+            return _none()
+        return _c_bool(dsl.BoolQuery(
+            should=[dsl.ExistsQuery(field=f) for f in children],
+            boost=q.boost), ctx, scored)
+    src = {"long": "numeric", "double": "numeric", "ordinal": "ordinal",
+           "vector": "vector", "geo_point": "geo", "none": "norms"}[ft.dv_kind]
+    if src != "norms" and not ft.doc_values_enabled:
+        if ft.indexed and ft.index_enabled:
+            # doc_values disabled but indexed: existence via the
+            # postings presence column (the reference's _field_names
+            # fallback)
+            src = "norms"
+        else:
+            raise IllegalArgumentError(
+                f"exists on field [{q.field}] requires doc_values or an "
+                "indexed field")
+    if src == "geo":
+        _not_ported(f"exists on geo_point field [{q.field}]")
+    return P.ExistsPlan(field=q.field, src=src), {"boost": q.boost}
+
+
+def _c_ids(q, ctx, scored):
+    wanted = set(map(str, q.values))
+
+    def mask_fn(seg, dseg):
+        m = np.zeros(dseg.n_pad, bool)
+        for did in wanted:
+            loc = seg.id_to_local.get(did)
+            if loc is not None:
+                m[loc] = True
+        return m
+
+    return P.MaskPlan(label="ids"), {"mask_fn": mask_fn, "boost": q.boost}
+
+
+_MAX_CODEPOINT = chr(0x10FFFF)
+
+
+def _c_prefix(q, ctx, scored):
+    ft = _require_ft(ctx, q.field, "prefix")
+    if ft is None:
+        return _none()
+    value = str(q.value)
+    return (P.TermRangeMaskPlan(field=q.field),
+            {"lo": value, "hi": value + _MAX_CODEPOINT, "boost": q.boost})
 
 
 def _c_constant_score(q, ctx, scored):
@@ -330,8 +503,13 @@ _COMPILERS = {
     dsl.MatchAllQuery: _c_match_all,
     dsl.MatchNoneQuery: _c_match_none,
     dsl.TermQuery: _c_term,
+    dsl.TermsQuery: _c_terms,
     dsl.MatchQuery: _c_match,
     dsl.BoolQuery: _c_bool,
+    dsl.RangeQuery: _c_range,
+    dsl.ExistsQuery: _c_exists,
+    dsl.IdsQuery: _c_ids,
+    dsl.PrefixQuery: _c_prefix,
     dsl.ConstantScoreQuery: _c_constant_score,
     dsl.KnnQuery: _c_knn,
 }

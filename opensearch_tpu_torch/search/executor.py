@@ -21,10 +21,19 @@ per group on CUDA) and serves the others through ``search``.
 ``merge_hit_rows`` is the coordinator's merge of several indices' hits
 (the REST layer's multi-index ``_search``).
 
+A request's ``timeout`` is a ``SearchDeadline`` checked between
+per-segment programs, as in the reference: once it expires no further
+segment is launched and the response carries ``timed_out: true`` with
+what the launched segments found.  A ``hybrid`` query
+(``_hybrid_search``) runs one top-k per sub-query and combines them on
+the host through the normalization processor of ``search/pipeline.py``
+(``_hybrid_pipeline`` in the body, which the REST layer fills from
+``?search_pipeline=``).
+
 Not ported yet (ROADMAP): aggregations, sort, collapse, rescore,
-search_after, highlight / explain / fields, profile, suggest, hybrid,
-timeouts, and the telemetry / insights / task / device-health hooks.
-Requests that use them raise ``NotYetPortedError``.
+search_after, highlight / explain / fields, profile, suggest, and the
+telemetry / insights / task / device-health hooks.  Requests that use
+them raise ``NotYetPortedError``.
 
 The searcher's caches are ``BoundedCache``s: the engine's threadpool and
 the continuous batcher call ``search`` from many threads at once.
@@ -41,7 +50,8 @@ import torch
 
 from opensearch_tpu_torch.common.cache import BoundedCache
 from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
-                                                NotYetPortedError)
+                                                NotYetPortedError,
+                                                ValidationError)
 from opensearch_tpu_torch.common.torchenv import resolve_device
 from opensearch_tpu_torch.index.segment import DeviceSegment, Segment
 from opensearch_tpu_torch.ops import bm25 as bm25_ops
@@ -49,14 +59,15 @@ from opensearch_tpu_torch.ops.cuda_bm25 import K_MAX as TOPK_K_MAX
 from opensearch_tpu_torch.search import plan as P
 from opensearch_tpu_torch.search.compiler import ShardContext, compile_query
 from opensearch_tpu_torch.search.fetch import filter_source
-from opensearch_tpu_torch.search.query_dsl import parse_query
+from opensearch_tpu_torch.search.query_dsl import HybridQuery, parse_query
 
 _I32 = np.int32
 
 # request-body keys this port serves; any other key raises rather than
 # being ignored
 _SUPPORTED_BODY_KEYS = frozenset({"query", "size", "from", "min_score",
-                                  "_source", "track_total_hits"})
+                                  "_source", "track_total_hits", "timeout",
+                                  "_hybrid_pipeline"})
 # bounds of the searcher's plan, prepared-bindings and batch caches
 # (entries)
 _PLAN_CACHE_MAX = 256
@@ -86,6 +97,38 @@ def merge_hit_rows(rows, sort_json=None) -> list:
     return [h for h, _s, _p in rows]
 
 
+class SearchDeadline:
+    """Per-request time budget (QueryPhase's timeout runnable analog).
+
+    Checked between per-segment device programs — the same granularity
+    as cancellation.  When the budget expires the query phase stops
+    launching segments and the response carries ``timed_out: true`` with
+    the partial results collected so far, like the reference's
+    TimeExceededException handling in QueryPhase.execute.
+    """
+
+    __slots__ = ("_deadline", "timed_out")
+
+    def __init__(self, timeout, t0: Optional[float] = None):
+        """``timeout``: "100ms"/"2s"-style or millis; None disables."""
+        self.timed_out = False
+        if timeout is None:
+            self._deadline = None
+            return
+        from opensearch_tpu_torch.common.settings import parse_time
+        seconds = parse_time(timeout)
+        self._deadline = (None if seconds < 0
+                          else (t0 if t0 is not None
+                                else time.monotonic()) + seconds)
+
+    def expired(self) -> bool:
+        """True once the budget is spent; latches ``timed_out``."""
+        if self._deadline is not None and \
+                time.monotonic() >= self._deadline:
+            self.timed_out = True
+        return self.timed_out
+
+
 def _dummy_for(group: str, field: str, dseg: DeviceSegment, mapper):
     """Shape-consistent empty arrays for a field absent from this segment
     (all-inactive: matches nothing, scores nothing)."""
@@ -98,6 +141,24 @@ def _dummy_for(group: str, field: str, dseg: DeviceSegment, mapper):
             "doc_ids": torch.full((8,), dead, dtype=torch.int32,
                                   device=dev),
             "tfs": torch.zeros(8, dtype=torch.float32, device=dev),
+        }
+    if group == "norms":
+        return {"field_exists": torch.zeros(n_pad, dtype=torch.bool,
+                                            device=dev)}
+    if group in ("numeric", "ordinal"):
+        # the columns the filter plans read (the sort columns min/max are
+        # read by no ported plan)
+        ft = mapper.field_type(field)
+        dtype = (torch.int32 if group == "ordinal" else torch.float64
+                 if ft is not None and ft.dv_kind == "double"
+                 else torch.int64)
+        return {
+            "values" if group == "numeric" else "ords": torch.full(
+                (8,), 0 if group == "numeric" else -1, dtype=dtype,
+                device=dev),
+            "value_docs": torch.full((8,), dead, dtype=torch.int32,
+                                     device=dev),
+            "exists": torch.zeros(n_pad, dtype=torch.bool, device=dev),
         }
     if group == "vector":
         ft = mapper.field_type(field)
@@ -123,15 +184,27 @@ def build_arrays(dseg: DeviceSegment, needed, mapper, live=None,
     reading its postings demand-stages the f32 columns here
     (``DeviceSegment.ensure_postings``)."""
     A = {"live": dseg.live if live is None else live}
-    sources = {"postings": dseg.postings, "vector": dseg.vector}
+    sources = {"postings": dseg.postings, "numeric": dseg.numeric,
+               "ordinal": dseg.ordinal, "vector": dseg.vector}
     for group, field in sorted(needed):
-        entry = sources[group].get(field)
+        entry = (dseg.ensure_norms(field) if group == "norms"
+                 else sources[group].get(field))
         if entry is None:
             entry = _dummy_for(group, field, dseg, mapper)
         elif group == "postings" and (group, field) not in partial_ok:
             entry = dseg.ensure_postings(field)
         A.setdefault(group, {})[field] = entry
     return A
+
+
+def _check_body_keys(body: dict) -> None:
+    """Request-body keys this port does not serve raise rather than being
+    ignored."""
+    unknown = sorted(set(body) - _SUPPORTED_BODY_KEYS)
+    if unknown:
+        raise NotYetPortedError(
+            f"search request keys {unknown} are not ported to the torch "
+            "package yet")
 
 
 def _plan_key(query_json, scored: bool):
@@ -255,20 +328,19 @@ class ShardSearcher:
 
     def search(self, body: Optional[dict] = None) -> dict:
         body = body or {}
-        unknown = sorted(set(body) - _SUPPORTED_BODY_KEYS)
-        if unknown:
-            raise NotYetPortedError(
-                f"search request keys {unknown} are not ported to the "
-                "torch package yet")
+        t0 = time.monotonic()
         q_json = body.get("query")
         if isinstance(q_json, dict) and "hybrid" in q_json:
-            raise NotYetPortedError(
-                "hybrid query is not ported to the torch package yet")
-        return self._search_body(body, time.monotonic())
+            q = parse_query(q_json)
+            if isinstance(q, HybridQuery):
+                return self._hybrid_search(body, q, t0)
+        _check_body_keys(body)
+        return self._search_body(body, t0)
 
     def _search_body(self, body: dict, t0: float) -> dict:
         size = int(body.get("size", 10))
         from_ = int(body.get("from", 0))
+        deadline = SearchDeadline(body.get("timeout"), t0)
         min_score = body.get("min_score")
         (plan, bind), ckey = self.compiled(body.get("query"), scored=True,
                                            with_key=True)
@@ -284,21 +356,71 @@ class ShardSearcher:
             rows, total, max_score = [], 0, None
         else:
             rows, total, max_score, total_is_lower_bound = self._topk(
-                plan, bind, needed, k_want, min_score, ckey=ckey,
-                allow_kth_prune=allow_kth_prune)
+                plan, bind, needed, k_want, min_score, deadline=deadline,
+                ckey=ckey, allow_kth_prune=allow_kth_prune)
         return self._response(rows[from_: from_ + size], total, max_score,
                               body.get("_source"), t0,
-                              lower_bound=total_is_lower_bound)
+                              lower_bound=total_is_lower_bound,
+                              timed_out=deadline.timed_out)
 
-    def _response(self, rows, total, max_score, source_spec, t0: float,
-                  lower_bound: bool = False) -> dict:
-        """A search response (``search``'s, ``msearch``'s and the
-        continuous batcher's): the page's ``rows``, the matched total
-        (a lower bound when ``lower_bound``), the largest score and the
-        time since ``t0``."""
+    def _hybrid_search(self, body: dict, q, t0) -> dict:
+        """Hybrid query: each sub-query runs as its own top-k (one K2 / K4
+        launch for a ``match``, one K1 launch for a ``knn``); the
+        normalization processor (``search/pipeline.py``) combines the
+        per-sub-query top lists on the host.  ``_hybrid_pipeline`` in the
+        body carries the processor config (wired by the REST layer from
+        ``?search_pipeline=...``); absent -> min_max + arithmetic_mean."""
+        from opensearch_tpu_torch.search.pipeline import NormalizationConfig
+
+        if (body.get("sort") is not None or body.get("aggs")
+                or body.get("aggregations")
+                or body.get("min_score") is not None
+                or body.get("search_after") is not None):
+            raise ValidationError(
+                "[hybrid] query does not support [sort], [aggs], "
+                "[min_score] or [search_after]")
+        _check_body_keys(body)
+        size = int(body.get("size", 10))
+        from_ = int(body.get("from", 0))
+        k_want = from_ + size
+        deadline = SearchDeadline(body.get("timeout"), t0)
+        conf = NormalizationConfig(body.get("_hybrid_pipeline"))
+        per_query_rows = []
+        max_total = 0
+        for subq in q.queries:
+            if deadline.expired():
+                break            # partial: combine what completed
+            plan, bind = compile_query(subq, self.ctx, scored=True)
+            rows, tot, _mx, _lb = self._topk(plan, bind, plan.arrays(),
+                                             k_want, None,
+                                             deadline=deadline)
+            per_query_rows.append(rows)
+            max_total = max(max_total, int(tot))
+        combined = conf.apply(per_query_rows, k_want)
+        rows = combined[from_: from_ + size]
+        # per-sub-query top-k truncation means the union is a lower
+        # bound beyond the largest sub-query's exact count
         return {
             "took": int((time.monotonic() - t0) * 1000),
-            "timed_out": False,
+            "timed_out": deadline.timed_out,
+            "_shards": shards_section(1),
+            "hits": {"total": {"value": max_total, "relation": "gte"},
+                     "max_score": (combined[0]["score"] if combined
+                                   else None),
+                     "hits": self._hits_from_rows(rows,
+                                                  body.get("_source"))},
+        }
+
+    def _response(self, rows, total, max_score, source_spec, t0: float,
+                  lower_bound: bool = False, timed_out: bool = False) -> dict:
+        """A search response (``search``'s, ``msearch``'s and the
+        continuous batcher's): the page's ``rows``, the matched total
+        (a lower bound when ``lower_bound``), the largest score, whether
+        the request's deadline cut the query phase and the time since
+        ``t0``."""
+        return {
+            "took": int((time.monotonic() - t0) * 1000),
+            "timed_out": bool(timed_out),
             "_shards": shards_section(1),
             "hits": {
                 "total": {"value": int(total),
@@ -328,12 +450,15 @@ class ShardSearcher:
         return -np.inf if min_score is None else float(np.float32(min_score))
 
     def _run_full(self, plan, bind, needed, min_score,
-                  can_match_skip=False, ckey=None):
+                  can_match_skip=False, deadline=None, ckey=None):
         """Yields (seg, dseg, scores, matched) per segment.
         ``can_match_skip`` is ONLY safe for consumers that don't index
-        the yielded tuples by position."""
+        the yielded tuples by position.  An expired ``deadline`` stops
+        the scan at the next segment boundary."""
         ms = self._min_score(min_score)
         for seg in self.segments:
+            if deadline is not None and deadline.expired():
+                return
             if can_match_skip and not plan.can_match(bind, seg):
                 continue
             dseg = seg.device(self.device)
@@ -355,8 +480,8 @@ class ShardSearcher:
                  "score": float(scores[i])} for i in order]
         return rows, total, (None if max_score == -np.inf else float(max_score))
 
-    def _topk(self, plan, bind, needed, k_want, min_score, ckey=None,
-              allow_kth_prune=False):
+    def _topk(self, plan, bind, needed, k_want, min_score, deadline=None,
+              ckey=None, allow_kth_prune=False):
         """Returns (rows, total, max_score, total_is_lower_bound).
 
         Block-max pruning: segments whose ``plan.max_score_bound`` can't
@@ -365,18 +490,22 @@ class ShardSearcher:
         request waived exact totals via track_total_hits=false),
         segments that can't beat the running k-th score are skipped too
         — the k-th score is harvested from programs that already
-        finished, never blocking the launch pipeline."""
+        finished, never blocking the launch pipeline.  An expired
+        ``deadline`` stops the launches at the next segment: the result
+        covers the segments launched before it."""
         if k_want == 0:            # size=0: counts only
             total = sum(int(m.sum()) for _s, _d, _sc, m
                         in self._run_full(plan, bind, needed, min_score,
-                                          can_match_skip=True, ckey=ckey))
+                                          can_match_skip=True,
+                                          deadline=deadline, ckey=ckey))
             return [], total, None, False
         ms = self._min_score(min_score)
         ms_host = None if min_score is None else float(min_score)
         if isinstance(plan, P.TermBagPlan) and plan.scored and \
                 k_want <= TOPK_K_MAX and not allow_kth_prune:
             return (*self._topk_term_bag(plan, bind, needed, k_want, ms,
-                                         ms_host, ckey), False)
+                                         ms_host, ckey, deadline=deadline),
+                    False)
 
         # phase 1: LAUNCH every segment's program without a host sync
         launched = []      # [si, vals, idx, tot, mx, synced_vals, event]
@@ -384,6 +513,8 @@ class ShardSearcher:
         total_is_lower_bound = False
         on_cuda = self.device.type == "cuda"
         for si, seg in enumerate(self.segments):
+            if deadline is not None and deadline.expired():
+                break              # partial top-k; response flags timed_out
             if not plan.can_match(bind, seg):
                 continue           # can-match skip: no staging, no program
             if ms_host is not None or kth is not None:
@@ -437,16 +568,19 @@ class ShardSearcher:
         return rows, total, max_score, total_is_lower_bound
 
     def _topk_term_bag(self, plan, bind, needed, k_want, ms, ms_host,
-                       ckey, f32: bool = False):
+                       ckey, f32: bool = False, deadline=None):
         """(rows, total, max_score) of a scored term bag: can-match and
         min_score bound skips on the host, then every remaining segment's
         top-k, total and max from one ``term_bag_topk_segments_auto``
         call, read back in one copy.  ``topk_input`` reads the f32 columns
         only on f32 segments, where they are always staged, unless ``f32``
         asks for the f32 lowering everywhere (the batched path's, for a
-        bag K3 does not stage), which stages them on demand."""
+        bag K3 does not stage), which stages them on demand.  An expired
+        ``deadline`` leaves the remaining segments out of the launch."""
         inputs, order = [], []
         for si, seg in enumerate(self.segments):
+            if deadline is not None and deadline.expired():
+                break
             if not plan.can_match(bind, seg):
                 continue
             if ms_host is not None and \

@@ -15,14 +15,18 @@ As in the reference:
   composition is masked arithmetic.
 
 There is no ``jit``: PyTorch runs eagerly, on whatever device the
-staged segment lives on.  Plans of the reference that are not ported
-yet (phrase, span, range/terms masks, numeric, nested, geo, script,
-function_score, dis_max, ...) are absent; the compiler raises
-``NotYetPortedError`` for queries that would need them.
+staged segment lives on.  The filter plans (numeric terms and ranges,
+ordinal ranges, postings and term-range masks, exists, host masks) read
+the doc-value columns ``DeviceSegment`` stages, through
+``ops/filters.py``.  Plans of the reference that are not ported yet
+(phrase, span, expand-terms, nested, geo, script, function_score,
+dis_max, ...) are absent; the compiler raises ``NotYetPortedError`` for
+queries that would need them.
 """
 
 from __future__ import annotations
 
+import bisect
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -31,8 +35,10 @@ import numpy as np
 import torch
 
 from opensearch_tpu_torch.common import torchenv  # noqa: F401
-from opensearch_tpu_torch.index.segment import pad_bucket, pad_pow2
+from opensearch_tpu_torch.index.segment import (LONG_MISSING_MAX,
+                                                pad_bucket, pad_pow2)
 from opensearch_tpu_torch.ops import bm25 as bm25_ops
+from opensearch_tpu_torch.ops import filters as filter_ops
 from opensearch_tpu_torch.ops import quantized as qops
 
 _I32 = np.int32
@@ -48,6 +54,27 @@ def _f32(x) -> float:
 
 def _tensor(arr, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(arr, dtype=dtype)).to(device)
+
+
+def _exact(x, dtype):
+    """A Python scalar holding exactly ``x`` cast to ``dtype`` (int64 or
+    float64), the reference's ``_scalar``: torch compares an int64 or
+    float64 column with it in the column's own type."""
+    v = np.asarray(x, dtype=dtype)
+    return int(v) if np.issubdtype(v.dtype, np.integer) else float(v)
+
+
+def _pad_np(arr, size, fill, dtype) -> np.ndarray:
+    out = np.full(size, fill, dtype=dtype)
+    a = np.asarray(arr, dtype=dtype)
+    out[: len(a)] = a
+    return out
+
+
+def _const(matched, boost):
+    """``(where(matched, boost, 0) f32, matched)``: a constant-score
+    filter's result."""
+    return torch.where(matched, boost, 0.0).to(torch.float32), matched
 
 
 def _live_n_pad(A) -> tuple:
@@ -345,6 +372,239 @@ class ScoredMaskPlan(Plan):
     def eval(self, A, dims, ins):
         scores, mask = ins
         return torch.where(mask, scores, 0.0), mask
+
+
+@dataclass(frozen=True)
+class NumericTermsPlan(Plan):
+    """term/terms over a numeric/date column: constant score (the reference
+    compiles these to point/doc-values queries under ConstantScore).
+    bind: {values, boost}."""
+
+    field: str = ""
+    kind: str = "long"               # long | double
+
+    def arrays(self):
+        return frozenset({("numeric", self.field)})
+
+    def prepare(self, bind, seg, dseg, ctx):
+        vals = bind["values"]
+        q_pad = pad_pow2(len(vals), minimum=1)
+        dtype = np.int64 if self.kind == "long" else np.float64
+        fill = LONG_MISSING_MAX if self.kind == "long" else np.nan
+        qv = _pad_np(vals, q_pad, fill, dtype)
+        qvalid = _pad_np(np.ones(len(vals), bool), q_pad, False, bool)
+        dev = dseg.device
+        return (q_pad,), (_tensor(qv, dtype, dev), _tensor(qvalid, bool, dev),
+                          _f32(bind["boost"]))
+
+    def eval(self, A, dims, ins):
+        qv, qvalid, boost = ins
+        col = A["numeric"][self.field]
+        n_pad, _dev = _live_n_pad(A)
+        ok = (col["values"][:, None] == qv[None, :]) & qvalid[None, :]
+        matched = filter_ops.scatter_any(ok.any(dim=1), col["value_docs"],
+                                         n_pad)
+        return _const(matched, boost)
+
+
+@dataclass(frozen=True)
+class NumericRangePlan(Plan):
+    """bind: {lo, hi, boost} (inclusivity resolved into the bounds at
+    compile time for longs; kept as static flags for doubles)."""
+
+    field: str = ""
+    kind: str = "long"               # long | double
+    include_lo: bool = True
+    include_hi: bool = True
+
+    def arrays(self):
+        return frozenset({("numeric", self.field)})
+
+    def can_match(self, bind, seg):
+        dv = seg.numeric_dv.get(self.field)
+        if dv is None or not len(dv.value_docs):
+            return False
+        bounds = getattr(dv, "_value_bounds", None)
+        if bounds is None:
+            # immutable per segment: one scan serves every query
+            bounds = dv._value_bounds = (dv.values.min(), dv.values.max())
+        seg_lo, seg_hi = bounds
+        lo, hi = bind["lo"], bind["hi"]
+        if (seg_hi < lo or (seg_hi == lo and not self.include_lo)
+                or seg_lo > hi or (seg_lo == hi and not self.include_hi)):
+            return False
+        return True
+
+    def prepare(self, bind, seg, dseg, ctx):
+        dtype = np.int64 if self.kind == "long" else np.float64
+        return (), (_exact(bind["lo"], dtype), _exact(bind["hi"], dtype),
+                    _f32(bind["boost"]))
+
+    def eval(self, A, dims, ins):
+        lo, hi, boost = ins
+        col = A["numeric"][self.field]
+        n_pad, _dev = _live_n_pad(A)
+        matched = filter_ops.range_mask(
+            col["values"], col["value_docs"], lo, hi,
+            include_lo=self.include_lo, include_hi=self.include_hi,
+            n_pad=n_pad)
+        return _const(matched, boost)
+
+
+@dataclass(frozen=True)
+class OrdinalRangePlan(Plan):
+    """Keyword range: per-segment ordinal bounds resolved host-side by
+    binary search over the sorted term dictionary; the device compares
+    ordinals (ordinal order == term order by construction).
+    bind: {lo, lo_incl, hi, hi_incl, boost}."""
+
+    field: str = ""
+
+    def arrays(self):
+        return frozenset({("ordinal", self.field)})
+
+    def prepare(self, bind, seg, dseg, ctx):
+        dv = seg.ordinal_dv.get(self.field)
+        terms = dv.ord_terms if dv is not None else []
+        lo, hi = bind["lo"], bind["hi"]
+        lo_ord = 0
+        hi_ord = len(terms)
+        if lo is not None:
+            lo_ord = (bisect.bisect_left(terms, lo) if bind["lo_incl"]
+                      else bisect.bisect_right(terms, lo))
+        if hi is not None:
+            hi_ord = (bisect.bisect_right(terms, hi) if bind["hi_incl"]
+                      else bisect.bisect_left(terms, hi))
+        return (), (_exact(lo_ord, np.int32), _exact(hi_ord, np.int32),
+                    _f32(bind["boost"]))
+
+    def eval(self, A, dims, ins):
+        lo_ord, hi_ord, boost = ins
+        col = A["ordinal"][self.field]
+        n_pad, _dev = _live_n_pad(A)
+        matched = filter_ops.range_mask(
+            col["ords"], col["value_docs"], lo_ord, hi_ord,
+            include_lo=True, include_hi=False, n_pad=n_pad)
+        return _const(matched, boost)
+
+
+@dataclass(frozen=True)
+class PostingsMaskPlan(Plan):
+    """Constant-score docs-containing-any-of-these-terms (terms query on a
+    keyword/text field — Lucene TermInSetQuery).  bind: {terms, boost}.
+    On CUDA one launch of K2's dense entry in counts-only mode."""
+
+    field: str = ""
+
+    def arrays(self):
+        return frozenset({("postings", self.field)})
+
+    def prepare(self, bind, seg, dseg, ctx):
+        terms = bind["terms"]
+        pf = seg.postings.get(self.field)
+        t_pad = pad_pow2(len(terms), minimum=1)
+        tids = np.zeros(t_pad, dtype=_I32)
+        active = np.zeros(t_pad, dtype=bool)
+        budget = 0
+        for i, t in enumerate(terms):
+            tid = pf.term_id(t) if pf is not None else -1
+            if tid >= 0:
+                tids[i] = tid
+                active[i] = True
+                budget += int(pf.df[tid])
+        dev = dseg.device
+        return ((t_pad, pad_bucket(budget)),
+                (_tensor(tids, _I32, dev), _tensor(active, bool, dev),
+                 _f32(bind["boost"])))
+
+    def eval(self, A, dims, ins):
+        t_pad, budget = dims
+        tids, active, boost = ins
+        p = A["postings"][self.field]
+        n_pad, _dev = _live_n_pad(A)
+        matched = filter_ops.postings_mask(
+            p["offsets"], p["doc_ids"], p["tfs"], tids, active,
+            n_pad=n_pad, budget=budget)
+        return _const(matched, boost)
+
+
+@dataclass(frozen=True)
+class TermRangeMaskPlan(Plan):
+    """Constant-score docs containing any term in a CONTIGUOUS term-id
+    range — a prefix is a range of the sorted term dict (Lucene
+    PrefixQuery's automaton walk collapses to two binary searches).
+    bind: {lo, hi, boost} (string bounds, [lo, hi)).  The range's
+    posting bounds come from the host CSR, so no offset is read back."""
+
+    field: str = ""
+
+    def arrays(self):
+        return frozenset({("postings", self.field)})
+
+    def prepare(self, bind, seg, dseg, ctx):
+        pf = seg.postings.get(self.field)
+        o_lo = o_hi = 0
+        if pf is not None:
+            sterms = ctx.sorted_terms(seg, self.field)
+            lo_tid = bisect.bisect_left(sterms, bind["lo"])
+            hi_tid = bisect.bisect_left(sterms, bind["hi"])
+            o_lo, o_hi = int(pf.offsets[lo_tid]), int(pf.offsets[hi_tid])
+        return ((pad_bucket(o_hi - o_lo),),
+                (o_lo, o_hi, _f32(bind["boost"])))
+
+    def eval(self, A, dims, ins):
+        (budget,) = dims
+        o_lo, o_hi, boost = ins
+        p = A["postings"][self.field]
+        n_pad, dev = _live_n_pad(A)
+        i = torch.arange(budget, dtype=torch.int64, device=dev)
+        valid = i < (o_hi - o_lo)
+        idx = torch.where(valid, o_lo + i, 0)
+        d = torch.where(valid, p["doc_ids"][idx],
+                        torch.full_like(idx, n_pad - 1, dtype=torch.int32))
+        return _const(filter_ops.scatter_any(valid, d, n_pad), boost)
+
+
+@dataclass(frozen=True)
+class ExistsPlan(Plan):
+    """Docs with a value in ``field``'s doc-value column, or (``norms``)
+    where the field was present in the postings, staged on demand
+    (``DeviceSegment.ensure_norms``: the f32 posting columns of a
+    quantized segment stay unstaged)."""
+
+    field: str = ""
+    src: str = "numeric"             # numeric | ordinal | vector | norms
+
+    def arrays(self):
+        return frozenset({(self.src, self.field)})
+
+    def prepare(self, bind, seg, dseg, ctx):
+        return (), (_f32(bind["boost"]),)
+
+    def eval(self, A, dims, ins):
+        (boost,) = ins
+        if self.src == "norms":
+            # the norms-entry analog: matches zero-token values too
+            matched = A["norms"][self.field]["field_exists"]
+        else:
+            matched = A[self.src][self.field]["exists"]
+        return _const(matched, boost)
+
+
+@dataclass(frozen=True)
+class MaskPlan(Plan):
+    """Host-precomputed per-segment boolean mask (ids query).
+    bind: {mask_fn: (seg, dseg) -> np.bool_[n_pad], boost}."""
+
+    label: str = "ids"
+
+    def prepare(self, bind, seg, dseg, ctx):
+        mask = bind["mask_fn"](seg, dseg)
+        return (), (_tensor(mask, bool, dseg.device), _f32(bind["boost"]))
+
+    def eval(self, A, dims, ins):
+        mask, boost = ins
+        return _const(mask, boost)
 
 
 def _prepare_children(children, binds, seg, dseg, ctx):

@@ -3,7 +3,10 @@ package's own copies of the benchmark's corpus builders
 (``bench.py`` ``build_raw_corpus`` / ``make_segments``) and of the
 zipf query log (``opensearch_tpu/testing/workload.py``
 ``zipf_query_log``), with the same draws, plus a seeded generator of
-float32 vectors.  Pure numpy; segments are this package's."""
+float32 vectors and of doc-value columns (``doc_value_columns``: a
+``price`` long, a ``ts`` date and a ``tag`` keyword with postings and
+ordinals, ``COLUMNS_MAPPING``).  Pure numpy; segments are this
+package's."""
 
 from __future__ import annotations
 
@@ -11,11 +14,19 @@ from typing import Optional
 
 import numpy as np
 
-from opensearch_tpu_torch.index.segment import (PostingsField, Segment,
+from opensearch_tpu_torch.index.segment import (NumericDV, OrdinalDV,
+                                                PostingsField, Segment,
                                                 VectorDV)
 
 VOCAB_SIZE = 30_000
 AVG_LEN = 40
+PRICE_MAX = 10_000                # price: long, uniform over 0..PRICE_MAX
+TS_START_MS = 1_704_067_200_000   # ts: date, 2024-01-01T00:00:00Z ...
+TS_SPAN_MS = 365 * 86_400_000     # ... over 365 days, epoch millis
+TAG_VALUES = 1_000                # tag: keyword, zipf over 1,000 values
+# the mapping of the columns (with ``make_segments``' body and vectors)
+COLUMNS_MAPPING = {"price": {"type": "long"}, "ts": {"type": "date"},
+                   "tag": {"type": "keyword"}}
 
 
 def _draws(n_docs: int, seed: int) -> tuple:
@@ -69,14 +80,74 @@ def random_vectors(n: int, dim: int = 128, seed: int = 0) -> np.ndarray:
     return rng.standard_normal((n, dim), dtype=np.float32)
 
 
+def tag_name(code: int) -> str:
+    """The ``tag`` keyword of value ``code``: fixed width, so the sorted
+    term dictionary keeps the codes' order."""
+    return f"tag{int(code):03d}"
+
+
+def doc_value_columns(n_docs: int, seed: int = 11) -> dict:
+    """Seeded single-valued columns of ``n_docs`` docs: ``price`` int64
+    uniform over 0..``PRICE_MAX``, ``ts`` int64 epoch millis uniform over
+    ``TS_SPAN_MS`` from ``TS_START_MS``, ``tag`` int32 codes zipf (a =
+    1.3) over ``TAG_VALUES`` values (``tag_name`` spells them)."""
+    rng = np.random.default_rng(seed)
+    return {"price": rng.integers(0, PRICE_MAX + 1, size=n_docs,
+                                  dtype=np.int64),
+            "ts": TS_START_MS + rng.integers(0, TS_SPAN_MS, size=n_docs,
+                                             dtype=np.int64),
+            "tag": ((rng.zipf(1.3, size=n_docs) - 1)
+                    .clip(0, TAG_VALUES - 1).astype(np.int32))}
+
+
+def _long_column(values: np.ndarray) -> NumericDV:
+    n = len(values)
+    return NumericDV(kind="long", offsets=np.arange(n + 1, dtype=np.int32),
+                     values=values.astype(np.int64),
+                     value_docs=np.arange(n, dtype=np.int32),
+                     minv=values.astype(np.int64),
+                     maxv=values.astype(np.int64),
+                     exists=np.ones(n, dtype=bool))
+
+
+def _keyword_columns(codes: np.ndarray) -> tuple:
+    """(postings, ordinals) of a single-valued keyword column, as the
+    writer builds them for a keyword field: no norms, tf 1."""
+    n = len(codes)
+    present = np.unique(codes)
+    terms = [tag_name(c) for c in present]
+    ords = np.searchsorted(present, codes).astype(np.int32)
+    order = np.argsort(ords, kind="stable")       # doc-ascending per term
+    df = np.bincount(ords, minlength=len(terms)).astype(np.int32)
+    offsets = np.zeros(len(terms) + 1, dtype=np.int32)
+    offsets[1:] = np.cumsum(df)
+    postings = PostingsField(
+        terms={t: i for i, t in enumerate(terms)}, df=df, offsets=offsets,
+        doc_ids=order.astype(np.int32), tfs=np.ones(n, dtype=np.float32),
+        pos_offsets=np.arange(n + 1, dtype=np.int32),
+        positions=np.zeros(n, dtype=np.int32),
+        doc_lens=np.ones(n, dtype=np.float32), total_len=float(n),
+        docs_with_field=n, has_norms=False,
+        present=np.ones(n, dtype=bool))
+    ordinal = OrdinalDV(
+        ord_terms=terms, term_to_ord={t: i for i, t in enumerate(terms)},
+        offsets=np.arange(n + 1, dtype=np.int32), ords=ords,
+        value_docs=np.arange(n, dtype=np.int32), min_ord=ords.copy(),
+        max_ord=ords.copy(), exists=np.ones(n, dtype=bool))
+    return postings, ordinal
+
+
 def make_segments(raw: dict, n_segments: int,
                   vectors: Optional[np.ndarray] = None,
                   vector_field: str = "vec",
-                  similarity: str = "l2") -> list[Segment]:
+                  similarity: str = "l2",
+                  columns: Optional[dict] = None) -> list[Segment]:
     """Split the raw CSR corpus into ``n_segments`` doc-range segments
     with a ``body`` postings field (only terms present in a segment get
-    a dictionary entry, so can-match can prune it) and, when
-    ``vectors`` [n_docs, d] is given, a vector field."""
+    a dictionary entry, so can-match can prune it), when ``vectors``
+    [n_docs, d] is given a vector field and, when ``columns`` (of
+    ``doc_value_columns``) is given, the ``price`` and ``ts`` long
+    columns and the ``tag`` keyword's postings and ordinals."""
     n_docs = raw["n_docs"]
     n_segments = max(1, min(int(n_segments), n_docs))
     offsets, df = raw["offsets"], raw["df"]
@@ -113,6 +184,11 @@ def make_segments(raw: dict, n_segments: int,
                 values=np.ascontiguousarray(vectors[lo:hi], np.float32),
                 exists=np.ones(n_local, dtype=bool),
                 dim=int(vectors.shape[1]), similarity=similarity)
+        if columns is not None:
+            for name in ("price", "ts"):
+                seg.numeric_dv[name] = _long_column(columns[name][lo:hi])
+            seg.postings["tag"], seg.ordinal_dv["tag"] = _keyword_columns(
+                columns["tag"][lo:hi])
         segs.append(seg)
     return segs
 

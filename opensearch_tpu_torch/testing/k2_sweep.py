@@ -1,5 +1,8 @@
 """K2's top-k entry against the route it replaced, and its tile size, on
-the card.
+the card; and the route K2's dense (per-slot) entry replaced, one launch
+per query-term slot (``slot_route_cuda``, ``slot_route_quantized_cuda``),
+which ``chip_smoke.py`` times beside the one-launch entry in the same
+call.
 
     python3 -m opensearch_tpu_torch.testing.k2_sweep
 
@@ -10,15 +13,22 @@ log (by postings in the first segment), and for each tile size in
 ptxas' register and spill lines are printed) checks the fused top-k
 launch against its plain twin, byte for byte, and times it at k = 10 and
 100.  The route it replaced, the per-slot entry plus the masks and the
-stable sort per segment, is timed at the same inputs.  Times are device
-milliseconds per query under ``torch.profiler`` (the sum of every device
-kernel and copy of the call), each the lower of two readings taken in
-turns.  Prints one JSON line per reading and the card's name and power
-limit.  Needs CUDA; without it, exits non-zero.
+stable sort per segment, is timed at the same inputs.  Then the per-slot
+(dense) entry, ``term_bag_cuda``, at each block width of ``FOLD_TILES``
+(``csrc/bm25.cu`` rebuilt with that ``BM25_FOLD_TILE_DOCS``): checked
+against its plain twin (scores; counts only) and timed on the median and
+the heaviest bag over the 16 segments, one call per segment, beside the
+route it replaced (``slot_route_cuda``: a memset and one launch per
+slot).  Times are device milliseconds per query (per segment for the
+per-slot entry) under ``torch.profiler`` (the sum of every device kernel
+and copy of the call), each the lower of two readings taken in turns.
+Prints one JSON line per reading and the card's name and power limit.
+Needs CUDA; without it, exits non-zero.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -30,6 +40,155 @@ from opensearch_tpu_torch.testing.k1_sweep import device_ms
 
 TILES = (2048, 4096, 8192)
 KS = (10, 100)
+FOLD_TILES = (512, 1024, 2048, 4096)
+_THREADS = 256
+_MAX_GRID = 132 * 32
+
+
+def _slot_grid(budget: int) -> int:
+    """Blocks per launch of the replaced route: one thread per posting of
+    the bag (capped; the grid-stride loop covers the rest)."""
+    return max(1, min(_MAX_GRID, -(-int(budget) // _THREADS)))
+
+
+def _slot_declare(lib):
+    from opensearch_tpu_torch.ops import cuda_bm25
+
+    cuda_bm25._declare(lib)
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.term_bag_slot_launch.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p]
+    lib.term_bag_slot_launch.restype = i
+    lib.term_bag_quantized_slot_launch.argtypes = [
+        p, p, p, i, p, i, p, p, p, p, p, p, p, i, i, p, p, p]
+    lib.term_bag_quantized_slot_launch.restype = i
+
+
+def _slot_library():
+    """``csrc/bm25.cu`` built with the replaced route's entries
+    (``BM25_SLOT_ROUTE``), which the search paths' library leaves out."""
+    from opensearch_tpu_torch.ops import cuda_bm25, cuda_build
+
+    return cuda_build.library("bm25", _slot_declare,
+                              {**cuda_bm25.defines(), "BM25_SLOT_ROUTE": 1})
+
+
+def slot_route_cuda(offsets, doc_ids, impacts, term_ids, term_active, idfs,
+                    weights, *, n_pad: int, budget: int, scores: bool,
+                    counts: bool):
+    """The route ``cuda_bm25.term_bag_cuda`` replaced: zeroed dense
+    columns, then one launch of ``term_bag_slot_kernel`` per slot.  Same
+    arguments and result; ``slot_route_cuda.launches`` counts launches."""
+    from opensearch_tpu_torch.ops import cuda_bm25, cuda_build
+
+    dev = offsets.device
+    out_s = torch.zeros(n_pad, dtype=torch.float32, device=dev) \
+        if scores else None
+    out_c = torch.zeros(n_pad, dtype=torch.int32, device=dev) \
+        if counts else None
+    t_pad = term_ids.shape[0]
+    lib = _slot_library()
+    p = cuda_bm25._ptr
+    rc = lib.term_bag_slot_launch(
+        p(offsets), p(doc_ids), p(impacts if scores else None),
+        p(term_ids), p(term_active), p(idfs if scores else None),
+        p(weights if scores else None), t_pad, _slot_grid(budget), p(out_s),
+        p(out_c), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    cuda_build.check(lib, rc, "term_bag_slot_launch")
+    cuda_build.count(slot_route_cuda, t_pad)
+    return out_s, out_c
+
+
+def slot_route_quantized_cuda(offsets, packed, base, qvals, scales,
+                              exact_vals, exact_offsets, term_ids,
+                              term_active, idfs, weights, *, width: int,
+                              n_pad: int, budget: int, scores: bool,
+                              counts: bool):
+    """``slot_route_cuda`` over a quantized segment (the route
+    ``cuda_bm25.term_bag_quantized_cuda`` replaced)."""
+    from opensearch_tpu_torch.ops import cuda_bm25, cuda_build
+
+    dev = offsets.device
+    out_s = torch.zeros(n_pad, dtype=torch.float32, device=dev) \
+        if scores else None
+    out_c = torch.zeros(n_pad, dtype=torch.int32, device=dev) \
+        if counts else None
+    t_pad = term_ids.shape[0]
+    lib = _slot_library()
+    p = cuda_bm25._ptr
+    rc = lib.term_bag_quantized_slot_launch(
+        p(offsets), p(packed), p(base), int(width), p(qvals),
+        cuda_bm25._q_bytes(qvals), p(scales), p(exact_vals),
+        p(exact_offsets), p(term_ids), p(term_active),
+        p(idfs if scores else None), p(weights if scores else None), t_pad,
+        _slot_grid(budget), p(out_s), p(out_c),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    cuda_build.check(lib, rc, "term_bag_quantized_slot_launch")
+    cuda_build.count(slot_route_quantized_cuda, t_pad)
+    return out_s, out_c
+
+
+slot_route_cuda.launches = 0
+slot_route_quantized_cuda.launches = 0
+
+
+def fold_sweep(searcher, bags) -> None:
+    """The per-slot entry at each width of ``FOLD_TILES`` beside the
+    route it replaced, on every segment of ``searcher`` (see the module
+    doc)."""
+    from opensearch_tpu_torch.ops import bm25, cuda_bm25, cuda_build
+
+    calls = {}
+    for name, terms in bags.items():
+        plan, bind = searcher.compiled({"match": {"body": " ".join(terms)}})
+        calls[name] = []
+        for seg in searcher.segments:
+            dseg = seg.device(searcher.device)
+            (_t, budget, _f), (tids, act, idfs, w, imp, _r) = plan.prepare(
+                bind, seg, dseg, searcher.ctx)
+            p = dseg.postings["body"]
+            calls[name].append(((p["offsets"], p["doc_ids"], imp, tids, act,
+                                 idfs, w), dict(n_pad=dseg.n_pad,
+                                                budget=budget)))
+    n_seg = len(searcher.segments)
+    default = cuda_bm25.FOLD_TILE_DOCS
+    try:
+        for tile in FOLD_TILES:
+            cuda_bm25.FOLD_TILE_DOCS = tile
+            logs = cuda_build.build(["bm25"], {"bm25": cuda_bm25.defines()})
+            for line in logs.get("bm25", "").splitlines():
+                if "fold" in line or ("registers" in line and "smem" in line
+                                      and tile == FOLD_TILES[0]):
+                    print(f"ptxas bm25 fold tile {tile}: {line.strip()}")
+            for name in bags:
+                for a, kw in calls[name]:
+                    got = bm25.impact_score_count(*a, **kw, scored=True)
+                    ref = bm25.impact_score_count_plain(*a, **kw,
+                                                        scored=True)
+                    cnt = cuda_bm25.term_bag_cuda(
+                        *a, **kw, scores=False, counts=True)[1]
+                    if not (torch.equal(got[0], ref[0])
+                            and torch.equal(got[1], ref[1])
+                            and torch.equal(cnt, ref[1])):
+                        raise AssertionError(f"fold tile {tile} {name}: "
+                                             "differs from the plain twin")
+        for name, terms in bags.items():
+            row = {"bag": terms, "per": "segment"}
+            for _turn in range(2):
+                for tile in FOLD_TILES:
+                    cuda_bm25.FOLD_TILE_DOCS = tile
+                    ms = device_ms(lambda: [bm25.impact_scores(*a, **kw)
+                                            for a, kw in calls[name]])
+                    key = f"fold_{tile}_ms"
+                    row[key] = min(row.get(key, 1e9), ms / n_seg)
+                ms = device_ms(lambda: [slot_route_cuda(
+                    *a, **kw, scores=True, counts=False)
+                    for a, kw in calls[name]])
+                row["replaced_route_ms"] = min(
+                    row.get("replaced_route_ms", 1e9), ms / n_seg)
+            print(json.dumps(row), flush=True)
+    finally:
+        cuda_bm25.FOLD_TILE_DOCS = default
 
 
 def main() -> int:
@@ -109,6 +268,7 @@ def main() -> int:
                 print(json.dumps(row), flush=True)
     finally:
         cuda_bm25.TILE_DOCS = default
+    fold_sweep(searcher, bags)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -8,9 +8,15 @@ vectors), a window of ``match`` and ``knn`` queries through
 
 ``n_queries`` sizes the ``match`` and ``knn`` windows; the ``msearch``
 window is 4 batches of 64 (their group inputs assembled in the window,
-after one warm-up batch).  A last ``match_quantized`` window runs the
-``match`` queries over the same 1M docs in 8 segments of 125,000, which
-the port quantizes (K4, ``chip_smoke.py`` phase 7's layout).  Prints one JSON line per query kind: wall ms
+after one warm-up batch).  Then ``bool_filter`` (the ``match`` pair
+filtered by a ``price`` range over ~40% of the docs and a ``tag`` term,
+``chip_smoke.py`` phase 10's ``bool``) and ``hybrid`` ([the ``match``
+pair, a ``knn``] through a min_max / arithmetic_mean pipeline) windows.
+A last ``match_quantized`` window runs the ``match`` queries over the
+same 1M docs in 8 segments of 125,000, which the port quantizes (K4,
+``chip_smoke.py`` phase 7's layout), and a ``bool_filter_quantized``
+one the ``bool_filter`` queries there.  Prints one JSON line per query
+kind: wall ms
 per query (profiler on), device busy ms per query (the sum of the CUDA
 kernels' and copies' own time; one stream, so they do not overlap), the
 idle share ``1 - busy / wall``, the device calls (kernels and copies)
@@ -51,11 +57,13 @@ def build_searcher(n_docs: int, n_segments: int, device):
 
     raw = corpus.build_raw_corpus(n_docs, seed=42)
     vecs = corpus.random_vectors(n_docs, DIM, seed=43)
-    segs = corpus.make_segments(raw, n_segments, vectors=vecs)
+    segs = corpus.make_segments(raw, n_segments, vectors=vecs,
+                                columns=corpus.doc_value_columns(n_docs,
+                                                                 seed=11))
     mapper = DocumentMapper({"properties": {
         "body": {"type": "text"},
         "vec": {"type": "knn_vector", "dimension": DIM,
-                "space_type": "l2"}}})
+                "space_type": "l2"}, **corpus.COLUMNS_MAPPING}})
     return ShardSearcher(segs, mapper, index_name="scale", device=device)
 
 
@@ -63,13 +71,34 @@ def query_bodies(n: int, seed: int = 9) -> dict:
     from opensearch_tpu_torch.testing import corpus
 
     rng = np.random.default_rng(44)
+    pairs = corpus.zipf_query_log(n, seed=seed)
+    width = int(corpus.PRICE_MAX * 0.4)
+
+    def vec():
+        return rng.standard_normal(DIM).astype(np.float32).tolist()
+
+    def bool_filter(a, b):
+        lo = int(rng.integers(0, corpus.PRICE_MAX - width))
+        tag = corpus.tag_name(min(int(rng.zipf(1.3)) - 1, 19))
+        return {"query": {"bool": {
+            "must": [{"match": {"body": f"t{a} t{b}"}}],
+            "filter": [{"range": {"price": {"gte": lo, "lt": lo + width}}},
+                       {"term": {"tag": tag}}]}},
+            "size": 10, "_source": False}
+
     return {
         "match": [{"query": {"match": {"body": f"t{a} t{b}"}}, "size": 10,
-                   "_source": False}
-                  for a, b in corpus.zipf_query_log(n, seed=seed)],
-        "knn": [{"query": {"knn": {"vec": {
-            "vector": rng.standard_normal(DIM).astype(np.float32).tolist(),
-            "k": 10}}}, "size": 10, "_source": False} for _ in range(n)],
+                   "_source": False} for a, b in pairs],
+        "knn": [{"query": {"knn": {"vec": {"vector": vec(), "k": 10}}},
+                 "size": 10, "_source": False} for _ in range(n)],
+        "bool_filter": [bool_filter(a, b) for a, b in pairs],
+        "hybrid": [{"query": {"hybrid": {"queries": [
+            {"match": {"body": f"t{a} t{b}"}},
+            {"knn": {"vec": {"vector": vec(), "k": 10}}}]}},
+            "size": 10, "_source": False, "_hybrid_pipeline": {
+                "combination": {"technique": "arithmetic_mean",
+                                "parameters": {"weights": [0.3, 0.7]}}}}
+            for a, b in pairs],
     }
 
 
@@ -143,12 +172,13 @@ def main(argv=None) -> int:
     print(json.dumps({"kind": "msearch", "gpu": gpu, **out}), flush=True)
     del searcher
     searcher = build_searcher(1_000_000, 8, "cuda")
-    qs = bodies["match"]
-    for body in qs[:5]:
-        searcher.search(body)
-    out = profile_window(searcher, qs[5:])
-    print(json.dumps({"kind": "match_quantized", "gpu": gpu, **out}),
-          flush=True)
+    for kind in ("match", "bool_filter"):
+        qs = bodies[kind]
+        for body in qs[:5]:
+            searcher.search(body)
+        out = profile_window(searcher, qs[5:])
+        print(json.dumps({"kind": f"{kind}_quantized", "gpu": gpu, **out}),
+              flush=True)
     return 0
 
 

@@ -3,9 +3,11 @@ package ``opensearch_tpu`` (only the tests import both).
 
 Checks: a subprocess that blocks those imports with a ``sys.meta_path``
 hook, imports every module of ``opensearch_tpu_torch`` (the write path's
-engine, store and translog, and the serving node's indices service, REST
-controller and HTTP server among them) and runs one CPU search, one
-engine round trip and one node on the CPU answering over HTTP; a static
+engine, store and translog, the serving node's indices service, REST
+controller and HTTP server, the filter ops and the search pipelines
+among them) and runs CPU searches (a ``match``, a ``knn``, a filtered
+``bool`` and a ``hybrid``), one engine round trip and one node on the
+CPU answering over HTTP (a search pipeline put among its requests); a static
 scan of the port's sources and ``chip_smoke.py`` for imports that name
 them; and the node's entry point, ``python -m
 opensearch_tpu_torch.node``, which serves with ``--device cpu`` and,
@@ -85,8 +87,27 @@ assert resp["hits"]["hits"][0]["_id"] == "3", resp
 for name in ("index.engine", "index.store", "index.translog", "node",
              "rest.controller", "rest.http_server", "indices.service",
              "indices.request_cache", "common.xcontent", "common.breakers",
-             "version"):
+             "version", "ops.filters", "search.pipeline",
+             "common.settings"):
     assert "opensearch_tpu_torch." + name in names, name
+fmapper = DocumentMapper({"properties": {
+    "body": {"type": "text"}, "price": {"type": "long"},
+    "tag": {"type": "keyword"}}})
+fseg = SegmentWriter().build(
+    [fmapper.parse(str(i), {"body": f"alpha w{i % 3}", "price": i,
+                            "tag": f"t{i % 4}"}) for i in range(12)], "f0")
+fsearcher = ShardSearcher([fseg], fmapper, device="cpu")
+resp = fsearcher.search({"query": {"bool": {
+    "must": [{"match": {"body": "w1"}}],
+    "filter": [{"range": {"price": {"gte": 4}}},
+               {"terms": {"tag": ["t0", "t1", "t3"]}}]}}})
+assert resp["hits"]["total"]["value"] == 2, resp
+resp = fsearcher.search({"query": {"hybrid": {"queries": [
+    {"match": {"body": "w1"}}, {"range": {"price": {"lt": 3}}}]}},
+    "_hybrid_pipeline": {"combination": {
+        "technique": "arithmetic_mean",
+        "parameters": {"weights": [0.3, 0.7]}}}, "timeout": "10s"})
+assert len(resp["hits"]["hits"]) == 6 and not resp["timed_out"], resp
 
 import tempfile
 from opensearch_tpu_torch.index.engine import InternalEngine
@@ -122,6 +143,13 @@ with tempfile.TemporaryDirectory() as path:
             assert not json.loads(resp.read())["errors"]
         with urllib.request.urlopen(base + "/i/_count") as resp:
             assert json.loads(resp.read())["count"] == 1
+        req = urllib.request.Request(
+            base + "/_search/pipeline/p", method="PUT",
+            data=json.dumps({"phase_results_processors": [
+                {"normalization-processor": {}}]}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req) as resp:
+            assert json.loads(resp.read())["acknowledged"]
     finally:
         node.stop()
 bad = sorted(m for m in sys.modules if forbidden(m))

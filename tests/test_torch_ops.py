@@ -202,6 +202,34 @@ def test_topk_breaks_ties_by_lower_index_like_lax_top_k():
     assert ti.dtype == torch.int32
 
 
+@pytest.mark.parametrize("space", tknn.SPACES)
+def test_knn_scores_do_not_depend_on_summation_order(space):
+    """The plain version sums in float64 and rounds each score to
+    float32 once, as K1 does: sums in another order (numpy's, over the
+    dimensions reversed) give the same bytes, so the card and the CPU
+    agree exactly and a hybrid's min_max has no float32 noise to
+    magnify."""
+    rng = np.random.default_rng(21)
+    vectors = rng.standard_normal((3000, 128)).astype(np.float32)
+    query = rng.standard_normal(128).astype(np.float32)
+    v = vectors[:, ::-1].astype(np.float64)
+    q = query[::-1].astype(np.float64)
+    dots = np.einsum("ij,j->i", v, q)
+    v2 = np.einsum("ij,ij->i", v, v)
+    if space == "l2":
+        want = 1.0 / (1.0 + np.maximum(v2 - 2.0 * dots + q @ q, 0.0))
+    elif space == "cosinesimil":
+        cos = dots / np.maximum(np.sqrt(v2) * np.sqrt(q @ q), 1e-30)
+        want = (1.0 + cos) / 2.0
+    else:
+        want = np.where(dots >= 0, dots + 1.0, 1.0 / (1.0 - dots))
+    got = tknn.knn_scores(torch.from_numpy(vectors),
+                          torch.ones(len(vectors), dtype=torch.bool),
+                          torch.from_numpy(query), space=space)
+    assert got.dtype == torch.float32
+    assert got.numpy().tobytes() == want.astype(np.float32).tobytes()
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     vectors, valid, query = knn_data(1, 16)
     with pytest.raises(ValueError, match="CUDA"):
@@ -624,7 +652,9 @@ def test_term_bag_layout_constants_reach_the_kernel_as_macros():
                                    "BM25_SEG_WORDS": cuda_bm25.SEG_WORDS,
                                    "BM25_QSEG_WORDS": cuda_bm25.QSEG_WORDS,
                                    "BM25_QSLOT_WORDS":
-                                       cuda_bm25.QSLOT_WORDS}
+                                       cuda_bm25.QSLOT_WORDS,
+                                   "BM25_FOLD_TILE_DOCS":
+                                       cuda_bm25.FOLD_TILE_DOCS}
     src = (cuda_build.CSRC / "bm25.cu").read_text()
     for macro in cuda_bm25.defines():
         assert f"= {macro};" in src

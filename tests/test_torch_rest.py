@@ -129,7 +129,8 @@ PORTED_HANDLERS = {
     "h_get_settings", "h_refresh", "h_flush", "h_forcemerge", "h_index_doc",
     "h_index_doc_auto", "h_create_doc", "h_get_doc", "h_doc_exists",
     "h_delete_doc", "h_update_doc", "h_bulk", "h_search", "h_msearch",
-    "h_count"}
+    "h_count", "h_get_pipelines", "h_get_pipeline", "h_put_pipeline",
+    "h_delete_pipeline"}
 
 
 def test_routes_match_reference(nodes):
