@@ -25,9 +25,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``match_count`` and ``postings_mask`` call it) on the median, the
    heaviest and the 25-term code-heavy bag, f32 over the 16 scale
    segments and int8 and int16 over the 8 quantized ones, one launch per
-   call, then timed at the median bag beside its plain twin, the
-   ``index_add_`` chain and the route it replaced (one launch per slot,
-   ``testing/k2_sweep.py``) in the same call; and
+   call, then timed at the median bag in turns with its plain twin and
+   beside the ``index_add_`` chain; and
    K2's top-k entry ``term_bag_topk_segments_cuda`` (one launch over the
    16 scale segments) against ``term_bag_topk_segments``, byte for byte,
    on the median bag, the heaviest bag, a 4-term bag, an ``and`` bag, a
@@ -57,10 +56,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    segments of 5,000 docs quantized under ``QUANTIZED_MODE = "on"``
    (13-bit deltas against the scale shard's 17); a mixed call
    over 2 quantized and 2 f32 segments; and K4 against K2 over the same
-   segments' ``dequantized()`` column staged as f32, byte for byte.
+   segments' ``dequantized()`` column staged as f32, byte for byte; and
+   K5, the bucket collector of aggregations (``bucket_collect_cuda``,
+   ``csrc/aggs.cu``: one launch over every segment of a call), against
+   its plain version byte for byte in its ordinal, edges and single
+   modes with 0-2 sub-columns (long and double), on one scale segment
+   and on multi-valued columns of 1-3 values a doc with duplicates in one
+   bucket, two launches on the same inputs byte-equal, then timed over
+   the 16 scale segments (a day ``date_histogram`` with a ``stats`` sub,
+   and ``terms`` with two subs) beside the ``index_add_`` /
+   ``scatter_reduce_`` chain; and the filter masks (``range_mask``,
+   ``term_mask``, ``terms_mask``) timed alone on one segment.
    The scale corpus carries doc-value columns (``testing/corpus.py``
    ``doc_value_columns``: ``price`` long, ``ts`` date, ``tag`` keyword
-   with postings and ordinals) in both layouts, for phase 10;
+   with postings and ordinals, ``fare`` double) in both layouts, for
+   phases 10 and 11;
 3. ingest path: ~2,000 JSON docs through the port's DocumentMapper and
    SegmentWriter into 2 segments with deletes, then match / bool / knn
    (three spaces, filtered, and one k above K1's in-kernel maximum)
@@ -134,8 +144,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    fewer than one dispatch per query, equal to sequential); an index
    ``vectors`` of 5,000 128-d vectors by ``_bulk`` and 50 ``knn``
    searches (one K1 launch each, within
-   tolerance of the CPU); a multi-index ``match_all``; ``aggs`` answering
-   501 and a missing index 404; ``_forcemerge``, ``_flush``, ``DELETE
+   tolerance of the CPU); a multi-index ``match_all``; ``aggs`` on
+   ``corpus`` and across ``corpus,vectors`` equal to the CPU searcher,
+   and a missing index 404; ``_forcemerge``, ``_flush``, ``DELETE
    /vectors`` (the device bytes it held released); then a restart on the
    same data path (the index reloaded, ``vectors`` gone, ``_count`` and
    20 responses unchanged, the acked docs read back).  One ``serving:``
@@ -161,12 +172,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    hybrids' ids equal, scores within rtol 1e-5 / atol 1e-6).  One
    ``filters and hybrid:`` line prints qps, p50 and launches per query
    for each kind, the resident bytes of the new columns and the phase's
-   seconds.
+   seconds;
+11. aggregations, on phase 4's 16 f32 segments and phase 7's 8 quantized
+   ones (``price``, ``ts``, ``tag`` and the ``fare`` double), shaped on
+   nyc_taxis' ``date_histogram_agg`` / ``distance_amount_agg`` and
+   config 5: per layout 50 ``date_histogram`` (day) on ``ts`` with a
+   ``stats`` sub on ``fare`` (25 under a 21-day ``range``, 25 over every
+   doc), 50 ``histogram`` on ``price`` under a ``range`` filter, 50
+   ``match`` pairs with ``size`` 10 and ``terms`` on ``tag`` with ``avg``
+   / ``max`` subs, 20 ``match_all`` with 12 metric aggs, and one each of
+   ``range``, ``filters``, ``missing``, ``cardinality``, ``percentiles``
+   (the centroid path), ``terms`` on a long, ``composite`` with an
+   ``after``, ``top_hits`` under ``terms``, ``cumulative_sum`` and
+   ``max_bucket``; K5's launches per request checked against each
+   kind's bucket and metric aggs, no K3 launch, samples equal to the CPU
+   searcher byte for byte (JSON), and where a request's time goes
+   (``run_full``, K5 and its copy, the host aggregation); plus 20
+   ``terms`` + ``value_count`` ``_search`` requests over HTTP to phase
+   9's node before it stops (``?request_cache=false``; two K5 launches
+   each), equal to the CPU searcher.  One ``aggregations:`` line prints
+   qps and p50 per kind and the layer times.
 
 Every kernel wrapper counts its launches; the counts are zeroed just
 before phase 3 and read after phase 4, and zeroed again just before
-phases 5, 6, 7, 8, 9, phase 10's hybrids over HTTP and phase 10 and read
-after each: each kernel of each path must have run.
+phases 5, 6, 7, 8, 9, phase 10's hybrids and phase 11's requests over
+HTTP, phase 10 and phase 11 and read after each: each kernel of each
+path must have run.
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the
 script exits non-zero and prints no result.
@@ -276,7 +307,8 @@ def phase_toolkit():
         f"count={torch.cuda.device_count()}")
     log(f"gpu: {gpu_name_power()}")
     t0 = time.monotonic()
-    logs = cuda_build.build(["knn", "bm25", "union_topk", "quant_topk"],
+    logs = cuda_build.build(["knn", "bm25", "union_topk", "quant_topk",
+                             "aggs"],
                             {"knn": cuda_knn.defines(),
                              "bm25": cuda_bm25.defines(),
                              "quant_topk": cuda_bm25.quant_defines()})
@@ -956,6 +988,346 @@ def phase_ingest():
             f"{'filter' in spec}")
 
 
+# -- phase 2: K5, the bucket collector; the filter masks -----------------------
+
+def multi_valued(n_docs: int, kind: str, seed: int) -> dict:
+    """A column of ``n_docs`` docs with 1-3 values each (~30% of the
+    later values repeat the one before, duplicates in one bucket), laid
+    out as
+    ``DeviceSegment`` stages a numeric or ordinal column: values sorted
+    per doc, padded to a power of two with value 0 (ordinal -1) and doc
+    ``n_docs``, offsets over ``n_pad + 1`` slots."""
+    from opensearch_tpu_torch.index.segment import pad_pow2
+
+    rng = np.random.default_rng(seed)
+    per = rng.integers(1, 4, size=n_docs)
+    docs = np.repeat(np.arange(n_docs, dtype=np.int32), per)
+    if kind == "long":
+        vals = rng.integers(0, 10_000, size=len(docs)).astype(np.int64)
+    elif kind == "double":
+        vals = np.round(rng.lognormal(2.3, 0.6, size=len(docs)), 2)
+    else:
+        vals = rng.integers(0, 40, size=len(docs)).astype(np.int32)
+    same = np.r_[False, docs[1:] == docs[:-1]] & (rng.random(len(docs)) < 0.3)
+    vals[same] = vals[np.nonzero(same)[0] - 1]
+    order = np.lexsort((vals, docs))
+    vals, docs = vals[order], docs[order]
+    if kind == "ordinal":           # ordinals are distinct per doc
+        keep = np.r_[True, (docs[1:] != docs[:-1]) | (vals[1:] != vals[:-1])]
+        vals, docs = vals[keep], docs[keep]
+    n_pad = pad_pow2(n_docs + 1)
+    v_pad = pad_pow2(len(vals))
+    pv = np.full(v_pad, -1 if kind == "ordinal" else 0, vals.dtype)
+    pv[: len(vals)] = vals
+    pd = np.full(v_pad, n_docs, np.int32)
+    pd[: len(docs)] = docs
+    offs = np.searchsorted(docs, np.arange(n_pad + 1)).astype(np.int32)
+    return {"values": pv, "value_docs": pd, "offsets": offs}
+
+
+def k5_bytes(segs, edges=None, self_metric=False) -> float:
+    """Bytes K5 must move for one call: each input read once (matched,
+    the key column and its docs, each sub-column's values and offsets,
+    the edges), each output word written once."""
+    n_subs = 1 if self_metric else len(segs[0].subs)
+    total = 0.0 if edges is None else 8.0 * edges.shape[0]
+    for s in segs:
+        total += s.matched.shape[0] + s.keys.numel() * s.keys.element_size() \
+            + 4 * s.key_docs.numel()
+        total += 8.0 * s.n_buckets_pad * (1 + 4 * n_subs)
+        for col in s.subs:
+            if col is not None:
+                total += col["values"].numel() * 8 + \
+                    4 * col["offsets"].numel()
+    return total
+
+
+def k5_library_chain(segs, mode, edges=None):
+    """The yardstick: the same function as PyTorch's scatter calls the
+    port never makes (``index_add_`` / ``scatter_reduce_``, with float
+    atomics on the card): counts, per-doc partials, then per-bucket
+    partials, per segment."""
+    import torch
+
+    out = []
+    for s in segs:
+        dev = s.matched.device
+        docs = s.key_docs.long()
+        ok = s.matched[docs]
+        if mode == "ordinal":
+            b = s.keys.long()
+            ok = ok & (b >= 0)
+        else:
+            b = torch.searchsorted(edges, s.keys.double(), right=True) - 1
+            ok = ok & (b >= 0) & (b < s.n_buckets)
+            ok[1:] &= ~((docs[1:] == docs[:-1]) & (b[1:] == b[:-1]))
+        nbp = s.n_buckets_pad
+        tgt = torch.where(ok, b, nbp - 1)
+        parts = [torch.zeros(nbp, dtype=torch.int64, device=dev).index_add_(
+            0, tgt, ok.long())]
+        n_pad = s.matched.shape[0]
+        for col in s.subs:
+            vd = col["value_docs"].long()
+            sok = s.matched[vd]
+            v = torch.where(sok, col["values"].double(), 0.0)
+            dt = torch.where(sok, vd, n_pad - 1)
+            ps = torch.zeros(n_pad, dtype=torch.float64,
+                             device=dev).index_add_(0, dt, v)
+            pc = torch.zeros(n_pad, dtype=torch.int64,
+                             device=dev).index_add_(0, dt, sok.long())
+            pmn = torch.full((n_pad,), torch.inf, dtype=torch.float64,
+                             device=dev).scatter_reduce_(
+                0, dt, torch.where(sok, v, torch.inf), "amin")
+            pmx = torch.full((n_pad,), -torch.inf, dtype=torch.float64,
+                             device=dev).scatter_reduce_(
+                0, dt, torch.where(sok, v, -torch.inf), "amax")
+            bs = torch.zeros(nbp, dtype=torch.float64,
+                             device=dev).index_add_(
+                0, tgt, torch.where(ok, ps[docs], 0.0))
+            bc = torch.zeros(nbp, dtype=torch.int64, device=dev).index_add_(
+                0, tgt, torch.where(ok, pc[docs], 0))
+            bmn = torch.full((nbp,), torch.inf, dtype=torch.float64,
+                             device=dev).scatter_reduce_(
+                0, tgt, torch.where(ok, pmn[docs], torch.inf), "amin")
+            bmx = torch.full((nbp,), -torch.inf, dtype=torch.float64,
+                             device=dev).scatter_reduce_(
+                0, tgt, torch.where(ok, pmx[docs], -torch.inf), "amax")
+            parts += [bs, bc, bmn, bmx]
+        out.append(parts)
+    return out
+
+
+def k5_err(a, b) -> float:
+    """Largest absolute difference of the float64 words (sums, min, max)
+    of two collector outputs of the same call; 0 when they are equal."""
+    diff = 0.0
+    x = a.cpu().numpy().view(np.float64)
+    y = b.cpu().numpy().view(np.float64)
+    fin = np.isfinite(x) & np.isfinite(y)
+    if fin.any():
+        diff = float(np.abs(x[fin] - y[fin]).max())
+    return diff
+
+
+def phase_k5(scale_segs, searcher) -> dict:
+    """K5 (``bucket_collect_cuda``, ``csrc/aggs.cu``) against its plain
+    version on the card, byte for byte, in the ordinal, edges and single
+    modes with 0, 1 and 2 sub-columns (long ``price``, double ``fare``)
+    on one scale segment and on multi-valued columns built for the check
+    (1-3 values a doc, duplicates in one bucket), one launch per call,
+    and two launches on the same inputs byte-equal; the plain version on
+    the CPU equal too; edges beyond ``EDGES_SMEM_MAX`` searched in
+    global memory.  Then timed at the main path's shape: one launch
+    over the 16 scale segments, a day ``date_histogram`` on ``ts`` with a
+    ``stats`` sub on ``fare`` over every live doc (phase 11's
+    whole-index request), in turns with its plain version, beside the
+    ``index_add_`` / ``scatter_reduce_`` chain; and the ordinal mode at
+    ``terms`` on ``tag`` with two subs."""
+    import torch
+
+    from opensearch_tpu_torch.ops import aggs as agg_ops
+    from opensearch_tpu_torch.ops import cuda_aggs
+    from opensearch_tpu_torch.search.aggs import build_date_edges
+    from opensearch_tpu_torch.testing import corpus
+
+    dev = torch.device(DEVICE)
+    k5 = cuda_aggs.bucket_collect_cuda
+    seg0 = scale_segs[0]
+    d0 = seg0.device(dev)
+    rng = np.random.default_rng(71)
+    live0 = searcher.ctx.live_mask(seg0, d0)
+    matched = live0 & torch.from_numpy(rng.random(d0.n_pad) < 0.6).to(dev)
+    tag, ts = d0.ordinal["tag"], d0.numeric["ts"]
+    price, fare = d0.numeric["price"], d0.numeric["fare"]
+    day_edges = torch.from_numpy(build_date_edges(
+        corpus.TS_START_MS, corpus.TS_START_MS + corpus.TS_SPAN_MS,
+        calendar="day").astype(np.float64)).to(dev)
+    price_edges = torch.arange(0, corpus.PRICE_MAX + 1000, 500,
+                               dtype=torch.float64, device=dev)
+    mv = {kind: {k: torch.from_numpy(v).to(dev) for k, v in
+                 multi_valued(seg0.n_docs, kind, 72 + i).items()}
+          for i, kind in enumerate(("long", "double", "ordinal"))}
+    mv_edges = torch.arange(-50.0, 10_050.0, 250.0, dtype=torch.float64,
+                            device=dev)
+    CS = agg_ops.CollectSegment
+    subs_sets = ([], [fare], [fare, price])
+    cases = []
+    for subs in subs_sets:
+        cases.append((f"ordinal tag subs={len(subs)}", "ordinal",
+                      [CS(matched, tag["ords"], tag["value_docs"],
+                          tag["n_ords"], subs)], None, False))
+        cases.append((f"edges ts/day subs={len(subs)}", "edges",
+                      [CS(matched, ts["values"], ts["value_docs"],
+                          day_edges.shape[0] - 1, subs)], day_edges, False))
+        cases.append((f"edges price/500 subs={len(subs)}", "edges",
+                      [CS(matched, price["values"], price["value_docs"],
+                          price_edges.shape[0] - 1, subs)], price_edges,
+                      False))
+    for name, col in (("fare", fare), ("price", price),
+                      ("multi-valued double", mv["double"])):
+        cases.append((f"single {name}", "single",
+                      [CS(matched, col["values"], col["value_docs"], 1)],
+                      None, True))
+    cases.append(("single tag (value_count)", "single",
+                  [CS(matched, tag["ords"], tag["value_docs"], 1)], None,
+                  False))
+    for subs in ([], [mv["double"]], [mv["long"], mv["double"]]):
+        cases.append((f"ordinal multi-valued subs={len(subs)}", "ordinal",
+                      [CS(matched, mv["ordinal"]["values"],
+                          mv["ordinal"]["value_docs"], 40, subs)], None,
+                      False))
+        cases.append((f"edges multi-valued long subs={len(subs)}", "edges",
+                      [CS(matched, mv["long"]["values"],
+                          mv["long"]["value_docs"], mv_edges.shape[0] - 1,
+                          subs)], mv_edges, False))
+    # more edges than shared memory takes: searched in global memory
+    fine_edges = torch.arange(0, corpus.PRICE_MAX + 2, 1,
+                              dtype=torch.float64, device=dev)
+    if fine_edges.shape[0] <= cuda_aggs.EDGES_SMEM_MAX:
+        raise AssertionError("the fine edges fit shared memory")
+    cases.append(("edges price/1 (edges in global memory) subs=1", "edges",
+                  [CS(matched, price["values"], price["value_docs"],
+                      fine_edges.shape[0] - 1, [fare])], fine_edges, False))
+    cases.append(("edges multi-valued double + price", "edges",
+                  [CS(matched, mv["double"]["values"],
+                      mv["double"]["value_docs"], 39, [price])],
+                  torch.arange(0.0, 40.0, dtype=torch.float64, device=dev),
+                  False))
+
+    def to_cpu(segs):
+        return [CS(s.matched.cpu(), s.keys.cpu(), s.key_docs.cpu(),
+                   s.n_buckets,
+                   [None if c is None else {k: v.cpu() for k, v in c.items()
+                                            if isinstance(v, torch.Tensor)}
+                    for c in s.subs]) for s in segs]
+
+    lib = cuda_aggs._library()      # the tile plan's shared memory
+    for args in ((64, 1, 20, 366), (64, 2, 18, 0), (8, 16, 31, 0)):
+        if lib.agg_smem_bytes(*args) != cuda_aggs.smem_bytes(*args):
+            raise AssertionError(f"K5 shared memory {args}: the wrapper's "
+                                 "plan differs from the kernel's")
+    max_err = 0.0
+    for i, (name, mode, segs, edges, self_metric) in enumerate(cases):
+        before = k5.launches
+        a = k5(segs, mode=mode, edges=edges, self_metric=self_metric)
+        b = k5(segs, mode=mode, edges=edges, self_metric=self_metric)
+        if k5.launches - before != 2:
+            raise AssertionError(f"K5 {name}: {k5.launches - before} "
+                                 "launches for two calls")
+        p = agg_ops.bucket_collect_plain(segs, mode=mode, edges=edges,
+                                         self_metric=self_metric)
+        torch.cuda.synchronize()
+        max_err = max(max_err, k5_err(a, p))
+        if not torch.equal(a, b):
+            raise AssertionError(f"K5 {name}: two launches differ")
+        if not torch.equal(a, p):
+            raise AssertionError(f"K5 {name}: differs from its plain "
+                                 f"version (max_abs_err {k5_err(a, p)})")
+        if i % 4 == 0:
+            c = agg_ops.bucket_collect_plain(
+                to_cpu(segs), mode=mode,
+                edges=None if edges is None else edges.cpu(),
+                self_metric=self_metric)
+            if not torch.equal(a.cpu(), c):
+                raise AssertionError(f"K5 {name}: differs from the plain "
+                                     "version on the CPU")
+        counts = agg_ops.unpack(a.cpu().numpy(), segs,
+                                1 if self_metric else len(segs[0].subs))
+        if sum(int(c.sum()) for c, _s in counts) <= 0:
+            raise AssertionError(f"K5 {name}: no entry counted")
+    log(f"K5 {len(cases)} cases (ordinal, edges, single; 0-2 sub-columns, "
+        f"long and double; one scale segment of {seg0.n_docs} docs and "
+        f"multi-valued columns of 1-3 values a doc): byte-equal to the "
+        f"plain version and run to run, one launch a call")
+
+    # timed at the main path's shape: 16 segments, one launch
+    views = []
+    for seg in scale_segs:
+        dseg = seg.device(dev)
+        views.append((dseg, searcher.ctx.live_mask(seg, dseg)))
+    dh = [CS(m, d.numeric["ts"]["values"], d.numeric["ts"]["value_docs"],
+             day_edges.shape[0] - 1, [d.numeric["fare"]]) for d, m in views]
+    terms = [CS(m, d.ordinal["tag"]["ords"], d.ordinal["tag"]["value_docs"],
+                d.ordinal["tag"]["n_ords"],
+                [d.numeric["fare"], d.numeric["price"]]) for d, m in views]
+    rows = {}
+    for name, segs, mode, edges in (("date_histogram", dh, "edges",
+                                     day_edges),
+                                    ("terms", terms, "ordinal", None)):
+        def fn(segs=segs, mode=mode, edges=edges):
+            return k5(segs, mode=mode, edges=edges)
+
+        def plain(segs=segs, mode=mode, edges=edges):
+            return agg_ops.bucket_collect_plain(segs, mode=mode, edges=edges)
+
+        a, p = fn(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(a, p):
+            raise AssertionError(f"K5 timed {name}: differs from plain")
+        ms, plain_ms = in_turns(fn, plain, 5)
+        lib_ms = cuda_ms(lambda: k5_library_chain(segs, mode, edges), 5)
+        dev_ms = kernel_device_ms(fn, 5, "agg_collect_kernel")
+        if dev_ms is None:
+            raise AssertionError("the profiler shows no K5 kernel")
+        nbytes = k5_bytes(segs, edges)
+        bms, by = bound_ms(nbytes, 0.0)
+        entries = sum(s.keys.numel() for s in segs)
+        rows[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                      "bound_bytes": nbytes, "entries": entries,
+                      "segments": len(segs), "max_abs_err": k5_err(a, p),
+                      "launches_per_call": 1}
+        log(f"K5 {name} over {len(segs)} segments ({entries} entries, "
+            f"{len(segs[0].subs)} sub-columns), one launch: ms {ms:.4f} "
+            f"device_ms {dev_ms:.5f} plain_ms {plain_ms:.4f} "
+            f"library_ms(index_add_/scatter_reduce_ chain) {lib_ms:.4f} "
+            f"bound_ms {bms:.5f} ({by}: {nbytes:.0f} bytes) on "
+            f"{gpu_name_power()}")
+    row = dict(rows["date_histogram"], max_abs_err=max_err,
+               ordinal=rows["terms"], cases=len(cases))
+    return {"bucket_collect": row, "masks": phase_masks(seg0, d0)}
+
+
+def phase_masks(seg, dseg) -> dict:
+    """``ops/filters.py``'s torch mask ops timed alone on one 62,500-doc
+    segment (their plain versions are themselves; the reference's are
+    XLA): ``range_mask`` on ``price`` over ~40% of the values,
+    ``term_mask`` on a ``tag`` ordinal, ``terms_mask`` on 5 ordinals;
+    bound from bytes (the column and its docs read once, the mask
+    written once)."""
+    import torch
+
+    from opensearch_tpu_torch.ops import filters
+
+    price, tag = dseg.numeric["price"], dseg.ordinal["tag"]
+    n_pad = dseg.n_pad
+    five = torch.tensor([0, 1, 2, 3, 4], dtype=torch.int32,
+                        device=tag["ords"].device)
+    calls = {
+        "range_mask": (lambda: filters.range_mask(
+            price["values"], price["value_docs"], 2000, 6000,
+            include_lo=True, include_hi=False, n_pad=n_pad),
+            price["values"].numel() * 12 + n_pad),
+        "term_mask": (lambda: filters.term_mask(
+            tag["ords"], tag["value_docs"], 0, n_pad=n_pad),
+            tag["ords"].numel() * 8 + n_pad),
+        "terms_mask": (lambda: filters.terms_mask(
+            tag["ords"], tag["value_docs"], five, n_pad=n_pad),
+            tag["ords"].numel() * 8 + n_pad + 20)}
+    out = {}
+    for name, (fn, nbytes) in calls.items():
+        ms = cuda_ms(fn, 50)
+        bms, by = bound_ms(nbytes, 0.0)
+        out[name] = {"ms": ms, "bound_ms": bms, "bound_by": by,
+                     "bound_bytes": nbytes}
+    log("filter masks on one segment of " + str(seg.n_docs) + " docs: "
+        + "; ".join(f"{n} ms {r['ms']:.4f} bound_ms {r['bound_ms']:.6f} "
+                    f"({r['bound_bytes']} bytes)" for n, r in out.items())
+        + f"; the torch ops are their own plain version; on "
+        f"{gpu_name_power()}")
+    return out
+
+
 # -- phase 4 ----------------------------------------------------------------
 
 def build_scale():
@@ -1623,16 +1995,13 @@ def phase_fold(scale_segs, searcher, quant, bags) -> dict:
     the 8 quantized ones; the median bag, the heaviest bag and the
     25-term code-heavy bag.  Each call must make exactly one launch.
     Then timed at the median bag (scores only, as ``bool`` calls it) on
-    every f32 segment in turn and on one quantized segment, beside its
-    plain twin, the ``index_add_`` chain and the route it replaced (one
-    launch per slot, ``testing/k2_sweep.py``) in the same call."""
+    every f32 segment in turn and on one quantized segment, in turns
+    with its plain twin, and beside the ``index_add_`` chain."""
     import torch
 
     from opensearch_tpu_torch.index.segment import pad_pow2
     from opensearch_tpu_torch.ops import bm25, cuda_bm25, filters
     from opensearch_tpu_torch.ops import quantized as qops
-    from opensearch_tpu_torch.testing import k2_sweep
-    from opensearch_tpu_torch.testing.k1_sweep import device_ms
 
     dev = torch.device(DEVICE)
     f32_fn, q_fn = cuda_bm25.term_bag_cuda, cuda_bm25.term_bag_quantized_cuda
@@ -1712,10 +2081,8 @@ def phase_fold(scale_segs, searcher, quant, bags) -> dict:
     def fold():
         return [bm25.impact_scores(*a, **kw) for a, kw, _r in calls]
 
-    def route():
-        return [k2_sweep.slot_route_cuda(*a, **kw, scores=True,
-                                         counts=False)
-                for a, kw, _r in calls]
+    def plain():
+        return [bm25.impact_scores_plain(*a, **kw) for a, kw, _r in calls]
 
     def lib_chain():
         for (_o, docs, imp, *_rest), kw, rows in calls:
@@ -1723,17 +2090,9 @@ def phase_fold(scale_segs, searcher, quant, bags) -> dict:
             for st, e, idf_v, w in rows:
                 acc.index_add_(0, docs[st:e], imp[st:e] * idf_v, alpha=w)
 
-    for got, (want, _none) in zip(fold(), route()):
-        if not torch.equal(got, want):
-            raise AssertionError("the fold differs from the replaced route")
-    ms, route_ms = in_turns(fold, route, 20)
-    plain_ms = cuda_ms(lambda: [bm25.impact_scores_plain(*a, **kw)
-                                for a, kw, _r in calls], 10)
+    ms, plain_ms = in_turns(fold, plain, 10)
     lib_ms = cuda_ms(lib_chain, 20)
     dev_ms = kernel_device_ms(fold, 5, "term_bag_fold_kernel")
-    t_pad = calls[0][0][3].shape[0]
-    # the replaced route's device time per call: its memset and launches
-    route_dev_ms = device_ms(route, 5) / nseg
     if dev_ms is None:
         raise AssertionError("the profiler shows no per-slot kernel")
     bms, by = bound_ms(nbytes / nseg, ops / nseg)
@@ -1742,18 +2101,13 @@ def phase_fold(scale_segs, searcher, quant, bags) -> dict:
                plain_ms / nseg, "library_ms": lib_ms / nseg,
                "bound_ms": bms, "bound_by": by, "bound_bytes": nbytes / nseg,
                "max_abs_err": 0.0, "bag": median, "launches_per_call": 1,
-               "replaced_route_ms": route_ms / nseg,
-               "replaced_route_device_ms": route_dev_ms,
-               "replaced_route_launches_per_call": t_pad,
                "checked": checked}
     log(f"K2 per-slot fold, median bag {median} per f32 segment of "
         f"{scale_segs[0].n_docs} docs, scores only, 1 launch a call: ms "
         f"{ms / nseg:.4f} device_ms {dev_ms:.5f} plain_ms "
         f"{plain_ms / nseg:.4f} library_ms(index_add_ chain) "
         f"{lib_ms / nseg:.4f} bound_ms {bms:.5f} ({by}: "
-        f"{nbytes / nseg:.0f} bytes); the replaced route ({t_pad} launches "
-        f"a call and a memset) ms {route_ms / nseg:.4f} device_ms "
-        f"{route_dev_ms:.5f}, in the same call; on {gpu}")
+        f"{nbytes / nseg:.0f} bytes); on {gpu}")
 
     # timed: the median bag on one quantized segment (scores only)
     qsegs, qsearcher, _stats = quant["int8"]
@@ -1789,36 +2143,22 @@ def phase_fold(scale_segs, searcher, quant, bags) -> dict:
     def q_fold():
         return qops.quantized_impact_scores(*args, **kw)
 
-    def q_route():
-        return k2_sweep.slot_route_quantized_cuda(*args, **kw, scores=True,
-                                                  counts=False)
-
-    if not torch.equal(q_fold(), q_route()[0]):
-        raise AssertionError("the quantized fold differs from the replaced "
-                             "route")
-    q_ms, q_route_ms = in_turns(q_fold, q_route, 20)
-    q_plain_ms = cuda_ms(lambda: qops.quantized_impact_scores_plain(
-        *args, **kw), 10)
+    q_ms, q_plain_ms = in_turns(
+        q_fold, lambda: qops.quantized_impact_scores_plain(*args, **kw), 10)
     q_lib_ms = cuda_ms(q_lib, 20)
     q_dev = kernel_device_ms(q_fold, 20, "term_bag_fold_kernel")
-    q_route_dev = device_ms(q_route, 20)
-    q_t_pad = args[7].shape[0]
     q_bms, q_by = bound_ms(qbytes, float(qops_n))
     q_row = {"ms": q_ms, "device_ms": q_dev, "plain_ms": q_plain_ms,
              "library_ms": q_lib_ms, "bound_ms": q_bms, "bound_by": q_by,
              "bound_bytes": qbytes, "max_abs_err": 0.0, "bag": median,
-             "launches_per_call": 1, "replaced_route_ms": q_route_ms,
-             "replaced_route_device_ms": q_route_dev,
-             "replaced_route_launches_per_call": q_t_pad,
+             "launches_per_call": 1,
              "postings": sum(e - st for st, e, _i, _w in rows)}
     log(f"K4 per-slot fold, median bag {median} on one quantized segment "
         f"of {seg.n_docs} docs ({q_row['postings']} postings), scores "
         f"only, 1 launch a call: ms {q_ms:.4f} device_ms {q_dev:.5f} "
         f"plain_ms {q_plain_ms:.4f} library_ms(index_add_ chain over "
         f"dequantized()) {q_lib_ms:.4f} bound_ms {q_bms:.5f} ({q_by}: "
-        f"{qbytes:.0f} bytes); the replaced route ({q_t_pad} launches a "
-        f"call and a memset) ms {q_route_ms:.4f} device_ms "
-        f"{q_route_dev:.5f}, in the same call; on {gpu}")
+        f"{qbytes:.0f} bytes); on {gpu}")
     return {"term_bag_scores": f32_row, "term_bag_quantized_scores": q_row}
 
 
@@ -2722,12 +3062,25 @@ def phase_serving(counters, then=None) -> dict:
                 multi["_shards"]["total"] != 3:
             raise AssertionError(f"serving: multi-index search answered "
                                  f"{json.dumps(multi)[:200]}")
-        aggs = client.call("POST", "/corpus/_search", {
-            "size": 0, "aggs": {"t": {"terms": {"field": "tag"}}}})
+        # aggs on corpus, and across corpus and vectors (each index
+        # answers its partials, the coordinator reduces them), equal to
+        # the CPU searcher over the corpus's segments
+        agg_body = {"size": 0, "aggs": {
+            "t": {"terms": {"field": "tag"}},
+            "n": {"value_count": {"field": "tag"}}}}
+        aggs = client.ok("POST", "/corpus/_search", agg_body)
+        multi_aggs = client.ok("POST", "/corpus,vectors/_search", agg_body)
+        want = json.loads(json.dumps(ShardSearcher(
+            svc.searcher().segments, svc.mapper, index_name="corpus",
+            device="cpu").search(dict(agg_body))["aggregations"]))
+        if aggs["aggregations"] != want or \
+                multi_aggs["aggregations"] != want or \
+                not want["t"]["buckets"]:
+            raise AssertionError(f"serving: aggs answered "
+                                 f"{json.dumps(aggs)[:300]}, across "
+                                 f"indices {json.dumps(multi_aggs)[:300]}")
         missing = client.call("GET", "/missing/_search")
-        if aggs[0] != 501 or \
-                aggs[1]["error"]["type"] != "not_yet_ported_exception" or \
-                missing[0] != 404 or missing[1] != {
+        if missing[0] != 404 or missing[1] != {
                     "error": {"root_cause": [{
                         "type": "index_not_found_exception",
                         "reason": "no such index [missing]"}],
@@ -2735,8 +3088,8 @@ def phase_serving(counters, then=None) -> dict:
                         "reason": "no such index [missing]",
                         "metadata": {"index": "missing"}},
                     "status": 404}:
-            raise AssertionError(f"serving: aggs answered {aggs}, a "
-                                 f"missing index {missing}")
+            raise AssertionError(f"serving: a missing index answered "
+                                 f"{missing}")
         # merge, flush, delete the vectors index
         del searcher
         t0 = time.monotonic()
@@ -2845,8 +3198,9 @@ def phase_serving(counters, then=None) -> dict:
         + ", equal to sequential; "
         f"vectors: {SERVE_VECTORS} docs by _bulk in {vec_bulk_s:.2f} s, "
         f"knn p50 {out['knn_p50_ms']:.3f} ms, {k1_per_query:.2f} K1 "
-        f"launches per knn _search, within tolerance of the CPU; aggs "
-        f"501, missing index 404; _forcemerge {merge_s:.2f} s; device "
+        f"launches per knn _search, within tolerance of the CPU; aggs on "
+        f"corpus and across corpus,vectors equal to the CPU searcher, "
+        f"missing index 404; _forcemerge {merge_s:.2f} s; device "
         f"bytes {bytes_before} before DELETE /vectors, {bytes_after} after "
         f"(index resident {resident_vectors}); restart {restart_s:.2f} s, "
         f"first _search {first_ms:.1f} ms, 20 responses equal to before; "
@@ -3142,6 +3496,299 @@ def phase_filters_hybrid(segs, mapper, searcher, qsegs, qsearcher,
                 "vector_update_s", "wall_s")}}
 
 
+# -- phase 11 ---------------------------------------------------------------
+
+AGG_DH = 50                      # date_histogram on ts, per layout
+AGG_HIST = 50                    # range on price + histogram, per layout
+AGG_TERMS = 50                   # match pair + terms on tag, per layout
+AGG_METRICS = 20                 # match_all + 12 metric aggs, per layout
+HTTP_AGGS = 20                   # terms + value_count on tag over HTTP
+AGG_SAMPLE = 2                   # of each kind, held to the CPU searcher
+AGG_PROFILE = 5                  # of each kind, timed by layer
+DAY_MS = 86_400_000
+
+
+def phase11_bodies() -> dict:
+    """Phase 11's traffic, seeded, shaped on nyc_taxis'
+    ``date_histogram_agg`` and ``distance_amount_agg`` operations and
+    config 5: per kind a list of ``(body, expected K5 launches)``."""
+    from opensearch_tpu_torch.testing import corpus
+
+    rng = np.random.default_rng(81)
+    dh_aggs = {"per_day": {"date_histogram": {
+        "field": "ts", "calendar_interval": "day"},
+        "aggs": {"fare": {"stats": {"field": "fare"}}}}}
+    dh = []
+    for i in range(AGG_DH):
+        body = {"size": 0, "aggs": dh_aggs}
+        if i < AGG_DH // 2:            # 21 days, as nyc_taxis' operation
+            lo = corpus.TS_START_MS + int(rng.integers(0, 344)) * DAY_MS
+            body["query"] = {"range": {"ts": {"gte": lo,
+                                              "lt": lo + 21 * DAY_MS}}}
+        dh.append((body, 2))           # the min/max pass, the buckets
+    hist = [({"size": 0,
+              "query": {"bool": {"filter": [{"range": {"price": {
+                  "gte": 0, "lt": 5000}}}]}},
+              "aggs": {"by_price": {"histogram": {"field": "price",
+                                                  "interval": 500},
+                                    "aggs": {"fare": {"stats": {
+                                        "field": "fare"}}}}}}, 2)
+            for _ in range(AGG_HIST)]
+    terms = [({"query": {"match": {"body": f"t{a} t{b}"}}, "size": 10,
+               "_source": False,
+               "aggs": {"tags": {"terms": {"field": "tag", "size": 10},
+                                 "aggs": {"avg_fare": {"avg": {
+                                     "field": "fare"}},
+                                     "max_price": {"max": {
+                                         "field": "price"}}}}}}, 1)
+             for a, b in corpus.zipf_query_log(AGG_TERMS, seed=7)]
+    metric_aggs = {f"{m}_{f}": {m: {"field": f}}
+                   for f in ("price", "fare")
+                   for m in ("min", "max", "avg", "sum", "value_count",
+                             "stats")}
+    metrics = [({"size": 0, "query": {"match_all": {}},
+                 "aggs": metric_aggs}, len(metric_aggs))
+               for _ in range(AGG_METRICS)]
+    lo = corpus.TS_START_MS + 100 * DAY_MS
+    window = {"range": {"ts": {"gte": lo, "lt": lo + 21 * DAY_MS}}}
+    one = [
+        {"size": 0, "aggs": {"r": {"range": {"field": "price", "ranges": [
+            {"to": 1000}, {"from": 1000, "to": 5000}, {"from": 5000}]},
+            "aggs": {"f": {"avg": {"field": "fare"}}}}}},
+        {"size": 0, "aggs": {"f": {"filters": {"filters": {
+            "t0": {"term": {"tag": corpus.tag_name(0)}},
+            "t1": {"term": {"tag": corpus.tag_name(1)}}}},
+            "aggs": {"s": {"sum": {"field": "fare"}}}}}},
+        {"size": 0, "aggs": {"m": {"missing": {"field": "fare"}}}},
+        {"size": 0, "aggs": {"c": {"cardinality": {"field": "tag"}}}},
+        {"size": 0, "aggs": {"p": {"percentiles": {
+            "field": "fare", "percents": [1, 50, 99]}}}},
+        {"size": 0, "query": window,
+         "aggs": {"tp": {"terms": {"field": "price", "size": 5}}}},
+        {"size": 0, "query": window, "aggs": {"comp": {"composite": {
+            "size": 5, "after": {"tag": corpus.tag_name(3)},
+            "sources": [{"tag": {"terms": {"field": "tag"}}}]},
+            "aggs": {"f": {"max": {"field": "fare"}}}}}},
+        {"size": 0, "query": window, "aggs": {"tags": {
+            "terms": {"field": "tag", "size": 3},
+            "aggs": {"top": {"top_hits": {
+                "size": 2, "sort": [{"fare": {"order": "desc"}}]}}}}}},
+        {"size": 0, "aggs": {"per_day": {**dh_aggs["per_day"], "aggs": {
+            "total": {"sum": {"field": "fare"}},
+            "cum": {"cumulative_sum": {"buckets_path": "total"}}}},
+            "best": {"max_bucket": {"buckets_path": "per_day>total"}}}},
+    ]
+    return {"date_histogram": dh, "histogram": hist, "terms_hits": terms,
+            "metrics": metrics, "one_of_each": [(b, None) for b in one]}
+
+
+class LayerClock:
+    """Host seconds spent, per request, in ``ShardSearcher._run_full``
+    (the query phase, synchronized at its end), in the search package's
+    collector calls (``AggregationExecutor._collect``: K5's launch, its
+    copy back and the unpacking) and in ``AggregationExecutor.run`` /
+    ``collect`` (the rest of the aggregation: host work around them);
+    installed only around the requests it times."""
+
+    def __init__(self):
+        import torch
+
+        from opensearch_tpu_torch.search import aggs as aggs_mod
+        from opensearch_tpu_torch.search import executor
+
+        self.t = {"run_full": 0.0, "collect": 0.0, "aggs": 0.0}
+        sync = torch.cuda.synchronize
+        clock = self
+        real_full = executor.ShardSearcher._run_full
+        real_collect = aggs_mod.AggregationExecutor._collect
+        real_run = aggs_mod.AggregationExecutor.run
+
+        def run_full(self, *a, **kw):
+            t0 = time.monotonic()
+            out = list(real_full(self, *a, **kw))
+            sync()
+            clock.t["run_full"] += time.monotonic() - t0
+            return iter(out)
+
+        def collect(*a, **kw):
+            t0 = time.monotonic()
+            out = real_collect(*a, **kw)
+            clock.t["collect"] += time.monotonic() - t0
+            return out
+
+        def run(self, *a, **kw):
+            t0 = time.monotonic()
+            out = real_run(self, *a, **kw)
+            clock.t["aggs"] += time.monotonic() - t0
+            return out
+
+        self.patches = [(executor.ShardSearcher, "_run_full", run_full,
+                         real_full),
+                        (aggs_mod.AggregationExecutor, "_collect",
+                         staticmethod(collect),
+                         aggs_mod.AggregationExecutor.__dict__["_collect"]),
+                        (aggs_mod.AggregationExecutor, "run", run, real_run)]
+
+    def __enter__(self):
+        for owner, name, new, _old in self.patches:
+            setattr(owner, name, new)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, _new, old in self.patches:
+            setattr(owner, name, old)
+
+
+def phase_http_aggs(node, state, counters) -> dict:
+    """Phase 11's requests over HTTP, on phase 9's node before it stops
+    (``phase_serving``'s ``then``): HTTP_AGGS ``_search`` bodies with
+    ``terms`` on ``tag`` and ``value_count`` on ``tag``, each sent with
+    ``?request_cache=false``, their counts zeroed just before them and
+    read just after (one K5 launch per agg over every segment of both
+    shards, no K3), every answer equal to the CPU searcher."""
+    from opensearch_tpu_torch.ops import cuda_aggs
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+
+    k5 = cuda_aggs.bucket_collect_cuda
+    bodies = [{"size": 0, "aggs": {
+        "tags": {"terms": {"field": "tag", "size": 3 + i % 5}},
+        "n": {"value_count": {"field": "tag"}}}} for i in range(HTTP_AGGS)]
+    client = HttpClient(node.port)
+    path = "/corpus/_search?request_cache=false"
+    client.ok("POST", path, bodies[0])                      # warm-up
+    for fn in [*counters.values(), k5]:         # this path starts here
+        fn.launches = 0
+    qps, p50, out = timed_calls(lambda b: client.ok("POST", path, b), bodies)
+    launches = {n: c.launches for n, c in counters.items()}
+    k5_n = k5.launches
+    if k5_n != 2 * HTTP_AGGS or any(launches.values()):
+        raise AssertionError(f"phase 11 aggs over HTTP: K5 {k5_n}, "
+                             f"others {launches}")
+    svc = node.indices.get("corpus")
+    cpu = ShardSearcher(svc.searcher().segments, svc.mapper,
+                        index_name="corpus", device="cpu")
+    for body, resp in zip(bodies, out):
+        want = json.loads(json.dumps(cpu.search(dict(body))))
+        if resp["aggregations"] != want["aggregations"] or \
+                resp["hits"]["total"] != want["hits"]["total"]:
+            raise AssertionError("phase 11: aggs over HTTP differ from "
+                                 "the CPU searcher")
+    if not out[0]["aggregations"]["tags"]["buckets"]:
+        raise AssertionError("phase 11: terms over HTTP found no bucket")
+    client.close()
+    return {"qps": qps, "p50_ms": p50, "requests": HTTP_AGGS,
+            "k5_launches_per_request": k5_n / HTTP_AGGS,
+            "segments": len(svc.searcher().segments),
+            "live_docs": state.live()}
+
+
+def phase_aggs(segs, mapper, searcher, qsegs, qsearcher, counters,
+               http=None) -> dict:
+    """Phase 11: aggregations on the card at full width (see the module
+    doc); ``http`` is what ``phase_http_aggs`` returned on phase 9's
+    node."""
+    import torch
+
+    from opensearch_tpu_torch.ops import cuda_aggs
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing.parity import bm25_mismatch
+
+    t_phase = time.monotonic()
+    k5 = cuda_aggs.bucket_collect_cuda
+    traffic = phase11_bodies()
+    layouts = {"f32": (segs, searcher), "quantized": (qsegs, qsearcher)}
+    # warm-up: plans compiled, every column staged
+    for _s, srch in layouts.values():
+        for kind in ("date_histogram", "histogram", "terms_hits",
+                     "metrics"):
+            srch.search(dict(traffic[kind][0][0]))
+    torch.cuda.synchronize()
+    for fn in [*counters.values(), k5]:         # this path starts here
+        fn.launches = 0
+    kinds, outs = {}, {}
+    for lname, (_s, srch) in layouts.items():
+        n_seg = len(srch.segments)
+        for kind, items in traffic.items():
+            before = k5.launches
+            qps, p50, out = timed_calls(lambda b: srch.search(dict(b)),
+                                        [b for b, _n in items])
+            per = (k5.launches - before) / len(items)
+            want = items[0][1]
+            if want is not None and per != want:
+                raise AssertionError(f"phase 11 {lname} {kind}: {per} K5 "
+                                     f"launches per request, not {want}")
+            n_aggs = max(len(b["aggs"]) for b, _n in items)
+            if per > n_aggs * 2 * n_seg:
+                raise AssertionError(f"phase 11 {lname} {kind}: {per} K5 "
+                                     "launches per request")
+            kinds[f"{lname} {kind}"] = {
+                "qps": qps, "p50_ms": p50, "requests": len(items),
+                "k5_launches_per_request": per}
+            outs[(lname, kind)] = out
+    launches = {n: c.launches for n, c in counters.items()}
+    k5_total = k5.launches
+    if launches.get("batch_topk"):
+        raise AssertionError(f"phase 11: an aggs body reached K3 "
+                             f"({launches['batch_topk']} launches)")
+    # where a request's time goes, on the f32 layout
+    layers = {}
+    for kind, items in traffic.items():
+        if kind == "one_of_each":
+            continue
+        with LayerClock() as clock:
+            t0 = time.monotonic()
+            for body, _n in items[:AGG_PROFILE]:
+                searcher.search(dict(body))
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        n = min(AGG_PROFILE, len(items))
+        layers[kind] = {
+            "ms_per_request": wall / n * 1e3,
+            "run_full_ms": clock.t["run_full"] / n * 1e3,
+            "k5_and_copy_ms": clock.t["collect"] / n * 1e3,
+            "aggs_host_ms": (clock.t["aggs"] - clock.t["collect"]) / n * 1e3}
+    # samples of each kind against the CPU searcher, byte for byte
+    for lname, (lsegs, srch) in layouts.items():
+        cpu = ShardSearcher(lsegs, mapper, index_name=srch.index_name,
+                            device="cpu")
+        for kind, items in traffic.items():
+            picks = range(len(items)) if kind == "one_of_each" else \
+                sorted({0, len(items) - 1})[:AGG_SAMPLE]
+            for i in picks:
+                body = items[i][0]
+                got = json.loads(json.dumps(outs[(lname, kind)][i]))
+                want = json.loads(json.dumps(cpu.search(dict(body))))
+                if got["aggregations"] != want["aggregations"] or \
+                        bm25_mismatch(got, want):
+                    raise AssertionError(
+                        f"phase 11 {lname} {kind} #{i} differs from the CPU "
+                        f"searcher: {json.dumps(got['aggregations'])[:300]} "
+                        f"vs {json.dumps(want['aggregations'])[:300]}")
+                if not got["aggregations"]:
+                    raise AssertionError(f"phase 11 {kind}: no aggregations")
+        del cpu
+    wall = time.monotonic() - t_phase
+    gpu = gpu_name_power()
+    log("aggregations: "
+        + "; ".join(f"{k}: qps {v['qps']:.2f}, p50 {v['p50_ms']:.3f} ms, "
+                    f"{v['k5_launches_per_request']:.2f} K5 launches a "
+                    f"request" for k, v in kinds.items())
+        + "; f32 per request (ms, synchronized): "
+        + "; ".join(f"{k} {v['ms_per_request']:.3f} = run_full "
+                    f"{v['run_full_ms']:.3f} + K5 and copy "
+                    f"{v['k5_and_copy_ms']:.3f} + aggs host "
+                    f"{v['aggs_host_ms']:.3f} + rest"
+                    for k, v in layers.items())
+        + (f"; over HTTP on phase 9's node ({http['segments']} segments, "
+           f"{http['live_docs']} live docs): qps {http['qps']:.2f}, p50 "
+           f"{http['p50_ms']:.3f} ms, {http['k5_launches_per_request']:.2f}"
+           f" K5 launches a request" if http else "")
+        + f"; K5 launches {k5_total}, K3 launches 0; samples equal to the "
+        f"CPU searcher byte for byte; phase {wall:.2f} s; on {gpu}")
+    return {"kinds": kinds, "layers": layers, "launches": launches,
+            "k5_launches": k5_total, "http": http, "wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -3165,6 +3812,7 @@ def main() -> int:
         "code-heavy"][0]
     kern.update(phase_fold(segs, searcher, quant,
                            {**kern.pop("bags"), "code-heavy": code_heavy}))
+    kern.update(phase_k5(segs, searcher))
 
     counters = {"knn_topk": cuda_knn.knn_topk_segments_cuda,
                 "knn_scores": cuda_knn.knn_scores_cuda,
@@ -3203,11 +3851,19 @@ def main() -> int:
     # just before it and read just after
     write = phase_write_path({**counters, **quantized_counters()})
     every = {**counters, **quantized_counters()}
-    serving = phase_serving(every, then=lambda node, state: (
-        phase_http_hybrid(node, state, every)))
+    serving = phase_serving(every, then=lambda node, state: {
+        "hybrid": phase_http_hybrid(node, state, every),
+        "aggs": phase_http_aggs(node, state, every)})
+    then = serving.pop("then")
     filters = phase_filters_hybrid(segs, mapper, searcher, qsegs, qsearcher,
-                                   every, http=serving.pop("then"))
-    for phase in (write, serving, filters):
+                                   every, http=then["hybrid"])
+    aggs = phase_aggs(segs, mapper, searcher, qsegs, qsearcher, every,
+                      http=then["aggs"])
+    launches["bucket_collect"] = aggs["k5_launches"] + round(
+        then["aggs"]["k5_launches_per_request"] * HTTP_AGGS)
+    if launches["bucket_collect"] <= 0:
+        raise AssertionError("K5 never launched on the aggregations path")
+    for phase in (write, serving, filters, aggs):
         for name, n in phase["launches"].items():
             name = "term_bag_quantized" \
                 if name == "term_bag_quantized_topk" else name
@@ -3225,7 +3881,11 @@ def main() -> int:
                "term_bag_quantized": ("quant_topk.cu",
                                       "opensearch_tpu/ops/quantized.py:46"),
                "term_bag_quantized_scores": (
-                   "bm25.cu", "opensearch_tpu/ops/quantized.py:64")}
+                   "bm25.cu", "opensearch_tpu/ops/quantized.py:64"),
+               # and :67, :80, :92, :107 (bucketed_counts, masked_metrics,
+               # per_doc_partials, scatter_partials_to_buckets)
+               "bucket_collect": ("aggs.cu",
+                                  "opensearch_tpu/ops/aggs.py:58")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = {"kernels": [
@@ -3237,7 +3897,8 @@ def main() -> int:
     log(json.dumps({"scale": scale, "msearch": msearch,
                     "continuous": continuous, "quantized_scale": qscale,
                     "write_path": write, "serving": serving,
-                    "filters_hybrid": filters,
+                    "filters_hybrid": filters, "aggregations": aggs,
+                    "k5": kern["bucket_collect"], "masks": kern["masks"],
                     "per_slot": {n: kern[n] for n in (
                         "term_bag_scores", "term_bag_quantized_scores")},
                     "k1_1m": kern["k1_1m"],

@@ -25,12 +25,6 @@
 //                                  tile's columns written once from
 //                                  shared memory.
 //
-// term_bag_slot_launch / term_bag_quantized_slot_launch are the route the
-// dense entry replaced (one launch per query-term slot, a grid-stride
-// scatter into device memory zeroed by the caller), kept only as its
-// yardstick in testing/k2_sweep.py, which builds this file with
-// BM25_SLOT_ROUTE defined; the library the search paths load has neither.
-//
 // The quantized row layout (term_bag_quantized_launch, K4's per-slot entry)
 // replaces the reference's `gather_postings_packed` and `_dequant` /
 // `quantized_impact_scores` / `quantized_impact_score_count`
@@ -214,35 +208,6 @@ struct QuantRows {
     return t.exact ? __ldg(exact_vals + (t.exact0 + p)) : __fmul_rn((float)__ldg(qvals + p), t.scale);
   }
 };
-
-#ifdef BM25_SLOT_ROUTE
-// The route the dense entry replaced (testing/k2_sweep.py only): slot
-// `slot`'s postings, grid-stride, added into dense columns in device
-// memory, one launch per slot.
-template <class Rows>
-__global__ void __launch_bounds__(kThreads)
-term_bag_slot_kernel(Rows rows, const int32_t* __restrict__ offsets,
-                     const int32_t* __restrict__ term_ids,
-                     const uint8_t* __restrict__ term_active,
-                     const float* __restrict__ idfs,
-                     const float* __restrict__ weights, int slot,
-                     float* __restrict__ scores, int32_t* __restrict__ counts) {
-  if (!term_active[slot]) return;
-  const int32_t tid = term_ids[slot];
-  const int32_t start = offsets[tid];
-  const int32_t end = offsets[tid + 1];
-  const typename Rows::Term term = rows.term_of(tid, start);
-  const float idf = scores != nullptr ? idfs[slot] : 0.0f;
-  const float w = scores != nullptr ? weights[slot] : 0.0f;
-  for (int32_t p = start + blockIdx.x * blockDim.x + threadIdx.x; p < end;
-       p += gridDim.x * blockDim.x) {
-    const int32_t doc = rows.doc(p, term);
-    if (scores != nullptr)
-      scores[doc] = __fadd_rn(scores[doc], __fmul_rn(w, __fmul_rn(idf, rows.impact(p, term))));
-    if (counts != nullptr) counts[doc] += 1;
-  }
-}
-#endif  // BM25_SLOT_ROUTE
 
 // First p in [lo, hi) with doc(p) >= target, else hi, over a row of
 // ascending docs.  The kSearchLanes lanes of a group (lanes base ..  base
@@ -505,22 +470,6 @@ term_bag_topk_kernel(const long long* __restrict__ table, int n_seg, int n_slots
   }
 }
 
-#ifdef BM25_SLOT_ROUTE
-template <class Rows>
-int slot_launches(Rows rows, const int32_t* offsets, const int32_t* term_ids,
-                  const uint8_t* term_active, const float* idfs, const float* weights, int t_pad,
-                  int grid, float* scores, int32_t* counts, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int slot = 0; slot < t_pad; ++slot) {
-    term_bag_slot_kernel<Rows><<<grid, kThreads, 0, s>>>(rows, offsets, term_ids, term_active, idfs,
-                                                         weights, slot, scores, counts);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
-}
-#endif  // BM25_SLOT_ROUTE
-
 template <class Rows>
 int fold_launch(Rows rows, const int32_t* offsets, const int32_t* term_ids,
                 const uint8_t* term_active, const float* idfs, const float* weights, int t_pad,
@@ -594,42 +543,6 @@ int term_bag_quantized_launch(const int32_t* offsets, const uint32_t* packed, co
                        counts, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
-
-#ifdef BM25_SLOT_ROUTE
-// The route term_bag_launch replaced, for testing/k2_sweep.py only: one
-// launch per slot 0..t_pad-1, in order (inactive slots return at once),
-// `grid` blocks per launch, grid-stride over the row, adding into
-// `scores` / `counts` the caller zeroed.  Returns the first launch error.
-int term_bag_slot_launch(const int32_t* offsets, const int32_t* doc_ids, const float* impacts,
-                         const int32_t* term_ids, const uint8_t* term_active, const float* idfs,
-                         const float* weights, int t_pad, int grid, float* scores,
-                         int32_t* counts, void* stream) {
-  return slot_launches(F32Rows{doc_ids, impacts}, offsets, term_ids, term_active, idfs, weights,
-                       t_pad, grid, scores, counts, stream);
-}
-
-// term_bag_slot_launch over a quantized segment.
-int term_bag_quantized_slot_launch(const int32_t* offsets, const uint32_t* packed,
-                                   const int32_t* base, int width, const void* qvals, int q_bytes,
-                                   const float* scales, const float* exact_vals,
-                                   const int32_t* exact_offsets, const int32_t* term_ids,
-                                   const uint8_t* term_active, const float* idfs,
-                                   const float* weights, int t_pad, int grid, float* scores,
-                                   int32_t* counts, void* stream) {
-  if (width < 1 || width > 31) return static_cast<int>(cudaErrorInvalidValue);
-  if (q_bytes == 1)
-    return slot_launches(
-        QuantRows<int8_t>{packed, static_cast<const int8_t*>(qvals), exact_vals, width, base,
-                          scales, exact_offsets},
-        offsets, term_ids, term_active, idfs, weights, t_pad, grid, scores, counts, stream);
-  if (q_bytes == 2)
-    return slot_launches(
-        QuantRows<int16_t>{packed, static_cast<const int16_t*>(qvals), exact_vals, width, base,
-                           scales, exact_offsets},
-        offsets, term_ids, term_active, idfs, weights, t_pad, grid, scores, counts, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-#endif  // BM25_SLOT_ROUTE
 
 // Exact top-k, total and max of every segment of `table` (device memory,
 // layout above, n_blocks entries in its work list) into rows of

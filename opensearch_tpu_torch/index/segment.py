@@ -411,6 +411,10 @@ class DeviceSegment:
                     dv.maxv, n_pad, LONG_MISSING_MIN if long_kind
                     else -np.inf)),
                 "exists": self._stage(_pad1(dv.exists, n_pad, False)),
+                # per-doc starts into ``values`` (the aggregations'
+                # collector, K5, reads a doc's values through them)
+                "offsets": self._stage(_pad1(dv.offsets, n_pad + 1,
+                                             dv.offsets[-1])),
             }
         self.ordinal: dict[str, dict] = {}
         for name, dv in seg.ordinal_dv.items():

@@ -19,7 +19,7 @@ Not ported yet (each raises ``NotYetPortedError`` where the reference
 would run it; ROADMAP Queue A): aliases, index templates, rollover,
 resize and data streams; searchable-snapshot mounts and the remote
 store; the mesh and host-scatter search (an index with ``search.mesh``
-on at least as many devices as shards); aggregation partials.  Left out
+on at least as many devices as shards).  Left out
 with no counterpart yet: indexing pressure, the search and indexing
 slow logs, query insights, the device-degraded partial response and the
 cluster-mode shard set (``local_shard_ids``).

@@ -1091,16 +1091,26 @@ class RestController:
 
     def _multi_index_search(self, services, body):
         """Coordinator merge over several indices (scores are per-index,
-        like cross-index query_then_fetch in the reference).  ``aggs`` and
-        ``suggest`` answer 501 from the shard, as on one index."""
+        like cross-index query_then_fetch in the reference).  With
+        ``aggs`` each index answers its aggregation partials and the
+        coordinator reduces them (``reduce_aggs``); ``suggest`` answers
+        501 from the shard, as on one index."""
         size = int(body.get("size", 10))
         from_ = int(body.get("from", 0))
+        aggs_json = body.get("aggs") or body.get("aggregations")
         sub = dict(body)
         sub["from"] = 0
         sub["size"] = from_ + size
-        responses = [svc.search(self._apply_alias_filter(sub, flt))
+        responses = [svc.search(self._apply_alias_filter(sub, flt),
+                                agg_partials=bool(aggs_json))
                      for svc, flt in services]
-        return self._merge_responses(responses, body, from_, size)
+        out = self._merge_responses(responses, body, from_, size)
+        if aggs_json:
+            from opensearch_tpu_torch.search.aggs import reduce_aggs
+            out["aggregations"] = reduce_aggs(
+                aggs_json, [r.get("aggregation_partials") or {}
+                            for r in responses])
+        return out
 
     # -- search pipelines --------------------------------------------------
 

@@ -332,12 +332,15 @@ def batchable(searcher, body: dict, *, peek: bool = False):
     other than a scored term bag, and ``size`` outside 1..K_MAX (K3 keeps
     at most K_MAX candidates per (query, segment), and the sequential
     path, K2's per-slot entry plus the stable sort, gives the same answer
-    for a larger page).  Compiles through the searcher's plan cache; with ``peek`` only a plan
+    for a larger page).  ``aggs`` / ``aggregations`` are excluded by name:
+    the batched path answers hits only, and those keys are served keys
+    of the sequential path.  Compiles through the searcher's plan cache; with ``peek`` only a plan
     that cache already holds counts (the continuous batcher's rule: a
     first-seen query runs, and compiles, on the sequential path)."""
     from opensearch_tpu_torch.search.executor import _SUPPORTED_BODY_KEYS
 
     if (set(body) - _SUPPORTED_BODY_KEYS
+            or body.get("aggs") or body.get("aggregations")
             or body.get("min_score") is not None
             or body.get("timeout") is not None
             or body.get("track_total_hits") is False

@@ -343,20 +343,18 @@ class QueryEngine:
                 agg_partials: bool = False, service=None) -> dict:
         """One search body -> one response.  ``service`` enables the
         continuous batcher (it needs the service's cached searcher, the
-        same across requests); without one the plain pipeline runs."""
+        same across requests); without one the plain pipeline runs.
+        ``agg_partials`` asks for the aggregations' shard partials (a
+        multi-index coordinator reduces them)."""
         body = body or {}
-        if agg_partials:
-            raise NotYetPortedError(
-                "aggregation partials are not ported to the torch "
-                "package yet")
         if service is not None and service._use_mesh(body):
             raise NotYetPortedError(
                 "the mesh search is not ported to the torch package yet")
-        if service is not None and BATCHER_ENABLED:
+        if service is not None and not agg_partials and BATCHER_ENABLED:
             out = self.batcher.execute(searcher, body)
             if out is not None:
                 return out
-        return searcher.search(body)
+        return searcher.search(body, agg_partials=agg_partials)
 
     def msearch(self, searcher, bodies: list) -> list[dict]:
         """The multi-search entry (``ShardSearcher.msearch``)."""

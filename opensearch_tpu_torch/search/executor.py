@@ -30,7 +30,13 @@ the host through the normalization processor of ``search/pipeline.py``
 (``_hybrid_pipeline`` in the body, which the REST layer fills from
 ``?search_pipeline=``).
 
-Not ported yet (ROADMAP): aggregations, sort, collapse, rescore,
+A body with ``aggs`` runs the full-scores pass once (``_run_full``) and
+feeds both its hits (``_topk_from_views``) and the aggregations
+(``search/aggs.py``); ``agg_partials`` returns the shard's mergeable
+partials instead (``aggregation_partials``), which a coordinator
+reduces with ``reduce_aggs``.
+
+Not ported yet (ROADMAP): sort, collapse, rescore,
 search_after, highlight / explain / fields, profile, suggest, and the
 telemetry / insights / task / device-health hooks.  Requests that use
 them raise ``NotYetPortedError``.
@@ -67,7 +73,8 @@ _I32 = np.int32
 # being ignored
 _SUPPORTED_BODY_KEYS = frozenset({"query", "size", "from", "min_score",
                                   "_source", "track_total_hits", "timeout",
-                                  "_hybrid_pipeline"})
+                                  "_hybrid_pipeline", "aggs",
+                                  "aggregations"})
 # bounds of the searcher's plan, prepared-bindings and batch caches
 # (entries)
 _PLAN_CACHE_MAX = 256
@@ -326,7 +333,11 @@ class ShardSearcher:
                 results[pos] = self.search(bodies[pos])
         return results
 
-    def search(self, body: Optional[dict] = None) -> dict:
+    def search(self, body: Optional[dict] = None, *,
+               agg_partials: bool = False) -> dict:
+        """One search body -> one response; with ``agg_partials`` the
+        response carries the aggregations' shard partials
+        (``aggregation_partials``) in place of ``aggregations``."""
         body = body or {}
         t0 = time.monotonic()
         q_json = body.get("query")
@@ -335,9 +346,10 @@ class ShardSearcher:
             if isinstance(q, HybridQuery):
                 return self._hybrid_search(body, q, t0)
         _check_body_keys(body)
-        return self._search_body(body, t0)
+        return self._search_body(body, t0, agg_partials)
 
-    def _search_body(self, body: dict, t0: float) -> dict:
+    def _search_body(self, body: dict, t0: float,
+                     agg_partials: bool = False) -> dict:
         size = int(body.get("size", 10))
         from_ = int(body.get("from", 0))
         deadline = SearchDeadline(body.get("timeout"), t0)
@@ -351,17 +363,39 @@ class ShardSearcher:
         # reference's track_total_hits=false contract: totals become a
         # lower bound, flagged with relation "gte")
         allow_kth_prune = body.get("track_total_hits") is False
+        aggs_json = body.get("aggs") or body.get("aggregations")
         total_is_lower_bound = False
+        views = None
         if not self.segments:
             rows, total, max_score = [], 0, None
+        elif aggs_json:
+            # with aggs, the full-scores pass runs ONCE and feeds both the
+            # top-k and the aggregations
+            views = list(self._run_full(plan, bind, needed, min_score,
+                                        deadline=deadline, ckey=ckey))
+            rows, total, max_score = self._topk_from_views(views, k_want)
         else:
             rows, total, max_score, total_is_lower_bound = self._topk(
                 plan, bind, needed, k_want, min_score, deadline=deadline,
                 ckey=ckey, allow_kth_prune=allow_kth_prune)
-        return self._response(rows[from_: from_ + size], total, max_score,
+        resp = self._response(rows[from_: from_ + size], total, max_score,
                               body.get("_source"), t0,
                               lower_bound=total_is_lower_bound,
                               timed_out=deadline.timed_out)
+        if aggs_json:
+            from opensearch_tpu_torch.search.aggs import AggregationExecutor
+            execu = AggregationExecutor(
+                self.ctx, scores_of={seg.seg_id: scores
+                                     for seg, _d, scores, _m in views or ()})
+            seg_views = [(seg, dseg, matched)
+                         for seg, dseg, _s, matched in views or ()]
+            if agg_partials:
+                resp["aggregation_partials"] = execu.collect(aggs_json,
+                                                             seg_views)
+            else:
+                resp["aggregations"] = execu.run(aggs_json, seg_views)
+            resp["took"] = int((time.monotonic() - t0) * 1000)
+        return resp
 
     def _hybrid_search(self, body: dict, q, t0) -> dict:
         """Hybrid query: each sub-query runs as its own top-k (one K2 / K4
@@ -468,6 +502,31 @@ class ShardSearcher:
                              partial_ok=plan.skip_arrays(dims))
             scores, matched = P.run_full(plan, dims, A, ins, ms)
             yield seg, dseg, scores, matched
+
+    def _topk_from_views(self, views, k_want):
+        """(rows, total, max_score) out of an already-run full-scores pass
+        (aggs requests): every segment's top-k, read back in one copy."""
+        if k_want == 0:
+            total = sum(int(m.sum()) for _s, _d, _sc, m in views)
+            return [], total, None
+        if not views:
+            return [], 0, None
+        outs = [P.topk_from_scores(scores, min(k_want, dseg.n_pad), matched)
+                for _seg, dseg, scores, matched in views]
+        vals_h = torch.cat([o[0] for o in outs]).cpu().numpy()
+        idx_h = torch.cat([o[1] for o in outs]).cpu().numpy()
+        tot_h = torch.stack([o[2] for o in outs]).cpu().numpy()
+        mx_h = torch.stack([o[3] for o in outs]).cpu().numpy()
+        per_seg, off = [], 0
+        for si, (vals, _idx, _t, _m) in enumerate(outs):
+            n = vals.shape[0]
+            v, i = vals_h[off: off + n], idx_h[off: off + n]
+            off += n
+            keep = v > -np.inf
+            per_seg.append((v[keep], np.full(int(keep.sum()), si, _I32),
+                            i[keep]))
+        return self._merge_topk(per_seg, k_want, int(tot_h.sum()),
+                                float(mx_h.max()))
 
     def _merge_topk(self, per_seg, k_want, total, max_score):
         if not per_seg:

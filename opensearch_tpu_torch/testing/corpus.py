@@ -4,9 +4,9 @@ package's own copies of the benchmark's corpus builders
 zipf query log (``opensearch_tpu/testing/workload.py``
 ``zipf_query_log``), with the same draws, plus a seeded generator of
 float32 vectors and of doc-value columns (``doc_value_columns``: a
-``price`` long, a ``ts`` date and a ``tag`` keyword with postings and
-ordinals, ``COLUMNS_MAPPING``).  Pure numpy; segments are this
-package's."""
+``price`` long, a ``ts`` date, a ``tag`` keyword with postings and
+ordinals and a ``fare`` double, ``COLUMNS_MAPPING``).  Pure numpy;
+segments are this package's."""
 
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ TS_SPAN_MS = 365 * 86_400_000     # ... over 365 days, epoch millis
 TAG_VALUES = 1_000                # tag: keyword, zipf over 1,000 values
 # the mapping of the columns (with ``make_segments``' body and vectors)
 COLUMNS_MAPPING = {"price": {"type": "long"}, "ts": {"type": "date"},
-                   "tag": {"type": "keyword"}}
+                   "tag": {"type": "keyword"}, "fare": {"type": "double"}}
 
 
 def _draws(n_docs: int, seed: int) -> tuple:
@@ -90,24 +90,34 @@ def doc_value_columns(n_docs: int, seed: int = 11) -> dict:
     """Seeded single-valued columns of ``n_docs`` docs: ``price`` int64
     uniform over 0..``PRICE_MAX``, ``ts`` int64 epoch millis uniform over
     ``TS_SPAN_MS`` from ``TS_START_MS``, ``tag`` int32 codes zipf (a =
-    1.3) over ``TAG_VALUES`` values (``tag_name`` spells them)."""
+    1.3) over ``TAG_VALUES`` values (``tag_name`` spells them), ``fare``
+    float64 lognormal (median ~10, a taxi fare's shape) rounded to
+    cents."""
     rng = np.random.default_rng(seed)
-    return {"price": rng.integers(0, PRICE_MAX + 1, size=n_docs,
+    cols = {"price": rng.integers(0, PRICE_MAX + 1, size=n_docs,
                                   dtype=np.int64),
             "ts": TS_START_MS + rng.integers(0, TS_SPAN_MS, size=n_docs,
                                              dtype=np.int64),
             "tag": ((rng.zipf(1.3, size=n_docs) - 1)
                     .clip(0, TAG_VALUES - 1).astype(np.int32))}
+    # drawn last, so the other columns stay what they were without it
+    cols["fare"] = np.round(rng.lognormal(2.3, 0.6, size=n_docs), 2)
+    return cols
 
 
-def _long_column(values: np.ndarray) -> NumericDV:
+def _long_column(values: np.ndarray, kind: str = "long") -> NumericDV:
     n = len(values)
-    return NumericDV(kind="long", offsets=np.arange(n + 1, dtype=np.int32),
-                     values=values.astype(np.int64),
+    dtype = np.int64 if kind == "long" else np.float64
+    return NumericDV(kind=kind, offsets=np.arange(n + 1, dtype=np.int32),
+                     values=values.astype(dtype),
                      value_docs=np.arange(n, dtype=np.int32),
-                     minv=values.astype(np.int64),
-                     maxv=values.astype(np.int64),
+                     minv=values.astype(dtype),
+                     maxv=values.astype(dtype),
                      exists=np.ones(n, dtype=bool))
+
+
+def _double_column(values: np.ndarray) -> NumericDV:
+    return _long_column(values, kind="double")
 
 
 def _keyword_columns(codes: np.ndarray) -> tuple:
@@ -147,7 +157,8 @@ def make_segments(raw: dict, n_segments: int,
     a dictionary entry, so can-match can prune it), when ``vectors``
     [n_docs, d] is given a vector field and, when ``columns`` (of
     ``doc_value_columns``) is given, the ``price`` and ``ts`` long
-    columns and the ``tag`` keyword's postings and ordinals."""
+    columns, the ``tag`` keyword's postings and ordinals and, when the
+    columns hold it, the ``fare`` double column."""
     n_docs = raw["n_docs"]
     n_segments = max(1, min(int(n_segments), n_docs))
     offsets, df = raw["offsets"], raw["df"]
@@ -189,6 +200,9 @@ def make_segments(raw: dict, n_segments: int,
                 seg.numeric_dv[name] = _long_column(columns[name][lo:hi])
             seg.postings["tag"], seg.ordinal_dv["tag"] = _keyword_columns(
                 columns["tag"][lo:hi])
+            if "fare" in columns:
+                seg.numeric_dv["fare"] = _double_column(
+                    columns["fare"][lo:hi])
         segs.append(seg)
     return segs
 

@@ -1,8 +1,5 @@
 """K2's top-k entry against the route it replaced, and its tile size, on
-the card; and the route K2's dense (per-slot) entry replaced, one launch
-per query-term slot (``slot_route_cuda``, ``slot_route_quantized_cuda``),
-which ``chip_smoke.py`` times beside the one-launch entry in the same
-call.
+the card; and the block width of K2's dense (per-slot) entry.
 
     python3 -m opensearch_tpu_torch.testing.k2_sweep
 
@@ -17,9 +14,7 @@ stable sort per segment, is timed at the same inputs.  Then the per-slot
 (dense) entry, ``term_bag_cuda``, at each block width of ``FOLD_TILES``
 (``csrc/bm25.cu`` rebuilt with that ``BM25_FOLD_TILE_DOCS``): checked
 against its plain twin (scores; counts only) and timed on the median and
-the heaviest bag over the 16 segments, one call per segment, beside the
-route it replaced (``slot_route_cuda``: a memset and one launch per
-slot).  Times are device milliseconds per query (per segment for the
+the heaviest bag over the 16 segments, one call per segment.  Times are device milliseconds per query (per segment for the
 per-slot entry) under ``torch.profiler`` (the sum of every device kernel
 and copy of the call), each the lower of two readings taken in turns.
 Prints one JSON line per reading and the card's name and power limit.
@@ -28,7 +23,6 @@ Needs CUDA; without it, exits non-zero.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import subprocess
 import sys
@@ -41,101 +35,11 @@ from opensearch_tpu_torch.testing.k1_sweep import device_ms
 TILES = (2048, 4096, 8192)
 KS = (10, 100)
 FOLD_TILES = (512, 1024, 2048, 4096)
-_THREADS = 256
-_MAX_GRID = 132 * 32
-
-
-def _slot_grid(budget: int) -> int:
-    """Blocks per launch of the replaced route: one thread per posting of
-    the bag (capped; the grid-stride loop covers the rest)."""
-    return max(1, min(_MAX_GRID, -(-int(budget) // _THREADS)))
-
-
-def _slot_declare(lib):
-    from opensearch_tpu_torch.ops import cuda_bm25
-
-    cuda_bm25._declare(lib)
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    lib.term_bag_slot_launch.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p]
-    lib.term_bag_slot_launch.restype = i
-    lib.term_bag_quantized_slot_launch.argtypes = [
-        p, p, p, i, p, i, p, p, p, p, p, p, p, i, i, p, p, p]
-    lib.term_bag_quantized_slot_launch.restype = i
-
-
-def _slot_library():
-    """``csrc/bm25.cu`` built with the replaced route's entries
-    (``BM25_SLOT_ROUTE``), which the search paths' library leaves out."""
-    from opensearch_tpu_torch.ops import cuda_bm25, cuda_build
-
-    return cuda_build.library("bm25", _slot_declare,
-                              {**cuda_bm25.defines(), "BM25_SLOT_ROUTE": 1})
-
-
-def slot_route_cuda(offsets, doc_ids, impacts, term_ids, term_active, idfs,
-                    weights, *, n_pad: int, budget: int, scores: bool,
-                    counts: bool):
-    """The route ``cuda_bm25.term_bag_cuda`` replaced: zeroed dense
-    columns, then one launch of ``term_bag_slot_kernel`` per slot.  Same
-    arguments and result; ``slot_route_cuda.launches`` counts launches."""
-    from opensearch_tpu_torch.ops import cuda_bm25, cuda_build
-
-    dev = offsets.device
-    out_s = torch.zeros(n_pad, dtype=torch.float32, device=dev) \
-        if scores else None
-    out_c = torch.zeros(n_pad, dtype=torch.int32, device=dev) \
-        if counts else None
-    t_pad = term_ids.shape[0]
-    lib = _slot_library()
-    p = cuda_bm25._ptr
-    rc = lib.term_bag_slot_launch(
-        p(offsets), p(doc_ids), p(impacts if scores else None),
-        p(term_ids), p(term_active), p(idfs if scores else None),
-        p(weights if scores else None), t_pad, _slot_grid(budget), p(out_s),
-        p(out_c), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    cuda_build.check(lib, rc, "term_bag_slot_launch")
-    cuda_build.count(slot_route_cuda, t_pad)
-    return out_s, out_c
-
-
-def slot_route_quantized_cuda(offsets, packed, base, qvals, scales,
-                              exact_vals, exact_offsets, term_ids,
-                              term_active, idfs, weights, *, width: int,
-                              n_pad: int, budget: int, scores: bool,
-                              counts: bool):
-    """``slot_route_cuda`` over a quantized segment (the route
-    ``cuda_bm25.term_bag_quantized_cuda`` replaced)."""
-    from opensearch_tpu_torch.ops import cuda_bm25, cuda_build
-
-    dev = offsets.device
-    out_s = torch.zeros(n_pad, dtype=torch.float32, device=dev) \
-        if scores else None
-    out_c = torch.zeros(n_pad, dtype=torch.int32, device=dev) \
-        if counts else None
-    t_pad = term_ids.shape[0]
-    lib = _slot_library()
-    p = cuda_bm25._ptr
-    rc = lib.term_bag_quantized_slot_launch(
-        p(offsets), p(packed), p(base), int(width), p(qvals),
-        cuda_bm25._q_bytes(qvals), p(scales), p(exact_vals),
-        p(exact_offsets), p(term_ids), p(term_active),
-        p(idfs if scores else None), p(weights if scores else None), t_pad,
-        _slot_grid(budget), p(out_s), p(out_c),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    cuda_build.check(lib, rc, "term_bag_quantized_slot_launch")
-    cuda_build.count(slot_route_quantized_cuda, t_pad)
-    return out_s, out_c
-
-
-slot_route_cuda.launches = 0
-slot_route_quantized_cuda.launches = 0
 
 
 def fold_sweep(searcher, bags) -> None:
-    """The per-slot entry at each width of ``FOLD_TILES`` beside the
-    route it replaced, on every segment of ``searcher`` (see the module
-    doc)."""
+    """The per-slot entry at each width of ``FOLD_TILES``, on every
+    segment of ``searcher`` (see the module doc)."""
     from opensearch_tpu_torch.ops import bm25, cuda_bm25, cuda_build
 
     calls = {}
@@ -181,11 +85,6 @@ def fold_sweep(searcher, bags) -> None:
                                             for a, kw in calls[name]])
                     key = f"fold_{tile}_ms"
                     row[key] = min(row.get(key, 1e9), ms / n_seg)
-                ms = device_ms(lambda: [slot_route_cuda(
-                    *a, **kw, scores=True, counts=False)
-                    for a, kw in calls[name]])
-                row["replaced_route_ms"] = min(
-                    row.get("replaced_route_ms", 1e9), ms / n_seg)
             print(json.dumps(row), flush=True)
     finally:
         cuda_bm25.FOLD_TILE_DOCS = default

@@ -1087,9 +1087,13 @@ def test_engine_raises_for_unported_backends(engine, port_searcher):
 
     body = {"query": {"match": {"body": "w1"}}}
     with pytest.raises(NotYetPortedError):
-        engine.execute(port_searcher, body, agg_partials=True)
-    with pytest.raises(NotYetPortedError):
         engine.execute(port_searcher, body, service=MeshSvc())
+    # aggregation partials are served now, past the batcher
+    aggs = dict(body, aggs={"n": {"value_count": {"field": "tag"}}})
+    resp = engine.execute(port_searcher, aggs, agg_partials=True,
+                          service=_Svc())
+    assert resp["aggregation_partials"]["n"]["t"] == "metric"
+    assert "aggregations" not in resp
 
 
 @pytest.mark.parametrize("enabled", [True, False])

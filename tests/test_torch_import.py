@@ -4,9 +4,11 @@ package ``opensearch_tpu`` (only the tests import both).
 Checks: a subprocess that blocks those imports with a ``sys.meta_path``
 hook, imports every module of ``opensearch_tpu_torch`` (the write path's
 engine, store and translog, the serving node's indices service, REST
-controller and HTTP server, the filter ops and the search pipelines
-among them) and runs CPU searches (a ``match``, a ``knn``, a filtered
-``bool`` and a ``hybrid``), one engine round trip and one node on the
+controller and HTTP server, the filter ops, the search pipelines, the
+aggregations and K5's wrapper among them) and runs CPU searches (a
+``match``, a ``knn``, a filtered ``bool``, a ``hybrid`` and one with
+``aggs``: terms, histogram, metrics, a filter, percentiles and a
+pipeline), one engine round trip and one node on the
 CPU answering over HTTP (a search pipeline put among its requests); a static
 scan of the port's sources and ``chip_smoke.py`` for imports that name
 them; and the node's entry point, ``python -m
@@ -88,7 +90,8 @@ for name in ("index.engine", "index.store", "index.translog", "node",
              "rest.controller", "rest.http_server", "indices.service",
              "indices.request_cache", "common.xcontent", "common.breakers",
              "version", "ops.filters", "search.pipeline",
-             "common.settings"):
+             "common.settings", "ops.aggs", "ops.cuda_aggs", "search.aggs",
+             "search.pipeline_aggs", "search.scripting"):
     assert "opensearch_tpu_torch." + name in names, name
 fmapper = DocumentMapper({"properties": {
     "body": {"type": "text"}, "price": {"type": "long"},
@@ -108,6 +111,19 @@ resp = fsearcher.search({"query": {"hybrid": {"queries": [
         "technique": "arithmetic_mean",
         "parameters": {"weights": [0.3, 0.7]}}}, "timeout": "10s"})
 assert len(resp["hits"]["hits"]) == 6 and not resp["timed_out"], resp
+resp = fsearcher.search({"size": 2, "query": {"match": {"body": "alpha"}},
+                         "aggs": {
+    "t": {"terms": {"field": "tag"}, "aggs": {"s": {"sum": {"field": "price"}}}},
+    "h": {"histogram": {"field": "price", "interval": 5},
+          "aggs": {"m": {"max": {"field": "price"}},
+                   "c": {"cumulative_sum": {"buckets_path": "m"}}}},
+    "st": {"stats": {"field": "price"}},
+    "f": {"filter": {"range": {"price": {"lt": 6}}}},
+    "p": {"percentiles": {"field": "price", "percents": [50]}}}})
+aggs = resp["aggregations"]
+assert [b["doc_count"] for b in aggs["t"]["buckets"]] == [3, 3, 3, 3], aggs
+assert aggs["st"]["sum"] == 66.0 and aggs["f"]["doc_count"] == 6, aggs
+assert aggs["h"]["buckets"][-1]["c"]["value"] == 24.0, aggs
 
 import tempfile
 from opensearch_tpu_torch.index.engine import InternalEngine

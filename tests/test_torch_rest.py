@@ -15,8 +15,10 @@ a node draws for a document indexed without one.  The reference scores
 on its device path (``HOST_SCORING`` off, as ``tests/test_impacts.py``
 runs it), so BM25 scores compare byte for byte.
 
-Where the port does not serve a feature yet (aggregations, a wildcard
-``q``, the routes of unported handlers) it must answer 501 with
+``_search`` with ``aggs`` (on one index and across indices) and
+``_msearch`` bodies with ``aggs`` answer as the reference's.  Where the
+port does not serve a feature yet (a wildcard ``q``, ``sort``, the
+routes of unported handlers) it must answer 501 with
 ``not_yet_ported_exception``, while the reference answers; both nodes
 have the same (method, path) routes; a path with no route answers 400
 and a wrong method 405 on both.  The port's own HTTP edge: a missing
@@ -286,9 +288,10 @@ def test_search_params(nodes):
                        ("/srch/_search", b"{not json")):
         assert both(nodes, "POST", path, body)[0] == 400, (path, body)
     not_ported(nodes, "GET", "/srch/_search?q=title:w1*")
-    not_ported(nodes, "POST", "/srch/_search", {
+    # aggregations are served now, as the reference serves them
+    assert both(nodes, "POST", "/srch/_search", {
         "query": {"match_all": {}},
-        "aggs": {"g": {"terms": {"field": "genre"}}}})
+        "aggs": {"g": {"terms": {"field": "genre"}}}})[0] == 200
     not_ported(nodes, "POST", "/srch/_search", {
         "query": {"match_all": {}}, "sort": [{"genre": "asc"}]})
 
@@ -314,6 +317,63 @@ def test_multi_index_search_and_count(nodes):
                        ("/multi1/_count?q=title:w3", None)):
         assert both(nodes, "POST", path, body)[0] == 200, path
     assert both(nodes, "POST", "/multi1/_count", {"size": 1})[0] == 400
+
+
+AGG_MAPPING = {"properties": {"title": {"type": "text"},
+                              "genre": {"type": "keyword"},
+                              "n": {"type": "long"},
+                              "day": {"type": "date"}}}
+AGG_BODIES = [
+    {"size": 0, "aggs": {"g": {"terms": {"field": "genre"},
+                               "aggs": {"s": {"sum": {"field": "n"}},
+                                        "m": {"max": {"field": "n"}}}}}},
+    {"query": {"match": {"title": "w1 w2"}}, "size": 5,
+     "aggs": {"h": {"histogram": {"field": "n", "interval": 7},
+                    "aggs": {"st": {"stats": {"field": "n"}}}},
+              "d": {"date_histogram": {"field": "day",
+                                       "calendar_interval": "month"}}}},
+    {"size": 0, "aggs": {"f": {"filter": {"term": {"genre": "a"}},
+                               "aggs": {"a": {"avg": {"field": "n"}}}},
+                         "c": {"cardinality": {"field": "genre"}},
+                         "vc": {"value_count": {"field": "genre"}}}},
+]
+
+
+def agg_docs(seed: int, n: int, index: str) -> list:
+    rng = np.random.default_rng(seed)
+    lines = []
+    for line in docs(seed, n, index):
+        if "index" not in line:
+            line = dict(line, n=int(rng.integers(0, 60)),
+                        day=f"2024-{int(rng.integers(1, 5)):02d}-"
+                            f"{int(rng.integers(1, 28)):02d}")
+        lines.append(line)
+    return lines
+
+
+def test_aggs_over_http_equal_the_reference_node(nodes):
+    """``_search`` with ``aggs`` on one index (2 shards), across indices
+    (each answers its partials, the coordinator reduces them) and in
+    ``_msearch`` bodies, byte for byte (the columns are long and date:
+    every sum is exact)."""
+    both(nodes, "PUT", "/agg1", {"settings": {"number_of_shards": 2},
+                                 "mappings": AGG_MAPPING})
+    both(nodes, "PUT", "/agg2", {"mappings": AGG_MAPPING})
+    both(nodes, "POST", "/_bulk?refresh=true",
+         ndjson=agg_docs(11, 70, "agg1") + agg_docs(12, 40, "agg2"))
+    for body in AGG_BODIES:
+        assert both(nodes, "POST", "/agg1/_search", body)[0] == 200
+        status, resp = both(nodes, "POST", "/agg1,agg2/_search", body)
+        assert status == 200 and resp["aggregations"]
+    assert both(nodes, "POST", "/agg1/_search?request_cache=false",
+                AGG_BODIES[0])[0] == 200
+    lines = []
+    for body in AGG_BODIES + [{"query": {"match": {"title": "w1"}},
+                               "size": 3}]:
+        lines += [{}, body]
+    status, resp = both(nodes, "POST", "/agg1/_msearch", ndjson=lines)
+    assert status == 200
+    assert all("aggregations" in r for r in resp["responses"][:3])
 
 
 def test_msearch_with_per_request_errors(nodes):

@@ -302,20 +302,22 @@ def test_count_matches_reference(pair):
         "range", "ids", "hybrid"])
 def test_unported_features_raise_typed_error(body, monkeypatch):
     """Features the port does not serve raise ``NotYetPortedError`` (501).
-    ``range``, ``term`` on ``_id`` and ``hybrid`` are ported now: those
-    cases answer as the JAX package does, byte for byte."""
+    ``range``, ``term`` on ``_id``, ``hybrid`` and ``aggs`` are ported
+    now: those cases answer as the JAX package does, byte for byte."""
     mapper = DocumentMapper(MAPPING)
     docs = json_docs(3, sum(SEG_SIZES))
     segs = build(SegmentWriter(), mapper, docs)
     searcher = ShardSearcher(segs, mapper, device="cpu")
     q = body["query"]
-    if "range" in q or "hybrid" in q or q.get("term", {}).get("_id"):
+    if "range" in q or "hybrid" in q or q.get("term", {}).get("_id") \
+            or "aggs" in body:
         monkeypatch.setattr(jax_bm25, "HOST_SCORING", False)
         ref = JaxSearcher(build(JaxWriter(), JaxMapper(MAPPING), docs),
                           JaxMapper(MAPPING)).search(body)
         got = searcher.search(body)
         assert ref["hits"]["hits"], body
         assert bm25_mismatch(got, ref) is None, bm25_mismatch(got, ref)
+        assert got.get("aggregations") == ref.get("aggregations")
         return
     with pytest.raises(NotYetPortedError) as exc:
         searcher.search(body)

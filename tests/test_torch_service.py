@@ -346,9 +346,14 @@ def test_left_out_features_raise_not_yet_ported(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
     with pytest.raises(NotYetPortedError):
         mesh.search(body)
-    with pytest.raises(NotYetPortedError):
-        reg.get("idx").search({"query": {"match_all": {}},
-                               "aggs": {"t": {"terms": {"field": "tag"}}}})
+    # aggregations (and their shard partials) are served now
+    body = {"query": {"match_all": {}},
+            "aggs": {"t": {"terms": {"field": "tag"}}}}
+    assert reg.get("idx").search(body)["aggregations"] == {"t": {
+        "doc_count_error_upper_bound": 0, "sum_other_doc_count": 0,
+        "buckets": []}}
+    assert reg.get("idx").search(body, agg_partials=True)[
+        "aggregation_partials"]["t"]["t"] == "terms"
     reg.close()
 
 

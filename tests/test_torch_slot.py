@@ -16,8 +16,7 @@ once.
   f32, int8 and int16 layouts.
 - The wrappers refuse CPU tensors (a CUDA tensor gets the kernel or an
   exception; the dispatchers take the plain version for CPU tensors
-  only), and the replaced route stays reachable from
-  ``testing/k2_sweep.py`` only.
+  only), and the replaced per-slot route is gone from the port.
 """
 
 import pathlib
@@ -184,24 +183,16 @@ def test_dense_wrappers_refuse_cpu_tensors(monkeypatch):
     assert cuda_bm25.term_bag_quantized_cuda.launches == before
 
 
-def test_replaced_route_is_reachable_from_the_sweep_only():
-    """No search path calls the per-slot route: its C entries are named
-    only in ``testing/k2_sweep.py``, and ``csrc/bm25.cu`` compiles them
-    only under ``BM25_SLOT_ROUTE``, which the search paths' library is
-    not built with."""
-    port = ROOT / "opensearch_tpu_torch"
-    users = sorted(str(p.relative_to(ROOT)) for p in port.rglob("*.py")
-                   if "slot_launch" in p.read_text())
-    assert users == ["opensearch_tpu_torch/testing/k2_sweep.py"]
+def test_replaced_route_is_gone_from_the_port():
+    """The per-slot route the fold replaced is deleted: no file of the
+    port (sources, kernels, the sweeps) and not ``chip_smoke.py`` names
+    its kernel, its C entries or the macro that built them."""
+    names = ("term_bag_slot_kernel", "slot_launch", "BM25_SLOT_ROUTE")
+    files = [ROOT / "chip_smoke.py"] + sorted(
+        p for p in (ROOT / "opensearch_tpu_torch").rglob("*")
+        if p.suffix in (".py", ".cu", ".cuh"))
+    assert len(files) > 20
+    offenders = [f"{p.relative_to(ROOT)}: {name}" for p in files
+                 for name in names if name in p.read_text()]
+    assert not offenders, offenders
     assert "BM25_SLOT_ROUTE" not in cuda_bm25.defines()
-    depth, guarded = 0, []
-    for ln in (port / "csrc" / "bm25.cu").read_text().splitlines():
-        if ln.startswith("#ifdef BM25_SLOT_ROUTE"):
-            depth += 1
-        elif ln.startswith("#endif  // BM25_SLOT_ROUTE"):
-            depth -= 1
-        elif "term_bag_slot_kernel" in ln or "slot_launch" in ln:
-            guarded.append((depth, ln.strip()))
-    assert depth == 0
-    assert [ln for d, ln in guarded if d == 0 and not ln.startswith("//")] \
-        == []
