@@ -58,14 +58,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    over 2 quantized and 2 f32 segments; and K4 against K2 over the same
    segments' ``dequantized()`` column staged as f32, byte for byte; and
    K5, the bucket collector of aggregations (``bucket_collect_cuda``,
-   ``csrc/aggs.cu``: one launch over every segment of a call), against
-   its plain version byte for byte in its ordinal, edges and single
-   modes with 0-2 sub-columns (long and double), on one scale segment
-   and on multi-valued columns of 1-3 values a doc with duplicates in one
-   bucket, two launches on the same inputs byte-equal, then timed over
-   the 16 scale segments (a day ``date_histogram`` with a ``stats`` sub,
-   and ``terms`` with two subs) beside the ``index_add_`` /
-   ``scatter_reduce_`` chain; and the filter masks (``range_mask``,
+   ``csrc/aggs.cu``: one call of 2-4 kernels over every segment, or
+   every (column, segment), of a collector request, blocks over 4,096-
+   entry chunks), against its plain version byte for byte in its
+   ordinal, edges and single modes with 0-2 sub-columns (long and
+   double), on one scale segment, on multi-valued columns of 1-3 values
+   a doc with duplicates in one bucket, and at the chunks' boundaries
+   (runs starting at every residue, runs of 2^k - 1 to 2^k + 1 entries
+   across chunks, empty chunks, a doc's repeat across a boundary,
+   100,000 ordinals, several columns in one single-mode call), two
+   calls on the same inputs byte-equal, then timed over the 16 scale
+   segments (a day ``date_histogram`` with a ``stats`` sub, ``terms``
+   with two subs, the single mode over ``fare``) beside the
+   ``index_add_`` / ``scatter_reduce_`` chain or ``v.sum()`` /
+   ``v.aminmax()``; and the filter masks (``range_mask``,
    ``term_mask``, ``terms_mask``) timed alone on one segment.
    The scale corpus carries doc-value columns (``testing/corpus.py``
    ``doc_value_columns``: ``price`` long, ``ts`` date, ``tag`` keyword
@@ -184,12 +190,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``range``, ``filters``, ``missing``, ``cardinality``, ``percentiles``
    (the centroid path), ``terms`` on a long, ``composite`` with an
    ``after``, ``top_hits`` under ``terms``, ``cumulative_sum`` and
-   ``max_bucket``; K5's launches per request checked against each
-   kind's bucket and metric aggs, no K3 launch, samples equal to the CPU
+   ``max_bucket``; K5's calls per request checked against each kind's
+   bucket aggs and its metric aggs (one call for all of a request's
+   top-level metric aggs), its kernels per request recorded, no K3
+   launch, samples equal to the CPU
    searcher byte for byte (JSON), and where a request's time goes
    (``run_full``, K5 and its copy, the host aggregation); plus 20
    ``terms`` + ``value_count`` ``_search`` requests over HTTP to phase
-   9's node before it stops (``?request_cache=false``; two K5 launches
+   9's node before it stops (``?request_cache=false``; two K5 calls
    each), equal to the CPU searcher.  One ``aggregations:`` line prints
    qps and p50 per kind and the layer times.
 
@@ -296,7 +304,8 @@ def kernel_device_ms(fn, reps: int, name: str):
 def phase_toolkit():
     import torch
 
-    from opensearch_tpu_torch.ops import cuda_bm25, cuda_build, cuda_knn
+    from opensearch_tpu_torch.ops import (cuda_aggs, cuda_bm25, cuda_build,
+                                          cuda_knn)
 
     nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
@@ -311,7 +320,8 @@ def phase_toolkit():
                              "aggs"],
                             {"knn": cuda_knn.defines(),
                              "bm25": cuda_bm25.defines(),
-                             "quant_topk": cuda_bm25.quant_defines()})
+                             "quant_topk": cuda_bm25.quant_defines(),
+                             "aggs": cuda_aggs.defines()})
     log(f"kernels built in {time.monotonic() - t0:.1f}s: "
         f"{sorted(logs) or 'cached'}")
     for name, text in logs.items():
@@ -1109,26 +1119,138 @@ def k5_err(a, b) -> float:
     return diff
 
 
+def k5_plain(segs, mode, edges=None, self_metric=False):
+    """K5's plain version of one call (a flag per segment: each
+    segment's own plain call, concatenated)."""
+    import torch
+
+    from opensearch_tpu_torch.ops import aggs as agg_ops
+
+    if isinstance(self_metric, list):
+        return torch.cat([agg_ops.bucket_collect_plain(
+            [s], mode=mode, edges=edges, self_metric=f)
+            for s, f in zip(segs, self_metric)])
+    return agg_ops.bucket_collect_plain(segs, mode=mode, edges=edges,
+                                        self_metric=self_metric)
+
+
+def k5_boundary_cases(seg0, d0, live0, mv, mv_edges) -> list:
+    """K5's chunk boundaries at the real chunk (``cuda_aggs.CHUNK``), as
+    ``tests/test_torch_aggs_ops.py`` holds the model of them on the CPU:
+    runs whose first rank in a chunk falls at every residue mod 16 and at
+    larger ones (one job per skip of leading unmatched docs, one call);
+    runs of 2^k - 1, 2^k and 2^k + 1 entries within one chunk, across
+    two and across many; chunks with no matched doc; a doc's two values
+    in one bucket on either side of every chunk boundary (edges); 100,000
+    ordinals (records found by binary search); several key columns in
+    one single-mode call (int32, int64 and float64 keys, one column
+    twice)."""
+    import torch
+
+    from opensearch_tpu_torch.ops import aggs as agg_ops
+    from opensearch_tpu_torch.ops import cuda_aggs
+
+    CS = agg_ops.CollectSegment
+    dev = live0.device
+    C = cuda_aggs.CHUNK
+    fare, price, tag = d0.numeric["fare"], d0.numeric["price"], \
+        d0.ordinal["tag"]
+    docs = fare["value_docs"]
+    real = docs < seg0.n_docs
+    doc_ids = torch.arange(d0.n_pad, device=dev)
+    zero = torch.where(real, 0, -1).to(torch.int32)
+    skips = list(range(16)) + [31, 33, 100, 1000, C // 2, C - 1]
+    cases = [("runs starting at every residue", "ordinal",
+              [CS(live0 & (doc_ids >= k), zero, docs, 2, [fare])
+               for k in skips], None, False)]
+    runs = []
+    for length in (7, 8, 9, C - 1, C, C + 1, 2 * C - 1, 2 * C, 2 * C + 1,
+                   8 * C - 1, 8 * C, 8 * C + 1):
+        for offset in (0, 1000):
+            pos = torch.arange(docs.shape[0], device=dev)
+            key = torch.where((pos >= offset) & (pos < offset + length), 0,
+                              1).to(torch.int32)
+            runs.append(CS(live0, torch.where(real, key, -1), docs, 2,
+                           [fare, price]))
+    cases.append(("runs of 2^k - 1, 2^k, 2^k + 1 across chunks", "ordinal",
+                  runs, None, False))
+    empty = live0 & ((doc_ids < 2 * C) | (doc_ids >= 5 * C))
+    cases.append(("empty chunks (ordinal)", "ordinal",
+                  [CS(empty, tag["ords"], tag["value_docs"], tag["n_ords"],
+                      [fare])], None, False))
+    cases.append(("empty chunks (single)", "single",
+                  [CS(empty, fare["values"], docs, 1)], None, True))
+    # a doc's two values in one bucket straddling each chunk boundary
+    vals = mv["long"]["values"].clone()
+    vdocs = mv["long"]["value_docs"]
+    straddle = 0
+    for b in range(C, vals.shape[0], C):
+        if int(vdocs[b - 1]) == int(vdocs[b]) < seg0.n_docs:
+            vals[b] = vals[b - 1]
+            straddle += 1
+    if not straddle:
+        raise AssertionError("no doc straddles a chunk boundary")
+    cases.append((f"edges repeat across {straddle} chunk boundaries",
+                  "edges", [CS(live0, vals, vdocs, mv_edges.shape[0] - 1,
+                               [mv["double"]])], mv_edges, False))
+    # 100,000 ordinals, 1-3 a doc
+    rng = np.random.default_rng(74)
+    per = rng.integers(1, 4, size=seg0.n_docs)
+    kd = np.repeat(np.arange(seg0.n_docs, dtype=np.int32), per)
+    ko = rng.integers(0, 100_000, size=len(kd)).astype(np.int32)
+    order = np.lexsort((ko, kd))
+    kd, ko = kd[order], ko[order]
+    keep = np.r_[True, (kd[1:] != kd[:-1]) | (ko[1:] != ko[:-1])]
+    kd, ko = kd[keep], ko[keep]
+    v_pad = 1 << (len(ko) - 1).bit_length()
+    pk = np.full(v_pad, -1, np.int32)
+    pk[: len(ko)] = ko
+    pd = np.full(v_pad, seg0.n_docs, np.int32)
+    pd[: len(kd)] = kd
+    big = CS(live0, torch.from_numpy(pk).to(dev),
+             torch.from_numpy(pd).to(dev), 100_000, [fare])
+    if cuda_aggs.plan_launch([big.n_buckets_pad], 0)[1]:
+        raise AssertionError("100,000 ordinals took a dense row")
+    cases.append(("ordinal 100,000 ordinals", "ordinal", [big], None, False))
+    batch, flags = [], []
+    for col, key, flag in ((fare, "values", True), (price, "values", True),
+                           (fare, "values", True), (tag, "ords", False)):
+        batch.append(CS(live0, col[key], col["value_docs"], 1))
+        flags.append(flag)
+    batch.append(CS(live0, mv["double"]["values"],
+                    mv["double"]["value_docs"], 1))
+    flags.append(True)
+    cases.append(("batched single (fare, price, fare, tag, multi-valued)",
+                  "single", batch, None, flags))
+    return cases
+
+
 def phase_k5(scale_segs, searcher) -> dict:
     """K5 (``bucket_collect_cuda``, ``csrc/aggs.cu``) against its plain
     version on the card, byte for byte, in the ordinal, edges and single
     modes with 0, 1 and 2 sub-columns (long ``price``, double ``fare``)
     on one scale segment and on multi-valued columns built for the check
-    (1-3 values a doc, duplicates in one bucket), one launch per call,
-    and two launches on the same inputs byte-equal; the plain version on
-    the CPU equal too; edges beyond ``EDGES_SMEM_MAX`` searched in
-    global memory.  Then timed at the main path's shape: one launch
-    over the 16 scale segments, a day ``date_histogram`` on ``ts`` with a
+    (1-3 values a doc, duplicates in one bucket), and at its chunk
+    boundaries (``k5_boundary_cases``); one call per collector request
+    (its kernels counted apart), and two calls on the same inputs
+    byte-equal; the plain version on the CPU equal too; edges beyond
+    ``EDGES_SMEM_MAX`` searched in global memory; the wrapper's
+    shared-memory plan equal to the kernel's.  Then timed at the main
+    path's three shapes, one call over the 16 scale segments, in turns
+    with its plain version: a day ``date_histogram`` on ``ts`` with a
     ``stats`` sub on ``fare`` over every live doc (phase 11's
-    whole-index request), in turns with its plain version, beside the
-    ``index_add_`` / ``scatter_reduce_`` chain; and the ordinal mode at
-    ``terms`` on ``tag`` with two subs."""
+    whole-index request) and ``terms`` on ``tag`` with two subs beside
+    the ``index_add_`` / ``scatter_reduce_`` chain, and the single mode
+    over ``fare`` (a ``stats``) beside ``v = values[matched[value_docs]]``
+    with ``v.sum()``, ``v.aminmax()`` and ``v.numel()``; device time is
+    the sum of K5's kernels under the profiler."""
     import torch
 
     from opensearch_tpu_torch.ops import aggs as agg_ops
     from opensearch_tpu_torch.ops import cuda_aggs
     from opensearch_tpu_torch.search.aggs import build_date_edges
     from opensearch_tpu_torch.testing import corpus
+    from opensearch_tpu_torch.testing.k5_sweep import kernel_ms
 
     dev = torch.device(DEVICE)
     k5 = cuda_aggs.bucket_collect_cuda
@@ -1193,6 +1315,8 @@ def phase_k5(scale_segs, searcher) -> dict:
                       mv["double"]["value_docs"], 39, [price])],
                   torch.arange(0.0, 40.0, dtype=torch.float64, device=dev),
                   False))
+    n_basic = len(cases)
+    cases += k5_boundary_cases(seg0, d0, live0, mv, mv_edges)
 
     def to_cpu(segs):
         return [CS(s.matched.cpu(), s.keys.cpu(), s.key_docs.cpu(),
@@ -1201,21 +1325,25 @@ def phase_k5(scale_segs, searcher) -> dict:
                                             if isinstance(v, torch.Tensor)}
                     for c in s.subs]) for s in segs]
 
-    lib = cuda_aggs._library()      # the tile plan's shared memory
-    for args in ((64, 1, 20, 366), (64, 2, 18, 0), (8, 16, 31, 0)):
+    lib = cuda_aggs._library()      # the shared-memory plan
+    C = cuda_aggs.CHUNK
+    for args in ((0, 366, 512, 512), (0, 0, 1024, 1024), (0, 8192, C, C),
+                 (1, 0, 0, 512), (1, 0, 0, C), (1, 0, 0, 8)):
         if lib.agg_smem_bytes(*args) != cuda_aggs.smem_bytes(*args):
             raise AssertionError(f"K5 shared memory {args}: the wrapper's "
                                  "plan differs from the kernel's")
+    if lib.agg_chunk() != C:
+        raise AssertionError("K5 was built with another chunk")
     max_err = 0.0
     for i, (name, mode, segs, edges, self_metric) in enumerate(cases):
-        before = k5.launches
+        before, kernels0 = k5.launches, k5.kernels
         a = k5(segs, mode=mode, edges=edges, self_metric=self_metric)
         b = k5(segs, mode=mode, edges=edges, self_metric=self_metric)
-        if k5.launches - before != 2:
-            raise AssertionError(f"K5 {name}: {k5.launches - before} "
-                                 "launches for two calls")
-        p = agg_ops.bucket_collect_plain(segs, mode=mode, edges=edges,
-                                         self_metric=self_metric)
+        if k5.launches - before != 2 or k5.kernels - kernels0 not in (4, 8):
+            raise AssertionError(f"K5 {name}: {k5.launches - before} calls "
+                                 f"and {k5.kernels - kernels0} kernels for "
+                                 "two calls")
+        p = k5_plain(segs, mode, edges, self_metric)
         torch.cuda.synchronize()
         max_err = max(max_err, k5_err(a, p))
         if not torch.equal(a, b):
@@ -1223,24 +1351,28 @@ def phase_k5(scale_segs, searcher) -> dict:
         if not torch.equal(a, p):
             raise AssertionError(f"K5 {name}: differs from its plain "
                                  f"version (max_abs_err {k5_err(a, p)})")
-        if i % 4 == 0:
-            c = agg_ops.bucket_collect_plain(
+        if i % 4 == 0 or i >= n_basic:
+            c = agg_ops.bucket_collect(
                 to_cpu(segs), mode=mode,
                 edges=None if edges is None else edges.cpu(),
                 self_metric=self_metric)
             if not torch.equal(a.cpu(), c):
                 raise AssertionError(f"K5 {name}: differs from the plain "
                                      "version on the CPU")
-        counts = agg_ops.unpack(a.cpu().numpy(), segs,
-                                1 if self_metric else len(segs[0].subs))
+        n_subs = ([int(f) for f in self_metric]
+                  if isinstance(self_metric, list)
+                  else 1 if self_metric else len(segs[0].subs))
+        counts = agg_ops.unpack(a.cpu().numpy(), segs, n_subs)
         if sum(int(c.sum()) for c, _s in counts) <= 0:
             raise AssertionError(f"K5 {name}: no entry counted")
     log(f"K5 {len(cases)} cases (ordinal, edges, single; 0-2 sub-columns, "
-        f"long and double; one scale segment of {seg0.n_docs} docs and "
-        f"multi-valued columns of 1-3 values a doc): byte-equal to the "
-        f"plain version and run to run, one launch a call")
+        f"long and double; one scale segment of {seg0.n_docs} docs, "
+        f"multi-valued columns of 1-3 values a doc, and "
+        f"{len(cases) - n_basic} at the {C}-entry chunks' boundaries: "
+        f"{', '.join(c[0] for c in cases[n_basic:])}): byte-equal to the "
+        f"plain version and run to run, one call each")
 
-    # timed at the main path's shape: 16 segments, one launch
+    # timed at the main path's shapes: 16 segments, one call
     views = []
     for seg in scale_segs:
         dseg = seg.device(dev)
@@ -1250,41 +1382,63 @@ def phase_k5(scale_segs, searcher) -> dict:
     terms = [CS(m, d.ordinal["tag"]["ords"], d.ordinal["tag"]["value_docs"],
                 d.ordinal["tag"]["n_ords"],
                 [d.numeric["fare"], d.numeric["price"]]) for d, m in views]
+    single = [CS(m, d.numeric["fare"]["values"],
+                 d.numeric["fare"]["value_docs"], 1) for d, m in views]
+
+    def single_library():
+        out = []
+        for s in single:
+            v = s.keys[s.matched[s.key_docs.long()]]
+            out.append((v.sum(), v.aminmax(), v.numel()))
+        return out
+
     rows = {}
-    for name, segs, mode, edges in (("date_histogram", dh, "edges",
-                                     day_edges),
-                                    ("terms", terms, "ordinal", None)):
-        def fn(segs=segs, mode=mode, edges=edges):
-            return k5(segs, mode=mode, edges=edges)
+    for name, segs, mode, edges, sm, library in (
+            ("date_histogram", dh, "edges", day_edges, False,
+             lambda: k5_library_chain(dh, "edges", day_edges)),
+            ("terms", terms, "ordinal", None, False,
+             lambda: k5_library_chain(terms, "ordinal")),
+            ("single", single, "single", None, True, single_library)):
+        def fn(segs=segs, mode=mode, edges=edges, sm=sm):
+            return k5(segs, mode=mode, edges=edges, self_metric=sm)
 
-        def plain(segs=segs, mode=mode, edges=edges):
-            return agg_ops.bucket_collect_plain(segs, mode=mode, edges=edges)
+        def plain(segs=segs, mode=mode, edges=edges, sm=sm):
+            return agg_ops.bucket_collect_plain(segs, mode=mode, edges=edges,
+                                                self_metric=sm)
 
-        a, p = fn(), plain()
+        calls0, kernels0 = k5.launches, k5.kernels
+        a = fn()
+        per_call = (k5.launches - calls0, k5.kernels - kernels0)
+        p = plain()
         torch.cuda.synchronize()
         if not torch.equal(a, p):
             raise AssertionError(f"K5 timed {name}: differs from plain")
         ms, plain_ms = in_turns(fn, plain, 5)
-        lib_ms = cuda_ms(lambda: k5_library_chain(segs, mode, edges), 5)
-        dev_ms = kernel_device_ms(fn, 5, "agg_collect_kernel")
-        if dev_ms is None:
+        lib_ms = cuda_ms(library, 5)
+        dev_ms, per_kernel = kernel_ms(fn, 5)
+        if not dev_ms:
             raise AssertionError("the profiler shows no K5 kernel")
-        nbytes = k5_bytes(segs, edges)
+        nbytes = k5_bytes(segs, edges, self_metric=sm)
         bms, by = bound_ms(nbytes, 0.0)
         entries = sum(s.keys.numel() for s in segs)
-        rows[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                      "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
-                      "bound_bytes": nbytes, "entries": entries,
-                      "segments": len(segs), "max_abs_err": k5_err(a, p),
-                      "launches_per_call": 1}
+        rows[name] = {"ms": ms, "device_ms": dev_ms,
+                      "device_ms_per_kernel": per_kernel,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bms, "bound_by": by, "bound_bytes": nbytes,
+                      "entries": entries, "segments": len(segs),
+                      "max_abs_err": k5_err(a, p), "calls": per_call[0],
+                      "kernels_per_call": per_call[1]}
         log(f"K5 {name} over {len(segs)} segments ({entries} entries, "
-            f"{len(segs[0].subs)} sub-columns), one launch: ms {ms:.4f} "
-            f"device_ms {dev_ms:.5f} plain_ms {plain_ms:.4f} "
-            f"library_ms(index_add_/scatter_reduce_ chain) {lib_ms:.4f} "
+            f"{1 if sm else len(segs[0].subs)} sub-columns), "
+            f"{per_call[0]} call of {per_call[1]} kernels: ms {ms:.4f} "
+            f"device_ms {dev_ms:.5f} ("
+            + ", ".join(f"{k} {v:.5f}" for k, v in per_kernel.items())
+            + f") plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
             f"bound_ms {bms:.5f} ({by}: {nbytes:.0f} bytes) on "
             f"{gpu_name_power()}")
     row = dict(rows["date_histogram"], max_abs_err=max_err,
-               ordinal=rows["terms"], cases=len(cases))
+               ordinal=rows["terms"], single=rows["single"],
+               cases=len(cases))
     return {"bucket_collect": row, "masks": phase_masks(seg0, d0)}
 
 
@@ -1292,17 +1446,26 @@ def phase_masks(seg, dseg) -> dict:
     """``ops/filters.py``'s torch mask ops timed alone on one 62,500-doc
     segment (their plain versions are themselves; the reference's are
     XLA): ``range_mask`` on ``price`` over ~40% of the values,
-    ``term_mask`` on a ``tag`` ordinal, ``terms_mask`` on 5 ordinals;
-    bound from bytes (the column and its docs read once, the mask
-    written once)."""
+    ``term_mask`` on a ``tag`` ordinal, ``terms_mask`` on 5 ordinals; and
+    ``ops/aggs.py`` ``masked_centroids`` (``percentiles`` past
+    ``PCT_RAW_MAX`` values: a float64 sort and pairwise sums over 1,024
+    rank bins) over every live doc's ``fare``.  CUDA-event ms per call
+    and device ms (every kernel of the call under the profiler); bound
+    from bytes (the column and its docs read once, the mask or the
+    centroids written once)."""
     import torch
 
+    from opensearch_tpu_torch.ops import aggs as agg_ops
     from opensearch_tpu_torch.ops import filters
+    from opensearch_tpu_torch.search.aggs import PCT_CENTROIDS
+    from opensearch_tpu_torch.testing.k1_sweep import device_ms
 
     price, tag = dseg.numeric["price"], dseg.ordinal["tag"]
+    fare = dseg.numeric["fare"]
     n_pad = dseg.n_pad
     five = torch.tensor([0, 1, 2, 3, 4], dtype=torch.int32,
                         device=tag["ords"].device)
+    live = torch.arange(n_pad, device=tag["ords"].device) < seg.n_docs
     calls = {
         "range_mask": (lambda: filters.range_mask(
             price["values"], price["value_docs"], 2000, 6000,
@@ -1313,16 +1476,22 @@ def phase_masks(seg, dseg) -> dict:
             tag["ords"].numel() * 8 + n_pad),
         "terms_mask": (lambda: filters.terms_mask(
             tag["ords"], tag["value_docs"], five, n_pad=n_pad),
-            tag["ords"].numel() * 8 + n_pad + 20)}
+            tag["ords"].numel() * 8 + n_pad + 20),
+        "masked_centroids": (lambda: agg_ops.masked_centroids(
+            fare["values"], fare["value_docs"], live, n_cent=PCT_CENTROIDS),
+            fare["values"].numel() * 12 + n_pad + 16 * PCT_CENTROIDS)}
     out = {}
     for name, (fn, nbytes) in calls.items():
         ms = cuda_ms(fn, 50)
+        dev_ms = device_ms(fn, 20)
         bms, by = bound_ms(nbytes, 0.0)
-        out[name] = {"ms": ms, "bound_ms": bms, "bound_by": by,
-                     "bound_bytes": nbytes}
-    log("filter masks on one segment of " + str(seg.n_docs) + " docs: "
-        + "; ".join(f"{n} ms {r['ms']:.4f} bound_ms {r['bound_ms']:.6f} "
-                    f"({r['bound_bytes']} bytes)" for n, r in out.items())
+        out[name] = {"ms": ms, "device_ms": dev_ms, "bound_ms": bms,
+                     "bound_by": by, "bound_bytes": nbytes}
+    log("filter masks and centroids on one segment of " + str(seg.n_docs)
+        + " docs: "
+        + "; ".join(f"{n} ms {r['ms']:.4f} device_ms {r['device_ms']:.5f} "
+                    f"bound_ms {r['bound_ms']:.6f} ({r['bound_bytes']} "
+                    f"bytes)" for n, r in out.items())
         + f"; the torch ops are their own plain version; on "
         f"{gpu_name_power()}")
     return out
@@ -3511,7 +3680,7 @@ DAY_MS = 86_400_000
 def phase11_bodies() -> dict:
     """Phase 11's traffic, seeded, shaped on nyc_taxis'
     ``date_histogram_agg`` and ``distance_amount_agg`` operations and
-    config 5: per kind a list of ``(body, expected K5 launches)``."""
+    config 5: per kind a list of ``(body, expected K5 calls)``."""
     from opensearch_tpu_torch.testing import corpus
 
     rng = np.random.default_rng(81)
@@ -3547,7 +3716,7 @@ def phase11_bodies() -> dict:
                    for m in ("min", "max", "avg", "sum", "value_count",
                              "stats")}
     metrics = [({"size": 0, "query": {"match_all": {}},
-                 "aggs": metric_aggs}, len(metric_aggs))
+                 "aggs": metric_aggs}, 1)         # one call, both columns
                for _ in range(AGG_METRICS)]
     lo = corpus.TS_START_MS + 100 * DAY_MS
     window = {"range": {"ts": {"gte": lo, "lt": lo + 21 * DAY_MS}}}
@@ -3644,8 +3813,9 @@ def phase_http_aggs(node, state, counters) -> dict:
     (``phase_serving``'s ``then``): HTTP_AGGS ``_search`` bodies with
     ``terms`` on ``tag`` and ``value_count`` on ``tag``, each sent with
     ``?request_cache=false``, their counts zeroed just before them and
-    read just after (one K5 launch per agg over every segment of both
-    shards, no K3), every answer equal to the CPU searcher."""
+    read just after (one K5 call for the ``terms`` and one for the
+    ``value_count``, each over every segment of both shards; no K3),
+    every answer equal to the CPU searcher."""
     from opensearch_tpu_torch.ops import cuda_aggs
     from opensearch_tpu_torch.search.executor import ShardSearcher
 
@@ -3658,6 +3828,7 @@ def phase_http_aggs(node, state, counters) -> dict:
     client.ok("POST", path, bodies[0])                      # warm-up
     for fn in [*counters.values(), k5]:         # this path starts here
         fn.launches = 0
+    k5.kernels = 0
     qps, p50, out = timed_calls(lambda b: client.ok("POST", path, b), bodies)
     launches = {n: c.launches for n, c in counters.items()}
     k5_n = k5.launches
@@ -3678,6 +3849,7 @@ def phase_http_aggs(node, state, counters) -> dict:
     client.close()
     return {"qps": qps, "p50_ms": p50, "requests": HTTP_AGGS,
             "k5_launches_per_request": k5_n / HTTP_AGGS,
+            "k5_kernels_per_request": k5.kernels / HTTP_AGGS,
             "segments": len(svc.searcher().segments),
             "live_docs": state.live()}
 
@@ -3705,25 +3877,28 @@ def phase_aggs(segs, mapper, searcher, qsegs, qsearcher, counters,
     torch.cuda.synchronize()
     for fn in [*counters.values(), k5]:         # this path starts here
         fn.launches = 0
+    k5.kernels = 0
     kinds, outs = {}, {}
     for lname, (_s, srch) in layouts.items():
         n_seg = len(srch.segments)
         for kind, items in traffic.items():
-            before = k5.launches
+            before, kernels0 = k5.launches, k5.kernels
             qps, p50, out = timed_calls(lambda b: srch.search(dict(b)),
                                         [b for b, _n in items])
             per = (k5.launches - before) / len(items)
+            kernels = (k5.kernels - kernels0) / len(items)
             want = items[0][1]
             if want is not None and per != want:
                 raise AssertionError(f"phase 11 {lname} {kind}: {per} K5 "
-                                     f"launches per request, not {want}")
+                                     f"calls per request, not {want}")
             n_aggs = max(len(b["aggs"]) for b, _n in items)
             if per > n_aggs * 2 * n_seg:
                 raise AssertionError(f"phase 11 {lname} {kind}: {per} K5 "
-                                     "launches per request")
+                                     "calls per request")
             kinds[f"{lname} {kind}"] = {
                 "qps": qps, "p50_ms": p50, "requests": len(items),
-                "k5_launches_per_request": per}
+                "k5_launches_per_request": per,
+                "k5_kernels_per_request": kernels}
             outs[(lname, kind)] = out
     launches = {n: c.launches for n, c in counters.items()}
     k5_total = k5.launches
@@ -3771,8 +3946,9 @@ def phase_aggs(segs, mapper, searcher, qsegs, qsearcher, counters,
     gpu = gpu_name_power()
     log("aggregations: "
         + "; ".join(f"{k}: qps {v['qps']:.2f}, p50 {v['p50_ms']:.3f} ms, "
-                    f"{v['k5_launches_per_request']:.2f} K5 launches a "
-                    f"request" for k, v in kinds.items())
+                    f"{v['k5_launches_per_request']:.2f} K5 calls "
+                    f"({v['k5_kernels_per_request']:.2f} kernels) a request"
+                    for k, v in kinds.items())
         + "; f32 per request (ms, synchronized): "
         + "; ".join(f"{k} {v['ms_per_request']:.3f} = run_full "
                     f"{v['run_full_ms']:.3f} + K5 and copy "
@@ -3782,11 +3958,12 @@ def phase_aggs(segs, mapper, searcher, qsegs, qsearcher, counters,
         + (f"; over HTTP on phase 9's node ({http['segments']} segments, "
            f"{http['live_docs']} live docs): qps {http['qps']:.2f}, p50 "
            f"{http['p50_ms']:.3f} ms, {http['k5_launches_per_request']:.2f}"
-           f" K5 launches a request" if http else "")
-        + f"; K5 launches {k5_total}, K3 launches 0; samples equal to the "
+           f" K5 calls a request" if http else "")
+        + f"; K5 calls {k5_total}, K3 launches 0; samples equal to the "
         f"CPU searcher byte for byte; phase {wall:.2f} s; on {gpu}")
     return {"kinds": kinds, "layers": layers, "launches": launches,
-            "k5_launches": k5_total, "http": http, "wall_s": wall}
+            "k5_launches": k5_total, "k5_kernels": k5.kernels, "http": http,
+            "wall_s": wall}
 
 
 def main() -> int:

@@ -1,14 +1,19 @@
-// Where a top-k block's cycles go: a kernel's library built with
-// -DQUANT_PHASES (testing/k4_sweep.py builds csrc/quant_topk.cu so) has
+// Where a kernel's cycles go: a library built with -DQUANT_PHASES has
 // thread 0 of each block add the SM cycles from one mark to the next into
-// quant_phase_cycles, an array of that library's own:
+// quant_phase_cycles, an array of that library's own; quant_phases(out)
+// copies the sums to out[0, 8) and zeroes them.  Without the macro every
+// mark is empty and nothing is exported.  The slots:
+//   K4 (quant_topk.cu, testing/k4_sweep.py):
 //   0 table, live load and zeroing    4 key build (and the total / max atomics)
 //   1 the row searches                5 select_top
 //   2 copy issue and wait             6 the post and the last block's merge
 //   3 scatter                         7 slots scattered (a count, not cycles)
-// quant_phases(out) copies the sums to out[0, 8) and zeroes them.  Without
-// the macro every mark is empty and nothing is exported.  (K3's
-// union_topk.cu keeps its own -DUNION_PHASES marks.)
+//   K5 (aggs.cu, testing/k5_sweep.py):
+//   0 count: load, buckets, validity  4 reduce: partials
+//   1 count: the block's sort         5 reduce: the tree's levels
+//   2 count: the records              6 reduce: the maximal nodes
+//   3 scan                            7 merge
+// (K3's union_topk.cu keeps its own -DUNION_PHASES marks.)
 #pragma once
 
 #include <cuda_runtime.h>

@@ -22,22 +22,25 @@ fixed order, the same on the CPU and on the card:
   run of valid entries in entry order (``pairwise_sums``): the entry of
   rank ``r`` in the run takes the node of rank ``r + 2^l`` at level ``l``
   when ``r`` is a multiple of ``2^(l+1)``; the root is the sum, plus
-  0.0.  K5 builds the same tree streaming, as a binary counter
-  (``csrc/aggs.cu``), so its sums equal these byte for byte.  Against
-  the reference's sequential order a bucket sum over a double column
+  0.0.  K5 builds the same tree's complete nodes in chunks and merges
+  them in chunk order as a binary counter (``csrc/aggs.cu``), so its
+  sums equal these byte for byte.  Against the reference's sequential
+  order a bucket sum over a double column
   differs in its last bits (rtol 1e-12 holds); over long columns whose
   partial sums stay below 2^53 every order is exact.
 
-``bucket_collect`` is K5's plain version over many segments: on CPU
-tensors it runs here, on CUDA tensors it launches K5 (``cuda_aggs``) or
-raises.  ``masked_centroids`` stays torch ops on every device (a float64
-sort, then ``pairwise_sums`` over contiguous rank bins), equal on the
-card and the CPU.
+``bucket_collect`` is the collector over many segments (and, in the
+single mode, several columns): on CPU tensors it runs K5's plain
+version here, on CUDA tensors it launches K5 (``cuda_aggs``) or raises.
+``masked_centroids`` stays torch ops on every device (a float64 sort,
+then ``pairwise_sums`` over contiguous rank bins), equal on the card and
+the CPU.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field as dc_field
+from functools import cached_property
 
 import torch
 
@@ -226,35 +229,44 @@ class CollectSegment:
     n_buckets: int
     subs: list = dc_field(default_factory=list)
 
-    @property
+    @cached_property
     def n_buckets_pad(self) -> int:
         from opensearch_tpu_torch.index.segment import pad_pow2
         return pad_pow2(self.n_buckets + 1)
 
 
-def output_words(segments, n_subs: int) -> list:
+def _subs_each(segments, n_subs) -> list:
+    return list(n_subs) if isinstance(n_subs, (list, tuple)) \
+        else [n_subs] * len(segments)
+
+
+def output_words(segments, n_subs) -> list:
     """Each segment's first word in the collector's flat int64 output:
     per segment ``[counts | sum_0, count_0, min_0, max_0 | ...]``, each
-    part ``n_buckets_pad`` words (sums, min and max as float64 bits)."""
+    part ``n_buckets_pad`` words (sums, min and max as float64 bits).
+    ``n_subs``: the sub parts of every segment, or a list, one per
+    segment."""
     offs, at = [], 0
-    for seg in segments:
+    for seg, s in zip(segments, _subs_each(segments, n_subs)):
         offs.append(at)
-        at += seg.n_buckets_pad * (1 + 4 * n_subs)
+        at += seg.n_buckets_pad * (1 + 4 * s)
     offs.append(at)
     return offs
 
 
-def unpack(flat, segments, n_subs: int) -> list:
+def unpack(flat, segments, n_subs) -> list:
     """The collector's flat output, read back as a numpy int64 array, as
-    per segment ``(counts, [(sum, count, min, max) per sub])``."""
+    per segment ``(counts, [(sum, count, min, max) per sub])``;
+    ``n_subs`` as ``output_words`` takes it."""
     offs = output_words(segments, n_subs)
     out = []
-    for si, seg in enumerate(segments):
+    for si, (seg, s) in enumerate(zip(segments,
+                                      _subs_each(segments, n_subs))):
         nbp = seg.n_buckets_pad
-        part = flat[offs[si]: offs[si + 1]].reshape(1 + 4 * n_subs, nbp)
+        part = flat[offs[si]: offs[si + 1]].reshape(1 + 4 * s, nbp)
         subs = [(part[1 + 4 * j].view("float64"), part[2 + 4 * j],
                  part[3 + 4 * j].view("float64"),
-                 part[4 + 4 * j].view("float64")) for j in range(n_subs)]
+                 part[4 + 4 * j].view("float64")) for j in range(s)]
         out.append((part[0], subs))
     return out
 
@@ -328,12 +340,22 @@ def bucket_collect_plain(segments, *, mode: str, edges=None,
 
 
 def bucket_collect(segments, *, mode: str, edges=None,
-                   self_metric: bool = False):
-    """The bucket collector: K5 (one launch over every segment) on CUDA
-    tensors, its plain version on CPU tensors."""
+                   self_metric=False):
+    """The bucket collector: K5 (one call over every segment) on CUDA
+    tensors, its plain version on CPU tensors.  In the single mode
+    ``self_metric`` may be a flag per segment: the segments are then
+    several key columns of one request (each flagged one with one sub
+    part, ``unpack``'s ``n_subs`` a list), collected in one call."""
     if segments and segments[0].matched.is_cuda:
         from opensearch_tpu_torch.ops import cuda_aggs
         return cuda_aggs.bucket_collect_cuda(
             segments, mode=mode, edges=edges, self_metric=self_metric)
+    if isinstance(self_metric, (list, tuple)):
+        if len(self_metric) != len(segments):
+            raise ValueError("self_metric needs one flag per segment")
+        parts = [bucket_collect_plain([seg], mode=mode, edges=edges,
+                                      self_metric=bool(flag))
+                 for seg, flag in zip(segments, self_metric)]
+        return torch.cat(parts) if parts else torch.zeros(0, dtype=_I64)
     return bucket_collect_plain(segments, mode=mode, edges=edges,
                                 self_metric=self_metric)

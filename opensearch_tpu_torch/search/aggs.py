@@ -5,10 +5,11 @@ device sites run on torch tensors).
 
 Device sites: metric partials, the ordinal ``value_count``, ``terms`` on
 a keyword and ``histogram`` / ``date_histogram`` with their metric subs
-go through ``ops/aggs.py`` ``bucket_collect``: on the card one K5 launch
-(``csrc/aggs.cu``) over every segment of the request per call, and one
-copy back.  ``filter`` / ``filters`` / ``missing`` masks run the query
-phase's plan per segment (``compile_query``, ``build_arrays``,
+go through ``ops/aggs.py`` ``bucket_collect``: on the card one K5 call
+(``csrc/aggs.cu``) over every segment of the request, and one copy back;
+a request's top-level metric aggs share one call, each distinct column
+collected once.  ``filter`` / ``filters`` / ``missing`` masks run the
+query phase's plan per segment (``compile_query``, ``build_arrays``,
 ``run_full``), ``range`` masks are ``ops/filters.py`` torch ops, and
 ``percentiles`` past ``PCT_RAW_MAX`` values per segment uses
 ``masked_centroids``.  Everything else is numpy over the matched masks
@@ -430,15 +431,26 @@ class AggregationExecutor:
         # per-segment query-phase scores (seg.name -> [n_pad] array);
         # only top_hits needs them, and only when sorting by _score
         self.scores_of = scores_of or {}
+        # the top-level metric aggs' columns, collected up front: the
+        # seg_views they were collected over and {(kind, field): tuple}
+        self._columns = (None, {})
 
     def run(self, aggs_json: dict, seg_views: list) -> dict:
         """Single-shard convenience: collect + reduce of one partial."""
         return reduce_aggs(aggs_json, [self.collect(aggs_json, seg_views)])
 
     def collect(self, aggs_json: dict, seg_views: list) -> dict:
-        """Shard-side phase: one JSON-serializable partial per agg."""
+        """Shard-side phase: one JSON-serializable partial per agg.  The
+        top-level ``min`` / ``max`` / ``sum`` / ``avg`` / ``value_count``
+        / ``stats`` aggs read their columns from one collector call made
+        first (each distinct column once); the rest dispatch in order."""
         reqs = parse_aggs(aggs_json)
-        return {r.name: self._part_one(r, seg_views) for r in reqs}
+        self._columns = (seg_views, self._collect_columns(
+            self._metric_columns(reqs), seg_views))
+        try:
+            return {r.name: self._part_one(r, seg_views) for r in reqs}
+        finally:
+            self._columns = (None, {})
 
     # -- helpers ----------------------------------------------------------
 
@@ -468,15 +480,18 @@ class AggregationExecutor:
 
     @staticmethod
     def _collect(segs, mode, n_subs=0, edges=None, self_metric=False):
-        """The bucket collector (K5 on the card: one launch over every
+        """The bucket collector (K5 on the card: one call over every
         segment of ``segs``, one copy back) as per segment ``(counts,
-        [(sum, count, min, max) per sub])`` numpy arrays."""
+        [(sum, count, min, max) per sub])`` numpy arrays.  In the single
+        mode ``self_metric`` may be a flag per segment (several columns;
+        ``n_subs`` then a list too, as ``unpack`` takes it)."""
         if not segs:
             return []
         flat = agg_ops.bucket_collect(segs, mode=mode, edges=edges,
                                       self_metric=self_metric)
-        return agg_ops.unpack(flat.cpu().numpy(), segs,
-                              1 if self_metric else n_subs)
+        if isinstance(self_metric, bool):
+            n_subs = 1 if self_metric else n_subs
+        return agg_ops.unpack(flat.cpu().numpy(), segs, n_subs)
 
     # -- dispatch ---------------------------------------------------------
 
@@ -492,35 +507,72 @@ class AggregationExecutor:
 
     # -- metrics ----------------------------------------------------------
 
-    def _collect_metric_partials(self, field, seg_views):
-        s = 0.0
-        c = 0
-        mn, mx = np.inf, -np.inf
-        segs = []
-        for seg, dseg, matched in seg_views:
-            col = self._dev_numeric(dseg, field)
-            if col is None:
+    def _metric_columns(self, reqs) -> list:
+        """The distinct columns of the metric aggs among ``reqs``, in
+        order: ``("ordinal", field)`` for a ``value_count`` on a keyword
+        (its ordinals counted), else ``("numeric", field)`` (the values'
+        sum, count, min and max).  An agg whose field is refused is left
+        out: it raises when it is dispatched, in order."""
+        cols = []
+        for req in reqs:
+            if req.type not in _TUPLE_METRICS:
                 continue
-            segs.append(agg_ops.CollectSegment(
-                matched, col["values"], col["value_docs"], 1))
-        for _counts, ((ss, cc, mnn, mxx),) in self._collect(
-                segs, "single", self_metric=True):
-            s += float(ss[0])
-            c += int(cc[0])
-            mn = min(mn, float(mnn[0]))
-            mx = max(mx, float(mxx[0]))
-        return s, c, mn, mx
+            try:
+                field, ft = self._field_type(req, req.type)
+            except (ParsingError, IllegalArgumentError):
+                continue
+            kind = "ordinal" if (req.type == "value_count" and ft is not None
+                                 and ft.dv_kind == "ordinal") else "numeric"
+            if (kind, field) not in cols:
+                cols.append((kind, field))
+        return cols
+
+    def _collect_columns(self, cols, seg_views) -> dict:
+        """Every column of ``cols`` over every segment in ONE collector
+        call (K5's single mode, a job per (column, segment) on the card;
+        one copy back): {(kind, field): (sum, count, min, max)}, the
+        ordinal columns' sum, min and max unused."""
+        segs, flags, owner = [], [], []
+        for kind, field in cols:
+            for _seg, dseg, matched in seg_views:
+                col = (dseg.ordinal if kind == "ordinal"
+                       else dseg.numeric).get(field)
+                if col is None:
+                    continue
+                segs.append(agg_ops.CollectSegment(
+                    matched, col["ords" if kind == "ordinal" else "values"],
+                    col["value_docs"], 1))
+                flags.append(kind == "numeric")
+                owner.append((kind, field))
+        out = {c: [0.0, 0, np.inf, -np.inf] for c in cols}
+        for c, (counts, subs) in zip(owner, self._collect(
+                segs, "single", [int(f) for f in flags], self_metric=flags)):
+            acc = out[c]
+            if not subs:                      # an ordinal count
+                acc[1] += int(counts[0])
+                continue
+            (ss, cc, mnn, mxx), = subs
+            acc[0] += float(ss[0])
+            acc[1] += int(cc[0])
+            acc[2] = min(acc[2], float(mnn[0]))
+            acc[3] = max(acc[3], float(mxx[0]))
+        return {c: tuple(v) for c, v in out.items()}
+
+    def _collect_metric_partials(self, field, seg_views):
+        views, cached = self._columns
+        if views is seg_views and ("numeric", field) in cached:
+            return cached[("numeric", field)]
+        return self._collect_columns([("numeric", field)],
+                                     seg_views)[("numeric", field)]
 
     def _part_metric(self, req, seg_views) -> dict:
         field, ft = self._field_type(req, req.type)
         if (req.type == "value_count" and ft is not None
                 and ft.dv_kind == "ordinal"):
-            segs = [agg_ops.CollectSegment(matched, col["ords"],
-                                           col["value_docs"], 1)
-                    for _seg, dseg, matched in seg_views
-                    for col in (dseg.ordinal.get(field),) if col is not None]
-            total = sum(int(counts[0]) for counts, _subs in
-                        self._collect(segs, "single"))
+            views, cached = self._columns
+            key = ("ordinal", field)
+            total = (cached if views is seg_views and key in cached else
+                     self._collect_columns([key], seg_views))[key][1]
             return {"t": "metric", "v": [0.0, total, None, None]}
         return {"t": "metric",
                 "v": _ser_tuple(self._collect_metric_partials(field,

@@ -4,7 +4,7 @@ vectors), a window of ``match`` and ``knn`` queries through
 ``ShardSearcher.search``, and of ``match`` queries through
 ``ShardSearcher.msearch`` in batches of 64, under ``torch.profiler``.
 
-    python3 -m opensearch_tpu_torch.testing.profile_scale [n_queries]
+    python3 -m opensearch_tpu_torch.testing.profile_scale [n_queries] [--aggs]
 
 ``n_queries`` sizes the ``match`` and ``knn`` windows; the ``msearch``
 window is 4 batches of 64 (their group inputs assembled in the window,
@@ -15,8 +15,14 @@ pair, a ``knn``] through a min_max / arithmetic_mean pipeline) windows.
 A last ``match_quantized`` window runs the ``match`` queries over the
 same 1M docs in 8 segments of 125,000, which the port quantizes (K4,
 ``chip_smoke.py`` phase 7's layout), and a ``bool_filter_quantized``
-one the ``bool_filter`` queries there.  Prints one JSON line per query
-kind: wall ms
+one the ``bool_filter`` queries there.  The ``aggs_*`` windows (after
+the f32 kinds; alone with ``--aggs``) are ``chip_smoke.py`` phase 11's
+kinds on the f32 layout: ``aggs_date_histogram`` (a day
+``date_histogram`` on ``ts`` with a ``stats`` sub on ``fare``, half
+under a 21-day ``range``), ``aggs_terms_hits`` (the ``match`` pair,
+``size`` 10, ``terms`` on ``tag`` with ``avg`` / ``max`` subs) and
+``aggs_metrics`` (``match_all`` with 6 metric aggs on each of ``price``
+and ``fare``).  Prints one JSON line per query kind: wall ms
 per query (profiler on), device busy ms per query (the sum of the CUDA
 kernels' and copies' own time; one stream, so they do not overlap), the
 idle share ``1 - busy / wall``, the device calls (kernels and copies)
@@ -102,6 +108,43 @@ def query_bodies(n: int, seed: int = 9) -> dict:
     }
 
 
+DAY_MS = 86_400_000
+
+
+def agg_bodies(n: int, seed: int = 81) -> dict:
+    """``chip_smoke.py`` phase 11's aggregation kinds, ``n`` of each."""
+    from opensearch_tpu_torch.testing import corpus
+
+    rng = np.random.default_rng(seed)
+    per_day = {"per_day": {"date_histogram": {
+        "field": "ts", "calendar_interval": "day"},
+        "aggs": {"fare": {"stats": {"field": "fare"}}}}}
+    dh = []
+    for i in range(n):
+        body = {"size": 0, "aggs": per_day}
+        if i % 2 == 0:
+            lo = corpus.TS_START_MS + int(rng.integers(0, 344)) * DAY_MS
+            body["query"] = {"range": {"ts": {"gte": lo,
+                                              "lt": lo + 21 * DAY_MS}}}
+        dh.append(body)
+    metrics = {f"{m}_{f}": {m: {"field": f}} for f in ("price", "fare")
+               for m in ("min", "max", "avg", "sum", "value_count",
+                         "stats")}
+    return {
+        "aggs_date_histogram": dh,
+        "aggs_terms_hits": [
+            {"query": {"match": {"body": f"t{a} t{b}"}}, "size": 10,
+             "_source": False,
+             "aggs": {"tags": {"terms": {"field": "tag", "size": 10},
+                               "aggs": {"avg_fare": {"avg": {
+                                   "field": "fare"}},
+                                   "max_price": {"max": {
+                                       "field": "price"}}}}}}
+            for a, b in corpus.zipf_query_log(n, seed=7)],
+        "aggs_metrics": [{"size": 0, "query": {"match_all": {}},
+                          "aggs": metrics} for _ in range(n)]}
+
+
 def profile_window(searcher, bodies: list, batch: int = 0) -> dict:
     """One profiled window over ``bodies``, searched one by one, or with
     ``batch`` > 0 through ``msearch`` in batches of that many: per-query
@@ -139,6 +182,10 @@ def profile_window(searcher, bodies: list, batch: int = 0) -> dict:
             e.count for e in host if e.key == "cudaLaunchKernel") / n,
         "radix_sort_calls_per_query": sum(
             e.count for e in dev if "RadixSort" in e.key) / n,
+        "k5_kernels_per_query": sum(
+            e.count for e in dev if "agg_" in e.key) / n,
+        "k5_device_ms_per_query": sum(
+            _device_self_us(e) for e in dev if "agg_" in e.key) / 1e3 / n,
         "top_device": [{"name": e.key[:80], "ms_per_query":
                         _device_self_us(e) / 1e3 / n,
                         "calls_per_query": e.count / n} for e in dev[:8]],
@@ -153,18 +200,23 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_scale: CUDA is not available", file=sys.stderr)
         return 1
+    only_aggs = "--aggs" in argv
+    argv = [a for a in argv if a != "--aggs"]
     n = int(argv[0]) if argv else 30
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     searcher = build_searcher(1_000_000, 16, "cuda")
-    bodies = query_bodies(n + 5)
+    bodies = {} if only_aggs else query_bodies(n + 5)
+    bodies.update(agg_bodies(n + 5))
     for kind, qs in bodies.items():
         for body in qs[:5]:                  # warm-up: staging, builds
             searcher.search(body)
         out = profile_window(searcher, qs[5:])
         print(json.dumps({"kind": kind, "gpu": gpu, **out}), flush=True)
+    if only_aggs:
+        return 0
     batch = 64
     qs = query_bodies(5 * batch, seed=10)["match"]
     searcher.msearch(qs[:batch])             # warm-up

@@ -190,6 +190,47 @@ def test_aggs_cases_equal_the_reference(agg_pair, case):
     both_search(agg_pair, body, exact={"mx", "mn"})
 
 
+METRIC_AGGS = {f"{m}_{f}": {m: {"field": f}} for f in ("n", "price")
+               for m in ("min", "max", "avg", "sum", "value_count",
+                         "stats")}
+
+
+@pytest.mark.parametrize("extra", [
+    {},
+    {"colors": {"value_count": {"field": "color"}},
+     "min_n_again": {"min": {"field": "n"}},
+     "per_n": {"terms": {"field": "color"},
+               "aggs": {"s": {"sum": {"field": "n"}}}},
+     "gone": {"max": {"field": "no_such_field"}}}],
+    ids=["12_metrics", "with_keyword_count_repeat_and_terms"])
+def test_metric_aggs_share_one_collector_call(agg_pair, monkeypatch, extra):
+    """A request's top-level metric aggs (6 metrics x 2 fields, phase 11's
+    shape) make ONE collector call over every segment, each distinct
+    column once, a keyword's ``value_count`` in it; the response equals
+    the reference's.  A bucket agg beside them makes its own call."""
+    from opensearch_tpu_torch.ops import aggs as agg_ops
+
+    calls = []
+    real = agg_ops.bucket_collect
+
+    def counting(segments, **kw):
+        calls.append((len(segments), kw))
+        return real(segments, **kw)
+
+    monkeypatch.setattr(agg_ops, "bucket_collect", counting)
+    body = {"size": 0, "query": {"match_all": {}},
+            "aggs": {**METRIC_AGGS, **extra}}
+    both_search(agg_pair, body, exact={k for k in body["aggs"]
+                                       if k.startswith(("min", "max"))})
+    n_seg = len(agg_pair[1].segments)
+    n_cols = 3 if extra else 2
+    n_jobs, kw = calls[0]
+    assert (n_jobs, kw["mode"], kw["self_metric"]) == (
+        n_cols * n_seg, "single",
+        [True] * (2 * n_seg) + [False] * n_seg * (n_cols - 2))
+    assert len(calls) == (2 if extra else 1)
+
+
 @pytest.mark.parametrize("case", ["terms_with_sub_metrics",
                                   "date_histogram_month", "metrics",
                                   "global_and_missing",
