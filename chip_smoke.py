@@ -16,9 +16,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
    filter mask; and widths d = 3, 30, 960 beside the main path's 128;
    the fused launch and the sorted route each taken where
    ``uses_sorted_route`` says, in one call where they mix)
-   against ``knn_topk_segments``, K1's scores-only entry
-   ``knn_scores`` (three spaces; 1M x 128, the per-segment shape, a
-   ragged n), both within the stated tolerance; K2's and K4's per-slot
+   against ``knn_topk_segments`` within the stated tolerance; K1's
+   scores entry ``knn_scores_segments_cuda`` (one launch over a table
+   of segments) byte-equal to its plain version
+   ``vector_scores_segments`` and launch to launch in all six functions
+   (the three spaces, ``dotProduct``, ``l2Squared``,
+   ``cosineSimilarity``) at 1M x 128 in one segment, over the 16 scale
+   segments in one launch (with their masks, and every row as
+   ``script_score`` reads them), at d = 1, 3, 100, 128 and
+   ``knn_d_max()`` with n = 1, 31, 513, and on a segment whose base is
+   not 16-byte aligned beside one of no rows and one with every row
+   invalid, then timed in turns with its plain version per segment
+   (beside ``vectors @ q``), over 16 segments in one launch (beside
+   ``[v @ q for v in segs]``) and at 1M x 128; K2's and K4's per-slot
    (dense) entry, folded into one launch per segment and call
    (``term_bag_fold_kernel``), byte for byte against its plain twins in
    every mode the paths call (scores; scores + counts; counts only, as
@@ -199,13 +209,35 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``terms`` + ``value_count`` ``_search`` requests over HTTP to phase
    9's node before it stops (``?request_cache=false``; two K5 calls
    each), equal to the CPU searcher.  One ``aggregations:`` line prints
-   qps and p50 per kind and the layer times.
+   qps and p50 per kind and the layer times;
+12. script_score, on phase 4's 16 f32 segments (SIFT-1M's shape: 1M
+   128-d float32 vectors, random from the seed; ``price`` and ``tag``):
+   BASELINE config 2's traffic, the k-NN plugin's ``knn_score`` script:
+   100 l2 over ``match_all``, 20 cosinesimil, 20 innerproduct, 20 l2
+   under a ``bool`` filter child (a ``price`` range over ~40% and a
+   common ``tag``), 20 general sources (``cosineSimilarity(...) +
+   1.0``, ``_score * dotProduct(...)`` over a ``match`` child,
+   ``Math.log(doc['price'].value + ...)``), 10 l2 with ``min_score``;
+   exactly one K1 scores launch per request and distinct vector function
+   (never one per segment) and no K1 top-k launch; answers equal to the
+   CPU searcher's (byte for byte, but ids equal and scores within rtol
+   1e-5 / atol 1e-6 where the script calls ``Math.log``) for every
+   kind's first 10 requests and every filtered and ``min_score`` one,
+   70 of 190 (cut for time: a CPU answer scores all 1M rows, and the
+   line says so); every l2 top-10's ids equal to a ``knn`` query's; where a ``knn_score`` request's
+   time goes (compile with the K1 pre-pass, the per-segment plan path,
+   the host merge and response); plus 10 ``script_score`` ``_search``
+   requests over HTTP to phase 9's ``corpus`` index before it stops
+   (20,000 docs in 2 shards, 5,000 with a ``vec`` since phase 10's
+   hybrids; one K1 scores launch per request and vector function, each
+   held to the CPU searcher).  One ``script_score:`` line
+   prints qps and p50 per kind and the layer times.
 
 Every kernel wrapper counts its launches; the counts are zeroed just
 before phase 3 and read after phase 4, and zeroed again just before
 phases 5, 6, 7, 8, 9, phase 10's hybrids and phase 11's requests over
-HTTP, phase 10 and phase 11 and read after each: each kernel of each
-path must have run.
+HTTP, phase 10, phase 11, phase 12's requests over HTTP and phase 12
+and read after each: each kernel of each path must have run.
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the
 script exits non-zero and prints no result.
@@ -374,19 +406,22 @@ def phase_knn_topk(scale_segs, dev, gen):
             for space in knn.SPACES:
                 for k in ks:
                     fn = cuda_knn.knn_topk_segments_cuda
-                    before = fn.launches, fn.sorted_route_segments
+                    sc = cuda_knn.knn_scores_segments_cuda
+                    before = (fn.launches, fn.sorted_route_segments,
+                              sc.launches)
                     got = fn(segs, q, space=space, k=k)
                     ref = knn.knn_topk_segments(segs, q, space=space, k=k)
                     routes = [cuda_knn.uses_sorted_route(k, s.vectors.shape[0])
                               for s in segs]
-                    if (fn.launches - before[0], fn.sorted_route_segments
-                            - before[1]) != (int(not all(routes)),
-                                             sum(routes)):
+                    moved = (fn.launches - before[0],
+                             fn.sorted_route_segments - before[1],
+                             sc.launches - before[2])
+                    if moved != (int(not all(routes)), sum(routes),
+                                 int(any(routes))):
                         raise AssertionError(
                             f"K1 top-k {name} k={k}: routes {routes} gave "
-                            f"{fn.launches - before[0]} fused launches and "
-                            f"{fn.sorted_route_segments - before[1]} "
-                            f"sorted segments")
+                            f"{moved[0]} fused launches, {moved[1]} sorted "
+                            f"segments and {moved[2]} scores launches")
                     bad, err = topk_mismatch(
                         *(t.cpu().numpy() for t in got + ref))
                     if bad is None and name == "duplicated rows" and \
@@ -451,6 +486,176 @@ def phase_knn_topk(scale_segs, dev, gen):
             "shape": f"{len(segs)}x{segs[0].vectors.shape[0]}x{DIM}, k={k}"}
 
 
+def phase_knn_scores(scale_segs, dev, gen) -> dict:
+    """K1's scores entry (one launch over a table of segments) byte-equal
+    to its plain version and launch to launch: all six functions at 1M x
+    128 in one segment and over the 16 scale segments in one launch;
+    d = 1, 3, 100, 128 and ``knn_d_max()`` at n = 1, 31 and 513 in one
+    table; a segment whose base is not 16-byte aligned (the 4-byte
+    loads), a segment of no rows and one with every row invalid; 40
+    segments in one table; ``knn_scores_cuda`` (a
+    table of one) in the three spaces at 1M x 128.  Then
+    timed in turns with its plain version: per segment (65,536 x 128)
+    beside ``vectors @ q``, over the 16 segments in one launch beside
+    ``[v @ q for v in segs]``, and at 1M x 128; device ms from the
+    profiler, the bound from ``bound_ms``.  The timed function is
+    ``l2Squared`` over every row, as ``script_score``'s ``knn_score``
+    (l2) asks for it."""
+    import torch
+
+    from opensearch_tpu_torch.ops import cuda_knn, knn
+
+    lib = cuda_knn._library()
+    for d in (1, 2, 3, 4, 8, 100, 128, 129, 960, lib.d_max):
+        if lib.knn_row_lanes(d) != knn.row_lanes(d):
+            raise AssertionError(f"K1 lanes at d={d}: kernel "
+                                 f"{lib.knn_row_lanes(d)}, plain "
+                                 f"{knn.row_lanes(d)}")
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    counter = cuda_knn.knn_scores_segments_cuda
+    cases = 0
+
+    def check(name, segs, q, fns=knn.FUNCTIONS):
+        nonlocal cases
+        for fn in fns:
+            before = counter.launches
+            a = cuda_knn.knn_scores_segments_cuda(segs, q, fn=fn)
+            b = cuda_knn.knn_scores_segments_cuda(segs, q, fn=fn)
+            if counter.launches - before != 2:
+                raise AssertionError(f"K1 scores {name} {fn}: "
+                                     f"{counter.launches - before} launches "
+                                     "for 2 calls")
+            ref = knn.vector_scores_segments(segs, q, fn=fn)
+            torch.cuda.synchronize()
+            for i, (x, y, r) in enumerate(zip(a, b, ref)):
+                if not torch.equal(bits(x), bits(y)):
+                    raise AssertionError(f"K1 scores {name} {fn} segment "
+                                         f"{i}: launches differ")
+                if not torch.equal(bits(x), bits(r)):
+                    bad = (bits(x) != bits(r)).nonzero()[:3].flatten()
+                    raise AssertionError(
+                        f"K1 scores {name} {fn} segment {i}: not byte-equal "
+                        f"to the plain version at rows {bad.tolist()}: "
+                        f"{x[bad].tolist()} vs {r[bad].tolist()}")
+            cases += 1
+
+    def rand(n, d=DIM):
+        return torch.randn(n, d, device=dev, generator=gen)
+
+    def flags(n, p=0.05):
+        return torch.rand(n, device=dev, generator=gen) > p
+
+    big = rand(BIG_N)
+    big_valid = flags(BIG_N)
+    q_big = torch.randn(DIM, device=dev, generator=gen)
+    check(f"1 x {BIG_N}x{DIM}", [knn.KnnSegment(big, big_valid)], q_big)
+    for space in knn.SPACES:           # the one-segment wrapper's contract
+        if not torch.equal(bits(cuda_knn.knn_scores_cuda(
+                big, big_valid, q_big, space=space)),
+                bits(cuda_knn.knn_scores_plain(big, big_valid, q_big,
+                                               space=space))):
+            raise AssertionError(f"knn_scores_cuda {space}: not byte-equal")
+    scale = []
+    for seg in scale_segs:
+        dseg = seg.device(dev)
+        vcol = dseg.vector["vec"]
+        scale.append((vcol["values"], vcol["exists"], dseg.live))
+    q = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        DIM, dtype=np.float32)).to(dev)
+    check(f"{len(scale)} scale segments, exists & live",
+          [knn.KnnSegment(v, e, lv) for v, e, lv in scale], q)
+    check(f"{len(scale)} scale segments, every row (script_score)",
+          [knn.KnnSegment(v, None) for v, _e, _lv in scale], q)
+    for d in (1, 3, 100, DIM, lib.d_max):
+        segs = [knn.KnnSegment(rand(n, d), flags(n), flags(n),
+                               flags(n, 0.5)) for n in (1, 31, 513)]
+        check(f"d={d} n=1/31/513", segs,
+              torch.randn(d, device=dev, generator=gen))
+    flat = rand(4097).flatten()
+    odd = flat[1: 1 + 4096 * DIM].view(4096, DIM)      # base 4 bytes off
+    if odd.data_ptr() % 16 == 0:
+        raise AssertionError("the unaligned case is aligned")
+    check("unaligned base + empty + all-invalid + aligned",
+          [knn.KnnSegment(odd, flags(4096)),
+           knn.KnnSegment(rand(0), torch.zeros(0, dtype=torch.bool,
+                                               device=dev)),
+           knn.KnnSegment(rand(777), torch.zeros(777, dtype=torch.bool,
+                                                 device=dev)),
+           knn.KnnSegment(rand(5000), None)], q)
+    many = 40
+    check(f"{many} segments in one table",
+          [knn.KnnSegment(rand(int(n)), flags(int(n)))
+           for n in torch.randint(0, 700, (many,), generator=torch.Generator(
+               ).manual_seed(9))], q)
+    log(f"K1 scores entry: {cases} cases (6 functions each) byte-equal to "
+        f"the plain version and launch to launch (lanes per row equal to "
+        f"the plain version's at 10 widths; d_max {lib.d_max})")
+
+    out = {}
+    fn = "l2Squared"
+
+    def one(segs):
+        return lambda: cuda_knn.knn_scores_segments_cuda(segs, q, fn=fn)
+
+    def plain(segs):
+        return lambda: knn.vector_scores_segments(segs, q, fn=fn)
+
+    def scores_bound(rows):
+        return bound_ms(rows * DIM * 4 + DIM * 4 + rows * 4,
+                        4.0 * rows * DIM, FP64_FLOPS_PER_S)
+
+    # per segment: each scale segment's [n_pad, 128] in turn (32 MiB
+    # each, so L2 does not hold them across the sixteen)
+    every = [knn.KnnSegment(v, None) for v, _e, _lv in scale]
+    nseg = len(every)
+    per = [[s] for s in every]
+    ms, plain_ms = in_turns(lambda: [one(s)() for s in per],
+                            lambda: [plain(s)() for s in per], 10)
+    lib_ms = cuda_ms(lambda: [s.vectors @ q for s in every], 10)
+    dev_ms = kernel_device_ms(lambda: [one(s)() for s in per], 5,
+                              "knn_scores_kernel")
+    from opensearch_tpu_torch.testing.k1_sweep import device_ms
+    lib_dev_ms = device_ms(lambda: [s.vectors @ q for s in every], 5)
+    lib_dev_ms = None if lib_dev_ms is None else lib_dev_ms / nseg
+    n_pad = every[0].vectors.shape[0]
+    bms, by = scores_bound(n_pad)
+    out["knn_scores"] = {
+        "ms": ms / nseg, "plain_ms": plain_ms / nseg,
+        "library_ms": lib_ms / nseg, "bound_ms": bms, "bound_by": by,
+        "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+        "max_abs_err": 0.0, "shape": f"{n_pad}x{DIM}, {fn}"}
+    log(f"K1 scores {fn} {n_pad}x{DIM} per segment: ms {ms / nseg:.4f} "
+        f"device_ms {dev_ms} plain_ms {plain_ms / nseg:.4f} library_ms"
+        f"(vectors @ q) {lib_ms / nseg:.4f} (device {lib_dev_ms}) bound_ms "
+        f"{bms:.4f} ({by}) on {gpu_name_power()}")
+    # the 16 segments in one launch
+    ms, plain_ms = in_turns(one(every), plain(every), 10)
+    lib_ms = cuda_ms(lambda: [s.vectors @ q for s in every], 10)
+    dev_ms = kernel_device_ms(one(every), 5, "knn_scores_kernel")
+    bms, by = scores_bound(n_pad * nseg)
+    out["knn_scores_16"] = {"ms": ms, "plain_ms": plain_ms,
+                            "library_ms": lib_ms, "device_ms": dev_ms,
+                            "bound_ms": bms, "bound_by": by}
+    log(f"K1 scores {fn} {nseg}x{n_pad}x{DIM} in one launch: ms {ms:.4f} "
+        f"device_ms {dev_ms} plain_ms {plain_ms:.4f} library_ms"
+        f"([v @ q for v in segs]) {lib_ms:.4f} bound_ms {bms:.4f} ({by})")
+    # one segment of 1M rows
+    segs = [knn.KnnSegment(big, None)]
+    ms, plain_ms = in_turns(one(segs), plain(segs), 10)
+    lib_ms = cuda_ms(lambda: big @ q, 10)
+    dev_ms = kernel_device_ms(one(segs), 5, "knn_scores_kernel")
+    bms, by = scores_bound(BIG_N)
+    out["k1_1m"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "device_ms": dev_ms, "bound_ms": bms}
+    log(f"K1 scores {fn} 1Mx{DIM}: ms {ms:.4f} device_ms {dev_ms} plain_ms "
+        f"{plain_ms:.4f} library_ms(vectors @ q) {lib_ms:.4f} bound_ms "
+        f"{bms:.4f} ({by}) on {gpu_name_power()}")
+    return out
+
+
 def match_query(terms, **extra) -> dict:
     """A ``match`` query over ``body`` for the bag ``terms``."""
     return {"match": {"body": {"query": " ".join(terms), **extra}}}
@@ -488,76 +693,7 @@ def phase_kernels(scale_segs, searcher, query_pairs):
     dev = torch.device(DEVICE)
     out = {}
     gen = torch.Generator(device=dev).manual_seed(1234)
-    k1_err = 0.0
-    for n in (BIG_N, 65_536, 1000):
-        v = torch.randn(n, DIM, device=dev, generator=gen)
-        valid = torch.rand(n, device=dev, generator=gen) > 0.05
-        q = torch.randn(DIM, device=dev, generator=gen)
-        for space in knn.SPACES:
-            a = cuda_knn.knn_scores_cuda(v, valid, q, space=space)
-            b = cuda_knn.knn_scores_plain(v, valid, q, space=space)
-            torch.cuda.synchronize()
-            if not torch.equal(torch.isneginf(a), ~valid) or \
-                    not torch.equal(torch.isneginf(b), ~valid):
-                raise AssertionError(f"K1 {space} n={n}: -inf rows differ")
-            ok = valid
-            err = (a[ok] - b[ok]).abs()
-            tol = knn.ATOL + knn.RTOL * b[ok].abs()
-            if not bool((err <= tol).all()):
-                raise AssertionError(
-                    f"K1 {space} n={n}: max err {err.max().item()} "
-                    "beyond rtol=1e-5, atol=1e-6")
-            k1_err = max(k1_err, err.max().item())
-            log(f"K1 {space:12s} n={n:8d} d={DIM}: max_abs_err "
-                f"{err.max().item():.3e} (rtol=1e-5, atol=1e-6) ok")
-        if n == BIG_N:
-            ms, plain_ms = in_turns(
-                lambda: cuda_knn.knn_scores_cuda(v, valid, q, space="l2"),
-                lambda: cuda_knn.knn_scores_plain(v, valid, q, space="l2"),
-                20)
-            lib_ms = cuda_ms(lambda: v @ q, 20)
-            bms, by = bound_ms(n * DIM * 4 + n + DIM * 4 + n * 4,
-                               4.0 * n * DIM, FP64_FLOPS_PER_S)
-            log(f"K1 l2 1Mx128: ms {ms:.4f} plain_ms {plain_ms:.4f} "
-                f"library_ms(vectors @ q) {lib_ms:.4f} bound_ms {bms:.4f} "
-                f"({by}) on {gpu_name_power()}")
-            out["k1_1m"] = {"ms": ms, "plain_ms": plain_ms,
-                            "library_ms": lib_ms, "bound_ms": bms}
-        del v, valid, q
-
-    # K1's scores-only entry at the per-segment shape: every scale
-    # segment's [n_pad, 128] vectors in turn (32 MiB each, so L2 does
-    # not hold them across the sixteen), against one query
-    cols = []
-    for seg in scale_segs:
-        dseg = seg.device(dev)
-        vcol = dseg.vector["vec"]
-        cols.append((vcol["values"], vcol["exists"] & dseg.live))
-    q = torch.from_numpy(np.random.default_rng(5).standard_normal(
-        DIM, dtype=np.float32)).to(dev)
-    nseg = len(cols)
-    ms, plain_ms = in_turns(
-        lambda: [cuda_knn.knn_scores_cuda(v, m, q, space="l2")
-                 for v, m in cols],
-        lambda: [cuda_knn.knn_scores_plain(v, m, q, space="l2")
-                 for v, m in cols], 10)
-    lib_ms = cuda_ms(lambda: [v @ q for v, _m in cols], 10)
-    dev_ms = kernel_device_ms(
-        lambda: [cuda_knn.knn_scores_cuda(v, m, q, space="l2")
-                 for v, m in cols], 5, "knn_scores_kernel")
-    n_pad = cols[0][0].shape[0]
-    bms, by = bound_ms(n_pad * DIM * 4 + n_pad + DIM * 4 + n_pad * 4,
-                       4.0 * n_pad * DIM, FP64_FLOPS_PER_S)
-    out["knn_scores"] = {
-        "ms": ms / nseg, "plain_ms": plain_ms / nseg,
-        "library_ms": lib_ms / nseg, "bound_ms": bms, "bound_by": by,
-        "device_ms": dev_ms, "max_abs_err": k1_err,
-        "shape": f"{n_pad}x{DIM}"}
-    log(f"K1 scores l2 {n_pad}x{DIM} per segment: ms {ms / nseg:.4f} "
-        f"device_ms {dev_ms} plain_ms {plain_ms / nseg:.4f} library_ms "
-        f"{lib_ms / nseg:.4f} bound_ms {bms:.4f} ({by})")
-    del cols
-
+    out.update(phase_knn_scores(scale_segs, dev, gen))
     out["knn_topk"] = phase_knn_topk(scale_segs, dev, gen)
 
     # the scale corpus's bags: the median and the heaviest by postings in
@@ -1489,7 +1625,7 @@ def phase_masks(seg, dseg) -> dict:
                      "bound_by": by, "bound_bytes": nbytes}
     log("filter masks and centroids on one segment of " + str(seg.n_docs)
         + " docs: "
-        + "; ".join(f"{n} ms {r['ms']:.4f} device_ms {r['device_ms']:.5f} "
+        + "; ".join(f"{n} ms {r['ms']:.4f} device_ms {r['device_ms']} "
                     f"bound_ms {r['bound_ms']:.6f} ({r['bound_bytes']} "
                     f"bytes)" for n, r in out.items())
         + f"; the torch ops are their own plain version; on "
@@ -1576,7 +1712,7 @@ def phase_scale(segs, mapper, searcher):
     match_qs, knn_qs = match_bodies(200, seed=7), knn_bodies(100)
     from opensearch_tpu_torch.ops import cuda_bm25, cuda_knn
     counters = {"knn_topk": cuda_knn.knn_topk_segments_cuda,
-                "knn_scores": cuda_knn.knn_scores_cuda,
+                "knn_scores": cuda_knn.knn_scores_segments_cuda,
                 "term_bag": cuda_bm25.term_bag_cuda,
                 "term_bag_topk": cuda_bm25.term_bag_topk_segments_cuda}
 
@@ -3966,6 +4102,336 @@ def phase_aggs(segs, mapper, searcher, qsegs, qsearcher, counters,
             "wall_s": wall}
 
 
+SCRIPT_L2 = 100                  # phase 12: knn_score l2 over match_all
+SCRIPT_SPACE = 20                # ... cosinesimil, and innerproduct
+SCRIPT_FILTERED = 20             # knn_score l2 under a bool filter child
+SCRIPT_GENERAL = 20              # general sources (three forms in turn)
+SCRIPT_MIN_SCORE = 10            # knn_score l2 with min_score
+SCRIPT_PROFILE = 10              # knn_score l2 timed by layer
+# The CPU searcher's answers are checked for every kind's first
+# SCRIPT_CHECK_FIRST requests and for every filtered and min_score one:
+# each CPU answer scores all 1M rows in the kernel's float64 order, and
+# checking all 190 took most of a phase meant to take about a minute.
+SCRIPT_CHECK_FIRST = 10
+SCRIPT_CHECK_ALL = ("filtered", "min_score")
+# knn_score l2 of two N(0, 1) 128-d vectors is 1 / (1 + ~256): this keeps
+# the rows closer than 221 (about one in eight)
+SCRIPT_MIN = 0.0045
+
+
+def knn_score_body(vec, space, query=None, **extra) -> dict:
+    """A ``script_score`` with the k-NN plugin's ``knn_score`` script on
+    ``vec`` (BASELINE config 2), size 10."""
+    return {"query": {"script_score": {
+        "query": query or {"match_all": {}},
+        "script": {"lang": "knn", "source": "knn_score",
+                   "params": {"field": "vec", "query_value": vec,
+                              "space_type": space}}, **extra}},
+        "size": 10, "_source": False}
+
+
+def source_body(source, params, query=None) -> dict:
+    return {"query": {"script_score": {
+        "query": query or {"match_all": {}},
+        "script": {"source": source, "params": params}}},
+        "size": 10, "_source": False}
+
+
+def phase12_bodies() -> dict:
+    """Phase 12's traffic, seeded: {kind: [(body, distinct vector
+    functions, exact)]}, every vector new (so every request compiles and
+    makes its own K1 launches).  ``exact``: the answer equals the CPU
+    searcher's byte for byte (a script with ``Math.log`` runs CUDA's
+    ``logf``, which may differ from the CPU's by an ulp: ids equal and
+    scores within rtol 1e-5 / atol 1e-6)."""
+    from opensearch_tpu_torch.testing import corpus
+
+    rng = np.random.default_rng(71)
+    width = int(corpus.PRICE_MAX * 0.4)
+
+    def vec():
+        return rng.standard_normal(DIM).astype(np.float32).tolist()
+
+    def l2(n, **extra):
+        return [(knn_score_body(vec(), "l2", **extra), 1, True)
+                for _ in range(n)]
+
+    filtered = []
+    for _ in range(SCRIPT_FILTERED + 1):
+        lo = int(rng.integers(0, corpus.PRICE_MAX - width))
+        filtered.append((knn_score_body(vec(), "l2", query={"bool": {
+            "filter": [{"range": {"price": {"gte": lo, "lt": lo + width}}},
+                       {"term": {"tag": corpus.tag_name(
+                           min(int(rng.zipf(1.3)) - 1, 4))}}]}}), 1, True))
+    general = []
+    pairs = corpus.zipf_query_log(SCRIPT_GENERAL + 2, seed=23)
+    for i, (a, b) in enumerate(pairs):
+        if i % 3 == 0:
+            general.append((source_body(
+                "cosineSimilarity(params.query_value, doc['vec']) + 1.0",
+                {"query_value": vec()}), 1, True))
+        elif i % 3 == 1:
+            general.append((source_body(
+                "_score * dotProduct(params.query_value, doc['vec'])",
+                {"query_value": vec()},
+                {"match": {"body": f"t{a} t{b}"}}), 1, True))
+        else:
+            general.append((source_body(
+                "Math.log(doc['price'].value + params.offset)",
+                {"offset": i + 1}), 0, False))
+    return {"l2": l2(SCRIPT_L2),
+            "cosinesimil": [(knn_score_body(vec(), "cosinesimil"), 1, True)
+                            for _ in range(SCRIPT_SPACE)],
+            "innerproduct": [(knn_score_body(vec(), "innerproduct"), 1,
+                              True) for _ in range(SCRIPT_SPACE)],
+            "filtered": filtered[1:], "general": general[2:],
+            "min_score": l2(SCRIPT_MIN_SCORE, min_score=SCRIPT_MIN),
+            "profile": l2(SCRIPT_PROFILE),
+            "warm_up": l2(1) + filtered[:1] + general[1:2]}
+
+
+def script_mismatch(got: dict, want: dict, exact: bool):
+    """None when a script_score answer equals the CPU searcher's: byte
+    for byte (ids, scores, totals) when ``exact``, else ids equal and
+    scores within rtol 1e-5 / atol 1e-6."""
+    from opensearch_tpu_torch.testing.parity import (bm25_mismatch,
+                                                     knn_mismatch)
+    if exact:
+        return bm25_mismatch(got, want)
+    if [h["_id"] for h in got["hits"]["hits"]] != \
+            [h["_id"] for h in want["hits"]["hits"]]:
+        return "ids differ"
+    return knn_mismatch(got, want)
+
+
+class ScriptClock:
+    """Host seconds per request in ``ShardSearcher.compiled`` (parse,
+    script compile and the K1 pre-pass, synchronized at its end), in
+    ``ShardSearcher._topk`` less its merge (the per-segment plan path:
+    prepare, the eager program and top-k of each segment, one read-back)
+    and in ``_merge_topk`` + ``_response`` (the host merge and the
+    response); installed only around the requests it times."""
+
+    def __init__(self):
+        import torch
+
+        from opensearch_tpu_torch.search import executor
+
+        self.t = {"compile_k1": 0.0, "topk": 0.0, "merge": 0.0,
+                  "response": 0.0}
+        sync = torch.cuda.synchronize
+        clock = self
+        cls = executor.ShardSearcher
+        real = {n: cls.__dict__[n] for n in ("compiled", "_topk",
+                                              "_merge_topk", "_response")}
+
+        def timed(name, key, synced):
+            def wrapper(self, *a, **kw):
+                t0 = time.monotonic()
+                out = real[name](self, *a, **kw)
+                if synced:
+                    sync()
+                clock.t[key] += time.monotonic() - t0
+                return out
+            return wrapper
+
+        self.patches = [(cls, "compiled", timed("compiled", "compile_k1",
+                                                True)),
+                        (cls, "_topk", timed("_topk", "topk", False)),
+                        (cls, "_merge_topk", timed("_merge_topk", "merge",
+                                                   False)),
+                        (cls, "_response", timed("_response", "response",
+                                                 False))]
+        self.real = real
+
+    def __enter__(self):
+        for owner, name, new in self.patches:
+            setattr(owner, name, new)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, _new in self.patches:
+            setattr(owner, name, self.real[name])
+
+
+def phase_http_script(node, state, counters) -> dict:
+    """Phase 12's requests over HTTP, on phase 9's node before it stops
+    (``phase_serving``'s ``then``, after ``phase_http_hybrid`` gave its
+    ``corpus`` index -- SERVE_DOCS docs in 2 shards -- SERVE_VECTORS
+    128-d ``vec`` values), merged by ``_forcemerge`` to one segment a
+    shard: as in the reference, a vector function over a segment without
+    the field's column answers 400, and the segments written before
+    ``vec`` was mapped have none.  Then 10 ``script_score`` ``_search``
+    requests to ``/corpus/_search`` (``knn_score`` in the three spaces
+    over the docs with a ``vec``, one over ``match_all`` and one under a
+    ``bool`` filter on ``tag``, ``_score`` times ``l2Squared`` over a
+    ``match``, ``Math.sqrt`` of ``l2Squared``), their counts zeroed just
+    before them and read just after (one K1 scores launch per request
+    and vector function, no K1 top-k), each held to the CPU searcher."""
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(73)
+    client = HttpClient(node.port)
+
+    def vec():
+        return rng.standard_normal(DIM).astype(np.float32).tolist()
+
+    has_vec = {"exists": {"field": "vec"}}
+    bodies = [(knn_score_body(vec(), space, has_vec), 1, True)
+              for space in ("l2", "l2", "l2", "cosinesimil", "cosinesimil",
+                            "innerproduct")]
+    bodies += [(knn_score_body(vec(), "l2"), 1, True),
+               (knn_score_body(vec(), "innerproduct", {"bool": {
+                   "filter": [has_vec, {"term": {"tag": "red"}}]}}), 1,
+                True),
+               (source_body("_score * l2Squared(params.q, doc['vec'])",
+                            {"q": vec()}, {"match": {"body": "t1 t2"}}),
+                1, True),
+               (source_body("1 / (1 + Math.sqrt(l2Squared(params.q, "
+                            "doc['vec'])))", {"q": vec()}, has_vec), 1,
+                False)]
+    t0 = time.monotonic()
+    client.ok("POST", "/corpus/_forcemerge?max_num_segments=1")
+    merge_s = time.monotonic() - t0
+    path = "/corpus/_search"
+    client.ok("POST", path, knn_score_body(vec(), "l2", has_vec))  # warm-up
+    for fn in counters.values():                # this path starts here
+        fn.launches = 0
+    qps, p50, out = timed_calls(lambda b: client.ok("POST", path, b[0]),
+                                bodies)
+    launches = {n: c.launches for n, c in counters.items()}
+    want = sum(n for _b, n, _e in bodies)
+    # (the match child and the tag filter run K2's per-slot entry)
+    if launches["knn_scores"] != want or launches["knn_topk"]:
+        raise AssertionError(f"phase 12 over HTTP: launches {launches}, "
+                             f"want {want} K1 scores and no K1 top-k")
+    svc = node.indices.get("corpus")
+    segments = svc.searcher().segments
+    cpu = ShardSearcher(segments, svc.mapper, index_name="corpus",
+                        device="cpu")
+    for (body, _n, exact), resp in zip(bodies, out):
+        bad = script_mismatch(resp, json.loads(json.dumps(
+            cpu.search(dict(body)))), exact)
+        if bad or not resp["hits"]["hits"]:
+            raise AssertionError(f"phase 12 over HTTP vs cpu: {bad}")
+    client.close()
+    return {"qps": qps, "p50_ms": p50, "requests": len(bodies),
+            "launches": launches, "segments": len(segments),
+            "docs": len(state.docs), "live_docs": state.live(),
+            "shards": 2, "force_merge_s": merge_s,
+            "wall_s": time.monotonic() - t_phase}
+
+
+def phase_script_score(segs, mapper, searcher, counters, http=None) -> dict:
+    """Phase 12: ``script_score`` at full width on phase 4's 16 f32
+    segments (SIFT-1M's shape: 1,000,000 128-d float32 vectors, random
+    from the seed, with the ``price`` / ``tag`` columns), BASELINE
+    config 2's traffic (see the module doc); ``http`` is what
+    ``phase_http_script`` returned on phase 9's node."""
+    import torch
+
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+
+    t_phase = time.monotonic()
+    traffic = phase12_bodies()
+    profile = traffic.pop("profile")
+    # warm-up: each plan shape once (vectors of their own)
+    for body, _n, _e in traffic.pop("warm_up"):
+        searcher.search(dict(body))
+    torch.cuda.synchronize()
+    for fn in counters.values():                # this path starts here
+        fn.launches = 0
+    kinds, outs = {}, {}
+    for kind, items in traffic.items():
+        before = counters["knn_scores"].launches
+        qps, p50, out = timed_calls(lambda b: searcher.search(dict(b[0])),
+                                    items)
+        got = counters["knn_scores"].launches - before
+        want = sum(n for _b, n, _e in items)
+        if got != want:
+            raise AssertionError(f"phase 12 {kind}: {got} K1 scores "
+                                 f"launches for {len(items)} requests, not "
+                                 f"{want}")
+        kinds[kind] = {"qps": qps, "p50_ms": p50, "requests": len(items),
+                       "k1_scores_per_request": got / len(items)}
+        outs[kind] = out
+    launches = {n: c.launches for n, c in counters.items()}
+    if launches["knn_topk"]:
+        raise AssertionError(f"phase 12: {launches['knn_topk']} K1 top-k "
+                             "launches")
+    n_req = sum(len(v) for v in traffic.values())
+    all_qps = n_req / sum(v["requests"] / v["qps"] for v in kinds.values())
+    # where a request's time goes (knn_score l2, synchronized layers)
+    with ScriptClock() as clock:
+        t0 = time.monotonic()
+        for body, _n, _e in profile:
+            searcher.search(dict(body))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    n = len(profile)
+    layers = {"ms_per_request": wall / n * 1e3,
+              "compile_and_k1_ms": clock.t["compile_k1"] / n * 1e3,
+              "plan_path_ms": (clock.t["topk"] - clock.t["merge"]) / n * 1e3,
+              "merge_and_response_ms": (clock.t["merge"]
+                                        + clock.t["response"]) / n * 1e3}
+    # the checked answers against the CPU searcher (SCRIPT_CHECK_*); every
+    # l2 top-10 against a knn query on the card
+    cpu = ShardSearcher(segs, mapper, index_name=searcher.index_name,
+                        device="cpu")
+    t_cpu = time.monotonic()
+    checked = {}
+    for kind, items in traffic.items():
+        n = len(items) if kind in SCRIPT_CHECK_ALL else SCRIPT_CHECK_FIRST
+        checked[kind] = min(n, len(items))
+        for i, ((body, _n, exact), got) in enumerate(
+                zip(items[:n], outs[kind])):
+            got = json.loads(json.dumps(got))
+            bad = script_mismatch(got, json.loads(json.dumps(
+                cpu.search(dict(body)))), exact)
+            if bad or (kind != "min_score" and not got["hits"]["hits"]):
+                raise AssertionError(f"phase 12 {kind} #{i} vs the CPU "
+                                     f"searcher: {bad or 'no hits'}")
+    cpu_s = time.monotonic() - t_cpu
+    del cpu
+    for (body, _n, _e), got in zip(traffic["l2"], outs["l2"]):
+        vec = body["query"]["script_score"]["script"]["params"][
+            "query_value"]
+        knn = searcher.search({"query": {"knn": {"vec": {
+            "vector": vec, "k": 10}}}, "size": 10, "_source": False})
+        if [h["_id"] for h in got["hits"]["hits"]] != \
+                [h["_id"] for h in knn["hits"]["hits"]]:
+            raise AssertionError("phase 12: knn_score l2 top-10 ids differ "
+                                 "from the knn query's")
+    if http:
+        for name, v in http["launches"].items():
+            launches[name] += v
+    phase_s = time.monotonic() - t_phase
+    gpu = gpu_name_power()
+    log("script_score: "
+        + "; ".join(f"{k}: qps {v['qps']:.2f}, p50 {v['p50_ms']:.3f} ms, "
+                    f"{v['k1_scores_per_request']:.2f} K1 scores launches a "
+                    f"request" for k, v in kinds.items())
+        + f"; all {n_req}: qps {all_qps:.2f}; knn_score l2 per request "
+        f"(ms, synchronized): {layers['ms_per_request']:.3f} = compile + K1 "
+        f"{layers['compile_and_k1_ms']:.3f} + per-segment plan path "
+        f"{layers['plan_path_ms']:.3f} + merge and response "
+        f"{layers['merge_and_response_ms']:.3f} + rest; K1 top-k launches "
+        f"0; {sum(checked.values())} of {n_req} answers equal to the CPU "
+        f"searcher's ({checked}; cut for time: the rest of each kind's, "
+        f"{cpu_s:.1f} s on the CPU); every l2 top-10 equal to the knn "
+        f"query's"
+        + (f"; over HTTP on phase 9's corpus index ({http['requests']} "
+           f"requests, {http['docs']} docs in {http['shards']} shards, "
+           f"{http['segments']} segments): qps {http['qps']:.2f}, p50 "
+           f"{http['p50_ms']:.3f} ms" if http else "")
+        + f"; phase {phase_s:.2f} s; on {gpu}")
+    return {"kinds": kinds, "qps": all_qps, "requests": n_req,
+            "layers": layers, "launches": launches, "http": http,
+            "cpu_checked": checked, "cpu_check_s": cpu_s,
+            "wall_s": phase_s}
+
+
 def main() -> int:
     import torch
 
@@ -3992,7 +4458,7 @@ def main() -> int:
     kern.update(phase_k5(segs, searcher))
 
     counters = {"knn_topk": cuda_knn.knn_topk_segments_cuda,
-                "knn_scores": cuda_knn.knn_scores_cuda,
+                "knn_scores": cuda_knn.knn_scores_segments_cuda,
                 "term_bag_scores": cuda_bm25.term_bag_cuda,
                 "term_bag_topk": cuda_bm25.term_bag_topk_segments_cuda,
                 "batch_topk": cuda_bm25.batch_term_bag_topk_cuda}
@@ -4030,7 +4496,8 @@ def main() -> int:
     every = {**counters, **quantized_counters()}
     serving = phase_serving(every, then=lambda node, state: {
         "hybrid": phase_http_hybrid(node, state, every),
-        "aggs": phase_http_aggs(node, state, every)})
+        "aggs": phase_http_aggs(node, state, every),
+        "script": phase_http_script(node, state, every)})
     then = serving.pop("then")
     filters = phase_filters_hybrid(segs, mapper, searcher, qsegs, qsearcher,
                                    every, http=then["hybrid"])
@@ -4040,7 +4507,9 @@ def main() -> int:
         then["aggs"]["k5_launches_per_request"] * HTTP_AGGS)
     if launches["bucket_collect"] <= 0:
         raise AssertionError("K5 never launched on the aggregations path")
-    for phase in (write, serving, filters, aggs):
+    script = phase_script_score(segs, mapper, searcher, every,
+                                http=then["script"])
+    for phase in (write, serving, filters, aggs, script):
         for name, n in phase["launches"].items():
             name = "term_bag_quantized" \
                 if name == "term_bag_quantized_topk" else name
@@ -4075,6 +4544,8 @@ def main() -> int:
                     "continuous": continuous, "quantized_scale": qscale,
                     "write_path": write, "serving": serving,
                     "filters_hybrid": filters, "aggregations": aggs,
+                    "script_score": script,
+                    "k1_scores_16": kern["knn_scores_16"],
                     "k5": kern["bucket_collect"], "masks": kern["masks"],
                     "per_slot": {n: kern[n] for n in (
                         "term_bag_scores", "term_bag_quantized_scores")},

@@ -1,21 +1,32 @@
-// K1: exact k-NN on Hopper -- scores, and each segment's exact top-k.
+// K1: exact k-NN on Hopper -- per-row scores, and each segment's exact
+// top-k.
 //
 // Replaces the JAX package's Pallas kernel `knn_scores_pallas`
 // (opensearch_tpu/ops/pallas_knn.py:62, bodies `_score_kernel_l2`,
 // `_score_kernel_cosine`, `_score_kernel_ip`) together with the
-// `lax.top_k` that follows it (opensearch_tpu/ops/knn.py:53,72): the
-// score of every row of vectors[n, d] (float32) against query[d],
-// translated per space
-//   l2:           1 / (1 + max(|v|^2 - 2 v.q + |q|^2, 0))
-//   cosinesimil:  (1 + cos) / 2, norm product floored at 1e-30
-//   innerproduct: v.q >= 0 ? v.q + 1 : 1 / (1 - v.q)
-// and -inf on rows that are not valid (exists & live & mask, read here).
+// `lax.top_k` that follows it (opensearch_tpu/ops/knn.py:53,72), and
+// the `vec @ q` and row norms of score scripts' vector functions
+// (opensearch_tpu/search/scripting.py:267-282, which XLA computes in the
+// JAX package): a function of every row of vectors[n, d] (float32)
+// against query[d], one of six (`fn`, ops/knn.py FUNCTIONS):
+//   0 l2:               1 / (1 + max(|v|^2 - 2 v.q + |q|^2, 0))
+//   1 cosinesimil:      (1 + cos) / 2, norm product floored at 1e-30
+//   2 innerproduct:     v.q >= 0 ? v.q + 1 : 1 / (1 - v.q)
+//   3 dotProduct:       v.q
+//   4 l2Squared:        max(|v|^2 - 2 v.q + |q|^2, 0)
+//   5 cosineSimilarity: v.q / max(|v| |q|, 1e-30)
+// and -inf on rows that are not valid (exists & live & mask, read here;
+// a null pointer reads as all true).
 //
-// Two entries share one streaming core:
-//   knn_topk_segments_launch  one launch per query over every segment of
-//                             a shard; returns each segment's exact top-k
-//                             (score descending, lower row id first).
-//   knn_scores_launch         the scores of one segment, written out.
+// Two entries:
+//   knn_topk_segments_launch   one launch per query over every segment
+//                              of a shard; returns each segment's exact
+//                              top-k (score descending, lower row id
+//                              first).  Functions 0-2.
+//   knn_scores_segments_launch one launch over a table of segments; the
+//                              scores of every row, written out.  All six
+//                              functions (the sorted route of the k-NN
+//                              top-k; script_score's vector functions).
 //
 // Bound on the card: memory.  Each row is d*4 bytes read once and 4*d
 // fp64 flops: at d = 128 that is 1 flop per byte, far below the H100's
@@ -23,18 +34,19 @@
 // MB, about 0.16 ms at 3.35 TB/s.
 //
 // Precision: v.q, |v|^2 and |q|^2 are summed in float64 (each product of
-// two floats is exact there) and the translated score is rounded to
-// float32 once, as the plain version (ops/knn.py) does.  Both are then
-// the correctly rounded score but in rare ties of rounding, whatever the
-// order of the sums, so the card and the CPU agree; a hybrid query's
-// min_max normalization, which divides by the spread of its top scores,
-// would otherwise magnify float32 sums' order-dependent last bits.
+// two floats is exact there) in an order fixed by d alone (`row_sums`:
+// lane j of a row's L lanes adds the units j, j + L, ... in turn, then a
+// fixed xor-shuffle tree; |q|^2 over the 32 lanes of a warp), the same
+// in both entries, and the result is rounded to float32 once.  The plain
+// version (ops/knn.py `vector_scores`) sums in this very order, so the
+// card and the CPU give the same bytes; a hybrid query's min_max
+// normalization, which divides by the spread of its top scores, would
+// otherwise magnify float32 sums' order-dependent last bits.
 //
-// Design for that bound:
+// Design of the top-k entry:
 // - A block scores one chunk of kChunkRows rows of one segment (2 MiB at
 //   d = 128, so the 16 segments of 65,536 rows are one wave of two
-//   blocks per SM; kScoreRows for the scores-only entry, whose single
-//   segment needs more, smaller blocks to fill the card).  The top-k launch takes a flat work list of (segment,
+//   blocks per SM).  The launch takes a flat work list of (segment,
 //   chunk) pairs and a per-segment table of pointers, both in one small
 //   buffer the host copies per query.
 // - Rows stream through a ring of `stages` shared-memory tiles filled by
@@ -42,11 +54,7 @@
 //   aligned), so several tiles are in flight while warps reduce the
 //   current one.  A group of L lanes reduces one row (L = 8 at d = 128,
 //   so a warp takes four rows at once and a tile of 32 rows is one pass
-//   of the block): lane j of the group sums the float4s j, j + L, ... of
-//   the row with explicit fma in float64, then a fixed xor-shuffle
-//   tree.  The
-//   order depends on d alone, so two identical rows score identically
-//   wherever they lie.
+//   of the block).
 // - |q|^2 is summed by every warp from the query in shared memory (one
 //   order, so every block gets the same value); validity bytes of the
 //   chunk are read into shared memory while the first tiles load.
@@ -64,6 +72,26 @@
 //   of the others.  Exact, since every member of a segment's top-k is
 //   among its chunk's top-k.
 // - No intermediate score reaches device memory on the top-k path.
+//
+// Design of the scores entry (redesigned: it was one launch per segment
+// of 512-row blocks staging tiles through the ring above, 128 blocks for
+// a 65,536-row segment, one per SM, at 47% of the bound):
+// - One launch takes the head of the top-k entry's table layout in
+//   device memory (word 7 is the segment's first element of the flat
+//   output; no work list: a block finds its segment by a binary search of
+//   the first blocks), so a request's segments are one grid of (segment,
+//   chunk) blocks.  The wrapper sizes the chunk from the table's rows and
+//   the card's SM count (at least two waves of kScoreMinBlocks resident
+//   blocks per SM; ops/cuda_knn.py `score_chunk_rows`), as a whole number
+//   of passes of the block.
+// - No shared-memory ring: each lane loads its units of its row straight
+//   from device memory into registers (float4 loads, or four floats where
+//   the segment's base is not 16-byte aligned), four units at once, and
+//   the first batch of the next row is issued before the current row's
+//   shuffles, translation and store.  With four blocks of 256 threads
+//   resident per SM, some 64 KB per SM are in flight.  The query sits in
+//   shared memory as float64 (8d bytes), loaded after the first rows'
+//   loads are issued.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -73,16 +101,23 @@
 namespace {
 
 // The wrapper (ops/cuda_knn.py) owns the launch table's layout and the
-// chunk decision and passes them in with -D: rows per block of the top-k
-// entry, the largest k it selects, int64 words per segment in the table.
-#if !defined(KNN_CHUNK_ROWS) || !defined(KNN_K_MAX) || !defined(KNN_SEG_WORDS)
-#error "build through ops/cuda_knn.py, which defines KNN_CHUNK_ROWS, KNN_K_MAX, KNN_SEG_WORDS"
+// chunk decisions and passes them in with -D: rows per block of the top-k
+// entry, the largest k it selects, int64 words per segment in the table,
+// and the scores entry's resident blocks per SM that its chunks assume.
+#if !defined(KNN_CHUNK_ROWS) || !defined(KNN_K_MAX) || !defined(KNN_SEG_WORDS) || \
+    !defined(KNN_SCORE_MIN_BLOCKS)
+#error "build through ops/cuda_knn.py, which defines KNN_CHUNK_ROWS, KNN_K_MAX, KNN_SEG_WORDS, KNN_SCORE_MIN_BLOCKS"
 #endif
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunkRows = KNN_CHUNK_ROWS;
-constexpr int kScoreRows = 512;      // rows per block of the scores-only entry
+constexpr int kScoreThreads = 256;   // threads of a scores-entry block
+constexpr int kScoreMinBlocks = KNN_SCORE_MIN_BLOCKS;  // ... resident per SM
+constexpr int kScoreBatch = 4;       // units a lane loads at once
+#ifdef KNN_OLD_SCORES
+constexpr int kScoreRows = 512;      // rows per block of the replaced scores entry
+#endif
 constexpr int kStageBytes = 16384;   // target bytes of one ring stage
 constexpr int kMaxStages = 4;
 constexpr int kSmemLimit = 232448 - 256;  // a block's shared memory on sm_90, less the static part
@@ -124,19 +159,43 @@ __device__ __forceinline__ double warp_sum(double x) {
   return x;
 }
 
-template <int SPACE>
+// The function `FN` of a row's sums (codes in the header), rounded once.
+template <int FN>
 __device__ __forceinline__ float translate(double dot, double v2, double q2) {
   double sc;
-  if (SPACE == 0) {  // l2
+  if (FN == 0) {  // l2
     const double d2 = fmax(v2 - 2.0 * dot + q2, 0.0);
     sc = 1.0 / (1.0 + d2);
-  } else if (SPACE == 1) {  // cosinesimil
+  } else if (FN == 1) {  // cosinesimil
     const double cosv = dot / fmax(sqrt(v2) * sqrt(q2), 1e-30);
     sc = (1.0 + cosv) / 2.0;
-  } else {  // innerproduct
+  } else if (FN == 2) {  // innerproduct
     sc = dot >= 0.0 ? dot + 1.0 : 1.0 / (1.0 - dot);
+  } else if (FN == 3) {  // dotProduct
+    sc = dot;
+  } else if (FN == 4) {  // l2Squared
+    sc = fmax(v2 - 2.0 * dot + q2, 0.0);
+  } else {  // cosineSimilarity
+    sc = dot / fmax(sqrt(v2) * sqrt(q2), 1e-30);
   }
   return __double2float_rn(sc);
+}
+
+// |q|^2 over the 32 lanes of a warp from the float64 query in shared
+// memory: lane j adds q[j], q[j + 32], ..., then the xor tree.
+__device__ __forceinline__ double query_norm2(const double* q_s, int d, int lane) {
+  double q2 = 0.0;
+  for (int j = lane; j < d; j += 32) q2 = fma(q_s[j], q_s[j], q2);
+  return warp_sum(q2);
+}
+
+// The lanes' xor tree over a group of L lanes (every lane of the warp
+// takes part).
+__device__ __forceinline__ void group_sum(double& dot, double& v2, int L) {
+  for (int off = L >> 1; off > 0; off >>= 1) {
+    dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -211,9 +270,7 @@ __device__ void stream_chunk(const Seg& s, long long row0, int rows,
 #pragma unroll
   for (int i = 0; i < kPer; ++i) valid_s[tid + i * kThreads] = e[i] & l[i] & m[i];
   __syncthreads();
-  double q2 = 0.0;
-  for (int j = lane; j < d; j += 32) q2 = fma(q_s[j], q_s[j], q2);
-  q2 = warp_sum(q2);
+  const double q2 = query_norm2(q_s, d, lane);
 
   // c.lanes lanes reduce one row; a warp takes 32 / c.lanes rows at once
   const int L = c.lanes;
@@ -250,10 +307,7 @@ __device__ void stream_chunk(const Seg& s, long long row0, int rows,
           v2 = fma(a, a, v2);
         }
       }
-      for (int off = L >> 1; off > 0; off >>= 1) {
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        v2 += __shfl_xor_sync(0xffffffffu, v2, off);
-      }
+      group_sum(dot, v2, L);
       if (has_row && sub == 0) {
         const int r = t * T + rr;
         const float sc = valid_s[r] ? translate<SPACE>(dot, v2, q2) : -INFINITY;
@@ -266,16 +320,117 @@ __device__ void stream_chunk(const Seg& s, long long row0, int rows,
   asm volatile("cp.async.wait_all;\n" ::);
 }
 
+#ifdef KNN_OLD_SCORES
+// The replaced scores entry (one segment a launch, 512-row blocks through
+// the ring), built only into testing/k1_sweep.py's library as its
+// yardstick.
 template <int SPACE>
 __global__ void __launch_bounds__(kThreads)
-knn_scores_kernel(Seg s, const float* __restrict__ query, float* __restrict__ out,
-                  int d, Cfg c) {
+knn_scores_old_kernel(Seg s, const float* __restrict__ query, float* __restrict__ out,
+                      int d, Cfg c) {
   extern __shared__ __align__(16) char smem[];
   const long long row0 = (long long)blockIdx.x * kScoreRows;
   const int rows = (int)min((long long)kScoreRows, s.n - row0);
   stream_chunk<SPACE, false, kScoreRows>(s, row0, rows, query, d, c, smem);
   const float* sc = reinterpret_cast<const float*>(smem + c.q_bytes + c.stages * c.stage_bytes);
   for (int r = threadIdx.x; r < rows; r += kThreads) out[row0 + r] = sc[r];
+}
+#endif
+
+// A unit of a row: a float4 (W = 4; loaded as one 16-byte load when
+// ALIGNED, else as four floats) or one float (W = 1).
+template <int W, bool ALIGNED>
+__device__ __forceinline__ float4 load_unit(const float* __restrict__ row, int j) {
+  if (W == 1) return make_float4(__ldg(row + j), 0.f, 0.f, 0.f);
+  if (ALIGNED) return __ldg(reinterpret_cast<const float4*>(row) + j);
+  const float* p = row + 4 * j;
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+// Units j0, j0 + L, ... (kScoreBatch of them, those below `units`).
+template <int W, bool ALIGNED>
+__device__ __forceinline__ void load_batch(float4 (&a)[kScoreBatch], const float* row,
+                                           int j0, int L, int units) {
+#pragma unroll
+  for (int u = 0; u < kScoreBatch; ++u) {
+    const int j = j0 + u * L;
+    if (j < units) a[u] = load_unit<W, ALIGNED>(row, j);
+  }
+}
+
+// The scores entry: `head` is the launch table's head (kSegWords words a
+// segment, word 5 = its first block, word 7 = its first output element).
+// Block b takes the segment s whose blocks [first(s), first(s + 1)) hold
+// b (a binary search of the head), rows
+// [(b - first(s)) * chunk_rows, +chunk_rows) of it, and writes their
+// scores to out[word 7 + row].  A group of L lanes takes one row a pass;
+// every lane of the block runs every pass (the shuffles need whole
+// warps).
+template <int FN, int W, bool ALIGNED>
+__global__ void __launch_bounds__(kScoreThreads, kScoreMinBlocks)
+knn_scores_kernel(const long long* __restrict__ head, int n_seg, const float* __restrict__ query,
+                  int d, int L,
+                  int chunk_rows, float* __restrict__ out) {
+  extern __shared__ __align__(16) double q_s[];
+  const long long b = blockIdx.x;
+  int seg = 0;
+  for (int hi = n_seg - 1; seg < hi;) {
+    const int mid = (seg + hi + 1) >> 1;
+    if (head[mid * kSegWords + 5] <= b) seg = mid; else hi = mid - 1;
+  }
+  const long long* h = head + seg * kSegWords;
+  const float* vec = reinterpret_cast<const float*>(h[0]);
+  const uint8_t* exists = reinterpret_cast<const uint8_t*>(h[1]);
+  const uint8_t* live = reinterpret_cast<const uint8_t*>(h[2]);
+  const uint8_t* mask = reinterpret_cast<const uint8_t*>(h[3]);
+  const long long row0 = (b - h[5]) * (long long)chunk_rows;
+  const int rows = (int)max(0ll, min((long long)chunk_rows, h[4] - row0));
+  float* dst = out + h[7] + row0;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int sub = tid & (L - 1), grp = tid / L, groups = kScoreThreads / L;
+  const int units = d / W;
+  const int passes = (rows + groups - 1) / groups;
+
+  float4 a[kScoreBatch];
+  // the first row's first batch is in flight while the query is staged
+  if (grp < rows) load_batch<W, ALIGNED>(a, vec + (row0 + grp) * d, sub, L, units);
+  for (int i = tid; i < d; i += kScoreThreads) q_s[i] = (double)query[i];
+  __syncthreads();
+  const double q2 = query_norm2(q_s, d, lane);
+
+  for (int p = 0; p < passes; ++p) {
+    const int r = p * groups + grp;
+    const bool has_row = r < rows;
+    const float* v = vec + (row0 + r) * d;
+    double dot = 0.0, v2 = 0.0;
+    if (has_row) {
+      for (int j0 = sub; j0 < units; j0 += kScoreBatch * L) {
+        if (j0 != sub) load_batch<W, ALIGNED>(a, v, j0, L, units);
+#pragma unroll
+        for (int u = 0; u < kScoreBatch; ++u) {
+          const int j = j0 + u * L;
+          if (j >= units) break;
+          const double ax = a[u].x;
+          dot = fma(ax, q_s[W * j], dot); v2 = fma(ax, ax, v2);
+          if (W == 4) {
+            const double ay = a[u].y, az = a[u].z, aw = a[u].w;
+            dot = fma(ay, q_s[4 * j + 1], dot); v2 = fma(ay, ay, v2);
+            dot = fma(az, q_s[4 * j + 2], dot); v2 = fma(az, az, v2);
+            dot = fma(aw, q_s[4 * j + 3], dot); v2 = fma(aw, aw, v2);
+          }
+        }
+      }
+      // the next row's first batch flies over this row's tail
+      if (r + groups < rows) load_batch<W, ALIGNED>(a, v + (long long)groups * d, sub, L, units);
+    }
+    group_sum(dot, v2, L);
+    if (has_row && sub == 0) {
+      const long long g = row0 + r;
+      const bool ok = (exists == nullptr || exists[g]) && (live == nullptr || live[g]) &&
+                      (mask == nullptr || mask[g]);
+      dst[r] = ok ? translate<FN>(dot, v2, q2) : -INFINITY;
+    }
+  }
 }
 
 // table: n_seg entries of kSegWords int64 {vectors, exists, live, mask,
@@ -315,14 +470,21 @@ knn_topk_kernel(const long long* __restrict__ table, int n_seg,
   topk::write_topk<kThreads>(keys, k, out_vals + out_row * k, out_ids + out_row * k);
 }
 
-// Lanes per row (each lane about four float4s of it), tile rows (one
-// pass of all warps, at most about kStageBytes) and ring depth
-// (2..kMaxStages, as many as fit) for width d and `cap` rows per block.
-// False when two stages of one row do not fit.
-bool config(int d, int cap, Cfg* c) {
+// Lanes that reduce one row of width d (ops/knn.py `row_lanes`): each
+// lane about four units (float4s, or floats when d % 4 != 0) of it.
+int row_lanes(int d) {
   const int units = (d & 3) == 0 ? d / 4 : d;
   int lanes = 1;
   while (lanes < 32 && lanes * 4 < units) lanes *= 2;
+  return lanes;
+}
+
+// Lanes per row, tile rows (one pass of all warps, at most about
+// kStageBytes) and ring depth (2..kMaxStages, as many as fit) of the
+// top-k entry for width d and `cap` rows per block.  False when two
+// stages of one row do not fit.
+bool config(int d, int cap, Cfg* c) {
+  const int lanes = row_lanes(d);
   c->lanes = lanes;
   const int pass = (32 / lanes) * kWarps;
   const int fit = kStageBytes / (4 * d);
@@ -348,14 +510,51 @@ cudaError_t allow_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+#ifdef KNN_OLD_SCORES
 template <int SPACE>
-cudaError_t launch_scores(const Seg& s, const float* query, float* out, int d, const Cfg& c,
-                          cudaStream_t stream) {
-  cudaError_t err = allow_smem(knn_scores_kernel<SPACE>, c.smem);
+cudaError_t launch_scores_old(const Seg& s, const float* query, float* out, int d, const Cfg& c,
+                              cudaStream_t stream) {
+  cudaError_t err = allow_smem(knn_scores_old_kernel<SPACE>, c.smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (s.n + kScoreRows - 1) / kScoreRows;
-  knn_scores_kernel<SPACE><<<(unsigned)blocks, kThreads, c.smem, stream>>>(s, query, out, d, c);
+  knn_scores_old_kernel<SPACE><<<(unsigned)blocks, kThreads, c.smem, stream>>>(s, query, out, d, c);
   return cudaGetLastError();
+}
+#endif
+
+template <int FN, int W, bool ALIGNED>
+cudaError_t launch_scores(const long long* head, int n_seg, int n_blocks, const float* query,
+                          int d, int chunk_rows, float* out, cudaStream_t stream) {
+  const size_t smem = (size_t)round16(8 * d);
+  cudaError_t err = allow_smem(knn_scores_kernel<FN, W, ALIGNED>, smem);
+  if (err != cudaSuccess) return err;
+  knn_scores_kernel<FN, W, ALIGNED><<<n_blocks, kScoreThreads, smem, stream>>>(
+      head, n_seg, query, d, row_lanes(d), chunk_rows, out);
+  return cudaGetLastError();
+}
+
+template <int FN>
+cudaError_t launch_scores_fn(const long long* head, int n_seg, int n_blocks, const float* query, int d,
+                             int chunk_rows, bool aligned, float* out, cudaStream_t st) {
+  if ((d & 3) != 0)
+    return launch_scores<FN, 1, false>(head, n_seg, n_blocks, query, d, chunk_rows, out, st);
+  if (aligned)
+    return launch_scores<FN, 4, true>(head, n_seg, n_blocks, query, d, chunk_rows, out, st);
+  return launch_scores<FN, 4, false>(head, n_seg, n_blocks, query, d, chunk_rows, out, st);
+}
+
+cudaError_t launch_scores_any(int fn, const long long* head, int n_seg, int n_blocks,
+                              const float* query, int d, int chunk_rows, bool al, float* out,
+                              cudaStream_t st) {
+  switch (fn) {
+    case 0: return launch_scores_fn<0>(head, n_seg, n_blocks, query, d, chunk_rows, al, out, st);
+    case 1: return launch_scores_fn<1>(head, n_seg, n_blocks, query, d, chunk_rows, al, out, st);
+    case 2: return launch_scores_fn<2>(head, n_seg, n_blocks, query, d, chunk_rows, al, out, st);
+    case 3: return launch_scores_fn<3>(head, n_seg, n_blocks, query, d, chunk_rows, al, out, st);
+    case 4: return launch_scores_fn<4>(head, n_seg, n_blocks, query, d, chunk_rows, al, out, st);
+    case 5: return launch_scores_fn<5>(head, n_seg, n_blocks, query, d, chunk_rows, al, out, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int SPACE>
@@ -386,24 +585,49 @@ int knn_d_max() {
   return lo;
 }
 
-// Scores of one segment.  space: 0 = l2, 1 = cosinesimil, 2 =
-// innerproduct; `live` and `mask` may be null.  Returns the CUDA error of
-// the launch (0 on success); faults surface at the caller's next sync.
-int knn_scores_launch(const float* vectors, const uint8_t* exists, const uint8_t* live,
-                      const uint8_t* mask, const float* query, float* out, long long n,
-                      int d, int space, void* stream) {
+// Threads of a scores-entry block and lanes per row of width d (the
+// wrapper sizes chunks as whole passes of a block).
+int knn_scores_threads() { return kScoreThreads; }
+int knn_row_lanes(int d) { return row_lanes(d); }
+
+// Function `fn` (0-5, see the header) of every row of every segment of a
+// launch table's head in device memory (the top-k entry's layout, without
+// the work list; word 7 = the segment's first element of `out`).
+// n_blocks = the segments' chunks in all, each block `chunk_rows` rows, a
+// whole number of passes of kScoreThreads / knn_row_lanes(d) rows.
+// `aligned`: every segment's base is 16-byte aligned.  Returns the CUDA
+// error of the launch (0 on success); faults surface at the caller's next
+// sync.
+int knn_scores_segments_launch(const long long* head, int n_seg, int n_blocks,
+                               const float* query, int d, int chunk_rows, int aligned, int fn,
+                               float* out, void* stream) {
+  if (n_blocks <= 0) return 0;
+  Cfg c;
+  if (d <= 0 || !config(d, kChunkRows, &c) || chunk_rows <= 0 ||
+      chunk_rows % (kScoreThreads / row_lanes(d)) != 0 || n_seg <= 0 || head == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_scores_any(fn, head, n_seg, n_blocks, query, d, chunk_rows,
+                                            aligned != 0, out, static_cast<cudaStream_t>(stream)));
+}
+
+#ifdef KNN_OLD_SCORES
+// The replaced entry: scores of one segment, one launch (space 0-2).
+int knn_scores_old_launch(const float* vectors, const uint8_t* exists, const uint8_t* live,
+                          const uint8_t* mask, const float* query, float* out, long long n,
+                          int d, int space, void* stream) {
   if (n <= 0) return 0;
   Cfg c;
   if (d <= 0 || !config(d, kScoreRows, &c)) return static_cast<int>(cudaErrorInvalidValue);
   const Seg s{vectors, exists, live, mask, n};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (space) {
-    case 0: return launch_scores<0>(s, query, out, d, c, st);
-    case 1: return launch_scores<1>(s, query, out, d, c, st);
-    case 2: return launch_scores<2>(s, query, out, d, c, st);
+    case 0: return launch_scores_old<0>(s, query, out, d, c, st);
+    case 1: return launch_scores_old<1>(s, query, out, d, c, st);
+    case 2: return launch_scores_old<2>(s, query, out, d, c, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+#endif
 
 // Exact top-k of every segment of `table` (device memory, layout above)
 // into rows of out_vals/out_ids [*, k]; scratch holds n_chunks * kp keys.

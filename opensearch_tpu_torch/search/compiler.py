@@ -1,7 +1,7 @@
 """Query tree -> (plan, bindings) against a shard's mapping + collection
 statistics (the port of the part of the JAX package's
 ``search/compiler.py`` that match / term / terms / range / exists / ids /
-prefix / bool / constant_score / knn queries need).
+prefix / bool / constant_score / knn / script_score queries need).
 
 idf/avgdl are computed here from CROSS-SEGMENT stats (Lucene computes
 them in IndexSearcher.termStatistics over the whole reader, not per
@@ -482,6 +482,69 @@ def _c_knn(q, ctx, scored):
     return _winners_plan(ctx, winners, "knn")
 
 
+def _c_script_score(q, ctx, scored):
+    """script_score: the child query's matched set rescored by a compiled
+    score script (search/scripting.py); BASELINE config #2's
+    knn-via-script shape.  A request-wide pre-pass, as ``_c_knn``'s,
+    computes each distinct (vector function, field, query vector) of the
+    script over every segment that has the field at once (one K1 scores
+    launch each on CUDA, ``ops/knn.py`` ``vector_scores_segments_auto``);
+    ``ScriptScorePlan.prepare`` hands each segment its view.  Unknown or
+    unsupported scripts raise ScriptException -> a clean 400."""
+    from opensearch_tpu_torch.search.scripting import (ScriptException,
+                                                       compile_score_script)
+
+    program = compile_score_script(q.script)
+    for f in program.numeric_fields:
+        ft = ctx.field_type(f)
+        if ft is not None and ft.dv_kind not in ("long", "double"):
+            raise ScriptException(
+                f"doc['{f}'].value requires a numeric/date field, "
+                f"[{f}] is [{ft.type_name}]")
+    for f in program.vector_fields:
+        ft = ctx.field_type(f)
+        if ft is not None and ft.dv_kind != "vector":
+            raise ScriptException(
+                f"vector function over [{f}] requires a knn_vector "
+                f"field, got [{ft.type_name}]")
+    child = q.query if q.query is not None else dsl.MatchAllQuery()
+    cplan, cbind = compile_query(child, ctx, scored=program.uses_score)
+    calls, node_keys = program.vector_calls()
+    return (P.ScriptScorePlan(child=cplan, program=program),
+            {"child": cbind, "boost": q.boost, "min_score": q.min_score,
+             "params": program.param_values(ctx.device),
+             "vectors": _script_vector_columns(calls, ctx),
+             "node_keys": node_keys})
+
+
+def _script_vector_columns(calls, ctx) -> dict:
+    """{key: {id(segment): f32 [n_pad]}}: each distinct vector function
+    of a script (``ScriptProgram.vector_calls``) over every row of every
+    segment that has its field, in one call (one K1 launch on CUDA)."""
+    from opensearch_tpu_torch.ops.knn import (KnnSegment,
+                                              vector_scores_segments_auto)
+    from opensearch_tpu_torch.search.scripting import ScriptException
+
+    out = {}
+    for key, (fn, field, qvec) in calls.items():
+        segs, ids = [], []
+        for seg in ctx.segments:
+            vcol = seg.device(ctx.device).vector.get(field)
+            if vcol is None:
+                continue
+            if vcol["values"].shape[1] != qvec.shape[0]:
+                raise ScriptException(
+                    f"[{fn}] query vector has dimension {qvec.shape[0]} "
+                    f"but field [{field}] has {vcol['values'].shape[1]}")
+            segs.append(KnnSegment(vcol["values"], None))
+            ids.append(id(seg))
+        cols = vector_scores_segments_auto(
+            segs, torch.from_numpy(qvec.copy()).to(ctx.device),
+            fn=fn) if segs else []
+        out[key] = dict(zip(ids, cols))
+    return out
+
+
 def _winners_plan(ctx, winners: dict, label: str):
     """(ScoredMaskPlan, bind) injecting host-computed per-segment winners
     {seg_order: [(local, score)]} into the plan tree."""
@@ -512,4 +575,5 @@ _COMPILERS = {
     dsl.PrefixQuery: _c_prefix,
     dsl.ConstantScoreQuery: _c_constant_score,
     dsl.KnnQuery: _c_knn,
+    dsl.ScriptScoreQuery: _c_script_score,
 }

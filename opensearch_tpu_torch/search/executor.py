@@ -215,13 +215,16 @@ def _check_body_keys(body: dict) -> None:
 
 
 def _plan_key(query_json, scored: bool):
-    """The plan cache's key of a query body (None when it does not
-    serialize)."""
+    """The plan cache's key of a query body: None when it does not
+    serialize, or when it holds a ``script_score``.  That query's bind
+    holds per-row columns of its own query vectors (4 bytes a row and
+    vector function, ``compiler._c_script_score``); requests bring new
+    vectors, so cached columns would only fill the device."""
     try:
-        return (json.dumps(query_json, sort_keys=True,
-                           separators=(",", ":")), scored)
+        key = json.dumps(query_json, sort_keys=True, separators=(",", ":"))
     except (TypeError, ValueError):
         return None
+    return None if '"script_score":' in key else (key, scored)
 
 
 class ShardSearcher:

@@ -18,10 +18,13 @@ There is no ``jit``: PyTorch runs eagerly, on whatever device the
 staged segment lives on.  The filter plans (numeric terms and ranges,
 ordinal ranges, postings and term-range masks, exists, host masks) read
 the doc-value columns ``DeviceSegment`` stages, through
-``ops/filters.py``.  Plans of the reference that are not ported yet
-(phrase, span, expand-terms, nested, geo, script, function_score,
-dis_max, ...) are absent; the compiler raises ``NotYetPortedError`` for
-queries that would need them.
+``ops/filters.py``.  ``ScriptScorePlan`` rescores its child by a
+compiled score script (``search/scripting.py``) over the numeric dense
+view and the per-row vector columns the compiler's pre-pass made (K1).
+Plans of the reference that are not ported yet (phrase, span,
+expand-terms, nested, geo, function_score, dis_max, ...) are absent;
+the compiler raises ``NotYetPortedError`` for queries that would need
+them.
 """
 
 from __future__ import annotations
@@ -605,6 +608,69 @@ class MaskPlan(Plan):
     def eval(self, A, dims, ins):
         mask, boost = ins
         return _const(mask, boost)
+
+
+@dataclass(frozen=True)
+class ScriptScorePlan(Plan):
+    """Child plan scores re-mapped by a compiled script expression
+    (ScriptScoreQuery; ref index/query/functionscore + the k-NN plugin's
+    script-score path).  ``program`` is a ``scripting.ScriptProgram``,
+    hashable by (source, param names).  bind: {child, boost, min_score,
+    params, vectors, node_keys}: ``params`` the program's
+    ``param_values`` on the searcher's device, ``vectors`` each distinct
+    key of its ``vector_calls`` mapped to {id(segment): f32 [n_pad]
+    column}, made by the compiler's request-wide pre-pass (one K1 scores
+    launch per key on CUDA), ``node_keys`` each call's key."""
+
+    child: Plan = None
+    program: object = None
+
+    def arrays(self):
+        return self.child.arrays()
+
+    def prepare(self, bind, seg, dseg, ctx):
+        from opensearch_tpu_torch.search.scripting import ScriptException
+
+        cdims, cins = self.child.prepare(bind["child"], seg, dseg, ctx)
+        n_pad, dev = dseg.n_pad, dseg.device
+        ncols = []
+        for f in self.program.numeric_fields:
+            col = dseg.numeric.get(f)
+            if col is None:
+                ncols.append((torch.zeros(n_pad, dtype=torch.float32,
+                                          device=dev),
+                              torch.zeros(n_pad, dtype=torch.bool,
+                                          device=dev)))
+            else:
+                # dense single-value view: min == the value for
+                # single-valued fields; missing slots read 0.0
+                ncols.append((torch.where(col["exists"],
+                                          col["minv"].to(torch.float32), 0.0),
+                              col["exists"]))
+        for f in self.program.vector_fields:
+            if dseg.vector.get(f) is None:
+                raise ScriptException(
+                    f"script references vector field [{f}] with no "
+                    "vectors in this index")
+        vcols = {node: bind["vectors"][key][id(seg)]
+                 for node, key in bind["node_keys"].items()}
+        ms = bind.get("min_score")
+        return (cdims,), (cins, tuple(ncols), vcols, bind["params"],
+                          _f32(bind["boost"]),
+                          _f32(-np.inf if ms is None else ms))
+
+    def eval(self, A, dims, ins):
+        (cdims,) = dims
+        cins, ncols, vcols, param_vals, boost, min_score = ins
+        scores, matched = self.child.eval(A, cdims, cins)
+        new = self.program.eval(
+            scores, dict(zip(self.program.numeric_fields, ncols)), vcols,
+            param_vals, matched.device)
+        if not isinstance(new, torch.Tensor):
+            new = torch.tensor(new, device=matched.device)
+        new = new.broadcast_to(matched.shape).to(torch.float32) * boost
+        matched = matched & (new >= min_score)
+        return torch.where(matched, new, 0.0), matched
 
 
 def _prepare_children(children, binds, seg, dseg, ctx):

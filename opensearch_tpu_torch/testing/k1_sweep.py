@@ -1,19 +1,34 @@
-"""K1's top-k entry against the route it replaced, and its chunk size,
-on the card.
+"""K1's two entries on the card: the scores entry against the entry it
+replaced and its chunk policy, then the top-k entry against the route it
+replaced and its chunk size.
 
     python3 -m opensearch_tpu_torch.testing.k1_sweep
 
-For each chunk size in ``CHUNKS`` (``csrc/knn.cu`` rebuilt with that
+Scores entry (``knn_scores_segments_cuda``): checked byte for byte
+against its plain version, then timed in turns -- device milliseconds
+per call under ``torch.profiler``, each the lower of two readings -- at
+three shapes (16 segments of 65,536 x 128 a call each, in turn, so none
+is in L2 when its call comes; the 16 in one launch; one segment of
+1,000,000 x 128), l2 with an ``exists`` mask, at
+``SCORE_WAVES`` = 1, 2, 4 and 8 (the chunk it gives), beside the
+replaced entry (one launch per segment of 512-row blocks through a
+shared-memory ring; built only into this sweep's library, with
+``-DKNN_OLD_SCORES``), ``vectors @ q`` per segment and the plain
+version.
+
+Top-k entry: for each chunk size in ``CHUNKS`` (``csrc/knn.cu`` rebuilt with that
 ``KNN_CHUNK_ROWS``; ptxas' register and spill lines are printed), the
 fused top-k launch -- every segment, whatever ``MERGE_MAX_CANDIDATES``
 would route elsewhere -- is checked against its plain twin and timed at
 two shapes: the 16 segments of 65,536 x 128 of the
 scale phase, and one segment of 1,000,000 x 128 (a shard after a large
 merge), each at k = 10, 100 and 256.  The route it replaced, the
-scores-only entry per segment plus the stable sort, is timed at the same
-shapes.  Times are device milliseconds per query under ``torch.profiler``
-(the sum of every device kernel and copy of the call), each the lower of
-two readings taken in turns.  Prints one JSON line per reading and the
+scores entry (one launch over the segments) plus each segment's stable
+sort, is timed at the same shapes.  Times are device milliseconds per
+query under ``torch.profiler`` (the sum of every device kernel and copy
+of the call; ``device_ms``), each the lower of two readings taken in
+turns.  The 16-segment and 1M shapes repeat the same inputs, so L2 (50
+MB) may still hold the tail of the previous call's rows.  Prints one JSON line per reading and the
 card's name and power limit.  Needs CUDA; without it, exits non-zero.
 """
 
@@ -32,21 +47,141 @@ DIM = 128
 CHUNKS = (1024, 2048, 4096)
 KS = (10, 100, 256)
 REPS = 10
+WAVES = (1, 2, 4, 8)
 
 
-def device_ms(fn, reps: int = REPS) -> float:
+def device_ms(fn, reps: int = REPS, attempts: int = 3):
     """Device milliseconds per ``fn()``: every CUDA kernel's and copy's
-    own time under the profiler, over ``reps`` calls after a warm-up."""
+    own time under the profiler, over ``reps`` calls after a warm-up.
+    The profiler sometimes drops a window's device events, in whole or
+    in part: the first of ``attempts`` windows that holds ``reps`` times
+    the events of a one-call window counts; None when none does."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    def window(n):
         torch.cuda.synchronize()
-    return sum(_device_self_us(e) for e in prof.key_averages()
-               if _is_device(e)) / 1e3 / reps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages() if _is_device(e)]
+        return (sum(e.count for e in dev),
+                sum(_device_self_us(e) for e in dev))
+
+    fn()
+    for _ in range(attempts):
+        one, _us = window(1)
+        count, total = window(reps)
+        if one and count == one * reps:
+            return total / 1e3 / reps
+    return None
+
+
+def keep_lower(row: dict, key: str, ms, per: int = 1) -> None:
+    """``row[key]``: the lower of its readings, each ``ms / per``; a
+    reading the profiler did not complete (None) is left out."""
+    if ms is not None:
+        ms /= per
+        row[key] = min(row.get(key) or ms, ms)
+    else:
+        row.setdefault(key, None)
+
+
+def old_scores_library():
+    """``csrc/knn.cu`` built with ``-DKNN_OLD_SCORES``: the replaced
+    scores entry ``knn_scores_old_launch`` beside the new one."""
+    import ctypes
+
+    from opensearch_tpu_torch.ops import cuda_build, cuda_knn
+
+    def declare(lib):
+        cuda_knn._declare(lib)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.knn_scores_old_launch.argtypes = [p, p, p, p, p, p,
+                                              ctypes.c_longlong, i, i, p]
+        lib.knn_scores_old_launch.restype = i
+
+    return cuda_build.library("knn", declare,
+                              {**cuda_knn.defines(), "KNN_OLD_SCORES": 1})
+
+
+def scores_sweep(dev, gen) -> None:
+    """The scores entry's check and its timings (module doc)."""
+    import ctypes
+
+    from opensearch_tpu_torch.ops import cuda_build, cuda_knn, knn
+
+    old = old_scores_library()
+    q = torch.randn(DIM, device=dev, generator=gen)
+
+    def segment(n):
+        return knn.KnnSegment(torch.randn(n, DIM, device=dev, generator=gen),
+                              torch.rand(n, device=dev, generator=gen) > 0.05)
+
+    sixteen = [segment(65_536) for _ in range(16)]
+    # (segments, calls): "65536 per call" scores the sixteen 32 MiB
+    # segments one call each, in turn, so L2 (50 MB) holds none of them
+    # when its call comes (times below are per call)
+    shapes = {"65536 per call": (sixteen, 16),
+              "16x65536": (sixteen, 1),
+              "1x1000000": ([segment(1_000_000)], 1)}
+
+    def new(segs, calls=1):
+        if calls > 1:
+            return [out for s in segs for out in new([s])]
+        return cuda_knn.knn_scores_segments_cuda(segs, q, fn="l2")
+
+    def replaced(segs):
+        outs = []
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        for s in segs:
+            out = torch.empty(s.vectors.shape[0], device=dev)
+            rc = old.knn_scores_old_launch(
+                s.vectors.data_ptr(), s.exists.data_ptr(), None, None,
+                q.data_ptr(), out.data_ptr(), s.vectors.shape[0], DIM, 0,
+                stream)
+            cuda_build.check(old, rc, "knn_scores_old_launch")
+            outs.append(out)
+        return outs
+
+    default = cuda_knn.SCORE_WAVES
+    try:
+        for name, (segs, calls) in shapes.items():
+            ref = knn.vector_scores_segments(segs, q, fn="l2")
+            for waves in WAVES:
+                cuda_knn.SCORE_WAVES = waves
+                for a, b in zip(new(segs, calls), ref):
+                    if not torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32)):
+                        raise AssertionError(f"scores {name} waves {waves}: "
+                                             "not byte-equal")
+            for a, b in zip(replaced(segs), ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"replaced entry {name}: differs")
+            rows = sum(s.vectors.shape[0] for s in segs) // calls
+            row = {"entry": "scores", "shape": name, "fn": "l2",
+                   "bound_ms": (rows * (DIM * 4 + 1 + 4) + DIM * 4)
+                   / 3.35e12 * 1e3}
+            for _turn in range(2):
+                timed = {f"waves_{w}_ms": w for w in WAVES}
+                for key, w in timed.items():
+                    cuda_knn.SCORE_WAVES = w
+                    row[f"chunk_rows_waves_{w}"] = cuda_knn.score_chunk_rows(
+                        rows, DIM, torch.cuda.get_device_properties(
+                            dev).multi_processor_count)
+                    keep_lower(row, key, device_ms(lambda: new(segs, calls)),
+                               calls)
+                cuda_knn.SCORE_WAVES = default
+                for key, fn in (
+                        ("replaced_ms", lambda: replaced(segs)),
+                        ("library_ms", lambda: [s.vectors @ q for s in segs]),
+                        ("plain_ms", lambda: knn.vector_scores_segments(
+                            segs, q, fn="l2"))):
+                    # these take a call per segment already
+                    keep_lower(row, key, device_ms(fn), calls)
+            print(json.dumps(row), flush=True)
+    finally:
+        cuda_knn.SCORE_WAVES = default
 
 
 def main() -> int:
@@ -59,6 +194,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
+    scores_sweep(dev, gen)
 
     def segment(n):
         return knn.KnnSegment(
@@ -73,8 +209,10 @@ def main() -> int:
              for name, segs in shapes.items()}
 
     def sorted_route(name, k):
-        return [topk(cuda_knn.knn_scores_cuda(s.vectors, m, q, space="l2"), k)
+        segs = [knn.KnnSegment(s.vectors, m)
                 for s, m in zip(shapes[name], valid[name])]
+        return [topk(sc, k) for sc in cuda_knn.knn_scores_segments_cuda(
+            segs, q, fn="l2")]
 
     def fused(name, k):
         return cuda_knn.knn_topk_segments_cuda(shapes[name], q, space="l2",
@@ -103,12 +241,10 @@ def main() -> int:
                 for turn in range(2):
                     for chunk in CHUNKS:
                         cuda_knn.CHUNK_ROWS = chunk
-                        ms = device_ms(lambda: fused(name, k))
-                        key = f"fused_{chunk}_ms"
-                        row[key] = min(row.get(key, ms), ms)
-                    ms = device_ms(lambda: sorted_route(name, k))
-                    row["sorted_route_ms"] = min(
-                        row.get("sorted_route_ms", ms), ms)
+                        keep_lower(row, f"fused_{chunk}_ms",
+                                   device_ms(lambda: fused(name, k)))
+                    keep_lower(row, "sorted_route_ms",
+                               device_ms(lambda: sorted_route(name, k)))
                 print(json.dumps(row), flush=True)
     finally:
         cuda_knn.CHUNK_ROWS, cuda_knn.MERGE_MAX_CANDIDATES = default

@@ -30,7 +30,7 @@ import sys
 import numpy as np
 import torch
 
-from opensearch_tpu_torch.testing.k1_sweep import device_ms
+from opensearch_tpu_torch.testing.k1_sweep import device_ms, keep_lower
 
 TILES = (2048, 4096, 8192)
 KS = (10, 100)
@@ -81,10 +81,9 @@ def fold_sweep(searcher, bags) -> None:
             for _turn in range(2):
                 for tile in FOLD_TILES:
                     cuda_bm25.FOLD_TILE_DOCS = tile
-                    ms = device_ms(lambda: [bm25.impact_scores(*a, **kw)
-                                            for a, kw in calls[name]])
-                    key = f"fold_{tile}_ms"
-                    row[key] = min(row.get(key, 1e9), ms / n_seg)
+                    keep_lower(row, f"fold_{tile}_ms", device_ms(
+                        lambda: [bm25.impact_scores(*a, **kw)
+                                 for a, kw in calls[name]]), n_seg)
             print(json.dumps(row), flush=True)
     finally:
         cuda_bm25.FOLD_TILE_DOCS = default
@@ -158,12 +157,10 @@ def main() -> int:
                 for _turn in range(2):
                     for tile in TILES:
                         cuda_bm25.TILE_DOCS = tile
-                        ms = device_ms(lambda: fused(name, k))
-                        key = f"fused_{tile}_ms"
-                        row[key] = min(row.get(key, ms), ms)
-                    ms = device_ms(lambda: per_slot_route(name, k))
-                    row["per_slot_route_ms"] = min(
-                        row.get("per_slot_route_ms", ms), ms)
+                        keep_lower(row, f"fused_{tile}_ms",
+                                   device_ms(lambda: fused(name, k)))
+                    keep_lower(row, "per_slot_route_ms",
+                               device_ms(lambda: per_slot_route(name, k)))
                 print(json.dumps(row), flush=True)
     finally:
         cuda_bm25.TILE_DOCS = default

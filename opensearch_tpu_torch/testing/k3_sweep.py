@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from opensearch_tpu_torch.ops import bm25, cuda_bm25
-from opensearch_tpu_torch.testing.k1_sweep import device_ms
+from opensearch_tpu_torch.testing.k1_sweep import device_ms, keep_lower
 
 # (widest sub-tile D, blocks per (chunk, segment))
 CONFIGS = ((4096, 8), (1024, 8), (256, 8), (4096, 16))
@@ -258,23 +258,19 @@ def main() -> int:
                        "union_table_host_ms": table_host_ms(b, k)}
                 for _turn in range(2):
                     for cfg in CONFIGS:
-                        ms = device_ms(lambda: k3(b, k, built[cfg][i]))
-                        key = f"k3_d{cfg[0]}_b{cfg[1]}_ms"
-                        row[key] = min(row.get(key, ms), ms)
+                        keep_lower(row, f"k3_d{cfg[0]}_b{cfg[1]}_ms",
+                                   device_ms(lambda: k3(b, k, built[cfg][i])))
                     # the default table without the posting buffer:
                     # every posting loaded directly, nothing copied ahead
                     no_copy = built[CONFIGS[0]][i]._replace(raw_cap=0)
-                    ms = device_ms(lambda: k3(b, k, no_copy))
-                    row["k3_no_copy_ms"] = min(row.get("k3_no_copy_ms", ms),
-                                               ms)
-                    ms = device_ms(lambda: old_route(
-                        p["segs"], b["old"], n_queries=b["n"], k=k))
-                    row["old_route_ms"] = min(row.get("old_route_ms", ms), ms)
-                    ms = device_ms(lambda: [
+                    keep_lower(row, "k3_no_copy_ms",
+                               device_ms(lambda: k3(b, k, no_copy)))
+                    keep_lower(row, "old_route_ms", device_ms(
+                        lambda: old_route(p["segs"], b["old"],
+                                          n_queries=b["n"], k=k)))
+                    keep_lower(row, "k2_per_query_ms", device_ms(lambda: [
                         cuda_bm25.term_bag_topk_segments_cuda(segs, k=k)
-                        for segs in b["singles"]], reps=3)
-                    row["k2_per_query_ms"] = min(
-                        row.get("k2_per_query_ms", ms), ms)
+                        for segs in b["singles"]], reps=3))
                 print(json.dumps(row), flush=True)
     finally:
         cuda_bm25.SUBTILE_DOCS, cuda_bm25.BLOCKS_PER_SEGMENT = default

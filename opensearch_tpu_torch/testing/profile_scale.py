@@ -4,14 +4,18 @@ vectors), a window of ``match`` and ``knn`` queries through
 ``ShardSearcher.search``, and of ``match`` queries through
 ``ShardSearcher.msearch`` in batches of 64, under ``torch.profiler``.
 
-    python3 -m opensearch_tpu_torch.testing.profile_scale [n_queries] [--aggs]
+    python3 -m opensearch_tpu_torch.testing.profile_scale [n_queries] [--aggs | --script]
 
 ``n_queries`` sizes the ``match`` and ``knn`` windows; the ``msearch``
 window is 4 batches of 64 (their group inputs assembled in the window,
 after one warm-up batch).  Then ``bool_filter`` (the ``match`` pair
 filtered by a ``price`` range over ~40% of the docs and a ``tag`` term,
 ``chip_smoke.py`` phase 10's ``bool``) and ``hybrid`` ([the ``match``
-pair, a ``knn``] through a min_max / arithmetic_mean pipeline) windows.
+pair, a ``knn``] through a min_max / arithmetic_mean pipeline) and
+``script_score`` (the k-NN plugin's ``knn_score`` script, l2, over
+``match_all``: ``chip_smoke.py`` phase 12's main kind; a new vector each,
+so each request compiles and makes its K1 scores launch; alone with
+``--script``) windows.
 A last ``match_quantized`` window runs the ``match`` queries over the
 same 1M docs in 8 segments of 125,000, which the port quantizes (K4,
 ``chip_smoke.py`` phase 7's layout), and a ``bool_filter_quantized``
@@ -26,8 +30,9 @@ and ``fare``).  Prints one JSON line per query kind: wall ms
 per query (profiler on), device busy ms per query (the sum of the CUDA
 kernels' and copies' own time; one stream, so they do not overlap), the
 idle share ``1 - busy / wall``, the device calls (kernels and copies)
-per query, the ``cudaLaunchKernel`` calls and the CUB radix-sort kernels
-per query, the top device entries and the top host ops by self time.
+per query, the ``cudaLaunchKernel`` calls, the CUB radix-sort kernels and
+K1's scores kernels (and their device ms) per query, the top device
+entries and the top host ops by self time.
 Needs CUDA; without it, exits non-zero.
 """
 
@@ -105,7 +110,20 @@ def query_bodies(n: int, seed: int = 9) -> dict:
                 "combination": {"technique": "arithmetic_mean",
                                 "parameters": {"weights": [0.3, 0.7]}}}}
             for a, b in pairs],
+        "script_score": script_bodies(n, rng),
     }
+
+
+def script_bodies(n: int, rng) -> list:
+    """``n`` ``script_score`` bodies with the ``knn_score`` script (l2)
+    over ``match_all``, each with a new vector."""
+    return [{"query": {"script_score": {
+        "query": {"match_all": {}},
+        "script": {"lang": "knn", "source": "knn_score", "params": {
+            "field": "vec", "space_type": "l2",
+            "query_value": rng.standard_normal(DIM).astype(
+                np.float32).tolist()}}}}, "size": 10, "_source": False}
+        for _ in range(n)]
 
 
 DAY_MS = 86_400_000
@@ -182,6 +200,11 @@ def profile_window(searcher, bodies: list, batch: int = 0) -> dict:
             e.count for e in host if e.key == "cudaLaunchKernel") / n,
         "radix_sort_calls_per_query": sum(
             e.count for e in dev if "RadixSort" in e.key) / n,
+        "k1_scores_kernels_per_query": sum(
+            e.count for e in dev if "knn_scores_kernel" in e.key) / n,
+        "k1_scores_device_ms_per_query": sum(
+            _device_self_us(e) for e in dev
+            if "knn_scores_kernel" in e.key) / 1e3 / n,
         "k5_kernels_per_query": sum(
             e.count for e in dev if "agg_" in e.key) / n,
         "k5_device_ms_per_query": sum(
@@ -201,21 +224,26 @@ def main(argv=None) -> int:
         print("profile_scale: CUDA is not available", file=sys.stderr)
         return 1
     only_aggs = "--aggs" in argv
-    argv = [a for a in argv if a != "--aggs"]
+    only_script = "--script" in argv
+    argv = [a for a in argv if a not in ("--aggs", "--script")]
     n = int(argv[0]) if argv else 30
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     searcher = build_searcher(1_000_000, 16, "cuda")
-    bodies = {} if only_aggs else query_bodies(n + 5)
-    bodies.update(agg_bodies(n + 5))
+    if only_script:
+        bodies = {"script_score": script_bodies(
+            n + 5, np.random.default_rng(44))}
+    else:
+        bodies = {} if only_aggs else query_bodies(n + 5)
+        bodies.update(agg_bodies(n + 5))
     for kind, qs in bodies.items():
         for body in qs[:5]:                  # warm-up: staging, builds
             searcher.search(body)
         out = profile_window(searcher, qs[5:])
         print(json.dumps({"kind": kind, "gpu": gpu, **out}), flush=True)
-    if only_aggs:
+    if only_aggs or only_script:
         return 0
     batch = 64
     qs = query_bodies(5 * batch, seed=10)["match"]

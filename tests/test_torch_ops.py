@@ -385,9 +385,10 @@ def test_knn_layout_constants_reach_the_kernel_as_macros():
     with other values lands at another path."""
     from opensearch_tpu_torch.ops import cuda_build
 
-    assert cuda_knn.defines() == {"KNN_CHUNK_ROWS": cuda_knn.CHUNK_ROWS,
-                                  "KNN_K_MAX": cuda_knn.K_MAX,
-                                  "KNN_SEG_WORDS": cuda_knn.SEG_WORDS}
+    assert cuda_knn.defines() == {
+        "KNN_CHUNK_ROWS": cuda_knn.CHUNK_ROWS, "KNN_K_MAX": cuda_knn.K_MAX,
+        "KNN_SEG_WORDS": cuda_knn.SEG_WORDS,
+        "KNN_SCORE_MIN_BLOCKS": cuda_knn.SCORE_BLOCKS_PER_SM}
     src = (cuda_build.CSRC / "knn.cu").read_text()
     for macro in cuda_knn.defines():
         assert f"= {macro};" in src
