@@ -29,14 +29,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
    invalid, then timed in turns with its plain version per segment
    (beside ``vectors @ q``), over 16 segments in one launch (beside
    ``[v @ q for v in segs]``) and at 1M x 128; K2's and K4's per-slot
-   (dense) entry, folded into one launch per segment and call
-   (``term_bag_fold_kernel``), byte for byte against its plain twins in
-   every mode the paths call (scores; scores + counts; counts only, as
-   ``match_count`` and ``postings_mask`` call it) on the median, the
-   heaviest and the 25-term code-heavy bag, f32 over the 16 scale
-   segments and int8 and int16 over the 8 quantized ones, one launch per
-   call, then timed at the median bag in turns with its plain twin and
-   beside the ``index_add_`` chain; and
+   (dense) entry, one launch per call and row layout over a table of
+   every segment (``term_bag_dense_kernel``), byte for byte against its
+   plain twins in every mode the paths call (scores; scores + counts;
+   counts only, as filter bags and ``postings_mask`` call it) on the
+   median, the heaviest and the 25-term code-heavy bag, f32 over the 16
+   scale segments in one launch and int8 and int16 over the 8 quantized
+   ones in one launch, filter-context bags, and 2 f32 with 2 int8
+   segments in one call (one launch each layout), then timed at the
+   median bag over the 16 f32 and over the 8 int8 segments in turns with
+   its plain twin, beside the per-segment kernel it replaced
+   (``testing/k2_sweep.py`` ``OldFold``, 16 or 8 launches) and the
+   ``index_add_`` chain; the plan top-k (``csrc/plan_topk.cu``, one
+   launch over every segment of a request) against its plain version
+   (each segment's stable sort) on phase 10's first ``bool`` over the 16
+   scale segments and on ties, negative scores, -0.0, no match, fewer
+   matches than k, k = n_pad, no live mask and ragged segments, at k =
+   10, 100 and 256 (and K_MAX + 1: the sort, counted), then timed over
+   the 16 x 65,536 docs in turns with the sort and beside ``torch.topk``
+   per segment; and
    K2's top-k entry ``term_bag_topk_segments_cuda`` (one launch over the
    16 scale segments) against ``term_bag_topk_segments``, byte for byte,
    on the median bag, the heaviest bag, a 4-term bag, an ``and`` bag, a
@@ -92,14 +103,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (three spaces, filtered, and one k above K1's in-kernel maximum)
    searches and counts through ``ShardSearcher`` on the card, held to
    the same searcher on the CPU (the plain versions): BM25 byte for
-   byte, k-NN within tolerance;
+   byte, k-NN within tolerance; the filtered ``knn`` and the
+   ``track_total_hits: false`` ``match`` make one dense launch each over
+   both segments;
 4. scale: 1,000,000 docs in 16 segments (62,500 docs each, under the
    reference's quantization threshold) with ~22M postings and a 128-d
    float32 vector per doc; 200 zipf ``match`` and 100 ``knn`` queries
    through ``ShardSearcher.search`` (qps, p50, kernel launches per
    query: one K2 top-k launch per ``match`` query and no per-slot one,
-   one K1 launch per ``knn`` query), a sample checked against the CPU
-   searcher;
+   one K1 and one plan top-k launch per ``knn`` query), a sample checked
+   against the CPU searcher;
 5. msearch: the 256 queries of ``zipf_query_log(256, seed=7)`` through
    ``ShardSearcher.msearch`` in 4 batches of 64 (one K3 launch and no K2
    launch per batch, every response equal to sequential ``search``,
@@ -171,13 +184,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    quantized ones (the ``price``, ``ts`` and ``tag`` columns staged
    beside the postings), 200 ``bool`` queries on each layout (phase 4's
    ``match`` pair, filtered by a ``price`` range over ~40% of the docs
-   and a ``tag`` term: one per-slot launch per call, two calls per
-   segment); 50 ``_count`` of a 5-value ``terms`` on ``tag``, a month's
-   ``range`` on ``ts`` and ``exists`` (one counts-only launch per
-   segment); 50 ``ids`` queries of 10 ids; 100 ``hybrid`` queries of
+   and a ``tag`` term: one dense launch per term-bag leaf and row layout,
+   two per request, and one plan top-k launch); 50 ``_count`` of a
+   5-value ``terms`` on ``tag``, a month's ``range`` on ``ts`` and
+   ``exists`` (one counts-only dense launch per request); 50 ``ids``
+   queries of 10 ids (one plan top-k each); 100 ``hybrid`` queries of
    [the ``match`` pair, ``knn`` k = 10] through the pipeline {min_max,
-   arithmetic_mean, weights [0.3, 0.7]} (one K2 top-k and one K1 launch
-   each); and 20 more hybrids over HTTP on phase 9's node, run at the
+   arithmetic_mean, weights [0.3, 0.7]} (one K2 top-k, one K1 and one
+   plan top-k launch each); and 20 more hybrids over HTTP on phase 9's
+   node, run at the
    end of phase 9 before the node stops: its ``corpus`` index (20,000
    docs in 2 shards) gains a ``vec`` field by ``PUT _mapping`` and phase
    9's 5,000 vectors by ``_bulk`` ``update`` of its first 5,000 live
@@ -202,7 +217,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``after``, ``top_hits`` under ``terms``, ``cumulative_sum`` and
    ``max_bucket``; K5's calls per request checked against each kind's
    bucket aggs and its metric aggs (one call for all of a request's
-   top-level metric aggs), its kernels per request recorded, no K3
+   top-level metric aggs), its kernels per request recorded, one plan
+   top-k per request with hits and none with ``size`` 0, no K3
    launch, samples equal to the CPU
    searcher byte for byte (JSON), and where a request's time goes
    (``run_full``, K5 and its copy, the host aggregation); plus 20
@@ -219,7 +235,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    1.0``, ``_score * dotProduct(...)`` over a ``match`` child,
    ``Math.log(doc['price'].value + ...)``), 10 l2 with ``min_score``;
    exactly one K1 scores launch per request and distinct vector function
-   (never one per segment) and no K1 top-k launch; answers equal to the
+   (never one per segment), one plan top-k launch per request and no K1
+   top-k launch; answers equal to the
    CPU searcher's (byte for byte, but ids equal and scores within rtol
    1e-5 / atol 1e-6 where the script calls ``Math.log``) for every
    kind's first 10 requests and every filtered and ``min_score`` one,
@@ -309,26 +326,30 @@ def bound_ms(nbytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_device_ms(fn, reps: int, name: str):
+def kernel_device_ms(fn, reps: int, name: str, attempts: int = 3):
     """Mean device milliseconds per launch of the kernels whose name
     holds ``name``, over ``reps`` calls of ``fn`` under
-    ``torch.profiler``; None when the profiler shows no such kernel."""
+    ``torch.profiler``.  The profiler at times drops a window's device
+    events: the first of ``attempts`` windows that shows such a kernel
+    counts; None when none does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from opensearch_tpu_torch.testing.profile_scale import (_device_self_us,
                                                             _is_device)
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if _is_device(e) and name in e.key]
-    count = sum(e.count for e in hits)
-    return sum(_device_self_us(e) for e in hits) / 1e3 / count \
-        if count else None
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if _is_device(e) and name in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            return sum(_device_self_us(e) for e in hits) / 1e3 / count
+    return None
 
 
 # -- phase 1 ----------------------------------------------------------------
@@ -337,7 +358,7 @@ def phase_toolkit():
     import torch
 
     from opensearch_tpu_torch.ops import (cuda_aggs, cuda_bm25, cuda_build,
-                                          cuda_knn)
+                                          cuda_knn, cuda_plan)
 
     nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
@@ -349,11 +370,12 @@ def phase_toolkit():
     log(f"gpu: {gpu_name_power()}")
     t0 = time.monotonic()
     logs = cuda_build.build(["knn", "bm25", "union_topk", "quant_topk",
-                             "aggs"],
+                             "aggs", "plan_topk"],
                             {"knn": cuda_knn.defines(),
                              "bm25": cuda_bm25.defines(),
                              "quant_topk": cuda_bm25.quant_defines(),
-                             "aggs": cuda_aggs.defines()})
+                             "aggs": cuda_aggs.defines(),
+                             "plan_topk": cuda_plan.defines()})
     log(f"kernels built in {time.monotonic() - t0:.1f}s: "
         f"{sorted(logs) or 'cached'}")
     for name, text in logs.items():
@@ -1091,6 +1113,7 @@ def ingest_queries(seed: int) -> list:
 
 def phase_ingest():
     from opensearch_tpu_torch.index.segment import SegmentWriter
+    from opensearch_tpu_torch.ops import cuda_bm25
     from opensearch_tpu_torch.mapping.mapper import DocumentMapper
     from opensearch_tpu_torch.search.executor import ShardSearcher
     from opensearch_tpu_torch.testing.parity import (bm25_mismatch,
@@ -1107,11 +1130,20 @@ def phase_ingest():
     gpu = ShardSearcher(segs, mapper, device=DEVICE)
     cpu = ShardSearcher(segs, mapper, device="cpu")
     bm25_bodies, knn_bodies = ingest_queries(seed=12)
+    dense = cuda_bm25.dense_f32
     for body in bm25_bodies:
-        a, b = gpu.search(body), cpu.search(body)
+        dense0 = dense.launches
+        a = gpu.search(body)
+        made = dense.launches - dense0
+        b = cpu.search(body)
         bad = bm25_mismatch(a, b)
         if bad:
             raise AssertionError(f"ingest {body['query']}: {bad}")
+        # untracked totals: the match's one dense launch over both
+        # segments, then a plan top-k a segment
+        if "track_total_hits" in body and made != 1:
+            raise AssertionError(f"ingest untracked match: {made} dense "
+                                 "launches")
         if not a["hits"]["hits"]:
             raise AssertionError(f"ingest {body['query']}: no hits")
         log(f"ingest bm25 ok: {json.dumps(body)[:80]} "
@@ -1122,7 +1154,10 @@ def phase_ingest():
             raise AssertionError(f"ingest count {q}: {a} vs {b}")
         log(f"ingest count ok: {json.dumps(q)} = {a}")
     for body in knn_bodies:
-        a, b = gpu.search(body), cpu.search(body)
+        dense0 = dense.launches
+        a = gpu.search(body)
+        made = dense.launches - dense0
+        b = cpu.search(body)
         bad = knn_mismatch(a, b)
         if bad:
             raise AssertionError(f"ingest knn: {bad}")
@@ -1130,6 +1165,9 @@ def phase_ingest():
             raise AssertionError("ingest knn: expected 10 hits")
         field = next(iter(body["query"]["knn"]))
         spec = body["query"]["knn"][field]
+        # a filter's term bag: one dense launch over both segments
+        if made != ("filter" in spec):
+            raise AssertionError(f"ingest knn: {made} dense launches")
         log(f"ingest knn ok: field={field} k={spec['k']} filtered="
             f"{'filter' in spec}")
 
@@ -1710,11 +1748,12 @@ def phase_scale(segs, mapper, searcher):
     timed(searcher, match_bodies(20, seed=8))          # warm-up
     timed(searcher, knn_bodies(5))
     match_qs, knn_qs = match_bodies(200, seed=7), knn_bodies(100)
-    from opensearch_tpu_torch.ops import cuda_bm25, cuda_knn
+    from opensearch_tpu_torch.ops import cuda_bm25, cuda_knn, cuda_plan
     counters = {"knn_topk": cuda_knn.knn_topk_segments_cuda,
                 "knn_scores": cuda_knn.knn_scores_segments_cuda,
-                "term_bag": cuda_bm25.term_bag_cuda,
-                "term_bag_topk": cuda_bm25.term_bag_topk_segments_cuda}
+                "term_bag": cuda_bm25.dense_f32,
+                "term_bag_topk": cuda_bm25.term_bag_topk_segments_cuda,
+                "plan_topk": cuda_plan.plan_topk_segments_cuda}
 
     def counts():
         return {name: fn.launches for name, fn in counters.items()}
@@ -1728,11 +1767,12 @@ def phase_scale(segs, mapper, searcher):
     for name in counters:
         per_query[f"match_{name}"] = (c1[name] - c0[name]) / len(match_qs)
         per_query[f"knn_{name}"] = (c2[name] - c1[name]) / len(knn_qs)
-    if per_query["knn_knn_topk"] != 1.0 or per_query["knn_knn_scores"]:
+    if per_query["knn_knn_topk"] != 1.0 or per_query["knn_knn_scores"] \
+            or per_query["knn_plan_topk"] != 1.0:
         raise AssertionError(f"a knn query must make exactly one K1 "
-                             f"launch: {per_query}")
+                             f"launch and one plan top-k: {per_query}")
     if per_query["match_term_bag_topk"] != 1.0 or \
-            per_query["match_term_bag"]:
+            per_query["match_term_bag"] or per_query["match_plan_topk"]:
         raise AssertionError(f"a match query must make exactly one K2 "
                              f"top-k launch and no per-slot one: "
                              f"{per_query}")
@@ -1758,6 +1798,7 @@ def phase_scale(segs, mapper, searcher):
         f"launches) + {per_query['match_term_bag']:.2f} K2 per-slot + "
         f"{per_query['match_knn_topk']:.2f} K1; knn "
         f"{per_query['knn_knn_topk']:.2f} K1 (was 16, one per segment) + "
+        f"{per_query['knn_plan_topk']:.2f} plan top-k (was 16 sorts) + "
         f"{per_query['knn_knn_scores']:.2f} K1 scores-only + "
         f"{per_query['knn_term_bag']:.2f} K2 per-slot + "
         f"{per_query['knn_term_bag_topk']:.2f} K2 top-k")
@@ -2003,7 +2044,7 @@ def quantized_counters() -> dict:
     from opensearch_tpu_torch.ops import cuda_bm25
 
     return {"term_bag_quantized_topk": cuda_bm25.term_bag_topk_quantized_cuda,
-            "term_bag_quantized_scores": cuda_bm25.term_bag_quantized_cuda}
+            "term_bag_quantized_scores": cuda_bm25.dense_quantized}
 
 
 def phase_quantized_kernels(quant, f32_segs, f32_searcher, query_pairs):
@@ -2256,215 +2297,309 @@ def phase_quantized_kernels(quant, f32_segs, f32_searcher, query_pairs):
             "heaviest": out["heaviest"], "int16": out["int16 median"]}
 
 
-def slot_call(searcher, seg, terms) -> tuple:
-    """``(args, kw, quantized)`` of a scored bag's per-slot call on one
-    segment, as ``TermBagPlan.eval`` makes it: K2's dense entry on an f32
-    segment, K4's on a quantized one."""
-    plan, bind = searcher.compiled(match_query(terms))
-    dseg = seg.device(searcher.device)
-    dims, ins = plan.prepare(bind, seg, dseg, searcher.ctx)
-    offsets = dseg.postings["body"]["offsets"]
-    if len(dims) == 4:
-        _t_pad, budget, _fast, width = dims
-        tids, active, idfs, weights, qv, sc, ev, eo, pk, bs = ins[:-1]
-        return ((offsets, pk, bs, qv, sc, ev, eo, tids, active, idfs,
-                 weights), dict(width=width, n_pad=dseg.n_pad,
-                                budget=budget), True)
-    _t_pad, budget, _fast = dims
-    tids, active, idfs, weights, impacts, _req = ins
-    p = dseg.postings["body"]
-    return ((offsets, p["doc_ids"], impacts, tids, active, idfs, weights),
-            dict(n_pad=dseg.n_pad, budget=budget), False)
-
-
-def slot_rows(searcher, seg, terms) -> list:
-    """Each active slot's ``(start, end, idf, weight)`` on one segment."""
-    plan, bind = searcher.compiled(match_query(terms))
-    pf = seg.postings["body"]
-    rows = []
-    for i, t in enumerate(terms):
-        tid = pf.term_id(t)
-        if tid >= 0:
-            rows.append((int(pf.offsets[tid]), int(pf.offsets[tid + 1]),
-                         float(bind["idfs"][i]), float(bind["weights"][i])))
-    return rows
+def dense_work(bags, scores: bool = True) -> tuple:
+    """(bytes, operations) one dense call over ``bags`` must do: per
+    posting of an active slot its doc id (f32: 4 bytes; quantized: width
+    / 8 of packed delta) and, with scores, its impact (f32 4 bytes, a
+    guarded term's exact 4, else the 1- or 2-byte code) and 3 operations
+    (4 with the dequantizing multiply); 16 bytes of table a slot; 4
+    bytes a doc per column written."""
+    nbytes = ops = 0.0
+    for b in bags:
+        nbytes += 4.0 * b.n_pad
+        for j in np.flatnonzero(b.active):
+            n = int(b.rows[j, 1] - b.rows[j, 0])
+            nbytes += 16
+            if b.quant is None:
+                nbytes += n * (8 if scores else 4)
+                ops += 3 * n if scores else 0
+                continue
+            exact = b.quant.slot_exact[j] >= 0
+            nbytes += n * b.quant.width / 8
+            if scores:
+                nbytes += n * (4 if exact else b.quant.qvals.element_size())
+                ops += n * (3 if exact else 4)
+    return nbytes, ops
 
 
 def phase_fold(scale_segs, searcher, quant, bags) -> dict:
-    """K2's and K4's per-slot (dense) entry, folded into one launch per
-    segment and call (``term_bag_fold_kernel``), against its plain twins
-    on the card, byte for byte, in every mode the paths call: scores
-    (``impact_scores``), scores and counts and counts only
-    (``impact_score_count``), counts only (``match_count``,
-    ``postings_mask``); f32 on the 16 scale segments, int8 and int16 on
-    the 8 quantized ones; the median bag, the heaviest bag and the
-    25-term code-heavy bag.  Each call must make exactly one launch.
-    Then timed at the median bag (scores only, as ``bool`` calls it) on
-    every f32 segment in turn and on one quantized segment, in turns
-    with its plain twin, and beside the ``index_add_`` chain."""
+    """K2's and K4's dense (per-slot) entry, one launch over a table of
+    every segment of a request per row layout (``term_bag_dense_kernel``),
+    against its plain twins on the card, byte for byte, in every mode the
+    paths call: scores (``match`` fast path), scores and counts (``and``,
+    minimum_should_match), counts only (filter bags, ``postings_mask``);
+    f32 over the 16 scale segments, int8 and int16 over the 8 quantized
+    ones, and 2 f32 with 2 int8 segments in one call; the median bag, the
+    heaviest bag and the 25-term code-heavy bag.  Each call must make
+    exactly one launch per row layout.  Then timed at the median bag
+    (scores only, as ``bool`` calls it) over the 16 f32 segments and over
+    the 8 int8 ones, in turns with its plain twin, beside the per-segment
+    kernel it replaced (``testing/k2_sweep.py`` ``OldFold``, one launch a
+    segment) and the ``index_add_`` chain."""
     import torch
 
-    from opensearch_tpu_torch.index.segment import pad_pow2
-    from opensearch_tpu_torch.ops import bm25, cuda_bm25, filters
-    from opensearch_tpu_torch.ops import quantized as qops
+    from opensearch_tpu_torch.ops import bm25, cuda_bm25
+    from opensearch_tpu_torch.testing.k2_sweep import (MODES, OldFold,
+                                                       dense_bags, same)
 
     dev = torch.device(DEVICE)
-    f32_fn, q_fn = cuda_bm25.term_bag_cuda, cuda_bm25.term_bag_quantized_cuda
+    f32_fn, q_fn = cuda_bm25.dense_f32, cuda_bm25.dense_quantized
 
-    def one_launch(wrapper, call):
-        before = wrapper.launches
-        out = call()
-        if wrapper.launches - before != 1:
-            raise AssertionError(f"a per-slot call made "
-                                 f"{wrapper.launches - before} launches")
+    def call(bg, sc, cn, want):
+        before = (f32_fn.launches, q_fn.launches)
+        out = cuda_bm25.term_bag_dense_cuda(bg, scores=sc, counts=cn)
+        made = (f32_fn.launches - before[0], q_fn.launches - before[1])
+        if made != want:
+            raise AssertionError(f"a dense call made {made} (f32, "
+                                 f"quantized) launches, not {want}")
         return out
 
-    def check(searcher, segs, terms, what):
-        postings = 0
-        for seg in segs:
-            args, kw, quantized = slot_call(searcher, seg, terms)
-            postings += sum(e - s for s, e, _i, _w in
-                            slot_rows(searcher, seg, terms))
-            if quantized:
-                pairs = [(one_launch(q_fn, lambda: qops.quantized_impact_scores(
-                    *args, **kw)), qops.quantized_impact_scores_plain(
-                    *args, **kw))]
-                for scored in (True, False):
-                    a = one_launch(q_fn, lambda: qops.
-                                   quantized_impact_score_count(
-                                       *args, **kw, scored=scored))
-                    pairs += zip(a, qops.quantized_impact_score_count_plain(
-                        *args, **kw, scored=scored))
-            else:
-                pairs = [(one_launch(f32_fn, lambda: bm25.impact_scores(
-                    *args, **kw)), bm25.impact_scores_plain(*args, **kw))]
-                for scored in (True, False):
-                    a = one_launch(f32_fn, lambda: bm25.impact_score_count(
-                        *args, **kw, scored=scored))
-                    pairs += zip(a, bm25.impact_score_count_plain(
-                        *args, **kw, scored=scored))
-                p = seg.device(dev).postings["body"]
-                cargs = (p["offsets"], p["doc_ids"], p["tfs"], args[3],
-                         args[4])
-                pairs.append((one_launch(f32_fn, lambda: bm25.match_count(
-                    *cargs, **kw)), bm25.match_count_plain(*cargs, **kw)))
-                pairs.append((one_launch(f32_fn, lambda: filters.
-                                         postings_mask(*cargs, **kw)),
-                              filters.postings_mask_plain(*cargs, **kw)))
-            torch.cuda.synchronize()
-            for got, want in pairs:
-                if got.dtype != want.dtype or not torch.equal(got, want):
-                    raise AssertionError(f"the folded per-slot kernel "
-                                         f"differs from its plain twin: "
-                                         f"{what} {terms} on {seg.seg_id}")
-        log(f"K2/K4 per-slot fold {what} bag of {len(terms)} terms "
-            f"({postings} postings over {len(segs)} segments): scores, "
-            f"scores + counts, counts only byte-equal to the plain twins, "
-            f"one launch per call")
-
+    layouts = {"f32": searcher, "int8": quant["int8"][1],
+               "int16": quant["int16"][1]}
     checked = {}
-    for layout, (segs, srch) in {"f32": (scale_segs, searcher),
-                                 "int8": quant["int8"][:2],
-                                 "int16": quant["int16"][:2]}.items():
+    for layout, srch in layouts.items():
+        want = (1, 0) if layout == "f32" else (0, 1)
         for name, terms in bags.items():
-            check(srch, segs, terms, f"{layout} {name}")
+            bg = dense_bags(srch, terms)
+            for sc, cn in MODES:
+                got = call(bg, sc, cn, want)
+                torch.cuda.synchronize()
+                if not same(got, bm25.term_bag_dense(bg, scores=sc,
+                                                     counts=cn)):
+                    raise AssertionError(f"the dense entry differs from its "
+                                         f"plain twin: {layout} {name} "
+                                         f"{terms} scores={sc} counts={cn}")
             checked.setdefault(layout, []).append(name)
+            postings = sum(int((b.rows[b.active, 1] - b.rows[b.active, 0])
+                               .sum()) for b in bg)
+            log(f"K2/K4 dense entry {layout} {name} bag of {len(terms)} "
+                f"terms ({postings} postings over {len(bg)} segments): "
+                f"scores, scores + counts, counts only byte-equal to the "
+                f"plain twins, one launch per call")
+    # filter context (an unscored bag: the f32 columns; on the quantized
+    # shards phase 10 stages them on demand) and a mixed call: 2 f32 + 2
+    # int8 segments
+    for name, terms in bags.items():
+        bg = dense_bags(searcher, terms, scored=False)
+        if not same(call(bg, False, True, (1, 0)), bm25.term_bag_dense(
+                bg, scores=False, counts=True)):
+            raise AssertionError(f"the dense entry differs from its plain "
+                                 f"twin: filter bag {name}")
+    mixed = dense_bags(searcher, bags["median"])[:2] + dense_bags(
+        layouts["int8"], bags["median"])[:2]
+    for sc, cn in MODES:
+        if not same(call(mixed, sc, cn, (1, 1)), bm25.term_bag_dense(
+                mixed, scores=sc, counts=cn)):
+            raise AssertionError("the dense entry differs from its plain "
+                                 "twin on a mixed call")
+    log("K2/K4 dense entry: the filter-context bags and a call over 2 f32 "
+        "+ 2 int8 segments (one launch each layout) byte-equal to the plain "
+        "twins")
 
-    # timed: the median bag on every f32 segment in turn (scores only)
-    median = bags["median"]
-    calls = []
-    nbytes = ops = 0.0
+    gpu = gpu_name_power()
+
+    def timed(bg, lib_rows):
+        def dense():
+            return cuda_bm25.term_bag_dense_cuda(bg, scores=True,
+                                                 counts=False)
+
+        def plain():
+            return bm25.term_bag_dense(bg, scores=True, counts=False)
+
+        old = OldFold(bg, True, False)
+
+        def lib_chain():
+            for b, (docs, vals) in zip(bg, lib_rows):
+                acc = torch.zeros(b.n_pad, dtype=torch.float32, device=dev)
+                for j in np.flatnonzero(b.active):
+                    st, e = int(b.rows[j, 0]), int(b.rows[j, 1])
+                    acc.index_add_(0, docs[st:e],
+                                   vals[st:e] * float(b.idfs[j]),
+                                   alpha=float(b.weights[j]))
+
+        ms, plain_ms = in_turns(dense, plain, 10)
+        old_ms = cuda_ms(old, 10)
+        lib_ms = cuda_ms(lib_chain, 10)
+        dev_ms = kernel_device_ms(dense, 10, "term_bag_dense_kernel")
+        old_dev = kernel_device_ms(old, 5, "term_bag_fold_kernel")
+        if dev_ms is None or old_dev is None:
+            raise AssertionError("the profiler shows no dense kernel")
+        nbytes, ops = dense_work(bg)
+        bms, by = bound_ms(nbytes, ops)
+        postings = sum(int((b.rows[b.active, 1] - b.rows[b.active, 0])
+                           .sum()) for b in bg)
+        return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                "bound_bytes": nbytes, "replaced_ms": old_ms,
+                "replaced_device_ms": old_dev * len(bg),
+                "replaced_launches": len(bg), "max_abs_err": 0.0,
+                "bag": bags["median"], "segments": len(bg),
+                "postings": postings, "launches_per_call": 1,
+                "checked": checked}
+
+    # the median bag over the 16 f32 segments (one launch)
+    f32_bags = dense_bags(searcher, bags["median"])
+    f32_row = timed(f32_bags, [(b.doc_ids, b.impacts) for b in f32_bags])
+    # over the 8 int8 segments, the chain over their dequantized columns
+    qsegs, qsearcher, _stats = quant["int8"]
+    q_bags = dense_bags(qsearcher, bags["median"])
+    avgdl = qsearcher.ctx.field_stats("body").avgdl
+    q_rows = []
+    for seg in qsegs:
+        pf = seg.postings["body"]
+        n = len(pf.doc_ids)
+        q_rows.append((torch.from_numpy(pf.doc_ids.astype(np.int32)).to(dev),
+                       torch.from_numpy(seg.quantized_table(
+                           "body", avgdl).dequantized()[:n]).to(dev)))
+    q_row = timed(q_bags, q_rows)
+    for what, row in (("K2 dense entry, f32", f32_row),
+                      ("K4 dense entry, int8", q_row)):
+        log(f"{what}, median bag {row['bag']} over {row['segments']} "
+            f"segments in one launch ({row['postings']} postings), scores "
+            f"only: ms {row['ms']:.4f} device_ms {row['device_ms']:.5f} "
+            f"plain_ms {row['plain_ms']:.4f} library_ms(index_add_ chain) "
+            f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.5f} "
+            f"({row['bound_by']}: {row['bound_bytes']:.0f} bytes); the "
+            f"replaced per-segment kernel ({row['replaced_launches']} "
+            f"launches): ms {row['replaced_ms']:.4f} device_ms "
+            f"{row['replaced_device_ms']:.5f}; on {gpu}")
+    return {"term_bag_scores": f32_row, "term_bag_quantized_scores": q_row}
+
+
+def plan_topk_cases(dev, gen) -> list:
+    """``(name, entries, k list)`` of the plan top-k's edge cases on the
+    card: ties, negative scores, -0.0 (every zero score spelled so, as a
+    negative boost makes it), no match, fewer matches than k, k = n_pad,
+    no live mask, ragged segments across tile bounds."""
+    import torch
+
+    from opensearch_tpu_torch.ops import bm25
+
+    def entry(n, *, p_match=0.5, negative=False, neg_zero=False,
+              live=True):
+        s = torch.randint(0, 6, (n,), generator=gen).to(torch.float32) * 0.5
+        if negative:
+            s = torch.where(torch.rand(n, generator=gen) < 0.5, -s, s)
+        if neg_zero:
+            s = torch.where(s == 0, -0.0, -s)
+        m = torch.rand(n, generator=gen) < p_match
+        lv = torch.rand(n, generator=gen) < 0.9
+        return bm25.PlanScores(s.to(dev), m.to(dev),
+                               lv.to(dev) if live else None)
+
+    return [("ties", [entry(n) for n in (1, 4095, 4096, 4097, 100_000)],
+             (1, 10, 100, 256)),
+            ("negative", [entry(n, negative=True) for n in (65536, 300)],
+             (10, 256)),
+            ("neg_zero", [entry(n, neg_zero=True) for n in (65536, 64)],
+             (10, 100)),
+            ("no_match", [entry(9000, p_match=0.0), entry(500)], (10,)),
+            ("few", [entry(70_000, p_match=0.0002), entry(8)], (100, 256)),
+            ("k_n_pad", [entry(256, p_match=0.95), entry(256)], (256,)),
+            ("no_live", [entry(n, live=False) for n in (333, 8200)],
+             (10, 100))]
+
+
+def plan_topk_equal(got, want) -> bool:
+    gv, gi, gt, gm = got.numpy()
+    wv, wi, wt, wm = want.numpy()
+    keep = wv > -np.inf
+    return (gv.tobytes() == wv.tobytes() and (gi[keep] == wi[keep]).all()
+            and gt.tobytes() == wt.tobytes() and gm.tobytes() == wm.tobytes())
+
+
+def phase_plan_topk(scale_segs, searcher, gen) -> dict:
+    """The plan top-k (``csrc/plan_topk.cu``, one launch over every
+    segment) against ``plan_topk_segments`` (each segment's stable sort,
+    ``plan_segment_topk``) on the card: values byte for byte,
+    ids where the value is above -inf, totals and maxes, at k = 10, 100
+    and 256 on phase 10's first ``bool`` request over the 16 scale
+    segments (its plan's scores, matched and live masks), with and
+    without ``min_score``, and on the edge cases of ``plan_topk_cases``;
+    k = K_MAX + 1 takes the sort and is counted as such.  Then timed over
+    the 16 x 65,536 docs at k = 10 in turns with the plain version,
+    beside ``[torch.topk(where(m & live, s, -inf), k) for each segment]``."""
+    import torch
+
+    from opensearch_tpu_torch.ops import bm25, cuda_plan
+    from opensearch_tpu_torch.search import plan as P
+    from opensearch_tpu_torch.search.executor import build_arrays
+
+    dev = torch.device(DEVICE)
+    kernel = cuda_plan.plan_topk_segments_cuda
+    body = phase10_bodies()["bool"][0]
+    plan, bind = searcher.compiled(body["query"])
+    items = []
     for seg in scale_segs:
-        args, kw, _q = slot_call(searcher, seg, median)
-        rows = slot_rows(searcher, seg, median)
-        nbytes += sum(8 * (e - st) + 8 for st, e, _i, _w in rows) \
-            + 4 * kw["n_pad"]
-        ops += sum(3 * (e - st) for st, e, _i, _w in rows)
-        calls.append((args, kw, rows))
-    nseg = len(calls)
+        dseg = seg.device(dev)
+        dims, ins = plan.prepare(bind, seg, dseg, searcher.ctx)
+        A = build_arrays(dseg, plan.arrays(), searcher.mapper,
+                         live=searcher.ctx.live_mask(seg, dseg),
+                         partial_ok=plan.skip_arrays(dims))
+        items.append((A, dims, ins))
+    P.dense_prepass(plan, items)
+    entries = [bm25.PlanScores(*plan.eval(A, dims, ins), A["live"])
+               for A, dims, ins in items]
+    cases = [("bool", entries, (10, 100, 256))] + plan_topk_cases(dev, gen)
+    n_checks = 0
+    for name, ents, ks in cases:
+        for k in ks:
+            for ms in (-np.inf, 1.0):
+                before = kernel.launches
+                got = bm25.plan_topk_segments_auto(ents, k=k, min_score=ms)
+                if kernel.launches - before != 1:
+                    raise AssertionError("a plan top-k call made "
+                                         f"{kernel.launches - before} "
+                                         "launches")
+                if not plan_topk_equal(got, bm25.plan_topk_segments(
+                        ents, k=k, min_score=ms)):
+                    raise AssertionError(f"plan top-k {name} k={k} "
+                                         f"min_score={ms} differs from the "
+                                         "plain version")
+                n_checks += 1
+    before = kernel.sorted_route_segments
+    if not plan_topk_equal(bm25.plan_topk_segments_auto(
+            entries, k=cuda_plan.K_MAX + 1), bm25.plan_topk_segments(
+            entries, k=cuda_plan.K_MAX + 1)) or \
+            kernel.sorted_route_segments - before != len(entries):
+        raise AssertionError("plan top-k above K_MAX: the sorted route")
+    log(f"plan top-k: {n_checks} calls equal to the plain version (the bool "
+        f"request over 16 segments at k = 10, 100, 256 and "
+        f"{[c[0] for c in cases[1:]]}), one launch each; k = K_MAX + 1 "
+        f"sorted ({len(entries)} segments)")
 
-    def fold():
-        return [bm25.impact_scores(*a, **kw) for a, kw, _r in calls]
+    # timed at 16 x 65,536 (the bool request's columns), k = 10
+    k = 10
+
+    def kern():
+        return bm25.plan_topk_segments_auto(entries, k=k)
 
     def plain():
-        return [bm25.impact_scores_plain(*a, **kw) for a, kw, _r in calls]
+        return bm25.plan_topk_segments(entries, k=k)
 
-    def lib_chain():
-        for (_o, docs, imp, *_rest), kw, rows in calls:
-            acc = torch.zeros(kw["n_pad"], dtype=torch.float32, device=dev)
-            for st, e, idf_v, w in rows:
-                acc.index_add_(0, docs[st:e], imp[st:e] * idf_v, alpha=w)
+    def library():
+        return [torch.topk(torch.where(e.matched & e.live, e.scores,
+                                       -torch.inf), k) for e in entries]
 
-    ms, plain_ms = in_turns(fold, plain, 10)
-    lib_ms = cuda_ms(lib_chain, 20)
-    dev_ms = kernel_device_ms(fold, 5, "term_bag_fold_kernel")
+    ms, plain_ms = in_turns(kern, plain, 20)
+    lib_ms = cuda_ms(library, 20)
+    dev_ms = kernel_device_ms(kern, 20, "plan_topk_kernel")
     if dev_ms is None:
-        raise AssertionError("the profiler shows no per-slot kernel")
-    bms, by = bound_ms(nbytes / nseg, ops / nseg)
-    gpu = gpu_name_power()
-    f32_row = {"ms": ms / nseg, "device_ms": dev_ms, "plain_ms":
-               plain_ms / nseg, "library_ms": lib_ms / nseg,
-               "bound_ms": bms, "bound_by": by, "bound_bytes": nbytes / nseg,
-               "max_abs_err": 0.0, "bag": median, "launches_per_call": 1,
-               "checked": checked}
-    log(f"K2 per-slot fold, median bag {median} per f32 segment of "
-        f"{scale_segs[0].n_docs} docs, scores only, 1 launch a call: ms "
-        f"{ms / nseg:.4f} device_ms {dev_ms:.5f} plain_ms "
-        f"{plain_ms / nseg:.4f} library_ms(index_add_ chain) "
-        f"{lib_ms / nseg:.4f} bound_ms {bms:.5f} ({by}: "
-        f"{nbytes / nseg:.0f} bytes); on {gpu}")
-
-    # timed: the median bag on one quantized segment (scores only)
-    qsegs, qsearcher, _stats = quant["int8"]
-    seg = qsegs[0]
-    args, kw, _q = slot_call(qsearcher, seg, median)
-    rows = slot_rows(qsearcher, seg, median)
-    qt = seg.quantized_table("body", qsearcher.ctx.field_stats(
-        "body").avgdl)
-    q_bytes = args[3].element_size()
-    ex = np.diff(qt.exact_offsets)
-    pf = seg.postings["body"]
-    qbytes = 4.0 * kw["n_pad"]
-    qops_n = 0
-    for t in median:
-        tid = pf.term_id(t)
-        if tid < 0:
-            continue
-        n = int(pf.df[tid])
-        qbytes += n * (qt.width / 8 + (4 if ex[tid] > 0 else q_bytes)) + 24
-        qops_n += n * (3 if ex[tid] > 0 else 4)
-    # the index_add_ chain over the segment's dequantized column
-    p_pad = pad_pow2(len(pf.doc_ids))
-    ids = torch.from_numpy(np.pad(pf.doc_ids, (0, p_pad - len(pf.doc_ids)),
-                                  constant_values=seg.n_docs)).to(dev)
-    deq = torch.from_numpy(np.pad(qt.dequantized(),
-                                  (0, p_pad - len(pf.doc_ids)))).to(dev)
-
-    def q_lib():
-        acc = torch.zeros(kw["n_pad"], dtype=torch.float32, device=dev)
-        for st, e, idf_v, w in rows:
-            acc.index_add_(0, ids[st:e], deq[st:e] * idf_v, alpha=w)
-
-    def q_fold():
-        return qops.quantized_impact_scores(*args, **kw)
-
-    q_ms, q_plain_ms = in_turns(
-        q_fold, lambda: qops.quantized_impact_scores_plain(*args, **kw), 10)
-    q_lib_ms = cuda_ms(q_lib, 20)
-    q_dev = kernel_device_ms(q_fold, 20, "term_bag_fold_kernel")
-    q_bms, q_by = bound_ms(qbytes, float(qops_n))
-    q_row = {"ms": q_ms, "device_ms": q_dev, "plain_ms": q_plain_ms,
-             "library_ms": q_lib_ms, "bound_ms": q_bms, "bound_by": q_by,
-             "bound_bytes": qbytes, "max_abs_err": 0.0, "bag": median,
-             "launches_per_call": 1,
-             "postings": sum(e - st for st, e, _i, _w in rows)}
-    log(f"K4 per-slot fold, median bag {median} on one quantized segment "
-        f"of {seg.n_docs} docs ({q_row['postings']} postings), scores "
-        f"only, 1 launch a call: ms {q_ms:.4f} device_ms {q_dev:.5f} "
-        f"plain_ms {q_plain_ms:.4f} library_ms(index_add_ chain over "
-        f"dequantized()) {q_lib_ms:.4f} bound_ms {q_bms:.5f} ({q_by}: "
-        f"{qbytes:.0f} bytes); on {gpu}")
-    return {"term_bag_scores": f32_row, "term_bag_quantized_scores": q_row}
+        raise AssertionError("the profiler shows no plan top-k kernel")
+    docs = sum(e.scores.shape[0] for e in entries)
+    nbytes = 6.0 * docs + len(entries) * (8 * k + 8)
+    bms, by = bound_ms(nbytes, 0.0)
+    row = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+           "bound_bytes": nbytes, "max_abs_err": 0.0, "k": k,
+           "segments": len(entries), "docs": docs, "checks": n_checks}
+    log(f"plan top-k over {len(entries)} segments ({docs} docs) in one "
+        f"launch, k = {k}: ms {ms:.4f} device_ms {dev_ms:.5f} plain_ms "
+        f"(stable sort per segment) {plain_ms:.4f} library_ms "
+        f"([torch.topk(where(m & live, s, -inf), k)]) {lib_ms:.4f} "
+        f"bound_ms {bms:.5f} ({by}: {nbytes:.0f} bytes); on "
+        f"{gpu_name_power()}")
+    return row
 
 
 def phase_quantized_scale(segs, mapper, searcher, build, counters) -> dict:
@@ -3346,6 +3481,7 @@ def phase_serving(counters, then=None) -> dict:
                                              "k": 10}}}, "size": 10}
                   for q in corpus.random_vectors(50, DIM, seed=46)]
         k1_before = counters["knn_topk"].launches
+        plan_before = counters["plan_topk"].launches
         knn_lat, knn_out = [], []
         for body in knn_qs:
             t0 = time.monotonic()
@@ -3353,8 +3489,11 @@ def phase_serving(counters, then=None) -> dict:
             knn_lat.append((time.monotonic() - t0) * 1e3)
         k1_per_query = (counters["knn_topk"].launches - k1_before) / len(
             knn_qs)
-        if k1_per_query != 1.0:
-            raise AssertionError(f"serving: {k1_per_query} K1 launches per "
+        plan_per_query = (counters["plan_topk"].launches
+                          - plan_before) / len(knn_qs)
+        if k1_per_query != 1.0 or plan_per_query != 1.0:
+            raise AssertionError(f"serving: {k1_per_query} K1 and "
+                                 f"{plan_per_query} plan top-k launches per "
                                  "knn _search")
         for body, got in zip(knn_qs, knn_out):
             bad = knn_mismatch(got, json.loads(json.dumps(vcpu.search(body))))
@@ -3641,7 +3780,8 @@ def phase_http_hybrid(node, state, counters) -> dict:
     qps, p50, out = timed_calls(lambda b: client.ok("POST", path, b), plain)
     launches = {n: c.launches for n, c in counters.items()}
     got = {n: v for n, v in launches.items() if v}
-    if got != {"term_bag_topk": HTTP_HYBRIDS, "knn_topk": HTTP_HYBRIDS}:
+    if got != {"term_bag_topk": HTTP_HYBRIDS, "knn_topk": HTTP_HYBRIDS,
+               "plan_topk": HTTP_HYBRIDS}:
         raise AssertionError(f"phase 10 hybrid over HTTP: launches {got}")
     svc = node.indices.get("corpus")
     segments = svc.searcher().segments
@@ -3716,20 +3856,23 @@ def phase_filters_hybrid(segs, mapper, searcher, qsegs, qsearcher,
     out["ids"] = run("ids", lambda b: searcher.search(dict(b)), q["ids"])
     out["hybrid"] = run("hybrid", lambda b: searcher.search(dict(b)),
                         q["hybrid"])
-    # one launch per per-slot call: two calls (the match, the tag filter)
-    # per segment a bool query reaches; one (the terms filter) per segment
-    # of a count; none for ids; one K2 top-k and one K1 per hybrid
-    want = {"bool_f32": {"term_bag_scores": sum(
-                2 * can_match(searcher, b) for b in q["bool"])},
-            "bool_quantized": {
-                "term_bag_scores": sum(can_match(qsearcher, b)
-                                       for b in q["bool"]),
-                "term_bag_quantized_scores": sum(can_match(qsearcher, b)
-                                                 for b in q["bool"])},
-            "count": {"term_bag_scores": COUNT_QUERIES * len(segs)},
-            "ids": {},
+    # one dense launch per term-bag leaf and row layout of a request over
+    # every segment it reaches: a bool f32 makes two (the match, the tag
+    # filter), a quantized bool one of each layout (the match on the
+    # quantized tables, the tag filter on the f32 columns), a count one
+    # (the terms filter); one plan top-k per request with hits (bool, ids,
+    # the knn of a hybrid); one K2 top-k and one K1 per hybrid
+    n_f32, n_quant = (sum(can_match(srch, b) > 0 for b in q["bool"])
+                      for srch in (searcher, qsearcher))
+    want = {"bool_f32": {"term_bag_scores": 2 * n_f32, "plan_topk": n_f32},
+            "bool_quantized": {"term_bag_scores": n_quant,
+                               "term_bag_quantized_scores": n_quant,
+                               "plan_topk": n_quant},
+            "count": {"term_bag_scores": COUNT_QUERIES},
+            "ids": {"plan_topk": IDS_QUERIES},
             "hybrid": {"term_bag_topk": HYBRID_QUERIES,
-                       "knn_topk": HYBRID_QUERIES}}
+                       "knn_topk": HYBRID_QUERIES,
+                       "plan_topk": HYBRID_QUERIES}}
     for kind, expect in want.items():
         got = {n: v for n, v in launches[kind].items() if v}
         if got != expect:
@@ -3790,7 +3933,8 @@ def phase_filters_hybrid(segs, mapper, searcher, qsegs, qsearcher,
            f"segments, {http['vectors']} vectors added by _bulk update in "
            f"{http['vector_update_s']:.2f} s, {http['wall_s']:.2f} s in all"
            if http else "")
-        + f"; every per-slot call one launch per segment; samples equal to "
+        + f"; one dense launch per leaf and layout and one plan top-k per "
+        f"request; samples equal to "
         f"the CPU searcher (BM25 byte for byte, hybrids' ids equal and "
         f"scores within rtol 1e-5 / atol 1e-6); resident bytes of the new "
         f"columns {resident}; phase {wall:.2f} s; on {gpu}")
@@ -4019,10 +4163,16 @@ def phase_aggs(segs, mapper, searcher, qsegs, qsearcher, counters,
         n_seg = len(srch.segments)
         for kind, items in traffic.items():
             before, kernels0 = k5.launches, k5.kernels
+            plan0 = counters["plan_topk"].launches
             qps, p50, out = timed_calls(lambda b: srch.search(dict(b)),
                                         [b for b, _n in items])
             per = (k5.launches - before) / len(items)
             kernels = (k5.kernels - kernels0) / len(items)
+            # one plan top-k per request with hits, none with size 0
+            plan_per = (counters["plan_topk"].launches - plan0) / len(items)
+            if plan_per != (1.0 if kind == "terms_hits" else 0.0):
+                raise AssertionError(f"phase 11 {lname} {kind}: {plan_per} "
+                                     "plan top-k launches per request")
             want = items[0][1]
             if want is not None and per != want:
                 raise AssertionError(f"phase 11 {lname} {kind}: {per} K5 "
@@ -4034,7 +4184,8 @@ def phase_aggs(segs, mapper, searcher, qsegs, qsearcher, counters,
             kinds[f"{lname} {kind}"] = {
                 "qps": qps, "p50_ms": p50, "requests": len(items),
                 "k5_launches_per_request": per,
-                "k5_kernels_per_request": kernels}
+                "k5_kernels_per_request": kernels,
+                "plan_topk_per_request": plan_per}
             outs[(lname, kind)] = out
     launches = {n: c.launches for n, c in counters.items()}
     k5_total = k5.launches
@@ -4302,10 +4453,12 @@ def phase_http_script(node, state, counters) -> dict:
                                 bodies)
     launches = {n: c.launches for n, c in counters.items()}
     want = sum(n for _b, n, _e in bodies)
-    # (the match child and the tag filter run K2's per-slot entry)
-    if launches["knn_scores"] != want or launches["knn_topk"]:
+    # (the match child and the tag filter run K2's dense entry)
+    if launches["knn_scores"] != want or launches["knn_topk"] or \
+            launches["plan_topk"] != len(bodies):
         raise AssertionError(f"phase 12 over HTTP: launches {launches}, "
-                             f"want {want} K1 scores and no K1 top-k")
+                             f"want {want} K1 scores, no K1 top-k and one "
+                             "plan top-k a request")
     svc = node.indices.get("corpus")
     segments = svc.searcher().segments
     cpu = ShardSearcher(segments, svc.mapper, index_name="corpus",
@@ -4345,6 +4498,8 @@ def phase_script_score(segs, mapper, searcher, counters, http=None) -> dict:
     kinds, outs = {}, {}
     for kind, items in traffic.items():
         before = counters["knn_scores"].launches
+        plan0 = counters["plan_topk"].launches
+        dense0 = counters["term_bag_scores"].launches
         qps, p50, out = timed_calls(lambda b: searcher.search(dict(b[0])),
                                     items)
         got = counters["knn_scores"].launches - before
@@ -4353,6 +4508,17 @@ def phase_script_score(segs, mapper, searcher, counters, http=None) -> dict:
             raise AssertionError(f"phase 12 {kind}: {got} K1 scores "
                                  f"launches for {len(items)} requests, not "
                                  f"{want}")
+        if counters["plan_topk"].launches - plan0 != len(items):
+            raise AssertionError(f"phase 12 {kind}: "
+                                 f"{counters['plan_topk'].launches - plan0} "
+                                 f"plan top-k launches for {len(items)} "
+                                 "requests")
+        # one dense launch per request and term-bag leaf: the filtered
+        # kind's tag term, the general kind's match children
+        dense = counters["term_bag_scores"].launches - dense0
+        if dense != sum(json.dumps(b).count('"match": {"body"') + json.dumps(
+                b).count('"term": {"tag"') for b, _n, _e in items):
+            raise AssertionError(f"phase 12 {kind}: {dense} dense launches")
         kinds[kind] = {"qps": qps, "p50_ms": p50, "requests": len(items),
                        "k1_scores_per_request": got / len(items)}
         outs[kind] = out
@@ -4438,7 +4604,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from opensearch_tpu_torch.ops import cuda_bm25, cuda_knn
+    from opensearch_tpu_torch.ops import cuda_bm25, cuda_knn, cuda_plan
     from opensearch_tpu_torch.testing.corpus import zipf_query_log
 
     t_start = time.monotonic()
@@ -4455,13 +4621,16 @@ def main() -> int:
         "code-heavy"][0]
     kern.update(phase_fold(segs, searcher, quant,
                            {**kern.pop("bags"), "code-heavy": code_heavy}))
+    kern["plan_topk"] = phase_plan_topk(
+        segs, searcher, torch.Generator().manual_seed(15))
     kern.update(phase_k5(segs, searcher))
 
     counters = {"knn_topk": cuda_knn.knn_topk_segments_cuda,
                 "knn_scores": cuda_knn.knn_scores_segments_cuda,
-                "term_bag_scores": cuda_bm25.term_bag_cuda,
+                "term_bag_scores": cuda_bm25.dense_f32,
                 "term_bag_topk": cuda_bm25.term_bag_topk_segments_cuda,
-                "batch_topk": cuda_bm25.batch_term_bag_topk_cuda}
+                "batch_topk": cuda_bm25.batch_term_bag_topk_cuda,
+                "plan_topk": cuda_plan.plan_topk_segments_cuda}
     for fn in counters.values():              # the main path starts here
         fn.launches = 0
     phase_ingest()
@@ -4531,7 +4700,10 @@ def main() -> int:
                # and :67, :80, :92, :107 (bucketed_counts, masked_metrics,
                # per_doc_partials, scatter_partials_to_buckets)
                "bucket_collect": ("aggs.cu",
-                                  "opensearch_tpu/ops/aggs.py:58")}
+                                  "opensearch_tpu/ops/aggs.py:58"),
+               # and topk_from_scores, opensearch_tpu/search/plan.py:1773
+               "plan_topk": ("plan_topk.cu",
+                             "opensearch_tpu/search/plan.py:1760")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = {"kernels": [
@@ -4547,8 +4719,9 @@ def main() -> int:
                     "script_score": script,
                     "k1_scores_16": kern["knn_scores_16"],
                     "k5": kern["bucket_collect"], "masks": kern["masks"],
-                    "per_slot": {n: kern[n] for n in (
+                    "dense": {n: kern[n] for n in (
                         "term_bag_scores", "term_bag_quantized_scores")},
+                    "plan_topk": kern["plan_topk"],
                     "k1_1m": kern["k1_1m"],
                     "k2_topk_heaviest": kern["term_bag_topk"]["heaviest"],
                     "k4_topk_heaviest":

@@ -17,15 +17,18 @@
 //                                  dense score in device memory.  (The
 //                                  batched path has its own kernel, K3,
 //                                  csrc/union_topk.cu.)
-//   term_bag_launch                the dense scores and/or counts of one
-//                                  segment in one launch (bool,
-//                                  constant_score, count, filter bags,
-//                                  postings_mask): the same tile core, a
-//                                  block per tile of kFoldTile docs, each
-//                                  tile's columns written once from
-//                                  shared memory.
+//   term_bag_dense_launch          the dense scores and/or counts of one
+//                                  term bag over every segment of a
+//                                  request in one launch per row layout
+//                                  (bool, constant_score, count, filter
+//                                  bags, postings_mask, the k-NN filter):
+//                                  the same tile core, a block per
+//                                  (segment, tile of kFoldTile docs),
+//                                  each tile's columns written once from
+//                                  shared memory into the request's
+//                                  arena.
 //
-// The quantized row layout (term_bag_quantized_launch, K4's per-slot entry)
+// The quantized row layout (the dense entry's QuantRows instantiations, K4's per-slot entry)
 // replaces the reference's `gather_postings_packed` and `_dequant` /
 // `quantized_impact_scores` / `quantized_impact_score_count`
 // (opensearch_tpu/ops/bm25.py:114, opensearch_tpu/ops/quantized.py:30,46,64):
@@ -84,16 +87,23 @@
 //   last tile of a segment to finish merges them (`merge_segment`) and
 //   writes the segment's row of the output: no second launch.
 //
-// Design of the dense entry (term_bag_launch): the same tile core with the
-// slots read from the caller's device arrays (term ids, active flags,
-// idfs, weights and the CSR offsets) instead of a launch table, so the
-// wrapper copies nothing to the card.  A block owns kFoldTile docs of the
-// segment; for each slot, in slot order, eight warps find eight slots'
-// sub-ranges of the tile (group_lower_bound) and the block adds them into
-// shared memory, a barrier between slots; then the tile's scores and
-// counts, zeros included, go to device memory in one coalesced pass, so
-// the output needs no memset and the call one launch.  Counts-only mode
-// (match_count, postings_mask) reads no impact.
+// Design of the dense entry (term_bag_dense_launch): the top-k entry's
+// table and work list, built on the host in one go and sent by one pinned
+// copy: per segment its row pointers, n_pad and the offset of its columns
+// in the request's output arena; per active slot its posting range, idf
+// and weight (and, quantized, its term's base, scale and exact range).  No
+// block loads a term id or a CSR offset.  Block b owns the (segment, tile)
+// of work word b, kFoldTile docs; for each group of eight slots, eight
+// warps find the slots' sub-ranges of the tile (group_lower_bound) and the
+// block adds them into shared memory in slot order, a barrier between
+// slots; then the tile's scores and counts, zeros included, go to device
+// memory in one coalesced pass, so the output needs no memset.  A segment
+// with no active slot (the field absent, every term missing) still gets its
+// zero columns.  Counts-only mode (match_count, postings_mask) reads no
+// impact.  The per-segment kernel it replaced (term_bag_fold_kernel, which
+// read term ids, active flags and CSR offsets from the caller's device
+// arrays) is built only with -DBM25_OLD_FOLD, into testing/k2_sweep.py's
+// library, as its yardstick.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -137,8 +147,7 @@ static_assert(BM25_QSLOT_WORDS >= 4, "a quantized slot's table entry holds 4 wor
 
 // Row readers: (doc, impact) of posting p of a term's row.  `Term` is what
 // the reader needs of the term beyond its posting range; `from_entry`
-// reads a segment's table entry, `read_term` a slot's, `term_of` the
-// per-term device arrays of the dense entry (and of the replaced route).
+// reads a segment's table entry, `read_term` a slot's.
 
 // The f32 layout: doc ids and impacts, one 4-byte column each.
 struct F32Rows {
@@ -152,7 +161,6 @@ struct F32Rows {
     return {reinterpret_cast<const int32_t*>(e[0]), reinterpret_cast<const float*>(e[1])};
   }
   static __device__ Term read_term(const long long*, int) { return {}; }
-  __device__ Term term_of(int32_t, int32_t) const { return {}; }
   __device__ int doc(int p, const Term&) const { return __ldg(ids + p); }
   __device__ float impact(int p, const Term&) const { return __ldg(imp + p); }
 };
@@ -175,25 +183,16 @@ struct QuantRows {
   const Q* __restrict__ qvals;
   const float* __restrict__ exact_vals;
   int width;
-  // per-term arrays, read by the dense entry and the replaced route only
-  // (null in the top-k)
-  const int32_t* __restrict__ base;
-  const float* __restrict__ scales;
-  const int32_t* __restrict__ exact_offsets;
 
   static __device__ QuantRows from_entry(const long long* e) {
     return {reinterpret_cast<const uint32_t*>(e[0]), reinterpret_cast<const Q*>(e[1]),
-            reinterpret_cast<const float*>(e[11]), (int)e[12], nullptr, nullptr, nullptr};
+            reinterpret_cast<const float*>(e[11]), (int)e[12]};
   }
   // slot words 2 and 3: {base | scale bits << 32, exact start | exact << 32}
   static __device__ Term read_term(const long long* sl, int start) {
     const u64 bs = (u64)sl[2], ex = (u64)sl[3];
     return {(int32_t)(bs & 0xFFFFFFFFull), __uint_as_float((unsigned)(bs >> 32)),
             (int32_t)(ex & 0xFFFFFFFFull) - start, (ex >> 32) != 0};
-  }
-  __device__ Term term_of(int32_t tid, int32_t start) const {
-    const int32_t e0 = exact_offsets[tid];
-    return {base[tid], scales[tid], e0 - start, exact_offsets[tid + 1] > e0};
   }
   // p = 32a + b, so p * width = 32 * (a * width) + b * width: no int32
   // overflow at any posting count.  The two words as one u64, shifted by
@@ -255,26 +254,6 @@ struct TableSlots {
     const int start = (int)(range & 0xFFFFFFFFull);
     return {start, (int)(range >> 32), __uint_as_float((unsigned)(iw & 0xFFFFFFFFull)),
             __uint_as_float((unsigned)(iw >> 32)), Rows::read_term(sl, start)};
-  }
-};
-
-// Slot j of the dense entry, read from the caller's device arrays: the
-// term's row from the CSR offsets, idf and weight only when scores are
-// asked for (null otherwise).
-template <class Rows>
-struct ArraySlots {
-  Rows rows;
-  const int32_t* __restrict__ offsets;
-  const int32_t* __restrict__ term_ids;
-  const uint8_t* __restrict__ term_active;
-  const float* __restrict__ idfs;
-  const float* __restrict__ weights;
-  __device__ Slot<Rows> operator()(int j) const {
-    if (!term_active[j]) return {0, 0, 0.0f, 0.0f, typename Rows::Term{}};
-    const int32_t tid = term_ids[j];
-    const int32_t start = offsets[tid];
-    return {start, offsets[tid + 1], idfs != nullptr ? idfs[j] : 0.0f,
-            weights != nullptr ? weights[j] : 0.0f, rows.term_of(tid, start)};
   }
 };
 
@@ -342,17 +321,84 @@ __device__ void accumulate_tile(const Rows& rows, const Slots& slots, int n_slot
   }
 }
 
-// The dense entry: block b owns docs [b * kFoldTile, (b + 1) * kFoldTile)
-// of one segment; it runs the tile core over the t_pad slots and writes
-// the tile's scores and counts (either may be null), zeros included.
+// The dense entry: block b owns the (segment, tile) of work word b, docs
+// [tile * kFoldTile, (tile + 1) * kFoldTile) of that segment; it runs the
+// tile core over the segment's slots from the table and writes the tile's
+// scores and counts (either may be null) at the segment's offset in the
+// output arena, zeros included.
+//
+// table (int64 words): n_seg entries of Rows::kSegWords {row pointers 0
+// and 1, -, n_pad, -, -, output offset, first slot, slots, -, -}
+// (quantized: then {exact_vals, width}); then Rows::kSlotWords words per
+// active slot, as the top-k entry's; then the work list, one word per
+// block, segment << 32 | tile.
 template <class Rows>
 __global__ void __launch_bounds__(kThreads)
-term_bag_fold_kernel(Rows rows, const int32_t* __restrict__ offsets,
-                     const int32_t* __restrict__ term_ids,
-                     const uint8_t* __restrict__ term_active,
-                     const float* __restrict__ idfs, const float* __restrict__ weights,
-                     int t_pad, int n_pad, float* __restrict__ out_scores,
-                     int32_t* __restrict__ out_counts) {
+term_bag_dense_kernel(const long long* __restrict__ table, int n_seg, int n_slots,
+                      float* __restrict__ out_scores, int32_t* __restrict__ out_counts) {
+  __shared__ float scores[kFoldTile];
+  __shared__ int counts[kFoldTile];
+  const long long* slots = table + (long long)n_seg * Rows::kSegWords;
+  const long long wk = slots[(long long)Rows::kSlotWords * n_slots + blockIdx.x];
+  const long long* e = table + (wk >> 32) * Rows::kSegWords;
+  const int doc0 = (int)(wk & 0xFFFFFFFFll) * kFoldTile;
+  const int docs = min(kFoldTile, (int)e[3] - doc0);
+  const long long out = e[6] + doc0;
+  const bool add_scores = out_scores != nullptr, add_counts = out_counts != nullptr;
+  for (int i = threadIdx.x; i < kFoldTile; i += kThreads) {
+    scores[i] = 0.0f;
+    counts[i] = 0;
+  }
+  __syncthreads();
+  accumulate_tile(Rows::from_entry(e), TableSlots<Rows>{slots + Rows::kSlotWords * e[7]}, (int)e[8],
+                  doc0, kFoldTile, scores, counts, add_scores, add_counts);
+  for (int i = threadIdx.x; i < docs; i += kThreads) {
+    if (add_scores) out_scores[out + i] = scores[i];
+    if (add_counts) out_counts[out + i] = counts[i];
+  }
+}
+
+#ifdef BM25_OLD_FOLD
+// The per-segment dense kernel the table form replaced (built only into
+// testing/k2_sweep.py's library, as its yardstick): one launch per segment
+// and call, each block loading term_active[j] -> term_ids[j] ->
+// offsets[term] from the caller's device arrays before its search.
+template <class Rows>
+struct ArrayTerms {  // F32Rows: nothing beyond the posting range
+  __device__ typename Rows::Term operator()(int32_t, int32_t) const { return {}; }
+};
+template <typename Q>
+struct ArrayTerms<QuantRows<Q>> {
+  const int32_t* __restrict__ base;
+  const float* __restrict__ scales;
+  const int32_t* __restrict__ exact_offsets;
+  __device__ typename QuantRows<Q>::Term operator()(int32_t tid, int32_t start) const {
+    const int32_t e0 = exact_offsets[tid];
+    return {base[tid], scales[tid], e0 - start, exact_offsets[tid + 1] > e0};
+  }
+};
+
+template <class Rows>
+struct ArraySlots {
+  ArrayTerms<Rows> terms;
+  const int32_t* __restrict__ offsets;
+  const int32_t* __restrict__ term_ids;
+  const uint8_t* __restrict__ term_active;
+  const float* __restrict__ idfs;
+  const float* __restrict__ weights;
+  __device__ Slot<Rows> operator()(int j) const {
+    if (!term_active[j]) return {0, 0, 0.0f, 0.0f, typename Rows::Term{}};
+    const int32_t tid = term_ids[j];
+    const int32_t start = offsets[tid];
+    return {start, offsets[tid + 1], idfs != nullptr ? idfs[j] : 0.0f,
+            weights != nullptr ? weights[j] : 0.0f, terms(tid, start)};
+  }
+};
+
+template <class Rows>
+__global__ void __launch_bounds__(kThreads)
+term_bag_fold_kernel(Rows rows, ArraySlots<Rows> slots, int t_pad, int n_pad,
+                     float* __restrict__ out_scores, int32_t* __restrict__ out_counts) {
   __shared__ float scores[kFoldTile];
   __shared__ int counts[kFoldTile];
   const int doc0 = blockIdx.x * kFoldTile;
@@ -363,14 +409,24 @@ term_bag_fold_kernel(Rows rows, const int32_t* __restrict__ offsets,
     counts[i] = 0;
   }
   __syncthreads();
-  const ArraySlots<Rows> slots{rows, offsets, term_ids, term_active,
-                               add_scores ? idfs : nullptr, add_scores ? weights : nullptr};
+  if (!add_scores) slots.idfs = slots.weights = nullptr;
   accumulate_tile(rows, slots, t_pad, doc0, kFoldTile, scores, counts, add_scores, add_counts);
   for (int i = threadIdx.x; i < docs; i += kThreads) {
     if (add_scores) out_scores[doc0 + i] = scores[i];
     if (add_counts) out_counts[doc0 + i] = counts[i];
   }
 }
+
+template <class Rows>
+int fold_launch(Rows rows, ArraySlots<Rows> slots, int t_pad, int n_pad, float* scores,
+                int32_t* counts, void* stream) {
+  if (n_pad <= 0 || (scores == nullptr && counts == nullptr)) return 0;
+  const int blocks = (n_pad + kFoldTile - 1) / kFoldTile;
+  term_bag_fold_kernel<Rows><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      rows, slots, t_pad, n_pad, scores, counts);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif  // BM25_OLD_FOLD
 
 // table (int64 words): n_seg entries of Rows::kSegWords {doc_ids, impacts,
 // live, n_pad, first tile, tiles, output row, first slot, slots,
@@ -471,13 +527,11 @@ term_bag_topk_kernel(const long long* __restrict__ table, int n_seg, int n_slots
 }
 
 template <class Rows>
-int fold_launch(Rows rows, const int32_t* offsets, const int32_t* term_ids,
-                const uint8_t* term_active, const float* idfs, const float* weights, int t_pad,
-                int n_pad, float* scores, int32_t* counts, void* stream) {
-  if (n_pad <= 0 || (scores == nullptr && counts == nullptr)) return 0;
-  const int blocks = (n_pad + kFoldTile - 1) / kFoldTile;
-  term_bag_fold_kernel<Rows><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      rows, offsets, term_ids, term_active, idfs, weights, t_pad, n_pad, scores, counts);
+int dense_launch(const long long* table, int n_seg, int n_slots, int n_blocks, float* scores,
+                 int32_t* counts, void* stream) {
+  if (n_blocks <= 0 || (scores == nullptr && counts == nullptr)) return 0;
+  term_bag_dense_kernel<Rows><<<n_blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      table, n_seg, n_slots, scores, counts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -505,25 +559,46 @@ extern "C" {
 
 const char* error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
-// Dense scores and/or matched-slot counts of one segment, [n_pad] each,
-// in one launch of term_bag_fold_kernel: every doc written, zeros
-// included.  `scores` or `counts` may be null to skip that column
-// (`impacts`, `idfs` and `weights` are then not read when `scores` is).
-// Slot j's term is term_ids[j], active when term_active[j] != 0; its row
-// is offsets[term] .. offsets[term + 1] of doc_ids / impacts.  Returns the
-// CUDA error of the launch (0 on success).
+// Dense scores and/or matched-slot counts of a term bag over every
+// segment of `table` (device memory, layout at term_bag_dense_kernel;
+// n_blocks words in its work list), in one launch of
+// term_bag_dense_kernel: each segment's n_pad docs written at its output
+// offset of `scores` / `counts`, zeros included.  Either may be null to
+// skip that column (no impact is read without `scores`).  q_bytes picks the
+// row layout of every segment of the table: 0 f32 doc ids and impacts, 1
+// int8 or 2 int16 quantized codes.  Returns the CUDA error of the launch
+// (0 on success).
+int term_bag_dense_launch(const long long* table, int n_seg, int n_slots, int n_blocks, int q_bytes,
+                          float* scores, int32_t* counts, void* stream) {
+  if (q_bytes == 0)
+    return dense_launch<F32Rows>(table, n_seg, n_slots, n_blocks, scores, counts, stream);
+  if (q_bytes == 1)
+    return dense_launch<QuantRows<int8_t>>(table, n_seg, n_slots, n_blocks, scores, counts,
+                                           stream);
+  if (q_bytes == 2)
+    return dense_launch<QuantRows<int16_t>>(table, n_seg, n_slots, n_blocks, scores, counts,
+                                            stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+#ifdef BM25_OLD_FOLD
+// The replaced per-segment route (testing/k2_sweep.py only): one segment's
+// dense columns in one launch of term_bag_fold_kernel, slot j's term
+// term_ids[j] (active when term_active[j] != 0), its row offsets[term] ..
+// offsets[term + 1] of doc_ids / impacts.
 int term_bag_launch(const int32_t* offsets, const int32_t* doc_ids, const float* impacts,
                     const int32_t* term_ids, const uint8_t* term_active, const float* idfs,
                     const float* weights, int t_pad, int n_pad, float* scores, int32_t* counts,
                     void* stream) {
-  return fold_launch(F32Rows{doc_ids, impacts}, offsets, term_ids, term_active, idfs, weights,
+  return fold_launch(F32Rows{doc_ids, impacts},
+                     ArraySlots<F32Rows>{{}, offsets, term_ids, term_active, idfs, weights},
                      t_pad, n_pad, scores, counts, stream);
 }
 
-// term_bag_launch over a quantized segment (K4): `packed` the bit-packed
-// deltas at `width` bits with their guard word, `base` / `scales` /
-// `exact_offsets` per term, `qvals` q_bytes-wide codes (1: int8, 2:
-// int16), `exact_vals` the guarded terms' f32 impacts.
+// term_bag_launch over a quantized segment: `packed` at `width` bits with
+// its guard word, `base` / `scales` / `exact_offsets` per term, `qvals`
+// q_bytes-wide codes (1: int8, 2: int16), `exact_vals` the guarded terms'
+// f32 impacts.
 int term_bag_quantized_launch(const int32_t* offsets, const uint32_t* packed, const int32_t* base,
                               int width, const void* qvals, int q_bytes, const float* scales,
                               const float* exact_vals, const int32_t* exact_offsets,
@@ -532,17 +607,20 @@ int term_bag_quantized_launch(const int32_t* offsets, const uint32_t* packed, co
                               float* scores, int32_t* counts, void* stream) {
   if (width < 1 || width > 31) return static_cast<int>(cudaErrorInvalidValue);
   if (q_bytes == 1)
-    return fold_launch(QuantRows<int8_t>{packed, static_cast<const int8_t*>(qvals), exact_vals,
-                                         width, base, scales, exact_offsets},
-                       offsets, term_ids, term_active, idfs, weights, t_pad, n_pad, scores,
-                       counts, stream);
+    return fold_launch(
+        QuantRows<int8_t>{packed, static_cast<const int8_t*>(qvals), exact_vals, width},
+        ArraySlots<QuantRows<int8_t>>{{base, scales, exact_offsets}, offsets, term_ids,
+                                      term_active, idfs, weights},
+        t_pad, n_pad, scores, counts, stream);
   if (q_bytes == 2)
-    return fold_launch(QuantRows<int16_t>{packed, static_cast<const int16_t*>(qvals), exact_vals,
-                                          width, base, scales, exact_offsets},
-                       offsets, term_ids, term_active, idfs, weights, t_pad, n_pad, scores,
-                       counts, stream);
+    return fold_launch(
+        QuantRows<int16_t>{packed, static_cast<const int16_t*>(qvals), exact_vals, width},
+        ArraySlots<QuantRows<int16_t>>{{base, scales, exact_offsets}, offsets, term_ids,
+                                       term_active, idfs, weights},
+        t_pad, n_pad, scores, counts, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+#endif  // BM25_OLD_FOLD
 
 // Exact top-k, total and max of every segment of `table` (device memory,
 // layout above, n_blocks entries in its work list) into rows of

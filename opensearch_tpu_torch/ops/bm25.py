@@ -3,14 +3,15 @@ the JAX package's ``ops/bm25.py``).
 
 Each function here is a plain PyTorch version of the reference's jnp
 function, with the same float32 operation order, so that on the CPU it
-equals the reference byte for byte.  ``impact_scores``,
-``impact_score_count`` and ``match_count`` are also the wrappers of the
-hand-written term-bag kernel's per-slot (dense) entry (K2,
-``csrc/bm25.cu`` ``term_bag_fold_kernel``, one launch per call): given
-CUDA tensors they launch it (``ops/cuda_bm25.py``) or raise; given CPU
-tensors they run the plain version.  The plain versions stay
-callable on any device as ``*_plain`` so the kernel can be held against
-them on the card.
+equals the reference byte for byte.  The reference's ``impact_scores``,
+``impact_score_count`` and ``match_count`` are the ``*_plain`` functions
+here: a bag's dense columns come from ``term_bag_dense_auto`` over
+``DenseBag``s, which on CUDA tensors launches the hand-written term-bag
+kernel's dense entry once per call over a table of every segment of a
+request (K2, ``csrc/bm25.cu`` ``term_bag_dense_kernel``) and on CPU
+tensors runs its plain version ``term_bag_dense`` (the ``*_plain``
+functions), callable on any device so the kernel can be held against it
+on the card.
 
 ``term_bag_topk_segments`` is the plain version of K2's top-k entry: a
 scored bag's top-k, matched total and max on every segment of a shard
@@ -19,6 +20,13 @@ segment); ``term_bag_topk_segments_auto``, which the executor calls,
 launches the kernel once for all segments on CUDA (once per row layout:
 f32, int8 or int16 quantized, K4) and runs the plain version on the CPU.
 A quantized segment is scored through ``ops/quantized.py``.
+
+``plan_topk_segments`` is the plain version of the plan top-k
+(``csrc/plan_topk.cu``): the reference's ``run_topk`` /
+``topk_from_scores`` after a plan's dense evaluation, on every segment
+of a request; ``plan_topk_segments_auto``, which the executor calls,
+launches the kernel once for all segments on CUDA and runs the plain
+version on the CPU.
 
 Accumulation order: per doc, contributions add in query-term SLOT order
 starting from 0.0, each one ``w * (idf * imp)`` — the order of the
@@ -158,58 +166,6 @@ def match_count_plain(offsets, doc_ids, tfs, term_ids, term_active, *,
                                  torch.int32)
 
 
-def impact_scores(offsets, doc_ids, impacts, term_ids, term_active,
-                  idfs, weights, *, n_pad: int, budget: int):
-    """Dense per-doc BM25 scores from precomputed impacts.  CUDA
-    tensors launch K2; CPU tensors take the plain version."""
-    if offsets.is_cuda:
-        from opensearch_tpu_torch.ops import cuda_bm25
-        scores, _count = cuda_bm25.term_bag_cuda(
-            offsets, doc_ids, impacts, term_ids, term_active, idfs,
-            weights, n_pad=n_pad, budget=budget, scores=True,
-            counts=False)
-        return scores
-    return impact_scores_plain(offsets, doc_ids, impacts, term_ids,
-                               term_active, idfs, weights, n_pad=n_pad,
-                               budget=budget)
-
-
-def impact_score_count(offsets, doc_ids, impacts, term_ids, term_active,
-                       idfs, weights, *, n_pad: int, budget: int,
-                       scored: bool):
-    """Scores and matched-slot counts (AND / minimum_should_match).
-    With ``scored=False`` only the counts are computed.  CUDA tensors
-    launch K2; CPU tensors take the plain version."""
-    if offsets.is_cuda:
-        from opensearch_tpu_torch.ops import cuda_bm25
-        scores, count = cuda_bm25.term_bag_cuda(
-            offsets, doc_ids, impacts, term_ids, term_active, idfs,
-            weights, n_pad=n_pad, budget=budget, scores=scored,
-            counts=True)
-        if scores is None:
-            scores = torch.zeros(n_pad, dtype=torch.float32,
-                                 device=offsets.device)
-        return scores, count
-    return impact_score_count_plain(
-        offsets, doc_ids, impacts, term_ids, term_active, idfs, weights,
-        n_pad=n_pad, budget=budget, scored=scored)
-
-
-def match_count(offsets, doc_ids, tfs, term_ids, term_active, *,
-                n_pad: int, budget: int):
-    """Per-doc count of distinct matched query terms (filter context).
-    CUDA tensors launch K2 in counts-only mode; CPU tensors take the
-    plain version."""
-    if offsets.is_cuda:
-        from opensearch_tpu_torch.ops import cuda_bm25
-        _s, count = cuda_bm25.term_bag_cuda(
-            offsets, doc_ids, None, term_ids, term_active, None, None,
-            n_pad=n_pad, budget=budget, scores=False, counts=True)
-        return count
-    return match_count_plain(offsets, doc_ids, tfs, term_ids, term_active,
-                             n_pad=n_pad, budget=budget)
-
-
 def topk(scores, k: int):
     """Top-k by score with the reference's tie-break (``lax.top_k``:
     equal scores -> LOWER index first): a stable descending sort.
@@ -282,6 +238,84 @@ class BatchSegment(NamedTuple):
     budget: int               # gather lanes of the plain version
 
 
+class DenseBag(NamedTuple):
+    """One segment's bag for the dense entry (``term_bag_dense``): its
+    staged rows (f32 ``doc_ids`` / ``impacts``, or ``quant``'s tables on a
+    quantized segment; ``impacts`` None when only counts are asked for),
+    its doc count and its slots on the host, each with its posting range
+    from the host CSR.  ``search/plan.py`` ``TermBagPlan.dense_bag`` and
+    ``PostingsMaskPlan.dense_bag`` lay it out; the kernel reads the slots
+    from its launch table, the plain version from tensors it makes."""
+    offsets: torch.Tensor     # i32, the staged CSR offsets (plain version)
+    doc_ids: Optional[torch.Tensor]   # i32 [P_pad], rows doc-ascending
+    impacts: Optional[torch.Tensor]   # f32 [P_pad]
+    n_pad: int
+    term_ids: np.ndarray      # i32 [t_pad]
+    active: np.ndarray        # bool [t_pad]
+    idfs: np.ndarray          # f32 [t_pad]
+    weights: np.ndarray       # f32 [t_pad]
+    rows: np.ndarray          # i64 [t_pad, 2]: each slot's posting range
+    budget: int               # gather lanes of the plain version
+    quant: Optional[QuantizedBag] = None
+
+
+def dense_bag(seg: TermBagSegment) -> DenseBag:
+    """The dense entry's bag of a ``TermBagSegment``."""
+    return DenseBag(seg.offsets, seg.doc_ids, seg.impacts,
+                    seg.live.shape[0], seg.term_ids, seg.active, seg.idfs,
+                    seg.weights, seg.rows, seg.budget, seg.quant)
+
+
+def term_bag_dense_plain(bag: DenseBag, *, scores: bool, counts: bool):
+    """One bag's ``(scores f32 [n_pad] | None, counts i32 [n_pad] |
+    None)`` by the plain versions (the reference's ``impact_scores`` /
+    ``impact_score_count`` / ``match_count`` and their quantized
+    twins)."""
+    dev = bag.offsets.device
+    tids, act, idfs, weights = (
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        for a in (bag.term_ids, bag.active, bag.idfs, bag.weights))
+    kw = dict(n_pad=bag.n_pad, budget=bag.budget)
+    if bag.quant is not None:
+        from opensearch_tpu_torch.ops import quantized as qops
+        q = bag.quant
+        args = (bag.offsets, q.packed, q.base, q.qvals, q.scales,
+                q.exact_vals, q.exact_offsets, tids, act, idfs, weights)
+        kw["width"] = q.width
+        if not counts:
+            return qops.quantized_impact_scores_plain(*args, **kw), None
+        s, c = qops.quantized_impact_score_count_plain(*args, **kw,
+                                                       scored=scores)
+        return (s if scores else None), c
+    if not counts:
+        return impact_scores_plain(bag.offsets, bag.doc_ids, bag.impacts,
+                                   tids, act, idfs, weights, **kw), None
+    if not scores:
+        return None, match_count_plain(bag.offsets, bag.doc_ids,
+                                       bag.doc_ids, tids, act, **kw)
+    return impact_score_count_plain(bag.offsets, bag.doc_ids, bag.impacts,
+                                    tids, act, idfs, weights, **kw,
+                                    scored=True)
+
+
+def term_bag_dense(bags, *, scores: bool, counts: bool) -> list:
+    """Plain version of K2's dense entry: each bag's ``(scores | None,
+    counts | None)`` by ``term_bag_dense_plain``."""
+    return [term_bag_dense_plain(b, scores=scores, counts=counts)
+            for b in bags]
+
+
+def term_bag_dense_auto(bags, *, scores: bool, counts: bool) -> list:
+    """A bag's dense columns on every segment of ``bags``: on CUDA
+    tensors one launch of K2's dense entry for all segments of each row
+    layout (f32, int8, int16), the plain version on CPU ones."""
+    if bags and bags[0].offsets.is_cuda:
+        from opensearch_tpu_torch.ops import cuda_bm25
+        return cuda_bm25.term_bag_dense_cuda(bags, scores=scores,
+                                             counts=counts)
+    return term_bag_dense(bags, scores=scores, counts=counts)
+
+
 class TermBagTopK(NamedTuple):
     """Per-segment results of a scored bag (for a batch of Q bags, one row
     per (query, segment), row ``q * S + s``): ``vals`` f32 [S, k] and
@@ -333,42 +367,20 @@ def write_topk_row(out: TermBagTopK, s: int, vals, ids, total, mx) -> None:
 
 
 def segment_topk(seg: TermBagSegment, k: int, min_score: float,
-                 plain: bool = True):
+                 cols=None):
     """One segment's ``(vals [min(k, n_pad)], ids, total, max)`` as the
     reference's ``run_topk`` computes them for a scored ``TermBagPlan``,
-    with the ids past the matched docs set to -1.  ``plain`` scores with
-    the ``*_plain`` functions; otherwise with their dispatchers (on CUDA
-    tensors, K2's per-slot entry, or K4's on a quantized segment)."""
-    dev = seg.live.device
-    n_pad = seg.live.shape[0]
-    bag = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                for a in (seg.term_ids, seg.active, seg.idfs, seg.weights))
-    kw = dict(n_pad=n_pad, budget=seg.budget)
-    if seg.quant is None:
-        args = (seg.offsets, seg.doc_ids, seg.impacts, *bag)
-        scores_fn = impact_scores_plain if plain else impact_scores
-        count_fn = impact_score_count_plain if plain else impact_score_count
-    else:
-        from opensearch_tpu_torch.ops import quantized as qops
-        q = seg.quant
-        args = (seg.offsets, q.packed, q.base, q.qvals, q.scales,
-                q.exact_vals, q.exact_offsets, *bag)
-        kw["width"] = q.width
-        scores_fn = (qops.quantized_impact_scores_plain if plain
-                     else qops.quantized_impact_scores)
-        count_fn = (qops.quantized_impact_score_count_plain if plain
-                    else qops.quantized_impact_score_count)
-    if seg.fast:
-        scores = scores_fn(*args, **kw)
-        matched = scores > 0.0
-    else:
-        scores, count = count_fn(*args, **kw, scored=True)
-        matched = count >= seg.required
-    matched = matched & seg.live & (scores >= min_score)
-    key = torch.where(matched, scores, -torch.inf)
-    vals, idx = topk(key, min(k, n_pad))
-    idx = torch.where(torch.isneginf(vals), -1, idx)
-    return vals, idx, matched.sum(), torch.max(key)
+    with the ids past the matched docs set to -1.  ``cols`` are the bag's
+    dense ``(scores, counts)`` when the caller has them (the dense entry's,
+    on the card); else the plain versions score it."""
+    if cols is None:
+        cols = term_bag_dense_plain(dense_bag(seg), scores=True,
+                                    counts=not seg.fast)
+    scores, count = cols
+    matched = scores > 0.0 if seg.fast else count >= seg.required
+    vals, idx, total, mx = plan_segment_topk(
+        PlanScores(scores, matched, seg.live), k, min_score)
+    return vals, torch.where(torch.isneginf(vals), -1, idx), total, mx
 
 
 def term_bag_topk_segments(segments, *, k: int,
@@ -394,3 +406,54 @@ def term_bag_topk_segments_auto(segments, *, k: int,
         return cuda_bm25.term_bag_topk_segments_cuda(segments, k=k,
                                                      min_score=min_score)
     return term_bag_topk_segments(segments, k=k, min_score=min_score)
+
+
+# -- the plan top-k over every segment (csrc/plan_topk.cu) ----------------
+
+class PlanScores(NamedTuple):
+    """One segment's input to the plan top-k: a plan's dense ``scores``
+    f32 [n_pad] and ``matched`` bool [n_pad], and the point-in-time
+    ``live`` bool [n_pad] mask (None: every doc live, as after
+    ``run_full``)."""
+    scores: torch.Tensor
+    matched: torch.Tensor
+    live: Optional[torch.Tensor] = None
+
+
+def plan_segment_topk(entry: PlanScores, k: int, min_score: float):
+    """One segment's ``(vals [min(k, n_pad)], ids, total, max)``: the
+    reference's ``run_topk`` after its ``plan.eval`` (``topk_from_scores``
+    when ``live`` is None and ``min_score`` -inf), a stable descending
+    sort of the keys."""
+    matched = entry.matched
+    if entry.live is not None:
+        matched = matched & entry.live
+    matched = matched & (entry.scores >= min_score)
+    key = torch.where(matched, entry.scores, -torch.inf)
+    vals, idx = topk(key, min(k, key.shape[0]))
+    return vals, idx, matched.sum(), torch.max(key)
+
+
+def plan_topk_segments(entries, *, k: int,
+                       min_score: float = -math.inf) -> TermBagTopK:
+    """Plain version of the plan top-k: row ``s`` of the result is
+    ``plan_segment_topk(entries[s], k, min_score)``, padded with ``(-inf,
+    -1)`` to ``k``."""
+    dev = entries[0].scores.device if entries else torch.device("cpu")
+    out = empty_topk(len(entries), k, dev)
+    for s, entry in enumerate(entries):
+        write_topk_row(out, s, *plan_segment_topk(entry, k, min_score))
+    return out
+
+
+def plan_topk_segments_auto(entries, *, k: int,
+                            min_score: float = -math.inf) -> TermBagTopK:
+    """Every segment's top-k, total and max after a plan's dense
+    evaluation: on CUDA tensors one launch of the plan top-k for all
+    segments, the plain version on CPU ones.  Ids past the matched docs
+    are unspecified; their values are -inf."""
+    if entries and entries[0].scores.is_cuda:
+        from opensearch_tpu_torch.ops import cuda_plan
+        return cuda_plan.plan_topk_segments_cuda(entries, k=k,
+                                                 min_score=min_score)
+    return plan_topk_segments(entries, k=k, min_score=min_score)

@@ -9,15 +9,19 @@ which replaces the reference's ``gather_postings`` + ``impact_scores`` /
   every segment of a shard, each segment's exact top-k, matched total
   and max computed inside the kernel.  Its plain twin is
   ``ops/bm25.py::term_bag_topk_segments``.  At ``k > K_MAX`` every
-  segment takes the per-slot entry plus the stable sort instead
+  segment takes the dense entry plus the stable sort instead
   (``ops/bm25.py::segment_topk``); ``sorted_route_segments`` counts
   those.
-- ``term_bag_cuda``: the dense scores and/or matched-slot counts of one
-  segment in one launch (``bool``, ``constant_score``, ``count``, filter
-  bags, ``ops/filters.py`` ``postings_mask``): the top-k entry's tile
-  core, a block per ``FOLD_TILE_DOCS`` docs that adds the slots in slot
-  order in shared memory and writes its tile once.  Its plain twins are
-  ``ops/bm25.py``'s ``*_plain`` functions.
+- ``term_bag_dense_cuda``: a bag's dense scores and/or matched-slot
+  counts over every segment of a request (``bool``, ``constant_score``,
+  ``count``, filter bags, ``postings_mask``, the k-NN filter), in one
+  launch per row layout (one for the f32 segments, counted on
+  ``dense_f32``, one for the quantized ones of each qvals dtype, on
+  ``dense_quantized``): the top-k entry's tile core, a block per (segment,
+  ``FOLD_TILE_DOCS`` docs) that adds the slots from the launch table
+  (``dense_table``) in slot order in shared memory and writes its tile
+  once into one output arena.  Its plain twin is
+  ``ops/bm25.py::term_bag_dense``.
 - ``batch_term_bag_topk_cuda`` (K3): one launch of ``union_topk.cu`` per
   msearch or continuous-batch group, persistent blocks per (query chunk,
   segment) staging each union posting once in shared memory and scoring
@@ -32,14 +36,16 @@ which replaces the reference's ``gather_postings`` + ``impact_scores`` /
   tile's run of every row in shared memory with bulk asynchronous copies
   and decodes the ids there; ``term_bag_topk_segments_cuda`` sends a
   shard's quantized segments there, one launch per qvals dtype, beside
-  one f32 launch for the others), and ``term_bag_quantized_cuda``, the
-  per-slot entry, the quantized instantiation of ``term_bag_cuda``'s
-  kernel.
+  one f32 launch for the others), and the quantized instantiation of
+  the dense entry's kernel, which ``term_bag_dense_cuda`` launches for
+  quantized segments.
   Their plain twins are ``ops/bm25.py::term_bag_topk_segments`` and
-  ``ops/quantized.py``'s ``*_plain`` functions.
+  ``ops/bm25.py::term_bag_dense`` (``ops/quantized.py``'s ``*_plain``
+  functions).
 
 None ever falls back to its plain twin: a CUDA tensor gets the kernel
-or an exception.  ``.launches`` on each wrapper counts kernel launches.
+or an exception.  ``.launches`` on each wrapper (on ``dense_f32`` and
+``dense_quantized`` for the dense entry) counts kernel launches.
 """
 
 from __future__ import annotations
@@ -57,9 +63,9 @@ from opensearch_tpu_torch.ops import bm25, cuda_build
 # and ``quant_defines``).
 TILE_DOCS = 4096      # docs a block of a top-k entry owns (K2 and K4)
 # docs a block of the dense (per-slot) entry owns: the fastest of 512 to
-# 4,096 on the scale corpus's median and heaviest bags
-# (``testing/k2_sweep.py``'s fold sweep)
-FOLD_TILE_DOCS = 1024
+# 4,096 over the 16 scale segments in one launch, on the median and the
+# heaviest bag (``testing/k2_sweep.py``'s dense sweep)
+FOLD_TILE_DOCS = 2048
 K_MAX = 256           # largest k selected inside the kernel
 SEG_WORDS = 11        # int64 words per segment in the launch table
 QSEG_WORDS = 13       # ... per quantized segment
@@ -90,11 +96,8 @@ def quant_defines() -> dict:
 def _declare(lib):
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.term_bag_launch.argtypes = [p, p, p, p, p, p, p, i, i, p, p, p]
-    lib.term_bag_launch.restype = i
-    lib.term_bag_quantized_launch.argtypes = [
-        p, p, p, i, p, i, p, p, p, p, p, p, p, i, i, p, p, p]
-    lib.term_bag_quantized_launch.restype = i
+    lib.term_bag_dense_launch.argtypes = [p, i, i, i, i, p, p, p]
+    lib.term_bag_dense_launch.restype = i
     lib.term_bag_topk_segments_launch.argtypes = [
         p, i, i, i, i, i, ctypes.c_float, p, p, p, p, p, p]
     lib.term_bag_topk_segments_launch.restype = i
@@ -131,71 +134,6 @@ def _expect(t, name, dtype, dev, ndim=1):
         raise ValueError(f"[{name}] must be contiguous")
 
 
-def _check_bag(term_ids, term_active, idfs, weights, dev, scores: bool):
-    _expect(term_ids, "term_ids", torch.int32, dev)
-    _expect(term_active, "term_active", torch.bool, dev)
-    t_pad = term_ids.shape[0]
-    if term_active.shape[0] != t_pad:
-        raise ValueError("term_ids and term_active differ in length")
-    if scores:
-        _expect(idfs, "idfs", torch.float32, dev)
-        _expect(weights, "weights", torch.float32, dev)
-        if idfs.shape[0] != t_pad or weights.shape[0] != t_pad:
-            raise ValueError("idfs/weights must have t_pad entries")
-    return t_pad
-
-
-def _dense_out(n_pad: int, dev, scores: bool, counts: bool):
-    """The dense columns the kernel writes whole (no memset)."""
-    return (torch.empty(n_pad, dtype=torch.float32, device=dev)
-            if scores else None,
-            torch.empty(n_pad, dtype=torch.int32, device=dev)
-            if counts else None)
-
-
-def term_bag_cuda(offsets, doc_ids, impacts, term_ids, term_active, idfs,
-                  weights, *, n_pad: int, budget: int, scores: bool,
-                  counts: bool):
-    """Dense ``(scores f32 [n_pad] | None, counts i32 [n_pad] | None)``
-    for a bag of weighted terms over one field's staged postings, in one
-    launch.
-
-    ``offsets`` i32 [t_pad_offsets], ``doc_ids`` i32 [P_pad] (each row
-    doc-ascending, values < n_pad), ``impacts`` f32 [P_pad],
-    ``term_ids`` i32 [t_pad], ``term_active`` bool [t_pad], ``idfs`` /
-    ``weights`` f32 [t_pad]; ``impacts``/``idfs``/``weights`` may be
-    None when ``scores`` is False.  ``budget`` (the plain version's
-    gather lanes) is not read: the kernel finds each row's part of a
-    tile itself."""
-    dev = offsets.device
-    if dev.type != "cuda":
-        raise ValueError(f"term_bag_cuda needs CUDA tensors, got {dev}")
-    _expect(offsets, "offsets", torch.int32, dev)
-    _expect(doc_ids, "doc_ids", torch.int32, dev)
-    t_pad = _check_bag(term_ids, term_active, idfs, weights, dev, scores)
-    if scores:
-        _expect(impacts, "impacts", torch.float32, dev)
-        if impacts.shape[0] != doc_ids.shape[0]:
-            raise ValueError("impacts and doc_ids differ in length")
-    out_s, out_c = _dense_out(n_pad, dev, scores, counts)
-    if not (scores or counts):
-        return out_s, out_c
-    lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.term_bag_launch(
-        _ptr(offsets), _ptr(doc_ids), _ptr(impacts if scores else None),
-        _ptr(term_ids), _ptr(term_active),
-        _ptr(idfs if scores else None), _ptr(weights if scores else None),
-        t_pad, int(n_pad), _ptr(out_s), _ptr(out_c),
-        ctypes.c_void_p(stream))
-    cuda_build.check(lib, rc, "term_bag_launch")
-    cuda_build.count(term_bag_cuda)
-    return out_s, out_c
-
-
-term_bag_cuda.launches = 0
-
-
 def _q_bytes(qvals) -> int:
     q_bytes = _Q_BYTES.get(qvals.dtype)
     if q_bytes is None:
@@ -209,51 +147,127 @@ def _check_width(width: int) -> None:
         raise ValueError(f"width must be in 1..31, got {width}")
 
 
-def term_bag_quantized_cuda(offsets, packed, base, qvals, scales, exact_vals,
-                            exact_offsets, term_ids, term_active, idfs,
-                            weights, *, width: int, n_pad: int, budget: int,
-                            scores: bool, counts: bool):
-    """``term_bag_cuda`` over a quantized segment (K4's per-slot entry):
-    dense ``(scores f32 [n_pad] | None, counts i32 [n_pad] | None)`` in
-    one launch.
-
-    ``packed`` i32 (the uint32 words' bits, guard word included) at
-    ``width`` bits, ``base`` i32 / ``scales`` f32 / ``exact_offsets``
-    i32 per term, ``qvals`` int8 or int16 [P_pad], ``exact_vals`` f32,
-    as ``DeviceSegment.quantized`` stages them; the rest as
-    ``term_bag_cuda``."""
-    dev = offsets.device
+def _check_dense(bags, what: str, scores: bool):
+    """The device of ``bags`` (``bm25.DenseBag``s), which must be CUDA;
+    each bag's row tensors checked."""
+    if not bags:
+        raise ValueError(f"{what} needs a bag")
+    dev = bags[0].offsets.device
     if dev.type != "cuda":
-        raise ValueError(f"term_bag_quantized_cuda needs CUDA tensors, got "
-                         f"{dev}")
-    _check_width(width)
-    for t, name, dtype in ((offsets, "offsets", torch.int32),
-                           (packed, "packed", torch.int32),
-                           (base, "base", torch.int32),
-                           (scales, "scales", torch.float32),
-                           (exact_vals, "exact_vals", torch.float32),
-                           (exact_offsets, "exact_offsets", torch.int32)):
-        _expect(t, name, dtype, dev)
-    _expect(qvals, "qvals", qvals.dtype, dev)
-    q_bytes = _q_bytes(qvals)
-    t_pad = _check_bag(term_ids, term_active, idfs, weights, dev, scores)
-    out_s, out_c = _dense_out(n_pad, dev, scores, counts)
-    if not (scores or counts):
-        return out_s, out_c
-    lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.term_bag_quantized_launch(
-        _ptr(offsets), _ptr(packed), _ptr(base), int(width), _ptr(qvals),
-        q_bytes, _ptr(scales), _ptr(exact_vals), _ptr(exact_offsets),
-        _ptr(term_ids), _ptr(term_active), _ptr(idfs if scores else None),
-        _ptr(weights if scores else None), t_pad, int(n_pad), _ptr(out_s),
-        _ptr(out_c), ctypes.c_void_p(stream))
-    cuda_build.check(lib, rc, "term_bag_quantized_launch")
-    cuda_build.count(term_bag_quantized_cuda)
-    return out_s, out_c
+        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
+    for i, bag in enumerate(bags):
+        if bag.quant is not None:
+            q = bag.quant
+            _check_width(q.width)
+            _q_bytes(q.qvals)
+            _expect(q.qvals, f"bags[{i}].qvals", q.qvals.dtype, dev)
+            _expect(q.packed, f"bags[{i}].packed", torch.int32, dev)
+            _expect(q.exact_vals, f"bags[{i}].exact_vals", torch.float32,
+                    dev)
+            continue
+        _expect(bag.doc_ids, f"bags[{i}].doc_ids", torch.int32, dev)
+        if scores:
+            _expect(bag.impacts, f"bags[{i}].impacts", torch.float32, dev)
+            if bag.impacts.shape[0] != bag.doc_ids.shape[0]:
+                raise ValueError(f"bags[{i}]: impacts and doc_ids differ in "
+                                 "length")
+    return dev
 
 
-term_bag_quantized_cuda.launches = 0
+def dense_table(bags, out_offsets, scores: bool) -> tuple[np.ndarray, int,
+                                                          int]:
+    """The dense entry's launch table of ``bm25.DenseBag``s all of one row
+    layout, its block count and its slot count: ``launch_table``'s layout
+    at ``FOLD_TILE_DOCS`` docs a block, each segment's output row its
+    offset ``out_offsets[i]`` in the output arena, no counters.  Each
+    segment's row pointers are ``(doc_ids, impacts)`` (impacts 0 when
+    only counts are asked for) or ``(packed, qvals)`` on a quantized
+    one."""
+    active = [np.asarray(b.active, bool) for b in bags]
+    act = np.concatenate(active)
+    quant = bags[0].quant is not None
+
+    def ptrs(b):
+        if quant:
+            return (b.quant.packed.data_ptr(), b.quant.qvals.data_ptr(), 0)
+        return (b.doc_ids.data_ptr(), b.impacts.data_ptr() if scores else 0,
+                0)
+
+    return launch_table(
+        [ptrs(b) for b in bags], [b.n_pad for b in bags],
+        [int(a.sum()) for a in active],
+        np.concatenate([b.rows for b in bags])[act],
+        np.concatenate([b.idfs for b in bags])[act],
+        np.concatenate([b.weights for b in bags])[act], 0, False,
+        out_rows=out_offsets,
+        quant=_quant_words(bags, act) if quant else None,
+        tile_docs=FOLD_TILE_DOCS, counters=False)
+
+
+def dense_launches(bags, scores: bool) -> tuple[np.ndarray, list]:
+    """The host side of one dense call over ``bags``: the output arena's
+    offsets (each segment's ``n_pad`` docs end to end) and, per row layout
+    present in order of first appearance, ``(positions of its bags,
+    table, blocks, slots, q_bytes)``: one launch each, f32 (q_bytes 0),
+    then int8 (1) or int16 (2) quantized, each table ``dense_table`` of its
+    bags writing at their offsets."""
+    offsets = np.concatenate([[0], np.cumsum([b.n_pad for b in bags],
+                                             dtype=np.int64)])
+    groups: dict = {}
+    for i, bag in enumerate(bags):
+        groups.setdefault(_layout(bag), []).append(i)
+    launches = []
+    for layout, idx in groups.items():
+        table, n_blocks, n_slots = dense_table(
+            [bags[i] for i in idx], offsets[idx], scores)
+        launches.append((idx, table, n_blocks, n_slots,
+                         0 if layout is None else _Q_BYTES[layout]))
+    return offsets, launches
+
+
+class LaunchCount:
+    """Launches of one row layout of the dense entry (``.launches``):
+    ``term_bag_dense_cuda`` adds to ``dense_f32`` for its f32 launch and
+    to ``dense_quantized`` for each quantized one."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+dense_f32 = LaunchCount()
+dense_quantized = LaunchCount()
+
+
+def term_bag_dense_cuda(bags, *, scores: bool, counts: bool) -> list:
+    """Each bag's dense ``(scores f32 [n_pad] | None, counts i32 [n_pad] |
+    None)`` over every segment of ``bags`` (``bm25.DenseBag``s on one
+    CUDA device): views of one output arena per column, each segment's
+    docs written whole, zeros included; one launch for the f32 segments
+    (counted on ``dense_f32``) and one for the quantized segments of each
+    qvals dtype (on ``dense_quantized``).  A segment without the field
+    (``build_arrays``' stand-in rows, no active slot) gets its zero
+    columns."""
+    dev = _check_dense(bags, "term_bag_dense_cuda", scores)
+    offsets, launches = dense_launches(bags, scores)
+    n = int(offsets[-1])
+    out_s = (torch.empty(n, dtype=torch.float32, device=dev)
+             if scores else None)
+    out_c = torch.empty(n, dtype=torch.int32, device=dev) if counts else None
+    if scores or counts:
+        lib = _library()
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        for idx, table, n_blocks, n_slots, q_bytes in launches:
+            table_dev = torch.from_numpy(table).pin_memory().to(
+                dev, non_blocking=True)
+            rc = lib.term_bag_dense_launch(
+                _ptr(table_dev), len(idx), n_slots, n_blocks, q_bytes,
+                _ptr(out_s), _ptr(out_c), stream)
+            cuda_build.check(lib, rc, "term_bag_dense_launch")
+            cuda_build.count(dense_quantized if q_bytes else dense_f32)
+    sizes = [b.n_pad for b in bags]
+    return list(zip(*(
+        [None] * len(bags) if out is None else out.split(sizes)
+        for out in (out_s, out_c))))
 
 
 # -- the fused top-k: host-side layout (pure Python, tested on the CPU) --
@@ -263,9 +277,11 @@ def k_padded(k: int) -> int:
     return 1 << (int(k) - 1).bit_length()
 
 
-def n_tiles(n_pad: int) -> int:
-    """Blocks of the top-k launch for a segment of ``n_pad`` docs."""
-    return max(1, -(-int(n_pad) // TILE_DOCS))
+def n_tiles(n_pad: int, tile_docs: int = 0) -> int:
+    """Blocks of a launch for a segment of ``n_pad`` docs at
+    ``tile_docs`` docs a block (``TILE_DOCS``, the top-k entry's, when
+    0), at least one."""
+    return max(1, -(-int(n_pad) // (tile_docs or TILE_DOCS)))
 
 
 def _f32_bits(x) -> np.ndarray:
@@ -273,8 +289,8 @@ def _f32_bits(x) -> np.ndarray:
 
 
 def launch_table(ptrs, n_pads, slot_counts, rows, idfs, weights, required,
-                 fast, out_rows=None, quant=None) -> tuple[np.ndarray, int,
-                                                            int]:
+                 fast, out_rows=None, quant=None, tile_docs: int = 0,
+                 counters: bool = True) -> tuple[np.ndarray, int, int]:
     """The top-k launch's table, one int64 buffer copied to the card per
     query, its block count and its slot count.
 
@@ -297,11 +313,14 @@ def launch_table(ptrs, n_pads, slot_counts, rows, idfs, weights, required,
     pointers are then ``(packed, qvals, live)`` and its entry has
     ``QSEG_WORDS`` words, ending ``{exact_vals, width}``; each slot has
     ``QSLOT_WORDS`` words, ending ``{base | scale bits << 32, exact
-    start | exact << 32}``."""
+    start | exact << 32}``.  ``tile_docs`` is the docs of a block
+    (``TILE_DOCS`` when 0; the dense entry's ``FOLD_TILE_DOCS``);
+    ``counters`` False leaves out the zeros the dense entry does not
+    use."""
     n_seg = len(n_pads)
     seg_words, slot_words = ((SEG_WORDS, 2) if quant is None
                              else (QSEG_WORDS, QSLOT_WORDS))
-    tiles = np.asarray([n_tiles(n) for n in n_pads], np.int64)
+    tiles = np.asarray([n_tiles(n, tile_docs) for n in n_pads], np.int64)
     first = np.concatenate([[0], np.cumsum(tiles)])
     n_blocks = int(first[-1])
     slot_first = np.concatenate([[0], np.cumsum(slot_counts,
@@ -309,7 +328,7 @@ def launch_table(ptrs, n_pads, slot_counts, rows, idfs, weights, required,
     n_slots = int(slot_first[-1])
     head_words = n_seg * seg_words
     table = np.zeros(head_words + slot_words * n_slots + n_blocks
-                     + (3 * n_seg + 1) // 2, np.int64)
+                     + ((3 * n_seg + 1) // 2 if counters else 0), np.int64)
     if n_seg:
         head = table[:head_words].reshape(n_seg, seg_words)
         head[:, 0:3] = ptrs
@@ -419,8 +438,8 @@ def term_bag_topk_segments_cuda(segments, *, k: int,
     ``bm25.TermBagSegment``s on one CUDA device.  At ``k <= K_MAX`` one
     launch for all of the f32 segments (counted here) and one
     ``term_bag_topk_quantized_cuda`` launch for the quantized segments of
-    each qvals dtype, all writing one result; above it, each segment
-    takes the per-slot entry plus the stable sort."""
+    each qvals dtype, all writing one result; above it, one dense-entry
+    call over every segment, then each segment's stable sort."""
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     if not segments:
@@ -433,11 +452,14 @@ def term_bag_topk_segments_cuda(segments, *, k: int,
         _check_segment(seg, dev, i)
     out = bm25.empty_topk(len(segments), k, dev)
     if k > K_MAX:
+        cols = term_bag_dense_cuda([bm25.dense_bag(seg) for seg in segments],
+                                   scores=True,
+                                   counts=not segments[0].fast)
         for s, seg in enumerate(segments):
             cuda_build.count(term_bag_topk_segments_cuda,
                              attr="sorted_route_segments")
             bm25.write_topk_row(out, s, *bm25.segment_topk(
-                seg, k, min_score, plain=False))
+                seg, k, min_score, cols=cols[s]))
         return out
     groups: dict = {}
     for s, seg in enumerate(segments):

@@ -12,10 +12,12 @@ point at the dead slot ``n_docs``) included.
 
 ``range_mask``, ``term_mask`` and ``terms_mask`` are torch ops on any
 device, their own plain versions (the reference's are XLA ops too, not
-Pallas kernels).  ``postings_mask`` on CUDA tensors is K2's dense entry
-in counts-only mode (``ops/cuda_bm25.py`` ``term_bag_cuda``, one launch
-per call: every doc with a count above 0); ``postings_mask_plain`` is the
-reference's gather and scatter, which CPU tensors take.
+Pallas kernels).  The reference's ``postings_mask`` is
+``postings_mask_plain`` here (its gather and scatter); the plans read
+K2's dense entry in counts-only mode instead (``search/plan.py``
+``PostingsMaskPlan``, ``ops/bm25.py`` ``term_bag_dense_auto``: one
+launch over every segment of a request on CUDA, every doc with a count
+above 0).
 """
 
 from __future__ import annotations
@@ -58,24 +60,9 @@ def terms_mask(values, value_docs, query_values, *, n_pad: int):
 
 def postings_mask_plain(offsets, doc_ids, tfs, term_ids, term_active, *,
                         n_pad: int, budget: int):
-    """Plain version of ``postings_mask``: the reference's CSR gather of
+    """The reference's ``postings_mask``: its CSR gather of
     the terms' rows into ``budget`` lanes, then a scatter-any."""
     d, _tf, _slot, valid = bm25_ops.gather_postings(
         offsets, doc_ids, tfs, term_ids, term_active, budget=budget,
         pad_doc=n_pad - 1)
     return scatter_any(valid, d, n_pad)
-
-
-def postings_mask(offsets, doc_ids, tfs, term_ids, term_active, *,
-                  n_pad: int, budget: int):
-    """Docs containing any of the given indexed terms (term / terms filter
-    over an indexed field).  CUDA tensors launch K2's dense entry in
-    counts-only mode; CPU tensors take the plain version."""
-    if offsets.is_cuda:
-        from opensearch_tpu_torch.ops import cuda_bm25
-        _s, count = cuda_bm25.term_bag_cuda(
-            offsets, doc_ids, None, term_ids, term_active, None, None,
-            n_pad=n_pad, budget=budget, scores=False, counts=True)
-        return count > 0
-    return postings_mask_plain(offsets, doc_ids, tfs, term_ids, term_active,
-                               n_pad=n_pad, budget=budget)

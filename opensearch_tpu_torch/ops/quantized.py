@@ -14,13 +14,13 @@ q.float() * scales[term]`` in float32, the reference's order, so on the
 CPU these equal the reference byte for byte, and they equal the f32
 functions of ``ops/bm25.py`` fed ``QuantizedPostings.dequantized()``.
 
-``quantized_impact_scores`` and ``quantized_impact_score_count`` are the
-wrappers of the quantized per-slot entry of the term-bag kernel (K4,
-``csrc/bm25.cu`` ``term_bag_fold_kernel``, one launch per call): given
-CUDA tensors they launch it
-(``ops/cuda_bm25.py`` ``term_bag_quantized_cuda``) or raise; given CPU
-tensors they run the ``*_plain`` versions, which stay callable on any
-device so the kernel can be held against them on the card.
+The reference's ``quantized_impact_scores`` and
+``quantized_impact_score_count`` are the ``*_plain`` functions here: on
+the card a quantized bag's dense columns come from the quantized
+instantiation of the term-bag kernel's dense entry (K4's per-slot entry,
+``csrc/bm25.cu`` ``term_bag_dense_kernel``, one launch over a table of
+every quantized segment of a request, ``ops/cuda_bm25.py``
+``term_bag_dense_cuda``), held against them there.
 """
 
 from __future__ import annotations
@@ -117,44 +117,3 @@ def quantized_impact_score_count_plain(offsets, packed, base, qvals, scales,
     scores = scatter_in_slot_order(n_pad, d, slot, valid, contrib, t_pad,
                                    torch.float32)
     return scores, count
-
-
-def quantized_impact_scores(offsets, packed, base, qvals, scales,
-                            exact_vals, exact_offsets, term_ids, term_active,
-                            idfs, weights, *, width: int, n_pad: int,
-                            budget: int):
-    """Dense per-doc BM25 scores from a quantized segment's tables.  CUDA
-    tensors launch K4's per-slot entry; CPU tensors take the plain
-    version."""
-    args = (offsets, packed, base, qvals, scales, exact_vals, exact_offsets,
-            term_ids, term_active, idfs, weights)
-    if offsets.is_cuda:
-        from opensearch_tpu_torch.ops import cuda_bm25
-        scores, _count = cuda_bm25.term_bag_quantized_cuda(
-            *args, width=width, n_pad=n_pad, budget=budget, scores=True,
-            counts=False)
-        return scores
-    return quantized_impact_scores_plain(*args, width=width, n_pad=n_pad,
-                                         budget=budget)
-
-
-def quantized_impact_score_count(offsets, packed, base, qvals, scales,
-                                 exact_vals, exact_offsets, term_ids,
-                                 term_active, idfs, weights, *, width: int,
-                                 n_pad: int, budget: int, scored: bool):
-    """Scores and matched-slot counts (AND / minimum_should_match) from
-    a quantized segment's tables.  CUDA tensors launch K4's per-slot
-    entry; CPU tensors take the plain version."""
-    args = (offsets, packed, base, qvals, scales, exact_vals, exact_offsets,
-            term_ids, term_active, idfs, weights)
-    if offsets.is_cuda:
-        from opensearch_tpu_torch.ops import cuda_bm25
-        scores, count = cuda_bm25.term_bag_quantized_cuda(
-            *args, width=width, n_pad=n_pad, budget=budget, scores=scored,
-            counts=True)
-        if scores is None:
-            scores = torch.zeros(n_pad, dtype=torch.float32,
-                                 device=offsets.device)
-        return scores, count
-    return quantized_impact_score_count_plain(
-        *args, width=width, n_pad=n_pad, budget=budget, scored=scored)

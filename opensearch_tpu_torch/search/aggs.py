@@ -1381,26 +1381,35 @@ class AggregationExecutor:
             out.append((seg, dseg, matched & mask_fn(seg, dseg)))
         return out
 
-    def _filter_mask_fn(self, query_json):
+    def _filter_mask_fn(self, query_json, seg_views):
+        """``mask_fn`` of a filter query over the segments of
+        ``seg_views``, its masks made up front (``_run_masks``)."""
         from opensearch_tpu_torch.search.compiler import compile_query
         from opensearch_tpu_torch.search.query_dsl import parse_query
 
         plan, bind = compile_query(parse_query(query_json), self.ctx,
                                    scored=False)
-        return lambda seg, dseg: self._run_mask(plan, bind, seg, dseg)
+        masks = self._run_masks(plan, bind, seg_views)
+        return lambda seg, dseg: masks[id(seg)]
 
-    def _run_mask(self, plan, bind, seg, dseg):
-        """The matched mask of an unscored plan over one segment (the
-        query phase's per-segment program)."""
+    def _run_masks(self, plan, bind, seg_views) -> dict:
+        """The matched masks of an unscored plan over the segments of
+        ``seg_views``, by ``id(seg)`` (the query phase's program: each
+        term-bag leaf launched once over all of them, then the plan per
+        segment)."""
         from opensearch_tpu_torch.search import plan as P
         from opensearch_tpu_torch.search.executor import build_arrays
 
-        dims, ins = plan.prepare(bind, seg, dseg, self.ctx)
-        A = build_arrays(dseg, plan.arrays(), self.ctx.mapper,
-                         live=self.ctx.live_mask(seg, dseg),
-                         partial_ok=plan.skip_arrays(dims))
-        _scores, matched = P.run_full(plan, dims, A, ins, -np.inf)
-        return matched
+        items = []
+        for seg, dseg, _m in seg_views:
+            dims, ins = plan.prepare(bind, seg, dseg, self.ctx)
+            A = build_arrays(dseg, plan.arrays(), self.ctx.mapper,
+                             live=self.ctx.live_mask(seg, dseg),
+                             partial_ok=plan.skip_arrays(dims))
+            items.append((A, dims, ins))
+        P.dense_prepass(plan, items)
+        return {id(seg): P.run_full(plan, dims, A, ins, -np.inf)[1]
+                for (seg, _d, _m), (A, dims, ins) in zip(seg_views, items)}
 
     def _single_bucket(self, req, narrowed) -> dict:
         return {"t": "single",
@@ -1411,7 +1420,8 @@ class AggregationExecutor:
 
     def _part_filter(self, req, seg_views) -> dict:
         return self._single_bucket(
-            req, self._narrow(seg_views, self._filter_mask_fn(req.params)))
+            req, self._narrow(seg_views,
+                              self._filter_mask_fn(req.params, seg_views)))
 
     def _part_filters(self, req, seg_views) -> dict:
         filters = req.params.get("filters")
@@ -1419,7 +1429,8 @@ class AggregationExecutor:
             raise ParsingError("[filters] aggregation requires keyed filters")
         buckets = {}
         for key, query_json in filters.items():
-            narrowed = self._narrow(seg_views, self._filter_mask_fn(query_json))
+            narrowed = self._narrow(
+                seg_views, self._filter_mask_fn(query_json, seg_views))
             buckets[key] = self._single_bucket(req, narrowed)
         return {"t": "filters", "buckets": buckets}
 
@@ -1435,10 +1446,10 @@ class AggregationExecutor:
 
         plan, bind = compile_query(ExistsQuery(field=field), self.ctx,
                                    scored=False)
+        exists = self._run_masks(plan, bind, seg_views)
 
         def mask_fn(seg, dseg):
-            exists = self._run_mask(plan, bind, seg, dseg)
-            return ~exists & self.ctx.live_mask(seg, dseg)
+            return ~exists[id(seg)] & self.ctx.live_mask(seg, dseg)
         return self._single_bucket(req, self._narrow(seg_views, mask_fn))
 
     def _part_range(self, req, seg_views, is_date=False,

@@ -331,7 +331,7 @@ def batchable(searcher, body: dict, *, peek: bool = False):
     pruning may legally return lower-bound totals), ``from > 0``, plans
     other than a scored term bag, and ``size`` outside 1..K_MAX (K3 keeps
     at most K_MAX candidates per (query, segment), and the sequential
-    path, K2's per-slot entry plus the stable sort, gives the same answer
+    path, K2's dense entry plus the stable sort, gives the same answer
     for a larger page).  ``aggs`` / ``aggregations`` are excluded by name:
     the batched path answers hits only, and those keys are served keys
     of the sequential path.  Compiles through the searcher's plan cache; with ``peek`` only a plan

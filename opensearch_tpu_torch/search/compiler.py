@@ -448,23 +448,29 @@ def _c_knn(q, ctx, scored):
 
     qvec_t = torch.from_numpy(qvec).to(ctx.device)
     # phase 1: every segment's inputs (the filter's masks are launched
-    # here), then one top-k launch over them all.  ``inputs`` keeps every
-    # tensor the launch reads referenced until the host sync below.
-    inputs, orders = [], []
+    # here: each term-bag leaf of the filter once over every segment with
+    # the field), then one top-k launch over them all.  ``inputs`` keeps
+    # every tensor the launch reads referenced until the host sync below.
+    inputs, orders, filter_items = [], [], []
     for seg_order, seg in enumerate(ctx.segments):
         dseg = seg.device(ctx.device)
         vcol = dseg.vector.get(q.field)
         if vcol is None:
             continue
-        mask = None
         if filter_state is not None:
             fplan, fbind = filter_state
             A = build_arrays(dseg, fplan.arrays(), ctx.mapper)
             dims, ins = fplan.prepare(fbind, seg, dseg, ctx)
-            _s, mask = P.run_full(fplan, dims, A, ins, -np.inf)
+            filter_items.append((A, dims, ins))
         inputs.append(KnnSegment(vcol["values"], vcol["exists"],
-                                 ctx.live_mask(seg, dseg), mask))
+                                 ctx.live_mask(seg, dseg)))
         orders.append(seg_order)
+    if filter_state is not None:
+        fplan = filter_state[0]
+        P.dense_prepass(fplan, filter_items)
+        inputs = [s._replace(mask=P.run_full(fplan, dims, A, ins,
+                                             -np.inf)[1])
+                  for s, (A, dims, ins) in zip(inputs, filter_items)]
     candidates = []          # (score, seg_order, local)
     if inputs:
         vals, idx = knn_topk_segments_auto(inputs, qvec_t, space=space,

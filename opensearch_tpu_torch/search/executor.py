@@ -7,13 +7,21 @@ A scored ``match`` / ``term`` (a ``TermBagPlan`` at the root) takes every
 segment's top-k, total and max from one call (``ops/bm25.py``
 ``term_bag_topk_segments_auto``: one K2 launch on CUDA, or one K4 launch
 over segments that ``index/codec.py`` quantizes) and one read-back.
-Other plans, and requests that waive exact totals
-(``track_total_hits: false``, whose running k-th-score pruning needs
-results segment by segment), run one eager torch program per segment on
-the searcher's device, all launched before the host reads any result
-back.  The per-shard "reduce" over segments is a host-side k-way merge
-with Lucene's tie-break (score desc, then index order = (segment, local
-doc)).
+Other plans gather the segments the request evaluates first (can-match
+and ``min_score``-bound skips, the deadline at segment boundaries), launch
+each term-bag leaf of the plan once over all of them (``plan.py``
+``dense_prepass``: K2's dense entry, one launch per leaf and row layout
+on CUDA), run the rest of the plan as eager torch ops per segment, and
+take every segment's top-k, total and max from one call
+(``ops/bm25.py`` ``plan_topk_segments_auto``: one launch of the plan
+top-k, ``csrc/plan_topk.cu``) and one read-back.  Requests that waive
+exact totals (``track_total_hits: false``, whose running k-th-score
+pruning needs results segment by segment) launch the leaves once over
+the segments the same way, then keep one program per segment (a plan
+top-k of one segment each), all launched before the host reads any
+result back.  The per-shard "reduce" over segments is
+a host-side k-way merge with Lucene's tie-break (score desc, then index
+order = (segment, local doc)).
 
 ``msearch`` batches the bodies that compile to a scored term bag into
 one ``BatchGroup`` per (field, size) (``search/batch.py``: one K3 launch
@@ -491,45 +499,60 @@ class ShardSearcher:
         """Yields (seg, dseg, scores, matched) per segment.
         ``can_match_skip`` is ONLY safe for consumers that don't index
         the yielded tuples by position.  An expired ``deadline`` stops
-        the scan at the next segment boundary."""
+        the scan at the next segment boundary.  The plan's term-bag leaves
+        are launched once over every segment scanned before the first is
+        evaluated."""
         ms = self._min_score(min_score)
+        items = []
         for seg in self.segments:
             if deadline is not None and deadline.expired():
-                return
+                break
             if can_match_skip and not plan.can_match(bind, seg):
                 continue
-            dseg = seg.device(self.device)
-            dims, ins = self._prepared(plan, bind, seg, dseg, ckey)
-            A = build_arrays(dseg, needed, self.mapper,
-                             live=self.ctx.live_mask(seg, dseg),
-                             partial_ok=plan.skip_arrays(dims))
+            items.append(self._evaluated(plan, bind, needed, seg, ckey))
+        P.dense_prepass(plan, [(A, dims, ins)
+                               for _s, _d, dims, ins, A in items])
+        for seg, dseg, dims, ins, A in items:
             scores, matched = P.run_full(plan, dims, A, ins, ms)
             yield seg, dseg, scores, matched
 
+    def _evaluated(self, plan, bind, needed, seg, ckey) -> tuple:
+        """``(seg, dseg, dims, ins, A)``: one segment's prepared inputs
+        (cached per query) and its request-scoped arrays."""
+        dseg = seg.device(self.device)
+        dims, ins = self._prepared(plan, bind, seg, dseg, ckey)
+        A = build_arrays(dseg, needed, self.mapper,
+                         live=self.ctx.live_mask(seg, dseg),
+                         partial_ok=plan.skip_arrays(dims))
+        return seg, dseg, dims, ins, A
+
     def _topk_from_views(self, views, k_want):
         """(rows, total, max_score) out of an already-run full-scores pass
-        (aggs requests): every segment's top-k, read back in one copy."""
+        (aggs requests): every segment's top-k from one plan top-k call,
+        read back in one copy."""
         if k_want == 0:
             total = sum(int(m.sum()) for _s, _d, _sc, m in views)
             return [], total, None
         if not views:
             return [], 0, None
-        outs = [P.topk_from_scores(scores, min(k_want, dseg.n_pad), matched)
-                for _seg, dseg, scores, matched in views]
-        vals_h = torch.cat([o[0] for o in outs]).cpu().numpy()
-        idx_h = torch.cat([o[1] for o in outs]).cpu().numpy()
-        tot_h = torch.stack([o[2] for o in outs]).cpu().numpy()
-        mx_h = torch.stack([o[3] for o in outs]).cpu().numpy()
-        per_seg, off = [], 0
-        for si, (vals, _idx, _t, _m) in enumerate(outs):
-            n = vals.shape[0]
-            v, i = vals_h[off: off + n], idx_h[off: off + n]
-            off += n
-            keep = v > -np.inf
-            per_seg.append((v[keep], np.full(int(keep.sum()), si, _I32),
-                            i[keep]))
-        return self._merge_topk(per_seg, k_want, int(tot_h.sum()),
-                                float(mx_h.max()))
+        out = bm25_ops.plan_topk_segments_auto(
+            [bm25_ops.PlanScores(scores, matched)
+             for _seg, _dseg, scores, matched in views], k=k_want)
+        return self._rows_of(out, range(len(views)), k_want)
+
+    def _rows_of(self, out, order, k_want):
+        """(rows, total, max_score) of a ``TermBagTopK`` whose row ``j``
+        is segment ``order[j]``'s, read back in one copy."""
+        vals, ids, totals, maxes = out.numpy()
+        per_seg = []
+        for j, si in enumerate(order):
+            keep = vals[j] > -np.inf
+            per_seg.append((vals[j][keep],
+                            np.full(int(keep.sum()), si, _I32),
+                            ids[j][keep]))
+        return self._merge_topk(per_seg, k_want,
+                                sum(int(t) for t in totals),
+                                max(float(m) for m in maxes))
 
     def _merge_topk(self, per_seg, k_want, total, max_score):
         if not per_seg:
@@ -569,64 +592,96 @@ class ShardSearcher:
                                          ms_host, ckey, deadline=deadline),
                     False)
 
-        # phase 1: LAUNCH every segment's program without a host sync
-        launched = []      # [si, vals, idx, tot, mx, synced_vals, event]
-        kth = None         # running k-th best (harvested, host)
-        total_is_lower_bound = False
-        on_cuda = self.device.type == "cuda"
+        if allow_kth_prune:
+            return self._topk_per_segment(plan, bind, needed, k_want, ms,
+                                          ms_host, deadline, ckey)
+        # the segments this request evaluates, then each term-bag leaf
+        # launched once over all of them, then one plan top-k
+        items, order = [], []
         for si, seg in enumerate(self.segments):
             if deadline is not None and deadline.expired():
                 break              # partial top-k; response flags timed_out
             if not plan.can_match(bind, seg):
                 continue           # can-match skip: no staging, no program
-            if ms_host is not None or kth is not None:
-                bound = plan.max_score_bound(bind, seg)
-                if ms_host is not None and bound < ms_host:
-                    # exact: docs below min_score never count in totals
-                    continue
-                if kth is not None and bound <= kth:
-                    # the k-th holder launched earlier, so it wins any
-                    # tie at exactly `bound` (seg-asc tie-break); totals
-                    # become a lower bound
-                    total_is_lower_bound = True
-                    continue
-            dseg = seg.device(self.device)
-            dims, ins = self._prepared(plan, bind, seg, dseg, ckey)
-            A = build_arrays(dseg, needed, self.mapper,
-                             live=self.ctx.live_mask(seg, dseg),
-                             partial_ok=plan.skip_arrays(dims))
-            k = min(k_want, dseg.n_pad)
-            vals, idx, tot, mx = P.run_topk(plan, dims, k, A, ins, ms)
+            if ms_host is not None and \
+                    plan.max_score_bound(bind, seg) < ms_host:
+                continue           # exact: such docs never count in totals
+            items.append(self._evaluated(plan, bind, needed, seg, ckey))
+            order.append(si)
+        if not items:
+            return [], 0, None, False
+        P.dense_prepass(plan, [(A, dims, ins)
+                               for _s, _d, dims, ins, A in items])
+        entries = []
+        for _seg, _dseg, dims, ins, A in items:
+            scores, matched = plan.eval(A, dims, ins)
+            entries.append(bm25_ops.PlanScores(scores, matched, A["live"]))
+        out = bm25_ops.plan_topk_segments_auto(entries, k=k_want,
+                                               min_score=ms)
+        return (*self._rows_of(out, order, k_want), False)
+
+    def _topk_per_segment(self, plan, bind, needed, k_want, ms, ms_host,
+                          deadline, ckey):
+        """``_topk`` with exact totals waived: the plan's term-bag leaves
+        launched once over every segment that can match (``dense_prepass``),
+        then one program per segment (the rest of the plan and a plan
+        top-k of that segment), each launched before the host reads any
+        result back, so that segments that cannot beat the running k-th
+        score, harvested from programs already finished, are skipped."""
+        items = []
+        for si, seg in enumerate(self.segments):
+            if deadline is not None and deadline.expired():
+                break              # partial top-k; response flags timed_out
+            if not plan.can_match(bind, seg):
+                continue           # can-match skip: no staging, no program
+            if ms_host is not None and \
+                    plan.max_score_bound(bind, seg) < ms_host:
+                continue           # exact: such docs never count in totals
+            items.append((si, self._evaluated(plan, bind, needed, seg,
+                                              ckey)))
+        P.dense_prepass(plan, [(A, dims, ins)
+                               for _si, (_s, _d, dims, ins, A) in items])
+        # phase 1: LAUNCH every segment's program without a host sync
+        launched = []      # [si, vals, idx, tot, mx, synced_vals, event]
+        kth = None         # running k-th best (harvested, host)
+        total_is_lower_bound = False
+        on_cuda = self.device.type == "cuda"
+        for si, (seg, _d, dims, ins, A) in items:
+            if deadline is not None and deadline.expired():
+                break              # partial top-k; response flags timed_out
+            if kth is not None and plan.max_score_bound(bind, seg) <= kth:
+                # the k-th holder launched earlier, so it wins any tie at
+                # exactly the bound (seg-asc tie-break); totals become a
+                # lower bound
+                total_is_lower_bound = True
+                continue
+            scores, matched = plan.eval(A, dims, ins)
+            out = bm25_ops.plan_topk_segments_auto(
+                [bm25_ops.PlanScores(scores, matched, A["live"])], k=k_want,
+                min_score=ms)
             event = None
             if on_cuda:
                 event = torch.cuda.Event()
                 event.record()
-            launched.append([si, vals, idx, tot, mx, None, event])
-            if allow_kth_prune and si + 1 < len(self.segments):
+            launched.append([si, out.vals[0], out.ids[0], out.totals[0],
+                             out.maxes[0], None, event])
+            if si + 1 < len(self.segments):
                 kth = self._harvest_kth(launched, k_want, kth)
         if not launched:
             return [], 0, None, total_is_lower_bound
         # phase 2: ONE host-sync region over all segments' results
-        vals_h = torch.cat([e[1] for e in launched]).cpu().numpy()
-        idx_h = torch.cat([e[2] for e in launched]).cpu().numpy()
+        vals_h = torch.stack([e[1] for e in launched]).cpu().numpy()
+        idx_h = torch.stack([e[2] for e in launched]).cpu().numpy()
         tot_h = torch.stack([e[3] for e in launched]).cpu().numpy()
         mx_h = torch.stack([e[4] for e in launched]).cpu().numpy()
         per_seg = []
-        total = 0
-        max_score = -np.inf
-        off = 0
         for j, entry in enumerate(launched):
-            n = entry[1].shape[0]
-            vals, idx = vals_h[off: off + n], idx_h[off: off + n]
-            off += n
-            keep = vals > -np.inf
-            per_seg.append((vals[keep],
+            keep = vals_h[j] > -np.inf
+            per_seg.append((vals_h[j][keep],
                             np.full(int(keep.sum()), entry[0], _I32),
-                            idx[keep]))
-            total += int(tot_h[j])
-            max_score = max(max_score, float(mx_h[j]))
-        rows, total, max_score = self._merge_topk(per_seg, k_want, total,
-                                                  max_score)
+                            idx_h[j][keep]))
+        rows, total, max_score = self._merge_topk(
+            per_seg, k_want, int(tot_h.sum()), float(mx_h.max()))
         return rows, total, max_score, total_is_lower_bound
 
     def _topk_term_bag(self, plan, bind, needed, k_want, ms, ms_host,
@@ -659,17 +714,8 @@ class ShardSearcher:
             order.append(si)
         if not inputs:
             return [], 0, None
-        vals, ids, totals, maxes = bm25_ops.term_bag_topk_segments_auto(
-            inputs, k=k_want, min_score=ms).numpy()
-        per_seg = []
-        for j, si in enumerate(order):
-            keep = vals[j] > -np.inf
-            per_seg.append((vals[j][keep],
-                            np.full(int(keep.sum()), si, _I32),
-                            ids[j][keep]))
-        return self._merge_topk(per_seg, k_want,
-                                sum(int(t) for t in totals),
-                                max(float(m) for m in maxes))
+        return self._rows_of(bm25_ops.term_bag_topk_segments_auto(
+            inputs, k=k_want, min_score=ms), order, k_want)
 
     @staticmethod
     def _harvest_kth(launched, k_want, kth):

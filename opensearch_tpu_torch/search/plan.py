@@ -15,7 +15,14 @@ As in the reference:
   composition is masked arithmetic.
 
 There is no ``jit``: PyTorch runs eagerly, on whatever device the
-staged segment lives on.  The filter plans (numeric terms and ranges,
+staged segment lives on.  The term-bag leaves (``TermBagPlan``,
+``PostingsMaskPlan``) read their dense columns from K2's dense entry:
+``dense_prepass`` launches each leaf of a plan once over every segment a
+request evaluates (one launch per row layout on CUDA) and leaves each
+segment's views in its request-scoped arrays (``A["dense"]``, keyed by
+the leaf's prepared inputs); a leaf evaluated without them (the k-NN
+filter, an aggregation's filter mask) makes the same call over its one
+segment.  The filter plans (numeric terms and ranges,
 ordinal ranges, postings and term-range masks, exists, host masks) read
 the doc-value columns ``DeviceSegment`` stages, through
 ``ops/filters.py``.  ``ScriptScorePlan`` rescores its child by a
@@ -42,7 +49,6 @@ from opensearch_tpu_torch.index.segment import (LONG_MISSING_MAX,
                                                 pad_bucket, pad_pow2)
 from opensearch_tpu_torch.ops import bm25 as bm25_ops
 from opensearch_tpu_torch.ops import filters as filter_ops
-from opensearch_tpu_torch.ops import quantized as qops
 
 _I32 = np.int32
 _F32 = np.float32
@@ -85,6 +91,55 @@ def _live_n_pad(A) -> tuple:
     return live.shape[0], live.device
 
 
+def _term_slots(pf, terms):
+    """The padded query-term slots of ``terms`` over a segment's postings
+    ``pf`` (None: the field is absent) on the host: ``(t_pad, term ids,
+    active, row ranges [t_pad, 2], budget)``."""
+    t_pad = pad_pow2(len(terms), minimum=1)
+    tids = np.zeros(t_pad, dtype=_I32)
+    active = np.zeros(t_pad, dtype=bool)
+    rows = np.zeros((t_pad, 2), dtype=np.int64)
+    budget = 0
+    for i, t in enumerate(terms):
+        tid = pf.term_id(t) if pf is not None else -1
+        if tid >= 0:
+            tids[i] = tid
+            active[i] = True
+            rows[i] = pf.offsets[tid], pf.offsets[tid + 1]
+            budget += int(pf.df[tid])
+    return t_pad, tids, active, rows, pad_bucket(budget)
+
+
+def _dense_cols(leaf, A, dims, ins):
+    """A term-bag leaf's dense ``(scores | None, counts | None)`` on one
+    segment: the request's pre-pass views (``dense_prepass``) when it made
+    them, else one call of the dense entry over this segment alone."""
+    cols = A.get("dense", {}).get(id(ins))
+    if cols is None:
+        cols = bm25_ops.term_bag_dense_auto(
+            [leaf.dense_bag(A, dims, ins)], **leaf.dense_mode(dims))[0]
+    return cols
+
+
+def dense_prepass(plan, items) -> None:
+    """Launch every term-bag leaf of ``plan`` once over the segments of
+    ``items`` (``(A, dims, ins)`` per segment, as the caller prepared
+    them): one ``term_bag_dense_auto`` call per leaf, one launch per row
+    layout on CUDA.  Each segment's views go to its ``A["dense"]``, keyed
+    by the id of the leaf's inputs, which the caller holds for the
+    request: nothing enters the prepared inputs or the bindings, which the
+    searcher caches across requests."""
+    if not items:
+        return
+    walks = [list(plan.dense_leaves(dims, ins)) for _A, dims, ins in items]
+    for j, (leaf, dims0, _ins0) in enumerate(walks[0]):
+        bags = [leaf.dense_bag(A, w[j][1], w[j][2])
+                for (A, _d, _i), w in zip(items, walks)]
+        cols = bm25_ops.term_bag_dense_auto(bags, **leaf.dense_mode(dims0))
+        for (A, _d, _i), w, c in zip(items, walks, cols):
+            A.setdefault("dense", {})[id(w[j][2])] = c
+
+
 # ---------------------------------------------------------------------------
 # Plan nodes.  All frozen + hashable: static query structure only.
 # Each implements:
@@ -121,6 +176,12 @@ class Plan:
         small multiplicative margin so float32 rounding can never make a
         real score exceed them."""
         return math.inf
+
+    def dense_leaves(self, dims, ins):
+        """``(leaf, dims, ins)`` of every term-bag leaf under this plan, in
+        a fixed order (the same on every segment): what ``dense_prepass``
+        launches.  Composites walk their children's prepared inputs."""
+        return ()
 
 
 # float32 rounding can nudge a real score a few ulp above the float64
@@ -214,21 +275,7 @@ class TermBagPlan(Plan):
     def _slots(self, bind, seg):
         """The padded query-term slots on the host: ``(t_pad, term ids,
         active, row ranges [t_pad, 2], budget)``."""
-        terms = bind["terms"]
-        pf = seg.postings.get(self.field)
-        t_pad = pad_pow2(len(terms), minimum=1)
-        tids = np.zeros(t_pad, dtype=_I32)
-        active = np.zeros(t_pad, dtype=bool)
-        rows = np.zeros((t_pad, 2), dtype=np.int64)
-        budget = 0
-        for i, t in enumerate(terms):
-            tid = pf.term_id(t) if pf is not None else -1
-            if tid >= 0:
-                tids[i] = tid
-                active[i] = True
-                rows[i] = pf.offsets[tid], pf.offsets[tid + 1]
-                budget += int(pf.df[tid])
-        return t_pad, tids, active, rows, pad_bucket(budget)
+        return _term_slots(seg.postings.get(self.field), bind["terms"])
 
     def _scoring(self, bind, t_pad):
         """``(idfs f32 [t_pad], weights f32 [t_pad], fast)``.  Fast path:
@@ -243,29 +290,65 @@ class TermBagPlan(Plan):
                 np.concatenate([weights, pad])[:t_pad], fast)
 
     def prepare(self, bind, seg, dseg, ctx):
-        dev = dseg.device
-        t_pad, tids, active, _rows, budget = self._slots(bind, seg)
+        """dims ``(t_pad, budget, fast)``, and ``(t_pad, budget, fast,
+        width)`` on the quantized lowering; ins ``(slots, rows, required)``:
+        the host slots ``(term ids, active, idfs, weights, row ranges,
+        budget)`` (idfs and weights 0 in filter context), then the f32
+        impact column, or the quantized tables (``QuantizedBag``), or None
+        (filter context)."""
+        t_pad, tids, active, rows, budget = self._slots(bind, seg)
+        required = int(bind["required"])
         if not self.scored:
-            ins = (_tensor(tids, _I32, dev), _tensor(active, bool, dev),
-                   int(bind["required"]))
-            return (t_pad, budget, False), ins
+            zeros = np.zeros(t_pad, _F32)
+            return (t_pad, budget, False), (
+                (tids, active, zeros, zeros, rows, budget), None, required)
         idfs, weights, fast = self._scoring(bind, t_pad)
-        bag = (_tensor(tids, _I32, dev), _tensor(active, bool, dev),
-               _tensor(idfs, _F32, dev), _tensor(weights, _F32, dev))
+        slots = (tids, active, idfs, weights, rows, budget)
         if self._quantized(seg, dseg):
             # the quantized lowering: the tables ride in ``ins``, the f32
             # posting columns are never staged (``skip_arrays``), and
             # dims grows a 4th element, the delta width
-            q = dseg.quantized(self.field, bind["avgdl"])
-            width = seg.quantized_table(self.field, bind["avgdl"]).width
-            ins = (*bag, q["qvals"], q["scales"], q["exact_vals"],
-                   q["exact_offsets"], q["packed"], q["base"],
-                   int(bind["required"]))
-            return (t_pad, budget, fast, int(width)), ins
-        # quantize-ok: the f32 lowering (segments below the threshold)
-        ins = (*bag, dseg.impacts(self.field, bind["avgdl"]),
-               int(bind["required"]))
-        return (t_pad, budget, fast), ins
+            quant = self._quant_bag(bind, seg, dseg, tids)
+            return (t_pad, budget, fast, quant.width), (slots, quant,
+                                                        required)
+        # the f32 lowering (segments below the threshold)
+        impacts = dseg.impacts(self.field, bind["avgdl"])  # quantize-ok
+        return (t_pad, budget, fast), (slots, impacts, required)
+
+    def _quant_bag(self, bind, seg, dseg, tids) -> bm25_ops.QuantizedBag:
+        """The quantized tables of this segment and each slot's term base,
+        scale and exact range from the host tables (the kernels read them
+        from their launch tables)."""
+        qt = seg.quantized_table(self.field, bind["avgdl"])
+        q = dseg.quantized(self.field, bind["avgdl"])
+        e0, e1 = qt.exact_offsets[tids], qt.exact_offsets[tids + 1]
+        return bm25_ops.QuantizedBag(
+            q["qvals"], q["scales"], q["exact_vals"], q["exact_offsets"],
+            q["packed"], q["base"], int(qt.width),
+            qt.base[tids].astype(np.int64), qt.scales[tids],
+            np.where(e1 > e0, e0, -1).astype(np.int64))
+
+    def dense_mode(self, dims) -> dict:
+        """The dense entry's columns this leaf reads: counts only in filter
+        context, scores only on the fast path, else both."""
+        if not self.scored:
+            return dict(scores=False, counts=True)
+        return dict(scores=True, counts=not dims[2])
+
+    def dense_bag(self, A, dims, ins) -> bm25_ops.DenseBag:
+        """This segment's ``DenseBag``: the staged rows of ``A`` (or the
+        quantized tables of ``ins``) and the host slots of ``ins``."""
+        slots, rows, _required = ins
+        p = A["postings"][self.field]
+        n_pad = A["live"].shape[0]
+        if len(dims) == 4:
+            return bm25_ops.DenseBag(p["offsets"], None, None, n_pad, *slots,
+                                     quant=rows)
+        return bm25_ops.DenseBag(p["offsets"], p["doc_ids"], rows, n_pad,
+                                 *slots)
+
+    def dense_leaves(self, dims, ins):
+        return ((self, dims, ins),)
 
     def skip_arrays(self, dims) -> frozenset:
         # 4-tuple dims = quantized lowering: eval reads only the offsets
@@ -298,64 +381,17 @@ class TermBagPlan(Plan):
             imp = dseg.impacts(self.field, bind["avgdl"])  # quantize-ok
             return bm25_ops.TermBagSegment(p["offsets"], p["doc_ids"], imp,
                                            A["live"], *args)
-        # each slot's term base, scale and exact range from the host
-        # tables: the kernel reads them from its launch table
-        qt = seg.quantized_table(self.field, bind["avgdl"])
-        q = dseg.quantized(self.field, bind["avgdl"])
-        e0, e1 = qt.exact_offsets[tids], qt.exact_offsets[tids + 1]
-        quant = bm25_ops.QuantizedBag(
-            q["qvals"], q["scales"], q["exact_vals"], q["exact_offsets"],
-            q["packed"], q["base"], int(qt.width),
-            qt.base[tids].astype(np.int64), qt.scales[tids],
-            np.where(e1 > e0, e0, -1).astype(np.int64))
-        return bm25_ops.TermBagSegment(p["offsets"], None, None, A["live"],
-                                       *args, quant=quant)
+        return bm25_ops.TermBagSegment(
+            p["offsets"], None, None, A["live"], *args,
+            quant=self._quant_bag(bind, seg, dseg, tids))
 
     def eval(self, A, dims, ins):
-        p = A["postings"][self.field]
-        n_pad, dev = _live_n_pad(A)
-        if len(dims) == 4:
-            return self._eval_quantized(p["offsets"], n_pad, dims, ins)
-        t_pad, budget, fast = dims
+        scores, count = _dense_cols(self, A, dims, ins)
         if not self.scored:
-            tids, active, required = ins
-            count = bm25_ops.match_count(
-                p["offsets"], p["doc_ids"], p["tfs"], tids, active,
-                n_pad=n_pad, budget=budget)
+            n_pad, dev = _live_n_pad(A)
             return (torch.zeros(n_pad, dtype=torch.float32, device=dev),
-                    count >= required)
-        tids, active, idfs, weights, impacts, required = ins
-        if fast:
-            scores = bm25_ops.impact_scores(
-                p["offsets"], p["doc_ids"], impacts, tids, active,
-                idfs, weights, n_pad=n_pad, budget=budget)
-            matched = scores > 0.0
-        else:
-            scores, count = bm25_ops.impact_score_count(
-                p["offsets"], p["doc_ids"], impacts, tids, active,
-                idfs, weights, n_pad=n_pad, budget=budget, scored=True)
-            matched = count >= required
-        return torch.where(matched, scores, 0.0), matched
-
-    @staticmethod
-    def _eval_quantized(offsets, n_pad, dims, ins):
-        """``eval`` on the quantized lowering (the reference's
-        ``quantized_impact_scores`` / ``quantized_impact_score_count``;
-        K4's per-slot entry on CUDA)."""
-        _t_pad, budget, fast, width = dims
-        *tables, required = ins
-        tids, active, idfs, weights, qvals, scales, exact_vals, \
-            exact_offsets, packed, base = tables
-        args = (offsets, packed, base, qvals, scales, exact_vals,
-                exact_offsets, tids, active, idfs, weights)
-        kw = dict(width=width, n_pad=n_pad, budget=budget)
-        if fast:
-            scores = qops.quantized_impact_scores(*args, **kw)
-            matched = scores > 0.0
-        else:
-            scores, count = qops.quantized_impact_score_count(
-                *args, **kw, scored=True)
-            matched = count >= required
+                    count >= ins[2])
+        matched = scores > 0.0 if dims[2] else count >= ins[2]
         return torch.where(matched, scores, 0.0), matched
 
 
@@ -495,7 +531,8 @@ class OrdinalRangePlan(Plan):
 class PostingsMaskPlan(Plan):
     """Constant-score docs-containing-any-of-these-terms (terms query on a
     keyword/text field — Lucene TermInSetQuery).  bind: {terms, boost}.
-    On CUDA one launch of K2's dense entry in counts-only mode."""
+    K2's dense entry in counts-only mode: a doc matches with a count
+    above 0 (the reference's ``postings_mask``)."""
 
     field: str = ""
 
@@ -503,32 +540,27 @@ class PostingsMaskPlan(Plan):
         return frozenset({("postings", self.field)})
 
     def prepare(self, bind, seg, dseg, ctx):
-        terms = bind["terms"]
-        pf = seg.postings.get(self.field)
-        t_pad = pad_pow2(len(terms), minimum=1)
-        tids = np.zeros(t_pad, dtype=_I32)
-        active = np.zeros(t_pad, dtype=bool)
-        budget = 0
-        for i, t in enumerate(terms):
-            tid = pf.term_id(t) if pf is not None else -1
-            if tid >= 0:
-                tids[i] = tid
-                active[i] = True
-                budget += int(pf.df[tid])
-        dev = dseg.device
-        return ((t_pad, pad_bucket(budget)),
-                (_tensor(tids, _I32, dev), _tensor(active, bool, dev),
+        t_pad, tids, active, rows, budget = _term_slots(
+            seg.postings.get(self.field), bind["terms"])
+        zeros = np.zeros(t_pad, _F32)
+        return ((t_pad, budget),
+                ((tids, active, zeros, zeros, rows, budget),
                  _f32(bind["boost"])))
 
-    def eval(self, A, dims, ins):
-        t_pad, budget = dims
-        tids, active, boost = ins
+    def dense_mode(self, dims) -> dict:
+        return dict(scores=False, counts=True)
+
+    def dense_bag(self, A, dims, ins) -> bm25_ops.DenseBag:
         p = A["postings"][self.field]
-        n_pad, _dev = _live_n_pad(A)
-        matched = filter_ops.postings_mask(
-            p["offsets"], p["doc_ids"], p["tfs"], tids, active,
-            n_pad=n_pad, budget=budget)
-        return _const(matched, boost)
+        return bm25_ops.DenseBag(p["offsets"], p["doc_ids"], None,
+                                 A["live"].shape[0], *ins[0])
+
+    def dense_leaves(self, dims, ins):
+        return ((self, dims, ins),)
+
+    def eval(self, A, dims, ins):
+        _scores, count = _dense_cols(self, A, dims, ins)
+        return _const(count > 0, ins[1])
 
 
 @dataclass(frozen=True)
@@ -659,6 +691,9 @@ class ScriptScorePlan(Plan):
                           _f32(bind["boost"]),
                           _f32(-np.inf if ms is None else ms))
 
+    def dense_leaves(self, dims, ins):
+        return self.child.dense_leaves(dims[0], ins[0])
+
     def eval(self, A, dims, ins):
         (cdims,) = dims
         cins, ncols, vcols, param_vals, boost, min_score = ins
@@ -735,6 +770,10 @@ class BoolPlan(Plan):
             self._children(), bind["children"], seg, dseg, ctx)
         return cdims, (cins, _f32(bind["boost"]), int(bind["required"]))
 
+    def dense_leaves(self, dims, ins):
+        return tuple(leaf for c, d, i in zip(self._children(), dims, ins[0])
+                     for leaf in c.dense_leaves(d, i))
+
     def eval(self, A, dims, ins):
         cins, boost, required = ins
         n_pad, dev = _live_n_pad(A)
@@ -778,6 +817,9 @@ class ConstScorePlan(Plan):
         cdims, cins = self.child.prepare(bind["child"], seg, dseg, ctx)
         return cdims, (cins, _f32(bind["boost"]))
 
+    def dense_leaves(self, dims, ins):
+        return self.child.dense_leaves(dims, ins[0])
+
     def eval(self, A, dims, ins):
         cins, boost = ins
         _s, matched = self.child.eval(A, dims, cins)
@@ -787,26 +829,6 @@ class ConstScorePlan(Plan):
 # ---------------------------------------------------------------------------
 # Entry points (the reference's jit entry points, run eagerly).
 # ---------------------------------------------------------------------------
-
-
-def run_topk(plan: Plan, dims, k: int, A, ins, min_score):
-    """(top_scores[k], top_local_ids[k] i32, total_matched, max_score),
-    all tensors on the segment's device.  Ties go to the lower doc id
-    (Lucene's ascending-doc-id tie-break).  ``min_score`` (-inf when
-    unset) excludes docs from hits AND total, matching
-    MinimumScoreCollector semantics."""
-    scores, matched = plan.eval(A, dims, ins)
-    matched = matched & A["live"] & (scores >= min_score)
-    key = torch.where(matched, scores, -torch.inf)
-    vals, idx = bm25_ops.topk(key, k)
-    return vals, idx, matched.sum(), torch.max(key)
-
-
-def topk_from_scores(scores, k: int, matched):
-    """Top-k over an already-computed (scores, matched) pair."""
-    key = torch.where(matched, scores, -torch.inf)
-    vals, idx = bm25_ops.topk(key, k)
-    return vals, idx, matched.sum(), torch.max(key)
 
 
 def run_full(plan: Plan, dims, A, ins, min_score):

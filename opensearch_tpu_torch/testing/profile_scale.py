@@ -30,9 +30,10 @@ and ``fare``).  Prints one JSON line per query kind: wall ms
 per query (profiler on), device busy ms per query (the sum of the CUDA
 kernels' and copies' own time; one stream, so they do not overlap), the
 idle share ``1 - busy / wall``, the device calls (kernels and copies)
-per query, the ``cudaLaunchKernel`` calls, the CUB radix-sort kernels and
-K1's scores kernels (and their device ms) per query, the top device
-entries and the top host ops by self time.
+per query, the ``cudaLaunchKernel`` calls, the CUB radix-sort kernels,
+K1's scores kernels, K2's dense-entry kernels and the plan top-k's (and
+their device ms) per query, the top device entries and the top host ops
+by self time.
 Needs CUDA; without it, exits non-zero.
 """
 
@@ -205,6 +206,14 @@ def profile_window(searcher, bodies: list, batch: int = 0) -> dict:
         "k1_scores_device_ms_per_query": sum(
             _device_self_us(e) for e in dev
             if "knn_scores_kernel" in e.key) / 1e3 / n,
+        **{f"{name}_kernels_per_query": sum(
+            e.count for e in dev if kernel in e.key) / n
+           for name, kernel in (("dense", "term_bag_dense_kernel"),
+                                ("plan_topk", "plan_topk_kernel"))},
+        **{f"{name}_device_ms_per_query": sum(
+            _device_self_us(e) for e in dev if kernel in e.key) / 1e3 / n
+           for name, kernel in (("dense", "term_bag_dense_kernel"),
+                                ("plan_topk", "plan_topk_kernel"))},
         "k5_kernels_per_query": sum(
             e.count for e in dev if "agg_" in e.key) / n,
         "k5_device_ms_per_query": sum(

@@ -44,11 +44,12 @@ from opensearch_tpu_torch.index.segment import (LONG_MISSING_MAX,
                                                 segment_from_arrays)
 from opensearch_tpu_torch.mapping.mapper import DocumentMapper
 from opensearch_tpu_torch.node import Node
+from opensearch_tpu_torch.ops import bm25 as tbm25
 from opensearch_tpu_torch.ops import filters as tfilters
 from opensearch_tpu_torch.search.executor import ShardSearcher
 from opensearch_tpu_torch.testing import corpus
 from opensearch_tpu_torch.testing.parity import knn_mismatch
-from test_torch_ops import both as csr_both, csr_case
+from test_torch_ops import both as csr_both, case_bag, csr_case
 from test_torch_rest import both as http_both
 
 TAGS = [f"g{i}" for i in range(9)]
@@ -267,8 +268,12 @@ def test_postings_mask_equals_the_reference(case):
     j, t = csr_both(c, "offsets", "doc_ids", "tfs", "tids", "active")
     kw = dict(n_pad=c["n_pad"], budget=c["budget"])
     ref = np.asarray(jfilters.postings_mask(*j, **kw))
-    for fn in (tfilters.postings_mask, tfilters.postings_mask_plain):
-        np.testing.assert_array_equal(fn(*t, **kw).numpy(), ref)
+    np.testing.assert_array_equal(
+        tfilters.postings_mask_plain(*t, **kw).numpy(), ref)
+    # the dense entry's counts-only mode, as PostingsMaskPlan reads it
+    (_s, counts), = tbm25.term_bag_dense_auto([case_bag(c, scores=False)],
+                                              scores=False, counts=True)
+    np.testing.assert_array_equal((counts > 0).numpy(), ref)
     assert ref.any() == (case[3] > case[4])   # no active slot: no match
 
 

@@ -77,6 +77,18 @@ def both(c, *names):
             [torch.from_numpy(c[n]) for n in names])
 
 
+def case_bag(c, scores: bool = True) -> tbm25.DenseBag:
+    """A ``csr_case`` as the dense entry's bag: the staged rows as CPU
+    tensors, the slots' posting ranges read from the host offsets."""
+    tids = c["tids"]
+    rows = np.stack([c["offsets"][tids], c["offsets"][tids + 1]],
+                    axis=1).astype(np.int64)
+    return tbm25.DenseBag(
+        torch.from_numpy(c["offsets"]), torch.from_numpy(c["doc_ids"]),
+        torch.from_numpy(c["impacts"]) if scores else None, c["n_pad"],
+        tids, c["active"], c["idfs"], c["weights"], rows, c["budget"])
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_gather_postings_byte_exact(case):
     c = csr_case(*case)
@@ -97,20 +109,24 @@ def test_impact_scores_and_counts_byte_exact(case):
     c = csr_case(*case)
     names = ("offsets", "doc_ids", "impacts", "tids", "active", "idfs",
              "weights")
-    j, t = both(c, *names)
+    j, _t = both(c, *names)
     kw = dict(n_pad=c["n_pad"], budget=c["budget"])
+    # the dispatcher the plans call, on CPU tensors: its plain version
+    (got, none), = tbm25.term_bag_dense_auto([case_bag(c)], scores=True,
+                                             counts=False)
     ref = np.asarray(jbm25.impact_scores(*j, **kw))
-    got = tbm25.impact_scores(*t, **kw).numpy()
-    assert ref.tobytes() == got.tobytes()
-    for scored in (True, False):
-        rs, rc = jbm25.impact_score_count(*j, **kw, scored=scored)
-        gs, gc = tbm25.impact_score_count(*t, **kw, scored=scored)
-        assert np.asarray(rs).tobytes() == gs.numpy().tobytes()
-        assert np.asarray(rc).tobytes() == gc.numpy().tobytes()
-    jm, tm = both(c, "offsets", "doc_ids", "tfs", "tids", "active")
+    assert none is None and ref.tobytes() == got.numpy().tobytes()
+    rs, rc = jbm25.impact_score_count(*j, **kw, scored=True)
+    (gs, gc), = tbm25.term_bag_dense_auto([case_bag(c)], scores=True,
+                                          counts=True)
+    assert np.asarray(rs).tobytes() == gs.numpy().tobytes()
+    assert np.asarray(rc).tobytes() == gc.numpy().tobytes()
+    jm, _tm = both(c, "offsets", "doc_ids", "tfs", "tids", "active")
     rm = np.asarray(jbm25.match_count(*jm, **kw))
-    gm = tbm25.match_count(*tm, **kw).numpy()
-    assert rm.tobytes() == gm.tobytes()
+    (none, gm), = tbm25.term_bag_dense_auto([case_bag(c, scores=False)],
+                                            scores=False, counts=True)
+    gm = gm.numpy()
+    assert none is None and rm.tobytes() == gm.tobytes()
     # several docs match more than one term, so the order matters
     assert (gm >= 2).any() or case[3] - case[4] < 2
 
@@ -237,13 +253,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                  torch.from_numpy(valid),
                                  torch.from_numpy(query), space="l2")
     c = csr_case(3, 50, 12, 2, 0)
-    _j, t = both(c, "offsets", "doc_ids", "impacts", "tids", "active",
-                 "idfs", "weights")
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_bm25.term_bag_cuda(*t, n_pad=c["n_pad"], budget=c["budget"],
-                                scores=True, counts=True)
+        cuda_bm25.term_bag_dense_cuda([case_bag(c)], scores=True,
+                                      counts=True)
+    (scores, counts), = tbm25.term_bag_dense_auto([case_bag(c)],
+                                                  scores=True, counts=True)
+    assert scores.shape == counts.shape == (c["n_pad"],)
     assert cuda_knn.knn_scores_cuda.launches == 0
-    assert cuda_bm25.term_bag_cuda.launches == 0
+    assert cuda_bm25.dense_f32.launches == 0
 
 
 # -- the fused top-k over segments (K1's top-k entry) ----------------------
@@ -715,7 +732,7 @@ def test_term_bag_topk_segments_auto_takes_the_plain_twin_on_cpu(
             assert all(x.tobytes() == y.tobytes()
                        for x, y in zip(a.numpy(), b.numpy()))
     assert cuda_bm25.term_bag_topk_segments_cuda.launches == 0
-    assert cuda_bm25.term_bag_cuda.launches == 0
+    assert cuda_bm25.dense_f32.launches == 0
 
 
 @pytest.mark.parametrize("k,kp", [(1, 1), (10, 16), (100, 128),

@@ -241,12 +241,12 @@ def test_plain_k4_equals_the_reference_quantized_ops(dtype, seed,
     for a, b in ((d, jd), (idx, jidx), (slot, jslot), (valid, jvalid)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
-    got = tquant.quantized_impact_scores(*t_args, **kw)
+    got = tquant.quantized_impact_scores_plain(*t_args, **kw)
     ref = jquant.quantized_impact_scores(*j_args, **kw)
     assert got.numpy().tobytes() == np.asarray(ref).tobytes()
     for scored in (True, False):
-        gs, gc = tquant.quantized_impact_score_count(*t_args, **kw,
-                                                     scored=scored)
+        gs, gc = tquant.quantized_impact_score_count_plain(
+            *t_args, **kw, scored=scored)
         rs, rc = jquant.quantized_impact_score_count(*j_args, **kw,
                                                      scored=scored)
         assert gs.numpy().tobytes() == np.asarray(rs).tobytes()
@@ -484,15 +484,9 @@ def test_k4_wrappers_refuse_cpu_tensors(quantized_pair):
         cuda_bm25.term_bag_topk_quantized_cuda([inp], k=10)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_bm25.term_bag_topk_segments_cuda([inp], k=10)
-    q = inp.quant
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_bm25.term_bag_quantized_cuda(
-            dseg.postings["body"]["offsets"], q.packed, q.base, q.qvals,
-            q.scales, q.exact_vals, q.exact_offsets,
-            torch.from_numpy(inp.term_ids), torch.from_numpy(inp.active),
-            torch.from_numpy(inp.idfs), torch.from_numpy(inp.weights),
-            width=q.width, n_pad=dseg.n_pad, budget=inp.budget,
-            scores=True, counts=True)
+        cuda_bm25.term_bag_dense_cuda([tbm25.dense_bag(inp)],
+                                      scores=True, counts=True)
 
 
 # -- the staging lint --------------------------------------------------------
