@@ -92,8 +92,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
    segments (a day ``date_histogram`` with a ``stats`` sub, ``terms``
    with two subs, the single mode over ``fare``) beside the
    ``index_add_`` / ``scatter_reduce_`` chain or ``v.sum()`` /
-   ``v.aminmax()``; and the filter masks (``range_mask``,
-   ``term_mask``, ``terms_mask``) timed alone on one segment.
+   ``v.aminmax()``; the filter masks (``range_mask``,
+   ``term_mask``, ``terms_mask``) timed alone on one segment; and K6
+   and K7, the IVF / IVF-PQ kernels (``csrc/ivf.cu``:
+   ``ivf_search_segments_cuda``, ``ivfpq_search_segments_cuda``, a
+   probe and a scan kernel a call over every (query, segment)), byte
+   for byte against their plain twins and run to run, on indexes
+   trained on the card: three segments a call (deletes, rows without
+   the field, clusters of one row) x 3 queries, d = 3 and 100, K6 in the
+   three spaces and K7 in l2, nprobe 1, nlist // 8 and nlist, k 1, 10,
+   K_MAX and K_MAX + 1 (the sorted route, counted), and a ``knn`` on an
+   ``ivf`` field through ``ShardSearcher`` over three segments, one
+   without the field, equal to the CPU searcher (phase 13 times them).
    The scale corpus carries doc-value columns (``testing/corpus.py``
    ``doc_value_columns``: ``price`` long, ``ts`` date, ``tag`` keyword
    with postings and ordinals, ``fare`` double) in both layouts, for
@@ -248,13 +258,38 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (20,000 docs in 2 shards, 5,000 with a ``vec`` since phase 10's
    hybrids; one K1 scores launch per request and vector function, each
    held to the CPU searcher).  One ``script_score:`` line
-   prints qps and p50 per kind and the layer times.
+   prints qps and p50 per kind and the layer times;
+13. ANN at GloVe-100's shape (BASELINE config 3: ``ivf_pq``, cosine):
+   1,183,514 clustered 100-d vectors (``testing/corpus.py``
+   ``clustered_vectors``, 4,096 centres; GloVe-100 itself is not in the
+   repository) in 16 segments of ~73,970 (default nlist 271, nprobe
+   33), with ``price``, ``ts`` and ``tag`` columns; ``vec`` mapped as
+   ``ivf_pq`` (m = 10) in the cosine space (which probes the flat
+   layout: K6) and, by a second mapper over the same segments, in l2
+   (the ADC route: K7).  Every segment's indexes are trained on the card
+   first (seconds per segment printed; two trainings of one segment
+   byte-equal) and staged (bytes beside the reference's padded
+   ``[nlist, c_pad, d]``).  Traffic, k = 10: 100 cosine queries at the
+   default nprobe, 50 at ``method_parameters.nprobe`` 8, 50 at nprobe =
+   nlist (ids equal to exact K1's), 100 l2 ``ivf_pq`` queries and 20
+   with a ``price`` filter (the exact route: one K1 launch each); qps,
+   p50, K6 / K7 / K1 launches a query (1 / 0 / 0, 0 / 1 / 0, 0 / 0 / 1
+   checked), recall@10 against exact K1 on the card, and a sample of
+   each kind equal to the CPU searcher over the same segments (which
+   reuses the card-trained indexes).  K6 and K7 are then timed at this
+   shape in turns with their plain twins, beside ``torch.topk`` over
+   ``flat_v @ q`` of the probed rows and exact K1 over the same
+   segments.  Phase 9 also feeds an index ``ann`` (5,000 clustered
+   100-d vectors, ``ivf``, cosine) by ``_bulk`` and sends it 10 ``knn``
+   ``_search`` requests over HTTP (one K6 launch each), held to the CPU
+   searcher.
 
 Every kernel wrapper counts its launches; the counts are zeroed just
 before phase 3 and read after phase 4, and zeroed again just before
 phases 5, 6, 7, 8, 9, phase 10's hybrids and phase 11's requests over
-HTTP, phase 10, phase 11, phase 12's requests over HTTP and phase 12
-and read after each: each kernel of each path must have run.
+HTTP, phase 10, phase 11, phase 12's requests over HTTP, phase 12, phase
+9's ANN requests and phase 13 and read after each: each kernel of each
+path must have run.
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the
 script exits non-zero and prints no result.
@@ -358,7 +393,7 @@ def phase_toolkit():
     import torch
 
     from opensearch_tpu_torch.ops import (cuda_aggs, cuda_bm25, cuda_build,
-                                          cuda_knn, cuda_plan)
+                                          cuda_ivf, cuda_knn, cuda_plan)
 
     nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
@@ -370,8 +405,9 @@ def phase_toolkit():
     log(f"gpu: {gpu_name_power()}")
     t0 = time.monotonic()
     logs = cuda_build.build(["knn", "bm25", "union_topk", "quant_topk",
-                             "aggs", "plan_topk"],
+                             "aggs", "plan_topk", "ivf"],
                             {"knn": cuda_knn.defines(),
+                             "ivf": cuda_ivf.defines(),
                              "bm25": cuda_bm25.defines(),
                              "quant_topk": cuda_bm25.quant_defines(),
                              "aggs": cuda_aggs.defines(),
@@ -4598,6 +4634,498 @@ def phase_script_score(segs, mapper, searcher, counters, http=None) -> dict:
             "wall_s": phase_s}
 
 
+# -- phase 2: K6 and K7 ------------------------------------------------------
+
+def ann_hits_mismatch(got: dict, want: dict):
+    """None when two ANN responses hold the same ids in the same order
+    with scores within rtol 1e-5 / atol 1e-6 (the card and the CPU sum
+    in the same float64 order, so they are equal in practice), else a
+    message."""
+    from opensearch_tpu_torch.ops.knn import ATOL, RTOL
+
+    gh, wh = got["hits"]["hits"], want["hits"]["hits"]
+    if [h["_id"] for h in gh] != [h["_id"] for h in wh]:
+        return (f"ids differ: {[h['_id'] for h in gh]} vs "
+                f"{[h['_id'] for h in wh]}")
+    for g, w in zip(gh, wh):
+        if abs(g["_score"] - w["_score"]) > ATOL + RTOL * abs(w["_score"]):
+            return f"scores differ: {g} vs {w}"
+    return None
+
+
+def ivf_check_sets(dev, gen, d: int, pq: bool) -> list:
+    """(staged index, live mask) of three segments of clustered d-wide
+    vectors trained on the card: 20,000 rows (nlist 141), 600 (nlist
+    24) and 40 rows in 30 clusters (most of one row); some rows without
+    the field, ~10% of every live mask deleted."""
+    import torch
+
+    from opensearch_tpu_torch.index.segment import pad_pow2
+    from opensearch_tpu_torch.ops import ivf
+    from opensearch_tpu_torch.testing.corpus import clustered_vectors
+
+    m = 3 if d == 3 else 10
+    out = []
+    for s, (n, nlist) in enumerate(((20_000, 141), (600, 24), (40, 30))):
+        x = clustered_vectors(n, d, 64, seed=40 + s)
+        valid = np.ones(n, bool)
+        valid[s::13] = False
+        idx = (ivf.IvfPqIndex.build(x, valid, nlist, m=m, device=dev) if pq
+               else ivf.IvfIndex.build(x, valid, nlist, device=dev))
+        live = torch.rand(pad_pow2(n + 1), device=dev, generator=gen) > 0.1
+        out.append((ivf.stage_index(idx, dev), live))
+    return out
+
+
+def phase_ivf_kernels(dev, gen) -> dict:
+    """K6 (``ivf_search_segments_cuda``) and K7
+    (``ivfpq_search_segments_cuda``) byte-equal to their plain twins
+    (``ops/ivf.py`` ``ivf_search_segments`` / ``ivfpq_search_segments``)
+    and launch to launch: three segments in one call (deletes, rows
+    without the field, clusters of one row) and 3 queries at d = 3 and
+    100; K6 in the three spaces, K7 in l2; nprobe 1, nlist // 8 and
+    nlist; k 1, 10, K_MAX and K_MAX + 1 (the sorted route, counted),
+    each capped at a segment's candidates as the compiler caps it; one
+    launch per call and route.  Phase 13 times them at the main path's
+    shape."""
+    import torch
+
+    from opensearch_tpu_torch.ops import cuda_ivf, ivf
+    from opensearch_tpu_torch.testing.corpus import clustered_vectors
+
+    t0 = time.monotonic()
+    checked = 0
+    for pq in (False, True):
+        fn = (cuda_ivf.ivfpq_search_segments_cuda if pq
+              else cuda_ivf.ivf_search_segments_cuda)
+        for d in (3, 100):
+            sets = ivf_check_sets(dev, gen, d, pq)
+            qs = torch.from_numpy(clustered_vectors(3, d, 64, seed=40)).to(
+                dev)
+            spaces = ("l2",) if pq else ("l2", "cosinesimil",
+                                         "innerproduct")
+            for space in spaces:
+                for rule in ("1", "nlist // 8", "nlist"):
+                    for k in (1, 10, cuda_ivf.K_MAX, cuda_ivf.K_MAX + 1):
+                        items = []
+                        for st, live in sets:
+                            nprobe = {"1": 1, "nlist": st.nlist}.get(
+                                rule, max(1, st.nlist // 8))
+                            items.append(ivf.IvfSegment(
+                                st, live, nprobe,
+                                min(k, live.shape[0], nprobe * st.c_pad)))
+                        before = (fn.launches, fn.sorted_route_segments)
+
+                        def call():
+                            return (fn(items, qs) if pq
+                                    else fn(items, qs, space=space))
+                        got = call()
+                        moved = (fn.launches - before[0],
+                                 fn.sorted_route_segments - before[1])
+                        big = sum(s.k > cuda_ivf.K_MAX for s in items)
+                        if moved != (int(big < len(items)) + int(big > 0),
+                                     big):
+                            raise AssertionError(
+                                f"K{7 if pq else 6} d={d} {rule} k={k}: "
+                                f"{moved} launches / sorted segments, "
+                                f"want {big} sorted")
+                        again = call()
+                        want = (ivf.ivfpq_search_segments(items, qs) if pq
+                                else ivf.ivf_search_segments(items, qs,
+                                                             space=space))
+                        for name, (a, b) in (("plain", (got, want)),
+                                             ("run-to-run", (got, again))):
+                            if not (torch.equal(a[0].view(torch.int32),
+                                                b[0].view(torch.int32))
+                                    and torch.equal(a[1], b[1])):
+                                raise AssertionError(
+                                    f"K{7 if pq else 6} d={d} {space} "
+                                    f"nprobe {rule} k={k}: not byte-equal "
+                                    f"({name})")
+                        checked += 1
+        log(f"K{7 if pq else 6} ({'IVF-PQ, l2' if pq else 'IVF, 3 spaces'})"
+            f": byte-equal to its plain twin and run to run at d = 3 and "
+            f"100, nprobe 1 / nlist // 8 / nlist, k 1 / 10 / K_MAX / "
+            f"K_MAX + 1, 3 segments (deletes, rows without the field, "
+            f"clusters of one row) x 3 queries a call")
+    log(f"K6 / K7 checks: {checked} calls in {time.monotonic() - t0:.1f}s")
+    return {"checked_calls": checked, "max_abs_err": 0.0}
+
+
+def phase_ivf_searcher(dev) -> None:
+    """A ``knn`` on an ``ivf`` field over three segments, one without the
+    field, on the card equal to the CPU searcher (one K6 launch)."""
+    from opensearch_tpu_torch.index.segment import Segment
+    from opensearch_tpu_torch.mapping.mapper import DocumentMapper
+    from opensearch_tpu_torch.ops import cuda_ivf
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing import corpus
+
+    x = corpus.clustered_vectors(4_000, 100, 64, seed=44)
+    segs = corpus.vector_segments(x, 2, similarity="cosinesimil")
+    bare = Segment("no_vectors", 10)
+    bare.doc_ids = [f"b{i}" for i in range(10)]
+    bare.id_to_local = {d: i for i, d in enumerate(bare.doc_ids)}
+    bare.sources = [b"{}"] * 10
+    segs.insert(1, bare)
+    mapper = DocumentMapper({"properties": {"vec": {
+        "type": "knn_vector", "dimension": 100,
+        "method": {"name": "ivf", "space_type": "cosinesimil"}}}})
+    card = ShardSearcher(segs, mapper, device=dev)
+    cpu = ShardSearcher(segs, mapper, device="cpu")
+    fn = cuda_ivf.ivf_search_segments_cuda
+    for q in corpus.clustered_vectors(5, 100, 64, seed=45):
+        body = {"size": 10, "query": {"knn": {"vec": {
+            "vector": q.tolist(), "k": 10}}}}
+        before = fn.launches
+        got = card.search(body)
+        if fn.launches - before != 1:
+            raise AssertionError("ivf searcher: not one K6 launch a query")
+        bad = ann_hits_mismatch(got, cpu.search(body))
+        if bad or len(got["hits"]["hits"]) != 10:
+            raise AssertionError(f"ivf searcher vs cpu: {bad}")
+    log("K6 through ShardSearcher over 3 segments (one without the "
+        "field): 5 queries equal to the CPU searcher, one launch each")
+
+
+# -- phase 13 -----------------------------------------------------------------
+
+ANN_DOCS = 1_183_514             # testing/ann.py DOCS: GloVe-100's shape
+ANN_KINDS = {"cos_default": 100, "cos_nprobe8": 50, "cos_full": 50,
+             "l2_pq": 100, "filtered": 20}
+ANN_CHECK = 5                    # of each ANN kind, held to the CPU searcher
+ANN_FILTER_CHECK = 2             # ... of the filtered (exact) kind
+ANN_FILTER = {"range": {"price": {"lt": 4000}}}
+# distinct knn bodies each ANN searcher answers before the timed windows:
+# a searcher keeps each body's prepared columns (its winners, n_pad a
+# segment) in a cache of 1,024 (query, segment) entries, and the first
+# ~64 distinct 16-segment queries grow the device pool (5 cudaMalloc a
+# query); the windows measure the state a serving node settles in
+ANN_WARM = 70
+HTTP_ANN_VECTORS = 5_000
+HTTP_ANN_REQUESTS = 10
+
+
+def ivf_bound(items, q, pq: bool) -> tuple:
+    """(bytes, float64 flops) one K6 / K7 call must move and do for query
+    ``q`` over ``items``: per segment its centroids and starts, the rows
+    (K6: d floats; K7: m codes), ids and live bytes of the clusters this
+    query probes (their real counts), K7's codebooks, the query and the
+    hits."""
+    from opensearch_tpu_torch.ops import ivf
+
+    nbytes = q.numel() * 4
+    flops = 0.0
+    for it in items:
+        st = it.index
+        d = st.centroids.shape[1]
+        p = ivf.probe(st.centroids, q, it.nprobe).cpu().numpy()
+        rows = int((st.starts_host[p + 1] - st.starts_host[p]).sum())
+        nbytes += st.nlist * (d * 4 + 4) + 4 + it.k * 8
+        flops += 4.0 * d * st.nlist
+        if pq:
+            m = st.codes.shape[1]
+            nbytes += st.codebooks.numel() * 4 + rows * (m + 4 + 1)
+            flops += 3.0 * it.nprobe * m * ivf.PQ_CODEWORDS * (d // m) + \
+                rows * m
+        else:
+            nbytes += rows * (d * 4 + 4 + 1)
+            flops += 4.0 * d * rows
+    return nbytes, flops
+
+
+def time_ivf_kernels(segs, flat, pqs, held, dev) -> dict:
+    """K6 and K7 at the main path's shape (the 16 segments, default
+    nprobe, k = 10, one query): ms per call in turns with the plain twin,
+    the probe's and the scan's own device ms, the bound, ``torch.topk``
+    over ``flat_v @ q`` of the probed rows as the library yardstick, and
+    exact K1 over the same segments."""
+    import torch
+
+    from opensearch_tpu_torch.ops import cuda_ivf, cuda_knn, ivf, knn
+
+    q = torch.from_numpy(held[:1].copy()).to(dev)
+    out = {}
+    live = [seg.device(dev).live for seg in segs]
+    k1_segs = [knn.KnnSegment(seg.device(dev).vector["vec"]["values"],
+                              seg.device(dev).vector["vec"]["exists"], lv)
+               for seg, lv in zip(segs, live)]
+    k1_ms = cuda_ms(lambda: cuda_knn.knn_topk_segments_cuda(
+        k1_segs, q[0], space="cosinesimil", k=10), 20)
+    k1_dev = kernel_device_ms(lambda: cuda_knn.knn_topk_segments_cuda(
+        k1_segs, q[0], space="cosinesimil", k=10), 20, "knn_topk_kernel")
+    for name, pq, staged, space in (
+            ("ivf_search", False, flat, "cosinesimil"),
+            ("ivfpq_search", True, pqs, "l2")):
+        items = [ivf.IvfSegment(st, lv, max(1, st.nlist // 8), 10)
+                 for st, lv in zip(staged, live)]
+        if pq:
+            def kernel():
+                return cuda_ivf.ivfpq_search_segments_cuda(items, q)
+
+            def plain():
+                return ivf.ivfpq_search_segments(items, q)
+        else:
+            def kernel():
+                return cuda_ivf.ivf_search_segments_cuda(items, q,
+                                                         space=space)
+
+            def plain():
+                return ivf.ivf_search_segments(items, q, space=space)
+        got, want = kernel(), plain()
+        err = float((got[0] - want[0]).abs().nan_to_num(0.0).max())
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"{name} at the main path's shape: ids "
+                                 "differ from the plain twin")
+        ms, plain_ms = in_turns(kernel, plain, 5)
+        probe_dev = kernel_device_ms(kernel, 20, "ivf_probe_kernel")
+        scan_dev = kernel_device_ms(
+            kernel, 20, "ivfpq_scan_kernel" if pq else "ivf_scan_kernel")
+        # the library yardstick: the probed rows (flat layout) of each
+        # segment, gathered beforehand
+        fvs = []
+        for st, it in zip(flat, items):
+            rows, _f = ivf._probed(st, ivf.probe(st.centroids, q[0],
+                                                 it.nprobe))
+            fvs.append(st.rows[rows])
+        lib_ms = cuda_ms(lambda: [torch.topk(fv @ q[0], 10) for fv in fvs],
+                         20)
+        nbytes, flops = ivf_bound(items, q[0], pq)
+        bms, by = bound_ms(nbytes, flops, FP64_FLOPS_PER_S)
+        dev_ms = (None if probe_dev is None or scan_dev is None
+                  else probe_dev + scan_dev)
+        out[name] = {"ms": ms, "device_ms": dev_ms, "probe_device_ms":
+                     probe_dev, "scan_device_ms": scan_dev,
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bms, "bound_by": by, "bound_bytes": nbytes,
+                     "max_abs_err": err, "k1_exact_ms": k1_ms,
+                     "k1_exact_device_ms": k1_dev,
+                     "probed_rows": sum(fv.shape[0] for fv in fvs)}
+        log(f"K{7 if pq else 6} {name} over {len(items)} segments, nprobe "
+            f"{items[0].nprobe}, k=10, one query: ms {ms:.4f} device_ms "
+            f"{dev_ms} (probe {probe_dev}, scan {scan_dev}) plain_ms "
+            f"{plain_ms:.4f} library_ms (topk(flat_v @ q) over "
+            f"{out[name]['probed_rows']} probed rows) {lib_ms:.4f} bound_ms "
+            f"{bms:.6f} ({by}: {nbytes} bytes); exact K1 over the same "
+            f"segments {k1_ms:.4f} ms, device {k1_dev}; on "
+            f"{gpu_name_power()}")
+    return out
+
+
+def byte_equal_indexes(a, b) -> bool:
+    import torch
+
+    for name in a.__dataclass_fields__:
+        x, y = getattr(a, name), getattr(b, name)
+        if isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or x.shape != y.shape:
+                return False
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            if not torch.equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def phase_ann(counters) -> dict:
+    """Phase 13: ANN at GloVe-100's shape (module doc)."""
+    import torch
+
+    from opensearch_tpu_torch.ops import cuda_ivf, ivf
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing import ann
+
+    t_phase = time.monotonic()
+    dev = torch.device(DEVICE)
+    # a held-out query per request, and one more per kind to warm up (a
+    # searcher caches a compiled body, so a repeated one launches nothing)
+    segs, held = ann.corpus_segments(
+        ANN_DOCS, sum(ANN_KINDS.values()) + len(ANN_KINDS) + 2 * ANN_WARM)
+    searchers = {name: ShardSearcher(segs, ann.mapper(space, method),
+                                     index_name="glove", device=dev)
+                 for name, space, method in (
+                     ("cos", "cosinesimil", True), ("l2", "l2", True),
+                     ("cos_exact", "cosinesimil", False),
+                     ("l2_exact", "l2", False))}
+    torch.cuda.synchronize()
+    corpus_s = time.monotonic() - t_phase
+    # training and staging (warm-up, outside the timed windows)
+    builds = {}
+    for name in ("ivf_pq", "ivf"):
+        t0 = time.monotonic()
+        for seg in segs:
+            seg.ann_index("vec", {"name": name, "m": ann.M}, dev)
+        torch.cuda.synchronize()
+        builds[name] = (time.monotonic() - t0) / len(segs)
+    nlist = segs[0].ann_index("vec", {"name": "ivf", "m": ann.M}, dev).nlist
+    flat, pqs, ref_bytes = [], [], {"ivf": 0, "ivf_pq": 0}
+    for seg in segs:
+        dseg = seg.device(dev)
+        for name, out in (("ivf", flat), ("ivf_pq", pqs)):
+            idx = seg.ann_index("vec", {"name": name, "m": ann.M}, dev)
+            out.append(dseg.ann_staged(idx))
+            cells = idx.nlist * idx.c_pad
+            ref_bytes[name] += (idx.centroids.numel() * 4 + cells * 5 + (
+                cells * ann.M + idx.codebooks.numel() * 4 if name == "ivf_pq"
+                else cells * ann.DIM * 4))
+    staged_bytes = {"ivf": sum(st.nbytes() for st in flat),
+                    "ivf_pq": sum(st.nbytes() for st in pqs)}
+    # two trainings of one segment on the card: byte-equal
+    dv = segs[0].vector_dv["vec"]
+    for cls, kw in ((ivf.IvfIndex, {}), (ivf.IvfPqIndex, {"m": ann.M})):
+        a = cls.build(dv.values, dv.exists, nlist, device=dev, **kw)
+        b = cls.build(dv.values, dv.exists, nlist, device=dev, **kw)
+        if not byte_equal_indexes(a, b):
+            raise AssertionError(f"phase 13: two {cls.__name__} trainings "
+                                 "of one segment differ")
+        del a, b
+    log(f"ANN corpus: {ANN_DOCS} x {ann.DIM} clustered vectors "
+        f"({ann.CENTERS} centres) in {len(segs)} segments of "
+        f"{segs[0].n_docs}, nlist {nlist}, c_pad {flat[0].c_pad}; built in "
+        f"{corpus_s:.1f}s; training per segment: ivf_pq "
+        f"{builds['ivf_pq']:.3f}s, ivf {builds['ivf']:.3f}s; two trainings "
+        f"byte-equal; staged bytes ivf {staged_bytes['ivf']} / ivf_pq "
+        f"{staged_bytes['ivf_pq']} against the reference's padded layout "
+        f"{ref_bytes['ivf']} / {ref_bytes['ivf_pq']}")
+
+    qs = iter(held)
+    extra = {"cos_default": {}, "cos_nprobe8": {
+        "method_parameters": {"nprobe": 8}}, "cos_full": {
+        "method_parameters": {"nprobe": nlist}}, "l2_pq": {},
+        "filtered": {"filter": ANN_FILTER}}
+    on = {"cos_default": "cos", "cos_nprobe8": "cos", "cos_full": "cos",
+          "l2_pq": "l2", "filtered": "cos"}
+    for name in ("cos", "l2"):                  # warm-up (ANN_WARM)
+        for _ in range(ANN_WARM):
+            searchers[name].search(ann.body(next(qs)))
+    bodies = {}
+    for kind, n in ANN_KINDS.items():
+        searchers[on[kind]].search(ann.body(next(qs), **extra[kind]))
+        bodies[kind] = [ann.body(next(qs), **extra[kind]) for _ in range(n)]
+    torch.cuda.synchronize()
+    k6, k7 = (cuda_ivf.ivf_search_segments_cuda,
+              cuda_ivf.ivfpq_search_segments_cuda)
+    every = {**counters, "ivf_search": k6, "ivfpq_search": k7}
+    for fn in every.values():                   # this path starts here
+        fn.launches = 0
+    results, kinds = {}, {}
+    for kind, group in bodies.items():
+        before = {n: fn.launches for n, fn in every.items()}
+        qps, p50, out = timed_calls(searchers[on[kind]].search, group)
+        moved = {n: fn.launches - before[n] for n, fn in every.items()}
+        results[kind] = out
+        kinds[kind] = {"qps": qps, "p50_ms": p50, "queries": len(group),
+                       "k6_per_query": moved["ivf_search"] / len(group),
+                       "k7_per_query": moved["ivfpq_search"] / len(group),
+                       "k1_topk_per_query": moved["knn_topk"] / len(group)}
+        want = {"l2_pq": (0, 1, 0), "filtered": (0, 0, 1)}.get(kind,
+                                                               (1, 0, 0))
+        if (moved["ivf_search"], moved["ivfpq_search"],
+                moved["knn_topk"]) != tuple(w * len(group) for w in want):
+            raise AssertionError(f"phase 13 {kind}: launches {moved}, want "
+                                 f"K6 / K7 / K1 {want} a query")
+    launches = {n: fn.launches for n, fn in every.items()}
+    # recall@10 against exact K1 on the card; nprobe = nlist is exact
+    for kind, out in results.items():
+        if kind == "filtered":
+            continue
+        exact = searchers["l2_exact" if kind == "l2_pq" else "cos_exact"]
+        hits = []
+        for body, resp in zip(bodies[kind], out):
+            ids = [h["_id"] for h in resp["hits"]["hits"]]
+            truth = [h["_id"] for h in exact.search(body)["hits"]["hits"]]
+            if kind == "cos_full" and ids != truth:
+                raise AssertionError(f"phase 13 nprobe = nlist: ids {ids} "
+                                     f"differ from exact K1's {truth}")
+            hits.append(len(set(ids) & set(truth)) / len(truth))
+        kinds[kind]["recall_at_10"] = float(np.mean(hits))
+    # a sample held to the CPU searcher over the same segments (it reuses
+    # the indexes trained on the card)
+    cpu = {name: ShardSearcher(segs, ann.mapper(space, True),
+                               index_name="glove", device="cpu")
+           for name, space in (("cos", "cosinesimil"), ("l2", "l2"))}
+    checked = 0
+    for kind, out in results.items():
+        n = ANN_FILTER_CHECK if kind == "filtered" else ANN_CHECK
+        for body, resp in list(zip(bodies[kind], out))[:n]:
+            bad = ann_hits_mismatch(resp, cpu[on[kind]].search(body))
+            if bad:
+                raise AssertionError(f"phase 13 {kind} vs cpu: {bad}")
+            checked += 1
+    kern = time_ivf_kernels(segs, flat, pqs, held, dev)
+    log("ann: " + "; ".join(
+        f"{kind} {v['qps']:.2f} qps p50 {v['p50_ms']:.3f} ms"
+        + (f" recall@10 {v['recall_at_10']:.4f}" if "recall_at_10" in v
+           else "")
+        + f" K6/K7/K1 a query {v['k6_per_query']:.2f}/"
+          f"{v['k7_per_query']:.2f}/{v['k1_topk_per_query']:.2f}"
+        for kind, v in kinds.items())
+        + f"; {checked} answers equal to the CPU searcher (a sample: "
+        f"{ANN_CHECK} of each ANN kind, {ANN_FILTER_CHECK} filtered); "
+        f"{time.monotonic() - t_phase:.1f}s")
+    return {"kinds": kinds, "launches": launches, "nlist": nlist,
+            "c_pad": flat[0].c_pad, "build_s_per_segment": builds,
+            "staged_bytes": staged_bytes, "reference_padded_bytes": ref_bytes,
+            "checked_vs_cpu": checked, "kernels": kern,
+            "wall_s": time.monotonic() - t_phase}
+
+
+def phase_http_ann(node, state, counters) -> dict:
+    """Over HTTP on phase 9's node before it stops: an index ``ann``
+    (``vec``: 100 dims, ``ivf`` in the cosine space) fed
+    HTTP_ANN_VECTORS clustered vectors by ``_bulk``, then
+    HTTP_ANN_REQUESTS ``knn`` ``_search`` requests, their counts zeroed
+    just before them and read just after (one K6 launch each), each held
+    to the CPU searcher over the index's segments."""
+    from opensearch_tpu_torch.ops import cuda_ivf
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing import ann
+    from opensearch_tpu_torch.testing.corpus import clustered_vectors
+
+    t_phase = time.monotonic()
+    client = HttpClient(node.port)
+    client.ok("PUT", "/ann", {"mappings": {"properties": {"vec": {
+        "type": "knn_vector", "dimension": ann.DIM,
+        "method": {"name": "ivf", "space_type": "cosinesimil"}}}}})
+    # the vectors, the requests' query vectors, and a warm-up's (a node
+    # caches a compiled body, so a repeated one launches nothing)
+    x = clustered_vectors(HTTP_ANN_VECTORS + HTTP_ANN_REQUESTS + 1, ann.DIM,
+                          64, seed=74)
+    for lo in range(0, HTTP_ANN_VECTORS, SERVE_BULK):
+        lines = []
+        for i in range(lo, min(lo + SERVE_BULK, HTTP_ANN_VECTORS)):
+            lines += [{"index": {"_index": "ann", "_id": f"a{i}"}},
+                      {"vec": x[i].tolist()}]
+        if client.ok("POST", "/_bulk", ndjson=lines)["errors"]:
+            raise AssertionError("phase 9 ANN: _bulk reported errors")
+    client.ok("POST", "/ann/_refresh")
+    bodies = [ann.body(q) for q in x[HTTP_ANN_VECTORS: -1]]
+    client.ok("POST", "/ann/_search", ann.body(x[-1]))   # trains the indexes
+    every = {**counters, "ivf_search": cuda_ivf.ivf_search_segments_cuda}
+    for fn in every.values():                   # this path starts here
+        fn.launches = 0
+    qps, p50, out = timed_calls(
+        lambda b: client.ok("POST", "/ann/_search", b), bodies)
+    launches = {n: c.launches for n, c in every.items()}
+    if launches["ivf_search"] != len(bodies) or launches["knn_topk"]:
+        raise AssertionError(f"phase 9 ANN over HTTP: launches {launches}, "
+                             "want one K6 launch a request and no K1")
+    svc = node.indices.get("ann")
+    cpu = ShardSearcher(svc.searcher().segments, svc.mapper,
+                        index_name="ann", device="cpu")
+    for body, resp in zip(bodies, out):
+        bad = ann_hits_mismatch(resp, json.loads(json.dumps(
+            cpu.search(dict(body)))))
+        if bad or len(resp["hits"]["hits"]) != 10:
+            raise AssertionError(f"phase 9 ANN over HTTP vs cpu: {bad}")
+    client.ok("DELETE", "/ann")
+    client.close()
+    return {"qps": qps, "p50_ms": p50, "requests": len(bodies),
+            "launches": launches, "wall_s": time.monotonic() - t_phase}
+
+
 def main() -> int:
     import torch
 
@@ -4624,6 +5152,10 @@ def main() -> int:
     kern["plan_topk"] = phase_plan_topk(
         segs, searcher, torch.Generator().manual_seed(15))
     kern.update(phase_k5(segs, searcher))
+    dev = torch.device(DEVICE)
+    ivf_check = phase_ivf_kernels(dev, torch.Generator(device=dev)
+                                  .manual_seed(16))
+    phase_ivf_searcher(dev)
 
     counters = {"knn_topk": cuda_knn.knn_topk_segments_cuda,
                 "knn_scores": cuda_knn.knn_scores_segments_cuda,
@@ -4666,7 +5198,8 @@ def main() -> int:
     serving = phase_serving(every, then=lambda node, state: {
         "hybrid": phase_http_hybrid(node, state, every),
         "aggs": phase_http_aggs(node, state, every),
-        "script": phase_http_script(node, state, every)})
+        "script": phase_http_script(node, state, every),
+        "ann": phase_http_ann(node, state, every)})
     then = serving.pop("then")
     filters = phase_filters_hybrid(segs, mapper, searcher, qsegs, qsearcher,
                                    every, http=then["hybrid"])
@@ -4678,11 +5211,20 @@ def main() -> int:
         raise AssertionError("K5 never launched on the aggregations path")
     script = phase_script_score(segs, mapper, searcher, every,
                                 http=then["script"])
-    for phase in (write, serving, filters, aggs, script):
+    ann = phase_ann(every)
+    launches["ivf_search"] = launches["ivfpq_search"] = 0
+    for phase in (write, serving, filters, aggs, script, then["ann"], ann):
         for name, n in phase["launches"].items():
             name = "term_bag_quantized" \
                 if name == "term_bag_quantized_topk" else name
             launches[name] += n
+    if min(launches["ivf_search"], launches["ivfpq_search"]) <= 0:
+        raise AssertionError(f"K6 or K7 never launched on the ANN path: "
+                             f"{launches}")
+    for name in ("ivf_search", "ivfpq_search"):
+        kern[name] = dict(ann["kernels"][name])
+        kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"],
+                                        ivf_check["max_abs_err"])
     sources = {"knn_topk": ("knn.cu", "opensearch_tpu/ops/pallas_knn.py:62"),
                "knn_scores": ("knn.cu",
                               "opensearch_tpu/ops/pallas_knn.py:62"),
@@ -4703,7 +5245,10 @@ def main() -> int:
                                   "opensearch_tpu/ops/aggs.py:58"),
                # and topk_from_scores, opensearch_tpu/search/plan.py:1773
                "plan_topk": ("plan_topk.cu",
-                             "opensearch_tpu/search/plan.py:1760")}
+                             "opensearch_tpu/search/plan.py:1760"),
+               # and ivf_search_batch, opensearch_tpu/ops/ivf.py:170
+               "ivf_search": ("ivf.cu", "opensearch_tpu/ops/ivf.py:140"),
+               "ivfpq_search": ("ivf.cu", "opensearch_tpu/ops/ivf.py:236")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = {"kernels": [
@@ -4717,6 +5262,9 @@ def main() -> int:
                     "write_path": write, "serving": serving,
                     "filters_hybrid": filters, "aggregations": aggs,
                     "script_score": script,
+                    "ann": {k: v for k, v in ann.items() if k != "kernels"},
+                    "ann_over_http": then["ann"],
+                    "ivf_kernels": ann["kernels"],
                     "k1_scores_16": kern["knn_scores_16"],
                     "k5": kern["bucket_collect"], "masks": kern["masks"],
                     "dense": {n: kern[n] for n in (

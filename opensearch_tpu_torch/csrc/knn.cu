@@ -96,6 +96,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "rows.cuh"
 #include "topk.cuh"
 
 namespace {
@@ -115,9 +116,6 @@ constexpr int kChunkRows = KNN_CHUNK_ROWS;
 constexpr int kScoreThreads = 256;   // threads of a scores-entry block
 constexpr int kScoreMinBlocks = KNN_SCORE_MIN_BLOCKS;  // ... resident per SM
 constexpr int kScoreBatch = 4;       // units a lane loads at once
-#ifdef KNN_OLD_SCORES
-constexpr int kScoreRows = 512;      // rows per block of the replaced scores entry
-#endif
 constexpr int kStageBytes = 16384;   // target bytes of one ring stage
 constexpr int kMaxStages = 4;
 constexpr int kSmemLimit = 232448 - 256;  // a block's shared memory on sm_90, less the static part
@@ -132,6 +130,10 @@ static_assert((kKMax & (kKMax - 1)) == 0 && kKMax <= kChunkRows - kMergeBatch,
               "kKMax: a power of two the merge buffer holds beside one round");
 static_assert(kSegWords >= 8, "a segment's table entry holds 8 words");
 
+using rowsum::group_sum;
+using rowsum::query_norm2;
+using rowsum::row_lanes;
+using rowsum::translate;
 using topk::u64;
 
 struct Seg {
@@ -152,51 +154,6 @@ struct Cfg {
 };
 
 __host__ __device__ __forceinline__ int round16(int b) { return (b + 15) & ~15; }
-
-__device__ __forceinline__ double warp_sum(double x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// The function `FN` of a row's sums (codes in the header), rounded once.
-template <int FN>
-__device__ __forceinline__ float translate(double dot, double v2, double q2) {
-  double sc;
-  if (FN == 0) {  // l2
-    const double d2 = fmax(v2 - 2.0 * dot + q2, 0.0);
-    sc = 1.0 / (1.0 + d2);
-  } else if (FN == 1) {  // cosinesimil
-    const double cosv = dot / fmax(sqrt(v2) * sqrt(q2), 1e-30);
-    sc = (1.0 + cosv) / 2.0;
-  } else if (FN == 2) {  // innerproduct
-    sc = dot >= 0.0 ? dot + 1.0 : 1.0 / (1.0 - dot);
-  } else if (FN == 3) {  // dotProduct
-    sc = dot;
-  } else if (FN == 4) {  // l2Squared
-    sc = fmax(v2 - 2.0 * dot + q2, 0.0);
-  } else {  // cosineSimilarity
-    sc = dot / fmax(sqrt(v2) * sqrt(q2), 1e-30);
-  }
-  return __double2float_rn(sc);
-}
-
-// |q|^2 over the 32 lanes of a warp from the float64 query in shared
-// memory: lane j adds q[j], q[j + 32], ..., then the xor tree.
-__device__ __forceinline__ double query_norm2(const double* q_s, int d, int lane) {
-  double q2 = 0.0;
-  for (int j = lane; j < d; j += 32) q2 = fma(q_s[j], q_s[j], q2);
-  return warp_sum(q2);
-}
-
-// The lanes' xor tree over a group of L lanes (every lane of the warp
-// takes part).
-__device__ __forceinline__ void group_sum(double& dot, double& v2, int L) {
-  for (int off = L >> 1; off > 0; off >>= 1) {
-    dot += __shfl_xor_sync(0xffffffffu, dot, off);
-    v2 += __shfl_xor_sync(0xffffffffu, v2, off);
-  }
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -319,23 +276,6 @@ __device__ void stream_chunk(const Seg& s, long long row0, int rows,
   }
   asm volatile("cp.async.wait_all;\n" ::);
 }
-
-#ifdef KNN_OLD_SCORES
-// The replaced scores entry (one segment a launch, 512-row blocks through
-// the ring), built only into testing/k1_sweep.py's library as its
-// yardstick.
-template <int SPACE>
-__global__ void __launch_bounds__(kThreads)
-knn_scores_old_kernel(Seg s, const float* __restrict__ query, float* __restrict__ out,
-                      int d, Cfg c) {
-  extern __shared__ __align__(16) char smem[];
-  const long long row0 = (long long)blockIdx.x * kScoreRows;
-  const int rows = (int)min((long long)kScoreRows, s.n - row0);
-  stream_chunk<SPACE, false, kScoreRows>(s, row0, rows, query, d, c, smem);
-  const float* sc = reinterpret_cast<const float*>(smem + c.q_bytes + c.stages * c.stage_bytes);
-  for (int r = threadIdx.x; r < rows; r += kThreads) out[row0 + r] = sc[r];
-}
-#endif
 
 // A unit of a row: a float4 (W = 4; loaded as one 16-byte load when
 // ALIGNED, else as four floats) or one float (W = 1).
@@ -470,15 +410,6 @@ knn_topk_kernel(const long long* __restrict__ table, int n_seg,
   topk::write_topk<kThreads>(keys, k, out_vals + out_row * k, out_ids + out_row * k);
 }
 
-// Lanes that reduce one row of width d (ops/knn.py `row_lanes`): each
-// lane about four units (float4s, or floats when d % 4 != 0) of it.
-int row_lanes(int d) {
-  const int units = (d & 3) == 0 ? d / 4 : d;
-  int lanes = 1;
-  while (lanes < 32 && lanes * 4 < units) lanes *= 2;
-  return lanes;
-}
-
 // Lanes per row, tile rows (one pass of all warps, at most about
 // kStageBytes) and ring depth (2..kMaxStages, as many as fit) of the
 // top-k entry for width d and `cap` rows per block.  False when two
@@ -509,18 +440,6 @@ cudaError_t allow_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
-
-#ifdef KNN_OLD_SCORES
-template <int SPACE>
-cudaError_t launch_scores_old(const Seg& s, const float* query, float* out, int d, const Cfg& c,
-                              cudaStream_t stream) {
-  cudaError_t err = allow_smem(knn_scores_old_kernel<SPACE>, c.smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (s.n + kScoreRows - 1) / kScoreRows;
-  knn_scores_old_kernel<SPACE><<<(unsigned)blocks, kThreads, c.smem, stream>>>(s, query, out, d, c);
-  return cudaGetLastError();
-}
-#endif
 
 template <int FN, int W, bool ALIGNED>
 cudaError_t launch_scores(const long long* head, int n_seg, int n_blocks, const float* query,
@@ -609,25 +528,6 @@ int knn_scores_segments_launch(const long long* head, int n_seg, int n_blocks,
   return static_cast<int>(launch_scores_any(fn, head, n_seg, n_blocks, query, d, chunk_rows,
                                             aligned != 0, out, static_cast<cudaStream_t>(stream)));
 }
-
-#ifdef KNN_OLD_SCORES
-// The replaced entry: scores of one segment, one launch (space 0-2).
-int knn_scores_old_launch(const float* vectors, const uint8_t* exists, const uint8_t* live,
-                          const uint8_t* mask, const float* query, float* out, long long n,
-                          int d, int space, void* stream) {
-  if (n <= 0) return 0;
-  Cfg c;
-  if (d <= 0 || !config(d, kScoreRows, &c)) return static_cast<int>(cudaErrorInvalidValue);
-  const Seg s{vectors, exists, live, mask, n};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (space) {
-    case 0: return launch_scores_old<0>(s, query, out, d, c, st);
-    case 1: return launch_scores_old<1>(s, query, out, d, c, st);
-    case 2: return launch_scores_old<2>(s, query, out, d, c, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-#endif
 
 // Exact top-k of every segment of `table` (device memory, layout above)
 // into rows of out_vals/out_ids [*, k]; scratch holds n_chunks * kp keys.

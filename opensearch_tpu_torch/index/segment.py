@@ -31,10 +31,15 @@ doc ids), and the f32 doc ids and tfs stage on first demand
 ``Segment.quantized_table`` reads and writes the ``.quant`` sidecars of
 ``index/store.py`` once the store has set ``quant_dir``.
 
-Not ported yet (ROADMAP Queue A): ANN index builds, geo and nested
-columns, the device pager, the fielddata breaker and the residency
-ledger.  ``segment_from_arrays`` carries the numpy state of a reference
-segment into this package's ``Segment``.
+``Segment.ann_index`` trains a field's IVF / IVF-PQ index once per
+immutable segment, on the device that first asks, and keeps it on the
+host; ``DeviceSegment.ann_staged`` lays it out for K6 / K7 on a view's
+device.
+
+Not ported yet (ROADMAP Queue A): geo and nested columns, the device
+pager, the fielddata breaker and the residency ledger (which adopts the
+reference's staged ANN arrays).  ``segment_from_arrays`` carries the
+numpy state of a reference segment into this package's ``Segment``.
 """
 
 from __future__ import annotations
@@ -206,6 +211,11 @@ class Segment:
         # the segment directory once the store saved or loaded this
         # segment: quantized tables persist there as ``.quant`` sidecars
         self.quant_dir: Optional[str] = None
+        # trained ANN structures, built on first use per (field, name,
+        # nlist, m): the segment is immutable, so one training serves
+        # every query, on every device
+        self._ann: dict[tuple, object] = {}
+        self._ann_lock = threading.Lock()
 
 
     # -- stats used for cross-segment collection statistics ---------------
@@ -317,6 +327,37 @@ class Segment:
             return qt
 
         return self._quant_tables.get_or_make(key, build)
+
+    def ann_index(self, field: str, method: dict, device):
+        """The trained IVF / IVF-PQ index of ``field`` (``ops/ivf.py``),
+        trained on ``device`` at its first request and cached by (field,
+        name, nlist, m), as in the reference: ``nlist`` defaults to
+        ``int(sqrt(docs with the field))``, ``m`` to 8.  The index is
+        kept on the host, as the segment's other arrays are; a device
+        view stages what the kernels read (``DeviceSegment.ann_staged``).
+        None when no doc has the field."""
+        from opensearch_tpu_torch.ops.ivf import (IvfIndex, IvfPqIndex,
+                                                  index_to)
+
+        dv = self.vector_dv.get(field)
+        if dv is None or not dv.exists.any():
+            return None
+        name = method.get("name", "ivf")
+        nlist = int(method.get("nlist")
+                    or max(1, int(np.sqrt(max(int(dv.exists.sum()), 1)))))
+        m = int(method.get("m", 8))
+        key = (field, name, nlist, m)
+        with self._ann_lock:          # one training, however many threads ask
+            idx = self._ann.get(key)
+            if idx is None:
+                if name == "ivf_pq":
+                    idx = IvfPqIndex.build(dv.values, dv.exists, nlist, m=m,
+                                           device=device)
+                else:
+                    idx = IvfIndex.build(dv.values, dv.exists, nlist,
+                                         device=device)
+                idx = self._ann[key] = index_to(idx, "cpu")
+        return idx
 
     def device(self, device) -> "DeviceSegment":
         """The staged view of this segment on ``device`` (built once per
@@ -441,6 +482,8 @@ class DeviceSegment:
             }
         # one staged copy per live-bitmap version (bounded)
         self._live_cache: dict[int, tuple] = {}
+        # staged ANN indexes (``ann_staged``), keyed by the index object
+        self._ann_staged: dict[int, tuple] = {}
         self._impact_cache: dict[tuple, torch.Tensor] = {}
         self._quant_cache = BoundedCache(_IMPACT_TABLES_MAX)
         self.live = self.live_mask(seg.live)
@@ -461,6 +504,7 @@ class DeviceSegment:
                      for t in self._impact_cache.values())
         total += sum(t.numel() * t.element_size()
                      for _l, t in self._live_cache.values())
+        total += sum(st.nbytes() for _i, st in self._ann_staged.values())
         return total
 
     def column_bytes(self, group: str) -> int:
@@ -559,6 +603,26 @@ class DeviceSegment:
             self._impact_cache[key] = imp
         return imp
 
+    def ann_staged(self, idx):
+        """``idx`` (a trained index of ``Segment.ann_index``) laid out on
+        this view's device as K6 / K7 read it (``ops.ivf.stage_index``),
+        cached by the index object (a retrain restages); at most
+        ``_ANN_STAGED_MAX`` kept, the oldest dropped (and its device
+        memory freed) first."""
+        from opensearch_tpu_torch.ops.ivf import stage_index
+
+        key = id(idx)
+        cached = self._ann_staged.get(key)
+        if cached is None or cached[0] is not idx:
+            with self._postings_lock:
+                cached = self._ann_staged.get(key)
+                if cached is None or cached[0] is not idx:
+                    cached = (idx, stage_index(idx, self.device))
+                    if len(self._ann_staged) >= _ANN_STAGED_MAX:
+                        self._ann_staged.pop(next(iter(self._ann_staged)))
+                    self._ann_staged[key] = cached
+        return cached[1]
+
     def live_mask(self, live_np: np.ndarray) -> torch.Tensor:
         """Staged live mask for a SNAPSHOT of the live bitmap (keyed by
         array identity — apply_deletes replaces the array, so old
@@ -579,6 +643,8 @@ class DeviceSegment:
 # bound of the per-segment impact-table caches (host and device); a
 # refresh that changes avgdl builds a new searcher, so old keys age out
 _IMPACT_TABLES_MAX = 8
+# staged ANN indexes a device view keeps (the reference's bound)
+_ANN_STAGED_MAX = 4
 
 
 def _column(cols: dict, fname: str, make):

@@ -414,13 +414,21 @@ def _c_constant_score(q, ctx, scored):
 
 
 def _c_knn(q, ctx, scored):
-    """knn query: exact vector search of every segment at once
-    (ops/knn.py -- one K1 launch per query on CUDA, each segment's top-k
-    inside the kernel), with the global per-shard k winners injected
-    into the plan tree as a ScoredMaskPlan.  Optional ``filter``
-    restricts candidates BEFORE the k cut (the plugin's filtered-knn
-    semantics).  The host syncs once per query.  ANN methods
-    (``ivf``/``ivf_pq``) are not ported yet."""
+    """knn query: per-segment vector search -- exact (ops/knn.py: one K1
+    launch per query on CUDA over every segment, each segment's top-k
+    inside the kernel) or ANN when the field mapping declares a
+    ``method`` of ``ivf`` / ``ivf_pq`` (ops/ivf.py: the cluster-probed
+    search over the segment's trained index, one K6 call over every
+    segment on the flat route and one K7 call over every segment on the
+    PQ route) -- with the global per-shard k winners injected into the
+    plan tree as a ScoredMaskPlan.  Optional ``filter`` restricts
+    candidates BEFORE the k cut (the plugin's filtered-knn semantics);
+    ANN runs exact under a filter, as the reference does, and so does a
+    segment without an index.  The host syncs once per query."""
+    from opensearch_tpu_torch.ops.ivf import (IvfPqIndex, IvfSegment,
+                                              ivf_search_segments_auto,
+                                              ivfpq_search_segments_auto,
+                                              k_offsets)
     from opensearch_tpu_torch.ops.knn import KnnSegment, knn_topk_segments_auto
     from opensearch_tpu_torch.search.executor import build_arrays
 
@@ -439,8 +447,11 @@ def _c_knn(q, ctx, scored):
     space = {"l2": "l2", "cosinesimil": "cosinesimil",
              "innerproduct": "innerproduct"}.get(ft.space_type, "l2")
     method = dict(getattr(ft, "method", None) or {})
-    if method.get("name") in ("ivf", "ivf_pq"):
-        _not_ported(f"knn method [{method['name']}] (ANN search)")
+    # method_parameters is a SEARCH-TIME knob: only nprobe may be
+    # overridden per request (nlist and m define the trained structure)
+    if q.method_parameters and "nprobe" in q.method_parameters:
+        method["nprobe"] = int(q.method_parameters["nprobe"])
+    use_ann = method.get("name") in ("ivf", "ivf_pq") and q.filter is None
 
     filter_state = None
     if q.filter is not None:
@@ -449,21 +460,40 @@ def _c_knn(q, ctx, scored):
     qvec_t = torch.from_numpy(qvec).to(ctx.device)
     # phase 1: every segment's inputs (the filter's masks are launched
     # here: each term-bag leaf of the filter once over every segment with
-    # the field), then one top-k launch over them all.  ``inputs`` keeps
-    # every tensor the launch reads referenced until the host sync below.
+    # the field), then one launch per route over its segments.  The
+    # inputs keep every tensor the launches read referenced until the
+    # host sync below.
     inputs, orders, filter_items = [], [], []
+    routes = {"flat": ([], []), "pq": ([], [])}   # (IvfSegments, orders)
     for seg_order, seg in enumerate(ctx.segments):
         dseg = seg.device(ctx.device)
         vcol = dseg.vector.get(q.field)
         if vcol is None:
+            continue
+        live = ctx.live_mask(seg, dseg)
+        ann = seg.ann_index(q.field, method, ctx.device) if use_ann else None
+        if ann is not None:
+            nprobe = min(int(method.get("nprobe", 0))
+                         or max(1, ann.nlist // 8), ann.nlist)
+            # the probed candidate pool is nprobe * c_pad rows
+            kk = min(q.k, dseg.n_pad, nprobe * ann.c_pad)
+            route = "pq" if isinstance(ann, IvfPqIndex) and space == "l2" \
+                else "flat"
+            if route == "flat" and isinstance(ann, IvfPqIndex):
+                # ADC tables are l2-residual based: in another space an
+                # ivf_pq field probes the flat layout
+                ann = seg.ann_index(q.field, {**method, "name": "ivf"},
+                                    ctx.device)
+            routes[route][0].append(IvfSegment(dseg.ann_staged(ann), live,
+                                               nprobe, kk))
+            routes[route][1].append(seg_order)
             continue
         if filter_state is not None:
             fplan, fbind = filter_state
             A = build_arrays(dseg, fplan.arrays(), ctx.mapper)
             dims, ins = fplan.prepare(fbind, seg, dseg, ctx)
             filter_items.append((A, dims, ins))
-        inputs.append(KnnSegment(vcol["values"], vcol["exists"],
-                                 ctx.live_mask(seg, dseg)))
+        inputs.append(KnnSegment(vcol["values"], vcol["exists"], live))
         orders.append(seg_order)
     if filter_state is not None:
         fplan = filter_state[0]
@@ -471,16 +501,39 @@ def _c_knn(q, ctx, scored):
         inputs = [s._replace(mask=P.run_full(fplan, dims, A, ins,
                                              -np.inf)[1])
                   for s, (A, dims, ins) in zip(inputs, filter_items)]
-    candidates = []          # (score, seg_order, local)
+    # (vals [S, k], ids [S, k], the segment order of each row's columns)
+    results = []
     if inputs:
         vals, idx = knn_topk_segments_auto(inputs, qvec_t, space=space,
                                            k=q.k)
-        # phase 2: one host sync for all segments' top-k
-        vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
-        for row, seg_order in enumerate(orders):
-            keep = (vals[row] > -np.inf) & (idx[row] >= 0)
-            for v, i in zip(vals[row][keep], idx[row][keep]):
-                candidates.append((float(v), seg_order, int(i)))
+        results.append((vals, idx, [(o, i * q.k, (i + 1) * q.k)
+                                    for i, o in enumerate(orders)]))
+    queries = qvec_t[None, :]
+    for route, (segs, seg_orders) in routes.items():
+        if not segs:
+            continue
+        vals, idx = (ivf_search_segments_auto(segs, queries, space=space)
+                     if route == "flat"
+                     else ivfpq_search_segments_auto(segs, queries))
+        offs = k_offsets(segs)
+        results.append((vals, idx, list(zip(seg_orders, offs[:-1],
+                                            offs[1:]))))
+    candidates = []          # (score, seg_order, local)
+    if results:
+        # phase 2: one copy to the host for every route's top-k
+        flat = torch.cat([t.reshape(-1).view(torch.int32)
+                          for vals, idx, _ in results for t in (vals, idx)])
+        host = flat.cpu().numpy()
+        at = 0
+        for vals, _idx, spans in results:
+            n = vals.numel()
+            v = host[at: at + n].view(np.float32)
+            i = host[at + n: at + 2 * n]
+            at += 2 * n
+            for seg_order, a, b in spans:
+                keep = (v[a:b] > -np.inf) & (i[a:b] >= 0)
+                for score, local in zip(v[a:b][keep], i[a:b][keep]):
+                    candidates.append((float(score), seg_order, int(local)))
     candidates.sort(key=lambda t: (-t[0], t[1], t[2]))
     winners: dict[int, list[tuple[int, float]]] = {}
     for score, seg_order, local in candidates[: q.k]:

@@ -2,8 +2,9 @@
 package's own copies of the benchmark's corpus builders
 (``bench.py`` ``build_raw_corpus`` / ``make_segments``) and of the
 zipf query log (``opensearch_tpu/testing/workload.py``
-``zipf_query_log``), with the same draws, plus a seeded generator of
-float32 vectors and of doc-value columns (``doc_value_columns``: a
+``zipf_query_log``), with the same draws, plus seeded generators of
+float32 vectors (``random_vectors``; ``clustered_vectors`` for ANN) and
+of doc-value columns (``doc_value_columns``: a
 ``price`` long, a ``ts`` date, a ``tag`` keyword with postings and
 ordinals and a ``fare`` double, ``COLUMNS_MAPPING``).  Pure numpy;
 segments are this package's."""
@@ -78,6 +79,19 @@ def random_vectors(n: int, dim: int = 128, seed: int = 0) -> np.ndarray:
     """Seeded float32 vectors [n, dim], standard normal."""
     rng = np.random.default_rng(seed)
     return rng.standard_normal((n, dim), dtype=np.float32)
+
+
+def clustered_vectors(n: int, dim: int, n_centers: int,
+                      seed: int = 5) -> np.ndarray:
+    """Seeded clustered float32 vectors [n, dim] (the construction of
+    ``tests/test_ivf.py`` ``_corpus``, "GloVe-like local structure"):
+    ``n_centers`` standard normal centres times 4, each vector a random
+    centre plus standard normal noise."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n_centers, dim)).astype(np.float32) * 4
+    assign = rng.integers(0, n_centers, size=n)
+    x = centers[assign] + rng.normal(size=(n, dim)).astype(np.float32)
+    return x.astype(np.float32)
 
 
 def tag_name(code: int) -> str:
@@ -190,19 +204,46 @@ def make_segments(raw: dict, n_segments: int,
             doc_lens=local_lens, total_len=float(local_lens.sum()),
             docs_with_field=n_local, has_norms=True,
             present=np.ones(n_local, dtype=bool))
-        if vectors is not None:
-            seg.vector_dv[vector_field] = VectorDV(
-                values=np.ascontiguousarray(vectors[lo:hi], np.float32),
-                exists=np.ones(n_local, dtype=bool),
-                dim=int(vectors.shape[1]), similarity=similarity)
-        if columns is not None:
-            for name in ("price", "ts"):
-                seg.numeric_dv[name] = _long_column(columns[name][lo:hi])
-            seg.postings["tag"], seg.ordinal_dv["tag"] = _keyword_columns(
-                columns["tag"][lo:hi])
-            if "fare" in columns:
-                seg.numeric_dv["fare"] = _double_column(
-                    columns["fare"][lo:hi])
+        _add_fields(seg, lo, hi, vectors, vector_field, similarity, columns)
+        segs.append(seg)
+    return segs
+
+
+def _add_fields(seg: Segment, lo: int, hi: int,
+                vectors: Optional[np.ndarray], vector_field: str,
+                similarity: str, columns: Optional[dict]) -> None:
+    """Docs ``lo:hi``'s vectors and doc-value columns on ``seg``."""
+    if vectors is not None:
+        seg.vector_dv[vector_field] = VectorDV(
+            values=np.ascontiguousarray(vectors[lo:hi], np.float32),
+            exists=np.ones(hi - lo, dtype=bool),
+            dim=int(vectors.shape[1]), similarity=similarity)
+    if columns is not None:
+        for name in ("price", "ts"):
+            seg.numeric_dv[name] = _long_column(columns[name][lo:hi])
+        seg.postings["tag"], seg.ordinal_dv["tag"] = _keyword_columns(
+            columns["tag"][lo:hi])
+        if "fare" in columns:
+            seg.numeric_dv["fare"] = _double_column(columns["fare"][lo:hi])
+
+
+def vector_segments(vectors: np.ndarray, n_segments: int,
+                    vector_field: str = "vec", similarity: str = "l2",
+                    columns: Optional[dict] = None) -> list[Segment]:
+    """``vectors`` [n_docs, d] split into ``n_segments`` doc-range
+    segments holding a vector field (every doc has a vector) and, when
+    ``columns`` (of ``doc_value_columns``) is given, the columns of
+    ``make_segments``; no text field."""
+    n_docs = vectors.shape[0]
+    bounds = np.linspace(0, n_docs, max(1, n_segments) + 1).astype(np.int64)
+    segs = []
+    for s in range(len(bounds) - 1):
+        lo, hi = int(bounds[s]), int(bounds[s + 1])
+        seg = Segment(f"vectors_{s}", hi - lo)
+        seg.doc_ids = [str(i) for i in range(lo, hi)]
+        seg.id_to_local = {str(i): i - lo for i in range(lo, hi)}
+        seg.sources = [b"{}"] * (hi - lo)
+        _add_fields(seg, lo, hi, vectors, vector_field, similarity, columns)
         segs.append(seg)
     return segs
 

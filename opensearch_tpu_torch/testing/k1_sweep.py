@@ -1,6 +1,5 @@
-"""K1's two entries on the card: the scores entry against the entry it
-replaced and its chunk policy, then the top-k entry against the route it
-replaced and its chunk size.
+"""K1's two entries on the card: the scores entry and its chunk policy,
+then the top-k entry against the route it replaced and its chunk size.
 
     python3 -m opensearch_tpu_torch.testing.k1_sweep
 
@@ -10,11 +9,8 @@ per call under ``torch.profiler``, each the lower of two readings -- at
 three shapes (16 segments of 65,536 x 128 a call each, in turn, so none
 is in L2 when its call comes; the 16 in one launch; one segment of
 1,000,000 x 128), l2 with an ``exists`` mask, at
-``SCORE_WAVES`` = 1, 2, 4 and 8 (the chunk it gives), beside the
-replaced entry (one launch per segment of 512-row blocks through a
-shared-memory ring; built only into this sweep's library, with
-``-DKNN_OLD_SCORES``), ``vectors @ q`` per segment and the plain
-version.
+``SCORE_WAVES`` = 1, 2, 4 and 8 (the chunk it gives), beside
+``vectors @ q`` per segment and the plain version.
 
 Top-k entry: for each chunk size in ``CHUNKS`` (``csrc/knn.cu`` rebuilt with that
 ``KNN_CHUNK_ROWS``; ptxas' register and spill lines are printed), the
@@ -87,31 +83,10 @@ def keep_lower(row: dict, key: str, ms, per: int = 1) -> None:
         row.setdefault(key, None)
 
 
-def old_scores_library():
-    """``csrc/knn.cu`` built with ``-DKNN_OLD_SCORES``: the replaced
-    scores entry ``knn_scores_old_launch`` beside the new one."""
-    import ctypes
-
-    from opensearch_tpu_torch.ops import cuda_build, cuda_knn
-
-    def declare(lib):
-        cuda_knn._declare(lib)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.knn_scores_old_launch.argtypes = [p, p, p, p, p, p,
-                                              ctypes.c_longlong, i, i, p]
-        lib.knn_scores_old_launch.restype = i
-
-    return cuda_build.library("knn", declare,
-                              {**cuda_knn.defines(), "KNN_OLD_SCORES": 1})
-
-
 def scores_sweep(dev, gen) -> None:
     """The scores entry's check and its timings (module doc)."""
-    import ctypes
+    from opensearch_tpu_torch.ops import cuda_knn, knn
 
-    from opensearch_tpu_torch.ops import cuda_build, cuda_knn, knn
-
-    old = old_scores_library()
     q = torch.randn(DIM, device=dev, generator=gen)
 
     def segment(n):
@@ -131,19 +106,6 @@ def scores_sweep(dev, gen) -> None:
             return [out for s in segs for out in new([s])]
         return cuda_knn.knn_scores_segments_cuda(segs, q, fn="l2")
 
-    def replaced(segs):
-        outs = []
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        for s in segs:
-            out = torch.empty(s.vectors.shape[0], device=dev)
-            rc = old.knn_scores_old_launch(
-                s.vectors.data_ptr(), s.exists.data_ptr(), None, None,
-                q.data_ptr(), out.data_ptr(), s.vectors.shape[0], DIM, 0,
-                stream)
-            cuda_build.check(old, rc, "knn_scores_old_launch")
-            outs.append(out)
-        return outs
-
     default = cuda_knn.SCORE_WAVES
     try:
         for name, (segs, calls) in shapes.items():
@@ -155,9 +117,6 @@ def scores_sweep(dev, gen) -> None:
                                        b.view(torch.int32)):
                         raise AssertionError(f"scores {name} waves {waves}: "
                                              "not byte-equal")
-            for a, b in zip(replaced(segs), ref):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"replaced entry {name}: differs")
             rows = sum(s.vectors.shape[0] for s in segs) // calls
             row = {"entry": "scores", "shape": name, "fn": "l2",
                    "bound_ms": (rows * (DIM * 4 + 1 + 4) + DIM * 4)
@@ -173,7 +132,6 @@ def scores_sweep(dev, gen) -> None:
                                calls)
                 cuda_knn.SCORE_WAVES = default
                 for key, fn in (
-                        ("replaced_ms", lambda: replaced(segs)),
                         ("library_ms", lambda: [s.vectors @ q for s in segs]),
                         ("plain_ms", lambda: knn.vector_scores_segments(
                             segs, q, fn="l2"))):

@@ -4,7 +4,7 @@ vectors), a window of ``match`` and ``knn`` queries through
 ``ShardSearcher.search``, and of ``match`` queries through
 ``ShardSearcher.msearch`` in batches of 64, under ``torch.profiler``.
 
-    python3 -m opensearch_tpu_torch.testing.profile_scale [n_queries] [--aggs | --script]
+    python3 -m opensearch_tpu_torch.testing.profile_scale [n_queries] [--aggs | --script | --ann]
 
 ``n_queries`` sizes the ``match`` and ``knn`` windows; the ``msearch``
 window is 4 batches of 64 (their group inputs assembled in the window,
@@ -26,13 +26,21 @@ kinds on the f32 layout: ``aggs_date_histogram`` (a day
 under a 21-day ``range``), ``aggs_terms_hits`` (the ``match`` pair,
 ``size`` 10, ``terms`` on ``tag`` with ``avg`` / ``max`` subs) and
 ``aggs_metrics`` (``match_all`` with 6 metric aggs on each of ``price``
-and ``fare``).  Prints one JSON line per query kind: wall ms
+and ``fare``).  ``--ann`` profiles only ``chip_smoke.py`` phase 13's
+ANN ``knn`` kinds on its corpus (``testing/ann.py``: GloVe-100's shape,
+1,183,514 x 100 in 16 segments): ``ann_cos`` (config 3's cosine
+``ivf_pq`` field, default nprobe: K6) and ``ann_l2_pq`` (the same field
+in l2: K7), k = 10, each on held-out queries after ``ANN_WARM``
+warm-ups (the first trains the segments' indexes; the searcher keeps
+each distinct body's prepared columns, and the first ~64 of them grow
+the device pool).  Prints one JSON line per query
+kind: wall ms
 per query (profiler on), device busy ms per query (the sum of the CUDA
 kernels' and copies' own time; one stream, so they do not overlap), the
 idle share ``1 - busy / wall``, the device calls (kernels and copies)
 per query, the ``cudaLaunchKernel`` calls, the CUB radix-sort kernels,
-K1's scores kernels, K2's dense-entry kernels and the plan top-k's (and
-their device ms) per query, the top device entries and the top host ops
+K1's scores kernels, K2's dense-entry kernels, the plan top-k's and K6 /
+K7's probe and scan kernels (and their device ms) per query, the top device entries and the top host ops
 by self time.
 Needs CUDA; without it, exits non-zero.
 """
@@ -128,6 +136,13 @@ def script_bodies(n: int, rng) -> list:
 
 
 DAY_MS = 86_400_000
+ANN_WARM = 70           # --ann: warm-up bodies of a window (module doc)
+# (name, a substring of the kernel's name) counted per query
+KERNELS = (("dense", "term_bag_dense_kernel"),
+           ("plan_topk", "plan_topk_kernel"),
+           ("ivf_probe", "ivf_probe_kernel"),
+           ("ivf_scan", "ivf_scan_kernel"),
+           ("ivfpq_scan", "ivfpq_scan_kernel"))
 
 
 def agg_bodies(n: int, seed: int = 81) -> dict:
@@ -208,12 +223,10 @@ def profile_window(searcher, bodies: list, batch: int = 0) -> dict:
             if "knn_scores_kernel" in e.key) / 1e3 / n,
         **{f"{name}_kernels_per_query": sum(
             e.count for e in dev if kernel in e.key) / n
-           for name, kernel in (("dense", "term_bag_dense_kernel"),
-                                ("plan_topk", "plan_topk_kernel"))},
+           for name, kernel in KERNELS},
         **{f"{name}_device_ms_per_query": sum(
             _device_self_us(e) for e in dev if kernel in e.key) / 1e3 / n
-           for name, kernel in (("dense", "term_bag_dense_kernel"),
-                                ("plan_topk", "plan_topk_kernel"))},
+           for name, kernel in KERNELS},
         "k5_kernels_per_query": sum(
             e.count for e in dev if "agg_" in e.key) / n,
         "k5_device_ms_per_query": sum(
@@ -227,6 +240,24 @@ def profile_window(searcher, bodies: list, batch: int = 0) -> dict:
     }
 
 
+def profile_ann(n: int, gpu: str) -> None:
+    """The ``--ann`` windows (module doc)."""
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing import ann
+
+    w = n + ANN_WARM
+    segs, held = ann.corpus_segments(n_queries=2 * w)
+    for i, (kind, space) in enumerate((("ann_cos", "cosinesimil"),
+                                       ("ann_l2_pq", "l2"))):
+        searcher = ShardSearcher(segs, ann.mapper(space, True),
+                                 index_name="glove", device="cuda")
+        qs = [ann.body(q) for q in held[i * w: (i + 1) * w]]
+        for body in qs[:ANN_WARM]:           # warm-up: training, staging
+            searcher.search(body)
+        out = profile_window(searcher, qs[ANN_WARM:])
+        print(json.dumps({"kind": kind, "gpu": gpu, **out}), flush=True)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -234,12 +265,16 @@ def main(argv=None) -> int:
         return 1
     only_aggs = "--aggs" in argv
     only_script = "--script" in argv
-    argv = [a for a in argv if a not in ("--aggs", "--script")]
+    only_ann = "--ann" in argv
+    argv = [a for a in argv if a not in ("--aggs", "--script", "--ann")]
     n = int(argv[0]) if argv else 30
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    if only_ann:
+        profile_ann(n, gpu)
+        return 0
     searcher = build_searcher(1_000_000, 16, "cuda")
     if only_script:
         bodies = {"script_score": script_bodies(

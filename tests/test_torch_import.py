@@ -8,10 +8,10 @@ controller and HTTP server, the filter ops, the search pipelines, the
 aggregations and K5's wrapper among them) and runs CPU searches (a
 ``match``, a ``knn``, a filtered ``bool``, a ``hybrid`` and one with
 ``aggs``: terms, histogram, metrics, a filter, percentiles and a
-pipeline), one engine round trip and one node on the
-CPU answering over HTTP (a search pipeline put among its requests); a static
-scan of the port's sources and ``chip_smoke.py`` for imports that name
-them; and the node's entry point, ``python -m
+pipeline; an ANN ``knn`` on an ``ivf_pq`` field), one engine round
+trip and one node on the CPU answering over HTTP (a search pipeline put
+among its requests); a static scan of the port's sources and
+``chip_smoke.py`` for imports that name them; and the node's entry point, ``python -m
 opensearch_tpu_torch.node``, which serves with ``--device cpu`` and,
 without ``--device`` on a machine without CUDA, refuses with
 ``DeviceUnavailableError`` instead of serving on the CPU.  The
@@ -91,8 +91,19 @@ for name in ("index.engine", "index.store", "index.translog", "node",
              "indices.request_cache", "common.xcontent", "common.breakers",
              "version", "ops.filters", "search.pipeline",
              "common.settings", "ops.aggs", "ops.cuda_aggs", "search.aggs",
-             "search.pipeline_aggs", "search.scripting"):
+             "search.pipeline_aggs", "search.scripting", "ops.ivf",
+             "ops.cuda_ivf"):
     assert "opensearch_tpu_torch." + name in names, name
+amapper = DocumentMapper({"properties": {"vec": {
+    "type": "knn_vector", "dimension": 4,
+    "method": {"name": "ivf_pq", "parameters": {"nlist": 2, "m": 2}}}}})
+aseg = SegmentWriter().build(
+    [amapper.parse(str(i), {"vec": [float(i), 0.0, 1.0, 2.0]})
+     for i in range(12)], "a0")
+resp = ShardSearcher([aseg], amapper, device="cpu").search(
+    {"query": {"knn": {"vec": {"vector": [3, 0, 1, 2], "k": 2,
+                               "method_parameters": {"nprobe": 2}}}}})
+assert resp["hits"]["hits"][0]["_id"] == "3", resp
 fmapper = DocumentMapper({"properties": {
     "body": {"type": "text"}, "price": {"type": "long"},
     "tag": {"type": "keyword"}}})

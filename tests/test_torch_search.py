@@ -325,19 +325,29 @@ def test_unported_features_raise_typed_error(body, monkeypatch):
 
 
 def test_msearch_and_ann_method_raise_typed_error():
-    """An ``ann`` method raises the typed error.  (This test also held
-    that ``msearch`` raised; msearch is ported now, and
-    ``test_msearch_match_all_returns_the_search_response`` checks it.)"""
+    """An ``ann`` method (``ivf``) answers as the JAX package answers on
+    the same four-doc segment, through ``search`` and ``msearch``.  (This
+    test held that the method raised ``NotYetPortedError`` while ANN was
+    not ported, and before that that ``msearch`` raised;
+    ``test_msearch_match_all_returns_the_search_response`` checks
+    msearch's other bodies.)"""
     mapping = {"properties": {"v": {"type": "knn_vector", "dimension": 2,
                                     "method": {"name": "ivf"}}}}
+    docs = [(str(i), {"v": [float(i), 1.0]}) for i in range(4)]
+    jmapper = JaxMapper(mapping)
+    jseg = JaxWriter().build([jmapper.parse(i, d) for i, d in docs], "s")
     mapper = DocumentMapper(mapping)
-    seg = SegmentWriter().build(
-        [mapper.parse(str(i), {"v": [float(i), 1.0]}) for i in range(4)],
-        "s")
+    seg = SegmentWriter().build([mapper.parse(i, d) for i, d in docs], "s")
     searcher = ShardSearcher([seg], mapper, device="cpu")
-    with pytest.raises(NotYetPortedError):
-        searcher.search({"query": {"knn": {"v": {"vector": [1.0, 1.0],
-                                                 "k": 2}}}})
+    body = {"query": {"knn": {"v": {"vector": [1.0, 1.0], "k": 2}}}}
+    want = JaxSearcher([jseg], jmapper).search(body)
+    got = searcher.search(body)
+    [batched] = searcher.msearch([body])
+    for resp in (got, batched):
+        assert [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]] == \
+            [(h["_id"], h["_score"]) for h in want["hits"]["hits"]]
+        assert resp["hits"]["total"] == want["hits"]["total"]
+    assert [h["_id"] for h in got["hits"]["hits"]] == ["1", "0"]
 
 
 def test_msearch_match_all_returns_the_search_response():
