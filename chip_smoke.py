@@ -95,13 +95,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``v.aminmax()``; the filter masks (``range_mask``,
    ``term_mask``, ``terms_mask``) timed alone on one segment; and K6
    and K7, the IVF / IVF-PQ kernels (``csrc/ivf.cu``:
-   ``ivf_search_segments_cuda``, ``ivfpq_search_segments_cuda``, a
-   probe and a scan kernel a call over every (query, segment)), byte
-   for byte against their plain twins and run to run, on indexes
-   trained on the card: three segments a call (deletes, rows without
-   the field, clusters of one row) x 3 queries, d = 3 and 100, K6 in the
-   three spaces and K7 in l2, nprobe 1, nlist // 8 and nlist, k 1, 10,
-   K_MAX and K_MAX + 1 (the sorted route, counted), and a ``knn`` on an
+   ``ivf_search_segments_cuda``, ``ivfpq_search_segments_cuda``: a
+   probe, (K7) a table pass and a scan kernel a call over every (query,
+   segment)), byte for byte against their plain twins and run to run,
+   on two groups of segments a call x 3 queries: indexes trained on the
+   card (deletes, rows without the field, clusters of one row, nlist
+   271) and indexes laid out by hand (``testing/ann.py`` ``SKEWED``: a
+   cluster of c_pad rows over several scan chunks, one holding most of
+   a segment, an empty cluster, nlist 1, 3 and 2,000, tied rows
+   straddling every multiple of 64, so every chunk boundary), d = 3 and
+   100, and two of them at d = 768 (K7 at m = 8, its codebook read from
+   device memory, and at m = 128, the largest m), K6 in
+   the three spaces and K7 in l2, nprobe 1, nlist // 8 and nlist, k 1,
+   10, K_MAX (past the candidates of small probes) and K_MAX + 1 (the
+   sorted route, counted), and a ``knn`` on an
    ``ivf`` field through ``ShardSearcher`` over three segments, one
    without the field, equal to the CPU searcher (phase 13 times them).
    The scale corpus carries doc-value columns (``testing/corpus.py``
@@ -277,9 +284,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    checked), recall@10 against exact K1 on the card, and a sample of
    each kind equal to the CPU searcher over the same segments (which
    reuses the card-trained indexes).  K6 and K7 are then timed at this
-   shape in turns with their plain twins, beside ``torch.topk`` over
-   ``flat_v @ q`` of the probed rows and exact K1 over the same
-   segments.  Phase 9 also feeds an index ``ann`` (5,000 clustered
+   shape in turns with their plain twins (device ms of each kernel:
+   probe, K7's table pass, scan), beside ``torch.topk`` over ``flat_v @
+   q`` of the probed rows and exact K1 over the same segments.  Phase 9 also feeds an index ``ann`` (5,000 clustered
    100-d vectors, ``ivf``, cosine) by ``_bulk`` and sends it 10 ``knn``
    ``_search`` requests over HTTP (one K6 launch each), held to the CPU
    searcher.
@@ -4654,10 +4661,11 @@ def ann_hits_mismatch(got: dict, want: dict):
 
 
 def ivf_check_sets(dev, gen, d: int, pq: bool) -> list:
-    """(staged index, live mask) of three segments of clustered d-wide
+    """(staged index, live mask) of four segments of clustered d-wide
     vectors trained on the card: 20,000 rows (nlist 141), 600 (nlist
-    24) and 40 rows in 30 clusters (most of one row); some rows without
-    the field, ~10% of every live mask deleted."""
+    24), 40 rows in 30 clusters (most of one row) and 12,000 (nlist
+    271); some rows without the field, ~10% of every live mask
+    deleted."""
     import torch
 
     from opensearch_tpu_torch.index.segment import pad_pow2
@@ -4666,7 +4674,8 @@ def ivf_check_sets(dev, gen, d: int, pq: bool) -> list:
 
     m = 3 if d == 3 else 10
     out = []
-    for s, (n, nlist) in enumerate(((20_000, 141), (600, 24), (40, 30))):
+    for s, (n, nlist) in enumerate(((20_000, 141), (600, 24), (40, 30),
+                                    (12_000, 271))):
         x = clustered_vectors(n, d, 64, seed=40 + s)
         valid = np.ones(n, bool)
         valid[s::13] = False
@@ -4677,20 +4686,47 @@ def ivf_check_sets(dev, gen, d: int, pq: bool) -> list:
     return out
 
 
+def ivf_skew_sets(dev, gen, d: int, pq: bool, m: int = 0,
+                  names=None) -> list:
+    """(staged index, live mask) of the layouts of ``testing/ann.py``
+    ``SKEWED`` (those of ``names``, else all), laid out by hand (IVF-PQ:
+    ``m`` subspaces, else 3 at d = 3 and 10), ~10% of every live mask
+    deleted."""
+    import torch
+
+    from opensearch_tpu_torch.index.segment import pad_pow2
+    from opensearch_tpu_torch.ops import ivf
+    from opensearch_tpu_torch.testing import ann
+
+    m = (m or (3 if d == 3 else 10)) if pq else 0
+    out = []
+    for s, (name, sizes) in enumerate(ann.SKEWED.items()):
+        if names and name not in names:
+            continue
+        idx = ann.skewed_index(sizes, d, m, seed=50 + s)
+        live = torch.rand(pad_pow2(sum(sizes) + 1), device=dev,
+                          generator=gen) > 0.1
+        out.append((ivf.stage_index(idx, dev), live))
+    return out
+
+
 def phase_ivf_kernels(dev, gen) -> dict:
     """K6 (``ivf_search_segments_cuda``) and K7
     (``ivfpq_search_segments_cuda``) byte-equal to their plain twins
     (``ops/ivf.py`` ``ivf_search_segments`` / ``ivfpq_search_segments``)
-    and launch to launch: three segments in one call (deletes, rows
-    without the field, clusters of one row) and 3 queries at d = 3 and
-    100; K6 in the three spaces, K7 in l2; nprobe 1, nlist // 8 and
-    nlist; k 1, 10, K_MAX and K_MAX + 1 (the sorted route, counted),
+    and launch to launch: the segments of ``ivf_check_sets`` in one
+    call, those of ``ivf_skew_sets`` in another, and 3 queries at d = 3
+    and 100; then two skewed layouts at ``ann.WIDE_D`` = 768 (K7 at m =
+    8 and at m = ``cuda_ivf.M_MAX``); K6 in the three spaces, K7 in l2;
+    nprobe 1, nlist // 8 and nlist; k 1, 10, K_MAX and K_MAX + 1 (the
+    sorted route, counted),
     each capped at a segment's candidates as the compiler caps it; one
     launch per call and route.  Phase 13 times them at the main path's
     shape."""
     import torch
 
     from opensearch_tpu_torch.ops import cuda_ivf, ivf
+    from opensearch_tpu_torch.testing import ann
     from opensearch_tpu_torch.testing.corpus import clustered_vectors
 
     t0 = time.monotonic()
@@ -4698,10 +4734,21 @@ def phase_ivf_kernels(dev, gen) -> dict:
     for pq in (False, True):
         fn = (cuda_ivf.ivfpq_search_segments_cuda if pq
               else cuda_ivf.ivf_search_segments_cuda)
-        for d in (3, 100):
-            sets = ivf_check_sets(dev, gen, d, pq)
+        groups = [(3, ivf_check_sets, 0), (100, ivf_check_sets, 0),
+                  (3, ivf_skew_sets, 0), (100, ivf_skew_sets, 0)]
+        groups += [(ann.WIDE_D, ivf_skew_sets, m)
+                   for m in (ann.WIDE_MS if pq else (0,))]
+        for d, make, m_wide in groups:
+            sets = (make(dev, gen, d, pq) if d != ann.WIDE_D else
+                    make(dev, gen, d, pq, m_wide,
+                         names=("full_cluster", "nlist_3")))
             qs = torch.from_numpy(clustered_vectors(3, d, 64, seed=40)).to(
                 dev)
+            if make is ivf_skew_sets:     # near the largest cluster's rows
+                st0 = sets[0][0]
+                qs = torch.stack([st0.rows[ann.TIE_STRIDE - 2] if st0.rows
+                                  is not None else qs[0],
+                                  st0.centroids[0], st0.centroids[-1]])
             spaces = ("l2",) if pq else ("l2", "cosinesimil",
                                          "innerproduct")
             for space in spaces:
@@ -4726,7 +4773,8 @@ def phase_ivf_kernels(dev, gen) -> dict:
                         if moved != (int(big < len(items)) + int(big > 0),
                                      big):
                             raise AssertionError(
-                                f"K{7 if pq else 6} d={d} {rule} k={k}: "
+                                f"K{7 if pq else 6} {make.__name__} d={d} "
+                                f"{rule} k={k}: "
                                 f"{moved} launches / sorted segments, "
                                 f"want {big} sorted")
                         again = call()
@@ -4739,17 +4787,64 @@ def phase_ivf_kernels(dev, gen) -> dict:
                                                 b[0].view(torch.int32))
                                     and torch.equal(a[1], b[1])):
                                 raise AssertionError(
-                                    f"K{7 if pq else 6} d={d} {space} "
+                                    f"K{7 if pq else 6} {make.__name__} "
+                                    f"d={d} m={m_wide} {space} "
                                     f"nprobe {rule} k={k}: not byte-equal "
                                     f"({name})")
                         checked += 1
         log(f"K{7 if pq else 6} ({'IVF-PQ, l2' if pq else 'IVF, 3 spaces'})"
             f": byte-equal to its plain twin and run to run at d = 3 and "
             f"100, nprobe 1 / nlist // 8 / nlist, k 1 / 10 / K_MAX / "
-            f"K_MAX + 1, 3 segments (deletes, rows without the field, "
-            f"clusters of one row) x 3 queries a call")
+            f"K_MAX + 1, 4 trained segments (deletes, rows without the "
+            f"field, clusters of one row, nlist 271) or the 5 skewed "
+            f"layouts (a cluster of c_pad rows, one holding most of a "
+            f"segment, nlist 1, 3 and 2,000, ties across chunk "
+            f"boundaries) x 3 queries a call; two skewed layouts at d = "
+            f"{ann.WIDE_D}" + (f", m = {' and '.join(map(str, ann.WIDE_MS))}"
+                               if pq else ""))
+    checked += ivf_back_to_back(dev, gen)
     log(f"K6 / K7 checks: {checked} calls in {time.monotonic() - t0:.1f}s")
     return {"checked_calls": checked, "max_abs_err": 0.0}
+
+
+def ivf_back_to_back(dev, gen, n_calls: int = 96) -> int:
+    """K6 (three spaces) and K7 calls queued back to back with no sync
+    between them, the kernels after each probe starting as programmatic
+    dependents while the card still runs earlier calls: K6 and K7 in
+    turn over the skewed layouts at d = 100, each call its own query,
+    nprobe and k; then each result held to its plain twin byte for
+    byte.  Returns the calls checked."""
+    import torch
+
+    from opensearch_tpu_torch.ops import cuda_ivf, ivf
+    from opensearch_tpu_torch.testing.corpus import clustered_vectors
+
+    sets = {pq: ivf_skew_sets(dev, gen, 100, pq) for pq in (False, True)}
+    qs = torch.from_numpy(clustered_vectors(n_calls, 100, 64, seed=41)).to(
+        dev)
+    spaces = ("l2", "cosinesimil", "innerproduct")
+    jobs = []
+    for i in range(n_calls):
+        pq = i % 2 == 1
+        items = [ivf.IvfSegment(st, live, max(1, st.nlist * (i % 5) // 4),
+                                min((1, 10, 100)[i % 3], st.c_pad))
+                 for st, live in sets[pq]]
+        q = qs[i: i + 1]
+        space = "l2" if pq else spaces[(i // 2) % 3]
+        got = (cuda_ivf.ivfpq_search_segments_cuda(items, q) if pq else
+               cuda_ivf.ivf_search_segments_cuda(items, q, space=space))
+        jobs.append((pq, items, q, space, got))
+    for i, (pq, items, q, space, got) in enumerate(jobs):
+        want = (ivf.ivfpq_search_segments(items, q) if pq else
+                ivf.ivf_search_segments(items, q, space=space))
+        if not (torch.equal(got[0].view(torch.int32),
+                            want[0].view(torch.int32))
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"K{7 if pq else 6} back-to-back call {i} "
+                                 f"({space}): not byte-equal (plain)")
+    log(f"K6 / K7: {n_calls} calls queued back to back, each byte-equal "
+        f"to its plain twin")
+    return n_calls
 
 
 def phase_ivf_searcher(dev) -> None:
@@ -4806,34 +4901,6 @@ HTTP_ANN_VECTORS = 5_000
 HTTP_ANN_REQUESTS = 10
 
 
-def ivf_bound(items, q, pq: bool) -> tuple:
-    """(bytes, float64 flops) one K6 / K7 call must move and do for query
-    ``q`` over ``items``: per segment its centroids and starts, the rows
-    (K6: d floats; K7: m codes), ids and live bytes of the clusters this
-    query probes (their real counts), K7's codebooks, the query and the
-    hits."""
-    from opensearch_tpu_torch.ops import ivf
-
-    nbytes = q.numel() * 4
-    flops = 0.0
-    for it in items:
-        st = it.index
-        d = st.centroids.shape[1]
-        p = ivf.probe(st.centroids, q, it.nprobe).cpu().numpy()
-        rows = int((st.starts_host[p + 1] - st.starts_host[p]).sum())
-        nbytes += st.nlist * (d * 4 + 4) + 4 + it.k * 8
-        flops += 4.0 * d * st.nlist
-        if pq:
-            m = st.codes.shape[1]
-            nbytes += st.codebooks.numel() * 4 + rows * (m + 4 + 1)
-            flops += 3.0 * it.nprobe * m * ivf.PQ_CODEWORDS * (d // m) + \
-                rows * m
-        else:
-            nbytes += rows * (d * 4 + 4 + 1)
-            flops += 4.0 * d * rows
-    return nbytes, flops
-
-
 def time_ivf_kernels(segs, flat, pqs, held, dev) -> dict:
     """K6 and K7 at the main path's shape (the 16 segments, default
     nprobe, k = 10, one query): ms per call in turns with the plain twin,
@@ -4843,6 +4910,7 @@ def time_ivf_kernels(segs, flat, pqs, held, dev) -> dict:
     import torch
 
     from opensearch_tpu_torch.ops import cuda_ivf, cuda_knn, ivf, knn
+    from opensearch_tpu_torch.testing.k6_sweep import ivf_bound, kernels_ms
 
     q = torch.from_numpy(held[:1].copy()).to(dev)
     out = {}
@@ -4878,9 +4946,11 @@ def time_ivf_kernels(segs, flat, pqs, held, dev) -> dict:
             raise AssertionError(f"{name} at the main path's shape: ids "
                                  "differ from the plain twin")
         ms, plain_ms = in_turns(kernel, plain, 5)
-        probe_dev = kernel_device_ms(kernel, 20, "ivf_probe_kernel")
-        scan_dev = kernel_device_ms(
-            kernel, 20, "ivfpq_scan_kernel" if pq else "ivf_scan_kernel")
+        per, dev_ms, span = kernels_ms(kernel)
+        per = per or {}
+        probe_dev = per.get("ivf_probe_kernel")
+        table_dev = per.get("ivfpq_lut_kernel") if pq else None
+        scan_dev = per.get("ivfpq_scan_kernel" if pq else "ivf_scan_kernel")
         # the library yardstick: the probed rows (flat layout) of each
         # segment, gathered beforehand
         fvs = []
@@ -4892,10 +4962,9 @@ def time_ivf_kernels(segs, flat, pqs, held, dev) -> dict:
                          20)
         nbytes, flops = ivf_bound(items, q[0], pq)
         bms, by = bound_ms(nbytes, flops, FP64_FLOPS_PER_S)
-        dev_ms = (None if probe_dev is None or scan_dev is None
-                  else probe_dev + scan_dev)
-        out[name] = {"ms": ms, "device_ms": dev_ms, "probe_device_ms":
-                     probe_dev, "scan_device_ms": scan_dev,
+        out[name] = {"ms": ms, "device_ms": dev_ms, "span_ms": span,
+                     "probe_device_ms": probe_dev, "scan_device_ms": scan_dev,
+                     "table_device_ms": table_dev,
                      "plain_ms": plain_ms, "library_ms": lib_ms,
                      "bound_ms": bms, "bound_by": by, "bound_bytes": nbytes,
                      "max_abs_err": err, "k1_exact_ms": k1_ms,
@@ -4903,7 +4972,9 @@ def time_ivf_kernels(segs, flat, pqs, held, dev) -> dict:
                      "probed_rows": sum(fv.shape[0] for fv in fvs)}
         log(f"K{7 if pq else 6} {name} over {len(items)} segments, nprobe "
             f"{items[0].nprobe}, k=10, one query: ms {ms:.4f} device_ms "
-            f"{dev_ms} (probe {probe_dev}, scan {scan_dev}) plain_ms "
+            f"{dev_ms} (probe {probe_dev}, "
+            + (f"table pass {table_dev}, " if pq else "")
+            + f"scan {scan_dev}; span a call {span}) plain_ms "
             f"{plain_ms:.4f} library_ms (topk(flat_v @ q) over "
             f"{out[name]['probed_rows']} probed rows) {lib_ms:.4f} bound_ms "
             f"{bms:.6f} ({by}: {nbytes} bytes); exact K1 over the same "
@@ -5251,11 +5322,15 @@ def main() -> int:
                "ivfpq_search": ("ivf.cu", "opensearch_tpu/ops/ivf.py:236")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    ivf_keys = ("device_ms", "span_ms", "probe_device_ms",
+                "table_device_ms", "scan_device_ms")
     kernels = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"opensearch_tpu_torch/csrc/{src}", "replaces": rep,
          "launches": launches[name],
-         **{key: kern[name][key] for key in keys}}
+         **{key: kern[name][key] for key in keys},
+         **{key: kern[name][key] for key in ivf_keys
+            if name in ("ivf_search", "ivfpq_search")}}
         for name, (src, rep) in sources.items()]}
     log(json.dumps({"scale": scale, "msearch": msearch,
                     "continuous": continuous, "quantized_scale": qscale,

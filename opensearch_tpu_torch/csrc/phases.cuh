@@ -13,6 +13,13 @@
 //   1 count: the block's sort         5 reduce: the tree's levels
 //   2 count: the records              6 reduce: the maximal nodes
 //   3 scan                            7 merge
+//   K6 / K7 (ivf.cu, testing/k6_sweep.py; scan marks from the end of
+//   the grid dependency wait):
+//   0 probe: score                    4 scan: score (K6: the stages' sums,
+//   1 probe: select                     then the translations)
+//   2 table pass (K7)                 5 scan: tile select
+//   3 scan: row / code, id and live   6 scan: post and merge
+//     load (the copies' waits)        7 scan blocks with rows (a count)
 // (K3's union_topk.cu keeps its own -DUNION_PHASES marks.)
 #pragma once
 

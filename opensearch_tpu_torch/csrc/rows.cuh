@@ -72,6 +72,31 @@ __device__ __forceinline__ void row_accumulate(const float* __restrict__ row, co
   }
 }
 
+// `row_accumulate` over a row in shared memory (K6 stages its rows
+// there; q_s 16-byte aligned): the same units in the same order, so the
+// same sums.
+template <int W>
+__device__ __forceinline__ void row_accumulate_shared(const float* row, const double* q_s, int d,
+                                                      int L, int sub, double& dot, double& v2) {
+  const int units = d / W;
+  for (int j = sub; j < units; j += L) {
+    if (W == 4) {
+      const float4 a = reinterpret_cast<const float4*>(row)[j];
+      const double2 q01 = reinterpret_cast<const double2*>(q_s)[2 * j];
+      const double2 q23 = reinterpret_cast<const double2*>(q_s)[2 * j + 1];
+      const double ax = a.x, ay = a.y, az = a.z, aw = a.w;
+      dot = fma(ax, q01.x, dot); v2 = fma(ax, ax, v2);
+      dot = fma(ay, q01.y, dot); v2 = fma(ay, ay, v2);
+      dot = fma(az, q23.x, dot); v2 = fma(az, az, v2);
+      dot = fma(aw, q23.y, dot); v2 = fma(aw, aw, v2);
+    } else {
+      const double a = row[j];
+      dot = fma(a, q_s[j], dot);
+      v2 = fma(a, a, v2);
+    }
+  }
+}
+
 // The function `FN` of a row's sums, rounded once (ops/knn.py
 // `FUNCTIONS`: 0 l2, 1 cosinesimil, 2 innerproduct, 3 dotProduct,
 // 4 l2Squared, 5 cosineSimilarity).

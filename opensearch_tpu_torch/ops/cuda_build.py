@@ -70,26 +70,36 @@ def build(names, defines=None) -> dict[str, str]:
     Returns {name: compiler log} for the libraries built in this call
     (``-Xptxas=-v``: registers, shared memory, spills).  Raises with the
     compiler's output on failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     defines = defines or {}
+    logs = build_variants([(name, defines.get(name)) for name in names])
+    return {name: log for (name, _d), log in logs.items()}
+
+
+def build_variants(variants) -> dict[tuple, str]:
+    """``build`` over (name, macros) pairs, so that one source may be
+    built with several sets of macros at once (the sweeps' variants).
+    Returns {(name, the macros' sorted items): compiler log}."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        out = library_path(name, defines.get(name))
-        if out.exists():
+    for name, defs in variants:
+        out = library_path(name, defs)
+        key = (name, tuple(sorted((defs or {}).items())))
+        if out.exists() or key in procs:
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (subprocess.Popen(
-            [nvcc_path(), *_flags(defines.get(name) or {}), "-o", str(tmp),
+        tmp = out.with_suffix(f".{os.getpid()}.{len(procs)}.tmp")
+        procs[key] = (subprocess.Popen(
+            [nvcc_path(), *_flags(defs or {}), "-o", str(tmp),
              str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
     logs = {}
     failed = []
-    for name, (proc, tmp, out) in procs.items():
+    for key, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        logs[name] = log
+        logs[key] = log
         if proc.returncode != 0:
-            failed.append(f"nvcc {name}.cu exited {proc.returncode}:\n{log}")
+            failed.append(f"nvcc {key[0]}.cu {dict(key[1])} exited "
+                          f"{proc.returncode}:\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)

@@ -395,13 +395,18 @@ def ivfpq_search_l2(centroids, codebooks, grouped_codes, grouped_ids,
 
 # -- the kernels' layout and their plain twins -------------------------------
 
-@dataclass
+@dataclass(frozen=True)
 class StagedIvf:
     """An index as K6 / K7 read it, on one device: the valid rows only,
     cluster after cluster (no padding row), with per-cluster starts.
     ``rows`` for an ``IvfIndex``; ``codes`` and ``codebooks`` for an
     ``IvfPqIndex``.  ``c_pad`` keeps the reference's padded width: the
-    flat index ``probe_rank * c_pad + position`` breaks ties."""
+    flat index ``probe_rank * c_pad + position`` breaks ties.
+    ``max_rows``, the largest cluster's valid rows, sets the scan's
+    chunks per probe without a sync.  ``rows``, ``codes`` and ``ids``
+    start on 16 bytes and keep 16 bytes of slack past their end: the
+    scan copies whole 16-byte windows of them.  Frozen: the kernels'
+    wrapper keeps what it checked and its launch-table words on it."""
 
     centroids: torch.Tensor            # f32 [nlist, d]
     ids: torch.Tensor                  # i32 [n_valid]
@@ -412,6 +417,7 @@ class StagedIvf:
     nlist: int
     c_pad: int
     starts_host: np.ndarray            # int64 [nlist + 1]
+    max_rows: int                      # the largest cluster's valid rows
 
     @property
     def pq(self) -> bool:
@@ -436,16 +442,28 @@ def stage_index(index, device) -> StagedIvf:
     keep = valid.reshape(-1)
 
     def compact(t, width):
-        return t.reshape(-1, width)[keep].to(dev).contiguous()
+        return with_slack(t.reshape(-1, width)[keep], dev)
 
     return StagedIvf(
         centroids=index.centroids.to(dev).contiguous(),
-        ids=index.grouped_ids.reshape(-1)[keep].to(dev).contiguous(),
+        ids=compact(index.grouped_ids, 1).reshape(-1),
         starts=torch.from_numpy(starts.astype(np.int32)).to(dev),
         rows=None if pq else compact(index.grouped, index.grouped.shape[-1]),
         codes=compact(index.grouped_codes, index.m) if pq else None,
         codebooks=index.codebooks.to(dev).contiguous() if pq else None,
-        nlist=index.nlist, c_pad=index.c_pad, starts_host=starts)
+        nlist=index.nlist, c_pad=index.c_pad, starts_host=starts,
+        max_rows=int(counts.max()) if len(counts) else 0)
+
+
+def with_slack(t, device):
+    """``t`` on ``device`` as a contiguous view of a fresh allocation 16
+    bytes longer (zeros): a 16-byte window over its last elements stays
+    inside it."""
+    flat = t.reshape(-1)
+    buf = torch.zeros(flat.numel() + -(-16 // t.element_size()),
+                      dtype=t.dtype, device=device)
+    buf[: flat.numel()] = flat.to(device)
+    return buf[: flat.numel()].view(t.shape)
 
 
 class IvfSegment(NamedTuple):

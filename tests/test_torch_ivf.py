@@ -14,6 +14,14 @@ CPU against the JAX package's ``opensearch_tpu/ops/ivf.py``.
   are byte-equal.
 - Ties go to the lower flat index ``probe_rank * c_pad + position``,
   not the lower doc id.
+- On layouts laid out by hand (``testing/ann.py`` ``SKEWED``: a cluster
+  of c_pad rows over several scan chunks, one holding most of a segment,
+  clusters of one row and of none, nlist 1, 3 and 2,000, tied rows
+  straddling every multiple of 64; two of them at d = 768, IVF-PQ at m
+  = 8 and 128), the kernels' plain twins equal the JAX
+  package's ``ivf_search`` / ``ivfpq_search_l2``; ``stage_index``
+  records the largest cluster's rows and leaves the slack the scan's
+  16-byte copies need.
 - The kernels' layout (``stage_index``) and plain twins
   (``ivf_search_segments``, ``ivfpq_search_segments``) equal the
   reference-signature versions byte for byte, over several segments and
@@ -32,6 +40,7 @@ import jax.numpy as jnp
 from opensearch_tpu.ops import ivf as jivf
 from opensearch_tpu_torch.ops import cuda_ivf, ivf
 from opensearch_tpu_torch.ops.knn import ATOL, RTOL
+from opensearch_tpu_torch.testing import ann
 
 SPACES = ("l2", "cosinesimil", "innerproduct")
 
@@ -362,9 +371,13 @@ def test_launch_table_layout():
     items = [ivf.IvfSegment(ivf.stage_index(ivf.IvfIndex.build(
         x, np.ones(100, bool), nlist), "cpu"), torch.ones(128, dtype=bool),
         nprobe, k) for nlist, nprobe, k in ((4, 2, 5), (8, 8, 3))]
-    table, p_tot, f_tot = cuda_ivf.launch_table(items, 3, [0, 5], True)
+    chunk = 16
+    table, p_tot, b_tot, f_tot = cuda_ivf.launch_table(items, 3, [0, 5],
+                                                       True, chunk)
     w = cuda_ivf.SEG_WORDS
-    assert p_tot == 10 and table.shape == (2 * w + 3,)
+    # two segments' entries, then a pair of int32 counters per (query,
+    # segment): 3 x 2 int64 words
+    assert p_tot == 10 and table.shape == (2 * w + 6,)
     e0, e1 = table[:w], table[w: 2 * w]
     assert e0[cuda_ivf.W_CENTROIDS] == items[0].index.centroids.data_ptr()
     assert e1[cuda_ivf.W_ROWS] == items[1].index.rows.data_ptr()
@@ -375,8 +388,21 @@ def test_launch_table_layout():
     assert e1[cuda_ivf.W_FLAT_OFF] == 2 * items[0].index.c_pad
     assert f_tot == 2 * items[0].index.c_pad + 8 * items[1].index.c_pad
     assert e0[cuda_ivf.W_CODEBOOKS] == 0 and e0[cuda_ivf.W_M] == 0
+    # scan blocks: each probe's chunks come from the segment's largest
+    # cluster, and a segment's blocks follow the one before it
+    chunks = [-(-it.index.max_rows // chunk) for it in items]
+    assert (e0[cuda_ivf.W_CHUNKS], e1[cuda_ivf.W_CHUNKS]) == tuple(chunks)
+    assert chunks == [cuda_ivf.chunks_per_probe(it.index, chunk)
+                      for it in items]
+    assert (e0[cuda_ivf.W_BLOCK_OFF], e1[cuda_ivf.W_BLOCK_OFF]) == \
+        (0, 2 * chunks[0])
+    assert b_tot == 2 * chunks[0] + 8 * chunks[1]
     assert (table[2 * w:] == 0).all()      # the counters start at zero
     assert cuda_ivf.k_padded(5) == 8 and cuda_ivf.k_padded(256) == 256
+    # a chunk as large as the largest cluster: one block per probe
+    _t, _p, b_one, _f = cuda_ivf.launch_table(items, 1, [0, 5], False,
+                                              cuda_ivf.CHUNK_MAX)
+    assert b_one == p_tot
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -392,3 +418,228 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         cuda_ivf.ivfpq_search_segments_cuda([pq], q)
     assert cuda_ivf.ivf_search_segments_cuda.launches == 0
     assert cuda_ivf.ivfpq_search_segments_cuda.launches == 0
+
+
+def skewed_queries(a, n_random, seed):
+    """A query on a duplicated row of the largest cluster (its tied
+    copies straddle a chunk boundary), one on each of the first 8
+    centroids, and ``n_random`` near random rows."""
+    rng = np.random.default_rng(seed)
+    valid = a["grouped_valid"]
+    big = int(np.argmax(valid.sum(1)))
+    d = a["centroids"].shape[1]
+    rows = (a["grouped"] if "grouped" in a else None)
+    out = [c + rng.normal(size=d).astype(np.float32) * 0.1
+           for c in a["centroids"][:8]]
+    if rows is not None:
+        size = int(valid[big].sum())
+        if size > ann.TIE_STRIDE + 2:
+            out.append(rows[big, ann.TIE_STRIDE - 2].copy())
+        flat = rows[valid]
+        out += [flat[i] + rng.normal(size=d).astype(np.float32) * 0.05
+                for i in rng.integers(0, len(flat), n_random)]
+    else:
+        out += [rng.normal(size=d).astype(np.float32) * 3
+                for _ in range(n_random)]
+    return [q.astype(np.float32) for q in out]
+
+
+@pytest.mark.parametrize("pq", [False, True])
+@pytest.mark.parametrize("layout", sorted(ann.SKEWED))
+def test_twins_equal_jax_on_skewed_layouts(layout, pq):
+    twins_equal_jax(ann.SKEWED[layout], 16, 4 if pq else 0)
+
+
+@pytest.mark.parametrize("layout", ["full_cluster", "nlist_3"])
+@pytest.mark.parametrize("m", [0, *ann.WIDE_MS])
+def test_twins_equal_jax_at_wide_rows(layout, m):
+    """``ann.WIDE_D`` = 768: rows wider than one pass of K6's stages, K7
+    at m = 8 (a codebook subspace of 96 floats) and at m = M_MAX."""
+    assert max(ann.WIDE_MS) == cuda_ivf.M_MAX
+    twins_equal_jax(ann.SKEWED[layout], ann.WIDE_D, m, n_random=1)
+
+
+def twins_equal_jax(sizes, d, m, n_random=3):
+    """The plain twin (IVF-PQ when ``m``) against the JAX package's
+    search on ``skewed_arrays(sizes, d, m)``, nprobe 1, nlist // 2 and
+    nlist, k = 10, every space."""
+    pq = m > 0
+    a = ann.skewed_arrays(sizes, d, m, seed=3)
+    idx = ann.skewed_index(sizes, d, m, seed=3)
+    staged = ivf.stage_index(idx, "cpu")
+    n = sum(sizes)
+    live = live_mask(n, 7)
+    nlist = len(sizes)
+    for q in skewed_queries(a, n_random, seed=len(sizes)):
+        qt = torch.from_numpy(q)
+        for nprobe in sorted({1, max(1, nlist // 2), nlist}):
+            seg = ivf.IvfSegment(staged, torch.from_numpy(live), nprobe, 10)
+            spaces = ("l2",) if pq else SPACES
+            for space in spaces:
+                if pq:
+                    got = ivf.ivfpq_search_segments([seg], qt[None])
+                    want = jivf.ivfpq_search_l2(
+                        *(jnp.asarray(a[f]) for f in (
+                            "centroids", "codebooks", "grouped_codes",
+                            "grouped_ids", "grouped_valid")),
+                        jnp.asarray(q), jnp.asarray(live), k=10,
+                        nprobe=nprobe)
+                    slack = 0.0
+                else:
+                    got = ivf.ivf_search_segments([seg], qt[None],
+                                                  space=space)
+                    want = jivf.ivf_search(
+                        *(jnp.asarray(a[f]) for f in (
+                            "centroids", "grouped", "grouped_ids",
+                            "grouped_valid")),
+                        jnp.asarray(q), jnp.asarray(live), space=space,
+                        k=10, nprobe=nprobe)
+                    x = np.zeros((n, d), np.float32)
+                    x[a["grouped_ids"][a["grouped_valid"]]] = \
+                        a["grouped"][a["grouped_valid"]]
+                    slack = (reference_l2_slack(x, np.asarray(want[1]), q,
+                                                np.asarray(want[0]))
+                             if space == "l2" else 0.0)
+                assert_close_hits((got[0][0], got[1][0]), want, slack)
+
+
+@pytest.mark.parametrize("layout", sorted(ann.SKEWED) + ["trained"])
+def test_staged_index_records_its_largest_cluster_and_slack(layout):
+    if layout == "trained":
+        x = corpus(n=600, d=12, seed=9, clusters=6)
+        valid = np.ones(600, bool)
+        valid[::11] = False
+        indexes = [ivf.IvfIndex.build(x, valid, nlist=9),
+                   ivf.IvfPqIndex.build(x, valid, nlist=9, m=3)]
+    else:
+        indexes = [ann.skewed_index(ann.SKEWED[layout], 12, m, seed=2)
+                   for m in (0, 3)]
+    for idx in indexes:
+        st = ivf.stage_index(idx, "cpu")
+        counts = idx.grouped_valid.sum(1).numpy()
+        assert st.max_rows == int(counts.max())
+        assert st.max_rows == int(np.diff(st.starts_host).max())
+        if layout != "trained":
+            assert st.max_rows == max(ann.SKEWED[layout])
+        for t in (st.ids, st.codes if st.pq else st.rows):
+            storage = t.untyped_storage()
+            end = t.data_ptr() + t.numel() * t.element_size()
+            assert storage.data_ptr() + storage.nbytes() >= end + 16
+            assert t.is_contiguous()
+
+
+def probe_by_slices(cd_keys, nprobe, blocks):
+    """A numpy model of ``csrc/ivf.cu``'s probe: ``blocks`` slices of
+    ceil(nlist / blocks) keys, each ranked within its slice; a key among
+    its slice's first ``nprobe`` finds its rank in the segment by adding
+    each other slice's count of larger keys (binary lifting over the
+    sorted list); the first ``nprobe`` are written by rank."""
+    nlist = len(cd_keys)
+    per = -(-nlist // blocks)
+    slices = [sorted(cd_keys[min(nlist, b * per): min(nlist, (b + 1) * per)],
+                     reverse=True) for b in range(blocks)]
+    top = 1
+    while top < per:
+        top <<= 1
+    out = [None] * nprobe
+    for me, mine in enumerate(slices):
+        for i, k in enumerate(mine[:nprobe]):
+            r = i
+            for b, other in enumerate(slices):
+                if b == me:
+                    continue
+                above, step = 0, top
+                while step:
+                    if above + step <= len(other) and \
+                            other[above + step - 1] > k:
+                        above += step
+                    step >>= 1
+                r += above
+            if r < nprobe:
+                assert out[r] is None
+                out[r] = k
+    return out
+
+
+@pytest.mark.parametrize("nlist,blocks,nprobe", [
+    (1, 8, 1), (3, 8, 3), (3, 8, 1), (271, 8, 33), (271, 8, 271),
+    (271, 1, 33), (272, 4, 8), (9, 2, 9), (1000, 8, 125)])
+def test_probe_slices_rank_as_one_sort(nlist, blocks, nprobe):
+    rng = np.random.default_rng(nlist + blocks)
+    # keys as the kernel builds them: (orderable(-cd) << 32) | ~c, with
+    # repeated distances so ties fall to the lower centroid
+    cd = rng.integers(0, max(2, nlist // 3), size=nlist)
+    keys = [int((1 << 31) - v) << 32 | (0xFFFFFFFF - c)
+            for c, v in enumerate(cd)]
+    got = [0xFFFFFFFF - (k & 0xFFFFFFFF)
+           for k in probe_by_slices(keys, nprobe, blocks)]
+    want = np.lexsort((np.arange(nlist), cd))[:nprobe]
+    assert got == list(want)
+
+
+@pytest.mark.parametrize("layout", sorted(ann.SKEWED))
+@pytest.mark.parametrize("chunk", [64, 256, 1024])
+def test_scan_blocks_cover_every_probed_row_once(layout, chunk):
+    """A model of the scan's grid: block j of a query finds its segment
+    by the launch table's ``W_BLOCK_OFF`` words, its probe rank and chunk
+    by ``W_CHUNKS``; together the blocks cover each probed cluster's rows
+    exactly once, the blocks past a cluster's rows take none."""
+    items = [ivf.IvfSegment(ivf.stage_index(ann.skewed_index(
+        ann.SKEWED[name], 4, seed=1), "cpu"), torch.ones(4096, dtype=bool),
+        len(ann.SKEWED[name]), 10) for name in (layout, "nlist_3")]
+    table, p_tot, b_tot, _f = cuda_ivf.launch_table(items, 1, [0, 10],
+                                                    False, chunk)
+    w = cuda_ivf.SEG_WORDS
+    entries = table[: len(items) * w].reshape(len(items), w)
+    seen = {}
+    for j in range(b_tot):
+        seg = int(np.searchsorted(entries[:, cuda_ivf.W_BLOCK_OFF], j,
+                                  side="right")) - 1
+        e = entries[seg]
+        local = j - e[cuda_ivf.W_BLOCK_OFF]
+        rank, ch = divmod(local, e[cuda_ivf.W_CHUNKS])
+        starts = items[seg].index.starts_host
+        c = rank            # nprobe = nlist: any probe order covers them
+        lo = starts[c] + ch * chunk
+        rows = min(chunk, starts[c + 1] - starts[c] - ch * chunk)
+        for r in range(max(0, rows)):
+            key = (seg, lo + r)
+            assert key not in seen
+            seen[key] = j
+    assert len(seen) == sum(int(it.index.starts_host[-1]) for it in items)
+    assert p_tot == sum(it.nprobe for it in items)
+
+
+def test_wrapper_caches_keep_the_launch_table_and_the_checks():
+    """The wrapper keeps each staged index's static table words and its
+    checks on the (frozen) index: a second table is the same bytes as
+    the first, the words equal those of the index's arrays, and a staged
+    array without the copies' slack is refused."""
+    import dataclasses
+
+    x = corpus(n=300, d=8, seed=4, clusters=5)
+    items = [ivf.IvfSegment(ivf.stage_index(ivf.IvfIndex.build(
+        x, np.ones(300, bool), nlist), "cpu"), torch.ones(512, dtype=bool),
+        nprobe, 7) for nlist, nprobe in ((6, 3), (9, 9))]
+    first = cuda_ivf.launch_table(items, 2, [0, 7], False, 32)
+    again = cuda_ivf.launch_table(items, 2, [0, 7], False, 32)
+    assert first[0].tobytes() == again[0].tobytes() and first[1:] == again[1:]
+    w = cuda_ivf.SEG_WORDS
+    for s, it in enumerate(items):
+        e = first[0][s * w: (s + 1) * w]
+        assert e[cuda_ivf.W_ROWS] == it.index.rows.data_ptr()
+        assert e[cuda_ivf.W_IDS] == it.index.ids.data_ptr()
+        assert e[cuda_ivf.W_STARTS] == it.index.starts.data_ptr()
+        assert e[cuda_ivf.W_CHUNKS] == cuda_ivf.chunks_per_probe(it.index, 32)
+    other = cuda_ivf.launch_table(items, 2, [0, 7], False, 16)[0]
+    assert other[cuda_ivf.W_CHUNKS] == cuda_ivf.chunks_per_probe(
+        items[0].index, 16)
+    cpu = torch.device("cpu")
+    st = items[0].index
+    cuda_ivf._check_index(st, 0, cpu, 8, False, "k")
+    assert st.__dict__["_checked"] == (cpu, 8, False)
+    bare = dataclasses.replace(st, rows=st.rows.clone())   # no slack
+    with pytest.raises(ValueError, match="slack"):
+        cuda_ivf._check_index(bare, 0, cpu, 8, False, "k")
+    with pytest.raises(TypeError):
+        cuda_ivf._check_index(st, 0, cpu, 8, True, "k")
