@@ -110,7 +110,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
    10, K_MAX (past the candidates of small probes) and K_MAX + 1 (the
    sorted route, counted), and a ``knn`` on an
    ``ivf`` field through ``ShardSearcher`` over three segments, one
-   without the field, equal to the CPU searcher (phase 13 times them).
+   without the field, equal to the CPU searcher (phase 13 times them);
+   and K8 and K9, the phrase and span-near kernels
+   (``csrc/positions.cu``: ``phrase_freqs_cuda``, ``span_near_cuda``, a
+   thread per posting entry of the anchor term, one launch per segment
+   and leaf), byte for byte against their plain versions and launch to
+   launch on the CPU test's sets (``testing/positions.py``) and over the
+   16 scale segments ("t0 t0", the heaviest, with t0's position count
+   printed; "t0 t0 t0"; 2-, 3- and 5-term phrases of
+   ``phrase_query_log``; a phrase with a term some segments lack;
+   ordered, unordered and ``end`` spans), then each timed on one scale
+   segment at its heaviest case in turns with its plain version (CUDA
+   events and profiler device ms) beside its bound.
    The scale corpus carries doc-value columns (``testing/corpus.py``
    ``doc_value_columns``: ``price`` long, ``ts`` date, ``tag`` keyword
    with postings and ordinals, ``fare`` double) in both layouts, for
@@ -289,13 +300,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    q`` of the probed rows and exact K1 over the same segments.  Phase 9 also feeds an index ``ann`` (5,000 clustered
    100-d vectors, ``ivf``, cosine) by ``_bulk`` and sends it 10 ``knn``
    ``_search`` requests over HTTP (one K6 launch each), held to the CPU
-   searcher.
+   searcher;
+14. phrase and proximity, on phase 4's 16 f32 segments (positions staged
+   on the first phrase, their bytes and seconds printed): 100
+   ``match_phrase`` of 2-3 tokens of ``phrase_query_log`` (each occurs
+   in the corpus), 20 anchored on t0 (runs starting with t0, "t0 t0",
+   "t0 t0 t0"), 20 ``match_phrase_prefix``, 20 ``multi_match``
+   ``phrase`` over ``body^2`` and ``tag``, 20 ordered ``span_near`` (2-3
+   clauses, slop 0-3), 20 unordered, 10 ``span_first``, 10 ordered
+   ``intervals`` and 20 ``bool`` of a ``match_phrase`` and a ``price``
+   range: qps, p50, p99 and K8 / K9 launches a request by kind; 4 of
+   each kind byte-equal to the CPU searcher; 20 phrase bodies on phase
+   7's 8 int8 segments equal to the f32 layout's.  Phase 9 also sends
+   its ``corpus`` 10 phrase requests over HTTP (6 ``match_phrase``
+   bodies, 2 quoted and 2 bare URI ``q``), held to the CPU searcher.
 
 Every kernel wrapper counts its launches; the counts are zeroed just
 before phase 3 and read after phase 4, and zeroed again just before
 phases 5, 6, 7, 8, 9, phase 10's hybrids and phase 11's requests over
 HTTP, phase 10, phase 11, phase 12's requests over HTTP, phase 12, phase
-9's ANN requests and phase 13 and read after each: each kernel of each
+9's ANN requests and phase 13 and read after each; K8 / K9's before
+phase 9's phrase requests and each kind of phase 14: each kernel of each
 path must have run.
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the
@@ -412,7 +437,7 @@ def phase_toolkit():
     log(f"gpu: {gpu_name_power()}")
     t0 = time.monotonic()
     logs = cuda_build.build(["knn", "bm25", "union_topk", "quant_topk",
-                             "aggs", "plan_topk", "ivf"],
+                             "aggs", "plan_topk", "ivf", "positions"],
                             {"knn": cuda_knn.defines(),
                              "ivf": cuda_ivf.defines(),
                              "bm25": cuda_bm25.defines(),
@@ -2643,6 +2668,184 @@ def phase_plan_topk(scale_segs, searcher, gen) -> dict:
         f"bound_ms {bms:.5f} ({by}: {nbytes:.0f} bytes); on "
         f"{gpu_name_power()}")
     return row
+
+
+def staged_positions(pf, dev) -> tuple:
+    """``((doc_ids, pos_offsets, positions), n_pad)`` of a
+    ``PostingsField`` on ``dev``, padded as
+    ``DeviceSegment.ensure_positions`` pads them."""
+    import torch
+
+    from opensearch_tpu_torch.index.segment import pad_pow2
+
+    def pad(a, fill):
+        out = np.full(pad_pow2(len(a)), fill, a.dtype)
+        out[: len(a)] = a
+        return torch.from_numpy(out).to(dev)
+
+    n_docs = len(pf.doc_lens)
+    return ((pad(pf.doc_ids, n_docs),
+             pad(pf.pos_offsets, pf.pos_offsets[-1]),
+             pad(pf.positions, 0)), pad_pow2(n_docs + 1))
+
+
+def positional_bytes(pf, slots, n_pad: int) -> float:
+    """Bytes K8 / K9 must move for ``slots`` over ``pf``: each distinct
+    slot row's doc ids and position offsets (4 + 4 bytes an entry) and
+    its positions (4 bytes each) read once, the [n_pad] float output
+    written once."""
+    total = 4.0 * n_pad
+    for e0, e1 in {tuple(int(x) for x in r) for r in slots.rows}:
+        total += 8.0 * (e1 - e0) + 4.0 * (int(pf.pos_offsets[e1])
+                                          - int(pf.pos_offsets[e0]))
+    return total
+
+
+def phase_positions(scale_segs) -> dict:
+    """K8 (``phrase_freqs_cuda``) and K9 (``span_near_cuda``,
+    ``csrc/positions.cu``) against their plain versions on the card:
+    ``tf`` byte for byte and equal launch to launch, on the sets of
+    ``tests/test_torch_phrase.py`` (``testing/positions.py``: 2-6 slots,
+    stopword holes, duplicated terms, a missing and a one-posting term, a
+    slot filling its bucket exactly, positions just below 2^22; ordered,
+    unordered and ``end`` spans, the full-bucket trap) and over the 16
+    scale segments: the heaviest phrase, "t0 t0" (anchored on t0), "t0 t0
+    t0", 2-, 3- and 5-term phrases of ``phrase_query_log``, a phrase with
+    a term some segments lack, ordered / unordered / ``end`` spans.  Then
+    each kernel timed on one scale segment at its heaviest case in turns
+    with its plain version (CUDA-event ms a call, profiler device ms), with
+    its bound; no single PyTorch call computes either function."""
+    import torch
+
+    from opensearch_tpu_torch.ops import cuda_positions
+    from opensearch_tpu_torch.ops import phrase as P
+    from opensearch_tpu_torch.ops import span as S
+    from opensearch_tpu_torch.search.compiler import _SPAN_NO_END
+    from opensearch_tpu_torch.testing import corpus, positions
+
+    dev = torch.device(DEVICE)
+    k8, k9 = cuda_positions.phrase_freqs_cuda, cuda_positions.span_near_cuda
+    checks = {"phrase_freqs": 0, "span_near": 0}
+
+    def held(name, kernel, plain, what):
+        got, again, want = kernel(), kernel(), plain()
+        if not (torch.equal(got, want) and torch.equal(again, got)):
+            raise AssertionError(f"{name} {what}: differs from its plain "
+                                 "version or from launch to launch")
+        checks[name] += 1
+        return int(want.sum().item())
+
+    def phrase_case(pf, cols, n_pad, terms, offs, what):
+        slots = P.phrase_slots(pf, terms, offs)
+        return held("phrase_freqs", lambda: k8(*cols, slots, n_pad),
+                    lambda: P.phrase_freqs(*cols, slots, n_pad), what)
+
+    def span_case(pf, cols, n_pad, terms, ordered, slop, end, what):
+        slots = S.span_slots(pf, terms)
+        kw = dict(ordered=ordered, slop=slop, end=end)
+        return held("span_near", lambda: k9(*cols, slots, n_pad, **kw),
+                    lambda: S.span_near_freqs(*cols, slots, n_pad, **kw),
+                    what)
+
+    t0 = time.monotonic()
+    for name, pf, cases in positions.phrase_sets():
+        cols, n_pad = staged_positions(pf, dev)
+        for terms, offs in cases:
+            phrase_case(pf, cols, n_pad, terms, offs, f"{name} {terms}")
+    for name, pf, cases in positions.span_sets():
+        cols, n_pad = staged_positions(pf, dev)
+        for terms, ordered, slop, end in cases:
+            span_case(pf, cols, n_pad, terms, ordered, slop, end,
+                      f"{name} {terms} ordered={ordered} slop={slop}")
+    small = dict(checks)
+
+    # the scale shapes: every case over every one of the 16 segments
+    runs = corpus.phrase_query_log(200, seed=41, n_docs=SCALE_DOCS)
+    by_len = {n: [r for r in runs if len(r) == n][:2] for n in (2, 3, 5)}
+    pfs = [seg.postings["body"] for seg in scale_segs]
+    lacking = next(f"t{t}" for t in range(20_000, 30_000)
+                   if 0 < sum(pf.term_id(f"t{t}") >= 0 for pf in pfs)
+                   < len(pfs))
+    phrases = [["t0", "t0"], ["t0", "t0", "t0"], ["t0", lacking],
+               [lacking, "t1"]]
+    phrases += [[f"t{t}" for t in r] for n in (2, 3, 5) for r in by_len[n]]
+    spans = [(["t0", "t1"], True, 0, _SPAN_NO_END),
+             (["t0", "t2", "t1"], True, 3, _SPAN_NO_END),
+             (["t0", "t1"], False, 2, _SPAN_NO_END),
+             (["t0", "t0"], False, 1, _SPAN_NO_END),
+             (["t0"], True, 0, 5), (["t3", lacking], True, 1, _SPAN_NO_END)]
+    for r in by_len[5]:
+        terms, slop = corpus.span_clauses(r, 3)
+        spans.append(([f"t{t}" for t in terms], True, slop, _SPAN_NO_END))
+    # staged here, apart from the segments' views: those stage their
+    # positions on phase 14's first phrase, so phases 3-13 run as before
+    staged = [staged_positions(pf, dev) for pf in pfs]
+    matched = {}
+    for pf, (cols, n_pad) in zip(pfs, staged):
+        for terms in phrases:
+            key = " ".join(terms)
+            matched[key] = matched.get(key, 0) + phrase_case(
+                pf, cols, n_pad, terms, list(range(len(terms))), key)
+        for terms, ordered, slop, end in spans:
+            key = f"span {terms} ordered={ordered} slop={slop} end={end}"
+            matched[key] = matched.get(key, 0) + span_case(
+                pf, cols, n_pad, terms, ordered, slop, end, key)
+    pf0, (cols0, n_pad0) = pfs[0], staged[0]
+    tid = pf0.term_id("t0")
+    t0_positions = [int(pf.pos_offsets[pf.offsets[pf.term_id("t0") + 1]]
+                        - pf.pos_offsets[pf.offsets[pf.term_id("t0")]])
+                    for pf in pfs]
+    log(f"K8 / K9: {small['phrase_freqs']} phrase and "
+        f"{small['span_near']} span cases of the CPU test's sets, then "
+        f"{checks['phrase_freqs'] - small['phrase_freqs']} phrase and "
+        f"{checks['span_near'] - small['span_near']} span calls over the 16 "
+        f"scale segments, byte-equal to the plain versions and launch to "
+        f"launch ({time.monotonic() - t0:.1f}s); t0 holds "
+        f"{sum(t0_positions)} positions ({max(t0_positions)} in one "
+        f"segment, {int(pf0.df[tid])} docs of segment 0); a phrase on "
+        f"{lacking}, which {sum(pf.term_id(lacking) < 0 for pf in pfs)} "
+        f"segments lack; matches per case: {matched}")
+
+    rows = {}
+    for name, kernel_name, slots, call, plain in (
+            ("phrase_freqs", "phrase_freqs_kernel",
+             P.phrase_slots(pf0, ["t0", "t0"], [0, 1]),
+             lambda s: k8(*cols0, s, n_pad0),
+             lambda s: P.phrase_freqs(*cols0, s, n_pad0)),
+            ("span_near", "span_near_kernel",
+             S.span_slots(pf0, ["t0", "t1"]),
+             lambda s: k9(*cols0, s, n_pad0, ordered=False, slop=2,
+                          end=_SPAN_NO_END),
+             lambda s: S.span_near_freqs(*cols0, s, n_pad0,
+                                         ordered=False, slop=2,
+                                         end=_SPAN_NO_END))):
+        ms, plain_ms = in_turns(lambda: call(slots), lambda: plain(slots),
+                                20)
+        dev_ms = kernel_device_ms(lambda: call(slots), 20, kernel_name)
+        if dev_ms is None:
+            raise AssertionError(f"the profiler shows no {kernel_name}")
+        nbytes = positional_bytes(pf0, slots, n_pad0)
+        bms, by = bound_ms(nbytes, 0.0)
+        rows[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "library_ms": None, "bound_ms": bms, "bound_by": by,
+                      "bound_bytes": nbytes, "max_abs_err": 0.0,
+                      "anchor_entries": slots.n_anchor,
+                      "checks": checks[name]}
+    median = P.phrase_slots(pf0, [f"t{t}" for t in by_len[3][0]], [0, 1, 2])
+    rows["phrase_freqs"]["median_3_term_ms"] = cuda_ms(
+        lambda: k8(*cols0, median, n_pad0), 20)
+    for name, what in (("phrase_freqs", '"t0 t0"'),
+                       ("span_near", "unordered [t0, t1] slop 2")):
+        r = rows[name]
+        log(f"{name} on one scale segment ({what}, {r['anchor_entries']} "
+            f"anchor entries): ms {r['ms']:.4f} device_ms "
+            f"{r['device_ms']:.5f} plain_ms {r['plain_ms']:.4f} bound_ms "
+            f"{r['bound_ms']:.5f} ({r['bound_by']}: {r['bound_bytes']:.0f} "
+            f"bytes); library_ms null (no single PyTorch call computes "
+            f"per-doc phrase or span frequencies); on {gpu_name_power()}")
+    log(f"phrase_freqs on a 3-term phrase of the log: "
+        f"{rows['phrase_freqs']['median_3_term_ms']:.4f} ms a call")
+    return rows
 
 
 def phase_quantized_scale(segs, mapper, searcher, build, counters) -> dict:
@@ -5197,6 +5400,250 @@ def phase_http_ann(node, state, counters) -> dict:
             "launches": launches, "wall_s": time.monotonic() - t_phase}
 
 
+def phase_http_phrase(node, state, counters) -> dict:
+    """Over HTTP on phase 9's node before it stops: HTTP_PHRASES
+    requests to ``corpus`` (20,000 rendered docs in 2 shards): 6
+    ``match_phrase`` ``_search`` bodies and 4 URI searches, 2 of a quoted
+    ``q=body:"..."`` (a ``match_phrase``) and 2 of a bare ``q`` (a
+    ``multi_match`` over every text field), their counts zeroed just
+    before them and read just after (K8 launches; no K1, K3 or K4), each
+    answer's hits equal to the CPU searcher's."""
+    from urllib.parse import quote
+
+    from opensearch_tpu_torch.ops import cuda_positions
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing import corpus
+
+    k8 = cuda_positions.phrase_freqs_cuda
+    runs = corpus.phrase_query_log(HTTP_PHRASES, seed=49,
+                                   n_docs=SERVE_DOCS, corpus_seed=44,
+                                   lengths=(2, 3))
+    requests = []
+    for i, run in enumerate(runs):
+        text = " ".join(f"t{t}" for t in run)
+        if i < 6:
+            q = {"match_phrase": {"body": text}}
+            requests.append(("POST", "/corpus/_search", {"query": q}, q))
+        else:
+            qs = f'body:"{text}"' if i < 8 else text
+            requests.append(("GET", f"/corpus/_search?q={quote(qs)}", None,
+                             {"query_string": {"query": qs}}))
+    client = HttpClient(node.port)
+    every = {**counters, "phrase_freqs": k8}
+    for fn in every.values():                   # this path starts here
+        fn.launches = 0
+    qps, p50, out = timed_calls(
+        lambda r: client.ok(r[0], r[1], r[2]), requests)
+    launches = {n: c.launches for n, c in every.items()}
+    if launches["phrase_freqs"] <= 0 or launches["knn_topk"] or \
+            launches["batch_topk"] or launches.get("term_bag_quantized_topk"):
+        raise AssertionError(f"phase 9 phrases over HTTP: launches "
+                             f"{launches}")
+    svc = node.indices.get("corpus")
+    cpu = ShardSearcher(svc.searcher().segments, svc.mapper,
+                        index_name="corpus", device="cpu")
+    for (_m, path, _b, query), resp in zip(requests, out):
+        want = json.loads(json.dumps(cpu.search({"query": query})))
+        if resp["hits"] != want["hits"]:
+            raise AssertionError(f"phase 9: {path} {json.dumps(query)} "
+                                 "over HTTP differs from the CPU searcher")
+    found = sum(bool(r["hits"]["hits"]) for r in out)
+    if found < len(out) - 1:
+        raise AssertionError(f"phase 9 phrases over HTTP: {found} of "
+                             f"{len(out)} found a hit")
+    client.close()
+    return {"qps": qps, "p50_ms": p50, "requests": len(requests),
+            "found": found, "launches": launches,
+            "k8_launches_per_request": launches["phrase_freqs"]
+            / len(requests)}
+
+
+# -- phase 14 ----------------------------------------------------------------
+
+PHRASE_KINDS = {"phrase": 100, "phrase_t0": 20, "phrase_prefix": 20,
+                "multi_match": 20, "span_ordered": 20,
+                "span_unordered": 20, "span_first": 10, "intervals": 10,
+                "bool_range": 20}
+PHRASE_CHECK = 4                 # of each kind, held to the CPU searcher
+PHRASE_INT8 = 20                 # phrase bodies also sent to the int8 layout
+HTTP_PHRASES = 10                # match_phrase / ?q= requests in phase 9
+
+
+def phase14_bodies() -> dict:
+    """Phase 14's requests by kind (``PHRASE_KINDS``), from seeded runs of
+    the scale corpus (``testing/corpus.py`` ``phrase_query_log``: each
+    run occurs at least once): ``match_phrase`` of 2-3 tokens; 18 runs
+    whose first token is t0 (the reference anchors on t0, the port on
+    the rarest slot) with "t0 t0" and "t0 t0 t0" (anchored on t0 by
+    both); ``match_phrase_prefix`` (the run's last token as the prefix,
+    ``max_expansions`` 10); ``multi_match`` ``phrase`` over ``body^2``
+    and ``tag`` (a dis_max of a phrase and a term bag); ordered
+    ``span_near`` of 2-3 clauses of a run (slop 0-3, the gap the run
+    needs); unordered ``span_near`` of a run's last and first tokens;
+    ``span_first``; ordered ``intervals`` ``match`` (max_gaps 0-2); and a
+    ``bool`` of a ``match_phrase`` and a ``range`` on ``price``."""
+    from opensearch_tpu_torch.testing import corpus
+
+    rng = np.random.default_rng(47)
+    runs = corpus.phrase_query_log(400, seed=45, n_docs=SCALE_DOCS)
+    short = [r for r in runs if len(r) <= 3]
+    longer = [r for r in runs if len(r) >= 3]
+    on_t0 = [r for r in corpus.phrase_query_log(
+        400, seed=46, n_docs=SCALE_DOCS, lengths=(2, 3)) if r[0] == 0]
+
+    def text(run):
+        return " ".join(f"t{t}" for t in run)
+
+    def body(q):
+        return {"query": q, "size": 10, "_source": False}
+
+    def near(terms, slop, ordered):
+        return body({"span_near": {"clauses": [
+            {"span_term": {"body": f"t{t}"}} for t in terms],
+            "slop": int(slop), "in_order": ordered}})
+
+    def phrase(run):
+        return body({"match_phrase": {"body": text(run)}})
+
+    return {
+        "phrase": [phrase(r) for r in short[:100]],
+        "phrase_t0": ([phrase(r) for r in on_t0[:18]]
+                      + [phrase((0, 0)), phrase((0, 0, 0))]),
+        "phrase_prefix": [body({"match_phrase_prefix": {"body": {
+            "query": text(r), "max_expansions": 10}}})
+            for r in short[100:120]],
+        "multi_match": [body({"multi_match": {
+            "query": text(r), "fields": ["body^2", "tag"],
+            "type": "phrase"}}) for r in short[120:140]],
+        "span_ordered": [near(*corpus.span_clauses(r, 2 + i % 2), True)
+                         for i, r in enumerate(longer[:20])],
+        "span_unordered": [near((r[-1], r[0]), len(r) - 2, False)
+                           for r in longer[20:40]],
+        "span_first": [body({"span_first": {
+            "match": {"span_term": {"body": f"t{r[0]}"}},
+            "end": int(rng.integers(1, 11))}}) for r in short[140:150]],
+        "intervals": [body({"intervals": {"body": {"match": {
+            "query": text(r), "ordered": True,
+            "max_gaps": int(rng.integers(0, 3))}}}})
+            for r in longer[40:50]],
+        "bool_range": [body({"bool": {
+            "must": [{"match_phrase": {"body": text(r)}}],
+            "filter": [{"range": {"price": {"gte": int(lo),
+                                            "lt": int(lo) + 4000}}}]}})
+            for r, lo in zip(short[150:170],
+                             rng.integers(0, 6000, size=20))],
+    }
+
+
+def phase_phrase(segs, mapper, searcher, qsearcher) -> dict:
+    """Phase 14: phrase and proximity search at full width, on phase 4's
+    16 f32 segments (1,000,000 docs, positions staged on the first
+    phrase: ``DeviceSegment.ensure_positions``).  Every body of
+    ``phase14_bodies`` once, kind after kind, with K8 / K9's counts zeroed
+    just before and read just after: qps, p50, p99 and launches a request
+    by kind; the first PHRASE_CHECK of each kind held to the CPU searcher
+    over the same segments byte for byte; the first PHRASE_INT8 phrase
+    bodies sent to phase 7's 8 int8 segments too, whose answers must
+    equal the f32 layout's (phrase scores read no impacts)."""
+    import torch
+
+    from opensearch_tpu_torch.ops import cuda_positions
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing.parity import bm25_mismatch
+
+    t_phase = time.monotonic()
+    k8, k9 = cuda_positions.phrase_freqs_cuda, cuda_positions.span_near_cuda
+    bodies = phase14_bodies()
+    before = searcher.resident_bytes()
+    t0 = time.monotonic()
+    searcher.search(bodies["phrase"][0])     # stages every segment's positions
+    torch.cuda.synchronize()
+    stage_s = time.monotonic() - t0
+    staged = searcher.resident_bytes() - before
+    p = segs[0].device(searcher.device).postings["body"]
+    col_bytes = {name: sum(seg.device(searcher.device).postings["body"][name]
+                           .nbytes for seg in segs)
+                 for name in ("positions", "pos_offsets", "doc_lens")}
+    warm = [b for kind in ("phrase_t0", "span_ordered") for b in
+            bodies[kind][-1:]]
+    for b in warm:
+        searcher.search(b)
+    torch.cuda.synchronize()
+    kinds, out, found = {}, {}, 0
+    for kind, items in bodies.items():
+        k8.launches = k9.launches = 0          # this path starts here
+        lat, resps = [], []
+        t0 = time.monotonic()
+        for b in items:
+            t = time.monotonic()
+            resps.append(searcher.search(b))
+            lat.append((time.monotonic() - t) * 1e3)
+        wall = time.monotonic() - t0
+        for r in resps:
+            hits = r["hits"]["hits"]
+            if len(hits) > 10 or not all(np.isfinite(h["_score"])
+                                         for h in hits):
+                raise AssertionError(f"phase 14 {kind}: bad hits")
+            found += bool(hits)
+        out[kind] = resps
+        kinds[kind] = {"n": len(items), "qps": len(items) / wall,
+                       "p50_ms": float(np.percentile(lat, 50)),
+                       "p99_ms": float(np.percentile(lat, 99)),
+                       "k8_per_request": k8.launches / len(items),
+                       "k9_per_request": k9.launches / len(items),
+                       "k8": k8.launches, "k9": k9.launches}
+    n_bodies = sum(len(v) for v in bodies.values())
+    if found < 0.9 * n_bodies:
+        raise AssertionError(f"phase 14: only {found} of {n_bodies} "
+                             "requests found hits")
+    launches = {"phrase_freqs": sum(k["k8"] for k in kinds.values()),
+                "span_near": sum(k["k9"] for k in kinds.values())}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"phase 14: K8 or K9 never launched: "
+                             f"{launches}")
+    t0 = time.monotonic()
+    cpu = ShardSearcher(segs, mapper, index_name="scale", device="cpu")
+    checked = 0
+    for kind, items in bodies.items():
+        for b, got in zip(items[:PHRASE_CHECK], out[kind]):
+            want = cpu.search(b)
+            bad = bm25_mismatch(got, want)
+            if bad or got["hits"]["max_score"] != want["hits"]["max_score"]:
+                raise AssertionError(f"phase 14 {kind} vs cpu: {bad}: "
+                                     f"{json.dumps(b)}")
+            checked += 1
+    cpu_s = time.monotonic() - t0
+    del cpu
+    q_lat = []
+    for b, want in zip(bodies["phrase"][:PHRASE_INT8], out["phrase"]):
+        t = time.monotonic()
+        got = qsearcher.search(b)
+        q_lat.append((time.monotonic() - t) * 1e3)
+        bad = bm25_mismatch(got, want)
+        if bad or got["hits"]["max_score"] != want["hits"]["max_score"]:
+            raise AssertionError(f"phase 14 int8 vs f32: {bad}")
+    gpu = gpu_name_power()
+    log(f"phrase and proximity: positions staged on the first phrase in "
+        f"{stage_s:.2f}s, {staged} bytes on the card over {len(segs)} "
+        f"segments ({col_bytes}, doc_ids/tfs already staged: "
+        f"{p['doc_ids'].nbytes + p['tfs'].nbytes} bytes a segment)")
+    for kind, k in kinds.items():
+        log(f"phrase {kind}: {k['n']} requests, qps {k['qps']:.2f}, p50 "
+            f"{k['p50_ms']:.3f} ms, p99 {k['p99_ms']:.3f} ms, K8 "
+            f"{k['k8_per_request']:.2f} and K9 {k['k9_per_request']:.2f} "
+            f"launches a request, on {gpu}")
+    log(f"phrase checks: {checked} answers byte-equal to the CPU searcher "
+        f"({cpu_s:.1f}s), {PHRASE_INT8} phrase answers on the 8 int8 "
+        f"segments equal to the f32 layout's (p50 "
+        f"{float(np.median(q_lat)):.3f} ms); {found} of {n_bodies} "
+        f"requests found hits")
+    return {"kinds": kinds, "launches": launches, "checked": checked,
+            "int8_equal": PHRASE_INT8, "int8_p50_ms": float(np.median(q_lat)),
+            "staged_bytes": staged, "stage_s": stage_s,
+            "column_bytes": col_bytes, "found": found,
+            "requests": n_bodies, "wall_s": time.monotonic() - t_phase}
+
+
 def main() -> int:
     import torch
 
@@ -5223,6 +5670,7 @@ def main() -> int:
     kern["plan_topk"] = phase_plan_topk(
         segs, searcher, torch.Generator().manual_seed(15))
     kern.update(phase_k5(segs, searcher))
+    kern.update(phase_positions(segs))
     dev = torch.device(DEVICE)
     ivf_check = phase_ivf_kernels(dev, torch.Generator(device=dev)
                                   .manual_seed(16))
@@ -5270,7 +5718,8 @@ def main() -> int:
         "hybrid": phase_http_hybrid(node, state, every),
         "aggs": phase_http_aggs(node, state, every),
         "script": phase_http_script(node, state, every),
-        "ann": phase_http_ann(node, state, every)})
+        "ann": phase_http_ann(node, state, every),
+        "phrase": phase_http_phrase(node, state, every)})
     then = serving.pop("then")
     filters = phase_filters_hybrid(segs, mapper, searcher, qsegs, qsearcher,
                                    every, http=then["hybrid"])
@@ -5292,6 +5741,10 @@ def main() -> int:
     if min(launches["ivf_search"], launches["ivfpq_search"]) <= 0:
         raise AssertionError(f"K6 or K7 never launched on the ANN path: "
                              f"{launches}")
+    # phrase and proximity, K8 / K9's counts zeroed just before it
+    phrase = phase_phrase(segs, mapper, searcher, qsearcher)
+    for name, n in phrase["launches"].items():
+        launches[name] = n + then["phrase"]["launches"].get(name, 0)
     for name in ("ivf_search", "ivfpq_search"):
         kern[name] = dict(ann["kernels"][name])
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"],
@@ -5319,7 +5772,12 @@ def main() -> int:
                              "opensearch_tpu/search/plan.py:1760"),
                # and ivf_search_batch, opensearch_tpu/ops/ivf.py:170
                "ivf_search": ("ivf.cu", "opensearch_tpu/ops/ivf.py:140"),
-               "ivfpq_search": ("ivf.cu", "opensearch_tpu/ops/ivf.py:236")}
+               "ivfpq_search": ("ivf.cu", "opensearch_tpu/ops/ivf.py:236"),
+               # and gather_term_positions, opensearch_tpu/ops/phrase.py:27
+               "phrase_freqs": ("positions.cu",
+                                "opensearch_tpu/ops/phrase.py:49"),
+               "span_near": ("positions.cu",
+                             "opensearch_tpu/ops/span.py:32")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     ivf_keys = ("device_ms", "span_ms", "probe_device_ms",
@@ -5340,6 +5798,9 @@ def main() -> int:
                     "ann": {k: v for k, v in ann.items() if k != "kernels"},
                     "ann_over_http": then["ann"],
                     "ivf_kernels": ann["kernels"],
+                    "phrase": phrase, "phrase_over_http": then["phrase"],
+                    "k8_k9": {n: kern[n] for n in ("phrase_freqs",
+                                                   "span_near")},
                     "k1_scores_16": kern["knn_scores_16"],
                     "k5": kern["bucket_collect"], "masks": kern["masks"],
                     "dense": {n: kern[n] for n in (

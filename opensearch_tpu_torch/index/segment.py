@@ -26,7 +26,10 @@ On a segment that ``index/codec.py`` ``use_quantized`` lowers, only the
 offsets are staged at construction: scored term bags read the quantized
 tables (``DeviceSegment.quantized``: int8/int16 impacts and bit-packed
 doc ids), and the f32 doc ids and tfs stage on first demand
-(``ensure_postings``: filter-context bags, the batched path).
+(``ensure_postings``: filter-context bags, the batched path).  On every
+segment the positions (``pos_offsets``, ``positions``, ``doc_lens``)
+stage on the first phrase or span plan over a field
+(``ensure_positions``).
 
 ``Segment.quantized_table`` reads and writes the ``.quant`` sidecars of
 ``index/store.py`` once the store has set ``quant_dir``.
@@ -529,6 +532,33 @@ class DeviceSegment:
                 p["doc_ids"] = self._stage(_pad1(pf.doc_ids, p_pad,
                                                  self.n_docs))
                 p["tfs"] = self._stage(_pad1(pf.tfs, p_pad, 0.0))
+        return p
+
+    def ensure_positions(self, field: str) -> Optional[dict]:
+        """The postings entry of ``field`` with its positions staged for
+        the phrase and span plans (K8 / K9), on their first demand only,
+        on f32 and quantized segments alike: ``doc_ids`` and ``tfs``
+        (``ensure_postings``), ``pos_offsets`` (per posting entry, padded
+        with its last value to ``pad_pow2``), ``positions`` (padded with 0
+        to ``pad_pow2``) and ``doc_lens`` (``n_pad``, padded with 1.0), as
+        the reference pads them.  The reference stages them eagerly on
+        f32 segments; staging on demand leaves every other path's
+        resident bytes as they were.  None when the segment has no such
+        field."""
+        p = self.ensure_postings(field)
+        if p is None or "positions" in p:
+            return p
+        with self._postings_lock:
+            if "positions" not in p:
+                pf = self.seg.postings[field]
+                po = pf.pos_offsets
+                p["pos_offsets"] = self._stage(_pad1(
+                    po, pad_pow2(len(po)), po[-1] if len(po) else 0))
+                p["doc_lens"] = self._stage(_pad1(
+                    np.asarray(pf.doc_lens, np.float32), self.n_pad, 1.0))
+                # last, so a reader that sees "positions" sees them all
+                p["positions"] = self._stage(_pad1(
+                    pf.positions, pad_pow2(len(pf.positions)), 0))
         return p
 
     def ensure_norms(self, field: str) -> Optional[dict]:

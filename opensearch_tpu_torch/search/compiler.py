@@ -1,7 +1,10 @@
 """Query tree -> (plan, bindings) against a shard's mapping + collection
 statistics (the port of the part of the JAX package's
 ``search/compiler.py`` that match / term / terms / range / exists / ids /
-prefix / bool / constant_score / knn / script_score queries need).
+prefix / bool / constant_score / knn / script_score queries need, and the
+positional full-text family: match_phrase, match_phrase_prefix,
+match_bool_prefix, multi_match, dis_max, simple_query_string, the span
+queries and intervals).
 
 idf/avgdl are computed here from CROSS-SEGMENT stats (Lucene computes
 them in IndexSearcher.termStatistics over the whole reader, not per
@@ -12,7 +15,9 @@ reference compiles but this package does not yet raise
 
 from __future__ import annotations
 
+import bisect
 import ipaddress
+import re
 from dataclasses import dataclass
 
 import numpy as np
@@ -93,6 +98,10 @@ class ShardContext:
             out = list(seg.postings[field].terms)
             self._sorted_terms[key] = out
         return out
+
+    def text_fields(self) -> list[str]:
+        return [f for f, ft in self.mapper.field_types().items()
+                if isinstance(ft, TextFieldType)]
 
 
 def calc_min_should_match(optional: int, spec) -> int:
@@ -413,6 +422,462 @@ def _c_constant_score(q, ctx, scored):
             {"boost": q.boost, "child": child_bind})
 
 
+def _c_match_phrase(q, ctx, scored):
+    ft = _require_ft(ctx, q.field, "match_phrase")
+    if ft is None:
+        return _none()
+    if not isinstance(ft, TextFieldType):
+        return _c_term(dsl.TermQuery(field=q.field, value=q.query,
+                                     boost=q.boost), ctx, scored)
+    analyzer = ctx.mapper.analyzers.get(ft.search_analyzer_name)
+    toks = analyzer.analyze(str(q.query))
+    if not toks:
+        return _none()
+    if len(toks) == 1:
+        return _term_bag(ctx, q.field, [toks[0].term], 1, q.boost, scored)
+    if q.slop:
+        raise IllegalArgumentError(
+            "match_phrase slop > 0 is not supported yet")
+    return _phrase_from_tokens(ctx, q.field, [t.term for t in toks],
+                               [t.position for t in toks], q.boost, scored)
+
+
+def _c_multi_match(q, ctx, scored):
+    if q.type == "bool_prefix":
+        # dis-max of per-field match_bool_prefix
+        # (MultiMatchQueryBuilder.Type.BOOL_PREFIX)
+        plans, binds = [], []
+        for field, fboost in q.fields:
+            if ctx.field_type(field) is None:
+                continue
+            p, b = _c_match_bool_prefix(dsl.MatchBoolPrefixQuery(
+                field=field, query=q.query, operator=q.operator,
+                analyzer=getattr(q, "analyzer", None),
+                minimum_should_match=q.minimum_should_match,
+                fuzziness=getattr(q, "fuzziness", None),
+                boost=q.boost * fboost), ctx, scored)
+            if not isinstance(p, P.MatchNonePlan):
+                plans.append(p)
+                binds.append(b)
+        return _dis_max_of(plans, binds, 1.0, q.tie_breaker)
+    if q.type not in ("best_fields", "most_fields", "phrase"):
+        raise IllegalArgumentError(
+            f"multi_match type [{q.type}] is not supported")
+    # "*" expands to every text field
+    fields = []
+    for field, fboost in q.fields:
+        if field == "*":
+            fields.extend((f, fboost) for f in ctx.text_fields())
+        else:
+            fields.append((field, fboost))
+    children, binds = [], []
+    for field, fboost in fields:
+        if ctx.field_type(field) is None:
+            continue
+        if q.type == "phrase":
+            sub = dsl.MatchPhraseQuery(field=field, query=q.query,
+                                       boost=q.boost * fboost)
+            p, b = _c_match_phrase(sub, ctx, scored)
+        else:
+            sub = dsl.MatchQuery(field=field, query=q.query,
+                                 operator=q.operator,
+                                 minimum_should_match=q.minimum_should_match,
+                                 lenient=getattr(q, "lenient", False),
+                                 analyzer=getattr(q, "analyzer", None),
+                                 boost=q.boost * fboost)
+            p, b = _c_match(sub, ctx, scored)
+        if not isinstance(p, P.MatchNonePlan):
+            children.append(p)
+            binds.append(b)
+    return _dis_max_of(children, binds, 1.0, q.tie_breaker)
+
+
+def _dis_max_of(plans, binds, boost, tie_breaker):
+    """match_none for no child, the child alone for one, else their
+    dis_max."""
+    if not plans:
+        return _none()
+    if len(plans) == 1:
+        return plans[0], binds[0]
+    return (P.DisMaxPlan(children=tuple(plans)),
+            {"boost": boost, "tie_breaker": tie_breaker,
+             "children": tuple(binds)})
+
+
+def _c_dis_max(q, ctx, scored):
+    plans, binds = [], []
+    for sub in q.queries:
+        p, b = compile_query(sub, ctx, scored)
+        plans.append(p)
+        binds.append(b)
+    if not plans:
+        return _none()
+    return (P.DisMaxPlan(children=tuple(plans)),
+            {"boost": q.boost, "tie_breaker": q.tie_breaker,
+             "children": tuple(binds)})
+
+
+_SQS_TOKEN = re.compile(r'([+-]?)"([^"]*)"|([+-]?)(\S+)')
+
+
+def _c_simple_query_string(q, ctx, scored):
+    fields = q.fields
+    if not fields or fields == [("*", 1.0)]:
+        fields = [(f, 1.0) for f in ctx.text_fields()]
+    sub_queries = []
+    for m in _SQS_TOKEN.finditer(q.query.strip()):
+        if m.group(2) is not None:       # quoted -> phrase operator
+            sign, text, is_phrase = m.group(1), m.group(2), True
+        else:
+            sign, text, is_phrase = m.group(3), m.group(4), False
+            text = text.lstrip("+-")
+        if not text.strip():
+            continue
+        mm = dsl.MultiMatchQuery(fields=fields, query=text,
+                                 type="phrase" if is_phrase else "best_fields")
+        sub_queries.append((sign == "-", mm))
+    if not sub_queries:
+        return P.MatchAllPlan(), {"boost": q.boost}
+    must, must_not, should = [], [], []
+    for negate, mm in sub_queries:
+        if negate:
+            must_not.append(mm)
+        elif q.default_operator == "and":
+            must.append(mm)
+        else:
+            should.append(mm)
+    return _c_bool(dsl.BoolQuery(must=must, must_not=must_not, should=should,
+                                 boost=q.boost), ctx, scored)
+
+
+def _expand_prefix_terms(ctx, field, prefix: str, max_expansions: int):
+    """Terms with ``prefix`` across all segments (sorted dictionaries =
+    binary-searched range per segment), capped like MultiTermQuery's
+    max_expansions."""
+    out: list[str] = []
+    seen: set = set()
+    for seg in ctx.segments:
+        pf = seg.postings.get(field)
+        if pf is None:
+            continue
+        sterms = ctx.sorted_terms(seg, field)
+        lo = bisect.bisect_left(sterms, prefix)
+        for i in range(lo, len(sterms)):
+            t = sterms[i]
+            if not t.startswith(prefix):
+                break
+            if t not in seen:
+                seen.add(t)
+                out.append(t)
+            if len(out) >= max_expansions:
+                return out
+    return out
+
+
+def _phrase_from_tokens(ctx, field, terms, positions, boost, scored):
+    """PhrasePlan bind straight from (term, position) tokens — keeps the
+    analyzer's position gaps (stopword holes) intact."""
+    if len(terms) == 1:
+        return _term_bag(ctx, field, [terms[0]], 1, boost, scored)
+    stats = ctx.field_stats(field)
+    idf_sum = float(np.sum(_idfs_for(ctx, field, terms)))
+    bind = {"terms": tuple(terms), "positions": tuple(positions),
+            "idf_sum": idf_sum, "boost": boost, "avgdl": stats.avgdl}
+    return P.PhrasePlan(field=field, scored=scored), bind
+
+
+def _c_match_phrase_prefix(q, ctx, scored):
+    """Phrase whose LAST token is a prefix: expand it against the term
+    dictionary and dis-max the resulting phrases, substituting the last
+    term IN PLACE so original token positions (incl. stopword gaps)
+    survive (MatchPhrasePrefixQueryBuilder -> MultiPhrasePrefixQuery)."""
+    ft = _require_ft(ctx, q.field, "match_phrase_prefix")
+    if ft is None:
+        return _none()
+    if not isinstance(ft, TextFieldType):
+        return _c_term(dsl.TermQuery(field=q.field, value=q.query,
+                                     boost=q.boost), ctx, scored)
+    analyzer = ctx.mapper.analyzers.get(ft.search_analyzer_name)
+    toks = analyzer.analyze(str(q.query))
+    if not toks:
+        return _none()
+    if q.slop:
+        raise IllegalArgumentError(
+            "match_phrase_prefix slop > 0 is not supported yet")
+    terms = [t.term for t in toks]
+    positions = [t.position for t in toks]
+    expansions = _expand_prefix_terms(ctx, q.field, terms[-1],
+                                      int(q.max_expansions))
+    plans, binds = [], []
+    for t in expansions:
+        p, b = _phrase_from_tokens(ctx, q.field, terms[:-1] + [t],
+                                   positions, q.boost, scored)
+        plans.append(p)
+        binds.append(b)
+    return _dis_max_of(plans, binds, 1.0, 0.0)
+
+
+def _c_match_bool_prefix(q, ctx, scored):
+    """Every token a term clause, the last a prefix clause, combined as
+    a bool (MatchBoolPrefixQueryBuilder).  With ``fuzziness`` the term
+    clauses are ``fuzzy`` queries, which are not ported (501)."""
+    ft = _require_ft(ctx, q.field, "match_bool_prefix")
+    if ft is None:
+        return _none()
+    if not isinstance(ft, TextFieldType):
+        return _c_term(dsl.TermQuery(field=q.field, value=q.query,
+                                     boost=q.boost), ctx, scored)
+    analyzer_name = getattr(q, "analyzer", None)
+    if analyzer_name:
+        terms = ctx.mapper.analyzers.get(analyzer_name).terms(
+            str(q.query))
+    else:
+        terms = ft.search_terms(str(q.query), ctx.mapper.analyzers)
+    if not terms:
+        return _none()
+    fuzz = getattr(q, "fuzziness", None)
+    if fuzz is not None:
+        clauses = [dsl.FuzzyQuery(field=q.field, value=t,
+                                  fuzziness=fuzz) for t in terms[:-1]]
+    else:
+        clauses = [dsl.TermQuery(field=q.field, value=t)
+                   for t in terms[:-1]]
+    expansions = _expand_prefix_terms(ctx, q.field, terms[-1],
+                                      int(q.max_expansions))
+    if expansions:
+        # capped dictionary expansion, like the phrase-prefix sibling
+        clauses.append(dsl.TermsQuery(field=q.field, values=expansions)
+                       if len(expansions) > 1
+                       else dsl.TermQuery(field=q.field,
+                                          value=expansions[0]))
+    elif not clauses:
+        return _none()
+    # an unexpandable prefix contributes nothing; other clauses still
+    # match under OR semantics
+    if q.operator == "and":
+        return compile_query(dsl.BoolQuery(must=clauses, boost=q.boost),
+                             ctx, scored)
+    msm = getattr(q, "minimum_should_match", None) or "1"
+    return compile_query(dsl.BoolQuery(should=clauses,
+                                       minimum_should_match=str(msm),
+                                       boost=q.boost), ctx, scored)
+
+
+# span end disabled: any analyzer position is < this (< ops.phrase
+# POS_BASE, the reference's key base)
+_SPAN_NO_END = 1 << 21
+
+
+def _span_near_state(ctx, field, terms, *, slop, ordered, end, boost,
+                     scored):
+    stats = ctx.field_stats(field)
+    idf_sum = float(np.sum(_idfs_for(ctx, field, terms)))
+    bind = {"terms": tuple(terms), "slop": int(slop), "end": int(end),
+            "idf_sum": idf_sum, "boost": boost, "avgdl": stats.avgdl}
+    return P.SpanNearPlan(field=field, ordered=ordered,
+                          scored=scored), bind
+
+
+def _c_span_term(q, ctx, scored):
+    ft = _require_ft(ctx, q.field, "span_term")
+    if ft is None:
+        return _none()
+    return _term_bag(ctx, q.field, [str(q.value)], 1, q.boost, scored)
+
+
+def _span_clause_terms(clauses, qname):
+    """Validate span sub-clauses: span_term only, one shared field."""
+    field, terms = None, []
+    for c in clauses:
+        if not isinstance(c, dsl.SpanTermQuery):
+            raise IllegalArgumentError(
+                f"[{qname}] supports span_term clauses only, got "
+                f"[{type(c).__name__}]")
+        if field is None:
+            field = c.field
+        elif c.field != field:
+            raise IllegalArgumentError(
+                f"[{qname}] clauses must target a single field, got "
+                f"[{field}] and [{c.field}]")
+        terms.append(str(c.value))
+    return field, terms
+
+
+def _c_span_near(q, ctx, scored):
+    field, terms = _span_clause_terms(q.clauses, "span_near")
+    ft = _require_ft(ctx, field, "span_near")
+    if ft is None:
+        return _none()
+    if len(terms) == 1:
+        return _term_bag(ctx, field, terms, 1, q.boost, scored)
+    if not q.in_order and len(terms) > 2:
+        raise IllegalArgumentError(
+            "[span_near] with [in_order]=false supports at most 2 "
+            "clauses (unordered minimal-window matching beyond pairs "
+            "is not implemented)")
+    return _span_near_state(ctx, field, terms, slop=q.slop,
+                            ordered=q.in_order, end=_SPAN_NO_END,
+                            boost=q.boost, scored=scored)
+
+
+def _c_span_first(q, ctx, scored):
+    # restricted to a span_term match so 'span ends before [end]'
+    # is exact (a single term at pos occupies [pos, pos+1))
+    if not isinstance(q.match, dsl.SpanTermQuery):
+        raise IllegalArgumentError(
+            "[span_first] supports a span_term [match] only")
+    ft = _require_ft(ctx, q.match.field, "span_first")
+    if ft is None:
+        return _none()
+    return _span_near_state(ctx, q.match.field, [str(q.match.value)],
+                            slop=0, ordered=True, end=q.end,
+                            boost=q.boost, scored=scored)
+
+
+def _c_span_or(q, ctx, scored):
+    _span_clause_terms(q.clauses, "span_or")   # validation only
+    return compile_query(
+        dsl.BoolQuery(should=list(q.clauses), minimum_should_match="1",
+                      boost=q.boost), ctx, scored)
+
+
+_INTERVAL_OPTIONS = {"match": {"query", "ordered", "max_gaps", "mode"},
+                     "any_of": {"intervals"},
+                     "all_of": {"intervals", "ordered", "max_gaps", "mode"}}
+
+
+def _c_intervals(q, ctx, scored):
+    """intervals: match / any_of / all_of rules (ref
+    IntervalQueryBuilder.java:43).  match compiles to the span plan;
+    any_of is a should-of-1; all_of with unbounded gaps and no order is
+    positionless AND, otherwise its sub-rules must be single terms so it
+    flattens to one ordered/unordered near; prefix / wildcard / regexp
+    rules expand against the term dictionary."""
+    ft = _require_ft(ctx, q.field, "intervals")
+    if ft is None:
+        return _none()
+
+    def rule_terms(rule):
+        m = rule.get("match")
+        if m is None or not isinstance(m, dict):
+            return None
+        analyzer = ctx.mapper.analyzers.get(ft.search_analyzer_name)
+        return [t.term for t in analyzer.analyze(str(m.get("query", "")))]
+
+    def near(terms, ordered, max_gaps, what, items):
+        if not ordered and len(terms) > 2:
+            raise IllegalArgumentError(
+                f"[intervals] unordered [{what}] with [max_gaps] "
+                f"supports at most 2 {items}")
+        slop = max_gaps if max_gaps >= 0 else _SPAN_NO_END
+        return _span_near_state(ctx, q.field, terms, slop=slop,
+                                ordered=ordered, end=_SPAN_NO_END,
+                                boost=q.boost, scored=scored)
+
+    def compile_rule(rule):
+        if len(rule) != 1:
+            raise IllegalArgumentError(
+                f"[intervals] rule must have exactly one key, got "
+                f"{sorted(rule)}")
+        kind, body = next(iter(rule.items()))
+        if kind in _INTERVAL_OPTIONS and isinstance(body, dict):
+            extra = set(body) - _INTERVAL_OPTIONS[kind]
+            if extra:
+                # silently dropping filter/analyzer/use_field/... would
+                # return over-broad results
+                raise IllegalArgumentError(
+                    f"[intervals] [{kind}] options {sorted(extra)} are "
+                    f"not supported — supported: "
+                    f"{sorted(_INTERVAL_OPTIONS[kind])}")
+        if kind == "match":
+            terms = rule_terms(rule)
+            if not terms:
+                return _none()
+            mode = body.get("mode")
+            ordered = (mode == "ordered" if mode is not None
+                       else bool(body.get("ordered", False)))
+            max_gaps = int(body.get("max_gaps", -1))
+            if len(terms) == 1:
+                return _term_bag(ctx, q.field, terms, 1, q.boost, scored)
+            if max_gaps < 0 and not ordered:
+                return compile_query(dsl.BoolQuery(must=[
+                    dsl.TermQuery(field=q.field, value=t)
+                    for t in terms]), ctx, scored)
+            return near(terms, ordered, max_gaps, "match", "terms")
+        if kind in ("any_of", "all_of"):
+            subs = body.get("intervals") or []
+            if not subs:
+                raise IllegalArgumentError(
+                    f"[intervals] [{kind}] requires [intervals]")
+            if body.get("mode") is not None:
+                body = {**body, "ordered": body["mode"] == "ordered"}
+            if kind == "all_of" and (body.get("ordered")
+                                     or int(body.get("max_gaps", -1)) >= 0):
+                # positional all_of flattens iff every sub-rule is a
+                # single-term match
+                flat = [rule_terms(s) for s in subs]
+                if any(t is None or len(t) != 1 for t in flat):
+                    raise IllegalArgumentError(
+                        "[intervals] [all_of] with [ordered]/[max_gaps] "
+                        "supports single-term [match] sub-rules only")
+                return near([t[0] for t in flat],
+                            bool(body.get("ordered", False)),
+                            int(body.get("max_gaps", -1)), "all_of",
+                            "sub-rules")
+            wrapped = [dsl.IntervalsQuery(field=q.field, rule=s)
+                       for s in subs]
+            if kind == "any_of":
+                return compile_query(
+                    dsl.BoolQuery(should=wrapped,
+                                  minimum_should_match="1",
+                                  boost=q.boost), ctx, scored)
+            return compile_query(dsl.BoolQuery(must=wrapped,
+                                               boost=q.boost),
+                                 ctx, scored)
+        if kind in ("prefix", "wildcard", "regexp"):
+            # multi-term rules expand against the term dictionary and
+            # compile as a should-of-1 over the expansions (the
+            # reference has no fuzzy interval source, so `fuzzy` is
+            # rejected below rather than silently over-matching)
+            terms = _interval_expansions(ctx, q.field, kind, body)
+            if not terms:
+                return _none()
+            return compile_query(dsl.BoolQuery(
+                should=[dsl.TermQuery(field=q.field, value=t)
+                        for t in terms],
+                minimum_should_match="1", boost=q.boost), ctx, scored)
+        raise IllegalArgumentError(
+            f"[intervals] unsupported rule [{kind}] — supported: "
+            "match, any_of, all_of, prefix, wildcard, regexp")
+
+    return compile_rule(q.rule)
+
+
+def _interval_expansions(ctx, field, kind, body) -> list[str]:
+    """The terms of a prefix / wildcard / regexp interval rule, at most
+    128, in the reference's order."""
+    import fnmatch
+
+    if kind == "prefix":
+        return _expand_prefix_terms(ctx, field, str(body.get("prefix", "")),
+                                    128)
+    pat = str(body.get("pattern", ""))
+    flags = re.IGNORECASE if body.get("case_insensitive") else 0
+    rx = re.compile(fnmatch.translate(pat) if kind == "wildcard" else pat,
+                    flags)
+    terms, seen = [], set()
+    for seg in ctx.segments:
+        if field not in seg.postings:
+            continue
+        for t in ctx.sorted_terms(seg, field):
+            if t not in seen and rx.fullmatch(t):
+                seen.add(t)
+                terms.append(t)
+            if len(terms) >= 128:
+                break
+    return terms
+
+
 def _c_knn(q, ctx, scored):
     """knn query: per-segment vector search -- exact (ops/knn.py: one K1
     launch per query on CUDA over every segment, each segment's top-k
@@ -635,4 +1100,15 @@ _COMPILERS = {
     dsl.ConstantScoreQuery: _c_constant_score,
     dsl.KnnQuery: _c_knn,
     dsl.ScriptScoreQuery: _c_script_score,
+    dsl.MatchPhraseQuery: _c_match_phrase,
+    dsl.MultiMatchQuery: _c_multi_match,
+    dsl.DisMaxQuery: _c_dis_max,
+    dsl.SimpleQueryStringQuery: _c_simple_query_string,
+    dsl.MatchPhrasePrefixQuery: _c_match_phrase_prefix,
+    dsl.MatchBoolPrefixQuery: _c_match_bool_prefix,
+    dsl.SpanTermQuery: _c_span_term,
+    dsl.SpanNearQuery: _c_span_near,
+    dsl.SpanFirstQuery: _c_span_first,
+    dsl.SpanOrQuery: _c_span_or,
+    dsl.IntervalsQuery: _c_intervals,
 }

@@ -157,6 +157,14 @@ def _dummy_for(group: str, field: str, dseg: DeviceSegment, mapper):
                                   device=dev),
             "tfs": torch.zeros(8, dtype=torch.float32, device=dev),
         }
+    if group == "positions":
+        return {
+            "doc_ids": torch.full((8,), dead, dtype=torch.int32,
+                                  device=dev),
+            "pos_offsets": torch.zeros(16, dtype=torch.int32, device=dev),
+            "positions": torch.zeros(8, dtype=torch.int32, device=dev),
+            "doc_lens": torch.ones(n_pad, dtype=torch.float32, device=dev),
+        }
     if group == "norms":
         return {"field_exists": torch.zeros(n_pad, dtype=torch.bool,
                                             device=dev)}
@@ -202,8 +210,13 @@ def build_arrays(dseg: DeviceSegment, needed, mapper, live=None,
     sources = {"postings": dseg.postings, "numeric": dseg.numeric,
                "ordinal": dseg.ordinal, "vector": dseg.vector}
     for group, field in sorted(needed):
-        entry = (dseg.ensure_norms(field) if group == "norms"
-                 else sources[group].get(field))
+        if group == "positions":
+            # the phrase and span plans': positions staged on demand
+            entry = dseg.ensure_positions(field)
+        elif group == "norms":
+            entry = dseg.ensure_norms(field)
+        else:
+            entry = sources[group].get(field)
         if entry is None:
             entry = _dummy_for(group, field, dseg, mapper)
         elif group == "postings" and (group, field) not in partial_ok:

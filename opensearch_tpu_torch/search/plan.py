@@ -28,8 +28,12 @@ the doc-value columns ``DeviceSegment`` stages, through
 ``ops/filters.py``.  ``ScriptScorePlan`` rescores its child by a
 compiled score script (``search/scripting.py``) over the numeric dense
 view and the per-row vector columns the compiler's pre-pass made (K1).
-Plans of the reference that are not ported yet (phrase, span,
-expand-terms, nested, geo, function_score, dis_max, ...) are absent;
+``PhrasePlan`` and ``SpanNearPlan`` read a field's positions
+(``DeviceSegment.ensure_positions``, the ``positions`` array group) and
+take their per-doc frequencies from K8 / K9 (``ops/phrase.py``,
+``ops/span.py``: one launch per segment on CUDA); ``DisMaxPlan`` combines
+its children as the reference does.  Plans of the reference that are not
+ported yet (expand-terms, nested, geo, function_score, ...) are absent;
 the compiler raises ``NotYetPortedError`` for queries that would need
 them.
 """
@@ -49,6 +53,8 @@ from opensearch_tpu_torch.index.segment import (LONG_MISSING_MAX,
                                                 pad_bucket, pad_pow2)
 from opensearch_tpu_torch.ops import bm25 as bm25_ops
 from opensearch_tpu_torch.ops import filters as filter_ops
+from opensearch_tpu_torch.ops import phrase as phrase_ops
+from opensearch_tpu_torch.ops import span as span_ops
 
 _I32 = np.int32
 _F32 = np.float32
@@ -708,6 +714,133 @@ class ScriptScorePlan(Plan):
         return torch.where(matched, new, 0.0), matched
 
 
+def fma32(a: float, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as the reference's XLA code
+    computes it (its CPU compiler contracts a product that feeds an add
+    into one fused multiply-add).  ``a`` is a Python float holding a
+    float32 value, ``b`` and ``c`` float32 tensors.  The product of two
+    float32 values is exact in float64; the float64 sum is made
+    round-to-odd from its exact error (Knuth's two-sum), so the one
+    rounding to float32 that follows is the fused operation's."""
+    p = b.double() * a
+    c64 = c.double()
+    s = p + c64
+    bv = s - c64
+    err = (p - bv) + (c64 - (s - bv))
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def _all_terms_present(field, bind, seg) -> bool:
+    """can_match of a phrase or span: every term in the segment."""
+    pf = seg.postings.get(field)
+    return pf is not None and all(pf.term_id(t) >= 0 for t in bind["terms"])
+
+
+def _positional_bound(self, bind, seg) -> float:
+    """max_score_bound of a phrase or span: tf/(tf+norm) < 1 always
+    (norm >= k1*(1-b) > 0)."""
+    if not self.scored:
+        return 0.0
+    return float(bind["idf_sum"]) * float(bind["boost"]) * _BOUND_MARGIN
+
+
+def _positional_scoring(bind, dev) -> tuple:
+    """``(idf_sum * boost, avgdl)`` of a phrase or span: the product in
+    float32, as the reference's scalar product, and avgdl a float32 0-d
+    tensor on ``dev`` (a CUDA division by a host scalar multiplies by its
+    reciprocal, which rounds differently)."""
+    weight = float(np.float32(bind["idf_sum"]) * np.float32(bind["boost"]))
+    return weight, torch.tensor(_f32(bind["avgdl"]), dtype=torch.float32,
+                                device=dev)
+
+
+def _positional_scores(tf, p, scored, weight, avgdl):
+    """``(scores, matched)`` of a phrase or span from its per-doc ``tf``:
+    ``idf_sum * boost * tf / (tf + norm)``, ``norm = k1 * (1 - b + b * dl /
+    avgdl)``, in the reference's float32 order."""
+    matched = tf > 0
+    if not scored:
+        return torch.zeros_like(tf), matched
+    dl = p["doc_lens"]
+    inner = 1.0 - bm25_ops.B_DEFAULT + bm25_ops.B_DEFAULT * dl / avgdl
+    # tf + k1 * inner, one fused multiply-add in the reference
+    scores = weight * tf / fma32(_f32(bm25_ops.K1_DEFAULT), inner, tf)
+    return torch.where(matched, scores, 0.0), matched
+
+
+@dataclass(frozen=True)
+class PhrasePlan(Plan):
+    """Exact phrase over one field (match_phrase, slop=0).  bind: {terms,
+    positions, idf_sum, boost, avgdl}.  The per-doc frequency is K8's on
+    CUDA (``ops/phrase.py`` ``phrase_freqs_auto``: one launch per segment),
+    over the positions ``DeviceSegment.ensure_positions`` stages on the
+    first such plan."""
+
+    field: str = ""
+    scored: bool = True
+
+    def arrays(self):
+        return frozenset({("positions", self.field)})
+
+    def can_match(self, bind, seg):
+        # an exact phrase needs EVERY term present
+        return _all_terms_present(self.field, bind, seg)
+
+    max_score_bound = _positional_bound
+
+    def prepare(self, bind, seg, dseg, ctx):
+        slots = phrase_ops.phrase_slots(seg.postings.get(self.field),
+                                        bind["terms"], bind["positions"])
+        return (), (slots, *_positional_scoring(bind, dseg.device))
+
+    def eval(self, A, dims, ins):
+        slots, weight, avgdl = ins
+        p = A["positions"][self.field]
+        tf = phrase_ops.phrase_freqs_auto(p, slots, A["live"].shape[0])
+        return _positional_scores(tf, p, self.scored, weight, avgdl)
+
+
+@dataclass(frozen=True)
+class SpanNearPlan(Plan):
+    """Span/interval proximity over one field (span_near, span_first,
+    intervals match — ref SpanNearQueryBuilder.java:51,
+    IntervalQueryBuilder.java:43).  bind: {terms, slop, end, idf_sum,
+    boost, avgdl}.  The per-doc frequency is K9's on CUDA (``ops/span.py``
+    ``span_near_freqs_auto``: one launch per segment)."""
+
+    field: str = ""
+    ordered: bool = True
+    scored: bool = True
+
+    def arrays(self):
+        return frozenset({("positions", self.field)})
+
+    def can_match(self, bind, seg):
+        return _all_terms_present(self.field, bind, seg)
+
+    max_score_bound = _positional_bound
+
+    def prepare(self, bind, seg, dseg, ctx):
+        slots = span_ops.span_slots(seg.postings.get(self.field),
+                                    bind["terms"])
+        # the reference's int32 scalars
+        slop, end = (int(np.asarray(bind[k]).astype(_I32))
+                     for k in ("slop", "end"))
+        return (), (slots, slop, end,
+                    *_positional_scoring(bind, dseg.device))
+
+    def eval(self, A, dims, ins):
+        slots, slop, end, weight, avgdl = ins
+        p = A["positions"][self.field]
+        tf = span_ops.span_near_freqs_auto(
+            p, slots, A["live"].shape[0], ordered=self.ordered, slop=slop,
+            end=end)
+        return _positional_scores(tf, p, self.scored, weight, avgdl)
+
+
 def _prepare_children(children, binds, seg, dseg, ctx):
     dims, ins = [], []
     for c, b in zip(children, binds):
@@ -797,6 +930,61 @@ class BoolPlan(Plan):
             matched &= cnt >= required
         scores = torch.where(matched, scores * boost, 0.0)
         return scores, matched
+
+
+@dataclass(frozen=True)
+class DisMaxPlan(Plan):
+    """bind: {boost, tie_breaker, children}: the best child's score plus
+    ``tie_breaker`` times the others', in the reference's order."""
+
+    children: tuple = ()
+
+    def arrays(self):
+        out = frozenset()
+        for c in self.children:
+            out |= c.arrays()
+        return out
+
+    def can_match(self, bind, seg):
+        return any(c.can_match(b, seg)
+                   for c, b in zip(self.children, bind["children"]))
+
+    def max_score_bound(self, bind, seg):
+        boost = float(bind["boost"])
+        tie = float(bind["tie_breaker"])
+        if boost < 0 or tie < 0 or tie > 1:
+            return math.inf
+        bounds = [c.max_score_bound(b, seg)
+                  for c, b in zip(self.children, bind["children"])]
+        if not bounds:
+            return 0.0
+        best = max(bounds)
+        return (best + tie * (sum(bounds) - best)) * boost * _BOUND_MARGIN
+
+    def prepare(self, bind, seg, dseg, ctx):
+        cdims, cins = _prepare_children(
+            self.children, bind["children"], seg, dseg, ctx)
+        return cdims, (cins, _f32(bind["boost"]), _f32(bind["tie_breaker"]))
+
+    def dense_leaves(self, dims, ins):
+        return tuple(leaf for c, d, i in zip(self.children, dims, ins[0])
+                     for leaf in c.dense_leaves(d, i))
+
+    def eval(self, A, dims, ins):
+        cins, boost, tie = ins
+        n_pad, dev = _live_n_pad(A)
+        best = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+        total = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+        matched = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+        for i, c in enumerate(self.children):
+            s, m = c.eval(A, dims[i], cins[i])
+            best = torch.maximum(best, s)
+            total += s
+            matched |= m
+        # best + tie * (total - best), one fused multiply-add in the
+        # reference
+        scores = fma32(tie, total - best, best)
+        return torch.where(matched, scores * boost, 0.0), matched
 
 
 @dataclass(frozen=True)

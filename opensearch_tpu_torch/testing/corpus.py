@@ -2,7 +2,8 @@
 package's own copies of the benchmark's corpus builders
 (``bench.py`` ``build_raw_corpus`` / ``make_segments``) and of the
 zipf query log (``opensearch_tpu/testing/workload.py``
-``zipf_query_log``), with the same draws, plus seeded generators of
+``zipf_query_log``), with the same draws, a seeded log of phrases that
+occur in the corpus (``phrase_query_log``), plus seeded generators of
 float32 vectors (``random_vectors``; ``clustered_vectors`` for ANN) and
 of doc-value columns (``doc_value_columns``: a
 ``price`` long, a ``ts`` date, a ``tag`` keyword with postings and
@@ -54,14 +55,22 @@ def render_texts(n_docs: int, seed: int = 42) -> list[str]:
 def build_raw_corpus(n_docs: int, seed: int = 42) -> dict:
     """Vectorized synthetic corpus -> raw CSR postings over a zipf
     (a = 1.3) vocabulary of ``VOCAB_SIZE`` terms, ``AVG_LEN`` tokens per
-    doc on average."""
+    doc on average, with each posting entry's positions (``pos_offsets``
+    [P + 1], ``positions``: a token's index within its doc)."""
     lens, terms = _draws(n_docs, seed)
     doc_of = np.repeat(np.arange(n_docs, dtype=np.int32), lens)
+    # a token's position is its index within its doc; the stable sort
+    # keeps a (term, doc) pair's positions ascending
+    starts = np.cumsum(lens) - lens
+    pos_of = (np.arange(len(terms), dtype=np.int64)
+              - np.repeat(starts, lens)).astype(np.int32)
     order = np.lexsort((doc_of, terms))
     st, sd = terms[order], doc_of[order]
     # unique (term, doc) pairs -> postings entries with tf counts
     key = st.astype(np.int64) * n_docs + sd
     uniq, counts = np.unique(key, return_counts=True)
+    pos_offsets = np.zeros(len(counts) + 1, dtype=np.int32)
+    pos_offsets[1:] = np.cumsum(counts)
     p_terms = (uniq // n_docs).astype(np.int32)
     p_docs = (uniq % n_docs).astype(np.int32)
     tfs = counts.astype(np.float32)
@@ -72,7 +81,8 @@ def build_raw_corpus(n_docs: int, seed: int = 42) -> dict:
     offsets[1:] = np.cumsum(df)
     return {"n_docs": n_docs, "offsets": offsets, "df": df,
             "doc_ids": p_docs, "tfs": tfs,
-            "doc_lens": lens.astype(np.float32)}
+            "doc_lens": lens.astype(np.float32),
+            "pos_offsets": pos_offsets, "positions": pos_of[order]}
 
 
 def random_vectors(n: int, dim: int = 128, seed: int = 0) -> np.ndarray:
@@ -167,8 +177,9 @@ def make_segments(raw: dict, n_segments: int,
                   similarity: str = "l2",
                   columns: Optional[dict] = None) -> list[Segment]:
     """Split the raw CSR corpus into ``n_segments`` doc-range segments
-    with a ``body`` postings field (only terms present in a segment get
-    a dictionary entry, so can-match can prune it), when ``vectors``
+    with a ``body`` postings field and its positions (only terms present
+    in a segment get a dictionary entry, so can-match can prune it), when
+    ``vectors``
     [n_docs, d] is given a vector field and, when ``columns`` (of
     ``doc_value_columns``) is given, the ``price`` and ``ts`` long
     columns, the ``tag`` keyword's postings and ordinals and, when the
@@ -178,6 +189,7 @@ def make_segments(raw: dict, n_segments: int,
     offsets, df = raw["offsets"], raw["df"]
     doc_ids, tfs, doc_lens = raw["doc_ids"], raw["tfs"], raw["doc_lens"]
     term_of = np.repeat(np.arange(VOCAB_SIZE, dtype=np.int32), df)
+    pos_counts = np.diff(raw["pos_offsets"])
     bounds = np.linspace(0, n_docs, n_segments + 1).astype(np.int64)
     segs = []
     for s in range(n_segments):
@@ -189,6 +201,8 @@ def make_segments(raw: dict, n_segments: int,
         seg_offsets = np.zeros(VOCAB_SIZE + 1, dtype=np.int32)
         seg_offsets[1:] = np.cumsum(seg_df)
         local_lens = doc_lens[lo:hi]
+        seg_pos_offsets = np.zeros(int(mask.sum()) + 1, dtype=np.int32)
+        seg_pos_offsets[1:] = np.cumsum(pos_counts[mask])
         seg = Segment(f"bench_{s}", n_local)
         seg.doc_ids = [str(i) for i in range(lo, hi)]
         seg.id_to_local = {str(i): i - lo for i in range(lo, hi)}
@@ -199,8 +213,8 @@ def make_segments(raw: dict, n_segments: int,
             offsets=seg_offsets,
             doc_ids=(doc_ids[mask] - lo).astype(np.int32),
             tfs=tfs[mask],
-            pos_offsets=np.zeros(int(mask.sum()) + 1, dtype=np.int32),
-            positions=np.zeros(0, dtype=np.int32),
+            pos_offsets=seg_pos_offsets,
+            positions=raw["positions"][np.repeat(mask, pos_counts)],
             doc_lens=local_lens, total_len=float(local_lens.sum()),
             docs_with_field=n_local, has_norms=True,
             present=np.ones(n_local, dtype=bool))
@@ -258,3 +272,36 @@ def zipf_query_log(n_queries: int, vocab_size: int = VOCAB_SIZE,
         x, y = (rng.zipf(a, size=2) - 1).clip(0, vocab_size - 1)
         pairs.append((int(x), int(y)))
     return pairs
+
+
+def phrase_query_log(n_queries: int, seed: int = 13,
+                     n_docs: int = 1_000_000, corpus_seed: int = 42,
+                     lengths: tuple = (2, 5)) -> list:
+    """Seeded phrases of ``build_raw_corpus(n_docs, corpus_seed)``: each a
+    run of ``lengths[0]``..``lengths[1]`` consecutive tokens of a drawn
+    doc from a drawn offset, as a tuple of term ids, so each occurs in the
+    corpus at least once.  A span query takes its clauses from the same
+    runs (``span_clauses``)."""
+    lens, terms = _draws(n_docs, corpus_seed)
+    starts = np.cumsum(lens) - lens
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_queries):
+        doc = int(rng.integers(0, n_docs))
+        length = int(rng.integers(lengths[0], lengths[1] + 1))
+        length = min(length, int(lens[doc]))
+        off = int(rng.integers(0, int(lens[doc]) - length + 1))
+        a = int(starts[doc]) + off
+        out.append(tuple(int(t) for t in terms[a: a + length]))
+    return out
+
+
+def span_clauses(run: tuple, k: int) -> tuple:
+    """``(clause terms, slop)`` of a span over a run of
+    ``phrase_query_log``: its first ``k - 1`` tokens and its last, whose
+    gap in the run is the slop an ordered span needs to match it."""
+    k = max(1, min(k, len(run)))
+    if k == 1:
+        return run[:1], 0
+    picked = run[: k - 1] + run[-1:]
+    return picked, len(run) - k

@@ -5,9 +5,10 @@ Checks: a subprocess that blocks those imports with a ``sys.meta_path``
 hook, imports every module of ``opensearch_tpu_torch`` (the write path's
 engine, store and translog, the serving node's indices service, REST
 controller and HTTP server, the filter ops, the search pipelines, the
-aggregations and K5's wrapper among them) and runs CPU searches (a
-``match``, a ``knn``, a filtered ``bool``, a ``hybrid`` and one with
-``aggs``: terms, histogram, metrics, a filter, percentiles and a
+aggregations and K5's wrapper, the phrase and span ops and K8 / K9's
+wrapper among them) and runs CPU searches (a ``match``, a ``knn``, a
+filtered ``bool``, a ``match_phrase``, a ``span_near``, a ``hybrid`` and
+one with ``aggs``: terms, histogram, metrics, a filter, percentiles and a
 pipeline; an ANN ``knn`` on an ``ivf_pq`` field), one engine round
 trip and one node on the CPU answering over HTTP (a search pipeline put
 among its requests); a static scan of the port's sources and
@@ -92,7 +93,8 @@ for name in ("index.engine", "index.store", "index.translog", "node",
              "version", "ops.filters", "search.pipeline",
              "common.settings", "ops.aggs", "ops.cuda_aggs", "search.aggs",
              "search.pipeline_aggs", "search.scripting", "ops.ivf",
-             "ops.cuda_ivf"):
+             "ops.cuda_ivf", "ops.phrase", "ops.span",
+             "ops.cuda_positions"):
     assert "opensearch_tpu_torch." + name in names, name
 amapper = DocumentMapper({"properties": {"vec": {
     "type": "knn_vector", "dimension": 4,
@@ -116,6 +118,12 @@ resp = fsearcher.search({"query": {"bool": {
     "filter": [{"range": {"price": {"gte": 4}}},
                {"terms": {"tag": ["t0", "t1", "t3"]}}]}}})
 assert resp["hits"]["total"]["value"] == 2, resp
+for q in ({"match_phrase": {"body": "alpha w1"}},
+          {"span_near": {"clauses": [{"span_term": {"body": "alpha"}},
+                                     {"span_term": {"body": "w1"}}],
+                         "slop": 0, "in_order": True}}):
+    resp = fsearcher.search({"query": q})
+    assert resp["hits"]["total"]["value"] == 4, resp
 resp = fsearcher.search({"query": {"hybrid": {"queries": [
     {"match": {"body": "w1"}}, {"range": {"price": {"lt": 3}}}]}},
     "_hybrid_pipeline": {"combination": {

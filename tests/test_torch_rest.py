@@ -5,7 +5,8 @@ against the JAX package's node, over real HTTP.
 Both nodes listen on ``port=0`` and take the same script of requests,
 modelled on ``tests/test_rest.py``: index lifecycle, document CRUD,
 ``_bulk`` with partial errors, ``_search`` (``size``, ``from``,
-``track_total_hits``, ``rest_total_hits_as_int``, URI ``q``),
+``track_total_hits``, ``rest_total_hits_as_int``, URI ``q``: a field,
+no field and a quoted phrase),
 multi-index ``_search``, ``_msearch`` with a per-request error,
 ``_count``, ``_refresh``, ``_flush``, ``_forcemerge``, error shapes and
 persistence across a restart.  Statuses and bodies must be equal once
@@ -287,6 +288,15 @@ def test_search_params(nodes):
                        ("/srch/_search", {"track_total_hits": 0}),
                        ("/srch/_search", b"{not json")):
         assert both(nodes, "POST", path, body)[0] == 400, (path, body)
+    # URI q= with no field (a multi_match over every text field) and a
+    # quoted one (a match_phrase), served since the phrase queries are
+    for path in ("/srch/_search?q=w1%20w2",
+                 "/srch/_search?q=title:%22w0%20w1%22&size=20",
+                 "/srch/_count?q=title:%22w1%20w0%22"):
+        status, body = both(nodes, "GET", path)
+        assert status == 200, path
+        assert body.get("count", body.get("hits", {}).get("total",
+                                                          {}).get("value"))
     not_ported(nodes, "GET", "/srch/_search?q=title:w1*")
     # aggregations are served now, as the reference serves them
     assert both(nodes, "POST", "/srch/_search", {

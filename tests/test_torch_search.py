@@ -302,15 +302,16 @@ def test_count_matches_reference(pair):
         "range", "ids", "hybrid"])
 def test_unported_features_raise_typed_error(body, monkeypatch):
     """Features the port does not serve raise ``NotYetPortedError`` (501).
-    ``range``, ``term`` on ``_id``, ``hybrid`` and ``aggs`` are ported
-    now: those cases answer as the JAX package does, byte for byte."""
+    ``range``, ``term`` on ``_id``, ``hybrid``, ``aggs`` and
+    ``match_phrase`` are ported now: those cases answer as the JAX
+    package does, byte for byte."""
     mapper = DocumentMapper(MAPPING)
     docs = json_docs(3, sum(SEG_SIZES))
     segs = build(SegmentWriter(), mapper, docs)
     searcher = ShardSearcher(segs, mapper, device="cpu")
     q = body["query"]
     if "range" in q or "hybrid" in q or q.get("term", {}).get("_id") \
-            or "aggs" in body:
+            or "aggs" in body or "match_phrase" in q:
         monkeypatch.setattr(jax_bm25, "HOST_SCORING", False)
         ref = JaxSearcher(build(JaxWriter(), JaxMapper(MAPPING), docs),
                           JaxMapper(MAPPING)).search(body)
