@@ -112,16 +112,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``ivf`` field through ``ShardSearcher`` over three segments, one
    without the field, equal to the CPU searcher (phase 13 times them);
    and K8 and K9, the phrase and span-near kernels
-   (``csrc/positions.cu``: ``phrase_freqs_cuda``, ``span_near_cuda``, a
-   thread per posting entry of the anchor term, one launch per segment
-   and leaf), byte for byte against their plain versions and launch to
-   launch on the CPU test's sets (``testing/positions.py``) and over the
-   16 scale segments ("t0 t0", the heaviest, with t0's position count
-   printed; "t0 t0 t0"; 2-, 3- and 5-term phrases of
+   (``csrc/positions.cu``: ``phrase_scores_cuda``, ``span_scores_cuda``,
+   one launch per request and kernel over every (leaf, segment) job,
+   blocks of 1,024 anchor positions staged by bulk copies, BM25 in the
+   kernel), scores and matched masks byte for byte against the
+   request-wide plain entries (``phrase_scores``, ``span_scores``) and
+   launch to launch, one launch a call, on the CPU test's sets
+   (``testing/positions.py``, each set's cases in one call, scored and
+   not: among them a 12-slot phrase and a doc of 6,000 positions of the
+   anchor) and over the 16 scale segments ("t0 t0", the heaviest, with
+   t0's position count printed; "t0 t0 t0"; 2-, 3- and 5-term phrases of
    ``phrase_query_log``; a phrase with a term some segments lack;
-   ordered, unordered and ``end`` spans), then each timed on one scale
-   segment at its heaviest case in turns with its plain version (CUDA
-   events and profiler device ms) beside its bound.
+   ordered, unordered and ``end`` spans; then every phrase case, and
+   every span case, in one call), then each timed at its heaviest case
+   over one scale segment and over the 16 in one launch, in turns with
+   its plain version (CUDA events and profiler device ms) beside its
+   bound.
    The scale corpus carries doc-value columns (``testing/corpus.py``
    ``doc_value_columns``: ``price`` long, ``ts`` date, ``tag`` keyword
    with postings and ordinals, ``fare`` double) in both layouts, for
@@ -425,7 +431,8 @@ def phase_toolkit():
     import torch
 
     from opensearch_tpu_torch.ops import (cuda_aggs, cuda_bm25, cuda_build,
-                                          cuda_ivf, cuda_knn, cuda_plan)
+                                          cuda_ivf, cuda_knn, cuda_plan,
+                                          cuda_positions)
 
     nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
@@ -443,7 +450,8 @@ def phase_toolkit():
                              "bm25": cuda_bm25.defines(),
                              "quant_topk": cuda_bm25.quant_defines(),
                              "aggs": cuda_aggs.defines(),
-                             "plan_topk": cuda_plan.defines()})
+                             "plan_topk": cuda_plan.defines(),
+                             "positions": cuda_positions.defines()})
     log(f"kernels built in {time.monotonic() - t0:.1f}s: "
         f"{sorted(logs) or 'cached'}")
     for name, text in logs.items():
@@ -2670,53 +2678,44 @@ def phase_plan_topk(scale_segs, searcher, gen) -> dict:
     return row
 
 
-def staged_positions(pf, dev) -> tuple:
-    """``((doc_ids, pos_offsets, positions), n_pad)`` of a
-    ``PostingsField`` on ``dev``, padded as
-    ``DeviceSegment.ensure_positions`` pads them."""
-    import torch
-
-    from opensearch_tpu_torch.index.segment import pad_pow2
-
-    def pad(a, fill):
-        out = np.full(pad_pow2(len(a)), fill, a.dtype)
-        out[: len(a)] = a
-        return torch.from_numpy(out).to(dev)
-
-    n_docs = len(pf.doc_lens)
-    return ((pad(pf.doc_ids, n_docs),
-             pad(pf.pos_offsets, pf.pos_offsets[-1]),
-             pad(pf.positions, 0)), pad_pow2(n_docs + 1))
-
-
-def positional_bytes(pf, slots, n_pad: int) -> float:
-    """Bytes K8 / K9 must move for ``slots`` over ``pf``: each distinct
-    slot row's doc ids and position offsets (4 + 4 bytes an entry) and
-    its positions (4 bytes each) read once, the [n_pad] float output
-    written once."""
-    total = 4.0 * n_pad
-    for e0, e1 in {tuple(int(x) for x in r) for r in slots.rows}:
-        total += 8.0 * (e1 - e0) + 4.0 * (int(pf.pos_offsets[e1])
-                                          - int(pf.pos_offsets[e0]))
+def positional_bytes(leaves) -> float:
+    """Bytes K8 / K9 must move for ``leaves`` (``PositionalLeaf`` jobs):
+    per job, each distinct slot row's doc ids and position offsets (4 + 4
+    bytes an entry) and its positions (4 bytes each) read once, each
+    anchor doc's length (4 bytes) read once, and its [n_pad] scores and
+    matched (4 + 1 bytes a doc) written once."""
+    total = 0.0
+    for leaf in leaves:
+        po = leaf.cols.pos_offsets
+        total += 5.0 * leaf.n_pad + 4.0 * leaf.slots.n_anchor
+        for e0, e1 in {tuple(int(x) for x in r) for r in leaf.slots.rows}:
+            if e1 > e0:
+                total += 8.0 * (e1 - e0) + 4.0 * (int(po[e1]) - int(po[e0]))
     return total
 
 
 def phase_positions(scale_segs) -> dict:
-    """K8 (``phrase_freqs_cuda``) and K9 (``span_near_cuda``,
-    ``csrc/positions.cu``) against their plain versions on the card:
-    ``tf`` byte for byte and equal launch to launch, on the sets of
-    ``tests/test_torch_phrase.py`` (``testing/positions.py``: 2-6 slots,
-    stopword holes, duplicated terms, a missing and a one-posting term, a
-    slot filling its bucket exactly, positions just below 2^22; ordered,
-    unordered and ``end`` spans, the full-bucket trap) and over the 16
-    scale segments: the heaviest phrase, "t0 t0" (anchored on t0), "t0 t0
-    t0", 2-, 3- and 5-term phrases of ``phrase_query_log``, a phrase with
-    a term some segments lack, ordered / unordered / ``end`` spans.  Then
-    each kernel timed on one scale segment at its heaviest case in turns
-    with its plain version (CUDA-event ms a call, profiler device ms), with
-    its bound; no single PyTorch call computes either function."""
+    """K8 (``phrase_scores_cuda``) and K9 (``span_scores_cuda``,
+    ``csrc/positions.cu``) against the request-wide plain entries
+    (``ops.phrase.phrase_scores``, ``ops.span.span_scores``) on the card:
+    scores and matched masks byte for byte and equal launch to launch, one
+    launch a call with work.  Each set of ``testing/positions.py`` (2-6
+    and 12 slots, stopword holes, duplicated terms, a missing and a
+    one-posting term, a slot filling its bucket exactly, positions just
+    below 2^22, a doc of 6,000 positions of the anchor; ordered,
+    unordered and ``end`` spans, the full-bucket trap) is one call of all
+    its cases, scored, with its first case again unscored.  Over the 16
+    scale segments: each phrase and span case as one call of its 16 jobs
+    (the heaviest phrase "t0 t0", "t0 t0 t0", 2-, 3- and 5-term phrases
+    of ``phrase_query_log``, a phrase with a term some segments lack;
+    ordered / unordered / ``end`` spans), then every phrase case in one
+    call, and every span case.  Then each kernel timed at its heaviest
+    case over one segment and over the 16 in one launch, in turns with
+    its plain version (CUDA-event ms a call, profiler device ms), with its
+    bound; no single PyTorch call computes either function."""
     import torch
 
+    from opensearch_tpu_torch.index.segment import pad_pow2
     from opensearch_tpu_torch.ops import cuda_positions
     from opensearch_tpu_torch.ops import phrase as P
     from opensearch_tpu_torch.ops import span as S
@@ -2724,39 +2723,64 @@ def phase_positions(scale_segs) -> dict:
     from opensearch_tpu_torch.testing import corpus, positions
 
     dev = torch.device(DEVICE)
-    k8, k9 = cuda_positions.phrase_freqs_cuda, cuda_positions.span_near_cuda
+    kernels = {"phrase_freqs": (cuda_positions.phrase_scores_cuda,
+                                P.phrase_scores),
+               "span_near": (cuda_positions.span_scores_cuda,
+                             S.span_scores)}
     checks = {"phrase_freqs": 0, "span_near": 0}
+    weight = float(np.float32(3.7))
 
-    def held(name, kernel, plain, what):
-        got, again, want = kernel(), kernel(), plain()
-        if not (torch.equal(got, want) and torch.equal(again, got)):
-            raise AssertionError(f"{name} {what}: differs from its plain "
-                                 "version or from launch to launch")
-        checks[name] += 1
-        return int(want.sum().item())
+    def held(name, leaves, what):
+        kernel, plain = kernels[name]
+        before = kernel.launches
+        got, again, want = kernel(leaves), kernel(leaves), plain(leaves)
+        launched = kernel.launches - before
+        work = any(cuda_positions._has_work(leaf, name == "span_near")
+                   for leaf in leaves)
+        if launched != 2 * work:
+            raise AssertionError(f"{name} {what}: {launched} launches for "
+                                 "two calls")
+        matched = 0
+        for (gs, gm), (as_, am), (ws, wm) in zip(got, again, want):
+            if not (torch.equal(gs.view(torch.int32), ws.view(torch.int32))
+                    and torch.equal(gm, wm)
+                    and torch.equal(as_.view(torch.int32),
+                                    gs.view(torch.int32))
+                    and torch.equal(am, gm)):
+                raise AssertionError(f"{name} {what}: differs from its "
+                                     "plain version or from launch to "
+                                     "launch")
+            matched += int(wm.sum().item())
+        checks[name] += len(leaves)
+        return matched
 
-    def phrase_case(pf, cols, n_pad, terms, offs, what):
-        slots = P.phrase_slots(pf, terms, offs)
-        return held("phrase_freqs", lambda: k8(*cols, slots, n_pad),
-                    lambda: P.phrase_freqs(*cols, slots, n_pad), what)
+    def avgdl(pf):
+        return float(np.float32(np.mean(pf.doc_lens)))
 
-    def span_case(pf, cols, n_pad, terms, ordered, slop, end, what):
-        slots = S.span_slots(pf, terms)
-        kw = dict(ordered=ordered, slop=slop, end=end)
-        return held("span_near", lambda: k9(*cols, slots, n_pad, **kw),
-                    lambda: S.span_near_freqs(*cols, slots, n_pad, **kw),
-                    what)
+    def phrase_leaf(pf, cols, n_pad, terms, offs, scored=True):
+        return P.PositionalLeaf(cols, P.phrase_slots(pf, terms, offs),
+                                n_pad, weight, avgdl(pf), scored)
+
+    def span_leaf(pf, cols, n_pad, terms, ordered, slop, end, scored=True):
+        return P.PositionalLeaf(cols, S.span_slots(pf, terms), n_pad,
+                                weight, avgdl(pf), scored, ordered, slop,
+                                end)
+
+    def staged(pf):
+        return P.stage_host_positions(pf, dev), pad_pow2(len(pf.doc_lens) + 1)
 
     t0 = time.monotonic()
     for name, pf, cases in positions.phrase_sets():
-        cols, n_pad = staged_positions(pf, dev)
-        for terms, offs in cases:
-            phrase_case(pf, cols, n_pad, terms, offs, f"{name} {terms}")
+        cols, n_pad = staged(pf)
+        leaves = [phrase_leaf(pf, cols, n_pad, terms, offs)
+                  for terms, offs in cases]
+        leaves.append(phrase_leaf(pf, cols, n_pad, *cases[0], scored=False))
+        held("phrase_freqs", leaves, f"set {name}")
     for name, pf, cases in positions.span_sets():
-        cols, n_pad = staged_positions(pf, dev)
-        for terms, ordered, slop, end in cases:
-            span_case(pf, cols, n_pad, terms, ordered, slop, end,
-                      f"{name} {terms} ordered={ordered} slop={slop}")
+        cols, n_pad = staged(pf)
+        leaves = [span_leaf(pf, cols, n_pad, *case) for case in cases]
+        leaves.append(span_leaf(pf, cols, n_pad, *cases[0], scored=False))
+        held("span_near", leaves, f"set {name}")
     small = dict(checks)
 
     # the scale shapes: every case over every one of the 16 segments
@@ -2779,72 +2803,90 @@ def phase_positions(scale_segs) -> dict:
         spans.append(([f"t{t}" for t in terms], True, slop, _SPAN_NO_END))
     # staged here, apart from the segments' views: those stage their
     # positions on phase 14's first phrase, so phases 3-13 run as before
-    staged = [staged_positions(pf, dev) for pf in pfs]
+    staged_segs = [(pf, *staged(pf)) for pf in pfs]
     matched = {}
-    for pf, (cols, n_pad) in zip(pfs, staged):
-        for terms in phrases:
-            key = " ".join(terms)
-            matched[key] = matched.get(key, 0) + phrase_case(
-                pf, cols, n_pad, terms, list(range(len(terms))), key)
-        for terms, ordered, slop, end in spans:
-            key = f"span {terms} ordered={ordered} slop={slop} end={end}"
-            matched[key] = matched.get(key, 0) + span_case(
-                pf, cols, n_pad, terms, ordered, slop, end, key)
-    pf0, (cols0, n_pad0) = pfs[0], staged[0]
+    every_phrase, every_span = [], []
+    for terms in phrases:
+        key = " ".join(terms)
+        leaves = [phrase_leaf(pf, cols, n_pad, terms,
+                              list(range(len(terms))))
+                  for pf, cols, n_pad in staged_segs]
+        matched[key] = held("phrase_freqs", leaves, key)
+        every_phrase += leaves
+    for terms, ordered, slop, end in spans:
+        key = f"span {terms} ordered={ordered} slop={slop} end={end}"
+        leaves = [span_leaf(pf, cols, n_pad, terms, ordered, slop, end)
+                  for pf, cols, n_pad in staged_segs]
+        matched[key] = held("span_near", leaves, key)
+        every_span += leaves
+    held("phrase_freqs", every_phrase, "every phrase case in one call")
+    held("span_near", every_span, "every span case in one call")
+    pf0 = pfs[0]
     tid = pf0.term_id("t0")
     t0_positions = [int(pf.pos_offsets[pf.offsets[pf.term_id("t0") + 1]]
                         - pf.pos_offsets[pf.offsets[pf.term_id("t0")]])
                     for pf in pfs]
     log(f"K8 / K9: {small['phrase_freqs']} phrase and "
-        f"{small['span_near']} span cases of the CPU test's sets, then "
-        f"{checks['phrase_freqs'] - small['phrase_freqs']} phrase and "
-        f"{checks['span_near'] - small['span_near']} span calls over the 16 "
-        f"scale segments, byte-equal to the plain versions and launch to "
-        f"launch ({time.monotonic() - t0:.1f}s); t0 holds "
+        f"{small['span_near']} span jobs of the CPU test's sets (a call a "
+        f"set), then {checks['phrase_freqs'] - small['phrase_freqs']} "
+        f"phrase and {checks['span_near'] - small['span_near']} span jobs "
+        f"over the 16 scale segments, byte-equal to the plain versions and "
+        f"launch to launch ({time.monotonic() - t0:.1f}s); t0 holds "
         f"{sum(t0_positions)} positions ({max(t0_positions)} in one "
         f"segment, {int(pf0.df[tid])} docs of segment 0); a phrase on "
         f"{lacking}, which {sum(pf.term_id(lacking) < 0 for pf in pfs)} "
         f"segments lack; matches per case: {matched}")
 
     rows = {}
-    for name, kernel_name, slots, call, plain in (
-            ("phrase_freqs", "phrase_freqs_kernel",
-             P.phrase_slots(pf0, ["t0", "t0"], [0, 1]),
-             lambda s: k8(*cols0, s, n_pad0),
-             lambda s: P.phrase_freqs(*cols0, s, n_pad0)),
-            ("span_near", "span_near_kernel",
-             S.span_slots(pf0, ["t0", "t1"]),
-             lambda s: k9(*cols0, s, n_pad0, ordered=False, slop=2,
-                          end=_SPAN_NO_END),
-             lambda s: S.span_near_freqs(*cols0, s, n_pad0,
-                                         ordered=False, slop=2,
-                                         end=_SPAN_NO_END))):
-        ms, plain_ms = in_turns(lambda: call(slots), lambda: plain(slots),
-                                20)
-        dev_ms = kernel_device_ms(lambda: call(slots), 20, kernel_name)
-        if dev_ms is None:
-            raise AssertionError(f"the profiler shows no {kernel_name}")
-        nbytes = positional_bytes(pf0, slots, n_pad0)
-        bms, by = bound_ms(nbytes, 0.0)
-        rows[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                      "library_ms": None, "bound_ms": bms, "bound_by": by,
-                      "bound_bytes": nbytes, "max_abs_err": 0.0,
-                      "anchor_entries": slots.n_anchor,
-                      "checks": checks[name]}
-    median = P.phrase_slots(pf0, [f"t{t}" for t in by_len[3][0]], [0, 1, 2])
+    for name, kernel_name, make in (
+            ("phrase_freqs", "phrase_scores_kernel",
+             lambda pf, cols, n_pad: phrase_leaf(pf, cols, n_pad,
+                                                 ["t0", "t0"], [0, 1])),
+            ("span_near", "span_scores_kernel",
+             lambda pf, cols, n_pad: span_leaf(pf, cols, n_pad,
+                                               ["t0", "t1"], False, 2,
+                                               _SPAN_NO_END))):
+        kernel, plain = kernels[name]
+        row = {"library_ms": None, "max_abs_err": 0.0,
+               "checks": checks[name]}
+        for label, segs_, reps in (("one", staged_segs[:1], 20),
+                                   ("", staged_segs, 5)):
+            leaves = [make(*s_) for s_ in segs_]
+            ms, plain_ms = in_turns(lambda: kernel(leaves),
+                                    lambda: plain(leaves), reps)
+            dev_ms = kernel_device_ms(lambda: kernel(leaves), 20,
+                                      kernel_name)
+            if dev_ms is None:
+                raise AssertionError(f"the profiler shows no {kernel_name}")
+            nbytes = positional_bytes(leaves)
+            bms, by = bound_ms(nbytes, 0.0)
+            pre = f"{label}_segment_" if label else ""
+            row.update({f"{pre}ms": ms, f"{pre}device_ms": dev_ms,
+                        f"{pre}plain_ms": plain_ms, f"{pre}bound_ms": bms,
+                        f"{pre}bound_bytes": nbytes,
+                        f"{pre}anchor_entries": sum(
+                            leaf.slots.n_anchor for leaf in leaves)})
+            row["bound_by"] = by
+        rows[name] = row
+    median = [phrase_leaf(pf, cols, n_pad, [f"t{t}" for t in by_len[3][0]],
+                          [0, 1, 2]) for pf, cols, n_pad in staged_segs]
     rows["phrase_freqs"]["median_3_term_ms"] = cuda_ms(
-        lambda: k8(*cols0, median, n_pad0), 20)
+        lambda: kernels["phrase_freqs"][0](median), 20)
     for name, what in (("phrase_freqs", '"t0 t0"'),
                        ("span_near", "unordered [t0, t1] slop 2")):
         r = rows[name]
-        log(f"{name} on one scale segment ({what}, {r['anchor_entries']} "
-            f"anchor entries): ms {r['ms']:.4f} device_ms "
-            f"{r['device_ms']:.5f} plain_ms {r['plain_ms']:.4f} bound_ms "
-            f"{r['bound_ms']:.5f} ({r['bound_by']}: {r['bound_bytes']:.0f} "
-            f"bytes); library_ms null (no single PyTorch call computes "
-            f"per-doc phrase or span frequencies); on {gpu_name_power()}")
-    log(f"phrase_freqs on a 3-term phrase of the log: "
-        f"{rows['phrase_freqs']['median_3_term_ms']:.4f} ms a call")
+        for pre, where in (("", "the 16 scale segments in one launch"),
+                           ("one_segment_", "one scale segment")):
+            log(f"{name} over {where} ({what}, {r[pre + 'anchor_entries']} "
+                f"anchor entries): ms {r[pre + 'ms']:.4f} device_ms "
+                f"{r[pre + 'device_ms']:.5f} plain_ms "
+                f"{r[pre + 'plain_ms']:.4f} bound_ms "
+                f"{r[pre + 'bound_ms']:.5f} ({r['bound_by']}: "
+                f"{r[pre + 'bound_bytes']:.0f} bytes); library_ms null (no "
+                f"single PyTorch call computes per-doc phrase or span "
+                f"scores); on {gpu_name_power()}")
+    log(f"phrase_freqs on a 3-term phrase of the log over the 16 "
+        f"segments: {rows['phrase_freqs']['median_3_term_ms']:.4f} ms a call")
     return rows
 
 
@@ -5414,7 +5456,7 @@ def phase_http_phrase(node, state, counters) -> dict:
     from opensearch_tpu_torch.search.executor import ShardSearcher
     from opensearch_tpu_torch.testing import corpus
 
-    k8 = cuda_positions.phrase_freqs_cuda
+    k8 = cuda_positions.phrase_scores_cuda
     runs = corpus.phrase_query_log(HTTP_PHRASES, seed=49,
                                    n_docs=SERVE_DOCS, corpus_seed=44,
                                    lengths=(2, 3))
@@ -5552,7 +5594,7 @@ def phase_phrase(segs, mapper, searcher, qsearcher) -> dict:
     from opensearch_tpu_torch.testing.parity import bm25_mismatch
 
     t_phase = time.monotonic()
-    k8, k9 = cuda_positions.phrase_freqs_cuda, cuda_positions.span_near_cuda
+    k8, k9 = cuda_positions.phrase_scores_cuda, cuda_positions.span_scores_cuda
     bodies = phase14_bodies()
     before = searcher.resident_bytes()
     t0 = time.monotonic()
@@ -5572,13 +5614,18 @@ def phase_phrase(segs, mapper, searcher, qsearcher) -> dict:
     kinds, out, found = {}, {}, 0
     for kind, items in bodies.items():
         k8.launches = k9.launches = 0          # this path starts here
-        lat, resps = [], []
+        lat, resps, most = [], [], 0
         t0 = time.monotonic()
         for b in items:
+            n8, n9 = k8.launches, k9.launches
             t = time.monotonic()
             resps.append(searcher.search(b))
             lat.append((time.monotonic() - t) * 1e3)
+            most = max(most, k8.launches - n8, k9.launches - n9)
         wall = time.monotonic() - t0
+        if most > 1:
+            raise AssertionError(f"phase 14 {kind}: a request launched K8 "
+                                 f"or K9 {most} times")
         for r in resps:
             hits = r["hits"]["hits"]
             if len(hits) > 10 or not all(np.isfinite(h["_score"])

@@ -86,6 +86,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bulk.cuh"
 #include "phases.cuh"
 #include "rows.cuh"
 #include "topk.cuh"
@@ -93,6 +94,8 @@
 namespace cg = cooperative_groups;
 
 namespace {
+
+using namespace bulk;
 
 // The wrapper (ops/cuda_ivf.py) owns the launch table and the limits and
 // passes them in with -D.
@@ -164,7 +167,7 @@ using topk::u64;
 
 __host__ __device__ __forceinline__ int round16(long long b) { return (int)((b + 15) & ~15ll); }
 
-// -- programmatic dependent launch, mbarriers and bulk copies --
+// -- programmatic dependent launch (mbarriers and bulk copies: bulk.cuh) --
 
 __device__ __forceinline__ void wait_for_inputs() {
   if constexpr (kPdl) asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -172,60 +175,6 @@ __device__ __forceinline__ void wait_for_inputs() {
 
 __device__ __forceinline__ void let_dependents_start() {
   if constexpr (kPdl) asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One thread: `bar` expects `bytes` more before its phase completes.
-__device__ __forceinline__ void bar_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// The size of the 16-byte window [floor16(src), ceil16(src + bytes)) of
-// device memory: a bulk copy moves whole 16-byte units.  The staged
-// arrays start on 16 bytes and keep 16 bytes of slack past their end
-// (ops/ivf.py `stage_index`), so the window stays inside them.
-__device__ __forceinline__ int window_bytes(const void* src, long long bytes) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
-  return (int)(((a + bytes + 15) & ~(uintptr_t)15) - (a & ~(uintptr_t)15));
-}
-
-// That window into dst (16-byte aligned), completing on `bar`.
-__device__ __forceinline__ void copy_window(void* dst, const void* src, int window, uint64_t* bar) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src) & ~(uintptr_t)15;
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"((uint64_t)a), "r"(window), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Where an element starts inside its window.
-__device__ __forceinline__ int window_skip(const void* src) {
-  return (int)(reinterpret_cast<uintptr_t>(src) & 15);
 }
 
 // -- where a scan block works --

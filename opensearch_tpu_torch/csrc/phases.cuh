@@ -20,6 +20,14 @@
 //   2 table pass (K7)                 5 scan: tile select
 //   3 scan: row / code, id and live   6 scan: post and merge
 //     load (the copies' waits)        7 scan blocks with rows (a count)
+//   K8 / K9 (positions.cu, testing/k8_sweep.py):
+//   0 the job: lookup and words       4 each other slot's window and its
+//   1 the window of entries: its        entries' intersection
+//     copy's wait, the search in it   5 each other slot's merge walks
+//   2 the positions' copy (a search   6 the counts
+//     of the row when the window      7 the writes (and entries over blocks)
+//     missed)
+//   3 each thread's positions and their entries
 // (K3's union_topk.cu keeps its own -DUNION_PHASES marks.)
 #pragma once
 

@@ -541,24 +541,31 @@ class DeviceSegment:
         (``ensure_postings``), ``pos_offsets`` (per posting entry, padded
         with its last value to ``pad_pow2``), ``positions`` (padded with 0
         to ``pad_pow2``) and ``doc_lens`` (``n_pad``, padded with 1.0), as
-        the reference pads them.  The reference stages them eagerly on
-        f32 segments; staging on demand leaves every other path's
-        resident bytes as they were.  None when the segment has no such
-        field."""
+        the reference pads them, and ``staged``: those columns as K8 / K9
+        read them (``ops.phrase.StagedPositions``, checked here, once).
+        The reference stages them eagerly on f32 segments; staging on
+        demand leaves every other path's resident bytes as they were.
+        None when the segment has no such field."""
+        from opensearch_tpu_torch.ops.phrase import stage_positions
+
         p = self.ensure_postings(field)
-        if p is None or "positions" in p:
+        if p is None or "staged" in p:
             return p
         with self._postings_lock:
-            if "positions" not in p:
+            if "staged" not in p:
                 pf = self.seg.postings[field]
                 po = pf.pos_offsets
                 p["pos_offsets"] = self._stage(_pad1(
                     po, pad_pow2(len(po)), po[-1] if len(po) else 0))
                 p["doc_lens"] = self._stage(_pad1(
                     np.asarray(pf.doc_lens, np.float32), self.n_pad, 1.0))
-                # last, so a reader that sees "positions" sees them all
                 p["positions"] = self._stage(_pad1(
                     pf.positions, pad_pow2(len(pf.positions)), 0))
+                # last, so a reader that sees "staged" sees them all
+                p["staged"] = stage_positions(
+                    p["doc_ids"], p["pos_offsets"], p["positions"],
+                    p["doc_lens"], len(pf.doc_ids), len(pf.positions),
+                    int(np.diff(po).min()) if len(po) > 1 else 1)
         return p
 
     def ensure_norms(self, field: str) -> Optional[dict]:

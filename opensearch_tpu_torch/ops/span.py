@@ -20,11 +20,13 @@ stay below ``POS_BASE``.  Its full-bucket fix (an ordered clause never
 matches backwards) holds here by construction: a search runs within one
 doc's entry and finds nothing past its end.
 
-``span_near_freqs`` is the plain version, the algorithm of the
-hand-written kernel K9 (``csrc/positions.cu`` ``span_near_kernel``: a
-thread per posting entry of the anchor) vectorised over the anchor
-occurrences; ``span_near_freqs_auto``, which ``SpanNearPlan`` calls,
-launches K9 on a CUDA tensor and runs the plain version on a CPU tensor.
+``span_near_freqs`` is that algorithm vectorised over the anchor
+occurrences, on one segment; ``span_scores`` (the plain version of the
+hand-written kernel K9, ``csrc/positions.cu`` ``span_scores_kernel``)
+gives each of a request's span jobs (``ops.phrase.PositionalLeaf``) its
+``(scores, matched)``; ``span_scores_auto``, which the plan's pre-pass
+calls, launches K9 over every job on CUDA tensors (one launch, BM25 in
+the kernel) and runs the plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -34,9 +36,10 @@ import torch
 
 from opensearch_tpu_torch.ops.phrase import (POS_BASE, PositionSlots,
                                              anchor_occurrences,
-                                             entry_ranges, find_entries,
-                                             lower_bound, per_doc,
-                                             term_rows)
+                                             anchor_span, entry_ranges,
+                                             find_entries, lower_bound,
+                                             per_doc, positional_scores,
+                                             postings_limits, term_rows)
 
 
 def span_slots(pf, terms) -> PositionSlots:
@@ -44,7 +47,9 @@ def span_slots(pf, terms) -> PositionSlots:
     the clauses keep their order (no shifts: a span's slop is data)."""
     rows, _counts, tids = term_rows(pf, terms)
     same = len(terms) > 1 and tids[0] >= 0 and tids[0] == tids[1]
-    return PositionSlots(rows, np.zeros(len(terms), np.int64), bool(same))
+    return PositionSlots(rows, np.zeros(len(terms), np.int64), bool(same),
+                         anchor_span(pf, rows[0]) if len(terms) else (0, 0),
+                         postings_limits(pf))
 
 
 def span_near_freqs(doc_ids, pos_offsets, positions, slots: PositionSlots,
@@ -91,16 +96,25 @@ def span_near_freqs(doc_ids, pos_offsets, positions, slots: PositionSlots,
     return per_doc(docs, owner, ok, n_pad, dev)
 
 
-def span_near_freqs_auto(postings: dict, slots: PositionSlots, n_pad: int,
-                         *, ordered: bool, slop: int,
-                         end: int) -> torch.Tensor:
-    """``span_near_freqs`` over a staged postings entry: K9 on a CUDA
-    tensor (one launch; none when the anchor has no entry), the plain
-    version on a CPU tensor."""
-    args = (postings["doc_ids"], postings["pos_offsets"],
-            postings["positions"], slots, n_pad)
-    kw = dict(ordered=ordered, slop=slop, end=end)
-    if postings["doc_ids"].device.type == "cuda":
-        from opensearch_tpu_torch.ops.cuda_positions import span_near_cuda
-        return span_near_cuda(*args, **kw)
-    return span_near_freqs(*args, **kw)
+def span_scores(leaves) -> list:
+    """Each span ``PositionalLeaf``'s ``(scores f32 [n_pad], matched bool
+    [n_pad])`` (the plain version of K9, on any device):
+    ``span_near_freqs`` then ``positional_scores``, job by job."""
+    out = []
+    for leaf in leaves:
+        tf = span_near_freqs(*leaf.cols.cols, leaf.slots, leaf.n_pad,
+                             ordered=leaf.ordered, slop=leaf.slop,
+                             end=leaf.end)
+        out.append(positional_scores(tf, leaf.cols.doc_lens[: leaf.n_pad],
+                                     leaf.scored, leaf.weight, leaf.avgdl))
+    return out
+
+
+def span_scores_auto(leaves) -> list:
+    """``span_scores`` of a request's span jobs: K9 on CUDA tensors (one
+    launch over every job with an anchor entry), the plain version on
+    CPU tensors."""
+    if leaves and leaves[0].cols.device.type == "cuda":
+        from opensearch_tpu_torch.ops.cuda_positions import span_scores_cuda
+        return span_scores_cuda(leaves)
+    return span_scores(leaves)

@@ -9,9 +9,11 @@ segment's top-k, total and max from one call (``ops/bm25.py``
 over segments that ``index/codec.py`` quantizes) and one read-back.
 Other plans gather the segments the request evaluates first (can-match
 and ``min_score``-bound skips, the deadline at segment boundaries), launch
-each term-bag leaf of the plan once over all of them (``plan.py``
+each term-bag leaf of the plan once over all of them, and all its phrase
+and span leaves in one launch of each kernel (``plan.py``
 ``dense_prepass``: K2's dense entry, one launch per leaf and row layout
-on CUDA), run the rest of the plan as eager torch ops per segment, and
+on CUDA; K8 and K9), run the rest of the plan as eager torch ops per
+segment, and
 take every segment's top-k, total and max from one call
 (``ops/bm25.py`` ``plan_topk_segments_auto``: one launch of the plan
 top-k, ``csrc/plan_topk.cu``) and one read-back.  Requests that waive
@@ -70,6 +72,7 @@ from opensearch_tpu_torch.common.torchenv import resolve_device
 from opensearch_tpu_torch.index.segment import DeviceSegment, Segment
 from opensearch_tpu_torch.ops import bm25 as bm25_ops
 from opensearch_tpu_torch.ops.cuda_bm25 import K_MAX as TOPK_K_MAX
+from opensearch_tpu_torch.ops.phrase import stage_positions
 from opensearch_tpu_torch.search import plan as P
 from opensearch_tpu_torch.search.compiler import ShardContext, compile_query
 from opensearch_tpu_torch.search.fetch import filter_source
@@ -158,13 +161,15 @@ def _dummy_for(group: str, field: str, dseg: DeviceSegment, mapper):
             "tfs": torch.zeros(8, dtype=torch.float32, device=dev),
         }
     if group == "positions":
-        return {
+        cols = {
             "doc_ids": torch.full((8,), dead, dtype=torch.int32,
                                   device=dev),
             "pos_offsets": torch.zeros(16, dtype=torch.int32, device=dev),
             "positions": torch.zeros(8, dtype=torch.int32, device=dev),
             "doc_lens": torch.ones(n_pad, dtype=torch.float32, device=dev),
         }
+        cols["staged"] = stage_positions(*cols.values(), 0, 0)
+        return cols
     if group == "norms":
         return {"field_exists": torch.zeros(n_pad, dtype=torch.bool,
                                             device=dev)}

@@ -18,7 +18,8 @@ There is no ``jit``: PyTorch runs eagerly, on whatever device the
 staged segment lives on.  The term-bag leaves (``TermBagPlan``,
 ``PostingsMaskPlan``) read their dense columns from K2's dense entry:
 ``dense_prepass`` launches each leaf of a plan once over every segment a
-request evaluates (one launch per row layout on CUDA) and leaves each
+request evaluates (one launch per row layout on CUDA; the phrase and
+span leaves one launch per kernel over all of them) and leaves each
 segment's views in its request-scoped arrays (``A["dense"]``, keyed by
 the leaf's prepared inputs); a leaf evaluated without them (the k-NN
 filter, an aggregation's filter mask) makes the same call over its one
@@ -30,9 +31,10 @@ compiled score script (``search/scripting.py``) over the numeric dense
 view and the per-row vector columns the compiler's pre-pass made (K1).
 ``PhrasePlan`` and ``SpanNearPlan`` read a field's positions
 (``DeviceSegment.ensure_positions``, the ``positions`` array group) and
-take their per-doc frequencies from K8 / K9 (``ops/phrase.py``,
-``ops/span.py``: one launch per segment on CUDA); ``DisMaxPlan`` combines
-its children as the reference does.  Plans of the reference that are not
+take their scores and matched masks from K8 / K9 (``ops/phrase.py``,
+``ops/span.py``): the same pre-pass launches each kernel once over every
+phrase or span leaf of the request and every segment, BM25 inside the
+kernel; ``DisMaxPlan`` combines its children as the reference does.  Plans of the reference that are not
 ported yet (expand-terms, nested, geo, function_score, ...) are absent;
 the compiler raises ``NotYetPortedError`` for queries that would need
 them.
@@ -54,6 +56,7 @@ from opensearch_tpu_torch.index.segment import (LONG_MISSING_MAX,
 from opensearch_tpu_torch.ops import bm25 as bm25_ops
 from opensearch_tpu_torch.ops import filters as filter_ops
 from opensearch_tpu_torch.ops import phrase as phrase_ops
+from opensearch_tpu_torch.ops.phrase import fma32
 from opensearch_tpu_torch.ops import span as span_ops
 
 _I32 = np.int32
@@ -128,22 +131,35 @@ def _dense_cols(leaf, A, dims, ins):
 
 
 def dense_prepass(plan, items) -> None:
-    """Launch every term-bag leaf of ``plan`` once over the segments of
-    ``items`` (``(A, dims, ins)`` per segment, as the caller prepared
-    them): one ``term_bag_dense_auto`` call per leaf, one launch per row
-    layout on CUDA.  Each segment's views go to its ``A["dense"]``, keyed
-    by the id of the leaf's inputs, which the caller holds for the
-    request: nothing enters the prepared inputs or the bindings, which the
-    searcher caches across requests."""
+    """Launch every leaf of ``plan`` that reads a kernel's dense views
+    over the segments of ``items`` (``(A, dims, ins)`` per segment, as the
+    caller prepared them): a term-bag leaf by one ``term_bag_dense_auto``
+    call over its segments (one launch per row layout on CUDA); the
+    phrase and span leaves by one call of their entry (``PositionalPlan.
+    scores_auto``: K8, K9) over all of them and every segment.  Each
+    segment's views go to its ``A["dense"]``, keyed by the id of the
+    leaf's inputs, which the caller holds for the request: nothing enters
+    the prepared inputs or the bindings, which the searcher caches across
+    requests."""
     if not items:
         return
     walks = [list(plan.dense_leaves(dims, ins)) for _A, dims, ins in items]
+    positional = {}
     for j, (leaf, dims0, _ins0) in enumerate(walks[0]):
+        if isinstance(leaf, PositionalPlan):
+            positional.setdefault(leaf.scores_auto, []).extend(
+                (A, w[j][2], leaf.positional_leaf(A, w[j][1], w[j][2]))
+                for (A, _d, _i), w in zip(items, walks))
+            continue
         bags = [leaf.dense_bag(A, w[j][1], w[j][2])
                 for (A, _d, _i), w in zip(items, walks)]
         cols = bm25_ops.term_bag_dense_auto(bags, **leaf.dense_mode(dims0))
         for (A, _d, _i), w, c in zip(items, walks, cols):
             A.setdefault("dense", {})[id(w[j][2])] = c
+    for scores_auto, jobs in positional.items():
+        views = scores_auto([leaf for _A, _i, leaf in jobs])
+        for (A, ins, _leaf), view in zip(jobs, views):
+            A.setdefault("dense", {})[id(ins)] = view
 
 
 # ---------------------------------------------------------------------------
@@ -184,9 +200,10 @@ class Plan:
         return math.inf
 
     def dense_leaves(self, dims, ins):
-        """``(leaf, dims, ins)`` of every term-bag leaf under this plan, in
-        a fixed order (the same on every segment): what ``dense_prepass``
-        launches.  Composites walk their children's prepared inputs."""
+        """``(leaf, dims, ins)`` of every term-bag, phrase and span leaf
+        under this plan, in a fixed order (the same on every segment): what
+        ``dense_prepass`` launches.  Composites walk their children's
+        prepared inputs."""
         return ()
 
 
@@ -714,25 +731,6 @@ class ScriptScorePlan(Plan):
         return torch.where(matched, new, 0.0), matched
 
 
-def fma32(a: float, b, c) -> torch.Tensor:
-    """float32 ``a * b + c`` rounded once, as the reference's XLA code
-    computes it (its CPU compiler contracts a product that feeds an add
-    into one fused multiply-add).  ``a`` is a Python float holding a
-    float32 value, ``b`` and ``c`` float32 tensors.  The product of two
-    float32 values is exact in float64; the float64 sum is made
-    round-to-odd from its exact error (Knuth's two-sum), so the one
-    rounding to float32 that follows is the fused operation's."""
-    p = b.double() * a
-    c64 = c.double()
-    s = p + c64
-    bv = s - c64
-    err = (p - bv) + (c64 - (s - bv))
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, math.inf, -math.inf).to(torch.float64)
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
-
-
 def _all_terms_present(field, bind, seg) -> bool:
     """can_match of a phrase or span: every term in the segment."""
     pf = seg.postings.get(field)
@@ -747,37 +745,21 @@ def _positional_bound(self, bind, seg) -> float:
     return float(bind["idf_sum"]) * float(bind["boost"]) * _BOUND_MARGIN
 
 
-def _positional_scoring(bind, dev) -> tuple:
-    """``(idf_sum * boost, avgdl)`` of a phrase or span: the product in
-    float32, as the reference's scalar product, and avgdl a float32 0-d
-    tensor on ``dev`` (a CUDA division by a host scalar multiplies by its
-    reciprocal, which rounds differently)."""
+def _positional_scoring(bind) -> tuple:
+    """``(idf_sum * boost, avgdl)`` of a phrase or span as Python floats
+    holding float32 values: the product in float32, as the reference's
+    scalar product."""
     weight = float(np.float32(bind["idf_sum"]) * np.float32(bind["boost"]))
-    return weight, torch.tensor(_f32(bind["avgdl"]), dtype=torch.float32,
-                                device=dev)
-
-
-def _positional_scores(tf, p, scored, weight, avgdl):
-    """``(scores, matched)`` of a phrase or span from its per-doc ``tf``:
-    ``idf_sum * boost * tf / (tf + norm)``, ``norm = k1 * (1 - b + b * dl /
-    avgdl)``, in the reference's float32 order."""
-    matched = tf > 0
-    if not scored:
-        return torch.zeros_like(tf), matched
-    dl = p["doc_lens"]
-    inner = 1.0 - bm25_ops.B_DEFAULT + bm25_ops.B_DEFAULT * dl / avgdl
-    # tf + k1 * inner, one fused multiply-add in the reference
-    scores = weight * tf / fma32(_f32(bm25_ops.K1_DEFAULT), inner, tf)
-    return torch.where(matched, scores, 0.0), matched
+    return weight, _f32(bind["avgdl"])
 
 
 @dataclass(frozen=True)
-class PhrasePlan(Plan):
-    """Exact phrase over one field (match_phrase, slop=0).  bind: {terms,
-    positions, idf_sum, boost, avgdl}.  The per-doc frequency is K8's on
-    CUDA (``ops/phrase.py`` ``phrase_freqs_auto``: one launch per segment),
-    over the positions ``DeviceSegment.ensure_positions`` stages on the
-    first such plan."""
+class PositionalPlan(Plan):
+    """A phrase or span leaf over one field: its ``(scores, matched)``
+    come from one kernel call over every such leaf and segment of the
+    request (``dense_prepass``: ``scores_auto`` over the
+    ``positional_leaf`` jobs), or, evaluated without that pre-pass, from
+    one call over its own segment."""
 
     field: str = ""
     scored: bool = True
@@ -786,42 +768,52 @@ class PhrasePlan(Plan):
         return frozenset({("positions", self.field)})
 
     def can_match(self, bind, seg):
-        # an exact phrase needs EVERY term present
+        # every term present
         return _all_terms_present(self.field, bind, seg)
 
     max_score_bound = _positional_bound
+
+    def dense_leaves(self, dims, ins):
+        return ((self, dims, ins),)
+
+    def eval(self, A, dims, ins):
+        view = A.get("dense", {}).get(id(ins))
+        if view is None:
+            view = self.scores_auto([self.positional_leaf(A, dims, ins)])[0]
+        return view
+
+
+@dataclass(frozen=True)
+class PhrasePlan(PositionalPlan):
+    """Exact phrase over one field (match_phrase, slop=0).  bind: {terms,
+    positions, idf_sum, boost, avgdl}.  Scored by K8 on CUDA
+    (``ops/phrase.py`` ``phrase_scores_auto``), over the positions
+    ``DeviceSegment.ensure_positions`` stages on the first such plan."""
+
+    scores_auto = staticmethod(phrase_ops.phrase_scores_auto)
 
     def prepare(self, bind, seg, dseg, ctx):
         slots = phrase_ops.phrase_slots(seg.postings.get(self.field),
                                         bind["terms"], bind["positions"])
-        return (), (slots, *_positional_scoring(bind, dseg.device))
+        return (), (slots, *_positional_scoring(bind))
 
-    def eval(self, A, dims, ins):
+    def positional_leaf(self, A, dims, ins) -> phrase_ops.PositionalLeaf:
         slots, weight, avgdl = ins
-        p = A["positions"][self.field]
-        tf = phrase_ops.phrase_freqs_auto(p, slots, A["live"].shape[0])
-        return _positional_scores(tf, p, self.scored, weight, avgdl)
+        return phrase_ops.PositionalLeaf(
+            A["positions"][self.field]["staged"], slots, A["live"].shape[0],
+            weight, avgdl, self.scored)
 
 
 @dataclass(frozen=True)
-class SpanNearPlan(Plan):
+class SpanNearPlan(PositionalPlan):
     """Span/interval proximity over one field (span_near, span_first,
     intervals match — ref SpanNearQueryBuilder.java:51,
     IntervalQueryBuilder.java:43).  bind: {terms, slop, end, idf_sum,
-    boost, avgdl}.  The per-doc frequency is K9's on CUDA (``ops/span.py``
-    ``span_near_freqs_auto``: one launch per segment)."""
+    boost, avgdl}.  Scored by K9 on CUDA (``ops/span.py``
+    ``span_scores_auto``)."""
 
-    field: str = ""
     ordered: bool = True
-    scored: bool = True
-
-    def arrays(self):
-        return frozenset({("positions", self.field)})
-
-    def can_match(self, bind, seg):
-        return _all_terms_present(self.field, bind, seg)
-
-    max_score_bound = _positional_bound
+    scores_auto = staticmethod(span_ops.span_scores_auto)
 
     def prepare(self, bind, seg, dseg, ctx):
         slots = span_ops.span_slots(seg.postings.get(self.field),
@@ -829,16 +821,13 @@ class SpanNearPlan(Plan):
         # the reference's int32 scalars
         slop, end = (int(np.asarray(bind[k]).astype(_I32))
                      for k in ("slop", "end"))
-        return (), (slots, slop, end,
-                    *_positional_scoring(bind, dseg.device))
+        return (), (slots, slop, end, *_positional_scoring(bind))
 
-    def eval(self, A, dims, ins):
+    def positional_leaf(self, A, dims, ins) -> phrase_ops.PositionalLeaf:
         slots, slop, end, weight, avgdl = ins
-        p = A["positions"][self.field]
-        tf = span_ops.span_near_freqs_auto(
-            p, slots, A["live"].shape[0], ordered=self.ordered, slop=slop,
-            end=end)
-        return _positional_scores(tf, p, self.scored, weight, avgdl)
+        return phrase_ops.PositionalLeaf(
+            A["positions"][self.field]["staged"], slots, A["live"].shape[0],
+            weight, avgdl, self.scored, self.ordered, slop, end)
 
 
 def _prepare_children(children, binds, seg, dseg, ctx):

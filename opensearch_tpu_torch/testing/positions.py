@@ -92,11 +92,46 @@ def trap_docs() -> list:
             + [[(2, 0), (1, 1)]])
 
 
+TWELVE = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8]
+
+
+def twelve_docs() -> list:
+    """``draw_docs(3)`` with a 12-token run (``TWELVE``) planted whole in
+    three docs and with its last token changed in a fourth."""
+    docs = draw_docs(3)
+    near = TWELVE[:-1] + [7]
+    for d, run in ((5, TWELVE), (60, TWELVE), (61, near), (170, TWELVE)):
+        base = docs[d][-1][1] + 1
+        docs[d] = docs[d] + [(t, base + i) for i, t in enumerate(run)]
+    return docs
+
+
+def heavy_docs() -> list:
+    """``draw_docs(4)`` and a doc of 12,000 tokens, ``w7 w8`` 6,000 times:
+    the anchor's heaviest entry spans several of K8 / K9's blocks."""
+    return draw_docs(4) + [[(7 + (p % 2), p) for p in range(12_000)]]
+
+
+def sparse_docs() -> list:
+    """3,000 docs of ``draw_docs``, ``w0 w12`` appended to every 100th
+    and ``w13`` to every 7th: a rare anchor whose docs spread over many of
+    ``w0``'s (a slot's window searched doc by doc), and a commoner one
+    (its window walked in several tiles)."""
+    docs = draw_docs(6, n_docs=3_000)
+    for d in range(0, len(docs), 7):
+        docs[d] = docs[d] + [(13, docs[d][-1][1] + 1)]
+    for d in range(0, len(docs), 100):
+        p = docs[d][-1][1]
+        docs[d] = docs[d] + [(0, p + 1), (12, p + 2)]
+    return docs
+
+
 def phrase_sets() -> list:
     """(name, PostingsField, [(terms, offsets)]) of the phrase cases:
-    2 to 6 slots, stopword holes, duplicated terms ("to be or not to
-    be"), a missing term, a one-posting term, a slot filling its bucket
-    exactly, positions just below ``KEY_BASE``."""
+    2 to 6 and 12 slots, stopword holes, duplicated terms ("to be or not
+    to be"), a missing term, a one-posting term, a slot filling its
+    bucket exactly, positions just below ``KEY_BASE``, an anchor entry of
+    6,000 positions, and rare anchors beside a common term."""
     docs = draw_docs(3)
     planted = docs + [[(t, p) for p, t in enumerate(d)]
                       for d in ([2, 1, 0, 3, 2, 1, 7, 2, 1, 0, 3, 2, 1],
@@ -120,6 +155,18 @@ def phrase_sets() -> list:
                  (["w1", "w1", "w2"], [0, 1, 2])]))
     out.append(("near_key_base", postings_of(near_base),
                 runs(near_base, 2, 8, seed=4)))
+    twelve = [f"w{t}" for t in TWELVE]
+    out.append(("twelve_slots", postings_of(twelve_docs()),
+                [(twelve, list(range(12))), (twelve[:11], list(range(11))),
+                 (twelve[1:], list(range(11)))]))
+    out.append(("heavy_entry", postings_of(heavy_docs()),
+                [(["w7", "w8"], [0, 1]), (["w8", "w7"], [0, 1]),
+                 (["w7", "w8", "w7"], [0, 1, 2]), (["w7", "w7"], [0, 1]),
+                 (["w8", "w7"], [0, 2])]))
+    out.append(("sparse_windows", postings_of(sparse_docs()),
+                [(["w0", "w12"], [0, 1]), (["w12", "w0"], [0, 1]),
+                 (["w13", "w0"], [0, 1]), (["w1", "w13"], [0, 1]),
+                 (["w0", "w12", "w1"], [0, 1, 2])]))
     return out
 
 
@@ -127,7 +174,8 @@ def span_sets() -> list:
     """(name, PostingsField, [(terms, ordered, slop, end)]) of the span
     cases: ordered at slop 0 / 1 / 3 / large, unordered of one term and of
     two (and past the key base's gap), span_first ends 0 / 1 / 5 / none,
-    the full-bucket trap, positions just below ``KEY_BASE``."""
+    the full-bucket trap, positions just below ``KEY_BASE``, an anchor
+    entry of 6,000 positions, rare anchors beside a common term."""
     no_end = _SPAN_NO_END
     pf = postings_of(draw_docs(5, gaps=True))
     rng = np.random.default_rng(17)
@@ -150,4 +198,14 @@ def span_sets() -> list:
              [(["w1", "w2"], True, slop, no_end) for slop in (0, 5, 1000)]),
             ("near_key_base", near,
              [(["w0", "w1"], True, 2, no_end), (["w1", "w0"], False, 2,
-                                                no_end)])]
+                                                no_end)]),
+            ("heavy_entry", postings_of(heavy_docs()),
+             [(["w7", "w8"], True, 0, no_end), (["w8", "w7", "w8"], True, 1,
+                                                no_end),
+              (["w7", "w8"], False, 0, no_end), (["w7", "w7"], False, 1,
+                                                 no_end),
+              (["w8"], True, 0, 9_000), (["w7", "w9"], False, 3, no_end)]),
+            ("sparse_windows", postings_of(sparse_docs()),
+             [(["w12", "w0"], True, 2, no_end), (["w13", "w0"], False, 1,
+                                                 no_end),
+              (["w12", "w0"], False, 0, no_end)])]

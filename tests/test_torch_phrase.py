@@ -373,26 +373,347 @@ def test_phrase_query_log_occurs():
 
 
 def test_wrapper_checks_slot_rows():
-    """K8 / K9's wrapper checks every slot's row against the staged
-    columns (padded as ``DeviceSegment.ensure_positions`` pads them), and
-    its table holds ``{row start, row end, shift}`` per slot."""
-    from opensearch_tpu_torch.ops import cuda_positions
+    """K8 / K9's slots are checked once, when made, against their
+    segment's postings (``PositionSlots.limits``), and the wrapper takes
+    a job only when its slots' limits are its staged columns' (a
+    ``StagedPositions``, checked once when staged, padded as
+    ``DeviceSegment.ensure_positions`` pads them); its launch table holds
+    each job's words and its ``{row start, row end, shift}`` per slot; it
+    takes CUDA tensors only."""
+    from opensearch_tpu_torch.ops import cuda_positions as cp
 
     docs = draw_docs(2, n_docs=40)
     pf = postings_of(docs)
-    _ref, (doc_ids, pos_offsets, _pos), _n_pad = staged(pf, len(docs))
+    cols = tphrase.stage_host_positions(pf, "cpu")
+    n_pad = pad_pow2(len(docs) + 1)
     slots = tphrase.phrase_slots(pf, ["w0", "w1"], [0, 1])
-    cuda_positions.check_slots(slots, doc_ids, pos_offsets)
-    table = cuda_positions.slot_table(slots).reshape(-1, 3)
-    assert table[:, :2].tolist() == slots.rows.tolist()
-    assert table[:, 2].tolist() == slots.shifts.tolist()
+    assert slots.limits == cols.limits == (len(pf.doc_ids),
+                                           len(pf.positions))
+    leaf = tphrase.PositionalLeaf(cols, slots, n_pad, 1.5, 7.0)
+    jt = cp.job_table([leaf, leaf._replace(scored=False)], "phrase")
+    words = jt.table[: 2 * cp.JOB_WORDS].reshape(2, cp.JOB_WORDS)
+    slot_words = jt.table[2 * cp.JOB_WORDS:].reshape(-1, 3)
+    assert slot_words[:2, :2].tolist() == slots.rows.tolist()
+    assert slot_words[:2, 2].tolist() == slots.shifts.tolist()
+    assert slot_words[2:].tolist() == slot_words[:2].tolist()
+    assert words[:, cp.W_SLOTS].tolist() == [2 * cp.JOB_WORDS,
+                                             2 * cp.JOB_WORDS + 6]
+    p0, p1 = slots.anchor_positions
+    blocks = -(-(p1 - p0) // cp.CHUNK)
+    assert words[:, cp.W_BLOCK0].tolist() == [0, blocks]
+    assert jt.n_blocks == 2 * blocks
+    assert words[:, cp.W_OUT].tolist() == [0, n_pad]
+    assert words[:, cp.W_FLAGS].tolist() == [cp.SCORED, 0]
+    assert words[0, :4].tolist() == [t.data_ptr() for t in (
+        cols.doc_ids, cols.pos_offsets, cols.positions, cols.doc_lens)]
+    assert words[0, cp.W_SCORING: cp.W_SCORING + 1].view(
+        np.float32).tolist() == [1.5, 7.0]
     last = len(pf.doc_ids)
-    whole = tphrase.PositionSlots(np.asarray([[0, last]]), np.zeros(1, int))
-    cuda_positions.check_slots(whole, doc_ids, pos_offsets)
-    for rows in ([[0, doc_ids.shape[0] + 1]], [[3, 2]], [[-1, 2]]):
+    whole = tphrase.PositionSlots(np.asarray([[0, last]]), np.zeros(1, int),
+                                  anchor_positions=(0, len(pf.positions)),
+                                  limits=cols.limits)
+    cp.job_table([leaf._replace(slots=whole)], "phrase")
+    for rows, shifts, span in (([[0, last + 1]], [0], (0, 8)),
+                               ([[3, 2]], [0], (0, 8)),
+                               ([[-1, 2]], [0], (0, 8)),
+                               ([[0, 2]], [0], (0, len(pf.positions) + 1)),
+                               ([[0, 5]], [0], (0, 3)),
+                               ([[0, 2], [3, 4]], [0, 1 << 30], (0, 8))):
         with pytest.raises(ValueError):
-            cuda_positions.check_slots(tphrase.PositionSlots(
-                np.asarray(rows), np.zeros(1, int)), doc_ids, pos_offsets)
+            tphrase.PositionSlots(np.asarray(rows), np.asarray(shifts),
+                                  anchor_positions=span, limits=cols.limits)
+    for limits in (None, (last, len(pf.positions) - 1)):
+        other = tphrase.PositionSlots(slots.rows, slots.shifts,
+                                      anchor_positions=(p0, p1),
+                                      limits=limits)
+        with pytest.raises(ValueError):
+            cp.job_table([leaf._replace(slots=other)], "phrase")
     with pytest.raises(ValueError):
-        cuda_positions.phrase_freqs_cuda(doc_ids, pos_offsets, _pos, slots,
-                                         _n_pad)
+        cp.phrase_scores_cuda([leaf])
+    with pytest.raises(TypeError):
+        tphrase.stage_positions(cols.doc_ids.long(), cols.pos_offsets,
+                                cols.positions, cols.doc_lens, last,
+                                len(pf.positions))
+    with pytest.raises(ValueError):
+        tphrase.stage_positions(*cols.cols, cols.doc_lens, last,
+                                len(pf.positions), 0)
+    with pytest.raises(ValueError):
+        tphrase.stage_positions(*cols.cols, cols.doc_lens, last,
+                                cols.positions.numel() + 1)
+
+
+# -- the request-wide entries and a model of K8 / K9's work split -----------
+
+def _leaves(kind, sets, scored_first=True):
+    """Every case of ``sets`` as ``PositionalLeaf`` jobs over CPU columns,
+    each set's first case again unscored."""
+    out = []
+    for _name, pf, cases in sets:
+        cols = tphrase.stage_host_positions(pf, "cpu")
+        n_pad = pad_pow2(len(pf.doc_lens) + 1)
+        avgdl = float(np.float32(np.mean(pf.doc_lens)))
+        for i, case in enumerate(cases + cases[:1]):
+            scored = i < len(cases)
+            if kind == "phrase":
+                slots = tphrase.phrase_slots(pf, *case)
+                out.append(tphrase.PositionalLeaf(cols, slots, n_pad, 2.5,
+                                                  avgdl, scored))
+            else:
+                terms, ordered, slop, end = case
+                out.append(tphrase.PositionalLeaf(
+                    cols, tspan.span_slots(pf, terms), n_pad, 2.5, avgdl,
+                    scored, ordered, slop, end))
+    return out
+
+
+def kernel_model(leaves, kind, *, chunk, threads, tile, sparse, paths):
+    """K8 / K9 (``csrc/positions.cu``) step by step in numpy, over
+    ``cuda_positions.job_table``'s table: blocks of ``chunk`` anchor
+    positions (taken in a shuffled order), their entries, each other
+    slot's entries from a window of the slot's doc ids (searched doc by
+    doc past ``sparse`` times the entries and ``tile`` ids, else walked in
+    tiles: ``paths`` counts each), each
+    thread's ``chunk // threads`` positions walked with one cursor per
+    entry, counts per entry, entries that span blocks finished by the
+    last block to arrive, BM25 in float32."""
+    from opensearch_tpu_torch.ops import cuda_positions as cp
+
+    span = kind == "span"
+    jt = cp.job_table(leaves, kind)
+    jobs = [leaf for leaf in leaves if cp._has_work(leaf, span)]
+    n_out = int(jt.offsets[-1])
+    scores = np.zeros(n_out, np.float32)
+    matched = np.zeros(n_out, bool)
+    scratch = np.zeros(2 * jt.n_blocks, np.int64)
+    words = jt.table[: jt.n_jobs * cp.JOB_WORDS].reshape(-1, cp.JOB_WORDS)
+    per_thread = chunk // threads
+    rng = np.random.default_rng(5)
+    for b in rng.permutation(jt.n_blocks):
+        j = int(np.searchsorted(words[:, cp.W_BLOCK0], b, side="right")) - 1
+        w, leaf = words[j], jobs[j]
+        doc_ids = leaf.cols.doc_ids.numpy().astype(np.int64)
+        po = leaf.cols.pos_offsets.numpy().astype(np.int64)
+        pos = leaf.cols.positions.numpy().astype(np.int64)
+        slots = jt.table[w[cp.W_SLOTS]: w[cp.W_SLOTS]
+                         + 3 * w[cp.W_NSLOTS]].reshape(-1, 3)
+        m = len(slots)
+        e0, e1 = int(slots[0, 0]), int(slots[0, 1])
+        flags = int(w[cp.W_FLAGS])
+        ordered = bool(flags & cp.ORDERED)
+        slop, end = int(w[cp.W_SLOP]), int(w[cp.W_END])
+        p_begin = int(w[cp.W_PBEGIN])
+        p_lo = p_begin + (int(b) - int(w[cp.W_BLOCK0])) * chunk
+        p_hi = min(p_lo + chunk, p_begin + int(w[cp.W_PCOUNT]))
+        row_off = po[e0: e1 + 1]
+        ea = e0 + int(np.searchsorted(row_off, p_lo, side="right")) - 1
+        eb = e0 + int(np.searchsorted(row_off, p_hi - 1, side="right")) - 1
+        n_ent = eb - ea + 1
+        assert 1 <= n_ent <= chunk
+        sdoc, soff = doc_ids[ea: eb + 1], po[ea: eb + 2]
+        n_pos = p_hi - p_lo
+        v = pos[p_lo: p_hi]
+        own = np.searchsorted(soff, np.arange(p_lo, p_hi), side="right") - 1
+        prev = v.copy()
+        alive = v < end if span else np.ones(n_pos, bool)
+        for g in range(1, m):
+            for r0, r1, shift in slots[g: g + 1]:
+                same = r0 == e0 and r1 == e1
+                if same:
+                    ent = ea + np.arange(n_ent)
+                else:
+                    lo = r0 + np.searchsorted(doc_ids[r0:r1], sdoc[0])
+                    hi = r0 + np.searchsorted(doc_ids[r0:r1], sdoc[-1] + 1)
+                    if hi - lo > tile and hi - lo > sparse * n_ent:
+                        paths["sparse"] += 1
+                    elif hi > lo:
+                        paths["tiles"] += -(-(hi - lo) // tile)
+                    k = lo + np.searchsorted(doc_ids[lo:hi], sdoc)
+                    found = (k < hi) & (doc_ids[np.minimum(k, len(doc_ids)
+                                                           - 1)] == sdoc)
+                    ent = np.where(found, k, -1)
+                for t in range(threads):
+                    cur, q, q0, q1 = -1, 0, 0, 0
+                    for k in range(t * per_thread,
+                                   min((t + 1) * per_thread, n_pos)):
+                        if not alive[k]:
+                            continue
+                        tgt = (int(v[k]) + int(shift) if not span else
+                               int(prev[k]) + 1 if ordered else int(v[k]))
+                        if own[k] != cur:
+                            cur = int(own[k])
+                            e = int(ent[cur])
+                            q0, q1 = (0, 0) if e < 0 else (int(po[e]),
+                                                           int(po[e + 1]))
+                            q = q0 + int(np.searchsorted(pos[q0:q1], tgt))
+                        else:
+                            while q < q1 and pos[q] < tgt:
+                                q += 1
+                        if not span:
+                            ok = q < q1 and pos[q] == tgt
+                        elif ordered:
+                            ok = q < q1
+                            if ok:
+                                prev[k] = pos[q]
+                        else:
+                            best = tphrase.POS_BASE
+                            for c in (q - 1, q, q + 1):
+                                if q0 <= c < q1 and not (
+                                        flags & cp.SAME_TERM
+                                        and pos[c] == v[k]):
+                                    best = min(best, abs(int(pos[c])
+                                                         - int(v[k])) - 1)
+                            ok = best <= slop
+                        alive[k] &= ok
+        if span and ordered and m > 1:
+            alive &= prev - v - (m - 1) <= slop
+        counts = np.bincount(own, weights=alive, minlength=n_ent)
+        for e in range(n_ent):
+            c = int(counts[e])
+            bf = (int(soff[e]) - p_begin) // chunk
+            bl = (int(soff[e + 1]) - 1 - p_begin) // chunk
+            if bf != bl:
+                key = 2 * (int(w[cp.W_BLOCK0]) + bf)
+                scratch[key] += c
+                scratch[key + 1] += 1
+                if scratch[key + 1] - 1 != bl - bf:
+                    continue
+                c = int(scratch[key])
+            if c > 0:
+                d = int(w[cp.W_OUT]) + int(sdoc[e])
+                matched[d] = True
+                if flags & cp.SCORED:
+                    s, _m = tphrase.positional_scores(
+                        torch.tensor([float(c)]),
+                        leaf.cols.doc_lens[int(sdoc[e]): int(sdoc[e]) + 1],
+                        True, leaf.weight, leaf.avgdl)
+                    scores[d] = s.item()
+    return [(scores[a:z], matched[a:z])
+            for a, z in zip(jt.offsets[:-1], jt.offsets[1:])]
+
+
+def _assert_views_equal(got, want, what=""):
+    assert len(got) == len(want)
+    for i, ((gs, gm), (ws, wm)) in enumerate(zip(got, want)):
+        gs, gm = np.asarray(gs), np.asarray(gm)
+        np.testing.assert_array_equal(gm, wm.numpy(), err_msg=f"{what} {i}")
+        np.testing.assert_array_equal(gs.view(np.int32),
+                                      ws.numpy().view(np.int32),
+                                      err_msg=f"{what} {i}")
+
+
+MODEL_SHAPES = {
+    "small": dict(chunk=16, threads=4, tile=16, sparse=2),
+    "card": dict(chunk=1024, threads=256, tile=1024, sparse=8),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(MODEL_SHAPES))
+@pytest.mark.parametrize("kind", ["phrase", "span"])
+def test_kernel_model_equals_plain_entry(kind, shape, monkeypatch):
+    """A numpy model of K8 / K9's work split (``kernel_model``) gives the
+    request-wide plain entry's scores and matched masks byte for byte on
+    every set of ``testing/positions.py`` in one call; at 16-position
+    blocks the sets cover entries over several blocks and both ways of
+    finding a slot's entries."""
+    from opensearch_tpu_torch.ops import cuda_positions as cp
+
+    cfg = MODEL_SHAPES[shape]
+    monkeypatch.setattr(cp, "CHUNK", cfg["chunk"])
+    sets = phrase_sets() if kind == "phrase" else span_sets()
+    leaves = _leaves(kind, sets)
+    plain = tphrase.phrase_scores if kind == "phrase" else tspan.span_scores
+    paths = {"sparse": 0, "tiles": 0}
+    got = kernel_model(leaves, kind, paths=paths, **cfg)
+    _assert_views_equal(got, plain(leaves), kind)
+    if shape == "small":
+        assert paths["sparse"] > 0 and paths["tiles"] > 0
+
+
+def _segments_postings():
+    """Three segments' postings: a phrase's term ``w11`` only in the
+    first, ``w12`` in none."""
+    out = []
+    for seed in (21, 22, 23):
+        docs = draw_docs(seed, n_docs=70, gaps=seed == 22)
+        extra = ((11, 3, 1000), (0, 3, 999)) if seed == 21 else ()
+        out.append(postings_of(docs, extra))
+    return out
+
+
+REQUEST_CASES = {
+    "phrase": [(["w0", "w1"], [0, 1]), (["w1", "w0", "w2"], [0, 1, 3]),
+               (["w0", "w11"], [0, 1]), (["w12", "w0"], [0, 1])],
+    "span": [(["w0", "w1"], True, 2, _SPAN_NO_END),
+             (["w2", "w0"], False, 1, _SPAN_NO_END),
+             (["w0", "w11"], False, KEY_BASE, _SPAN_NO_END),
+             (["w12", "w0"], True, 0, _SPAN_NO_END), (["w1"], True, 0, 4)],
+}
+
+
+@pytest.mark.parametrize("kind", ["phrase", "span"])
+def test_request_entry_equals_per_segment(kind):
+    """The request-wide plain entry over three segments (a term in one of
+    them only, a term in none: an empty anchor or a missing slot; every
+    case scored and unscored) equals ``phrase_freqs`` /
+    ``span_near_freqs`` then ``positional_scores`` segment by segment,
+    byte for byte."""
+    leaves, want = [], []
+    for pf in _segments_postings():
+        cols = tphrase.stage_host_positions(pf, "cpu")
+        n_pad = pad_pow2(len(pf.doc_lens) + 1)
+        avgdl = float(np.float32(pf.total_len / len(pf.doc_lens)))
+        for case in REQUEST_CASES[kind]:
+            for scored in (True, False):
+                if kind == "phrase":
+                    slots = tphrase.phrase_slots(pf, *case)
+                    tf = tphrase.phrase_freqs(*cols.cols, slots, n_pad)
+                    leaf = tphrase.PositionalLeaf(cols, slots, n_pad, 1.75,
+                                                  avgdl, scored)
+                else:
+                    terms, ordered, slop, end = case
+                    slots = tspan.span_slots(pf, terms)
+                    tf = tspan.span_near_freqs(*cols.cols, slots, n_pad,
+                                               ordered=ordered, slop=slop,
+                                               end=end)
+                    leaf = tphrase.PositionalLeaf(cols, slots, n_pad, 1.75,
+                                                  avgdl, scored, ordered,
+                                                  slop, end)
+                leaves.append(leaf)
+                want.append(tphrase.positional_scores(
+                    tf, cols.doc_lens, scored, 1.75, avgdl))
+    entry = tphrase.phrase_scores if kind == "phrase" else tspan.span_scores
+    got = entry(leaves)
+    _assert_views_equal([(s.numpy(), m.numpy()) for s, m in got], want, kind)
+    assert sum(int(m.sum()) for _s, m in got) > 0
+    assert any(not leaf.slots.complete for leaf in leaves)
+    assert any(leaf.slots.n_anchor == 0 for leaf in leaves)
+    for (s, m), leaf in zip(got, leaves):
+        if not leaf.scored:
+            assert not s.any()
+
+
+@pytest.mark.parametrize("kind", ["phrase", "span"])
+def test_request_with_no_job(kind):
+    """Jobs none of which can match (an absent anchor, a missing slot):
+    zeros, no table words, no block."""
+    from opensearch_tpu_torch.ops import cuda_positions as cp
+
+    pf = _segments_postings()[1]
+    cols = tphrase.stage_host_positions(pf, "cpu")
+    n_pad = pad_pow2(len(pf.doc_lens) + 1)
+    if kind == "phrase":
+        leaves = [tphrase.PositionalLeaf(
+            cols, tphrase.phrase_slots(pf, terms, [0, 1]), n_pad, 1.0, 5.0)
+            for terms in (["w0", "w12"], ["w11", "w1"])]
+    else:
+        leaves = [tphrase.PositionalLeaf(
+            cols, tspan.span_slots(pf, terms), n_pad, 1.0, 5.0, True,
+            ordered, 1, _SPAN_NO_END)
+            for terms, ordered in ((["w12", "w0"], False),
+                                   (["w0", "w11"], True))]
+    jt = cp.job_table(leaves, kind)
+    assert (jt.n_jobs, jt.n_blocks, jt.table.size) == (0, 0, 0)
+    assert jt.offsets.tolist() == [0, n_pad, 2 * n_pad]
+    entry = tphrase.phrase_scores if kind == "phrase" else tspan.span_scores
+    for s, m in entry(leaves):
+        assert not s.any() and not m.any() and s.shape == (n_pad,)

@@ -347,3 +347,57 @@ def test_quantized_segments_stage_positions(monkeypatch):
                 "doc_lens"} <= set(p)
         assert d.nbytes() > b
         assert "positions" not in d.postings["title"]
+
+
+PREPASS_BODIES = {
+    "match_phrase": ({"match_phrase": {"body": "alpha bravo"}}, 1, 0),
+    "match_phrase_prefix": ({"match_phrase_prefix": {"body": {
+        "query": "kilo l", "max_expansions": 10}}}, 1, 0),
+    "multi_match_phrase": ({"multi_match": {
+        "query": "charlie delta", "fields": ["title", "body"],
+        "type": "phrase"}}, 1, 0),
+    "bool_phrase_span": ({"bool": {
+        "must": [{"match_phrase": {"body": "oscar papa"}}],
+        "should": [{"span_near": {"clauses": [
+            {"span_term": {"body": "quebec"}},
+            {"span_term": {"body": "romeo"}}], "slop": 3,
+            "in_order": False}}],
+        "filter": [{"range": {"price": {"gte": 100}}}]}}, 1, 1),
+    "span_near": ({"span_near": {"clauses": [
+        {"span_term": {"body": "alpha"}}, {"span_term": {"body": "bravo"}}],
+        "slop": 2, "in_order": True}}, 0, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PREPASS_BODIES))
+def test_prepass_calls_each_entry_once(corpora, monkeypatch, name):
+    """Over the 3-segment corpus every phrase and span leaf of a request
+    goes through one call of its entry (K8's, K9's on the card) over
+    every segment, for a search, a count and a top-k past the in-kernel
+    k, and the answers still equal the reference's."""
+    from opensearch_tpu_torch.search import plan as tplan
+
+    calls = {"phrase": [], "span": []}
+    for cls, kind in ((tplan.PhrasePlan, "phrase"),
+                      (tplan.SpanNearPlan, "span")):
+        entry = cls.scores_auto
+
+        def counted(leaves, entry=entry, kind=kind):
+            calls[kind].append(len(leaves))
+            return entry(leaves)
+        monkeypatch.setattr(cls, "scores_auto", staticmethod(counted))
+    query, n_phrase, n_span = PREPASS_BODIES[name]
+    jax_s, port_s = corpora["search"]
+    assert len(port_s.segments) == 3
+    for body in ({"query": query, "size": 10}, {"query": query, "size": 300},
+                 None):
+        calls["phrase"].clear()
+        calls["span"].clear()
+        if body is None:
+            assert port_s.count(query) == jax_s.count(query)
+        else:
+            check((jax_s, port_s), body)
+        assert len(calls["phrase"]) == n_phrase, (body, calls)
+        assert len(calls["span"]) == n_span, (body, calls)
+        assert all(n % 3 == 0 and n >= 3 for n in calls["phrase"]
+                   + calls["span"]), calls
