@@ -319,15 +319,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
    each kind byte-equal to the CPU searcher; 20 phrase bodies on phase
    7's 8 int8 segments equal to the f32 layout's.  Phase 9 also sends
    its ``corpus`` 10 phrase requests over HTTP (6 ``match_phrase``
-   bodies, 2 quoted and 2 bare URI ``q``), held to the CPU searcher.
+   bodies, 2 quoted and 2 bare URI ``q``), held to the CPU searcher;
+15. the search request's result features, on phase 4's 16 f32 segments
+   (``price``, ``ts``, ``fare`` and ``tag``, whose dictionary differs
+   from segment to segment; ordered on the card by
+   ``search/sorting.py``): 20 ``match_all`` sorted by ``ts`` desc (pages
+   by ``from``), 20 ``match`` pairs sorted by [``fare`` asc,
+   ``_score``], 20 ``bool`` of a ``match`` pair and a ``price`` range
+   sorted by [``tag`` asc, ``price`` desc], 10 ``match`` pairs collapsed
+   on ``tag``, 10 rescored by a ``match_phrase`` over a window of 100,
+   10 with ``highlight``, ``explain`` and ``docvalue_fields``: p50 host
+   ms and the bytes read back a request by kind (under 1 MB for a
+   sorted page, checked), three ``search_after`` pages equal to one deep
+   page, 2 of each kind and the pages byte-equal to the CPU searcher
+   over the same segments (its ms beside), and the host split of two
+   sorted requests (compile, ``run_full``, key build, sorts, read-back,
+   fetch).  Phase 9 also feeds an index ``corpus_b`` and sends 7 sorted,
+   collapsed, rescored and fetched requests over HTTP, two of them
+   across ``corpus,corpus_b``, held to the CPU searchers.
 
 Every kernel wrapper counts its launches; the counts are zeroed just
 before phase 3 and read after phase 4, and zeroed again just before
 phases 5, 6, 7, 8, 9, phase 10's hybrids and phase 11's requests over
 HTTP, phase 10, phase 11, phase 12's requests over HTTP, phase 12, phase
 9's ANN requests and phase 13 and read after each; K8 / K9's before
-phase 9's phrase requests and each kind of phase 14: each kernel of each
-path must have run.
+phase 9's phrase requests and each kind of phase 14; all of them before
+phase 9's sorted requests and before phase 15 (whose dense entry, K2
+top-k and K8 launches must be more than 0): each kernel of each path
+must have run.
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the
 script exits non-zero and prints no result.
@@ -5691,13 +5710,355 @@ def phase_phrase(segs, mapper, searcher, qsearcher) -> dict:
             "requests": n_bodies, "wall_s": time.monotonic() - t_phase}
 
 
+# -- phase 15 ----------------------------------------------------------------
+
+SORT_KINDS = {"ts_desc": 20, "fare_score": 20, "tag_price": 20,
+              "collapse_tag": 10, "rescore_phrase": 10, "fetch": 10}
+SORT_PAGES = 3                   # search_after pages held to one deep page
+SORT_PAGE = 10
+SORT_CHECK = 2                   # of each kind, held to the CPU searcher
+SORT_SPLIT_REPS = 10             # the host split's repetitions a body
+HTTP_SORT_DOCS = 2_000           # docs of phase 9's second index
+SORT_PAGE_FIELDS = [{"ts": "desc"}, {"fare": "asc"}, {"price": "asc"}]
+
+
+def phase15_bodies() -> dict:
+    """Phase 15's requests by kind (``SORT_KINDS``), seeded: a
+    ``match_all`` sorted by ``ts`` desc (pages of 10 at ``from`` 0, 10,
+    ...: the newest logs); a ``match`` pair sorted by [``fare`` asc,
+    ``_score``]; a ``bool`` of a ``match`` pair and a ``price`` range
+    sorted by [``tag`` asc, ``price`` desc]; a ``match`` pair collapsed
+    on ``tag``; a ``match`` pair rescored by a ``match_phrase`` of a
+    corpus run over a window of 100; a ``match`` pair with
+    ``highlight``, ``explain`` and ``docvalue_fields``."""
+    from opensearch_tpu_torch.testing import corpus
+
+    rng = np.random.default_rng(150)
+    pairs = corpus.zipf_query_log(sum(SORT_KINDS.values()), seed=151)
+    runs = corpus.phrase_query_log(SORT_KINDS["rescore_phrase"], seed=152,
+                                   n_docs=SCALE_DOCS, lengths=(2, 3))
+    width = int(corpus.PRICE_MAX * 0.4)
+    it = iter(pairs)
+
+    def match():
+        a, b = next(it)
+        return {"match": {"body": f"t{a} t{b}"}}
+
+    def body(query, **extra):
+        return {"query": query, "size": 10, "_source": False, **extra}
+
+    out = {"ts_desc": [body({"match_all": {}}, sort=[{"ts": "desc"}],
+                            **{"from": 10 * i})
+                       for i in range(SORT_KINDS["ts_desc"])],
+           "fare_score": [body(match(), sort=[{"fare": "asc"}, "_score"])
+                          for _ in range(SORT_KINDS["fare_score"])],
+           "tag_price": [], "collapse_tag": [], "rescore_phrase": [],
+           "fetch": []}
+    for _ in range(SORT_KINDS["tag_price"]):
+        lo = int(rng.integers(0, corpus.PRICE_MAX - width))
+        out["tag_price"].append(body(
+            {"bool": {"must": [match()], "filter": [{"range": {"price": {
+                "gte": lo, "lt": lo + width}}}]}},
+            sort=[{"tag": "asc"}, {"price": "desc"}]))
+    out["collapse_tag"] = [body(match(), collapse={"field": "tag"})
+                           for _ in range(SORT_KINDS["collapse_tag"])]
+    out["rescore_phrase"] = [body(match(), rescore={
+        "window_size": 100, "query": {
+            "rescore_query": {"match_phrase": {
+                "body": " ".join(f"t{t}" for t in run)}},
+            "query_weight": 0.5, "rescore_query_weight": 2.0}})
+        for run in runs]
+    out["fetch"] = [body(match(), highlight={"fields": {"body": {}}},
+                         explain=True,
+                         docvalue_fields=["price", "ts", "tag",
+                                          {"field": "fare"}])
+                    for _ in range(SORT_KINDS["fetch"])]
+    return out
+
+
+def sort_split(searcher, body) -> dict:
+    """Median host ms of one field-sorted request by part over
+    SORT_SPLIT_REPS runs, the card synchronized after each part:
+    compile (the plan cache), ``run_full`` (the plan over every
+    segment), the key build (the matched rows and each clause's keys),
+    the sorts (the stable chain), the read-back of the page and the
+    fetch."""
+    import torch
+
+    from opensearch_tpu_torch.search import sorting
+
+    specs = sorting.parse_sort(body["sort"])
+    parts = {k: [] for k in ("compile", "run_full", "keys", "sorts",
+                             "read_back", "fetch")}
+    needs_scores = any(s["field"] == "_score" for s in specs)
+    for _ in range(SORT_SPLIT_REPS):
+        t = time.monotonic()
+        (plan, bind), ckey = searcher.compiled(body.get("query"),
+                                               scored=needs_scores,
+                                               with_key=True)
+        marks = [time.monotonic()]
+        views = list(searcher._run_full(plan, bind, plan.arrays(), None,
+                                        ckey=ckey))
+        torch.cuda.synchronize()
+        marks.append(time.monotonic())
+        keys = sorting.row_keys(searcher, views,
+                                sorting.matched_rows(searcher, views), specs)
+        torch.cuda.synchronize()
+        marks.append(time.monotonic())
+        ordered = sorting.order_keys(searcher, keys)
+        torch.cuda.synchronize()
+        marks.append(time.monotonic())
+        rows, _ = ordered.take(body.get("from", 0) + body["size"])
+        marks.append(time.monotonic())
+        searcher._hits_from_rows(rows, False)
+        marks.append(time.monotonic())
+        for name, a, b in zip(parts, [t] + marks[:-1], marks):
+            parts[name].append((b - a) * 1e3)
+    return {name: float(np.median(v)) for name, v in parts.items()}
+
+
+def sort_device_share(searcher, body, reps: int = 5,
+                      attempts: int = 3) -> dict:
+    """Device ms a request of ``body`` under ``torch.profiler`` over
+    ``reps`` requests, the part in sort kernels (``torch.sort``'s and
+    ``torch.unique``'s radix sorts: names holding "sort" or "radix"),
+    the device's idle share of the requests' wall time and the largest
+    device entry; the first of ``attempts`` windows that shows device
+    events counts (None values when none does)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from opensearch_tpu_torch.testing.profile_scale import (_device_self_us,
+                                                            _is_device)
+    searcher.search(body)
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.monotonic()
+            for _ in range(reps):
+                searcher.search(body)
+            torch.cuda.synchronize()
+            wall = (time.monotonic() - t) * 1e3 / reps
+        events = [e for e in prof.key_averages() if _is_device(e)]
+        total = sum(_device_self_us(e) for e in events) / 1e3 / reps
+        if total <= 0:
+            continue
+        sorts = sum(_device_self_us(e) for e in events
+                    if "sort" in e.key.lower() or "radix" in e.key.lower())
+        top = max(events, key=_device_self_us)
+        return {"device_ms": total, "sort_ms": sorts / 1e3 / reps,
+                "sort_share": sorts / 1e3 / reps / total,
+                "idle_share": max(0.0, 1 - total / wall),
+                "top": top.key[:80],
+                "top_ms": _device_self_us(top) / 1e3 / reps}
+    return {"device_ms": None, "sort_ms": None, "sort_share": None,
+            "idle_share": None, "top": None, "top_ms": None}
+
+
+def phase_sort(segs, mapper, searcher, counters) -> dict:
+    """Phase 15: the search request's result features at full width, on
+    phase 4's 16 f32 segments (``price``, ``ts``, ``fare``, ``tag``: a
+    dictionary of its own per segment).  Every body of ``phase15_bodies``
+    once, kind after kind, the kernels' counts zeroed just before the
+    first and read after the last (the match leaves' dense entry, K2's
+    top-k under a rescore, K8 in the rescore's phrase); p50 host ms and
+    the bytes read back a request by kind
+    (``ShardSearcher.read_back_bytes``: a
+    ``match_all`` sorted by ``ts`` must read back under 1 MB, where the
+    scores and mask of every segment are the bytes printed beside it);
+    SORT_PAGES ``search_after`` pages of a ``match_all`` sorted by
+    ``SORT_PAGE_FIELDS`` equal to one deep page; the first SORT_CHECK of
+    each kind and the pages byte-equal to the CPU searcher over the same
+    segments (its ms beside); the host split of two sorted bodies
+    (``sort_split``); the device ms a request of each kind and its part
+    in sort kernels (``sort_device_share``)."""
+    from opensearch_tpu_torch.search import sorting
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+
+    t_phase = time.monotonic()
+    bodies = phase15_bodies()
+    for b in (bodies["ts_desc"][0], bodies["fare_score"][0],
+              bodies["tag_price"][0]):
+        searcher.search(b)                 # warm: the key columns, ranks
+    for fn in counters.values():           # this path starts here
+        fn.launches = 0
+    kinds, out = {}, {}
+    for kind, items in bodies.items():
+        lat, nbytes, resps = [], [], []
+        for b in items:
+            searcher.read_back_bytes = 0
+            t = time.monotonic()
+            resps.append(searcher.search(b))
+            lat.append((time.monotonic() - t) * 1e3)
+            nbytes.append(searcher.read_back_bytes)
+        for r in resps:
+            hits = r["hits"]["hits"]
+            if not hits or len(hits) > 10:
+                raise AssertionError(f"phase 15 {kind}: {len(hits)} hits")
+        out[kind] = resps
+        kinds[kind] = {"n": len(items),
+                       "p50_ms": float(np.percentile(lat, 50)),
+                       "p99_ms": float(np.percentile(lat, 99)),
+                       "read_back_bytes_p50": float(np.median(nbytes)),
+                       "read_back_bytes_max": int(max(nbytes))}
+    launches = {n: c.launches for n, c in counters.items()}
+    for name in ("term_bag_scores", "term_bag_topk", "phrase_freqs"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 15: {name} never launched: "
+                                 f"{launches}")
+    full = sum(seg.device(searcher.device).n_pad * 5 for seg in segs)
+    if kinds["ts_desc"]["read_back_bytes_max"] >= 1 << 20:
+        raise AssertionError(f"phase 15: a sorted page read back "
+                             f"{kinds['ts_desc']['read_back_bytes_max']} "
+                             "bytes")
+    for r in out["collapse_tag"]:
+        tags = [h["fields"]["tag"][0] for h in r["hits"]["hits"]]
+        if len(set(tags)) != len(tags):
+            raise AssertionError("phase 15: collapse kept a tag twice")
+    # search_after pages against one deep page
+    deep = searcher.search({"sort": SORT_PAGE_FIELDS, "_source": False,
+                            "size": SORT_PAGES * SORT_PAGE})
+    pages, after = [], None
+    page_bodies = []
+    for _ in range(SORT_PAGES):
+        b = {"sort": SORT_PAGE_FIELDS, "size": SORT_PAGE, "_source": False}
+        if after is not None:
+            b["search_after"] = after
+        page_bodies.append(b)
+        hits = searcher.search(b)["hits"]["hits"]
+        pages += hits
+        after = hits[-1]["sort"]
+    if [(h["_id"], h["sort"]) for h in pages] != \
+            [(h["_id"], h["sort"]) for h in deep["hits"]["hits"]]:
+        raise AssertionError("phase 15: search_after pages differ from "
+                             "the deep page")
+    # the split, the device's share by kind, then the CPU searcher over
+    # the same segments
+    split = {"ts_desc": sort_split(searcher, bodies["ts_desc"][0]),
+             "fare_score": sort_split(searcher, bodies["fare_score"][0])}
+    device = {kind: sort_device_share(searcher, bodies[kind][1])
+              for kind in bodies}
+    t0 = time.monotonic()
+    cpu = ShardSearcher(segs, mapper, index_name="scale", device="cpu")
+    cpu_ms, checked = {}, 0
+    for kind, items in bodies.items():
+        lat = []
+        for b, got in zip(items[:SORT_CHECK], out[kind]):
+            t = time.monotonic()
+            want = cpu.search(b)
+            lat.append((time.monotonic() - t) * 1e3)
+            if strip_took(got) != strip_took(want):
+                raise AssertionError(f"phase 15 {kind} vs cpu: "
+                                     f"{json.dumps(b)[:200]}")
+            checked += 1
+        cpu_ms[kind] = float(np.median(lat))
+    for b in page_bodies + [{"sort": SORT_PAGE_FIELDS, "_source": False,
+                             "size": SORT_PAGES * SORT_PAGE}]:
+        if strip_took(searcher.search(b)) != strip_took(cpu.search(b)):
+            raise AssertionError(f"phase 15 pages vs cpu: {json.dumps(b)}")
+        checked += 1
+    cpu_s = time.monotonic() - t0
+    del cpu
+    gpu = gpu_name_power()
+    for kind, k in kinds.items():
+        log(f"sort {kind}: {k['n']} requests, p50 {k['p50_ms']:.3f} ms, "
+            f"p99 {k['p99_ms']:.3f} ms, read back "
+            f"{k['read_back_bytes_p50']:.0f} "
+            f"bytes a request (max {k['read_back_bytes_max']}), CPU "
+            f"searcher {cpu_ms[kind]:.3f} ms, on {gpu}")
+    for name, parts in split.items():
+        log(f"sort split {name}: " + ", ".join(
+            f"{p} {ms:.3f}" for p, ms in parts.items()) + f" ms, on {gpu}")
+    for kind, d in device.items():
+        log(f"sort device {kind}: {json.dumps(d)}, on {gpu}")
+    log(f"sort checks: {checked} answers byte-equal to the CPU searcher "
+        f"({cpu_s:.1f}s), {SORT_PAGES} search_after pages equal to one "
+        f"deep page; every segment's scores and mask would be {full} "
+        f"bytes; launches {launches}")
+    return {"kinds": kinds, "split": split, "device": device,
+            "cpu_ms": cpu_ms,
+            "checked": checked, "launches": launches,
+            "full_read_back_bytes": full,
+            "wall_s": time.monotonic() - t_phase}
+
+
+def phase_http_sort(node, state, counters) -> dict:
+    """Over HTTP on phase 9's node before it stops: an index
+    ``corpus_b`` (1 shard, phase 8's mapping) fed HTTP_SORT_DOCS rendered
+    docs by ``_bulk``, then sorted, collapsed, rescored and fetched
+    ``_search`` requests to ``corpus`` and across ``corpus,corpus_b``,
+    their counts zeroed just before and read just after (a match leaf's
+    dense entry or K2's top-k ran), each answer's hits equal to the
+    CPU searchers' (the two-index ones merged by the node's own
+    coordinator merge)."""
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing import corpus
+
+    client = HttpClient(node.port)
+    client.ok("PUT", "/corpus_b", {"settings": {"number_of_shards": 1},
+                                   "mappings": WRITE_MAPPING})
+    texts = corpus.render_texts(HTTP_SORT_DOCS, seed=153)
+    lines = []
+    for i, text in enumerate(texts):
+        lines += [{"index": {"_index": "corpus_b", "_id": f"b{i}"}},
+                  {"body": text, "tag": WRITE_TAGS[i % len(WRITE_TAGS)]}]
+    client.ok("POST", "/_bulk?refresh=true", ndjson=lines)
+    m = {"match": {"body": "t1 t7"}}
+    requests = [
+        ("corpus", {"sort": [{"tag": "asc"}, "_doc"], "size": 10}),
+        ("corpus,corpus_b", {"sort": [{"tag": "desc"}, "_doc"],
+                             "from": 5, "size": 20}),
+        ("corpus,corpus_b", {"query": m, "sort": [{"tag": "asc"},
+                                                  "_score"]}),
+        ("corpus_b", {"sort": [{"tag": "asc"}, "_doc"],
+                      "search_after": ["green", 100]}),
+        ("corpus", {"query": m, "collapse": {"field": "tag"}}),
+        ("corpus", {"query": m, "highlight": {"fields": {"body": {}}},
+                    "explain": True, "docvalue_fields": ["tag"],
+                    "size": 3}),
+        ("corpus", {"query": m, "rescore": {"window_size": 50, "query": {
+            "rescore_query": {"match_phrase": {"body": "t1 t7"}}}}}),
+    ]
+    for fn in counters.values():                # this path starts here
+        fn.launches = 0
+    qps, p50, outs = timed_calls(
+        lambda r: client.ok("POST", f"/{r[0]}/_search", r[1]), requests)
+    launches = {n: c.launches for n, c in counters.items()}
+    if launches["term_bag_scores"] + launches["term_bag_topk"] <= 0:
+        raise AssertionError(f"phase 9 sorts over HTTP: launches "
+                             f"{launches}")
+    cpus = {name: ShardSearcher(node.indices.get(name).searcher().segments,
+                                node.indices.get(name).mapper,
+                                index_name=name, device="cpu")
+            for name in ("corpus", "corpus_b")}
+    for (names, body), resp in zip(requests, outs):
+        targets = names.split(",")
+        if len(targets) == 1:
+            want = cpus[names].search(body)
+        else:
+            size = body.get("size", 10)
+            from_ = body.get("from", 0)
+            sub = {**body, "from": 0, "size": from_ + size}
+            want = node.rest._merge_responses(
+                [cpus[t].search(sub) for t in targets], body, from_, size)
+        want = json.loads(json.dumps(want))
+        if resp["hits"] != want["hits"] or not resp["hits"]["hits"]:
+            raise AssertionError(f"phase 9: /{names}/_search "
+                                 f"{json.dumps(body)} over HTTP differs "
+                                 "from the CPU searcher")
+    client.close()
+    return {"qps": qps, "p50_ms": p50, "requests": len(requests),
+            "launches": launches}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from opensearch_tpu_torch.ops import cuda_bm25, cuda_knn, cuda_plan
+    from opensearch_tpu_torch.ops import (cuda_bm25, cuda_knn, cuda_plan,
+                                          cuda_positions)
     from opensearch_tpu_torch.testing.corpus import zipf_query_log
 
     t_start = time.monotonic()
@@ -5766,7 +6127,8 @@ def main() -> int:
         "aggs": phase_http_aggs(node, state, every),
         "script": phase_http_script(node, state, every),
         "ann": phase_http_ann(node, state, every),
-        "phrase": phase_http_phrase(node, state, every)})
+        "phrase": phase_http_phrase(node, state, every),
+        "sort": phase_http_sort(node, state, every)})
     then = serving.pop("then")
     filters = phase_filters_hybrid(segs, mapper, searcher, qsegs, qsearcher,
                                    every, http=then["hybrid"])
@@ -5792,6 +6154,15 @@ def main() -> int:
     phrase = phase_phrase(segs, mapper, searcher, qsearcher)
     for name, n in phrase["launches"].items():
         launches[name] = n + then["phrase"]["launches"].get(name, 0)
+    # the result features, their counts zeroed just before them
+    sort = phase_sort(segs, mapper, searcher,
+                      {**every, "phrase_freqs":
+                       cuda_positions.phrase_scores_cuda})
+    for phase in (sort, then["sort"]):
+        for name, n in phase["launches"].items():
+            name = "term_bag_quantized" \
+                if name == "term_bag_quantized_topk" else name
+            launches[name] = launches.get(name, 0) + n
     for name in ("ivf_search", "ivfpq_search"):
         kern[name] = dict(ann["kernels"][name])
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"],
@@ -5846,6 +6217,7 @@ def main() -> int:
                     "ann_over_http": then["ann"],
                     "ivf_kernels": ann["kernels"],
                     "phrase": phrase, "phrase_over_http": then["phrase"],
+                    "sort": sort, "sort_over_http": then["sort"],
                     "k8_k9": {n: kern[n] for n in ("phrase_freqs",
                                                    "span_near")},
                     "k1_scores_16": kern["knn_scores_16"],

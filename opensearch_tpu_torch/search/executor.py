@@ -1,7 +1,10 @@
 """Shard-side query phase: run a compiled plan over every segment, merge
-top-k across segments, fetch sources (the port of the JAX package's
-``search/executor.py``, cut to ``query``, ``size``, ``from``,
-``min_score``, ``_source`` and ``track_total_hits``).
+top-k across segments, order, collapse and rescore the rows, fetch the
+page (the port of the JAX package's ``search/executor.py``: ``query``,
+``size``, ``from``, ``min_score``, ``_source``, ``track_total_hits``,
+``timeout``, ``aggs``, ``sort``, ``search_after``, ``collapse``,
+``rescore``, ``highlight``, ``explain``, ``docvalue_fields``,
+``fields`` and ``stored_fields``).
 
 A scored ``match`` / ``term`` (a ``TermBagPlan`` at the root) takes every
 segment's top-k, total and max from one call (``ops/bm25.py``
@@ -46,10 +49,17 @@ feeds both its hits (``_topk_from_views``) and the aggregations
 partials instead (``aggregation_partials``), which a coordinator
 reduces with ``reduce_aggs``.
 
-Not ported yet (ROADMAP): sort, collapse, rescore,
-search_after, highlight / explain / fields, profile, suggest, and the
-telemetry / insights / task / device-health hooks.  Requests that use
-them raise ``NotYetPortedError``.
+A field ``sort`` (with ``search_after``), ``collapse`` and the score
+order of a collapse are computed over every matched row on the
+searcher's device (``search/sorting.py``), and only the page is read
+back.  ``rescore`` runs its query over the segments that hold the
+window's rows, gathers its scores at those rows on the device and
+combines them on the host in float64, as the reference does.  The fetch
+options run per hit of the page on the host (``search/fetch.py``).
+
+Not ported yet (ROADMAP): profile, suggest, scroll and point in time,
+and the telemetry / insights / task / device-health hooks.  Requests
+that use them raise ``NotYetPortedError``.
 
 The searcher's caches are ``BoundedCache``s: the engine's threadpool and
 the continuous batcher call ``search`` from many threads at once.
@@ -57,6 +67,7 @@ the continuous batcher call ``search`` from many threads at once.
 
 from __future__ import annotations
 
+import functools
 import json
 import time
 from typing import Optional
@@ -74,23 +85,31 @@ from opensearch_tpu_torch.ops import bm25 as bm25_ops
 from opensearch_tpu_torch.ops.cuda_bm25 import K_MAX as TOPK_K_MAX
 from opensearch_tpu_torch.ops.phrase import stage_positions
 from opensearch_tpu_torch.search import plan as P
+from opensearch_tpu_torch.search import sorting
 from opensearch_tpu_torch.search.compiler import ShardContext, compile_query
 from opensearch_tpu_torch.search.fetch import filter_source
 from opensearch_tpu_torch.search.query_dsl import HybridQuery, parse_query
 
 _I32 = np.int32
 
+# the served keys that shape a response beyond a plain top-k: a body
+# with one of them takes the sequential path (``search/batch.py``
+# ``batchable``)
+RESULT_KEYS = ("sort", "search_after", "rescore", "collapse", "highlight",
+               "explain", "docvalue_fields", "fields", "stored_fields")
 # request-body keys this port serves; any other key raises rather than
 # being ignored
 _SUPPORTED_BODY_KEYS = frozenset({"query", "size", "from", "min_score",
                                   "_source", "track_total_hits", "timeout",
                                   "_hybrid_pipeline", "aggs",
-                                  "aggregations"})
-# bounds of the searcher's plan, prepared-bindings and batch caches
-# (entries)
+                                  "aggregations", *RESULT_KEYS})
+# bounds of the searcher's plan, prepared-bindings, batch and sort caches
+# (entries; a sort cache entry is a key column of every doc, 8 bytes a
+# doc, or a keyword's rank tables)
 _PLAN_CACHE_MAX = 256
 _PREP_CACHE_MAX = 1024
 _BATCH_PREP_CACHE_MAX = 64
+_SORT_CACHE_MAX = 32
 
 
 def shards_section(total: int) -> dict:
@@ -106,12 +125,22 @@ def merge_hit_rows(rows, sort_json=None) -> list:
 
     ``rows``: ``(hit, source_ordinal, position)`` tuples, each source's
     hits already in rank order and ``position`` a hit's rank within its
-    source.  Merges by (score desc, source, position).  A ``sort`` clause
-    raises ``NotYetPortedError``, as it does on the shard."""
-    if sort_json is not None:
-        raise NotYetPortedError(
-            "sort is not ported to the torch package yet")
-    rows = sorted(rows, key=lambda t: (-(t[0]["_score"] or 0.0), t[1], t[2]))
+    source.  Without a sort clause (or with ``_score`` desc alone) merges
+    by (score desc, source, position); with one, by the hits' ``sort``
+    values through the reference's comparator
+    (``search/sorting.py`` ``sort_comparator``), (source, position)
+    breaking ties.  Returns the hits in merged order."""
+    specs = sorting.parse_sort(sort_json)
+    if specs is None:
+        rows = sorted(rows, key=lambda t: (-(t[0]["_score"] or 0.0),
+                                           t[1], t[2]))
+    else:
+        cmp = sorting.sort_comparator(specs)
+        rows = sorted(rows, key=functools.cmp_to_key(
+            lambda a, b: cmp({"sort": a[0].get("sort", []),
+                              "seg": a[1], "local": a[2]},
+                             {"sort": b[0].get("sort", []),
+                              "seg": b[1], "local": b[2]})))
     return [h for h, _s, _p in rows]
 
 
@@ -272,6 +301,13 @@ class ShardSearcher:
         # msearch / continuous-batch group inputs, keyed by the group's
         # signature (``search/batch.py`` ``BatchGroup._prepare``)
         self._batch_prep_cache = BoundedCache(_BATCH_PREP_CACHE_MAX)
+        # sort and collapse key columns, keyword ranks, segment starts
+        # (``search/sorting.py``)
+        self._sort_cache = BoundedCache(_SORT_CACHE_MAX)
+        # bytes the sorted, collapsed and rescored paths read back to the
+        # host (``search/sorting.py``), and the plan top-k's copies: a
+        # measure, which concurrent requests may race
+        self.read_back_bytes = 0
 
     # -- compiled-plan / prepared-bindings caches -------------------------
 
@@ -370,20 +406,62 @@ class ShardSearcher:
         body = body or {}
         t0 = time.monotonic()
         q_json = body.get("query")
+        fetch_extras = self._fetch_extras(body)
         if isinstance(q_json, dict) and "hybrid" in q_json:
             q = parse_query(q_json)
             if isinstance(q, HybridQuery):
-                return self._hybrid_search(body, q, t0)
+                return self._hybrid_search(body, q, t0, fetch_extras)
         _check_body_keys(body)
-        return self._search_body(body, t0, agg_partials)
+        return self._search_body(body, t0, agg_partials, fetch_extras)
+
+    @staticmethod
+    def _fetch_extras(body: dict) -> Optional[dict]:
+        """The fetch options of ``body`` (highlight, explain,
+        docvalue_fields, fields) with its parsed query, or None."""
+        if not (body.get("highlight") or body.get("explain")
+                or body.get("docvalue_fields") or body.get("fields")):
+            return None
+        return {"highlight": body.get("highlight"),
+                "explain": bool(body.get("explain")),
+                "docvalue_fields": body.get("docvalue_fields"),
+                "fields": body.get("fields"),
+                "query": parse_query(body.get("query"))}
 
     def _search_body(self, body: dict, t0: float,
-                     agg_partials: bool = False) -> dict:
+                     agg_partials: bool = False,
+                     fetch_extras: Optional[dict] = None) -> dict:
         size = int(body.get("size", 10))
         from_ = int(body.get("from", 0))
         deadline = SearchDeadline(body.get("timeout"), t0)
+        sort_specs = sorting.parse_sort(body.get("sort"))
         min_score = body.get("min_score")
-        (plan, bind), ckey = self.compiled(body.get("query"), scored=True,
+        source_spec = body.get("_source")
+        stored = body.get("stored_fields")
+        if stored is not None and source_spec is None:
+            # legacy stored_fields: _source returns only when asked for
+            # explicitly (RestSearchAction's stored-fields contract)
+            if isinstance(stored, str):
+                stored = [stored]
+            if "_source" not in stored:
+                source_spec = False
+        search_after = body.get("search_after")
+        if search_after is not None:
+            if sort_specs is None:
+                raise IllegalArgumentError(
+                    "[search_after] requires an explicit [sort]")
+            if not isinstance(search_after, (list, tuple)):
+                raise IllegalArgumentError(
+                    "[search_after] must be an array of sort values")
+            if len(search_after) != len(sort_specs):
+                raise IllegalArgumentError(
+                    f"[search_after] has {len(search_after)} values but "
+                    f"sort has {len(sort_specs)} fields")
+        # field-sorted queries that never reference _score skip scoring
+        needs_scores = (sort_specs is None
+                        or any(s["field"] == "_score" for s in sort_specs)
+                        or min_score is not None)
+        (plan, bind), ckey = self.compiled(body.get("query"),
+                                           scored=needs_scores,
                                            with_key=True)
         needed = plan.arrays()
         k_want = from_ + size
@@ -392,25 +470,51 @@ class ShardSearcher:
         # reference's track_total_hits=false contract: totals become a
         # lower bound, flagged with relation "gte")
         allow_kth_prune = body.get("track_total_hits") is False
+        rescore = body.get("rescore")
+        collapse = body.get("collapse")
+        if rescore and collapse:
+            raise IllegalArgumentError(
+                "cannot use [collapse] in conjunction with [rescore]")
+        if rescore is not None:
+            if sort_specs is not None:
+                raise IllegalArgumentError(
+                    "rescore is only supported on score-sorted queries")
+            # widen the first pass to the rescore window
+            spec = rescore[0] if isinstance(rescore, list) else rescore
+            k_want = max(k_want, int(spec.get("window_size", 10)))
         aggs_json = body.get("aggs") or body.get("aggregations")
+        # with aggs, the full-scores pass runs ONCE and feeds the hits,
+        # their order or collapse, and the aggregations
+        views = (list(self._run_full(plan, bind, needed, min_score,
+                                     deadline=deadline, ckey=ckey))
+                 if aggs_json and self.segments else None)
         total_is_lower_bound = False
-        views = None
         if not self.segments:
             rows, total, max_score = [], 0, None
-        elif aggs_json:
-            # with aggs, the full-scores pass runs ONCE and feeds both the
-            # top-k and the aggregations
-            views = list(self._run_full(plan, bind, needed, min_score,
-                                        deadline=deadline, ckey=ckey))
-            rows, total, max_score = self._topk_from_views(views, k_want)
+        elif collapse is not None:
+            rows, total, max_score = self._collapsed(
+                plan, bind, needed, k_want, sort_specs, min_score,
+                collapse, views, search_after=search_after, ckey=ckey)
+        elif sort_specs is None:
+            if views is not None:
+                rows, total, max_score = self._topk_from_views(views,
+                                                               k_want)
+            else:
+                rows, total, max_score, total_is_lower_bound = self._topk(
+                    plan, bind, needed, k_want, min_score,
+                    deadline=deadline, ckey=ckey,
+                    allow_kth_prune=allow_kth_prune)
         else:
-            rows, total, max_score, total_is_lower_bound = self._topk(
-                plan, bind, needed, k_want, min_score, deadline=deadline,
-                ckey=ckey, allow_kth_prune=allow_kth_prune)
+            rows, total, max_score = self._field_sorted(
+                plan, bind, needed, k_want, sort_specs, min_score, views,
+                search_after=search_after, deadline=deadline, ckey=ckey)
+        if rescore is not None and rows:
+            rows, max_score = self._rescored(rows, rescore)
         resp = self._response(rows[from_: from_ + size], total, max_score,
-                              body.get("_source"), t0,
+                              source_spec, t0,
                               lower_bound=total_is_lower_bound,
-                              timed_out=deadline.timed_out)
+                              timed_out=deadline.timed_out,
+                              fetch_extras=fetch_extras)
         if aggs_json:
             from opensearch_tpu_torch.search.aggs import AggregationExecutor
             execu = AggregationExecutor(
@@ -426,13 +530,14 @@ class ShardSearcher:
             resp["took"] = int((time.monotonic() - t0) * 1000)
         return resp
 
-    def _hybrid_search(self, body: dict, q, t0) -> dict:
+    def _hybrid_search(self, body: dict, q, t0, fetch_extras=None) -> dict:
         """Hybrid query: each sub-query runs as its own top-k (one K2 / K4
         launch for a ``match``, one K1 launch for a ``knn``); the
         normalization processor (``search/pipeline.py``) combines the
         per-sub-query top lists on the host.  ``_hybrid_pipeline`` in the
         body carries the processor config (wired by the REST layer from
-        ``?search_pipeline=...``); absent -> min_max + arithmetic_mean."""
+        ``?search_pipeline=...``); absent -> min_max + arithmetic_mean.
+        The fetch options apply to the combined page."""
         from opensearch_tpu_torch.search.pipeline import NormalizationConfig
 
         if (body.get("sort") is not None or body.get("aggs")
@@ -470,12 +575,13 @@ class ShardSearcher:
             "hits": {"total": {"value": max_total, "relation": "gte"},
                      "max_score": (combined[0]["score"] if combined
                                    else None),
-                     "hits": self._hits_from_rows(rows,
-                                                  body.get("_source"))},
+                     "hits": self._hits_from_rows(rows, body.get("_source"),
+                                                  fetch_extras)},
         }
 
     def _response(self, rows, total, max_score, source_spec, t0: float,
-                  lower_bound: bool = False, timed_out: bool = False) -> dict:
+                  lower_bound: bool = False, timed_out: bool = False,
+                  fetch_extras: Optional[dict] = None) -> dict:
         """A search response (``search``'s, ``msearch``'s and the
         continuous batcher's): the page's ``rows``, the matched total
         (a lower bound when ``lower_bound``), the largest score, whether
@@ -489,20 +595,53 @@ class ShardSearcher:
                 "total": {"value": int(total),
                           "relation": "gte" if lower_bound else "eq"},
                 "max_score": max_score,
-                "hits": self._hits_from_rows(rows, source_spec),
+                "hits": self._hits_from_rows(rows, source_spec,
+                                             fetch_extras),
             },
         }
 
-    def _hits_from_rows(self, rows, source_spec):
+    def _hits_from_rows(self, rows, source_spec, fetch_extras=None):
+        """The page's hits: id, score, filtered source, the rows' sort
+        values and collapse key, then the fetch options, per hit."""
+        from opensearch_tpu_torch.search.fetch import (docvalue_fields,
+                                                       explain_hit,
+                                                       fields_option,
+                                                       run_highlight)
+
         hits = []
         for row in rows:
             seg = self.segments[row["seg"]]
             local = row["local"]
             hit = {"_index": self.index_name, "_id": seg.doc_ids[local],
                    "_score": row.get("score")}
-            src = filter_source(seg.source(local), source_spec)
+            source = seg.source(local)
+            src = filter_source(source, source_spec)
             if src is not None:
                 hit["_source"] = src
+            if "sort" in row:
+                hit["sort"] = row["sort"]
+            if "fields" in row:            # the collapse key
+                hit["fields"] = dict(row["fields"])
+            if fetch_extras is not None:
+                if fetch_extras.get("highlight"):
+                    hl = run_highlight(fetch_extras["highlight"], source,
+                                       fetch_extras["query"], self.mapper)
+                    if hl:
+                        hit["highlight"] = hl
+                fields = {}
+                if fetch_extras.get("docvalue_fields"):
+                    fields.update(docvalue_fields(
+                        fetch_extras["docvalue_fields"], seg, local,
+                        self.mapper))
+                if fetch_extras.get("fields"):
+                    fields.update(fields_option(fetch_extras["fields"],
+                                                source))
+                if fields:
+                    hit["fields"] = fields
+                if fetch_extras.get("explain"):
+                    hit["_explanation"] = explain_hit(
+                        row.get("score"), fetch_extras["query"], seg,
+                        local, self.ctx)
             hits.append(hit)
         return hits
 
@@ -513,18 +652,22 @@ class ShardSearcher:
         return -np.inf if min_score is None else float(np.float32(min_score))
 
     def _run_full(self, plan, bind, needed, min_score,
-                  can_match_skip=False, deadline=None, ckey=None):
+                  can_match_skip=False, deadline=None, ckey=None,
+                  only=None):
         """Yields (seg, dseg, scores, matched) per segment.
-        ``can_match_skip`` is ONLY safe for consumers that don't index
+        ``can_match_skip`` and ``only`` (a set of segment indices: the
+        others are skipped) are ONLY safe for consumers that don't index
         the yielded tuples by position.  An expired ``deadline`` stops
         the scan at the next segment boundary.  The plan's term-bag leaves
         are launched once over every segment scanned before the first is
         evaluated."""
         ms = self._min_score(min_score)
         items = []
-        for seg in self.segments:
+        for si, seg in enumerate(self.segments):
             if deadline is not None and deadline.expired():
                 break
+            if only is not None and si not in only:
+                continue
             if can_match_skip and not plan.can_match(bind, seg):
                 continue
             items.append(self._evaluated(plan, bind, needed, seg, ckey))
@@ -562,6 +705,8 @@ class ShardSearcher:
         """(rows, total, max_score) of a ``TermBagTopK`` whose row ``j``
         is segment ``order[j]``'s, read back in one copy."""
         vals, ids, totals, maxes = out.numpy()
+        self.read_back_bytes += (vals.nbytes + ids.nbytes + totals.nbytes
+                                 + maxes.nbytes)
         per_seg = []
         for j, si in enumerate(order):
             keep = vals[j] > -np.inf
@@ -734,6 +879,173 @@ class ShardSearcher:
             return [], 0, None
         return self._rows_of(bm25_ops.term_bag_topk_segments_auto(
             inputs, k=k_want, min_score=ms), order, k_want)
+
+    # -- order, collapse, rescore ------------------------------------------
+
+    def _field_sorted(self, plan, bind, needed, k_want, sort_specs,
+                      min_score, views=None, slice_spec=None,
+                      search_after=None, deadline=None, ckey=None):
+        """(rows, total, None): every matched row ordered by the parsed
+        ``sort_specs`` on the device (``search/sorting.py``
+        ``field_order``), the rows at or before ``search_after`` dropped,
+        and the first ``k_want`` read back with their sort values.
+        ``k_want=None`` returns the whole ordering as
+        ``sorting.OrderedRows`` on the device (collapse, ``scan_rows``);
+        ``slice_spec`` keeps a slice's rows (``sorting.slice_filter``), and
+        ``total`` is then the slice's count."""
+        if views is None:
+            views = list(self._run_full(plan, bind, needed, min_score,
+                                        deadline=deadline, ckey=ckey))
+        flat = sorting.matched_rows(self, views, slice_spec)
+        probe = (None if search_after is None
+                 else self._coerce_search_after(search_after, sort_specs))
+        ordered = sorting.field_order(self, views, flat, sort_specs, probe)
+        if k_want is None:
+            return ordered, ordered.total, None
+        return ordered.take(k_want)[0], ordered.total, None
+
+    def _coerce_search_after(self, search_after, sort_specs) -> list:
+        """``search_after`` in the columns' space: a string for a numeric
+        or date field goes through the field's ``range_bound``."""
+        coerced = []
+        for v, spec in zip(search_after, sort_specs):
+            ft = (None if spec["field"] == "_score"
+                  else self.ctx.field_type(spec["field"]))
+            if ft is not None and isinstance(v, str) \
+                    and ft.dv_kind in ("long", "double"):
+                v = ft.range_bound(v)
+            coerced.append(v)
+        return coerced
+
+    def _rescored(self, rows, rescore):
+        """Query rescorer (search/rescore/QueryRescorer): re-rank the top
+        window by combining the original score with a rescore query's
+        score for those docs; tail rows keep their order.  The rescore
+        query runs over the segments that hold the window's rows; its
+        scores and mask are gathered at those rows on the device and
+        read back in one copy; the arithmetic is the reference's, in
+        float64 on the host."""
+        spec = rescore[0] if isinstance(rescore, list) else rescore
+        q = spec.get("query") or {}
+        window = int(spec.get("window_size", 10))
+        rq_json = q.get("rescore_query")
+        if rq_json is None:
+            raise IllegalArgumentError(
+                "[rescore] requires [query.rescore_query]")
+        qw = float(q.get("query_weight", 1.0))
+        rw = float(q.get("rescore_query_weight", 1.0))
+        mode = str(q.get("score_mode", "total"))
+        combine = {"total": lambda a, b: a + b,
+                   "multiply": lambda a, b: a * b,
+                   "avg": lambda a, b: (a + b) / 2.0,
+                   "max": max, "min": min}.get(mode)
+        (rplan, rbind), rckey = self.compiled(rq_json, scored=True,
+                                              with_key=True)
+        if combine is None:
+            raise IllegalArgumentError(
+                f"unknown rescore score_mode [{mode}]")
+        window_rows = rows[:window]
+        locals_of: dict = {}
+        for r in window_rows:
+            locals_of.setdefault(r["seg"], []).append(r["local"])
+        segs = sorted(locals_of)
+        col = {}                # each window row's column in the copy
+        for si in segs:
+            for local in locals_of[si]:
+                col[(si, local)] = len(col)
+        gathered = []
+        for si, (_seg, _dseg, scores, matched) in zip(segs, self._run_full(
+                rplan, rbind, rplan.arrays(), None, ckey=rckey,
+                only=set(segs))):
+            idx = torch.tensor(locals_of[si], dtype=torch.int64,
+                               device=self.device)
+            gathered.append(torch.stack([scores[idx],
+                                         matched[idx].to(torch.float32)]))
+        host = sorting.to_host(self, torch.cat(gathered, dim=1)) \
+            if gathered else None
+        out = []
+        for r in window_rows:
+            c = col[(r["seg"], r["local"])]
+            base = qw * (r.get("score") or 0.0)
+            if host[1, c]:
+                new = combine(base, rw * float(host[0, c]))
+            else:
+                new = base       # unmatched docs keep the weighted base
+            out.append({**r, "score": new})
+        out.sort(key=lambda r: (-r["score"], r["seg"], r["local"]))
+        out.extend(rows[window:])
+        return out, (out[0]["score"] if out else None)
+
+    def _collapsed(self, plan, bind, needed, k_want, sort_specs,
+                   min_score, collapse, views, search_after=None,
+                   ckey=None):
+        """Field collapsing (search/collapse/): one hit per distinct
+        value of the collapse field, the best-ranked in result order,
+        found on the device (``sorting.collapse``)."""
+        field = collapse.get("field") if isinstance(collapse, dict) \
+            else None
+        if not field:
+            raise IllegalArgumentError("[collapse] requires a [field]")
+        ft = self.ctx.field_type(field)
+        if ft is None or ft.dv_kind not in ("long", "double", "ordinal"):
+            raise IllegalArgumentError(
+                f"cannot collapse on [{field}]: keyword or numeric doc "
+                "values required")
+        if sort_specs is not None:
+            ordered, total, _ = self._field_sorted(
+                plan, bind, needed, None, sort_specs, min_score, views,
+                search_after=search_after, ckey=ckey)
+        elif views is not None:
+            # an aggs pass already ran the full query: rank from it
+            # instead of a second device execution
+            ordered, total = self._rows_from_views(views)
+        else:
+            ordered, total = self.scan_rows(
+                {"query": None, "min_score": min_score}, None,
+                _precompiled=(plan, bind, needed, ckey))
+        out = sorting.collapse(self, ordered, field, ft, k_want)
+        max_score = (out[0].get("score") if out and sort_specs is None
+                     else None)
+        return out, total, max_score
+
+    def _rows_from_views(self, views) -> tuple:
+        """(``sorting.OrderedRows``, total): every matched row of an
+        already-run full-scores pass in (score desc, seg, local) order,
+        on the device."""
+        ordered = sorting.score_order(self, views,
+                                      sorting.matched_rows(self, views))
+        return ordered, ordered.total
+
+    def scan_rows(self, body: Optional[dict] = None, slice_spec=None,
+                  _precompiled=None) -> tuple:
+        """(``sorting.OrderedRows``, total): EVERY matched row in result
+        order on the device — the body's field sort, else (score desc,
+        seg, local) — for a cursor over all of them (``take`` reads a
+        page back); ``slice_spec`` (``{"id": i, "max": n}``) keeps a
+        slice's rows, and ``total`` is then the slice's count."""
+        body = body or {}
+        sort_specs = sorting.parse_sort(body.get("sort"))
+        min_score = body.get("min_score")
+        if _precompiled is not None:
+            plan, bind, needed, ckey = _precompiled
+        else:
+            needs_scores = sort_specs is None or min_score is not None \
+                or any(s["field"] == "_score" for s in sort_specs)
+            (plan, bind), ckey = self.compiled(body.get("query"),
+                                               scored=needs_scores,
+                                               with_key=True)
+            needed = plan.arrays()
+        views = (list(self._run_full(plan, bind, needed, min_score,
+                                     ckey=ckey))
+                 if self.segments else [])
+        if sort_specs is not None:
+            ordered, total, _ = self._field_sorted(
+                plan, bind, needed, None, sort_specs, min_score, views,
+                slice_spec=slice_spec)
+            return ordered, total
+        ordered = sorting.score_order(
+            self, views, sorting.matched_rows(self, views, slice_spec))
+        return ordered, ordered.total
 
     @staticmethod
     def _harvest_kth(launched, k_want, kth):

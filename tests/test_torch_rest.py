@@ -16,10 +16,10 @@ a node draws for a document indexed without one.  The reference scores
 on its device path (``HOST_SCORING`` off, as ``tests/test_impacts.py``
 runs it), so BM25 scores compare byte for byte.
 
-``_search`` with ``aggs`` (on one index and across indices) and
-``_msearch`` bodies with ``aggs`` answer as the reference's.  Where the
-port does not serve a feature yet (a wildcard ``q``, ``sort``, the
-routes of unported handlers) it must answer 501 with
+``_search`` with ``aggs`` (on one index and across indices), with
+``sort``, and ``_msearch`` bodies with ``aggs`` answer as the
+reference's.  Where the port does not serve a feature yet (a wildcard
+``q``, the routes of unported handlers) it must answer 501 with
 ``not_yet_ported_exception``, while the reference answers; both nodes
 have the same (method, path) routes; a path with no route answers 400
 and a wrong method 405 on both.  The port's own HTTP edge: a missing
@@ -302,8 +302,9 @@ def test_search_params(nodes):
     assert both(nodes, "POST", "/srch/_search", {
         "query": {"match_all": {}},
         "aggs": {"g": {"terms": {"field": "genre"}}}})[0] == 200
-    not_ported(nodes, "POST", "/srch/_search", {
-        "query": {"match_all": {}}, "sort": [{"genre": "asc"}]})
+    # sort is served now too, as the reference serves it
+    assert both(nodes, "POST", "/srch/_search", {
+        "query": {"match_all": {}}, "sort": [{"genre": "asc"}]})[0] == 200
 
 
 def test_multi_index_search_and_count(nodes):

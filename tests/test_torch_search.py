@@ -298,26 +298,31 @@ def test_count_matches_reference(pair):
     {"query": {"range": {"tag": {"gte": "a"}}}},
     {"query": {"term": {"_id": "3"}}},
     {"query": {"hybrid": {"queries": [{"match_all": {}}]}}},
+    {"query": {"match_all": {}},
+     "suggest": {"s": {"text": "w1", "term": {"field": "body"}}}},
 ], ids=["aggs", "sort", "highlight", "profile", "fuzziness", "phrase",
-        "range", "ids", "hybrid"])
+        "range", "ids", "hybrid", "suggest"])
 def test_unported_features_raise_typed_error(body, monkeypatch):
-    """Features the port does not serve raise ``NotYetPortedError`` (501).
-    ``range``, ``term`` on ``_id``, ``hybrid``, ``aggs`` and
-    ``match_phrase`` are ported now: those cases answer as the JAX
-    package does, byte for byte."""
+    """Features the port does not serve raise ``NotYetPortedError`` (501):
+    ``profile``, ``suggest`` and ``fuzziness``.  ``range``, ``term`` on
+    ``_id``, ``hybrid``, ``aggs``, ``match_phrase``, ``sort`` and
+    ``highlight`` are ported now: those cases answer as the JAX package
+    does, byte for byte (hits, sort values and highlights included)."""
     mapper = DocumentMapper(MAPPING)
     docs = json_docs(3, sum(SEG_SIZES))
     segs = build(SegmentWriter(), mapper, docs)
     searcher = ShardSearcher(segs, mapper, device="cpu")
     q = body["query"]
     if "range" in q or "hybrid" in q or q.get("term", {}).get("_id") \
-            or "aggs" in body or "match_phrase" in q:
+            or "aggs" in body or "match_phrase" in q or "sort" in body \
+            or "highlight" in body:
         monkeypatch.setattr(jax_bm25, "HOST_SCORING", False)
         ref = JaxSearcher(build(JaxWriter(), JaxMapper(MAPPING), docs),
                           JaxMapper(MAPPING)).search(body)
         got = searcher.search(body)
         assert ref["hits"]["hits"], body
         assert bm25_mismatch(got, ref) is None, bm25_mismatch(got, ref)
+        assert got["hits"] == ref["hits"]
         assert got.get("aggregations") == ref.get("aggregations")
         return
     with pytest.raises(NotYetPortedError) as exc:
