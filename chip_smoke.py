@@ -336,7 +336,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    sorted requests (compile, ``run_full``, key build, sorts, read-back,
    fetch).  Phase 9 also feeds an index ``corpus_b`` and sends 7 sorted,
    collapsed, rescored and fetched requests over HTTP, two of them
-   across ``corpus,corpus_b``, held to the CPU searchers.
+   across ``corpus,corpus_b``, held to the CPU searchers;
+16. the relevance-shaping, multi-term and geo queries, on phase 4's 16
+   f32 segments with a ``pickup`` geo_point (the nyc_taxis workload's
+   pickup box, clustered around Midtown) and a ``min_terms`` long
+   (``testing/corpus.py`` ``relevance_columns``): 10 requests of each of
+   22 kinds (``phase16_bodies``: ``wildcard`` ``t12*``-like, ``t1*``-like
+   and case-insensitive, ``regexp``, ``fuzzy`` at distances 1 and 2,
+   ``match`` and ``match_bool_prefix`` with ``fuzziness``, ``boosting``,
+   ``terms_set``, ``distance_feature`` on ``ts`` and ``pickup``,
+   ``rank_feature`` on ``fare``, ``more_like_this``, ``geo_distance`` at
+   2 and 20 km, ``geo_bounding_box``, an 8-vertex ``geo_polygon``,
+   ``exists`` on ``pickup``, and ``function_score`` in three forms, one
+   with a ``script_score`` function that launches K1's scores entry):
+   p50 host ms and the launches a request by route and kind (K1 scores,
+   the dense entry, the plan top-k), the dictionary expansion of
+   ``t12*`` and ``t1*`` timed apart, device ms, kernels and idle share a
+   request under the profiler, one of each kind held to the CPU
+   searcher (byte for byte; 2 float32 ulps on the kinds whose scores go
+   through transcendental functions).  Phase 9 also sends ``corpus``
+   five such bodies and ``?q=body:t12*`` over HTTP, held to the CPU
+   searcher.
 
 Every kernel wrapper counts its launches; the counts are zeroed just
 before phase 3 and read after phase 4, and zeroed again just before
@@ -345,8 +365,10 @@ HTTP, phase 10, phase 11, phase 12's requests over HTTP, phase 12, phase
 9's ANN requests and phase 13 and read after each; K8 / K9's before
 phase 9's phrase requests and each kind of phase 14; all of them before
 phase 9's sorted requests and before phase 15 (whose dense entry, K2
-top-k and K8 launches must be more than 0): each kernel of each path
-must have run.
+top-k and K8 launches must be more than 0), and before phase 9's
+relevance requests and phase 16 (whose K1 scores, dense entry and plan
+top-k launches must be more than 0): each kernel of each path must have
+run.
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the
 script exits non-zero and prints no result.
@@ -1778,12 +1800,14 @@ def build_scale():
     t0 = time.monotonic()
     raw = corpus.build_raw_corpus(SCALE_DOCS, seed=42)
     vecs = corpus.random_vectors(SCALE_DOCS, DIM, seed=43)
-    segs = corpus.make_segments(raw, SCALE_SEGMENTS, vectors=vecs,
-                                columns=scale_columns())
+    segs = corpus.make_segments(
+        raw, SCALE_SEGMENTS, vectors=vecs,
+        columns={**scale_columns(), **corpus.relevance_columns(SCALE_DOCS)})
     mapper = DocumentMapper({"properties": {
         "body": {"type": "text"},
         "vec": {"type": "knn_vector", "dimension": DIM,
-                "space_type": "l2"}, **corpus.COLUMNS_MAPPING}})
+                "space_type": "l2"}, **corpus.COLUMNS_MAPPING,
+        **corpus.RELEVANCE_MAPPING}})
     searcher = ShardSearcher(segs, mapper, index_name="scale",
                              device=DEVICE)
     # stage every segment and its impact column before any timing
@@ -6051,6 +6075,460 @@ def phase_http_sort(node, state, counters) -> dict:
             "launches": launches}
 
 
+# -- phase 16 ----------------------------------------------------------------
+
+REL_PER_KIND = 10                # requests of each kind of phase 16
+REL_CHECK = 1                    # of each kind, held to the CPU searcher
+REL_CHECK_ULP = 5                # of each REL_ULP_KINDS kind
+REL_PROFILE = 3                  # requests of a kind under the profiler
+# kinds whose scores go through float64 (or float32 script) transcendental
+# functions: the card's and the CPU's libm may round them apart in the
+# last bit, so an answer that is not byte-equal holds to 2 float32 ulps
+# (and rtol REL_ULP_RTOL), ids equal but for neighbours within that, and
+# each score that differs is printed with its doc and ulp distance
+REL_ULP_KINDS = ("distance_feature_geo", "rank_feature", "fs_sum",
+                 "fs_geo", "fs_random_script")
+REL_ULP_RTOL = 2.4e-7
+MIDTOWN = (40.758, -73.9855)
+LOWER_MANHATTAN = (40.76, -74.02, 40.70, -73.97)    # top, left, bottom, right
+# the device kernels of the port's hand-written CUDA (the rest are torch's)
+HAND_KERNELS = ("term_bag_dense_kernel", "term_bag_topk_kernel",
+                "plan_topk_kernel", "knn_scores_kernel", "knn_topk_kernel")
+
+
+def phase16_bodies() -> dict:
+    """Phase 16's requests by kind, REL_PER_KIND each, seeded: the
+    multi-term queries on ``body`` (``wildcard`` ``t12*``-like patterns
+    of up to 1,111 terms a segment, ``t1*``-like ones of up to 11,111,
+    case-insensitive ones (``query_string`` ``body:T12*``: the DSL's
+    ``wildcard`` takes no ``case_insensitive``); ``regexp`` ``t1[0-9]{3}``-like; ``fuzzy`` at
+    distance 1, and 2 with a ``prefix_length``; ``match`` of two terms
+    with ``fuzziness: AUTO``; ``match_bool_prefix`` with ``fuzziness``),
+    ``boosting`` (``match`` t0 t10576, a ``tag`` term negative),
+    ``terms_set`` over four ``body`` terms with ``min_terms``,
+    ``distance_feature`` on ``ts`` and on ``pickup``, ``rank_feature`` on
+    ``fare`` (saturation with and without a pivot, log, sigmoid),
+    ``more_like_this`` of a text, ``geo_distance`` at 2 and 20 km around
+    Midtown, a lower-Manhattan ``geo_bounding_box``, an 8-vertex
+    ``geo_polygon``, ``exists`` on ``pickup``, and ``function_score``
+    over ``match`` t0 t10576 in three forms (a ``ts`` gauss, a ``fare``
+    ``log1p`` factor and a ``tag`` filter weighted 2 under ``score_mode:
+    sum``; a ``pickup`` gauss; ``random_score`` with a seed plus a
+    ``script_score`` function ``cosineSimilarity(params.q, doc['vec']) +
+    1.0``, which launches K1's scores entry)."""
+    from opensearch_tpu_torch.testing import corpus
+
+    n = REL_PER_KIND
+    rng = np.random.default_rng(160)
+    pairs = corpus.zipf_query_log(4 * n, seed=161)
+    base = {"match": {"body": "t0 t10576"}}
+
+    def jitter(scale=0.01):
+        return (round(MIDTOWN[0] + float(rng.normal(0, scale)), 6),
+                round(MIDTOWN[1] + float(rng.normal(0, scale)), 6))
+
+    def box():
+        dy, dx = (float(v) for v in rng.uniform(-0.005, 0.005, size=2))
+        top, left, bottom, right = LOWER_MANHATTAN
+        return {"top_left": {"lat": round(top + dy, 6),
+                             "lon": round(left + dx, 6)},
+                "bottom_right": {"lat": round(bottom + dy, 6),
+                                 "lon": round(right + dx, 6)}}
+
+    def octagon():
+        lat, lon = jitter()
+        r = float(rng.uniform(0.01, 0.03))
+        return [{"lat": round(lat + r * np.cos(a), 6),
+                 "lon": round(lon + 1.3 * r * np.sin(a), 6)}
+                for a in np.arange(8) * np.pi / 4]
+
+    def rank(i):
+        form = i % 4
+        if form == 0:
+            return {"rank_feature": {"field": "fare",
+                                     "saturation": {"pivot": 8.0 + i}}}
+        if form == 1:
+            return {"rank_feature": {"field": "fare", "boost": 1.0 + i}}
+        if form == 2:
+            return {"rank_feature": {"field": "fare", "log": {
+                "scaling_factor": 1.0 + i}}}
+        return {"rank_feature": {"field": "fare", "sigmoid": {
+            "pivot": 6.0 + i, "exponent": 0.6}}}
+
+    qvecs = corpus.random_vectors(n, DIM, seed=162)
+    day = 86_400_000
+    queries = {
+        "wildcard_t12": [{"wildcard": {"body": f"t{p}*"}}
+                         for p in range(12, 12 + n)],
+        "wildcard_t1": [{"wildcard": {"body": p}} for p in (
+            "t1*", "t2*", "t1?*", "t2?*", "t1??*", "t2??*", "t1*1",
+            "t2*2", "t1*3", "t2*4")[:n]],
+        "wildcard_nocase": [{"query_string": {"query": f"body:T{p}*"}}
+                            for p in range(12, 12 + n)],
+        "regexp": [{"regexp": {"body": f"t{d}[0-9]{{3}}"}}
+                   for d in range(1, 10)][:n] + [
+            {"regexp": {"body": "t1[0-4][0-9]{2}"}}][: max(0, n - 9)],
+        "fuzzy_d1": [{"fuzzy": {"body": {"value": f"t{1234 + 111 * i}",
+                                         "fuzziness": 1}}}
+                     for i in range(n)],
+        "fuzzy_d2": [{"fuzzy": {"body": {"value": f"t{1234 + 111 * i}",
+                                         "fuzziness": 2,
+                                         "prefix_length": 2}}}
+                     for i in range(n)],
+        "match_fuzzy": [{"match": {"body": {
+            "query": f"t{1234 + i} t{567 + i}", "fuzziness": "AUTO"}}}
+            for i in range(n)],
+        "bool_prefix_fuzzy": [{"match_bool_prefix": {"body": {
+            "query": f"t{1234 + i} t{56 + i}", "fuzziness": 1}}}
+            for i in range(n)],
+        "boosting": [{"boosting": {
+            "positive": base,
+            "negative": {"term": {"tag": corpus.tag_name(i)}},
+            "negative_boost": round(0.2 + 0.05 * i, 2)}}
+            for i in range(n)],
+        "terms_set": [{"terms_set": {"body": {
+            "terms": [f"t{a}", f"t{b}", f"t{2 + i}", f"t{20 + i}"],
+            "minimum_should_match_field": "min_terms"}}}
+            for i, (a, b) in enumerate(pairs[:n])],
+        "distance_feature_ts": [{"distance_feature": {
+            "field": "ts", "origin": corpus.TS_START_MS + 30 * day * i,
+            "pivot": "7d"}} for i in range(n)],
+        "distance_feature_geo": [{"distance_feature": {
+            "field": "pickup", "origin": "%.6f,%.6f" % jitter(),
+            "pivot": "1km"}} for _ in range(n)],
+        "rank_feature": [rank(i) for i in range(n)],
+        "more_like_this": [{"more_like_this": {
+            "fields": ["body"], "like": " ".join(
+                f"t{t}" for pair in pairs[n + 2 * i: n + 2 * i + 2]
+                for t in pair) + f" t{100 + i} t{100 + i}",
+            "min_term_freq": 1, "min_doc_freq": 1, "max_query_terms": 12}}
+            for i in range(n)],
+        "geo_distance_2km": [{"geo_distance": {
+            "distance": "2km", "pickup": "%.6f,%.6f" % jitter()}}
+            for _ in range(n)],
+        "geo_distance_20km": [{"geo_distance": {
+            "distance": "20km", "pickup": "%.6f,%.6f" % jitter()}}
+            for _ in range(n)],
+        "geo_bbox": [{"geo_bounding_box": {"pickup": box()}}
+                     for _ in range(n)],
+        "geo_polygon": [{"geo_polygon": {"pickup": {"points": octagon()}}}
+                        for _ in range(n)],
+        "exists_geo": [{"exists": {"field": "pickup",
+                                   "boost": round(1.0 + 0.1 * i, 1)}}
+                       for i in range(n)],
+        "fs_sum": [{"function_score": {"query": base, "functions": [
+            {"gauss": {"ts": {"origin": corpus.TS_START_MS + 20 * day * i,
+                              "scale": "30d"}}},
+            {"field_value_factor": {"field": "fare", "modifier": "log1p"}},
+            {"filter": {"term": {"tag": corpus.tag_name(i)}},
+             "weight": 2.0}], "score_mode": "sum"}} for i in range(n)],
+        "fs_geo": [{"function_score": {"query": base, "gauss": {
+            "pickup": {"origin": "%.6f,%.6f" % jitter(), "scale": "2km"}}}}
+            for _ in range(n)],
+        "fs_random_script": [{"function_score": {"query": base, "functions": [
+            {"random_score": {"seed": 1000 + i}},
+            {"script_score": {"script": {
+                "source": "cosineSimilarity(params.q, doc['vec']) + 1.0",
+                "params": {"q": [round(float(x), 6) for x in qvecs[i]]}}}}],
+            "score_mode": "sum"}} for i in range(n)],
+    }
+    return {kind: [{"query": q, "size": 10, "_source": False} for q in qs]
+            for kind, qs in queries.items()}
+
+
+def expansion_ms(segs, mapper, query, reps: int = 3) -> dict:
+    """Host ms of a multi-term query's dictionary walk over every segment
+    apart from the rest of the request (``ExpandTermsPlan.expand``, a
+    request's own walk: each distinct term tested once), the median of
+    ``reps`` walks with the segments' sorted dictionaries listed first,
+    as a searcher's compile context holds them; the terms it matches and
+    the most of them a segment holds."""
+    from opensearch_tpu_torch.search.compiler import (ShardContext,
+                                                      compile_query)
+    from opensearch_tpu_torch.search.query_dsl import parse_query
+
+    ctx = ShardContext(segs, mapper, "cpu")
+    plan, bind = compile_query(parse_query(query), ctx)
+    lat = []
+    for _ in range(reps):
+        t = time.monotonic()
+        terms = plan.expand(bind, ctx)
+        lat.append((time.monotonic() - t) * 1e3)
+    return {"ms": float(np.median(lat)), "terms": len(terms),
+            "max_terms_per_segment": max(
+                sum(t in seg.postings[plan.field].terms for t in terms)
+                for seg in segs)}
+
+
+def relevance_device(searcher, body, reps: int = REL_PROFILE,
+                     attempts: int = 3) -> dict:
+    """Device ms a request of ``body`` under ``torch.profiler`` over
+    ``reps`` requests, its device kernels a request (the hand-written
+    ones of ``HAND_KERNELS`` apart from torch's own, copies and memsets
+    left out) and the device's idle share of the requests' wall time;
+    the first of ``attempts`` windows with device events counts (None
+    values when none does)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from opensearch_tpu_torch.testing.profile_scale import (_device_self_us,
+                                                            _is_device)
+    searcher.search(body)
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.monotonic()
+            for _ in range(reps):
+                searcher.search(body)
+            torch.cuda.synchronize()
+            wall = (time.monotonic() - t) * 1e3 / reps
+        events = [e for e in prof.key_averages() if _is_device(e)]
+        total = sum(_device_self_us(e) for e in events) / 1e3 / reps
+        if total <= 0:
+            continue
+        kernels = [e for e in events
+                   if not e.key.startswith(("Memcpy", "Memset"))]
+        hand = sum(e.count for e in kernels
+                   if any(h in e.key for h in HAND_KERNELS))
+        return {"device_ms": total,
+                "idle_share": max(0.0, 1 - total / wall),
+                "hand_kernels": hand / reps,
+                "torch_kernels": (sum(e.count for e in kernels) - hand)
+                / reps}
+    return {"device_ms": None, "idle_share": None, "hand_kernels": None,
+            "torch_kernels": None}
+
+
+def f32_ulps(a: float, b: float) -> int:
+    """Float32 units in the last place between two scores (of one sign)."""
+    ia, ib = (int(np.asarray(x, np.float32).view(np.int32)) for x in (a, b))
+    return abs(ia - ib)
+
+
+def score_diffs(got: dict, want: dict) -> list:
+    """``(rank, id, card score, CPU score, ulps)`` of every rank whose
+    score is not the CPU's, the ids of both where they differ."""
+    out = []
+    for i, (g, w) in enumerate(zip(got["hits"]["hits"],
+                                   want["hits"]["hits"])):
+        if g["_score"] != w["_score"] or g["_id"] != w["_id"]:
+            hid = (g["_id"] if g["_id"] == w["_id"]
+                   else f"{g['_id']}/{w['_id']}")
+            out.append((i, hid, g["_score"], w["_score"],
+                        f32_ulps(g["_score"], w["_score"])))
+    return out
+
+
+def relevance_mismatch(got: dict, want: dict, rtol: float):
+    """None when ``got`` answers as ``want``: byte for byte (JSON) with
+    ``rtol`` 0, else the same totals and hit count, each score within 2
+    float32 ulps and ``rtol`` of the other's and the same id at each rank
+    but where the neighbouring scores lie within it."""
+    if rtol == 0.0:
+        return None if strip_took(got) == strip_took(want) else "differs"
+    if got["hits"]["total"] != want["hits"]["total"]:
+        return f"totals {got['hits']['total']} vs {want['hits']['total']}"
+    ga, wa = got["hits"]["hits"], want["hits"]["hits"]
+    if len(ga) != len(wa):
+        return f"{len(ga)} hits vs {len(wa)}"
+    for i, (g, w) in enumerate(zip(ga, wa)):
+        if (abs(g["_score"] - w["_score"]) > rtol * abs(w["_score"])
+                or (g["_id"] == w["_id"]
+                    and f32_ulps(g["_score"], w["_score"]) > 2)):
+            return f"score {i}: {g['_score']} vs {w['_score']}"
+        if g["_id"] != w["_id"]:
+            near = [h["_score"] for h in wa[max(0, i - 1): i + 2]]
+            if max(near) - min(near) > 2 * rtol * abs(w["_score"]):
+                return f"id {i}: {g['_id']} vs {w['_id']}"
+    return None
+
+
+def phase_relevance(segs, mapper, searcher, counters, http=None) -> dict:
+    """Phase 16: the relevance-shaping, multi-term and geo queries at
+    full width, on phase 4's 16 f32 segments (``pickup`` geo_point and
+    ``min_terms`` long of ``relevance_columns`` beside ``ts``, ``fare``,
+    ``tag`` and ``vec``).  A body of each kind once (warm), then every
+    body of ``phase16_bodies`` kind after kind, the counts zeroed just
+    before the first and read after the last: p50 host ms and the
+    launches a request by route and kind (K1 scores, the dense entry,
+    the plan top-k, K2's top-k); the dictionary expansion of ``t12*`` and
+    ``t1*`` timed apart (``expansion_ms``); under ``torch.profiler`` the
+    device ms, kernels (hand-written and torch's) and idle share a
+    request of each kind (``relevance_device``); the first REL_CHECK of
+    each kind (REL_CHECK_ULP of REL_ULP_KINDS) held to the CPU searcher
+    over the same segments byte for byte, an answer of REL_ULP_KINDS that
+    is not by ``relevance_mismatch``, each score that differs printed
+    with its doc and ulp distance (``score_diffs``)."""
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+
+    t_phase = time.monotonic()
+    bodies = phase16_bodies()
+    for items in bodies.values():
+        searcher.search({**items[0], "size": 3})   # warm: plans, columns
+    routes = ("knn_scores", "term_bag_scores", "plan_topk",
+              "term_bag_topk")
+    for fn in counters.values():                   # this path starts here
+        fn.launches = 0
+    kinds, out = {}, {}
+    for kind, items in bodies.items():
+        before = {n: counters[n].launches for n in routes}
+        lat, resps = [], []
+        for b in items:
+            t = time.monotonic()
+            resps.append(searcher.search(b))
+            lat.append((time.monotonic() - t) * 1e3)
+        for r in resps:
+            hits = r["hits"]["hits"]
+            if len(hits) > 10 or not all(np.isfinite(h["_score"])
+                                         for h in hits):
+                raise AssertionError(f"phase 16 {kind}: bad hits")
+        if sum(bool(r["hits"]["hits"]) for r in resps) < len(resps) - 1:
+            raise AssertionError(f"phase 16 {kind}: requests without hits")
+        out[kind] = resps
+        kinds[kind] = {"n": len(items),
+                       "p50_ms": float(np.percentile(lat, 50)),
+                       "p99_ms": float(np.percentile(lat, 99)),
+                       "launches_per_request": {
+                           n: (counters[n].launches - before[n]) / len(items)
+                           for n in routes}}
+    launches = {n: c.launches for n, c in counters.items()}
+    for name in ("knn_scores", "term_bag_scores", "plan_topk"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 16: {name} never launched: "
+                                 f"{launches}")
+    per = kinds["fs_random_script"]["launches_per_request"]
+    if per["knn_scores"] != 1.0:
+        raise AssertionError(f"phase 16: {per['knn_scores']} K1 scores "
+                             "launches a script function request, not 1")
+    for kind in ("fs_sum", "boosting", "terms_set"):
+        per = kinds[kind]["launches_per_request"]
+        if per["plan_topk"] != 1.0 or not 1 <= per["term_bag_scores"] <= 2:
+            raise AssertionError(f"phase 16 {kind}: launches a request "
+                                 f"{per}")
+    expand = {q: expansion_ms(segs, mapper, {"wildcard": {"body": q}})
+              for q in ("t12*", "t1*")}
+    # the geo filters' bound: every segment's staged geo columns read once,
+    # a mask and a float32 score a doc written
+    dsegs = [seg.device(searcher.device) for seg in segs]
+    geo_bytes = sum(d.column_bytes("geo") + 5 * d.n_pad for d in dsegs)
+    geo_bound = {"bytes": geo_bytes,
+                 "bound_ms": bound_ms(geo_bytes, 0.0)[0]}
+    device = {kind: relevance_device(searcher, items[1])
+              for kind, items in bodies.items()}
+    t0 = time.monotonic()
+    cpu = ShardSearcher(segs, mapper, index_name="scale", device="cpu")
+    cpu_ms, checked, byte_equal, diffs = {}, 0, 0, []
+    for kind, items in bodies.items():
+        ulp_kind = kind in REL_ULP_KINDS
+        lat = []
+        for j, (b, got) in enumerate(zip(
+                items[:REL_CHECK_ULP if ulp_kind else REL_CHECK],
+                out[kind])):
+            t = time.monotonic()
+            want = cpu.search(b)
+            lat.append((time.monotonic() - t) * 1e3)
+            checked += 1
+            if relevance_mismatch(got, want, 0.0) is None:
+                byte_equal += 1
+                continue
+            bad = (relevance_mismatch(got, want, REL_ULP_RTOL) if ulp_kind
+                   else "differs")
+            if bad is not None:
+                raise AssertionError(f"phase 16 {kind} vs cpu: {bad}: "
+                                     f"{json.dumps(b)[:200]}")
+            diffs += [(kind, j, *d) for d in score_diffs(got, want)]
+        cpu_ms[kind] = float(np.median(lat))
+    cpu_s = time.monotonic() - t0
+    del cpu
+    gpu = gpu_name_power()
+    for kind, k in kinds.items():
+        per = ", ".join(f"{n} {v:.2f}"
+                        for n, v in k["launches_per_request"].items())
+        d = device[kind]
+        dev = ("device ms not measured" if d["device_ms"] is None else
+               f"device {d['device_ms']:.3f} ms, idle share "
+               f"{d['idle_share']:.3f}, kernels a request: hand "
+               f"{d['hand_kernels']:.1f}, torch {d['torch_kernels']:.1f}")
+        log(f"relevance {kind}: {k['n']} requests, p50 {k['p50_ms']:.3f} "
+            f"ms, p99 {k['p99_ms']:.3f} ms, launches a request: {per}; "
+            f"{dev}; CPU searcher {cpu_ms[kind]:.3f} ms, on {gpu}")
+    for q, e in expand.items():
+        log(f"relevance expansion {q}: {e['ms']:.3f} ms host over "
+            f"{len(segs)} segments (each distinct term tested once), "
+            f"{e['terms']} terms, up to {e['max_terms_per_segment']} a "
+            "segment")
+    log(f"relevance bound of a geo filter: {geo_bytes} bytes (the staged "
+        f"geo columns, a mask and a score a doc written): "
+        f"{geo_bound['bound_ms']:.5f} ms, on {gpu}")
+    for kind, j, rank, hid, g, w, ulps in diffs:
+        log(f"relevance card vs CPU: {kind} body {j} rank {rank} doc {hid}"
+            f": {g!r} vs {w!r}, {ulps} float32 ulps")
+    log(f"relevance checks: {checked} answers held to the CPU searcher "
+        f"({cpu_s:.1f}s), {byte_equal} byte-equal, {len(diffs)} scores "
+        f"apart within 2 float32 ulps and rtol {REL_ULP_RTOL} (kinds "
+        f"{', '.join(REL_ULP_KINDS)} only); launches {launches}")
+    if http is not None:
+        log(f"relevance over HTTP: {json.dumps(http)}")
+    return {"kinds": kinds, "expansion": expand, "device": device,
+            "geo_bound": geo_bound,
+            "cpu_ms": cpu_ms, "checked": checked, "byte_equal": byte_equal,
+            "diffs": diffs, "launches": launches,
+            "http": http, "wall_s": time.monotonic() - t_phase}
+
+
+def phase_http_relevance(node, state, counters) -> dict:
+    """Over HTTP on phase 9's node before it stops: five bodies to
+    ``corpus`` (a ``wildcard``, a ``fuzzy``, a ``match`` with
+    ``fuzziness``, a ``boosting`` and a ``function_score`` with a
+    ``tag`` filter weight and ``random_score``) and ``GET
+    /corpus/_search?q=body:t12*``, their counts zeroed just before them
+    and read just after (the dense entry and the plan top-k ran), each
+    answer's hits equal to the CPU searcher's."""
+    from urllib.parse import quote
+
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+
+    match = {"match": {"body": "t1 t7"}}
+    requests = [
+        ("POST", "/corpus/_search", {"wildcard": {"body": "t12*"}}),
+        ("POST", "/corpus/_search", {"fuzzy": {"body": {
+            "value": "t123", "fuzziness": 1}}}),
+        ("POST", "/corpus/_search", {"match": {"body": {
+            "query": "t12 t345", "fuzziness": "AUTO"}}}),
+        ("POST", "/corpus/_search", {"boosting": {
+            "positive": match, "negative": {"term": {"tag": "red"}},
+            "negative_boost": 0.3}}),
+        ("POST", "/corpus/_search", {"function_score": {
+            "query": match, "functions": [
+                {"filter": {"term": {"tag": "blue"}}, "weight": 2.0},
+                {"random_score": {"seed": 5}}], "score_mode": "sum"}}),
+        ("GET", f"/corpus/_search?q={quote('body:t12*')}", None),
+    ]
+    client = HttpClient(node.port)
+    for fn in counters.values():                # this path starts here
+        fn.launches = 0
+    qps, p50, outs = timed_calls(
+        lambda r: client.ok(r[0], r[1], None if r[2] is None
+                            else {"query": r[2]}), requests)
+    launches = {n: c.launches for n, c in counters.items()}
+    if launches["term_bag_scores"] <= 0 or launches["plan_topk"] <= 0:
+        raise AssertionError(f"phase 9 relevance over HTTP: launches "
+                             f"{launches}")
+    svc = node.indices.get("corpus")
+    cpu = ShardSearcher(svc.searcher().segments, svc.mapper,
+                        index_name="corpus", device="cpu")
+    wants = [q if q is not None else {"query_string": {"query": "body:t12*"}}
+             for _m, _p, q in requests]
+    for (_m, path, _q), query, resp in zip(requests, wants, outs):
+        want = json.loads(json.dumps(cpu.search({"query": query})))
+        if resp["hits"] != want["hits"] or not resp["hits"]["hits"]:
+            raise AssertionError(f"phase 9: {path} {json.dumps(query)} "
+                                 "over HTTP differs from the CPU searcher")
+    client.close()
+    return {"qps": qps, "p50_ms": p50, "requests": len(requests),
+            "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -6128,7 +6606,8 @@ def main() -> int:
         "script": phase_http_script(node, state, every),
         "ann": phase_http_ann(node, state, every),
         "phrase": phase_http_phrase(node, state, every),
-        "sort": phase_http_sort(node, state, every)})
+        "sort": phase_http_sort(node, state, every),
+        "relevance": phase_http_relevance(node, state, every)})
     then = serving.pop("then")
     filters = phase_filters_hybrid(segs, mapper, searcher, qsegs, qsearcher,
                                    every, http=then["hybrid"])
@@ -6158,7 +6637,11 @@ def main() -> int:
     sort = phase_sort(segs, mapper, searcher,
                       {**every, "phrase_freqs":
                        cuda_positions.phrase_scores_cuda})
-    for phase in (sort, then["sort"]):
+    # the relevance-shaping, multi-term and geo queries, their counts
+    # zeroed just before them
+    relevance = phase_relevance(segs, mapper, searcher, every,
+                                http=then["relevance"])
+    for phase in (sort, then["sort"], relevance, then["relevance"]):
         for name, n in phase["launches"].items():
             name = "term_bag_quantized" \
                 if name == "term_bag_quantized_topk" else name
@@ -6218,6 +6701,9 @@ def main() -> int:
                     "ivf_kernels": ann["kernels"],
                     "phrase": phrase, "phrase_over_http": then["phrase"],
                     "sort": sort, "sort_over_http": then["sort"],
+                    "relevance": {k: v for k, v in relevance.items()
+                                  if k != "http"},
+                    "relevance_over_http": then["relevance"],
                     "k8_k9": {n: kern[n] for n in ("phrase_freqs",
                                                    "span_near")},
                     "k1_scores_16": kern["knn_scores_16"],

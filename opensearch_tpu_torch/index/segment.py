@@ -20,7 +20,12 @@ torch tensors on an explicit device, with the reference's padding:
   ``n_ords``), the expanded values padded to ``pad_pow2(V)`` with
   ``value_docs`` pointing at the dead slot ``n_docs``, so a padded entry
   never reaches a live doc;
-- vectors ``[n_pad, d]`` float32 with an ``exists`` mask.
+- vectors ``[n_pad, d]`` float32 with an ``exists`` mask;
+- geo points (``geo``: ``lats``, ``lons`` float64, the host's float32
+  values widened as the reference widens them where it reads them,
+  padded with 0.0 to ``pad_pow2(V)``, ``value_docs`` padded with the
+  dead slot ``n_docs``, and ``exists`` [n_pad]), one entry per
+  ``geo_point`` field.
 
 On a segment that ``index/codec.py`` ``use_quantized`` lowers, only the
 offsets are staged at construction: scored term bags read the quantized
@@ -39,10 +44,11 @@ immutable segment, on the device that first asks, and keeps it on the
 host; ``DeviceSegment.ann_staged`` lays it out for K6 / K7 on a view's
 device.
 
-Not ported yet (ROADMAP Queue A): geo and nested columns, the device
-pager, the fielddata breaker and the residency ledger (which adopts the
-reference's staged ANN arrays).  ``segment_from_arrays`` carries the
-numpy state of a reference segment into this package's ``Segment``.
+Not ported yet (ROADMAP Queue A): nested columns, the device pager, the
+fielddata breaker and the residency ledger (which adopts the reference's
+staged ANN arrays).  ``segment_from_arrays`` carries the numpy state of a
+reference segment into this package's ``Segment``, geo columns
+included.
 """
 
 from __future__ import annotations
@@ -483,6 +489,18 @@ class DeviceSegment:
                 "values": self._stage(vals),
                 "exists": self._stage(_pad1(dv.exists, n_pad, False)),
             }
+        self.geo: dict[str, dict] = {}
+        for name, dv in seg.geo_dv.items():
+            v_pad = pad_pow2(len(dv.lats))
+            self.geo[name] = {
+                "lats": self._stage(_pad1(np.asarray(dv.lats, np.float64),
+                                          v_pad, 0.0)),
+                "lons": self._stage(_pad1(np.asarray(dv.lons, np.float64),
+                                          v_pad, 0.0)),
+                "value_docs": self._stage(_pad1(dv.value_docs, v_pad,
+                                                self.n_docs)),
+                "exists": self._stage(_pad1(dv.exists, n_pad, False)),
+            }
         # one staged copy per live-bitmap version (bounded)
         self._live_cache: dict[int, tuple] = {}
         # staged ANN indexes (``ann_staged``), keyed by the index object
@@ -499,7 +517,7 @@ class DeviceSegment:
         quantized tables, live masks)."""
         total = sum(self.column_bytes(group)
                     for group in ("postings", "norms", "numeric", "ordinal",
-                                  "vector"))
+                                  "vector", "geo"))
         for tables in self._quant_cache.values():
             total += sum(t.numel() * t.element_size()
                          for t in tables.values())
@@ -512,7 +530,7 @@ class DeviceSegment:
 
     def column_bytes(self, group: str) -> int:
         """Bytes of one group of staged columns (``postings``, ``norms``,
-        ``numeric``, ``ordinal`` or ``vector``) on the device."""
+        ``numeric``, ``ordinal``, ``vector`` or ``geo``) on the device."""
         return sum(t.numel() * t.element_size()
                    for cols in getattr(self, group).values()
                    for t in cols.values() if isinstance(t, torch.Tensor))
@@ -949,15 +967,16 @@ _NUMERIC_COLS = ("offsets", "values", "value_docs", "minv", "maxv",
                  "exists")
 _ORDINAL_COLS = ("offsets", "ords", "value_docs", "min_ord", "max_ord",
                  "exists")
+_GEO_COLS = ("offsets", "lats", "lons", "value_docs", "exists")
 
 
 def segment_arrays(seg) -> tuple[dict, dict]:
     """``(arrays, meta)`` of any segment with the reference's attribute
     layout (this package's ``Segment`` or the JAX package's): postings
     CSR per field, numeric and ordinal doc values (values, value docs,
-    min and max, exists, kind, ordinal terms), vectors, live bitmap, doc
-    ids and sources.  Reads attributes only, so it imports nothing of the
-    other package."""
+    min and max, exists, kind, ordinal terms), geo points (offsets, lats,
+    lons, value docs, exists), vectors, live bitmap, doc ids and sources.
+    Reads attributes only, so it imports nothing of the other package."""
     arrays: dict[str, np.ndarray] = {"live": np.asarray(seg.live, bool),
                                      "seq_nos": np.asarray(seg.seq_nos),
                                      "versions": np.asarray(seg.versions)}
@@ -988,13 +1007,17 @@ def segment_arrays(seg) -> tuple[dict, dict]:
         for col in _ORDINAL_COLS:
             arrays[f"ordinal.{name}.{col}"] = np.asarray(getattr(dv, col))
         meta["ordinal"][name] = {"ord_terms": list(dv.ord_terms)}
+    meta["geo"] = sorted(seg.geo_dv)
+    for name, dv in seg.geo_dv.items():
+        for col in _GEO_COLS:
+            arrays[f"geo.{name}.{col}"] = np.asarray(getattr(dv, col))
     return arrays, meta
 
 
 def segment_from_arrays(arrays: dict[str, np.ndarray], meta: dict) -> Segment:
     """Build this package's ``Segment`` from ``segment_arrays`` output
-    (e.g. of a JAX-package segment): postings, numeric, ordinal and vector
-    doc values, the live bitmap, ids and sources.  Geo and nested columns
+    (e.g. of a JAX-package segment): postings, numeric, ordinal, geo and
+    vector doc values, the live bitmap, ids and sources.  Nested columns
     are not carried: no ported plan reads them."""
     n = int(meta["n_docs"])
     seg = Segment(meta["seg_id"], n)
@@ -1050,5 +1073,13 @@ def segment_from_arrays(arrays: dict[str, np.ndarray], meta: dict) -> Segment:
             value_docs=col["value_docs"].astype(np.int32),
             min_ord=col["min_ord"].astype(np.int32),
             max_ord=col["max_ord"].astype(np.int32),
+            exists=col["exists"].astype(bool))
+    for name in meta.get("geo", ()):
+        col = {c: np.asarray(arrays[f"geo.{name}.{c}"]) for c in _GEO_COLS}
+        seg.geo_dv[name] = GeoDV(
+            offsets=col["offsets"].astype(np.int32),
+            lats=col["lats"].astype(np.float32),
+            lons=col["lons"].astype(np.float32),
+            value_docs=col["value_docs"].astype(np.int32),
             exists=col["exists"].astype(bool))
     return seg

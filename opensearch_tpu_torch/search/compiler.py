@@ -1,10 +1,13 @@
 """Query tree -> (plan, bindings) against a shard's mapping + collection
 statistics (the port of the part of the JAX package's
 ``search/compiler.py`` that match / term / terms / range / exists / ids /
-prefix / bool / constant_score / knn / script_score queries need, and the
+prefix / bool / constant_score / knn / script_score queries need, the
 positional full-text family: match_phrase, match_phrase_prefix,
 match_bool_prefix, multi_match, dis_max, simple_query_string, the span
-queries and intervals).
+queries and intervals, the multi-term queries wildcard / regexp / fuzzy
+and ``fuzziness``, the relevance-shaping queries function_score /
+boosting / rank_feature / distance_feature, terms_set, more_like_this,
+and the geo filters geo_distance / geo_bounding_box / geo_polygon).
 
 idf/avgdl are computed here from CROSS-SEGMENT stats (Lucene computes
 them in IndexSearcher.termStatistics over the whole reader, not per
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import bisect
 import ipaddress
+import math
 import re
 from dataclasses import dataclass
 
@@ -25,9 +29,12 @@ import torch
 
 from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
                                                 NotYetPortedError,
-                                                OpenSearchTpuError)
+                                                OpenSearchTpuError,
+                                                ParsingError)
 from opensearch_tpu_torch.mapping.types import (KeywordFieldType,
-                                                TextFieldType, parse_ip_long)
+                                                TextFieldType,
+                                                parse_date_millis,
+                                                parse_ip_long)
 from opensearch_tpu_torch.ops import bm25 as bm25_ops
 from opensearch_tpu_torch.search import plan as P
 from opensearch_tpu_torch.search import query_dsl as dsl
@@ -269,7 +276,19 @@ def _c_match(q, ctx, scored):
     if not terms:
         return _none()
     if q.fuzziness is not None:
-        _not_ported("match with [fuzziness]")
+        # one constant-score fuzzy mask per term, combined as a bool
+        children, binds = [], []
+        for t in terms:
+            plan, bind = _expand_terms(q.field, "fuzzy", {
+                "pattern": t, "fuzzy_dist": _auto_fuzzy(q.fuzziness, t),
+                "prefix_length": 0, "boost": q.boost}, ctx)
+            children.append(plan)
+            binds.append(bind)
+        required = (len(terms) if q.operator == "and"
+                    else max(1, calc_min_should_match(
+                        len(terms), q.minimum_should_match)))
+        return P.BoolPlan(should=tuple(children)), {
+            "boost": 1.0, "required": required, "children": tuple(binds)}
     if q.operator == "and":
         required = len(terms)
     else:
@@ -278,6 +297,14 @@ def _c_match(q, ctx, scored):
     if required > len(terms):
         return _none()
     return _term_bag(ctx, q.field, terms, required, q.boost, scored)
+
+
+def _auto_fuzzy(fuzziness, term: str) -> int:
+    s = str(fuzziness).upper()
+    if s.startswith("AUTO"):
+        n = len(term)
+        return 0 if n < 3 else (1 if n <= 5 else 2)
+    return int(float(s))
 
 
 def _c_bool(q, ctx, scored):
@@ -385,8 +412,6 @@ def _c_exists(q, ctx, scored):
             raise IllegalArgumentError(
                 f"exists on field [{q.field}] requires doc_values or an "
                 "indexed field")
-    if src == "geo":
-        _not_ported(f"exists on geo_point field [{q.field}]")
     return P.ExistsPlan(field=q.field, src=src), {"boost": q.boost}
 
 
@@ -414,6 +439,43 @@ def _c_prefix(q, ctx, scored):
     value = str(q.value)
     return (P.TermRangeMaskPlan(field=q.field),
             {"lo": value, "hi": value + _MAX_CODEPOINT, "boost": q.boost})
+
+
+def _c_wildcard(q, ctx, scored):
+    ft = _require_ft(ctx, q.field, "wildcard")
+    if ft is None:
+        return _none()
+    return _expand_terms(q.field, "wildcard", {
+        "pattern": str(q.value), "fuzzy_dist": 0, "prefix_length": 0,
+        "nocase": bool(getattr(q, "case_insensitive", False)),
+        "boost": q.boost}, ctx)
+
+
+def _c_regexp(q, ctx, scored):
+    ft = _require_ft(ctx, q.field, "regexp")
+    if ft is None:
+        return _none()
+    return _expand_terms(q.field, "regexp", {
+        "pattern": str(q.value), "fuzzy_dist": 0, "prefix_length": 0,
+        "boost": q.boost}, ctx)
+
+
+def _c_fuzzy(q, ctx, scored):
+    ft = _require_ft(ctx, q.field, "fuzzy")
+    if ft is None:
+        return _none()
+    return _expand_terms(q.field, "fuzzy", {
+        "pattern": str(q.value),
+        "fuzzy_dist": _auto_fuzzy(q.fuzziness, str(q.value)),
+        "prefix_length": q.prefix_length, "boost": q.boost}, ctx)
+
+
+def _expand_terms(field, mode, bind, ctx):
+    """A multi-term query's ``ExpandTermsPlan`` and its bind, the terms
+    that match found now over every segment's dictionary (a request's
+    own walk: no verdict outlives it)."""
+    plan = P.ExpandTermsPlan(field=field, mode=mode)
+    return plan, {**bind, "terms": plan.expand(bind, ctx)}
 
 
 def _c_constant_score(q, ctx, scored):
@@ -620,7 +682,7 @@ def _c_match_phrase_prefix(q, ctx, scored):
 def _c_match_bool_prefix(q, ctx, scored):
     """Every token a term clause, the last a prefix clause, combined as
     a bool (MatchBoolPrefixQueryBuilder).  With ``fuzziness`` the term
-    clauses are ``fuzzy`` queries, which are not ported (501)."""
+    clauses are ``fuzzy`` queries."""
     ft = _require_ft(ctx, q.field, "match_bool_prefix")
     if ft is None:
         return _none()
@@ -1041,10 +1103,12 @@ def _c_script_score(q, ctx, scored):
              "node_keys": node_keys})
 
 
-def _script_vector_columns(calls, ctx) -> dict:
+def _script_vector_columns(calls, ctx, missing_zero: bool = False) -> dict:
     """{key: {id(segment): f32 [n_pad]}}: each distinct vector function
     of a script (``ScriptProgram.vector_calls``) over every row of every
-    segment that has its field, in one call (one K1 launch on CUDA)."""
+    segment that has its field, in one call (one K1 launch on CUDA); with
+    ``missing_zero`` a segment without the field takes part with zero
+    rows, as the reference's function_score reads its empty column."""
     from opensearch_tpu_torch.ops.knn import (KnnSegment,
                                               vector_scores_segments_auto)
     from opensearch_tpu_torch.search.scripting import ScriptException
@@ -1053,9 +1117,14 @@ def _script_vector_columns(calls, ctx) -> dict:
     for key, (fn, field, qvec) in calls.items():
         segs, ids = [], []
         for seg in ctx.segments:
-            vcol = seg.device(ctx.device).vector.get(field)
+            dseg = seg.device(ctx.device)
+            vcol = dseg.vector.get(field)
             if vcol is None:
-                continue
+                if not missing_zero:
+                    continue
+                vcol = {"values": torch.zeros(
+                    (dseg.n_pad, qvec.shape[0]), dtype=torch.float32,
+                    device=ctx.device)}
             if vcol["values"].shape[1] != qvec.shape[0]:
                 raise ScriptException(
                     f"[{fn}] query vector has dimension {qvec.shape[0]} "
@@ -1067,6 +1136,361 @@ def _script_vector_columns(calls, ctx) -> dict:
             fn=fn) if segs else []
         out[key] = dict(zip(ids, cols))
     return out
+
+
+def _c_boosting(q, ctx, scored):
+    pos_p, pos_b = compile_query(q.positive, ctx, scored)
+    neg_p, neg_b = compile_query(q.negative, ctx, scored=False)
+    return (P.BoostingPlan(positive=pos_p, negative=neg_p),
+            {"boost": q.boost, "negative_boost": q.negative_boost,
+             "children": (pos_b, neg_b)})
+
+
+def _c_terms_set(q, ctx, scored):
+    ft = _require_ft(ctx, q.field, "terms_set")
+    if ft is None:
+        return _none()
+    msm_ft = ctx.field_type(q.minimum_should_match_field)
+    if msm_ft is None or msm_ft.dv_kind not in ("long", "double"):
+        raise IllegalArgumentError(
+            f"[terms_set] minimum_should_match_field "
+            f"[{q.minimum_should_match_field}] must be a numeric field")
+    terms = [ft.term_for_query(t) for t in q.terms]
+    if not terms:
+        return _none()
+    return (P.TermsSetPlan(field=q.field,
+                           msm_field=q.minimum_should_match_field,
+                           scored=scored),
+            {"terms": tuple(terms),
+             "idfs": _idfs_for(ctx, q.field, terms),
+             "weights": np.full(len(terms), q.boost, np.float32),
+             "avgdl": ctx.field_stats(q.field).avgdl})
+
+
+def _duration_ms(v) -> float:
+    """A date field's distance: a duration string ("7d", "12h"), or
+    milliseconds."""
+    from opensearch_tpu_torch.search.aggs import _parse_duration_ms
+
+    return float(_parse_duration_ms(v) if isinstance(v, str) else v)
+
+
+def _c_distance_feature(q, ctx, scored):
+    ft = _require_ft(ctx, q.field, "distance_feature")
+    if ft is None:
+        return _none()
+    if ft.dv_kind == "geo_point":
+        origin = dsl.parse_geo_point(q.origin)
+        pivot = dsl.parse_distance_m(q.pivot)
+        kind = "geo"
+    elif ft.type_name in ("date", "date_nanos"):
+        origin = float(parse_date_millis(q.origin))
+        pivot = _duration_ms(q.pivot)
+        kind = "numeric"
+    elif ft.dv_kind in ("long", "double"):
+        origin = float(q.origin)
+        pivot = float(q.pivot)
+        kind = "numeric"
+    else:
+        raise IllegalArgumentError(
+            f"[distance_feature] field [{q.field}] must be date, numeric "
+            f"or geo_point, got [{ft.type_name}]")
+    if pivot <= 0:
+        raise IllegalArgumentError("[distance_feature] pivot must be > 0")
+    return (P.DistanceFeaturePlan(field=q.field, kind=kind),
+            {"origin": origin, "pivot": pivot, "boost": q.boost})
+
+
+def _geo_ft(ctx, field, qname):
+    """The geo_point field type of a geo filter, None when unmapped."""
+    ft = _require_ft(ctx, field, qname)
+    if ft is not None and ft.dv_kind != "geo_point":
+        raise IllegalArgumentError(
+            f"[{qname}] field [{field}] is not a geo_point")
+    return ft
+
+
+def _c_geo_distance(q, ctx, scored):
+    if _geo_ft(ctx, q.field, "geo_distance") is None:
+        return _none()
+    return (P.GeoDistancePlan(field=q.field),
+            {"lat": q.lat, "lon": q.lon,
+             "distance_m": dsl.parse_distance_m(q.distance),
+             "boost": q.boost})
+
+
+def _c_geo_bounding_box(q, ctx, scored):
+    if _geo_ft(ctx, q.field, "geo_bounding_box") is None:
+        return _none()
+    return (P.GeoBoxPlan(field=q.field),
+            {"top": q.top, "left": q.left, "bottom": q.bottom,
+             "right": q.right, "boost": q.boost})
+
+
+def _c_geo_polygon(q, ctx, scored):
+    if _geo_ft(ctx, q.field, "geo_polygon") is None:
+        return _none()
+    return (P.GeoPolygonPlan(field=q.field),
+            {"lats": [p[0] for p in q.points],
+             "lons": [p[1] for p in q.points], "boost": q.boost})
+
+
+def _positive_float(v, what: str) -> float:
+    try:
+        f = float(v)
+    except (TypeError, ValueError):
+        raise ParsingError(
+            f"[rank_feature] {what} must be a number, got [{v}]") from None
+    if not math.isfinite(f) or f <= 0:
+        raise ParsingError(
+            f"[rank_feature] {what} must be positive, got [{v}]")
+    return f
+
+
+def _c_rank_feature(q, ctx, scored):
+    """rank_feature lowered onto the script-score plan over ``exists``:
+    the saturation / log / sigmoid curves are score scripts over
+    ``doc['f'].value`` (RankFeatureQueryBuilder; the feature column is a
+    positive numeric doc value).  The default saturation pivot is the
+    mean positive value over the shard's segments."""
+    ft = _require_ft(ctx, q.field, "rank_feature")
+    if ft is None:
+        return _none()
+    if ft.dv_kind not in ("long", "double"):
+        raise IllegalArgumentError(
+            f"[rank_feature] field [{q.field}] must be numeric "
+            f"(rank_feature type), got [{ft.type_name}]")
+    f = f"doc['{q.field}'].value"
+    if q.log is not None:
+        scaling = float(q.log.get("scaling_factor", 1.0))
+        src = f"Math.log({scaling} + {f})"
+    elif q.sigmoid is not None:
+        if "pivot" not in q.sigmoid or "exponent" not in q.sigmoid:
+            raise ParsingError(
+                "[rank_feature] sigmoid requires [pivot] and [exponent]")
+        pivot = _positive_float(q.sigmoid["pivot"], "sigmoid pivot")
+        exp = _positive_float(q.sigmoid["exponent"], "sigmoid exponent")
+        src = (f"Math.pow({f}, {exp}) / "
+               f"(Math.pow({f}, {exp}) + Math.pow({pivot}, {exp}))")
+    else:
+        pivot = (q.saturation or {}).get("pivot")
+        if pivot is not None:
+            pivot = _positive_float(pivot, "saturation pivot")
+        if pivot is None:
+            # the field's mean value over the shard (the reference's
+            # stand-in for an approximate geometric mean)
+            total, count = 0.0, 0
+            for seg in ctx.segments:
+                dv = seg.numeric_dv.get(q.field)
+                if dv is not None and len(dv.values):
+                    total += float(np.sum(dv.values))
+                    count += int(len(dv.values))
+            pivot = (total / count) if count else 1.0
+        src = f"{f} / ({f} + {float(pivot)})"
+    return compile_query(dsl.ScriptScoreQuery(
+        query=dsl.ExistsQuery(field=q.field),
+        script={"source": src}, boost=q.boost), ctx, scored)
+
+
+_DECAY_FNS = ("gauss", "exp", "linear")
+
+
+def _c_function_score(q, ctx, scored):
+    """function_score: each function compiles to a static
+    ``FunctionSpec`` and a bind of its parameters (functionscore/:
+    weight, field_value_factor, random_score, script_score and the
+    decays).  The vector functions of every script_score function are
+    computed here for the whole request, as ``_c_script_score``'s: one
+    K1 scores launch per distinct (function, field, query vector) over
+    every segment."""
+    from opensearch_tpu_torch.search.scripting import compile_score_script
+
+    child = q.query if q.query is not None else dsl.MatchAllQuery()
+    cplan, cbind = compile_query(child, ctx, scored=True)
+    specs, binds = [], []
+    calls = {}             # every script function's vector calls, by key
+    for f in q.functions:
+        f = dict(f)
+        fbind = {}
+        fplan = None
+        if f.get("filter") is not None:
+            fplan, fb = compile_query(dsl.parse_query(f["filter"]), ctx,
+                                      scored=False)
+            fbind["filter"] = fb
+        if "weight" in f:
+            fbind["weight"] = float(f["weight"])
+        decay_fn = next((d for d in _DECAY_FNS if d in f), None)
+        if "field_value_factor" in f:
+            fvf = f["field_value_factor"]
+            field = fvf.get("field")
+            ft = ctx.field_type(field or "")
+            if ft is None or ft.dv_kind not in ("long", "double"):
+                raise IllegalArgumentError(
+                    f"[field_value_factor] field [{field}] must be "
+                    "numeric")
+            specs.append(P.FunctionSpec(
+                kind="field_value_factor", filter=fplan, field=field,
+                modifier=str(fvf.get("modifier", "none")).lower()))
+            fbind.update({"factor": float(fvf.get("factor", 1.0)),
+                          "missing": float(fvf.get("missing", 1.0))})
+        elif "random_score" in f:
+            rs = f.get("random_score") or {}
+            specs.append(P.FunctionSpec(kind="random_score",
+                                        filter=fplan))
+            fbind["seed"] = float(rs.get("seed", 0))
+        elif "script_score" in f:
+            program = compile_score_script(
+                (f["script_score"] or {}).get("script") or {})
+            specs.append(P.FunctionSpec(kind="script_score",
+                                        filter=fplan, program=program))
+            fn_calls, node_keys = program.vector_calls()
+            calls.update(fn_calls)
+            fbind.update({"params": program.param_values(ctx.device),
+                          "node_keys": node_keys})
+        elif decay_fn is not None:
+            body = f[decay_fn]
+            ((field, conf),) = tuple(body.items()) if len(body) == 1 \
+                else (_raise_decay(),)
+            ft = ctx.field_type(field)
+            if ft is None:
+                return _none()
+            if ft.dv_kind == "geo_point":
+                lat, lon = dsl.parse_geo_point(conf["origin"])
+                fbind.update({"origin_lat": lat, "origin_lon": lon,
+                              "scale": dsl.parse_distance_m(conf["scale"]),
+                              "offset": dsl.parse_distance_m(
+                                  conf.get("offset", 0))})
+                geo = True
+            elif ft.type_name == "date":
+                fbind.update({
+                    "origin": float(parse_date_millis(conf["origin"])),
+                    "scale": _duration_ms(conf["scale"]),
+                    "offset": _duration_ms(conf.get("offset", 0))})
+                geo = False
+            elif ft.dv_kind in ("long", "double"):
+                fbind.update({"origin": float(conf["origin"]),
+                              "scale": float(conf["scale"]),
+                              "offset": float(conf.get("offset", 0))})
+                geo = False
+            else:
+                raise IllegalArgumentError(
+                    f"[{decay_fn}] field [{field}] must be numeric, "
+                    "date or geo_point")
+            if fbind["scale"] <= 0:
+                raise IllegalArgumentError(
+                    f"[{decay_fn}] scale must be > 0")
+            fbind["decay"] = float(conf.get("decay", 0.5))
+            if not (0.0 < fbind["decay"] < 1.0):
+                raise IllegalArgumentError(
+                    f"[{decay_fn}] decay must be in (0, 1)")
+            specs.append(P.FunctionSpec(kind="decay", filter=fplan,
+                                        field=field, decay_fn=decay_fn,
+                                        geo=geo))
+        elif "weight" in f:
+            specs.append(P.FunctionSpec(kind="weight", filter=fplan))
+        else:
+            raise IllegalArgumentError(
+                f"unknown function_score function {sorted(f)}")
+        binds.append(fbind)
+    if q.score_mode not in ("multiply", "sum", "avg", "first", "max",
+                            "min"):
+        raise IllegalArgumentError(
+            f"unknown score_mode [{q.score_mode}]")
+    if q.boost_mode not in ("multiply", "replace", "sum", "avg", "max",
+                            "min"):
+        raise IllegalArgumentError(
+            f"unknown boost_mode [{q.boost_mode}]")
+    vectors = _script_vector_columns(calls, ctx, missing_zero=True)
+    for spec, fbind in zip(specs, binds):
+        if spec.kind == "script_score":
+            fbind["vectors"] = vectors
+    return (P.FunctionScorePlan(child=cplan, functions=tuple(specs),
+                                score_mode=q.score_mode,
+                                boost_mode=q.boost_mode),
+            {"child": cbind, "functions": tuple(binds), "boost": q.boost,
+             "max_boost": q.max_boost, "min_score": q.min_score})
+
+
+def _raise_decay():
+    raise IllegalArgumentError(
+        "decay function must name exactly one field")
+
+
+def _c_more_like_this(q, ctx, scored):
+    """more_like_this: the like texts' (and liked docs' sources') terms
+    picked by tf-idf on the host, then one should term bag per field
+    (K2's dense entry, or its top-k for a lone bag), the liked docs
+    excluded unless ``include`` (MoreLikeThisQueryBuilder's
+    interesting-terms selection)."""
+    fields = q.fields
+    if not fields:
+        fields = [f for f, ft in ctx.mapper.field_types().items()
+                  if isinstance(ft, TextFieldType)]
+    if not fields:
+        return _none()
+    texts: list[str] = []
+    liked_ids: list[str] = []
+    for item in q.like:
+        if isinstance(item, dict):
+            doc_id = item.get("_id")
+            src = None
+            for seg in ctx.segments:
+                local = seg.id_to_local.get(str(doc_id))
+                if local is not None:
+                    src = seg.source(local)
+                    break
+            if src is None:
+                continue
+            liked_ids.append(str(doc_id))
+            for f in fields:
+                v = src.get(f)
+                if isinstance(v, str):
+                    texts.append(v)
+        else:
+            texts.append(str(item))
+    if not texts:
+        return _none()
+    clauses = []
+    for field in fields:
+        ft = ctx.field_type(field)
+        if not isinstance(ft, TextFieldType):
+            continue
+        tf: dict[str, int] = {}
+        for text in texts:
+            for t in ft.search_terms(text, ctx.mapper.analyzers):
+                tf[t] = tf.get(t, 0) + 1
+        n_docs = max(ctx.field_stats(field).doc_count, 1)
+        cands = []
+        for t, freq in tf.items():
+            if freq < q.min_term_freq:
+                continue
+            df = ctx.df(field, t)
+            if df < q.min_doc_freq:
+                continue
+            idf = np.log(1.0 + (n_docs - df + 0.5) / (df + 0.5))
+            cands.append((freq * idf, t))
+        cands.sort(key=lambda x: (-x[0], x[1]))
+        terms = [t for _s, t in cands[: q.max_query_terms]]
+        if terms:
+            required = max(1, calc_min_should_match(
+                len(terms), q.minimum_should_match))
+            clauses.append(_term_bag(ctx, field, terms, required,
+                                     q.boost, scored))
+    if not clauses:
+        return _none()
+    if len(clauses) == 1 and not liked_ids:
+        return clauses[0]
+    # the liked docs are EXCLUDED unless include: true (the reference's
+    # default: a doc is trivially most like itself)
+    must_not = ()
+    if liked_ids and not q.include:
+        must_not = (compile_query(dsl.IdsQuery(values=liked_ids), ctx,
+                                  scored=False),)
+    return (P.BoolPlan(should=tuple(p for p, _b in clauses),
+                       must_not=tuple(p for p, _b in must_not)),
+            {"boost": 1.0, "required": 1,
+             "children": (tuple(b for _p, b in clauses)
+                          + tuple(b for _p, b in must_not))})
 
 
 def _winners_plan(ctx, winners: dict, label: str):
@@ -1111,4 +1535,16 @@ _COMPILERS = {
     dsl.SpanFirstQuery: _c_span_first,
     dsl.SpanOrQuery: _c_span_or,
     dsl.IntervalsQuery: _c_intervals,
+    dsl.WildcardQuery: _c_wildcard,
+    dsl.RegexpQuery: _c_regexp,
+    dsl.FuzzyQuery: _c_fuzzy,
+    dsl.BoostingQuery: _c_boosting,
+    dsl.TermsSetQuery: _c_terms_set,
+    dsl.DistanceFeatureQuery: _c_distance_feature,
+    dsl.FunctionScoreQuery: _c_function_score,
+    dsl.MoreLikeThisQuery: _c_more_like_this,
+    dsl.GeoDistanceQuery: _c_geo_distance,
+    dsl.GeoPolygonQuery: _c_geo_polygon,
+    dsl.RankFeatureQuery: _c_rank_feature,
+    dsl.GeoBoundingBoxQuery: _c_geo_bounding_box,
 }

@@ -69,6 +69,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import time
 from typing import Optional
 
@@ -80,7 +81,9 @@ from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
                                                 NotYetPortedError,
                                                 ValidationError)
 from opensearch_tpu_torch.common.torchenv import resolve_device
-from opensearch_tpu_torch.index.segment import DeviceSegment, Segment
+from opensearch_tpu_torch.index.segment import (LONG_MISSING_MAX,
+                                                LONG_MISSING_MIN,
+                                                DeviceSegment, Segment)
 from opensearch_tpu_torch.ops import bm25 as bm25_ops
 from opensearch_tpu_torch.ops.cuda_bm25 import K_MAX as TOPK_K_MAX
 from opensearch_tpu_torch.ops.phrase import stage_positions
@@ -203,16 +206,30 @@ def _dummy_for(group: str, field: str, dseg: DeviceSegment, mapper):
         return {"field_exists": torch.zeros(n_pad, dtype=torch.bool,
                                             device=dev)}
     if group in ("numeric", "ordinal"):
-        # the columns the filter plans read (the sort columns min/max are
-        # read by no ported plan)
+        # the columns the filter plans read, and a numeric column's
+        # per-doc bounds (the decays, distance_feature, field_value_factor)
         ft = mapper.field_type(field)
         dtype = (torch.int32 if group == "ordinal" else torch.float64
                  if ft is not None and ft.dv_kind == "double"
                  else torch.int64)
-        return {
+        cols = {
             "values" if group == "numeric" else "ords": torch.full(
                 (8,), 0 if group == "numeric" else -1, dtype=dtype,
                 device=dev),
+            "value_docs": torch.full((8,), dead, dtype=torch.int32,
+                                     device=dev),
+            "exists": torch.zeros(n_pad, dtype=torch.bool, device=dev),
+        }
+        if group == "numeric":
+            lo, hi = ((math.inf, -math.inf) if dtype == torch.float64
+                      else (LONG_MISSING_MAX, LONG_MISSING_MIN))
+            cols["minv"] = torch.full((n_pad,), lo, dtype=dtype, device=dev)
+            cols["maxv"] = torch.full((n_pad,), hi, dtype=dtype, device=dev)
+        return cols
+    if group == "geo":
+        return {
+            "lats": torch.zeros(8, dtype=torch.float64, device=dev),
+            "lons": torch.zeros(8, dtype=torch.float64, device=dev),
             "value_docs": torch.full((8,), dead, dtype=torch.int32,
                                      device=dev),
             "exists": torch.zeros(n_pad, dtype=torch.bool, device=dev),
@@ -242,7 +259,8 @@ def build_arrays(dseg: DeviceSegment, needed, mapper, live=None,
     (``DeviceSegment.ensure_postings``)."""
     A = {"live": dseg.live if live is None else live}
     sources = {"postings": dseg.postings, "numeric": dseg.numeric,
-               "ordinal": dseg.ordinal, "vector": dseg.vector}
+               "ordinal": dseg.ordinal, "vector": dseg.vector,
+               "geo": dseg.geo}
     for group, field in sorted(needed):
         if group == "positions":
             # the phrase and span plans': positions staged on demand

@@ -34,16 +34,22 @@ view and the per-row vector columns the compiler's pre-pass made (K1).
 take their scores and matched masks from K8 / K9 (``ops/phrase.py``,
 ``ops/span.py``): the same pre-pass launches each kernel once over every
 phrase or span leaf of the request and every segment, BM25 inside the
-kernel; ``DisMaxPlan`` combines its children as the reference does.  Plans of the reference that are not
-ported yet (expand-terms, nested, geo, function_score, ...) are absent;
-the compiler raises ``NotYetPortedError`` for queries that would need
-them.
+kernel; ``DisMaxPlan`` combines its children as the reference does.
+``ExpandTermsPlan`` (wildcard / regexp / fuzzy), ``BoostingPlan``,
+``TermsSetPlan``, ``DistanceFeaturePlan``, the geo filters and
+``FunctionScorePlan`` are torch ops over those columns and K1 / K2's
+dense entries.  Plans of the reference that are not ported yet (nested,
+the joins, percolate) are absent; the compiler raises
+``NotYetPortedError`` for queries that would need them.
 """
 
 from __future__ import annotations
 
 import bisect
+import fnmatch
 import math
+import re
+import zlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -586,13 +592,47 @@ class PostingsMaskPlan(Plan):
         return _const(count > 0, ins[1])
 
 
+def _row_runs(starts, stops, dev, boost):
+    """``prepare``'s ``(dims, ins)`` of a constant-score mask over runs of
+    posting rows, run r being CSR rows ``[starts[r], stops[r])``: dims
+    ``(total,)``, the rows to read; ins ``(ends, base, boost)``, per run
+    its end in the concatenated rows (int64, cumulative) and the shift
+    from a row's place there to its place in the CSR."""
+    lens = np.asarray(stops, np.int64) - np.asarray(starts, np.int64)
+    ends = np.cumsum(lens)
+    if not len(ends) or ends[-1] == 0:
+        return (0,), (None, None, _f32(boost))
+    return ((int(ends[-1]),),
+            (_tensor(ends, np.int64, dev),
+             _tensor(np.asarray(starts, np.int64) - (ends - lens),
+                     np.int64, dev), _f32(boost)))
+
+
+def _row_runs_mask(A, field, dims, ins):
+    """The docs of every posting row of ``_row_runs``' runs, scatter-ORed
+    into a constant-score mask: ``searchsorted`` maps a lane to its run
+    (an empty run is never a lane's)."""
+    (total,) = dims
+    ends, base, boost = ins
+    n_pad, dev = _live_n_pad(A)
+    if total == 0:
+        return _const(torch.zeros(n_pad, dtype=torch.bool, device=dev),
+                      boost)
+    i = torch.arange(total, dtype=torch.int64, device=dev)
+    rows = i + base[torch.searchsorted(ends, i, right=True)]
+    d = A["postings"][field]["doc_ids"][rows]
+    ok = torch.ones(total, dtype=torch.bool, device=dev)
+    return _const(filter_ops.scatter_any(ok, d, n_pad), boost)
+
+
 @dataclass(frozen=True)
 class TermRangeMaskPlan(Plan):
     """Constant-score docs containing any term in a CONTIGUOUS term-id
     range — a prefix is a range of the sorted term dict (Lucene
-    PrefixQuery's automaton walk collapses to two binary searches).
-    bind: {lo, hi, boost} (string bounds, [lo, hi)).  The range's
-    posting bounds come from the host CSR, so no offset is read back."""
+    PrefixQuery's automaton walk collapses to two binary searches): one
+    run of posting rows (``_row_runs_mask``).  bind: {lo, hi, boost}
+    (string bounds, [lo, hi)).  The range's posting bounds come from the
+    host CSR, so no offset is read back."""
 
     field: str = ""
 
@@ -607,31 +647,95 @@ class TermRangeMaskPlan(Plan):
             lo_tid = bisect.bisect_left(sterms, bind["lo"])
             hi_tid = bisect.bisect_left(sterms, bind["hi"])
             o_lo, o_hi = int(pf.offsets[lo_tid]), int(pf.offsets[hi_tid])
-        return ((pad_bucket(o_hi - o_lo),),
-                (o_lo, o_hi, _f32(bind["boost"])))
+        return _row_runs([o_lo], [o_hi], dseg.device, bind["boost"])
 
     def eval(self, A, dims, ins):
-        (budget,) = dims
-        o_lo, o_hi, boost = ins
-        p = A["postings"][self.field]
-        n_pad, dev = _live_n_pad(A)
-        i = torch.arange(budget, dtype=torch.int64, device=dev)
-        valid = i < (o_hi - o_lo)
-        idx = torch.where(valid, o_lo + i, 0)
-        d = torch.where(valid, p["doc_ids"][idx],
-                        torch.full_like(idx, n_pad - 1, dtype=torch.int32))
-        return _const(filter_ops.scatter_any(valid, d, n_pad), boost)
+        return _row_runs_mask(A, self.field, dims, ins)
+
+
+@dataclass(frozen=True)
+class ExpandTermsPlan(Plan):
+    """wildcard / regexp / fuzzy: the terms that match, found on the host
+    at compile time (``expand``: each segment's sorted dictionary walked
+    as the reference's ``prepare`` walks it, each distinct term tested
+    once a request), then a constant-score mask over every posting row of
+    those terms (Lucene MultiTermQuery's CONSTANT_SCORE rewrite): the rows
+    of a run of consecutive term ids are contiguous in the CSR, so the
+    mask is ``_row_runs_mask`` over a list of runs.  A literal prefix of
+    the pattern (a wildcard's, unless case-insensitive; fuzzy's
+    ``prefix_length``) narrows the walk to its range of the dictionary by
+    binary search.  bind: {pattern, fuzzy_dist, prefix_length, nocase,
+    boost, terms}: ``terms`` the matched terms ``expand`` found."""
+
+    field: str = ""
+    mode: str = "wildcard"           # wildcard | regexp | fuzzy
+
+    def arrays(self):
+        return frozenset({("postings", self.field)})
+
+    def _matcher(self, bind) -> tuple:
+        """``(literal prefix of every match, predicate on a term)``: the
+        reference's tests (a wildcard through ``fnmatch.translate`` and
+        ``re.match``, a regexp ``re.fullmatch``, fuzzy the optimal string
+        alignment distance with the prefix required)."""
+        pat = bind["pattern"]
+        if self.mode == "wildcard":
+            nocase = bool(bind.get("nocase"))
+            rx = re.compile(fnmatch.translate(pat),
+                            re.IGNORECASE if nocase else 0)
+            prefix = "" if nocase else re.match(r"[^*?\[]*", pat).group(0)
+            return prefix, lambda t: rx.match(t) is not None
+        if self.mode == "regexp":
+            rx = re.compile(pat)
+            return "", lambda t: rx.fullmatch(t) is not None
+        k = int(bind["fuzzy_dist"])
+        return (pat[: bind["prefix_length"]],
+                lambda t: _edit_distance_le(pat, t, k))
+
+    def expand(self, bind, ctx) -> frozenset:
+        """The terms of ``field`` over every segment's dictionary that
+        match, each distinct term tested once."""
+        prefix, pred = self._matcher(bind)
+        seen: dict[str, bool] = {}
+        for seg in ctx.segments:
+            if self.field not in seg.postings:
+                continue
+            sterms = ctx.sorted_terms(seg, self.field)
+            for i in range(bisect.bisect_left(sterms, prefix), len(sterms)):
+                t = sterms[i]
+                if not t.startswith(prefix):
+                    break
+                if t not in seen:
+                    seen[t] = pred(t)
+        return frozenset(t for t, hit in seen.items() if hit)
+
+    def prepare(self, bind, seg, dseg, ctx):
+        pf = seg.postings.get(self.field)
+        tids = np.sort(np.asarray(
+            [] if pf is None else
+            [pf.terms[t] for t in bind["terms"] if t in pf.terms],
+            dtype=np.int64))
+        if not len(tids):
+            return _row_runs([], [], dseg.device, bind["boost"])
+        cut = np.flatnonzero(np.diff(tids) != 1) + 1
+        offsets = np.asarray(pf.offsets, dtype=np.int64)
+        return _row_runs(offsets[tids[np.r_[0, cut]]],
+                         offsets[tids[np.r_[cut - 1, len(tids) - 1]] + 1],
+                         dseg.device, bind["boost"])
+
+    def eval(self, A, dims, ins):
+        return _row_runs_mask(A, self.field, dims, ins)
 
 
 @dataclass(frozen=True)
 class ExistsPlan(Plan):
-    """Docs with a value in ``field``'s doc-value column, or (``norms``)
-    where the field was present in the postings, staged on demand
-    (``DeviceSegment.ensure_norms``: the f32 posting columns of a
-    quantized segment stay unstaged)."""
+    """Docs with a value in ``field``'s doc-value column (numeric,
+    ordinal, vector or geo), or (``norms``) where the field was present
+    in the postings, staged on demand (``DeviceSegment.ensure_norms``:
+    the f32 posting columns of a quantized segment stay unstaged)."""
 
     field: str = ""
-    src: str = "numeric"             # numeric | ordinal | vector | norms
+    src: str = "numeric"             # numeric | ordinal | vector | geo | norms
 
     def arrays(self):
         return frozenset({(self.src, self.field)})
@@ -1001,6 +1105,635 @@ class ConstScorePlan(Plan):
         cins, boost = ins
         _s, matched = self.child.eval(A, dims, cins)
         return torch.where(matched, boost, 0.0).to(torch.float32), matched
+
+
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _f32_ftz(x64):
+    """float64 ``x64`` cast to float32 with a subnormal result flushed to
+    a zero of its sign, as the reference's XLA CPU code runs (flush to
+    zero)."""
+    x = x64.to(torch.float32)
+    return torch.where(x.abs() < _F32_TINY, x * 0.0, x)
+
+
+def _nearest_value_dist(col, origin: float):
+    """float64 distance from ``origin`` to the NEAREST of a doc's values:
+    0 when origin lies inside [min, max], else the gap to the closer bound
+    (the reference's multi-valued semantics of distance_feature and the
+    decays)."""
+    mn = col["minv"].to(torch.float64)
+    mx = col["maxv"].to(torch.float64)
+    below = torch.clamp(mn - origin, min=0.0)  # origin below the range
+    above = torch.clamp(origin - mx, min=0.0)  # origin above the range
+    return torch.maximum(below, above)
+
+
+_EARTH_R_M = 6371008.8
+_RADIANS = np.pi / 180     # jnp.radians(x) is x * (pi / 180)
+
+
+def _haversine_m(lat1, lon1, lat2: float, lon2: float):
+    """Great-circle distance in meters of float64 degrees ``lat1`` /
+    ``lon1`` from the point (``lat2``, ``lon2``), in the reference's order
+    of operations."""
+    p1 = lat1 * _RADIANS
+    p2 = lat2 * _RADIANS
+    dp = p2 - p1
+    dl = lon2 * _RADIANS - lon1 * _RADIANS
+    s_p = torch.sin(dp / 2)
+    s_l = torch.sin(dl / 2)
+    a = s_p * s_p + torch.cos(p1) * math.cos(p2) * (s_l * s_l)
+    return 2 * _EARTH_R_M * torch.arcsin(torch.sqrt(torch.clamp(a, 0.0,
+                                                                1.0)))
+
+
+def _geo_nearest(g, lat: float, lon: float, n_pad: int):
+    """Per doc the float64 meters from (``lat``, ``lon``) to the nearest
+    of its points (+inf without one): a scatter-min of each value's
+    haversine, which no order of the scatter changes."""
+    d = _haversine_m(g["lats"], g["lons"], lat, lon)
+    out = torch.full((n_pad,), math.inf, dtype=torch.float64,
+                     device=d.device)
+    return out.scatter_reduce(0, g["value_docs"].long(), d, reduce="amin")
+
+
+@dataclass(frozen=True)
+class BoostingPlan(Plan):
+    """boosting: the positive clause's scores, demoted by
+    ``negative_boost`` where the negative clause matches too
+    (BoostingQueryBuilder).  bind: {boost, negative_boost, children:
+    (positive bind, negative bind)}."""
+
+    positive: Plan = None
+    negative: Plan = None
+
+    def arrays(self):
+        return self.positive.arrays() | self.negative.arrays()
+
+    def can_match(self, bind, seg):
+        return self.positive.can_match(bind["children"][0], seg)
+
+    def max_score_bound(self, bind, seg):
+        boost = float(bind["boost"])
+        if boost < 0:
+            return math.inf
+        pos = self.positive.max_score_bound(bind["children"][0], seg)
+        # negative_boost is usually in [0, 1); a larger value could
+        # amplify demoted docs, so bound by whichever factor is bigger
+        return (pos * boost * max(1.0, float(bind["negative_boost"]))
+                * _BOUND_MARGIN)
+
+    def prepare(self, bind, seg, dseg, ctx):
+        cdims, cins = _prepare_children(
+            (self.positive, self.negative), bind["children"], seg, dseg,
+            ctx)
+        return cdims, (cins, _f32(bind["boost"]),
+                       _f32(bind["negative_boost"]))
+
+    def dense_leaves(self, dims, ins):
+        return (*self.positive.dense_leaves(dims[0], ins[0][0]),
+                *self.negative.dense_leaves(dims[1], ins[0][1]))
+
+    def eval(self, A, dims, ins):
+        cins, boost, negative_boost = ins
+        scores, matched = self.positive.eval(A, dims[0], cins[0])
+        _ns, neg = self.negative.eval(A, dims[1], cins[1])
+        scores = torch.where(neg, scores * negative_boost, scores) * boost
+        return torch.where(matched, scores, 0.0), matched
+
+
+@dataclass(frozen=True)
+class TermsSetPlan(Plan):
+    """terms_set: a term bag whose required count per doc comes from a
+    numeric field of the doc itself (``minimum_should_match_field``;
+    TermsSetQueryBuilder).  Scores and matched-term counts come from K2's
+    dense entry in scores-and-counts mode (counts only in filter
+    context), over the f32 columns on every segment as in the reference,
+    one launch per request (``dense_prepass``).  A doc without the field
+    never matches.  bind: {terms, idfs, weights, avgdl}."""
+
+    field: str = ""
+    msm_field: str = ""
+    scored: bool = True
+
+    def arrays(self):
+        return frozenset({("postings", self.field),
+                          ("numeric", self.msm_field)})
+
+    def prepare(self, bind, seg, dseg, ctx):
+        """dims ``(t_pad, budget)``; ins ``(slots, impacts | None)``: the
+        host slots as ``TermBagPlan``'s, then the f32 impact column
+        (None in filter context)."""
+        t_pad, tids, active, rows, budget = _term_slots(
+            seg.postings.get(self.field), bind["terms"])
+        idfs = _pad_np(bind["idfs"], t_pad, 0.0, _F32)
+        weights = _pad_np(bind["weights"], t_pad, 0.0, _F32)
+        impacts = (dseg.impacts(self.field, bind["avgdl"])  # quantize-ok
+                   if self.scored else None)
+        return (t_pad, budget), ((tids, active, idfs, weights, rows,
+                                  budget), impacts)
+
+    def dense_mode(self, dims) -> dict:
+        return dict(scores=self.scored, counts=True)
+
+    def dense_bag(self, A, dims, ins) -> bm25_ops.DenseBag:
+        slots, impacts = ins
+        p = A["postings"][self.field]
+        return bm25_ops.DenseBag(p["offsets"], p["doc_ids"], impacts,
+                                 A["live"].shape[0], *slots)
+
+    def dense_leaves(self, dims, ins):
+        return ((self, dims, ins),)
+
+    def eval(self, A, dims, ins):
+        scores, count = _dense_cols(self, A, dims, ins)
+        msm = A["numeric"][self.msm_field]
+        required = torch.where(msm["exists"], msm["minv"].to(torch.int64),
+                               2**62)
+        matched = (count.to(torch.int64) >= required) & (count > 0)
+        if scores is None:
+            scores = torch.zeros(count.shape, dtype=torch.float32,
+                                 device=count.device)
+        return torch.where(matched, scores, 0.0), matched
+
+
+@dataclass(frozen=True)
+class DistanceFeaturePlan(Plan):
+    """distance_feature: ``boost * pivot / (pivot + distance)`` over a
+    numeric / date or geo_point field, the distance to a doc's nearest
+    value (DistanceFeatureQueryBuilder); a doc without the field does not
+    match.  bind: {boost, pivot, origin (a number, or (lat, lon))}."""
+
+    field: str = ""
+    kind: str = "numeric"            # numeric | geo
+
+    def arrays(self):
+        group = "geo" if self.kind == "geo" else "numeric"
+        return frozenset({(group, self.field)})
+
+    def prepare(self, bind, seg, dseg, ctx):
+        if self.kind == "geo":
+            origin = tuple(_exact(v, np.float64) for v in bind["origin"])
+        else:
+            origin = _exact(bind["origin"], np.float64)
+        return (), (origin, _exact(bind["pivot"], np.float64),
+                    _f32(bind["boost"]))
+
+    def eval(self, A, dims, ins):
+        origin, pivot, boost = ins
+        n_pad, _dev = _live_n_pad(A)
+        if self.kind == "geo":
+            g = A["geo"][self.field]
+            dist = _geo_nearest(g, *origin, n_pad)
+            exists = g["exists"]
+        else:
+            col = A["numeric"][self.field]
+            dist = _nearest_value_dist(col, origin)
+            exists = col["exists"]
+        score = boost * (pivot / (pivot + dist))
+        return _f32_ftz(torch.where(exists, score, 0.0)), exists
+
+
+@dataclass(frozen=True)
+class GeoDistancePlan(Plan):
+    """geo_distance filter: any of a doc's points within ``distance_m``
+    meters (haversine) of the origin.  bind: {lat, lon, distance_m,
+    boost}."""
+
+    field: str = ""
+
+    def arrays(self):
+        return frozenset({("geo", self.field)})
+
+    def prepare(self, bind, seg, dseg, ctx):
+        return (), (_exact(bind["lat"], np.float64),
+                    _exact(bind["lon"], np.float64),
+                    _exact(bind["distance_m"], np.float64),
+                    _f32(bind["boost"]))
+
+    def eval(self, A, dims, ins):
+        lat0, lon0, dist_m, boost = ins
+        g = A["geo"][self.field]
+        n_pad, _dev = _live_n_pad(A)
+        d = _haversine_m(g["lats"], g["lons"], lat0, lon0)
+        hit = filter_ops.scatter_any(d <= dist_m, g["value_docs"], n_pad)
+        return _const(hit & g["exists"], boost)
+
+
+@dataclass(frozen=True)
+class GeoPolygonPlan(Plan):
+    """geo_polygon filter: even-odd ray casting of every point against
+    the polygon's edges, values x edges (GeoPolygonQueryBuilder; planar,
+    as the reference's legacy path).  The vertices are padded to
+    ``pad_pow2(n, minimum=4)`` by repeating the last one: a zero-length
+    edge never crosses.  bind: {lats, lons, boost}."""
+
+    field: str = ""
+
+    def arrays(self):
+        return frozenset({("geo", self.field)})
+
+    def prepare(self, bind, seg, dseg, ctx):
+        lats = np.asarray(bind["lats"], np.float64)
+        lons = np.asarray(bind["lons"], np.float64)
+        v_pad = pad_pow2(len(lats), minimum=4)
+        plats = _pad_np(lats, v_pad, lats[-1], np.float64)
+        plons = _pad_np(lons, v_pad, lons[-1], np.float64)
+        # each edge's (i, j = i + 1) ends, the last closing the ring
+        dev = dseg.device
+        edges = np.stack([plats, plons, np.roll(plats, -1),
+                          np.roll(plons, -1)])
+        return (v_pad,), (_tensor(edges, np.float64, dev),
+                          _f32(bind["boost"]))
+
+    def eval(self, A, dims, ins):
+        edges, boost = ins
+        g = A["geo"][self.field]
+        n_pad, _dev = _live_n_pad(A)
+        y = g["lats"][:, None]                  # [V, 1]
+        x = g["lons"][:, None]
+        yi, xi, yj, xj = (e[None, :] for e in edges)   # [1, E]
+        straddles = (yi > y) != (yj > y)
+        # safe where straddles is False (the denominator can be 0 there)
+        dy = yj - yi
+        t = torch.where(straddles,
+                        (y - yi) / torch.where(dy == 0, 1.0, dy), 0.0)
+        crosses = straddles & (x < xi + t * (xj - xi))
+        inside = (crosses.sum(dim=1) % 2) == 1
+        hit = filter_ops.scatter_any(inside, g["value_docs"], n_pad)
+        return _const(hit & g["exists"], boost)
+
+
+@dataclass(frozen=True)
+class GeoBoxPlan(Plan):
+    """geo_bounding_box filter (no dateline wrap).  bind: {top, left,
+    bottom, right, boost}."""
+
+    field: str = ""
+
+    def arrays(self):
+        return frozenset({("geo", self.field)})
+
+    def prepare(self, bind, seg, dseg, ctx):
+        return (), tuple(_exact(bind[k], np.float64)
+                         for k in ("top", "left", "bottom", "right")) + (
+            _f32(bind["boost"]),)
+
+    def eval(self, A, dims, ins):
+        top, left, bottom, right, boost = ins
+        g = A["geo"][self.field]
+        n_pad, _dev = _live_n_pad(A)
+        lats, lons = g["lats"], g["lons"]
+        inside = ((lats <= top) & (lats >= bottom)
+                  & (lons >= left) & (lons <= right))
+        hit = filter_ops.scatter_any(inside, g["value_docs"], n_pad)
+        return _const(hit & g["exists"], boost)
+
+
+@dataclass(frozen=True)
+class FunctionSpec:
+    """One function_score function: static structure only; its parameters
+    ride the bind tree."""
+
+    kind: str = "weight"      # weight | field_value_factor | random_score
+    #                           | script_score | decay
+    filter: Optional[Plan] = None
+    field: str = ""           # field_value_factor / decay target
+    modifier: str = "none"    # field_value_factor modifier
+    decay_fn: str = "gauss"   # gauss | exp | linear
+    geo: bool = False         # decay over a geo_point field
+    program: object = None    # scripting.ScriptProgram for script_score
+
+
+_U32 = 0xFFFFFFFF
+
+
+def _u32_of_f64(x: float) -> int:
+    """XLA's float64 -> uint32 conversion on the CPU: truncation toward
+    zero, saturated to [0, 2^32 - 1] (NaN to 0)."""
+    if math.isnan(x):
+        return 0
+    if x >= _U32:
+        return _U32
+    return max(0, math.trunc(x))
+
+
+def _random_unit(seed: int, n_pad: int, device):
+    """``random_score``'s float64 values in [0, 1) of slots 0..n_pad-1:
+    the reference's uint32 multiply-xorshift hash, its wrapping uint32
+    products made in int64 and masked to 32 bits."""
+    x = torch.arange(n_pad, dtype=torch.int64, device=device)
+    x = (x * 2654435761 + seed) & _U32
+    x = ((x ^ (x >> 16)) * 0x45D9F3B) & _U32
+    x = ((x ^ (x >> 16)) * 0x45D9F3B) & _U32
+    x = x ^ (x >> 16)
+    return x.to(torch.float64) / float(2**32)
+
+
+def _fvf_modified(v, modifier: str):
+    """A field_value_factor modifier over float64 ``v``, the reference's
+    ten (an unknown one leaves ``v`` as it is, as there)."""
+    if modifier == "log":
+        return torch.log10(torch.clamp(v, min=1e-12))
+    if modifier == "log1p":
+        return torch.log10(1.0 + torch.clamp(v, min=0.0))
+    if modifier == "log2p":
+        return torch.log10(2.0 + torch.clamp(v, min=0.0))
+    if modifier == "ln":
+        return torch.log(torch.clamp(v, min=1e-12))
+    if modifier == "ln1p":
+        return torch.log1p(torch.clamp(v, min=0.0))
+    if modifier == "ln2p":
+        return torch.log(2.0 + torch.clamp(v, min=0.0))
+    if modifier == "sqrt":
+        return torch.sqrt(torch.clamp(v, min=0.0))
+    if modifier == "square":
+        return v * v
+    if modifier == "reciprocal":
+        return 1.0 / torch.where(v == 0, 1e-12, v)
+    return v
+
+
+def _decayed(decay_fn: str, eff, scale: float, decay: float):
+    """gauss / exp / linear decay of float64 distances ``eff`` (past the
+    offset), the reference's float64 formulas."""
+    if decay_fn == "gauss":
+        sigma2 = -(scale * scale) / (2.0 * math.log(decay))
+        return torch.exp(-(eff * eff) / (2.0 * sigma2))
+    if decay_fn == "exp":
+        return torch.exp((math.log(decay) / scale) * eff)
+    s = scale / (1.0 - decay)
+    return torch.clamp((s - eff) / s, min=0.0)
+
+
+@dataclass(frozen=True)
+class FunctionScorePlan(Plan):
+    """function_score (FunctionScoreQueryBuilder and functionscore/): the
+    child's scores combined with per-doc function factors, in float64:
+    ``weight``, ``field_value_factor`` (ten modifiers), ``random_score``
+    (a hash of the slot and the seed plus the segment's salt, not a
+    draw), ``script_score`` (a compiled score script; its vector
+    functions are the compiler's request-wide K1 pre-pass, as
+    ``ScriptScorePlan``'s) and the gauss / exp / linear decays over
+    numeric, date and geo_point fields; every ``score_mode`` and
+    ``boost_mode``, ``max_boost`` and ``min_score``.  bind: {boost,
+    child, functions (per function {filter, weight, ...params}),
+    max_boost, min_score}."""
+
+    child: Plan = None
+    functions: tuple = ()              # tuple[FunctionSpec]
+    score_mode: str = "multiply"       # multiply|sum|avg|first|max|min
+    boost_mode: str = "multiply"       # multiply|replace|sum|avg|max|min
+
+    def arrays(self):
+        out = self.child.arrays()
+        for f in self.functions:
+            if f.filter is not None:
+                out |= f.filter.arrays()
+            if f.kind in ("field_value_factor", "decay"):
+                out |= frozenset({("geo" if f.geo else "numeric", f.field)})
+        return out
+
+    # each function kind's parameters, in the reference's order (weight
+    # last: the weighted average reads it there)
+    _PARAM_ORDER = {
+        "weight": ("weight",),
+        "field_value_factor": ("factor", "missing", "weight"),
+        "random_score": ("seed", "salt", "weight"),
+        "script_score": ("weight",),
+        "decay": ("origin", "scale", "offset", "decay", "weight"),
+        "decay_geo": ("origin_lat", "origin_lon", "scale", "offset",
+                      "decay", "weight"),
+    }
+    _PARAM_DEFAULTS = {"weight": 1.0, "factor": 1.0, "missing": 1.0,
+                       "seed": 0.0, "salt": 0.0, "offset": 0.0,
+                       "decay": 0.5}
+
+    def _params(self, spec, fb) -> dict:
+        key = "decay_geo" if spec.kind == "decay" and spec.geo else spec.kind
+        return {name: float(np.float64(
+            fb.get(name, self._PARAM_DEFAULTS.get(name, 0.0))))
+            for name in self._PARAM_ORDER[key]}
+
+    def prepare(self, bind, seg, dseg, ctx):
+        """dims ``(child dims, per function its filter's dims or ())``;
+        ins ``(child ins, per function (filter ins | None, params,
+        extra), boost, max_boost, min_score)``: ``extra`` the random
+        seed's uint32 or a script's inputs on this segment."""
+        cdims, cins = self.child.prepare(bind["child"], seg, dseg, ctx)
+        fdims, fins = [], []
+        for spec, fb in zip(self.functions, bind["functions"]):
+            fd, fi = (), None
+            if spec.filter is not None:
+                fd, fi = spec.filter.prepare(fb["filter"], seg, dseg, ctx)
+            params = self._params(spec, fb)
+            extra = None
+            if spec.kind == "random_score":
+                # a per-segment salt, so random_score differs across
+                # segments; the sum in float64, as the reference's
+                salt = float(zlib.crc32(seg.seg_id.encode()))
+                extra = _u32_of_f64(params["seed"] + salt)
+            elif spec.kind == "script_score":
+                extra = _script_inputs(spec.program, fb, seg, dseg)
+            fdims.append(fd)
+            fins.append((fi, params, extra))
+        ms, mb = bind.get("min_score"), bind.get("max_boost")
+        return (cdims, tuple(fdims)), (
+            cins, tuple(fins), _f32(bind["boost"]),
+            _exact(np.inf if mb is None else mb, np.float64),
+            _f32(-np.inf if ms is None else ms))
+
+    def dense_leaves(self, dims, ins):
+        cdims, fdims = dims
+        out = list(self.child.dense_leaves(cdims, ins[0]))
+        for spec, fd, (fi, _p, _x) in zip(self.functions, fdims, ins[1]):
+            if spec.filter is not None:
+                out.extend(spec.filter.dense_leaves(fd, fi))
+        return tuple(out)
+
+    def _factor(self, spec, A, fdim, fin, n_pad, child_scores):
+        """(float64 value [n_pad], applicable bool [n_pad]) of one
+        function."""
+        fi, params, extra = fin
+        dev = child_scores.device
+        if spec.kind == "weight":
+            value = torch.full((n_pad,), params["weight"],
+                               dtype=torch.float64, device=dev)
+        elif spec.kind == "field_value_factor":
+            col = A["numeric"][spec.field]
+            v = torch.where(col["exists"], col["minv"].to(torch.float64),
+                            params["missing"])
+            v = _fvf_modified(v * params["factor"], spec.modifier)
+            value = v * params["weight"]
+        elif spec.kind == "random_score":
+            value = _random_unit(extra, n_pad, dev) * params["weight"]
+        elif spec.kind == "script_score":
+            ncols, vcols, param_vals = extra
+            new = spec.program.eval(child_scores,
+                                    dict(zip(spec.program.numeric_fields,
+                                             ncols)),
+                                    vcols, param_vals, dev)
+            if not isinstance(new, torch.Tensor):
+                new = torch.tensor(new, device=dev)
+            value = (new.to(torch.float64) * params["weight"]).broadcast_to(
+                (n_pad,))
+        else:                                          # decay
+            if spec.geo:
+                g = A["geo"][spec.field]
+                dist = _geo_nearest(g, params["origin_lat"],
+                                    params["origin_lon"], n_pad)
+                exists = g["exists"]
+            else:
+                col = A["numeric"][spec.field]
+                dist = _nearest_value_dist(col, params["origin"])
+                exists = col["exists"]
+            # a doc without the field: distance 0, factor 1
+            dist = torch.where(exists, dist, 0.0)
+            eff = torch.clamp(dist - params["offset"], min=0.0)
+            value = _decayed(spec.decay_fn, eff, params["scale"],
+                             params["decay"]) * params["weight"]
+        if spec.filter is None:
+            applicable = torch.ones(n_pad, dtype=torch.bool, device=dev)
+        else:
+            _fs, applicable = spec.filter.eval(A, fdim, fi)
+        return value, applicable
+
+    def _combined(self, values, apps, fins, n_pad, dev):
+        """The functions' factor per doc by ``score_mode`` (1 where none
+        applies)."""
+        f64 = dict(dtype=torch.float64, device=dev)
+        mode = self.score_mode
+        if mode == "multiply":
+            factor = torch.ones(n_pad, **f64)
+            for v, a in zip(values, apps):
+                factor = factor * torch.where(a, v, 1.0)
+        elif mode == "sum":
+            factor = torch.zeros(n_pad, **f64)
+            for v, a in zip(values, apps):
+                factor = factor + torch.where(a, v, 0.0)
+        elif mode == "avg":
+            # WEIGHTED average: the values carry their weight already, so
+            # divide by the applicable weights, not by the count
+            tot = torch.zeros(n_pad, **f64)
+            wsum = torch.zeros(n_pad, **f64)
+            for v, a, (_fi, params, _x) in zip(values, apps, fins):
+                tot = tot + torch.where(a, v, 0.0)
+                wsum = wsum + torch.where(
+                    a, torch.full_like(wsum, params["weight"]), 0.0)
+            factor = tot / torch.clamp(wsum, min=1e-12)
+        elif mode == "max":
+            factor = torch.full((n_pad,), -math.inf, **f64)
+            for v, a in zip(values, apps):
+                factor = torch.maximum(factor, torch.where(a, v, -math.inf))
+        elif mode == "min":
+            factor = torch.full((n_pad,), math.inf, **f64)
+            for v, a in zip(values, apps):
+                factor = torch.minimum(factor, torch.where(a, v, math.inf))
+        else:                                          # first
+            factor = torch.zeros(n_pad, **f64)
+            assigned = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+            for v, a in zip(values, apps):
+                factor = torch.where(a & ~assigned, v, factor)
+                assigned = assigned | a
+        any_app = apps[0]
+        for a in apps[1:]:
+            any_app = any_app | a
+        return torch.where(any_app, factor, 1.0)
+
+    def eval(self, A, dims, ins):
+        cdims, fdims = dims
+        cins, fins, boost, max_boost, min_score = ins
+        scores, matched = self.child.eval(A, cdims, cins)
+        n_pad, dev = _live_n_pad(A)
+        s64 = scores.to(torch.float64)
+        if self.functions:
+            values, apps = [], []
+            for spec, fd, fi in zip(self.functions, fdims, fins):
+                v, a = self._factor(spec, A, fd, fi, n_pad, scores)
+                values.append(v)
+                apps.append(a)
+            factor = self._combined(values, apps, fins, n_pad, dev)
+        else:
+            factor = torch.ones(n_pad, dtype=torch.float64, device=dev)
+        if max_boost < math.inf:
+            factor = torch.clamp(factor, max=max_boost)
+        mode = self.boost_mode
+        if mode == "multiply":
+            out = s64 * factor
+        elif mode == "replace":
+            out = factor
+        elif mode == "sum":
+            out = s64 + factor
+        elif mode == "avg":
+            out = (s64 + factor) / 2.0
+        elif mode == "max":
+            out = torch.maximum(s64, factor)
+        else:                                          # min
+            out = torch.minimum(s64, factor)
+        out = _f32_ftz(out * boost)
+        matched = matched & (out >= min_score)
+        return torch.where(matched, out, 0.0), matched
+
+
+def _script_inputs(program, fb, seg, dseg) -> tuple:
+    """A script function's inputs on one segment: ``(numeric columns,
+    vector columns {id(call node): f32 [n_pad]}, param values)``, the
+    numeric ones as ``ScriptScorePlan.prepare`` makes them, the vector
+    ones the compiler's pre-pass views of this segment."""
+    n_pad, dev = dseg.n_pad, dseg.device
+    ncols = []
+    for f in program.numeric_fields:
+        col = dseg.numeric.get(f)
+        if col is None:
+            ncols.append((torch.zeros(n_pad, dtype=torch.float32,
+                                      device=dev),
+                          torch.zeros(n_pad, dtype=torch.bool, device=dev)))
+        else:
+            ncols.append((torch.where(col["exists"],
+                                      col["minv"].to(torch.float32), 0.0),
+                          col["exists"]))
+    vcols = {node: fb["vectors"][key][id(seg)]
+             for node, key in fb["node_keys"].items()}
+    return tuple(ncols), vcols, fb["params"]
+
+
+# constant-score leaves: the boost is the only score they can produce, so
+# it IS the bound (the reference registers the same)
+for _cls in (ExpandTermsPlan, GeoDistancePlan, GeoPolygonPlan, GeoBoxPlan):
+    _cls.max_score_bound = _boost_bound
+del _cls
+
+
+def _edit_distance_le(a: str, b: str, k: int) -> bool:
+    """Banded optimal-string-alignment distance (Levenshtein WITH
+    transpositions: Lucene's fuzzy default, fuzzy_transpositions=true):
+    True iff distance(a, b) <= k."""
+    if abs(len(a) - len(b)) > k:
+        return False
+    if k == 0:
+        return a == b
+    prev2 = None
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i] + [0] * len(b)
+        lo = max(1, i - k)
+        hi = min(len(b), i + k)
+        if lo > 1:
+            cur[lo - 1] = k + 1
+        for j in range(lo, hi + 1):
+            cost = 0 if ca == b[j - 1] else 1
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + cost)
+            if (prev2 is not None and i > 1 and j > 1
+                    and ca == b[j - 2] and a[i - 2] == b[j - 1]):
+                cur[j] = min(cur[j], prev2[j - 2] + 1)   # transposition
+        for j in range(hi + 1, len(b) + 1):
+            cur[j] = k + 1
+        prev2, prev = prev, cur
+        if min(prev) > k:
+            return False
+    return prev[len(b)] <= k
 
 
 # ---------------------------------------------------------------------------

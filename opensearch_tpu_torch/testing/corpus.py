@@ -7,8 +7,9 @@ occur in the corpus (``phrase_query_log``), plus seeded generators of
 float32 vectors (``random_vectors``; ``clustered_vectors`` for ANN) and
 of doc-value columns (``doc_value_columns``: a
 ``price`` long, a ``ts`` date, a ``tag`` keyword with postings and
-ordinals and a ``fare`` double, ``COLUMNS_MAPPING``).  Pure numpy;
-segments are this package's."""
+ordinals and a ``fare`` double, ``COLUMNS_MAPPING``; ``relevance_columns``:
+a ``pickup`` geo_point and a ``min_terms`` long, ``RELEVANCE_MAPPING``).
+Pure numpy; segments are this package's."""
 
 from __future__ import annotations
 
@@ -16,9 +17,9 @@ from typing import Optional
 
 import numpy as np
 
-from opensearch_tpu_torch.index.segment import (NumericDV, OrdinalDV,
-                                                PostingsField, Segment,
-                                                VectorDV)
+from opensearch_tpu_torch.index.segment import (GeoDV, NumericDV,
+                                                OrdinalDV, PostingsField,
+                                                Segment, VectorDV)
 
 VOCAB_SIZE = 30_000
 AVG_LEN = 40
@@ -129,6 +130,33 @@ def doc_value_columns(n_docs: int, seed: int = 11) -> dict:
     return cols
 
 
+# relevance_columns: the nyc_taxis workload's pickup box and Midtown
+PICKUP_BOX = (40.50, 40.92, -74.26, -73.70)   # lat lo, lat hi, lon lo, hi
+MIDTOWN = (40.758, -73.9855)
+RELEVANCE_MAPPING = {"pickup": {"type": "geo_point"},
+                     "min_terms": {"type": "long"}}
+
+
+def relevance_columns(n_docs: int, seed: int = 16) -> dict:
+    """Seeded columns of ``n_docs`` docs for the relevance and geo
+    queries, drawn apart from ``doc_value_columns`` so its columns stay
+    what they are: ``pickup`` (lat, lon) float64 pairs in the nyc_taxis
+    workload's pickup box (``PICKUP_BOX``), 80% normal around Midtown
+    (sigma 0.015 degrees, ~1.5 km, clipped to the box) and 20% uniform
+    over the box, each rounded to 6 decimals; ``min_terms`` int64 uniform
+    over 1..4 (``terms_set``'s per-doc minimum)."""
+    rng = np.random.default_rng(seed)
+    lat_lo, lat_hi, lon_lo, lon_hi = PICKUP_BOX
+    near = rng.uniform(size=n_docs) < 0.8
+    lats = np.where(near, rng.normal(MIDTOWN[0], 0.015, size=n_docs),
+                    rng.uniform(lat_lo, lat_hi, size=n_docs))
+    lons = np.where(near, rng.normal(MIDTOWN[1], 0.015, size=n_docs),
+                    rng.uniform(lon_lo, lon_hi, size=n_docs))
+    return {"pickup": (np.round(np.clip(lats, lat_lo, lat_hi), 6),
+                       np.round(np.clip(lons, lon_lo, lon_hi), 6)),
+            "min_terms": rng.integers(1, 5, size=n_docs, dtype=np.int64)}
+
+
 def _long_column(values: np.ndarray, kind: str = "long") -> NumericDV:
     n = len(values)
     dtype = np.int64 if kind == "long" else np.float64
@@ -178,43 +206,63 @@ def make_segments(raw: dict, n_segments: int,
                   columns: Optional[dict] = None) -> list[Segment]:
     """Split the raw CSR corpus into ``n_segments`` doc-range segments
     with a ``body`` postings field and its positions (only terms present
-    in a segment get a dictionary entry, so can-match can prune it), when
-    ``vectors``
-    [n_docs, d] is given a vector field and, when ``columns`` (of
-    ``doc_value_columns``) is given, the ``price`` and ``ts`` long
-    columns, the ``tag`` keyword's postings and ordinals and, when the
-    columns hold it, the ``fare`` double column."""
+    in a segment get a dictionary entry, so can-match can prune it; term
+    ids in the sorted order of the terms, as the writer's), when
+    ``vectors`` [n_docs, d] is given a vector field and, when
+    ``columns`` (of ``doc_value_columns``) is given, the ``price`` and
+    ``ts`` long columns, the ``tag`` keyword's postings and ordinals and,
+    when the columns hold them, the ``fare`` double column, the
+    ``pickup`` geo_point column and the ``min_terms`` long column (of
+    ``relevance_columns``)."""
     n_docs = raw["n_docs"]
     n_segments = max(1, min(int(n_segments), n_docs))
     offsets, df = raw["offsets"], raw["df"]
     doc_ids, tfs, doc_lens = raw["doc_ids"], raw["tfs"], raw["doc_lens"]
     term_of = np.repeat(np.arange(VOCAB_SIZE, dtype=np.int32), df)
     pos_counts = np.diff(raw["pos_offsets"])
+    # each term's rank in the sorted dictionary of every term's name: a
+    # segment's term ids follow it, as the writer's do (prefix, wildcard
+    # and range queries binary-search the sorted dictionary)
+    names = np.array([f"t{t}" for t in range(VOCAB_SIZE)])
+    rank = np.empty(VOCAB_SIZE, dtype=np.int64)
+    rank[np.argsort(names)] = np.arange(VOCAB_SIZE)
     bounds = np.linspace(0, n_docs, n_segments + 1).astype(np.int64)
     segs = []
     for s in range(n_segments):
         lo, hi = int(bounds[s]), int(bounds[s + 1])
         n_local = hi - lo
         mask = (doc_ids >= lo) & (doc_ids < hi)
-        seg_df = np.bincount(term_of[mask],
-                             minlength=VOCAB_SIZE).astype(np.int32)
-        seg_offsets = np.zeros(VOCAB_SIZE + 1, dtype=np.int32)
+        seg_df = np.bincount(term_of[mask], minlength=VOCAB_SIZE)
+        present = np.nonzero(seg_df)[0]
+        present = present[np.argsort(rank[present])]
+        local = np.zeros(VOCAB_SIZE, dtype=np.int64)
+        local[present] = np.arange(len(present))
+        # the segment's postings in its dictionary's order (stable: a
+        # term's rows stay doc-ascending), each entry's positions with it
+        perm = np.argsort(local[term_of[mask]], kind="stable")
+        counts = pos_counts[mask]
+        old_starts = np.cumsum(counts) - counts
+        counts = counts[perm]
+        seg_pos_offsets = np.zeros(len(perm) + 1, dtype=np.int32)
+        seg_pos_offsets[1:] = np.cumsum(counts)
+        gather = (np.repeat(old_starts[perm] - seg_pos_offsets[:-1], counts)
+                  + np.arange(int(seg_pos_offsets[-1])))
+        seg_positions = raw["positions"][np.repeat(mask, pos_counts)][gather]
+        seg_df = seg_df[present].astype(np.int32)
+        seg_offsets = np.zeros(len(present) + 1, dtype=np.int32)
         seg_offsets[1:] = np.cumsum(seg_df)
         local_lens = doc_lens[lo:hi]
-        seg_pos_offsets = np.zeros(int(mask.sum()) + 1, dtype=np.int32)
-        seg_pos_offsets[1:] = np.cumsum(pos_counts[mask])
         seg = Segment(f"bench_{s}", n_local)
         seg.doc_ids = [str(i) for i in range(lo, hi)]
         seg.id_to_local = {str(i): i - lo for i in range(lo, hi)}
         seg.sources = [b"{}"] * n_local
         seg.postings["body"] = PostingsField(
-            terms={f"t{int(t)}": int(t)
-                   for t in np.nonzero(seg_df)[0]}, df=seg_df,
-            offsets=seg_offsets,
-            doc_ids=(doc_ids[mask] - lo).astype(np.int32),
-            tfs=tfs[mask],
+            terms={f"t{int(t)}": i for i, t in enumerate(present)},
+            df=seg_df, offsets=seg_offsets,
+            doc_ids=(doc_ids[mask] - lo).astype(np.int32)[perm],
+            tfs=tfs[mask][perm],
             pos_offsets=seg_pos_offsets,
-            positions=raw["positions"][np.repeat(mask, pos_counts)],
+            positions=seg_positions,
             doc_lens=local_lens, total_len=float(local_lens.sum()),
             docs_with_field=n_local, has_norms=True,
             present=np.ones(n_local, dtype=bool))
@@ -239,6 +287,17 @@ def _add_fields(seg: Segment, lo: int, hi: int,
             columns["tag"][lo:hi])
         if "fare" in columns:
             seg.numeric_dv["fare"] = _double_column(columns["fare"][lo:hi])
+        if "pickup" in columns:
+            lats, lons = (a[lo:hi] for a in columns["pickup"])
+            n = hi - lo
+            seg.geo_dv["pickup"] = GeoDV(
+                offsets=np.arange(n + 1, dtype=np.int32),
+                lats=lats.astype(np.float32), lons=lons.astype(np.float32),
+                value_docs=np.arange(n, dtype=np.int32),
+                exists=np.ones(n, dtype=bool))
+        if "min_terms" in columns:
+            seg.numeric_dv["min_terms"] = _long_column(
+                columns["min_terms"][lo:hi])
 
 
 def vector_segments(vectors: np.ndarray, n_segments: int,

@@ -2,8 +2,9 @@
 ``ShardSearcher`` (on the CPU, through the plain versions of K8 / K9 and
 K2) against the JAX package's, on the same docs: ``match_phrase``,
 ``multi_match`` (all four types), ``dis_max``, ``simple_query_string``,
-``match_phrase_prefix``, ``match_bool_prefix``, ``span_term``,
-``span_near``, ``span_first``, ``span_or`` and ``intervals``.
+``match_phrase_prefix``, ``match_bool_prefix`` (with ``fuzziness``
+too), ``span_term``, ``span_near``, ``span_first``, ``span_or`` and
+``intervals``.
 
 Corpora: the docs of ``tests/test_span_intervals.py`` (and its
 full-bucket and same-term layouts), of ``tests/test_query_tail.py``'s
@@ -13,8 +14,7 @@ scores, totals and ``max_score``; ``count`` equal; an error of the same
 type and status.  The JAX side scores on its device path
 (``HOST_SCORING = False``).  One case sets ``QUANTIZED_MODE = "on"`` on
 both codec modules: the port's positions then stage through
-``ensure_postings`` on a quantized segment.  A ``match_bool_prefix`` with
-``fuzziness`` reaches ``fuzzy``, which the port does not serve yet (501).
+``ensure_postings`` on a quantized segment.
 """
 
 import numpy as np
@@ -26,8 +26,7 @@ from opensearch_tpu.index.segment import SegmentWriter as JaxWriter
 from opensearch_tpu.mapping.mapper import DocumentMapper as JaxMapper
 from opensearch_tpu.ops import bm25 as jbm25
 from opensearch_tpu.search.executor import ShardSearcher as JaxSearcher
-from opensearch_tpu_torch.common.errors import (NotYetPortedError,
-                                                OpenSearchTpuError)
+from opensearch_tpu_torch.common.errors import OpenSearchTpuError
 from opensearch_tpu_torch.index import codec as tcodec
 from opensearch_tpu_torch.index.segment import SegmentWriter
 from opensearch_tpu_torch.mapping.mapper import DocumentMapper
@@ -308,13 +307,16 @@ def test_errors_equal_reference(corpora, corpus_name, query):
 
 
 def test_bool_prefix_with_fuzziness_is_not_ported(corpora):
-    """Its term clauses are ``fuzzy`` queries: 501 until fuzzy is
-    ported (the reference answers)."""
-    _jax_s, port_s = corpora["tail"]
-    with pytest.raises(NotYetPortedError) as exc:
-        port_s.search({"query": {"match_bool_prefix": {"body": {
-            "query": "fox qui", "fuzziness": 1}}}})
-    assert exc.value.status == 501
+    """Its term clauses are ``fuzzy`` queries.  This test held that the
+    port answered 501 while fuzzy was not ported; it is ported now, so
+    the body answers as the reference's, byte for byte."""
+    for query in ({"match_bool_prefix": {"body": {
+            "query": "fox qui", "fuzziness": 1}}},
+            {"match_bool_prefix": {"body": {
+                "query": "fax quick tortle", "fuzziness": "AUTO",
+                "operator": "and"}}}):
+        for extra in ({"size": 10}, {"size": 2, "from": 1}):
+            check(corpora["tail"], {"query": query, **extra})
 
 
 def test_quantized_segments_stage_positions(monkeypatch):

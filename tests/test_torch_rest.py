@@ -297,7 +297,12 @@ def test_search_params(nodes):
         assert status == 200, path
         assert body.get("count", body.get("hits", {}).get("total",
                                                           {}).get("value"))
-    not_ported(nodes, "GET", "/srch/_search?q=title:w1*")
+    # a URI wildcard (a wildcard query) is served since the multi-term
+    # queries are; a body key the port does not serve yet answers 501
+    status, body = both(nodes, "GET", "/srch/_search?q=title:w1*")
+    assert status == 200 and body["hits"]["hits"]
+    not_ported(nodes, "POST", "/srch/_search",
+               {"query": {"match_all": {}}, "profile": True})
     # aggregations are served now, as the reference serves them
     assert both(nodes, "POST", "/srch/_search", {
         "query": {"match_all": {}},

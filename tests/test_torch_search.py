@@ -300,14 +300,17 @@ def test_count_matches_reference(pair):
     {"query": {"hybrid": {"queries": [{"match_all": {}}]}}},
     {"query": {"match_all": {}},
      "suggest": {"s": {"text": "w1", "term": {"field": "body"}}}},
+    {"query": {"nested": {"path": "parts",
+                          "query": {"match": {"parts.name": "w1"}}}}},
 ], ids=["aggs", "sort", "highlight", "profile", "fuzziness", "phrase",
-        "range", "ids", "hybrid", "suggest"])
+        "range", "ids", "hybrid", "suggest", "nested"])
 def test_unported_features_raise_typed_error(body, monkeypatch):
     """Features the port does not serve raise ``NotYetPortedError`` (501):
-    ``profile``, ``suggest`` and ``fuzziness``.  ``range``, ``term`` on
-    ``_id``, ``hybrid``, ``aggs``, ``match_phrase``, ``sort`` and
-    ``highlight`` are ported now: those cases answer as the JAX package
-    does, byte for byte (hits, sort values and highlights included)."""
+    ``profile``, ``suggest`` and ``nested``.  ``range``, ``term`` on
+    ``_id``, ``hybrid``, ``aggs``, ``match_phrase``, ``sort``,
+    ``highlight`` and ``fuzziness`` are ported now: those cases answer as
+    the JAX package does, byte for byte (hits, sort values and
+    highlights included)."""
     mapper = DocumentMapper(MAPPING)
     docs = json_docs(3, sum(SEG_SIZES))
     segs = build(SegmentWriter(), mapper, docs)
@@ -315,7 +318,7 @@ def test_unported_features_raise_typed_error(body, monkeypatch):
     q = body["query"]
     if "range" in q or "hybrid" in q or q.get("term", {}).get("_id") \
             or "aggs" in body or "match_phrase" in q or "sort" in body \
-            or "highlight" in body:
+            or "highlight" in body or "fuzziness" in str(q):
         monkeypatch.setattr(jax_bm25, "HOST_SCORING", False)
         ref = JaxSearcher(build(JaxWriter(), JaxMapper(MAPPING), docs),
                           JaxMapper(MAPPING)).search(body)
