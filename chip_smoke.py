@@ -356,7 +356,36 @@ Phases, each of which fails the run (non-zero exit) on any error:
    searcher (byte for byte; 2 float32 ulps on the kinds whose scores go
    through transcendental functions).  Phase 9 also sends ``corpus``
    five such bodies and ``?q=body:t12*`` over HTTP, held to the CPU
-   searcher.
+   searcher;
+17. the relationship queries and the reader contexts: 1,000,000
+   questions (OpenSearch Benchmark's ``nested`` workload's shape: a
+   ``tag``, a ``created`` date, 0-6 ``answers`` of a zipf ``user`` and a
+   later ``date``; ``testing/corpus.py`` ``qa_draws``) as nested objects
+   and as the parent and child docs of a ``join`` field (each answer
+   also a ``body`` of 5-15 tokens), 16 segments each, and a percolator
+   index of 2,000 stored ``body`` queries: 10 ``nested`` in the
+   ``randomized-nested-queries`` shape, 10 inside a ``bool`` with a
+   ``tag`` filter, 10 ``has_child`` (each ``score_mode``, one with
+   ``min_children``), 10 ``has_parent`` with ``score``, 10
+   ``parent_id``, 5 ``percolate`` of one document and 5 of five, 5 term
+   and 5 phrase ``suggest``, 10 ``completion`` prefixes on a small
+   index, and one body with each key the searcher ignores: p50 host ms
+   and the launches a request by route (the dense entry, the plan
+   top-k), the joins' inner pre-pass and percolate's ms per stored
+   query apart, device ms and kernels a request under the profiler;
+   then on phase 4's 16 segments a ``match_all`` scroll of 25 pages of
+   1,000 (first page apart), a sliced scroll (``max: 4``, the slices'
+   rows every row once), a scroll sorted on ``ts`` and a point in time
+   with three ``search_after`` pages and a delete after it opens; one
+   of each kind and every scroll and PIT page held to the CPU searcher
+   byte for byte, and the ``nested`` and ``has_child`` question sets of
+   one bool held equal; ``knn_topk_batch`` (64 queries over 65,536 x
+   128) against K1's top-k entry one query at a time.  Phase 9 also
+   indexes ``qa_nested``, ``qa_join`` and ``qa_perc`` and, over HTTP,
+   reads two scroll pages and clears the scroll, searches a point in
+   time and closes it, and sends a ``nested``, a ``has_child``, a
+   ``percolate`` and a ``suggest`` body: each answer equals a CPU
+   node's, the ids masked.
 
 Every kernel wrapper counts its launches; the counts are zeroed just
 before phase 3 and read after phase 4, and zeroed again just before
@@ -367,8 +396,9 @@ phase 9's phrase requests and each kind of phase 14; all of them before
 phase 9's sorted requests and before phase 15 (whose dense entry, K2
 top-k and K8 launches must be more than 0), and before phase 9's
 relevance requests and phase 16 (whose K1 scores, dense entry and plan
-top-k launches must be more than 0): each kernel of each path must have
-run.
+top-k launches must be more than 0), and before phase 9's relations
+requests and phase 17's requests (whose dense entry and plan top-k
+launches must be more than 0): each kernel of each path must have run.
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the
 script exits non-zero and prints no result.
@@ -6261,25 +6291,33 @@ def expansion_ms(segs, mapper, query, reps: int = 3) -> dict:
 
 
 def relevance_device(searcher, body, reps: int = REL_PROFILE,
-                     attempts: int = 3) -> dict:
+                     attempts: int = 3, fresh_plans: bool = False) -> dict:
     """Device ms a request of ``body`` under ``torch.profiler`` over
     ``reps`` requests, its device kernels a request (the hand-written
     ones of ``HAND_KERNELS`` apart from torch's own, copies and memsets
     left out) and the device's idle share of the requests' wall time;
     the first of ``attempts`` windows with device events counts (None
-    values when none does)."""
+    values when none does).  ``fresh_plans`` empties the searcher's plan
+    cache before each request, so that a join's pre-pass runs in each."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from opensearch_tpu_torch.common.cache import BoundedCache
     from opensearch_tpu_torch.testing.profile_scale import (_device_self_us,
                                                             _is_device)
-    searcher.search(body)
+
+    def search():
+        if fresh_plans:
+            searcher._plan_cache = BoundedCache(searcher._plan_cache.limit)
+        searcher.search(body)
+
+    search()
     for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t = time.monotonic()
             for _ in range(reps):
-                searcher.search(body)
+                search()
             torch.cuda.synchronize()
             wall = (time.monotonic() - t) * 1e3 / reps
         events = [e for e in prof.key_averages() if _is_device(e)]
@@ -6529,6 +6567,675 @@ def phase_http_relevance(node, state, counters) -> dict:
             "launches": launches}
 
 
+# -- phase 17: the relationship queries and the reader contexts ------------
+
+QA_QUESTIONS = 1_000_000         # phase 17: questions of each corpus
+QA_SEGMENTS = 16                 # ... in 16 segments of 62,500 questions
+QA_PER_KIND = 10                 # requests of each kind
+QA_CHECK = 1                     # of each kind, held to the CPU searcher
+PERC_QUERIES = 2_000             # stored queries of the percolator index
+PERC_PER_KIND = 5                # percolate requests with 1 and 5 docs
+SUGGEST_PER_KIND = 5             # term and phrase suggest requests
+COMPLETION_DOCS = 5_000          # docs of the completion index
+SCROLL_PAGES = 25                # a match_all scroll of 25 pages ...
+SCROLL_PAGE = 1_000              # ... of 1,000 (nyc_taxis' and pmc's)
+SCROLL_TS_PAGES = 5              # pages of the scroll sorted on ts
+SCROLL_SLICES = 4
+PIT_PAGE = 100                   # three search_after pages of 100
+QA_PROFILE = 3                   # requests of a kind under the profiler
+KNN_BATCH = (64, 65_536, 128, 10)   # queries, rows, dims, k
+HTTP_QA_QUESTIONS = 500          # questions of phase 9's qa indices
+IGNORED_KEYS = ({"post_filter": {"term": {"tag": "tag001"}}},
+                {"track_scores": True}, {"terminate_after": 5},
+                {"version": True}, {"seq_no_primary_term": True},
+                {"indices_boost": [{"scale": 2.0}]},
+                {"script_fields": {"x": {"script": {"source": "1"}}}},
+                {"slice": {"id": 0, "max": 2}}, {"profile": False})
+
+
+def phase17_bodies(draws) -> dict:
+    """The requests of phase 17, by kind: ``nested`` in the
+    ``randomized-nested-queries`` shape (a ``term`` on ``answers.user``,
+    zipf users, and a 90-day ``range`` on ``answers.date``), alone and
+    inside a ``bool`` with a ``tag`` filter; ``has_child`` over a
+    ``match`` pair on ``body`` in each ``score_mode`` (one with
+    ``min_children: 2``); ``has_parent`` over a ``term`` on ``tag`` with
+    ``score``; ``parent_id`` of questions with answers; ``percolate`` of
+    one and of five documents; term and phrase ``suggest`` on ``body``
+    with a misspelled token; ``completion`` prefixes; one body with each
+    key the searcher ignores."""
+    from opensearch_tpu_torch.testing import corpus
+
+    rng = np.random.default_rng(171)
+    day = 86_400_000
+
+    def nested_q():
+        user = int(min(rng.zipf(1.3) - 1, corpus.QA_USERS - 1))
+        lo = corpus.TS_START_MS + int(rng.integers(0, 300)) * day
+        return {"nested": {"path": "answers", "query": {"bool": {"must": [
+            {"term": {"answers.user": corpus.user_name(user)}},
+            {"range": {"answers.date": {"gte": lo, "lte": lo + 90 * day}}}
+        ]}}}}
+
+    pairs = corpus.zipf_query_log(QA_PER_KIND, seed=172)
+    modes = ("none", "sum", "max", "avg")
+    has_child = [{"has_child": {"type": "answer", "score_mode":
+                                modes[i % 4], "query": {"match": {
+                                    "body": f"t{a} t{b}"}}}}
+                 for i, (a, b) in enumerate(pairs)]
+    has_child[-2]["has_child"]["min_children"] = 2
+    with_answers = np.nonzero(draws["n_answers"] > 0)[0]
+    docs = corpus.percolator_documents(6 * PERC_PER_KIND, seed=24)
+    wrong = [f"t{int(t)}x" for t in rng.integers(1, 300, size=10)]
+    out = {
+        "nested": [nested_q() for _ in range(QA_PER_KIND)],
+        "nested_tag": [{"bool": {"must": [nested_q()], "filter": [
+            {"term": {"tag": corpus.tag_name(int(min(rng.zipf(1.3) - 1,
+                                                     30)))}}]}}
+            for _ in range(QA_PER_KIND)],
+        "has_child": has_child,
+        "has_parent": [{"has_parent": {
+            "parent_type": "question", "score": True, "query": {"term": {
+                "tag": corpus.tag_name(int(min(rng.zipf(1.3) - 1,
+                                               corpus.TAG_VALUES - 1)))}}}}
+            for _ in range(QA_PER_KIND)],
+        "parent_id": [{"parent_id": {"type": "answer", "id": str(int(q))}}
+                      for q in rng.choice(with_answers, QA_PER_KIND)],
+        "percolate_1": [{"percolate": {"field": "query", "document": d}}
+                        for d in docs[:PERC_PER_KIND]],
+        "percolate_5": [{"percolate": {"field": "query", "documents":
+                                       docs[PERC_PER_KIND + 5 * i:
+                                            PERC_PER_KIND + 5 * i + 5]}}
+                        for i in range(PERC_PER_KIND)],
+    }
+    bodies = {kind: [{"query": q, "size": 10} for q in qs]
+              for kind, qs in out.items()}
+    bodies["suggest_term"] = [
+        {"size": 0, "suggest": {"s": {"text": f"t1 {w}", "term": {
+            "field": "body"}}}} for w in wrong[:SUGGEST_PER_KIND]]
+    bodies["suggest_phrase"] = [
+        {"size": 0, "suggest": {"p": {"text": f"t1 {w} t3", "phrase": {
+            "field": "body", "highlight": {"pre_tag": "<em>",
+                                           "post_tag": "</em>"}}}}}
+        for w in wrong[SUGGEST_PER_KIND:]]
+    bodies["suggest_completion"] = [
+        {"size": 0, "suggest": {"c": {"prefix": f"u{p}", "completion": {
+            "field": "sug", "size": 5}}}}
+        for p in ("0", "00", "000", "001", "01", "1", "2", "05", "3",
+                  "0000")][:QA_PER_KIND]
+    bodies["ignored_keys"] = [{"query": {"match": {"body": "t1 t7"}},
+                               "size": 10, **extra} for extra in IGNORED_KEYS]
+    return bodies
+
+
+def completion_index(mapper_cls, writer_cls, n_docs: int, seed: int = 25):
+    """A small writer-built index with a ``sug`` completion field: user
+    names with zipf weights."""
+    from opensearch_tpu_torch.testing import corpus
+
+    mapper = mapper_cls({"properties": {"sug": {"type": "completion"}}})
+    rng = np.random.default_rng(seed)
+    parsed = [mapper.parse(str(i), {"sug": {
+        "input": [corpus.user_name(int(u))],
+        "weight": int(rng.integers(1, 100))}})
+        for i, u in enumerate(rng.integers(0, 20_000, size=n_docs))]
+    return [writer_cls().build(parsed, "sug0")], mapper
+
+
+def tensor_bytes(obj) -> int:
+    """Bytes of the tensors inside ``obj`` (tensors, tuples, lists,
+    dicts)."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (tuple, list)):
+        return sum(tensor_bytes(x) for x in obj)
+    if isinstance(obj, dict):
+        return sum(tensor_bytes(x) for x in obj.values())
+    return 0
+
+
+def build_relations():
+    """Phase 17's corpora on the card: the nested and join corpora of
+    ``qa_draws(QA_QUESTIONS)`` in QA_SEGMENTS segments each, and the
+    percolator index of PERC_QUERIES stored queries."""
+    import torch
+
+    from opensearch_tpu_torch.index.segment import SegmentWriter
+    from opensearch_tpu_torch.mapping.mapper import DocumentMapper
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing import corpus
+
+    t0 = time.monotonic()
+    draws = corpus.qa_draws(QA_QUESTIONS, seed=21)
+    nsegs = corpus.nested_segments(draws, QA_SEGMENTS)
+    jsegs = corpus.join_segments(draws, QA_SEGMENTS)
+    nmapper = DocumentMapper({"properties": corpus.NESTED_MAPPING})
+    jmapper = DocumentMapper({"properties": corpus.JOIN_MAPPING})
+    pmapper = DocumentMapper({"properties": corpus.PERCOLATOR_MAPPING})
+    psegs = [SegmentWriter().build(
+        [pmapper.parse(str(i), {"query": q}) for i, q in
+         enumerate(corpus.percolator_queries(PERC_QUERIES, seed=23))],
+        "perc0")]
+    build_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    out = {"draws": draws,
+           "nested": (nsegs, nmapper, ShardSearcher(
+               nsegs, nmapper, index_name="qa_nested", device=DEVICE)),
+           "join": (jsegs, jmapper, ShardSearcher(
+               jsegs, jmapper, index_name="qa_join", device=DEVICE)),
+           "perc": (psegs, pmapper, ShardSearcher(
+               psegs, pmapper, index_name="qa_perc", device=DEVICE))}
+    jdev = out["join"][2].device
+    avgdl = out["join"][2].ctx.field_stats("body").avgdl
+    for seg in jsegs:
+        seg.device(jdev).impacts("body", avgdl)
+    torch.cuda.synchronize()
+    out["stage_s"] = time.monotonic() - t0
+    out["build_s"] = build_s
+    log(f"relations corpora: {QA_QUESTIONS} questions, "
+        f"{int(draws['n_answers'].sum())} answers, {QA_SEGMENTS} segments "
+        f"each (nested: {nsegs[0].n_docs} docs a segment; join: "
+        f"{sum(s.n_docs for s in jsegs)} docs); {PERC_QUERIES} stored "
+        f"queries; built in {build_s:.1f}s, staged in "
+        f"{out['stage_s']:.1f}s")
+    return out
+
+
+def scroll_pages(searcher, body, pages: int, page_size: int,
+                 slice_spec=None) -> tuple:
+    """(pages of hits, first-page ms, later-page ms, the context) of a
+    scroll over ``searcher``: ``scan_rows`` orders every matched row on
+    the searcher's device, a ``ScrollContext`` pages the arrays, a page's
+    hits are fetched by ``_hits_from_rows`` (the REST handler's steps);
+    the context is released."""
+    import torch
+
+    from opensearch_tpu_torch.search.contexts import ScrollContext
+
+    t = time.monotonic()
+    ordered, total = searcher.scan_rows(body, slice_spec=slice_spec)
+    ctx = ScrollContext(searcher, ordered, total, page_size=page_size,
+                        source_spec=body.get("_source"),
+                        index_name=searcher.index_name)
+    out, later = [], []
+    try:
+        for p in range(pages):
+            if p:
+                t = time.monotonic()
+            hits = searcher._hits_from_rows(ctx.next_page(),
+                                            ctx.source_spec)
+            if searcher.device.type == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.monotonic() - t) * 1e3
+            if p == 0:
+                first = ms
+            else:
+                later.append(ms)
+            out.append({"total": total, "hits": hits})
+    finally:
+        ctx.release()
+    return out, first, later, ctx
+
+
+def phase_relations(segs, mapper, searcher, counters, http=None) -> dict:
+    """Phase 17: the relationship queries and the reader contexts at full
+    scale.  ``build_relations``' nested and join corpora of 1,000,000
+    questions (16 segments each) and its percolator index serve the
+    ``phase17_bodies`` kinds, the counts zeroed just before the first and
+    read after the last (p50 host ms and launches a request by route:
+    the dense entry, the plan top-k; the joins' inner pre-pass timed
+    apart, percolate's ms per stored query); then on phase 4's 16 scale
+    segments a ``match_all`` scroll of 25 pages of 1,000 (first page
+    apart), a sliced scroll (``max: 4``; the four slices' rows together
+    are every row once), a scroll sorted on ``ts`` and a point in time
+    with three ``search_after`` pages sorted on ``ts`` and a delete
+    applied after it opens; ``knn_topk_batch`` against K1's top-k entry
+    one query at a time.  The first QA_CHECK of each kind, every scroll
+    and PIT page, and the ``nested`` / ``has_child`` cross-check (the
+    same questions from the same draws) are held to the CPU searchers
+    byte for byte; under ``torch.profiler`` the device ms and kernels a
+    request of the cheap kinds."""
+    import torch
+
+    from opensearch_tpu_torch.index.segment import SegmentWriter
+    from opensearch_tpu_torch.mapping.mapper import DocumentMapper
+    from opensearch_tpu_torch.ops import cuda_knn
+    from opensearch_tpu_torch.ops.knn import KnnSegment, knn_topk_batch
+    from opensearch_tpu_torch.search import compiler
+    from opensearch_tpu_torch.search.contexts import PitContext
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing import corpus
+    from opensearch_tpu_torch.testing.parity import topk_mismatch
+
+    t_phase = time.monotonic()
+    parts, t_part = {}, [t_phase]
+
+    def part(name):
+        now = time.monotonic()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    rel = build_relations()
+    draws = rel["draws"]
+    nsegs, nmapper, nsearcher = rel["nested"]
+    jsegs, jmapper, jsearcher = rel["join"]
+    psegs, pmapper, psearcher = rel["perc"]
+    csegs, cmapper = completion_index(DocumentMapper, SegmentWriter,
+                                      COMPLETION_DOCS)
+    csearcher = ShardSearcher(csegs, cmapper, index_name="qa_sug",
+                              device=DEVICE)
+    on = {"nested": nsearcher, "nested_tag": nsearcher,
+          "has_child": jsearcher, "has_parent": jsearcher,
+          "parent_id": jsearcher, "percolate_1": psearcher,
+          "percolate_5": psearcher, "suggest_term": jsearcher,
+          "suggest_phrase": jsearcher, "suggest_completion": csearcher,
+          "ignored_keys": searcher}
+    bodies = phase17_bodies(draws)
+    # the join columns (each segment's parent table and ids) are built
+    # once a searcher: timed apart, before the requests
+    t0 = time.monotonic()
+    compiler._join_columns(jsearcher.ctx, "qa")
+    torch.cuda.synchronize()
+    join_cols_s = time.monotonic() - t0
+    prepass = []                   # host ms of each inner pre-pass
+    real_prepass = compiler._host_run_scored
+
+    def timed_prepass(*a, **k):
+        t = time.monotonic()
+        out = real_prepass(*a, **k)
+        prepass.append((time.monotonic() - t) * 1e3)
+        return out
+
+    compiler._host_run_scored = timed_prepass
+    part("build")
+    routes = ("term_bag_scores", "term_bag_quantized_scores", "plan_topk")
+    kinds, answers = {}, {}
+    try:
+        for kind, items in bodies.items():
+            if kind not in ("percolate_1", "percolate_5"):
+                on[kind].search({**items[0], "size": 3})    # warm
+        for fn in counters.values():               # this path starts here
+            fn.launches = 0
+        for kind, items in bodies.items():
+            before = {n: counters[n].launches for n in routes}
+            n_pre = len(prepass)
+            lat, resps = [], []
+            for b in items:
+                t = time.monotonic()
+                resps.append(on[kind].search(b))
+                lat.append((time.monotonic() - t) * 1e3)
+            for r in resps:
+                hits = r["hits"]["hits"]
+                if len(hits) > 10 or not all(np.isfinite(h["_score"])
+                                             for h in hits):
+                    raise AssertionError(f"phase 17 {kind}: bad hits")
+            found = sum(bool(r["hits"]["hits"] or r.get("suggest"))
+                        for r in resps)
+            if found < len(resps) - 2:
+                raise AssertionError(f"phase 17 {kind}: {found} of "
+                                     f"{len(resps)} requests answered")
+            answers[kind] = resps
+            k = {"n": len(items), "p50_ms": float(np.percentile(lat, 50)),
+                 "p99_ms": float(np.percentile(lat, 99)),
+                 "launches_per_request": {
+                     n: (counters[n].launches - before[n]) / len(items)
+                     for n in routes}}
+            if len(prepass) > n_pre:
+                k["prepass_p50_ms"] = float(np.median(prepass[n_pre:]))
+            if kind.startswith("percolate"):
+                k["ms_per_stored_query"] = k["p50_ms"] / PERC_QUERIES
+            kinds[kind] = k
+        launches = {n: c.launches for n, c in counters.items()}
+    finally:
+        compiler._host_run_scored = real_prepass
+    for name in ("term_bag_scores", "plan_topk"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 17: {name} never launched: "
+                                 f"{launches}")
+    for kind in ("nested", "nested_tag", "has_child", "has_parent",
+                 "parent_id"):
+        if kinds[kind]["launches_per_request"]["plan_topk"] != 1.0:
+            raise AssertionError(f"phase 17 {kind}: launches "
+                                 f"{kinds[kind]['launches_per_request']}")
+    part("requests")
+    # the reader contexts on phase 4's scale segments
+    cpu = ShardSearcher(segs, mapper, index_name="scale", device="cpu")
+    scroll_body = {"query": {"match_all": {}}, "size": SCROLL_PAGE}
+    pages, first_ms, later_ms, _c = scroll_pages(
+        searcher, scroll_body, SCROLL_PAGES, SCROLL_PAGE)
+    want, _f, _l, _c = scroll_pages(cpu, scroll_body, SCROLL_PAGES,
+                                    SCROLL_PAGE)
+    if json.dumps(pages) != json.dumps(want):
+        raise AssertionError("phase 17: a match_all scroll page differs "
+                             "from the CPU searcher's")
+    if pages[0]["total"] != sum(s.live_count() for s in segs) or \
+            any(len(p["hits"]) != SCROLL_PAGE for p in pages):
+        raise AssertionError("phase 17: scroll pages short")
+    ts_body = {"query": {"match": {"body": "t1 t7"}}, "size": SCROLL_PAGE,
+               "sort": [{"ts": "desc"}]}
+    ts_pages, ts_first, ts_later, _c = scroll_pages(
+        searcher, ts_body, SCROLL_TS_PAGES, SCROLL_PAGE)
+    if json.dumps(ts_pages) != json.dumps(scroll_pages(
+            cpu, ts_body, SCROLL_TS_PAGES, SCROLL_PAGE)[0]):
+        raise AssertionError("phase 17: a scroll page sorted on ts "
+                             "differs from the CPU searcher's")
+    slices, slice_rows = [], []
+    for sid in range(SCROLL_SLICES):
+        spec = {"id": sid, "max": SCROLL_SLICES}
+        got, s_first, _l, ctx = scroll_pages(searcher, scroll_body, 2,
+                                              SCROLL_PAGE, slice_spec=spec)
+        if json.dumps(got) != json.dumps(scroll_pages(
+                cpu, scroll_body, 2, SCROLL_PAGE, slice_spec=spec)[0]):
+            raise AssertionError(f"phase 17: slice {sid}'s pages differ "
+                                 "from the CPU searcher's")
+        slice_rows.append(ctx.ordered.flat)
+        slices.append({"rows": got[0]["total"], "first_page_ms": s_first})
+    every = torch.sort(torch.cat(slice_rows)).values
+    matched = torch.sort(searcher.scan_rows(scroll_body)[0].flat).values
+    if not torch.equal(every, matched):
+        raise AssertionError("phase 17: the slices do not give every row "
+                             "exactly once")
+    # a point in time: pinned searchers on both devices, then a delete
+    pit_body = {"query": {"match": {"body": "t1 t7"}}, "size": PIT_PAGE,
+                "sort": [{"ts": "asc"}]}
+    pit = PitContext(ShardSearcher(segs, mapper, index_name="scale",
+                                   device=DEVICE), "scale")
+    cpu_pit = ShardSearcher(segs, mapper, index_name="scale", device="cpu")
+    pit_ms, after, saved = [], None, [(s, s.live) for s in segs]
+    try:
+        for p in range(3):
+            body = dict(pit_body) if after is None else {
+                **pit_body, "search_after": after}
+            t = time.monotonic()
+            got = pit.searcher.search(body)
+            pit_ms.append((time.monotonic() - t) * 1e3)
+            if strip_took(got) != strip_took(cpu_pit.search(body)):
+                raise AssertionError(f"phase 17: PIT page {p} differs from "
+                                     "the CPU searcher's")
+            if p == 0:
+                first_ids = [h["_id"] for h in got["hits"]["hits"][:5]]
+                for hid in first_ids:
+                    seg = next(s for s in segs if hid in s.id_to_local)
+                    seg.apply_deletes([seg.id_to_local[hid]])
+            after = got["hits"]["hits"][-1]["sort"]
+        again = pit.searcher.search(pit_body)
+        fresh = ShardSearcher(segs, mapper, index_name="scale",
+                              device=DEVICE).search({**pit_body,
+                                                     "size": 0})
+        if fresh["hits"]["total"]["value"] != \
+                again["hits"]["total"]["value"] - len(first_ids) or \
+                [h["_id"] for h in again["hits"]["hits"][:5]] != first_ids:
+            raise AssertionError("phase 17: the PIT saw the delete, or a "
+                                 "new searcher did not")
+        pit_bytes = tensor_bytes(pit.searcher._sort_cache.values())
+    finally:
+        for seg, live in saved:
+            seg.live = live
+    part("contexts")
+    # answers held to the CPU searchers, and the cross-check
+    cpus = {"nested": ShardSearcher(nsegs, nmapper, index_name="qa_nested",
+                                    device="cpu"),
+            "join": ShardSearcher(jsegs, jmapper, index_name="qa_join",
+                                  device="cpu"),
+            "perc": ShardSearcher(psegs, pmapper, index_name="qa_perc",
+                                  device="cpu"),
+            "sug": ShardSearcher(csegs, cmapper, index_name="qa_sug",
+                                 device="cpu"),
+            "scale": cpu}
+    cpu_of = {nsearcher: cpus["nested"], jsearcher: cpus["join"],
+              psearcher: cpus["perc"], csearcher: cpus["sug"],
+              searcher: cpus["scale"]}
+    checked, cpu_ms = 0, {}
+    for kind, items in bodies.items():
+        n = len(items) if kind == "ignored_keys" else QA_CHECK
+        lat = []
+        for b, got in zip(items[:n], answers[kind]):
+            t = time.monotonic()
+            want = cpu_of[on[kind]].search(b)
+            lat.append((time.monotonic() - t) * 1e3)
+            checked += 1
+            if strip_took(got) != strip_took(want):
+                raise AssertionError(f"phase 17 {kind} vs cpu: differs: "
+                                     f"{json.dumps(b)[:200]}")
+        cpu_ms[kind] = float(np.median(lat))
+    cross = bodies["nested"][0]["query"]["nested"]["query"]
+    nq = {"query": {"nested": {"path": "answers", "query": cross}},
+          "size": 10_000}
+    cq = {"query": {"has_child": {"type": "answer", "query": {"bool": {
+        "must": [{"term": {"user": cross["bool"]["must"][0]["term"][
+            "answers.user"]}},
+                 {"range": {"date": cross["bool"]["must"][1]["range"][
+                     "answers.date"]}}]}}}}, "size": 10_000}
+    n_ids = {h["_id"] for h in nsearcher.search(nq)["hits"]["hits"]}
+    c_ids = {h["_id"] for h in jsearcher.search(cq)["hits"]["hits"]}
+    if n_ids != c_ids or not n_ids:
+        raise AssertionError(f"phase 17: nested and has_child question "
+                             f"sets differ ({len(n_ids)} vs {len(c_ids)})")
+    part("checks")
+    device = {kind: relevance_device(on[kind], bodies[kind][1],
+                                     fresh_plans=True)
+              for kind in ("nested", "nested_tag", "has_child",
+                           "has_parent", "parent_id")}
+    nested_bytes = sum(s.device(nsearcher.device).nested_bytes()
+                       for s in nsegs)
+    part("profiler")
+    # knn_topk_batch against K1's top-k entry, one query at a time
+    n_q, n_rows, dim, k = KNN_BATCH
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    vecs = torch.randn(n_rows, dim, generator=gen, device=dev)
+    queries = torch.randn(n_q, dim, generator=gen, device=dev)
+    valid = torch.ones(n_rows, dtype=torch.bool, device=dev)
+    seg = [KnnSegment(vecs, valid)]
+    bv, bi = knn_topk_batch(vecs, valid, queries, space="l2", k=k)
+    one = [cuda_knn.knn_topk_segments_cuda(seg, queries[j], space="l2",
+                                           k=k) for j in range(n_q)]
+    kv = torch.cat([v for v, _i in one]).cpu().numpy()
+    ki = torch.cat([i for _v, i in one]).cpu().numpy()
+    if not np.array_equal(bi.cpu().numpy(), ki):
+        raise AssertionError("phase 17: knn_topk_batch ids differ from "
+                             "K1's")
+    bad, knn_err = topk_mismatch(bv.cpu().numpy(), bi.cpu().numpy(), kv, ki)
+    if bad is not None:
+        raise AssertionError(f"phase 17: knn_topk_batch vs K1: {bad}")
+    batch_ms = cuda_ms(lambda: knn_topk_batch(vecs, valid, queries,
+                                              space="l2", k=k), 10)
+    k1_ms = cuda_ms(lambda: [cuda_knn.knn_topk_segments_cuda(
+        seg, queries[j], space="l2", k=k) for j in range(n_q)], 3) / n_q
+    knn_batch = {"batch_ms": batch_ms, "k1_ms_per_query": k1_ms,
+                 "bound_ms": bound_ms(n_rows * dim * 4 + n_q * dim * 4,
+                                      2.0 * n_rows * dim * n_q)[0],
+                 "max_abs_err": knn_err}
+    part("knn_batch")
+    gpu = gpu_name_power()
+    for kind, kk in kinds.items():
+        per = ", ".join(f"{n} {v:.2f}"
+                        for n, v in kk["launches_per_request"].items())
+        d = device.get(kind)
+        dev_txt = ("device ms not measured" if d is None
+                   or d["device_ms"] is None else
+                   f"device {d['device_ms']:.3f} ms, idle share "
+                   f"{d['idle_share']:.3f}, kernels a request: hand "
+                   f"{d['hand_kernels']:.1f}, torch "
+                   f"{d['torch_kernels']:.1f}")
+        extra = ""
+        if "prepass_p50_ms" in kk:
+            extra += f", inner pre-pass p50 {kk['prepass_p50_ms']:.3f} ms"
+        if "ms_per_stored_query" in kk:
+            extra += (f", {kk['ms_per_stored_query']:.4f} ms a stored "
+                      "query")
+        log(f"relations {kind}: {kk['n']} requests, p50 "
+            f"{kk['p50_ms']:.3f} ms, p99 {kk['p99_ms']:.3f} ms{extra}, "
+            f"launches a request: {per}; {dev_txt}; CPU searcher "
+            f"{cpu_ms[kind]:.3f} ms, on {gpu}")
+    log(f"relations scroll: match_all {SCROLL_PAGES} pages of "
+        f"{SCROLL_PAGE} over {pages[0]['total']} rows: first page "
+        f"{first_ms:.3f} ms, later pages p50 {np.median(later_ms):.3f} ms; "
+        f"sorted on ts: first {ts_first:.3f} ms, later p50 "
+        f"{np.median(ts_later):.3f} ms; {SCROLL_SLICES} slices "
+        f"{[s['rows'] for s in slices]} rows, first pages "
+        f"{[round(s['first_page_ms'], 3) for s in slices]} ms; PIT pages "
+        f"{[round(x, 3) for x in pit_ms]} ms, {pit_bytes} bytes of key "
+        f"columns the PIT's searcher holds on the card; on {gpu}")
+    log(f"relations staged bytes of the nested blocks: {nested_bytes} "
+        f"({QA_SEGMENTS} segments); join columns built in "
+        f"{join_cols_s:.3f}s; {checked} answers and every scroll and PIT "
+        f"page held to the CPU searchers byte for byte; nested and "
+        f"has_child cross-check: {len(n_ids)} questions; launches "
+        f"{launches}")
+    log(f"relations knn_topk_batch: {n_q} queries over {n_rows} x {dim} "
+        f"at k = {k}: {batch_ms:.3f} ms a batch, K1's top-k "
+        f"{k1_ms:.4f} ms a query ({k1_ms * n_q:.3f} ms for {n_q}), bound "
+        f"{knn_batch['bound_ms']:.4f} ms, max abs err {knn_err:.3g}, on "
+        f"{gpu}")
+    log(f"relations cuts: {PERC_QUERIES} stored queries (the percolator "
+        f"workload's log holds more; each percolate request counts every "
+        f"stored query once), {PERC_PER_KIND} percolate and "
+        f"{SUGGEST_PER_KIND} term / phrase suggest requests a kind (each "
+        f"costs host seconds), scroll sorted on ts {SCROLL_TS_PAGES} "
+        f"pages, slices read 2 pages each (all their rows checked on the "
+        f"card)")
+    log("relations parts (s): " + ", ".join(f"{n} {v:.1f}"
+                                           for n, v in parts.items()))
+    if http is not None:
+        log(f"relations over HTTP: {json.dumps(http)}")
+    return {"kinds": kinds, "device": device, "cpu_ms": cpu_ms,
+            "parts": parts,
+            "checked": checked, "launches": launches,
+            "scroll": {"first_ms": first_ms,
+                       "later_p50_ms": float(np.median(later_ms)),
+                       "ts_first_ms": ts_first,
+                       "ts_later_p50_ms": float(np.median(ts_later)),
+                       "slices": slices, "pit_ms": pit_ms,
+                       "pit_bytes": pit_bytes},
+            "nested_bytes": nested_bytes, "join_cols_s": join_cols_s,
+            "cross_check_questions": len(n_ids), "knn_batch": knn_batch,
+            "build_s": rel["build_s"], "stage_s": rel["stage_s"],
+            "http": http, "wall_s": time.monotonic() - t_phase}
+
+
+def phase_http_relations(node, state, counters) -> dict:
+    """Over HTTP on phase 9's node before it stops, and on a CPU node fed
+    the same requests: indices ``qa_nested``, ``qa_join`` and ``qa_perc``
+    of HTTP_QA_QUESTIONS questions (``qa_documents``, through ``_bulk``)
+    and 200 stored queries; then, the counts zeroed just before, a
+    ``match_all`` scroll of ``qa_join`` (two pages of 1,000, then cleared),
+    a point in time on ``qa_nested`` (opened, searched with a sort,
+    closed), and one ``nested``, one ``has_child``, one ``percolate`` and
+    one ``suggest`` body.  Every answer equals the CPU node's with the
+    scroll and PIT ids masked."""
+    import shutil
+    import tempfile
+
+    from opensearch_tpu_torch.node import Node
+    from opensearch_tpu_torch.testing import corpus
+
+    draws = corpus.qa_draws(HTTP_QA_QUESTIONS, seed=26)
+    questions, answers = corpus.qa_documents(draws)
+    starts = np.concatenate([[0], np.cumsum(draws["n_answers"])])
+    setup = [("PUT", "/qa_nested", {"mappings": {
+                  "properties": corpus.NESTED_MAPPING}}),
+             ("PUT", "/qa_join", {"mappings": {
+                 "properties": corpus.JOIN_MAPPING}}),
+             ("PUT", "/qa_perc", {"mappings": {
+                 "properties": corpus.PERCOLATOR_MAPPING}})]
+    nested_lines, join_lines = [], []
+    for i, (qid, ndoc, jdoc) in enumerate(questions):
+        nested_lines += [{"index": {"_index": "qa_nested", "_id": qid}},
+                         ndoc]
+        join_lines += [{"index": {"_index": "qa_join", "_id": qid}}, jdoc]
+        for aid, adoc in answers[starts[i]: starts[i + 1]]:
+            join_lines += [{"index": {"_index": "qa_join", "_id": aid}},
+                           adoc]
+    perc_lines = []
+    for i, q in enumerate(corpus.percolator_queries(200, seed=27)):
+        perc_lines += [{"index": {"_index": "qa_perc", "_id": str(i)}},
+                       {"query": q}]
+    user = corpus.user_name(int(draws["user"][0]))
+    requests = [
+        ("POST", "/qa_nested/_search", {"query": {"nested": {
+            "path": "answers", "query": {"bool": {"must": [
+                {"term": {"answers.user": user}},
+                {"range": {"answers.date": {"gte": corpus.TS_START_MS}}}]}}
+        }}}),
+        ("POST", "/qa_join/_search", {"query": {"has_child": {
+            "type": "answer", "score_mode": "sum",
+            "query": {"match": {"body": "t1 t3"}}}}}),
+        ("POST", "/qa_perc/_search", {"query": {"percolate": {
+            "field": "query",
+            "document": corpus.percolator_documents(1, seed=28)[0]}}}),
+        ("POST", "/qa_join/_search", {"size": 0, "suggest": {"s": {
+            "text": "t1 t12x", "term": {"field": "body"}}}}),
+    ]
+
+    def script(client) -> list:
+        out = []
+        page = client.ok("POST", "/qa_join/_search?scroll=1m",
+                         {"query": {"match_all": {}}, "size": 1000})
+        out.append(page)
+        out.append(client.ok("POST", "/_search/scroll", {
+            "scroll": "1m", "scroll_id": page["_scroll_id"]}))
+        out.append(client.ok("DELETE", "/_search/scroll",
+                             {"scroll_id": [page["_scroll_id"]]}))
+        pit = client.ok("POST", "/qa_nested/_search/point_in_time"
+                        "?keep_alive=1m")
+        out.append(client.ok("POST", "/_search", {
+            "pit": {"id": pit["pit_id"]}, "size": 20,
+            "query": {"range": {"created": {"gte": corpus.TS_START_MS}}},
+            "sort": [{"created": "desc"}]}))
+        out.append(client.ok("DELETE", "/_search/point_in_time",
+                             {"pit_id": [pit["pit_id"]]}))
+        for method, path, body in requests:
+            out.append(client.ok(method, path, body))
+        return out
+
+    def load(client):
+        for method, path, body in setup:
+            client.ok(method, path, body)
+        for lines in (nested_lines, join_lines, perc_lines):
+            for lo in range(0, len(lines), 2_000):
+                client.ok("POST", "/_bulk", ndjson=lines[lo: lo + 2_000])
+        client.ok("POST", "/_refresh")
+
+    def masked(resp):
+        return json.dumps({k: ("<id>" if k in ("_scroll_id", "pit_id")
+                               else v) for k, v in resp.items()
+                           if k != "took"})
+
+    client = HttpClient(node.port)
+    load(client)
+    for fn in counters.values():                # this path starts here
+        fn.launches = 0
+    t0 = time.monotonic()
+    got = script(client)
+    ms = (time.monotonic() - t0) * 1e3
+    launches = {n: c.launches for n, c in counters.items()}
+    client.close()
+    if launches["term_bag_scores"] <= 0 or launches["plan_topk"] <= 0:
+        raise AssertionError(f"phase 9 relations over HTTP: launches "
+                             f"{launches}")
+    path = tempfile.mkdtemp(prefix="chip_smoke_cpu_node_")
+    cpu_node = Node(path, port=0, device="cpu").start()
+    try:
+        cpu_client = HttpClient(cpu_node.port)
+        load(cpu_client)
+        want = script(cpu_client)
+        cpu_client.close()
+    finally:
+        cpu_node.stop()
+        shutil.rmtree(path, ignore_errors=True)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if masked(g) != masked(w):
+            raise AssertionError(f"phase 9: relations request {i} over "
+                                 "HTTP differs from the CPU node's")
+    first = got[0]["hits"]
+    if len(first["hits"]) != min(1000, first["total"]["value"]) or \
+            not got[5]["hits"]["hits"]:
+        raise AssertionError("phase 9: relations over HTTP: empty answers")
+    return {"requests": len(got), "ms": ms, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -6607,7 +7314,8 @@ def main() -> int:
         "ann": phase_http_ann(node, state, every),
         "phrase": phase_http_phrase(node, state, every),
         "sort": phase_http_sort(node, state, every),
-        "relevance": phase_http_relevance(node, state, every)})
+        "relevance": phase_http_relevance(node, state, every),
+        "relations": phase_http_relations(node, state, every)})
     then = serving.pop("then")
     filters = phase_filters_hybrid(segs, mapper, searcher, qsegs, qsearcher,
                                    every, http=then["hybrid"])
@@ -6641,7 +7349,12 @@ def main() -> int:
     # zeroed just before them
     relevance = phase_relevance(segs, mapper, searcher, every,
                                 http=then["relevance"])
-    for phase in (sort, then["sort"], relevance, then["relevance"]):
+    # the relationship queries and the reader contexts, their counts
+    # zeroed just before them
+    relations = phase_relations(segs, mapper, searcher, every,
+                                http=then["relations"])
+    for phase in (sort, then["sort"], relevance, then["relevance"],
+                  relations, then["relations"]):
         for name, n in phase["launches"].items():
             name = "term_bag_quantized" \
                 if name == "term_bag_quantized_topk" else name
@@ -6704,6 +7417,9 @@ def main() -> int:
                     "relevance": {k: v for k, v in relevance.items()
                                   if k != "http"},
                     "relevance_over_http": then["relevance"],
+                    "relations": {k: v for k, v in relations.items()
+                                  if k != "http"},
+                    "relations_over_http": then["relations"],
                     "k8_k9": {n: kern[n] for n in ("phrase_freqs",
                                                    "span_near")},
                     "k1_scores_16": kern["knn_scores_16"],

@@ -16,12 +16,16 @@
   counterpart in this package yet, and ``stats()`` carries the same
   counts), and its TTL, dynamic resize, compute-if-absent and single-key
   invalidation, which no caller here uses.
+- ``attached_cache``: a ``Cache`` kept on its owner (a segment, a
+  nested block, a searcher's compile context), whose breaker charge is
+  released when the owner dies (the reference's ``attached_cache``).
 """
 
 from __future__ import annotations
 
 import sys
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Callable, Optional
 
@@ -221,6 +225,11 @@ class Cache:
                     self._evict_lru()
             return True
 
+    def invalidate_all(self) -> None:
+        with self._lock:
+            for key in list(self._entries):
+                self._remove(key, EXPLICIT)
+
     def invalidate_if(self, pred: Callable) -> int:
         """Remove every entry where ``pred(key, value)`` is true; returns
         the number removed (targeted invalidation, e.g. one index's
@@ -250,3 +259,23 @@ class Cache:
                     "miss_count": self._misses,
                     "evictions": self._evictions,
                     "rejections": self._rejections}
+
+
+def attached_cache(owner, attr: str, *, name: str,
+                   max_weight: Optional[int] = None,
+                   weigher: Optional[Callable] = None,
+                   breaker=None) -> Cache:
+    """The ``Cache`` kept as ``owner.<attr>``, made on first use.  A
+    weakref finalizer releases the cache's breaker charge when the owner
+    dies, so a per-segment or per-searcher cache never leaks accounted
+    bytes."""
+    cache = getattr(owner, attr, None)
+    if cache is None:
+        cache = Cache(name, max_weight=max_weight, weigher=weigher,
+                      breaker=breaker)
+        try:
+            weakref.finalize(owner, cache.invalidate_all)
+        except TypeError:
+            pass                 # owner not weakref-able: best effort
+        setattr(owner, attr, cache)
+    return cache

@@ -25,7 +25,14 @@ torch tensors on an explicit device, with the reference's padding:
   values widened as the reference widens them where it reads them,
   padded with 0.0 to ``pad_pow2(V)``, ``value_docs`` padded with the
   dead slot ``n_docs``, and ``exists`` [n_pad]), one entry per
-  ``geo_point`` field.
+  ``geo_point`` field;
+- nested blocks (``nested_staged``, one entry per nested path, staged on
+  the first ``nested`` query over it): ``n_obj_pad = pad_pow2(n_objs +
+  1)``, ``obj_to_doc`` (padding objects point at the parent's dead slot
+  ``n_pad - 1``), ``obj_valid``, and per child ``numeric`` (float64
+  ``values``) or ``ordinal`` (int32 ``ords``) columns with their
+  ``value_objs``, padded to ``pad_pow2(V)`` with entries that point at
+  the dead object slot ``n_obj_pad - 1``.
 
 On a segment that ``index/codec.py`` ``use_quantized`` lowers, only the
 offsets are staged at construction: scored term bags read the quantized
@@ -44,10 +51,10 @@ immutable segment, on the device that first asks, and keeps it on the
 host; ``DeviceSegment.ann_staged`` lays it out for K6 / K7 on a view's
 device.
 
-Not ported yet (ROADMAP Queue A): nested columns, the device pager, the
-fielddata breaker and the residency ledger (which adopts the reference's
-staged ANN arrays).  ``segment_from_arrays`` carries the numpy state of a
-reference segment into this package's ``Segment``, geo columns
+Not ported yet (ROADMAP Queue A): the device pager and the residency
+ledger (which adopts the reference's staged ANN arrays).
+``segment_from_arrays`` carries the numpy state of a reference segment
+into this package's ``Segment``, geo columns and nested blocks
 included.
 """
 
@@ -501,6 +508,9 @@ class DeviceSegment:
                                                 self.n_docs)),
                 "exists": self._stage(_pad1(dv.exists, n_pad, False)),
             }
+        # nested path -> staged block (``nested_staged``), at most one
+        # entry per nested mapping path
+        self._nested: dict[str, Optional[dict]] = {}
         # one staged copy per live-bitmap version (bounded)
         self._live_cache: dict[int, tuple] = {}
         # staged ANN indexes (``ann_staged``), keyed by the index object
@@ -526,6 +536,21 @@ class DeviceSegment:
         total += sum(t.numel() * t.element_size()
                      for _l, t in self._live_cache.values())
         total += sum(st.nbytes() for _i, st in self._ann_staged.values())
+        return total + self.nested_bytes()
+
+    def nested_bytes(self) -> int:
+        """Bytes of the nested blocks staged so far on the device."""
+        total = 0
+        for staged in list(self._nested.values()):
+            if staged is None:
+                continue
+            total += sum(t.numel() * t.element_size()
+                         for t in (staged["obj_to_doc"], staged["obj_valid"]))
+            for group in ("numeric", "ordinal"):
+                total += sum(t.numel() * t.element_size()
+                             for col in staged[group].values()
+                             for t in col.values()
+                             if isinstance(t, torch.Tensor))
         return total
 
     def column_bytes(self, group: str) -> int:
@@ -657,6 +682,51 @@ class DeviceSegment:
                 self._impact_cache.pop(next(iter(self._impact_cache)))
             self._impact_cache[key] = imp
         return imp
+
+    def nested_staged(self, path: str) -> Optional[dict]:
+        """The padded device arrays of one nested block (``path``),
+        staged on first demand and cached; None when the segment holds no
+        object under ``path``."""
+        if path in self._nested:
+            return self._nested[path]
+        with self._postings_lock:
+            if path in self._nested:
+                return self._nested[path]
+            block = self.seg.nested.get(path)
+            if block is None or block.n_objs == 0:
+                self._nested[path] = None
+                return None
+            n_obj_pad = pad_pow2(block.n_objs + 1)
+            dead_obj = n_obj_pad - 1
+            staged = {
+                "n_obj_pad": n_obj_pad,
+                # padding objects belong to the parent dead slot
+                "obj_to_doc": self._stage(_pad1(block.obj_to_doc, n_obj_pad,
+                                                self.n_pad - 1)),
+                "obj_valid": self._stage(_pad1(np.ones(block.n_objs, bool),
+                                               n_obj_pad, False)),
+                "numeric": {}, "ordinal": {},
+            }
+            for f, (values, value_objs) in block.numeric.items():
+                v_pad = pad_pow2(len(values))
+                staged["numeric"][f] = {
+                    "values": self._stage(_pad1(
+                        np.asarray(values, np.float64), v_pad, 0.0)),
+                    "value_objs": self._stage(_pad1(value_objs, v_pad,
+                                                    dead_obj)),
+                    "v_pad": v_pad,
+                }
+            for f, (_terms, ords, value_objs) in block.ordinal.items():
+                v_pad = pad_pow2(len(ords))
+                staged["ordinal"][f] = {
+                    "ords": self._stage(_pad1(np.asarray(ords, np.int32),
+                                              v_pad, -1)),
+                    "value_objs": self._stage(_pad1(value_objs, v_pad,
+                                                    dead_obj)),
+                    "v_pad": v_pad,
+                }
+            self._nested[path] = staged
+            return staged
 
     def ann_staged(self, idx):
         """``idx`` (a trained index of ``Segment.ann_index``) laid out on
@@ -975,7 +1045,8 @@ def segment_arrays(seg) -> tuple[dict, dict]:
     layout (this package's ``Segment`` or the JAX package's): postings
     CSR per field, numeric and ordinal doc values (values, value docs,
     min and max, exists, kind, ordinal terms), geo points (offsets, lats,
-    lons, value docs, exists), vectors, live bitmap, doc ids and sources.
+    lons, value docs, exists), nested blocks (objects' parents, child
+    columns, ordinal terms), vectors, live bitmap, doc ids and sources.
     Reads attributes only, so it imports nothing of the other package."""
     arrays: dict[str, np.ndarray] = {"live": np.asarray(seg.live, bool),
                                      "seq_nos": np.asarray(seg.seq_nos),
@@ -1011,14 +1082,30 @@ def segment_arrays(seg) -> tuple[dict, dict]:
     for name, dv in seg.geo_dv.items():
         for col in _GEO_COLS:
             arrays[f"geo.{name}.{col}"] = np.asarray(getattr(dv, col))
+    meta["nested"] = {}
+    for path, block in seg.nested.items():
+        arrays[f"nested.{path}.obj_to_doc"] = np.asarray(block.obj_to_doc)
+        for child, (values, objs) in block.numeric.items():
+            arrays[f"nested.{path}.numeric.{child}.values"] = \
+                np.asarray(values)
+            arrays[f"nested.{path}.numeric.{child}.value_objs"] = \
+                np.asarray(objs)
+        for child, (_terms, ords, objs) in block.ordinal.items():
+            arrays[f"nested.{path}.ordinal.{child}.ords"] = np.asarray(ords)
+            arrays[f"nested.{path}.ordinal.{child}.value_objs"] = \
+                np.asarray(objs)
+        meta["nested"][path] = {
+            "numeric": sorted(block.numeric),
+            "ordinal": {child: list(terms) for child, (terms, _o, _v)
+                        in block.ordinal.items()}}
     return arrays, meta
 
 
 def segment_from_arrays(arrays: dict[str, np.ndarray], meta: dict) -> Segment:
     """Build this package's ``Segment`` from ``segment_arrays`` output
     (e.g. of a JAX-package segment): postings, numeric, ordinal, geo and
-    vector doc values, the live bitmap, ids and sources.  Nested columns
-    are not carried: no ported plan reads them."""
+    vector doc values, nested blocks, the live bitmap, ids and
+    sources."""
     n = int(meta["n_docs"])
     seg = Segment(meta["seg_id"], n)
     seg.doc_ids = list(meta["doc_ids"])
@@ -1082,4 +1169,21 @@ def segment_from_arrays(arrays: dict[str, np.ndarray], meta: dict) -> Segment:
             lons=col["lons"].astype(np.float32),
             value_docs=col["value_docs"].astype(np.int32),
             exists=col["exists"].astype(bool))
+    for path, nm in meta.get("nested", {}).items():
+        pre = f"nested.{path}"
+        block = NestedBlock(obj_to_doc=np.asarray(
+            arrays[f"{pre}.obj_to_doc"], np.int32))
+        for child in nm["numeric"]:
+            block.numeric[child] = (
+                np.asarray(arrays[f"{pre}.numeric.{child}.values"],
+                           np.float64),
+                np.asarray(arrays[f"{pre}.numeric.{child}.value_objs"],
+                           np.int32))
+        for child, terms in nm["ordinal"].items():
+            block.ordinal[child] = (
+                list(terms),
+                np.asarray(arrays[f"{pre}.ordinal.{child}.ords"], np.int32),
+                np.asarray(arrays[f"{pre}.ordinal.{child}.value_objs"],
+                           np.int32))
+        seg.nested[path] = block
     return seg

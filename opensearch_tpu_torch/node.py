@@ -3,17 +3,19 @@ package's ``node.py``).
 
 Analog of ``node/Node.java`` and ``bootstrap/OpenSearch.main`` at
 single-node scope: the indices service, the search pipelines
-(``search/pipeline.py``, persisted under the data path), the REST
+(``search/pipeline.py``, persisted under the data path), the reader
+contexts of scroll and point in time (``search/contexts.py``), the REST
 controller and the HTTP transport, serving on one device: ``cuda``
 unless the caller asks for ``"cpu"``.  Without CUDA a node that did not
 ask for the CPU raises ``DeviceUnavailableError`` when it is built,
 before it creates anything on disk.
 
 The reference node's other services are not ported (ROADMAP Queue A):
-snapshots, ingest pipelines, reader contexts (scroll and point in time),
-tasks, search backpressure, identity, query insights, QoS, persistent
-tasks, the dynamic cluster settings and the bootstrap checks.  Their
-routes answer 501.
+snapshots, ingest pipelines, tasks, search backpressure, identity, query
+insights, QoS, persistent tasks, the dynamic cluster settings (so
+``search.max_keep_alive``, ``search.default_keep_alive`` and
+``search.max_open_scroll_context`` keep their defaults) and the
+bootstrap checks.  Their routes answer 501.
 
 Run: ``python -m opensearch_tpu_torch.node --port 9200 --data-path ./data``
 (``--device cpu`` to serve on the CPU).
@@ -33,6 +35,7 @@ from opensearch_tpu_torch.common.torchenv import (DeviceUnavailableError,
 from opensearch_tpu_torch.indices.service import IndicesService
 from opensearch_tpu_torch.rest.controller import RestController
 from opensearch_tpu_torch.rest.http_server import HttpServer
+from opensearch_tpu_torch.search.contexts import ReaderContextRegistry
 from opensearch_tpu_torch.search.engine import query_engine
 from opensearch_tpu_torch.search.pipeline import SearchPipelineService
 
@@ -50,6 +53,7 @@ class Node:
         os.makedirs(data_path, exist_ok=True)
         self.indices = IndicesService(os.path.join(data_path, "indices"),
                                       device=self.device)
+        self.contexts = ReaderContextRegistry()
         self.search_pipelines = SearchPipelineService(data_path)
         self.rest = RestController(self)
         self.http = HttpServer(self.rest, host=host, port=port)
@@ -65,12 +69,14 @@ class Node:
 
     def stop(self):
         """Idempotent (and safe when ``start()`` never ran): stops the
-        HTTP server, closes every index and joins the query engine's
-        worker threads."""
+        HTTP server, closes the open scroll and PIT contexts (releasing
+        their breaker charges), closes every index and joins the query
+        engine's worker threads."""
         if self._stopped:
             return
         self._stopped = True
         self.http.stop()
+        self.contexts.close_all()
         self.indices.close()
         query_engine().shutdown()
 

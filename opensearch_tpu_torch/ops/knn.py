@@ -20,6 +20,8 @@ versions of the k-NN path (then a stable sort).  The dispatchers
 ``knn_topk_segments_auto`` and ``vector_scores_segments_auto`` send CUDA
 tensors to the hand-written kernel K1 (``ops/cuda_knn.py``: one launch
 for all of a shard's segments) and CPU tensors to the plain versions.
+``knn_topk_batch`` is the reference's batched throughput path: one
+float32 product for a batch of queries over one segment.
 
 Precision: no summation order is fixed by the reference (its XLA matmul
 and its Pallas ``sum(v*q)`` differ), so the port's scores agree with it
@@ -241,3 +243,35 @@ def knn_topk_segments_auto(segments, query, *, space: str, k: int):
         from opensearch_tpu_torch.ops.cuda_knn import knn_topk_segments_cuda
         return knn_topk_segments_cuda(segments, query, space=space, k=k)
     return knn_topk_segments(segments, query, space=space, k=k)
+
+
+def knn_topk_batch(vectors, valid, queries, *, space: str, k: int):
+    """Batched queries ``[Q, d]`` -> ``(scores f32 [Q, k], ids i32 [Q,
+    k])``: one ``[n, d] x [d, Q]`` float32 product for the whole batch
+    (``torch.matmul``, TF32 off: ``common/torchenv.py``), the space's
+    translation in float32 as the reference computes it, rows where
+    ``valid`` (bool [n]) is False at -inf, and each query's top-k with the
+    lower index first on equal scores (a stable descending sort).  The
+    reference's throughput path, which nothing of it calls; its scores
+    agree with K1's within ``RTOL`` / ``ATOL``, not byte for byte (K1
+    sums in float64)."""
+    if space not in SPACES:
+        raise ValueError(f"unknown space [{space}]")
+    q = queries.to(torch.float32)
+    dots = torch.matmul(vectors, q.T)                       # [n, Q]
+    if space == "l2":
+        v2 = torch.sum(vectors * vectors, dim=1)[:, None]
+        q2 = torch.sum(q * q, dim=1)[None, :]
+        d2 = torch.clamp(v2 - 2.0 * dots + q2, min=0.0)
+        scores = 1.0 / (1.0 + d2)
+    elif space == "cosinesimil":
+        norms = torch.sqrt(torch.sum(vectors * vectors, dim=1))[:, None]
+        qn = torch.sqrt(torch.sum(q * q, dim=1))[None, :]
+        cos = dots / torch.clamp(norms * qn, min=1e-30)
+        scores = (1.0 + cos) / 2.0
+    else:
+        scores = torch.where(dots >= 0, dots + 1.0, 1.0 / (1.0 - dots))
+    scores = torch.where(valid[:, None], scores,
+                         torch.full_like(scores, -torch.inf))
+    vals, idx = torch.sort(scores.T, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k].to(torch.int32)

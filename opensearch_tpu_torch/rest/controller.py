@@ -15,9 +15,13 @@ with the multi-index merge; the four ``/_search/pipeline`` routes and
 ``?search_pipeline=`` (the named pipeline's normalization-processor
 config, handed to a ``hybrid`` query as ``_hybrid_pipeline``).  Every
 other route answers 501 through one handler (``h_not_ported``), so a
-client tells "not ported" from the 400 of a path with no route.  Inside
-the ported handlers, ingest pipelines, point in time, scroll and
-cross-cluster search raise ``NotYetPortedError`` (501) too.
+client tells "not ported" from the 400 of a path with no route.  Scroll
+(with slices), clear-scroll and point in time (open, search, close) are
+ported too, over the node's reader contexts (``search/contexts.py``);
+the reference closes a context when the task that owns its page is
+cancelled, which waits for the task registry.  Inside the ported
+handlers, ingest pipelines and cross-cluster search raise
+``NotYetPortedError`` (501).
 
 ``dispatch`` keeps route matching with percent-decoded path parameters,
 405 against 400 for a path without a route of that method,
@@ -283,14 +287,14 @@ class RestController:
         r("POST", "/_search", self.h_search)
         r("GET", "/_msearch", self.h_msearch)
         r("POST", "/_msearch", self.h_msearch)
-        r("GET", "/_search/scroll", n)
-        r("POST", "/_search/scroll", n)
-        r("GET", "/_search/scroll/{scroll_id}", n)
-        r("POST", "/_search/scroll/{scroll_id}", n)
-        r("DELETE", "/_search/scroll/_all", n)
-        r("DELETE", "/_search/scroll", n)
-        r("DELETE", "/_search/scroll/{scroll_id}", n)
-        r("DELETE", "/_search/point_in_time", n)
+        r("GET", "/_search/scroll", self.h_scroll_next)
+        r("POST", "/_search/scroll", self.h_scroll_next)
+        r("GET", "/_search/scroll/{scroll_id}", self.h_scroll_next)
+        r("POST", "/_search/scroll/{scroll_id}", self.h_scroll_next)
+        r("DELETE", "/_search/scroll/_all", self.h_scroll_clear_all)
+        r("DELETE", "/_search/scroll", self.h_scroll_clear)
+        r("DELETE", "/_search/scroll/{scroll_id}", self.h_scroll_clear)
+        r("DELETE", "/_search/point_in_time", self.h_pit_close)
         r("GET", "/_search/pipeline", self.h_get_pipelines)
         r("GET", "/_search/pipeline/{id}", self.h_get_pipeline)
         r("PUT", "/_search/pipeline/{id}", self.h_put_pipeline)
@@ -341,7 +345,7 @@ class RestController:
         r("POST", "/{index}/_search", self.h_search)
         r("GET", "/{index}/_msearch", self.h_msearch)
         r("POST", "/{index}/_msearch", self.h_msearch)
-        r("POST", "/{index}/_search/point_in_time", n)
+        r("POST", "/{index}/_search/point_in_time", self.h_pit_open)
         r("POST", "/{index}/_doc", self.h_index_doc_auto)
         r("PUT", "/{index}/_doc/{id}", self.h_index_doc)
         r("POST", "/{index}/_doc/{id}", self.h_index_doc)
@@ -1031,17 +1035,41 @@ class RestController:
                 not isinstance(body["request_cache"], bool):
             raise IllegalArgumentError(
                 "[request_cache] must be a boolean")
+        # PIT search: the body names a held reader; no index in the path
         if body.get("pit"):
-            raise NotYetPortedError(
-                "point in time is not ported to the torch package yet")
+            return 200, self._pit_search(body)
         expr = req.path_params.get("index")
+        scroll = req.param("scroll") or body.get("scroll")
         if expr and ":" in expr:
+            if scroll:
+                raise ValidationError(
+                    "scroll is not supported with cross-cluster index "
+                    "expressions")
             raise NotYetPortedError(
                 "cross-cluster search is not ported to the torch package "
                 "yet")
-        if req.param("scroll") or body.get("scroll"):
-            raise NotYetPortedError(
-                "scroll is not ported to the torch package yet")
+        if scroll:
+            if body.get("size") == 0:
+                raise IllegalArgumentError(
+                    "[size] cannot be [0] in a scroll context")
+            if body.get("request_cache"):
+                raise IllegalArgumentError(
+                    "[request_cache] cannot be used in a scroll context")
+            body.pop("request_cache", None)
+            if int(body.get("from", 0) or 0) > 0:
+                raise IllegalArgumentError(
+                    "`from` parameter must be set to 0 when `scroll` is "
+                    "used")
+            batch = int(body.get("size", 10)
+                        if body.get("size") is not None else 10)
+            if batch > 10000:
+                raise IllegalArgumentError(
+                    f"Batch size is too large, size must be less than or "
+                    f"equal to: [10000] but was [{batch}]. Scroll batch "
+                    "sizes cost as much memory as result windows so they "
+                    "are controlled by the [index.max_result_window] "
+                    "index level setting.")
+            return 200, self._open_scroll(req, body, scroll)
         from_ = int(body.get("from", 0) or 0)
         size_ = int(body.get("size", 10)
                     if body.get("size") is not None else 10)
@@ -1093,8 +1121,8 @@ class RestController:
         """Coordinator merge over several indices (scores are per-index,
         like cross-index query_then_fetch in the reference).  With
         ``aggs`` each index answers its aggregation partials and the
-        coordinator reduces them (``reduce_aggs``); ``suggest`` answers
-        501 from the shard, as on one index."""
+        coordinator reduces them (``reduce_aggs``); ``suggest``
+        sections merge by ``merge_suggest``."""
         size = int(body.get("size", 10))
         from_ = int(body.get("from", 0))
         aggs_json = body.get("aggs") or body.get("aggregations")
@@ -1110,7 +1138,136 @@ class RestController:
             out["aggregations"] = reduce_aggs(
                 aggs_json, [r.get("aggregation_partials") or {}
                             for r in responses])
+        if body.get("suggest"):
+            from opensearch_tpu_torch.search.suggest import merge_suggest
+            out["suggest"] = merge_suggest(
+                [r.get("suggest") for r in responses])
         return out
+
+    # -- scroll / PIT ------------------------------------------------------
+
+    def _open_scroll(self, req, body, scroll):
+        """First scroll page: pin a searcher snapshot, order every matched
+        row on its device, serve page one (reader-context creation;
+        SearchService.createContext + scroll keepalive analog)."""
+        from opensearch_tpu_torch.search.contexts import (ScrollContext,
+                                                          parse_keepalive)
+        services = self._target_indices(req)
+        if len(services) != 1:
+            raise ValidationError(
+                "scroll requires exactly one target index")
+        svc = services[0]
+        flt = dict(self.node.indices.resolve_with_filters(
+            req.path_params["index"])).get(svc) \
+            if req.path_params.get("index") else None
+        body = self._apply_alias_filter(body, flt)
+        # keep-alive parses BEFORE any breaker reservation: a malformed
+        # value must not leak the context's request-breaker charge
+        keepalive_ms = parse_keepalive(scroll)
+        searcher = svc.searcher()
+        ordered, total = searcher.scan_rows(
+            {k: v for k, v in body.items() if k != "slice"},
+            slice_spec=body.get("slice"))
+        ctx = ScrollContext(searcher, ordered, total,
+                            page_size=int(body.get("size", 10)),
+                            source_spec=body.get("_source"),
+                            index_name=svc.name)
+        try:
+            scroll_id = self.node.contexts.open(ctx, keepalive_ms)
+        except OpenSearchTpuError:
+            ctx.release()
+            raise
+        return self._scroll_response(ctx, scroll_id)
+
+    def _pit_search(self, body):
+        from opensearch_tpu_torch.search.contexts import (PitContext,
+                                                          parse_keepalive)
+        pit = body["pit"]
+        pit_id = pit.get("id")
+        if not pit_id:
+            raise ValidationError("[pit] requires an [id]")
+        ka = (parse_keepalive(pit["keep_alive"])
+              if pit.get("keep_alive") else None)
+        ctx = self.node.contexts.get(pit_id, ka)
+        if not isinstance(ctx, PitContext):
+            raise ValidationError(
+                f"id [{pit_id}] is a scroll, not a point-in-time")
+        sub = {k: v for k, v in body.items() if k != "pit"}
+        resp = ctx.searcher.search(sub)
+        resp["pit_id"] = pit_id
+        return resp
+
+    def _scroll_response(self, ctx, scroll_id):
+        page = ctx.next_page()
+        hits = ctx.searcher._hits_from_rows(page, ctx.source_spec)
+        for h in hits:
+            h["_index"] = ctx.index_name
+        return {"_scroll_id": scroll_id, "took": 0, "timed_out": False,
+                "_shards": {"total": 1, "successful": 1, "skipped": 0,
+                            "failed": 0},
+                "hits": {"total": {"value": ctx.total, "relation": "eq"},
+                         "max_score": None, "hits": hits}}
+
+    def h_scroll_next(self, req):
+        from opensearch_tpu_torch.search.contexts import (ScrollContext,
+                                                          parse_keepalive)
+        body = req.json({}) or {}
+        scroll_id = (body.get("scroll_id") or req.param("scroll_id")
+                     or req.path_params.get("scroll_id"))
+        if not scroll_id:
+            raise ValidationError("scroll_id is required")
+        # only an EXPLICIT scroll param replaces the stored keepalive; a
+        # bare fetch keeps the lease the client asked for at open
+        raw_ka = body.get("scroll") or req.param("scroll")
+        ka = parse_keepalive(raw_ka) if raw_ka else None
+        ctx = self.node.contexts.get(scroll_id, ka)
+        if not isinstance(ctx, ScrollContext):
+            raise ValidationError(
+                f"id [{scroll_id}] is a point-in-time, not a scroll")
+        return 200, self._scroll_response(ctx, scroll_id)
+
+    def h_scroll_clear(self, req):
+        body = req.json({}) or {}
+        ids = (body.get("scroll_id")
+               or req.path_params.get("scroll_id") or [])
+        if isinstance(ids, str):
+            ids = ids.split(",")
+        freed = sum(1 for i in ids if self.node.contexts.close(i))
+        if ids and freed == 0:
+            return 404, {"succeeded": False, "num_freed": 0}
+        return 200, {"succeeded": True, "num_freed": freed}
+
+    def h_scroll_clear_all(self, req):
+        return 200, {"succeeded": True,
+                     "num_freed": self.node.contexts.close_all()}
+
+    def h_pit_open(self, req):
+        from opensearch_tpu_torch.search.contexts import (PitContext,
+                                                          parse_keepalive)
+        services = self._target_indices(req)
+        if len(services) != 1:
+            raise ValidationError(
+                "point-in-time requires exactly one target index")
+        svc = services[0]
+        # no explicit keep_alive: search.default_keep_alive's default
+        ka = parse_keepalive(
+            req.param("keep_alive"),
+            default_ms=int(self.node.contexts.default_keep_alive_s
+                           * 1000))
+        ctx = PitContext(svc.searcher(), svc.name)
+        pit_id = self.node.contexts.open(ctx, ka)
+        return 200, {"pit_id": pit_id,
+                     "_shards": {"total": svc.num_shards,
+                                 "successful": svc.num_shards,
+                                 "skipped": 0, "failed": 0}}
+
+    def h_pit_close(self, req):
+        body = req.json({}) or {}
+        ids = body.get("pit_id") or []
+        if isinstance(ids, str):
+            ids = [ids]
+        freed = sum(1 for i in ids if self.node.contexts.close(i))
+        return 200, {"succeeded": True, "num_freed": freed}
 
     # -- search pipelines --------------------------------------------------
 

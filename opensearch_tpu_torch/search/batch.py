@@ -322,29 +322,30 @@ class BatchGroup:
 
 
 def batchable(searcher, body: dict, *, peek: bool = False):
-    """``(plan, bind, k)`` when ``body`` may take the batched path with
-    the sequential path's response, else None.  The sequential path
-    serves the others: keys this package does not serve (``suggest``,
-    ``profile``, ``script_fields`` ...), the keys that shape a response
-    beyond a plain top-k (``executor.RESULT_KEYS``: ``sort``,
-    ``search_after``, ``collapse``, ``rescore`` and the fetch options, as
-    the reference's exclusion list tests them), a ``timeout`` (its
-    deadline is checked between the sequential path's per-segment
-    programs), ``min_score``, ``track_total_hits: false`` (whose pruning
-    may legally return lower-bound totals), ``from > 0``, plans other
-    than a scored term bag, and ``size`` outside 1..K_MAX (K3 keeps at
-    most K_MAX candidates per (query, segment), and the sequential path,
-    K2's dense entry plus the stable sort, gives the same answer for a
-    larger page).  ``aggs`` / ``aggregations`` are excluded by name: the
-    batched path answers hits only.  Compiles through the searcher's plan cache; with ``peek`` only a plan
-    that cache already holds counts (the continuous batcher's rule: a
+    """``(plan, bind, k)`` when ``body`` may take the batched path with the
+    sequential path's response, else None.  The sequential path serves
+    the others: ``executor.SEQUENTIAL_KEYS`` (``suggest``, which it
+    runs, ``profile``, which it refuses, and ``script_fields`` and
+    ``post_filter``, as the reference's batch sends them), the keys that
+    shape a response beyond a plain top-k (``executor.RESULT_KEYS``:
+    ``sort``, ``search_after``, ``collapse``, ``rescore`` and the fetch
+    options, as the reference's exclusion list tests them), a
+    ``timeout`` (its deadline is checked between the sequential path's
+    per-segment programs), ``min_score``, ``track_total_hits: false``
+    (whose pruning may legally return lower-bound totals), ``from > 0``,
+    plans other than a scored term bag, and ``size`` outside 1..K_MAX
+    (K3 keeps at most K_MAX candidates per (query, segment), and the
+    sequential path, K2's dense entry plus the stable sort, gives the
+    same answer for a larger page).  ``aggs`` / ``aggregations`` are
+    excluded by name: the batched path answers hits only.  Compiles
+    through the searcher's plan cache; with ``peek`` only a plan that
+    cache already holds counts (the continuous batcher's rule: a
     first-seen query runs, and compiles, on the sequential path)."""
     from opensearch_tpu_torch.search.executor import (RESULT_KEYS,
-                                                      _SUPPORTED_BODY_KEYS)
+                                                      SEQUENTIAL_KEYS)
 
-    if (set(body) - _SUPPORTED_BODY_KEYS
-            or body.get("sort") is not None
-            or any(body.get(key) for key in RESULT_KEYS)
+    if (body.get("sort") is not None
+            or any(body.get(key) for key in RESULT_KEYS + SEQUENTIAL_KEYS)
             or body.get("aggs") or body.get("aggregations")
             or body.get("min_score") is not None
             or body.get("timeout") is not None

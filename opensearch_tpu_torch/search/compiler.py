@@ -7,13 +7,15 @@ match_bool_prefix, multi_match, dis_max, simple_query_string, the span
 queries and intervals, the multi-term queries wildcard / regexp / fuzzy
 and ``fuzziness``, the relevance-shaping queries function_score /
 boosting / rank_feature / distance_feature, terms_set, more_like_this,
-and the geo filters geo_distance / geo_bounding_box / geo_polygon).
+the geo filters geo_distance / geo_bounding_box / geo_polygon, nested
+over a path's staged object columns, the parent-join queries has_child /
+has_parent / parent_id over the join field's hidden ordinal columns, and
+percolate).
 
 idf/avgdl are computed here from CROSS-SEGMENT stats (Lucene computes
 them in IndexSearcher.termStatistics over the whole reader, not per
-leaf), so scores are consistent across segments.  Query types the
-reference compiles but this package does not yet raise
-``NotYetPortedError`` (HTTP 501) rather than answering differently.
+leaf), so scores are consistent across segments.  ``_COMPILERS`` holds
+every entry of the reference's table.
 """
 
 from __future__ import annotations
@@ -23,12 +25,12 @@ import ipaddress
 import math
 import re
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
 from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
-                                                NotYetPortedError,
                                                 OpenSearchTpuError,
                                                 ParsingError)
 from opensearch_tpu_torch.mapping.types import (KeywordFieldType,
@@ -158,10 +160,6 @@ def _ip_cidr_bind(value: str, boost: float) -> dict:
             "hi": parse_ip_long(net.broadcast_address), "boost": boost}
 
 
-def _not_ported(what: str):
-    raise NotYetPortedError(f"{what} is not ported to the torch package yet")
-
-
 def _require_ft(ctx, field, qname):
     ft = ctx.field_type(field)
     if ft is None:
@@ -178,8 +176,6 @@ def compile_query(q: dsl.Query, ctx: ShardContext, scored: bool = True):
     if fn is None:
         # a hybrid query runs only at the root, per sub-query
         # (executor._hybrid_search); nested, the reference refuses it
-        if isinstance(q, dsl.Query) and not isinstance(q, dsl.HybridQuery):
-            _not_ported(f"query type [{type(q).__name__}]")
         raise IllegalArgumentError(
             f"query type [{type(q).__name__}] is not supported")
     return fn(q, ctx, scored)
@@ -262,8 +258,6 @@ def _c_match(q, ctx, scored):
         try:
             return _c_term(dsl.TermQuery(field=q.field, value=q.query,
                                          boost=q.boost), ctx, scored)
-        except NotYetPortedError:
-            raise
         except (OpenSearchTpuError, ValueError):
             if q.lenient:
                 return _none()
@@ -427,6 +421,269 @@ def _c_ids(q, ctx, scored):
         return m
 
     return P.MaskPlan(label="ids"), {"mask_fn": mask_fn, "boost": q.boost}
+
+
+# -- parent-join (modules/parent-join) --------------------------------------
+
+
+def _find_join_field(ctx):
+    for f, ft in ctx.mapper.field_types().items():
+        if ft.type_name == "join":
+            return f, ft
+    return None, None
+
+
+class _JoinColumns:
+    """A searcher's view of one join field's hidden ordinal columns
+    (``<field>#name``, ``<field>#parent``, staged as ordinal doc values),
+    keyed to ``U``, the sorted union of every segment's ``#parent`` terms
+    (the parent ``_id``s that some child names).  Per segment (by
+    ``id(seg)``): ``parent_u``, int32 on the device, the ``U`` index of
+    each of the segment's ``#parent`` ordinals, and ``self_u``, int32
+    [n_pad], the ``U`` index of each doc's own ``_id`` (-1 where it is no
+    child's parent).  Built once a searcher (its compile context caches
+    it): the segments are immutable."""
+
+    def __init__(self, ctx, field: str):
+        pfield = field + "#parent"
+        terms = [np.asarray(seg.ordinal_dv[pfield].ord_terms, dtype=str)
+                 for seg in ctx.segments
+                 if pfield in seg.ordinal_dv
+                 and seg.ordinal_dv[pfield].ord_terms]
+        u = (np.unique(np.concatenate(terms)) if terms
+             else np.zeros(0, dtype=str))
+        self.n_u = len(u)
+        self.parent_u: dict[int, Optional[torch.Tensor]] = {}
+        self.self_u: dict[int, torch.Tensor] = {}
+        for seg in ctx.segments:
+            dseg = seg.device(ctx.device)
+            dv = seg.ordinal_dv.get(pfield)
+            self.parent_u[id(seg)] = (
+                None if dv is None or not dv.ord_terms else torch.from_numpy(
+                    np.searchsorted(u, np.asarray(dv.ord_terms, dtype=str))
+                    .astype(np.int32)).to(ctx.device))
+            own = np.full(dseg.n_pad, -1, np.int32)
+            if self.n_u and seg.n_docs:
+                ids = np.asarray(seg.doc_ids, dtype=str)
+                at = np.searchsorted(u, ids).clip(max=self.n_u - 1)
+                hit = u[at] == ids
+                own[: seg.n_docs][hit] = at[hit]
+            self.self_u[id(seg)] = torch.from_numpy(own).to(ctx.device)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (*self.parent_u.values(), *self.self_u.values())
+                   if t is not None)
+
+
+def _join_columns(ctx, field: str) -> _JoinColumns:
+    from opensearch_tpu_torch.common.cache import attached_cache
+
+    cache = attached_cache(ctx, "_join_col_cache",
+                           name="query.join_columns",
+                           max_weight=32 << 20, breaker="fielddata")
+    out = cache.get(field)
+    if out is None:
+        out = _JoinColumns(ctx, field)
+        cache.put(field, out)
+    return out
+
+
+def _ord_col(seg, dseg, field: str, term=None):
+    """``(ords, ord of term)`` of a single-valued hidden ordinal column:
+    each doc's ordinal (its last value, as the reference's per-doc map
+    keeps it; -1 where it has none) [n_pad] on the device, and the
+    segment's ordinal of ``term`` (None where the segment lacks the
+    column or the term)."""
+    dv = seg.ordinal_dv.get(field)
+    if dv is None:
+        return None, None
+    ords = dseg.ordinal[field]["max_ord"]
+    return ords, (None if term is None else dv.term_to_ord.get(term))
+
+
+def _host_run_scored(ctx, q, select):
+    """Run an inner query over every segment of the context (one
+    ``dense_prepass``, then ``run_full`` per segment) and read back once
+    the rows ``select(seg, dseg, scores, matched)`` keeps: it returns
+    ``(rows bool [n_docs], keys int32 [n_docs])`` on the device, or None
+    for none of the segment's rows.  Returns ``(keys, scores)``: the kept
+    rows' keys (int32) and float32 scores on the host, in (segment, doc)
+    order.  The pre-pass the join queries inject via ScoredMaskPlan."""
+    from opensearch_tpu_torch.search.executor import build_arrays
+
+    plan, bind = compile_query(q, ctx, scored=True)
+    needed = plan.arrays()
+    items = []
+    for seg in ctx.segments:
+        dseg = seg.device(ctx.device)
+        dims, ins = plan.prepare(bind, seg, dseg, ctx)
+        A = build_arrays(dseg, needed, ctx.mapper,
+                         live=ctx.live_mask(seg, dseg),
+                         partial_ok=plan.skip_arrays(dims))
+        items.append((seg, dseg, dims, ins, A))
+    P.dense_prepass(plan, [(A, dims, ins) for _s, _d, dims, ins, A in items])
+    rows, keys, scores = [], [], []
+    for seg, dseg, dims, ins, A in items:
+        sc, matched = P.run_full(plan, dims, A, ins, -np.inf)
+        picked = select(seg, dseg, sc, matched)
+        if picked is not None:
+            rows.append(picked[0])
+            keys.append(picked[1])
+            scores.append(sc[: seg.n_docs])
+    if not rows:
+        return np.zeros(0, np.int32), np.zeros(0, np.float32)
+    sel = torch.nonzero(torch.cat(rows)).squeeze(1)
+    kept = torch.cat([torch.cat(keys)[sel],
+                      torch.cat(scores)[sel].view(torch.int32)])
+    host = kept.cpu().numpy()
+    n = len(host) // 2
+    return host[:n], host[n:].view(np.float32)
+
+
+def _join_mask_plan(ctx, fn, label):
+    return P.ScoredMaskPlan(label=label), {"fn": fn}
+
+
+def _c_has_child(q, ctx, scored):
+    field, jft = _find_join_field(ctx)
+    if field is None:
+        return _none()
+    parent_rel = jft.parent_of(q.type)
+    if parent_rel is None:
+        raise IllegalArgumentError(
+            f"[has_child] join field [{field}] has no child relation "
+            f"[{q.type}]")
+    state: dict = {}
+
+    def select(seg, dseg, scores, matched):
+        names, child_ord = _ord_col(seg, dseg, field + "#name", q.type)
+        parents, _o = _ord_col(seg, dseg, field + "#parent")
+        if child_ord is None or parents is None:
+            return None
+        cols = _join_columns(ctx, field)
+        n = seg.n_docs
+        rows = (matched[:n] & (names[:n] == child_ord)
+                & (parents[:n] >= 0))
+        return rows, cols.parent_u[id(seg)][parents[:n].clamp(min=0).long()]
+
+    def compute():
+        u, s = _host_run_scored(ctx, q.query, select)
+        n_u = _join_columns(ctx, field).n_u
+        s64 = s.astype(np.float64)
+        count = np.bincount(u, minlength=n_u)
+        ok = count >= max(q.min_children, 1)
+        if q.max_children is not None:
+            ok &= count <= q.max_children
+        mode = q.score_mode
+        if mode in ("sum", "avg"):
+            # float64 sums of float32 scores added in (segment, doc)
+            # order (bincount adds its weights in input order)
+            score = np.bincount(u, weights=s64, minlength=n_u)
+            if mode == "avg":
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    score = score / count
+        elif mode in ("max", "min"):
+            score = np.full(n_u, -np.inf if mode == "max" else np.inf)
+            (np.maximum if mode == "max" else np.minimum).at(score, u, s64)
+        else:
+            score = np.ones(n_u)
+        # q.boost * s in float64, rounded to float32 once
+        table = np.where(ok, q.boost * score, 0.0).astype(np.float32)
+        state["ok"] = torch.from_numpy(ok).to(ctx.device)
+        state["table"] = torch.from_numpy(table).to(ctx.device)
+
+    def fn(seg, dseg):
+        if "table" not in state:
+            compute()
+        names, parent_ord = _ord_col(seg, dseg, field + "#name",
+                                     parent_rel)
+        if parent_ord is None or not len(state["table"]):
+            return _empty_cols(dseg)
+        own = _join_columns(ctx, field).self_u[id(seg)]
+        at = own.clamp(min=0).long()
+        # the searcher's point-in-time live bitmap in the join masks: the
+        # reference reads the segment's current one (ROADMAP Queue C)
+        mk = ((own >= 0) & state["ok"][at] & (names == parent_ord)
+              & ctx.live_mask(seg, dseg))
+        return torch.where(mk, state["table"][at], 0.0), mk
+
+    return _join_mask_plan(ctx, fn, "has_child")
+
+
+def _empty_cols(dseg):
+    return (torch.zeros(dseg.n_pad, dtype=torch.float32, device=dseg.device),
+            torch.zeros(dseg.n_pad, dtype=torch.bool, device=dseg.device))
+
+
+def _c_has_parent(q, ctx, scored):
+    field, jft = _find_join_field(ctx)
+    if field is None:
+        return _none()
+    if q.parent_type not in jft.relations:
+        raise IllegalArgumentError(
+            f"[has_parent] join field [{field}] has no parent relation "
+            f"[{q.parent_type}]")
+    state: dict = {}
+
+    def select(seg, dseg, scores, matched):
+        names, parent_ord = _ord_col(seg, dseg, field + "#name",
+                                     q.parent_type)
+        if parent_ord is None:
+            return None
+        own = _join_columns(ctx, field).self_u[id(seg)]
+        n = seg.n_docs
+        return matched[:n] & (names[:n] == parent_ord) & (own[:n] >= 0), \
+            own[:n]
+
+    def compute():
+        u, s = _host_run_scored(ctx, q.query, select)
+        n_u = _join_columns(ctx, field).n_u
+        # a parent _id met twice keeps its last score in (segment, doc)
+        # order
+        last = np.full(n_u, -1, np.int64)
+        np.maximum.at(last, u, np.arange(len(u)))
+        has = last >= 0
+        score = np.zeros(n_u)
+        score[has] = s[last[has]].astype(np.float64) if q.score else 1.0
+        table = np.where(has, q.boost * score, 0.0).astype(np.float32)
+        state["has"] = torch.from_numpy(has).to(ctx.device)
+        state["table"] = torch.from_numpy(table).to(ctx.device)
+
+    def fn(seg, dseg):
+        if "table" not in state:
+            compute()
+        parents, _o = _ord_col(seg, dseg, field + "#parent")
+        if parents is None or not len(state["table"]):
+            return _empty_cols(dseg)
+        table = _join_columns(ctx, field).parent_u[id(seg)]
+        at = table[parents.clamp(min=0).long()].long()
+        mk = (parents >= 0) & state["has"][at] & ctx.live_mask(seg, dseg)
+        return torch.where(mk, state["table"][at], 0.0), mk
+
+    return _join_mask_plan(ctx, fn, "has_parent")
+
+
+def _c_parent_id(q, ctx, scored):
+    field, jft = _find_join_field(ctx)
+    if field is None:
+        return _none()
+    if jft.parent_of(q.type) is None:
+        raise IllegalArgumentError(
+            f"[parent_id] join field [{field}] has no child relation "
+            f"[{q.type}]")
+
+    def fn(seg, dseg):
+        names, type_ord = _ord_col(seg, dseg, field + "#name", q.type)
+        parents, id_ord = _ord_col(seg, dseg, field + "#parent", q.id)
+        if type_ord is None or id_ord is None:
+            return _empty_cols(dseg)
+        mk = ((parents == id_ord) & (names == type_ord)
+              & ctx.live_mask(seg, dseg))
+        return P._const(mk, P._f32(q.boost))
+
+    return _join_mask_plan(ctx, fn, "parent_id")
 
 
 _MAX_CODEPOINT = chr(0x10FFFF)
@@ -1510,6 +1767,144 @@ def _winners_plan(ctx, winners: dict, label: str):
     return P.ScoredMaskPlan(label=label), {"fn": fn}
 
 
+
+def _c_percolate(q, ctx, scored):
+    """percolate: reverse search (modules/percolator).  Each stored query
+    (the ``percolator`` field's _source JSON) is counted against a
+    throwaway searcher holding the candidate document(s), on the
+    searcher's own device; stored queries that match ANY candidate become
+    hits.  Matching happens at compile time: the result is a
+    ScoredMaskPlan over the query docs (knn's injection pattern).  One
+    count per live stored query, as in the reference: no selection of
+    candidate queries by their terms."""
+    from opensearch_tpu_torch.index.segment import SegmentWriter
+    from opensearch_tpu_torch.mapping.mapper import DocumentMapper
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+
+    ft = ctx.field_type(q.field)
+    if ft is None or ft.type_name != "percolator":
+        raise IllegalArgumentError(
+            f"[percolate] field [{q.field}] must be a percolator field")
+    # candidate docs in a throwaway searcher over an ISOLATED mapper
+    # clone (the percolator's MemoryIndex analog): dynamic resolution of
+    # unmapped candidate fields must never leak into the index mapping
+    tmp_mapper = DocumentMapper(ctx.mapper.to_mapping())
+    parsed = [tmp_mapper.parse(f"_tmp_{i}", d)
+              for i, d in enumerate(q.documents)]
+    cand = ShardSearcher([SegmentWriter().build(parsed, "_percolate_tmp")],
+                         tmp_mapper, device=ctx.device)
+    winners: dict[int, list[tuple[int, float]]] = {}
+    for seg_order, seg in enumerate(ctx.segments):
+        live = ctx.lives[id(seg)]    # the searcher's point-in-time view
+        for local in range(seg.n_docs):
+            if not live[local]:
+                continue
+            stored = seg.source(local).get(q.field)
+            if not isinstance(stored, dict):
+                continue             # absent or malformed: never matches
+            try:
+                n = cand.count(stored)
+            except OpenSearchTpuError:
+                continue             # a query shape the engine can't run
+            if n > 0:
+                winners.setdefault(seg_order, []).append((local, q.boost))
+    return _winners_plan(ctx, winners, "percolate")
+
+
+def _c_nested(q, ctx, scored):
+    """nested query: inner conditions compile into object-space plans
+    (plan.py Obj*Plan) evaluated against the path's object-major columns,
+    scatter-ORed back to parents.  Scoring is constant (the reference's
+    score_mode none; avg / sum / max degrade to it: inner BM25 scoring
+    inside nested blocks is not modeled)."""
+    ft = ctx.field_type(q.path)
+    if ft is None or ft.dv_kind != "nested":
+        if q.ignore_unmapped:
+            return _none()
+        raise IllegalArgumentError(
+            f"[nested] failed to find nested object under path "
+            f"[{q.path}]")
+    inner, ibind = _compile_obj(q.query, q.path, ctx)
+    return (P.NestedPlan(path=q.path, inner=inner),
+            {"inner": ibind, "boost": q.boost})
+
+
+def _compile_obj(node, path, ctx):
+    """Inner (object-space) compiler for nested queries."""
+    prefix = path + "."
+
+    def child_ft(field):
+        if not field.startswith(prefix):
+            field = prefix + field       # accept relative child names
+        ft = ctx.field_type(field)
+        if ft is None:
+            raise IllegalArgumentError(
+                f"[nested] unknown field [{field}] under [{path}]")
+        return field, ft
+
+    if isinstance(node, dsl.MatchAllQuery) or node is None:
+        return P.ObjMatchAllPlan(), {}
+    if isinstance(node, (dsl.TermQuery, dsl.TermsQuery)):
+        raw = ([node.value] if isinstance(node, dsl.TermQuery)
+               else list(node.values))
+        field, ft = child_ft(node.field)
+        if ft.dv_kind in ("long", "double"):
+            return (P.ObjTermsPlan(field=field, kind="numeric"),
+                    {"values": [float(ft.doc_value(v)) for v in raw]})
+        return (P.ObjTermsPlan(field=field, kind="ordinal"),
+                {"values": [str(ft.term_for_query(v)) for v in raw]})
+    if isinstance(node, dsl.MatchQuery):
+        field, ft = child_ft(node.field)
+        if hasattr(ft, "search_terms"):
+            terms = ft.search_terms(str(node.query), ctx.mapper.analyzers)
+            return (P.ObjTermsPlan(field=field, kind="ordinal"),
+                    {"values": terms})
+        if ft.dv_kind in ("long", "double"):
+            return (P.ObjTermsPlan(field=field, kind="numeric"),
+                    {"values": [float(ft.doc_value(node.query))]})
+        return (P.ObjTermsPlan(field=field, kind="ordinal"),
+                {"values": [str(ft.term_for_query(node.query))]})
+    if isinstance(node, dsl.RangeQuery):
+        field, ft = child_ft(node.field)
+        if ft.dv_kind not in ("long", "double"):
+            raise IllegalArgumentError(
+                f"[nested] range over [{field}] requires a numeric/date "
+                "child field")
+
+        def conv(v):
+            return float(ft.doc_value(v))
+        lo = conv(node.gte) if node.gte is not None else (
+            conv(node.gt) if node.gt is not None else -np.inf)
+        hi = conv(node.lte) if node.lte is not None else (
+            conv(node.lt) if node.lt is not None else np.inf)
+        return (P.ObjRangePlan(field=field,
+                               include_lo=node.gt is None,
+                               include_hi=node.lt is None),
+                {"lo": lo, "hi": hi})
+    if isinstance(node, dsl.ExistsQuery):
+        field, _ft = child_ft(node.field)
+        return P.ObjExistsPlan(field=field), {}
+    if isinstance(node, dsl.BoolQuery):
+        groups = []
+        binds = []
+        for clause_list in (node.must + node.filter, node.should,
+                            node.must_not):
+            compiled = [_compile_obj(c, path, ctx) for c in clause_list]
+            groups.append(tuple(p for p, _b in compiled))
+            binds.extend(b for _p, b in compiled)
+        required = calc_min_should_match(
+            len(node.should),
+            node.minimum_should_match
+            if node.minimum_should_match is not None
+            else (0 if (node.must or node.filter) else 1))
+        return (P.ObjBoolPlan(must=groups[0], should=groups[1],
+                              must_not=groups[2],
+                              should_required=required >= 1),
+                {"children": tuple(binds)})
+    raise IllegalArgumentError(
+        f"[nested] inner query type [{type(node).__name__}] is not "
+        "supported — use term/terms/match/range/exists/bool")
+
 _COMPILERS = {
     dsl.MatchAllQuery: _c_match_all,
     dsl.MatchNoneQuery: _c_match_none,
@@ -1547,4 +1942,9 @@ _COMPILERS = {
     dsl.GeoPolygonQuery: _c_geo_polygon,
     dsl.RankFeatureQuery: _c_rank_feature,
     dsl.GeoBoundingBoxQuery: _c_geo_bounding_box,
+    dsl.NestedQuery: _c_nested,
+    dsl.HasChildQuery: _c_has_child,
+    dsl.HasParentQuery: _c_has_parent,
+    dsl.ParentIdQuery: _c_parent_id,
+    dsl.PercolateQuery: _c_percolate,
 }

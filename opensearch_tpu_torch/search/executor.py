@@ -57,9 +57,15 @@ window's rows, gathers its scores at those rows on the device and
 combines them on the host in float64, as the reference does.  The fetch
 options run per hit of the page on the host (``search/fetch.py``).
 
-Not ported yet (ROADMAP): profile, suggest, scroll and point in time,
-and the telemetry / insights / task / device-health hooks.  Requests
-that use them raise ``NotYetPortedError``.
+``suggest`` runs the term, phrase and completion suggesters on the host
+(``search/suggest.py``).  ``scan_rows`` orders every matched row on the
+device for the REST layer's scroll contexts (``search/contexts.py``);
+a point in time is a pinned searcher.
+
+Not ported yet (ROADMAP): ``profile``, which raises
+``NotYetPortedError``, and the telemetry / insights / task /
+device-health hooks.  Other keys the searcher does not read are ignored,
+as the reference's searcher ignores them.
 
 The searcher's caches are ``BoundedCache``s: the engine's threadpool and
 the continuous batcher call ``search`` from many threads at once.
@@ -100,12 +106,15 @@ _I32 = np.int32
 # ``batchable``)
 RESULT_KEYS = ("sort", "search_after", "rescore", "collapse", "highlight",
                "explain", "docvalue_fields", "fields", "stored_fields")
-# request-body keys this port serves; any other key raises rather than
-# being ignored
-_SUPPORTED_BODY_KEYS = frozenset({"query", "size", "from", "min_score",
-                                  "_source", "track_total_hits", "timeout",
-                                  "_hybrid_pipeline", "aggs",
-                                  "aggregations", *RESULT_KEYS})
+# the other keys that take the sequential path: ``suggest`` runs there,
+# ``profile`` raises there, and the reference's batch sends
+# ``script_fields`` and ``post_filter`` there too
+SEQUENTIAL_KEYS = ("suggest", "profile", "script_fields", "post_filter")
+# query types whose bind injects a per-request column of every segment
+# (``ScoredMaskPlan``: the knn winners, the parent-join masks, percolate's
+# matches): their prepared inputs stay out of the searcher's cache
+_INJECTED_QUERIES = ('"knn":', '"has_child":', '"has_parent":',
+                     '"parent_id":', '"percolate":')
 # bounds of the searcher's plan, prepared-bindings, batch and sort caches
 # (entries; a sort cache entry is a key column of every doc, 8 bytes a
 # doc, or a keyword's rank tables)
@@ -277,13 +286,15 @@ def build_arrays(dseg: DeviceSegment, needed, mapper, live=None,
     return A
 
 
-def _check_body_keys(body: dict) -> None:
-    """Request-body keys this port does not serve raise rather than being
-    ignored."""
-    unknown = sorted(set(body) - _SUPPORTED_BODY_KEYS)
-    if unknown:
+def _check_profile(body: dict) -> None:
+    """``profile``, the one body key this port does not serve, raises.
+    Like the reference's searcher, this one ignores the keys it does not
+    read (``post_filter``, ``track_scores``, ``terminate_after``,
+    ``version``, ``seq_no_primary_term``, ``indices_boost``, ...); the
+    REST layer refuses keys outside the reference's set."""
+    if body.get("profile"):
         raise NotYetPortedError(
-            f"search request keys {unknown} are not ported to the torch "
+            "search request key [profile] is not ported to the torch "
             "package yet")
 
 
@@ -298,6 +309,18 @@ def _plan_key(query_json, scored: bool):
     except (TypeError, ValueError):
         return None
     return None if '"script_score":' in key else (key, scored)
+
+
+def _prep_key(ckey):
+    """The prepared-inputs cache's key of a query whose plan cache key is
+    ``ckey``: None for a query holding one of ``_INJECTED_QUERIES``.  Such
+    a bind's per-segment score column and mask are made per request (the
+    plan keeps its state: a join's parent table, knn's winners), so
+    caching them would only fill the device with columns no later request
+    reads."""
+    if ckey is None or any(q in ckey[0] for q in _INJECTED_QUERIES):
+        return None
+    return ckey
 
 
 class ShardSearcher:
@@ -333,7 +356,9 @@ class ShardSearcher:
                  with_key: bool = False):
         """(plan, bind) for a raw query body through the searcher's plan
         cache, keyed on the canonicalized JSON.  The searcher is an
-        immutable point-in-time view, so entries never go stale."""
+        immutable point-in-time view, so entries never go stale.
+        ``with_key`` returns the prepared-inputs cache's key beside them
+        (``_prep_key``)."""
         ckey = _plan_key(query_json, scored)
         out = self._plan_cache.get(ckey) if ckey is not None else None
         if out is None:
@@ -341,7 +366,7 @@ class ShardSearcher:
                                 scored=scored)
             if ckey is not None:
                 out = self._plan_cache.put(ckey, out)
-        return (out, ckey) if with_key else out
+        return (out, _prep_key(ckey)) if with_key else out
 
     def cached_plan(self, query_json: Optional[dict], scored: bool = True):
         """(plan, bind) when the plan cache already holds the query, else
@@ -429,7 +454,7 @@ class ShardSearcher:
             q = parse_query(q_json)
             if isinstance(q, HybridQuery):
                 return self._hybrid_search(body, q, t0, fetch_extras)
-        _check_body_keys(body)
+        _check_profile(body)
         return self._search_body(body, t0, agg_partials, fetch_extras)
 
     @staticmethod
@@ -546,6 +571,14 @@ class ShardSearcher:
             else:
                 resp["aggregations"] = execu.run(aggs_json, seg_views)
             resp["took"] = int((time.monotonic() - t0) * 1000)
+        if body.get("suggest"):
+            from opensearch_tpu_torch.search.suggest import run_suggest
+            resp["suggest"] = run_suggest(body["suggest"], self.ctx)
+            for entries in resp["suggest"].values():
+                for entry in entries:
+                    for opt in entry.get("options", ()):
+                        if "_id" in opt and "_index" not in opt:
+                            opt["_index"] = self.index_name
         return resp
 
     def _hybrid_search(self, body: dict, q, t0, fetch_extras=None) -> dict:
@@ -565,7 +598,7 @@ class ShardSearcher:
             raise ValidationError(
                 "[hybrid] query does not support [sort], [aggs], "
                 "[min_score] or [search_after]")
-        _check_body_keys(body)
+        _check_profile(body)
         size = int(body.get("size", 10))
         from_ = int(body.get("from", 0))
         k_want = from_ + size

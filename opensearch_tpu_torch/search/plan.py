@@ -38,9 +38,11 @@ kernel; ``DisMaxPlan`` combines its children as the reference does.
 ``ExpandTermsPlan`` (wildcard / regexp / fuzzy), ``BoostingPlan``,
 ``TermsSetPlan``, ``DistanceFeaturePlan``, the geo filters and
 ``FunctionScorePlan`` are torch ops over those columns and K1 / K2's
-dense entries.  Plans of the reference that are not ported yet (nested,
-the joins, percolate) are absent; the compiler raises
-``NotYetPortedError`` for queries that would need them.
+dense entries.  ``NestedPlan`` evaluates its object-space plans
+(``ObjTermsPlan``, ``ObjRangePlan``, ``ObjExistsPlan``, ``ObjBoolPlan``,
+``ObjMatchAllPlan``) over the staged nested blocks and scatters the
+object masks to parents; the parent-join queries and ``percolate``
+inject their per-segment results through ``ScoredMaskPlan``.
 """
 
 from __future__ import annotations
@@ -426,16 +428,20 @@ class TermBagPlan(Plan):
 
 @dataclass(frozen=True)
 class ScoredMaskPlan(Plan):
-    """Precomputed per-segment (scores, matched) — knn pre-pass results
-    are injected into the tree through this node.
-    bind: {fn: (seg, dseg) -> (scores np.f32 [n_pad], mask np.bool)}."""
+    """Precomputed per-segment (scores, matched): the knn pre-pass's
+    winners, the parent-join queries' masks and percolate's matches are
+    injected into the tree through this node.
+    bind: {fn: (seg, dseg) -> (scores f32 [n_pad], mask bool [n_pad]),
+    numpy arrays or tensors on the segment's device}."""
 
     label: str = "knn"
 
     def prepare(self, bind, seg, dseg, ctx):
         scores, mask = bind["fn"](seg, dseg)
-        return (), (_tensor(scores, _F32, dseg.device),
-                    _tensor(mask, bool, dseg.device))
+        if not isinstance(scores, torch.Tensor):
+            scores = _tensor(scores, _F32, dseg.device)
+            mask = _tensor(mask, bool, dseg.device)
+        return (), (scores, mask)
 
     def eval(self, A, dims, ins):
         scores, mask = ins
@@ -1105,6 +1111,185 @@ class ConstScorePlan(Plan):
         cins, boost = ins
         _s, matched = self.child.eval(A, dims, cins)
         return torch.where(matched, boost, 0.0).to(torch.float32), matched
+
+
+# ---------------------------------------------------------------------------
+# Nested queries: object-space plans.  A nested path's objects form their
+# own padded id space (``DeviceSegment.nested_staged``); inner conditions
+# evaluate [n_obj_pad] masks, scatter-ORed to objects and then to parents
+# (``filter_ops.scatter_any``: ToParentBlockJoinQuery's shape).  Each
+# ``prepare(bind, block, staged)`` returns the condition's tensors (None:
+# matches no object) and ``eval(ins, n_obj_pad, dev)`` its object mask.
+# ---------------------------------------------------------------------------
+
+
+def _no_objects(n_obj_pad: int, dev):
+    return torch.zeros(n_obj_pad, dtype=torch.bool, device=dev)
+
+
+@dataclass(frozen=True)
+class ObjTermsPlan:
+    """term/terms membership over one nested child column.
+    bind: {"values": [...]} (raw terms for ordinal, numbers for numeric).
+    """
+
+    field: str = ""
+    kind: str = "ordinal"            # ordinal | numeric
+
+    def prepare(self, bind, block, staged):
+        from opensearch_tpu_torch.common.cache import attached_cache
+
+        col = (staged["ordinal"] if self.kind == "ordinal"
+               else staged["numeric"]).get(self.field)
+        if col is None:
+            return None
+        dev = col["value_objs"].device
+        if self.kind == "ordinal":
+            cache = attached_cache(block, "_term_to_ord",
+                                   name="query.term_ords",
+                                   max_weight=8 << 20,
+                                   breaker="fielddata")
+            term_to_ord = cache.get(self.field)
+            if term_to_ord is None:
+                ord_terms, _ords, _objs = block.ordinal[self.field]
+                term_to_ord = {t: o for o, t in enumerate(ord_terms)}
+                cache.put(self.field, term_to_ord)
+            wanted = [term_to_ord[t] for t in bind["values"]
+                      if t in term_to_ord]
+            if not wanted:
+                return None
+            q_pad = pad_pow2(len(wanted), minimum=1)
+            return (col["ords"], col["value_objs"],
+                    _tensor(_pad_np(wanted, q_pad, -2, _I32), _I32, dev))
+        wanted = [float(v) for v in bind["values"]]
+        q_pad = pad_pow2(len(wanted), minimum=1)
+        return (col["values"], col["value_objs"],
+                _tensor(_pad_np(wanted, q_pad, np.nan, np.float64),
+                        np.float64, dev))
+
+    def eval(self, ins, n_obj_pad, dev):
+        if ins is None:
+            return _no_objects(n_obj_pad, dev)
+        vals, objs, wanted = ins
+        hit = (vals[:, None] == wanted[None, :]).any(dim=1)
+        return filter_ops.scatter_any(hit, objs, n_obj_pad)
+
+
+@dataclass(frozen=True)
+class ObjRangePlan:
+    """range over a numeric nested child.  bind: {"lo", "hi"} (floats,
+    inclusivity resolved into static flags)."""
+
+    field: str = ""
+    include_lo: bool = True
+    include_hi: bool = True
+
+    def prepare(self, bind, block, staged):
+        col = staged["numeric"].get(self.field)
+        if col is None:
+            return None
+        return (col["values"], col["value_objs"],
+                _exact(bind["lo"], np.float64), _exact(bind["hi"], np.float64))
+
+    def eval(self, ins, n_obj_pad, dev):
+        if ins is None:
+            return _no_objects(n_obj_pad, dev)
+        vals, objs, lo, hi = ins
+        return filter_ops.range_mask(vals, objs, lo, hi,
+                                     include_lo=self.include_lo,
+                                     include_hi=self.include_hi,
+                                     n_pad=n_obj_pad)
+
+
+@dataclass(frozen=True)
+class ObjExistsPlan:
+    field: str = ""
+
+    def prepare(self, bind, block, staged):
+        col = (staged["numeric"].get(self.field)
+               or staged["ordinal"].get(self.field))
+        if col is None:
+            return None
+        return (col["value_objs"],)
+
+    def eval(self, ins, n_obj_pad, dev):
+        if ins is None:
+            return _no_objects(n_obj_pad, dev)
+        (objs,) = ins
+        # padded entries point at the dead object slot
+        return filter_ops.scatter_any(objs < n_obj_pad - 1, objs, n_obj_pad)
+
+
+@dataclass(frozen=True)
+class ObjBoolPlan:
+    must: tuple = ()
+    should: tuple = ()
+    must_not: tuple = ()
+    # shoulds required only when nothing else constrains (the top-level
+    # bool's required-resolution, compiler _c_bool)
+    should_required: bool = True
+
+    def prepare(self, bind, block, staged):
+        children = (*self.must, *self.should, *self.must_not)
+        return tuple(c.prepare(b, block, staged)
+                     for c, b in zip(children, bind["children"]))
+
+    def eval(self, ins, n_obj_pad, dev):
+        nm, ns = len(self.must), len(self.should)
+        mask = torch.ones(n_obj_pad, dtype=torch.bool, device=dev)
+        for c, i in zip(self.must, ins[:nm]):
+            mask &= c.eval(i, n_obj_pad, dev)
+        if ns and self.should_required:
+            any_should = _no_objects(n_obj_pad, dev)
+            for c, i in zip(self.should, ins[nm: nm + ns]):
+                any_should |= c.eval(i, n_obj_pad, dev)
+            mask &= any_should
+        for c, i in zip(self.must_not, ins[nm + ns:]):
+            mask &= ~c.eval(i, n_obj_pad, dev)
+        return mask
+
+
+@dataclass(frozen=True)
+class ObjMatchAllPlan:
+    def prepare(self, bind, block, staged):
+        return ()
+
+    def eval(self, ins, n_obj_pad, dev):
+        return torch.ones(n_obj_pad, dtype=torch.bool, device=dev)
+
+
+@dataclass(frozen=True)
+class NestedPlan(Plan):
+    """nested query: inner object-space condition -> parent mask, scored
+    the constant ``boost`` (``score_mode`` changes nothing, as in the
+    reference).  bind: {"inner": inner_bind, "boost": f}."""
+
+    path: str = ""
+    inner: object = None             # Obj*Plan
+
+    def prepare(self, bind, seg, dseg, ctx):
+        block = seg.nested.get(self.path)
+        staged = dseg.nested_staged(self.path)
+        if block is None or staged is None:
+            return ("missing",), ()
+        inner_ins = self.inner.prepare(bind["inner"], block, staged)
+        return (staged["n_obj_pad"],), (
+            staged["obj_to_doc"], staged["obj_valid"], inner_ins,
+            _f32(bind["boost"]))
+
+    def eval(self, A, dims, ins):
+        n_pad, dev = _live_n_pad(A)
+        if dims[0] == "missing":
+            return (torch.zeros(n_pad, dtype=torch.float32, device=dev),
+                    torch.zeros(n_pad, dtype=torch.bool, device=dev))
+        n_obj_pad = dims[0]
+        obj_to_doc, obj_valid, inner_ins, boost = ins
+        obj_mask = self.inner.eval(inner_ins, n_obj_pad, dev) & obj_valid
+        return _const(filter_ops.scatter_any(obj_mask, obj_to_doc, n_pad),
+                      boost)
+
+    def can_match(self, bind, seg):
+        return self.path in seg.nested
 
 
 _F32_TINY = float(np.finfo(np.float32).tiny)

@@ -8,7 +8,13 @@ float32 vectors (``random_vectors``; ``clustered_vectors`` for ANN) and
 of doc-value columns (``doc_value_columns``: a
 ``price`` long, a ``ts`` date, a ``tag`` keyword with postings and
 ordinals and a ``fare`` double, ``COLUMNS_MAPPING``; ``relevance_columns``:
-a ``pickup`` geo_point and a ``min_terms`` long, ``RELEVANCE_MAPPING``).
+a ``pickup`` geo_point and a ``min_terms`` long, ``RELEVANCE_MAPPING``),
+and phase 17's corpora, each from its own seed: questions with answers
+(``qa_draws``) as nested objects (``nested_segments``) and as parent and
+child docs of a join field (``join_segments``), built directly in the
+writer's layout, their JSON documents (``qa_documents``), and a
+percolator's stored queries and candidate documents
+(``percolator_queries``, ``percolator_documents``).
 Pure numpy; segments are this package's."""
 
 from __future__ import annotations
@@ -364,3 +370,346 @@ def span_clauses(run: tuple, k: int) -> tuple:
         return run[:1], 0
     picked = run[: k - 1] + run[-1:]
     return picked, len(run) - k
+
+
+# -- phase 17: questions with answers, as nested objects and as parent /
+# child docs of a join field, and a percolator index ----------------------
+
+QA_USERS = 100_000                # answers.user: zipf over 100,000 users
+QA_ANSWERS_MAX = 6                # 0-6 answers a question, 2 on average
+QA_DATE_SPAN_MS = 30 * 86_400_000  # an answer within 30 days of its question
+QA_BODY_LENS = (5, 16)            # an answer's body: 5-15 tokens
+NESTED_MAPPING = {"tag": {"type": "keyword"}, "created": {"type": "date"},
+                  "answers": {"type": "nested", "properties": {
+                      "user": {"type": "keyword"},
+                      "date": {"type": "date"}}}}
+JOIN_MAPPING = {"qa": {"type": "join",
+                       "relations": {"question": "answer"}},
+                "tag": {"type": "keyword"}, "created": {"type": "date"},
+                "user": {"type": "keyword"}, "date": {"type": "date"},
+                "body": {"type": "text"}}
+PERCOLATOR_MAPPING = {"query": {"type": "percolator"},
+                      "body": {"type": "text"}, "ts": {"type": "date"}}
+
+
+def user_name(code: int) -> str:
+    """The ``user`` keyword of user ``code``: fixed width, so the sorted
+    term dictionary keeps the codes' order."""
+    return f"u{int(code):05d}"
+
+
+def qa_draws(n_questions: int, seed: int = 21) -> dict:
+    """Seeded questions and answers, in the shape of OpenSearch
+    Benchmark's ``nested`` workload (StackOverflow questions with nested
+    answers): per question a ``tag`` code (zipf, a = 1.3, over
+    ``TAG_VALUES``), a ``created`` date (epoch millis over ``TS_SPAN_MS``
+    from ``TS_START_MS``) and 0-6 answers (binomial(6, 1/3): 2 on
+    average); per answer, in question order, a ``user`` code (zipf, a =
+    1.3, over ``QA_USERS``), a ``date`` 1 ms to 30 days after its
+    question's, and a ``body`` of 5-15 tokens of ``build_raw_corpus``'s
+    vocabulary (zipf, a = 1.3, term ids; ``body_lens`` tokens each, in
+    ``body_terms``)."""
+    rng = np.random.default_rng(seed)
+    tag = ((rng.zipf(1.3, size=n_questions) - 1)
+           .clip(0, TAG_VALUES - 1).astype(np.int32))
+    created = TS_START_MS + rng.integers(0, TS_SPAN_MS, size=n_questions,
+                                         dtype=np.int64)
+    n_answers = rng.binomial(QA_ANSWERS_MAX, 1 / 3,
+                             size=n_questions).astype(np.int64)
+    total = int(n_answers.sum())
+    user = ((rng.zipf(1.3, size=total) - 1)
+            .clip(0, QA_USERS - 1).astype(np.int32))
+    date = (np.repeat(created, n_answers)
+            + rng.integers(1, QA_DATE_SPAN_MS, size=total, dtype=np.int64))
+    body_lens = rng.integers(*QA_BODY_LENS, size=total).astype(np.int64)
+    body_terms = ((rng.zipf(1.3, size=int(body_lens.sum())) - 1)
+                  .clip(0, VOCAB_SIZE - 1).astype(np.int32))
+    return {"n_questions": n_questions, "tag": tag, "created": created,
+            "n_answers": n_answers, "user": user, "date": date,
+            "body_lens": body_lens, "body_terms": body_terms}
+
+
+def qa_documents(draws: dict) -> tuple:
+    """``(questions, answers)``: the draws as JSON documents, for the
+    writer and over HTTP.  ``questions[i]`` is ``(id, nested document,
+    join document)``; ``answers[j]`` ``(id, join document)`` (its nested
+    object is the document's ``answers[k]``).  Question ids are ``str(i)``,
+    answer ids ``a<j>``."""
+    starts = np.cumsum(draws["n_answers"]) - draws["n_answers"]
+    bstarts = np.cumsum(draws["body_lens"]) - draws["body_lens"]
+    questions, answers = [], []
+    for i in range(draws["n_questions"]):
+        qid = str(i)
+        base = {"tag": tag_name(draws["tag"][i]),
+                "created": int(draws["created"][i])}
+        objs = []
+        for j in range(int(starts[i]), int(starts[i] + draws["n_answers"][i])):
+            obj = {"user": user_name(draws["user"][j]),
+                   "date": int(draws["date"][j])}
+            objs.append(obj)
+            lo = int(bstarts[j])
+            body = " ".join(f"t{t}" for t in draws["body_terms"][
+                lo: lo + int(draws["body_lens"][j])])
+            answers.append((f"a{j}", {"qa": {"name": "answer",
+                                             "parent": qid},
+                                      **obj, "body": body}))
+        nested = dict(base, answers=objs) if objs else dict(base)
+        questions.append((qid, nested, {"qa": "question", **base}))
+    return questions, answers
+
+
+def _seg_shell(seg_id: str, ids: list) -> Segment:
+    seg = Segment(seg_id, len(ids))
+    seg.doc_ids = ids
+    seg.id_to_local = {d: i for i, d in enumerate(ids)}
+    seg.sources = [b"{}"] * len(ids)
+    seg.seq_nos[:] = -1               # as the writer stores unsequenced docs
+    return seg
+
+
+def _sorted_names(codes: np.ndarray, name) -> tuple:
+    """``(names, ords)``: the sorted distinct ``name(code)`` of ``codes``
+    and each code's ordinal among them."""
+    uniq, inv = np.unique(codes, return_inverse=True)
+    names = np.array([name(c) for c in uniq.tolist()])
+    by_name = np.argsort(names, kind="stable")
+    rank = np.empty(len(uniq), dtype=np.int64)
+    rank[by_name] = np.arange(len(uniq))
+    return names[by_name].tolist(), rank[inv].astype(np.int32)
+
+
+def _keyword_subset(n: int, docs: np.ndarray, codes: np.ndarray,
+                    name) -> tuple:
+    """(postings, ordinals) of a keyword field that docs ``docs``
+    (ascending) of ``n`` hold, one term each (``name(code)`` of
+    ``codes``), as the writer builds them: no norms, tf 1, position
+    0."""
+    names, ords = _sorted_names(codes, name)
+    order = np.argsort(ords, kind="stable")       # doc-ascending per term
+    df = np.bincount(ords, minlength=len(names)).astype(np.int32)
+    offsets = np.zeros(len(names) + 1, dtype=np.int32)
+    offsets[1:] = np.cumsum(df)
+    has = np.zeros(n, dtype=bool)
+    has[docs] = True
+    m = len(docs)
+    postings = PostingsField(
+        terms={t: i for i, t in enumerate(names)}, df=df, offsets=offsets,
+        doc_ids=docs[order].astype(np.int32),
+        tfs=np.ones(m, dtype=np.float32),
+        pos_offsets=np.arange(m + 1, dtype=np.int32),
+        positions=np.zeros(m, dtype=np.int32),
+        doc_lens=np.ones(n, dtype=np.float32), total_len=float(n),
+        docs_with_field=n, has_norms=False, present=has)
+    return postings, _ordinal_subset(n, docs, ords, names)
+
+
+def _ordinal_subset(n: int, docs: np.ndarray, ords: np.ndarray,
+                    names: list) -> OrdinalDV:
+    """A single-valued ordinal column that docs ``docs`` (ascending) of
+    ``n`` hold, with ordinals ``ords`` into ``names`` (sorted)."""
+    has = np.zeros(n, dtype=bool)
+    has[docs] = True
+    per_doc = np.full(n, -1, dtype=np.int32)
+    per_doc[docs] = ords
+    offsets = np.zeros(n + 1, dtype=np.int32)
+    offsets[1:] = np.cumsum(has)
+    return OrdinalDV(ord_terms=names,
+                     term_to_ord={t: i for i, t in enumerate(names)},
+                     offsets=offsets, ords=ords.astype(np.int32),
+                     value_docs=docs.astype(np.int32), min_ord=per_doc,
+                     max_ord=per_doc.copy(), exists=has)
+
+
+def _long_subset(n: int, docs: np.ndarray, values: np.ndarray) -> NumericDV:
+    """A single-valued long column that docs ``docs`` (ascending) of
+    ``n`` hold."""
+    from opensearch_tpu_torch.index.segment import (LONG_MISSING_MAX,
+                                                    LONG_MISSING_MIN)
+    has = np.zeros(n, dtype=bool)
+    has[docs] = True
+    minv = np.full(n, LONG_MISSING_MAX, dtype=np.int64)
+    maxv = np.full(n, LONG_MISSING_MIN, dtype=np.int64)
+    minv[docs] = maxv[docs] = values
+    offsets = np.zeros(n + 1, dtype=np.int32)
+    offsets[1:] = np.cumsum(has)
+    return NumericDV(kind="long", offsets=offsets,
+                     values=values.astype(np.int64),
+                     value_docs=docs.astype(np.int32), minv=minv,
+                     maxv=maxv, exists=has)
+
+
+def _text_subset(n: int, docs: np.ndarray, lens: np.ndarray,
+                 terms: np.ndarray) -> PostingsField:
+    """A text field that docs ``docs`` (ascending) of ``n`` hold,
+    ``lens[k]`` tokens each (term ids ``terms``, in doc order), as the
+    writer builds it: the dictionary in the sorted order of the terms'
+    names ``t<id>``, rows doc-ascending, each entry's positions
+    ascending, norms."""
+    doc_of = np.repeat(docs.astype(np.int64), lens)
+    starts = np.cumsum(lens) - lens
+    pos_of = (np.arange(len(terms), dtype=np.int64)
+              - np.repeat(starts, lens)).astype(np.int32)
+    present = np.unique(terms)
+    names = np.array([f"t{t}" for t in present])
+    by_name = np.argsort(names)
+    rank = np.empty(len(present), dtype=np.int64)
+    rank[by_name] = np.arange(len(present))
+    trank = rank[np.searchsorted(present, terms)]
+    order = np.lexsort((doc_of, trank))
+    key = trank[order] * n + doc_of[order]
+    uniq, counts = np.unique(key, return_counts=True)
+    pos_offsets = np.zeros(len(counts) + 1, dtype=np.int32)
+    pos_offsets[1:] = np.cumsum(counts)
+    p_rank = uniq // n
+    df = np.bincount(p_rank, minlength=len(present)).astype(np.int32)
+    offsets = np.zeros(len(present) + 1, dtype=np.int32)
+    offsets[1:] = np.cumsum(df)
+    doc_lens = np.zeros(n, dtype=np.float32)
+    doc_lens[docs] = lens
+    has = np.zeros(n, dtype=bool)
+    has[docs] = True
+    return PostingsField(
+        terms={str(names[i]): r for r, i in enumerate(by_name)},
+        df=df, offsets=offsets, doc_ids=(uniq % n).astype(np.int32),
+        tfs=counts.astype(np.float32), pos_offsets=pos_offsets,
+        positions=pos_of[order], doc_lens=doc_lens,
+        total_len=float(doc_lens[doc_lens > 0].sum()),
+        docs_with_field=int((doc_lens > 0).sum()), has_norms=True,
+        present=has)
+
+
+def _question_bounds(draws: dict, n_segments: int) -> np.ndarray:
+    n = draws["n_questions"]
+    return np.linspace(0, n, max(1, min(int(n_segments), n)) + 1
+                       ).astype(np.int64)
+
+
+def nested_segments(draws: dict, n_segments: int) -> list[Segment]:
+    """The questions of ``draws`` split into ``n_segments`` segments of
+    ``NESTED_MAPPING``, laid out as the writer lays out their
+    ``qa_documents`` nested documents: ``tag`` postings and ordinals,
+    ``created`` long column, and the ``answers`` nested block (objects
+    appended in doc order; ``answers.date`` float64 values,
+    ``answers.user`` ordinals in sorted term order).  Sources are
+    ``{}``."""
+    from opensearch_tpu_torch.index.segment import NestedBlock
+
+    bounds = _question_bounds(draws, n_segments)
+    a_starts = np.concatenate([[0], np.cumsum(draws["n_answers"])])
+    segs = []
+    for s in range(len(bounds) - 1):
+        lo, hi = int(bounds[s]), int(bounds[s + 1])
+        n = hi - lo
+        seg = _seg_shell(f"nested_{s}", [str(i) for i in range(lo, hi)])
+        docs = np.arange(n, dtype=np.int64)
+        seg.postings["tag"], seg.ordinal_dv["tag"] = _keyword_subset(
+            n, docs, draws["tag"][lo:hi], tag_name)
+        seg.numeric_dv["created"] = _long_subset(n, docs,
+                                                 draws["created"][lo:hi])
+        a_lo, a_hi = int(a_starts[lo]), int(a_starts[hi])
+        if a_hi > a_lo:
+            objs = np.arange(a_hi - a_lo, dtype=np.int32)
+            block = NestedBlock(obj_to_doc=np.repeat(
+                docs, draws["n_answers"][lo:hi]).astype(np.int32))
+            names, ords = _sorted_names(draws["user"][a_lo:a_hi],
+                                        user_name)
+            block.ordinal["answers.user"] = (names, ords, objs)
+            block.numeric["answers.date"] = (
+                draws["date"][a_lo:a_hi].astype(np.float64), objs.copy())
+            seg.nested["answers"] = block
+        segs.append(seg)
+    return segs
+
+
+def join_segments(draws: dict, n_segments: int) -> list[Segment]:
+    """The questions and answers of ``draws`` as parent and child docs of
+    ``JOIN_MAPPING``'s ``qa`` join field, split into ``n_segments``
+    segments by question with each question's answers in its segment,
+    each question followed by its answers; laid out as the writer lays
+    out their ``qa_documents`` join documents: ``qa#name`` and
+    ``qa#parent`` ordinals, ``tag`` / ``created`` on questions, ``user``
+    / ``date`` / ``body`` (positions, norms) on answers.  Sources are
+    ``{}``."""
+    bounds = _question_bounds(draws, n_segments)
+    n_ans = draws["n_answers"]
+    a_starts = np.concatenate([[0], np.cumsum(n_ans)])
+    b_starts = np.concatenate([[0], np.cumsum(draws["body_lens"])])
+    segs = []
+    for s in range(len(bounds) - 1):
+        lo, hi = int(bounds[s]), int(bounds[s + 1])
+        a_lo, a_hi = int(a_starts[lo]), int(a_starts[hi])
+        per_q = n_ans[lo:hi] + 1
+        n = int(per_q.sum())
+        q_docs = (np.cumsum(per_q) - per_q).astype(np.int64)
+        is_q = np.zeros(n, dtype=bool)
+        is_q[q_docs] = True
+        a_docs = np.nonzero(~is_q)[0].astype(np.int64)
+        ids = np.empty(n, dtype=object)
+        ids[q_docs] = [str(i) for i in range(lo, hi)]
+        ids[a_docs] = [f"a{j}" for j in range(a_lo, a_hi)]
+        seg = _seg_shell(f"join_{s}", ids.tolist())
+        names, name_ords = np.unique(np.where(is_q, "question", "answer"),
+                                     return_inverse=True)
+        seg.ordinal_dv["qa#name"] = _ordinal_subset(
+            n, np.arange(n, dtype=np.int64), name_ords.astype(np.int32),
+            names.tolist())
+        seg.postings["tag"], seg.ordinal_dv["tag"] = _keyword_subset(
+            n, q_docs, draws["tag"][lo:hi], tag_name)
+        seg.numeric_dv["created"] = _long_subset(n, q_docs,
+                                                 draws["created"][lo:hi])
+        if a_hi > a_lo:
+            names, ords = _sorted_names(
+                np.repeat(np.arange(lo, hi), n_ans[lo:hi]), str)
+            seg.ordinal_dv["qa#parent"] = _ordinal_subset(n, a_docs, ords,
+                                                          names)
+            seg.postings["user"], seg.ordinal_dv["user"] = _keyword_subset(
+                n, a_docs, draws["user"][a_lo:a_hi], user_name)
+            seg.numeric_dv["date"] = _long_subset(n, a_docs,
+                                                  draws["date"][a_lo:a_hi])
+            seg.postings["body"] = _text_subset(
+                n, a_docs, draws["body_lens"][a_lo:a_hi],
+                draws["body_terms"][int(b_starts[a_lo]):
+                                    int(b_starts[a_hi])])
+        segs.append(seg)
+    return segs
+
+
+def percolator_queries(n: int, seed: int = 23) -> list:
+    """Seeded stored queries over ``body`` text, in the shape of OpenSearch
+    Benchmark's ``percolator`` workload (short AOL-log queries): a
+    ``match`` of 1-4 zipf terms (a = 1.3, ``build_raw_corpus``'s
+    vocabulary), a ``match_phrase`` of 2-3 terms, or a ``bool`` of a
+    ``match`` and a ``range`` on ``ts`` (a 30-day window), in turn with
+    probabilities 0.6 / 0.2 / 0.2."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        kind = rng.random()
+        if kind < 0.6:
+            k = int(rng.integers(1, 5))
+        else:
+            k = int(rng.integers(2, 4))
+        words = " ".join(f"t{int(t)}" for t in (rng.zipf(1.3, size=k) - 1)
+                         .clip(0, VOCAB_SIZE - 1))
+        if kind < 0.6:
+            out.append({"match": {"body": words}})
+        elif kind < 0.8:
+            out.append({"match_phrase": {"body": words}})
+        else:
+            lo = TS_START_MS + int(rng.integers(0, TS_SPAN_MS))
+            out.append({"bool": {"must": [{"match": {"body": words}}],
+                                 "filter": [{"range": {"ts": {
+                                     "gte": lo,
+                                     "lt": lo + 30 * 86_400_000}}}]}})
+    return out
+
+
+def percolator_documents(n: int, seed: int = 24) -> list:
+    """Seeded candidate documents for ``percolate``: a ``body`` of
+    ``build_raw_corpus``'s shape (20-60 zipf tokens) and a ``ts``."""
+    lens, terms = _draws(n, seed)
+    rng = np.random.default_rng(seed + 1)
+    ends = np.cumsum(lens)
+    return [{"body": " ".join(f"t{t}" for t in terms[e - ln: e]),
+             "ts": TS_START_MS + int(rng.integers(0, TS_SPAN_MS))}
+            for ln, e in zip(lens.tolist(), ends.tolist())]

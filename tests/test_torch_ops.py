@@ -246,6 +246,51 @@ def test_knn_scores_do_not_depend_on_summation_order(space):
     assert got.numpy().tobytes() == want.astype(np.float32).tobytes()
 
 
+@pytest.mark.parametrize("space", tknn.SPACES)
+@pytest.mark.parametrize("seed", [5, 29])
+def test_knn_topk_batch_matches_jax(space, seed):
+    """``knn_topk_batch`` (one float32 [n, d] x [d, Q] product) against
+    the JAX package's: the same ids (tied rows, duplicated vectors, take
+    the lower index first), scores within rtol=1e-5 / atol=1e-6, invalid
+    rows at -inf when k exceeds the valid rows; and against the plain
+    ``knn_topk`` one query at a time."""
+    rng = np.random.default_rng(seed)
+    n, d, q, k = 300, 24, 7, 12
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    vecs[100:110] = vecs[3]                 # ties with row 3
+    valid = rng.random(n) > 0.1
+    valid[3] = valid[100:110] = True
+    queries = rng.standard_normal((q, d)).astype(np.float32)
+    queries[0] = vecs[3] * 0.5              # row 3's twins lead query 0
+    want_v, want_i = (np.asarray(a) for a in jknn.knn_topk_batch(
+        jnp.asarray(vecs), jnp.asarray(valid), jnp.asarray(queries),
+        space=space, k=k))
+    got_v, got_i = tknn.knn_topk_batch(
+        torch.from_numpy(vecs), torch.from_numpy(valid),
+        torch.from_numpy(queries), space=space, k=k)
+    assert got_v.dtype == torch.float32 and got_i.dtype == torch.int32
+    assert got_v.shape == got_i.shape == (q, k)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    np.testing.assert_allclose(got_v.numpy(), want_v, rtol=RTOL, atol=ATOL)
+    if space != "innerproduct":
+        # the twins score equal and come out in index order
+        assert got_i[0, :11].tolist() == [3, *range(100, 110)]
+    for j in range(q):
+        one_v, one_i = tknn.knn_topk(
+            torch.from_numpy(vecs), torch.from_numpy(valid),
+            torch.from_numpy(queries[j]), space=space, k=k)
+        assert topk_mismatch(got_v[j: j + 1].numpy(),
+                             got_i[j: j + 1].numpy(),
+                             one_v[None].numpy(),
+                             one_i[None].numpy())[0] is None
+    few = np.zeros(n, bool)
+    few[[7, 8]] = True
+    v, i = tknn.knn_topk_batch(torch.from_numpy(vecs), torch.from_numpy(few),
+                               torch.from_numpy(queries), space=space, k=4)
+    assert np.isneginf(v[:, 2:].numpy()).all()
+    assert sorted(i[0, :2].tolist()) == [7, 8]
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     vectors, valid, query = knn_data(1, 16)
     with pytest.raises(ValueError, match="CUDA"):

@@ -133,7 +133,8 @@ PORTED_HANDLERS = {
     "h_index_doc_auto", "h_create_doc", "h_get_doc", "h_doc_exists",
     "h_delete_doc", "h_update_doc", "h_bulk", "h_search", "h_msearch",
     "h_count", "h_get_pipelines", "h_get_pipeline", "h_put_pipeline",
-    "h_delete_pipeline"}
+    "h_delete_pipeline", "h_scroll_next", "h_scroll_clear",
+    "h_scroll_clear_all", "h_pit_open", "h_pit_close"}
 
 
 def test_routes_match_reference(nodes):
