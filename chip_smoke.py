@@ -385,9 +385,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    reads two scroll pages and clears the scroll, searches a point in
    time and closes it, and sends a ``nested``, a ``has_child``, a
    ``percolate`` and a ``suggest`` body: each answer equals a CPU
-   node's, the ids masked.
+   node's, the ids masked;
+18. profile and residency (``phase_profile_residency``): 50 each of
+   ``match``, phase 10's ``bool`` and ``knn`` (k = 10) on phase 4's 16
+   segments and 4 ``msearch`` batches of 64, each profiled and
+   unprofiled in turns: hits byte-equal, the phases within ``took`` + 1
+   ms, the segment decisions summing to 16, no kernel library built
+   once warm; p50 of both by kind; 128 profiled searches from 16
+   clients through the continuous batcher (each member's ``queue``);
+   the residency ledger's ``stats()`` by kind; ``resident_bytes()``
+   against the change in ``torch.cuda.memory_allocated()`` over
+   restaging the 16 segments, and evicting them again after requests
+   frees at least what the ledger evicted and leaves the allocator where
+   the first eviction left it; 50 ``match`` under a device budget that
+   holds half of them, and 50 on phase 7's 8 int8 segments with their
+   pages held to 1/4 of their quantized tables, each byte-equal to the
+   unbudgeted answers (evictions, restages and ms a restage, pager hits,
+   misses and prefetches; no host fallback); the device ms of
+   ``train_kmeans`` and ``knn_topk_batch``.
 
-Every kernel wrapper counts its launches; the counts are zeroed just
+Every phase runs under the port's own fielddata breaker, whose default
+sizes itself to the card on the first staging (twice the card's memory:
+a staged segment charges twice its host footprint), as a node's does.
+Every kernel wrapper counts
+its launches; the counts are zeroed just
 before phase 3 and read after phase 4, and zeroed again just before
 phases 5, 6, 7, 8, 9, phase 10's hybrids and phase 11's requests over
 HTTP, phase 10, phase 11, phase 12's requests over HTTP, phase 12, phase
@@ -396,9 +417,11 @@ phase 9's phrase requests and each kind of phase 14; all of them before
 phase 9's sorted requests and before phase 15 (whose dense entry, K2
 top-k and K8 launches must be more than 0), and before phase 9's
 relevance requests and phase 16 (whose K1 scores, dense entry and plan
-top-k launches must be more than 0), and before phase 9's relations
+top-k launches must be more than 0), before phase 9's relations
 requests and phase 17's requests (whose dense entry and plan top-k
-launches must be more than 0): each kernel of each path must have run.
+launches must be more than 0), and before phase 18 (whose K2 top-k,
+plan top-k, K1, K3 and K4 launches must be more than 0): each kernel of
+each path must have run.
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the
 script exits non-zero and prints no result.
@@ -1736,7 +1759,10 @@ def phase_k5(scale_segs, searcher) -> dict:
             raise AssertionError(f"K5 timed {name}: differs from plain")
         ms, plain_ms = in_turns(fn, plain, 5)
         lib_ms = cuda_ms(library, 5)
-        dev_ms, per_kernel = kernel_ms(fn, 5)
+        for _ in range(3):     # a profiler window may lose its events
+            dev_ms, per_kernel = kernel_ms(fn, 5)
+            if dev_ms:
+                break
         if not dev_ms:
             raise AssertionError("the profiler shows no K5 kernel")
         nbytes = k5_bytes(segs, edges, self_metric=sm)
@@ -7236,6 +7262,396 @@ def phase_http_relations(node, state, counters) -> dict:
     return {"requests": len(got), "ms": ms, "launches": launches}
 
 
+# -- phase 18: profile and residency ------------------------------------------
+
+PROFILE_REQUESTS = 50            # phase 18: of match, bool and knn, each
+PROFILE_BATCHES = 4              # msearch batches of 64, profiled and not
+PROFILE_CLIENTS = 16             # profiled clients through the batcher
+PAGER_SHARE = 4                  # the pager run's budget: 1/4 of the tables
+
+
+def device_ms_per_call(fn, reps: int, attempts: int = 3):
+    """Mean device milliseconds of every kernel ``fn()`` launches, per
+    call, over ``reps`` calls under ``torch.profiler``; the first of
+    ``attempts`` windows with device events counts; None when none
+    has any."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from opensearch_tpu_torch.testing.profile_scale import (_device_self_us,
+                                                            _is_device)
+    fn()
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_device_self_us(e) for e in prof.key_averages()
+                 if _is_device(e))
+        if us:
+            return us / 1e3 / reps
+    return None
+
+
+def check_profile(resp: dict, plain: dict, total: int, what: str) -> None:
+    """Phase 18's checks of one profiled response: hits byte-equal to the
+    unprofiled twin, the phase sum at most ``took`` + 1 ms, the segment
+    counts summing to ``total``, one record a decided segment, and no
+    kernel library built (the run is warm)."""
+    from opensearch_tpu_torch.search.profile import PHASES
+
+    if json.dumps(resp["hits"], sort_keys=True) != \
+            json.dumps(plain["hits"], sort_keys=True):
+        raise AssertionError(f"phase 18 {what}: profiled hits differ")
+    sec = resp["profile"]["shards"][0]
+    bd = sec["searches"][0]["query"][0]["breakdown"]
+    phase_ns = sum(bd[p] for p in PHASES)
+    if phase_ns > (resp["took"] + 1) * 1_000_000:
+        raise AssertionError(f"phase 18 {what}: phases {phase_ns} ns over "
+                             f"took {resp['took']} ms")
+    segsum = sec["engine"]["segments"]
+    decided = sum(v for k, v in segsum.items()
+                  if k not in ("total", "not_reached"))
+    if segsum["total"] != total or \
+            decided + segsum["not_reached"] != total or \
+            len(sec.get("segments", ())) != decided:
+        raise AssertionError(f"phase 18 {what}: segments {segsum}")
+    if sec["engine"]["xla_compiles"] != 0:
+        raise AssertionError(f"phase 18 {what}: "
+                             f"{sec['engine']['xla_compiles']} kernel "
+                             "libraries built by a warm request")
+
+
+def profile_turns(run, bodies, total: int, what: str) -> dict:
+    """Each body run unprofiled and profiled, in turns (plain first on
+    even bodies, profiled first on odd ones) after a warm pass of both:
+    the checks of ``check_profile``, and the p50 host ms of each."""
+    for body in bodies:
+        run(body)
+        run(dict(body, profile=True))
+    plain_ms, prof_ms = [], []
+    for i, body in enumerate(bodies):
+        order = (False, True) if i % 2 == 0 else (True, False)
+        out = {}
+        for profiled in order:
+            t0 = time.monotonic()
+            out[profiled] = run(dict(body, profile=True) if profiled
+                                else body)
+            (prof_ms if profiled else plain_ms).append(
+                (time.monotonic() - t0) * 1e3)
+        check_profile(out[True], out[False], total, what)
+    p50, p50_prof = float(np.median(plain_ms)), float(np.median(prof_ms))
+    return {"p50_ms": p50, "p50_profiled_ms": p50_prof,
+            "extra_ms": p50_prof - p50, "requests": len(bodies)}
+
+
+def phase_profile_residency(segs, searcher, qsegs, qsearcher,
+                            counters) -> dict:
+    """Phase 18: the Profile API and device residency at full scale.
+    50 each of ``match``, phase 10's ``bool`` and ``knn`` (k = 10) on the
+    16 f32 scale segments and 4 ``msearch`` batches of 64, each profiled
+    and unprofiled in turns (``check_profile`` on every pair; p50 of
+    both), then 16 profiled clients through the continuous batcher; the
+    ledger's ``stats()`` by kind; ``resident_bytes()`` held to the change
+    in ``torch.cuda.memory_allocated()`` over restaging the 16 segments,
+    and the memory freed when they are evicted again after requests;
+    50 ``match`` under a budget that holds half the f32 segments, then
+    the 8 int8 segments under a budget that leaves their pages 1/4 of
+    their quantized tables, each byte-equal to the unbudgeted answers
+    (evictions, restages, pager hits / misses, ms a restage; no host
+    fallback); the device ms of ``train_kmeans`` and ``knn_topk_batch``
+    (kernel table rows 10 and 14)."""
+    import gc
+    import threading
+
+    import torch
+
+    from opensearch_tpu_torch.common.device_ledger import (device_ledger,
+                                                           device_pager)
+    from opensearch_tpu_torch.ops.ivf import train_kmeans
+    from opensearch_tpu_torch.ops.knn import knn_topk_batch
+    from opensearch_tpu_torch.search import engine as engine_mod
+    from opensearch_tpu_torch.testing import corpus
+
+    t_phase = time.monotonic()
+    dev = torch.device(DEVICE)
+    led, pager = device_ledger(), device_pager()
+    gpu = gpu_name_power()
+    rng = np.random.default_rng(181)
+    pairs = corpus.zipf_query_log(PROFILE_REQUESTS, seed=181)
+    match = [match_body(a, b) for a, b in pairs]
+    bools = phase10_bodies()["bool"][:PROFILE_REQUESTS]
+    knns = [{"query": {"knn": {"vec": {
+        "vector": rng.standard_normal(DIM).astype(np.float32).tolist(),
+        "k": 10}}}, "size": 10, "_source": False}
+        for _ in range(PROFILE_REQUESTS)]
+    n_segs = len(segs)
+    for fn in counters.values():               # this path starts here
+        fn.launches = 0
+    kinds = {name: profile_turns(searcher.search, bodies, n_segs, name)
+             for name, bodies in (("match", match), ("bool", bools),
+                                  ("knn", knns))}
+    plain_match = [searcher.search(b) for b in match]
+    # msearch: each batch of 64 plain and profiled, in turns
+    log_bodies = [match_body(a, b) for a, b in
+                  corpus.zipf_query_log(64 * PROFILE_BATCHES, seed=7)]
+    batches = [log_bodies[64 * i: 64 * (i + 1)]
+               for i in range(PROFILE_BATCHES)]
+
+    def msearch(batch):
+        return searcher.msearch([dict(b) for b in batch])
+
+    def msearch_profiled(batch):
+        return searcher.msearch([dict(b, profile=True) for b in batch])
+
+    for batch in batches:                      # warm both
+        msearch(batch)
+        msearch_profiled(batch)
+    ms_plain, ms_prof = [], []
+    for i, batch in enumerate(batches):
+        order = (False, True) if i % 2 == 0 else (True, False)
+        out = {}
+        for profiled in order:
+            t0 = time.monotonic()
+            out[profiled] = (msearch_profiled if profiled
+                             else msearch)(batch)
+            (ms_prof if profiled else ms_plain).append(
+                (time.monotonic() - t0) * 1e3 / len(batch))
+        for got, want in zip(out[True], out[False]):
+            check_profile(got, want, n_segs, "msearch")
+            if got["profile"]["shards"][0]["engine"]["batch"][
+                    "queries"] != len(batch):
+                raise AssertionError("phase 18 msearch: a batch of 64 "
+                                     "did not coalesce")
+    kinds["msearch"] = {"p50_ms": float(np.median(ms_plain)),
+                        "p50_profiled_ms": float(np.median(ms_prof)),
+                        "extra_ms": float(np.median(ms_prof))
+                        - float(np.median(ms_plain)),
+                        "requests": 64 * PROFILE_BATCHES}
+    # 16 profiled clients through the continuous batcher
+    seq = [searcher.search(b) for b in log_bodies[:128]]
+
+    class Shim:
+        @staticmethod
+        def _use_mesh(body):
+            return False
+
+    eng = engine_mod.query_engine()
+    prev = (engine_mod.BATCHER_ENABLED, engine_mod.BATCHER_WINDOW_MS)
+    engine_mod.BATCHER_ENABLED, engine_mod.BATCHER_WINDOW_MS = True, 4.0
+    results = [None] * len(seq)
+    errors = []
+
+    def client(t):
+        try:
+            for i in range(t, len(seq), PROFILE_CLIENTS):
+                results[i] = eng.execute(
+                    searcher, dict(log_bodies[i], profile=True),
+                    service=Shim())
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    s0 = eng.batcher.stats()
+    threads = [threading.Thread(target=client, args=(t,), daemon=True)
+               for t in range(PROFILE_CLIENTS)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+    finally:
+        engine_mod.BATCHER_ENABLED, engine_mod.BATCHER_WINDOW_MS = prev
+        eng.shutdown()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"phase 18 continuous: {errors[:1]}")
+    members = queue_ms = 0
+    for got, want in zip(results, seq):
+        check_profile(got, want, n_segs, "continuous")
+        engine = got["profile"]["shards"][0]["engine"]
+        if engine.get("batch", {}).get("continuous"):
+            members += 1
+            queue_ms += got["profile"]["shards"][0]["searches"][0][
+                "query"][0]["breakdown"]["queue"] / 1e6
+    s1 = eng.batcher.stats()
+    if members != s1["batched"] - s0["batched"] or members == 0:
+        raise AssertionError(f"phase 18 continuous: {members} profiled "
+                             f"members, batcher {s0} -> {s1}")
+    continuous = {"requests": len(seq), "members": members,
+                  "groups": s1["dispatches"] - s0["dispatches"],
+                  "mean_queue_ms": queue_ms / members}
+    stats = led.stats()
+    log(f"profile: p50 host ms unprofiled / profiled (extra): " + ", ".join(
+        f"{k} {v['p50_ms']:.3f} / {v['p50_profiled_ms']:.3f} "
+        f"({v['extra_ms']:+.3f})" for k, v in kinds.items())
+        + f"; continuous {members} of {len(seq)} profiled members in "
+        f"{continuous['groups']} groups, mean queue "
+        f"{continuous['mean_queue_ms']:.3f} ms; every profiled answer "
+        f"byte-equal, phases within took, segments summing to {n_segs}, "
+        f"0 libraries built, on {gpu}")
+    log(f"residency: {stats['resident_bytes']} bytes in "
+        f"{stats['resident_segments']} groups, by kind {stats['by_kind']}; "
+        f"pager {stats['pager']}; transfers {stats['transfers']}")
+    # the ledger against the allocator: every evictable group out, then
+    # the 16 views staged again, the collector held off in between (the
+    # ledger grows as the allocator does); then requests over them
+    # (prepared and batch inputs, live snapshots) and every group out
+    # again: the allocator frees at least what the ledger says it
+    # evicted and comes back to where it stood, so nothing the port keeps
+    # holds an evicted tensor
+    led.set_budget(1)
+    gc.collect()
+    torch.cuda.synchronize()
+    r0, a0 = led.resident_bytes(), torch.cuda.memory_allocated()
+    restages0 = led.stats()["budget"]["restages"]
+    gc.disable()
+    try:
+        led.set_budget(0)
+        t0 = time.monotonic()
+        for seg in segs:
+            seg.device(dev)
+        torch.cuda.synchronize()
+        stage_s = time.monotonic() - t0
+        r1, a1 = led.resident_bytes(), torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
+    ids = {seg.seg_id for seg in segs}
+    entries = sum(row["entries"] for row in led.segments()
+                  if row["index"] == "scale" and row["segment"] in ids)
+    slack = (a1 - a0) - (r1 - r0)
+    if not 0 <= slack <= 512 * entries:
+        raise AssertionError(f"phase 18: the ledger grew {r1 - r0} bytes, "
+                             f"the allocator {a1 - a0} ({entries} tensors)")
+    if led.stats()["budget"]["restages"] - restages0 != n_segs:
+        raise AssertionError("phase 18: the 16 views were not restaged")
+    for body in match[:10] + knns[:10]:
+        searcher.search(body)
+    msearch(batches[0])
+    gc.collect()
+    torch.cuda.synchronize()
+    r2, a2 = led.resident_bytes(), torch.cuda.memory_allocated()
+    ev0 = led.stats()["budget"]["evicted_bytes"]
+    led.set_budget(1)
+    gc.collect()
+    torch.cuda.synchronize()
+    r3, a3 = led.resident_bytes(), torch.cuda.memory_allocated()
+    evicted = led.stats()["budget"]["evicted_bytes"] - ev0
+    led.set_budget(0)
+    if evicted < r1 - r0 or a2 - a3 < evicted or a3 - a0 > 512 * entries:
+        raise AssertionError(
+            f"phase 18 eviction: the ledger evicted {evicted} bytes, the "
+            f"allocator freed {a2 - a3}; {a3 - a0} bytes more allocated "
+            f"than after the first eviction (ledger {r0} -> {r3})")
+    for seg in segs:                           # resident again
+        seg.device(dev)
+    memory = {"ledger_bytes": r1 - r0, "allocated_bytes": a1 - a0,
+              "tensors": entries, "rounding_bytes": slack,
+              "restage_all_s": stage_s, "evicted_bytes": evicted,
+              "freed_bytes": a2 - a3, "left_bytes": a3 - a0}
+    log(f"residency check: 16 f32 views restaged in {stage_s:.3f} s: the "
+        f"ledger grew {r1 - r0} bytes, torch.cuda.memory_allocated() "
+        f"{a1 - a0} ({slack} bytes of allocator rounding over {entries} "
+        f"tensors); after 20 searches and a batch of 64 over them, "
+        f"evicting everything: the "
+        f"ledger evicted {evicted} bytes, the allocator freed {a2 - a3} "
+        f"(the requests' inputs included) and stands {a3 - a0} bytes from "
+        f"where the first eviction left it")
+    # a budget that holds half the f32 segments: 50 match, byte-equal
+    views = sorted(led.device_footprint(seg) for seg in segs)
+    half = led.resident_bytes() - sum(views[: n_segs // 2])
+    b0 = led.stats()["budget"]
+    led.set_budget(half)
+    t0 = time.monotonic()
+    got = [searcher.search(b) for b in match]
+    budget_s = time.monotonic() - t0
+    b1 = led.stats()["budget"]
+    led.set_budget(0)
+    bad = [i for i, (g, w) in enumerate(zip(got, plain_match))
+           if strip_took(g) != strip_took(w)]
+    restages = b1["restages"] - b0["restages"]
+    if bad or restages <= 0 or b1["host_fallbacks"]:
+        raise AssertionError(f"phase 18 budget: answers {bad[:5]} differ, "
+                             f"{restages} restages, {b1}")
+    half_run = {"budget_bytes": half, "requests": len(match),
+                "evictions": b1["evictions"] - b0["evictions"],
+                "restages": restages,
+                "ms_per_restage": (b1["restage_time_ms"]
+                                   - b0["restage_time_ms"]) / restages,
+                "ms_per_request": budget_s * 1e3 / len(match),
+                "host_fallbacks": b1["host_fallbacks"]}
+    log(f"budget (half the f32 segments, {half} bytes): {len(match)} match "
+        f"byte-equal; {half_run['evictions']} evictions, {restages} "
+        f"restages, {half_run['ms_per_restage']:.3f} ms a restage, "
+        f"{half_run['ms_per_request']:.3f} ms a request; host fallbacks "
+        f"{b1['host_fallbacks']}")
+    # the int8 segments' pages under 1/4 of their quantized tables
+    qbodies = [match_body(a, b) for a, b in pairs]
+    led.set_budget(1)
+    led.set_budget(0)
+    qplain = [qsearcher.search(b) for b in qbodies]
+    tables = pager.stats()["resident_bytes"]
+    other = led.resident_bytes() - tables
+    p0, b0 = pager.stats(), led.stats()["budget"]
+    led.set_budget(other + tables // PAGER_SHARE)
+    t0 = time.monotonic()
+    qgot = [qsearcher.search(b) for b in qbodies]
+    pager_s = time.monotonic() - t0
+    p1, b1 = pager.stats(), led.stats()["budget"]
+    led.set_budget(0)
+    bad = [i for i, (g, w) in enumerate(zip(qgot, qplain))
+           if strip_took(g) != strip_took(w)]
+    if bad or b1["host_fallbacks"] or p1["evictions"] <= p0["evictions"]:
+        raise AssertionError(f"phase 18 pager: answers {bad[:5]} differ; "
+                             f"{p0} -> {p1}; {b1}")
+    pager_run = {key: p1[key] - p0[key]
+                 for key in ("hits", "misses", "prefetches", "evictions",
+                             "evicted_pages")}
+    pager_run.update({"tables_bytes": tables, "budget_bytes":
+                      other + tables // PAGER_SHARE,
+                      "page_bytes": p1["page_bytes"],
+                      "restages": b1["restages"] - b0["restages"],
+                      "ms_per_request": pager_s * 1e3 / len(qbodies),
+                      "host_fallbacks": b1["host_fallbacks"]})
+    log(f"pager (int8, pages under 1/4 of {tables} table bytes): "
+        f"{len(qbodies)} match byte-equal; {pager_run}")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    path = ("term_bag_topk", "plan_topk", "knn_topk", "batch_topk",
+            "term_bag_quantized_topk")
+    if min(launches[name] for name in path) <= 0:
+        raise AssertionError(f"phase 18: a kernel of the path never "
+                             f"launched: {launches}")
+    log(f"phase 18 launches: {launches}")
+    # the device ms of kernel-table rows 10 and 14
+    gen = torch.Generator(device=dev).manual_seed(182)
+    n_ann = 73_970                   # a phase 13 segment's rows (100-d)
+    ann_vecs = torch.randn(n_ann, 100, generator=gen, device=dev)
+    ann_valid = torch.ones(n_ann, dtype=torch.bool, device=dev)
+    nlist = int(np.sqrt(n_ann))
+    kmeans_ms = device_ms_per_call(
+        lambda: train_kmeans(ann_vecs, ann_valid, nlist, device=dev), 3)
+    kmeans_wall = cuda_ms(
+        lambda: train_kmeans(ann_vecs, ann_valid, nlist, device=dev), 3)
+    n_q, n_rows, dim, k = KNN_BATCH
+    vecs = torch.randn(n_rows, dim, generator=gen, device=dev)
+    queries = torch.randn(n_q, dim, generator=gen, device=dev)
+    valid = torch.ones(n_rows, dtype=torch.bool, device=dev)
+    batch_ms = device_ms_per_call(
+        lambda: knn_topk_batch(vecs, valid, queries, space="l2", k=k), 10)
+    kernel_rows = {"train_kmeans_device_ms": kmeans_ms,
+                   "train_kmeans_ms": kmeans_wall,
+                   "knn_topk_batch_device_ms": batch_ms}
+    log(f"device ms: train_kmeans ({n_ann} x 100, nlist {nlist}, 10 "
+        f"iterations) {kmeans_ms} a call ({kmeans_wall:.3f} ms by CUDA "
+        f"events); knn_topk_batch ({n_q} queries over {n_rows} x {dim}, "
+        f"k = {k}) {batch_ms} on {gpu}")
+    wall = time.monotonic() - t_phase
+    log(f"phase 18: {wall:.1f} s")
+    return {"kinds": kinds, "continuous": continuous, "memory": memory,
+            "half_budget": half_run, "pager": pager_run,
+            "kernel_rows": kernel_rows, "stats_by_kind": stats["by_kind"],
+            "launches": launches, "wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -7353,8 +7769,12 @@ def main() -> int:
     # zeroed just before them
     relations = phase_relations(segs, mapper, searcher, every,
                                 http=then["relations"])
+    # the Profile API and device residency, their counts zeroed just
+    # before them
+    profile = phase_profile_residency(segs, searcher, qsegs, qsearcher,
+                                      every)
     for phase in (sort, then["sort"], relevance, then["relevance"],
-                  relations, then["relations"]):
+                  relations, then["relations"], profile):
         for name, n in phase["launches"].items():
             name = "term_bag_quantized" \
                 if name == "term_bag_quantized_topk" else name
@@ -7420,6 +7840,7 @@ def main() -> int:
                     "relations": {k: v for k, v in relations.items()
                                   if k != "http"},
                     "relations_over_http": then["relations"],
+                    "profile_residency": profile,
                     "k8_k9": {n: kern[n] for n in ("phrase_freqs",
                                                    "span_near")},
                     "k1_scores_16": kern["knn_scores_16"],

@@ -36,8 +36,11 @@ class BoundedCache:
     """``{key: value}`` of at most ``limit`` entries, safe across
     threads."""
 
-    def __init__(self, limit: int):
+    def __init__(self, limit: int, on_drop: Optional[Callable] = None):
+        """``on_drop(key, value)`` runs, outside the lock, for each entry
+        the limit pushes out or ``drop_where`` removes."""
         self.limit = int(limit)
+        self.on_drop = on_drop
         self._entries: dict = {}
         self._lock = threading.Lock()
 
@@ -48,14 +51,18 @@ class BoundedCache:
     def put(self, key, value):
         """Cache ``value`` under ``key`` unless the key is already held;
         returns the value the cache holds for ``key`` after the call."""
+        dropped = None
         with self._lock:
             kept = self._entries.get(key)
             if kept is not None:
                 return kept
             if len(self._entries) >= self.limit:
-                del self._entries[next(iter(self._entries))]
+                old = next(iter(self._entries))
+                dropped = (old, self._entries.pop(old))
             self._entries[key] = value
-            return value
+        if dropped is not None and self.on_drop is not None:
+            self.on_drop(*dropped)
+        return value
 
     def get_or_make(self, key, make):
         """The cached value of ``key``, else ``make()``, cached.  ``make``
@@ -63,6 +70,21 @@ class BoundedCache:
         value; the first one cached is returned to both."""
         value = self.get(key)
         return self.put(key, make()) if value is None else value
+
+    def drop_where(self, pred: Callable) -> int:
+        """Remove every entry whose key satisfies ``pred``; returns how
+        many."""
+        with self._lock:
+            gone = [(k, v) for k, v in self._entries.items() if pred(k)]
+            for k, _v in gone:
+                del self._entries[k]
+        if self.on_drop is not None:
+            for k, v in gone:
+                self.on_drop(k, v)
+        return len(gone)
+
+    def clear(self) -> None:
+        self.drop_where(lambda _k: True)
 
     def values(self) -> list:
         """A snapshot of the cached values."""

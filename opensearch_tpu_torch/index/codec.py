@@ -64,6 +64,18 @@ def use_quantized(seg) -> bool:
     return int(getattr(seg, "n_docs", 0)) >= int(QUANTIZED_MIN_DOCS)
 
 
+def quantized_segments(segments) -> list:
+    """``[seg for seg in segments if use_quantized(seg)]``, the policy
+    read once for all of them (the prefetch oracle asks for every segment
+    of every scored request)."""
+    if QUANTIZED_MODE == "on":
+        return list(segments)
+    if QUANTIZED_MODE == "off":
+        return []
+    floor = int(QUANTIZED_MIN_DOCS)
+    return [seg for seg in segments if getattr(seg, "n_docs", 0) >= floor]
+
+
 def _rank_order(vals: np.ndarray, docs: np.ndarray) -> np.ndarray:
     """Ranking a scorer induces on one postings list: score desc, then
     doc id asc — exactly ``lax.top_k``'s lower-index tie-break."""

@@ -51,8 +51,20 @@ immutable segment, on the device that first asks, and keeps it on the
 host; ``DeviceSegment.ann_staged`` lays it out for K6 / K7 on a view's
 device.
 
-Not ported yet (ROADMAP Queue A): the device pager and the residency
-ledger (which adopts the reference's staged ANN arrays).
+Residency (``common/device_ledger.py``): a view charges the
+``fielddata`` breaker twice the segment's ``host_footprint`` before it
+stages anything, and stages every column through one ledger group
+(owner: index, shard, segment), the columns staged later (postings on
+demand, positions, norms, impacts, nested blocks, live masks) and the
+ANN indexes it adopts included.  Under ``device.memory.budget_bytes`` the
+ledger may evict the group: the view is dropped, the breaker charge
+released once, the searchers that cached inputs of it drop them
+(``Segment._view_evicted``), and the next use stages the segment again
+(counted in ``restages``); nothing falls back to the host.  The quantized
+tables go through the ledger's ``DevicePager`` (``_quant_items``, one
+page entry per (segment, field, avgdl, device), outliving the view, at
+most ``_IMPACT_TABLES_MAX`` per (segment, field, device)), and
+``prefetch_quantized`` stages them into free pages ahead of a request.
 ``segment_from_arrays`` carries the numpy state of a reference segment
 into this package's ``Segment``, geo columns and nested blocks
 included.
@@ -62,6 +74,8 @@ from __future__ import annotations
 
 import json
 import threading
+import time
+import weakref
 from dataclasses import dataclass, field as dc_field
 from typing import Optional
 
@@ -70,6 +84,9 @@ import numpy as np
 import torch
 
 from opensearch_tpu_torch.common.cache import BoundedCache
+from opensearch_tpu_torch.common.device_ledger import (device_ledger,
+                                                       device_pager,
+                                                       host_footprint)
 from opensearch_tpu_torch.mapping.mapper import ParsedDocument
 
 # Sentinels for missing values in dense sort columns.
@@ -219,6 +236,21 @@ class Segment:
         # one staged view per device ("cpu", "cuda:0", ...)
         self._device: dict[str, "DeviceSegment"] = {}
         self._device_lock = threading.Lock()
+        # pager keys of this segment's quantized table sets per (field,
+        # device), oldest first (``_register_pager_invalidation``)
+        self._quant_pages: dict[tuple, list] = {}
+        self._quant_lock = threading.Lock()
+        # devices whose view the budget evicted (the next use restages);
+        # the generation of this segment's staged inputs, bumped when a
+        # view or one of its pager pages is evicted; the searchers that
+        # cached inputs of it (``_view_evicted``)
+        self._device_evicted: set[str] = set()
+        self._gen = 0
+        self._searchers = weakref.WeakSet()
+        # the residency ledger's owner of this segment's groups, tagged by
+        # the engine that serves it
+        self.index_name = "-"
+        self.shard_id = 0
         # bounded cache of host impact tables, keyed (field, avgdl, k1, b)
         self._impact_tables: dict[tuple, tuple] = {}
         # quantized tables, keyed (field, avgdl); searches build them from
@@ -376,8 +408,11 @@ class Segment:
         return idx
 
     def device(self, device) -> "DeviceSegment":
-        """The staged view of this segment on ``device`` (built once per
-        device and kept for the segment's life)."""
+        """The staged view of this segment on ``device``, built once per
+        device and kept until the device budget evicts it; a view built
+        again after an eviction is counted in the ledger's ``restages``.
+        Inside a request scope under a budget, the view's group is held
+        for the request (``DeviceResidencyLedger.request``)."""
         dev = torch.device(device)
         key = str(dev)
         dseg = self._device.get(key)
@@ -385,8 +420,30 @@ class Segment:
             with self._device_lock:   # one view, however many threads ask
                 dseg = self._device.get(key)
                 if dseg is None:
+                    t0 = time.monotonic()
                     dseg = self._device[key] = DeviceSegment(self, dev)
+                    if key in self._device_evicted:
+                        self._device_evicted.discard(key)
+                        device_ledger().record_restage(
+                            time.monotonic() - t0)
+        led = device_ledger()
+        if led.budget_bytes is not None:    # the request's working set
+            led.hold(dseg._ledger_group)
         return dseg
+
+    def view_generation(self) -> int:
+        """Bumped whenever the budget evicts a view of this segment or a
+        pager page of its quantized tables: cached inputs made before
+        hold evicted tensors."""
+        return self._gen
+
+    def _view_evicted(self) -> None:
+        """A view or a page of this segment was evicted: later requests
+        make their inputs anew, and the searchers that cached inputs of
+        it drop them now, so the evicted tensors are freed."""
+        self._gen += 1
+        for searcher in list(self._searchers):
+            searcher._forget_segment(self)
 
 
 def _pad1(a: np.ndarray, size: int, fill) -> np.ndarray:
@@ -434,6 +491,7 @@ class DeviceSegment:
 
     def __init__(self, seg: Segment, device):
         from opensearch_tpu_torch.common import torchenv  # noqa: F401
+        from opensearch_tpu_torch.common.breakers import breaker_service
         from opensearch_tpu_torch.index import codec as codec_mod
 
         self.seg = seg
@@ -441,6 +499,38 @@ class DeviceSegment:
         self.n_docs = seg.n_docs
         self.n_pad = pad_pow2(seg.n_docs + 1)
         n_pad = self.n_pad
+        # the device budget's breaker: twice the host footprint (padding
+        # at most doubles it), charged before anything is allocated, so an
+        # oversized staging is a 429, not an out-of-memory; released once,
+        # on eviction or when the view is collected.  Its default limit is
+        # sized to the card the first time a card stages
+        self._breaker_bytes = host_footprint(seg) * 2
+        breakers = breaker_service()
+        breakers.size_for(self.device)
+        breaker = breakers.fielddata
+        breaker.add_estimate(self._breaker_bytes,
+                             label=f"segment [{seg.seg_id}] staging")
+        self._breaker_fin = weakref.finalize(self, breaker.release_later,
+                                             self._breaker_bytes)
+        led = self._ledger = device_ledger()
+        seg_ref = weakref.ref(seg)
+        view_ref = weakref.ref(self)
+        key = str(self.device)
+
+        def _unstage():
+            s, d = seg_ref(), view_ref()
+            if s is not None:
+                if d is None or s._device.get(key) is d:
+                    s._device.pop(key, None)
+                    s._device_evicted.add(key)
+                s._view_evicted()
+            if d is not None:
+                d._breaker_fin()
+
+        self._ledger_group = led.open_group(
+            index=seg.index_name, shard=seg.shard_id, segment=seg.seg_id,
+            evict=_unstage)
+        led.tether(self, self._ledger_group)
         self.quantized_mode = codec_mod.use_quantized(seg)
         self._postings_lock = threading.Lock()
         self.postings: dict[str, dict] = {}
@@ -449,7 +539,8 @@ class DeviceSegment:
             t_pad = pad_pow2(len(pf.offsets))
             self.postings[name] = {
                 "offsets": self._stage(_pad1(pf.offsets, t_pad,
-                                             pf.offsets[-1])),
+                                             pf.offsets[-1]),
+                                       "postings", name, "offsets"),
             }
             if not self.quantized_mode:
                 self.ensure_postings(name)
@@ -457,34 +548,33 @@ class DeviceSegment:
         for name, dv in seg.numeric_dv.items():
             v_pad = pad_pow2(len(dv.values))
             long_kind = dv.kind == "long"
-            self.numeric[name] = {
-                "values": self._stage(_pad1(dv.values, v_pad, 0)),
-                "value_docs": self._stage(_pad1(dv.value_docs, v_pad,
-                                                self.n_docs)),
-                "minv": self._stage(_pad1(
-                    dv.minv, n_pad, LONG_MISSING_MAX if long_kind
-                    else np.inf)),
-                "maxv": self._stage(_pad1(
-                    dv.maxv, n_pad, LONG_MISSING_MIN if long_kind
-                    else -np.inf)),
-                "exists": self._stage(_pad1(dv.exists, n_pad, False)),
+            cols = {
+                "values": _pad1(dv.values, v_pad, 0),
+                "value_docs": _pad1(dv.value_docs, v_pad, self.n_docs),
+                "minv": _pad1(dv.minv, n_pad, LONG_MISSING_MAX if long_kind
+                              else np.inf),
+                "maxv": _pad1(dv.maxv, n_pad, LONG_MISSING_MIN if long_kind
+                              else -np.inf),
+                "exists": _pad1(dv.exists, n_pad, False),
                 # per-doc starts into ``values`` (the aggregations'
                 # collector, K5, reads a doc's values through them)
-                "offsets": self._stage(_pad1(dv.offsets, n_pad + 1,
-                                             dv.offsets[-1])),
+                "offsets": _pad1(dv.offsets, n_pad + 1, dv.offsets[-1]),
             }
+            self.numeric[name] = {c: self._stage(a, "numeric", name, c)
+                                  for c, a in cols.items()}
         self.ordinal: dict[str, dict] = {}
         for name, dv in seg.ordinal_dv.items():
             v_pad = pad_pow2(len(dv.ords))
-            self.ordinal[name] = {
-                "ords": self._stage(_pad1(dv.ords, v_pad, -1)),
-                "value_docs": self._stage(_pad1(dv.value_docs, v_pad,
-                                                self.n_docs)),
-                "min_ord": self._stage(_pad1(dv.min_ord, n_pad, -1)),
-                "max_ord": self._stage(_pad1(dv.max_ord, n_pad, -1)),
-                "exists": self._stage(_pad1(dv.exists, n_pad, False)),
-                "n_ords": len(dv.ord_terms),
+            cols = {
+                "ords": _pad1(dv.ords, v_pad, -1),
+                "value_docs": _pad1(dv.value_docs, v_pad, self.n_docs),
+                "min_ord": _pad1(dv.min_ord, n_pad, -1),
+                "max_ord": _pad1(dv.max_ord, n_pad, -1),
+                "exists": _pad1(dv.exists, n_pad, False),
             }
+            self.ordinal[name] = {c: self._stage(a, "ordinal", name, c)
+                                  for c, a in cols.items()}
+            self.ordinal[name]["n_ords"] = len(dv.ord_terms)
         # per field, ``field_exists`` staged on first demand (``norms``:
         # the exists query over norms)
         self.norms: dict[str, dict] = {}
@@ -493,21 +583,21 @@ class DeviceSegment:
             vals = np.zeros((n_pad, dv.dim), dtype=np.float32)
             vals[: len(dv.values)] = dv.values
             self.vector[name] = {
-                "values": self._stage(vals),
-                "exists": self._stage(_pad1(dv.exists, n_pad, False)),
+                "values": self._stage(vals, "vector", name, "values"),
+                "exists": self._stage(_pad1(dv.exists, n_pad, False),
+                                      "vector", name, "exists"),
             }
         self.geo: dict[str, dict] = {}
         for name, dv in seg.geo_dv.items():
             v_pad = pad_pow2(len(dv.lats))
-            self.geo[name] = {
-                "lats": self._stage(_pad1(np.asarray(dv.lats, np.float64),
-                                          v_pad, 0.0)),
-                "lons": self._stage(_pad1(np.asarray(dv.lons, np.float64),
-                                          v_pad, 0.0)),
-                "value_docs": self._stage(_pad1(dv.value_docs, v_pad,
-                                                self.n_docs)),
-                "exists": self._stage(_pad1(dv.exists, n_pad, False)),
+            cols = {
+                "lats": _pad1(np.asarray(dv.lats, np.float64), v_pad, 0.0),
+                "lons": _pad1(np.asarray(dv.lons, np.float64), v_pad, 0.0),
+                "value_docs": _pad1(dv.value_docs, v_pad, self.n_docs),
+                "exists": _pad1(dv.exists, n_pad, False),
             }
+            self.geo[name] = {c: self._stage(a, "geo", name, c)
+                              for c, a in cols.items()}
         # nested path -> staged block (``nested_staged``), at most one
         # entry per nested mapping path
         self._nested: dict[str, Optional[dict]] = {}
@@ -516,11 +606,33 @@ class DeviceSegment:
         # staged ANN indexes (``ann_staged``), keyed by the index object
         self._ann_staged: dict[int, tuple] = {}
         self._impact_cache: dict[tuple, torch.Tensor] = {}
-        self._quant_cache = BoundedCache(_IMPACT_TABLES_MAX)
         self.live = self.live_mask(seg.live)
+        # fully staged: from here on the group may be evicted (columns
+        # staged later keep accruing into it)
+        led.seal(self._ledger_group)
 
-    def _stage(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+    def _stage(self, arr: np.ndarray, kind: str, field: str = "",
+               name: str = "") -> torch.Tensor:
+        """``arr`` on this view's device, recorded in its ledger group."""
+        return self._ledger.stage(self._ledger_group, arr,
+                                  device=self.device, kind=kind,
+                                  field=field, name=name)
+
+    def _quant_keys(self) -> list:
+        """The pager keys of the segment's quantized table sets on this
+        view's device."""
+        dev = str(self.device)
+        with self.seg._quant_lock:
+            return [k for (_f, d), keys in self.seg._quant_pages.items()
+                    if d == dev for k in keys]
+
+    @property
+    def _quant_cache(self) -> dict:
+        """{pager key: tables} of this view's quantized table sets that
+        are resident now (``quantized``)."""
+        pager = device_pager()
+        return {k: t for k in self._quant_keys()
+                if (t := pager.resident(k)) is not None}
 
     def nbytes(self) -> int:
         """Bytes this view holds on its device (columns, impacts,
@@ -528,9 +640,8 @@ class DeviceSegment:
         total = sum(self.column_bytes(group)
                     for group in ("postings", "norms", "numeric", "ordinal",
                                   "vector", "geo"))
-        for tables in self._quant_cache.values():
-            total += sum(t.numel() * t.element_size()
-                         for t in tables.values())
+        pager = device_pager()
+        total += sum(pager.entry_bytes(k) for k in self._quant_keys())
         total += sum(t.numel() * t.element_size()
                      for t in self._impact_cache.values())
         total += sum(t.numel() * t.element_size()
@@ -573,8 +684,10 @@ class DeviceSegment:
                 pf = self.seg.postings[field]
                 p_pad = pad_pow2(len(pf.doc_ids))
                 p["doc_ids"] = self._stage(_pad1(pf.doc_ids, p_pad,
-                                                 self.n_docs))
-                p["tfs"] = self._stage(_pad1(pf.tfs, p_pad, 0.0))
+                                                 self.n_docs),
+                                           "postings", field, "doc_ids")
+                p["tfs"] = self._stage(_pad1(pf.tfs, p_pad, 0.0),
+                                       "postings", field, "tfs")
         return p
 
     def ensure_positions(self, field: str) -> Optional[dict]:
@@ -599,11 +712,14 @@ class DeviceSegment:
                 pf = self.seg.postings[field]
                 po = pf.pos_offsets
                 p["pos_offsets"] = self._stage(_pad1(
-                    po, pad_pow2(len(po)), po[-1] if len(po) else 0))
+                    po, pad_pow2(len(po)), po[-1] if len(po) else 0),
+                    "postings", field, "pos_offsets")
                 p["doc_lens"] = self._stage(_pad1(
-                    np.asarray(pf.doc_lens, np.float32), self.n_pad, 1.0))
+                    np.asarray(pf.doc_lens, np.float32), self.n_pad, 1.0),
+                    "postings", field, "doc_lens")
                 p["positions"] = self._stage(_pad1(
-                    pf.positions, pad_pow2(len(pf.positions)), 0))
+                    pf.positions, pad_pow2(len(pf.positions)), 0),
+                    "postings", field, "positions")
                 # last, so a reader that sees "staged" sees them all
                 p["staged"] = stage_positions(
                     p["doc_ids"], p["pos_offsets"], p["positions"],
@@ -624,42 +740,23 @@ class DeviceSegment:
                     entry = self.norms[field] = {
                         "field_exists": self._stage(_pad1(
                             np.asarray(pf.present, bool), self.n_pad,
-                            False))}
+                            False), "postings", field, "field_exists")}
         return entry
 
     def quantized(self, field: str, avgdl: float) -> Optional[dict]:
-        """The quantized tables of ``field`` at ``avgdl`` on the device
-        (``Segment.quantized_table``), padded as the reference's
-        ``_quant_items`` pads them: ``qvals``, ``scales`` (padding 1.0),
-        ``exact_vals``, ``exact_offsets`` (padding its last value),
-        ``packed`` (its guard word kept; int32, the same bits as the
-        uint32 words) and ``base``; ``qvals``, ``exact_vals`` and
-        ``packed`` span whole 16-byte units at least (K4 stages them in
-        such units).  None when the field has no postings.  Cached per
-        (field, avgdl)."""
-        pf = self.seg.postings.get(field)
-        if pf is None:
+        """The quantized tables of ``field`` at ``avgdl`` on this view's
+        device (``_quant_items``), through the ledger's ``DevicePager``:
+        a page entry per (segment, field, avgdl, device) that outlives
+        this view (a segment eviction restages only its own columns).
+        None when the field has no postings."""
+        seg = self.seg
+        if seg.postings.get(field) is None:
             return None
-
-        def stage():
-            qt = self.seg.quantized_table(field, avgdl)
-            t_pad = pad_pow2(len(pf.offsets))
-            ex_off = qt.exact_offsets
-            arrs = {
-                "qvals": _pad1(qt.qvals, _pad16(qt.qvals), 0),
-                "scales": _pad1(qt.scales, t_pad, 1.0),
-                "exact_vals": _pad1(qt.exact_vals, _pad16(qt.exact_vals),
-                                    0.0),
-                "exact_offsets": _pad1(ex_off, t_pad,
-                                       ex_off[-1] if len(ex_off) else 0),
-                "packed": _pad1(qt.packed, _pad16(qt.packed),
-                                0).view(np.int32),
-                "base": _pad1(qt.base, t_pad, 0),
-            }
-            return {name: self._stage(a) for name, a in arrs.items()}
-
-        return self._quant_cache.get_or_make(
-            (field, float(np.float32(avgdl))), stage)
+        key = _quant_key(seg, field, avgdl, self.device)
+        _register_pager_invalidation(seg, key)
+        return device_pager().acquire(
+            key, lambda: _quant_items(seg, field, avgdl), device=self.device,
+            index=seg.index_name, shard=seg.shard_id, segment=seg.seg_id)
 
     def impacts(self, field: str, avgdl: float) -> torch.Tensor:
         """Staged per-posting BM25 impact column for ``field``, indexed
@@ -677,9 +774,14 @@ class DeviceSegment:
             else:
                 host_imp, _mx = self.seg.impact_table(field, avgdl)
                 p_pad = pad_pow2(len(self.seg.postings[field].doc_ids))
-                imp = self._stage(_pad1(host_imp, p_pad, 0.0))
+                imp = self._stage(_pad1(host_imp, p_pad, 0.0), "impacts",
+                                  field, f"avgdl={key[1]:.6g}")
             if len(self._impact_cache) >= _IMPACT_TABLES_MAX:
-                self._impact_cache.pop(next(iter(self._impact_cache)))
+                old = next(iter(self._impact_cache))
+                self._impact_cache.pop(old)
+                # quantize-ok: the f32 lowering's cache forgets its entry
+                self._ledger.drop(self._ledger_group, kind="impacts",
+                                  field=old[0], name=f"avgdl={old[1]:.6g}")
             self._impact_cache[key] = imp
         return imp
 
@@ -698,31 +800,34 @@ class DeviceSegment:
                 return None
             n_obj_pad = pad_pow2(block.n_objs + 1)
             dead_obj = n_obj_pad - 1
+            def stage(arr, name):
+                return self._stage(arr, "nested", path, name)
+
             staged = {
                 "n_obj_pad": n_obj_pad,
                 # padding objects belong to the parent dead slot
-                "obj_to_doc": self._stage(_pad1(block.obj_to_doc, n_obj_pad,
-                                                self.n_pad - 1)),
-                "obj_valid": self._stage(_pad1(np.ones(block.n_objs, bool),
-                                               n_obj_pad, False)),
+                "obj_to_doc": stage(_pad1(block.obj_to_doc, n_obj_pad,
+                                          self.n_pad - 1), "obj_to_doc"),
+                "obj_valid": stage(_pad1(np.ones(block.n_objs, bool),
+                                         n_obj_pad, False), "obj_valid"),
                 "numeric": {}, "ordinal": {},
             }
             for f, (values, value_objs) in block.numeric.items():
                 v_pad = pad_pow2(len(values))
                 staged["numeric"][f] = {
-                    "values": self._stage(_pad1(
-                        np.asarray(values, np.float64), v_pad, 0.0)),
-                    "value_objs": self._stage(_pad1(value_objs, v_pad,
-                                                    dead_obj)),
+                    "values": stage(_pad1(np.asarray(values, np.float64),
+                                          v_pad, 0.0), f"{f}/values"),
+                    "value_objs": stage(_pad1(value_objs, v_pad, dead_obj),
+                                        f"{f}/value_objs"),
                     "v_pad": v_pad,
                 }
             for f, (_terms, ords, value_objs) in block.ordinal.items():
                 v_pad = pad_pow2(len(ords))
                 staged["ordinal"][f] = {
-                    "ords": self._stage(_pad1(np.asarray(ords, np.int32),
-                                              v_pad, -1)),
-                    "value_objs": self._stage(_pad1(value_objs, v_pad,
-                                                    dead_obj)),
+                    "ords": stage(_pad1(np.asarray(ords, np.int32), v_pad,
+                                        -1), f"{f}/ords"),
+                    "value_objs": stage(_pad1(value_objs, v_pad, dead_obj),
+                                        f"{f}/value_objs"),
                     "v_pad": v_pad,
                 }
             self._nested[path] = staged
@@ -731,9 +836,10 @@ class DeviceSegment:
     def ann_staged(self, idx):
         """``idx`` (a trained index of ``Segment.ann_index``) laid out on
         this view's device as K6 / K7 read it (``ops.ivf.stage_index``),
-        cached by the index object (a retrain restages); at most
-        ``_ANN_STAGED_MAX`` kept, the oldest dropped (and its device
-        memory freed) first."""
+        cached by the index object (a retrain restages) and adopted into
+        the view's ledger group (kind ``ann``); at most ``_ANN_STAGED_MAX``
+        kept, the oldest dropped (and its device memory freed) first, as
+        in the reference."""
         from opensearch_tpu_torch.ops.ivf import stage_index
 
         key = id(idx)
@@ -744,8 +850,13 @@ class DeviceSegment:
                 if cached is None or cached[0] is not idx:
                     cached = (idx, stage_index(idx, self.device))
                     if len(self._ann_staged) >= _ANN_STAGED_MAX:
-                        self._ann_staged.pop(next(iter(self._ann_staged)))
+                        old = next(iter(self._ann_staged))
+                        self._ann_staged.pop(old)
+                        self._ledger.drop(self._ledger_group, kind="ann",
+                                          name=str(old))
                     self._ann_staged[key] = cached
+                    self._ledger.adopt(self._ledger_group, cached[1],
+                                       kind="ann", name=str(key))
         return cached[1]
 
     def live_mask(self, live_np: np.ndarray) -> torch.Tensor:
@@ -757,10 +868,13 @@ class DeviceSegment:
         key = id(live_np)
         cached = self._live_cache.get(key)
         if cached is None or cached[0] is not live_np:
-            cached = (live_np, self._stage(_pad1(live_np, self.n_pad,
-                                                 False)))
+            cached = (live_np, self._stage(_pad1(live_np, self.n_pad, False),
+                                           "live", "", str(key)))
             if len(self._live_cache) >= 4:
-                self._live_cache.pop(next(iter(self._live_cache)))
+                old = next(iter(self._live_cache))
+                self._live_cache.pop(old)
+                self._ledger.drop(self._ledger_group, kind="live",
+                                  name=str(old))
             self._live_cache[key] = cached
         return cached[1]
 
@@ -770,6 +884,93 @@ class DeviceSegment:
 _IMPACT_TABLES_MAX = 8
 # staged ANN indexes a device view keeps (the reference's bound)
 _ANN_STAGED_MAX = 4
+
+
+def _quant_key(seg: Segment, field: str, avgdl: float, device) -> tuple:
+    """Pager key of one quantized table set: the reference's (index,
+    shard, segment, field, avgdl), then the device and the segment
+    object's identity (two segments may share an id across indices a
+    test builds)."""
+    return (seg.index_name, seg.shard_id, seg.seg_id, field,
+            float(np.float32(avgdl)), str(torch.device(device)), id(seg))
+
+
+def _quant_items(seg: Segment, field: str, avgdl: float) -> list:
+    """Pager loader: one quantized table set (``Segment.quantized_table``)
+    as ``(name, kind, array)``, padded as the reference pads them:
+    ``qvals``, ``scales`` (padding 1.0), ``exact_vals``, ``exact_offsets``
+    (padding its last value), ``packed`` (its guard word kept; int32, the
+    same bits as the uint32 words) and ``base``; ``qvals``,
+    ``exact_vals`` and ``packed`` span whole 16-byte units at least (K4
+    stages them in such units)."""
+    qt = seg.quantized_table(field, avgdl)
+    t_pad = pad_pow2(len(seg.postings[field].offsets))
+    ex_off = qt.exact_offsets
+    return [
+        ("qvals", "impacts_q", _pad1(qt.qvals, _pad16(qt.qvals), 0)),
+        ("scales", "impacts_q", _pad1(qt.scales, t_pad, 1.0)),
+        ("exact_vals", "impacts_q",
+         _pad1(qt.exact_vals, _pad16(qt.exact_vals), 0.0)),
+        ("exact_offsets", "impacts_q",
+         _pad1(ex_off, t_pad, ex_off[-1] if len(ex_off) else 0)),
+        ("packed", "postings_q",
+         _pad1(qt.packed, _pad16(qt.packed), 0).view(np.int32)),
+        ("base", "postings_q", _pad1(qt.base, t_pad, 0)),
+    ]
+
+
+def _pager_invalidate(pages: dict) -> None:
+    """A collected segment's finalizer: queue its pages' release."""
+    pager = device_pager()
+    for keys in list(pages.values()):
+        for key in list(keys):
+            pager.invalidate(key)
+
+
+def _page_evicted(seg_ref) -> None:
+    seg = seg_ref()
+    if seg is not None:
+        seg._view_evicted()
+
+
+def _register_pager_invalidation(seg: Segment, key: tuple) -> None:
+    """Once per (segment, pager key): a collected segment drops its pages
+    instead of holding budget until they age out, and an evicted page
+    makes the searchers drop their inputs that hold its tensors.  At most
+    ``_IMPACT_TABLES_MAX`` table sets are kept per (field, device), with
+    a budget or without: avgdl moves with every refresh that adds a
+    segment, so the oldest set is discarded when a new one comes."""
+    with seg._quant_lock:
+        if not seg._quant_pages:
+            weakref.finalize(seg, _pager_invalidate, seg._quant_pages)
+        keys = seg._quant_pages.setdefault((key[3], key[5]), [])
+        if key in keys:
+            return
+        keys.append(key)
+        old = keys[:-_IMPACT_TABLES_MAX]
+        del keys[:-_IMPACT_TABLES_MAX]
+    pager = device_pager()
+    pager.listen(key, lambda r=weakref.ref(seg): _page_evicted(r))
+    for k in old:
+        pager.discard(k)
+
+
+def prefetch_quantized(seg: Segment, field: str, avgdl: float,
+                       device) -> bool:
+    """The prefetch oracle's entry: stage a segment's quantized tables on
+    ``device`` into FREE pager pages ahead of the launches (never
+    evicting, ``DevicePager.prefetch``).  The size hint is an estimate, so
+    a skipped prefetch costs no quantization."""
+    pf = seg.postings.get(field)
+    if pf is None:
+        return False
+    key = _quant_key(seg, field, avgdl, device)
+    # ~1 byte a posting of codes, <= 4 of packed ids, per-term columns
+    hint = len(pf.doc_ids) * 5 + len(pf.offsets) * 12 + 4096
+    _register_pager_invalidation(seg, key)
+    return device_pager().prefetch(
+        key, lambda: _quant_items(seg, field, avgdl), hint, device=device,
+        index=seg.index_name, shard=seg.shard_id, segment=seg.seg_id)
 
 
 def _column(cols: dict, fname: str, make):

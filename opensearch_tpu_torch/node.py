@@ -10,6 +10,14 @@ unless the caller asks for ``"cpu"``.  Without CUDA a node that did not
 ask for the CPU raises ``DeviceUnavailableError`` when it is built,
 before it creates anything on disk.
 
+Node settings (``settings``, or ``-E key=value`` on the command line)
+read at start: ``device.memory.budget_bytes`` (the residency ledger's
+device budget, ``common/device_ledger.py`` ``set_budget``; 0 = none) and
+``device.pager.page_bytes`` (the quantized pager's page, ``set_page_bytes``),
+byte sizes such as ``"2gb"``.  The ledger is process-wide: a node that
+names neither leaves it as it is.  Changing them through
+``PUT _cluster/settings`` waits for the dynamic settings registry.
+
 The reference node's other services are not ported (ROADMAP Queue A):
 snapshots, ingest pipelines, tasks, search backpressure, identity, query
 insights, QoS, persistent tasks, the dynamic cluster settings (so
@@ -29,7 +37,12 @@ import signal
 import sys
 import threading
 import uuid
+from typing import Optional
 
+from opensearch_tpu_torch.common.breakers import breaker_service
+from opensearch_tpu_torch.common.device_ledger import (device_ledger,
+                                                       device_pager)
+from opensearch_tpu_torch.common.settings import parse_bytes
 from opensearch_tpu_torch.common.torchenv import (DeviceUnavailableError,
                                                   resolve_device)
 from opensearch_tpu_torch.indices.service import IndicesService
@@ -43,8 +56,13 @@ from opensearch_tpu_torch.search.pipeline import SearchPipelineService
 class Node:
     def __init__(self, data_path: str, name: str = "node-1",
                  cluster_name: str = "opensearch-tpu",
-                 host: str = "127.0.0.1", port: int = 9200, device=None):
+                 host: str = "127.0.0.1", port: int = 9200, device=None,
+                 settings: Optional[dict] = None):
         self.device = resolve_device(device)
+        # the fielddata breaker's default follows the card from the start
+        breaker_service().size_for(self.device)
+        self.settings = dict(settings or {})
+        self._apply_device_settings()
         self.name = name
         self.host = host
         self.cluster_name = cluster_name
@@ -58,6 +76,16 @@ class Node:
         self.rest = RestController(self)
         self.http = HttpServer(self.rest, host=host, port=port)
         self._stopped = False
+
+    def _apply_device_settings(self) -> None:
+        """``device.pager.page_bytes``, then ``device.memory.budget_bytes``
+        (the budget enforces at once, with the pages it counts)."""
+        if "device.pager.page_bytes" in self.settings:
+            device_pager().set_page_bytes(
+                parse_bytes(self.settings["device.pager.page_bytes"]))
+        if "device.memory.budget_bytes" in self.settings:
+            device_ledger().set_budget(
+                parse_bytes(self.settings["device.memory.budget_bytes"]))
 
     @property
     def port(self) -> int:
@@ -91,12 +119,18 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: cuda; "
                          "\"cpu\" to serve on the CPU)")
+    ap.add_argument("-E", dest="settings", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="a node setting, e.g. -E "
+                         "device.memory.budget_bytes=8gb")
     args = ap.parse_args(argv)
+    settings = dict(kv.split("=", 1) for kv in args.settings)
 
     try:
         node = Node(args.data_path, name=args.name,
                     cluster_name=args.cluster_name, host=args.host,
-                    port=args.port, device=args.device).start()
+                    port=args.port, device=args.device,
+                    settings=settings).start()
     except DeviceUnavailableError as e:
         print(f"DeviceUnavailableError: {e}", file=sys.stderr)
         return 1

@@ -126,6 +126,17 @@ def library(name: str, declare, defines=None) -> ctypes.CDLL:
         return lib
 
 
+def loaded() -> dict[str, int]:
+    """{source name: libraries of it loaded in this process} (one per set
+    of macros): what the residency ledger's compile registry counts."""
+    with _lock:
+        keys = list(_libs)
+    out: dict[str, int] = {}
+    for name, _defines in keys:
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
 def count(wrapper, n: int = 1, attr: str = "launches") -> None:
     """Add ``n`` to a wrapper's counter (``wrapper.launches`` by default)
     under one lock: wrappers launch from many threads at once (the

@@ -1100,13 +1100,15 @@ class RestController:
         for resp_idx, resp in enumerate(responses):
             for pos, h in enumerate(resp["hits"]["hits"]):
                 rows.append((h, resp_idx, pos))
+        profiling = bool(body.get("profile"))
+        t_reduce = time.monotonic() if profiling else 0.0
         all_hits = merge_hit_rows(rows, body.get("sort"))
         total = sum(r["hits"]["total"]["value"] for r in responses)
         scores = [r["hits"]["max_score"] for r in responses
                   if r["hits"]["max_score"] is not None]
         shards = sum(r.get("_shards", {}).get("total", 1)
                      for r in responses)
-        return {
+        out = {
             "took": max((r["took"] for r in responses), default=0),
             # partial-results flag survives the coordinator reduce
             "timed_out": any(r.get("timed_out") for r in responses),
@@ -1116,6 +1118,20 @@ class RestController:
                      "max_score": max(scores) if scores else None,
                      "hits": all_hits[from_: from_ + size]},
         }
+        if profiling:
+            # the sources' shard sections concatenate (each carries its
+            # engine attribution); the coordinator block adds the merge
+            sections = []
+            for r in responses:
+                sections.extend((r.get("profile") or {}).get("shards")
+                                or [])
+            out["profile"] = {
+                "shards": sections,
+                "coordinator": {
+                    "sources": len(responses),
+                    "reduce_time_in_nanos": int(
+                        (time.monotonic() - t_reduce) * 1e9)}}
+        return out
 
     def _multi_index_search(self, services, body):
         """Coordinator merge over several indices (scores are per-index,

@@ -22,6 +22,15 @@ segment of the shard.
 - ``plan_batches`` splits msearch bodies into one group per (field,
   size) and the bodies that take the sequential path.
 
+A group runs in a residency-ledger scope, marks its segments used with
+one ``record_dispatch`` and counts its read-back with one
+``record_fetch``.  With a profiler (``search/profile.py``), shared by the
+group's members, it records ``execution_path`` ``device_batched``, the
+``batch_prep_cache`` hit or miss, the assembly as ``prepare``, the
+segments no term of the batch reaches as ``pruned_can_match``, the others
+as scanned (sharing the launch's host time) and the read-back and merge
+as ``reduce``.
+
 Per (query, doc) the contributions add in the query's term order from
 0.0, each ``w * (idf * imp)``, so batched scores equal the sequential
 path's byte for byte.  Unlike the reference there is no host fallback
@@ -30,15 +39,19 @@ on a device error: a CUDA tensor gets K3 or an exception.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from opensearch_tpu_torch.common import torchenv  # noqa: F401
+from opensearch_tpu_torch.common.device_ledger import device_ledger
 from opensearch_tpu_torch.common.errors import OpenSearchTpuError
 from opensearch_tpu_torch.index.segment import pad_bucket, pad_pow2
 from opensearch_tpu_torch.ops import bm25 as bm25_ops
 from opensearch_tpu_torch.ops.cuda_bm25 import K_MAX, UNION_MAX_TERMS
 from opensearch_tpu_torch.search import plan as P
+from opensearch_tpu_torch.search import profile
 
 _I32 = np.int32
 _F32 = np.float32
@@ -208,7 +221,7 @@ class BatchGroup:
         idf_flat = np.concatenate(self.idfs)
         w_flat = np.concatenate(self.weights)
         dev = searcher.device
-        segs, order = [], []
+        segs, order, views = [], [], []
         for seg_order, seg in enumerate(searcher.segments):
             pf = seg.postings.get(self.field)
             if pf is None:
@@ -256,6 +269,7 @@ class BatchGroup:
                 union_active, union_idfs, union_rows, qslots, qweights,
                 qact, pad_bucket(int(pf.df[tids[present]].sum()))))
             order.append(seg_order)
+            views.append(dseg)
         table = None
         if segs and dev.type == "cuda":
             from opensearch_tpu_torch.ops import cuda_bm25
@@ -266,33 +280,64 @@ class BatchGroup:
                 need_counts=need_counts)
         return {"segs": segs, "order": np.asarray(order, _I32),
                 "required": required, "need_counts": need_counts,
-                "table": table}
+                "table": table, "groups": [d._ledger_group for d in views]}
 
-    def run(self, searcher, cache: bool = True) -> dict:
+    def run(self, searcher, cache: bool = True, prof=None) -> dict:
         """Execute against every segment; returns {pos: (rows, total,
         max_score)} in the sequential path's row format: one K3 launch
         and one read-back on CUDA, the plain version on the CPU, then a
         host merge per query (score desc, then segment, then doc); a bag
         beyond ``UNION_MAX_TERMS`` takes ``_run_wide`` instead.  With
         ``cache`` the group's inputs are kept on the searcher per
-        signature, so a repeated batch assembles nothing."""
+        signature, so a repeated batch assembles nothing.  ``prof``: the
+        group's profiler (module docstring)."""
+        with device_ledger().request():
+            return self._run(searcher, cache, prof)
+
+    def _run(self, searcher, cache: bool, prof) -> dict:
         out = {pos: self._run_wide(searcher, bind)
                for pos, bind in self.wide}
         if not self.positions:
             return out
-        if cache:
-            prep = searcher._batch_prep_cache.get_or_make(
-                self.signature(), lambda: self._prepare(searcher))
-        else:
-            prep = self._prepare(searcher)
+        if prof is not None:
+            prof.set("execution_path", "device_batched")
+        with profile.phase(prof, "prepare"):
+            prep = searcher._batch_prep_cache.get(self.signature()) \
+                if cache else None
+            if prof is not None:
+                prof.set("batch_prep_cache",
+                         "miss" if prep is None else "hit")
+            if prep is None:
+                prep = self._prepare(searcher)
+                if cache:
+                    prep = searcher._batch_prep_cache.put(self.signature(),
+                                                          prep)
+        if prof is not None:
+            # a segment the union leaves out holds no term of the batch:
+            # the batched path's can-match (recorded first, as the
+            # reference records them)
+            staged = prep["order"].tolist()
+            for so, seg in enumerate(searcher.segments):
+                if so not in staged:
+                    prof.seg_pruned(seg.seg_id, "pruned_can_match", 0.0)
+            for so in staged:
+                prof.scan(searcher.segments[so].seg_id)
         segs = prep["segs"]
         if not segs:
             return {**out, **{pos: ([], 0, None) for pos in self.positions}}
         n_q, n_seg, k = len(self.positions), len(segs), self.k
-        vals, ids, totals, maxes = batch_term_bag_topk_auto(
+        device_ledger().record_dispatch(prep["groups"])
+        t_disp = time.monotonic()
+        result = batch_term_bag_topk_auto(
             segs, prep["required"], n_queries=n_q, k=k,
-            need_counts=prep["need_counts"],
-            table=prep["table"]).numpy()
+            need_counts=prep["need_counts"], table=prep["table"])
+        t_sync = time.monotonic()
+        if prof is not None:
+            prof.launched(t_sync - t_disp)
+        vals, ids, totals, maxes = result.numpy()
+        device_ledger().record_fetch(
+            vals.nbytes + ids.nbytes + totals.nbytes + maxes.nbytes,
+            time.monotonic() - t_sync)
         vals = vals.reshape(n_q, n_seg * k)
         ids = ids.reshape(n_q, n_seg * k)
         totals = totals.reshape(n_q, n_seg).astype(np.int64).sum(axis=1)
@@ -307,6 +352,8 @@ class BatchGroup:
             mx = float(maxes[qi])
             out[pos] = (rows, int(totals[qi]),
                         None if mx == -np.inf else mx)
+        if prof is not None:
+            prof.add("reduce", time.monotonic() - t_sync)
         return out
 
 
@@ -325,8 +372,9 @@ def batchable(searcher, body: dict, *, peek: bool = False):
     """``(plan, bind, k)`` when ``body`` may take the batched path with the
     sequential path's response, else None.  The sequential path serves
     the others: ``executor.SEQUENTIAL_KEYS`` (``suggest``, which it
-    runs, ``profile``, which it refuses, and ``script_fields`` and
-    ``post_filter``, as the reference's batch sends them), the keys that
+    runs, and ``script_fields`` and ``post_filter``, as the reference's
+    batch sends them; a ``profile`` batches, as in the reference), the
+    keys that
     shape a response beyond a plain top-k (``executor.RESULT_KEYS``:
     ``sort``, ``search_after``, ``collapse``, ``rescore`` and the fetch
     options, as the reference's exclusion list tests them), a

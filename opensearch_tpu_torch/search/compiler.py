@@ -39,6 +39,7 @@ from opensearch_tpu_torch.mapping.types import (KeywordFieldType,
                                                 parse_ip_long)
 from opensearch_tpu_torch.ops import bm25 as bm25_ops
 from opensearch_tpu_torch.search import plan as P
+from opensearch_tpu_torch.search import profile
 from opensearch_tpu_torch.search import query_dsl as dsl
 
 _I64_MIN = -(2**63)
@@ -170,15 +171,22 @@ def _require_ft(ctx, field, qname):
     return ft
 
 
-def compile_query(q: dsl.Query, ctx: ShardContext, scored: bool = True):
-    """Returns (plan, bind)."""
+def compile_query(q: dsl.Query, ctx: ShardContext, scored: bool = True,
+                  prof=None):
+    """Returns (plan, bind).  ``prof`` (a ``search/profile.py``
+    ``QueryProfiler``) times the plan's construction into the ``compile``
+    phase and records the root query type."""
     fn = _COMPILERS.get(type(q))
     if fn is None:
         # a hybrid query runs only at the root, per sub-query
         # (executor._hybrid_search); nested, the reference refuses it
         raise IllegalArgumentError(
             f"query type [{type(q).__name__}] is not supported")
-    return fn(q, ctx, scored)
+    with profile.phase(prof, "compile"):
+        out = fn(q, ctx, scored)
+    if prof is not None:
+        prof.set("query_type", type(q).__name__)
+    return out
 
 
 def _c_match_all(q, ctx, scored):

@@ -22,10 +22,14 @@ continuous batcher and the single-shard entry).
   until a refresh.  ``msearch`` and ``count`` are the other entries the
   service calls.
 
-The reference's telemetry counters (``search.batcher.*``) are plain
-counters on the batcher here (``stats()``); insights and the profile
-API are not ported.  ``BATCHER_*`` and ``AUTO_WINDOW_MS`` are module
-globals, as in the reference, where its dynamic settings land.
+A profiled member of a continuous group gets the group's profiler
+(``search/profile.py``: one for the group, its ``batch`` block with
+``continuous: true``) and its own ``queue`` phase, the time it waited
+before the group ran.  The reference's telemetry counters
+(``search.batcher.*``) are plain counters on the batcher here
+(``stats()``); insights are not ported.  ``BATCHER_*`` and
+``AUTO_WINDOW_MS`` are module globals, as in the reference, where its
+dynamic settings land.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ import time
 from typing import Optional
 
 from opensearch_tpu_torch.common.errors import NotYetPortedError
+from opensearch_tpu_torch.search import profile
+from opensearch_tpu_torch.search.profile import QueryProfiler
 
 BATCHER_ENABLED = True
 BATCHER_WINDOW_MS = 0.0          # 0: use AUTO_WINDOW_MS
@@ -154,9 +160,9 @@ class _Member:
     """One parked search inside an open batch group."""
 
     __slots__ = ("body", "bind", "event", "rows", "total", "max_score",
-                 "error")
+                 "error", "t0", "queue_s", "gprof", "group_size")
 
-    def __init__(self, body: dict, bind: dict):
+    def __init__(self, body: dict, bind: dict, t0: float):
         self.body = body
         self.bind = bind
         self.event = threading.Event()
@@ -164,6 +170,10 @@ class _Member:
         self.total = 0
         self.max_score = None
         self.error: Optional[BaseException] = None
+        self.t0 = t0               # arrival
+        self.queue_s = 0.0         # arrival to the group's run
+        self.gprof = None          # the group's profiler, when profiled
+        self.group_size = 1
 
 
 class _OpenGroup:
@@ -230,7 +240,7 @@ class ContinuousBatcher:
     def _coalesce(self, searcher, body, plan, bind, k,
                   t0: float) -> Optional[dict]:
         key = (id(searcher), plan.field, k)
-        member = _Member(body, bind)
+        member = _Member(body, bind, t0)
         window = self.effective_window_s()
         with self._cond:
             g = self._groups.get(key)
@@ -295,25 +305,52 @@ class ContinuousBatcher:
         thread; every member shares (field, k) by the group key."""
         from opensearch_tpu_torch.search.batch import BatchGroup
 
+        t_run = time.monotonic()
+        gprof = None
+        if any((m.body or {}).get("profile") for m in members):
+            gprof = QueryProfiler()
+            gprof.set("plan_cache", "batched")
+            gprof.set("batch", {"field": field, "k": k,
+                                "queries": len(members),
+                                "continuous": True})
         group = BatchGroup(field, k)
         for i, m in enumerate(members):
             group.add(i, m.bind)
         # members rarely meet twice in one combination: the group's inputs
         # are assembled for this run and not cached (the msearch groups in
         # the searcher's cache stay)
-        out = group.run(searcher, cache=False)
+        out = group.run(searcher, cache=False, prof=gprof)
         with self._cond:
             self.dispatches += 1
             self.batched += len(members)
         for i, m in enumerate(members):
             m.rows, m.total, m.max_score = out[i]
+            m.queue_s = max(0.0, t_run - m.t0)
+            m.gprof = gprof
+            m.group_size = len(members)
 
     @staticmethod
     def _render(searcher, member: _Member, t0: float) -> dict:
-        """A member's response, shaped as ``ShardSearcher.search``'s."""
-        return searcher._response(member.rows or [], member.total,
-                                  member.max_score,
-                                  (member.body or {}).get("_source"), t0)
+        """A member's response, shaped as ``ShardSearcher.search``'s; a
+        profiled member's profile is the group's plus its own queue wait
+        and fetch."""
+        body = member.body or {}
+        prof = None
+        if member.gprof is not None and body.get("profile"):
+            prof = member.gprof.copy()
+            prof.add("queue", member.queue_s)
+        with profile.phase(prof, "fetch"):
+            resp = searcher._response(member.rows or [], member.total,
+                                      member.max_score, body.get("_source"),
+                                      t0)
+        if prof is not None:
+            resp["profile"] = {"shards": [prof.shard_section(
+                searcher.index_name, searcher.shard_id,
+                plan_type="TermBagPlan",
+                description=(f"continuous batch member of "
+                             f"{member.group_size}"),
+                total_segments=len(searcher.segments))]}
+        return resp
 
     def stats(self) -> dict:
         with self._cond:

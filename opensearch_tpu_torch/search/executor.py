@@ -62,10 +62,21 @@ options run per hit of the page on the host (``search/fetch.py``).
 device for the REST layer's scroll contexts (``search/contexts.py``);
 a point in time is a pinned searcher.
 
-Not ported yet (ROADMAP): ``profile``, which raises
-``NotYetPortedError``, and the telemetry / insights / task /
-device-health hooks.  Other keys the searcher does not read are ignored,
-as the reference's searcher ignores them.
+``profile: true`` returns the shard's phase-attributed profile
+(``search/profile.py``): the plan cache, compile, prepare, can-match
+and bound decisions per segment, the launches' host time shared among the
+segments they cover, the read-back and merge (``reduce``) and the fetch;
+a profiled request runs the same kernels in the same order as an
+unprofiled one, and its hits are byte-identical.  ``msearch`` profiles
+each batch group once (its members share it).  Not ported yet (ROADMAP):
+the telemetry / insights / task / device-health hooks.  Other keys the
+searcher does not read are ignored, as the reference's searcher ignores
+them.
+
+Every request runs in a residency-ledger scope
+(``common/device_ledger.py`` ``request``): under a device budget the
+segments it stages stay resident until its launches are queued, and one
+``record_dispatch`` a request marks them used.
 
 The searcher's caches are ``BoundedCache``s: the engine's threadpool and
 the continuous batcher call ``search`` from many threads at once.
@@ -77,14 +88,15 @@ import functools
 import json
 import math
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
 import torch
 
 from opensearch_tpu_torch.common.cache import BoundedCache
+from opensearch_tpu_torch.common.device_ledger import device_ledger
 from opensearch_tpu_torch.common.errors import (IllegalArgumentError,
-                                                NotYetPortedError,
                                                 ValidationError)
 from opensearch_tpu_torch.common.torchenv import resolve_device
 from opensearch_tpu_torch.index.segment import (LONG_MISSING_MAX,
@@ -94,9 +106,11 @@ from opensearch_tpu_torch.ops import bm25 as bm25_ops
 from opensearch_tpu_torch.ops.cuda_bm25 import K_MAX as TOPK_K_MAX
 from opensearch_tpu_torch.ops.phrase import stage_positions
 from opensearch_tpu_torch.search import plan as P
+from opensearch_tpu_torch.search import profile
 from opensearch_tpu_torch.search import sorting
 from opensearch_tpu_torch.search.compiler import ShardContext, compile_query
 from opensearch_tpu_torch.search.fetch import filter_source
+from opensearch_tpu_torch.search.profile import QueryProfiler, describe_plan
 from opensearch_tpu_torch.search.query_dsl import HybridQuery, parse_query
 
 _I32 = np.int32
@@ -107,9 +121,9 @@ _I32 = np.int32
 RESULT_KEYS = ("sort", "search_after", "rescore", "collapse", "highlight",
                "explain", "docvalue_fields", "fields", "stored_fields")
 # the other keys that take the sequential path: ``suggest`` runs there,
-# ``profile`` raises there, and the reference's batch sends
-# ``script_fields`` and ``post_filter`` there too
-SEQUENTIAL_KEYS = ("suggest", "profile", "script_fields", "post_filter")
+# and the reference's batch sends ``script_fields`` and ``post_filter``
+# there too (a profiled body batches: its group is profiled)
+SEQUENTIAL_KEYS = ("suggest", "script_fields", "post_filter")
 # query types whose bind injects a per-request column of every segment
 # (``ScoredMaskPlan``: the knn winners, the parent-join masks, percolate's
 # matches): their prepared inputs stay out of the searcher's cache
@@ -286,16 +300,9 @@ def build_arrays(dseg: DeviceSegment, needed, mapper, live=None,
     return A
 
 
-def _check_profile(body: dict) -> None:
-    """``profile``, the one body key this port does not serve, raises.
-    Like the reference's searcher, this one ignores the keys it does not
-    read (``post_filter``, ``track_scores``, ``terminate_after``,
-    ``version``, ``seq_no_primary_term``, ``indices_boost``, ...); the
-    REST layer refuses keys outside the reference's set."""
-    if body.get("profile"):
-        raise NotYetPortedError(
-            "search request key [profile] is not ported to the torch "
-            "package yet")
+def _groups(dsegs) -> list:
+    """The ledger groups of the views a launch reads."""
+    return [d._ledger_group for d in dsegs]
 
 
 def _plan_key(query_json, scored: bool):
@@ -336,15 +343,26 @@ class ShardSearcher:
         self.mapper = mapper
         self.index_name = index_name
         self.shard_id = shard_id
+        for seg in self.segments:      # the ledger's owner of their views
+            if seg.index_name == "-":
+                seg.index_name, seg.shard_id = index_name, shard_id
+            seg._searchers.add(self)   # told when seg's view is evicted
         self.ctx = ShardContext(self.segments, mapper, self.device)
         self._plan_cache = BoundedCache(_PLAN_CACHE_MAX)
+        # per (query, segment, the segment's view generation, kind):
+        # dropped for a segment whose view or pages the budget evicts
+        # (``_forget_segment``)
         self._prep_cache = BoundedCache(_PREP_CACHE_MAX)
         # msearch / continuous-batch group inputs, keyed by the group's
         # signature (``search/batch.py`` ``BatchGroup._prepare``)
         self._batch_prep_cache = BoundedCache(_BATCH_PREP_CACHE_MAX)
         # sort and collapse key columns, keyword ranks, segment starts
-        # (``search/sorting.py``)
-        self._sort_cache = BoundedCache(_SORT_CACHE_MAX)
+        # (``search/sorting.py``); the key columns are adopted into a
+        # ledger group of this searcher (kind ``sort_keys``)
+        self._sort_cache = BoundedCache(
+            _SORT_CACHE_MAX, on_drop=functools.partial(
+                sorting.key_column_dropped, weakref.ref(self)))
+        self._sort_group = None
         # bytes the sorted, collapsed and rescored paths read back to the
         # host (``search/sorting.py``), and the plan top-k's copies: a
         # measure, which concurrent requests may race
@@ -353,17 +371,23 @@ class ShardSearcher:
     # -- compiled-plan / prepared-bindings caches -------------------------
 
     def compiled(self, query_json: Optional[dict], scored: bool = True,
-                 with_key: bool = False):
+                 with_key: bool = False, prof=None):
         """(plan, bind) for a raw query body through the searcher's plan
         cache, keyed on the canonicalized JSON.  The searcher is an
         immutable point-in-time view, so entries never go stale.
         ``with_key`` returns the prepared-inputs cache's key beside them
-        (``_prep_key``)."""
+        (``_prep_key``).  ``prof`` times the lookup, the parse and the
+        compile and records the hit or miss."""
+        t_lookup = time.monotonic() if prof is not None else 0.0
         ckey = _plan_key(query_json, scored)
         out = self._plan_cache.get(ckey) if ckey is not None else None
+        if prof is not None:
+            prof.add("plan_cache", time.monotonic() - t_lookup)
+            prof.set("plan_cache", "miss" if out is None else "hit")
         if out is None:
-            out = compile_query(parse_query(query_json), self.ctx,
-                                scored=scored)
+            with profile.phase(prof, "rewrite"):
+                q = parse_query(query_json)
+            out = compile_query(q, self.ctx, scored=scored, prof=prof)
             if ckey is not None:
                 out = self._plan_cache.put(ckey, out)
         return (out, _prep_key(ckey)) if with_key else out
@@ -374,20 +398,45 @@ class ShardSearcher:
         ckey = _plan_key(query_json, scored)
         return None if ckey is None else self._plan_cache.get(ckey)
 
-    def _prepared(self, plan, bind, seg, dseg, ckey):
+    def _prepared(self, plan, bind, seg, dseg, ckey, prof=None):
         """``plan.prepare``'s per-(plan, segment) products — padded term
         ids, staged impact references, per-query tensors — cached so a
         repeated query does zero host-side prepare work and zero
         host-to-device copies per segment."""
         return self._cached(ckey, seg, "prepare",
-                            lambda: plan.prepare(bind, seg, dseg, self.ctx))
+                            lambda: plan.prepare(bind, seg, dseg, self.ctx),
+                            prof)
 
-    def _cached(self, ckey, seg, kind: str, make):
-        """``make()``, cached per (query, segment, ``kind``) while the
-        query has a cache key."""
-        if ckey is None:
-            return make()
-        return self._prep_cache.get_or_make((ckey, id(seg), kind), make)
+    def _cached(self, ckey, seg, kind: str, make, prof=None):
+        """``make()``, cached per (query, segment, the segment's view
+        generation, ``kind``) while the query has a cache key.  ``prof``
+        times a miss into ``prepare`` and counts ``prepared_hits`` /
+        ``prepared_misses``."""
+        key = (None if ckey is None
+               else (ckey, id(seg), seg.view_generation(), kind))
+        out = None if key is None else self._prep_cache.get(key)
+        if out is not None:
+            if prof is not None:
+                prof.inc("prepared_hits")
+            return out
+        mark = None
+        if prof is not None:
+            prof.inc("prepared_misses")
+            mark = prof.mark()
+        out = make()
+        if prof is not None:
+            prof.add("prepare", prof.since(mark))
+        if key is None:
+            return out
+        return self._prep_cache.put(key, out)
+
+    def _forget_segment(self, seg) -> None:
+        """The budget evicted a view or a page of ``seg``: drop the inputs
+        cached for it (and every batch group's, which may read it), so
+        its tensors are freed and the next use stages them again."""
+        sid = id(seg)
+        self._prep_cache.drop_where(lambda key: key[1] == sid)
+        self._batch_prep_cache.clear()
 
     # -- public API -------------------------------------------------------
 
@@ -395,21 +444,25 @@ class ShardSearcher:
         return sum(s.live_count() for s in self.segments)
 
     def resident_bytes(self) -> int:
-        """Bytes of this searcher's segments staged on its device."""
-        return sum(seg.device(self.device).nbytes()
-                   for seg in self.segments)
+        """Bytes of this searcher's segments staged on its device now (a
+        view the device budget evicted counts 0; this stages nothing)."""
+        key = str(self.device)
+        views = (seg._device.get(key) for seg in self.segments)
+        return sum(d.nbytes() for d in views if d is not None)
 
     def count(self, query_json: Optional[dict] = None) -> int:
         if not self.segments:
             return 0
-        (plan, bind), ckey = self.compiled(query_json, scored=False,
-                                           with_key=True)
-        needed = plan.arrays()
-        total = 0
-        for _seg, _dseg, _scores, matched in self._run_full(
-                plan, bind, needed, None, can_match_skip=True, ckey=ckey):
-            total += int(matched.sum())
-        return total
+        with device_ledger().request():
+            (plan, bind), ckey = self.compiled(query_json, scored=False,
+                                               with_key=True)
+            needed = plan.arrays()
+            total = 0
+            for _seg, _dseg, _scores, matched in self._run_full(
+                    plan, bind, needed, None, can_match_skip=True,
+                    ckey=ckey):
+                total += int(matched.sum())
+            return total
 
     def msearch(self, bodies: list) -> list[dict]:
         """Multi-search (the ``_msearch`` analog): bodies that compile to
@@ -426,10 +479,30 @@ class ShardSearcher:
         groups, fallback = plan_batches(self, bodies)
         results: list = [None] * len(bodies)
         for group in groups:
-            for pos, (rows, total, max_score) in group.run(self).items():
-                results[pos] = self._response(
-                    rows, total, max_score,
-                    (bodies[pos] or {}).get("_source"), t0)
+            members = sorted(group.positions + [p for p, _b in group.wide])
+            gprof = None
+            if any((bodies[p] or {}).get("profile") for p in members):
+                # one profiler a coalesced group: its members share the
+                # group's timings (that sharing is the attribution)
+                gprof = QueryProfiler()
+                gprof.set("plan_cache", "batched")
+                gprof.set("batch", {"field": group.field, "k": group.k,
+                                    "queries": len(members),
+                                    "positions": members})
+            out = group.run(self, prof=gprof)
+            for pos, (rows, total, max_score) in out.items():
+                body = bodies[pos] or {}
+                with profile.phase(gprof, "fetch"):
+                    results[pos] = self._response(rows, total, max_score,
+                                                  body.get("_source"), t0)
+                if gprof is not None and body.get("profile"):
+                    results[pos]["profile"] = {"shards": [
+                        gprof.shard_section(
+                            self.index_name, self.shard_id,
+                            plan_type="TermBagPlan",
+                            description=(f"batched[{group.field}] member "
+                                         f"{pos} of {len(members)}"),
+                            total_segments=len(self.segments))]}
         if len(fallback) > 1:
             from opensearch_tpu_torch.search.engine import query_engine
             outs = query_engine().pool.run_all(
@@ -448,14 +521,20 @@ class ShardSearcher:
         (``aggregation_partials``) in place of ``aggregations``."""
         body = body or {}
         t0 = time.monotonic()
-        q_json = body.get("query")
-        fetch_extras = self._fetch_extras(body)
-        if isinstance(q_json, dict) and "hybrid" in q_json:
-            q = parse_query(q_json)
-            if isinstance(q, HybridQuery):
-                return self._hybrid_search(body, q, t0, fetch_extras)
-        _check_profile(body)
-        return self._search_body(body, t0, agg_partials, fetch_extras)
+        with device_ledger().request():
+            q_json = body.get("query")
+            fetch_extras = self._fetch_extras(body)
+            if isinstance(q_json, dict) and "hybrid" in q_json:
+                q = parse_query(q_json)
+                if isinstance(q, HybridQuery):
+                    # as in the reference, a hybrid response carries no
+                    # profile
+                    return self._hybrid_search(body, q, t0, fetch_extras)
+            # the profiler exists only for a profiled request: every probe
+            # downstream is ``prof is not None``
+            prof = QueryProfiler() if body.get("profile") else None
+            return self._search_body(body, t0, agg_partials, fetch_extras,
+                                     prof=prof)
 
     @staticmethod
     def _fetch_extras(body: dict) -> Optional[dict]:
@@ -472,7 +551,8 @@ class ShardSearcher:
 
     def _search_body(self, body: dict, t0: float,
                      agg_partials: bool = False,
-                     fetch_extras: Optional[dict] = None) -> dict:
+                     fetch_extras: Optional[dict] = None,
+                     prof=None) -> dict:
         size = int(body.get("size", 10))
         from_ = int(body.get("from", 0))
         deadline = SearchDeadline(body.get("timeout"), t0)
@@ -505,7 +585,7 @@ class ShardSearcher:
                         or min_score is not None)
         (plan, bind), ckey = self.compiled(body.get("query"),
                                            scored=needs_scores,
-                                           with_key=True)
+                                           with_key=True, prof=prof)
         needed = plan.arrays()
         k_want = from_ + size
         # with exact totals waived, block-max pruning may also skip
@@ -529,7 +609,8 @@ class ShardSearcher:
         # with aggs, the full-scores pass runs ONCE and feeds the hits,
         # their order or collapse, and the aggregations
         views = (list(self._run_full(plan, bind, needed, min_score,
-                                     deadline=deadline, ckey=ckey))
+                                     deadline=deadline, ckey=ckey,
+                                     prof=prof))
                  if aggs_json and self.segments else None)
         total_is_lower_bound = False
         if not self.segments:
@@ -537,27 +618,36 @@ class ShardSearcher:
         elif collapse is not None:
             rows, total, max_score = self._collapsed(
                 plan, bind, needed, k_want, sort_specs, min_score,
-                collapse, views, search_after=search_after, ckey=ckey)
+                collapse, views, search_after=search_after, ckey=ckey,
+                prof=prof)
         elif sort_specs is None:
             if views is not None:
-                rows, total, max_score = self._topk_from_views(views,
-                                                               k_want)
+                rows, total, max_score = self._topk_from_views(
+                    views, k_want, prof=prof)
             else:
                 rows, total, max_score, total_is_lower_bound = self._topk(
                     plan, bind, needed, k_want, min_score,
                     deadline=deadline, ckey=ckey,
-                    allow_kth_prune=allow_kth_prune)
+                    allow_kth_prune=allow_kth_prune, prof=prof)
         else:
             rows, total, max_score = self._field_sorted(
                 plan, bind, needed, k_want, sort_specs, min_score, views,
-                search_after=search_after, deadline=deadline, ckey=ckey)
+                search_after=search_after, deadline=deadline, ckey=ckey,
+                prof=prof)
         if rescore is not None and rows:
             rows, max_score = self._rescored(rows, rescore)
-        resp = self._response(rows[from_: from_ + size], total, max_score,
-                              source_spec, t0,
-                              lower_bound=total_is_lower_bound,
-                              timed_out=deadline.timed_out,
-                              fetch_extras=fetch_extras)
+        with profile.phase(prof, "fetch"):
+            resp = self._response(rows[from_: from_ + size], total,
+                                  max_score, source_spec, t0,
+                                  lower_bound=total_is_lower_bound,
+                                  timed_out=deadline.timed_out,
+                                  fetch_extras=fetch_extras)
+        if prof is not None:
+            resp["profile"] = {"shards": [prof.shard_section(
+                self.index_name, self.shard_id,
+                plan_type=type(plan).__name__,
+                description=describe_plan(plan, bind),
+                total_segments=len(self.segments))]}
         if aggs_json:
             from opensearch_tpu_torch.search.aggs import AggregationExecutor
             execu = AggregationExecutor(
@@ -598,7 +688,6 @@ class ShardSearcher:
             raise ValidationError(
                 "[hybrid] query does not support [sort], [aggs], "
                 "[min_score] or [search_after]")
-        _check_profile(body)
         size = int(body.get("size", 10))
         from_ = int(body.get("from", 0))
         k_want = from_ + size
@@ -637,7 +726,8 @@ class ShardSearcher:
         continuous batcher's): the page's ``rows``, the matched total
         (a lower bound when ``lower_bound``), the largest score, whether
         the request's deadline cut the query phase and the time since
-        ``t0``."""
+        ``t0`` (the fetch included)."""
+        hits = self._hits_from_rows(rows, source_spec, fetch_extras)
         return {
             "took": int((time.monotonic() - t0) * 1000),
             "timed_out": bool(timed_out),
@@ -646,8 +736,7 @@ class ShardSearcher:
                 "total": {"value": int(total),
                           "relation": "gte" if lower_bound else "eq"},
                 "max_score": max_score,
-                "hits": self._hits_from_rows(rows, source_spec,
-                                             fetch_extras),
+                "hits": hits,
             },
         }
 
@@ -704,14 +793,15 @@ class ShardSearcher:
 
     def _run_full(self, plan, bind, needed, min_score,
                   can_match_skip=False, deadline=None, ckey=None,
-                  only=None):
+                  only=None, prof=None):
         """Yields (seg, dseg, scores, matched) per segment.
         ``can_match_skip`` and ``only`` (a set of segment indices: the
         others are skipped) are ONLY safe for consumers that don't index
         the yielded tuples by position.  An expired ``deadline`` stops
         the scan at the next segment boundary.  The plan's term-bag leaves
         are launched once over every segment scanned before the first is
-        evaluated."""
+        evaluated.  ``prof`` records each segment's decision; the scanned
+        segments share the host time of the launches and evals."""
         ms = self._min_score(min_score)
         items = []
         for si, seg in enumerate(self.segments):
@@ -719,45 +809,65 @@ class ShardSearcher:
                 break
             if only is not None and si not in only:
                 continue
+            t_seg = time.monotonic() if prof is not None else 0.0
             if can_match_skip and not plan.can_match(bind, seg):
+                if prof is not None:
+                    prof.seg_pruned(seg.seg_id, "pruned_can_match",
+                                    time.monotonic() - t_seg)
                 continue
-            items.append(self._evaluated(plan, bind, needed, seg, ckey))
+            items.append(self._evaluated(plan, bind, needed, seg, ckey,
+                                         prof))
+        device_ledger().record_dispatch(_groups(d for _s, d, *_r in items))
+        # the launches' host time, the consumer's time between yields left
+        # out
+        disp, t_disp = 0.0, time.monotonic()
         P.dense_prepass(plan, [(A, dims, ins)
                                for _s, _d, dims, ins, A in items])
         for seg, dseg, dims, ins, A in items:
             scores, matched = P.run_full(plan, dims, A, ins, ms)
+            disp += time.monotonic() - t_disp
             yield seg, dseg, scores, matched
+            t_disp = time.monotonic()
+        if prof is not None:
+            prof.launched(disp)
 
-    def _evaluated(self, plan, bind, needed, seg, ckey) -> tuple:
+    def _evaluated(self, plan, bind, needed, seg, ckey, prof=None) -> tuple:
         """``(seg, dseg, dims, ins, A)``: one segment's prepared inputs
-        (cached per query) and its request-scoped arrays."""
+        (cached per query) and its request-scoped arrays.  ``prof``
+        records the segment as joining the launch (``scan``)."""
+        mark = prof.mark() if prof is not None else None
         dseg = seg.device(self.device)
-        dims, ins = self._prepared(plan, bind, seg, dseg, ckey)
+        dims, ins = self._prepared(plan, bind, seg, dseg, ckey, prof)
         A = build_arrays(dseg, needed, self.mapper,
                          live=self.ctx.live_mask(seg, dseg),
                          partial_ok=plan.skip_arrays(dims))
+        if prof is not None:
+            prof.scan(seg.seg_id, prof.since(mark))
         return seg, dseg, dims, ins, A
 
-    def _topk_from_views(self, views, k_want):
+    def _topk_from_views(self, views, k_want, prof=None):
         """(rows, total, max_score) out of an already-run full-scores pass
         (aggs requests): every segment's top-k from one plan top-k call,
         read back in one copy."""
-        if k_want == 0:
-            total = sum(int(m.sum()) for _s, _d, _sc, m in views)
-            return [], total, None
-        if not views:
-            return [], 0, None
-        out = bm25_ops.plan_topk_segments_auto(
-            [bm25_ops.PlanScores(scores, matched)
-             for _seg, _dseg, scores, matched in views], k=k_want)
-        return self._rows_of(out, range(len(views)), k_want)
+        with profile.phase(prof, "reduce"):
+            if k_want == 0:
+                total = sum(int(m.sum()) for _s, _d, _sc, m in views)
+                return [], total, None
+            if not views:
+                return [], 0, None
+            out = bm25_ops.plan_topk_segments_auto(
+                [bm25_ops.PlanScores(scores, matched)
+                 for _seg, _dseg, scores, matched in views], k=k_want)
+            return self._rows_of(out, range(len(views)), k_want)
 
     def _rows_of(self, out, order, k_want):
         """(rows, total, max_score) of a ``TermBagTopK`` whose row ``j``
         is segment ``order[j]``'s, read back in one copy."""
+        t_sync = time.monotonic()
         vals, ids, totals, maxes = out.numpy()
-        self.read_back_bytes += (vals.nbytes + ids.nbytes + totals.nbytes
-                                 + maxes.nbytes)
+        nbytes = vals.nbytes + ids.nbytes + totals.nbytes + maxes.nbytes
+        device_ledger().record_fetch(nbytes, time.monotonic() - t_sync)
+        self.read_back_bytes += nbytes
         per_seg = []
         for j, si in enumerate(order):
             keep = vals[j] > -np.inf
@@ -779,8 +889,26 @@ class ShardSearcher:
                  "score": float(scores[i])} for i in order]
         return rows, total, (None if max_score == -np.inf else float(max_score))
 
+    def _prune(self, plan, bind, seg, ms_host, prof) -> bool:
+        """True when ``seg`` is left out of the launches: it cannot match,
+        or its score bound is below ``min_score`` (exact: such docs never
+        count in totals); ``prof`` records the decision and its time."""
+        t_seg = time.monotonic() if prof is not None else 0.0
+        if not plan.can_match(bind, seg):
+            reason = "pruned_can_match"     # no staging, no program
+        elif ms_host is not None and \
+                plan.max_score_bound(bind, seg) < ms_host:
+            reason = "pruned_min_score"
+        else:
+            if prof is not None:
+                prof.add("can_match", time.monotonic() - t_seg)
+            return False
+        if prof is not None:
+            prof.seg_pruned(seg.seg_id, reason, time.monotonic() - t_seg)
+        return True
+
     def _topk(self, plan, bind, needed, k_want, min_score, deadline=None,
-              ckey=None, allow_kth_prune=False):
+              ckey=None, allow_kth_prune=False, prof=None):
         """Returns (rows, total, max_score, total_is_lower_bound).
 
         Block-max pruning: segments whose ``plan.max_score_bound`` can't
@@ -792,38 +920,45 @@ class ShardSearcher:
         finished, never blocking the launch pipeline.  An expired
         ``deadline`` stops the launches at the next segment: the result
         covers the segments launched before it."""
+        if prof is not None:
+            prof.set("execution_path", "device")
         if k_want == 0:            # size=0: counts only
-            total = sum(int(m.sum()) for _s, _d, _sc, m
-                        in self._run_full(plan, bind, needed, min_score,
-                                          can_match_skip=True,
-                                          deadline=deadline, ckey=ckey))
+            # the scan records its phases inline; the host's sum is the
+            # reduce
+            with profile.phase(prof, "reduce"):
+                total = sum(int(m.sum()) for _s, _d, _sc, m
+                            in self._run_full(plan, bind, needed, min_score,
+                                              can_match_skip=True,
+                                              deadline=deadline, ckey=ckey,
+                                              prof=prof))
             return [], total, None, False
         ms = self._min_score(min_score)
         ms_host = None if min_score is None else float(min_score)
         if isinstance(plan, P.TermBagPlan) and plan.scored and \
                 k_want <= TOPK_K_MAX and not allow_kth_prune:
             return (*self._topk_term_bag(plan, bind, needed, k_want, ms,
-                                         ms_host, ckey, deadline=deadline),
+                                         ms_host, ckey, deadline=deadline,
+                                         prof=prof),
                     False)
 
         if allow_kth_prune:
             return self._topk_per_segment(plan, bind, needed, k_want, ms,
-                                          ms_host, deadline, ckey)
+                                          ms_host, deadline, ckey, prof)
         # the segments this request evaluates, then each term-bag leaf
         # launched once over all of them, then one plan top-k
         items, order = [], []
         for si, seg in enumerate(self.segments):
             if deadline is not None and deadline.expired():
                 break              # partial top-k; response flags timed_out
-            if not plan.can_match(bind, seg):
-                continue           # can-match skip: no staging, no program
-            if ms_host is not None and \
-                    plan.max_score_bound(bind, seg) < ms_host:
-                continue           # exact: such docs never count in totals
-            items.append(self._evaluated(plan, bind, needed, seg, ckey))
+            if self._prune(plan, bind, seg, ms_host, prof):
+                continue
+            items.append(self._evaluated(plan, bind, needed, seg, ckey,
+                                         prof))
             order.append(si)
         if not items:
             return [], 0, None, False
+        device_ledger().record_dispatch(_groups(d for _s, d, *_r in items))
+        t_disp = time.monotonic()
         P.dense_prepass(plan, [(A, dims, ins)
                                for _s, _d, dims, ins, A in items])
         entries = []
@@ -832,42 +967,54 @@ class ShardSearcher:
             entries.append(bm25_ops.PlanScores(scores, matched, A["live"]))
         out = bm25_ops.plan_topk_segments_auto(entries, k=k_want,
                                                min_score=ms)
-        return (*self._rows_of(out, order, k_want), False)
+        if prof is not None:
+            prof.launched(time.monotonic() - t_disp)
+        with profile.phase(prof, "reduce"):
+            return (*self._rows_of(out, order, k_want), False)
 
     def _topk_per_segment(self, plan, bind, needed, k_want, ms, ms_host,
-                          deadline, ckey):
+                          deadline, ckey, prof=None):
         """``_topk`` with exact totals waived: the plan's term-bag leaves
         launched once over every segment that can match (``dense_prepass``),
         then one program per segment (the rest of the plan and a plan
         top-k of that segment), each launched before the host reads any
         result back, so that segments that cannot beat the running k-th
-        score, harvested from programs already finished, are skipped."""
+        score, harvested from programs already finished, are skipped.
+        ``prof`` gives each segment its own record: its setup, its share
+        of the pre-pass and its program (or its ``pruned_kth``
+        decision)."""
         items = []
         for si, seg in enumerate(self.segments):
             if deadline is not None and deadline.expired():
                 break              # partial top-k; response flags timed_out
-            if not plan.can_match(bind, seg):
-                continue           # can-match skip: no staging, no program
-            if ms_host is not None and \
-                    plan.max_score_bound(bind, seg) < ms_host:
-                continue           # exact: such docs never count in totals
+            if self._prune(plan, bind, seg, ms_host, prof):
+                continue
             items.append((si, self._evaluated(plan, bind, needed, seg,
-                                              ckey)))
+                                              ckey, prof)))
+        pending = prof.take_pending() if prof is not None else None
+        device_ledger().record_dispatch(
+            _groups(d for _si, (_s, d, *_r) in items))
+        t_pre = time.monotonic()
         P.dense_prepass(plan, [(A, dims, ins)
                                for _si, (_s, _d, dims, ins, A) in items])
+        share = (time.monotonic() - t_pre) / max(1, len(items))
         # phase 1: LAUNCH every segment's program without a host sync
         launched = []      # [si, vals, idx, tot, mx, synced_vals, event]
         kth = None         # running k-th best (harvested, host)
         total_is_lower_bound = False
         on_cuda = self.device.type == "cuda"
-        for si, (seg, _d, dims, ins, A) in items:
+        for j, (si, (seg, _d, dims, ins, A)) in enumerate(items):
             if deadline is not None and deadline.expired():
                 break              # partial top-k; response flags timed_out
+            t_seg = time.monotonic()
             if kth is not None and plan.max_score_bound(bind, seg) <= kth:
                 # the k-th holder launched earlier, so it wins any tie at
                 # exactly the bound (seg-asc tie-break); totals become a
                 # lower bound
                 total_is_lower_bound = True
+                if prof is not None:
+                    prof.settle(pending[j], share + time.monotonic() - t_seg,
+                                "pruned_kth")
                 continue
             scores, matched = plan.eval(A, dims, ins)
             out = bm25_ops.plan_topk_segments_auto(
@@ -881,13 +1028,19 @@ class ShardSearcher:
                              out.maxes[0], None, event])
             if si + 1 < len(self.segments):
                 kth = self._harvest_kth(launched, k_want, kth)
+            if prof is not None:
+                prof.settle(pending[j], share + time.monotonic() - t_seg)
         if not launched:
             return [], 0, None, total_is_lower_bound
         # phase 2: ONE host-sync region over all segments' results
+        t_sync = time.monotonic()
         vals_h = torch.stack([e[1] for e in launched]).cpu().numpy()
         idx_h = torch.stack([e[2] for e in launched]).cpu().numpy()
         tot_h = torch.stack([e[3] for e in launched]).cpu().numpy()
         mx_h = torch.stack([e[4] for e in launched]).cpu().numpy()
+        device_ledger().record_fetch(
+            vals_h.nbytes + idx_h.nbytes + tot_h.nbytes + mx_h.nbytes,
+            time.monotonic() - t_sync)
         per_seg = []
         for j, entry in enumerate(launched):
             keep = vals_h[j] > -np.inf
@@ -896,27 +1049,31 @@ class ShardSearcher:
                             idx_h[j][keep]))
         rows, total, max_score = self._merge_topk(
             per_seg, k_want, int(tot_h.sum()), float(mx_h.max()))
+        if prof is not None:
+            prof.add("reduce", time.monotonic() - t_sync)
         return rows, total, max_score, total_is_lower_bound
 
     def _topk_term_bag(self, plan, bind, needed, k_want, ms, ms_host,
-                       ckey, f32: bool = False, deadline=None):
+                       ckey, f32: bool = False, deadline=None, prof=None):
         """(rows, total, max_score) of a scored term bag: can-match and
         min_score bound skips on the host, then every remaining segment's
         top-k, total and max from one ``term_bag_topk_segments_auto``
         call, read back in one copy.  ``topk_input`` reads the f32 columns
         only on f32 segments, where they are always staged, unless ``f32``
         asks for the f32 lowering everywhere (the batched path's, for a
-        bag K3 does not stage), which stages them on demand.  An expired
-        ``deadline`` leaves the remaining segments out of the launch."""
-        inputs, order = [], []
+        bag K3 does not stage), which stages them on demand.  Quantized
+        tables are prefetched into free pager pages first (the reference's
+        oracle).  An expired ``deadline`` leaves the remaining segments
+        out of the launch."""
+        if not f32:
+            plan.prefetch_quantized(bind, self.segments, self.device)
+        inputs, order, dsegs = [], [], []
         for si, seg in enumerate(self.segments):
             if deadline is not None and deadline.expired():
                 break
-            if not plan.can_match(bind, seg):
+            if self._prune(plan, bind, seg, ms_host, prof):
                 continue
-            if ms_host is not None and \
-                    plan.max_score_bound(bind, seg) < ms_host:
-                continue           # exact: such docs never count
+            mark = prof.mark() if prof is not None else None
             dseg = seg.device(self.device)
             inputs.append(self._cached(
                 ckey, seg, "topk_input_f32" if f32 else "topk_input",
@@ -924,18 +1081,28 @@ class ShardSearcher:
                     bind, seg, dseg, build_arrays(
                         dseg, needed, self.mapper,
                         live=self.ctx.live_mask(seg, dseg),
-                        partial_ok=needed), f32=f32)))
+                        partial_ok=needed), f32=f32), prof))
+            if prof is not None:
+                prof.scan(seg.seg_id, prof.since(mark))
             order.append(si)
+            dsegs.append(dseg)
         if not inputs:
             return [], 0, None
-        return self._rows_of(bm25_ops.term_bag_topk_segments_auto(
-            inputs, k=k_want, min_score=ms), order, k_want)
+        device_ledger().record_dispatch(_groups(dsegs))
+        t_disp = time.monotonic()
+        out = bm25_ops.term_bag_topk_segments_auto(inputs, k=k_want,
+                                                   min_score=ms)
+        if prof is not None:
+            prof.launched(time.monotonic() - t_disp)
+        with profile.phase(prof, "reduce"):
+            return self._rows_of(out, order, k_want)
 
     # -- order, collapse, rescore ------------------------------------------
 
     def _field_sorted(self, plan, bind, needed, k_want, sort_specs,
                       min_score, views=None, slice_spec=None,
-                      search_after=None, deadline=None, ckey=None):
+                      search_after=None, deadline=None, ckey=None,
+                      prof=None):
         """(rows, total, None): every matched row ordered by the parsed
         ``sort_specs`` on the device (``search/sorting.py``
         ``field_order``), the rows at or before ``search_after`` dropped,
@@ -943,17 +1110,22 @@ class ShardSearcher:
         ``k_want=None`` returns the whole ordering as
         ``sorting.OrderedRows`` on the device (collapse, ``scan_rows``);
         ``slice_spec`` keeps a slice's rows (``sorting.slice_filter``), and
-        ``total`` is then the slice's count."""
-        if views is None:
-            views = list(self._run_full(plan, bind, needed, min_score,
-                                        deadline=deadline, ckey=ckey))
-        flat = sorting.matched_rows(self, views, slice_spec)
-        probe = (None if search_after is None
-                 else self._coerce_search_after(search_after, sort_specs))
-        ordered = sorting.field_order(self, views, flat, sort_specs, probe)
-        if k_want is None:
-            return ordered, ordered.total, None
-        return ordered.take(k_want)[0], ordered.total, None
+        ``total`` is then the slice's count.  ``prof``: the scan's phases
+        inline, the keys, sorts and read-back as ``reduce``."""
+        with profile.phase(prof, "reduce"):
+            if views is None:
+                views = list(self._run_full(plan, bind, needed, min_score,
+                                            deadline=deadline, ckey=ckey,
+                                            prof=prof))
+            flat = sorting.matched_rows(self, views, slice_spec)
+            probe = (None if search_after is None
+                     else self._coerce_search_after(search_after,
+                                                    sort_specs))
+            ordered = sorting.field_order(self, views, flat, sort_specs,
+                                          probe)
+            if k_want is None:
+                return ordered, ordered.total, None
+            return ordered.take(k_want)[0], ordered.total, None
 
     def _coerce_search_after(self, search_after, sort_specs) -> list:
         """``search_after`` in the columns' space: a string for a numeric
@@ -1029,10 +1201,11 @@ class ShardSearcher:
 
     def _collapsed(self, plan, bind, needed, k_want, sort_specs,
                    min_score, collapse, views, search_after=None,
-                   ckey=None):
+                   ckey=None, prof=None):
         """Field collapsing (search/collapse/): one hit per distinct
         value of the collapse field, the best-ranked in result order,
-        found on the device (``sorting.collapse``)."""
+        found on the device (``sorting.collapse``).  ``prof``: the scan's
+        phases inline, the ordering and the collapse as ``reduce``."""
         field = collapse.get("field") if isinstance(collapse, dict) \
             else None
         if not field:
@@ -1042,19 +1215,20 @@ class ShardSearcher:
             raise IllegalArgumentError(
                 f"cannot collapse on [{field}]: keyword or numeric doc "
                 "values required")
-        if sort_specs is not None:
-            ordered, total, _ = self._field_sorted(
-                plan, bind, needed, None, sort_specs, min_score, views,
-                search_after=search_after, ckey=ckey)
-        elif views is not None:
-            # an aggs pass already ran the full query: rank from it
-            # instead of a second device execution
-            ordered, total = self._rows_from_views(views)
-        else:
-            ordered, total = self.scan_rows(
-                {"query": None, "min_score": min_score}, None,
-                _precompiled=(plan, bind, needed, ckey))
-        out = sorting.collapse(self, ordered, field, ft, k_want)
+        with profile.phase(prof, "reduce"):
+            if sort_specs is not None:
+                ordered, total, _ = self._field_sorted(
+                    plan, bind, needed, None, sort_specs, min_score, views,
+                    search_after=search_after, ckey=ckey, prof=prof)
+            elif views is not None:
+                # an aggs pass already ran the full query: rank from it
+                # instead of a second device execution
+                ordered, total = self._rows_from_views(views)
+            else:
+                ordered, total = self.scan_rows(
+                    {"query": None, "min_score": min_score}, None,
+                    _precompiled=(plan, bind, needed, ckey), _prof=prof)
+            out = sorting.collapse(self, ordered, field, ft, k_want)
         max_score = (out[0].get("score") if out and sort_specs is None
                      else None)
         return out, total, max_score
@@ -1068,7 +1242,7 @@ class ShardSearcher:
         return ordered, ordered.total
 
     def scan_rows(self, body: Optional[dict] = None, slice_spec=None,
-                  _precompiled=None) -> tuple:
+                  _precompiled=None, _prof=None) -> tuple:
         """(``sorting.OrderedRows``, total): EVERY matched row in result
         order on the device — the body's field sort, else (score desc,
         seg, local) — for a cursor over all of them (``take`` reads a
@@ -1077,26 +1251,27 @@ class ShardSearcher:
         body = body or {}
         sort_specs = sorting.parse_sort(body.get("sort"))
         min_score = body.get("min_score")
-        if _precompiled is not None:
-            plan, bind, needed, ckey = _precompiled
-        else:
-            needs_scores = sort_specs is None or min_score is not None \
-                or any(s["field"] == "_score" for s in sort_specs)
-            (plan, bind), ckey = self.compiled(body.get("query"),
-                                               scored=needs_scores,
-                                               with_key=True)
-            needed = plan.arrays()
-        views = (list(self._run_full(plan, bind, needed, min_score,
-                                     ckey=ckey))
-                 if self.segments else [])
-        if sort_specs is not None:
-            ordered, total, _ = self._field_sorted(
-                plan, bind, needed, None, sort_specs, min_score, views,
-                slice_spec=slice_spec)
-            return ordered, total
-        ordered = sorting.score_order(
-            self, views, sorting.matched_rows(self, views, slice_spec))
-        return ordered, ordered.total
+        with device_ledger().request():
+            if _precompiled is not None:
+                plan, bind, needed, ckey = _precompiled
+            else:
+                needs_scores = sort_specs is None or min_score is not None \
+                    or any(s["field"] == "_score" for s in sort_specs)
+                (plan, bind), ckey = self.compiled(body.get("query"),
+                                                   scored=needs_scores,
+                                                   with_key=True)
+                needed = plan.arrays()
+            views = (list(self._run_full(plan, bind, needed, min_score,
+                                         ckey=ckey, prof=_prof))
+                     if self.segments else [])
+            if sort_specs is not None:
+                ordered, total, _ = self._field_sorted(
+                    plan, bind, needed, None, sort_specs, min_score, views,
+                    slice_spec=slice_spec)
+                return ordered, total
+            ordered = sorting.score_order(
+                self, views, sorting.matched_rows(self, views, slice_spec))
+            return ordered, ordered.total
 
     @staticmethod
     def _harvest_kth(launched, k_want, kth):

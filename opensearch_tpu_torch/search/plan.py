@@ -59,8 +59,10 @@ import numpy as np
 import torch
 
 from opensearch_tpu_torch.common import torchenv  # noqa: F401
+from opensearch_tpu_torch.index import codec
 from opensearch_tpu_torch.index.segment import (LONG_MISSING_MAX,
-                                                pad_bucket, pad_pow2)
+                                                pad_bucket, pad_pow2,
+                                                prefetch_quantized)
 from opensearch_tpu_torch.ops import bm25 as bm25_ops
 from opensearch_tpu_torch.ops import filters as filter_ops
 from opensearch_tpu_torch.ops import phrase as phrase_ops
@@ -214,6 +216,35 @@ class Plan:
         prepared inputs."""
         return ()
 
+    def describe(self, bind) -> str:
+        """Compact structural description for the Profile API's query
+        section (``Query.toString()`` analog), as the reference writes
+        it: the plan's static fields, then the bind's ``terms`` /
+        ``values`` (the first 8) and ``queries`` / ``children`` counts,
+        never document data.  A tensor prints as its numpy values, as
+        the reference prints its array's."""
+        import dataclasses
+        parts = [f"{f.name}={getattr(self, f.name)!r}"
+                 for f in dataclasses.fields(self)]
+        if isinstance(bind, dict):
+            for key in ("terms", "values"):
+                v = bind.get(key)
+                if isinstance(v, (list, tuple)) and v:
+                    shown = ",".join(str(_host_value(x)) for x in v[:8])
+                    more = ",…" if len(v) > 8 else ""
+                    parts.append(f"{key}=[{shown}{more}]")
+            for key in ("queries", "children"):
+                v = bind.get(key)
+                if isinstance(v, (list, tuple)):
+                    parts.append(f"{key}#{len(v)}")
+        return f"{type(self).__name__}({', '.join(parts)})"
+
+
+def _host_value(x):
+    """``x``, or a tensor's values as numpy (the profile's descriptions
+    print no tensor repr)."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+
 
 # float32 rounding can nudge a real score a few ulp above the float64
 # host-side bound arithmetic; inflating every finite bound by this
@@ -358,6 +389,20 @@ class TermBagPlan(Plan):
             q["packed"], q["base"], int(qt.width),
             qt.base[tids].astype(np.int64), qt.scales[tids],
             np.where(e1 > e0, e0, -1).astype(np.int64))
+
+    def prefetch_quantized(self, bind, segments, device) -> int:
+        """The pager's prefetch oracle: rank the quantized segments that
+        can match by their block-max score bound and stage their tables
+        best first into FREE pager pages on ``device`` (never evicting).
+        Returns the segments staged."""
+        if not self.scored:
+            return 0
+        ranked = [(self.max_score_bound(bind, seg), i, seg)
+                  for i, seg in enumerate(codec.quantized_segments(segments))
+                  if self.can_match(bind, seg)]
+        ranked.sort(key=lambda t: (-t[0], t[1]))
+        return sum(prefetch_quantized(seg, self.field, bind["avgdl"], device)
+                   for _b, _i, seg in ranked)
 
     def dense_mode(self, dims) -> dict:
         """The dense entry's columns this leaf reads: counts only in filter

@@ -14,7 +14,9 @@ Here the host never builds an object per matched row:
 - ``field_order`` gathers each clause's key at those rows from a key
   column of the whole searcher (``key_column``, cached on the searcher:
   ``minv`` for ``asc`` or ``maxv`` for ``desc`` with missing docs at
-  ``missing_sentinel``; a keyword's ``min_ord`` / ``max_ord`` as its rank
+  ``missing_sentinel``; adopted into the residency ledger under kind
+  ``sort_keys``, so it counts against the device budget; a keyword's
+  ``min_ord`` / ``max_ord`` as its rank
   in the sorted union of the segments' terms, ``KeywordRanks``, since
   each segment's dictionary is its own), or the f32 score widened to
   float64, or the local doc id; drops the rows at or before a
@@ -42,12 +44,14 @@ layer's multi-index merge uses it.
 from __future__ import annotations
 
 import bisect
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
+from opensearch_tpu_torch.common.device_ledger import device_ledger
 from opensearch_tpu_torch.common.errors import IllegalArgumentError
 from opensearch_tpu_torch.index.segment import (LONG_MISSING_MAX,
                                                 LONG_MISSING_MIN)
@@ -260,13 +264,50 @@ def _keyword_none(clause: Clause, n_terms: int) -> int:
     return -1 if clause.none_first != clause.desc else n_terms
 
 
+_sort_group_lock = threading.Lock()
+
+
 def key_column(searcher, clause: Clause) -> torch.Tensor:
     """The clause's key of every doc of the searcher's segments laid end
-    to end (int64, or float64 for ``double``), built once per searcher."""
-    return searcher._sort_cache.get_or_make(
-        ("sort", clause.field, clause.kind, clause.order,
-         repr(clause.missing)),
-        lambda: _build_key_column(searcher, clause))
+    to end (int64, or float64 for ``double``), built once per searcher
+    and adopted into the searcher's ``sort_keys`` ledger group (counted
+    against the device budget, never evicted: the searcher's cache owns
+    it; ``key_column_dropped`` forgets it)."""
+    key = ("sort", clause.field, clause.kind, clause.order,
+           repr(clause.missing))
+
+    def make():
+        col = _build_key_column(searcher, clause)
+        device_ledger().adopt(_sort_group(searcher), col, kind="sort_keys",
+                              field=clause.field, name=repr(key))
+        return col
+
+    return searcher._sort_cache.get_or_make(key, make)
+
+
+def _sort_group(searcher):
+    """The searcher's ledger group of sort key columns (closed with the
+    searcher)."""
+    with _sort_group_lock:
+        group = searcher._sort_group
+        if group is None:
+            led = device_ledger()
+            group = searcher._sort_group = led.open_group(
+                index=searcher.index_name, shard=searcher.shard_id,
+                segment="sort_keys")
+            led.tether(searcher, group)
+            group.sealed = True
+        return group
+
+
+def key_column_dropped(searcher_ref, key, _value) -> None:
+    """The searcher's sort cache dropped ``key``: a key column leaves the
+    ledger with it."""
+    searcher = searcher_ref()
+    if searcher is not None and key[0] == "sort" and \
+            searcher._sort_group is not None:
+        device_ledger().drop(searcher._sort_group, kind="sort_keys",
+                             field=key[1], name=repr(key))
 
 
 def _build_key_column(searcher, clause: Clause) -> torch.Tensor:

@@ -9,6 +9,9 @@ devices, or this package against the JAX reference).
   other side's last (k-th) score — a near-tie at the cut.
 - Per-segment top-k arrays (``topk_mismatch``) compare by the same
   rule, row by row, with the -inf slots and their ids equal.
+- Profiles (``profile_shape``) compare by what does not depend on the
+  clock: the keys, the plan's type and description, and the segment
+  decisions.
 """
 
 from __future__ import annotations
@@ -22,6 +25,26 @@ from opensearch_tpu_torch.ops.knn import ATOL, RTOL
 
 def hit_pairs(resp: dict) -> list:
     return [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]]
+
+
+def profile_shape(resp: dict, seg_ids: bool = True) -> list:
+    """What a profile must share with the reference's: each shard
+    section's id and keys, engine keys, query keys, breakdown keys, plan
+    type and description, segment counts and per-segment decisions (with
+    the segments' ids unless ``seg_ids`` is False: two nodes name their
+    segments apart), and the coordinator block's keys (never the
+    times)."""
+    out = []
+    for sec in resp["profile"]["shards"]:
+        query = sec["searches"][0]["query"][0]
+        out.append((sec["id"], sorted(sec), sorted(sec["engine"]),
+                    sorted(query), sorted(query["breakdown"]),
+                    query["type"], query["description"],
+                    sec["engine"]["segments"],
+                    [(r["segment"] if seg_ids else None, r["decision"])
+                     for r in sec.get("segments", ())]))
+    out.append(sorted(resp["profile"].get("coordinator", {})))
+    return out
 
 
 def bm25_mismatch(a: dict, b: dict):

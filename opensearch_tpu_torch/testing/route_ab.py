@@ -2,7 +2,9 @@
 time, and of phase 11's histogram kinds, for an A/B of two trees of the
 port on one card.
 
-    python3 opensearch_tpu_torch/testing/route_ab.py [--root DIR] [--label NAME] [--n N] [--device cpu --docs D --segments S]
+    python3 opensearch_tpu_torch/testing/route_ab.py [--root DIR]
+        [--label NAME] [--n N] [--kinds K1,K2,...]
+        [--device cpu --docs D --segments S]
 
 ``--root`` puts DIR's ``opensearch_tpu_torch`` first on the path, so
 the same script times another checkout (a parent commit unpacked by
@@ -11,6 +13,8 @@ the same script times another checkout (a parent commit unpacked by
 and times, ``N`` requests of each kind after 5 of warm-up, one after
 another, each ending on the host's read of its answer:
 
+- ``match``: ``profile_scale``'s ``match`` bodies as they are (K2's
+  top-k over every segment in one launch: the serving path);
 - ``match_untracked`` / ``bool_untracked``: ``profile_scale``'s
   ``match`` and ``bool_filter`` bodies with ``track_total_hits: false``
   (one program per segment: the k-th-score pruning);
@@ -31,10 +35,13 @@ one segment; a stable sort on a tree that has no plan top-k), as the
 host's ms per call (launches only, one sync at the end) and as ms per
 call with a sync after each.
 
-Prints one JSON line per kind: qps, p50, mean, p90 and max ms, the
-slowest request's position, and the Python garbage collector's pauses
-(ms and collections) over the kind; and the card's name and power
-limit.  Needs CUDA unless ``--device cpu``.
+``--kinds`` keeps only the named kinds (``one_segment`` names the
+calls of one segment); ``--cprofile DIR`` runs each kind's requests once
+more under ``cProfile`` after its timing and writes the statistics to
+``DIR/<label>_<kind>.prof`` (``pstats`` reads them).  Prints one JSON line per kind: qps, p50, mean,
+p90 and max ms, the slowest request's position, and the Python garbage
+collector's pauses (ms and collections) over the kind; and the card's
+name and power limit.  Needs CUDA unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -94,6 +101,7 @@ def bodies(n: int) -> dict:
                                   "aggs": {"fare": {"stats": {
                                       "field": "fare"}}}}}}
     return {
+        "match": q["match"],
         "match_untracked": [{**b, "track_total_hits": False}
                             for b in q["match"]],
         "bool_untracked": [{**b, "track_total_hits": False}
@@ -127,6 +135,18 @@ def request_kind(searcher, qs: list) -> dict:
             "p90_ms": float(np.percentile(lat, 90)),
             "max_ms": float(lat.max()), "slowest": int(lat.argmax()),
             "gc_ms": clock.ms, "gc_collections": clock.n}
+
+
+def cprofile_kind(searcher, qs: list, path: str) -> None:
+    """The kind's requests once more, under ``cProfile``."""
+    import cProfile
+
+    prof = cProfile.Profile()
+    prof.enable()
+    for body in qs[5:]:
+        searcher.search(dict(body))
+    prof.disable()
+    prof.dump_stats(path)
 
 
 def segment_calls(searcher, reps: int, sync) -> dict:
@@ -205,7 +225,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--docs", type=int, default=1_000_000)
     ap.add_argument("--segments", type=int, default=16)
+    ap.add_argument("--kinds", default="",
+                    help="comma-separated kinds to time (default: all)")
+    ap.add_argument("--cprofile", default="",
+                    help="a directory for each kind's cProfile statistics")
     args = ap.parse_args(argv)
+    kinds = set(filter(None, args.kinds.split(",")))
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
 
@@ -231,12 +256,19 @@ def main(argv=None) -> int:
                                             args.device)
     built = time.perf_counter() - t0
     for kind, qs in bodies(args.n + 5).items():
+        if kinds and kind not in kinds:
+            continue
         print(json.dumps({"tree": label, "kind": kind, "gpu": gpu,
                           **request_kind(searcher, qs)}), flush=True)
-    print(json.dumps({"tree": label, "kind": "one_segment", "gpu": gpu,
-                      "segment_docs": searcher.segments[0].n_docs,
-                      **segment_calls(searcher, args.reps, sync),
-                      "build_s": built}), flush=True)
+        if args.cprofile:
+            os.makedirs(args.cprofile, exist_ok=True)
+            cprofile_kind(searcher, qs, os.path.join(
+                args.cprofile, f"{label}_{kind}.prof"))
+    if not kinds or "one_segment" in kinds:
+        print(json.dumps({"tree": label, "kind": "one_segment", "gpu": gpu,
+                          "segment_docs": searcher.segments[0].n_docs,
+                          **segment_calls(searcher, args.reps, sync),
+                          "build_s": built}), flush=True)
     return 0
 
 

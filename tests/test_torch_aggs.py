@@ -627,8 +627,8 @@ def test_match_with_aggs_never_takes_the_batched_route(monkeypatch):
     assert tbatch.batchable(port_s, plain) is not None
     runs = []
     real_run = tbatch.BatchGroup.run
-    monkeypatch.setattr(tbatch.BatchGroup, "run", lambda self, s: (
-        runs.append(len(self.positions)), real_run(self, s))[1])
+    monkeypatch.setattr(tbatch.BatchGroup, "run", lambda self, s, **kw: (
+        runs.append(len(self.positions)), real_run(self, s, **kw))[1])
     outs = port_s.msearch([body, plain, body])
     ref = jax_s.search(body)
     for resp in (outs[0], outs[2]):

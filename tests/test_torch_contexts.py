@@ -34,6 +34,7 @@ from opensearch_tpu_torch.mapping.mapper import DocumentMapper
 from opensearch_tpu_torch.node import Node
 from opensearch_tpu_torch.search import contexts as port_contexts
 from opensearch_tpu_torch.search.executor import ShardSearcher
+from opensearch_tpu_torch.testing.parity import profile_shape
 
 N_DOCS = 41
 MASKED = frozenset({"took", "_scroll_id", "pit_id"})
@@ -385,11 +386,23 @@ def test_ignored_body_keys_match_reference(nodes, extra):
 
 
 def test_profile_stays_not_ported(nodes):
-    ref, port = (call(n, "POST", "/corpus/_search",
-                      {"query": {"match_all": {}}, "profile": True})
-                 for n in nodes)
-    assert ref[0] == 200 and port[0] == 501, (ref, port)
-    assert port[1]["error"]["type"] == "not_yet_ported_exception"
+    """``profile`` is served since the Profile API is ported (this test
+    held that the port answered 501): over ``_search`` and ``_msearch``
+    the hits and the profile's shape equal the reference node's."""
+    # a body neither node has seen: the caches' attribution agrees too
+    body = {"query": {"match_all": {"boost": 1.5}}, "profile": True}
+    ref, port = (call(n, "POST", "/corpus/_search", body) for n in nodes)
+    assert ref[0] == port[0] == 200, (ref, port)
+    assert ref[1]["hits"] == port[1]["hits"]
+    assert profile_shape(ref[1], False) == profile_shape(port[1], False)
+    lines = [{"index": "corpus"}, body,
+             {"index": "corpus"}, {"query": {"match": {"msg": "fox"}},
+                                   "profile": True}]
+    ref, port = (call(n, "POST", "/_msearch", ndjson=lines) for n in nodes)
+    assert ref[0] == port[0] == 200, (ref, port)
+    for a, b in zip(ref[1]["responses"], port[1]["responses"]):
+        assert a["hits"] == b["hits"]
+        assert profile_shape(a, False) == profile_shape(b, False)
 
 
 # -- suggest -----------------------------------------------------------------

@@ -40,6 +40,7 @@ from opensearch_tpu.node import Node as JaxNode
 from opensearch_tpu.ops import bm25 as jbm25
 from opensearch_tpu_torch.common.torchenv import DeviceUnavailableError
 from opensearch_tpu_torch.node import Node
+from opensearch_tpu_torch.testing.parity import profile_shape
 
 STRIPPED = frozenset({"took", "uuid", "creation_date", "cluster_uuid"})
 MAPPING = {"properties": {"title": {"type": "text"},
@@ -299,11 +300,17 @@ def test_search_params(nodes):
         assert body.get("count", body.get("hits", {}).get("total",
                                                           {}).get("value"))
     # a URI wildcard (a wildcard query) is served since the multi-term
-    # queries are; a body key the port does not serve yet answers 501
+    # queries are
     status, body = both(nodes, "GET", "/srch/_search?q=title:w1*")
     assert status == 200 and body["hits"]["hits"]
-    not_ported(nodes, "POST", "/srch/_search",
-               {"query": {"match_all": {}}, "profile": True})
+    # profile is served since the Profile API is ported (this case held
+    # a 501): the hits and the profile's shape equal the reference's
+    ref, port = (call(n, "POST", "/srch/_search",
+                      {"query": {"match_all": {}}, "profile": True})
+                 for n in nodes)
+    assert ref[0] == port[0] == 200, (ref, port)
+    assert ref[1]["hits"] == port[1]["hits"]
+    assert profile_shape(ref[1], False) == profile_shape(port[1], False)
     # aggregations are served now, as the reference serves them
     assert both(nodes, "POST", "/srch/_search", {
         "query": {"match_all": {}},

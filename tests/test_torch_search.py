@@ -22,7 +22,6 @@ from opensearch_tpu.mapping.mapper import DocumentMapper as JaxMapper
 from opensearch_tpu.ops import bm25 as jax_bm25
 from opensearch_tpu.search.executor import ShardSearcher as JaxSearcher
 from opensearch_tpu_torch.common import torchenv
-from opensearch_tpu_torch.common.errors import NotYetPortedError
 from opensearch_tpu_torch.index import codec
 from opensearch_tpu_torch.index.segment import (PostingsField, Segment,
                                                 SegmentWriter,
@@ -305,13 +304,15 @@ def test_count_matches_reference(pair):
 ], ids=["aggs", "sort", "highlight", "profile", "fuzziness", "phrase",
         "range", "ids", "hybrid", "suggest", "nested"])
 def test_unported_features_raise_typed_error(body, monkeypatch):
-    """``profile``, the one feature of these the port does not serve,
-    raises ``NotYetPortedError`` (501).  ``range``, ``term`` on ``_id``,
-    ``hybrid``, ``aggs``, ``match_phrase``, ``sort``, ``highlight``,
-    ``fuzziness``, ``suggest`` and ``nested`` are ported now: those cases
-    answer as the JAX package does, byte for byte (hits, sort values,
-    highlights and suggestions included).  The ``nested`` case maps
-    ``parts`` as a nested path and gives the docs objects under it."""
+    """Every case answers as the JAX package does, byte for byte (hits,
+    sort values, highlights and suggestions included): ``range``,
+    ``term`` on ``_id``, ``hybrid``, ``aggs``, ``match_phrase``,
+    ``sort``, ``highlight``, ``fuzziness``, ``suggest`` and ``nested``,
+    and since the Profile API is ported, ``profile``, whose response also
+    has the reference's profile keys and segment decisions (this case
+    held that it raised ``NotYetPortedError`` while it was not ported).
+    The ``nested`` case maps ``parts`` as a nested path and gives the
+    docs objects under it."""
     mapping, docs = MAPPING, json_docs(3, sum(SEG_SIZES))
     q = body["query"]
     if "nested" in q:
@@ -322,22 +323,26 @@ def test_unported_features_raise_typed_error(body, monkeypatch):
     mapper = DocumentMapper(mapping)
     segs = build(SegmentWriter(), mapper, docs)
     searcher = ShardSearcher(segs, mapper, device="cpu")
-    if "profile" not in body:
-        monkeypatch.setattr(jax_bm25, "HOST_SCORING", False)
-        ref = JaxSearcher(build(JaxWriter(), JaxMapper(mapping), docs),
-                          JaxMapper(mapping)).search(body)
-        got = searcher.search(body)
-        assert ref["hits"]["hits"], body
-        assert bm25_mismatch(got, ref) is None, bm25_mismatch(got, ref)
-        assert got["hits"] == ref["hits"]
-        assert got.get("aggregations") == ref.get("aggregations")
-        assert got.get("suggest") == ref.get("suggest")
-        if "suggest" in body:
-            assert got["suggest"]["s"][0]["text"] == "w1"
-        return
-    with pytest.raises(NotYetPortedError) as exc:
-        searcher.search(body)
-    assert exc.value.status == 501
+    monkeypatch.setattr(jax_bm25, "HOST_SCORING", False)
+    ref = JaxSearcher(build(JaxWriter(), JaxMapper(mapping), docs),
+                      JaxMapper(mapping)).search(body)
+    got = searcher.search(body)
+    assert ref["hits"]["hits"], body
+    assert bm25_mismatch(got, ref) is None, bm25_mismatch(got, ref)
+    assert got["hits"] == ref["hits"]
+    assert got.get("aggregations") == ref.get("aggregations")
+    assert got.get("suggest") == ref.get("suggest")
+    if "suggest" in body:
+        assert got["suggest"]["s"][0]["text"] == "w1"
+    if "profile" in body:
+        def shape(resp):
+            sec = resp["profile"]["shards"][0]
+            query = sec["searches"][0]["query"][0]
+            return (sorted(sec), sorted(sec["engine"]), sorted(query),
+                    sorted(query["breakdown"]), query["type"],
+                    query["description"], sec["engine"]["segments"],
+                    [(r["segment"], r["decision"]) for r in sec["segments"]])
+        assert shape(got) == shape(ref)
 
 
 def test_msearch_and_ann_method_raise_typed_error():

@@ -43,7 +43,8 @@ from opensearch_tpu_torch.node import Node
 from opensearch_tpu_torch.search import sorting
 from opensearch_tpu_torch.search.executor import (ShardSearcher,
                                                   merge_hit_rows)
-from opensearch_tpu_torch.testing.parity import bm25_mismatch
+from opensearch_tpu_torch.testing.parity import (bm25_mismatch,
+                                                 profile_shape)
 
 MAPPING = {"properties": {
     "body": {"type": "text"},
@@ -862,6 +863,10 @@ def test_http_errors_match_reference_node(nodes):
     status, resp = both(nodes, "POST", "/s1/_search", {"suggest": {"s": {
         "text": "w1", "term": {"field": "body"}}}})
     assert status == 200 and resp["suggest"]["s"][0]["text"] == "w1"
+    # profile is served since the Profile API is ported (this check held
+    # a 501): the hits and the profile's shape equal the reference's
     ref, port = (call(n, "POST", "/s1/_search", {"profile": True})
                  for n in nodes)
-    assert ref[0] == 200 and port[0] == 501, (ref, port)
+    assert ref[0] == port[0] == 200, (ref, port)
+    assert ref[1]["hits"] == port[1]["hits"]
+    assert profile_shape(ref[1], False) == profile_shape(port[1], False)
