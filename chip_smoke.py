@@ -127,7 +127,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    every span case, in one call), then each timed at its heaviest case
    over one scale segment and over the 16 in one launch, in turns with
    its plain version (CUDA events and profiler device ms) beside its
-   bound.
+   bound; and K10, the mesh's cross-shard merge (``csrc/mesh_merge.cu``,
+   ``mesh_merge_cuda``: every entry of the [R, k] sorted lists finds its
+   rank by binary searches of the other rows and writes itself there),
+   byte for byte against ``mesh_merge_plain`` (a stable sort) on random
+   rows with ties and -inf padding at 4 and 8 rows, k = 10 and 1,000,
+   and at phase 19's 16 x 10, then timed there beside ``torch.topk``.
    The scale corpus carries doc-value columns (``testing/corpus.py``
    ``doc_value_columns``: ``price`` long, ``ts`` date, ``tag`` keyword
    with postings and ordinals, ``fare`` double) in both layouts, for
@@ -402,7 +407,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    pages held to 1/4 of their quantized tables, each byte-equal to the
    unbudgeted answers (evictions, restages and ms a restage, pager hits,
    misses and prefetches; no host fallback); the device ms of
-   ``train_kmeans`` and ``knn_topk_batch``.
+   ``train_kmeans`` and ``knn_topk_batch``;
+19. the mesh (``phase_mesh``): the 16 scale segments regrouped into 4
+   shards of 4 on a mesh of ``[cuda:0] * 4`` (``MeshSearcher``; one card
+   stands in for four): 20 each of ``match`` (the median bag first),
+   phase 10's ``bool``, ``knn`` k = 10, a ``price`` ``range`` and a
+   ``size: 0`` ``stats`` on ``fare``, through the mesh, the host scatter
+   on the card and the node-local searcher (p50 host ms of each); every
+   mesh answer byte-equal to the host scatter's (double sums within
+   rtol 1e-12), 2 of each kind to the same mesh on the CPU; launches a
+   request (4 K2 top-k or plan top-k, 1 K10; 4 K5 calls for ``stats``);
+   K10's device ms on a ``match``'s own lists; and a 4-shard
+   ``search.mesh`` index on this one-card node, whose ``_mesh_search``
+   demotes to the host scatter, counted.  The script's total seconds
+   print before the kernels line.
 
 Every phase runs under the port's own fielddata breaker, whose default
 sizes itself to the card on the first staging (twice the card's memory:
@@ -419,9 +437,10 @@ top-k and K8 launches must be more than 0), and before phase 9's
 relevance requests and phase 16 (whose K1 scores, dense entry and plan
 top-k launches must be more than 0), before phase 9's relations
 requests and phase 17's requests (whose dense entry and plan top-k
-launches must be more than 0), and before phase 18 (whose K2 top-k,
-plan top-k, K1, K3 and K4 launches must be more than 0): each kernel of
-each path must have run.
+launches must be more than 0), before phase 18 (whose K2 top-k, plan
+top-k, K1, K3 and K4 launches must be more than 0), and before phase
+19's mesh requests (whose K2 top-k, plan top-k, K1, K5 and K10 launches
+must be more than 0): each kernel of each path must have run.
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without CUDA the
 script exits non-zero and prints no result.
@@ -538,7 +557,8 @@ def phase_toolkit():
     log(f"gpu: {gpu_name_power()}")
     t0 = time.monotonic()
     logs = cuda_build.build(["knn", "bm25", "union_topk", "quant_topk",
-                             "aggs", "plan_topk", "ivf", "positions"],
+                             "aggs", "plan_topk", "ivf", "positions",
+                             "mesh_merge"],
                             {"knn": cuda_knn.defines(),
                              "ivf": cuda_ivf.defines(),
                              "bm25": cuda_bm25.defines(),
@@ -7652,13 +7672,345 @@ def phase_profile_residency(segs, searcher, qsegs, qsearcher,
             "launches": launches, "wall_s": wall}
 
 
+# -- phase 2 (K10) and phase 19: the mesh ------------------------------------
+
+MESH_SHARDS = 4                  # phase 19: the 16 scale segments as 4 x 4
+MESH_PER_KIND = 20               # requests of each kind, each route
+MESH_CPU_S = 40                  # phase 19's seconds for the CPU mesh
+MESH_DEMOTE_DOCS = 2_000         # docs of the 4-shard ``search.mesh`` index
+
+
+def mesh_rows(rng, n_rows: int, k: int) -> np.ndarray:
+    """``n_rows`` top-k lists as the mesh merges them: sorted descending,
+    drawn from few values (ties within and across rows), each padded with
+    a random run of -inf (one row all -inf)."""
+    vals = rng.choice(np.float32([7.5, 3.25, 3.0, 2.0, 1.5, 1.0, 0.5, 0.0]),
+                      size=(n_rows, k)) + rng.integers(
+        0, 3, size=(n_rows, k)).astype(np.float32) * 0.25
+    vals = -np.sort(-vals.astype(np.float32), axis=1)
+    for r in range(n_rows):
+        pad = k if r == n_rows - 1 else int(rng.integers(0, k + 1))
+        if pad:
+            vals[r, k - pad:] = -np.inf
+    return vals
+
+
+def phase_mesh_merge() -> dict:
+    """K10 (``csrc/mesh_merge.cu``, ``ops/cuda_mesh.py``) against its plain
+    version ``mesh_merge_plain`` (a stable descending sort of the flat
+    values) on the card, byte for byte (values and flat indices), on
+    random rows with ties and -inf padding at S = 4 and 8 rows and k =
+    10 and 1,000, and at phase 19's shape (16 rows: 4 shards x 4
+    segments, k = 10); one launch a call.  Then timed at phase 19's shape
+    in turns with the plain version, beside ``torch.topk`` over the flat
+    values."""
+    import torch
+
+    from opensearch_tpu_torch.ops import cuda_mesh
+    from opensearch_tpu_torch.ops.mesh import mesh_merge, mesh_merge_plain
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(191)
+    kernel = cuda_mesh.mesh_merge_cuda
+    shapes = [(4, 10), (8, 10), (4, 1000), (8, 1000), (16, 10)]
+    n_checks = 0
+    for rows, k in shapes:
+        for _ in range(3):
+            vals = torch.from_numpy(mesh_rows(rng, rows, k)).to(dev)
+            for kk in (k, 1, min(rows * k, 3 * k // 2)):
+                before = kernel.launches
+                got_v, got_i = mesh_merge(vals, kk)
+                if kernel.launches - before != 1:
+                    raise AssertionError("a K10 call made "
+                                         f"{kernel.launches - before} "
+                                         "launches")
+                want_v, want_i = mesh_merge_plain(vals, kk)
+                torch.cuda.synchronize()
+                if got_v.cpu().numpy().tobytes() != \
+                        want_v.cpu().numpy().tobytes() or \
+                        not torch.equal(got_i.cpu(), want_i.cpu()):
+                    raise AssertionError(f"K10 differs from its plain "
+                                         f"version at {rows} x {k}, "
+                                         f"k = {kk}")
+                n_checks += 1
+    log(f"K10: {n_checks} calls byte-equal to mesh_merge_plain (rows x k "
+        f"{shapes}, each at k, 1 and 1.5 k), one launch each")
+    rows, k = MESH_SHARDS * 4, 10
+    vals = torch.from_numpy(mesh_rows(rng, rows, k)).to(dev)
+    ms, plain_ms = in_turns(lambda: mesh_merge(vals, k),
+                            lambda: mesh_merge_plain(vals, k), 50)
+    lib_ms = cuda_ms(lambda: torch.topk(vals.reshape(-1), k), 50)
+    dev_ms = kernel_device_ms(lambda: mesh_merge(vals, k), 50,
+                              "mesh_merge_kernel")
+    if dev_ms is None:
+        raise AssertionError("the profiler shows no K10 kernel")
+    nbytes = rows * k * 4.0 + k * 12.0
+    bms, by = bound_ms(nbytes, 0.0)
+    log(f"K10 at {rows} x {k} (phase 19's shape), k = {k}: ms {ms:.4f} "
+        f"device_ms {dev_ms:.5f} plain_ms (stable sort) {plain_ms:.4f} "
+        f"library_ms (torch.topk over the flat values) {lib_ms:.4f} "
+        f"bound_ms {bms:.7f} ({by}: {nbytes:.0f} bytes; launch-bound) on "
+        f"{gpu_name_power()}")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+            "bound_bytes": nbytes, "max_abs_err": 0.0, "rows": rows,
+            "k": k, "checks": n_checks}
+
+
+def mesh_mismatch(got: dict, want: dict, shard_key: bool = True):
+    """None when two responses agree byte for byte (``took`` and, with
+    ``shard_key`` False, the mesh-only ``_shard`` left out; a double
+    sum or average within rtol 1e-12), else what differs."""
+    def norm(resp):
+        out = {k: v for k, v in resp.items() if k not in ("took",
+                                                           "_shards")}
+        out["hits"] = dict(resp["hits"], hits=[
+            {k: v for k, v in h.items() if shard_key or k != "_shard"}
+            for h in resp["hits"]["hits"]])
+        return out
+
+    a, b = norm(got), norm(want)
+    aggs_a, aggs_b = a.pop("aggregations", None), b.pop("aggregations",
+                                                        None)
+    if json.dumps(a, sort_keys=True) != json.dumps(b, sort_keys=True):
+        return f"hits differ: {json.dumps(a)[:300]} vs {json.dumps(b)[:300]}"
+    for name, want_agg in (aggs_b or {}).items():
+        for key, w in want_agg.items():
+            g = aggs_a[name][key]
+            if key in ("sum", "avg", "value") and isinstance(w, float):
+                if abs(g - w) > 1e-12 * abs(w):
+                    return f"{name}.{key}: {g} vs {w}"
+            elif g != w:
+                return f"{name}.{key}: {g} vs {w}"
+    return None
+
+
+def phase_mesh(segs, mapper, searcher, counters) -> dict:
+    """Phase 19: the mesh.  The 16 scale segments regrouped into
+    ``MESH_SHARDS`` shards of 4 (their views already staged) on a mesh of
+    ``[cuda:0] * 4`` (one card stands in for four: the shards' top-k
+    lists meet on the first mesh device, a view on one card): per kind
+    ``MESH_PER_KIND`` requests (``match`` from the median bag on,
+    phase 10's ``bool``, ``knn`` k = 10, a ``price`` ``range`` and a
+    ``size: 0`` ``stats`` on the double ``fare``) through
+    ``MeshSearcher``, through the host scatter on the card and through
+    the node-local searcher (p50 host ms of each; the node-local one
+    scores with index-wide statistics); every mesh answer byte-equal to
+    the host scatter's (double sums within rtol 1e-12) and to the same
+    ``MeshSearcher`` on the CPU (in turns over the kinds; should the CPU
+    take more than ``MESH_CPU_S`` seconds, the checks stop there, each
+    kind held at least twice, and the count is printed); launches a mesh
+    request (K2 top-k or plan top-k a shard, 1 K10; 1 K5 call a shard
+    for ``stats``), the counts zeroed just before the mesh requests and
+    read just after; K10's device ms on a ``match``'s own lists.  Then a
+    ``search.mesh`` index of 4 shards on this one-card node: its
+    ``_mesh_search`` demotes to the host scatter, counted in
+    ``search.mesh.fallback`` and in the ``mesh`` breaker."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from opensearch_tpu_torch.common.device_health import device_health
+    from opensearch_tpu_torch.common.telemetry import metrics
+    from opensearch_tpu_torch.indices.service import IndicesService
+    from opensearch_tpu_torch.ops import cuda_mesh
+    from opensearch_tpu_torch.ops.mesh import mesh_merge
+    from opensearch_tpu_torch.parallel.dist_search import (MeshSearcher,
+                                                           host_scatter)
+    from opensearch_tpu_torch.search.executor import ShardSearcher
+    from opensearch_tpu_torch.testing import corpus
+
+    t_phase = time.monotonic()
+    gpu = gpu_name_power()
+    dev = torch.device(DEVICE)
+    per = len(segs) // MESH_SHARDS
+
+    def shard_searchers(device):
+        return [ShardSearcher(segs[i * per: (i + 1) * per], mapper,
+                              index_name="mesh", shard_id=i, device=device)
+                for i in range(MESH_SHARDS)]
+
+    shards = shard_searchers(DEVICE)
+    mesh = MeshSearcher(shards, [dev] * MESH_SHARDS)
+    rng = np.random.default_rng(192)
+    pf0 = segs[0].postings["body"]
+    pairs = corpus.zipf_query_log(200, seed=7)
+    median = sorted(pairs, key=lambda p: df_sum(
+        pf0, [f"t{p[0]}", f"t{p[1]}"]))[len(pairs) // 2]
+    width = int(corpus.PRICE_MAX * 0.1)
+
+    def knn_bodies(n):
+        # fresh vectors for each route: a repeated knn body takes its
+        # winners from the plan cache and launches no K1
+        return [{"query": {"knn": {"vec": {
+            "vector": rng.standard_normal(DIM).astype(np.float32).tolist(),
+            "k": 10}}}, "size": 10, "_source": False} for _ in range(n)]
+
+    bodies = {
+        "match": [match_body(*median)] + [
+            match_body(a, b) for a, b in corpus.zipf_query_log(
+                MESH_PER_KIND - 1, seed=193)],
+        "bool": phase10_bodies()["bool"][:MESH_PER_KIND],
+        "knn": knn_bodies(MESH_PER_KIND),
+        "range": [{"query": {"range": {"price": {"gte": lo,
+                                                 "lt": lo + width}}},
+                   "size": 10, "_source": False}
+                  for lo in rng.integers(0, corpus.PRICE_MAX - width,
+                                         size=MESH_PER_KIND).tolist()],
+        "stats": [{"size": 0, "query": {"range": {"price": {
+            "gte": lo, "lt": lo + 4 * width}}},
+            "aggs": {"s": {"stats": {"field": "fare"}}}}
+            for lo in rng.integers(0, corpus.PRICE_MAX - 4 * width,
+                                   size=MESH_PER_KIND).tolist()]}
+
+    def run_mesh(body):
+        aggs = body.get("aggs")
+        return mesh.mesh_metric_aggs(body, aggs) if aggs else \
+            mesh.search(body)
+
+    def run_scatter(body):
+        return host_scatter(shards, body)
+
+    for kind, items in bodies.items():          # warm every route
+        for body in (knn_bodies(2) if kind == "knn" else items[:2]):
+            run_mesh(body), run_scatter(body), searcher.search(body)
+    torch.cuda.synchronize()
+    for fn in counters.values():                # the mesh path starts here
+        fn.launches = 0
+    p50, launches, answers = {}, {}, {}
+    for kind, items in bodies.items():
+        before = {n: fn.launches for n, fn in counters.items()}
+        lat, out = [], []
+        for body in items:
+            t = time.monotonic()
+            out.append(run_mesh(body))
+            lat.append((time.monotonic() - t) * 1e3)
+        launches[kind] = {n: (fn.launches - before[n]) / len(items)
+                          for n, fn in counters.items()
+                          if fn.launches > before[n]}
+        p50[kind] = {"mesh": float(np.median(lat))}
+        answers[kind] = out
+    mesh_launches = {n: fn.launches for n, fn in counters.items()}
+    for kind, items in bodies.items():
+        for route, fn in (("host_scatter", run_scatter),
+                          ("node_local", searcher.search)):
+            lat = []
+            for body in (knn_bodies(len(items)) if kind == "knn"
+                         else items):
+                t = time.monotonic()
+                fn(body)
+                lat.append((time.monotonic() - t) * 1e3)
+            p50[kind][route] = float(np.median(lat))
+    # launches a mesh request: a shard's top-k (K2 for a match, the plan
+    # top-k otherwise, K5 for the stats) and one K10
+    for kind, per_req in launches.items():
+        merge = per_req.get("mesh_merge", 0)
+        top = per_req.get("term_bag_topk" if kind == "match" else
+                          "bucket_collect" if kind == "stats" else
+                          "plan_topk", 0)
+        if top != MESH_SHARDS or merge != (0 if kind == "stats" else 1) \
+                or (kind == "knn" and per_req.get("knn_topk") != top):
+            raise AssertionError(f"mesh {kind}: {per_req} launches a "
+                                 f"request, expected {MESH_SHARDS} top-k "
+                                 "(or K5; and K1 for a knn) and 1 K10")
+    # every answer equal to the host scatter on the card and to the same
+    # mesh on the CPU
+    for kind, items in bodies.items():
+        for body, got in zip(items, answers[kind]):
+            bad = mesh_mismatch(got, run_scatter(body), shard_key=False)
+            if bad:
+                raise AssertionError(f"mesh {kind} vs the host scatter: "
+                                     f"{bad}")
+        if not any(r["hits"]["total"]["value"] for r in answers[kind]):
+            raise AssertionError(f"mesh {kind}: nothing matched")
+    cpu_mesh = MeshSearcher(shard_searchers("cpu"),
+                            [torch.device("cpu")] * MESH_SHARDS)
+    t_cpu = time.monotonic()
+    cpu_checked = dict.fromkeys(bodies, 0)
+    for j in range(MESH_PER_KIND):
+        if j >= 2 and time.monotonic() - t_cpu > MESH_CPU_S:
+            break
+        for kind, items in bodies.items():
+            body, got = items[j], answers[kind][j]
+            want = (cpu_mesh.mesh_metric_aggs(body, body["aggs"])
+                    if body.get("aggs") else cpu_mesh.search(body))
+            bad = mesh_mismatch(got, want)
+            if bad:
+                raise AssertionError(f"mesh {kind} vs the CPU mesh: {bad}")
+            cpu_checked[kind] += 1
+    cpu_s = time.monotonic() - t_cpu
+    # K10 on a match's own lists: the 16 (shard, segment) rows of k = 10
+    blocks = []
+    for s in shards:
+        (plan, bind), ckey = s.compiled(bodies["match"][0]["query"],
+                                        with_key=True)
+        blocks.append(s.topk_launch(plan, bind, plan.arrays(), 10, None,
+                                    ckey=ckey)[0].vals)
+    vals = torch.cat(blocks)
+    k10_dev = kernel_device_ms(lambda: mesh_merge(vals, 10), 50,
+                               "mesh_merge_kernel")
+    k10_bytes = vals.numel() * 4.0 + 10 * 12.0
+    k10_bound, _by = bound_ms(k10_bytes, 0.0)
+    # the one-card node: a 4-shard search.mesh index demotes, counted
+    path = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        reg = IndicesService(path, device=DEVICE)
+        idx = reg.create("meshed", {"settings": {
+            "number_of_shards": MESH_SHARDS, "search.mesh": True},
+            "mappings": WRITE_MAPPING})
+        texts = corpus.render_texts(MESH_DEMOTE_DOCS, seed=194)
+        idx.bulk([("index", str(i), {"body": t,
+                                     "tag": WRITE_TAGS[i % 5]}, {})
+                  for i, t in enumerate(texts)])
+        idx.refresh()
+        body = {"query": {"match": {"body": "t0 t7"}}, "size": 10}
+        if idx._use_mesh(body):
+            raise AssertionError("one card: _use_mesh must be false for "
+                                 f"{MESH_SHARDS} shards")
+        health = device_health()
+        fb = metrics().counter("search.mesh.fallback").value
+        failures = health.stats()["breakers"]["mesh"]["failures"]
+        demoted = idx._mesh_search(dict(body))
+        if metrics().counter("search.mesh.fallback").value != fb + 1 or \
+                health.stats()["breakers"]["mesh"]["failures"] \
+                != failures + 1:
+            raise AssertionError("the one-card demotion was not counted")
+        bad = mesh_mismatch(demoted, idx._host_scatter_search(dict(body)))
+        if bad or not demoted["hits"]["hits"]:
+            raise AssertionError(f"the demoted answer: {bad}")
+        health.reset()
+        reg.close()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    seconds = time.monotonic() - t_phase
+    for kind in bodies:
+        log(f"mesh {kind}: p50 host ms mesh {p50[kind]['mesh']:.3f} / host "
+            f"scatter {p50[kind]['host_scatter']:.3f} / node-local "
+            f"{p50[kind]['node_local']:.3f}; launches a request "
+            f"{launches[kind]} on {gpu}")
+    log(f"mesh checks: {sum(len(v) for v in bodies.values())} answers equal "
+        f"to the host scatter, {cpu_checked} to the CPU mesh (in "
+        f"{cpu_s:.1f} s of the CPU's); "
+        f"K10 on a match's {vals.shape[0]} x 10 lists: device_ms "
+        f"{k10_dev} bound_ms {k10_bound:.7f} ({k10_bytes:.0f} bytes); the "
+        f"one-card {MESH_SHARDS}-shard index demoted to the host scatter "
+        f"(counted); phase 19 {seconds:.1f}s")
+    return {"p50_ms": p50, "launches_per_request": launches,
+            "launches": {n: v for n, v in mesh_launches.items()},
+            "k10_device_ms": k10_dev, "k10_bound_ms": k10_bound,
+            "cpu_mesh_checked": cpu_checked, "cpu_mesh_s": cpu_s,
+            "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from opensearch_tpu_torch.ops import (cuda_bm25, cuda_knn, cuda_plan,
+    from opensearch_tpu_torch.ops import (cuda_aggs, cuda_bm25, cuda_knn,
+                                          cuda_mesh, cuda_plan,
                                           cuda_positions)
     from opensearch_tpu_torch.testing.corpus import zipf_query_log
 
@@ -7680,6 +8032,7 @@ def main() -> int:
         segs, searcher, torch.Generator().manual_seed(15))
     kern.update(phase_k5(segs, searcher))
     kern.update(phase_positions(segs))
+    kern["mesh_merge"] = phase_mesh_merge()
     dev = torch.device(DEVICE)
     ivf_check = phase_ivf_kernels(dev, torch.Generator(device=dev)
                                   .manual_seed(16))
@@ -7773,8 +8126,17 @@ def main() -> int:
     # before them
     profile = phase_profile_residency(segs, searcher, qsegs, qsearcher,
                                       every)
+    # the mesh, its counts zeroed just before its requests
+    mesh = phase_mesh(segs, mapper, searcher, {
+        **every, "bucket_collect": cuda_aggs.bucket_collect_cuda,
+        "mesh_merge": cuda_mesh.mesh_merge_cuda})
+    if min(mesh["launches"].get(n, 0) for n in (
+            "term_bag_topk", "plan_topk", "knn_topk", "bucket_collect",
+            "mesh_merge")) <= 0:
+        raise AssertionError(f"a kernel of the mesh path never launched: "
+                             f"{mesh['launches']}")
     for phase in (sort, then["sort"], relevance, then["relevance"],
-                  relations, then["relations"], profile):
+                  relations, then["relations"], profile, mesh):
         for name, n in phase["launches"].items():
             name = "term_bag_quantized" \
                 if name == "term_bag_quantized_topk" else name
@@ -7811,7 +8173,11 @@ def main() -> int:
                "phrase_freqs": ("positions.cu",
                                 "opensearch_tpu/ops/phrase.py:49"),
                "span_near": ("positions.cu",
-                             "opensearch_tpu/ops/span.py:32")}
+                             "opensearch_tpu/ops/span.py:32"),
+               # and :489 sharded_metric_reduce (torch ops), :513
+               # sharded_impact_topk
+               "mesh_merge": ("mesh_merge.cu",
+                              "opensearch_tpu/parallel/dist_search.py:170")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     ivf_keys = ("device_ms", "span_ms", "probe_device_ms",
@@ -7840,7 +8206,8 @@ def main() -> int:
                     "relations": {k: v for k, v in relations.items()
                                   if k != "http"},
                     "relations_over_http": then["relations"],
-                    "profile_residency": profile,
+                    "profile_residency": profile, "mesh": mesh,
+                    "k10": kern["mesh_merge"],
                     "k8_k9": {n: kern[n] for n in ("phrase_freqs",
                                                    "span_near")},
                     "k1_scores_16": kern["knn_scores_16"],
@@ -7856,6 +8223,7 @@ def main() -> int:
                     "device_ms": {n: kern[n].get("device_ms")
                                   for n in sources},
                     "wall_s": time.monotonic() - t_start}))
+    log(f"chip_smoke total: {time.monotonic() - t_start:.1f}s")
     log(json.dumps(kernels))
     log(gpu_name_power())
     print(json.dumps({"ok": True, "device": {

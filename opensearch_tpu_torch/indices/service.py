@@ -15,13 +15,24 @@ the CPU raises ``DeviceUnavailableError`` when it is built.  The device
 is resolved once and handed to every shard's ``InternalEngine`` and to
 the node-local searcher.
 
+An index with ``search.mesh`` on, at least two shards and at least as
+many CUDA cards (``_use_mesh``, as the reference decides) searches its
+shards as one device scatter-gather (``_mesh_search``,
+``parallel/dist_search.py`` ``MeshSearcher``; an index serving on the
+CPU builds a mesh of CPU entries): per-shard scoring statistics, the
+shards' top-k lists merged on the first mesh device by K10.  A mesh that cannot be built, an
+open ``mesh`` device breaker or a device error inside the collective
+demote the request to the host scatter (``_mesh_degrade``, counted in
+``search.mesh.fallback``), which still runs every shard's own searcher
+on the device and merges on the host; nothing is scored on the CPU in
+their place.
+
 Not ported yet (each raises ``NotYetPortedError`` where the reference
 would run it; ROADMAP Queue A): aliases, index templates, rollover,
 resize and data streams; searchable-snapshot mounts and the remote
-store; the mesh and host-scatter search (an index with ``search.mesh``
-on at least as many devices as shards).  Left out
-with no counterpart yet: indexing pressure, the search and indexing
-slow logs, query insights, the device-degraded partial response and the
+store.  Left out with no counterpart yet: indexing pressure, the search
+and indexing slow logs, query insights (the mesh's ``insights.emit``
+records among them), the device-degraded partial response and the
 cluster-mode shard set (``local_shard_ids``).
 """
 
@@ -50,6 +61,9 @@ from opensearch_tpu_torch.common.errors import (
     ValidationError,
     VersionConflictError,
 )
+from opensearch_tpu_torch.common.device_health import (device_health,
+                                                      is_device_error)
+from opensearch_tpu_torch.common.telemetry import metrics
 from opensearch_tpu_torch.common.torchenv import resolve_device
 from opensearch_tpu_torch.index.engine import InternalEngine, OpResult
 from opensearch_tpu_torch.index.store import CODECS, find_corruption_markers
@@ -191,6 +205,9 @@ class IndexService:
             s: self._open_shard(s) for s in range(self.num_shards)}
         self._lock = threading.RLock()
         self._searcher: Optional[ShardSearcher] = None
+        # the mesh over the shards' searchers (``_mesh_search``), kept
+        # across refreshes (``update_shards``), dropped on close
+        self._mesh_searcher = None
         # search-visibility generation: bumped whenever the searchable
         # segment set may have changed (refresh / merge / mapping change).
         # The request cache keys on it, so stale entries stop matching the
@@ -570,11 +587,13 @@ class IndexService:
         return enabled and size == 0
 
     def _use_mesh(self, body: dict) -> bool:
-        """True when the reference would route the request through the
-        device-collective scatter-gather: the index opted in
-        (``search.mesh``), it has at least two shards and as many devices,
-        and the request is a scored top-k without sort, profile or hybrid.
-        ``QueryEngine.execute`` then raises ``NotYetPortedError``."""
+        """True when the request goes through the device scatter-gather
+        (``_mesh_search``), as the reference decides: the index opted in
+        (``search.mesh``), it has at least two shards and as many CUDA
+        devices, and the request is a scored top-k without sort, profile
+        or hybrid.  Per-shard scoring statistics (query_then_fetch), as
+        the cluster path, against the node-local searcher's index-wide
+        ones."""
         flag = self.settings.get("search.mesh")
         if flag in (None, False, "false"):
             return False
@@ -588,6 +607,124 @@ class IndexService:
         if isinstance(q, dict) and "hybrid" in q:
             return False
         return torch.cuda.device_count() >= len(self.local_shards)
+
+    def _mesh_degrade(self, body: dict) -> dict:
+        """Demote a mesh request to the counted host scatter: a mesh that
+        cannot be built (too few devices), an open ``mesh`` breaker, or a
+        device error inside the collective.  The request degrades (the
+        same per-shard statistics, the coordinator's merge order), never
+        fails."""
+        metrics().counter("search.mesh.fallback").inc()
+        return self._host_scatter_search(body)
+
+    def _mesh_search(self, body: dict) -> dict:
+        """The device scatter-gather of the index's shards (module
+        docstring); ``_mesh_degrade`` where the mesh cannot serve."""
+        from opensearch_tpu_torch.parallel import dist_search
+        from opensearch_tpu_torch.search.aggs import reduce_aggs
+        from opensearch_tpu_torch.search.suggest import merge_suggest
+
+        health = device_health()
+        if not health.allow("mesh"):
+            # don't retry a failing collective every request: demote until
+            # a half-open probe closes the breaker
+            return self._mesh_degrade(body)
+        try:
+            with self._lock:
+                shards = [self.local_shards[s].acquire_searcher()
+                          for s in sorted(self.local_shards)]
+                if (self._mesh_searcher is None
+                        or len(self._mesh_searcher.shards) != len(shards)):
+                    self._mesh_searcher = dist_search.MeshSearcher(
+                        shards, dist_search.make_mesh(len(shards),
+                                                      self.device))
+                else:
+                    self._mesh_searcher.update_shards(shards)
+                ms = self._mesh_searcher
+        except Exception as exc:
+            # a mesh that cannot be built is a mesh fault, not a query's
+            with self._lock:
+                self._mesh_searcher = None
+            health.record_failure("mesh", exc)
+            return self._mesh_degrade(body)
+
+        def collective(fn):
+            """One mesh collective over this request's ``shards``; a
+            device error is counted and returns None (the caller
+            demotes), any other error propagates: a hand kernel's failed
+            launch (``KernelLaunchError``) among them, so no demotion
+            answers for a kernel that does not run."""
+            try:
+                out = fn()
+            except Exception as exc:
+                if not is_device_error(exc):
+                    raise
+                health.record_failure("mesh", exc)
+                return None
+            health.record_success("mesh")
+            return out
+
+        aggs_json = body.get("aggs") or body.get("aggregations")
+        if not aggs_json and not body.get("suggest"):
+            resp = collective(lambda: ms.search(body, shards))
+            if resp is None:
+                return self._mesh_degrade(body)
+            return resp
+        if (aggs_json and not body.get("suggest")
+                and int(body.get("size", 10)) == 0
+                and body.get("min_score") is None
+                and ms.supports_mesh_aggs(aggs_json)):
+            resp = collective(lambda: ms.mesh_metric_aggs(body, aggs_json,
+                                                          shards))
+            if resp is None:
+                return self._mesh_degrade(body)
+            return resp
+        # the scored merge on the mesh, the aggregations' and suggesters'
+        # shard partials collected by each shard's searcher and reduced as
+        # the coordinator does; size 0 skips the mesh pass (the collect
+        # already counts the totals)
+        collect_body = {"size": 0}
+        if aggs_json:
+            collect_body["aggs"] = aggs_json
+        if body.get("suggest"):
+            collect_body["suggest"] = body["suggest"]
+        for key in ("query", "min_score"):
+            if body.get(key) is not None:
+                collect_body[key] = body[key]
+        size0 = int(body.get("size", 10)) == 0
+        shard_resps = [s.search(collect_body, agg_partials=True)
+                       for s in shards]
+        partials = [r.get("aggregation_partials") or {} for r in shard_resps]
+        if size0:
+            total = sum(r["hits"]["total"]["value"] for r in shard_resps)
+            resp = {"took": max((r["took"] for r in shard_resps), default=0),
+                    "timed_out": False,
+                    "hits": {"total": {"value": total, "relation": "eq"},
+                             "max_score": None, "hits": []}}
+        else:
+            resp = collective(lambda: ms.search(
+                {k: v for k, v in body.items()
+                 if k not in ("aggs", "aggregations", "suggest")},
+                shards))
+            if resp is None:
+                return self._mesh_degrade(body)
+        if aggs_json:
+            resp["aggregations"] = reduce_aggs(aggs_json, partials)
+        if body.get("suggest"):
+            resp["suggest"] = merge_suggest(
+                [r.get("suggest") for r in shard_resps])
+        return resp
+
+    def _host_scatter_search(self, body: dict) -> dict:
+        """The mesh's fallback: the same scatter-gather with the merge on
+        the host (``parallel/dist_search.py`` ``host_scatter``) over the
+        shards' current searchers, on the index's device."""
+        from opensearch_tpu_torch.parallel.dist_search import host_scatter
+
+        with self._lock:
+            searchers = [self.local_shards[s].acquire_searcher()
+                         for s in sorted(self.local_shards)]
+        return host_scatter(searchers, body)
 
     def msearch(self, bodies: list) -> list[dict]:
         """Batched multi-search over the node-local searcher (scored term
@@ -639,6 +776,7 @@ class IndexService:
             engine.close()
         with self._lock:
             self._searcher = None
+            self._mesh_searcher = None
         request_cache().invalidate_service(self.uuid)
 
 

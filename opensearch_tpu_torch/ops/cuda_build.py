@@ -145,9 +145,20 @@ def count(wrapper, n: int = 1, attr: str = "launches") -> None:
         setattr(wrapper, attr, getattr(wrapper, attr) + n)
 
 
+class KernelLaunchError(RuntimeError):
+    """A hand kernel's launch returned a CUDA error.  It is the kernel's
+    fault (its build, its launch shape, its code), not the device's:
+    ``__device_fault__`` is False, so ``common/device_health.py``
+    ``is_device_error`` does not match it and no caller demotes the
+    request to a path that does the kernel's work elsewhere; it reaches
+    the caller."""
+
+    __device_fault__ = False
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code (every library
-    exports ``error_string`` for the message)."""
+    """Raise ``KernelLaunchError`` if a launch returned a CUDA error code
+    (every library exports ``error_string`` for the message)."""
     if rc != 0:
         msg = lib.error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"{what}: CUDA error {rc}: {msg}")
+        raise KernelLaunchError(f"{what}: CUDA error {rc}: {msg}")

@@ -15,12 +15,14 @@ continuous batcher and the single-shard entry).
   concurrent batchable traffic is in flight (serial traffic never
   parks), a group of one runs the sequential path, and ``max_parked``
   spills late arrivals to the sequential path instead of queueing.
-- ``QueryEngine.execute``: the batcher runs only for a caller that
-  passes a ``service`` (it needs a searcher that stays the same across
-  requests): the node's ``IndexService`` (``indices/service.py``), whose
-  cached node-local searcher is the same across concurrent requests
-  until a refresh.  ``msearch`` and ``count`` are the other entries the
-  service calls.
+- ``QueryEngine.execute``: the mesh router and the batcher run only for
+  a caller that passes a ``service`` (they need a searcher that stays
+  the same across requests): the node's ``IndexService``
+  (``indices/service.py``), whose cached node-local searcher is the same
+  across concurrent requests until a refresh.  A request the service's
+  ``_use_mesh`` accepts goes to its ``_mesh_search`` (the device
+  scatter-gather of its shards, ``parallel/dist_search.py``).
+  ``msearch`` and ``count`` are the other entries the service calls.
 
 A profiled member of a continuous group gets the group's profiler
 (``search/profile.py``: one for the group, its ``batch`` block with
@@ -41,7 +43,6 @@ import threading
 import time
 from typing import Optional
 
-from opensearch_tpu_torch.common.errors import NotYetPortedError
 from opensearch_tpu_torch.search import profile
 from opensearch_tpu_torch.search.profile import QueryProfiler
 
@@ -384,9 +385,9 @@ class QueryEngine:
         ``agg_partials`` asks for the aggregations' shard partials (a
         multi-index coordinator reduces them)."""
         body = body or {}
-        if service is not None and service._use_mesh(body):
-            raise NotYetPortedError(
-                "the mesh search is not ported to the torch package yet")
+        if service is not None and not agg_partials \
+                and service._use_mesh(body):
+            return service._mesh_search(body)
         if service is not None and not agg_partials and BATCHER_ENABLED:
             out = self.batcher.execute(searcher, body)
             if out is not None:

@@ -932,18 +932,33 @@ class ShardSearcher:
                                               deadline=deadline, ckey=ckey,
                                               prof=prof))
             return [], total, None, False
+        if allow_kth_prune:
+            return self._topk_per_segment(
+                plan, bind, needed, k_want, self._min_score(min_score),
+                None if min_score is None else float(min_score), deadline,
+                ckey, prof)
+        launched = self.topk_launch(plan, bind, needed, k_want, min_score,
+                                    deadline=deadline, ckey=ckey, prof=prof)
+        if launched is None:
+            return [], 0, None, False
+        with profile.phase(prof, "reduce"):
+            return (*self._rows_of(*launched, k_want), False)
+
+    def topk_launch(self, plan, bind, needed, k_want, min_score,
+                    deadline=None, ckey=None, prof=None):
+        """``(out, order)``, or None when no segment is left to evaluate:
+        every evaluated segment's top-k, total and max from one call (a
+        ``TermBagTopK`` on the searcher's device, row ``j`` segment
+        ``order[j]``'s), launched and not read back.  A scored term bag
+        takes K2 / K4's top-k entry; other plans the pre-pass, the plan's
+        ops and one plan top-k.  ``k_want`` >= 1."""
         ms = self._min_score(min_score)
         ms_host = None if min_score is None else float(min_score)
         if isinstance(plan, P.TermBagPlan) and plan.scored and \
-                k_want <= TOPK_K_MAX and not allow_kth_prune:
-            return (*self._topk_term_bag(plan, bind, needed, k_want, ms,
+                k_want <= TOPK_K_MAX:
+            return self._launch_term_bag(plan, bind, needed, k_want, ms,
                                          ms_host, ckey, deadline=deadline,
-                                         prof=prof),
-                    False)
-
-        if allow_kth_prune:
-            return self._topk_per_segment(plan, bind, needed, k_want, ms,
-                                          ms_host, deadline, ckey, prof)
+                                         prof=prof)
         # the segments this request evaluates, then each term-bag leaf
         # launched once over all of them, then one plan top-k
         items, order = [], []
@@ -956,7 +971,7 @@ class ShardSearcher:
                                          prof))
             order.append(si)
         if not items:
-            return [], 0, None, False
+            return None
         device_ledger().record_dispatch(_groups(d for _s, d, *_r in items))
         t_disp = time.monotonic()
         P.dense_prepass(plan, [(A, dims, ins)
@@ -969,8 +984,7 @@ class ShardSearcher:
                                                min_score=ms)
         if prof is not None:
             prof.launched(time.monotonic() - t_disp)
-        with profile.phase(prof, "reduce"):
-            return (*self._rows_of(out, order, k_want), False)
+        return out, order
 
     def _topk_per_segment(self, plan, bind, needed, k_want, ms, ms_host,
                           deadline, ckey, prof=None):
@@ -1055,10 +1069,22 @@ class ShardSearcher:
 
     def _topk_term_bag(self, plan, bind, needed, k_want, ms, ms_host,
                        ckey, f32: bool = False, deadline=None, prof=None):
-        """(rows, total, max_score) of a scored term bag: can-match and
+        """(rows, total, max_score) of a scored term bag
+        (``_launch_term_bag``), read back in one copy."""
+        launched = self._launch_term_bag(plan, bind, needed, k_want, ms,
+                                         ms_host, ckey, f32=f32,
+                                         deadline=deadline, prof=prof)
+        if launched is None:
+            return [], 0, None
+        with profile.phase(prof, "reduce"):
+            return self._rows_of(*launched, k_want)
+
+    def _launch_term_bag(self, plan, bind, needed, k_want, ms, ms_host,
+                         ckey, f32: bool = False, deadline=None, prof=None):
+        """``(out, order)`` of a scored term bag, or None: can-match and
         min_score bound skips on the host, then every remaining segment's
         top-k, total and max from one ``term_bag_topk_segments_auto``
-        call, read back in one copy.  ``topk_input`` reads the f32 columns
+        call.  ``topk_input`` reads the f32 columns
         only on f32 segments, where they are always staged, unless ``f32``
         asks for the f32 lowering everywhere (the batched path's, for a
         bag K3 does not stage), which stages them on demand.  Quantized
@@ -1087,15 +1113,14 @@ class ShardSearcher:
             order.append(si)
             dsegs.append(dseg)
         if not inputs:
-            return [], 0, None
+            return None
         device_ledger().record_dispatch(_groups(dsegs))
         t_disp = time.monotonic()
         out = bm25_ops.term_bag_topk_segments_auto(inputs, k=k_want,
                                                    min_score=ms)
         if prof is not None:
             prof.launched(time.monotonic() - t_disp)
-        with profile.phase(prof, "reduce"):
-            return self._rows_of(out, order, k_want)
+        return out, order
 
     # -- order, collapse, rescore ------------------------------------------
 

@@ -1078,22 +1078,33 @@ def test_non_batchable_and_disabled_bypass(engine, port_searcher,
 
 
 def test_engine_raises_for_unported_backends(engine, port_searcher):
-    from opensearch_tpu_torch.common.errors import NotYetPortedError
+    """No backend of the engine is left unported: a request the service
+    routes to the mesh goes to its ``_mesh_search`` (as the reference's
+    engine does), except for aggregation partials, which the searcher
+    serves past the batcher and the mesh."""
+    routed = []
 
     class MeshSvc(_Svc):
         @staticmethod
         def _use_mesh(body):
             return True
 
+        @staticmethod
+        def _mesh_search(body):
+            routed.append(body)
+            return {"mesh": True}
+
     body = {"query": {"match": {"body": "w1"}}}
-    with pytest.raises(NotYetPortedError):
-        engine.execute(port_searcher, body, service=MeshSvc())
-    # aggregation partials are served now, past the batcher
+    assert engine.execute(port_searcher, body, service=MeshSvc()) == \
+        {"mesh": True}
+    assert routed == [body]
     aggs = dict(body, aggs={"n": {"value_count": {"field": "tag"}}})
-    resp = engine.execute(port_searcher, aggs, agg_partials=True,
-                          service=_Svc())
-    assert resp["aggregation_partials"]["n"]["t"] == "metric"
-    assert "aggregations" not in resp
+    for svc in (_Svc(), MeshSvc()):
+        resp = engine.execute(port_searcher, aggs, agg_partials=True,
+                              service=svc)
+        assert resp["aggregation_partials"]["n"]["t"] == "metric"
+        assert "aggregations" not in resp
+    assert routed == [body]
 
 
 @pytest.mark.parametrize("enabled", [True, False])

@@ -9,7 +9,8 @@ aggregations and K5's wrapper, the phrase and span ops and K8 / K9's
 wrapper among them) and runs CPU searches (a ``match``, a ``knn``, a
 filtered ``bool``, a ``match_phrase``, a ``span_near``, a ``hybrid`` and
 one with ``aggs``: terms, histogram, metrics, a filter, percentiles and a
-pipeline; an ANN ``knn`` on an ``ivf_pq`` field), one engine round
+pipeline; an ANN ``knn`` on an ``ivf_pq`` field; a ``match`` over a
+two-shard ``MeshSearcher``), one engine round
 trip and one node on the CPU answering over HTTP (a search pipeline put
 among its requests); a static scan of the port's sources and
 ``chip_smoke.py`` for imports that name them; and the node's entry point, ``python -m
@@ -94,8 +95,17 @@ for name in ("index.engine", "index.store", "index.translog", "node",
              "common.settings", "ops.aggs", "ops.cuda_aggs", "search.aggs",
              "search.pipeline_aggs", "search.scripting", "ops.ivf",
              "ops.cuda_ivf", "ops.phrase", "ops.span",
-             "ops.cuda_positions"):
+             "ops.cuda_positions", "parallel.dist_search",
+             "common.device_health", "common.telemetry", "ops.mesh",
+             "ops.cuda_mesh"):
     assert "opensearch_tpu_torch." + name in names, name
+from opensearch_tpu_torch.parallel.dist_search import MeshSearcher
+msegs = [SegmentWriter().build(docs[i::2], f"m{i}") for i in range(2)]
+mesh = MeshSearcher([ShardSearcher([s], mapper, shard_id=i, device="cpu")
+                     for i, s in enumerate(msegs)])
+resp = mesh.search({"query": {"match": {"body": "w1"}}})
+assert resp["hits"]["total"]["value"] == 4, resp
+assert {h["_shard"] for h in resp["hits"]["hits"]} == {0, 1}, resp
 amapper = DocumentMapper({"properties": {"vec": {
     "type": "knn_vector", "dimension": 4,
     "method": {"name": "ivf_pq", "parameters": {"nlist": 2, "m": 2}}}}})
